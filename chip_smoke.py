@@ -7,18 +7,24 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    kernel in ``self_supervise_sfm_tpu_torch/csrc`` with ``nvcc`` for sm_90a;
-2. each kernel at the shapes of the main path, held against its plain
-   PyTorch version with the tolerance stated, and timed (CUDA events,
-   median) beside its plain version, one PyTorch library call computing the
-   same function (a yardstick the port never calls) and its bound: the
+2. each of the eight kernels at the shapes of the main path, held against
+   its plain PyTorch version with the tolerance stated, and timed (CUDA
+   events, median) beside its plain version, the PyTorch library call (for
+   the fused block kernels: the chain of library calls) computing the same
+   function (a yardstick the fused path never calls) and its bound: the
    larger of its operations at the bf16 tensor-core peak and its bytes at
    the memory peak of an H100 SXM (989 TFLOP/s, 3.35 TB/s);
 3. the full-width forward of the main path: ViT-L/14 + 24 aggregator layers
    at 518 px, bf16 trunk and fp32 heads, 5 anchors + the same 5 images as
-   queries, rank 300, random weights from a seeded generator. Launch counts
-   are read around one forward; the same forward with every kernel site on
-   its plain PyTorch path must agree with it (within the bf16 envelope that
-   an fp32 forward measures) and give finite poses and point maps.
+   queries, rank 300, random weights from a seeded generator, every trunk
+   block on the fused LN+QKV / out-proj / MLP kernels. Launch counts are
+   read around one forward; the same forward with every kernel site on its
+   plain PyTorch path must agree with it (within the bf16 envelope that an
+   fp32 forward measures) and give finite poses and point maps. The path
+   with only the attention and resize kernels on (the fused block kernels
+   off) is timed in the same run.
+
+``python3 chip_smoke.py --kernels-only`` stops after phase 2.
 
 The line before the last is a JSON object of every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -77,6 +83,14 @@ def _wall_ms(fn, reps: int = 3) -> float:
 
 # kernel-name patterns of each class, checked in order
 _KERNEL_CLASSES = (
+    # the port's own kernels first: a name holding "gemm" or "norm" further
+    # down must not claim them
+    ("fused_ln_qkv_rope", ("fused_ln_qkv_rope_kernel",)),
+    ("fused_ln_qkv", ("fused_ln_qkv_kernel",)),
+    ("fused_proj_residual", ("fused_proj_residual_kernel",)),
+    ("fused_mlp_up", ("fused_mlp_up_kernel",)),
+    ("fused_mlp_down", ("fused_mlp_down_kernel",)),
+    ("ln_stats (pre-pass of the layer-normed kernels)", ("ln_stats_kernel",)),
     ("flash_fwd (K1)", ("flash_fwd_kernel",)),
     ("frame_ctx_fwd (K2)", ("frame_ctx_fwd_kernel",)),
     ("resize_bilinear (K3)", ("resize_bilinear_ac_kernel",)),
@@ -264,10 +278,148 @@ def check_kernels(gen):
         library_ms=_time_ms(library),
         bound_ms=bound, bound_by=by,
     ))
+    del x, add, out, ref
+    torch.cuda.empty_cache()
+    results += check_fused_kernels(randn, ulps)
     for r in results:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
+    return results
+
+
+def check_fused_kernels(randn, ulps):
+    """Phase 2, the five fused block kernels at the ViT, frame, reloc and
+    global sites. bf16 outputs: kernel and plain version sum in other orders,
+    so a layer-normed operand or a result may round to the neighbouring
+    bf16 value; the tolerance is 2 ulps at the largest output, and 4 for
+    q / k, where the qk-norm and the two RoPE products each round again.
+    The library chain is the unfused block code (fp32 ``F.layer_norm``, cuBLAS
+    matmul, chunk / transpose, ``F.gelu``, elementwise RoPE and residual)."""
+    import torch
+
+    from self_supervise_sfm_tpu_torch.layers import attention as AT
+    from self_supervise_sfm_tpu_torch.layers import params as P
+    from self_supervise_sfm_tpu_torch.models import aggregator as AG
+    from self_supervise_sfm_tpu_torch.ops import fused_qkv as FQ
+
+    C, H, d, Ch = 1024, 16, 64, 4096
+    N = (IMG // 14) ** 2 + 5
+    f32 = torch.float32
+    bf16 = torch.bfloat16
+    norm = lambda n: {"scale": 1 + 0.1 * randn(n, dtype=f32),  # noqa: E731
+                      "bias": 0.1 * randn(n, dtype=f32)}
+    lin = lambda i, o: {"w": (randn(i, o, dtype=f32) * i**-0.5).to(bf16),  # noqa: E731
+                        "b": 0.1 * randn(o, dtype=f32)}
+    p = {"norm1": norm(C), "norm2": norm(C),
+         "attn": {"qkv": lin(C, 3 * C), "proj": lin(C, C), "q_norm": norm(d),
+                  "k_norm": norm(d)},
+         "mlp": {"fc1": lin(C, Ch), "fc2": lin(Ch, C)},
+         "ls1": {"gamma": randn(C, dtype=f32)}, "ls2": {"gamma": randn(C, dtype=f32)}}
+    acfg = AG.AggregatorConfig()
+    t_frame = AG._rope_tables_frame(acfg, IMG // 14, IMG // 14, "cuda")
+    t_global = AG._tile_tables(t_frame, NUM_FRAMES)
+    attn_cfg = AT.AttentionConfig(dim=C, num_heads=H, qk_norm=True, ln_eps=1e-5)
+    vit_cfg = AT.AttentionConfig(dim=C, num_heads=H, qk_norm=False, ln_eps=1e-6)
+    n1, n2, at, ml = p["norm1"], p["norm2"], p["attn"], p["mlp"]
+    qn, kn = at["q_norm"], at["k_norm"]
+    sites = {"vit": (NUM_FRAMES, N, None), "frame": (2 * NUM_FRAMES, N, t_frame),
+             "reloc": (NUM_FRAMES, N, t_frame), "global": (1, NUM_FRAMES * N, t_global)}
+
+    def measure(name, site, outs, refs, tol_ulps, flops, tensors_in, fns):
+        """One kernel at one site: check, bound, and the three timings."""
+        torch.cuda.synchronize()
+        err = 0.0
+        for o, r, label in zip(outs, refs, ("q", "k", "v") if len(outs) == 3 else ("y",)):
+            e = float((o.float() - r.float()).abs().max())
+            _check(f"{name}[{site}] {label} {tuple(o.shape)}", e,
+                   ulps(r, tol_ulps[label]))
+            err = max(err, e)
+        in_bytes = sum(t.numel() * t.element_size() for t in tensors_in)
+        out_bytes = sum(o.numel() * o.element_size() for o in outs)
+        bound, by = _bound_ms(flops, in_bytes + out_bytes)
+        kernel, plain, library = fns
+        return dict(site=site, shape=list(tensors_in[0].shape), max_abs_err=err,
+                    ms=_time_ms(kernel), plain_ms=_time_ms(plain, reps=5),
+                    library_ms=_time_ms(library), bound_ms=bound, bound_by=by,
+                    input_mb=in_bytes / 1e6, inputs_fit_l2=in_bytes <= 50e6)
+
+    per_kernel = {k: [] for k in ("fused_ln_qkv_rope", "fused_ln_qkv", "fused_proj_residual",
+                                  "fused_mlp_up", "fused_mlp_down")}
+    for site, (B, n, tabs) in sites.items():
+        M = B * n
+        x = randn(B, n, C)
+        # -- LN + QKV (+ qk-norm + RoPE) -> q, k, v (B, H, n, 64)
+        if tabs is None:
+            args = (x, n1["scale"], n1["bias"], at["qkv"]["w"], at["qkv"]["b"], H, 1e-6)
+            kern, plain, name = FQ.fused_ln_qkv, FQ.fused_ln_qkv_plain, "fused_ln_qkv"
+            chain = lambda: tuple(t.contiguous() for t in AT.qkv_heads(  # noqa: E731
+                at, P.layer_norm(n1, x, 1e-6), vit_cfg))
+            ins = [x, at["qkv"]["w"], at["qkv"]["b"], n1["scale"], n1["bias"]]
+            tol = {"q": 2, "k": 2, "v": 2}
+        else:
+            args = (x, n1["scale"], n1["bias"], at["qkv"]["w"], at["qkv"]["b"],
+                    qn["scale"], qn["bias"], kn["scale"], kn["bias"], *tabs, H, 1e-5)
+            kern, plain = FQ.fused_ln_qkv_rope, FQ.fused_ln_qkv_rope_plain
+            name = "fused_ln_qkv_rope"
+            chain = lambda: tuple(t.contiguous() for t in AT.qkv_heads(  # noqa: E731
+                at, P.layer_norm(n1, x, 1e-5), attn_cfg, tabs))
+            ins = [x, at["qkv"]["w"], at["qkv"]["b"], n1["scale"], n1["bias"],
+                   qn["scale"], qn["bias"], kn["scale"], kn["bias"], *tabs]
+            tol = {"q": 4, "k": 4, "v": 2}
+        per_kernel[name].append(measure(
+            name, site, kern(*args), plain(*args), tol, 2.0 * M * C * 3 * C, ins,
+            (lambda: kern(*args), lambda: plain(*args), chain)))
+        if site == "reloc":
+            continue  # the other three kernels see the ViT site's shape again
+        # -- head merge + out-proj + layer-scale + residual
+        o = randn(B, H, n, d)
+        pargs = (o, x, at["proj"]["w"], at["proj"]["b"], p["ls1"]["gamma"])
+        per_kernel["fused_proj_residual"].append(measure(
+            "fused_proj_residual", site, [FQ.fused_proj_residual(*pargs)],
+            [FQ.fused_proj_residual_plain(*pargs)], {"y": 2}, 2.0 * M * C * C, list(pargs),
+            (lambda: FQ.fused_proj_residual(*pargs),
+             lambda: FQ.fused_proj_residual_plain(*pargs),
+             lambda: x + P.layer_scale(p["ls1"], P.linear(at["proj"], AT._merge_heads(o))))))
+        # -- MLP up: LN2 + fc1 + GELU -> hidden
+        uargs = (x, n2["scale"], n2["bias"], ml["fc1"]["w"], ml["fc1"]["b"], 1e-5)
+        h = FQ.fused_mlp_up(*uargs)
+        per_kernel["fused_mlp_up"].append(measure(
+            "fused_mlp_up", site, [h], [FQ.fused_mlp_up_plain(*uargs)], {"y": 2},
+            2.0 * M * C * Ch, list(uargs[:5]),
+            (lambda: FQ.fused_mlp_up(*uargs), lambda: FQ.fused_mlp_up_plain(*uargs),
+             lambda: P.gelu(P.linear(ml["fc1"], P.layer_norm(n2, x, 1e-5))))))
+        # -- MLP down: fc2 + layer-scale + residual, on the up kernel's hidden
+        dargs = (h, x, ml["fc2"]["w"], ml["fc2"]["b"], p["ls2"]["gamma"])
+        per_kernel["fused_mlp_down"].append(measure(
+            "fused_mlp_down", site, [FQ.fused_mlp_down(*dargs)],
+            [FQ.fused_mlp_down_plain(*dargs)], {"y": 2}, 2.0 * M * Ch * C, list(dargs),
+            (lambda: FQ.fused_mlp_down(*dargs), lambda: FQ.fused_mlp_down_plain(*dargs),
+             lambda: x + P.layer_scale(p["ls2"], P.linear(ml["fc2"], h)))))
+        del x, o, h
+        torch.cuda.empty_cache()
+
+    lines = {"fused_ln_qkv_rope": 158, "fused_ln_qkv": 309, "fused_proj_residual": 411,
+             "fused_mlp_up": 526, "fused_mlp_down": 546}
+    results = []
+    for name, ss in per_kernel.items():
+        for s_ in ss:
+            print(f"  {name}[{s_['site']}]: kernel {s_['ms']:.4f} ms, plain "
+                  f"{s_['plain_ms']:.4f} ms, library chain {s_['library_ms']:.4f} ms, "
+                  f"bound {s_['bound_ms']:.4f} ms ({s_['bound_by']}), "
+                  f"roofline share {s_['bound_ms'] / s_['ms']:.3f}, "
+                  f"inputs {s_['input_mb']:.1f} MB "
+                  f"({'fit' if s_['inputs_fit_l2'] else 'exceed'} the 50 MB L2)")
+        results.append(dict(
+            name=name, route="cuda",
+            source="self_supervise_sfm_tpu_torch/csrc/fused_block.cu",
+            replaces=f"self_supervise_sfm_tpu/ops/fused_qkv.py:{lines[name]}",
+            # one call at each site measured
+            max_abs_err=max(s_["max_abs_err"] for s_ in ss),
+            **{k: sum(s_[k] for s_ in ss)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            bound_by=ss[-1]["bound_by"], sites=ss,
+        ))
     return results
 
 
@@ -279,15 +431,23 @@ def run_forward(gen):
     from self_supervise_sfm_tpu_torch.models import aggregator as AG
     from self_supervise_sfm_tpu_torch.models import sailrecon as M
     from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
+    from self_supervise_sfm_tpu_torch.ops import fused_qkv as FQ
     from self_supervise_sfm_tpu_torch.ops import resize as RS
 
     wrappers = {"flash_fwd": FA.flash_fwd, "frame_ctx_fwd": FA.frame_ctx_fwd,
-                "resize_bilinear": RS.resize_bilinear}
+                "resize_bilinear": RS.resize_bilinear,
+                "fused_ln_qkv_rope": FQ.fused_ln_qkv_rope, "fused_ln_qkv": FQ.fused_ln_qkv,
+                "fused_proj_residual": FQ.fused_proj_residual,
+                "fused_mlp_up": FQ.fused_mlp_up, "fused_mlp_down": FQ.fused_mlp_down}
+    unfused = dict(fused_qkv="off", fused_mlp="off")
+    plain_sites = dict(attn_impl="dense", global_attn_impl="dense", resize_impl="einsum",
+                       **unfused)
+    # the main path: every kernel on; the same with the fused block kernels
+    # off (attention and resize kernels only); every site on plain PyTorch
     cfg = M.make_config(compute_dtype="bfloat16")
-    cfg_plain = M.make_config(compute_dtype="bfloat16", attn_impl="dense",
-                              global_attn_impl="dense", resize_impl="einsum")
-    cfg_f32 = M.make_config(attn_impl="dense", global_attn_impl="dense",
-                            resize_impl="einsum")
+    cfg_unfused = M.make_config(compute_dtype="bfloat16", **unfused)
+    cfg_plain = M.make_config(compute_dtype="bfloat16", **plain_sites)
+    cfg_f32 = M.make_config(**plain_sites)
     t0 = time.perf_counter()
     p32 = M.init_sailrecon(cfg, gen, device="cuda")
     params = M.cast_trunk_weights(p32, cfg)
@@ -310,19 +470,33 @@ def run_forward(gen):
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
     print(f"  launches in one forward: {launches}")
-    expected = {"flash_fwd": 72, "frame_ctx_fwd": 24, "resize_bilinear": 2}
+    # per forward: 24 ViT + 24 x (frame, reloc, global) blocks
+    expected = {"flash_fwd": 72, "frame_ctx_fwd": 24, "resize_bilinear": 2,
+                "fused_ln_qkv_rope": 72, "fused_ln_qkv": 24, "fused_proj_residual": 96,
+                "fused_mlp_up": 96, "fused_mlp_down": 96}
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
 
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        fwd(cfg, params)
+    def timed(c, reps):
+        """Median forward seconds, all runs, and the peak memory in GB."""
+        fwd(c, params)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    step = statistics.median(times)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fwd(c, params)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        return statistics.median(runs), runs, torch.cuda.max_memory_allocated() / 1e9
+
+    # in turns on the one card: fused, unfused, unfused, fused
+    step_a, runs_a, peak_gb = timed(cfg, 3)
+    unf_a, unf_runs_a, unfused_peak_gb = timed(cfg_unfused, 3)
+    unf_b, unf_runs_b, _ = timed(cfg_unfused, 3)
+    step_b, runs_b, _ = timed(cfg, 3)
+    times, unfused_times = runs_a + runs_b, unf_runs_a + unf_runs_b
+    step, unfused_step = statistics.median(times), statistics.median(unfused_times)
 
     before = {k: w.launches for k, w in wrappers.items()}
     plain = fwd(cfg_plain, params)
@@ -330,10 +504,7 @@ def run_forward(gen):
     torch.cuda.synchronize()
     if {k: w.launches for k, w in wrappers.items()} != before:
         raise AssertionError("the plain-path forward launched a kernel")
-    t0 = time.perf_counter()
-    fwd(cfg_plain, params)
-    torch.cuda.synchronize()
-    plain_step = time.perf_counter() - t0
+    plain_step, _, plain_peak_gb = timed(cfg_plain, 1)
 
     failures = []
 
@@ -351,9 +522,9 @@ def run_forward(gen):
         share = float(torch.isfinite(out[k]).float().mean())
         print(f"  {k}: finite share {share:.6f} (kernel path)")
 
-    # trunk (K1, K2): the kernel path's aggregator output against the plain
-    # path's, in relative RMS; the yardstick is what bf16 itself moves the
-    # plain path away from an fp32 forward
+    # trunk (attention and fused block kernels): the kernel path's aggregator
+    # output against the plain path's, in relative RMS; the yardstick is what
+    # bf16 itself moves the plain path away from an fp32 forward
     def agg(c, p):
         return AG.aggregator_forward(p["aggregator"], c.aggregator, images, NUM_FRAMES,
                                      NUM_FRAMES, RANK, generator=draw(),
@@ -428,14 +599,27 @@ def run_forward(gen):
     trunk_ms = _wall_ms(lambda: agg(cfg, params))
     heads_ms = _wall_ms(lambda: M._decode_heads(params, cfg, tk, ck, (IMG, IMG), psi))
     print(f"  trunk (aggregator) {trunk_ms:.2f} ms, heads {heads_ms:.2f} ms (median of 3)")
+    print("  profile of the main path (every kernel on):")
     breakdown = profile_forward(lambda: fwd(cfg, params))
+    print("  profile with the fused block kernels off:")
+    unfused_breakdown = profile_forward(lambda: fwd(cfg_unfused, params))
     fps = NUM_FRAMES / step
-    print(f"  forward: {step * 1e3:.2f} ms median of 5 ({fps:.3f} frames/s, "
-          f"{NUM_FRAMES} frames of {IMG} px), peak memory {peak_gb:.2f} GB; "
-          f"plain-path forward {plain_step * 1e3:.2f} ms")
-    return launches, dict(step_ms=step * 1e3, frames_per_s=fps, peak_gb=peak_gb,
-                          plain_step_ms=plain_step * 1e3, times_ms=[t * 1e3 for t in times],
-                          trunk_ms=trunk_ms, heads_ms=heads_ms, profile=breakdown)
+    for name, sec, gb, n in (("main path (every kernel on)", step, peak_gb, len(times)),
+                             ("fused block kernels off", unfused_step, unfused_peak_gb,
+                              len(unfused_times)),
+                             ("every site on plain PyTorch", plain_step, plain_peak_gb, 1)):
+        print(f"  forward, {name}: {sec * 1e3:.2f} ms median of {n} "
+              f"({NUM_FRAMES / sec:.3f} frames/s, {NUM_FRAMES} frames of {IMG} px), "
+              f"peak memory {gb:.2f} GB")
+    return launches, dict(
+        step_ms=step * 1e3, frames_per_s=fps, peak_gb=peak_gb,
+        times_ms=[t * 1e3 for t in times],
+        unfused_step_ms=unfused_step * 1e3, unfused_frames_per_s=NUM_FRAMES / unfused_step,
+        unfused_peak_gb=unfused_peak_gb, unfused_times_ms=[t * 1e3 for t in unfused_times],
+        plain_step_ms=plain_step * 1e3, plain_frames_per_s=NUM_FRAMES / plain_step,
+        plain_peak_gb=plain_peak_gb,
+        trunk_ms=trunk_ms, heads_ms=heads_ms, profile=breakdown,
+        unfused_profile=unfused_breakdown)
 
 
 def main() -> int:
@@ -464,6 +648,9 @@ def main() -> int:
     print("phase 2: kernels against their plain versions at main-path shapes")
     kernels = check_kernels(gen)
     torch.cuda.empty_cache()
+    if "--kernels-only" in sys.argv[1:]:
+        print(json.dumps({"kernels": kernels}))
+        return 0
     print("phase 3: full-width forward (bf16 trunk, 5 anchors + 5 queries, rank 300)")
     launches, fwd = run_forward(gen)
     for k in kernels:

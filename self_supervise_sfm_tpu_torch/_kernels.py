@@ -39,6 +39,11 @@ _SIGNATURES: Dict[str, List] = {
     "sfm_flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sfm_frame_ctx_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "sfm_resize_bilinear_ac": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sfm_fused_ln_qkv_rope": [_P] * 15 + [_I, _I, _I, _F, _P],
+    "sfm_fused_ln_qkv": [_P] * 9 + [_I, _I, _I, _F, _P],
+    "sfm_fused_proj_residual": [_P] * 6 + [_I, _I, _I, _P],
+    "sfm_fused_mlp_up": [_P] * 7 + [_I, _I, _I, _F, _P],
+    "sfm_fused_mlp_down": [_P] * 6 + [_I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -29,6 +29,8 @@ class ViTConfig:
     init_values: float = 1.0
     ln_eps: float = 1e-6
     attn_impl: str = "auto"
+    fused_qkv: str = "auto"
+    fused_mlp: str = "auto"
 
     @property
     def grid(self) -> int:
@@ -43,7 +45,8 @@ class ViTConfig:
         return BlockConfig(
             dim=self.embed_dim, num_heads=self.num_heads, mlp_ratio=self.mlp_ratio,
             qk_norm=False, ln_eps=self.ln_eps, init_values=self.init_values,
-            attn_impl=self.attn_impl,
+            attn_impl=self.attn_impl, fused_qkv=self.fused_qkv,
+            fused_mlp=self.fused_mlp,
         )
 
 

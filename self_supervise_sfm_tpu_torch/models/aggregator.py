@@ -50,6 +50,8 @@ class AggregatorConfig:
     compute_dtype: str = "float32"  # trunk dtype; taps are returned in fp32
     attn_impl: str = "auto"
     global_attn_impl: str = "auto"
+    fused_qkv: str = "auto"
+    fused_mlp: str = "auto"
 
     @property
     def patch_start_idx(self) -> int:
@@ -63,7 +65,7 @@ class AggregatorConfig:
         return BlockConfig(
             dim=self.embed_dim, num_heads=self.num_heads, mlp_ratio=self.mlp_ratio,
             qk_norm=self.qk_norm, ln_eps=1e-5, init_values=self.init_values,
-            attn_impl=impl,
+            attn_impl=impl, fused_qkv=self.fused_qkv, fused_mlp=self.fused_mlp,
         )
 
     @property

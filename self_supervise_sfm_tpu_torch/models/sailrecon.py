@@ -53,20 +53,27 @@ def make_config(
     attn_impl: str = "auto",
     global_attn_impl: str = "auto",
     resize_impl: str = "auto",
+    fused_qkv: str = "auto",
+    fused_mlp: str = "auto",
 ) -> SailReconConfig:
     """A consistent config tree; the defaults are ViT-L/14 at 518 px with 24
-    aggregator layers. ``attn_impl="dense"`` with ``resize_impl="einsum"``
-    runs every kernel site through plain PyTorch instead."""
+    aggregator layers. With ``compute_dtype="bfloat16"`` and nothing else
+    said, every trunk block runs the fused LN+QKV / out-proj / MLP kernels
+    (``fused_qkv`` / ``fused_mlp`` "auto"); the fp32 camera head stays
+    unfused. ``attn_impl="dense"``, ``resize_impl="einsum"`` and
+    ``fused_qkv="off", fused_mlp="off"`` run every kernel site through plain
+    PyTorch instead."""
     vit = ViTConfig(
         img_size=img_size, patch_size=patch_size,
         embed_dim=vit_embed_dim or embed_dim, depth=vit_depth,
         num_heads=vit_num_heads or num_heads, attn_impl=attn_impl,
+        fused_qkv=fused_qkv, fused_mlp=fused_mlp,
     )
     agg = AggregatorConfig(
         img_size=img_size, patch_size=patch_size, embed_dim=embed_dim, depth=depth,
         num_heads=num_heads, intermediate_layer_idx=tuple(intermediate_layer_idx),
         vit=vit, compute_dtype=compute_dtype, attn_impl=attn_impl,
-        global_attn_impl=global_attn_impl,
+        global_attn_impl=global_attn_impl, fused_qkv=fused_qkv, fused_mlp=fused_mlp,
     )
     head_kw = dict(
         dim_in=2 * embed_dim, patch_size=patch_size,

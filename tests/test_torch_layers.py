@@ -193,12 +193,14 @@ def test_block_mask_matches_jax(rng):
     np.testing.assert_allclose(_np(t), _np(j), atol=ATOL)
 
 
-def test_fused_switches_name_the_next_slice():
-    for kw in ({"fused_qkv": "on"}, {"fused_mlp": "on"}):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            TB.BlockConfig(dim=8, num_heads=2, **kw)
-    with pytest.raises(ValueError):
-        TB.BlockConfig(dim=8, num_heads=2, fused_qkv="auto")
+@pytest.mark.parametrize("name", ["fused_qkv", "fused_mlp"])
+@pytest.mark.parametrize("value", ["auto", "on", "off"])
+def test_fused_switches_are_tri_state(name, value):
+    cfg = TB.BlockConfig(dim=8, num_heads=2, **{name: value})
+    assert getattr(cfg, name) == value
+    assert TB.BlockConfig(dim=8, num_heads=2).fused_qkv == "auto"
+    with pytest.raises(ValueError, match=name):
+        TB.BlockConfig(dim=8, num_heads=2, **{name: "maybe"})
 
 
 # -- ViT ----------------------------------------------------------------------

@@ -4,7 +4,9 @@ The suite's tiny config (``tests/test_reloc_split.py:118-121``), weights
 from the JAX ``init_sailrecon`` through ``convert.from_jax_params``,
 explicit subsample indices, the duplicated anchor+query layout. The port
 also runs with every kernel gate forced on, so the plain versions of the
-three kernels run inside the model. Plus import hygiene and the device
+attention and resize kernels run inside the model, and its bf16 trunk runs
+the fused LN+QKV / out-proj / MLP route by default and the unfused chain on
+request. Plus import hygiene and the device
 rule of the entry points.
 """
 
@@ -23,6 +25,7 @@ from self_supervise_sfm_tpu_torch import convert
 from self_supervise_sfm_tpu_torch.models import aggregator as TA
 from self_supervise_sfm_tpu_torch.models import sailrecon as TM
 from self_supervise_sfm_tpu_torch.ops import flash_attention as TFA
+from self_supervise_sfm_tpu_torch.ops import fused_qkv as TFQ
 from self_supervise_sfm_tpu_torch.ops import resize as TRS
 
 torch.set_num_threads(1)
@@ -144,14 +147,7 @@ def _max_err(a, b):
     return float(np.abs(a[fin] - b[fin]).max())
 
 
-def test_forward_bf16_trunk_matches_jax(setup, jax_fp32):
-    """bf16 trunk, fp32 heads, on both sides. The frameworks round to bf16
-    at the same points but sum in other orders, and the random-init camera
-    adaLN and exp / inverse-log heads amplify each 2^-8 step. Tolerance:
-    per output, the port's max error against JAX-bf16 stays within JAX's own
-    bf16 envelope (max |JAX-bf16 - JAX-fp32|); finite masks agree."""
-    ref = _jax_forward(setup, JM.make_config(compute_dtype="bfloat16", **TINY))
-    out = _port_forward(setup, compute_dtype="bfloat16")
+def _check_bf16_envelope(out, ref, jax_fp32):
     pairs = [(k, out[k].float().numpy(), ref[k], jax_fp32[k]) for k in KEYS]
     pairs += [(f"pose_enc_list[{i}]", a.float().numpy(), b, c) for i, (a, b, c) in
               enumerate(zip(out["pose_enc_list"], ref["pose_enc_list"],
@@ -160,6 +156,52 @@ def test_forward_bf16_trunk_matches_jax(setup, jax_fp32):
         assert a.shape == b.shape, k
         np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b), err_msg=k)
         assert _max_err(a, b) <= _max_err(b, c), k
+
+
+@pytest.fixture(scope="module")
+def jax_bf16(setup):
+    return _jax_forward(setup, JM.make_config(compute_dtype="bfloat16", **TINY))
+
+
+def test_forward_bf16_trunk_matches_jax(setup, jax_fp32, jax_bf16, monkeypatch):
+    """bf16 trunk, fp32 heads, on both sides; the port on its default route,
+    which for a bf16 trunk is the fused LN+QKV / out-proj / MLP functions
+    (their plain versions on the CPU) in every ViT, frame, reloc and global
+    block. The frameworks round to bf16 at the same points but sum in other
+    orders, and the random-init camera adaLN and exp / inverse-log heads
+    amplify each 2^-8 step. Tolerance: per output, the port's max error
+    against JAX-bf16 stays within JAX's own bf16 envelope
+    (max |JAX-bf16 - JAX-fp32|); finite masks agree."""
+    calls = {}
+    for name in ("fused_ln_qkv_rope", "fused_ln_qkv", "fused_proj_residual",
+                 "fused_mlp_up", "fused_mlp_down"):
+        calls[name] = 0
+
+        def wrapped(*a, _orig=getattr(TFQ, name), _name=name, **k):
+            calls[_name] += 1
+            return _orig(*a, **k)
+        monkeypatch.setattr(TFQ, name, wrapped)
+    out = _port_forward(setup, compute_dtype="bfloat16")
+    depth, vit_depth = TINY["depth"], TINY["vit_depth"]
+    blocks = 3 * depth + vit_depth
+    assert calls == {"fused_ln_qkv_rope": 3 * depth, "fused_ln_qkv": vit_depth,
+                     "fused_proj_residual": blocks, "fused_mlp_up": blocks,
+                     "fused_mlp_down": blocks}
+    _check_bf16_envelope(out, jax_bf16, jax_fp32)
+
+
+def test_forward_bf16_trunk_unfused_matches_jax(setup, jax_fp32, jax_bf16):
+    """The same forward with ``fused_qkv="off", fused_mlp="off"``: the
+    unfused chain of plain matmuls, held to the same envelope."""
+    out = _port_forward(setup, compute_dtype="bfloat16", fused_qkv="off",
+                        fused_mlp="off")
+    _check_bf16_envelope(out, jax_bf16, jax_fp32)
+
+
+def test_forward_fp32_fused_forced_matches_jax(setup, jax_fp32):
+    """``fused_qkv="on", fused_mlp="on"`` in fp32: the fused functions'
+    arithmetic in every trunk block, against the JAX fp32 forward."""
+    _compare(_port_forward(setup, fused_qkv="on", fused_mlp="on"), jax_fp32, **FP32_TOL)
 
 
 def _port_sources():
