@@ -32,12 +32,15 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 _CFLAGS = ["-O3", "-std=c++17", _ARCH, "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry -> argtypes (every pointer and the stream as c_void_p: ctypes would
 # otherwise pass a Python int as a 32-bit int and cut the pointer)
 _SIGNATURES: Dict[str, List] = {
     "sfm_flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sfm_frame_ctx_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "sfm_flash_fwd_reloc_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # the layer stride of the stacked cache is a 64-bit element count
+    "sfm_frame_ctx_kv2_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _F, _P],
     "sfm_resize_bilinear_ac": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sfm_fused_ln_qkv_rope": [_P] * 15 + [_I, _I, _I, _F, _P],
     "sfm_fused_ln_qkv": [_P] * 9 + [_I, _I, _I, _F, _P],

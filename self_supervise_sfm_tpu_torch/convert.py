@@ -61,3 +61,30 @@ def from_jax_params(tree_of_numpy: Any):
     """JAX ``init_sailrecon`` params (numpy leaves) -> the port's params, as
     CPU tensors."""
     return _convert(tree_of_numpy)
+
+
+def cache_from_jax(cache_numpy, dtype: torch.dtype = torch.float32,
+                   num_heads: int = None):
+    """A scene cache of the JAX package (numpy leaves) -> the port's
+    ``{"kv": (depth, B, heads, N, 2 * head_dim)}`` CPU tensor in ``dtype``.
+
+    Reads the three layouts the JAX package writes: ``"kv2"`` (``{"kv"}``,
+    taken as is), ``"heads"`` (``{"k", "v"}`` of (depth, B, heads, N,
+    head_dim), concatenated on the last axis) and ``"packed"`` (``{"k", "v"}``
+    of (depth, B, N, C), un-merged to heads first; needs ``num_heads``). A
+    bfloat16 leaf goes through float32, which holds every bfloat16 exactly.
+    """
+
+    def leaf(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    if "kv" in cache_numpy:
+        return {"kv": leaf(cache_numpy["kv"]).to(dtype)}
+    k, v = leaf(cache_numpy["k"]), leaf(cache_numpy["v"])
+    if k.dim() == 4:
+        if not num_heads or k.shape[-1] % num_heads:
+            raise ValueError("a packed cache needs num_heads dividing its width")
+        depth, B, N, C = k.shape
+        k, v = (t.reshape(depth, B, N, num_heads, C // num_heads).transpose(2, 3)
+                for t in (k, v))
+    return {"kv": torch.cat([k, v], dim=-1).to(dtype)}

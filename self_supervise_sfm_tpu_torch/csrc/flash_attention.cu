@@ -1,10 +1,15 @@
-// Flash-attention forward (K1) and fused [context | own frame] attention (K2)
-// for Hopper (sm_90a), bf16 in, fp32 softmax state, head dim 64.
+// Flash-attention forward (K1, and K1m with a RelocMask), fused
+// [context | own frame] attention (K2) and the same against one layer of the
+// kv2 scene cache read in place (K2p), for Hopper (sm_90a), bf16 in, fp32
+// softmax state, head dim 64.
 //
 // Replaces the Pallas TPU kernels
-//   K1: self_supervise_sfm_tpu/ops/flash_attention.py  _flash_fwd / _kernel
-//   K2: self_supervise_sfm_tpu/ops/flash_attention.py  frame_ctx_kernel /
-//       _frame_ctx_kernel
+//   K1:  self_supervise_sfm_tpu/ops/flash_attention.py  _flash_fwd / _kernel
+//   K1m: the same call with mask=RelocMask
+//   K2:  self_supervise_sfm_tpu/ops/flash_attention.py  frame_ctx_kernel /
+//        _frame_ctx_kernel
+//   K2p: self_supervise_sfm_tpu/ops/flash_attention.py
+//        frame_ctx_packed_kernel / _frame_ctx_kv2_kernel
 // and computes what they compute: an online softmax in the log2 domain
 // (exp2f), fp32 running max / denominator / accumulator, p cast to bf16
 // before the PV product, ragged last key tile masked by select with its V
@@ -12,6 +17,16 @@
 // natural-log lse in fp32. K2 folds the shared context tiles of scene
 // b = bf / F and then the frame's own tiles into ONE online softmax: no mask,
 // no lse merge.
+// K2p is K2 with the context taken from layer `layer` of the depth-stacked
+// cache (depth, B, H, Nc, 2*64): each 256-byte row holds [k | v], so the
+// kernel reads the k half at offset 0 and the v half at offset 64 with a row
+// stride of 128, straight from the cache's buffer. The TPU kernel pads q to
+// 128 lanes and interleaves the frame's own K/V to the same layout; here the
+// own k and v stay separate tensors. Nothing of the cache is sliced or
+// copied, and every offset into it is 64-bit.
+// K1m evaluates the RelocMask per element (key < n_ctx, or key inside the
+// row's own frame) and skips key tiles in which no row of the block sees a
+// key.
 //
 // Bound on an H100: operations. The 4*Nq*Nk*d FLOPs of QK^T and PV over the
 // q/k/v/o bytes give 690-3450 FLOP/byte at the main-path sizes (Nq = Nk =
@@ -84,7 +99,10 @@ __device__ __forceinline__ void load_q(const bf16* __restrict__ q, int row0,
 }
 
 // Stage keys [k0, k0 + BK) of one (batch*head) slice into shared memory;
-// keys at or past nvalid are zero-filled (the TPU kernel's v zeroing).
+// keys at or past nvalid are zero-filled (the TPU kernel's v zeroing). LD is
+// the row stride of k and v in elements: D for separate tensors, 2 * D for
+// the [k | v] rows of the kv2 cache.
+template <int LD>
 __device__ __forceinline__ void load_kv_tile(const bf16* __restrict__ k,
                                              const bf16* __restrict__ v, int k0,
                                              int nvalid, TileSmem& sm) {
@@ -93,8 +111,8 @@ __device__ __forceinline__ void load_kv_tile(const bf16* __restrict__ k,
     const int col = (c % (D / 8)) * 8;
     uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
     if (k0 + row < nvalid) {
-      kk = *reinterpret_cast<const uint4*>(k + (size_t)(k0 + row) * D + col);
-      vv = *reinterpret_cast<const uint4*>(v + (size_t)(k0 + row) * D + col);
+      kk = *reinterpret_cast<const uint4*>(k + (size_t)(k0 + row) * LD + col);
+      vv = *reinterpret_cast<const uint4*>(v + (size_t)(k0 + row) * LD + col);
     }
     *reinterpret_cast<uint4*>(&sm.k[row][col]) = kk;
     const bf16* ve = reinterpret_cast<const bf16*>(&vv);
@@ -103,12 +121,23 @@ __device__ __forceinline__ void load_kv_tile(const bf16* __restrict__ k,
   }
 }
 
+// The RelocMask as one thread sees it: keys below n_ctx are the context, and
+// the thread's rows g / g + 8 also see their own frame's keys [lo, hi).
+struct RowMask {
+  int n_ctx;
+  int lo[2];
+  int hi[2];
+};
+
 // Fold one staged key tile into the warp's online softmax (the TPU
-// kernel's _compute / _online_step body).
+// kernel's _compute / _online_step body). MASKED adds the RelocMask's allow
+// predicate to the key-validity select.
+template <bool MASKED>
 __device__ __forceinline__ void attend_tile(RowState& st,
                                             const uint32_t (&qf)[D / 16][4],
                                             const TileSmem& sm, int k0,
-                                            int nvalid, float scale_log2) {
+                                            int nvalid, float scale_log2,
+                                            const RowMask& mk) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float s[BK / 8][4];
 #pragma unroll
@@ -128,7 +157,12 @@ __device__ __forceinline__ void attend_tile(RowState& st,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = k0 + nt * 8 + t * 2 + (e & 1);
-      s[nt][e] = key < nvalid ? s[nt][e] * scale_log2 : NEG_INF;
+      bool ok = key < nvalid;
+      if constexpr (MASKED) {
+        const int r = e >> 1;
+        ok = ok && (key < mk.n_ctx || (key >= mk.lo[r] && key < mk.hi[r]));
+      }
+      s[nt][e] = ok ? s[nt][e] * scale_log2 : NEG_INF;
     }
     mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
     mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
@@ -184,6 +218,7 @@ __device__ __forceinline__ void attend_tile(RowState& st,
 }
 
 // Stream all tiles of one key source through the online softmax.
+template <int LD>
 __device__ __forceinline__ void attend_source(RowState& st,
                                               const uint32_t (&qf)[D / 16][4],
                                               const bf16* __restrict__ k,
@@ -192,9 +227,9 @@ __device__ __forceinline__ void attend_source(RowState& st,
                                               TileSmem& sm) {
   for (int k0 = 0; k0 < nk; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
-    load_kv_tile(k, v, k0, nk, sm);
+    load_kv_tile<LD>(k, v, k0, nk, sm);
     __syncthreads();
-    attend_tile(st, qf, sm, k0, nk, scale_log2);
+    attend_tile<false>(st, qf, sm, k0, nk, scale_log2, RowMask{});
   }
 }
 
@@ -242,7 +277,52 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_q(q + bh * nq * D, row0, nq, qf);
   RowState st;
   init_state(st);
-  attend_source(st, qf, k + bh * nk * D, v + bh * nk * D, nk, scale_log2, sm);
+  attend_source<D>(st, qf, k + bh * nk * D, v + bh * nk * D, nk, scale_log2, sm);
+  finalize(st, o + bh * nq * D, lse + bh * nq, row0, nq);
+}
+
+// K1m: K1 under a RelocMask. Keys are [n_ctx context | frames of frame_size];
+// row r (frame r / frame_size) sees the context and its own frame. A key tile
+// in which no row of this block's 64 sees a key is skipped by the whole block
+// (the TPU kernel's block_visible). The block's first visible tile can leave
+// a row with every entry masked (m stays NEG_INF and p = exp2(0) = 1, as on
+// the TPU); the row's first real key then rescales that by exp2(-1e30) = 0.
+__global__ void __launch_bounds__(NTHREADS)
+flash_fwd_reloc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       float* __restrict__ lse, int nq, int nk, int n_ctx,
+                       int frame_size, float scale_log2) {
+  __shared__ __align__(16) TileSmem sm;
+  const size_t bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int q1 = min(q0 + BQ, nq);
+  const int row0 = q0 + (threadIdx.x >> 5) * 16;
+  const int g = (threadIdx.x & 31) >> 2;
+  uint32_t qf[D / 16][4];
+  load_q(q + bh * nq * D, row0, nq, qf);
+  RowState st;
+  init_state(st);
+  RowMask mk;
+  mk.n_ctx = n_ctx;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mk.lo[r] = n_ctx + ((row0 + g + 8 * r) / frame_size) * frame_size;
+    mk.hi[r] = mk.lo[r] + frame_size;
+  }
+  // the frames this block's rows belong to, as a key range
+  const int own_lo = n_ctx + (q0 / frame_size) * frame_size;
+  const int own_hi = n_ctx + ((q1 - 1) / frame_size + 1) * frame_size;
+  const bf16* kb = k + bh * nk * D;
+  const bf16* vb = v + bh * nk * D;
+  for (int k0 = 0; k0 < nk; k0 += BK) {
+    const int k1 = min(k0 + BK, nk);
+    const bool visible = k0 < n_ctx || (k0 < own_hi && k1 > own_lo);
+    if (!visible) continue;  // uniform over the block
+    __syncthreads();
+    load_kv_tile<D>(kb, vb, k0, nk, sm);
+    __syncthreads();
+    attend_tile<true>(st, qf, sm, k0, nk, scale_log2, mk);
+  }
   finalize(st, o + bh * nq * D, lse + bh * nq, row0, nq);
 }
 
@@ -263,8 +343,33 @@ frame_ctx_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   RowState st;
   init_state(st);
   const size_t ctx = (b * heads + h) * nc * D;
-  attend_source(st, qf, ck + ctx, cv + ctx, nc, scale_log2, sm);
-  attend_source(st, qf, k + bfh * np_ * D, v + bfh * np_ * D, np_, scale_log2, sm);
+  attend_source<D>(st, qf, ck + ctx, cv + ctx, nc, scale_log2, sm);
+  attend_source<D>(st, qf, k + bfh * np_ * D, v + bfh * np_ * D, np_, scale_log2, sm);
+  finalize(st, o + bfh * np_ * D, nullptr, row0, np_);
+}
+
+// K2p: K2 against the kv2 cache in place. ckv_layer points at layer `layer`
+// of the (depth, B, H, Nc, 2 * D) cache; the context of scene b, head h is
+// its Nc rows of [k | v] starting at (b * H + h) * Nc * 2 * D. Same tile
+// order and arithmetic as K2, so the two agree bit for bit on equal values.
+__global__ void __launch_bounds__(NTHREADS)
+frame_ctx_kv2_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ ckv_layer,
+                         bf16* __restrict__ o, int heads, int frames, int np_,
+                         int nc, float scale_log2) {
+  __shared__ __align__(16) TileSmem sm;
+  const size_t bfh = blockIdx.y;  // (bf * H + h)
+  const size_t h = bfh % heads;
+  const size_t b = (bfh / heads) / frames;
+  const int row0 = blockIdx.x * BQ + (threadIdx.x >> 5) * 16;
+  uint32_t qf[D / 16][4];
+  load_q(q + bfh * np_ * D, row0, np_, qf);
+  RowState st;
+  init_state(st);
+  const bf16* ctx = ckv_layer + (b * heads + h) * nc * (2 * D);
+  attend_source<2 * D>(st, qf, ctx, ctx + D, nc, scale_log2, sm);
+  attend_source<D>(st, qf, k + bfh * np_ * D, v + bfh * np_ * D, np_, scale_log2, sm);
   finalize(st, o + bfh * np_ * D, nullptr, row0, np_);
 }
 
@@ -292,5 +397,41 @@ extern "C" int sfm_frame_ctx_fwd_bf16(const void* q, const void* k,
       static_cast<const bf16*>(v), static_cast<const bf16*>(ck),
       static_cast<const bf16*>(cv), static_cast<bf16*>(o), heads, frames, np_,
       nc, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sfm_flash_fwd_reloc_bf16(const void* q, const void* k,
+                                        const void* v, void* o, void* lse,
+                                        int bh, int nq, int nk, int n_ctx,
+                                        int frame_size, int num_frames,
+                                        float scale_log2, void* stream) {
+  if (frame_size <= 0 || n_ctx < 0 || nq != num_frames * frame_size ||
+      nk != n_ctx + nq)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((nq + BQ - 1) / BQ, bh);
+  flash_fwd_reloc_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), nq, nk, n_ctx, frame_size, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ckv is the base of the whole stacked cache; layer_stride is the number of
+// elements between two layers (B * H * Nc * 2 * D), in 64 bits.
+extern "C" int sfm_frame_ctx_kv2_fwd_bf16(const void* q, const void* k,
+                                          const void* v, const void* ckv,
+                                          void* o, int bf, int heads,
+                                          int frames, int np_, int nc,
+                                          int layer, long long layer_stride,
+                                          float scale_log2, void* stream) {
+  if (layer < 0 || layer_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* ckv_layer = static_cast<const bf16*>(ckv) +
+                          static_cast<size_t>(layer) * static_cast<size_t>(layer_stride);
+  dim3 grid((np_ + BQ - 1) / BQ, bf * heads);
+  frame_ctx_kv2_fwd_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), ckv_layer, static_cast<bf16*>(o), heads,
+      frames, np_, nc, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

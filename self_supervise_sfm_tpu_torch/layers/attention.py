@@ -86,10 +86,11 @@ def kv_heads(p, x, cfg: AttentionConfig, rope_cos_sin=None):
 
 
 def attention_heads_out(
-    p, q, k, v, cfg: AttentionConfig, mask: Optional[torch.Tensor] = None,
+    p, q, k, v, cfg: AttentionConfig, mask=None,
     extra_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
-    """The attention core alone: (B, H, N, d) per-head outputs."""
+    """The attention core alone: (B, H, N, d) per-head outputs. ``mask`` is
+    a boolean tensor, a ``RelocMask`` or None."""
     if extra_kv is not None and extra_kv[0].shape[0] != q.shape[0]:
         # frame-major reloc layout: q/k/v carry (B*F, H, P, d) with frames
         # folded into batch while the shared context K/V stays (B, H, Nc, d);
@@ -105,8 +106,22 @@ def attention_heads_out(
         ):
             return fa.frame_ctx_attention(q, k, v, ek, ev)
         return fa._frame_ctx_dense(q, k, v, ek.to(k.dtype), ev.to(v.dtype))
-    if extra_kv is not None:
+    o = None
+    if (
+        extra_kv is not None
+        and isinstance(mask, attention_core.RelocMask)
+        and cfg.impl != "dense"
+        and q.shape[2] * (mask.n_ctx + mask.frame_size) >= 1_500_000
+    ):
+        # [ctx ‖ own frame] mask structure: two unmasked flash calls merged
+        # by lse (see reloc_split_attention)
         ek, ev = extra_kv
-        k = torch.cat([ek.to(k.dtype), k], dim=2)
-        v = torch.cat([ev.to(v.dtype), v], dim=2)
-    return attention_core.sdpa(q, k, v, mask=mask, impl=cfg.impl)
+        o = attention_core.reloc_split_attention(
+            q, k, v, ek.to(k.dtype), ev.to(v.dtype), mask)
+    if o is None:
+        if extra_kv is not None:
+            ek, ev = extra_kv
+            k = torch.cat([ek.to(k.dtype), k], dim=2)
+            v = torch.cat([ev.to(v.dtype), v], dim=2)
+        o = attention_core.sdpa(q, k, v, mask=mask, impl=cfg.impl)
+    return o

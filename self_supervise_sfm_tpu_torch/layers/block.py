@@ -161,7 +161,7 @@ def attn_out_mlp(p, o: torch.Tensor, x: torch.Tensor, cfg: BlockConfig) -> torch
 
 
 def block(
-    p, x, cfg: BlockConfig, rope_cos_sin=None, mask: Optional[torch.Tensor] = None,
+    p, x, cfg: BlockConfig, rope_cos_sin=None, mask=None,
     extra_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     q, k, v = qkv_parts(p, x, cfg, rope_cos_sin)
@@ -174,6 +174,13 @@ def block_with_context(p, x, context, cfg: BlockConfig, rope_q=None, rope_ctx=No
     """Block where ``context`` tokens contribute keys/values only. The
     context K/V stay on the unfused chain, as in the JAX package: their rope
     tables are 3-D (B, Nc, d) and do not qualify for the fused kernel."""
-    hc = P.layer_norm(p["norm1"], context, cfg.ln_eps)
-    ekv = kv_heads(p["attn"], hc, cfg.attn, rope_ctx)
+    ekv = block_context_kv(p, context, cfg, rope_ctx)
     return block(p, x, cfg, rope_q, mask, extra_kv=ekv)
+
+
+def block_context_kv(p, context, cfg: BlockConfig, rope_ctx=None):
+    """The (k, v) heads this block would derive from ``context`` tokens:
+    what the relocalisation scene cache stores (post-norm, post-rope K/V).
+    On the unfused chain, like :func:`block_with_context`."""
+    hc = P.layer_norm(p["norm1"], context, cfg.ln_eps)
+    return kv_heads(p["attn"], hc, cfg.attn, rope_ctx)

@@ -1,16 +1,17 @@
 """SailRecon facade: aggregator + camera / point / depth heads.
 
-Port of ``self_supervise_sfm_tpu/models/sailrecon.py`` (the joint
-``forward``; scene-cache build and reloc are later slices). Heads always
-run in fp32 whatever the trunk dtype. The entry points run on ``cuda``
-unless the caller passes ``device="cpu"``; without a card they raise rather
-than carry on on the CPU.
+Port of ``self_supervise_sfm_tpu/models/sailrecon.py``: the joint
+``forward`` and ``pose_forward``, and two-phase serving
+(``build_scene_cache`` then ``reloc``, with the chunked and host-staged
+variants of each). Heads always run in fp32 whatever the trunk dtype. The
+entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card they raise rather than carry on on the CPU.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +20,11 @@ from ..heads.camera import CameraHeadConfig, camera_head, init_camera_head
 from ..heads.dpt import DPTHeadConfig, dpt_head, init_dpt_head
 from ..layers.vit import ViTConfig
 from ..ops import geometry as G
-from .aggregator import AggregatorConfig, aggregator_forward, init_aggregator
+from .aggregator import (
+    AggregatorConfig, aggregator_build_cache, aggregator_build_cache_staged,
+    aggregator_forward, aggregator_reloc, aggregator_reloc_staged,
+    init_aggregator,
+)
 
 
 @dataclass(frozen=True)
@@ -194,16 +199,172 @@ def forward(
     (H, W, 1), dpt_cnf (H, W), point_map_by_unprojection (H, W, 3),
     cam_tokens (2C), pose_enc_list.
     """
-    dev = _device(device)
-    ref = p["aggregator"]["vit"]["pos_embed"]
-    if ref.device.type != dev.type:
-        raise ValueError(f"params live on {ref.device}, the forward runs on {dev}")
-    if isinstance(images, np.ndarray):
-        images = torch.from_numpy(images)
-    images = images.to(dev, torch.float32)
+    dev, images = _inputs(p, images, device)
     H, W = images.shape[2], images.shape[3]
     taps, psi, cam_tok = aggregator_forward(
         p["aggregator"], cfg.aggregator, images, num_anchor, num_query, rank,
         generator, subsample_indices, images_duplicated,
     )
     return _decode_heads(p, cfg, taps, cam_tok, (H, W), psi)
+
+
+def _inputs(p, images, device) -> Tuple[torch.device, torch.Tensor]:
+    """The entry points' device (see :func:`_device`) and the images on it
+    as fp32; raises when the params live elsewhere."""
+    dev = _device(device)
+    ref = p["aggregator"]["vit"]["pos_embed"]
+    if ref.device.type != dev.type:
+        raise ValueError(f"params live on {ref.device}, the call runs on {dev}")
+    if isinstance(images, np.ndarray):
+        images = torch.from_numpy(images)
+    return dev, images.to(dev, torch.float32)
+
+
+def pose_forward(
+    p, cfg: SailReconConfig, images, num_anchor: int, num_query: int,
+    rank: Optional[int] = None, generator: Optional[torch.Generator] = None,
+    fp64_decode: bool = False, device="cuda",
+):
+    """Pose-only evaluation: aggregator + camera head, no dense heads.
+
+    Returns (extrinsics (B, Q, 3, 4), intrinsics (B, Q, 3, 3)). ``rank``
+    defaults to every patch token. ``fp64_decode=True`` decodes the final
+    encoding on the host in float64 and returns numpy arrays.
+    """
+    dev, images = _inputs(p, images, device)
+    H, W = images.shape[2], images.shape[3]
+    acfg = cfg.aggregator
+    P0 = (H // acfg.patch_size) * (W // acfg.patch_size)
+    taps, _, cam_tok = aggregator_forward(
+        p["aggregator"], acfg, images, num_anchor, num_query,
+        rank if rank is not None else P0, generator)
+    cam_maps = camera_head(p["camera_head"], taps[-1], cam_tok, cfg.camera)
+    if fp64_decode:
+        return G.pose_encoding_to_extri_intri_np64(
+            cam_maps[-1].cpu().numpy(), (H, W))
+    return G.pose_encoding_to_extri_intri(cam_maps[-1], (H, W))
+
+
+def build_scene_cache(
+    p, cfg: SailReconConfig, anchor_images, rank: int = 300,
+    generator: Optional[torch.Generator] = None, subsample_indices=None,
+    anchor_chunk: Optional[int] = None, chunk_embed: bool = True, device="cuda",
+):
+    """Phase 1 of two-phase serving: (cache, cam_token_last_layer) of the
+    anchors (B, A, H, W, 3).
+
+    ``anchor_chunk``: anchor-chunked build (it must divide the anchor count,
+    else the one-shot layer runs); per-layer transients then scale with the
+    chunk instead of the scene. ``chunk_embed=False`` keeps the ViT patch
+    embedding unchunked. The cache is ``{"kv": (depth, B, heads,
+    A * (rank + 5), 2 * head_dim)}`` on the device.
+    """
+    _, images = _inputs(p, anchor_images, device)
+    return aggregator_build_cache(
+        p["aggregator"], cfg.aggregator, images, rank, generator,
+        subsample_indices, anchor_chunk=anchor_chunk, chunk_embed=chunk_embed)
+
+
+def _with_conf_fractions(preds: Dict[str, Any]) -> Dict[str, Any]:
+    if "xyz_cnf" in preds:
+        # per-view fraction of point confidence above thresholds 1.0 .. 5.25
+        cnf = preds["xyz_cnf"]  # (B, Q, H, W)
+        thresholds = torch.arange(1.0, 5.5, 0.25, device=cnf.device)
+        preds["xyz_conf_fractions"] = (
+            (cnf[..., None] > thresholds).float().mean(dim=(2, 3)))
+    return preds
+
+
+def _decode_reloc(p, cfg, taps, psi, cam_tok, images_hw, fast_reloc: bool):
+    if fast_reloc:  # the camera head only
+        cam_maps = camera_head(p["camera_head"], taps[-1], cam_tok, cfg.camera)
+        extrinsic, intrinsic = G.pose_encoding_to_extri_intri(cam_maps[-1], images_hw)
+        return {"extrinsic": extrinsic, "intrinsic": intrinsic,
+                "pose_enc_list": cam_maps}
+    return _with_conf_fractions(
+        _decode_heads(p, cfg, taps, cam_tok, images_hw, psi))
+
+
+def reloc(
+    p, cfg: SailReconConfig, cache, cam_token_last_layer, images,
+    fast_reloc: bool = False, device="cuda",
+) -> Dict[str, Any]:
+    """Phase 2: localise (B, Q, H, W, 3) query frames against the cache.
+
+    The cache lives on the device (move a host cache there first, or use
+    :func:`reloc_staged`). ``fast_reloc=True`` decodes camera parameters
+    only. The full decode adds ``xyz_conf_fractions`` (B, Q, 18).
+    """
+    dev, images = _inputs(p, images, device)
+    if cache["kv"].device.type != dev.type:
+        raise ValueError(
+            f"the cache lives on {cache['kv'].device}, reloc runs on {dev}: "
+            "move it there, or use reloc_staged for a host cache")
+    H, W = images.shape[2], images.shape[3]
+    taps, psi = aggregator_reloc(p["aggregator"], cfg.aggregator, cache, images)
+    cam_tok = torch.as_tensor(cam_token_last_layer).to(dev)
+    return _decode_reloc(p, cfg, taps, psi, cam_tok, (H, W), fast_reloc)
+
+
+def build_scene_cache_staged(
+    p, cfg: SailReconConfig, anchor_images, rank: int = 300,
+    generator: Optional[torch.Generator] = None, subsample_indices=None,
+    num_segments: int = 4, anchor_chunk: Optional[int] = None,
+    chunk_embed: bool = True, device="cuda",
+):
+    """Host-staged phase 1: the scene is bounded by host RAM, not device
+    memory. The cache streams to the host segment by segment as it is built.
+    Returns a host cache ``{"kv": CPU tensor}`` (pinned when built on a card)
+    and the cam token as a CPU tensor, for :func:`reloc_staged`."""
+    _, images = _inputs(p, anchor_images, device)
+    return aggregator_build_cache_staged(
+        p["aggregator"], cfg.aggregator, images, rank, generator,
+        subsample_indices, num_segments, anchor_chunk=anchor_chunk,
+        chunk_embed=chunk_embed)
+
+
+def reloc_staged(
+    p, cfg: SailReconConfig, host_cache, cam_token_last_layer, images,
+    num_segments: int = 4, fast_reloc: bool = False, device="cuda",
+) -> Dict[str, Any]:
+    """:func:`reloc` against a host-RAM cache, uploading one layer segment at
+    a time (device peak: query activations + one segment's kv2 tensor)."""
+    dev, images = _inputs(p, images, device)
+    H, W = images.shape[2], images.shape[3]
+    taps, psi = aggregator_reloc_staged(
+        p["aggregator"], cfg.aggregator, host_cache, images, num_segments)
+    cam_tok = torch.as_tensor(cam_token_last_layer).to(dev)
+    return _decode_reloc(p, cfg, taps, psi, cam_tok, (H, W), fast_reloc)
+
+
+def reloc_chunked(
+    p, cfg: SailReconConfig, cache, cam_token_last_layer, images,
+    chunk: int = 4, fast_reloc: bool = False, device="cuda",
+) -> Dict[str, Any]:
+    """:func:`reloc` over query chunks: activation and head-decode memory is
+    that of ``chunk`` frames instead of Q while the cache stays resident. Q
+    is padded up to a multiple of ``chunk`` with zero images; the padded
+    frames are dropped from every output."""
+    dev, images = _inputs(p, images, device)
+    Q = images.shape[1]
+    nchunk = -(-Q // chunk)
+    pad = nchunk * chunk - Q
+    if pad:
+        images = torch.cat(
+            [images, images.new_zeros((images.shape[0], pad, *images.shape[2:]))],
+            dim=1)
+    parts = [
+        reloc(p, cfg, cache, cam_token_last_layer,
+              images[:, c * chunk: (c + 1) * chunk], fast_reloc=fast_reloc,
+              device=dev)
+        for c in range(nchunk)
+    ]
+
+    def unfold(leaves):
+        return torch.cat(leaves, dim=1)[:, :Q]
+
+    return {
+        k: (unfold([part[k] for part in parts]) if k != "pose_enc_list"
+            else [unfold(xs) for xs in zip(*(part[k] for part in parts))])
+        for k in parts[0]
+    }

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -68,6 +69,47 @@ def pose_encoding_to_extri_intri(pose_encoding: torch.Tensor,
     row1 = torch.stack([zeros, fy, torch.full_like(fy, H / 2.0)], dim=-1)
     row2 = torch.stack([zeros, zeros, torch.ones_like(fx)], dim=-1)
     return extrinsics, torch.stack([row0, row1, row2], dim=-2)
+
+
+def pose_encoding_to_extri_intri_np64(pose_encoding, image_size_hw=None,
+                                      build_intrinsics: bool = True):
+    """Host-side float64 pose decode (numpy): the math of
+    :func:`pose_encoding_to_extri_intri` at double precision over the
+    (..., 9) fp32 encoding. Returns numpy arrays."""
+    enc = np.asarray(pose_encoding, np.float64)
+    T = enc[..., :3]
+    q = enc[..., 3:7]
+    i, j, k, r = np.moveaxis(q, -1, 0)
+    two_s = 2.0 / np.sum(q * q, axis=-1)
+    R = np.stack(
+        [
+            1 - two_s * (j * j + k * k),
+            two_s * (i * j - k * r),
+            two_s * (i * k + j * r),
+            two_s * (i * j + k * r),
+            1 - two_s * (i * i + k * k),
+            two_s * (j * k - i * r),
+            two_s * (i * k - j * r),
+            two_s * (j * k + i * r),
+            1 - two_s * (i * i + j * j),
+        ],
+        axis=-1,
+    ).reshape(q.shape[:-1] + (3, 3))
+    extrinsics = np.concatenate([R, T[..., None]], axis=-1)
+    intrinsics = None
+    if build_intrinsics:
+        if image_size_hw is None:
+            raise ValueError("intrinsics need the image size")
+        H, W = image_size_hw
+        fy = (H / 2.0) / np.maximum(np.tan(enc[..., 7] / 2.0), 1e-6)
+        fx = (W / 2.0) / np.maximum(np.tan(enc[..., 8] / 2.0), 1e-6)
+        zeros = np.zeros_like(fx)
+        ones = np.ones_like(fx)
+        row0 = np.stack([fx, zeros, np.full_like(fx, W / 2.0)], axis=-1)
+        row1 = np.stack([zeros, fy, np.full_like(fy, H / 2.0)], axis=-1)
+        row2 = np.stack([zeros, zeros, ones], axis=-1)
+        intrinsics = np.stack([row0, row1, row2], axis=-2)
+    return extrinsics, intrinsics
 
 
 def depth_to_cam_points(depth_map: torch.Tensor, intrinsic: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,7 @@ from self_supervise_sfm_tpu.ops import attention_core as JAC
 from self_supervise_sfm_tpu.ops import flash_attention as JFA
 from self_supervise_sfm_tpu_torch.ops import attention_core as TAC
 from self_supervise_sfm_tpu_torch.ops import flash_attention as TFA
+from self_supervise_sfm_tpu_torch.ops.mask_spec import RelocMask
 
 torch.set_num_threads(1)
 
@@ -64,8 +65,13 @@ def test_flash_wrapper_on_cpu_is_the_plain_version(rng):
 
 def test_flash_rejects_reloc_mask(rng):
     (_, _, _), (tq, tk, tv) = _qkv(rng, (1, 2, 8, 64), (1, 2, 8, 64), "float32")
-    with pytest.raises(NotImplementedError):
+    # anything but a RelocMask spec is refused; a RelocMask that does not
+    # describe the logits is refused too (the masked kernel itself is held
+    # against the JAX package in test_torch_packed_attention.py)
+    with pytest.raises(TypeError):
         TFA.flash_attention(tq, tk, tv, mask=object())
+    with pytest.raises(ValueError):
+        TFA.flash_attention(tq, tk, tv, mask=RelocMask(4, 2, 3))
 
 
 @pytest.mark.parametrize("impl", ["dense", "auto", "flash"])
