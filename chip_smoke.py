@@ -33,7 +33,20 @@ Phases, each of which must pass (any failure exits non-zero):
    against each other, ``reloc_staged`` against the resident ``reloc`` bit
    for bit, ``reloc_chunked`` against ``reloc``, times and peaks of each.
 
-``python3 chip_smoke.py --kernels-only`` stops after phase 2.
+5. the self-supervised train step at full width (``bench.py:bench_train``'s
+   configuration at depth 24: 2 frames of 518 px duplicated as anchors and
+   queries, rank 300, bf16 trunk on fp32 master weights, Adam with a bf16
+   first moment, each aggregator layer rematerialised) on a batch of 2 pairs
+   x 10 000 correspondences made from known poses: launch counts of one
+   step against the code's prediction (the B9 backward kernels among them),
+   four steps (the first at learning rate 0), finite losses, nonzero trunk
+   and camera gradients, untouched DPT heads, the gradients against the
+   plain path's within twice the bf16-vs-fp32 envelope, times, peak memory
+   and a profile of one step.
+
+``python3 chip_smoke.py --kernels-only`` stops after phase 2;
+``--train-only`` runs phase 5 alone after the build (its launch counts are
+then not merged into the kernel line, which is not printed).
 
 The line before the last is a JSON object of every kernel's numbers (the
 forward's and the serving paths' numbers go on lines of their own before
@@ -102,6 +115,8 @@ _KERNEL_CLASSES = (
     ("fused_mlp_down", ("fused_mlp_down_kernel",)),
     ("ln_stats (pre-pass of the layer-normed kernels)", ("ln_stats_kernel",)),
     ("flash_fwd (K1)", ("flash_fwd_kernel",)),
+    ("flash_bwd_dq (B9)", ("flash_bwd_dq_kernel",)),
+    ("flash_bwd_dkv (B9)", ("flash_bwd_dkv_kernel",)),
     ("frame_ctx_fwd (K2)", ("frame_ctx_fwd_kernel",)),
     ("frame_ctx_kv2_fwd (K2p)", ("frame_ctx_kv2_fwd_kernel",)),
     ("flash_fwd_reloc (K1m)", ("flash_fwd_reloc_kernel",)),
@@ -114,7 +129,7 @@ _KERNEL_CLASSES = (
 )
 
 
-def profile_forward(fn) -> dict:
+def profile_forward(fn, label: str = "forward") -> dict:
     """One call of ``fn`` under torch.profiler: device time by kernel class,
     the top kernels, and the device's idle share of the profiled wall time
     (the profiler's own host cost included)."""
@@ -142,7 +157,7 @@ def profile_forward(fn) -> dict:
         classes[cls] += e.self_device_time_total / 1e3
     busy_ms = sum(classes.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    print(f"  profiled forward: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+    print(f"  profiled {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"(idle share {1 - busy_ms / wall_ms:.3f}), {sum(e.count for e in kernels)} "
           f"kernel launches")
     for name, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
@@ -264,12 +279,12 @@ def check_kernels(gen):
     H0 = 4 * (IMG // 14) * 2  # 296
     x = randn(NUM_FRAMES, H0, H0, 128, dtype=torch.float32)
     add = randn(IMG, IMG, 128, dtype=torch.float32)
-    out = RS.resize_bilinear(x, (IMG, IMG), add, torch.bfloat16)
+    out = RS.resize_bilinear_fwd(x, (IMG, IMG), add, torch.bfloat16)
     torch.cuda.synchronize()
     ref = RS.resize_bilinear_plain(x, (IMG, IMG), add, torch.bfloat16)
     err = float((out.float() - ref.float()).abs().max())
     _check(f"resize_bilinear {tuple(x.shape)} -> {IMG} bf16", err, ulps(ref, 1))
-    err32 = float((RS.resize_bilinear(x, (IMG, IMG), add)
+    err32 = float((RS.resize_bilinear_fwd(x, (IMG, IMG), add)
                    - RS.resize_bilinear_plain(x, (IMG, IMG), add)).abs().max())
     _check("resize_bilinear fp32 store", err32, 1e-5 * float(ref.float().abs().max()))
 
@@ -284,7 +299,7 @@ def check_kernels(gen):
         source="self_supervise_sfm_tpu_torch/csrc/resize.cu",
         replaces="self_supervise_sfm_tpu/ops/resize.py:51,136",
         max_abs_err=err,
-        ms=_time_ms(lambda: RS.resize_bilinear(x, (IMG, IMG), add, torch.bfloat16)),
+        ms=_time_ms(lambda: RS.resize_bilinear_fwd(x, (IMG, IMG), add, torch.bfloat16)),
         plain_ms=_time_ms(lambda: RS.resize_bilinear_plain(x, (IMG, IMG), add,
                                                            torch.bfloat16), reps=5),
         library_ms=_time_ms(library),
@@ -300,6 +315,10 @@ def check_kernels(gen):
     results += check_serving_kernels(
         lambda *shape: torch.randn(shape, generator=own, device="cuda").to(torch.bfloat16),
         ulps)
+    bwd = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    results += check_backward_kernels(
+        lambda *shape, dtype=torch.bfloat16: torch.randn(
+            shape, generator=bwd, device="cuda").to(dtype), ulps)
     for r in results:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -371,7 +390,7 @@ def check_fused_kernels(randn, ulps):
         # -- LN + QKV (+ qk-norm + RoPE) -> q, k, v (B, H, n, 64)
         if tabs is None:
             args = (x, n1["scale"], n1["bias"], at["qkv"]["w"], at["qkv"]["b"], H, 1e-6)
-            kern, plain, name = FQ.fused_ln_qkv, FQ.fused_ln_qkv_plain, "fused_ln_qkv"
+            kern, plain, name = FQ.fused_ln_qkv_fwd, FQ.fused_ln_qkv_plain, "fused_ln_qkv"
             chain = lambda: tuple(t.contiguous() for t in AT.qkv_heads(  # noqa: E731
                 at, P.layer_norm(n1, x, 1e-6), vit_cfg))
             ins = [x, at["qkv"]["w"], at["qkv"]["b"], n1["scale"], n1["bias"]]
@@ -379,7 +398,7 @@ def check_fused_kernels(randn, ulps):
         else:
             args = (x, n1["scale"], n1["bias"], at["qkv"]["w"], at["qkv"]["b"],
                     qn["scale"], qn["bias"], kn["scale"], kn["bias"], *tabs, H, 1e-5)
-            kern, plain = FQ.fused_ln_qkv_rope, FQ.fused_ln_qkv_rope_plain
+            kern, plain = FQ.fused_ln_qkv_rope_fwd, FQ.fused_ln_qkv_rope_plain
             name = "fused_ln_qkv_rope"
             chain = lambda: tuple(t.contiguous() for t in AT.qkv_heads(  # noqa: E731
                 at, P.layer_norm(n1, x, 1e-5), attn_cfg, tabs))
@@ -395,9 +414,9 @@ def check_fused_kernels(randn, ulps):
         o = randn(B, H, n, d)
         pargs = (o, x, at["proj"]["w"], at["proj"]["b"], p["ls1"]["gamma"])
         per_kernel["fused_proj_residual"].append(measure(
-            "fused_proj_residual", site, [FQ.fused_proj_residual(*pargs)],
+            "fused_proj_residual", site, [FQ.fused_proj_residual_fwd(*pargs)],
             [FQ.fused_proj_residual_plain(*pargs)], {"y": 2}, 2.0 * M * C * C, list(pargs),
-            (lambda: FQ.fused_proj_residual(*pargs),
+            (lambda: FQ.fused_proj_residual_fwd(*pargs),
              lambda: FQ.fused_proj_residual_plain(*pargs),
              lambda: x + P.layer_scale(p["ls1"], P.linear(at["proj"], AT._merge_heads(o))))))
         # -- MLP up: LN2 + fc1 + GELU -> hidden
@@ -571,6 +590,112 @@ def check_serving_kernels(randn, ulps):
     return results
 
 
+TRAIN_FRAMES = 2  # frames a scene on the train step (bench.py:bench_train's S)
+
+
+def check_backward_kernels(randn, ulps):
+    """Phase 2, the two B9 kernels (dq; dk/dv) at the train step's shapes:
+    the ViT, frame and global sites, the two calls of the frame-context
+    split (own frame, and the broadcast context with an lse cotangent), and
+    the RelocMask variant at reloc layer 0's shape. Inputs: random q, k, v
+    and do, with o and lse from the forward kernel. Held against
+    ``flash_bwd_plain``: bf16 outputs, kernel and plain version recompute p
+    and ds in fp32 with other summation orders and round ds, p and the
+    result to bf16, so the tolerance is 4 ulps at the largest |grad| of each
+    output. Timed beside the plain backward (all three gradients) and the
+    yardstick ``torch.autograd.grad`` through SDPA at the same shape (its
+    forward run once beforehand, so only the backward is timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
+    from self_supervise_sfm_tpu_torch.ops.mask_spec import RelocMask
+
+    S, H, d = TRAIN_FRAMES, 16, 64
+    P = (IMG // 14) ** 2 + 5
+    nc = S * (RANK + 5)
+    # (name, BH, Nq, Nk, with an lse cotangent, mask)
+    sites = [("vit", S * H, P, P, False, None),
+             ("frame", 2 * S * H, P, P, False, None),
+             ("global", H, S * P, S * P, False, None),
+             ("split own", S * H, P, P, True, None),
+             ("split context", S * H, P, nc, True, None),
+             ("reloc layer 0, RelocMask", H, S * P, nc + S * P, False,
+              RelocMask(nc, P, S))]
+    rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+    for site, bh, nq, nk, with_dlse, mask in sites:
+        q, do = randn(bh, nq, d), randn(bh, nq, d)
+        k, v = randn(bh, nk, d), randn(bh, nk, d)
+        o, lse = FA.flash_fwd(q, k, v) if mask is None else FA.flash_fwd_reloc(q, k, v, mask)
+        dlse = randn(bh, nq, dtype=torch.float32) if with_dlse else None
+        grads = FA.flash_bwd(q, k, v, o, lse, do, dlse, mask)
+        torch.cuda.synchronize()
+        refs = FA.flash_bwd_plain(q, k, v, o, lse, do, dlse, mask)
+        errs = {}
+        for label, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            errs[label] = float((g.float() - r.float()).abs().max())
+            _check(f"flash_bwd[{site}] {label} {tuple(g.shape)}", errs[label], ulps(r, 4))
+        delta = FA._delta(o, do, dlse).contiguous()
+        pairs = nq * nk if mask is None else nq * (nc + P)  # allowed pairs a head
+        io = (2 * q.numel() + 2 * k.numel()) * 2 + 2 * lse.numel() * 4
+        qm, km, vm = (t.view(1, bh, -1, d).detach().requires_grad_() for t in (q, k, v))
+        attn_mask = None if mask is None else mask.materialize("cuda")
+        out = F.scaled_dot_product_attention(qm, km, vm, attn_mask=attn_mask)
+        dom = do.view(out.shape)
+        library = _time_ms(lambda: torch.autograd.grad(out, (qm, km, vm), dom,
+                                                       retain_graph=True))
+        plain = _time_ms(lambda: FA.flash_bwd_plain(q, k, v, o, lse, do, dlse, mask),
+                         reps=3, warmup=1)
+        common = dict(site=site, shape=[bh, nq, nk, d], plain_ms=plain, library_ms=library,
+                      masked=mask is not None)
+        b_dq, by_dq = _bound_ms(3 * 2.0 * bh * pairs * d, io + q.numel() * 2)
+        rows["flash_bwd_dq"].append(dict(
+            common, max_abs_err=errs["dq"], bound_ms=b_dq, bound_by=by_dq,
+            ms=_time_ms(lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, mask))))
+        b_kv, by_kv = _bound_ms(4 * 2.0 * bh * pairs * d, io + 2 * k.numel() * 2)
+        rows["flash_bwd_dkv"].append(dict(
+            common, max_abs_err=max(errs["dk"], errs["dv"]), bound_ms=b_kv, bound_by=by_kv,
+            ms=_time_ms(lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, mask))))
+        del q, k, v, do, o, lse, grads, refs, out, qm, km, vm
+        torch.cuda.empty_cache()
+    results = []
+    for name, line in (("flash_bwd_dq", 332), ("flash_bwd_dkv", 349)):
+        ss = rows[name]
+        for s_ in ss:
+            print(f"  {name}[{s_['site']}] {s_['shape']}: kernel {s_['ms']:.4f} ms, bound "
+                  f"{s_['bound_ms']:.4f} ms ({s_['bound_by']}), plain backward "
+                  f"{s_['plain_ms']:.4f} ms, SDPA backward {s_['library_ms']:.4f} ms")
+        path = [s_ for s_ in ss if not s_["masked"]]
+        results.append(dict(
+            name=name, route="cuda",
+            source="self_supervise_sfm_tpu_torch/csrc/flash_attention.cu",
+            replaces=f"self_supervise_sfm_tpu/ops/flash_attention.py:{line}",
+            # one call at each unmasked site of the train step; plain_ms and
+            # library_ms compute all three gradients
+            max_abs_err=max(s_["max_abs_err"] for s_ in ss),
+            **{k: sum(s_[k] for s_ in path)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            bound_by=path[-1]["bound_by"], sites=ss))
+    return results
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel's launch wrapper by its name in the kernel line; each
+    counts its launches in ``.launches``."""
+    from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
+    from self_supervise_sfm_tpu_torch.ops import fused_qkv as FQ
+    from self_supervise_sfm_tpu_torch.ops import resize as RS
+
+    return {"flash_fwd": FA.flash_fwd, "frame_ctx_fwd": FA.frame_ctx_fwd,
+            "frame_ctx_packed_fwd": FA.frame_ctx_packed_fwd,
+            "flash_fwd_reloc": FA.flash_fwd_reloc,
+            "resize_bilinear": RS.resize_bilinear_fwd,
+            "fused_ln_qkv_rope": FQ.fused_ln_qkv_rope_fwd, "fused_ln_qkv": FQ.fused_ln_qkv_fwd,
+            "fused_proj_residual": FQ.fused_proj_residual_fwd,
+            "fused_mlp_up": FQ.fused_mlp_up, "fused_mlp_down": FQ.fused_mlp_down,
+            "flash_bwd_dq": FA.flash_bwd_dq, "flash_bwd_dkv": FA.flash_bwd_dkv}
+
+
 def run_forward(gen):
     """Phase 3: the full-width forward through the kernels, its launch counts,
     and its agreement with the plain-path forward."""
@@ -578,17 +703,8 @@ def run_forward(gen):
 
     from self_supervise_sfm_tpu_torch.models import aggregator as AG
     from self_supervise_sfm_tpu_torch.models import sailrecon as M
-    from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
-    from self_supervise_sfm_tpu_torch.ops import fused_qkv as FQ
-    from self_supervise_sfm_tpu_torch.ops import resize as RS
 
-    wrappers = {"flash_fwd": FA.flash_fwd, "frame_ctx_fwd": FA.frame_ctx_fwd,
-                "frame_ctx_packed_fwd": FA.frame_ctx_packed_fwd,
-                "flash_fwd_reloc": FA.flash_fwd_reloc,
-                "resize_bilinear": RS.resize_bilinear,
-                "fused_ln_qkv_rope": FQ.fused_ln_qkv_rope, "fused_ln_qkv": FQ.fused_ln_qkv,
-                "fused_proj_residual": FQ.fused_proj_residual,
-                "fused_mlp_up": FQ.fused_mlp_up, "fused_mlp_down": FQ.fused_mlp_down}
+    wrappers = kernel_wrappers()
     unfused = dict(fused_qkv="off", fused_mlp="off")
     plain_sites = dict(attn_impl="dense", global_attn_impl="dense", resize_impl="einsum",
                        **unfused)
@@ -624,7 +740,8 @@ def run_forward(gen):
     expected = {"flash_fwd": 72, "frame_ctx_fwd": 24, "frame_ctx_packed_fwd": 0,
                 "flash_fwd_reloc": 0, "resize_bilinear": 2,
                 "fused_ln_qkv_rope": 72, "fused_ln_qkv": 24, "fused_proj_residual": 96,
-                "fused_mlp_up": 96, "fused_mlp_down": 96}
+                "fused_mlp_up": 96, "fused_mlp_down": 96, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0}
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
 
@@ -1063,6 +1180,247 @@ def run_serving(state):
     return {"build": n_build, "reloc": n_reloc, "mask_form": n_mask}, res
 
 
+def make_train_batch():
+    """One scene in the ``IMC2021Scenes`` / ``stack_scenes`` layout: 2 random
+    frames of 518 px and 2 pairs (0 -> 1, 1 -> 0) of 10 000
+    correspondences each, made with numpy from SEED + 7. The correspondences
+    come from known poses and depths in a 640 x 480 original image (focal
+    500 px): source pixels and depths (2-8 units) drawn at random, mapped
+    through the two poses into the other camera, so the ground truth
+    reprojects them exactly."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 7)
+    S, K, W0, H0 = TRAIN_FRAMES, 10_000, 640, 480
+    Kgt = np.array([[500.0, 0.0, W0 / 2], [0.0, 500.0, H0 / 2], [0.0, 0.0, 1.0]])
+    a = 0.1  # the second camera: 0.1 rad about y, then a 0.3 / 0.05 shift
+    R = [np.eye(3), np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])]
+    t = [np.zeros(3), np.array([0.3, 0.0, 0.05])]
+    coords, depths = {"src": [], "dst": []}, {"src": [], "dst": []}
+    for s_, d_ in ((0, 1), (1, 0)):
+        uv = rng.uniform((0.0, 0.0), (W0, H0), size=(K, 2))
+        z = rng.uniform(2.0, 8.0, size=K)
+        cam = (np.c_[uv, np.ones(K)] @ np.linalg.inv(Kgt).T) * z[:, None]
+        world = (cam - t[s_]) @ R[s_]  # R^T (x - t), row vectors
+        cam_d = world @ R[d_].T + t[d_]
+        proj = cam_d @ Kgt.T
+        coords["src"].append(uv)
+        coords["dst"].append(proj[:, :2] / proj[:, 2:])
+        depths["src"].append(z)
+        depths["dst"].append(cam_d[:, 2])
+    f32 = np.float32
+    batch = {
+        "images": rng.uniform(size=(1, S, IMG, IMG, 3)).astype(f32),
+        "K_prime_to_K": np.broadcast_to(np.diag([W0 / IMG, H0 / IMG, 1.0]),
+                                        (1, S, 3, 3)).astype(f32),
+        "src_idx": np.array([[0, 1]], np.int32), "dst_idx": np.array([[1, 0]], np.int32),
+        "src_coords": np.stack(coords["src"])[None].astype(f32),
+        "dst_coords": np.stack(coords["dst"])[None].astype(f32),
+        "src_depth": np.stack(depths["src"])[None].astype(f32),
+        "dst_depth": np.stack(depths["dst"])[None].astype(f32),
+        "pair_valid": np.ones((1, 2), f32),
+    }
+    extr = np.stack([np.c_[R[i], t[i]] for i in range(S)]).astype(f32)
+    intr = np.linalg.inv(batch["K_prime_to_K"][0]) @ Kgt
+    return batch, extr, intr.astype(f32)
+
+
+def run_train():
+    """Phase 5: the self-supervised train step at full width (ViT-L/14 and
+    24 aggregator layers, 518 px, 2 frames a scene duplicated as anchors and
+    queries, rank 300, bf16 trunk on fp32 masters, fp32 camera head, Adam
+    with a bf16 first moment, each aggregator layer rematerialised:
+    ``bench.py:bench_train``'s configuration at the full depth that it cut
+    to 12 for a 16 GB TPU). Launch counts of one step against the code's
+    prediction, four steps (the first at learning rate 0), finite losses and
+    gradient norms, the untouched DPT heads, and the gradients against the
+    plain path's (dense attention, fused kernels off) within twice the
+    bf16-vs-fp32 envelope the plain path measures; then times, peak memory
+    and a profile of one step."""
+    import torch
+
+    from self_supervise_sfm_tpu_torch.models import aggregator as AG
+    from self_supervise_sfm_tpu_torch.models import sailrecon as M
+    from self_supervise_sfm_tpu_torch.train import loop as L
+    from self_supervise_sfm_tpu_torch.train import loss as LS
+
+    wrappers = kernel_wrappers()
+    plain_sites = dict(attn_impl="dense", global_attn_impl="dense", fused_qkv="off",
+                       fused_mlp="off")
+    cfg = M.make_config(compute_dtype="bfloat16", remat=True)
+    cfg_plain = M.make_config(compute_dtype="bfloat16", remat=True, **plain_sites)
+    cfg_f32 = M.make_config(remat=True, **plain_sites)
+    tcfg = L.TrainConfig(rank=RANK, num_images=TRAIN_FRAMES, adam_mu_dtype="bfloat16",
+                         warmup_steps=1)
+    failures = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    t0 = time.perf_counter()
+    state = L.init_train_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 7))
+    params = state["params"]
+    # conditioned as the JAX package's golden loss test conditions its
+    # reference model (tests/test_train_step.py): a small pose-branch output
+    # whose bias sums to a unit quaternion and 1 rad fields of view over the
+    # 4 iterations, so the residuals start inside the CDF's range
+    fc2 = params["camera_head"]["pose_branch"]["fc2"]
+    fc2["w"].mul_(0.01)
+    fc2["b"].mul_(0.01)
+    fc2["b"][[3, 7, 8]] = 0.25
+    n_params = sum(t.numel() for t in L._flatten(params))
+    n_trained = sum(t.numel() for k in ("aggregator", "camera_head")
+                    for t in L._flatten(params[k]))
+    heads0 = [t.clone() for k in ("depth_head", "point_head") for t in L._flatten(params[k])]
+    # a sample of trained leaves, to see whether a step moved them
+    sample = lambda: [params["aggregator"]["vit"]["blocks"][0]["attn"]["qkv"]["w"],  # noqa: E731
+                      params["aggregator"]["global_blocks"][-1]["mlp"]["fc2"]["w"],
+                      params["camera_head"]["pose_branch"]["fc2"]["w"]]
+    batch_np, extr_gt, intr_gt = make_train_batch()
+    batch = L.batch_to_device(batch_np, "cuda")
+    torch.cuda.synchronize()
+    print(f"  init {time.perf_counter() - t0:.2f} s: {n_params / 1e6:.1f} M parameters, "
+          f"{n_trained / 1e6:.1f} M trained (the DPT heads are not in the loss)")
+    # the batch's ground truth reprojects its correspondences exactly
+    scene = {k: v[0] for k, v in batch.items() if k != "images"}
+    gt = LS.scene_residuals(torch.from_numpy(extr_gt).cuda(), torch.from_numpy(intr_gt).cuda(),
+                            scene, tcfg.loss)
+    gt_max = float(torch.maximum(gt["residuals"].max(), gt["residuals_approx"].max()))
+    print(f"  batch: 2 pairs x 10000 correspondences; ground-truth residual max {gt_max:.3e} px")
+    expect(gt_max < 1e-2, f"ground-truth residuals up to {gt_max} px")
+
+    P0 = (IMG // 14) ** 2
+
+    def indices(i):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 8 + i)
+        return AG.draw_subsample_indices(cfg.aggregator, 1, TRAIN_FRAMES, P0, RANK, g)
+
+    step = L.make_train_step(cfg, tcfg)
+    before = [t.clone() for t in sample()]
+    for w in wrappers.values():
+        w.launches = 0
+    state, m0 = step(state, batch, indices(0))
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"  launches in one step: {launches}")
+    # d aggregator layers, v ViT blocks, remat on the aggregator layers:
+    # forwards v + 2d flash (+ 2d recomputed + 2d in the frame-context
+    # split's backward), d frame-context (+ d recomputed), 3d fused block
+    # kernels of each kind (+ 3d recomputed) and v more of the ViT's;
+    # backwards: one B9 pair a flash attention, two a frame-context split
+    d, v = 24, 24
+    want = {**dict.fromkeys(wrappers, 0), "flash_fwd": v + 6 * d, "frame_ctx_fwd": 2 * d,
+            "fused_ln_qkv": v, "fused_ln_qkv_rope": 6 * d, "fused_proj_residual": v + 6 * d,
+            "fused_mlp_up": v + 6 * d, "fused_mlp_down": v + 6 * d,
+            "flash_bwd_dq": v + 4 * d, "flash_bwd_dkv": v + 4 * d}
+    if launches != want:
+        raise AssertionError(f"train step launch counts {launches}, expected {want}")
+    lr0 = float(m0["learning_rate"])
+    expect(lr0 == 0.0 and all(torch.equal(a, b) for a, b in zip(before, sample())),
+           f"step 0 (learning rate {lr0}) moved the parameters")
+
+    metrics, times = [m0], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in (1, 2, 3):
+        before = [t.clone() for t in sample()]
+        t0 = time.perf_counter()
+        state, m = step(state, batch, indices(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append(m)
+        if i == 1:
+            expect(all(not torch.equal(a, b) for a, b in zip(before, sample())),
+                   "step 1 (learning rate > 0) left a sampled parameter unchanged")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    keys = ("loss", "loss_cdf_exact", "loss_cdf_approx", "mean_log_residual",
+            "log_residual_p50", "grad_norm", "grad_norm_vit", "grad_norm_agg",
+            "grad_norm_camera", "learning_rate")
+    for i, m in enumerate(metrics):
+        vals = {k: float(m[k]) for k in m}
+        print(f"  step {i}: " + ", ".join(f"{k} {vals[k]:.6g}" for k in keys))
+        expect(all(math.isfinite(x) for x in vals.values()), f"step {i}: non-finite metrics")
+        for k in ("grad_norm_vit", "grad_norm_agg", "grad_norm_camera"):
+            expect(vals[k] > 0, f"step {i}: {k} = {vals[k]}")
+        expect(vals["grad_norm_depth"] == 0 and vals["grad_norm_point"] == 0,
+               f"step {i}: nonzero DPT head gradient norms")
+    heads = [t for k in ("depth_head", "point_head") for t in L._flatten(params[k])]
+    expect(all(torch.equal(a, b) for a, b in zip(heads0, heads)), "a DPT head changed")
+    del heads0, heads
+
+    # gradients of the kernel path against the plain path, same state and
+    # subsample; the envelope is what bf16 moves the plain path from fp32
+    idx = indices(99)
+    for w in wrappers.values():
+        w.launches = 0
+    loss_k, _, gk = L.loss_and_grads(params, cfg, tcfg, batch, idx)
+    loss_p, _, gp = L.loss_and_grads(params, cfg_plain, tcfg, batch, idx)
+    loss_f, _, gf = L.loss_and_grads(params, cfg_f32, tcfg, batch, idx)
+    torch.cuda.synchronize()
+    n_kernel = sum(w.launches for w in wrappers.values())
+    print(f"  loss: kernel path {float(loss_k):.6f}, plain {float(loss_p):.6f}, "
+          f"plain fp32 {float(loss_f):.6f}")
+    subsystems = {
+        "vit": lambda g: L._flatten(g["aggregator"]["vit"]),
+        "agg": lambda g: L._flatten({k: x for k, x in g["aggregator"].items() if k != "vit"}),
+        "camera": lambda g: L._flatten(g["camera_head"]),
+    }
+
+    def rel(a, b):
+        num = sum(float((x.float() - y.float()).pow(2).sum()) for x, y in zip(a, b))
+        return math.sqrt(num) / float(L.global_norm(b))
+
+    grads = {}
+    for name, part in subsystems.items():
+        a, b, c = part(gk), part(gp), part(gf)
+        err, env = rel(a, b), rel(b, c)
+        na, nb = float(L.global_norm(a)), float(L.global_norm(b))
+        norm_err = abs(na - nb) / nb
+        grads[name] = dict(rel_rms=err, envelope=env, norm_kernel=na, norm_plain=nb,
+                           norm_rel_err=norm_err)
+        print(f"  gradient {name}: kernel vs plain rel-RMS {err:.4e}, norm {na:.6g} vs "
+              f"{nb:.6g} (rel {norm_err:.4e}); plain bf16 vs fp32 {env:.4e} "
+              f"(tolerance 2x that)")
+        expect(err <= 2 * env, f"gradient {name}: {err} over twice the envelope {env}")
+        expect(norm_err <= 2 * env, f"gradient norm {name}: {norm_err} over twice {env}")
+    del gk, gp, gf
+
+    # remat: nothing on the kernel path sums with atomics but the loss's
+    # histograms (index_add_); the gradients with the layers rematerialised,
+    # again, and held, for the record
+    cfg_held = M.make_config(compute_dtype="bfloat16", remat=False)
+    runs = [L.loss_and_grads(params, c, tcfg, batch, idx)[2]
+            for c in (cfg, cfg, cfg_held)]
+    flat = [L._flatten(g) for g in runs]
+
+    def equal_share(a, b):
+        return sum(bool(torch.equal(x, y)) for x, y in zip(a, b)) / len(a)
+
+    remat = dict(repeat_bit_equal_share=equal_share(flat[0], flat[1]),
+                 held_bit_equal_share=equal_share(flat[0], flat[2]),
+                 held_rel_rms=rel(flat[0], flat[2]))
+    print(f"  remat: leaves bit-equal between two remat runs {remat['repeat_bit_equal_share']:.4f}, "
+          f"remat vs held {remat['held_bit_equal_share']:.4f} (rel-RMS "
+          f"{remat['held_rel_rms']:.3e})")
+    del runs, flat
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    step_s = statistics.median(times)
+    print("  profile of one train step (every kernel on):")
+    profile = profile_forward(lambda: step(state, batch, indices(4)), label="train step")
+    print(f"  train step: {step_s * 1e3:.2f} ms median of {len(times)} "
+          f"({[round(t * 1e3, 2) for t in times]}), {1 / step_s:.4f} steps/s, "
+          f"peak memory {peak_gb:.2f} GB")
+    return launches, dict(
+        step_ms=step_s * 1e3, steps_per_s=1 / step_s, times_ms=[t * 1e3 for t in times],
+        peak_gb=peak_gb, params_m=n_params / 1e6, trained_m=n_trained / 1e6,
+        kernel_launches_gradient_eval=n_kernel,
+        metrics=[{k: float(x) for k, x in m.items()} for m in metrics],
+        gradients=grads, remat=remat, loss_kernel=float(loss_k), loss_plain=float(loss_p),
+        loss_f32=float(loss_f), profile=profile)
+
+
 def main() -> int:
     import torch
 
@@ -1085,6 +1443,11 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             print("  " + line.strip())
 
+    if "--train-only" in sys.argv[1:]:
+        print("phase 5 alone: full-width train step")
+        _, train = run_train()
+        print(json.dumps({"train": train}))
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     print("phase 2: kernels against their plain versions at main-path shapes")
     kernels = check_kernels(gen)
@@ -1102,12 +1465,24 @@ def main() -> int:
     for k in kernels:
         k["launches_by_path"] = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
-        if k["launches"] == 0:
-            raise AssertionError(f"{k['name']} was launched on no path")
     print(f"{card}: build {serving['build_ms']:.2f} ms, reloc "
           f"{serving['reloc_frames_per_s']:.3f} frames/s (full heads), "
           f"{serving['fast_reloc_frames_per_s']:.3f} frames/s (fast_reloc)")
+    del state
+    torch.cuda.empty_cache()
+    print("phase 5: full-width train step (2 frames, depth 24, rank 300, bf16 trunk, "
+          "fp32 masters, remat)")
+    train_launches, train = run_train()
+    for k in kernels:
+        k["launches_by_path"]["train"] = train_launches[k["name"]]
+        k["launches"] += train_launches[k["name"]]
+    print(f"{card}: train step {train['step_ms']:.2f} ms, {train['steps_per_s']:.4f} "
+          f"steps/s, peak memory {train['peak_gb']:.2f} GB")
+    for k in kernels:
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} was launched on no path")
     print(json.dumps({"forward": fwd}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

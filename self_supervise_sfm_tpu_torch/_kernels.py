@@ -41,6 +41,9 @@ _SIGNATURES: Dict[str, List] = {
     "sfm_flash_fwd_reloc_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # the layer stride of the stacked cache is a 64-bit element count
     "sfm_frame_ctx_kv2_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _F, _P],
+    # q, k, v, do, lse, delta, outputs; bh, nq, nk, n_ctx, frame_size, masked
+    "sfm_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 6 + [_F, _F, _P],
+    "sfm_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
     "sfm_resize_bilinear_ac": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sfm_fused_ln_qkv_rope": [_P] * 15 + [_I, _I, _I, _F, _P],
     "sfm_fused_ln_qkv": [_P] * 9 + [_I, _I, _I, _F, _P],

@@ -10,6 +10,9 @@ numpy array (nested dicts and lists; no JAX types). The conversion:
   and transposed-conv weights from ``(kh, kw, out, in)`` to PyTorch's
   ``(in, out, kh, kw)`` — the same permutation (3, 2, 0, 1) for both;
 - keeps every other leaf's layout (linear weights stay ``(d_in, d_out)``).
+
+:func:`train_state_from_jax` converts a whole train state the same way
+(params and the Adam moments).
 """
 
 from __future__ import annotations
@@ -25,10 +28,12 @@ _STACKED = frozenset({"frame_blocks", "global_blocks", "reloc_blocks", "blocks",
 
 
 def _leaf(key, a):
-    t = torch.from_numpy(np.array(a))
-    if key == "w" and t.dim() == 4:
-        t = t.permute(3, 2, 0, 1).contiguous()
-    return t
+    a = np.asarray(a)
+    if key == "w" and a.ndim == 4:
+        a = a.transpose(3, 2, 0, 1)
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a, order="C"))
 
 
 def _convert(node, key=None):
@@ -61,6 +66,36 @@ def from_jax_params(tree_of_numpy: Any):
     """JAX ``init_sailrecon`` params (numpy leaves) -> the port's params, as
     CPU tensors."""
     return _convert(tree_of_numpy)
+
+
+def _find_adam(node):
+    """The optax ``ScaleByAdamState`` (a namedtuple with count / mu / nu)
+    inside an optax chain's state."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (list, tuple)):
+        for child in node:
+            found = _find_adam(child)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(state_numpy):
+    """A JAX train state (``train/loop.py:init_train_state`` or a stepped
+    one, every leaf a numpy array) -> the port's ``{"params", "opt": {"mu",
+    "nu", "count"}, "step"}`` with CPU tensors, bit for bit: params and nu
+    fp32, mu in its own dtype (fp32 or bf16). The PRNG key has no
+    counterpart: the port takes the subsample from the caller."""
+    adam = _find_adam(state_numpy["opt_state"])
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+    return {
+        "params": _convert(state_numpy["params"]),
+        "opt": {"mu": _convert(adam.mu), "nu": _convert(adam.nu),
+                "count": int(np.asarray(adam.count))},
+        "step": int(np.asarray(state_numpy["step"])),
+    }
 
 
 def cache_from_jax(cache_numpy, dtype: torch.dtype = torch.float32,

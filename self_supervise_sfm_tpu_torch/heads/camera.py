@@ -87,6 +87,9 @@ def camera_head(p, tokens_last, cam_token_last_layer,
             module_input = P.linear(
                 p["embed_pose"], p["empty_pose_tokens"].expand(B, S, cfg.target_dim))
         else:
+            # the reference's per-iteration .detach() (JAX: stop_gradient):
+            # each iteration's gradient reaches the trunk through its delta only
+            pred_pose_enc = pred_pose_enc.detach()
             module_input = P.linear(p["embed_pose"], pred_pose_enc)
         mod = P.linear(p["poseLN_modulation"], F.silu(module_input))
         shift, scale, gate = mod.chunk(3, dim=-1)

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from . import params as P
 from ..ops import fused_qkv as FQ
@@ -158,6 +159,15 @@ def attn_out_mlp(p, o: torch.Tensor, x: torch.Tensor, cfg: BlockConfig) -> torch
     else:
         x = x + P.layer_scale(p["ls1"], P.linear(p["attn"]["proj"], _merge_heads(o)))
     return _mlp_residual(p, x, cfg)
+
+
+def remat_call(on: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``on`` and grad mode is on: the JAX package's ``jax.checkpoint`` of a
+    layer or block. The backward runs its forward again, kernels included."""
+    if on and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def block(

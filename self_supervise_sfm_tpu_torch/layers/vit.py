@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from . import params as P
-from .block import BlockConfig, block, init_block
+from .block import BlockConfig, block, init_block, remat_call
 
 
 @dataclass(frozen=True)
@@ -31,6 +31,8 @@ class ViTConfig:
     attn_impl: str = "auto"
     fused_qkv: str = "auto"
     fused_mlp: str = "auto"
+    # checkpoint each block (recomputed in the backward)
+    remat: bool = False
 
     @property
     def grid(self) -> int:
@@ -119,7 +121,7 @@ def vit_forward(p, images: torch.Tensor, cfg: ViTConfig, compute_dtype=torch.flo
         x = torch.cat([x[:, :1], regs, x[:, 1:]], dim=1)
     bcfg = cfg.block_cfg
     for bp in p["blocks"]:
-        x = block(bp, x, bcfg)
+        x = remat_call(cfg.remat, block, bp, x, bcfg)
     x = P.layer_norm(p["norm"], x, cfg.ln_eps)
     return {
         "x_norm_clstoken": x[:, 0],

@@ -37,7 +37,7 @@ from ..layers import rope as R
 from ..layers.attention import attention_heads_out
 from ..layers.block import (
     BlockConfig, attn_out_mlp, block, block_context_kv, block_with_context,
-    init_block, qkv_parts,
+    init_block, qkv_parts, remat_call,
 )
 from ..layers.vit import ViTConfig, init_vit, vit_forward, vit_large
 from ..ops.flash_attention import packed_ctx_attention
@@ -67,6 +67,8 @@ class AggregatorConfig:
     global_attn_impl: str = "auto"
     fused_qkv: str = "auto"
     fused_mlp: str = "auto"
+    # checkpoint each layer of the joint forward (recomputed in the backward)
+    remat: bool = False
 
     @property
     def patch_start_idx(self) -> int:
@@ -276,11 +278,7 @@ def aggregator_forward(
     bcfg, bcfg_g = cfg.block_cfg, cfg.global_block_cfg
     taps_list = _check_taps(cfg)
 
-    taps: Dict[int, torch.Tensor] = {}
-    cam = None
-    for li in range(cfg.depth):
-        fp, gp, rp = (p[k][li] for k in ("frame_blocks", "global_blocks", "reloc_blocks"))
-        idx_l = idx[li]
+    def layer(tokens, fp, gp, rp, idx_l):
         # 1. frame attention
         t = block(fp, tokens.reshape(B * S, Ptok, C), bcfg, t_frame)
         frame_out = t.reshape(B, S, Ptok, C)
@@ -295,8 +293,14 @@ def aggregator_forward(
         reloc_out = q.reshape(B, Q, Ptok, C)
         # 4. global attention over all anchor tokens
         g = block(gp, anchors.reshape(B, A * Ptok, C), bcfg_g, t_global)
-        global_out = g.reshape(B, A, Ptok, C)
+        return frame_out, reloc_out, g.reshape(B, A, Ptok, C)
 
+    taps: Dict[int, torch.Tensor] = {}
+    cam = None
+    for li in range(cfg.depth):
+        fp, gp, rp = (p[k][li] for k in ("frame_blocks", "global_blocks", "reloc_blocks"))
+        frame_out, reloc_out, global_out = remat_call(cfg.remat, layer, tokens, fp, gp,
+                                                      rp, idx[li])
         if li in taps_list:
             taps[li] = torch.cat([frame_out[:, A:], reloc_out], dim=-1).float()
         if li == cfg.depth - 1:

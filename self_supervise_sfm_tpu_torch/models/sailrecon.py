@@ -55,6 +55,8 @@ def make_config(
     vit_num_heads: Optional[int] = None,
     intermediate_layer_idx=(4, 11, 17, 23),
     compute_dtype: str = "float32",
+    remat: bool = False,
+    vit_remat: bool = False,
     attn_impl: str = "auto",
     global_attn_impl: str = "auto",
     resize_impl: str = "auto",
@@ -67,17 +69,18 @@ def make_config(
     (``fused_qkv`` / ``fused_mlp`` "auto"); the fp32 camera head stays
     unfused. ``attn_impl="dense"``, ``resize_impl="einsum"`` and
     ``fused_qkv="off", fused_mlp="off"`` run every kernel site through plain
-    PyTorch instead."""
+    PyTorch instead. ``remat`` checkpoints each aggregator layer and
+    ``vit_remat`` each ViT block for the backward."""
     vit = ViTConfig(
         img_size=img_size, patch_size=patch_size,
         embed_dim=vit_embed_dim or embed_dim, depth=vit_depth,
         num_heads=vit_num_heads or num_heads, attn_impl=attn_impl,
-        fused_qkv=fused_qkv, fused_mlp=fused_mlp,
+        fused_qkv=fused_qkv, fused_mlp=fused_mlp, remat=vit_remat,
     )
     agg = AggregatorConfig(
         img_size=img_size, patch_size=patch_size, embed_dim=embed_dim, depth=depth,
         num_heads=num_heads, intermediate_layer_idx=tuple(intermediate_layer_idx),
-        vit=vit, compute_dtype=compute_dtype, attn_impl=attn_impl,
+        vit=vit, compute_dtype=compute_dtype, remat=remat, attn_impl=attn_impl,
         global_attn_impl=global_attn_impl, fused_qkv=fused_qkv, fused_mlp=fused_mlp,
     )
     head_kw = dict(

@@ -1,8 +1,8 @@
-"""Flash attention (K1, K1m) and fused [context ‖ own frame] attention (K2, K2p).
+"""Flash attention (K1, K1m, B9) and fused [context ‖ own frame] attention (K2, K2p).
 
-Port of ``self_supervise_sfm_tpu/ops/flash_attention.py`` (forward only).
-The Pallas TPU kernels become hand-written CUDA kernels in
-``csrc/flash_attention.cu``; each sits beside its plain PyTorch version:
+Port of ``self_supervise_sfm_tpu/ops/flash_attention.py``. The Pallas TPU
+kernels become hand-written CUDA kernels in ``csrc/flash_attention.cu``;
+each sits beside its plain PyTorch version:
 
 - :func:`flash_fwd` (K1) replaces ``_flash_fwd``/``_kernel``: online
   softmax in the log2 domain, fp32 state, p cast to v's dtype before PV,
@@ -21,11 +21,24 @@ The Pallas TPU kernels become hand-written CUDA kernels in
   wrapper hands the kernel the whole cache's pointer and the layer index
   and copies nothing of the cache. Plain version
   :func:`frame_ctx_packed_plain`.
+- :func:`flash_bwd` (B9) replaces ``_flash_bwd``: ``delta = rowsum(do * o)
+  - dlse`` in PyTorch, then :func:`flash_bwd_dq` (``_dq_kernel``: a block
+  owns q rows and loops over key tiles) and :func:`flash_bwd_dkv`
+  (``_dkv_kernel``: a block owns key rows and loops over q tiles), each
+  recomputing p from the saved lse, with or without a RelocMask. Plain
+  version :func:`flash_bwd_plain`.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel or raises. The kernels are bound by the bf16
 tensor-core rate at the main-path sizes (see the source notes in the
 ``.cu`` file) and take bf16, contiguous, d = 64 inputs.
+
+Autograd reaches the kernels only through the ``torch.autograd.Function``s
+behind :func:`flash_attention`, :func:`flash_attention_lse` and
+:func:`frame_ctx_attention` (the JAX package's ``custom_vjp``s). The bare
+forward wrappers return tensors with no ``grad_fn``, so under grad mode they
+raise on an input that requires grad, on every device, rather than cut the
+graph.
 """
 
 from __future__ import annotations
@@ -60,6 +73,17 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
 
 
+def _check_no_grad(name: str, *ts: torch.Tensor) -> None:
+    """A bare launch returns tensors with no ``grad_fn``: refuse to cut the
+    autograd graph silently (differentiable callers go through the
+    Functions, whose ``forward`` runs with grad mode off)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            f"{name}: a bare kernel launch is not differentiable; call the "
+            "differentiable entry (flash_attention, flash_attention_lse, "
+            "frame_ctx_attention) instead")
+
+
 # -- K1: flash forward --------------------------------------------------------
 
 
@@ -91,6 +115,7 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """K1 wrapper: (BH, Nq, d) x (BH, Nk, d)^2 -> (out (BH, Nq, d), lse (BH, Nq) fp32)."""
+    _check_no_grad("flash_fwd", q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v)
     _check_cuda("flash_fwd", q, k, v)
@@ -122,6 +147,7 @@ def flash_fwd_reloc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: RelocMask):
     """K1m wrapper: :func:`flash_fwd` under a RelocMask. q: (BH, F*P, d);
     k/v: (BH, n_ctx + F*P, d), keys laid out [context ‖ frames]."""
+    _check_no_grad("flash_fwd_reloc", q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, mask)
     _check_cuda("flash_fwd_reloc", q, k, v)
@@ -146,26 +172,187 @@ def flash_fwd_reloc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd_reloc.launches = 0
 
 
-def flash_attention_lse(q, k, v, mask: Optional[RelocMask] = None):
-    """(B, H, Nq, d) x (B, H, Nk, d)^2 -> ((B, H, Nq, d), (B, H, Nq) fp32 lse)."""
+# -- B9: flash backward (dq kernel, dk/dv kernel) -----------------------------
+
+
+def _delta(o, do, dlse=None):
+    """rowsum(do * o) in fp32, shifted by the lse cotangent: d lse_i / d s_ij
+    = p_ij, so ds = p * (do v^T - (delta - dlse)) (``_flash_bwd``)."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta
+
+
+def flash_bwd_plain(q, k, v, o, lse, do, dlse=None,
+                    mask: Optional[RelocMask] = None):
+    """Dense twin of the B9 kernels: (dq, dk, dv) of (BH, N, d) attention.
+
+    Same arithmetic as ``_dq_kernel`` / ``_dkv_kernel``: fp32 logits scaled
+    into the log2 domain, p = exp2(s - lse * log2(e)) from the saved
+    natural-log lse (0 where masked), ds = p * (do v^T - delta) * scale, and
+    ds and p cast to the input dtype before their products, which
+    accumulate in fp32.
+    """
+    d = q.shape[-1]
+    scale = d**-0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (scale * LOG2E)
+    p = torch.exp2(s - (lse.float() * LOG2E)[..., None])
+    if mask is not None:
+        _check_mask("flash_bwd_plain", mask, q.shape[1], k.shape[1])
+        p = torch.where(mask.materialize(q.device)[0], p, torch.zeros_like(p))
+    dov = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dov - _delta(o, do, dlse)[..., None]) * scale
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float()).to(k.dtype)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float()).to(v.dtype)
+    return dq, dk, dv
+
+
+def _mask_args(mask: Optional[RelocMask]):
+    """(n_ctx, frame_size, masked) for the C entries."""
+    return (0, 0, 0) if mask is None else (mask.n_ctx, mask.frame_size, 1)
+
+
+def _check_bwd(name, q, k, v, do, lse, delta, mask) -> None:
+    """What the B9 kernels take: bf16 q / k / v / do of one head dim on one
+    device, fp32 contiguous (BH, Nq) lse and delta, shapes that agree."""
+    _check_cuda(name, q, k, v, do)
+    BH, Nq, d = q.shape
+    Nk = k.shape[1]
+    if k.shape != (BH, Nk, d) or v.shape != k.shape or do.shape != q.shape:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do {tuple(do.shape)}")
+    for key, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device
+                or tuple(t.shape) != (BH, Nq)):
+            raise TypeError(f"{name}: {key} must be contiguous float32 ({BH}, {Nq}) "
+                            f"on {q.device}")
+    if mask is not None:
+        _check_mask(name, mask, Nq, Nk)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
+    """The dq kernel (``_dq_kernel``): (BH, Nq, d) bf16, for CUDA tensors.
+    ``delta`` is :func:`flash_bwd`'s rowsum(do * o) - dlse."""
+    _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta, mask)
+    dq = torch.empty_like(q)
+    BH, Nq, d = q.shape
+    if BH and Nq:
+        _kernels.launch(
+            "sfm_flash_bwd_dq_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH,
+            Nq, k.shape[1], *_mask_args(mask), d**-0.5 * LOG2E, d**-0.5,
+            _kernels.stream_ptr(q),
+        )
+        flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
+    """The dk/dv kernel (``_dkv_kernel``): two (BH, Nk, d) bf16 tensors, for
+    CUDA tensors."""
+    _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, mask)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    BH, Nk, d = k.shape
+    if BH and Nk:
+        _kernels.launch(
+            "sfm_flash_bwd_dkv_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), BH, q.shape[1], Nk, *_mask_args(mask),
+            d**-0.5 * LOG2E, d**-0.5, _kernels.stream_ptr(q),
+        )
+        flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd(q, k, v, o, lse, do, dlse=None, mask: Optional[RelocMask] = None):
+    """B9 wrapper: (dq, dk, dv) of :func:`flash_fwd` / :func:`flash_fwd_reloc`
+    from its inputs, output, lse and the cotangents of out (and of lse).
+    q/o/do: (BH, Nq, d); k/v: (BH, Nk, d); lse/dlse: (BH, Nq) fp32."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, o, lse, do, dlse, mask)
+    _check_cuda("flash_bwd", q, o)
+    if o.shape != q.shape:
+        raise ValueError(f"flash_bwd: o {tuple(o.shape)} against q {tuple(q.shape)}")
+    delta = _delta(o, do, dlse).contiguous()
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, mask)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, mask)
+    return dq, dk, dv
+
+
+def _flat(q, k, v, mask):
+    """(B, H, N, d) -> contiguous (B*H, N, d) views of q, k, v."""
     if mask is not None and not isinstance(mask, RelocMask):
         raise TypeError(
             "the flash kernel takes a RelocMask or no mask; boolean masks "
             "stay on the dense path")
+    return tuple(t.reshape(-1, *t.shape[2:]).contiguous() for t in (q, k, v))
+
+
+def _attend(ctx, q, k, v, mask):
+    """Shared forward of the two Functions: K1 / K1m on the flattened heads;
+    saves what B9 needs."""
     B, H, Nq, d = q.shape
-    Nk = k.shape[2]
-    flat = (
-        q.reshape(B * H, Nq, d).contiguous(),
-        k.reshape(B * H, Nk, d).contiguous(),
-        v.reshape(B * H, Nk, d).contiguous(),
-    )
-    out, lse = flash_fwd(*flat) if mask is None else flash_fwd_reloc(*flat, mask)
+    qf, kf, vf = _flat(q, k, v, mask)
+    out, lse = flash_fwd(qf, kf, vf) if mask is None else flash_fwd_reloc(qf, kf, vf, mask)
+    ctx.save_for_backward(qf, kf, vf, out, lse)
+    ctx.mask = mask
+    ctx.shapes = (q.shape, k.shape)
     return out.reshape(B, H, Nq, d), lse.reshape(B, H, Nq)
 
 
+def _attend_bwd(ctx, do, dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    do = torch.zeros_like(o) if do is None else do.reshape(o.shape).contiguous()
+    if dlse is not None:
+        dlse = dlse.reshape(lse.shape)
+    dq, dk, dv = flash_bwd(q, k, v, o, lse, do, dlse, ctx.mask)
+    qs, ks = ctx.shapes
+    return dq.reshape(qs), dk.reshape(ks), dv.reshape(ks), None
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``_flash_mha``: K1 / K1m forward, B9 backward. (B, H, N, d) inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        return _attend(ctx, q, k, v, mask)[0]
+
+    @staticmethod
+    def backward(ctx, do):
+        return _attend_bwd(ctx, do, None)
+
+
+class _FlashAttentionLse(torch.autograd.Function):
+    """``_flash_mha_lse``: out and lse, both differentiable; the lse
+    cotangent goes into delta."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.set_materialize_grads(False)
+        return _attend(ctx, q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        return _attend_bwd(ctx, do, dlse)
+
+
+def flash_attention_lse(q, k, v, mask: Optional[RelocMask] = None):
+    """(B, H, Nq, d) x (B, H, Nk, d)^2 -> ((B, H, Nq, d), (B, H, Nq) fp32 lse).
+    Differentiable in q, k, v through both outputs."""
+    return _FlashAttentionLse.apply(q, k, v, mask)
+
+
 def flash_attention(q, k, v, mask: Optional[RelocMask] = None):
-    """(B, H, Nq, d) x (B, H, Nk, d)^2 -> (B, H, Nq, d)."""
-    return flash_attention_lse(q, k, v, mask)[0]
+    """(B, H, Nq, d) x (B, H, Nk, d)^2 -> (B, H, Nq, d). Differentiable."""
+    return _FlashAttention.apply(q, k, v, mask)
 
 
 def supported(q, k, v, mask) -> bool:
@@ -205,6 +392,7 @@ def _frame_ctx_dense(q, k, v, ck, cv):
 
 def frame_ctx_fwd(q, k, v, ck, cv):
     """K2 wrapper. q/k/v: (B*F, H, P, d); ck/cv: (B, H, Nc, d) -> (B*F, H, P, d)."""
+    _check_no_grad("frame_ctx_fwd", q, k, v, ck, cv)
     if q.device.type == "cpu":
         return _frame_ctx_dense(q, k, v, ck, cv)
     _check_cuda("frame_ctx_fwd", q, k, v, ck, cv)
@@ -230,9 +418,46 @@ def frame_ctx_fwd(q, k, v, ck, cv):
 frame_ctx_fwd.launches = 0
 
 
+def _frame_ctx_split(q, k, v, ck, cv):
+    """The differentiable composition that matches K2: own-frame flash and
+    broadcast-context flash merged by lse (exact softmax). Its VJP runs the
+    B9 kernels of both calls, the lse cotangent of the merge included."""
+    from .attention_core import _merge
+
+    BF, B = q.shape[0], ck.shape[0]
+    F = BF // B
+
+    def bcast(c):
+        return c[:, None].expand(B, F, *c.shape[1:]).reshape(BF, *c.shape[1:])
+
+    o_own, lse_own = flash_attention_lse(q, k, v)
+    o_ctx, lse_ctx = flash_attention_lse(q, bcast(ck).to(k.dtype), bcast(cv).to(v.dtype))
+    out, _ = _merge(o_own.float(), lse_own, o_ctx.float(), lse_ctx)
+    return out.to(q.dtype)
+
+
+class _FrameCtxAttention(torch.autograd.Function):
+    """``frame_ctx_attention``'s ``custom_vjp``: K2 forward; backward the
+    VJP of :func:`_frame_ctx_split` (recomputed, as ``_frame_ctx_bwd``
+    does). The context gradients sum over the frames of each scene."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ck, cv):
+        ctx.save_for_backward(q, k, v, ck, cv)
+        return frame_ctx_fwd(q, k, v, ck, cv)
+
+    @staticmethod
+    def backward(ctx, g):
+        res = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _frame_ctx_split(*res)
+        return torch.autograd.grad(out, res, g)
+
+
 def frame_ctx_attention(q, k, v, ck, cv):
-    """Fused reloc attention: frame-major q/k/v against shared context K/V."""
-    return frame_ctx_fwd(
+    """Fused reloc attention: frame-major q/k/v against shared context K/V.
+    Differentiable in all five."""
+    return _FrameCtxAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(),
         ck.to(k.dtype).contiguous(), cv.to(v.dtype).contiguous(),
     )
@@ -279,6 +504,7 @@ def frame_ctx_packed_fwd(q, k, v, ckv, layer: int):
     The kernel gets ``ckv.data_ptr()``, ``layer`` and the layer stride: no
     slice, split or copy of cache data is made here, and the cache is never
     written."""
+    _check_no_grad("frame_ctx_packed_fwd", q, k, v, ckv)
     if q.device.type == "cpu":
         return frame_ctx_packed_plain(q, k, v, ckv, layer)
     _check_packed(q, k, v, ckv, layer)

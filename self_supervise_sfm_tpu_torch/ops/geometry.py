@@ -1,19 +1,53 @@
-"""Camera/pose geometry for inference, in fp32.
+"""Camera/pose geometry for inference and the training loss, in fp32.
 
-Port of the inference subset of ``self_supervise_sfm_tpu/ops/geometry.py``:
-pose decoding and depth unprojection. Extrinsics are OpenCV world-to-camera
-``[R|t]`` (..., 3, 4); quaternions are scalar-last xyzw; the pose encoding
-is ``[tx ty tz, qx qy qz qw, fov_h fov_w]``. The JAX package pins these
-matmuls to full fp32 on the TPU; on the card the model entry turns TF32
-off for the same reason.
+Port of the inference and training subsets of
+``self_supervise_sfm_tpu/ops/geometry.py``: pose decoding, depth
+unprojection, relative poses and the correspondence reprojection of the
+loss. Extrinsics are OpenCV world-to-camera ``[R|t]`` (..., 3, 4);
+quaternions are scalar-last xyzw; the pose encoding is ``[tx ty tz, qx qy qz
+qw, fov_h fov_w]``. The JAX package pins these matmuls to full fp32 on the
+TPU (``f32_matmul``); here :func:`f32_matmul` turns TF32 off for the
+duration of a call, and the model entries turn it off for the same reason.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
 import torch
+
+
+def f32_matmul(fn):
+    """Run ``fn`` with TF32 off for matmuls and cuDNN (full fp32 products),
+    restoring the previous settings after: the twin of the JAX package's
+    ``f32_matmul`` (``ops/geometry.py:30-40``)."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+    return wrapped
+
+
+def to_homogeneous(points: torch.Tensor) -> torch.Tensor:
+    """Append a 1 to the last axis. (..., N) -> (..., N+1)."""
+    return torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
+
+
+def from_homogeneous(points: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Perspective divide, (..., N+1) -> (..., N): the denominator gets
+    ``eps`` added (its sign kept) and exact zeros replaced by 1e-12."""
+    denom = points[..., -1:] + eps
+    denom = torch.where(denom.abs() < 1e-12, torch.full_like(denom, 1e-12), denom)
+    return points[..., :-1] / denom
 
 
 def pad_poses(pose34: torch.Tensor) -> torch.Tensor:
@@ -22,6 +56,11 @@ def pad_poses(pose34: torch.Tensor) -> torch.Tensor:
                           device=pose34.device)
     bottom = bottom.expand(*pose34.shape[:-2], 1, 4)
     return torch.cat([pose34[..., :3, :4], bottom], dim=-2)
+
+
+def as_pose44(pose: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 4) or (..., 4, 4) -> (..., 4, 4)."""
+    return pad_poses(pose) if pose.shape[-2:] == (3, 4) else pose
 
 
 def se3_inverse(pose: torch.Tensor) -> torch.Tensor:
@@ -135,3 +174,54 @@ def unproject_depth_to_world(depth_map, extrinsics, intrinsics) -> torch.Tensor:
     R = c2w[..., :3, :3]
     t = c2w[..., :3, 3]
     return torch.einsum("...ij,...hwj->...hwi", R, cam_pts) + t[..., None, None, :]
+
+
+# -- correspondence reprojection (the training-loss geometry) ----------------
+
+
+@f32_matmul
+def relative_pose(src_extrinsic: torch.Tensor, dst_extrinsic: torch.Tensor) -> torch.Tensor:
+    """src-cam -> dst-cam transform ``dst @ inv(src)``, (..., 4, 4)."""
+    return as_pose44(dst_extrinsic) @ se3_inverse(as_pose44(src_extrinsic))
+
+
+def _reproject(src_coords, scaled_depth, src_intrinsic, dst_intrinsic, rel_pose):
+    """Back-project src pixels at ``scaled_depth`` and map them into the dst
+    camera: the homogeneous dst pixel coordinates (P, N, 3)."""
+    rel44 = as_pose44(rel_pose)
+    src_h = to_homogeneous(src_coords)
+    K_inv = torch.linalg.inv(src_intrinsic)
+    cam = torch.einsum("...ij,...nj->...ni", K_inv, src_h) * scaled_depth[..., None]
+    dst_cam = torch.einsum("...ij,...nj->...ni", rel44, to_homogeneous(cam))[..., :3]
+    return torch.einsum("...ij,...nj->...ni", dst_intrinsic, dst_cam)
+
+
+@f32_matmul
+def backproject_and_reproject(src_coords, src_depth, src_intrinsic, dst_intrinsic,
+                              rel_pose, src_depth_scale):
+    """Exact perspective reprojection of src pixels into the dst view.
+    src_coords (P, N, 2), src_depth (P, N), intrinsics (P, 3, 3), rel_pose
+    (P, 3|4, 4), src_depth_scale (P, 1) -> (dst_coords (P, N, 2), valid
+    (P, N), all True)."""
+    dst_h = _reproject(src_coords, src_depth * src_depth_scale, src_intrinsic,
+                       dst_intrinsic, rel_pose)
+    dst = from_homogeneous(dst_h)
+    return dst, torch.ones(dst.shape[:-1], dtype=torch.bool, device=dst.device)
+
+
+@f32_matmul
+def backproject_and_reproject_with_approximation(
+        src_coords, src_depth, dst_depth, src_intrinsic, dst_intrinsic, rel_pose,
+        src_depth_scale, dst_depth_scale):
+    """Linearised reprojection: the perspective division by the measured
+    destination depth instead of the reprojected one."""
+    dst_h = _reproject(src_coords, src_depth * src_depth_scale, src_intrinsic,
+                       dst_intrinsic, rel_pose)
+    scaled_dst = dst_depth * dst_depth_scale
+    dst = dst_h[..., :2] / (scaled_dst[..., None] + 1e-6)
+    return dst, torch.ones(dst.shape[:-1], dtype=torch.bool, device=dst.device)
+
+
+def compute_projective_residual(predicted_dst_coords, actual_dst_coords):
+    """Per-point L2 residual, (..., N, 2) x2 -> (..., N)."""
+    return torch.linalg.vector_norm(predicted_dst_coords - actual_dst_coords, dim=-1)

@@ -8,8 +8,12 @@ input once and writing the output once. Its sums differ from the
 interp-matrix matmul only by fp32 rounding. The kernel is bound by memory
 bytes.
 
-:func:`resize_bilinear` is the wrapper: the plain version
-:func:`resize_bilinear_plain` for a CPU tensor, the kernel for a CUDA tensor.
+:func:`resize_bilinear_fwd` is the launch wrapper: the plain version
+:func:`resize_bilinear_plain` for a CPU tensor, the kernel for a CUDA
+tensor; forward only, so under grad mode it raises on an input that requires
+grad. :func:`resize_bilinear` is the differentiable entry, a
+``torch.autograd.Function`` whose backward is autograd through the plain
+resize, as the JAX ``custom_vjp`` (``heads/dpt_utils.py:54-80``) has it.
 """
 
 from __future__ import annotations
@@ -63,11 +67,15 @@ def resize_bilinear_plain(x, out_hw, add=None, out_dtype=None):
     return y.to(out_dtype or x.dtype)
 
 
-def resize_bilinear(
+def resize_bilinear_fwd(
     x: torch.Tensor, out_hw, add: Optional[torch.Tensor] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """K3 wrapper. x: (N, H, W, C) fp32; add: optional (H2, W2, C) fp32."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, add)):
+        raise NotImplementedError(
+            "resize_bilinear_fwd: forward only; call resize_bilinear instead")
     if x.device.type == "cpu":
         return resize_bilinear_plain(x, out_hw, add, out_dtype)
     N, H, W, C = x.shape
@@ -97,8 +105,38 @@ def resize_bilinear(
             int(out_dtype == torch.bfloat16), N, H, W, C, H2, W2,
             _kernels.stream_ptr(x),
         )
-        resize_bilinear.launches += 1
+        resize_bilinear_fwd.launches += 1
     return out
 
 
-resize_bilinear.launches = 0
+resize_bilinear_fwd.launches = 0
+
+
+class _ResizeBilinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, add, out_hw, out_dtype):
+        ctx.save_for_backward(x, add)
+        ctx.static = (out_hw, out_dtype)
+        return resize_bilinear_fwd(x, out_hw, add, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, add = ctx.saved_tensors
+        out_hw, out_dtype = ctx.static
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(need)
+                   for t, need in zip((x, add), ctx.needs_input_grad)]
+            y = resize_bilinear_plain(ins[0], out_hw, ins[1], out_dtype)
+            want = [t for t in ins if t is not None and t.requires_grad]
+            got = iter(torch.autograd.grad(y, want, g))
+        return tuple(next(got) if t is not None and t.requires_grad else None
+                     for t in ins) + (None, None)
+
+
+def resize_bilinear(
+    x: torch.Tensor, out_hw, add: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Differentiable K3: :func:`resize_bilinear_fwd` forward, autograd
+    through :func:`resize_bilinear_plain` backward."""
+    return _ResizeBilinear.apply(x, add, tuple(int(s) for s in out_hw), out_dtype)
