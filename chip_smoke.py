@@ -7,13 +7,16 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    kernel in ``self_supervise_sfm_tpu_torch/csrc`` with ``nvcc`` for sm_90a;
-2. each of the ten kernels at the shapes of the paths below, held against
+   the registers, spills and shared memory of the Hopper attention body's
+   kernels (K1, K2, K2p);
+2. each of the twelve kernels at the shapes of the paths below, held against
    its plain PyTorch version with the tolerance stated, and timed (CUDA
    events, median) beside its plain version, the PyTorch library call (for
    the fused block kernels: the chain of library calls) computing the same
    function (a yardstick the port never calls) and its bound: the larger of
    its operations at the bf16 tensor-core peak and its bytes at the memory
-   peak of an H100 SXM (989 TFLOP/s, 3.35 TB/s);
+   peak of an H100 SXM (989 TFLOP/s, 3.35 TB/s); for every site of K1, K2
+   and K2p the kernel's ratio to its bound and to its library call;
 3. the full-width joint forward: ViT-L/14 + 24 aggregator layers at 518 px,
    bf16 trunk and fp32 heads, 5 anchors + the same 5 images as queries,
    rank 300, random weights from a seeded generator, every trunk block on
@@ -70,6 +73,8 @@ NUM_FRAMES = 5
 IMG = 518
 RANK = 300
 SEED = 0
+# K1, K2 and K2p: one attention body written for Hopper
+SM90_SOURCE = "self_supervise_sfm_tpu_torch/csrc/flash_fwd_sm90.cu"
 
 
 def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -88,6 +93,24 @@ def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _back_to_back_ms(fn, reps: int = 20) -> float:
+    """Mean time of ``reps`` calls launched back to back between two events:
+    the host's launch cost of one call hides behind the device's work."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -176,6 +199,65 @@ def _bound_ms(flops: float, nbytes: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _site_line(label: str, r: dict) -> None:
+    """One site's times and its ratios to its bound and its library call,
+    per call and back to back."""
+    print(f"  {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+          f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+          f"kernel / bound {r['ms'] / r['bound_ms']:.2f}x, kernel / library "
+          f"{r['ms'] / r['library_ms']:.2f}x; back to back kernel "
+          f"{r['back_to_back_ms']:.4f} ms, library {r['library_back_to_back_ms']:.4f} ms "
+          f"({r['back_to_back_ms'] / r['library_back_to_back_ms']:.2f}x)")
+
+
+def _entry_name(mangled: str) -> str:
+    """The last name of an Itanium-mangled nested name (_ZN<len><id>...):
+    the kernel's own name, without its namespace or template arguments."""
+    i, name = mangled.find("_ZN") + 3, "?"
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    return name
+
+
+def print_build_log(log: str) -> None:
+    """ptxas's registers and spills of every kernel, each line under the
+    name of its kernel, and any warning or performance advisory (such as
+    wgmma serialisation)."""
+    name = "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = _entry_name(line)
+        elif "Used" in line or "spill" in line:
+            print(f"  ptxas {name}: {line.strip().removeprefix('ptxas info    : ')}")
+        elif "warning" in line or "Performance" in line:
+            print(f"  {line.strip()}")
+
+
+def print_sm90_build() -> None:
+    """Registers a thread at launch, spills and dynamic shared memory of the
+    Hopper attention body's kernels as the runtime reports them, and the
+    setmaxnreg counts they were built with."""
+    import ctypes
+
+    from self_supervise_sfm_tpu_torch import _kernels
+
+    names = ("flash_fwd_kernel", "frame_ctx_fwd_kernel", "frame_ctx_kv2_fwd_kernel")
+    lib = _kernels.library()
+    for which, name in enumerate(names):
+        info = (ctypes.c_int * 8)()
+        rc = lib.sfm_attention_sm90_info(which, info)
+        if rc != 0:
+            raise RuntimeError(f"sfm_attention_sm90_info({which}): CUDA error {rc}")
+        print(f"  {name}: {info[0]} registers a thread at launch, {info[1]} local bytes, "
+              f"{info[2]} bytes of dynamic shared memory, {info[3]} stages of {info[5]} keys, "
+              f"{info[4]} q rows a tile, setmaxnreg {info[6]} (producer) / {info[7]} "
+              f"(consumers)")
+
+
 def _check(name: str, err: float, tol: float) -> None:
     status = "ok" if err <= tol else "FAIL"
     print(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:.3e}) {status}")
@@ -237,11 +319,15 @@ def check_kernels(gen):
             plain_ms=_time_ms(lambda: FA.flash_fwd_plain(q, k, v), reps=5),
             library_ms=_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
             bound_ms=bound, bound_by=by,
+            back_to_back_ms=_back_to_back_ms(lambda: FA.flash_fwd(q, k, v)),
+            library_back_to_back_ms=_back_to_back_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4)),
         ))
         del q, k, v, out, lse, p_out, p_lse
+    for s_ in sites:
+        _site_line(f"flash_fwd[{s_['site']}] {tuple(s_['shape'])}", s_)
     results.append(dict(
-        name="flash_fwd", route="cuda",
-        source="self_supervise_sfm_tpu_torch/csrc/flash_attention.cu",
+        name="flash_fwd", route="cuda", source=SM90_SOURCE,
         replaces="self_supervise_sfm_tpu/ops/flash_attention.py:140",
         # one call at each of the three sites (one ViT + one aggregator layer)
         max_abs_err=max(s["max_abs_err"] for s in sites),
@@ -263,8 +349,7 @@ def check_kernels(gen):
     bound, by = _bound_ms(4.0 * NUM_FRAMES * 16 * P * (nc + P) * 64,
                           (4 * q.numel() + 2 * ck.numel()) * 2)
     results.append(dict(
-        name="frame_ctx_fwd", route="cuda",
-        source="self_supervise_sfm_tpu_torch/csrc/flash_attention.cu",
+        name="frame_ctx_fwd", route="cuda", source=SM90_SOURCE,
         replaces="self_supervise_sfm_tpu/ops/flash_attention.py:539",
         max_abs_err=err,
         ms=_time_ms(lambda: FA.frame_ctx_fwd(q, k, v, ck, cv)),
@@ -272,7 +357,11 @@ def check_kernels(gen):
         # SDPA over the [ctx ‖ own] K/V concatenated beforehand
         library_ms=_time_ms(lambda: F.scaled_dot_product_attention(q, kk, vv)),
         bound_ms=bound, bound_by=by,
+        back_to_back_ms=_back_to_back_ms(lambda: FA.frame_ctx_fwd(q, k, v, ck, cv)),
+        library_back_to_back_ms=_back_to_back_ms(
+            lambda: F.scaled_dot_product_attention(q, kk, vv)),
     ))
+    _site_line(f"frame_ctx_fwd {tuple(q.shape)} ctx {nc}", results[-1])
     del q, k, v, ck, cv, kk, vv, out, ref
 
     # -- K3: final DPT upsample 296 -> 518 with the fused pos-embed addend --
@@ -315,6 +404,10 @@ def check_kernels(gen):
     results += check_serving_kernels(
         lambda *shape: torch.randn(shape, generator=own, device="cuda").to(torch.bfloat16),
         ulps)
+    edges = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    check_attention_edges(
+        lambda *shape: torch.randn(shape, generator=edges, device="cuda").to(torch.bfloat16),
+        ulps)
     bwd = torch.Generator(device="cuda").manual_seed(SEED + 5)
     results += check_backward_kernels(
         lambda *shape, dtype=torch.bfloat16: torch.randn(
@@ -324,6 +417,39 @@ def check_kernels(gen):
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
     return results
+
+
+def check_attention_edges(randn, ulps):
+    """Phase 2, K1 / K2 / K2p at the edges of the Hopper body's tiling, held
+    against their plain versions with the path shapes' tolerances: one q row
+    and one key, a second warpgroup whose 64 rows all lie past nq, ragged q
+    and key tiles, no context at all, two scenes each with its context, and
+    K2p bit-equal to K2 on the split copies."""
+    import torch
+
+    from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
+
+    for bh, nq, nk in ((2, 1, 1), (3, 50, 70), (2, 130, 333), (1, 200, 128)):
+        q, k, v = randn(bh, nq, 64), randn(bh, nk, 64), randn(bh, nk, 64)
+        out, lse = FA.flash_fwd(q, k, v)
+        torch.cuda.synchronize()
+        p_out, p_lse = FA.flash_fwd_plain(q, k, v)
+        _check(f"flash_fwd edge ({bh}, {nq}, {nk})",
+               float((out.float() - p_out.float()).abs().max()), ulps(p_out, 4))
+        _check(f"flash_fwd edge ({bh}, {nq}, {nk}) lse", float((lse - p_lse).abs().max()), 1e-4)
+    for B, F, H, P, nc in ((2, 2, 2, 50, 0), (2, 2, 2, 130, 77), (1, 3, 2, 1, 300)):
+        q, k, v = (randn(B * F, H, P, 64) for _ in range(3))
+        ckv = randn(2, B, H, nc, 128)
+        ck, cv = ckv[1, ..., :64].contiguous(), ckv[1, ..., 64:].contiguous()
+        out = FA.frame_ctx_fwd(q, k, v, ck, cv)
+        packed = FA.frame_ctx_packed_fwd(q, k, v, ckv, 1)
+        torch.cuda.synchronize()
+        ref = FA._frame_ctx_dense(q, k, v, ck, cv)
+        _check(f"frame_ctx_fwd edge B{B} F{F} P{P} nc{nc}",
+               float((out.float() - ref.float()).abs().max()), ulps(ref, 4))
+        if not torch.equal(packed, out):
+            raise AssertionError(f"frame_ctx_packed_fwd edge nc{nc}: not bit-equal to K2")
+    print("  edges: frame_ctx_packed_fwd bit-equal to frame_ctx_fwd at each")
 
 
 def check_fused_kernels(randn, ulps):
@@ -513,7 +639,10 @@ def check_serving_kernels(randn, ulps):
                 plain_ms=_time_ms(lambda: FA.frame_ctx_packed_plain(q, k, v, ckv, layer),
                                   reps=5),
                 library_ms=_time_ms(lambda: library(ckv, layer)),
-                bound_ms=bound, bound_by=by))
+                bound_ms=bound, bound_by=by,
+                back_to_back_ms=_back_to_back_ms(
+                    lambda: FA.frame_ctx_packed_fwd(q, k, v, ckv, layer)),
+                library_back_to_back_ms=_back_to_back_ms(lambda: library(ckv, layer))))
         if not torch.equal(ckv, before):
             raise AssertionError("frame_ctx_packed_fwd wrote to the cache")
         for bad in (-1, depth):
@@ -527,7 +656,7 @@ def check_serving_kernels(randn, ulps):
         del before
     print("  frame_ctx_packed_fwd: bit-equal to frame_ctx_fwd (K2) on the split copies")
     results = [dict(
-        name="frame_ctx_packed_fwd", route="cuda", source=src,
+        name="frame_ctx_packed_fwd", route="cuda", source=SM90_SOURCE,
         replaces="self_supervise_sfm_tpu/ops/flash_attention.py:661",
         # one call at each site measured
         max_abs_err=max(s_["max_abs_err"] for s_ in sites),
@@ -583,9 +712,7 @@ def check_serving_kernels(randn, ulps):
           f"{r['layout_form_ms']:.4f} ms")
     results.append(r)
     for s_ in sites:
-        print(f"  frame_ctx_packed_fwd[{s_['site']}]: kernel {s_['ms']:.4f} ms, plain "
-              f"{s_['plain_ms']:.4f} ms, library {s_['library_ms']:.4f} ms, bound "
-              f"{s_['bound_ms']:.4f} ms ({s_['bound_by']})")
+        _site_line(f"frame_ctx_packed_fwd[{s_['site']}]", s_)
     torch.cuda.empty_cache()
     return results
 
@@ -1439,9 +1566,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _kernels.library()
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s")
-    for line in _kernels.build_log.splitlines():
-        if "Used" in line or "spill" in line:
-            print("  " + line.strip())
+    print_build_log(_kernels.build_log)
+    print_sm90_build()
 
     if "--train-only" in sys.argv[1:]:
         print("phase 5 alone: full-width train step")

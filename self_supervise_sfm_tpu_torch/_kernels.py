@@ -44,6 +44,8 @@ _SIGNATURES: Dict[str, List] = {
     # q, k, v, do, lse, delta, outputs; bh, nq, nk, n_ctx, frame_size, masked
     "sfm_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 6 + [_F, _F, _P],
     "sfm_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
+    # which kernel of the sm90 attention body (0 K1, 1 K2, 2 K2p), int[8] out
+    "sfm_attention_sm90_info": [_I, _P],
     "sfm_resize_bilinear_ac": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sfm_fused_ln_qkv_rope": [_P] * 15 + [_I, _I, _I, _F, _P],
     "sfm_fused_ln_qkv": [_P] * 9 + [_I, _I, _I, _F, _P],

@@ -1,46 +1,36 @@
-// Flash-attention forward (K1, and K1m with a RelocMask) and backward (B9:
-// the dq and dk/dv kernels, each with its RelocMask variant), fused
-// [context | own frame] attention (K2) and the same against one layer of the
-// kv2 scene cache read in place (K2p), for Hopper (sm_90a), bf16 in, fp32
-// softmax state, head dim 64.
+// Flash-attention forward under a RelocMask (K1m) and backward (B9: the dq
+// and dk/dv kernels, each with its RelocMask variant), for Hopper (sm_90a),
+// bf16 in, fp32 softmax state, head dim 64.
 //
 // Replaces the Pallas TPU kernels
-//   K1:  self_supervise_sfm_tpu/ops/flash_attention.py  _flash_fwd / _kernel
-//   K1m: the same call with mask=RelocMask
-//   K2:  self_supervise_sfm_tpu/ops/flash_attention.py  frame_ctx_kernel /
-//        _frame_ctx_kernel
-//   K2p: self_supervise_sfm_tpu/ops/flash_attention.py
-//        frame_ctx_packed_kernel / _frame_ctx_kv2_kernel
-// and computes what they compute: an online softmax in the log2 domain
-// (exp2f), fp32 running max / denominator / accumulator, p cast to bf16
-// before the PV product, ragged last key tile masked by select with its V
-// rows zeroed, the l == 0 guard at finalize, out in bf16 and (K1) the
-// natural-log lse in fp32. K2 folds the shared context tiles of scene
-// b = bf / F and then the frame's own tiles into ONE online softmax: no mask,
-// no lse merge.
-// K2p is K2 with the context taken from layer `layer` of the depth-stacked
-// cache (depth, B, H, Nc, 2*64): each 256-byte row holds [k | v], so the
-// kernel reads the k half at offset 0 and the v half at offset 64 with a row
-// stride of 128, straight from the cache's buffer. The TPU kernel pads q to
-// 128 lanes and interleaves the frame's own K/V to the same layout; here the
-// own k and v stay separate tensors. Nothing of the cache is sliced or
-// copied, and every offset into it is 64-bit.
-// K1m evaluates the RelocMask per element (key < n_ctx, or key inside the
-// row's own frame) and skips key tiles in which no row of the block sees a
-// key.
+//   K1m: self_supervise_sfm_tpu/ops/flash_attention.py  _flash_fwd / _kernel
+//        with mask=RelocMask
+//   B9:  self_supervise_sfm_tpu/ops/flash_attention.py  _flash_bwd's two
+//        pallas_calls, _dq_kernel and _dkv_kernel
+// The unmasked forward (K1) and the [context | own frame] attention (K2, and
+// K2p on the kv2 cache) moved to flash_fwd_sm90.cu, one body redesigned for
+// Hopper (TMA ring, wgmma, warp specialisation). K1m and B9 keep the simple
+// first body below; their redesigns are queued.
+//
+// K1m computes what _kernel computes under the mask: an online softmax in the
+// log2 domain (exp2f), fp32 running max / denominator / accumulator, p cast to
+// bf16 before the PV product, ragged last key tile masked by select with its
+// V rows zeroed, the l == 0 guard at finalize, out in bf16 and the
+// natural-log lse in fp32. It evaluates the RelocMask per element (key <
+// n_ctx, or key inside the row's own frame) and skips key tiles in which no
+// row of the block sees a key.
 //
 // Bound on an H100: operations. The 4*Nq*Nk*d FLOPs of QK^T and PV over the
-// q/k/v/o bytes give 690-3450 FLOP/byte at the main-path sizes (Nq = Nk =
-// 1374 to 6870), above the card's ~295 FLOP/byte ridge, so the floor is the
-// bf16 tensor-core rate.
-// Design: one block of 4 warps per (batch*head, 64-row q tile); each warp
-// owns 16 q rows and keeps its Q fragments, the 16x64 fp32 accumulator and
-// the row state in registers. The block streams 64-key tiles of K (row-major)
-// and V (transposed) through padded shared memory, and every warp runs
-// mma.sync m16n8k16 bf16 products on them; the S accumulator is reused in
-// registers as the A operand of PV (no shared-memory round trip for P).
-// This is the simple first version: no cp.async/TMA pipelining and no
-// wgmma, so it reaches only a fraction of the tensor-core rate.
+// q/k/v/o bytes give 690-3450 FLOP/byte at the main-path sizes, above the
+// card's ~295 FLOP/byte ridge, so the floor is the bf16 tensor-core rate.
+// Design (the simple first version): one block of 4 warps per (batch*head,
+// 64-row q tile); each warp owns 16 q rows and keeps its Q fragments, the
+// 16x64 fp32 accumulator and the row state in registers. The block streams
+// 64-key tiles of K (row-major) and V (transposed) through padded shared
+// memory, and every warp runs mma.sync m16n8k16 bf16 products on them; the S
+// accumulator is reused in registers as the A operand of PV (no shared-memory
+// round trip for P). No cp.async/TMA pipelining and no wgmma, so it reaches
+// only a fraction of the tensor-core rate.
 //
 // B9, the backward (replaces _flash_bwd's two pallas_calls, _dq_kernel and
 // _dkv_kernel, with or without a RelocMask): both kernels recompute
@@ -66,7 +56,7 @@
 // RelocMask block skips tiles no pair of its rows and keys can see.
 // Bound on an H100: operations. The dq kernel does 3 and the dk/dv kernel 4
 // products of 2*Nq*Nk*d FLOPs (both recompute S and dP), 3.5x the forward.
-// Same simple design as the forward: mma.sync m16n8k16, one tile in flight,
+// Same simple design as K1m: mma.sync m16n8k16, one tile in flight,
 // transposed tiles stored element by element.
 
 #include <cuda_runtime.h>
@@ -127,10 +117,7 @@ __device__ __forceinline__ void load_q(const bf16* __restrict__ q, int row0,
 }
 
 // Stage keys [k0, k0 + BK) of one (batch*head) slice into shared memory;
-// keys at or past nvalid are zero-filled (the TPU kernel's v zeroing). LD is
-// the row stride of k and v in elements: D for separate tensors, 2 * D for
-// the [k | v] rows of the kv2 cache.
-template <int LD>
+// keys at or past nvalid are zero-filled (the TPU kernel's v zeroing).
 __device__ __forceinline__ void load_kv_tile(const bf16* __restrict__ k,
                                              const bf16* __restrict__ v, int k0,
                                              int nvalid, TileSmem& sm) {
@@ -139,8 +126,8 @@ __device__ __forceinline__ void load_kv_tile(const bf16* __restrict__ k,
     const int col = (c % (D / 8)) * 8;
     uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
     if (k0 + row < nvalid) {
-      kk = *reinterpret_cast<const uint4*>(k + (size_t)(k0 + row) * LD + col);
-      vv = *reinterpret_cast<const uint4*>(v + (size_t)(k0 + row) * LD + col);
+      kk = *reinterpret_cast<const uint4*>(k + (size_t)(k0 + row) * D + col);
+      vv = *reinterpret_cast<const uint4*>(v + (size_t)(k0 + row) * D + col);
     }
     *reinterpret_cast<uint4*>(&sm.k[row][col]) = kk;
     const bf16* ve = reinterpret_cast<const bf16*>(&vv);
@@ -158,9 +145,8 @@ struct RowMask {
 };
 
 // Fold one staged key tile into the warp's online softmax (the TPU
-// kernel's _compute / _online_step body). MASKED adds the RelocMask's allow
-// predicate to the key-validity select.
-template <bool MASKED>
+// kernel's _compute / _online_step body) under the RelocMask's allow
+// predicate and the key-validity select.
 __device__ __forceinline__ void attend_tile(RowState& st,
                                             const uint32_t (&qf)[D / 16][4],
                                             const TileSmem& sm, int k0,
@@ -185,11 +171,8 @@ __device__ __forceinline__ void attend_tile(RowState& st,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = k0 + nt * 8 + t * 2 + (e & 1);
-      bool ok = key < nvalid;
-      if constexpr (MASKED) {
-        const int r = e >> 1;
-        ok = ok && (key < mk.n_ctx || (key >= mk.lo[r] && key < mk.hi[r]));
-      }
+      const int r = e >> 1;
+      const bool ok = key < nvalid && (key < mk.n_ctx || (key >= mk.lo[r] && key < mk.hi[r]));
       s[nt][e] = ok ? s[nt][e] * scale_log2 : NEG_INF;
     }
     mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
@@ -245,22 +228,6 @@ __device__ __forceinline__ void attend_tile(RowState& st,
   }
 }
 
-// Stream all tiles of one key source through the online softmax.
-template <int LD>
-__device__ __forceinline__ void attend_source(RowState& st,
-                                              const uint32_t (&qf)[D / 16][4],
-                                              const bf16* __restrict__ k,
-                                              const bf16* __restrict__ v,
-                                              int nk, float scale_log2,
-                                              TileSmem& sm) {
-  for (int k0 = 0; k0 < nk; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_kv_tile<LD>(k, v, k0, nk, sm);
-    __syncthreads();
-    attend_tile<false>(st, qf, sm, k0, nk, scale_log2, RowMask{});
-  }
-}
-
 __device__ __forceinline__ void init_state(RowState& st) {
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn)
@@ -291,22 +258,6 @@ __device__ __forceinline__ void finalize(const RowState& st, bf16* __restrict__ 
     if (r0 < nq) lse[r0] = st.m[0] * (1.0f / LOG2E) + logf(l0);
     if (r1 < nq) lse[r1] = st.m[1] * (1.0f / LOG2E) + logf(l1);
   }
-}
-
-// K1: grid (ceil(nq / BQ), BH)
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int nq, int nk, float scale_log2) {
-  __shared__ __align__(16) TileSmem sm;
-  const size_t bh = blockIdx.y;
-  const int row0 = blockIdx.x * BQ + (threadIdx.x >> 5) * 16;
-  uint32_t qf[D / 16][4];
-  load_q(q + bh * nq * D, row0, nq, qf);
-  RowState st;
-  init_state(st);
-  attend_source<D>(st, qf, k + bh * nk * D, v + bh * nk * D, nk, scale_log2, sm);
-  finalize(st, o + bh * nq * D, lse + bh * nq, row0, nq);
 }
 
 // K1m: K1 under a RelocMask. Keys are [n_ctx context | frames of frame_size];
@@ -347,58 +298,11 @@ flash_fwd_reloc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool visible = k0 < n_ctx || (k0 < own_hi && k1 > own_lo);
     if (!visible) continue;  // uniform over the block
     __syncthreads();
-    load_kv_tile<D>(kb, vb, k0, nk, sm);
+    load_kv_tile(kb, vb, k0, nk, sm);
     __syncthreads();
-    attend_tile<true>(st, qf, sm, k0, nk, scale_log2, mk);
+    attend_tile(st, qf, sm, k0, nk, scale_log2, mk);
   }
   finalize(st, o + bh * nq * D, lse + bh * nq, row0, nq);
-}
-
-// K2: grid (ceil(np / BQ), BF * H). Rows of frame bf attend the context of
-// scene bf / F, then the frame's own keys, in one online softmax.
-__global__ void __launch_bounds__(NTHREADS)
-frame_ctx_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ ck,
-                     const bf16* __restrict__ cv, bf16* __restrict__ o,
-                     int heads, int frames, int np_, int nc, float scale_log2) {
-  __shared__ __align__(16) TileSmem sm;
-  const size_t bfh = blockIdx.y;  // (bf * H + h)
-  const size_t h = bfh % heads;
-  const size_t b = (bfh / heads) / frames;
-  const int row0 = blockIdx.x * BQ + (threadIdx.x >> 5) * 16;
-  uint32_t qf[D / 16][4];
-  load_q(q + bfh * np_ * D, row0, np_, qf);
-  RowState st;
-  init_state(st);
-  const size_t ctx = (b * heads + h) * nc * D;
-  attend_source<D>(st, qf, ck + ctx, cv + ctx, nc, scale_log2, sm);
-  attend_source<D>(st, qf, k + bfh * np_ * D, v + bfh * np_ * D, np_, scale_log2, sm);
-  finalize(st, o + bfh * np_ * D, nullptr, row0, np_);
-}
-
-// K2p: K2 against the kv2 cache in place. ckv_layer points at layer `layer`
-// of the (depth, B, H, Nc, 2 * D) cache; the context of scene b, head h is
-// its Nc rows of [k | v] starting at (b * H + h) * Nc * 2 * D. Same tile
-// order and arithmetic as K2, so the two agree bit for bit on equal values.
-__global__ void __launch_bounds__(NTHREADS)
-frame_ctx_kv2_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ ckv_layer,
-                         bf16* __restrict__ o, int heads, int frames, int np_,
-                         int nc, float scale_log2) {
-  __shared__ __align__(16) TileSmem sm;
-  const size_t bfh = blockIdx.y;  // (bf * H + h)
-  const size_t h = bfh % heads;
-  const size_t b = (bfh / heads) / frames;
-  const int row0 = blockIdx.x * BQ + (threadIdx.x >> 5) * 16;
-  uint32_t qf[D / 16][4];
-  load_q(q + bfh * np_ * D, row0, np_, qf);
-  RowState st;
-  init_state(st);
-  const bf16* ctx = ckv_layer + (b * heads + h) * nc * (2 * D);
-  attend_source<2 * D>(st, qf, ctx, ctx + D, nc, scale_log2, sm);
-  attend_source<D>(st, qf, k + bfh * np_ * D, v + bfh * np_ * D, np_, scale_log2, sm);
-  finalize(st, o + bfh * np_ * D, nullptr, row0, np_);
 }
 
 // -- B9: flash backward -------------------------------------------------------
@@ -684,31 +588,6 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace
 
-extern "C" int sfm_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                  void* o, void* lse, int bh, int nq, int nk,
-                                  float scale_log2, void* stream) {
-  dim3 grid((nq + BQ - 1) / BQ, bh);
-  flash_fwd_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), nq, nk, scale_log2);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int sfm_frame_ctx_fwd_bf16(const void* q, const void* k,
-                                      const void* v, const void* ck,
-                                      const void* cv, void* o, int bf,
-                                      int heads, int frames, int np_, int nc,
-                                      float scale_log2, void* stream) {
-  dim3 grid((np_ + BQ - 1) / BQ, bf * heads);
-  frame_ctx_fwd_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(ck),
-      static_cast<const bf16*>(cv), static_cast<bf16*>(o), heads, frames, np_,
-      nc, scale_log2);
-  return static_cast<int>(cudaGetLastError());
-}
-
 extern "C" int sfm_flash_fwd_reloc_bf16(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int bh, int nq, int nk, int n_ctx,
@@ -722,26 +601,6 @@ extern "C" int sfm_flash_fwd_reloc_bf16(const void* q, const void* k,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), nq, nk, n_ctx, frame_size, scale_log2);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ckv is the base of the whole stacked cache; layer_stride is the number of
-// elements between two layers (B * H * Nc * 2 * D), in 64 bits.
-extern "C" int sfm_frame_ctx_kv2_fwd_bf16(const void* q, const void* k,
-                                          const void* v, const void* ckv,
-                                          void* o, int bf, int heads,
-                                          int frames, int np_, int nc,
-                                          int layer, long long layer_stride,
-                                          float scale_log2, void* stream) {
-  if (layer < 0 || layer_stride < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* ckv_layer = static_cast<const bf16*>(ckv) +
-                          static_cast<size_t>(layer) * static_cast<size_t>(layer_stride);
-  dim3 grid((np_ + BQ - 1) / BQ, bf * heads);
-  frame_ctx_kv2_fwd_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), ckv_layer, static_cast<bf16*>(o), heads,
-      frames, np_, nc, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

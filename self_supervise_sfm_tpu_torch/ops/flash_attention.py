@@ -1,8 +1,10 @@
 """Flash attention (K1, K1m, B9) and fused [context ‖ own frame] attention (K2, K2p).
 
 Port of ``self_supervise_sfm_tpu/ops/flash_attention.py``. The Pallas TPU
-kernels become hand-written CUDA kernels in ``csrc/flash_attention.cu``;
-each sits beside its plain PyTorch version:
+kernels become hand-written CUDA kernels: K1, K2 and K2p share one body
+written for Hopper in ``csrc/flash_fwd_sm90.cu`` (TMA ring, wgmma, warp
+specialisation); K1m and B9 are in ``csrc/flash_attention.cu``. Each sits
+beside its plain PyTorch version:
 
 - :func:`flash_fwd` (K1) replaces ``_flash_fwd``/``_kernel``: online
   softmax in the log2 domain, fp32 state, p cast to v's dtype before PV,
