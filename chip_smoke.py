@@ -8,15 +8,21 @@ Phases, each of which must pass (any failure exits non-zero):
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    kernel in ``self_supervise_sfm_tpu_torch/csrc`` with ``nvcc`` for sm_90a;
    the registers, spills and shared memory of the Hopper attention body's
-   kernels (K1, K2, K2p);
-2. each of the twelve kernels at the shapes of the paths below, held against
-   its plain PyTorch version with the tolerance stated, and timed (CUDA
-   events, median) beside its plain version, the PyTorch library call (for
-   the fused block kernels: the chain of library calls) computing the same
+   kernels (K1, K2, K2p) and of the Hopper GEMM body's (MLP-up, MLP-down,
+   the probe, the layer-norm pre-pass), and any ptxas advisory that wgmma
+   was serialised (C7518);
+2. the GEMM body's operand layouts alone (``gemm_probe``: one tile, then
+   ragged rows and a K loop, against an fp32 matmul); each of the twelve
+   kernels at the shapes of the paths below, held against its plain
+   PyTorch version with the tolerance stated, and timed (CUDA events,
+   median) beside its plain version, the PyTorch library call (for the
+   fused block kernels: the chain of library calls) computing the same
    function (a yardstick the port never calls) and its bound: the larger of
    its operations at the bf16 tensor-core peak and its bytes at the memory
-   peak of an H100 SXM (989 TFLOP/s, 3.35 TB/s); for every site of K1, K2
-   and K2p the kernel's ratio to its bound and to its library call;
+   peak of an H100 SXM (989 TFLOP/s, 3.35 TB/s); for every site of K1, K2,
+   K2p and the fused block kernels the kernel's ratio to its bound and to
+   its library call, per call and 20 launches back to back; MLP-up's
+   layer-norm pre-pass alone;
 3. the full-width joint forward: ViT-L/14 + 24 aggregator layers at 518 px,
    bf16 trunk and fp32 heads, 5 anchors + the same 5 images as queries,
    rank 300, random weights from a seeded generator, every trunk block on
@@ -75,6 +81,8 @@ RANK = 300
 SEED = 0
 # K1, K2 and K2p: one attention body written for Hopper
 SM90_SOURCE = "self_supervise_sfm_tpu_torch/csrc/flash_fwd_sm90.cu"
+# MLP-up and MLP-down: one GEMM body written for Hopper
+GEMM_SOURCE = "self_supervise_sfm_tpu_torch/csrc/gemm_sm90.cu"
 
 
 def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -134,9 +142,10 @@ _KERNEL_CLASSES = (
     ("fused_ln_qkv_rope", ("fused_ln_qkv_rope_kernel",)),
     ("fused_ln_qkv", ("fused_ln_qkv_kernel",)),
     ("fused_proj_residual", ("fused_proj_residual_kernel",)),
-    ("fused_mlp_up", ("fused_mlp_up_kernel",)),
-    ("fused_mlp_down", ("fused_mlp_down_kernel",)),
-    ("ln_stats (pre-pass of the layer-normed kernels)", ("ln_stats_kernel",)),
+    ("fused_mlp_up", ("mlp_up_sm90_kernel",)),
+    ("fused_mlp_down", ("mlp_down_sm90_kernel",)),
+    ("ln_rows (pre-pass of MLP-up)", ("ln_rows_kernel",)),
+    ("ln_stats (pre-pass of the LN+QKV kernels)", ("ln_stats_kernel",)),
     ("flash_fwd (K1)", ("flash_fwd_kernel",)),
     ("flash_bwd_dq (B9)", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv (B9)", ("flash_bwd_dkv_kernel",)),
@@ -239,8 +248,8 @@ def print_build_log(log: str) -> None:
 
 def print_sm90_build() -> None:
     """Registers a thread at launch, spills and dynamic shared memory of the
-    Hopper attention body's kernels as the runtime reports them, and the
-    setmaxnreg counts they were built with."""
+    Hopper attention and GEMM bodies' kernels as the runtime reports them,
+    and the setmaxnreg counts they were built with."""
     import ctypes
 
     from self_supervise_sfm_tpu_torch import _kernels
@@ -256,6 +265,23 @@ def print_sm90_build() -> None:
               f"{info[2]} bytes of dynamic shared memory, {info[3]} stages of {info[5]} keys, "
               f"{info[4]} q rows a tile, setmaxnreg {info[6]} (producer) / {info[7]} "
               f"(consumers)")
+    names = ("mlp_up_sm90_kernel", "mlp_down_sm90_kernel", "gemm_probe_sm90_kernel",
+             "ln_rows_kernel")
+    for which, name in enumerate(names):
+        info = (ctypes.c_int * 10)()
+        rc = lib.sfm_gemm_sm90_info(which, info)
+        if rc != 0:
+            raise RuntimeError(f"sfm_gemm_sm90_info({which}): CUDA error {rc}")
+        if which == 3:
+            print(f"  {name}: {info[0]} registers a thread, {info[1]} local bytes")
+            continue
+        print(f"  {name}: {info[0]} registers a thread at launch, {info[1]} local bytes, "
+              f"{info[2]} bytes of dynamic shared memory, {info[3]} stages, tiles of "
+              f"{info[4]} x {info[5]}, {'ping-pong' if info[8] else 'cooperative'}, raster "
+              f"groups of {info[9]} row tiles, setmaxnreg {info[6]} (producer) / {info[7]} "
+              f"(consumers)")
+    advisories = [ln.strip() for ln in _kernels.build_log.splitlines() if "C7518" in ln]
+    print(f"  ptxas wgmma serialisation advisories (C7518): {advisories or 'none'}")
 
 
 def _check(name: str, err: float, tol: float) -> None:
@@ -490,8 +516,27 @@ def check_fused_kernels(randn, ulps):
     sites = {"vit": (NUM_FRAMES, N, None), "frame": (2 * NUM_FRAMES, N, t_frame),
              "reloc": (NUM_FRAMES, N, t_frame), "global": (1, NUM_FRAMES * N, t_global)}
 
+    # the MLP kernels' GEMM body alone, fp32 accumulators against an fp32
+    # matmul of the same bf16 operands: one tile of one K slice (the weight
+    # read MN-major through the transposed-B bit, two 64-column atoms), then
+    # ragged rows, several tiles and a K loop through the whole ring. Sums in
+    # other orders: tolerance 1e-4 sqrt(K), far below a misplaced operand.
+    # Inputs from a generator of their own, so that the other inputs of
+    # this phase and the weights of phase 3 stay what they were
+    probe = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    for rows, kk, cols in ((128, 64, 128), (300, 1024, 384)):
+        a = torch.randn((rows, kk), generator=probe, device="cuda").to(bf16)
+        w = (torch.randn((kk, cols), generator=probe, device="cuda") * kk**-0.5).to(bf16)
+        got = FQ.gemm_probe(a, w)
+        torch.cuda.synchronize()
+        ref = torch.matmul(a.float(), w.float())
+        _check(f"gemm_probe ({rows} x {kk}) @ ({kk} x {cols})",
+               float((got - ref).abs().max()), 1e-4 * kk**0.5)
+        del a, w, got, ref
+
     def measure(name, site, outs, refs, tol_ulps, flops, tensors_in, fns):
-        """One kernel at one site: check, bound, and the three timings."""
+        """One kernel at one site: check, bound, and the timings: per call
+        and 20 launches back to back, beside the library chain's."""
         torch.cuda.synchronize()
         err = 0.0
         for o, r, label in zip(outs, refs, ("q", "k", "v") if len(outs) == 3 else ("y",)):
@@ -506,6 +551,8 @@ def check_fused_kernels(randn, ulps):
         return dict(site=site, shape=list(tensors_in[0].shape), max_abs_err=err,
                     ms=_time_ms(kernel), plain_ms=_time_ms(plain, reps=5),
                     library_ms=_time_ms(library), bound_ms=bound, bound_by=by,
+                    back_to_back_ms=_back_to_back_ms(kernel),
+                    library_back_to_back_ms=_back_to_back_ms(library),
                     input_mb=in_bytes / 1e6, inputs_fit_l2=in_bytes <= 50e6)
 
     per_kernel = {k: [] for k in ("fused_ln_qkv_rope", "fused_ln_qkv", "fused_proj_residual",
@@ -553,6 +600,20 @@ def check_fused_kernels(randn, ulps):
             2.0 * M * C * Ch, list(uargs[:5]),
             (lambda: FQ.fused_mlp_up(*uargs), lambda: FQ.fused_mlp_up_plain(*uargs),
              lambda: P.gelu(P.linear(ml["fc1"], P.layer_norm(n2, x, 1e-5))))))
+        # its layer-norm pre-pass alone (inside the time above): hn against
+        # the plain version's rows, 2 ulps at the largest
+        hn = torch.empty((M, C), dtype=bf16, device="cuda")
+        FQ._ln_rows_into(hn, x, n2["scale"], n2["bias"], 1e-5)
+        torch.cuda.synchronize()
+        hn_ref = FQ._ln_rows(x.float(), n2["scale"], n2["bias"], 1e-5).to(bf16).view(M, C)
+        e_hn = float((hn.float() - hn_ref.float()).abs().max())
+        _check(f"fused_mlp_up[{site}] layer-norm pre-pass hn {tuple(hn.shape)}", e_hn,
+               ulps(hn_ref, 2))
+        pre = lambda: FQ._ln_rows_into(hn, x, n2["scale"], n2["bias"], 1e-5)  # noqa: E731
+        per_kernel["fused_mlp_up"][-1].update(
+            prepass_max_abs_err=e_hn, prepass_ms=_time_ms(pre),
+            prepass_back_to_back_ms=_back_to_back_ms(pre))
+        del hn, hn_ref
         # -- MLP down: fc2 + layer-scale + residual, on the up kernel's hidden
         dargs = (h, x, ml["fc2"]["w"], ml["fc2"]["b"], p["ls2"]["gamma"])
         per_kernel["fused_mlp_down"].append(measure(
@@ -573,10 +634,20 @@ def check_fused_kernels(randn, ulps):
                   f"bound {s_['bound_ms']:.4f} ms ({s_['bound_by']}), "
                   f"roofline share {s_['bound_ms'] / s_['ms']:.3f}, "
                   f"inputs {s_['input_mb']:.1f} MB "
-                  f"({'fit' if s_['inputs_fit_l2'] else 'exceed'} the 50 MB L2)")
+                  f"({'fit' if s_['inputs_fit_l2'] else 'exceed'} the 50 MB L2); "
+                  f"back to back kernel {s_['back_to_back_ms']:.4f} ms, library chain "
+                  f"{s_['library_back_to_back_ms']:.4f} ms "
+                  f"({s_['back_to_back_ms'] / s_['library_back_to_back_ms']:.2f}x), "
+                  f"{s_['bound_ms'] / s_['back_to_back_ms'] * PEAK_BF16_FLOPS / 1e12:.0f} "
+                  f"TFLOP/s")
+            if "prepass_ms" in s_:
+                print(f"  {name}[{s_['site']}] layer-norm pre-pass alone: "
+                      f"{s_['prepass_ms']:.4f} ms a call, {s_['prepass_back_to_back_ms']:.4f} "
+                      f"ms back to back")
+        mlp = name.startswith("fused_mlp")
         results.append(dict(
             name=name, route="cuda",
-            source="self_supervise_sfm_tpu_torch/csrc/fused_block.cu",
+            source=GEMM_SOURCE if mlp else "self_supervise_sfm_tpu_torch/csrc/fused_block.cu",
             replaces=f"self_supervise_sfm_tpu/ops/fused_qkv.py:{lines[name]}",
             # one call at each site measured
             max_abs_err=max(s_["max_abs_err"] for s_ in ss),

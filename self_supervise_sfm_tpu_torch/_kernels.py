@@ -50,8 +50,14 @@ _SIGNATURES: Dict[str, List] = {
     "sfm_fused_ln_qkv_rope": [_P] * 15 + [_I, _I, _I, _F, _P],
     "sfm_fused_ln_qkv": [_P] * 9 + [_I, _I, _I, _F, _P],
     "sfm_fused_proj_residual": [_P] * 6 + [_I, _I, _I, _P],
-    "sfm_fused_mlp_up": [_P] * 7 + [_I, _I, _I, _F, _P],
-    "sfm_fused_mlp_down": [_P] * 6 + [_I, _I, _I, _P],
+    # the MLP pair on the wgmma / TMA GEMM body (gemm_sm90.cu): up takes an
+    # (M, C) bf16 scratch for the layer-normed rows
+    "sfm_mlp_up_sm90": [_P] * 7 + [_I, _I, _I, _F, _P],
+    "sfm_mlp_down_sm90": [_P] * 6 + [_I, _I, _I, _P],
+    "sfm_ln_rows_bf16": [_P] * 4 + [_I, _I, _F, _P],
+    "sfm_gemm_sm90_probe": [_P] * 3 + [_I, _I, _I, _P],
+    # which kernel of the GEMM body (0 up, 1 down, 2 probe, 3 LN), int[10] out
+    "sfm_gemm_sm90_info": [_I, _P],
 }
 
 _lock = threading.Lock()

@@ -59,13 +59,13 @@
 // tiles, whatever the grid, the batch or the pointers: no split over keys and
 // no atomics.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stddef.h>
-#include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace {
+
+using namespace sfm_sm90;
 
 constexpr int D = 64;                  // head dim: one 128-byte row a token
 constexpr int BM = 128;                // q rows a work tile, 64 a consumer warpgroup
@@ -109,195 +109,6 @@ struct Params {
   int tiles;       // q_tiles * slices
   float scale_log2;
 };
-
-__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// -- mbarriers ----------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// arrive and add `bytes` to the transactions the current phase waits for
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait for the completion of the phase of parity `parity` (the phase before
-// the first counts as complete, so parity 1 passes on a fresh barrier). A
-// wait that lasts seconds can only be a fault (a lost arrival or transaction
-// count): it traps, so that the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (uint32_t n = 1;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((n & 0xFFFFu) == 0) {
-      uint64_t now;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-      if (t0 == 0)
-        t0 = now;
-      else if (now - t0 > 4000000000ull)
-        __trap();
-    }
-  }
-}
-
-// -- TMA ----------------------------------------------------------------------
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// -- wgmma --------------------------------------------------------------------
-
-// Shared-memory matrix descriptor of a 1024-byte aligned tile of 128-byte rows
-// in the 128-byte swizzle: start address, leading and stride byte offsets
-// (16-byte units), layout type 1 (SWIZZLE_128B) in bits 62-63. The stride
-// byte offset (bits 32-45) is the 1024 bytes between groups of 8 rows. A
-// K-major operand (Q, K) keeps its 16-channel k step inside one swizzled row,
-// so its leading offset is unused (1). For the MN-major V the leading offset
-// is the step between 64-column atoms, unused at 64 columns; it is set to the
-// same 1024 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo16) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo16) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-// the descriptor `steps` 16-byte units further on: the start address field
-// is the low 14 bits and a tile never crosses 256 KB, so the add never
-// carries into the high word
-__device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t steps) {
-  return (desc & 0xFFFFFFFF00000000ull) | static_cast<uint32_t>(static_cast<uint32_t>(desc) + steps);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving reads or writes of wgmma's registers across
-// the fence / wait instructions
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64 x 128, fp32) (+)= A (64 x 16, shared) * B (128 x 16, shared), both
-// K-major in the 128-byte swizzle; scale_d == 0 ignores d's old value
-__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, uint64_t db,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64, fp32) += A (64 x 16, bf16 registers) * B (16 x 64, shared,
-// MN-major: rows of 16 keys, 128-byte swizzle, read through the transpose bit)
-__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
 
 // -- the online softmax on wgmma's accumulator layout --------------------------
 
@@ -627,26 +438,6 @@ frame_ctx_kv2_fwd_kernel(const __grid_constant__ CUtensorMap mq,
 
 // -- host side: tensor maps and launches ---------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime: no -lcuda
-EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &res) ==
-            cudaSuccess &&
-        res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
 // A map over rows of 64 bf16 (128 bytes, the swizzle span) at a row stride of
 // row_bytes: dims (64, n, slices[, layers]), box (64, 128[, 1], 1). Rows past
 // n read as zeros. An empty source gets one row (never loaded) at an address
@@ -671,17 +462,6 @@ bool encode(CUtensorMap* map, const void* ptr, int rank, uint64_t n, uint64_t ro
 // (slices, n, 64) contiguous
 bool encode_rows(CUtensorMap* map, const void* ptr, int n, int slices) {
   return encode(map, ptr, 3, static_cast<uint64_t>(n), D * 2, static_cast<uint64_t>(slices), 1, 0);
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 0;
-  }
-  return n;
 }
 
 Params make_params(void* o, void* lse, int slices, int nq, int nk, int nc, int heads,

@@ -1,26 +1,23 @@
-// The five fused transformer-block kernels for Hopper (sm_90a), bf16
-// activations and weights, fp32 norm / bias / layer-scale parameters.
+// Three fused transformer-block kernels for Hopper (sm_90a), bf16
+// activations and weights, fp32 norm / bias / layer-scale parameters. (The
+// MLP pair, fused_mlp_kernel's _mlp_up_kernel and _mlp_down_kernel, moved to
+// the wgmma / TMA body of gemm_sm90.cu; these three are queued to follow.)
 //
 // They replace the Pallas TPU kernels of self_supervise_sfm_tpu/ops/fused_qkv.py
 //   fused_ln_qkv_rope_kernel    fused_qkv_kernel        / _kernel
 //   fused_ln_qkv_kernel         fused_qkv_plain_kernel  / _kernel_plain
 //   fused_proj_residual_kernel  fused_proj_kernel       / _proj_kernel
-//   fused_mlp_up_kernel         fused_mlp_kernel        / _mlp_up_kernel
-//   fused_mlp_down_kernel       fused_mlp_kernel        / _mlp_down_kernel
 // and compute what those compute, with the same rounding points: layer-norm
 // statistics in fp32 (centred variance), the normalised rows rounded to bf16
 // before the product, the fp32 accumulator rounded to bf16 before the bias
 // is added in bf16, every later bf16 operation rounded again (qk-norm in
-// fp32 then bf16, RoPE with bf16 cos / sin, layer-scale, residual), GELU
-// with erff in fp32.
+// fp32 then bf16, RoPE with bf16 cos / sin, layer-scale, residual).
 //
 // Bound on an H100: operations, at every site of the main path. Rows M =
 // B * N are 6870 (ViT, global, reloc) or 13740 (frame) and C = 1024:
 //   LN + QKV (+ qk-norm + RoPE)  2 M C 3C   43 / 86 GFLOP over 62 / 118 MB
 //   out-proj + residual          2 M C C    14 / 29 GFLOP over 44 /  86 MB
-//   MLP up (LN + fc1 + GELU)     2 M C 4C   58 / 115 GFLOP over 79 / 149 MB
-//   MLP down (fc2 + residual)    2 M 4C C   58 / 115 GFLOP over 93 / 177 MB
-// i.e. 330-780 FLOP a byte against the card's ridge of ~295, so the floor is
+// i.e. 330-690 FLOP a byte against the card's ridge of ~295, so the floor is
 // the bf16 tensor-core rate; the fusion's part is that nothing but x, W and
 // the result crosses device memory.
 //
@@ -32,10 +29,10 @@
 //     of every row to a scratch (M, 2) fp32 buffer, and the loader applies
 //     (x - mu) * rstd * scale + bias to each slice in shared memory, one
 //     slice ahead of the product. Statistics in a prologue of each block
-//     would make the 4 to 16 column-tile blocks of the same rows read the
+//     would make the 12 column-tile blocks of the same rows read the
 //     rows again from L2. (ii) merged heads: read straight from the
 //     (B, H, N, 64) attention output, a K slice of 64 is one head, no
-//     transpose exists. (iii) flat rows.
+//     transpose exists.
 //   the epilogue, on the mma accumulator layout: a warp's 64 columns are one
 //     head, so the qk layer norm is a sum over a thread's 16 values and a
 //     quad shuffle, and RoPE's partner column j +- 16 sits in the same
@@ -45,7 +42,7 @@
 // cos / sin lookup, rows past M load as zeros and are never stored.
 // Still simple: mma.sync, no wgmma, no TMA, no clusters, bf16x2 stores from
 // the accumulator layout, and a grid of whole tiles (216 or 432 blocks on
-// 132 multiprocessors for the two kernels with 1024 output columns).
+// 132 multiprocessors for the out-projection's 1024 output columns).
 
 #include "gemm_core.cuh"
 
@@ -56,7 +53,7 @@ using namespace sfm_gemm;
 constexpr int HD = 64;  // head dim
 
 struct Params {
-  const bf16* a;      // x (M, K) | attention out (B, H, N, 64) | hidden (M, K)
+  const bf16* a;      // x (M, K) | attention out (B, H, N, 64)
   const bf16* w;      // (K, nout)
   const float* bias;  // (nout)
   const float* ln_w;  // layer norm over K (LN loader)
@@ -70,7 +67,7 @@ struct Params {
   const float* sin;
   const float* gamma;  // layer-scale (residual epilogue)
   const bf16* resid;   // (M, nout)
-  bf16* out0;          // q | y | hidden
+  bf16* out0;          // q | y
   bf16* out1;          // k
   bf16* out2;          // v
   float eps;
@@ -239,7 +236,7 @@ ln_stats_kernel(const bf16* __restrict__ x, float* __restrict__ stats, int M, in
 
 // -- epilogues ----------------------------------------------------------------
 
-enum { E_QKV_ROPE = 0, E_QKV = 1, E_RESID = 2, E_GELU = 3 };
+enum { E_QKV_ROPE = 0, E_QKV = 1, E_RESID = 2 };
 
 template <int EP>
 __device__ __forceinline__ void epilogue(const Params& p, float (&acc)[MT][NT][4],
@@ -292,17 +289,6 @@ __device__ __forceinline__ void epilogue(const Params& p, float (&acc)[MT][NT][4
           const float y0 = rb(v[nt][0] * rb(gm[nt].x)), y1 = rb(v[nt][1] * rb(gm[nt].y));
           *reinterpret_cast<uint32_t*>(p.out0 + base + nt * 8 + 2 * t) =
               pack_bf16(x.x + y0, x.y + y1);
-        }
-      } else if (EP == E_GELU) {
-        if (!valid) continue;
-        const size_t base = (size_t)row * p.nout + cb;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const float h0 = v[nt][0], h1 = v[nt][1];
-          const float g0 = 0.5f * h0 * (1.0f + erff(h0 * 0.70710678118654752f));
-          const float g1 = 0.5f * h1 * (1.0f + erff(h1 * 0.70710678118654752f));
-          *reinterpret_cast<uint32_t*>(p.out0 + base + nt * 8 + 2 * t) =
-              pack_bf16(g0, g1);
         }
       } else {
         const int b = valid ? row / p.ntok : 0;
@@ -367,7 +353,7 @@ __device__ __forceinline__ void epilogue(const Params& p, float (&acc)[MT][NT][4
 
 // -- kernels ------------------------------------------------------------------
 
-enum { A_LN = 0, A_HEADS = 1, A_FLAT = 2 };
+enum { A_LN = 0, A_HEADS = 1 };
 
 template <int AL, int EP>
 __device__ __forceinline__ void run(const Params& p) {
@@ -388,12 +374,8 @@ __device__ __forceinline__ void run(const Params& p) {
     LnLoader al;
     al.init(p, m0, s_lw, s_lb);
     mainloop(al, p.w, p.K, p.nout, n0, sa, sb, acc);
-  } else if (AL == A_HEADS) {
-    HeadsLoader al;
-    al.init(p, m0);
-    mainloop(al, p.w, p.K, p.nout, n0, sa, sb, acc);
   } else {
-    FlatLoader al;
+    HeadsLoader al;
     al.init(p, m0);
     mainloop(al, p.w, p.K, p.nout, n0, sa, sb, acc);
   }
@@ -409,16 +391,10 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) fused_ln_qkv_kernel(cons
 __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) fused_proj_residual_kernel(const Params p) {
   run<A_HEADS, E_RESID>(p);
 }
-__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) fused_mlp_up_kernel(const Params p) {
-  run<A_LN, E_GELU>(p);
-}
-__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) fused_mlp_down_kernel(const Params p) {
-  run<A_FLAT, E_RESID>(p);
-}
 
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block can have
 
-// Launch one of the five kernels with its dynamic shared memory (above the
+// Launch one of the three kernels with its dynamic shared memory (above the
 // 48 KB a kernel gets without asking, so the limit is raised first).
 template <class Kernel>
 int launch(Kernel kernel, const Params& p, bool layer_normed, void* stream) {
@@ -495,28 +471,4 @@ extern "C" int sfm_fused_proj_residual(const void* o, const void* x, const void*
   p.M = batch * ntok; p.K = heads * HD; p.nout = heads * HD;
   p.ntok = ntok; p.heads = heads;
   return launch(fused_proj_residual_kernel, p, false, stream);
-}
-
-// x (M, C) -> h = gelu(LN(x) @ W1 (C, Ch) + b1)  (M, Ch)
-extern "C" int sfm_fused_mlp_up(const void* x, const void* ln_w, const void* ln_b,
-                                const void* w1, const void* b1, void* h, void* stats,
-                                int rows, int dim, int hidden, float eps, void* stream) {
-  Params p = {};
-  p.a = cb16(x); p.w = cb16(w1); p.bias = cf32(b1);
-  p.ln_w = cf32(ln_w); p.ln_b = cf32(ln_b); p.out0 = static_cast<bf16*>(h);
-  p.eps = eps; p.M = rows; p.K = dim; p.nout = hidden; p.ntok = rows; p.heads = 1;
-  p.stats = static_cast<const float*>(stats);
-  if (const int rc = launch_stats(p, static_cast<float*>(stats), stream)) return rc;
-  return launch(fused_mlp_up_kernel, p, true, stream);
-}
-
-// h (M, Ch), x (M, C) -> y = x + gamma * (h @ W2 (Ch, C) + b2)
-extern "C" int sfm_fused_mlp_down(const void* h, const void* x, const void* w2,
-                                  const void* b2, const void* gamma, void* y, int rows,
-                                  int hidden, int dim, void* stream) {
-  Params p = {};
-  p.a = cb16(h); p.w = cb16(w2); p.bias = cf32(b2); p.gamma = cf32(gamma);
-  p.resid = cb16(x); p.out0 = static_cast<bf16*>(y);
-  p.M = rows; p.K = hidden; p.nout = dim; p.ntok = rows; p.heads = 1;
-  return launch(fused_mlp_down_kernel, p, false, stream);
 }

@@ -14,8 +14,8 @@
 // A is read back with ldmatrix, B (the weight, (K, Nout) row-major) with
 // ldmatrix.trans into the mma "col" layout; the fragments of k-step kk + 1
 // are requested before the products of k-step kk are started.
-// The A loader is a template parameter (fused_block.cu has the three of them
-// and the four epilogues): copy(kt, stage) starts the copies of the thread's
+// The A loader is a template parameter (fused_block.cu has two of them and
+// three epilogues): copy(kt, stage) starts the copies of the thread's
 // own 16-byte chunks of slice kt; transform(kt, stage) may rewrite those same
 // chunks in place once they have landed (the layer norm). It is called one
 // slice ahead of the product, so its arithmetic overlaps the tensor-core

@@ -1,0 +1,520 @@
+// The two fused MLP kernels of a transformer block on one GEMM body written
+// for Hopper (sm_90a): TMA loads into a ring of shared-memory stages, wgmma
+// products, warp specialisation, a persistent grid. bf16 activations and
+// weights, fp32 norm / bias / layer-scale parameters.
+//
+// Replaces the Pallas TPU kernels of self_supervise_sfm_tpu/ops/fused_qkv.py
+//   mlp_up_sm90_kernel    fused_mlp_kernel / _mlp_up_kernel    (+ ln_rows_kernel)
+//   mlp_down_sm90_kernel  fused_mlp_kernel / _mlp_down_kernel
+// and computes what they compute, with their rounding points. Up: hn =
+// LN(x) with fp32 statistics (centred variance), rounded to bf16; acc = hn @
+// W1 in fp32, rounded to bf16; + b1 in bf16; the exact (erff) GELU in fp32,
+// rounded to bf16. Down: acc = h @ W2 in fp32, rounded to bf16; + b2, x
+// gamma and + x, each in bf16. x and h are flat (M, C) and (M, 4C) rows;
+// the weights stay in their (K, Nout) row-major layout, read MN-major.
+//
+// Bound on an H100: operations. 2 M C 4C FLOPs over x, W and the result is
+// 330-780 FLOP a byte at the main path's sizes (M = 6870 or 13740 rows, C =
+// 1024), above the card's ~295 ridge, so the floor is the bf16 tensor-core
+// rate: 58 / 115 GFLOP a call, 0.058 / 0.117 ms at 989 TFLOP/s.
+//
+// Design, against what held the mma.sync body of gemm_core.cuh back:
+// - Products: wgmma m64n128k16 with both operands read from shared memory.
+//   A (hn or h) is K-major in the 128-byte swizzle: a 64-channel bf16 row is
+//   one swizzle row, the 16-channel k step a 32-byte start-address step. B =
+//   W in its natural (K, Nout) layout is read through the transposed-B bit:
+//   a stage holds two 64-column atoms (64 k rows of 128 bytes each, 8 KB),
+//   so the descriptor's stride byte offset is the 1024 bytes between groups
+//   of 8 k rows and its leading byte offset the 8 KB between the atoms.
+// - Copies: one producer thread issues TMA loads (a 64 x BM box of A, two 64
+//   x 64 boxes of B) into a ring of STAGES stages with a full and an empty
+//   mbarrier each; no consumer thread spends an instruction on a copy. The
+//   producer's warpgroup gives up its registers (setmaxnreg) to the two
+//   consumer warpgroups. Rows past M arrive as zeros and are never stored.
+// - Epilogue: a persistent grid of one block a multiprocessor walks the
+//   output tiles. With PINGPONG the two consumer warpgroups own alternate
+//   128 x 128 tiles and take turns to issue their main loops (named
+//   barriers), so one's epilogue (the GELU's erff, or bias / gamma /
+//   residual) runs while the other's products hold the tensor cores.
+//   Without it both share one 256 x 128 tile (B read from L2 half as often,
+//   the epilogue exposed); tools/ablate_gemm_sm90.py times the two.
+// - Layer norm: a pre-pass kernel of this source (ln_rows_kernel, one warp
+//   a row) writes hn once, as the JAX kernel's bf16 cast before the dot; the
+//   GEMM's A is then a plain TMA load, and no column tile repeats the norm.
+// - Tile order: row by row (GROUP_M = 1). Raster groups of 8 row tiles,
+//   walked column by column so that a group's rows of A stay in the 50 MB
+//   L2, measured no faster on an H100 (ablate_gemm_sm90): the ~132 tiles in
+//   flight hold 4-17 row tiles of A and the 8 MB weight in L2 either way.
+// - Rounds: 128 x 128 tiles are 1728 / 3456 (up, ViT / frame) and 432 / 864
+//   (down) a call, 13.1 / 26.2 and 3.3 / 6.5 rounds of 132 multiprocessors;
+//   the last round of MLP-down at ViT is the fullest left (36 of 132).
+// Every output element is one warpgroup's fp32 sum over the K slices in
+// order, whatever the grid, the row count or the tile: no split over K and
+// no atomics, so a row's result does not depend on the rows beside it.
+
+#include <stddef.h>
+
+#include "sm90_common.cuh"
+
+namespace {
+
+using namespace sfm_sm90;
+
+typedef __nv_bfloat16 bf16;
+
+constexpr bool PINGPONG = true;        // alternate 128 x 128 tiles; false: one 256 x 128 tile
+constexpr int STAGES = 5;              // ring depth (on an H100, 3 ran slower, 6 no faster)
+constexpr int GROUP_M = 1;             // row tiles a raster group (1: row by row)
+constexpr int BK = 64;                 // K slice: one 128-byte swizzle row of A
+constexpr int WG_M = 128;              // rows of a consumer warpgroup's tile part
+constexpr int BN = 128;                // columns of a tile: two 64-column atoms of B
+constexpr int BM = PINGPONG ? WG_M : 2 * WG_M;  // rows of a tile
+constexpr int NTHREADS = 384;          // producer + two consumer warpgroups
+constexpr int PRODUCER_REGS = 24;      // setmaxnreg of the producer warpgroup
+constexpr int CONSUMER_REGS = 240;     // and of the consumers
+constexpr int A_BYTES = BM * BK * 2;   // 16 KB (32 KB for 256 rows)
+constexpr int B_ATOM_BYTES = BK * 64 * 2;  // 8 KB: 64 k rows of 64 columns
+constexpr int B_BYTES = 2 * B_ATOM_BYTES;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int BAR_OFF = STAGES * STAGE_BYTES;
+// stages (1024-byte aligned: the swizzle repeats every 8 rows), then a full
+// and an empty barrier a stage; 1 KB of slack to align by hand
+constexpr int SMEM_BYTES = 1024 + BAR_OFF + 2 * STAGES * 8;
+static_assert(SMEM_BYTES <= 232448, "more shared memory than a block can have");
+// the warps that read a stage and arrive on its empty barrier
+constexpr int EMPTY_ARRIVALS = PINGPONG ? 4 : 8;
+
+enum { E_GELU = 0, E_RESID = 1, E_F32 = 2 };
+
+struct Params {
+  const float* bias;   // (nout)
+  const float* gamma;  // (nout) layer-scale (E_RESID)
+  const bf16* resid;   // (M, nout) residual (E_RESID)
+  void* out;           // (M, nout): bf16, fp32 for E_F32
+  int M, K, nout;
+  int m_tiles, n_tiles, tiles, k_tiles;
+};
+
+// round an fp32 value to bf16 and back: the value a bf16 tensor would hold
+__device__ __forceinline__ float rb(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+// tile t -> (row tile, column tile): groups of GROUP_M row tiles, walked
+// column by column, the row tiles of a group inside each column
+__device__ __forceinline__ void tile_coords(const Params& p, int t, int& mb, int& nb) {
+  const int per_group = GROUP_M * p.n_tiles;
+  const int first = (t / per_group) * GROUP_M;
+  const int rows = min(p.m_tiles - first, GROUP_M);
+  const int r = t % per_group;
+  mb = first + r % rows;
+  nb = r / rows;
+}
+
+// The epilogue of one 128 x 128 part, rows from m0, columns from n0, on the
+// wgmma accumulator layout: acc[h][4j + e] is row h * 64 + 16 warp + g (+ 8
+// for e >= 2), column 8j + 2t + (e & 1).
+template <int EP>
+__device__ __forceinline__ void epilogue(const Params& p, float (&acc)[2][64], int m0, int n0) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = m0 + h * 64 + warp * 16 + hr * 8 + g;
+      if (row >= p.M) continue;
+      const size_t base = static_cast<size_t>(row) * p.nout + n0 + 2 * t;
+      if (EP == E_F32) {
+        float* o = static_cast<float*>(p.out) + base;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          *reinterpret_cast<float2*>(o + 8 * j) =
+              make_float2(acc[h][4 * j + 2 * hr], acc[h][4 * j + 2 * hr + 1]);
+        continue;
+      }
+      bf16* o = static_cast<bf16*>(p.out) + base;
+      const float* bias = p.bias + n0 + 2 * t;
+      if (EP == E_GELU) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float2 b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j));
+          const float h0 = rb(rb(acc[h][4 * j + 2 * hr]) + rb(b.x));
+          const float h1 = rb(rb(acc[h][4 * j + 2 * hr + 1]) + rb(b.y));
+          const float g0 = 0.5f * h0 * (1.0f + erff(h0 * 0.70710678118654752f));
+          const float g1 = 0.5f * h1 * (1.0f + erff(h1 * 0.70710678118654752f));
+          *reinterpret_cast<uint32_t*>(o + 8 * j) = pack_bf16(g0, g1);
+        }
+      } else {
+        // every load of the row before its first store: the stores may alias
+        // the loads as far as the compiler knows, and would serialise them
+        const bf16* x = p.resid + base;
+        uint32_t res[BN / 8];
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) res[j] = *reinterpret_cast<const uint32_t*>(x + 8 * j);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float2 b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j));
+          const float2 gm = __ldg(reinterpret_cast<const float2*>(p.gamma + n0 + 2 * t + 8 * j));
+          const float v0 = rb(rb(acc[h][4 * j + 2 * hr]) + rb(b.x));
+          const float v1 = rb(rb(acc[h][4 * j + 2 * hr + 1]) + rb(b.y));
+          const float2 xr = unpack_bf16(res[j]);
+          *reinterpret_cast<uint32_t*>(o + 8 * j) =
+              pack_bf16(xr.x + rb(v0 * rb(gm.x)), xr.y + rb(v1 * rb(gm.y)));
+        }
+      }
+    }
+  }
+}
+
+// out = epilogue(A @ W): A (M, K) through map ma, W (K, nout) through mb
+template <int EP>
+__device__ __forceinline__ void gemm(const CUtensorMap* ma, const CUtensorMap* mb,
+                                     const Params& p) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full0 = base + BAR_OFF;
+  const uint32_t empty0 = full0 + 8 * STAGES;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, EMPTY_ARRIVALS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {
+    // == producer: one thread issues every copy, tile after tile ==
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        int mt, nt;
+        tile_coords(p, tile, mt, nt);
+        const int m0 = mt * BM, n0 = nt * BN;
+        for (int kt = 0; kt < p.k_tiles; ++kt) {
+          const uint32_t full = full0 + 8 * stage;
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          // a ragged box still counts all of its bytes
+          mbar_expect_tx(full, STAGE_BYTES);
+          const uint32_t sa = base + stage * STAGE_BYTES;
+          tma_load_2d(sa, ma, full, kt * BK, m0);
+          tma_load_2d(sa + A_BYTES, mb, full, n0, kt * BK);
+          tma_load_2d(sa + A_BYTES + B_ATOM_BYTES, mb, full, n0 + 64, kt * BK);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // == consumers: warpgroup cw multiplies 128 rows x 128 columns a tile ==
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int cw = wg - 1;
+    const int lane = threadIdx.x & 31;
+    // the block's tiles are numbered i = 0, 1, ...; with PINGPONG warpgroup
+    // cw takes those with i % 2 == cw, else both take every tile
+    const int step = PINGPONG ? 2 : 1;
+    const uint32_t a_part = PINGPONG ? 0u : static_cast<uint32_t>(cw * WG_M * BK * 2);
+    // Ping-pong turns (named barriers 1 and 2): a warpgroup issues its main
+    // loop only in its turn and passes the turn on when its last products
+    // are issued; warpgroup 0 has the first turn, the block's last tile
+    // passes nothing on. The turns also keep the ring's parity waits sound:
+    // a warpgroup skips the other's k_tiles ring positions, and only once
+    // the other has waited on all of them is every stage it waits on at most
+    // one phase ahead of its barrier (without the turns, a wait two phases
+    // ahead passes on the parity of an old phase; the watchdog traps).
+    if (PINGPONG && cw == 0) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+    for (int i = PINGPONG ? cw : 0;; i += step) {
+      const int tile = blockIdx.x + i * gridDim.x;
+      if (tile >= p.tiles) break;
+      int mt, nt;
+      tile_coords(p, tile, mt, nt);
+      const int it0 = i * p.k_tiles;  // the ring position of the tile's first slice
+      int stage = it0 % STAGES;
+      uint32_t phase = (it0 / STAGES) & 1;
+      float acc[2][64];
+      if (PINGPONG) asm volatile("bar.sync %0, 256;\n" ::"r"(1 + cw) : "memory");
+      int prev = 0;
+      for (int kt = 0; kt < p.k_tiles; ++kt) {
+        mbar_wait(full0 + 8 * stage, phase);
+        __syncwarp();  // the .aligned wgmma instructions need the warp converged
+        const uint32_t sa = base + stage * STAGE_BYTES + a_part;
+        const uint64_t da0 = sw128_desc(sa, 1), da1 = sw128_desc(sa + 64 * 128, 1);
+        const uint64_t db = sw128_desc(base + stage * STAGE_BYTES + A_BYTES, B_ATOM_BYTES >> 4);
+        wgmma_fence();
+        // 4 k steps of 16: +32 bytes along A's swizzled rows, +16 rows (2048
+        // bytes) down B's atoms
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const int accumulate = kt > 0 || kk > 0;
+          wgmma_ss_m64n128<1>(acc[0], desc_add(da0, 2 * kk), desc_add(db, 128 * kk), accumulate);
+          wgmma_ss_m64n128<1>(acc[1], desc_add(da1, 2 * kk), desc_add(db, 128 * kk), accumulate);
+        }
+        wgmma_commit();
+        if (kt > 0) {
+          wgmma_wait<1>();  // the previous slice's products are done: free its stage
+          if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+        }
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (PINGPONG && tile + static_cast<int>(gridDim.x) < p.tiles)
+        asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - cw) : "memory");
+      wgmma_wait<0>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+      epilogue<EP>(p, acc, mt * BM + static_cast<int>(a_part / (BK * 2)), nt * BN);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+mlp_up_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
+                   const Params p) {
+  gemm<E_GELU>(&ma, &mb, p);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+mlp_down_sm90_kernel(const __grid_constant__ CUtensorMap ma,
+                     const __grid_constant__ CUtensorMap mb, const Params p) {
+  gemm<E_RESID>(&ma, &mb, p);
+}
+
+// the bare product in fp32: a check of the operand layouts
+__global__ void __launch_bounds__(NTHREADS, 1)
+gemm_probe_sm90_kernel(const __grid_constant__ CUtensorMap ma,
+                       const __grid_constant__ CUtensorMap mb, const Params p) {
+  gemm<E_F32>(&ma, &mb, p);
+}
+
+// -- the layer-norm pre-pass ---------------------------------------------------
+
+constexpr int LN_ROWS = 8;  // rows (warps) a block
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// hn = ((x - mu) * rstd) * scale + bias in fp32, rounded to bf16; one warp a
+// row, 8 channels (16 bytes) a lane a step, K a multiple of 256. Mean and
+// centred variance as the plain version's, explicit roundings (no fused
+// multiply-add) in the normalisation.
+__global__ void __launch_bounds__(LN_ROWS * 32)
+ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ b, bf16* __restrict__ y, int M, int K, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * LN_ROWS + (threadIdx.x >> 5);
+  if (row >= M) return;
+  const bf16* xr = x + static_cast<size_t>(row) * K;
+  bf16* yr = y + static_cast<size_t>(row) * K;
+  float s = 0.f;
+  for (int c = lane * 8; c < K; c += 256) {
+    const uint4 u = *reinterpret_cast<const uint4*>(xr + c);
+    const float2 a = unpack_bf16(u.x), bb = unpack_bf16(u.y);
+    const float2 cq = unpack_bf16(u.z), d = unpack_bf16(u.w);
+    s += ((a.x + a.y) + (bb.x + bb.y)) + ((cq.x + cq.y) + (d.x + d.y));
+  }
+  const float mu = warp_sum(s) / static_cast<float>(K);
+  float q = 0.f;
+  for (int c = lane * 8; c < K; c += 256) {
+    const uint4 u = *reinterpret_cast<const uint4*>(xr + c);
+    const uint32_t in[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 v = unpack_bf16(in[j]);
+      const float d0 = v.x - mu, d1 = v.y - mu;
+      q += d0 * d0 + d1 * d1;
+    }
+  }
+  const float rs = rsqrtf(warp_sum(q) / static_cast<float>(K) + eps);
+  for (int c = lane * 8; c < K; c += 256) {
+    const uint4 u = *reinterpret_cast<const uint4*>(xr + c);
+    const uint32_t in[4] = {u.x, u.y, u.z, u.w};
+    const float4 wa = *reinterpret_cast<const float4*>(w + c);
+    const float4 wb = *reinterpret_cast<const float4*>(w + c + 4);
+    const float4 ba = *reinterpret_cast<const float4*>(b + c);
+    const float4 bc = *reinterpret_cast<const float4*>(b + c + 4);
+    const float w8[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+    const float b8[8] = {ba.x, ba.y, ba.z, ba.w, bc.x, bc.y, bc.z, bc.w};
+    uint32_t out[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 v = unpack_bf16(in[j]);
+      const float y0 =
+          __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.x, mu), rs), w8[2 * j]), b8[2 * j]);
+      const float y1 =
+          __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.y, mu), rs), w8[2 * j + 1]), b8[2 * j + 1]);
+      out[j] = pack_bf16(y0, y1);
+    }
+    *reinterpret_cast<uint4*>(yr + c) = make_uint4(out[0], out[1], out[2], out[3]);
+  }
+}
+
+// -- host side ------------------------------------------------------------------
+
+// A 2-D map over a row-major (outer, inner) bf16 matrix, box (64, box_outer)
+// in the 128-byte swizzle; rows past `outer` read as zeros
+bool encode_2d(CUtensorMap* map, const void* ptr, int inner, int outer, int box_outer) {
+  const EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// The first launch of each kernel checks its registers (setmaxnreg moves
+// registers between the warpgroups: the consumers' increase waits until the
+// block's allocation at launch holds it, so a kernel compiled to fewer
+// registers would never get past it) and sets its dynamic shared memory.
+int prepare(const void* kernel) {
+  static const void* ready[3] = {nullptr, nullptr, nullptr};
+  int slot = 0;
+  while (slot < 3 && ready[slot] != nullptr && ready[slot] != kernel) ++slot;
+  if (slot < 3 && ready[slot] == kernel) return 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr.numRegs * NTHREADS < PRODUCER_REGS * 128 + CONSUMER_REGS * 2 * 128)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (slot < 3) ready[slot] = kernel;
+  return 0;
+}
+
+// out = epilogue(a (M, K) @ w (K, nout)); K a multiple of 64, nout of 128.
+// Grid: one block a multiprocessor, at most one a tile.
+template <int EP>
+int launch_gemm(const void* a, const void* w, Params p, void* stream) {
+  if (p.M < 0 || p.K <= 0 || p.K % BK || p.nout <= 0 || p.nout % BN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.M == 0) return 0;
+  CUtensorMap ma, mb;
+  if (!encode_2d(&ma, a, p.K, p.M, BM) || !encode_2d(&mb, w, p.nout, p.K, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.m_tiles = (p.M + BM - 1) / BM;
+  p.n_tiles = p.nout / BN;
+  p.tiles = p.m_tiles * p.n_tiles;
+  p.k_tiles = p.K / BK;
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const void* kernel = EP == E_GELU    ? reinterpret_cast<const void*>(mlp_up_sm90_kernel)
+                       : EP == E_RESID ? reinterpret_cast<const void*>(mlp_down_sm90_kernel)
+                                       : reinterpret_cast<const void*>(gemm_probe_sm90_kernel);
+  if (const int err = prepare(kernel)) return err;
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (EP == E_GELU)
+    mlp_up_sm90_kernel<<<grid, NTHREADS, SMEM_BYTES, st>>>(ma, mb, p);
+  else if (EP == E_RESID)
+    mlp_down_sm90_kernel<<<grid, NTHREADS, SMEM_BYTES, st>>>(ma, mb, p);
+  else
+    gemm_probe_sm90_kernel<<<grid, NTHREADS, SMEM_BYTES, st>>>(ma, mb, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_ln(const void* x, const void* ln_w, const void* ln_b, void* hn, int rows, int dim,
+              float eps, void* stream) {
+  if (rows < 0 || dim <= 0 || dim % 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  ln_rows_kernel<<<(rows + LN_ROWS - 1) / LN_ROWS, LN_ROWS * 32, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
+      static_cast<const float*>(ln_b), static_cast<bf16*>(hn), rows, dim, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x (M, C) -> hn = LN(x) (M, C) bf16: the pre-pass of MLP-up alone
+extern "C" int sfm_ln_rows_bf16(const void* x, const void* ln_w, const void* ln_b, void* hn,
+                                int rows, int dim, float eps, void* stream) {
+  return launch_ln(x, ln_w, ln_b, hn, rows, dim, eps, stream);
+}
+
+// x (M, C) -> h = gelu(LN(x) @ W1 (C, Ch) + b1) (M, Ch); hn is an (M, C) bf16
+// scratch buffer that the pre-pass writes and the product reads
+extern "C" int sfm_mlp_up_sm90(const void* x, const void* ln_w, const void* ln_b,
+                               const void* w1, const void* b1, void* h, void* hn, int rows,
+                               int dim, int hidden, float eps, void* stream) {
+  if (const int err = launch_ln(x, ln_w, ln_b, hn, rows, dim, eps, stream)) return err;
+  Params p = {};
+  p.bias = static_cast<const float*>(b1);
+  p.out = h;
+  p.M = rows;
+  p.K = dim;
+  p.nout = hidden;
+  return launch_gemm<E_GELU>(hn, w1, p, stream);
+}
+
+// h (M, Ch), x (M, C) -> y = x + gamma * (h @ W2 (Ch, C) + b2) (M, C)
+extern "C" int sfm_mlp_down_sm90(const void* h, const void* x, const void* w2, const void* b2,
+                                 const void* gamma, void* y, int rows, int hidden, int dim,
+                                 void* stream) {
+  Params p = {};
+  p.bias = static_cast<const float*>(b2);
+  p.gamma = static_cast<const float*>(gamma);
+  p.resid = static_cast<const bf16*>(x);
+  p.out = y;
+  p.M = rows;
+  p.K = hidden;
+  p.nout = dim;
+  return launch_gemm<E_RESID>(h, w2, p, stream);
+}
+
+// a (M, K) bf16 @ w (K, nout) bf16 -> out (M, nout) fp32, the accumulators
+// as they are
+extern "C" int sfm_gemm_sm90_probe(const void* a, const void* w, void* out, int rows, int k,
+                                   int nout, void* stream) {
+  Params p = {};
+  p.out = out;
+  p.M = rows;
+  p.K = k;
+  p.nout = nout;
+  return launch_gemm<E_F32>(a, w, p, stream);
+}
+
+// What the body was built with and what the compiler gave each kernel (0
+// MLP-up, 1 MLP-down, 2 the probe, 3 the layer-norm pre-pass): registers a
+// thread at launch, local (spill) bytes a thread, dynamic shared memory a
+// block, ring stages, rows and columns a tile, setmaxnreg of the producer and
+// the consumers, ping-pong (1) or cooperative (0), row tiles a raster group.
+extern "C" int sfm_gemm_sm90_info(int which, int* out) {
+  cudaFuncAttributes attr;
+  const void* fn = which == 0   ? reinterpret_cast<const void*>(mlp_up_sm90_kernel)
+                   : which == 1 ? reinterpret_cast<const void*>(mlp_down_sm90_kernel)
+                   : which == 2 ? reinterpret_cast<const void*>(gemm_probe_sm90_kernel)
+                                : reinterpret_cast<const void*>(ln_rows_kernel);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = which == 3 ? 0 : SMEM_BYTES;
+  out[3] = STAGES;
+  out[4] = BM;
+  out[5] = BN;
+  out[6] = PRODUCER_REGS;
+  out[7] = CONSUMER_REGS;
+  out[8] = PINGPONG ? 1 : 0;
+  out[9] = GROUP_M;
+  return 0;
+}

@@ -1,9 +1,12 @@
 """Fused transformer-block kernels: LN+QKV(+qk-norm+RoPE), out-proj, MLP.
 
 Port of ``self_supervise_sfm_tpu/ops/fused_qkv.py``. The five Pallas TPU
-kernels become five hand-written CUDA kernels in ``csrc/fused_block.cu``
-over one GEMM body (``csrc/gemm_core.cuh``); each launch wrapper sits beside
-its plain PyTorch version:
+kernels become five hand-written CUDA kernels: the LN+QKV(+RoPE) and
+out-projection kernels in ``csrc/fused_block.cu`` over the ``mma.sync``
+GEMM body of ``csrc/gemm_core.cuh``, the MLP pair in ``csrc/gemm_sm90.cu``
+on a persistent TMA + ``wgmma`` body written for Hopper (its layer norm a
+pre-pass that writes the normalised rows once). Each launch wrapper sits
+beside its plain PyTorch version:
 
 - :func:`fused_ln_qkv_rope_fwd` replaces ``fused_qkv_kernel``: layer norm with
   fp32 statistics, ``@ W_qkv`` with fp32 accumulation rounded to x's dtype,
@@ -25,7 +28,8 @@ A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel or raises: bf16 activations and weights (the
 weights cast once at load by ``cast_trunk_weights``), fp32 norm, bias and
 layer-scale parameters, head dim 64, widths that are multiples of 64,
-contiguous and 16-byte aligned. A launch wrapper is forward only: under
+contiguous and 16-byte aligned (the MLP pair: C a multiple of 256, the
+hidden width of 128). A launch wrapper is forward only: under
 grad mode an input that requires grad raises, on every device. All five
 kernels are bound by the bf16 tensor-core rate at the main path's sizes
 (see the source note in the ``.cu`` file).
@@ -119,6 +123,14 @@ def _check_widths(name: str, *, head_dim=None, **widths: int) -> None:
     for key, n in widths.items():
         if n % 64:
             raise ValueError(f"{name}: {key} = {n} is not a multiple of 64")
+
+
+def _check_tile_widths(name: str, C: int, hidden: int) -> None:
+    """The MLP pair's GEMM body writes tiles of 128 columns and its layer-norm
+    pre-pass reads rows in steps of 256 channels."""
+    if C % 256 or hidden % 128:
+        raise ValueError(f"{name}: C = {C} must be a multiple of 256 and hidden = "
+                         f"{hidden} a multiple of 128")
 
 
 def _check_no_grad(name: str, *ts) -> None:
@@ -303,7 +315,7 @@ def fused_mlp_up(x, ln_scale, ln_bias, w1, b1, eps: float = 1e-5):
     name = "fused_mlp_up"
     B, N, C = x.shape
     Ch = w1.shape[1]
-    _check_widths(name, C=C, hidden=Ch)
+    _check_tile_widths(name, C=C, hidden=Ch)
     if tuple(w1.shape) != (C, Ch):
         raise ValueError(f"{name}: x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
     _check(name, x.device, torch.bfloat16, x=x, w1=w1)
@@ -311,10 +323,11 @@ def fused_mlp_up(x, ln_scale, ln_bias, w1, b1, eps: float = 1e-5):
                b1=(b1, (Ch,)))
     h = torch.empty((B, N, Ch), dtype=x.dtype, device=x.device)
     if B and N:
+        # the layer-normed rows, written by the pre-pass and read by the product
+        hn = torch.empty((B * N, C), dtype=x.dtype, device=x.device)
         _kernels.launch(
-            "sfm_fused_mlp_up", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), h.data_ptr(),
-            _row_stats_scratch(x).data_ptr(), B * N, C, Ch, eps,
+            "sfm_mlp_up_sm90", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), h.data_ptr(), hn.data_ptr(), B * N, C, Ch, eps,
             _kernels.stream_ptr(x),
         )
         fused_mlp_up.launches += 1
@@ -322,6 +335,27 @@ def fused_mlp_up(x, ln_scale, ln_bias, w1, b1, eps: float = 1e-5):
 
 
 fused_mlp_up.launches = 0
+
+
+def _ln_rows_into(hn, x, ln_scale, ln_bias, eps: float) -> None:
+    """MLP-up's layer-norm pre-pass alone: hn (M, C) bf16 <- LN(x). Not a
+    path of its own (``fused_mlp_up`` launches it and counts the pair as one
+    launch); ``chip_smoke.py`` checks and times it apart."""
+    M, C = hn.shape
+    _kernels.launch("sfm_ln_rows_bf16", x.data_ptr(), ln_scale.data_ptr(),
+                    ln_bias.data_ptr(), hn.data_ptr(), M, C, eps, _kernels.stream_ptr(x))
+
+
+def gemm_probe(a, w):
+    """The MLP kernels' GEMM body with no epilogue: a (M, K) bf16 @ w (K, N)
+    bf16 -> (M, N) fp32 accumulators, a check of its operand layouts (w read
+    MN-major through wgmma's transposed-B bit) on the card. K a multiple of
+    64, N of 128."""
+    out = torch.empty((a.shape[0], w.shape[1]), dtype=torch.float32, device=a.device)
+    _check("gemm_probe", a.device, torch.bfloat16, a=a, w=(w, (a.shape[1], w.shape[1])))
+    _kernels.launch("sfm_gemm_sm90_probe", a.data_ptr(), w.data_ptr(), out.data_ptr(),
+                    a.shape[0], a.shape[1], w.shape[1], _kernels.stream_ptr(a))
+    return out
 
 
 def fused_mlp_down(h, x, w2, b2, ls_gamma):
@@ -332,7 +366,7 @@ def fused_mlp_down(h, x, w2, b2, ls_gamma):
     name = "fused_mlp_down"
     B, N, C = x.shape
     Ch = h.shape[-1]
-    _check_widths(name, C=C, hidden=Ch)
+    _check_tile_widths(name, C=C, hidden=Ch)
     if tuple(h.shape) != (B, N, Ch) or tuple(w2.shape) != (Ch, C):
         raise ValueError(f"{name}: h {tuple(h.shape)}, x {tuple(x.shape)}, "
                          f"w2 {tuple(w2.shape)}")
@@ -341,7 +375,7 @@ def fused_mlp_down(h, x, w2, b2, ls_gamma):
     y = torch.empty_like(x)
     if B and N:
         _kernels.launch(
-            "sfm_fused_mlp_down", h.data_ptr(), x.data_ptr(), w2.data_ptr(),
+            "sfm_mlp_down_sm90", h.data_ptr(), x.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), ls_gamma.data_ptr(), y.data_ptr(), B * N, Ch, C,
             _kernels.stream_ptr(x),
         )

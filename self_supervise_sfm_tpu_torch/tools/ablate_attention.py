@@ -3,8 +3,9 @@
     python3 -m self_supervise_sfm_tpu_torch.tools.ablate_attention   # one CUDA card
 
 Builds copies of ``csrc/flash_fwd_sm90.cu`` under ``build/ablation_attention/``
-with one choice of the design undone by a textual patch (each patch must find
-its text, or the script fails), all builds in parallel, and times the K1
+(``sm90_common.cuh`` included from ``csrc/`` through ``-I``) with one
+choice of the design undone by a textual patch (each patch must find its
+text, or the script fails), all builds in parallel, and times the K1
 entry at the ViT, frame and global sites of the main path and the K2 entry
 at the reloc site, 20 launches back to back between CUDA events, each beside
 SDPA on the same inputs. Every variant but "no out stores" computes the same
@@ -81,18 +82,24 @@ def build_all(variants) -> dict:
     """One shared library a variant, every nvcc started together."""
     text = (Path(_kernels._SRC_DIR) / SOURCE).read_text()
     root = _kernels.BUILD_DIR.parent / "ablation_attention"
-    jobs = {}
-    for i, (name, patches) in enumerate(variants.items()):
+    # every patch is checked before the first nvcc starts
+    sources = {}
+    for name, patches in variants.items():
         src = text
         for old, new in patches:
             if src.count(old) != 1:
                 raise RuntimeError(f"{name}: patch does not apply: {old!r}")
             src = src.replace(old, new)
+        sources[name] = src
+    jobs = {}
+    for i, (name, src) in enumerate(sources.items()):
         out = root / f"v{i}"
         out.mkdir(parents=True, exist_ok=True)
         (out / SOURCE).write_text(src)
         so = out / "lib.so"
-        cmd = [_kernels._nvcc(), *_kernels._CFLAGS, "-shared", str(out / SOURCE), "-o", str(so)]
+        # the copy includes sm90_common.cuh from csrc/
+        cmd = [_kernels._nvcc(), *_kernels._CFLAGS, "-I", str(_kernels._SRC_DIR), "-shared",
+               str(out / SOURCE), "-o", str(so)]
         jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True))
     libs = {}

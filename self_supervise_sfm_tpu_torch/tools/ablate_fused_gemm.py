@@ -1,13 +1,14 @@
-"""Where the fused block kernels' time goes: ablations of the GEMM body.
+"""Where the fused block kernels' time goes: ablations of the mma.sync GEMM body.
 
     python3 -m self_supervise_sfm_tpu_torch.tools.ablate_fused_gemm   # one CUDA card
 
 Builds copies of ``csrc/fused_block.cu`` + ``csrc/gemm_core.cuh`` under
 ``build/ablation/`` with parts of the kernel switched off by a textual patch
-(each patch must find its line, or the script fails), and times the MLP-up
-kernel (layer-normed A, K = 1024, 4096 columns) and the MLP-down kernel
-(flat A, K = 4096, 1024 columns) at the frame site of the main path (13740
-rows), 20 launches back to back between CUDA events. An ablated kernel
+(each patch must find its line, or the script fails), and times the LN+QKV
+kernel (layer-normed A, K = 1024, 3072 columns) and the out-projection
+kernel (merged-heads A, K = 1024, 1024 columns) at the frame site of the
+main path (10 x 1374 rows), 20 launches back to back between CUDA events.
+(The MLP pair runs on the wgmma body: ``ablate_gemm_sm90``.) An ablated kernel
 computes nothing meaningful; only the unpatched build is checked against the
 plain versions. A patch is taken out at run time by a condition that is never
 true (a negative size), so the compiler cannot remove the code around it.
@@ -28,7 +29,7 @@ import torch
 from .. import _kernels
 from ..ops import fused_qkv as FQ
 
-ROWS, C, CH = 13740, 1024, 4096
+BATCH, NTOK, HEADS, C = 10, 1374, 16, 1024
 
 NO_EPILOGUE = [("fused_block.cu", "  epilogue<EP>(p, acc, m0, n0);",
                 "  if (p.M < 0) epilogue<EP>(p, acc, m0, n0);")]
@@ -69,7 +70,7 @@ def build(index: int, patches) -> ctypes.CDLL:
     so = out / "lib.so"
     _kernels._build(so, [out / "fused_block.cu"])
     lib = ctypes.CDLL(str(so))
-    for entry in ("sfm_fused_mlp_up", "sfm_fused_mlp_down"):
+    for entry in ("sfm_fused_ln_qkv", "sfm_fused_proj_residual"):
         fn = getattr(lib, entry)
         fn.argtypes = _kernels._SIGNATURES[entry]
         fn.restype = ctypes.c_int
@@ -98,45 +99,51 @@ def main() -> int:
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    x, h = randn(1, ROWS, C, dtype=torch.bfloat16), randn(1, ROWS, CH, dtype=torch.bfloat16)
-    w1, w2 = (randn(C, CH) * C**-0.5).bfloat16(), (randn(CH, C) * CH**-0.5).bfloat16()
-    b1, b2, gamma, lw, lb = randn(CH), randn(C), randn(C), 1 + 0.1 * randn(C), randn(C)
-    h_out, y = torch.empty_like(h), torch.empty_like(x)
-    stats = torch.empty((ROWS, 2), device="cuda")
+    rows = BATCH * NTOK
+    x = randn(BATCH, NTOK, C, dtype=torch.bfloat16)
+    o = randn(BATCH, HEADS, NTOK, C // HEADS, dtype=torch.bfloat16)
+    wq, wp = (randn(C, 3 * C) * C**-0.5).bfloat16(), (randn(C, C) * C**-0.5).bfloat16()
+    bq, bp, gamma, lw, lb = randn(3 * C), randn(C), randn(C), 1 + 0.1 * randn(C), randn(C)
+    q, k, v = (torch.empty_like(o) for _ in range(3))
+    y = torch.empty_like(x)
+    stats = torch.empty((rows, 2), device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    flops = 2.0 * ROWS * C * CH
-    print(f"{torch.cuda.get_device_name(0)}; rows {ROWS}, C {C}, hidden {CH}; "
-          f"{flops / 1e9:.1f} GFLOP a call")
+    flops = {"ln_qkv": 2.0 * rows * C * 3 * C, "proj": 2.0 * rows * C * C}
+    print(f"{torch.cuda.get_device_name(0)}; rows {rows}, C {C}; "
+          f"{flops['ln_qkv'] / 1e9:.1f} / {flops['proj'] / 1e9:.1f} GFLOP a call")
     for index, (name, patches) in enumerate(VARIANTS.items()):
         lib = build(index, patches)
 
-        def up():
-            rc = lib.sfm_fused_mlp_up(x.data_ptr(), lw.data_ptr(), lb.data_ptr(),
-                                      w1.data_ptr(), b1.data_ptr(), h_out.data_ptr(),
-                                      stats.data_ptr(), ROWS, C, CH, 1e-5, stream)
+        def ln_qkv():
+            rc = lib.sfm_fused_ln_qkv(x.data_ptr(), lw.data_ptr(), lb.data_ptr(), wq.data_ptr(),
+                                      bq.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                      stats.data_ptr(), BATCH, NTOK, HEADS, 1e-6, stream)
             assert rc == 0, rc
 
-        def down():
-            rc = lib.sfm_fused_mlp_down(h.data_ptr(), x.data_ptr(), w2.data_ptr(),
-                                        b2.data_ptr(), gamma.data_ptr(), y.data_ptr(),
-                                        ROWS, CH, C, stream)
+        def proj():
+            rc = lib.sfm_fused_proj_residual(o.data_ptr(), x.data_ptr(), wp.data_ptr(),
+                                             bp.data_ptr(), gamma.data_ptr(), y.data_ptr(),
+                                             BATCH, NTOK, HEADS, stream)
             assert rc == 0, rc
 
         if not patches:
-            up(), down()
+            ln_qkv(), proj()
             torch.cuda.synchronize()
-            e_up = float((h_out.float() - FQ.fused_mlp_up_plain(x, lw, lb, w1, b1).float())
-                         .abs().max())
-            e_down = float((y.float() - FQ.fused_mlp_down_plain(h, x, w2, b2, gamma).float())
-                           .abs().max())
-            print(f"  whole kernel against the plain versions: max abs err up {e_up:.4f}, "
-                  f"down {e_down:.4f}")
-        for label, fn in (("up (LN, K=1024)", up), ("down (flat, K=4096)", down)):
+            refs = FQ.fused_ln_qkv_plain(x, lw, lb, wq, bq, HEADS, 1e-6)
+            e_qkv = max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip((q, k, v), refs))
+            e_proj = float((y.float() - FQ.fused_proj_residual_plain(o, x, wp, bp, gamma)
+                            .float()).abs().max())
+            print(f"  whole kernel against the plain versions: max abs err LN+QKV "
+                  f"{e_qkv:.4f}, out-proj {e_proj:.4f}")
+        for label, fn, key in (("LN+QKV (LN, 3072 col)", ln_qkv, "ln_qkv"),
+                               ("out-proj (heads, 1024)", proj, "proj")):
             ms = time_ms(fn)
-            print(f"  {name:42s} {label:20s} {ms:.4f} ms  {flops / ms / 1e9:6.1f} TFLOP/s")
-    ms = time_ms(lambda: torch.matmul(h, w2))
-    print(f"  {'cuBLAS h @ w2 (yardstick)':42s} {'':20s} {ms:.4f} ms  "
-          f"{flops / ms / 1e9:6.1f} TFLOP/s")
+            print(f"  {name:42s} {label:22s} {ms:.4f} ms  {flops[key] / ms / 1e9:6.1f} TFLOP/s")
+    xf = x.view(rows, C)
+    ms = time_ms(lambda: torch.matmul(xf, wq))
+    print(f"  {'cuBLAS x @ w_qkv (yardstick)':42s} {'':22s} {ms:.4f} ms  "
+          f"{flops['ln_qkv'] / ms / 1e9:6.1f} TFLOP/s")
     return 0
 
 
