@@ -9,8 +9,8 @@ Phases, each of which must pass (any failure exits non-zero):
    kernel in ``self_supervise_sfm_tpu_torch/csrc`` with ``nvcc`` for sm_90a;
    the registers, spills and shared memory of the Hopper attention body's
    kernels (K1, K2, K2p) and of the Hopper GEMM body's (MLP-up, MLP-down,
-   the probe, the layer-norm pre-pass), and any ptxas advisory that wgmma
-   was serialised (C7518);
+   the probe, the layer-norm pre-pass, LN+QKV+RoPE, LN+QKV), and any ptxas
+   advisory that wgmma was serialised (C7518);
 2. the GEMM body's operand layouts alone (``gemm_probe``: one tile, then
    ragged rows and a K loop, against an fp32 matmul); each of the twelve
    kernels at the shapes of the paths below, held against its plain
@@ -21,8 +21,8 @@ Phases, each of which must pass (any failure exits non-zero):
    its operations at the bf16 tensor-core peak and its bytes at the memory
    peak of an H100 SXM (989 TFLOP/s, 3.35 TB/s); for every site of K1, K2,
    K2p and the fused block kernels the kernel's ratio to its bound and to
-   its library call, per call and 20 launches back to back; MLP-up's
-   layer-norm pre-pass alone;
+   its library call, per call and 20 launches back to back; the layer-norm
+   pre-pass of LN+QKV(+RoPE) and MLP-up alone;
 3. the full-width joint forward: ViT-L/14 + 24 aggregator layers at 518 px,
    bf16 trunk and fp32 heads, 5 anchors + the same 5 images as queries,
    rank 300, random weights from a seeded generator, every trunk block on
@@ -81,7 +81,7 @@ RANK = 300
 SEED = 0
 # K1, K2 and K2p: one attention body written for Hopper
 SM90_SOURCE = "self_supervise_sfm_tpu_torch/csrc/flash_fwd_sm90.cu"
-# MLP-up and MLP-down: one GEMM body written for Hopper
+# LN+QKV+RoPE, LN+QKV, MLP-up and MLP-down: one GEMM body written for Hopper
 GEMM_SOURCE = "self_supervise_sfm_tpu_torch/csrc/gemm_sm90.cu"
 
 
@@ -139,13 +139,12 @@ def _wall_ms(fn, reps: int = 3) -> float:
 _KERNEL_CLASSES = (
     # the port's own kernels first: a name holding "gemm" or "norm" further
     # down must not claim them
-    ("fused_ln_qkv_rope", ("fused_ln_qkv_rope_kernel",)),
-    ("fused_ln_qkv", ("fused_ln_qkv_kernel",)),
+    ("fused_ln_qkv_rope", ("ln_qkv_rope_sm90_kernel",)),
+    ("fused_ln_qkv", ("ln_qkv_sm90_kernel",)),
     ("fused_proj_residual", ("fused_proj_residual_kernel",)),
     ("fused_mlp_up", ("mlp_up_sm90_kernel",)),
     ("fused_mlp_down", ("mlp_down_sm90_kernel",)),
-    ("ln_rows (pre-pass of MLP-up)", ("ln_rows_kernel",)),
-    ("ln_stats (pre-pass of the LN+QKV kernels)", ("ln_stats_kernel",)),
+    ("ln_rows (pre-pass of LN+QKV(+RoPE) and MLP-up)", ("ln_rows_kernel",)),
     ("flash_fwd (K1)", ("flash_fwd_kernel",)),
     ("flash_bwd_dq (B9)", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv (B9)", ("flash_bwd_dkv_kernel",)),
@@ -266,7 +265,7 @@ def print_sm90_build() -> None:
               f"{info[4]} q rows a tile, setmaxnreg {info[6]} (producer) / {info[7]} "
               f"(consumers)")
     names = ("mlp_up_sm90_kernel", "mlp_down_sm90_kernel", "gemm_probe_sm90_kernel",
-             "ln_rows_kernel")
+             "ln_rows_kernel", "ln_qkv_rope_sm90_kernel", "ln_qkv_sm90_kernel")
     for which, name in enumerate(names):
         info = (ctypes.c_int * 10)()
         rc = lib.sfm_gemm_sm90_info(which, info)
@@ -555,6 +554,22 @@ def check_fused_kernels(randn, ulps):
                     library_back_to_back_ms=_back_to_back_ms(library),
                     input_mb=in_bytes / 1e6, inputs_fit_l2=in_bytes <= 50e6)
 
+    def prepass(name, site, x, norm, eps):
+        """The layer-norm pre-pass of a kernel alone (inside its time above):
+        hn against the plain version's rows, 2 ulps at the largest; timed."""
+        M = x.shape[0] * x.shape[1]
+        hn = torch.empty((M, C), dtype=bf16, device="cuda")
+        FQ._ln_rows_into(hn, x, norm["scale"], norm["bias"], eps)
+        torch.cuda.synchronize()
+        hn_ref = FQ._ln_rows(x.float(), norm["scale"], norm["bias"], eps).to(bf16).view(M, C)
+        e_hn = float((hn.float() - hn_ref.float()).abs().max())
+        _check(f"{name}[{site}] layer-norm pre-pass hn {tuple(hn.shape)}", e_hn,
+               ulps(hn_ref, 2))
+        pre = lambda: FQ._ln_rows_into(hn, x, norm["scale"], norm["bias"], eps)  # noqa: E731
+        per_kernel[name][-1].update(
+            prepass_max_abs_err=e_hn, prepass_ms=_time_ms(pre),
+            prepass_back_to_back_ms=_back_to_back_ms(pre))
+
     per_kernel = {k: [] for k in ("fused_ln_qkv_rope", "fused_ln_qkv", "fused_proj_residual",
                                   "fused_mlp_up", "fused_mlp_down")}
     for site, (B, n, tabs) in sites.items():
@@ -581,6 +596,7 @@ def check_fused_kernels(randn, ulps):
         per_kernel[name].append(measure(
             name, site, kern(*args), plain(*args), tol, 2.0 * M * C * 3 * C, ins,
             (lambda: kern(*args), lambda: plain(*args), chain)))
+        prepass(name, site, x, n1, args[-1])
         if site == "reloc":
             continue  # the other three kernels see the ViT site's shape again
         # -- head merge + out-proj + layer-scale + residual
@@ -600,20 +616,7 @@ def check_fused_kernels(randn, ulps):
             2.0 * M * C * Ch, list(uargs[:5]),
             (lambda: FQ.fused_mlp_up(*uargs), lambda: FQ.fused_mlp_up_plain(*uargs),
              lambda: P.gelu(P.linear(ml["fc1"], P.layer_norm(n2, x, 1e-5))))))
-        # its layer-norm pre-pass alone (inside the time above): hn against
-        # the plain version's rows, 2 ulps at the largest
-        hn = torch.empty((M, C), dtype=bf16, device="cuda")
-        FQ._ln_rows_into(hn, x, n2["scale"], n2["bias"], 1e-5)
-        torch.cuda.synchronize()
-        hn_ref = FQ._ln_rows(x.float(), n2["scale"], n2["bias"], 1e-5).to(bf16).view(M, C)
-        e_hn = float((hn.float() - hn_ref.float()).abs().max())
-        _check(f"fused_mlp_up[{site}] layer-norm pre-pass hn {tuple(hn.shape)}", e_hn,
-               ulps(hn_ref, 2))
-        pre = lambda: FQ._ln_rows_into(hn, x, n2["scale"], n2["bias"], 1e-5)  # noqa: E731
-        per_kernel["fused_mlp_up"][-1].update(
-            prepass_max_abs_err=e_hn, prepass_ms=_time_ms(pre),
-            prepass_back_to_back_ms=_back_to_back_ms(pre))
-        del hn, hn_ref
+        prepass("fused_mlp_up", site, x, n2, 1e-5)
         # -- MLP down: fc2 + layer-scale + residual, on the up kernel's hidden
         dargs = (h, x, ml["fc2"]["w"], ml["fc2"]["b"], p["ls2"]["gamma"])
         per_kernel["fused_mlp_down"].append(measure(
@@ -644,10 +647,10 @@ def check_fused_kernels(randn, ulps):
                 print(f"  {name}[{s_['site']}] layer-norm pre-pass alone: "
                       f"{s_['prepass_ms']:.4f} ms a call, {s_['prepass_back_to_back_ms']:.4f} "
                       f"ms back to back")
-        mlp = name.startswith("fused_mlp")
         results.append(dict(
             name=name, route="cuda",
-            source=GEMM_SOURCE if mlp else "self_supervise_sfm_tpu_torch/csrc/fused_block.cu",
+            source=("self_supervise_sfm_tpu_torch/csrc/fused_block.cu"
+                    if name == "fused_proj_residual" else GEMM_SOURCE),
             replaces=f"self_supervise_sfm_tpu/ops/fused_qkv.py:{lines[name]}",
             # one call at each site measured
             max_abs_err=max(s_["max_abs_err"] for s_ in ss),

@@ -1,5 +1,5 @@
-// Shared bf16 GEMM body of the fused transformer-block kernels
-// (fused_block.cu) for Hopper (sm_90a).
+// The mma.sync bf16 GEMM body of the fused out-projection (fused_block.cu)
+// for Hopper (sm_90a).
 //
 // One block of 8 warps owns a 128 x 256 output tile and loops over K in
 // slices of 64; nothing carries over between blocks. Each warp owns 64 rows
@@ -14,13 +14,9 @@
 // A is read back with ldmatrix, B (the weight, (K, Nout) row-major) with
 // ldmatrix.trans into the mma "col" layout; the fragments of k-step kk + 1
 // are requested before the products of k-step kk are started.
-// The A loader is a template parameter (fused_block.cu has two of them and
-// three epilogues): copy(kt, stage) starts the copies of the thread's
-// own 16-byte chunks of slice kt; transform(kt, stage) may rewrite those same
-// chunks in place once they have landed (the layer norm). It is called one
-// slice ahead of the product, so its arithmetic overlaps the tensor-core
-// work, and only on chunks that no other thread reads before the next
-// barrier.
+// The A loader is a template parameter: copy(kt, stage) starts the copies of
+// the thread's own 16-byte chunks of slice kt (fused_block.cu's reads merged
+// heads).
 //
 // What limits it (tools/ablate_fused_gemm.py on an H100 80GB HBM3, 13740
 // rows; flat A, K 4096, 1024 columns, 115 GFLOP): the whole kernel takes
@@ -28,12 +24,9 @@
 // blocks on 132 multiprocessors), with the ldmatrix reads 0.271 ms; its
 // cp.async copies alone 0.280 ms (1.36 GB from L2, B read again by every row
 // tile); the epilogue 0.04 ms. Copies and products overlap only in part:
-// both go through shared memory and the same instruction slots. With the
-// layer-normed A (K 1024, 4096 columns) the rewrite of the slices adds 0.125
-// ms to the products, because each of the 16 column tiles of a row tile
-// repeats it, and the GELU epilogue 0.124 ms with nothing to overlap it at
-// one block a multiprocessor. Past this lie TMA multicast across a cluster,
-// wgmma and a persistent grid whose epilogue overlaps the next tile.
+// both go through shared memory and the same instruction slots. Past this
+// lie TMA, wgmma and a persistent grid whose epilogue overlaps the next tile
+// (gemm_sm90.cu).
 
 #pragma once
 
@@ -160,8 +153,6 @@ __device__ __forceinline__ void mainloop(ALoader& al, const bf16* __restrict__ w
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) copy_slice(s);
-  cp_async_wait<STAGES - 2>();  // this thread's chunks of slice 0 have landed
-  al.transform(0, sa);
 
   // ldmatrix lane addressing: lanes 8i..8i+7 give the rows of matrix i
   const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
@@ -169,12 +160,11 @@ __device__ __forceinline__ void mainloop(ALoader& al, const bf16* __restrict__ w
 
   for (int kt = 0; kt < KT; ++kt) {
     // own chunks of slices <= kt + 1 have landed; after the barrier every
-    // thread's chunks of slice kt have, transformed, and stage (kt - 1) %
-    // STAGES is free: all warps are done multiplying slice kt - 1
+    // thread's chunks of slice kt have, and stage (kt - 1) % STAGES is free:
+    // all warps are done multiplying slice kt - 1
     cp_async_wait<STAGES - 3>();
     __syncthreads();
     copy_slice(kt + STAGES - 1);
-    if (kt + 1 < KT) al.transform(kt + 1, sa + ((kt + 1) % STAGES) * A_STAGE);
 
     const bf16* ta = sa + (kt % STAGES) * A_STAGE + (wm * WM + lrow) * LDA + lcol;
     const bf16* tb = sb + (kt % STAGES) * B_STAGE + lrow * LDB + wn * WN + lcol;

@@ -1,22 +1,29 @@
-// The two fused MLP kernels of a transformer block on one GEMM body written
-// for Hopper (sm_90a): TMA loads into a ring of shared-memory stages, wgmma
+// Four fused kernels of a transformer block on one GEMM body written for
+// Hopper (sm_90a): TMA loads into a ring of shared-memory stages, wgmma
 // products, warp specialisation, a persistent grid. bf16 activations and
-// weights, fp32 norm / bias / layer-scale parameters.
+// weights, fp32 norm / bias / layer-scale / RoPE parameters.
 //
 // Replaces the Pallas TPU kernels of self_supervise_sfm_tpu/ops/fused_qkv.py
-//   mlp_up_sm90_kernel    fused_mlp_kernel / _mlp_up_kernel    (+ ln_rows_kernel)
-//   mlp_down_sm90_kernel  fused_mlp_kernel / _mlp_down_kernel
-// and computes what they compute, with their rounding points. Up: hn =
-// LN(x) with fp32 statistics (centred variance), rounded to bf16; acc = hn @
-// W1 in fp32, rounded to bf16; + b1 in bf16; the exact (erff) GELU in fp32,
-// rounded to bf16. Down: acc = h @ W2 in fp32, rounded to bf16; + b2, x
-// gamma and + x, each in bf16. x and h are flat (M, C) and (M, 4C) rows;
-// the weights stay in their (K, Nout) row-major layout, read MN-major.
+//   ln_qkv_rope_sm90_kernel  fused_qkv_kernel       / _kernel        (+ ln_rows_kernel)
+//   ln_qkv_sm90_kernel       fused_qkv_plain_kernel / _kernel_plain  (+ ln_rows_kernel)
+//   mlp_up_sm90_kernel       fused_mlp_kernel / _mlp_up_kernel       (+ ln_rows_kernel)
+//   mlp_down_sm90_kernel     fused_mlp_kernel / _mlp_down_kernel
+// and computes what they compute, with their rounding points. The three
+// layer-normed kernels: hn = LN(x) with fp32 statistics (centred variance),
+// rounded to bf16; acc = hn @ W in fp32, rounded to bf16; + b in bf16. Then
+// LN+QKV+RoPE: per head of q and k a layer norm over its 64 values in fp32,
+// rounded to bf16, and 2D RoPE in bf16 (bf16 cos / sin, each product
+// rounded); LN+QKV: nothing more; both write q, k, v as (B, H, N, 64).
+// MLP-up: the exact (erff) GELU in fp32, rounded to bf16. MLP-down: acc = h
+// @ W2 in fp32, rounded to bf16; + b2, x gamma and + x, each in bf16. x and
+// h are flat (M, C) and (M, 4C) rows; the weights stay in their (K, Nout)
+// row-major layout, read MN-major.
 //
-// Bound on an H100: operations. 2 M C 4C FLOPs over x, W and the result is
-// 330-780 FLOP a byte at the main path's sizes (M = 6870 or 13740 rows, C =
-// 1024), above the card's ~295 ridge, so the floor is the bf16 tensor-core
-// rate: 58 / 115 GFLOP a call, 0.058 / 0.117 ms at 989 TFLOP/s.
+// Bound on an H100: operations. 2 M C Nout FLOPs over x, W and the result
+// is 330-780 FLOP a byte at the main path's sizes (M = 6870 or 13740 rows, C
+// = 1024, Nout = 3C or 4C), above the card's ~295 ridge, so the floor is the
+// bf16 tensor-core rate: LN+QKV(+RoPE) 43 / 86 GFLOP a call, 0.044 / 0.087
+// ms, the MLP pair 58 / 115 GFLOP, 0.058 / 0.117 ms at 989 TFLOP/s.
 //
 // Design, against what held the mma.sync body of gemm_core.cuh back:
 // - Products: wgmma m64n128k16 with both operands read from shared memory.
@@ -41,13 +48,28 @@
 // - Layer norm: a pre-pass kernel of this source (ln_rows_kernel, one warp
 //   a row) writes hn once, as the JAX kernel's bf16 cast before the dot; the
 //   GEMM's A is then a plain TMA load, and no column tile repeats the norm.
+// - q / k / v: a 128-column tile is two heads, and 3C / 128 tiles split
+//   evenly into q, k and v (C a multiple of 128), so a tile lies in one part.
+//   On the accumulator layout a thread holds 16 values of one head in each
+//   of its rows (j in [8 hh, 8 hh + 8)), so the qk-norm is a sum over them
+//   and a quad shuffle, and RoPE's partner column (+-16) is j +- 2 in the same
+//   thread. A row's (b, n) is divmod(row, N); q, k and v go to (B, H, N, 64),
+//   where a head's rows are contiguous. Stores: from the accumulators, bf16
+//   pairs. Staging each 128 x 64 head block in shared memory for one TMA
+//   store ran 1.4-1.9x slower on an H100 (tools/ablate_gemm_sm90.py, its
+//   "TMA stores" variants, patched in by tools/gemm_sm90_tma_store.py).
 // - Tile order: row by row (GROUP_M = 1). Raster groups of 8 row tiles,
 //   walked column by column so that a group's rows of A stay in the 50 MB
-//   L2, measured no faster on an H100 (ablate_gemm_sm90): the ~132 tiles in
-//   flight hold 4-17 row tiles of A and the 8 MB weight in L2 either way.
+//   L2, measured no faster on an H100 for the MLP pair (ablate_gemm_sm90):
+//   the ~132 tiles in flight hold 4-17 row tiles of A and the 8 MB weight in
+//   L2 either way. (LN+QKV ran 8-11% faster grouped, LN+QKV+RoPE 1-2%, in
+//   one run; one order serves all four kernels until a per-kernel choice is
+//   measured over several runs.)
 // - Rounds: 128 x 128 tiles are 1728 / 3456 (up, ViT / frame) and 432 / 864
 //   (down) a call, 13.1 / 26.2 and 3.3 / 6.5 rounds of 132 multiprocessors;
 //   the last round of MLP-down at ViT is the fullest left (36 of 132).
+//   LN+QKV(+RoPE): 1296 / 2592 tiles (ViT, reloc, global / frame), 9.8 / 19.6
+//   rounds.
 // Every output element is one warpgroup's fp32 sum over the K slices in
 // order, whatever the grid, the row count or the tile: no split over K and
 // no atomics, so a row's result does not depend on the rows beside it.
@@ -77,6 +99,7 @@ constexpr int B_ATOM_BYTES = BK * 64 * 2;  // 8 KB: 64 k rows of 64 columns
 constexpr int B_BYTES = 2 * B_ATOM_BYTES;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int BAR_OFF = STAGES * STAGE_BYTES;
+constexpr int HD = 64;                 // head dim: a tile of BN columns is two heads
 // stages (1024-byte aligned: the swizzle repeats every 8 rows), then a full
 // and an empty barrier a stage; 1 KB of slack to align by hand
 constexpr int SMEM_BYTES = 1024 + BAR_OFF + 2 * STAGES * 8;
@@ -84,13 +107,27 @@ static_assert(SMEM_BYTES <= 232448, "more shared memory than a block can have");
 // the warps that read a stage and arrive on its empty barrier
 constexpr int EMPTY_ARRIVALS = PINGPONG ? 4 : 8;
 
-enum { E_GELU = 0, E_RESID = 1, E_F32 = 2 };
+enum { E_GELU = 0, E_RESID = 1, E_F32 = 2, E_QKV_ROPE = 3, E_QKV = 4 };
+
+__host__ __device__ constexpr bool is_qkv(int ep) { return ep == E_QKV_ROPE || ep == E_QKV; }
 
 struct Params {
   const float* bias;   // (nout)
   const float* gamma;  // (nout) layer-scale (E_RESID)
   const bf16* resid;   // (M, nout) residual (E_RESID)
   void* out;           // (M, nout): bf16, fp32 for E_F32
+  // E_QKV_ROPE / E_QKV: q, k, v (B, H, N, 64); qk-norm and RoPE (E_QKV_ROPE)
+  bf16* q;
+  bf16* k;
+  bf16* v;
+  const float* qn_w;   // (64) q / k layer norm over a head
+  const float* qn_b;
+  const float* kn_w;
+  const float* kn_b;
+  const float* cos;    // (ntok, 64)
+  const float* sin;
+  float eps;
+  int batch, ntok, heads;
   int M, K, nout;
   int m_tiles, n_tiles, tiles, k_tiles;
 };
@@ -100,6 +137,12 @@ __device__ __forceinline__ float rb(float x) { return __bfloat162float(__float2b
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
 }
 
 // tile t -> (row tile, column tile): groups of GROUP_M row tiles, walked
@@ -169,10 +212,128 @@ __device__ __forceinline__ void epilogue(const Params& p, float (&acc)[2][64], i
   }
 }
 
+// The epilogue of LN+QKV(+RoPE) on one 128 x 128 part (rows from m0, columns
+// from n0: two heads of q, k or v). acc[h][4j + e] is row h * 64 + 16 warp +
+// g (+ 8 for e >= 2), column 8j + 2t + (e & 1), so head hh of the part is j
+// in [8 hh, 8 hh + 8): 16 values of a row a thread, 64 a quad. The values of
+// a row go through v[hh][nt][e] = column 8 (8 hh + nt) + 2t + e. A row's
+// loads come first and serve both heads: the cos / sin of its token (from
+// L2: the tables exceed what shared memory leaves of L1), kept as bf16
+// pairs, then the bias; the two heads' qk-norms then run side by side.
+template <int EP>
+__device__ __forceinline__ void epilogue_qkv(const Params& p, float (&acc)[2][64], int m0, int n0) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int C = p.heads * HD;
+  const int part = n0 / C;  // 0 q, 1 k, 2 v
+  const int head0 = (n0 - part * C) / HD;
+  const bool normed = EP == E_QKV_ROPE && part < 2;
+  const float* nw = part == 0 ? p.qn_w : p.kn_w;
+  const float* nb = part == 0 ? p.qn_b : p.kn_b;
+  bf16* out = part == 0 ? p.q : part == 1 ? p.k : p.v;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = m0 + h * 64 + warp * 16 + hr * 8 + g;
+      const bool valid = row < p.M;
+      const int b = valid ? row / p.ntok : 0;
+      const int n = valid ? row - b * p.ntok : 0;
+      // rb(cos), rb(sin) of the row's columns 8 nt + 2t (+ 1) as bf16 pairs
+      uint32_t cs[8], sn[8];
+      if (normed) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const size_t c = static_cast<size_t>(n) * HD + 8 * nt + 2 * t;
+          const float2 c2 = __ldg(reinterpret_cast<const float2*>(p.cos + c));
+          const float2 s2 = __ldg(reinterpret_cast<const float2*>(p.sin + c));
+          cs[nt] = pack_bf16(c2.x, c2.y);
+          sn[nt] = pack_bf16(s2.x, s2.y);
+        }
+      }
+      // accumulator -> bf16, + bias in bf16
+      float v[2][8][2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int j = 8 * hh + nt;
+          const float2 bias = __ldg(reinterpret_cast<const float2*>(p.bias + n0 + 8 * j + 2 * t));
+          v[hh][nt][0] = rb(rb(acc[h][4 * j + 2 * hr]) + rb(bias.x));
+          v[hh][nt][1] = rb(rb(acc[h][4 * j + 2 * hr + 1]) + rb(bias.y));
+        }
+      }
+      if (normed) {
+        // layer norm over each head's 64 values of this row, fp32
+        float s[2], rs[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          s[hh] = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) s[hh] += v[hh][nt][0] + v[hh][nt][1];
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float mu = quad_sum(s[hh]) * (1.0f / HD);
+          float q = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            v[hh][nt][0] -= mu;
+            v[hh][nt][1] -= mu;
+            q += v[hh][nt][0] * v[hh][nt][0] + v[hh][nt][1] * v[hh][nt][1];
+          }
+          s[hh] = q;
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) rs[hh] = rsqrtf(quad_sum(s[hh]) * (1.0f / HD) + p.eps);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int c = 8 * nt + 2 * t;  // column in the head
+          const float2 w2 = __ldg(reinterpret_cast<const float2*>(nw + c));
+          const float2 b2 = __ldg(reinterpret_cast<const float2*>(nb + c));
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            v[hh][nt][0] = rb(__fadd_rn(__fmul_rn(__fmul_rn(v[hh][nt][0], rs[hh]), w2.x), b2.x));
+            v[hh][nt][1] = rb(__fadd_rn(__fmul_rn(__fmul_rn(v[hh][nt][1], rs[hh]), w2.y), b2.y));
+          }
+        }
+        // 2D RoPE in bf16: t * cos + rot * sin, rot = (-t2, t1, -t4, t3)
+        // over quarters of 16 columns, i.e. two nt apart
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float o[8][2];
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const float2 c2 = unpack_bf16(cs[nt]), s2 = unpack_bf16(sn[nt]);
+            const bool lower = (nt & 2) == 0;  // quarters 1 and 3
+            const int pn = lower ? nt + 2 : nt - 2;
+            const float r0 = lower ? -v[hh][pn][0] : v[hh][pn][0];
+            const float r1 = lower ? -v[hh][pn][1] : v[hh][pn][1];
+            o[nt][0] = rb(__fmul_rn(v[hh][nt][0], c2.x)) + rb(__fmul_rn(r0, s2.x));
+            o[nt][1] = rb(__fmul_rn(v[hh][nt][1], c2.y)) + rb(__fmul_rn(r1, s2.y));
+          }
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            v[hh][nt][0] = o[nt][0];
+            v[hh][nt][1] = o[nt][1];
+          }
+        }
+      }
+      if (!valid) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        bf16* dst = out + ((static_cast<size_t>(b) * p.heads + head0 + hh) * p.ntok + n) * HD + 2 * t;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          *reinterpret_cast<uint32_t*>(dst + 8 * nt) = pack_bf16(v[hh][nt][0], v[hh][nt][1]);
+      }
+    }
+  }
+}
+
 // out = epilogue(A @ W): A (M, K) through map ma, W (K, nout) through mb
 template <int EP>
-__device__ __forceinline__ void gemm(const CUtensorMap* ma, const CUtensorMap* mb,
-                                     const Params& p) {
+__device__ __forceinline__ void gemm(const CUtensorMap* ma, const CUtensorMap* mb, const Params& p) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t full0 = base + BAR_OFF;
@@ -275,28 +436,38 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ma, const CUtensorMap* m
       fence_regs(acc[0]);
       fence_regs(acc[1]);
       if (lane == 0) mbar_arrive(empty0 + 8 * prev);
-      epilogue<EP>(p, acc, mt * BM + static_cast<int>(a_part / (BK * 2)), nt * BN);
+      const int m0 = mt * BM + static_cast<int>(a_part / (BK * 2)), n0 = nt * BN;
+      if constexpr (is_qkv(EP))
+        epilogue_qkv<EP>(p, acc, m0, n0);
+      else
+        epilogue<EP>(p, acc, m0, n0);
     }
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-mlp_up_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
-                   const Params p) {
-  gemm<E_GELU>(&ma, &mb, p);
-}
+// The kernels of the body: A and W maps, the parameters
+#define SFM_GEMM_KERNEL(name, EP)                                                           \
+  __global__ void __launch_bounds__(NTHREADS, 1)                                            \
+      name(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb, \
+           const Params p) {                                                                \
+    gemm<EP>(&ma, &mb, p);                                                                  \
+  }
+SFM_GEMM_KERNEL(mlp_up_sm90_kernel, E_GELU)
+SFM_GEMM_KERNEL(mlp_down_sm90_kernel, E_RESID)
+SFM_GEMM_KERNEL(gemm_probe_sm90_kernel, E_F32)  // the bare product in fp32: the operand layouts
+SFM_GEMM_KERNEL(ln_qkv_rope_sm90_kernel, E_QKV_ROPE)
+SFM_GEMM_KERNEL(ln_qkv_sm90_kernel, E_QKV)
+#undef SFM_GEMM_KERNEL
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-mlp_down_sm90_kernel(const __grid_constant__ CUtensorMap ma,
-                     const __grid_constant__ CUtensorMap mb, const Params p) {
-  gemm<E_RESID>(&ma, &mb, p);
-}
+typedef void (*GemmKernel)(const CUtensorMap, const CUtensorMap, const Params);
 
-// the bare product in fp32: a check of the operand layouts
-__global__ void __launch_bounds__(NTHREADS, 1)
-gemm_probe_sm90_kernel(const __grid_constant__ CUtensorMap ma,
-                       const __grid_constant__ CUtensorMap mb, const Params p) {
-  gemm<E_F32>(&ma, &mb, p);
+template <int EP>
+GemmKernel kernel_of() {
+  return EP == E_GELU       ? mlp_up_sm90_kernel
+         : EP == E_RESID    ? mlp_down_sm90_kernel
+         : EP == E_QKV_ROPE ? ln_qkv_rope_sm90_kernel
+         : EP == E_QKV      ? ln_qkv_sm90_kernel
+                            : gemm_probe_sm90_kernel;
 }
 
 // -- the layer-norm pre-pass ---------------------------------------------------
@@ -384,12 +555,13 @@ bool encode_2d(CUtensorMap* map, const void* ptr, int inner, int outer, int box_
 // The first launch of each kernel checks its registers (setmaxnreg moves
 // registers between the warpgroups: the consumers' increase waits until the
 // block's allocation at launch holds it, so a kernel compiled to fewer
-// registers would never get past it) and sets its dynamic shared memory.
-int prepare(const void* kernel) {
-  static const void* ready[3] = {nullptr, nullptr, nullptr};
-  int slot = 0;
-  while (slot < 3 && ready[slot] != nullptr && ready[slot] != kernel) ++slot;
-  if (slot < 3 && ready[slot] == kernel) return 0;
+// registers would never get past it) and sets its dynamic shared memory;
+// one flag a kernel of the body, so no later launch repeats either.
+template <int EP>
+int prepare() {
+  static bool ready = false;
+  if (ready) return 0;
+  const void* kernel = reinterpret_cast<const void*>(kernel_of<EP>());
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -397,7 +569,7 @@ int prepare(const void* kernel) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (slot < 3) ready[slot] = kernel;
+  ready = true;
   return 0;
 }
 
@@ -417,18 +589,10 @@ int launch_gemm(const void* a, const void* w, Params p, void* stream) {
   p.k_tiles = p.K / BK;
   const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const void* kernel = EP == E_GELU    ? reinterpret_cast<const void*>(mlp_up_sm90_kernel)
-                       : EP == E_RESID ? reinterpret_cast<const void*>(mlp_down_sm90_kernel)
-                                       : reinterpret_cast<const void*>(gemm_probe_sm90_kernel);
-  if (const int err = prepare(kernel)) return err;
+  if (const int err = prepare<EP>()) return err;
   const int grid = p.tiles < sms ? p.tiles : sms;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (EP == E_GELU)
-    mlp_up_sm90_kernel<<<grid, NTHREADS, SMEM_BYTES, st>>>(ma, mb, p);
-  else if (EP == E_RESID)
-    mlp_down_sm90_kernel<<<grid, NTHREADS, SMEM_BYTES, st>>>(ma, mb, p);
-  else
-    gemm_probe_sm90_kernel<<<grid, NTHREADS, SMEM_BYTES, st>>>(ma, mb, p);
+  const GemmKernel kernel = kernel_of<EP>();
+  kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(ma, mb, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -443,9 +607,62 @@ int launch_ln(const void* x, const void* ln_w, const void* ln_b, void* hn, int r
   return static_cast<int>(cudaGetLastError());
 }
 
+// x (B N, C) -> q, k, v (B, H, N, 64): the pre-pass into the (B N, C) bf16
+// scratch hn, then hn @ W (C, 3C) + b and the epilogue EP; C = 64 heads, a
+// multiple of 256
+template <int EP>
+int launch_qkv(const void* x, const void* ln_w, const void* ln_b, const void* w, const void* b,
+               Params p, void* hn, int batch, int ntok, int heads, float eps, void* stream) {
+  if (batch < 0 || ntok < 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int dim = heads * HD, rows = batch * ntok;
+  if (const int err = launch_ln(x, ln_w, ln_b, hn, rows, dim, eps, stream)) return err;
+  p.bias = static_cast<const float*>(b);
+  p.eps = eps;
+  p.batch = batch;
+  p.ntok = ntok;
+  p.heads = heads;
+  p.M = rows;
+  p.K = dim;
+  p.nout = 3 * dim;
+  return launch_gemm<EP>(hn, w, p, stream);
+}
+
 }  // namespace
 
-// x (M, C) -> hn = LN(x) (M, C) bf16: the pre-pass of MLP-up alone
+// x (B, N, C) -> q, k, v (B, H, N, 64): LN, @ W (C, 3C) + b, qk-norm, RoPE;
+// hn is a (B N, C) bf16 scratch buffer that the pre-pass writes and the
+// product reads
+extern "C" int sfm_ln_qkv_rope_sm90(const void* x, const void* ln_w, const void* ln_b,
+                                    const void* w, const void* b, const void* qn_w,
+                                    const void* qn_b, const void* kn_w, const void* kn_b,
+                                    const void* cos, const void* sin, void* q, void* k, void* v,
+                                    void* hn, int batch, int ntok, int heads, float eps,
+                                    void* stream) {
+  Params p = {};
+  p.qn_w = static_cast<const float*>(qn_w);
+  p.qn_b = static_cast<const float*>(qn_b);
+  p.kn_w = static_cast<const float*>(kn_w);
+  p.kn_b = static_cast<const float*>(kn_b);
+  p.cos = static_cast<const float*>(cos);
+  p.sin = static_cast<const float*>(sin);
+  p.q = static_cast<bf16*>(q);
+  p.k = static_cast<bf16*>(k);
+  p.v = static_cast<bf16*>(v);
+  return launch_qkv<E_QKV_ROPE>(x, ln_w, ln_b, w, b, p, hn, batch, ntok, heads, eps, stream);
+}
+
+// the same without qk-norm and RoPE (the ViT blocks)
+extern "C" int sfm_ln_qkv_sm90(const void* x, const void* ln_w, const void* ln_b, const void* w,
+                               const void* b, void* q, void* k, void* v, void* hn, int batch,
+                               int ntok, int heads, float eps, void* stream) {
+  Params p = {};
+  p.q = static_cast<bf16*>(q);
+  p.k = static_cast<bf16*>(k);
+  p.v = static_cast<bf16*>(v);
+  return launch_qkv<E_QKV>(x, ln_w, ln_b, w, b, p, hn, batch, ntok, heads, eps, stream);
+}
+
+// x (M, C) -> hn = LN(x) (M, C) bf16: the pre-pass alone
 extern "C" int sfm_ln_rows_bf16(const void* x, const void* ln_w, const void* ln_b, void* hn,
                                 int rows, int dim, float eps, void* stream) {
   return launch_ln(x, ln_w, ln_b, hn, rows, dim, eps, stream);
@@ -494,16 +711,19 @@ extern "C" int sfm_gemm_sm90_probe(const void* a, const void* w, void* out, int 
 }
 
 // What the body was built with and what the compiler gave each kernel (0
-// MLP-up, 1 MLP-down, 2 the probe, 3 the layer-norm pre-pass): registers a
-// thread at launch, local (spill) bytes a thread, dynamic shared memory a
-// block, ring stages, rows and columns a tile, setmaxnreg of the producer and
-// the consumers, ping-pong (1) or cooperative (0), row tiles a raster group.
+// MLP-up, 1 MLP-down, 2 the probe, 3 the layer-norm pre-pass, 4 LN+QKV+RoPE,
+// 5 LN+QKV): registers a thread at launch, local (spill) bytes a thread,
+// dynamic shared memory a block, ring stages, rows and columns a tile,
+// setmaxnreg of the producer and the consumers, ping-pong (1) or cooperative
+// (0), row tiles a raster group.
 extern "C" int sfm_gemm_sm90_info(int which, int* out) {
   cudaFuncAttributes attr;
   const void* fn = which == 0   ? reinterpret_cast<const void*>(mlp_up_sm90_kernel)
                    : which == 1 ? reinterpret_cast<const void*>(mlp_down_sm90_kernel)
                    : which == 2 ? reinterpret_cast<const void*>(gemm_probe_sm90_kernel)
-                                : reinterpret_cast<const void*>(ln_rows_kernel);
+                   : which == 3 ? reinterpret_cast<const void*>(ln_rows_kernel)
+                   : which == 4 ? reinterpret_cast<const void*>(ln_qkv_rope_sm90_kernel)
+                                : reinterpret_cast<const void*>(ln_qkv_sm90_kernel);
   const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;

@@ -1,12 +1,12 @@
 """Fused transformer-block kernels: LN+QKV(+qk-norm+RoPE), out-proj, MLP.
 
 Port of ``self_supervise_sfm_tpu/ops/fused_qkv.py``. The five Pallas TPU
-kernels become five hand-written CUDA kernels: the LN+QKV(+RoPE) and
-out-projection kernels in ``csrc/fused_block.cu`` over the ``mma.sync``
-GEMM body of ``csrc/gemm_core.cuh``, the MLP pair in ``csrc/gemm_sm90.cu``
-on a persistent TMA + ``wgmma`` body written for Hopper (its layer norm a
-pre-pass that writes the normalised rows once). Each launch wrapper sits
-beside its plain PyTorch version:
+kernels become five hand-written CUDA kernels: LN+QKV(+RoPE) and the MLP
+pair in ``csrc/gemm_sm90.cu`` on a persistent TMA + ``wgmma`` body written
+for Hopper (the layer norm a pre-pass that writes the normalised rows once),
+the out-projection in ``csrc/fused_block.cu`` over the ``mma.sync`` GEMM
+body of ``csrc/gemm_core.cuh``. Each launch wrapper sits beside its plain
+PyTorch version:
 
 - :func:`fused_ln_qkv_rope_fwd` replaces ``fused_qkv_kernel``: layer norm with
   fp32 statistics, ``@ W_qkv`` with fp32 accumulation rounded to x's dtype,
@@ -28,8 +28,8 @@ A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel or raises: bf16 activations and weights (the
 weights cast once at load by ``cast_trunk_weights``), fp32 norm, bias and
 layer-scale parameters, head dim 64, widths that are multiples of 64,
-contiguous and 16-byte aligned (the MLP pair: C a multiple of 256, the
-hidden width of 128). A launch wrapper is forward only: under
+contiguous and 16-byte aligned (the kernels of the TMA body: C a multiple
+of 256, the output width of 128). A launch wrapper is forward only: under
 grad mode an input that requires grad raises, on every device. All five
 kernels are bound by the bf16 tensor-core rate at the main path's sizes
 (see the source note in the ``.cu`` file).
@@ -125,12 +125,12 @@ def _check_widths(name: str, *, head_dim=None, **widths: int) -> None:
             raise ValueError(f"{name}: {key} = {n} is not a multiple of 64")
 
 
-def _check_tile_widths(name: str, C: int, hidden: int) -> None:
-    """The MLP pair's GEMM body writes tiles of 128 columns and its layer-norm
+def _check_tile_widths(name: str, C: int, nout: int) -> None:
+    """The TMA GEMM body writes tiles of 128 columns and its layer-norm
     pre-pass reads rows in steps of 256 channels."""
-    if C % 256 or hidden % 128:
-        raise ValueError(f"{name}: C = {C} must be a multiple of 256 and hidden = "
-                         f"{hidden} a multiple of 128")
+    if C % 256 or nout % 128:
+        raise ValueError(f"{name}: C = {C} must be a multiple of 256 and the output "
+                         f"width {nout} a multiple of 128")
 
 
 def _check_no_grad(name: str, *ts) -> None:
@@ -142,10 +142,10 @@ def _check_no_grad(name: str, *ts) -> None:
             f"{name}: forward only; call the differentiable entry instead")
 
 
-def _row_stats_scratch(x: torch.Tensor) -> torch.Tensor:
-    """(rows, 2) fp32 scratch for the layer-norm statistics (mean, rstd) that
-    a layer-normed kernel's pre-pass writes and its product reads."""
-    return torch.empty((x.shape[0] * x.shape[1], 2), dtype=torch.float32,
+def _ln_scratch(x: torch.Tensor) -> torch.Tensor:
+    """(B N, C) scratch in x's dtype for the layer-normed rows that a
+    layer-normed kernel's pre-pass writes and its product reads."""
+    return torch.empty((x.shape[0] * x.shape[1], x.shape[2]), dtype=x.dtype,
                        device=x.device)
 
 
@@ -177,6 +177,7 @@ def fused_ln_qkv_rope_fwd(x, ln_scale, ln_bias, w, b, qn_scale, qn_bias, kn_scal
     B, N, C = x.shape
     d = C // num_heads
     _check_widths(name, head_dim=d, C=C)
+    _check_tile_widths(name, C, 3 * C)
     if C != num_heads * d or tuple(w.shape) != (C, 3 * C):
         raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"{num_heads} heads")
@@ -189,11 +190,11 @@ def fused_ln_qkv_rope_fwd(x, ln_scale, ln_bias, w, b, qn_scale, qn_bias, kn_scal
                for _ in range(3))
     if B and N:
         _kernels.launch(
-            "sfm_fused_ln_qkv_rope", x.data_ptr(), ln_scale.data_ptr(),
+            "sfm_ln_qkv_rope_sm90", x.data_ptr(), ln_scale.data_ptr(),
             ln_bias.data_ptr(), w.data_ptr(), b.data_ptr(), qn_scale.data_ptr(),
             qn_bias.data_ptr(), kn_scale.data_ptr(), kn_bias.data_ptr(),
             cos.data_ptr(), sin.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _row_stats_scratch(x).data_ptr(), B, N, num_heads, eps,
+            _ln_scratch(x).data_ptr(), B, N, num_heads, eps,
             _kernels.stream_ptr(x),
         )
         fused_ln_qkv_rope_fwd.launches += 1
@@ -223,6 +224,7 @@ def fused_ln_qkv_fwd(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e
     B, N, C = x.shape
     d = C // num_heads
     _check_widths(name, head_dim=d, C=C)
+    _check_tile_widths(name, C, 3 * C)
     if C != num_heads * d or tuple(w.shape) != (C, 3 * C):
         raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"{num_heads} heads")
@@ -233,9 +235,9 @@ def fused_ln_qkv_fwd(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e
                for _ in range(3))
     if B and N:
         _kernels.launch(
-            "sfm_fused_ln_qkv", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            "sfm_ln_qkv_sm90", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             w.data_ptr(), b.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _row_stats_scratch(x).data_ptr(), B, N, num_heads, eps,
+            _ln_scratch(x).data_ptr(), B, N, num_heads, eps,
             _kernels.stream_ptr(x),
         )
         fused_ln_qkv_fwd.launches += 1
@@ -315,7 +317,7 @@ def fused_mlp_up(x, ln_scale, ln_bias, w1, b1, eps: float = 1e-5):
     name = "fused_mlp_up"
     B, N, C = x.shape
     Ch = w1.shape[1]
-    _check_tile_widths(name, C=C, hidden=Ch)
+    _check_tile_widths(name, C, Ch)
     if tuple(w1.shape) != (C, Ch):
         raise ValueError(f"{name}: x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
     _check(name, x.device, torch.bfloat16, x=x, w1=w1)
@@ -323,11 +325,10 @@ def fused_mlp_up(x, ln_scale, ln_bias, w1, b1, eps: float = 1e-5):
                b1=(b1, (Ch,)))
     h = torch.empty((B, N, Ch), dtype=x.dtype, device=x.device)
     if B and N:
-        # the layer-normed rows, written by the pre-pass and read by the product
-        hn = torch.empty((B * N, C), dtype=x.dtype, device=x.device)
         _kernels.launch(
             "sfm_mlp_up_sm90", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), h.data_ptr(), hn.data_ptr(), B * N, C, Ch, eps,
+            w1.data_ptr(), b1.data_ptr(), h.data_ptr(), _ln_scratch(x).data_ptr(), B * N, C,
+            Ch, eps,
             _kernels.stream_ptr(x),
         )
         fused_mlp_up.launches += 1
@@ -338,16 +339,17 @@ fused_mlp_up.launches = 0
 
 
 def _ln_rows_into(hn, x, ln_scale, ln_bias, eps: float) -> None:
-    """MLP-up's layer-norm pre-pass alone: hn (M, C) bf16 <- LN(x). Not a
-    path of its own (``fused_mlp_up`` launches it and counts the pair as one
-    launch); ``chip_smoke.py`` checks and times it apart."""
+    """The layer-norm pre-pass of LN+QKV(+RoPE) and MLP-up alone: hn (M, C)
+    bf16 <- LN(x). Not a path of its own (the wrappers launch it and count
+    pre-pass and product as one launch); ``chip_smoke.py`` checks and times
+    it apart."""
     M, C = hn.shape
     _kernels.launch("sfm_ln_rows_bf16", x.data_ptr(), ln_scale.data_ptr(),
                     ln_bias.data_ptr(), hn.data_ptr(), M, C, eps, _kernels.stream_ptr(x))
 
 
 def gemm_probe(a, w):
-    """The MLP kernels' GEMM body with no epilogue: a (M, K) bf16 @ w (K, N)
+    """The TMA GEMM body with no epilogue: a (M, K) bf16 @ w (K, N)
     bf16 -> (M, N) fp32 accumulators, a check of its operand layouts (w read
     MN-major through wgmma's transposed-B bit) on the card. K a multiple of
     64, N of 128."""
@@ -366,7 +368,7 @@ def fused_mlp_down(h, x, w2, b2, ls_gamma):
     name = "fused_mlp_down"
     B, N, C = x.shape
     Ch = h.shape[-1]
-    _check_tile_widths(name, C=C, hidden=Ch)
+    _check_tile_widths(name, C, Ch)
     if tuple(h.shape) != (B, N, Ch) or tuple(w2.shape) != (Ch, C):
         raise ValueError(f"{name}: h {tuple(h.shape)}, x {tuple(x.shape)}, "
                          f"w2 {tuple(w2.shape)}")

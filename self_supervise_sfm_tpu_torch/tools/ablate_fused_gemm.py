@@ -1,21 +1,21 @@
-"""Where the fused block kernels' time goes: ablations of the mma.sync GEMM body.
+"""Where the out-projection's time goes: ablations of the mma.sync GEMM body.
 
     python3 -m self_supervise_sfm_tpu_torch.tools.ablate_fused_gemm   # one CUDA card
 
 Builds copies of ``csrc/fused_block.cu`` + ``csrc/gemm_core.cuh`` under
 ``build/ablation/`` with parts of the kernel switched off by a textual patch
-(each patch must find its line, or the script fails), and times the LN+QKV
-kernel (layer-normed A, K = 1024, 3072 columns) and the out-projection
-kernel (merged-heads A, K = 1024, 1024 columns) at the frame site of the
-main path (10 x 1374 rows), 20 launches back to back between CUDA events.
-(The MLP pair runs on the wgmma body: ``ablate_gemm_sm90``.) An ablated kernel
-computes nothing meaningful; only the unpatched build is checked against the
-plain versions. A patch is taken out at run time by a condition that is never
-true (a negative size), so the compiler cannot remove the code around it.
+(each patch must find its line, or the script fails), and times the
+out-projection kernel (merged-heads A, K = 1024, 1024 columns) at the frame
+site of the main path (10 x 1374 rows), 20 launches back to back between
+CUDA events. (LN+QKV(+RoPE) and the MLP pair run on the wgmma body:
+``ablate_gemm_sm90``.) An ablated kernel computes nothing meaningful; only
+the unpatched build is checked against the plain version. A patch is taken
+out at run time by a condition that is never true (a negative size), so the
+compiler cannot remove the code around it.
 
 Reads: "products only" is the mma.sync ceiling of this tiling, "+ fragment
 reads" adds ldmatrix, "no copies" the whole kernel fed from stale shared
-memory, "no products" the cp.async copies (and the layer-norm rewrite) alone.
+memory, "no products" the cp.async copies alone.
 """
 
 from __future__ import annotations
@@ -31,8 +31,8 @@ from ..ops import fused_qkv as FQ
 
 BATCH, NTOK, HEADS, C = 10, 1374, 16, 1024
 
-NO_EPILOGUE = [("fused_block.cu", "  epilogue<EP>(p, acc, m0, n0);",
-                "  if (p.M < 0) epilogue<EP>(p, acc, m0, n0);")]
+NO_EPILOGUE = [("fused_block.cu", "  epilogue(p, acc, m0, n0);",
+                "  if (p.M < 0) epilogue(p, acc, m0, n0);")]
 NO_COPIES = [("gemm_core.cuh", "    if (kt < KT) {\n      const int slot",
               "    if (kt < KT && nout < 0) {\n      const int slot")]
 NO_PRODUCTS = [("gemm_core.cuh",
@@ -70,10 +70,9 @@ def build(index: int, patches) -> ctypes.CDLL:
     so = out / "lib.so"
     _kernels._build(so, [out / "fused_block.cu"])
     lib = ctypes.CDLL(str(so))
-    for entry in ("sfm_fused_ln_qkv", "sfm_fused_proj_residual"):
-        fn = getattr(lib, entry)
-        fn.argtypes = _kernels._SIGNATURES[entry]
-        fn.restype = ctypes.c_int
+    fn = lib.sfm_fused_proj_residual
+    fn.argtypes = _kernels._SIGNATURES["sfm_fused_proj_residual"]
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -102,23 +101,14 @@ def main() -> int:
     rows = BATCH * NTOK
     x = randn(BATCH, NTOK, C, dtype=torch.bfloat16)
     o = randn(BATCH, HEADS, NTOK, C // HEADS, dtype=torch.bfloat16)
-    wq, wp = (randn(C, 3 * C) * C**-0.5).bfloat16(), (randn(C, C) * C**-0.5).bfloat16()
-    bq, bp, gamma, lw, lb = randn(3 * C), randn(C), randn(C), 1 + 0.1 * randn(C), randn(C)
-    q, k, v = (torch.empty_like(o) for _ in range(3))
+    wp = (randn(C, C) * C**-0.5).bfloat16()
+    bp, gamma = randn(C), randn(C)
     y = torch.empty_like(x)
-    stats = torch.empty((rows, 2), device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    flops = {"ln_qkv": 2.0 * rows * C * 3 * C, "proj": 2.0 * rows * C * C}
-    print(f"{torch.cuda.get_device_name(0)}; rows {rows}, C {C}; "
-          f"{flops['ln_qkv'] / 1e9:.1f} / {flops['proj'] / 1e9:.1f} GFLOP a call")
+    flops = 2.0 * rows * C * C
+    print(f"{torch.cuda.get_device_name(0)}; rows {rows}, C {C}; {flops / 1e9:.1f} GFLOP a call")
     for index, (name, patches) in enumerate(VARIANTS.items()):
         lib = build(index, patches)
-
-        def ln_qkv():
-            rc = lib.sfm_fused_ln_qkv(x.data_ptr(), lw.data_ptr(), lb.data_ptr(), wq.data_ptr(),
-                                      bq.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                      stats.data_ptr(), BATCH, NTOK, HEADS, 1e-6, stream)
-            assert rc == 0, rc
 
         def proj():
             rc = lib.sfm_fused_proj_residual(o.data_ptr(), x.data_ptr(), wp.data_ptr(),
@@ -127,23 +117,17 @@ def main() -> int:
             assert rc == 0, rc
 
         if not patches:
-            ln_qkv(), proj()
+            proj()
             torch.cuda.synchronize()
-            refs = FQ.fused_ln_qkv_plain(x, lw, lb, wq, bq, HEADS, 1e-6)
-            e_qkv = max(float((a.float() - b.float()).abs().max())
-                        for a, b in zip((q, k, v), refs))
             e_proj = float((y.float() - FQ.fused_proj_residual_plain(o, x, wp, bp, gamma)
                             .float()).abs().max())
-            print(f"  whole kernel against the plain versions: max abs err LN+QKV "
-                  f"{e_qkv:.4f}, out-proj {e_proj:.4f}")
-        for label, fn, key in (("LN+QKV (LN, 3072 col)", ln_qkv, "ln_qkv"),
-                               ("out-proj (heads, 1024)", proj, "proj")):
-            ms = time_ms(fn)
-            print(f"  {name:42s} {label:22s} {ms:.4f} ms  {flops[key] / ms / 1e9:6.1f} TFLOP/s")
+            print(f"  whole kernel against the plain version: max abs err {e_proj:.4f}")
+        ms = time_ms(proj)
+        print(f"  {name:42s} out-proj (heads, 1024) {ms:.4f} ms  {flops / ms / 1e9:6.1f} TFLOP/s")
     xf = x.view(rows, C)
-    ms = time_ms(lambda: torch.matmul(xf, wq))
-    print(f"  {'cuBLAS x @ w_qkv (yardstick)':42s} {'':22s} {ms:.4f} ms  "
-          f"{flops['ln_qkv'] / ms / 1e9:6.1f} TFLOP/s")
+    ms = time_ms(lambda: torch.matmul(xf, wp))
+    print(f"  {'cuBLAS x @ w_proj (yardstick)':42s} {'':22s} {ms:.4f} ms  "
+          f"{flops / ms / 1e9:6.1f} TFLOP/s")
     return 0
 
 

@@ -1,22 +1,30 @@
-"""The arithmetic and tile schedule of the Hopper GEMM body (MLP-up, MLP-down),
-emulated on the CPU and held against the JAX Pallas kernels, the JAX
-reference chain and the port's plain versions.
+"""The arithmetic and tile schedule of the Hopper GEMM body (LN+QKV+RoPE,
+LN+QKV, MLP-up, MLP-down), emulated on the CPU and held against the JAX
+Pallas kernels, the JAX reference chains and the port's plain versions.
 
-``csrc/gemm_sm90.cu`` runs only on the card. :func:`_up` and :func:`_down`
-repeat its arithmetic in PyTorch: the layer-norm pre-pass (fp32 statistics,
-centred variance, the rows rounded to bf16 before the product), fp32
-accumulation over K slices of BK = 64 in order, and the epilogues' rounding
-points (``rb(rb(acc) + rb(b))``, then the erf GELU in fp32; ``rb(x +
-rb(v * rb(gamma)))``). They are held against ``fused_mlp_kernel(...,
-interpret=True)`` and ``reference_mlp`` of the JAX package and against the
-port's plain versions, with the tolerance phase 2 of ``chip_smoke.py``
-applies on the card: 2 bf16 ulps at the largest output. Rows are ragged
-(200 and 1374, no multiple of 128), the eps is the ViT's and the
-aggregator's, and one row is all zeros. The persistent tile walk (tile ->
-row tile, column tile in raster groups; a block's tiles shared out between
-its two consumer warpgroups; the ring positions and the ping-pong turns)
-is mirrored in Python, with its constants read from the source, and must
-cover every output tile exactly once at the main path's four site shapes.
+``csrc/gemm_sm90.cu`` runs only on the card. :func:`_qkv`, :func:`_up` and
+:func:`_down` repeat its arithmetic in PyTorch: the layer-norm pre-pass
+(fp32 statistics, centred variance, the rows rounded to bf16 before the
+product), fp32 accumulation over K slices of BK = 64 in order, and the
+epilogues' rounding points (``rb(rb(acc) + rb(b))``; then for q and k of
+LN+QKV+RoPE a layer norm over each head's 64 values in fp32 rounded to
+bf16, and RoPE with bf16 cos / sin, each product rounded; for MLP-up the erf
+GELU in fp32; ``rb(x + rb(v * rb(gamma)))``). They are held against
+``fused_qkv_kernel`` / ``fused_qkv_plain_kernel`` / ``fused_mlp_kernel(...,
+interpret=True)`` and ``reference_qkv`` / ``reference_qkv_plain`` /
+``reference_mlp`` of the JAX package and against the port's plain versions,
+with the tolerance phase 2 of ``chip_smoke.py`` applies on the card: 2 bf16
+ulps at the largest output, 4 for q and k of LN+QKV+RoPE. Rows are ragged
+(200 and 1374, no multiple of 128; 2 x 1374 for LN+QKV, so that a tile
+crosses a frame boundary), the eps is the ViT's and the aggregator's, and
+one row is all zeros. The QKV epilogue's index mapping on the wgmma
+accumulator layout (a quad holds one head's row, RoPE's partner is in the
+same thread) and the persistent tile walk (tile -> row tile, column tile in
+raster groups; a block's tiles shared out between its two consumer
+warpgroups; the ring positions and the ping-pong turns) are mirrored in
+Python, with their constants read from the source; the walk must cover
+every output tile exactly once at the main path's four site shapes. Each
+variant of ``tools/ablate_gemm_sm90.py`` must patch the shipped source.
 """
 
 import math
@@ -30,6 +38,7 @@ import torch
 
 from self_supervise_sfm_tpu.ops import fused_qkv as JFQ
 from self_supervise_sfm_tpu_torch.ops import fused_qkv as TFQ
+from self_supervise_sfm_tpu_torch.tools import ablate_gemm_sm90 as ABL
 
 torch.set_num_threads(1)
 
@@ -44,12 +53,15 @@ def _const(name: str) -> str:
 
 
 BK, BN, WG_M = int(_const("BK")), int(_const("BN")), int(_const("WG_M"))
-GROUP_M, STAGES = int(_const("GROUP_M")), int(_const("STAGES"))
+GROUP_M, STAGES, HD = int(_const("GROUP_M")), int(_const("STAGES")), int(_const("HD"))
 PINGPONG = _const("PINGPONG") == "true"
 SMS = 132  # multiprocessors of an H100 SXM: the persistent grid's size
 # rows of the main path's sites (B * N) and the MLP widths
 SITE_ROWS = {"vit": 5 * 1374, "frame": 10 * 1374, "reloc": 5 * 1374, "global": 6870}
 C_FULL, CH_FULL = 1024, 4096
+# (K, output columns) of each kernel of the body at full width
+WIDTHS = {"up": (C_FULL, CH_FULL), "down": (CH_FULL, C_FULL), "qkv_rope": (C_FULL, 3 * C_FULL),
+          "qkv": (C_FULL, 3 * C_FULL)}
 bf16 = torch.bfloat16
 
 
@@ -194,6 +206,172 @@ def test_k_slices_move_the_sum_within_the_tolerance(cases):
     _assert_close(sliced, one, _ulps(one, 2), "sliced vs one product")
 
 
+# -- LN+QKV(+RoPE) ---------------------------------------------------------------
+
+
+def _qkv(x, lw, lb, w, b, heads: int, eps: float, norms=None, cos=None, sin=None):
+    """LN+QKV(+RoPE): x (B, N, C) -> q, k, v (B, H, N, 64). Pre-pass, product,
+    rb(rb(acc) + rb(b)); with norms ((qn_w, qn_b), (kn_w, kn_b)) q and k get
+    ((t - mu) * rstd) * w + b over each head in fp32, rounded to bf16, then
+    rb(rb(t * rb(cos)) + rb(rot * rb(sin))), rot = (-t2, t1, -t4, t3)."""
+    B, N, C = x.shape
+    hn = _ln_prepass(x.reshape(B * N, C), lw, lb, eps)
+    y = _rb(_rb(_product(hn, w)) + _rb(b))
+    q, k, v = y.reshape(B, N, 3, heads, HD).permute(2, 0, 3, 1, 4)
+    if norms is not None:
+        c, s_ = _rb(cos), _rb(sin)
+        out = []
+        for t, (nw, nb) in zip((q, k), norms):
+            mu = t.mean(-1, keepdim=True)
+            tc = t - mu
+            rs = torch.rsqrt((tc * tc).mean(-1, keepdim=True) + eps)
+            t = _rb((tc * rs) * nw + nb)
+            t1, t2, t3, t4 = t.chunk(4, dim=-1)
+            rot = torch.cat([-t2, t1, -t4, t3], dim=-1)
+            out.append(_rb(_rb(t * c) + _rb(rot * s_)))
+        q, k = out
+    return tuple(t.to(bf16) for t in (q, k, v))
+
+
+# (B, N, eps): 200 rows in one frame, and two frames of 1374 (a 128-row tile
+# crosses the frame boundary at row 1374)
+QKV_CASES = {"1x200_vit_eps": (1, 200, 1e-6), "1x200_agg_eps": (1, 200, 1e-5),
+             "2x1374_agg_eps": (2, 1374, 1e-5)}
+QKV_HEADS = C // HD  # 4 heads of 64: 3C = 768, six 128-column tiles, two a part
+
+
+@pytest.fixture(scope="module")
+def qkv_cases():
+    out = {}
+    for name, (B, N, eps) in QKV_CASES.items():
+        rng = np.random.default_rng(B * N + int(eps * 1e7))
+        x = rng.normal(size=(B, N, C))
+        x[0, ZERO_ROW] = 0.0
+        jx, tx = _pair(x)
+        jw, tw = _pair(rng.normal(scale=C**-0.5, size=(C, 3 * C)))
+        f32 = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+        lw, lb, b = 1 + 0.1 * f32(C), 0.1 * f32(C), 0.1 * f32(3 * C)
+        qw, qb, kw, kb = 1 + 0.1 * f32(HD), 0.1 * f32(HD), 1 + 0.1 * f32(HD), 0.1 * f32(HD)
+        ang = rng.uniform(-np.pi, np.pi, size=(N, HD))
+        cos, sin = np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+        t = {k: torch.from_numpy(v) for k, v in dict(
+            lw=lw, lb=lb, b=b, qw=qw, qb=qb, kw=kw, kb=kb, cos=cos, sin=sin).items()}
+        norms = ((t["qw"], t["qb"]), (t["kw"], t["kb"]))
+        j = {k: jnp.asarray(v) for k, v in dict(
+            lw=lw, lb=lb, b=b, qw=qw, qb=qb, kw=kw, kb=kb, cos=cos, sin=sin).items()}
+        jrope = (jx, j["lw"], j["lb"], jw.astype(jnp.float32), j["b"], j["qw"], j["qb"], j["kw"],
+                 j["kb"], j["cos"], j["sin"], QKV_HEADS)
+        jplain = (jx, j["lw"], j["lb"], jw.astype(jnp.float32), j["b"], QKV_HEADS)
+        trope = (tx, t["lw"], t["lb"], tw, t["b"], t["qw"], t["qb"], t["kw"], t["kb"], t["cos"],
+                 t["sin"], QKV_HEADS, eps)
+        out[name] = dict(
+            eps=eps, x=tx, lw=t["lw"], lb=t["lb"],
+            rope=dict(emulation=_qkv(tx, t["lw"], t["lb"], tw, t["b"], QKV_HEADS, eps, norms,
+                                     t["cos"], t["sin"]),
+                      plain=TFQ.fused_ln_qkv_rope_plain(*trope),
+                      pallas=JFQ.fused_qkv_kernel(*jrope, eps=eps, block_n=128, interpret=True),
+                      reference=JFQ.reference_qkv(*jrope, eps=eps)),
+            plain=dict(emulation=_qkv(tx, t["lw"], t["lb"], tw, t["b"], QKV_HEADS, eps),
+                       plain=TFQ.fused_ln_qkv_plain(tx, t["lw"], t["lb"], tw, t["b"], QKV_HEADS,
+                                                    eps),
+                       pallas=JFQ.fused_qkv_plain_kernel(*jplain, eps=eps, block_n=128,
+                                                         interpret=True),
+                       reference=JFQ.reference_qkv_plain(*jplain, eps=eps)),
+        )
+    return out
+
+
+def _assert_qkv(got, ref, kernel: str, what: str):
+    """q, k within 4 ulps of their largest value for LN+QKV+RoPE, v (and all
+    three of LN+QKV) within 2, as phase 2 on the card."""
+    for label, g, r in zip("qkv", got, ref):
+        n = 4 if kernel == "rope" and label != "v" else 2
+        _assert_close(g, r, _ulps(r, n), f"{what} {label}")
+
+
+@pytest.mark.parametrize("ref", ["plain", "pallas", "reference"])
+@pytest.mark.parametrize("kernel", ["rope", "plain"])
+@pytest.mark.parametrize("case", list(QKV_CASES))
+def test_qkv_emulation_matches(qkv_cases, case, kernel, ref):
+    """The emulated LN+QKV(+RoPE) against the port's plain version, the Pallas
+    kernel in interpret mode and the JAX reference chain."""
+    c = qkv_cases[case][kernel]
+    _assert_qkv(c["emulation"], c[ref], kernel, f"LN+QKV {kernel} {case} vs {ref}")
+
+
+def test_qkv_zero_row_and_shapes(qkv_cases):
+    """The zero row normalises to the norm's bias in the pre-pass and gives
+    finite q, k, v; every output is (B, H, N, 64)."""
+    for name, c in qkv_cases.items():
+        B, N, _ = c["x"].shape
+        hn = _ln_prepass(c["x"][0], c["lw"], c["lb"], c["eps"])
+        assert torch.equal(hn[ZERO_ROW], c["lb"].to(bf16)), name
+        for kernel in ("rope", "plain"):
+            for t in c[kernel]["emulation"]:
+                assert t.shape == (B, QKV_HEADS, N, HD)
+                assert torch.isfinite(t[0, :, ZERO_ROW].float()).all()
+
+
+# -- the QKV epilogue's index mapping ---------------------------------------------
+
+
+def _owned(warp: int, g: int, t: int):
+    """acc[h][4j + e] of thread (warp, g, t) of a consumer warpgroup -> (row,
+    column) of its 128 x 128 part: row h * 64 + 16 warp + g (+ 8 for e >= 2),
+    column 8j + 2t + (e & 1)."""
+    return {(h, 4 * j + e): (h * 64 + 16 * warp + g + 8 * (e >> 1), 8 * j + 2 * t + (e & 1))
+            for h in range(2) for j in range(BN // 8) for e in range(4)}
+
+
+def test_qkv_epilogue_index_mapping():
+    """Every cell of a part is one thread's; a quad's values of one (h, hr,
+    hh) are exactly one row of head hh's 64 columns (the qk-norm's sum); the
+    RoPE partner nt +- 2 of a value is its column +- 16 in the same row and
+    thread, inside the same pair of quarters, with rot's sign."""
+    for line in ("const int row = m0 + h * 64 + warp * 16 + hr * 8 + g;",
+                 "const int j = 8 * hh + nt;",
+                 "v[hh][nt][0] = rb(rb(acc[h][4 * j + 2 * hr]) + rb(bias.x));",
+                 "const bool lower = (nt & 2) == 0;",
+                 "const int pn = lower ? nt + 2 : nt - 2;",
+                 "const float r0 = lower ? -v[hh][pn][0] : v[hh][pn][0];"):
+        assert line in SOURCE, line
+    assert (BN, WG_M, HD) == (128, 128, 64) and BN == 2 * HD
+    cells = {}
+    for warp in range(4):
+        for g in range(8):
+            for t in range(4):
+                for key, cell in _owned(warp, g, t).items():
+                    assert cell not in cells
+                    cells[cell] = (warp, g, t, key)
+    assert len(cells) == WG_M * BN
+    for warp in range(4):
+        for g in range(8):
+            for h in range(2):
+                for hr in range(2):
+                    for hh in range(2):
+                        quad = set()
+                        for t in range(4):
+                            own = _owned(warp, g, t)
+                            for nt in range(8):
+                                for e in range(2):
+                                    j = 8 * hh + nt
+                                    row, col = own[(h, 4 * j + 2 * hr + e)]
+                                    assert row == h * 64 + warp * 16 + hr * 8 + g
+                                    quad.add((row, col))
+                                    lower = (nt & 2) == 0
+                                    pn = nt + 2 if lower else nt - 2
+                                    prow, pcol = own[(h, 4 * (8 * hh + pn) + 2 * hr + e)]
+                                    assert prow == row
+                                    assert pcol == col + (16 if lower else -16)
+                                    assert (col - 64 * hh) // 32 == (pcol - 64 * hh) // 32
+                                    # rot = (-t2, t1, -t4, t3): a lower quarter
+                                    # takes its upper partner negated
+                                    assert lower == ((col - 64 * hh) // 16 % 2 == 0)
+                        rows = {r for r, _ in quad}
+                        assert len(rows) == 1
+                        assert sorted(c for _, c in quad) == list(range(64 * hh, 64 * hh + 64))
+
+
 # -- the persistent tile walk ---------------------------------------------------
 
 
@@ -224,11 +402,15 @@ def _walk(M: int, nout: int, pingpong: bool = PINGPONG, group: int = GROUP_M):
     return out, m_tiles, n_tiles, grid
 
 
-@pytest.mark.parametrize("kernel", ["up", "down"])
+@pytest.mark.parametrize("kernel", ["up", "down", "qkv_rope", "qkv"])
 @pytest.mark.parametrize("site", list(SITE_ROWS))
 def test_tile_walk_covers_every_tile_once(site, kernel):
     M = SITE_ROWS[site]
-    nout = CH_FULL if kernel == "up" else C_FULL
+    nout = WIDTHS[kernel][1]
+    if kernel.startswith("qkv"):
+        # a tile's 128 columns lie in one of q, k, v: two heads
+        assert all(nt * BN // C_FULL == ((nt + 1) * BN - 1) // C_FULL
+                   for nt in range(nout // BN))
     for pingpong in (True, False):
         for group in sorted({GROUP_M, 1, 8}):
             walk, m_tiles, n_tiles, _ = _walk(M, nout, pingpong, group)
@@ -246,17 +428,21 @@ def test_tile_walk_covers_every_tile_once(site, kernel):
             assert set(count.values()) == {1 if pingpong else 2}
 
 
-@pytest.mark.parametrize("kernel", ["up", "down"])
+@pytest.mark.parametrize("kernel", ["up", "down", "qkv_rope", "qkv"])
 def test_ring_positions_and_turns(kernel):
     """The producer fills the ring tile after tile, K slice after K slice;
     a consumer starts the block's tile i at ring position i * k_tiles, i.e.
     stage (i k) % STAGES of phase (i k / STAGES) & 1. The ping-pong turns:
     the block's tile i is issued in warpgroup i % 2's turn, passed on only
     when tile i + 1 exists, so every arrival on a named barrier meets one
-    wait."""
-    M = SITE_ROWS["vit"]
-    nout, K = (CH_FULL, C_FULL) if kernel == "up" else (C_FULL, CH_FULL)
+    wait. At the main path's four sites."""
+    K, nout = WIDTHS[kernel]
     k_tiles = K // BK
+    for M in sorted(set(SITE_ROWS.values())):
+        _check_ring(M, nout, k_tiles)
+
+
+def _check_ring(M: int, nout: int, k_tiles: int) -> None:
     walk, _, _, grid = _walk(M, nout, True)
     for block in range(grid):
         mine = sorted(i for b, _, i, _, _ in walk if b == block)
@@ -288,6 +474,64 @@ def test_constants_and_rounds():
                                          ("vit", C_FULL), ("frame", C_FULL))] == [
         13.1, 26.2, 3.3, 6.5]
     assert "13.1 / 26.2 and 3.3 / 6.5 rounds" in SOURCE
+
+
+def test_qkv_rounds_and_shared_memory():
+    """LN+QKV(+RoPE)'s tiles and rounds as the source's header quotes them,
+    and their shared memory: the ring and barriers of the MLP pair, nothing
+    more (their stores go from the accumulators), launched and reported as
+    one size for every kernel of the body."""
+    tiles = {s: -(-SITE_ROWS[s] // WG_M) * (3 * C_FULL // BN) for s in ("vit", "frame")}
+    assert tiles == {"vit": 1296, "frame": 2592}
+    assert [round(tiles[s] / SMS, 1) for s in ("vit", "frame")] == [9.8, 19.6]
+    assert "1296 / 2592 tiles" in SOURCE and "9.8 / 19.6" in SOURCE
+    assert _const("SMEM_BYTES") == "1024 + BAR_OFF + 2 * STAGES * 8"
+    assert "kernel<<<grid, NTHREADS, SMEM_BYTES, " in SOURCE
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES)" in SOURCE
+    assert "out[2] = which == 3 ? 0 : SMEM_BYTES;" in SOURCE
+
+
+@pytest.mark.parametrize("variant", list(ABL.VARIANTS))
+def test_ablation_variants_patch_the_shipped_source(variant):
+    """Every variant of tools/ablate_gemm_sm90.py finds each text it patches
+    exactly once in the shipped source (the tool checks this on the card too,
+    before any build), and changes the source unless it is the source."""
+    src = ABL.patched_sources({variant: ABL.VARIANTS[variant]})[variant]
+    assert (src == SOURCE) == (variant == "as shipped")
+    if variant.startswith("TMA stores"):
+        # staged only when the part's rows lie in one frame: no TMA store at
+        # a negative row
+        assert "const bool staged = m0 / p.ntok == (min(m0 + WG_M, p.M) - 1) / p.ntok;" in src
+        assert "tma_store_3d(map, out_smem + hh * OUT_HEAD_BYTES, 0, m0 - b * p.ntok," in src
+
+
+def _meta(*shape, dtype=torch.float32):
+    """A tensor on no device: the wrappers check it as they check a CUDA
+    tensor, and raise before anything is built."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("kernel", ["rope", "plain"])
+@pytest.mark.parametrize("C,heads,match", [(640, 10, "multiple of 256"),
+                                           (1024, 8, "head dim 64"),
+                                           (1024, 32, "head dim 64")])
+def test_qkv_wrappers_refuse_widths_the_body_does_not_take(kernel, C, heads, match):
+    """Off the CPU the LN+QKV wrappers refuse what the TMA body does not take:
+    head dim other than 64, C no multiple of 256 (the pre-pass's steps; 3C is
+    then a multiple of 128, the tiles)."""
+    d = C // heads
+    x, w = _meta(2, 8, C, dtype=bf16), _meta(C, 3 * C, dtype=bf16)
+    common = (x, _meta(C), _meta(C), w, _meta(3 * C))
+    with pytest.raises(ValueError, match=match):
+        if kernel == "rope":
+            TFQ.fused_ln_qkv_rope_fwd(*common, _meta(d), _meta(d), _meta(d), _meta(d),
+                                      _meta(8, d), _meta(8, d), heads)
+        else:
+            TFQ.fused_ln_qkv_fwd(*common, heads)
+    # what the body takes: the main path's widths, and C = 768 (3C = 2304)
+    for c_ok, h_ok in ((1024, 16), (768, 12)):
+        TFQ._check_widths("fused_ln_qkv", head_dim=c_ok // h_ok, C=c_ok)
+        TFQ._check_tile_widths("fused_ln_qkv", c_ok, 3 * c_ok)
 
 
 @pytest.mark.parametrize("C,hidden,ok", [(1024, 4096, True), (128, 4096, False),
