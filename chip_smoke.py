@@ -9,8 +9,9 @@ Phases, each of which must pass (any failure exits non-zero):
    kernel in ``self_supervise_sfm_tpu_torch/csrc`` with ``nvcc`` for sm_90a;
    the registers, spills and shared memory of the Hopper attention body's
    kernels (K1, K2, K2p) and of the Hopper GEMM body's (MLP-up, MLP-down,
-   the probe, the layer-norm pre-pass, LN+QKV+RoPE, LN+QKV), and any ptxas
-   advisory that wgmma was serialised (C7518);
+   the probe, the layer-norm pre-pass, LN+QKV+RoPE, LN+QKV, the
+   out-projection), and any ptxas advisory that wgmma was serialised
+   (C7518);
 2. the GEMM body's operand layouts alone (``gemm_probe``: one tile, then
    ragged rows and a K loop, against an fp32 matmul); each of the twelve
    kernels at the shapes of the paths below, held against its plain
@@ -22,7 +23,10 @@ Phases, each of which must pass (any failure exits non-zero):
    peak of an H100 SXM (989 TFLOP/s, 3.35 TB/s); for every site of K1, K2,
    K2p and the fused block kernels the kernel's ratio to its bound and to
    its library call, per call and 20 launches back to back; the layer-norm
-   pre-pass of LN+QKV(+RoPE) and MLP-up alone;
+   pre-pass of LN+QKV(+RoPE) and MLP-up alone; K3's rate on its bound's
+   bytes beside the most its back-to-back time lets it move, and K3 at the
+   edges of its thread mapping (4 and 8 channels a thread, ragged pixel
+   counts);
 3. the full-width joint forward: ViT-L/14 + 24 aggregator layers at 518 px,
    bf16 trunk and fp32 heads, 5 anchors + the same 5 images as queries,
    rank 300, random weights from a seeded generator, every trunk block on
@@ -73,6 +77,11 @@ import subprocess
 import sys
 import time
 
+# per call: the median of calls each between two events; back to back: 20
+# calls queued behind a spin of the device (tools/timing.py)
+from self_supervise_sfm_tpu_torch.tools.timing import back_to_back_ms as _back_to_back_ms
+from self_supervise_sfm_tpu_torch.tools.timing import per_call_ms as _time_ms
+
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 NUM_FRAMES = 5
@@ -81,44 +90,9 @@ RANK = 300
 SEED = 0
 # K1, K2 and K2p: one attention body written for Hopper
 SM90_SOURCE = "self_supervise_sfm_tpu_torch/csrc/flash_fwd_sm90.cu"
-# LN+QKV+RoPE, LN+QKV, MLP-up and MLP-down: one GEMM body written for Hopper
+# LN+QKV+RoPE, LN+QKV, the out-projection, MLP-up and MLP-down: one GEMM
+# body written for Hopper
 GEMM_SOURCE = "self_supervise_sfm_tpu_torch/csrc/gemm_sm90.cu"
-
-
-def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def _back_to_back_ms(fn, reps: int = 20) -> float:
-    """Mean time of ``reps`` calls launched back to back between two events:
-    the host's launch cost of one call hides behind the device's work."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -141,7 +115,7 @@ _KERNEL_CLASSES = (
     # down must not claim them
     ("fused_ln_qkv_rope", ("ln_qkv_rope_sm90_kernel",)),
     ("fused_ln_qkv", ("ln_qkv_sm90_kernel",)),
-    ("fused_proj_residual", ("fused_proj_residual_kernel",)),
+    ("fused_proj_residual", ("proj_residual_sm90_kernel",)),
     ("fused_mlp_up", ("mlp_up_sm90_kernel",)),
     ("fused_mlp_down", ("mlp_down_sm90_kernel",)),
     ("ln_rows (pre-pass of LN+QKV(+RoPE) and MLP-up)", ("ln_rows_kernel",)),
@@ -265,7 +239,8 @@ def print_sm90_build() -> None:
               f"{info[4]} q rows a tile, setmaxnreg {info[6]} (producer) / {info[7]} "
               f"(consumers)")
     names = ("mlp_up_sm90_kernel", "mlp_down_sm90_kernel", "gemm_probe_sm90_kernel",
-             "ln_rows_kernel", "ln_qkv_rope_sm90_kernel", "ln_qkv_sm90_kernel")
+             "ln_rows_kernel", "ln_qkv_rope_sm90_kernel", "ln_qkv_sm90_kernel",
+             "proj_residual_sm90_kernel")
     for which, name in enumerate(names):
         info = (ctypes.c_int * 10)()
         rc = lib.sfm_gemm_sm90_info(which, info)
@@ -407,20 +382,52 @@ def check_kernels(gen):
                           align_corners=True)
         return (y.permute(0, 2, 3, 1) + add).to(torch.bfloat16)
 
-    bound, by = _bound_ms(0.0, x.numel() * 4 + add.numel() * 4 + out.numel() * 2)
+    # the bound's bytes: x, the addend and the output once each
+    bound_bytes = x.numel() * 4 + add.numel() * 4 + out.numel() * 2
+    bound, by = _bound_ms(0.0, bound_bytes)
+    kernel = lambda: RS.resize_bilinear_fwd(x, (IMG, IMG), add, torch.bfloat16)  # noqa: E731
     results.append(dict(
         name="resize_bilinear", route="cuda",
         source="self_supervise_sfm_tpu_torch/csrc/resize.cu",
         replaces="self_supervise_sfm_tpu/ops/resize.py:51,136",
-        max_abs_err=err,
-        ms=_time_ms(lambda: RS.resize_bilinear_fwd(x, (IMG, IMG), add, torch.bfloat16)),
+        max_abs_err=err, max_abs_err_fp32=err32,
+        ms=_time_ms(kernel),
         plain_ms=_time_ms(lambda: RS.resize_bilinear_plain(x, (IMG, IMG), add,
                                                            torch.bfloat16), reps=5),
         library_ms=_time_ms(library),
         bound_ms=bound, bound_by=by,
+        back_to_back_ms=_back_to_back_ms(kernel),
+        library_back_to_back_ms=_back_to_back_ms(library),
     ))
+    r = results[-1]
+    _site_line(f"resize_bilinear {tuple(x.shape)} -> {IMG} bf16", r)
+    # a model, not a measurement: the device-memory bytes if the addend is
+    # read once a call (the bound's) or once an image, beside the most that
+    # the measured back-to-back time lets the kernel move at the memory peak
+    per_image = bound_bytes + (x.shape[0] - 1) * add.numel() * 4
+    print(f"  resize_bilinear: {bound_bytes / r['ms'] / 1e6:.1f} GB/s a call "
+          f"({bound_bytes / r['back_to_back_ms'] / 1e6:.1f} back to back) on the bound's "
+          f"{bound_bytes / 1e6:.1f} MB; model (not measured): {bound_bytes / 1e6:.1f} MB "
+          f"if the addend is read once a call, {per_image / 1e6:.1f} MB if once an image; "
+          f"at the memory peak its back-to-back time allows at most "
+          f"{r['back_to_back_ms'] * 1e-3 * PEAK_BYTES_PER_S / 1e6:.1f} MB")
     del x, add, out, ref
     torch.cuda.empty_cache()
+    # K3 at the edges of its thread mapping, inputs from a generator of their
+    # own: 8 channels a thread (C = 24) and 4 (C = 12), 429 / 286 threads (no
+    # multiple of the block), with and without the addend, both stores
+    k3 = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    for c in (24, 12):
+        xe = torch.randn((3, 5, 7, c), generator=k3, device="cuda")
+        for adde in (None, torch.randn((11, 13, c), generator=k3, device="cuda")):
+            for dt in (torch.bfloat16, torch.float32):
+                got = RS.resize_bilinear_fwd(xe, (11, 13), adde, dt)
+                torch.cuda.synchronize()
+                ref = RS.resize_bilinear_plain(xe, (11, 13), adde, dt)
+                tol = ulps(ref, 1) if dt == torch.bfloat16 else 1e-5 * float(ref.abs().max())
+                _check(f"resize_bilinear edge (3, 5, 7, {c}) -> (11, 13) "
+                       f"{'with' if adde is not None else 'no'} addend {dt}",
+                       float((got.float() - ref.float()).abs().max()), tol)
     results += check_fused_kernels(randn, ulps)
     # inputs from a generator of their own: the weights of phase 3 are drawn
     # from `gen` after this phase, and stay what they were before these checks
@@ -648,9 +655,7 @@ def check_fused_kernels(randn, ulps):
                       f"{s_['prepass_ms']:.4f} ms a call, {s_['prepass_back_to_back_ms']:.4f} "
                       f"ms back to back")
         results.append(dict(
-            name=name, route="cuda",
-            source=("self_supervise_sfm_tpu_torch/csrc/fused_block.cu"
-                    if name == "fused_proj_residual" else GEMM_SOURCE),
+            name=name, route="cuda", source=GEMM_SOURCE,
             replaces=f"self_supervise_sfm_tpu/ops/fused_qkv.py:{lines[name]}",
             # one call at each site measured
             max_abs_err=max(s_["max_abs_err"] for s_ in ss),

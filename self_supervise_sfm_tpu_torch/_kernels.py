@@ -47,18 +47,18 @@ _SIGNATURES: Dict[str, List] = {
     # which kernel of the sm90 attention body (0 K1, 1 K2, 2 K2p), int[8] out
     "sfm_attention_sm90_info": [_I, _P],
     "sfm_resize_bilinear_ac": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "sfm_fused_proj_residual": [_P] * 6 + [_I, _I, _I, _P],
-    # LN+QKV(+RoPE) and the MLP pair on the wgmma / TMA GEMM body
-    # (gemm_sm90.cu): the layer-normed ones take an (M, C) bf16 scratch for
-    # the normalised rows; batch, ntok, heads, eps
+    # LN+QKV(+RoPE), the out-projection and the MLP pair on the wgmma / TMA
+    # GEMM body (gemm_sm90.cu): the layer-normed ones take an (M, C) bf16
+    # scratch for the normalised rows; batch, ntok, heads(, eps)
     "sfm_ln_qkv_rope_sm90": [_P] * 15 + [_I, _I, _I, _F, _P],
     "sfm_ln_qkv_sm90": [_P] * 9 + [_I, _I, _I, _F, _P],
+    "sfm_proj_residual_sm90": [_P] * 6 + [_I, _I, _I, _P],
     "sfm_mlp_up_sm90": [_P] * 7 + [_I, _I, _I, _F, _P],
     "sfm_mlp_down_sm90": [_P] * 6 + [_I, _I, _I, _P],
     "sfm_ln_rows_bf16": [_P] * 4 + [_I, _I, _F, _P],
     "sfm_gemm_sm90_probe": [_P] * 3 + [_I, _I, _I, _P],
     # which kernel of the GEMM body (0 up, 1 down, 2 probe, 3 LN, 4 LN+QKV+RoPE,
-    # 5 LN+QKV), int[10] out
+    # 5 LN+QKV, 6 out-proj), int[10] out
     "sfm_gemm_sm90_info": [_I, _P],
 }
 

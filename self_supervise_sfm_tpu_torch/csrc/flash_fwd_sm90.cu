@@ -438,30 +438,10 @@ frame_ctx_kv2_fwd_kernel(const __grid_constant__ CUtensorMap mq,
 
 // -- host side: tensor maps and launches ---------------------------------------
 
-// A map over rows of 64 bf16 (128 bytes, the swizzle span) at a row stride of
-// row_bytes: dims (64, n, slices[, layers]), box (64, 128[, 1], 1). Rows past
-// n read as zeros. An empty source gets one row (never loaded) at an address
-// the caller takes from another tensor.
-bool encode(CUtensorMap* map, const void* ptr, int rank, uint64_t n, uint64_t row_bytes,
-            uint64_t slices, uint64_t layers, uint64_t layer_bytes) {
-  const EncodeTiledFn fn = encode_fn();
-  if (fn == nullptr) return false;
-  if (n == 0) n = 1;
-  // the layer stride is at least one layer (it is 0 for an empty kv2 context)
-  if (layer_bytes < slices * n * row_bytes) layer_bytes = slices * n * row_bytes;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), n, slices, layers};
-  const cuuint64_t strides[3] = {row_bytes, n * row_bytes, layer_bytes};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(D), static_cast<cuuint32_t>(BN), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
 // (slices, n, 64) contiguous
 bool encode_rows(CUtensorMap* map, const void* ptr, int n, int slices) {
-  return encode(map, ptr, 3, static_cast<uint64_t>(n), D * 2, static_cast<uint64_t>(slices), 1, 0);
+  return encode_rows64(map, ptr, 3, static_cast<uint64_t>(n), D * 2,
+                       static_cast<uint64_t>(slices), 1, 0, BN);
 }
 
 Params make_params(void* o, void* lse, int slices, int nq, int nk, int nc, int heads,
@@ -537,8 +517,8 @@ extern "C" int sfm_frame_ctx_fwd_bf16(const void* q, const void* k, const void* 
   CUtensorMap mq, mk, mv, mck, mcv;
   if (!encode_rows(&mq, q, np_, bf * heads) || !encode_rows(&mk, k, np_, bf * heads) ||
       !encode_rows(&mv, v, np_, bf * heads) ||
-      !encode(&mck, nc > 0 ? ck : q, 4, nc, D * 2, bh, 1, 0) ||
-      !encode(&mcv, nc > 0 ? cv : q, 4, nc, D * 2, bh, 1, 0))
+      !encode_rows64(&mck, nc > 0 ? ck : q, 4, nc, D * 2, bh, 1, 0, BN) ||
+      !encode_rows64(&mcv, nc > 0 ? cv : q, 4, nc, D * 2, bh, 1, 0, BN))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p = make_params(o, nullptr, bf * heads, np_, np_, nc, heads, frames, 0, scale_log2);
   int grid;
@@ -567,8 +547,8 @@ extern "C" int sfm_frame_ctx_kv2_fwd_bf16(const void* q, const void* k, const vo
   CUtensorMap mq, mk, mv, mck, mcv;
   if (!encode_rows(&mq, q, np_, bf * heads) || !encode_rows(&mk, k, np_, bf * heads) ||
       !encode_rows(&mv, v, np_, bf * heads) ||
-      !encode(&mck, ckv_k, 4, nc, 4 * D, bh, layer + 1, layer_bytes) ||
-      !encode(&mcv, ckv_k + D, 4, nc, 4 * D, bh, layer + 1, layer_bytes))
+      !encode_rows64(&mck, ckv_k, 4, nc, 4 * D, bh, layer + 1, layer_bytes, BN) ||
+      !encode_rows64(&mcv, ckv_k + D, 4, nc, 4 * D, bh, layer + 1, layer_bytes, BN))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p =
       make_params(o, nullptr, bf * heads, np_, np_, nc, heads, frames, layer, scale_log2);

@@ -1,13 +1,14 @@
-// Four fused kernels of a transformer block on one GEMM body written for
+// The five fused kernels of a transformer block on one GEMM body written for
 // Hopper (sm_90a): TMA loads into a ring of shared-memory stages, wgmma
 // products, warp specialisation, a persistent grid. bf16 activations and
 // weights, fp32 norm / bias / layer-scale / RoPE parameters.
 //
 // Replaces the Pallas TPU kernels of self_supervise_sfm_tpu/ops/fused_qkv.py
-//   ln_qkv_rope_sm90_kernel  fused_qkv_kernel       / _kernel        (+ ln_rows_kernel)
-//   ln_qkv_sm90_kernel       fused_qkv_plain_kernel / _kernel_plain  (+ ln_rows_kernel)
-//   mlp_up_sm90_kernel       fused_mlp_kernel / _mlp_up_kernel       (+ ln_rows_kernel)
-//   mlp_down_sm90_kernel     fused_mlp_kernel / _mlp_down_kernel
+//   ln_qkv_rope_sm90_kernel    fused_qkv_kernel       / _kernel        (+ ln_rows_kernel)
+//   ln_qkv_sm90_kernel         fused_qkv_plain_kernel / _kernel_plain  (+ ln_rows_kernel)
+//   proj_residual_sm90_kernel  fused_proj_kernel      / _proj_kernel
+//   mlp_up_sm90_kernel         fused_mlp_kernel / _mlp_up_kernel       (+ ln_rows_kernel)
+//   mlp_down_sm90_kernel       fused_mlp_kernel / _mlp_down_kernel
 // and computes what they compute, with their rounding points. The three
 // layer-normed kernels: hn = LN(x) with fp32 statistics (centred variance),
 // rounded to bf16; acc = hn @ W in fp32, rounded to bf16; + b in bf16. Then
@@ -15,19 +16,22 @@
 // rounded to bf16, and 2D RoPE in bf16 (bf16 cos / sin, each product
 // rounded); LN+QKV: nothing more; both write q, k, v as (B, H, N, 64).
 // MLP-up: the exact (erff) GELU in fp32, rounded to bf16. MLP-down: acc = h
-// @ W2 in fp32, rounded to bf16; + b2, x gamma and + x, each in bf16. x and
-// h are flat (M, C) and (M, 4C) rows; the weights stay in their (K, Nout)
-// row-major layout, read MN-major.
+// @ W2 in fp32, rounded to bf16; + b2, x gamma and + x, each in bf16. The
+// out-projection: the same product and epilogue on the merged heads of the
+// attention output o (B, H, N, 64) @ W_proj (C, C). x and h are flat (M, C)
+// and (M, 4C) rows; the weights stay in their (K, Nout) row-major layout,
+// read MN-major.
 //
 // Bound on an H100: operations. 2 M C Nout FLOPs over x, W and the result
 // is 330-780 FLOP a byte at the main path's sizes (M = 6870 or 13740 rows, C
-// = 1024, Nout = 3C or 4C), above the card's ~295 ridge, so the floor is the
-// bf16 tensor-core rate: LN+QKV(+RoPE) 43 / 86 GFLOP a call, 0.044 / 0.087
-// ms, the MLP pair 58 / 115 GFLOP, 0.058 / 0.117 ms at 989 TFLOP/s.
+// = 1024, Nout = C, 3C or 4C), above the card's ~295 ridge, so the floor is
+// the bf16 tensor-core rate: LN+QKV(+RoPE) 43 / 86 GFLOP a call, 0.044 /
+// 0.087 ms, the MLP pair 58 / 115 GFLOP, 0.058 / 0.117 ms, the
+// out-projection 14 / 29 GFLOP, 0.015 / 0.029 ms at 989 TFLOP/s.
 //
-// Design, against what held the mma.sync body of gemm_core.cuh back:
+// Design:
 // - Products: wgmma m64n128k16 with both operands read from shared memory.
-//   A (hn or h) is K-major in the 128-byte swizzle: a 64-channel bf16 row is
+//   A (hn, h or o) is K-major in the 128-byte swizzle: a 64-channel bf16 row is
 //   one swizzle row, the 16-channel k step a 32-byte start-address step. B =
 //   W in its natural (K, Nout) layout is read through the transposed-B bit:
 //   a stage holds two 64-column atoms (64 k rows of 128 bytes each, 8 KB),
@@ -45,6 +49,15 @@
 //   residual) runs while the other's products hold the tensor cores.
 //   Without it both share one 256 x 128 tile (B read from L2 half as often,
 //   the epilogue exposed); tools/ablate_gemm_sm90.py times the two.
+// - Merged heads (the out-projection): A is read through a 3-D map over o
+//   as (64, N, B H), box (64, BM, 1): a K slice of 64 is one head, so slice
+//   kt of the row tile at row n0 of frame b is the box at (0, n0, b H + kt),
+//   and it lands as the same swizzled BM x 64 image as a 2-D box of flat
+//   rows. No merge copy exists. The tile walk goes frame by frame (the
+//   Pallas grid (B, cdiv(N, bn))): B ceil(N / BM) row tiles, none crossing a
+//   frame, so no box starts at a negative row or reads the next frame's;
+//   rows past N come in as zeros (a box clips at the end of its own slice)
+//   and are never stored. The flat kernels walk their M rows as one frame.
 // - Layer norm: a pre-pass kernel of this source (ln_rows_kernel, one warp
 //   a row) writes hn once, as the JAX kernel's bf16 cast before the dot; the
 //   GEMM's A is then a plain TMA load, and no column tile repeats the norm.
@@ -69,7 +82,10 @@
 //   (down) a call, 13.1 / 26.2 and 3.3 / 6.5 rounds of 132 multiprocessors;
 //   the last round of MLP-down at ViT is the fullest left (36 of 132).
 //   LN+QKV(+RoPE): 1296 / 2592 tiles (ViT, reloc, global / frame), 9.8 / 19.6
-//   rounds.
+//   rounds. The out-projection, 11 row tiles a frame of 1374 in place of
+//   10.73 (2.5% more products): 440 / 880 / 432 tiles (ViT and reloc /
+//   frame / global), 3.33 / 6.67 / 3.27 rounds; at K = 1024 a tile has 16
+//   K slices, so its residual epilogue is four times MLP-down's share.
 // Every output element is one warpgroup's fp32 sum over the K slices in
 // order, whatever the grid, the row count or the tile: no split over K and
 // no atomics, so a row's result does not depend on the rows beside it.
@@ -107,7 +123,7 @@ static_assert(SMEM_BYTES <= 232448, "more shared memory than a block can have");
 // the warps that read a stage and arrive on its empty barrier
 constexpr int EMPTY_ARRIVALS = PINGPONG ? 4 : 8;
 
-enum { E_GELU = 0, E_RESID = 1, E_F32 = 2, E_QKV_ROPE = 3, E_QKV = 4 };
+enum { E_GELU = 0, E_RESID = 1, E_F32 = 2, E_QKV_ROPE = 3, E_QKV = 4, E_PROJ = 5 };
 
 __host__ __device__ constexpr bool is_qkv(int ep) { return ep == E_QKV_ROPE || ep == E_QKV; }
 
@@ -130,6 +146,9 @@ struct Params {
   int batch, ntok, heads;
   int M, K, nout;
   int m_tiles, n_tiles, tiles, k_tiles;
+  // the walk's frames: rows and row tiles of each (E_PROJ: B frames of N
+  // rows; the other kernels: one frame of M rows)
+  int frame_rows, frame_tiles;
 };
 
 // round an fp32 value to bf16 and back: the value a bf16 tensor would hold
@@ -156,11 +175,13 @@ __device__ __forceinline__ void tile_coords(const Params& p, int t, int& mb, int
   nb = r / rows;
 }
 
-// The epilogue of one 128 x 128 part, rows from m0, columns from n0, on the
-// wgmma accumulator layout: acc[h][4j + e] is row h * 64 + 16 warp + g (+ 8
-// for e >= 2), column 8j + 2t + (e & 1).
+// The epilogue of one 128 x 128 part, rows from m0 (those before m_end, the
+// end of its frame, are stored), columns from n0, on the wgmma accumulator
+// layout: acc[h][4j + e] is row h * 64 + 16 warp + g (+ 8 for e >= 2),
+// column 8j + 2t + (e & 1). E_RESID and E_PROJ: the residual epilogue.
 template <int EP>
-__device__ __forceinline__ void epilogue(const Params& p, float (&acc)[2][64], int m0, int n0) {
+__device__ __forceinline__ void epilogue(const Params& p, float (&acc)[2][64], int m0, int m_end,
+                                         int n0) {
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -168,7 +189,7 @@ __device__ __forceinline__ void epilogue(const Params& p, float (&acc)[2][64], i
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int row = m0 + h * 64 + warp * 16 + hr * 8 + g;
-      if (row >= p.M) continue;
+      if (row >= m_end) continue;
       const size_t base = static_cast<size_t>(row) * p.nout + n0 + 2 * t;
       if (EP == E_F32) {
         float* o = static_cast<float*>(p.out) + base;
@@ -331,6 +352,7 @@ __device__ __forceinline__ void epilogue_qkv(const Params& p, float (&acc)[2][64
   }
 }
 
+// (E_PROJ: A is o (B, H, N, 64) through a 3-D map as (64, N, B H))
 // out = epilogue(A @ W): A (M, K) through map ma, W (K, nout) through mb
 template <int EP>
 __device__ __forceinline__ void gemm(const CUtensorMap* ma, const CUtensorMap* mb, const Params& p) {
@@ -358,14 +380,18 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ma, const CUtensorMap* m
       for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
         int mt, nt;
         tile_coords(p, tile, mt, nt);
-        const int m0 = mt * BM, n0 = nt * BN;
+        // frame f, its row r0; a box never starts outside the frame
+        const int f = mt / p.frame_tiles, r0 = (mt - f * p.frame_tiles) * BM, n0 = nt * BN;
         for (int kt = 0; kt < p.k_tiles; ++kt) {
           const uint32_t full = full0 + 8 * stage;
           mbar_wait(empty0 + 8 * stage, phase ^ 1);
           // a ragged box still counts all of its bytes
           mbar_expect_tx(full, STAGE_BYTES);
           const uint32_t sa = base + stage * STAGE_BYTES;
-          tma_load_2d(sa, ma, full, kt * BK, m0);
+          if constexpr (EP == E_PROJ)
+            tma_load_3d(sa, ma, full, 0, r0, f * p.heads + kt);  // head kt of frame f
+          else
+            tma_load_2d(sa, ma, full, kt * BK, f * p.frame_rows + r0);
           tma_load_2d(sa + A_BYTES, mb, full, n0, kt * BK);
           tma_load_2d(sa + A_BYTES + B_ATOM_BYTES, mb, full, n0 + 64, kt * BK);
           if (++stage == STAGES) {
@@ -436,11 +462,15 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ma, const CUtensorMap* m
       fence_regs(acc[0]);
       fence_regs(acc[1]);
       if (lane == 0) mbar_arrive(empty0 + 8 * prev);
-      const int m0 = mt * BM + static_cast<int>(a_part / (BK * 2)), n0 = nt * BN;
+      // the part's first flat row and its frame's end
+      const int f = mt / p.frame_tiles, m_end = (f + 1) * p.frame_rows;
+      const int m0 = f * p.frame_rows + (mt - f * p.frame_tiles) * BM +
+                     static_cast<int>(a_part / (BK * 2));
+      const int n0 = nt * BN;
       if constexpr (is_qkv(EP))
         epilogue_qkv<EP>(p, acc, m0, n0);
       else
-        epilogue<EP>(p, acc, m0, n0);
+        epilogue<EP>(p, acc, m0, m_end, n0);
     }
   }
 }
@@ -457,6 +487,7 @@ SFM_GEMM_KERNEL(mlp_down_sm90_kernel, E_RESID)
 SFM_GEMM_KERNEL(gemm_probe_sm90_kernel, E_F32)  // the bare product in fp32: the operand layouts
 SFM_GEMM_KERNEL(ln_qkv_rope_sm90_kernel, E_QKV_ROPE)
 SFM_GEMM_KERNEL(ln_qkv_sm90_kernel, E_QKV)
+SFM_GEMM_KERNEL(proj_residual_sm90_kernel, E_PROJ)
 #undef SFM_GEMM_KERNEL
 
 typedef void (*GemmKernel)(const CUtensorMap, const CUtensorMap, const Params);
@@ -467,6 +498,7 @@ GemmKernel kernel_of() {
          : EP == E_RESID    ? mlp_down_sm90_kernel
          : EP == E_QKV_ROPE ? ln_qkv_rope_sm90_kernel
          : EP == E_QKV      ? ln_qkv_sm90_kernel
+         : EP == E_PROJ     ? proj_residual_sm90_kernel
                             : gemm_probe_sm90_kernel;
 }
 
@@ -573,17 +605,24 @@ int prepare() {
   return 0;
 }
 
-// out = epilogue(a (M, K) @ w (K, nout)); K a multiple of 64, nout of 128.
+// out = epilogue(a (M, K) @ w (K, nout)); K a multiple of 64, nout of 128;
+// E_PROJ: a is o (batch, heads, ntok, 64), K = 64 heads, M = batch ntok.
 // Grid: one block a multiprocessor, at most one a tile.
 template <int EP>
 int launch_gemm(const void* a, const void* w, Params p, void* stream) {
   if (p.M < 0 || p.K <= 0 || p.K % BK || p.nout <= 0 || p.nout % BN)
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.M == 0) return 0;
+  const int frames = EP == E_PROJ ? p.batch : 1;
   CUtensorMap ma, mb;
-  if (!encode_2d(&ma, a, p.K, p.M, BM) || !encode_2d(&mb, w, p.nout, p.K, BK))
+  const bool a_ok =
+      EP == E_PROJ ? encode_rows64(&ma, a, 3, p.ntok, HD * 2, p.batch * p.heads, 1, 0, BM)
+                   : encode_2d(&ma, a, p.K, p.M, BM);
+  if (!a_ok || !encode_2d(&mb, w, p.nout, p.K, BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  p.m_tiles = (p.M + BM - 1) / BM;
+  p.frame_rows = p.M / frames;
+  p.frame_tiles = (p.frame_rows + BM - 1) / BM;
+  p.m_tiles = frames * p.frame_tiles;
   p.n_tiles = p.nout / BN;
   p.tiles = p.m_tiles * p.n_tiles;
   p.k_tiles = p.K / BK;
@@ -698,6 +737,26 @@ extern "C" int sfm_mlp_down_sm90(const void* h, const void* x, const void* w2, c
   return launch_gemm<E_RESID>(h, w2, p, stream);
 }
 
+// o (B, H, N, 64), x (B N, C) -> y = x + gamma * (merge_heads(o) @ Wp (C, C)
+// + bp) (B N, C), C = 64 heads, a multiple of 128
+extern "C" int sfm_proj_residual_sm90(const void* o, const void* x, const void* wp,
+                                      const void* bp, const void* gamma, void* y, int batch,
+                                      int ntok, int heads, void* stream) {
+  if (batch < 0 || ntok < 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  Params p = {};
+  p.bias = static_cast<const float*>(bp);
+  p.gamma = static_cast<const float*>(gamma);
+  p.resid = static_cast<const bf16*>(x);
+  p.out = y;
+  p.batch = batch;
+  p.ntok = ntok;
+  p.heads = heads;
+  p.M = batch * ntok;
+  p.K = heads * HD;
+  p.nout = heads * HD;
+  return launch_gemm<E_PROJ>(o, wp, p, stream);
+}
+
 // a (M, K) bf16 @ w (K, nout) bf16 -> out (M, nout) fp32, the accumulators
 // as they are
 extern "C" int sfm_gemm_sm90_probe(const void* a, const void* w, void* out, int rows, int k,
@@ -712,10 +771,10 @@ extern "C" int sfm_gemm_sm90_probe(const void* a, const void* w, void* out, int 
 
 // What the body was built with and what the compiler gave each kernel (0
 // MLP-up, 1 MLP-down, 2 the probe, 3 the layer-norm pre-pass, 4 LN+QKV+RoPE,
-// 5 LN+QKV): registers a thread at launch, local (spill) bytes a thread,
-// dynamic shared memory a block, ring stages, rows and columns a tile,
-// setmaxnreg of the producer and the consumers, ping-pong (1) or cooperative
-// (0), row tiles a raster group.
+// 5 LN+QKV, 6 the out-projection): registers a thread at launch, local
+// (spill) bytes a thread, dynamic shared memory a block, ring stages, rows
+// and columns a tile, setmaxnreg of the producer and the consumers,
+// ping-pong (1) or cooperative (0), row tiles a raster group.
 extern "C" int sfm_gemm_sm90_info(int which, int* out) {
   cudaFuncAttributes attr;
   const void* fn = which == 0   ? reinterpret_cast<const void*>(mlp_up_sm90_kernel)
@@ -723,7 +782,8 @@ extern "C" int sfm_gemm_sm90_info(int which, int* out) {
                    : which == 2 ? reinterpret_cast<const void*>(gemm_probe_sm90_kernel)
                    : which == 3 ? reinterpret_cast<const void*>(ln_rows_kernel)
                    : which == 4 ? reinterpret_cast<const void*>(ln_qkv_rope_sm90_kernel)
-                                : reinterpret_cast<const void*>(ln_qkv_sm90_kernel);
+                   : which == 5 ? reinterpret_cast<const void*>(ln_qkv_sm90_kernel)
+                                : reinterpret_cast<const void*>(proj_residual_sm90_kernel);
   const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;

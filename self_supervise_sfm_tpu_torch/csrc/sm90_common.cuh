@@ -2,8 +2,9 @@
 // (flash_fwd_sm90.cu) and the GEMM body (gemm_sm90.cu): shared-memory
 // addresses, bf16 packing, mbarriers with a watchdog, TMA tensor loads,
 // wgmma descriptors and products with their fence / commit / wait, and
-// setmaxnreg; on the host, the tensor-map encoder cuTensorMapEncodeTiled and
-// the number of multiprocessors.
+// setmaxnreg; on the host, the tensor-map encoder cuTensorMapEncodeTiled, a
+// map over rows of 64 bf16 (q, k, v and the attention output as (64, N,
+// B H)) and the number of multiprocessors.
 
 #pragma once
 
@@ -236,6 +237,31 @@ inline EncodeTiledFn encode_fn() {
       fn = reinterpret_cast<EncodeTiledFn>(ptr);
   }
   return fn;
+}
+
+// A map over rows of 64 bf16 (128 bytes, the swizzle span) at a row stride of
+// row_bytes: dims (64, n, slices[, layers]) for rank 3 [4], box (64,
+// box_rows, 1[, 1]) in the 128-byte swizzle, so that a box lands in shared
+// memory as a 2-D (box_rows, 64) box of a row-major matrix would. Rows past
+// n read as zeros: a box clips at the end of its own slice and never reaches
+// into the next. An empty source gets one row (never loaded) at an address
+// the caller takes from another tensor.
+inline bool encode_rows64(CUtensorMap* map, const void* ptr, int rank, uint64_t n,
+                          uint64_t row_bytes, uint64_t slices, uint64_t layers,
+                          uint64_t layer_bytes, uint32_t box_rows) {
+  const EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  if (n == 0) n = 1;
+  // the layer stride is at least one layer (it is 0 for an empty kv2 context)
+  if (layer_bytes < slices * n * row_bytes) layer_bytes = slices * n * row_bytes;
+  const cuuint64_t dims[4] = {64, n, slices, layers};
+  const cuuint64_t strides[3] = {row_bytes, n * row_bytes, layer_bytes};
+  const cuuint32_t box[4] = {64, box_rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 inline int sm_count() {

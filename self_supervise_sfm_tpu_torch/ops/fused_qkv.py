@@ -1,12 +1,11 @@
 """Fused transformer-block kernels: LN+QKV(+qk-norm+RoPE), out-proj, MLP.
 
 Port of ``self_supervise_sfm_tpu/ops/fused_qkv.py``. The five Pallas TPU
-kernels become five hand-written CUDA kernels: LN+QKV(+RoPE) and the MLP
-pair in ``csrc/gemm_sm90.cu`` on a persistent TMA + ``wgmma`` body written
-for Hopper (the layer norm a pre-pass that writes the normalised rows once),
-the out-projection in ``csrc/fused_block.cu`` over the ``mma.sync`` GEMM
-body of ``csrc/gemm_core.cuh``. Each launch wrapper sits beside its plain
-PyTorch version:
+kernels become five hand-written CUDA kernels of ``csrc/gemm_sm90.cu``, on
+one persistent TMA + ``wgmma`` body written for Hopper (the layer norm a
+pre-pass that writes the normalised rows once; the out-projection reads the
+attention output's heads through a 3-D tensor map, with no merge copy).
+Each launch wrapper sits beside its plain PyTorch version:
 
 - :func:`fused_ln_qkv_rope_fwd` replaces ``fused_qkv_kernel``: layer norm with
   fp32 statistics, ``@ W_qkv`` with fp32 accumulation rounded to x's dtype,
@@ -28,9 +27,10 @@ A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel or raises: bf16 activations and weights (the
 weights cast once at load by ``cast_trunk_weights``), fp32 norm, bias and
 layer-scale parameters, head dim 64, widths that are multiples of 64,
-contiguous and 16-byte aligned (the kernels of the TMA body: C a multiple
-of 256, the output width of 128). A launch wrapper is forward only: under
-grad mode an input that requires grad raises, on every device. All five
+contiguous and 16-byte aligned; the layer-normed kernels take C a
+multiple of 256, every kernel an output width that is a multiple of 128.
+A launch wrapper is forward only: under grad mode an input that requires
+grad raises, on every device. All five
 kernels are bound by the bf16 tensor-core rate at the main path's sizes
 (see the source note in the ``.cu`` file).
 
@@ -266,6 +266,8 @@ def fused_proj_residual_fwd(o, x_res, w, b, ls_gamma):
     B, nh, N, d = o.shape
     C = nh * d
     _check_widths(name, head_dim=d, C=C)
+    if C % 128:  # the output's tiles of 128 columns (no pre-pass: any even head count)
+        raise ValueError(f"{name}: C = {C} must be a multiple of 128")
     if tuple(x_res.shape) != (B, N, C) or tuple(w.shape) != (C, C):
         raise ValueError(f"{name}: o {tuple(o.shape)}, x {tuple(x_res.shape)}, "
                          f"w {tuple(w.shape)}")
@@ -274,7 +276,7 @@ def fused_proj_residual_fwd(o, x_res, w, b, ls_gamma):
     y = torch.empty_like(x_res)
     if B and N:
         _kernels.launch(
-            "sfm_fused_proj_residual", o.data_ptr(), x_res.data_ptr(), w.data_ptr(),
+            "sfm_proj_residual_sm90", o.data_ptr(), x_res.data_ptr(), w.data_ptr(),
             b.data_ptr(), ls_gamma.data_ptr(), y.data_ptr(), B, N, nh,
             _kernels.stream_ptr(x_res),
         )

@@ -4,9 +4,9 @@ Port of ``self_supervise_sfm_tpu/ops/resize.py``. The TPU version runs two
 Pallas kernels (a W pass as a per-row interp matmul, then a 2-tap H lerp
 with a fused addend and output cast); on the card one CUDA kernel
 (``csrc/resize.cu``) does both in one pass as a 4-tap gather, reading the
-input once and writing the output once. Its sums differ from the
-interp-matrix matmul only by fp32 rounding. The kernel is bound by memory
-bytes.
+input and the addend once and writing the output once (a thread owns a
+pixel's channels in every image). Its sums differ from the interp-matrix
+matmul only by fp32 rounding. The kernel is bound by memory bytes.
 
 :func:`resize_bilinear_fwd` is the launch wrapper: the plain version
 :func:`resize_bilinear_plain` for a CPU tensor, the kernel for a CUDA

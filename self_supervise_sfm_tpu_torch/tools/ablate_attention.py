@@ -7,9 +7,10 @@ Builds copies of ``csrc/flash_fwd_sm90.cu`` under ``build/ablation_attention/``
 choice of the design undone by a textual patch (each patch must find its
 text, or the script fails), all builds in parallel, and times the K1
 entry at the ViT, frame and global sites of the main path and the K2 entry
-at the reloc site, 20 launches back to back between CUDA events, each beside
-SDPA on the same inputs. Every variant but "no out stores" computes the same
-function and is held against the plain version with phase 2's tolerance.
+at the reloc site, 20 launches back to back between CUDA events
+(``tools/timing.py``), each beside SDPA on the same inputs. Every variant
+but "no out stores" computes the same function and is held against the
+plain version with phase 2's tolerance.
 
 Then a sweep of the shipped build at a constant 924 work tiles (seven rounds
 of 132 blocks) with 1 to 64 key tiles each: time a round = fixed cost of a
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 
 from .. import _kernels
 from ..ops import flash_attention as FA
+from .timing import back_to_back_ms
 
 SOURCE = "flash_fwd_sm90.cu"
 LOG2E = 1.4426950408889634
@@ -116,19 +118,6 @@ def build_all(variants) -> dict:
     return libs
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _launch(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
@@ -164,8 +153,9 @@ def main() -> int:
             torch.cuda.synchronize()
             if name != "no out stores" and float((o.float() - ref.float()).abs().max()) > tol(ref):
                 raise AssertionError(f"{name} at {site}: out of tolerance")
-            rows[name].append(time_ms(call))
-        sdpa.append(time_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None])))
+            rows[name].append(back_to_back_ms(call))
+        sdpa.append(back_to_back_ms(
+            lambda: F.scaled_dot_product_attention(q[None], k[None], v[None])))
     P, nc, frames = 1374, 1525, 5
     q, k, v = (randn(frames, 16, P, 64) for _ in range(3))
     ck, cv = randn(1, 16, nc, 64), randn(1, 16, nc, 64)
@@ -179,10 +169,10 @@ def main() -> int:
         torch.cuda.synchronize()
         if name != "no out stores" and float((o.float() - ref.float()).abs().max()) > tol(ref):
             raise AssertionError(f"{name} at K2: out of tolerance")
-        rows[name].append(time_ms(call))
+        rows[name].append(back_to_back_ms(call))
     kk, vv = torch.cat([ck.expand(frames, -1, -1, -1), k], 2), torch.cat(
         [cv.expand(frames, -1, -1, -1), v], 2)
-    sdpa.append(time_ms(lambda: F.scaled_dot_product_attention(q, kk, vv)))
+    sdpa.append(back_to_back_ms(lambda: F.scaled_dot_product_attention(q, kk, vv)))
     print("ms, 20 launches back to back: K1 ViT (80, 1374) | K1 frame (160, 1374) | "
           "K1 global (16, 6870) | K2 (5, 16, 1374) ctx 1525")
     for name, ts in rows.items():
@@ -195,7 +185,7 @@ def main() -> int:
         n, bh = 128 * k_tiles, 924 // k_tiles
         q, k, v = randn(bh, n, 64), randn(bh, n, 64), randn(bh, n, 64)
         o, lse = torch.empty_like(q), torch.empty(bh, n, device="cuda")
-        t = time_ms(lambda: _launch(shipped.sfm_flash_fwd_bf16(
+        t = back_to_back_ms(lambda: _launch(shipped.sfm_flash_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, n, n,
             scale, stream), "sweep"))
         rounds = bh * k_tiles / 132

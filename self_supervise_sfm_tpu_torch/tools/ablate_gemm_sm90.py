@@ -1,5 +1,5 @@
-"""What each choice of the Hopper GEMM body (LN+QKV+RoPE, LN+QKV, MLP-up,
-MLP-down) is worth.
+"""What each choice of the Hopper GEMM body (LN+QKV+RoPE, LN+QKV, the
+out-projection, MLP-up, MLP-down) is worth.
 
     python3 -m self_supervise_sfm_tpu_torch.tools.ablate_gemm_sm90   # one CUDA card
     python3 -m self_supervise_sfm_tpu_torch.tools.ablate_gemm_sm90 "as shipped" "4 stages"
@@ -7,12 +7,14 @@ MLP-down) is worth.
 Builds copies of ``csrc/gemm_sm90.cu`` under ``build/ablation_gemm_sm90/``
 with one choice of the design undone by a textual patch (each patch must
 find its text, or the script fails; the copies include ``sm90_common.cuh``
-from ``csrc/`` through ``-I``), all builds in parallel, and times the four
+from ``csrc/`` through ``-I``), all builds in parallel, and times the five
 kernels at the frame site (10 x 1374 rows) and the ViT site (5 x 1374 rows,
 the shape of the reloc and global sites too) of the main path, 20 launches
-back to back between CUDA events, beside the library chains (``F.layer_norm``,
-cuBLAS, ``F.gelu``; cuBLAS, scale and add; for LN+QKV(+RoPE) the plain
-version with cuBLAS products) and cuBLAS's bare product on the same inputs.
+back to back between CUDA events (``tools/timing.py``), beside the library
+chains (``F.layer_norm``, cuBLAS, ``F.gelu``; cuBLAS, scale and add; for
+LN+QKV(+RoPE) the plain version with cuBLAS products; for the
+out-projection the head merge, cuBLAS, scale and add) and cuBLAS's bare
+product on the same inputs (the out-projection's on the merged heads).
 Names on the command line pick variants ("as shipped" always runs). A patch
 that takes code out does so by a condition that is never true (a negative
 row count), so the compiler keeps the code around it. Every variant
@@ -53,24 +55,28 @@ import torch.nn.functional as F
 from .. import _kernels
 from ..ops import fused_qkv as FQ
 from .gemm_sm90_tma_store import PATCHES as TMA_STORE
+from .timing import back_to_back_ms
 
 SOURCE = "gemm_sm90.cu"
 C, CH, HEADS, NTOK, EPS = 1024, 4096, 16, 1374, 1e-5
 SITES = {"frame": 10, "vit": 5}  # frames of 1374 rows
-KERNELS = ("qkv_rope", "qkv", "up", "down")
-ENTRIES = ("sfm_ln_qkv_rope_sm90", "sfm_ln_qkv_sm90", "sfm_mlp_up_sm90", "sfm_mlp_down_sm90",
-           "sfm_ln_rows_bf16")
+KERNELS = ("qkv_rope", "qkv", "proj", "up", "down")
+ENTRIES = ("sfm_ln_qkv_rope_sm90", "sfm_ln_qkv_sm90", "sfm_proj_residual_sm90",
+           "sfm_mlp_up_sm90", "sfm_mlp_down_sm90", "sfm_ln_rows_bf16")
 
 NO_EPILOGUE = [
-    ("        epilogue<EP>(p, acc, m0, n0);", "        if (p.M < 0) epilogue<EP>(p, acc, m0, n0);"),
+    ("        epilogue<EP>(p, acc, m0, m_end, n0);",
+     "        if (p.M < 0) epilogue<EP>(p, acc, m0, m_end, n0);"),
     ("        epilogue_qkv<EP>(p, acc, m0, n0);",
      "        if (p.M < 0) epilogue_qkv<EP>(p, acc, m0, n0);"),
 ]
 NO_COPIES = [
     ("          mbar_expect_tx(full, STAGE_BYTES);",
      "          if (p.M < 0) mbar_expect_tx(full, STAGE_BYTES); else mbar_arrive(full);"),
-    ("          tma_load_2d(sa, ma, full, kt * BK, m0);",
-     "          if (p.M < 0) tma_load_2d(sa, ma, full, kt * BK, m0);"),
+    ("            tma_load_3d(sa, ma, full, 0, r0, f * p.heads + kt);",
+     "            if (p.M < 0) tma_load_3d(sa, ma, full, 0, r0, f * p.heads + kt);"),
+    ("            tma_load_2d(sa, ma, full, kt * BK, f * p.frame_rows + r0);",
+     "            if (p.M < 0) tma_load_2d(sa, ma, full, kt * BK, f * p.frame_rows + r0);"),
     ("          tma_load_2d(sa + A_BYTES, mb, full, n0, kt * BK);",
      "          if (p.M < 0) tma_load_2d(sa + A_BYTES, mb, full, n0, kt * BK);"),
     ("          tma_load_2d(sa + A_BYTES + B_ATOM_BYTES, mb, full, n0 + 64, kt * BK);",
@@ -165,19 +171,6 @@ def build_all(variants) -> dict:
     return libs
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _launch(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
@@ -206,6 +199,7 @@ def main() -> int:
     wq = (randn(C, 3 * C) * C**-0.5).bfloat16()
     w1 = (randn(C, CH) * C**-0.5).bfloat16()
     w2 = (randn(CH, C) * CH**-0.5).bfloat16()
+    wp, bp = (randn(C, C) * C**-0.5).bfloat16(), 0.1 * randn(C)
     bq, b1, b2, gamma = 0.1 * randn(3 * C), 0.1 * randn(CH), 0.1 * randn(C), randn(C)
     lw, lb = 1 + 0.1 * randn(C), 0.1 * randn(C)
     qw, qb, kw, kb = 1 + 0.1 * randn(d), 0.1 * randn(d), 1 + 0.1 * randn(d), 0.1 * randn(d)
@@ -219,17 +213,19 @@ def main() -> int:
         x = randn(B, NTOK, C, dtype=torch.bfloat16)
         hn = torch.empty((M, C), dtype=torch.bfloat16, device="cuda")
         h = FQ.fused_mlp_up_plain(x, lw, lb, w1, b1, EPS)
+        o = randn(B, HEADS, NTOK, d, dtype=torch.bfloat16)
         rope_args = (x, lw, lb, wq, bq, qw, qb, kw, kb, cos, sin, HEADS, EPS)
         refs = {"qkv_rope": FQ.fused_ln_qkv_rope_plain(*rope_args),
                 "qkv": FQ.fused_ln_qkv_plain(x, lw, lb, wq, bq, HEADS, EPS),
+                "proj": (FQ.fused_proj_residual_plain(o, x, wp, bp, gamma),),
                 "up": (h,), "down": (FQ.fused_mlp_down_plain(h, x, w2, b2, gamma),)}
         flops = {"qkv_rope": 2.0 * M * C * 3 * C, "qkv": 2.0 * M * C * 3 * C,
-                 "up": 2.0 * M * C * CH, "down": 2.0 * M * C * CH}
+                 "proj": 2.0 * M * C * C, "up": 2.0 * M * C * CH, "down": 2.0 * M * C * CH}
         for name, lib in libs.items():
             q, k, v = (torch.empty((B, HEADS, NTOK, d), dtype=torch.bfloat16, device="cuda")
                        for _ in range(3))
             q2, k2, v2 = (torch.empty_like(q) for _ in range(3))
-            h_out, y = torch.empty_like(h), torch.empty_like(x)
+            h_out, y, yp = torch.empty_like(h), torch.empty_like(x), torch.empty_like(x)
             calls = {
                 "qkv_rope": lambda: _launch(lib.sfm_ln_qkv_rope_sm90(  # noqa: E731
                     x.data_ptr(), lw.data_ptr(), lb.data_ptr(), wq.data_ptr(), bq.data_ptr(),
@@ -240,6 +236,9 @@ def main() -> int:
                     x.data_ptr(), lw.data_ptr(), lb.data_ptr(), wq.data_ptr(), bq.data_ptr(),
                     q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), hn.data_ptr(), B, NTOK, HEADS,
                     EPS, stream), name),
+                "proj": lambda: _launch(lib.sfm_proj_residual_sm90(  # noqa: E731
+                    o.data_ptr(), x.data_ptr(), wp.data_ptr(), bp.data_ptr(), gamma.data_ptr(),
+                    yp.data_ptr(), B, NTOK, HEADS, stream), name),
                 "up": lambda: _launch(lib.sfm_mlp_up_sm90(  # noqa: E731
                     x.data_ptr(), lw.data_ptr(), lb.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                     h_out.data_ptr(), hn.data_ptr(), M, C, CH, EPS, stream), name),
@@ -247,7 +246,8 @@ def main() -> int:
                     h.data_ptr(), x.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
                     y.data_ptr(), M, CH, C, stream), name),
             }
-            outs = {"qkv_rope": (q, k, v), "qkv": (q2, k2, v2), "up": (h_out,), "down": (y,)}
+            outs = {"qkv_rope": (q, k, v), "qkv": (q2, k2, v2), "proj": (yp,), "up": (h_out,),
+                    "down": (y,)}
             for kernel in KERNELS:
                 calls[kernel]()
                 torch.cuda.synchronize()
@@ -259,26 +259,29 @@ def main() -> int:
                         err = float((got.float() - ref.float()).abs().max())
                         if err > tol(ref, n):
                             raise AssertionError(f"{name} {kernel}[{i}] at {site}: error {err}")
-            rows[name][site] = {kernel: time_ms(calls[kernel]) for kernel in KERNELS}
+            rows[name][site] = {kernel: back_to_back_ms(calls[kernel]) for kernel in KERNELS}
         pre = lambda: _launch(libs["as shipped"].sfm_ln_rows_bf16(  # noqa: E731
             x.data_ptr(), lw.data_ptr(), lb.data_ptr(), hn.data_ptr(), M, C, EPS, stream),
             "pre-pass")
         hn_ref = FQ._ln_rows(x.float(), lw, lb, EPS).bfloat16().view(M, C)
+        merged = o.transpose(1, 2).reshape(M, C)
         chains = {
             "qkv_rope": lambda: FQ.fused_ln_qkv_rope_plain(*rope_args, native=True),
             "qkv": lambda: FQ.fused_ln_qkv_plain(x, lw, lb, wq, bq, HEADS, EPS, native=True),
+            "proj": lambda: FQ.fused_proj_residual_plain(o, x, wp, bp, gamma, native=True),
             "up": lambda: F.gelu(F.linear(F.layer_norm(
                 x.float(), (C,), lw, lb, EPS).bfloat16(), w1.t(), b1.bfloat16())),
             "down": lambda: x + F.linear(h, w2.t(), b2.bfloat16()) * gamma.bfloat16(),
         }
         products = {"qkv_rope": lambda: torch.matmul(hn_ref, wq),
                     "qkv": lambda: torch.matmul(hn_ref, wq),
+                    "proj": lambda: torch.matmul(merged, wp),
                     "up": lambda: torch.matmul(hn_ref, w1),
                     "down": lambda: torch.matmul(h.view(M, CH), w2)}
-        yard[site] = dict(prepass=time_ms(pre), flops=flops, M=M,
-                          chain={k: time_ms(f) for k, f in chains.items()},
-                          cublas={k: time_ms(f) for k, f in products.items()})
-        del x, hn, h, refs, hn_ref
+        yard[site] = dict(prepass=back_to_back_ms(pre), flops=flops, M=M,
+                          chain={k: back_to_back_ms(f) for k, f in chains.items()},
+                          cublas={k: back_to_back_ms(f) for k, f in products.items()})
+        del x, hn, h, o, merged, refs, hn_ref
         torch.cuda.empty_cache()
     for site in SITES:
         y_ = yard[site]

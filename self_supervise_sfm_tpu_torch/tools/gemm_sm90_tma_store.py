@@ -164,7 +164,7 @@ PATCHES = [
     ("      if constexpr (is_qkv(EP))\n"
      "        epilogue_qkv<EP>(p, acc, m0, n0);\n"
      "      else\n"
-     "        epilogue<EP>(p, acc, m0, n0);\n"
+     "        epilogue<EP>(p, acc, m0, m_end, n0);\n"
      "    }\n"
      "  }\n"
      "}\n",
@@ -183,7 +183,7 @@ PATCHES = [
      "          if (threadIdx.x % 128 == 0) store_qkv(p, mo, m0, n0, out_smem);\n"
      "        }\n"
      "      } else {\n"
-     "        epilogue<EP>(p, acc, m0, n0);\n"
+     "        epilogue<EP>(p, acc, m0, m_end, n0);\n"
      "      }\n"
      "    }\n"
      "    if (is_qkv(EP) && threadIdx.x % 128 == 0) bulk_wait_all();\n"
@@ -217,5 +217,5 @@ PATCHES = [
      "    return static_cast<int>(cudaErrorInvalidValue);\n"
      "  return launch_gemm<EP>(hn, w, p, stream, mo);"),
     ("  out[2] = which == 3 ? 0 : SMEM_BYTES;",
-     "  out[2] = which == 3 ? 0 : which >= 4 ? SMEM_QKV_BYTES : SMEM_BYTES;"),
+     "  out[2] = which == 3 ? 0 : which == 4 || which == 5 ? SMEM_QKV_BYTES : SMEM_BYTES;"),
 ]

@@ -1,9 +1,10 @@
 """The arithmetic and tile schedule of the Hopper GEMM body (LN+QKV+RoPE,
-LN+QKV, MLP-up, MLP-down), emulated on the CPU and held against the JAX
-Pallas kernels, the JAX reference chains and the port's plain versions.
+LN+QKV, the out-projection, MLP-up, MLP-down), emulated on the CPU and held
+against the JAX Pallas kernels, the JAX reference chains and the port's
+plain versions.
 
-``csrc/gemm_sm90.cu`` runs only on the card. :func:`_qkv`, :func:`_up` and
-:func:`_down` repeat its arithmetic in PyTorch: the layer-norm pre-pass
+``csrc/gemm_sm90.cu`` runs only on the card. :func:`_qkv`, :func:`_proj`,
+:func:`_up` and :func:`_down` repeat its arithmetic in PyTorch: the layer-norm pre-pass
 (fp32 statistics, centred variance, the rows rounded to bf16 before the
 product), fp32 accumulation over K slices of BK = 64 in order, and the
 epilogues' rounding points (``rb(rb(acc) + rb(b))``; then for q and k of
@@ -17,7 +18,10 @@ with the tolerance phase 2 of ``chip_smoke.py`` applies on the card: 2 bf16
 ulps at the largest output, 4 for q and k of LN+QKV+RoPE. Rows are ragged
 (200 and 1374, no multiple of 128; 2 x 1374 for LN+QKV, so that a tile
 crosses a frame boundary), the eps is the ViT's and the aggregator's, and
-one row is all zeros. The QKV epilogue's index mapping on the wgmma
+one row is all zeros. The out-projection's A operand is gathered box by
+box by the kernel's 3-D rule (slice kt of the row tile at row r0 of frame f
+is the box (0, r0, f H + kt) of o, zeros past N), its rows walked frame by
+frame, at 3 frames of 200 rows and one frame of 600. The QKV epilogue's index mapping on the wgmma
 accumulator layout (a quad holds one head's row, RoPE's partner is in the
 same thread) and the persistent tile walk (tile -> row tile, column tile in
 raster groups; a block's tiles shared out between its two consumer
@@ -42,8 +46,9 @@ from self_supervise_sfm_tpu_torch.tools import ablate_gemm_sm90 as ABL
 
 torch.set_num_threads(1)
 
-SOURCE = (Path(__file__).resolve().parents[1] / "self_supervise_sfm_tpu_torch" / "csrc"
-          / "gemm_sm90.cu").read_text()
+CSRC = Path(__file__).resolve().parents[1] / "self_supervise_sfm_tpu_torch" / "csrc"
+SOURCE = (CSRC / "gemm_sm90.cu").read_text()
+COMMON = (CSRC / "sm90_common.cuh").read_text()
 
 
 def _const(name: str) -> str:
@@ -56,12 +61,14 @@ BK, BN, WG_M = int(_const("BK")), int(_const("BN")), int(_const("WG_M"))
 GROUP_M, STAGES, HD = int(_const("GROUP_M")), int(_const("STAGES")), int(_const("HD"))
 PINGPONG = _const("PINGPONG") == "true"
 SMS = 132  # multiprocessors of an H100 SXM: the persistent grid's size
-# rows of the main path's sites (B * N) and the MLP widths
-SITE_ROWS = {"vit": 5 * 1374, "frame": 10 * 1374, "reloc": 5 * 1374, "global": 6870}
+# frames and rows a frame of the main path's sites, their rows (B * N) and
+# the MLP widths
+SITE_SHAPES = {"vit": (5, 1374), "frame": (10, 1374), "reloc": (5, 1374), "global": (1, 6870)}
+SITE_ROWS = {site: b * n for site, (b, n) in SITE_SHAPES.items()}
 C_FULL, CH_FULL = 1024, 4096
 # (K, output columns) of each kernel of the body at full width
 WIDTHS = {"up": (C_FULL, CH_FULL), "down": (CH_FULL, C_FULL), "qkv_rope": (C_FULL, 3 * C_FULL),
-          "qkv": (C_FULL, 3 * C_FULL)}
+          "qkv": (C_FULL, 3 * C_FULL), "proj": (C_FULL, C_FULL)}
 bf16 = torch.bfloat16
 
 
@@ -312,6 +319,161 @@ def test_qkv_zero_row_and_shapes(qkv_cases):
                 assert torch.isfinite(t[0, :, ZERO_ROW].float()).all()
 
 
+# -- the out-projection ------------------------------------------------------------
+
+
+def _proj(o, x, w, b, gamma, bm: int = WG_M):
+    """The out-projection as the kernel computes it: x (B, N, C) + layer-scale
+    of merge_heads(o (B, H, N, 64)) @ w + b. Row tiles of ``bm`` rows walked
+    frame by frame; K slice kt of the tile at row r0 of frame f is the box
+    (0, r0, f H + kt) of o seen as (64, N, B H), zeros past N; fp32
+    accumulators summed over the slices in order; the residual epilogue
+    rb(x + rb(rb(rb(acc) + rb(b)) * rb(gamma))); rows past N not stored.
+    Every stored row is written once (the output starts as NaN)."""
+    B, H, N, d = o.shape
+    C = H * d
+    slices = o.reshape(B * H, N, d)
+    x2 = x.reshape(B * N, C)
+    y = torch.full((B * N, C), float("nan"), dtype=bf16)
+    for f in range(B):
+        for r0 in range(0, N, bm):
+            acc = torch.zeros((bm, C), dtype=torch.float32)
+            for kt in range(H):
+                box = torch.zeros((bm, d), dtype=bf16)
+                rows = slices[f * H + kt, r0:r0 + bm]
+                box[:rows.shape[0]] = rows
+                acc = acc + torch.matmul(box.float(), w[kt * BK:(kt + 1) * BK].float())
+            v = _rb(_rb(acc) + _rb(b))
+            m0, n = f * N + r0, min(bm, N - r0)
+            assert torch.isnan(y[m0:m0 + n].float()).all()
+            y[m0:m0 + n] = (x2[m0:m0 + n].float() + _rb(v[:n] * _rb(gamma))).to(bf16)
+    assert not torch.isnan(y.float()).any()
+    return y.reshape(B, N, C)
+
+
+# (B, H, N): three frames of 200 rows (two tiles each, the second ragged), one
+# frame of 600 rows (five tiles) with four heads (four K slices)
+PROJ_CASES = {"3x200_2heads": (3, 2, 200), "1x600_4heads": (1, 4, 600)}
+
+
+@pytest.fixture(scope="module")
+def proj_cases():
+    out = {}
+    for name, (B, H, N) in PROJ_CASES.items():
+        C = H * HD
+        rng = np.random.default_rng(B * 1000 + N)
+        jo, to = _pair(rng.normal(size=(B, H, N, HD)))
+        jx, tx = _pair(rng.normal(size=(B, N, C)))
+        jw, tw = _pair(rng.normal(scale=C**-0.5, size=(C, C)))
+        b, gm = (0.1 * rng.normal(size=C)).astype(np.float32), rng.normal(size=C).astype(
+            np.float32)
+        tb, tg = torch.from_numpy(b), torch.from_numpy(gm)
+        jargs = (jo, jx, jw.astype(jnp.float32), jnp.asarray(b), jnp.asarray(gm))
+        out[name] = dict(
+            emulation=_proj(to, tx, tw, tb, tg),
+            plain=TFQ.fused_proj_residual_plain(to, tx, tw, tb, tg),
+            pallas=JFQ.fused_proj_kernel(*jargs, block_n=128, interpret=True),
+            reference=JFQ.reference_proj(*jargs),
+        )
+    return out
+
+
+@pytest.mark.parametrize("ref", ["plain", "pallas", "reference"])
+@pytest.mark.parametrize("case", list(PROJ_CASES))
+def test_proj_emulation_matches(proj_cases, case, ref):
+    """The emulated out-projection (3-D boxes, the walk frame by frame)
+    against the port's plain version, the Pallas kernel in interpret mode and
+    the JAX reference chain, within phase 2's 2 ulps."""
+    c = proj_cases[case]
+    _assert_close(c["emulation"], c[ref], _ulps(c[ref], 2), f"out-proj {case} vs {ref}")
+
+
+def _proj_boxes(B: int, N: int, H: int, bm: int = WG_M):
+    """(row tile, frame, r0, the K slices' box coordinates, the stored flat
+    rows of each consumer part) of every row tile, as the producer and the
+    consumers of gemm_sm90.cu compute them for E_PROJ."""
+    frame_tiles = -(-N // bm)
+    out = []
+    for mt in range(B * frame_tiles):
+        f = mt // frame_tiles
+        r0 = (mt - f * frame_tiles) * bm
+        boxes = [(0, r0, f * H + kt) for kt in range(H)]
+        m_end = (f + 1) * N
+        parts = []
+        for part in range(bm // WG_M):
+            m0 = f * N + r0 + part * WG_M
+            parts.append(range(m0, max(m0, min(m0 + WG_M, m_end))))
+        out.append((mt, f, r0, boxes, parts))
+    return out
+
+
+def test_proj_source_follows_the_3d_rule():
+    """The lines of the source that the emulation and the walk mirror."""
+    for line in ("tma_load_3d(sa, ma, full, 0, r0, f * p.heads + kt);",
+                 "const int f = mt / p.frame_tiles, r0 = (mt - f * p.frame_tiles) * BM, "
+                 "n0 = nt * BN;",
+                 "const int f = mt / p.frame_tiles, m_end = (f + 1) * p.frame_rows;",
+                 "const int m0 = f * p.frame_rows + (mt - f * p.frame_tiles) * BM +",
+                 "if (row >= m_end) continue;",
+                 "const int frames = EP == E_PROJ ? p.batch : 1;",
+                 "p.frame_rows = p.M / frames;",
+                 "p.frame_tiles = (p.frame_rows + BM - 1) / BM;",
+                 "p.m_tiles = frames * p.frame_tiles;",
+                 "encode_rows64(&ma, a, 3, p.ntok, HD * 2, p.batch * p.heads, 1, 0, BM)",
+                 "SFM_GEMM_KERNEL(proj_residual_sm90_kernel, E_PROJ)"):
+        assert line in SOURCE, line
+    # the shared encoder: dims (64, N, B H), strides a row and a slice, box
+    # (64, BM, 1), rows past N zero-filled
+    for line in ("const cuuint64_t dims[4] = {64, n, slices, layers};",
+                 "const cuuint64_t strides[3] = {row_bytes, n * row_bytes, layer_bytes};",
+                 "const cuuint32_t box[4] = {64, box_rows, 1, 1};",
+                 "CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE"):
+        assert line in COMMON, line
+
+
+@pytest.mark.parametrize("pingpong", [True, False])
+@pytest.mark.parametrize("site", list(SITE_SHAPES))
+def test_proj_boxes_stay_in_their_frame(site, pingpong):
+    """At the main path's four sites (16 heads), for the shipped ping-pong
+    tiles and the cooperative variant's 256 rows: no box starts at a negative
+    row or past its frame's rows, each box reads one head of its own frame,
+    and the stored rows of the parts cover every row once, each row in the
+    frame of its tile."""
+    B, N = SITE_SHAPES[site]
+    H = C_FULL // HD
+    bm = WG_M if pingpong else 2 * WG_M
+    stored = []
+    for mt, f, r0, boxes, parts in _proj_boxes(B, N, H, bm):
+        assert 0 <= r0 < N and r0 % bm == 0
+        for kt, (c0, c1, c2) in enumerate(boxes):
+            assert (c0, c1) == (0, r0) and c2 == f * H + kt and f * H <= c2 < (f + 1) * H
+        for rows in parts:
+            assert all(f * N <= r < (f + 1) * N for r in rows)
+            stored += list(rows)
+    assert sorted(stored) == list(range(B * N))
+
+
+def test_proj_tiles_and_rounds():
+    """The out-projection's tiles and rounds of 132 multiprocessors as the
+    source's header quotes them: 11 row tiles a frame of 1374 rows."""
+    tiles = {s: b * -(-n // WG_M) * (C_FULL // BN) for s, (b, n) in SITE_SHAPES.items()}
+    assert tiles == {"vit": 440, "frame": 880, "reloc": 440, "global": 432}
+    assert [round(tiles[s] / SMS, 2) for s in ("vit", "frame", "global")] == [3.33, 6.67, 3.27]
+    assert "440 / 880 / 432 tiles" in SOURCE and "3.33 / 6.67 / 3.27 rounds" in SOURCE
+
+
+@pytest.mark.parametrize("heads,d,match", [(3, 64, "multiple of 128"), (8, 128, "head dim 64"),
+                                           (32, 32, "head dim 64")])
+def test_proj_wrapper_refuses_widths_the_body_does_not_take(heads, d, match):
+    """Off the CPU the out-projection wrapper refuses what the TMA body does
+    not take: a head dim other than 64 (a K slice is one head), C no multiple
+    of 128 (the output tiles)."""
+    C = heads * d
+    with pytest.raises(ValueError, match=match):
+        TFQ.fused_proj_residual_fwd(_meta(2, heads, 8, d, dtype=bf16), _meta(2, 8, C, dtype=bf16),
+                                    _meta(C, C, dtype=bf16), _meta(C), _meta(C))
+
+
 # -- the QKV epilogue's index mapping ---------------------------------------------
 
 
@@ -384,11 +546,13 @@ def _tile_coords(t: int, m_tiles: int, n_tiles: int, group: int = GROUP_M):
     return first + r % rows, r // rows
 
 
-def _walk(M: int, nout: int, pingpong: bool = PINGPONG, group: int = GROUP_M):
+def _walk(M: int, nout: int, pingpong: bool = PINGPONG, group: int = GROUP_M, frames: int = 1):
     """(block, warpgroup, block-local index i, row tile, column tile) of every
-    tile a launch computes, as the consumers walk them."""
+    tile a launch computes, as the consumers walk them. The row tiles of
+    each of ``frames`` frames of M / frames rows (the out-projection's B
+    frames; the other kernels' one)."""
     bm = WG_M if pingpong else 2 * WG_M
-    m_tiles, n_tiles = -(-M // bm), nout // BN
+    m_tiles, n_tiles = frames * -(-(M // frames) // bm), nout // BN
     tiles = m_tiles * n_tiles
     grid = min(tiles, SMS)
     out = []
@@ -402,18 +566,20 @@ def _walk(M: int, nout: int, pingpong: bool = PINGPONG, group: int = GROUP_M):
     return out, m_tiles, n_tiles, grid
 
 
-@pytest.mark.parametrize("kernel", ["up", "down", "qkv_rope", "qkv"])
+@pytest.mark.parametrize("kernel", ["up", "down", "qkv_rope", "qkv", "proj"])
 @pytest.mark.parametrize("site", list(SITE_ROWS))
 def test_tile_walk_covers_every_tile_once(site, kernel):
     M = SITE_ROWS[site]
     nout = WIDTHS[kernel][1]
+    # the out-projection walks its rows frame by frame
+    frames = SITE_SHAPES[site][0] if kernel == "proj" else 1
     if kernel.startswith("qkv"):
         # a tile's 128 columns lie in one of q, k, v: two heads
         assert all(nt * BN // C_FULL == ((nt + 1) * BN - 1) // C_FULL
                    for nt in range(nout // BN))
     for pingpong in (True, False):
         for group in sorted({GROUP_M, 1, 8}):
-            walk, m_tiles, n_tiles, _ = _walk(M, nout, pingpong, group)
+            walk, m_tiles, n_tiles, _ = _walk(M, nout, pingpong, group, frames)
             owners = {}
             for block, cw, i, mt, nt in walk:
                 owners.setdefault((mt, nt), set()).add((block, i))
@@ -428,22 +594,28 @@ def test_tile_walk_covers_every_tile_once(site, kernel):
             assert set(count.values()) == {1 if pingpong else 2}
 
 
-@pytest.mark.parametrize("kernel", ["up", "down", "qkv_rope", "qkv"])
+@pytest.mark.parametrize("kernel", ["up", "down", "qkv_rope", "qkv", "proj"])
 def test_ring_positions_and_turns(kernel):
     """The producer fills the ring tile after tile, K slice after K slice;
     a consumer starts the block's tile i at ring position i * k_tiles, i.e.
     stage (i k) % STAGES of phase (i k / STAGES) & 1. The ping-pong turns:
     the block's tile i is issued in warpgroup i % 2's turn, passed on only
     when tile i + 1 exists, so every arrival on a named barrier meets one
-    wait. At the main path's four sites."""
+    wait. At the main path's four sites (the out-projection's 16 K slices
+    with its row tiles walked frame by frame)."""
     K, nout = WIDTHS[kernel]
     k_tiles = K // BK
+    if kernel == "proj":
+        assert k_tiles == 16
+        for B, N in sorted(set(SITE_SHAPES.values())):
+            _check_ring(B * N, nout, k_tiles, B)
+        return
     for M in sorted(set(SITE_ROWS.values())):
         _check_ring(M, nout, k_tiles)
 
 
-def _check_ring(M: int, nout: int, k_tiles: int) -> None:
-    walk, _, _, grid = _walk(M, nout, True)
+def _check_ring(M: int, nout: int, k_tiles: int, frames: int = 1) -> None:
+    walk, _, _, grid = _walk(M, nout, True, frames=frames)
     for block in range(grid):
         mine = sorted(i for b, _, i, _, _ in walk if b == block)
         # the producer's (stage, phase) for each slice, in its order
