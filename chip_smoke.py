@@ -8,10 +8,10 @@ Phases, each of which must pass (any failure exits non-zero):
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    kernel in ``self_supervise_sfm_tpu_torch/csrc`` with ``nvcc`` for sm_90a;
    the registers, spills and shared memory of the Hopper attention body's
-   kernels (K1, K2, K2p) and of the Hopper GEMM body's (MLP-up, MLP-down,
-   the probe, the layer-norm pre-pass, LN+QKV+RoPE, LN+QKV, the
-   out-projection), and any ptxas advisory that wgmma was serialised
-   (C7518);
+   kernels (K1, K2, K2p), of the Hopper backward body's (B9's dq and dk/dv)
+   and of the Hopper GEMM body's (MLP-up, MLP-down, the probe, the
+   layer-norm pre-pass, LN+QKV+RoPE, LN+QKV, the out-projection), and any
+   ptxas advisory that wgmma was serialised (C7518);
 2. the GEMM body's operand layouts alone (``gemm_probe``: one tile, then
    ragged rows and a K loop, against an fp32 matmul); each of the twelve
    kernels at the shapes of the paths below, held against its plain
@@ -26,7 +26,8 @@ Phases, each of which must pass (any failure exits non-zero):
    pre-pass of LN+QKV(+RoPE) and MLP-up alone; K3's rate on its bound's
    bytes beside the most its back-to-back time lets it move, and K3 at the
    edges of its thread mapping (4 and 8 channels a thread, ragged pixel
-   counts);
+   counts); B9 at the edges of its tiling and at the train step's sites,
+   a repeat bit-equal, the pair (dq + dk/dv) against SDPA's backward;
 3. the full-width joint forward: ViT-L/14 + 24 aggregator layers at 518 px,
    bf16 trunk and fp32 heads, 5 anchors + the same 5 images as queries,
    rank 300, random weights from a seeded generator, every trunk block on
@@ -35,7 +36,10 @@ Phases, each of which must pass (any failure exits non-zero):
    PyTorch path must agree with it (within the bf16 envelope that an fp32
    forward measures) and give finite poses and point maps. The path with
    only the attention and resize kernels on (the fused block kernels off)
-   is timed in the same run;
+   is timed in the same run. The default configuration (``make_config()``:
+   fp32, ``attn_impl="auto"``) runs once at the same width: no attention or
+   fused block kernel may launch (they take bf16 only), and it must agree
+   with the fp32 plain forward to fp32 rounding;
 4. two-phase serving at the same width and with the same weights:
    ``build_scene_cache`` of the 5 anchors, then ``reloc`` (full heads and
    ``fast_reloc``) of the 5 images against the cache, with launch counts
@@ -55,7 +59,7 @@ Phases, each of which must pass (any failure exits non-zero):
    four steps (the first at learning rate 0), finite losses, nonzero trunk
    and camera gradients, untouched DPT heads, the gradients against the
    plain path's within twice the bf16-vs-fp32 envelope, times, peak memory
-   and a profile of one step.
+   and a profile of one step, with B9's device ms a step.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2;
 ``--train-only`` runs phase 5 alone after the build (its launch counts are
@@ -120,8 +124,8 @@ _KERNEL_CLASSES = (
     ("fused_mlp_down", ("mlp_down_sm90_kernel",)),
     ("ln_rows (pre-pass of LN+QKV(+RoPE) and MLP-up)", ("ln_rows_kernel",)),
     ("flash_fwd (K1)", ("flash_fwd_kernel",)),
-    ("flash_bwd_dq (B9)", ("flash_bwd_dq_kernel",)),
-    ("flash_bwd_dkv (B9)", ("flash_bwd_dkv_kernel",)),
+    ("flash_bwd_dq (B9)", ("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_reloc_kernel")),
+    ("flash_bwd_dkv (B9)", ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_reloc_kernel")),
     ("frame_ctx_fwd (K2)", ("frame_ctx_fwd_kernel",)),
     ("frame_ctx_kv2_fwd (K2p)", ("frame_ctx_kv2_fwd_kernel",)),
     ("flash_fwd_reloc (K1m)", ("flash_fwd_reloc_kernel",)),
@@ -221,8 +225,8 @@ def print_build_log(log: str) -> None:
 
 def print_sm90_build() -> None:
     """Registers a thread at launch, spills and dynamic shared memory of the
-    Hopper attention and GEMM bodies' kernels as the runtime reports them,
-    and the setmaxnreg counts they were built with."""
+    Hopper attention, backward and GEMM bodies' kernels as the runtime
+    reports them, and the setmaxnreg counts they were built with."""
     import ctypes
 
     from self_supervise_sfm_tpu_torch import _kernels
@@ -254,6 +258,16 @@ def print_sm90_build() -> None:
               f"{info[4]} x {info[5]}, {'ping-pong' if info[8] else 'cooperative'}, raster "
               f"groups of {info[9]} row tiles, setmaxnreg {info[6]} (producer) / {info[7]} "
               f"(consumers)")
+    for which, name in enumerate(("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")):
+        info = (ctypes.c_int * 8)()
+        rc = lib.sfm_flash_bwd_sm90_info(which, info)
+        if rc != 0:
+            raise RuntimeError(f"sfm_flash_bwd_sm90_info({which}): CUDA error {rc}")
+        print(f"  {name}: {info[0]} registers a thread at launch, {info[1]} local bytes, "
+              f"{info[2]} bytes of dynamic shared memory, {info[3]} stages of {info[5]} "
+              f"{'keys' if which == 0 else 'q rows'}, {info[4]} "
+              f"{'q rows' if which == 0 else 'keys'} a work tile, setmaxnreg {info[6]} "
+              f"(producer) / {info[7]} (consumers)")
     advisories = [ln.strip() for ln in _kernels.build_log.splitlines() if "C7518" in ln]
     print(f"  ptxas wgmma serialisation advisories (C7518): {advisories or 'none'}")
 
@@ -801,16 +815,19 @@ TRAIN_FRAMES = 2  # frames a scene on the train step (bench.py:bench_train's S)
 
 def check_backward_kernels(randn, ulps):
     """Phase 2, the two B9 kernels (dq; dk/dv) at the train step's shapes:
-    the ViT, frame and global sites, the two calls of the frame-context
-    split (own frame, and the broadcast context with an lse cotangent), and
-    the RelocMask variant at reloc layer 0's shape. Inputs: random q, k, v
-    and do, with o and lse from the forward kernel. Held against
-    ``flash_bwd_plain``: bf16 outputs, kernel and plain version recompute p
-    and ds in fp32 with other summation orders and round ds, p and the
-    result to bf16, so the tolerance is 4 ulps at the largest |grad| of each
-    output. Timed beside the plain backward (all three gradients) and the
-    yardstick ``torch.autograd.grad`` through SDPA at the same shape (its
-    forward run once beforehand, so only the backward is timed)."""
+    the ViT, frame and global sites and the two calls of the frame-context
+    split (own frame, and the broadcast context with an lse cotangent) on
+    the Hopper backward body, and the RelocMask forms on the first body at
+    reloc layer 0's shape. Inputs: random q, k, v and do, with o and lse from
+    the forward kernel. Held against ``flash_bwd_plain``: bf16 outputs,
+    kernel and plain version recompute p and ds in fp32 with other summation
+    orders and round ds, p and the result to bf16, so the tolerance is 4 ulps
+    at the largest |grad| of each output. A second backward at the global
+    site must be bit-equal to the first (no atomics). Timed a call and 20
+    launches back to back beside the plain backward (all three gradients)
+    and the yardstick ``torch.autograd.grad`` through SDPA at the same shape
+    (its forward run once beforehand, so only the backward is timed), whose
+    time the pair (dq + dk/dv) is divided by."""
     import torch
     import torch.nn.functional as F
 
@@ -828,6 +845,21 @@ def check_backward_kernels(randn, ulps):
              ("split context", S * H, P, nc, True, None),
              ("reloc layer 0, RelocMask", H, S * P, nc + S * P, False,
               RelocMask(nc, P, S))]
+    # the Hopper body at the edges of its tiling first: one q row (against
+    # three keys: with one key every gradient is 0 up to rounding noise, no
+    # scale for an ulp tolerance), ragged q and key tiles on both sides, fewer keys than q rows, a
+    # second warpgroup with no row inside nq; with and without dlse
+    for bh, nq, nk, with_dlse in ((2, 1, 3, False), (3, 130, 77, True), (2, 257, 130, False),
+                                  (1, 200, 333, True), (2, 64, 64, False)):
+        q, do, k, v = randn(bh, nq, d), randn(bh, nq, d), randn(bh, nk, d), randn(bh, nk, d)
+        o, lse = FA.flash_fwd(q, k, v)
+        dlse = randn(bh, nq, dtype=torch.float32) if with_dlse else None
+        grads = FA.flash_bwd(q, k, v, o, lse, do, dlse)
+        torch.cuda.synchronize()
+        refs = FA.flash_bwd_plain(q, k, v, o, lse, do, dlse)
+        for label, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            _check(f"flash_bwd edge ({bh}, {nq}, {nk}){' dlse' if with_dlse else ''} {label}",
+                   float((g.float() - r.float()).abs().max()), ulps(r, 4))
     rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
     for site, bh, nq, nk, with_dlse, mask in sites:
         q, do = randn(bh, nq, d), randn(bh, nq, d)
@@ -841,6 +873,13 @@ def check_backward_kernels(randn, ulps):
         for label, g, r in zip(("dq", "dk", "dv"), grads, refs):
             errs[label] = float((g.float() - r.float()).abs().max())
             _check(f"flash_bwd[{site}] {label} {tuple(g.shape)}", errs[label], ulps(r, 4))
+        if site == "global":
+            again = FA.flash_bwd(q, k, v, o, lse, do, dlse, mask)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError("flash_bwd[global]: a second backward is not bit-equal")
+            print("  flash_bwd[global]: a second backward bit-equal to the first")
+            del again
         delta = FA._delta(o, do, dlse).contiguous()
         pairs = nq * nk if mask is None else nq * (nc + P)  # allowed pairs a head
         io = (2 * q.numel() + 2 * k.numel()) * 2 + 2 * lse.numel() * 4
@@ -848,33 +887,41 @@ def check_backward_kernels(randn, ulps):
         attn_mask = None if mask is None else mask.materialize("cuda")
         out = F.scaled_dot_product_attention(qm, km, vm, attn_mask=attn_mask)
         dom = do.view(out.shape)
-        library = _time_ms(lambda: torch.autograd.grad(out, (qm, km, vm), dom,
-                                                       retain_graph=True))
+        sdpa_bwd = lambda: torch.autograd.grad(out, (qm, km, vm), dom,  # noqa: E731
+                                               retain_graph=True)
         plain = _time_ms(lambda: FA.flash_bwd_plain(q, k, v, o, lse, do, dlse, mask),
                          reps=3, warmup=1)
-        common = dict(site=site, shape=[bh, nq, nk, d], plain_ms=plain, library_ms=library,
+        common = dict(site=site, shape=[bh, nq, nk, d], plain_ms=plain,
+                      library_ms=_time_ms(sdpa_bwd),
+                      library_back_to_back_ms=_back_to_back_ms(sdpa_bwd),
                       masked=mask is not None)
+        dq_fn = lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, mask)  # noqa: E731
+        dkv_fn = lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, mask)  # noqa: E731
         b_dq, by_dq = _bound_ms(3 * 2.0 * bh * pairs * d, io + q.numel() * 2)
         rows["flash_bwd_dq"].append(dict(
             common, max_abs_err=errs["dq"], bound_ms=b_dq, bound_by=by_dq,
-            ms=_time_ms(lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, mask))))
+            ms=_time_ms(dq_fn), back_to_back_ms=_back_to_back_ms(dq_fn)))
         b_kv, by_kv = _bound_ms(4 * 2.0 * bh * pairs * d, io + 2 * k.numel() * 2)
         rows["flash_bwd_dkv"].append(dict(
             common, max_abs_err=max(errs["dk"], errs["dv"]), bound_ms=b_kv, bound_by=by_kv,
-            ms=_time_ms(lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, mask))))
+            ms=_time_ms(dkv_fn), back_to_back_ms=_back_to_back_ms(dkv_fn)))
         del q, k, v, do, o, lse, grads, refs, out, qm, km, vm
         torch.cuda.empty_cache()
     results = []
     for name, line in (("flash_bwd_dq", 332), ("flash_bwd_dkv", 349)):
         ss = rows[name]
         for s_ in ss:
-            print(f"  {name}[{s_['site']}] {s_['shape']}: kernel {s_['ms']:.4f} ms, bound "
-                  f"{s_['bound_ms']:.4f} ms ({s_['bound_by']}), plain backward "
-                  f"{s_['plain_ms']:.4f} ms, SDPA backward {s_['library_ms']:.4f} ms")
+            print(f"  {name}[{s_['site']}] {s_['shape']}: kernel {s_['ms']:.4f} ms, b2b "
+                  f"{s_['back_to_back_ms']:.4f} ms, bound {s_['bound_ms']:.4f} ms "
+                  f"({s_['bound_by']}, {s_['bound_ms'] / s_['back_to_back_ms']:.3f} of it b2b, "
+                  f"{s_['bound_ms'] / s_['back_to_back_ms'] * PEAK_BF16_FLOPS / 1e12:.0f} "
+                  f"TFLOP/s), plain backward {s_['plain_ms']:.4f} ms")
         path = [s_ for s_ in ss if not s_["masked"]]
         results.append(dict(
             name=name, route="cuda",
-            source="self_supervise_sfm_tpu_torch/csrc/flash_attention.cu",
+            source="self_supervise_sfm_tpu_torch/csrc/flash_bwd_sm90.cu",
+            # the RelocMask form (0 launches on every path) on the first body
+            masked_source="self_supervise_sfm_tpu_torch/csrc/flash_attention.cu",
             replaces=f"self_supervise_sfm_tpu/ops/flash_attention.py:{line}",
             # one call at each unmasked site of the train step; plain_ms and
             # library_ms compute all three gradients
@@ -882,6 +929,13 @@ def check_backward_kernels(randn, ulps):
             **{k: sum(s_[k] for s_ in path)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             bound_by=path[-1]["bound_by"], sites=ss))
+    # the pair against SDPA's whole backward, a call and back to back
+    for a, b in zip(rows["flash_bwd_dq"], rows["flash_bwd_dkv"]):
+        call, b2b = a["ms"] + b["ms"], a["back_to_back_ms"] + b["back_to_back_ms"]
+        print(f"  flash_bwd pair[{a['site']}]: {call:.4f} ms a call, {b2b:.4f} ms b2b; SDPA "
+              f"backward {a['library_ms']:.4f} / {a['library_back_to_back_ms']:.4f} ms; pair / "
+              f"SDPA {call / a['library_ms']:.2f} a call, {b2b / a['library_back_to_back_ms']:.2f} "
+              f"b2b")
     return results
 
 
@@ -986,6 +1040,20 @@ def run_forward(gen):
         if not ok:
             failures.append(what)
 
+    # the default configuration, fp32 with attn_impl "auto": the attention
+    # and fused block kernels take bf16 only, so every site runs dense, as
+    # the fp32 plain path does; K3 takes the fp32 heads' final upsample
+    cfg_default = M.make_config()
+    before = {k: w.launches for k, w in wrappers.items()}
+    dflt = fwd(cfg_default, p32)
+    torch.cuda.synchronize()
+    n_default = {k: w.launches - before[k] for k, w in wrappers.items()}
+    print(f"  launches in one forward of the default configuration (fp32, auto): {n_default}")
+    want = {**dict.fromkeys(wrappers, 0), "resize_bilinear": launches["resize_bilinear"]}
+    if n_default != want:
+        raise AssertionError(f"default configuration launch counts {n_default}, "
+                             f"expected {want}")
+
     shapes = {"extrinsic": (1, 5, 3, 4), "intrinsic": (1, 5, 3, 3),
               "point_map": (1, 5, IMG, IMG, 3), "xyz_cnf": (1, 5, IMG, IMG),
               "depth_map": (1, 5, IMG, IMG, 1), "dpt_cnf": (1, 5, IMG, IMG),
@@ -1010,6 +1078,30 @@ def run_forward(gen):
 
     def rel(a, b):
         return float((a.float() - b.float()).norm() / b.float().norm())
+
+    # the default configuration against the fp32 plain path: one route, so
+    # agreement to fp32 rounding (rel-RMS 1e-5) in the trunk and the poses;
+    # the depth and point maps (K3 against the einsum upsample, both fp32)
+    # on the logit scale within phase 3's 1e-3, where both are finite
+    td, _, cd = agg(cfg_default, p32)
+    same = all(torch.equal(td[li], tf[li]) for li in cfg.aggregator.intermediate_layer_idx)
+    for name, a, b in ([(f"tap {li}", td[li], tf[li])
+                        for li in cfg.aggregator.intermediate_layer_idx]
+                       + [("anchor cam tokens", cd, cf)]
+                       + [(k, dflt[k], f32[k]) for k in ("extrinsic", "intrinsic", "cam_tokens")]):
+        err = rel(a, b)
+        print(f"  default configuration {name}: vs the fp32 plain path rel-RMS {err:.4e} "
+              f"(tolerance 1e-5)")
+        expect(err <= 1e-5, f"default configuration {name}: {err} over 1e-5")
+    print(f"  default configuration trunk taps bit-equal to the fp32 plain path's: {same}")
+    for k in ("depth_map", "point_map"):
+        ya, yb = _logit(k, dflt[k].float()), _logit(k, f32[k].float())
+        both = torch.isfinite(ya) & torch.isfinite(yb)
+        err = float(((ya - yb).abs() / yb.abs().clamp(min=1.0))[both].max())
+        print(f"  default configuration {k}: max logit error / max(|logit|, 1) {err:.4e} "
+              f"(tolerance 1e-3), finite share {float(both.float().mean()):.6f}")
+        expect(err <= 1e-3, f"default configuration {k}: {err} over 1e-3")
+    del dflt, td, cd
 
     pairs = [(f"tap {li}", tk[li], tp[li], tf[li])
              for li in cfg.aggregator.intermediate_layer_idx]
@@ -1615,6 +1707,12 @@ def run_train():
     step_s = statistics.median(times)
     print("  profile of one train step (every kernel on):")
     profile = profile_forward(lambda: step(state, batch, indices(4)), label="train step")
+    b9 = None
+    if profile["measured"]:
+        b9 = {k: profile["classes_ms"][k] for k in ("flash_bwd_dq (B9)", "flash_bwd_dkv (B9)")}
+        print(f"  B9 device ms a step: dq {b9['flash_bwd_dq (B9)']:.2f}, dk/dv "
+              f"{b9['flash_bwd_dkv (B9)']:.2f}, both {sum(b9.values()):.2f} (of device busy "
+              f"{profile['busy_ms']:.2f})")
     print(f"  train step: {step_s * 1e3:.2f} ms median of {len(times)} "
           f"({[round(t * 1e3, 2) for t in times]}), {1 / step_s:.4f} steps/s, "
           f"peak memory {peak_gb:.2f} GB")
@@ -1624,7 +1722,7 @@ def run_train():
         kernel_launches_gradient_eval=n_kernel,
         metrics=[{k: float(x) for k, x in m.items()} for m in metrics],
         gradients=grads, remat=remat, loss_kernel=float(loss_k), loss_plain=float(loss_p),
-        loss_f32=float(loss_f), profile=profile)
+        loss_f32=float(loss_f), profile=profile, b9_device_ms=b9)
 
 
 def main() -> int:

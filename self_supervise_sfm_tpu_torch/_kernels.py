@@ -41,11 +41,17 @@ _SIGNATURES: Dict[str, List] = {
     "sfm_flash_fwd_reloc_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # the layer stride of the stacked cache is a 64-bit element count
     "sfm_frame_ctx_kv2_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _F, _P],
-    # q, k, v, do, lse, delta, outputs; bh, nq, nk, n_ctx, frame_size, masked
-    "sfm_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 6 + [_F, _F, _P],
-    "sfm_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
+    # B9 on the Hopper backward body: q, k, v, do, lse, delta, outputs; bh,
+    # nq, nk; scale * log2(e), scale
+    "sfm_flash_bwd_dq_sm90": [_P] * 7 + [_I] * 3 + [_F, _F, _P],
+    "sfm_flash_bwd_dkv_sm90": [_P] * 8 + [_I] * 3 + [_F, _F, _P],
+    # B9 under a RelocMask: the same, then bh, nq, nk, n_ctx, frame_size
+    "sfm_flash_bwd_dq_reloc_bf16": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
+    "sfm_flash_bwd_dkv_reloc_bf16": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
     # which kernel of the sm90 attention body (0 K1, 1 K2, 2 K2p), int[8] out
     "sfm_attention_sm90_info": [_I, _P],
+    # which kernel of the sm90 backward body (0 dq, 1 dk/dv), int[8] out
+    "sfm_flash_bwd_sm90_info": [_I, _P],
     "sfm_resize_bilinear_ac": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # LN+QKV(+RoPE), the out-projection and the MLP pair on the wgmma / TMA
     # GEMM body (gemm_sm90.cu): the layer-normed ones take an (M, C) bf16

@@ -1,16 +1,17 @@
-// Flash-attention forward under a RelocMask (K1m) and backward (B9: the dq
-// and dk/dv kernels, each with its RelocMask variant), for Hopper (sm_90a),
-// bf16 in, fp32 softmax state, head dim 64.
+// Flash-attention forward (K1m) and backward (B9m: the dq and dk/dv
+// kernels) under a RelocMask, for Hopper (sm_90a), bf16 in, fp32 softmax
+// state, head dim 64, on the simple first body below.
 //
 // Replaces the Pallas TPU kernels
 //   K1m: self_supervise_sfm_tpu/ops/flash_attention.py  _flash_fwd / _kernel
 //        with mask=RelocMask
-//   B9:  self_supervise_sfm_tpu/ops/flash_attention.py  _flash_bwd's two
-//        pallas_calls, _dq_kernel and _dkv_kernel
-// The unmasked forward (K1) and the [context | own frame] attention (K2, and
-// K2p on the kv2 cache) moved to flash_fwd_sm90.cu, one body redesigned for
-// Hopper (TMA ring, wgmma, warp specialisation). K1m and B9 keep the simple
-// first body below; their redesigns are queued.
+//   B9m: self_supervise_sfm_tpu/ops/flash_attention.py  _flash_bwd's two
+//        pallas_calls, _dq_kernel and _dkv_kernel, with mask=RelocMask
+// The unmasked forms moved to bodies redesigned for Hopper (TMA ring,
+// wgmma, warp specialisation): K1, K2 and K2p to flash_fwd_sm90.cu, the
+// unmasked B9 kernels to flash_bwd_sm90.cu. No entry point launches the
+// masked forms (the train step and serving reach [ctx | own] through the
+// frame-context split and the kv2 layout); their redesigns are queued.
 //
 // K1m computes what _kernel computes under the mask: an online softmax in the
 // log2 domain (exp2f), fp32 running max / denominator / accumulator, p cast to
@@ -32,8 +33,7 @@
 // round trip for P). No cp.async/TMA pipelining and no wgmma, so it reaches
 // only a fraction of the tensor-core rate.
 //
-// B9, the backward (replaces _flash_bwd's two pallas_calls, _dq_kernel and
-// _dkv_kernel, with or without a RelocMask): both kernels recompute
+// B9m, the masked backward: both kernels recompute
 // p = exp2(s * scale * log2(e) - lse * log2(e)) from the saved natural-log
 // lse (0 where masked or out of bounds) and ds = p * (do v^T - delta) *
 // scale, with delta = rowsum(do * o) - dlse computed in PyTorch beforehand.
@@ -52,11 +52,11 @@
 // bf16 before their products, as the TPU kernels do. Guards as on the TPU:
 // ragged tiles are consumed unpadded; out-of-bounds K/V rows load as zeros
 // in the dq kernel, out-of-bounds q-side rows (q, do, lse, delta) as zeros
-// in the dk/dv kernel, and p is zero-selected on key and q validity; a
-// RelocMask block skips tiles no pair of its rows and keys can see.
+// in the dk/dv kernel, and p is zero-selected on key and q validity and on
+// the mask; a block skips tiles no pair of its rows and keys can see.
 // Bound on an H100: operations. The dq kernel does 3 and the dk/dv kernel 4
-// products of 2*Nq*Nk*d FLOPs (both recompute S and dP), 3.5x the forward.
-// Same simple design as K1m: mma.sync m16n8k16, one tile in flight,
+// products of 2*Nq*Nk*d FLOPs over the allowed pairs (both recompute S and
+// dP). Same simple design as K1m: mma.sync m16n8k16, one tile in flight,
 // transposed tiles stored element by element.
 
 #include <cuda_runtime.h>
@@ -305,7 +305,7 @@ flash_fwd_reloc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   finalize(st, o + bh * nq * D, lse + bh * nq, row0, nq);
 }
 
-// -- B9: flash backward -------------------------------------------------------
+// -- B9m: flash backward under a RelocMask -------------------------------------
 
 // dq kernel tiles: K row-major (B of S = Q K^T), V row-major (B of
 // dP = dO V^T), K transposed (B of dQ = dS K).
@@ -365,15 +365,14 @@ __device__ __forceinline__ void c_to_a(const float (&lo)[4], const float (&hi)[4
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-// grid (ceil(nq / BQ), BH). MASKED: keys are [n_ctx context | frames of
+// grid (ceil(nq / BQ), BH). Keys are [n_ctx context | frames of
 // frame_size]; row r sees the context and its own frame.
-template <bool MASKED>
 __global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int nq, int nk, int n_ctx,
-                    int frame_size, float scale_log2, float scale) {
+flash_bwd_dq_reloc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int nq, int nk, int n_ctx,
+                          int frame_size, float scale_log2, float scale) {
   __shared__ __align__(16) DqSmem sm;
   const size_t bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
@@ -391,26 +390,19 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = row0 + g + 8 * r;
     lse2[r] = row < nq ? lse[bh * nq + row] * LOG2E : 0.f;
     dl[r] = row < nq ? delta[bh * nq + row] : 0.f;
-    if constexpr (MASKED) {
-      mk.lo[r] = n_ctx + (row / frame_size) * frame_size;
-      mk.hi[r] = mk.lo[r] + frame_size;
-    }
+    mk.lo[r] = n_ctx + (row / frame_size) * frame_size;
+    mk.hi[r] = mk.lo[r] + frame_size;
   }
   float acc[D / 8][4];
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  int own_lo = 0, own_hi = 0;
-  if constexpr (MASKED) {
-    own_lo = n_ctx + (q0 / frame_size) * frame_size;
-    own_hi = n_ctx + ((q1 - 1) / frame_size + 1) * frame_size;
-  }
+  const int own_lo = n_ctx + (q0 / frame_size) * frame_size;
+  const int own_hi = n_ctx + ((q1 - 1) / frame_size + 1) * frame_size;
   const bf16* kb = k + bh * nk * D;
   const bf16* vb = v + bh * nk * D;
   for (int k0 = 0; k0 < nk; k0 += BK) {
-    if constexpr (MASKED) {
-      const int k1 = min(k0 + BK, nk);
-      if (!(k0 < n_ctx || (k0 < own_hi && k1 > own_lo))) continue;  // uniform
-    }
+    const int k1 = min(k0 + BK, nk);
+    if (!(k0 < n_ctx || (k0 < own_hi && k1 > own_lo))) continue;  // uniform
     __syncthreads();
     load_pair_tile(kb, vb, k0, nk, sm.k, sm.v, sm.kt, nullptr);
     __syncthreads();
@@ -436,8 +428,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + nt * 8 + t * 2 + (e & 1);
         const int r = e >> 1;
-        bool ok = key < nk;
-        if constexpr (MASKED) ok = ok && (key < mk.n_ctx || (key >= mk.lo[r] && key < mk.hi[r]));
+        const bool ok =
+            key < nk && (key < mk.n_ctx || (key >= mk.lo[r] && key < mk.hi[r]));
         const float p = ok ? exp2f(__fmul_rn(s[nt][e], scale_log2) - lse2[r]) : 0.f;
         s[nt][e] = p * (dp[nt][e] - dl[r]) * scale;
       }
@@ -469,13 +461,12 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // grid (ceil(nk / BK), BH). Each warp owns 16 keys; its tiles are transposed
 // (rows = keys, columns = q rows of the staged tile).
-template <bool MASKED>
 __global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int nq, int nk,
-                     int n_ctx, int frame_size, float scale_log2, float scale) {
+flash_bwd_dkv_reloc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int nq, int nk,
+                           int n_ctx, int frame_size, float scale_log2, float scale) {
   __shared__ __align__(16) DkvSmem sm;
   const size_t bh = blockIdx.y;
   const int k0 = blockIdx.x * BK;
@@ -494,7 +485,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int key = krow0 + g + 8 * r;
     kok[r] = key < nk;
     kctx[r] = key < n_ctx;
-    kframe[r] = (MASKED && key >= n_ctx) ? (key - n_ctx) / frame_size : -1;
+    kframe[r] = key >= n_ctx ? (key - n_ctx) / frame_size : -1;
   }
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
@@ -505,12 +496,10 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + bh * nq * D;
   const bf16* db = dout + bh * nq * D;
   for (int q0 = 0; q0 < nq; q0 += BQ) {
-    if constexpr (MASKED) {
-      const int q1 = min(q0 + BQ, nq);
-      const int own_lo = n_ctx + (q0 / frame_size) * frame_size;
-      const int own_hi = n_ctx + ((q1 - 1) / frame_size + 1) * frame_size;
-      if (!(k0 < n_ctx || (k0 < own_hi && k1 > own_lo))) continue;  // uniform
-    }
+    const int q1 = min(q0 + BQ, nq);
+    const int own_lo = n_ctx + (q0 / frame_size) * frame_size;
+    const int own_hi = n_ctx + ((q1 - 1) / frame_size + 1) * frame_size;
+    if (!(k0 < n_ctx || (k0 < own_hi && k1 > own_lo))) continue;  // uniform
     __syncthreads();
     load_pair_tile(qb, db, q0, nq, sm.q, sm.dout, sm.qt, sm.dot);
     for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
@@ -519,7 +508,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       sm.lse2[i] = ok ? lse[bh * nq + row] * LOG2E : 0.f;
       sm.delta[i] = ok ? delta[bh * nq + row] : 0.f;
       // -1 marks a row past nq; frames are >= 0
-      sm.frame[i] = ok ? (MASKED ? row / frame_size : 0) : -1;
+      sm.frame[i] = ok ? row / frame_size : -1;
     }
     __syncthreads();
     float s[BQ / 8][4], dp[BQ / 8][4];  // S^T and dP^T: 16 keys x 64 q rows
@@ -545,8 +534,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int col = nt * 8 + t * 2 + (e & 1);
         const int r = e >> 1;
         const int fr = sm.frame[col];
-        bool ok = kok[r] && fr >= 0;
-        if constexpr (MASKED) ok = ok && (kctx[r] || kframe[r] == fr);
+        const bool ok = kok[r] && fr >= 0 && (kctx[r] || kframe[r] == fr);
         const float p = ok ? exp2f(__fmul_rn(s[nt][e], scale_log2) - sm.lse2[col]) : 0.f;
         s[nt][e] = p;
         dp[nt][e] = p * (dp[nt][e] - sm.delta[col]) * scale;
@@ -604,71 +592,39 @@ extern "C" int sfm_flash_fwd_reloc_bf16(const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B9. masked != 0 selects the RelocMask variant (nk == n_ctx + nq, the q
-// rows frames of frame_size). delta = rowsum(do * o) - dlse, fp32 (bh, nq).
-static bool bwd_args_ok(int nq, int nk, int n_ctx, int frame_size, int masked) {
-  return !masked || (frame_size > 0 && n_ctx >= 0 && nq % frame_size == 0 &&
-                     nk == n_ctx + nq);
+// B9m. nk == n_ctx + nq, the q rows frames of frame_size; delta =
+// rowsum(do * o) - dlse, fp32 (bh, nq).
+static bool reloc_args_ok(int nq, int nk, int n_ctx, int frame_size) {
+  return frame_size > 0 && n_ctx >= 0 && nq % frame_size == 0 && nk == n_ctx + nq;
 }
 
-template <bool MASKED>
-static void launch_bwd_dq(dim3 grid, cudaStream_t st, const void* q, const void* k,
-                          const void* v, const void* dout, const void* lse,
-                          const void* delta, void* dq, int nq, int nk, int n_ctx,
-                          int frame_size, float scale_log2, float scale) {
-  flash_bwd_dq_kernel<MASKED><<<grid, NTHREADS, 0, st>>>(
+extern "C" int sfm_flash_bwd_dq_reloc_bf16(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse,
+                                           const void* delta, void* dq, int bh, int nq,
+                                           int nk, int n_ctx, int frame_size,
+                                           float scale_log2, float scale, void* stream) {
+  if (!reloc_args_ok(nq, nk, n_ctx, frame_size)) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((nq + BQ - 1) / BQ, bh);
+  flash_bwd_dq_reloc_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dq), nq, nk, n_ctx, frame_size, scale_log2, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <bool MASKED>
-static void launch_bwd_dkv(dim3 grid, cudaStream_t st, const void* q, const void* k,
-                           const void* v, const void* dout, const void* lse,
-                           const void* delta, void* dk, void* dv, int nq, int nk,
-                           int n_ctx, int frame_size, float scale_log2, float scale) {
-  flash_bwd_dkv_kernel<MASKED><<<grid, NTHREADS, 0, st>>>(
+extern "C" int sfm_flash_bwd_dkv_reloc_bf16(const void* q, const void* k, const void* v,
+                                            const void* dout, const void* lse,
+                                            const void* delta, void* dk, void* dv, int bh,
+                                            int nq, int nk, int n_ctx, int frame_size,
+                                            float scale_log2, float scale, void* stream) {
+  if (!reloc_args_ok(nq, nk, n_ctx, frame_size)) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((nk + BK - 1) / BK, bh);
+  flash_bwd_dkv_reloc_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), nq, nk, n_ctx, frame_size,
       scale_log2, scale);
-}
-
-extern "C" int sfm_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                     const void* dout, const void* lse,
-                                     const void* delta, void* dq, int bh, int nq,
-                                     int nk, int n_ctx, int frame_size, int masked,
-                                     float scale_log2, float scale, void* stream) {
-  if (!bwd_args_ok(nq, nk, n_ctx, frame_size, masked))
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((nq + BQ - 1) / BQ, bh);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (masked)
-    launch_bwd_dq<true>(grid, st, q, k, v, dout, lse, delta, dq, nq, nk, n_ctx,
-                        frame_size, scale_log2, scale);
-  else
-    launch_bwd_dq<false>(grid, st, q, k, v, dout, lse, delta, dq, nq, nk, n_ctx,
-                         frame_size, scale_log2, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int sfm_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
-                                      const void* dout, const void* lse,
-                                      const void* delta, void* dk, void* dv, int bh,
-                                      int nq, int nk, int n_ctx, int frame_size,
-                                      int masked, float scale_log2, float scale,
-                                      void* stream) {
-  if (!bwd_args_ok(nq, nk, n_ctx, frame_size, masked))
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((nk + BK - 1) / BK, bh);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (masked)
-    launch_bwd_dkv<true>(grid, st, q, k, v, dout, lse, delta, dk, dv, nq, nk, n_ctx,
-                         frame_size, scale_log2, scale);
-  else
-    launch_bwd_dkv<false>(grid, st, q, k, v, dout, lse, delta, dk, dv, nq, nk, n_ctx,
-                          frame_size, scale_log2, scale);
   return static_cast<int>(cudaGetLastError());
 }

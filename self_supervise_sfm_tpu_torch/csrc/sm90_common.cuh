@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the attention body
-// (flash_fwd_sm90.cu) and the GEMM body (gemm_sm90.cu): shared-memory
-// addresses, bf16 packing, mbarriers with a watchdog, TMA tensor loads,
-// wgmma descriptors and products with their fence / commit / wait, and
+// Hopper (sm_90a) building blocks shared by the attention bodies
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu) and the GEMM body (gemm_sm90.cu):
+// shared-memory addresses, bf16 packing, mbarriers with a watchdog, TMA
+// tensor loads, 4-byte cp.async copies that arrive on an mbarrier, wgmma
+// descriptors and products with their fence / commit / wait, and
 // setmaxnreg; on the host, the tensor-map encoder cuTensorMapEncodeTiled, a
 // map over rows of 64 bf16 (q, k, v and the attention output as (64, N,
 // B H)) and the number of multiprocessors.
@@ -99,6 +100,20 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// 4-byte asynchronous copy from global to shared memory (cp.async), zero
+// filled where src_bytes is 0
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// one arrival on `bar` (counted among its expected ones) once every earlier
+// cp.async of this thread has landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
 // -- wgmma --------------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a 1024-byte aligned tile of 128-byte rows
@@ -183,19 +198,19 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
-// d (64 x 64, fp32) += A (64 x 16, bf16 registers) * B (16 x 64, shared,
-// MN-major: rows of 16 keys, 128-byte swizzle, read through the transpose bit)
-__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t db) {
+// d (64 x 64, fp32) (+)= A (64 x 16, shared) * B (16 x 64, shared), both
+// K-major in the 128-byte swizzle (B: 64 rows of k); scale_d as above
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
+      "setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -204,7 +219,46 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 16, bf16 registers) * B (16 x 64, shared,
+// 128-byte swizzle): MN-major (TRANS_B 1: rows of 16 keys, read through the
+// transpose bit) or K-major (TRANS_B 0: 64 rows of k); scale_d == 0 ignores
+// d's old value
+template <int TRANS_B = 1>
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// Four 8 x 8 b16 matrices from shared memory (ldmatrix .x4): lanes 8i to
+// 8i + 7 give the row addresses of matrix i, and r[i] is this thread's pair
+// of matrix i (row lane / 4, columns 2 (lane % 4) and + 1), so that rows 0-15
+// at 16-byte chunks c (lanes 0-15) and c + 1 (lanes 16-31) give the wgmma A
+// fragment of a 16 x 16 step
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 template <int N>

@@ -90,7 +90,10 @@ def attention_heads_out(
     extra_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     """The attention core alone: (B, H, N, d) per-head outputs. ``mask`` is
-    a boolean tensor, a ``RelocMask`` or None."""
+    a boolean tensor, a ``RelocMask`` or None. Under ``impl="auto"`` a site
+    the attention kernels do not take (fp32 or head dim other than 64 on the
+    card, ``fa.kernel_takes``) runs dense; ``impl="flash"`` reaches the
+    kernels and their refusal."""
     if extra_kv is not None and extra_kv[0].shape[0] != q.shape[0]:
         # frame-major reloc layout: q/k/v carry (B*F, H, P, d) with frames
         # folded into batch while the shared context K/V stays (B, H, Nc, d);
@@ -102,7 +105,8 @@ def attention_heads_out(
             cfg.impl != "dense"
             and cfg.head_dim <= 256
             and (cfg.impl == "flash"
-                 or q.shape[2] * (ek.shape[2] + k.shape[2]) >= 1_500_000)
+                 or (fa.kernel_takes(q, k, v)
+                     and q.shape[2] * (ek.shape[2] + k.shape[2]) >= 1_500_000))
         ):
             return fa.frame_ctx_attention(q, k, v, ek, ev)
         return fa._frame_ctx_dense(q, k, v, ek.to(k.dtype), ev.to(v.dtype))
@@ -111,6 +115,7 @@ def attention_heads_out(
         extra_kv is not None
         and isinstance(mask, attention_core.RelocMask)
         and cfg.impl != "dense"
+        and (cfg.impl == "flash" or fa.kernel_takes(q, k, v))
         and q.shape[2] * (mask.n_ctx + mask.frame_size) >= 1_500_000
     ):
         # [ctx ‖ own frame] mask structure: two unmasked flash calls merged

@@ -70,9 +70,10 @@ def reloc_split_attention(q, k_self, v_self, k_ctx, v_ctx, mask: RelocMask):
 
 
 def sdpa(q, k, v, mask=None, impl: str = "auto"):
-    """``impl``: 'dense' | 'flash' | 'auto' ('auto' takes flash when it pays).
-    A :class:`RelocMask` goes to the masked flash kernel; a boolean mask
-    stays on the dense path."""
+    """``impl``: 'dense' | 'flash' | 'auto' ('auto' takes flash when it pays
+    and the kernels take the site: bf16 of head dim 64 on the card, any
+    dtype on the CPU, ``fa.worth_it``). A :class:`RelocMask` goes to the
+    masked flash kernel; a boolean mask stays on the dense path."""
     if impl == "dense":
         return sdpa_dense(q, k, v, mask)
     if impl in ("flash", "auto"):

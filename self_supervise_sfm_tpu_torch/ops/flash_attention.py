@@ -3,8 +3,9 @@
 Port of ``self_supervise_sfm_tpu/ops/flash_attention.py``. The Pallas TPU
 kernels become hand-written CUDA kernels: K1, K2 and K2p share one body
 written for Hopper in ``csrc/flash_fwd_sm90.cu`` (TMA ring, wgmma, warp
-specialisation); K1m and B9 are in ``csrc/flash_attention.cu``. Each sits
-beside its plain PyTorch version:
+specialisation), the unmasked B9 pair another in ``csrc/flash_bwd_sm90.cu``;
+K1m and the masked B9 pair stay on the first body in
+``csrc/flash_attention.cu``. Each sits beside its plain PyTorch version:
 
 - :func:`flash_fwd` (K1) replaces ``_flash_fwd``/``_kernel``: online
   softmax in the log2 domain, fp32 state, p cast to v's dtype before PV,
@@ -27,13 +28,14 @@ beside its plain PyTorch version:
   - dlse`` in PyTorch, then :func:`flash_bwd_dq` (``_dq_kernel``: a block
   owns q rows and loops over key tiles) and :func:`flash_bwd_dkv`
   (``_dkv_kernel``: a block owns key rows and loops over q tiles), each
-  recomputing p from the saved lse, with or without a RelocMask. Plain
-  version :func:`flash_bwd_plain`.
+  recomputing p from the saved lse; without a mask on the Hopper body, with
+  a RelocMask on the first body. Plain version :func:`flash_bwd_plain`.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel or raises. The kernels are bound by the bf16
 tensor-core rate at the main-path sizes (see the source notes in the
-``.cu`` file) and take bf16, contiguous, d = 64 inputs.
+``.cu`` files) and take bf16, contiguous, d = 64 inputs; the "auto" gates
+(:func:`kernel_takes`) send a site that is not so to the dense path.
 
 Autograd reaches the kernels only through the ``torch.autograd.Function``s
 behind :func:`flash_attention`, :func:`flash_attention_lse` and
@@ -211,11 +213,6 @@ def flash_bwd_plain(q, k, v, o, lse, do, dlse=None,
     return dq, dk, dv
 
 
-def _mask_args(mask: Optional[RelocMask]):
-    """(n_ctx, frame_size, masked) for the C entries."""
-    return (0, 0, 0) if mask is None else (mask.n_ctx, mask.frame_size, 1)
-
-
 def _check_bwd(name, q, k, v, do, lse, delta, mask) -> None:
     """What the B9 kernels take: bf16 q / k / v / do of one head dim on one
     device, fp32 contiguous (BH, Nq) lse and delta, shapes that agree."""
@@ -234,18 +231,30 @@ def _check_bwd(name, q, k, v, do, lse, delta, mask) -> None:
         _check_mask(name, mask, Nq, Nk)
 
 
+def _bwd_entry(name: str, mask: Optional[RelocMask]):
+    """The C entry of a B9 kernel and its trailing shape arguments: the
+    Hopper body without a mask, the first body's RelocMask form with one."""
+    if mask is None:
+        return f"sfm_flash_bwd_{name}_sm90", ()
+    return f"sfm_flash_bwd_{name}_reloc_bf16", (mask.n_ctx, mask.frame_size)
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
     """The dq kernel (``_dq_kernel``): (BH, Nq, d) bf16, for CUDA tensors.
-    ``delta`` is :func:`flash_bwd`'s rowsum(do * o) - dlse."""
+    ``delta`` is :func:`flash_bwd`'s rowsum(do * o) - dlse. With no key the
+    gradient is zero and nothing is launched."""
     _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta, mask)
-    dq = torch.empty_like(q)
     BH, Nq, d = q.shape
+    Nk = k.shape[1]
+    if not Nk:
+        return torch.zeros_like(q)
+    dq = torch.empty_like(q)
     if BH and Nq:
+        entry, extra = _bwd_entry("dq", mask)
         _kernels.launch(
-            "sfm_flash_bwd_dq_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH,
-            Nq, k.shape[1], *_mask_args(mask), d**-0.5 * LOG2E, d**-0.5,
-            _kernels.stream_ptr(q),
+            entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, Nq, Nk, *extra,
+            d**-0.5 * LOG2E, d**-0.5, _kernels.stream_ptr(q),
         )
         flash_bwd_dq.launches += 1
     return dq
@@ -256,16 +265,20 @@ flash_bwd_dq.launches = 0
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
     """The dk/dv kernel (``_dkv_kernel``): two (BH, Nk, d) bf16 tensors, for
-    CUDA tensors."""
+    CUDA tensors. With no q row the gradients are zero and nothing is
+    launched."""
     _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, mask)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
     BH, Nk, d = k.shape
+    Nq = q.shape[1]
+    if not Nq:
+        return torch.zeros_like(k), torch.zeros_like(v)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     if BH and Nk:
+        entry, extra = _bwd_entry("dkv", mask)
         _kernels.launch(
-            "sfm_flash_bwd_dkv_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), BH, q.shape[1], Nk, *_mask_args(mask),
-            d**-0.5 * LOG2E, d**-0.5, _kernels.stream_ptr(q),
+            entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Nq,
+            Nk, *extra, d**-0.5 * LOG2E, d**-0.5, _kernels.stream_ptr(q),
         )
         flash_bwd_dkv.launches += 1
     return dk, dv
@@ -358,14 +371,30 @@ def flash_attention(q, k, v, mask: Optional[RelocMask] = None):
 
 
 def supported(q, k, v, mask) -> bool:
+    """Whether the flash route takes the call at all (``impl="flash"``
+    asks for it; the kernel itself then raises on what it does not take)."""
     if mask is not None and not isinstance(mask, RelocMask):
         return False  # dense boolean masks stay on the dense path
     return q.shape[-1] <= 256 and q.dim() == 4
 
 
+def kernel_takes(q, k, v) -> bool:
+    """The "auto" gates' check of what the attention kernels take: bf16 q /
+    k / v of head dim 64. A CPU tensor always qualifies, since its wrapper
+    runs the dtype-generic plain version; an fp32 site on the card goes to
+    the dense path (the JAX kernels are dtype-generic, the port's bf16-only).
+    An explicit ``impl="flash"`` skips this check and reaches the kernel's
+    own refusal: a kernel that does not exist is not turned into dense."""
+    if q.device.type == "cpu":
+        return True
+    return (all(t.dtype == torch.bfloat16 for t in (q, k, v))
+            and q.shape[-1] == KERNEL_HEAD_DIM)
+
+
 def worth_it(q, k, v) -> bool:
-    # the JAX package's measured cut-over (``ops/flash_attention.py:814-817``)
-    return q.shape[-2] * k.shape[-2] >= 1_500_000
+    """The "auto" gate: a site the kernels take, at or above the JAX
+    package's measured cut-over (``ops/flash_attention.py:814-817``)."""
+    return kernel_takes(q, k, v) and q.shape[-2] * k.shape[-2] >= 1_500_000
 
 
 # -- K2: fused [context ‖ own frame] attention --------------------------------
@@ -539,16 +568,20 @@ def packed_ctx_attention(q, k, v, ckv, layer: int, impl: str = "auto"):
     The gate is the one of the frame-major context site in
     ``layers/attention.py``: the in-place kernel wrapper when ``impl`` is not
     "dense", the head dim is at most 256, and either ``impl == "flash"`` or
-    ``P * (Nc + P) >= 1.5M`` (the JAX package's cut, without its TPU-backend
-    condition; the wrapper itself takes its plain version for a CPU tensor
-    only). Otherwise the layer is sliced and split and the dense reference
-    runs."""
+    the kernel takes the site (:func:`kernel_takes`, and a bf16 cache off the
+    CPU) with ``P * (Nc + P) >= 1.5M`` (the JAX package's cut, without its
+    TPU-backend condition; the wrapper itself takes its plain version for a
+    CPU tensor only). Otherwise the layer is sliced and split and the dense
+    reference runs: an fp32 cache on the card takes that route under
+    "auto"."""
     d = q.shape[-1]
     Nc = ckv.shape[3]
+    takes = kernel_takes(q, k, v) and (ckv.device.type == "cpu"
+                                       or ckv.dtype == torch.bfloat16)
     if (
         impl != "dense"
         and d <= 256
-        and (impl == "flash" or q.shape[2] * (Nc + k.shape[2]) >= 1_500_000)
+        and (impl == "flash" or (takes and q.shape[2] * (Nc + k.shape[2]) >= 1_500_000))
     ):
         return frame_ctx_packed_fwd(
             q.contiguous(), k.contiguous(), v.contiguous(), ckv, layer)
