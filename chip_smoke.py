@@ -8,7 +8,8 @@ Phases, each of which must pass (any failure exits non-zero):
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    kernel in ``self_supervise_sfm_tpu_torch/csrc`` with ``nvcc`` for sm_90a;
    the registers, spills and shared memory of the Hopper attention body's
-   kernels (K1, K2, K2p), of the Hopper backward body's (B9's dq and dk/dv)
+   kernels (K1, K2, K2p), of the Hopper backward body's (B9's dq and dk/dv,
+   unmasked and under a RelocMask; a spill fails the run)
    and of the Hopper GEMM body's (MLP-up, MLP-down, the probe, the
    layer-norm pre-pass, LN+QKV+RoPE, LN+QKV, the out-projection), and any
    ptxas advisory that wgmma was serialised (C7518);
@@ -27,7 +28,9 @@ Phases, each of which must pass (any failure exits non-zero):
    bytes beside the most its back-to-back time lets it move, and K3 at the
    edges of its thread mapping (4 and 8 channels a thread, ragged pixel
    counts); B9 at the edges of its tiling and at the train step's sites,
-   a repeat bit-equal, the pair (dq + dk/dv) against SDPA's backward;
+   its RelocMask forms at the edges of their work tiles, at reloc layer 0
+   and at the 5-query mask-form shape, a repeat bit-equal, the pair (dq +
+   dk/dv) against SDPA's backward;
 3. the full-width joint forward: ViT-L/14 + 24 aggregator layers at 518 px,
    bf16 trunk and fp32 heads, 5 anchors + the same 5 images as queries,
    rank 300, random weights from a seeded generator, every trunk block on
@@ -124,8 +127,8 @@ _KERNEL_CLASSES = (
     ("fused_mlp_down", ("mlp_down_sm90_kernel",)),
     ("ln_rows (pre-pass of LN+QKV(+RoPE) and MLP-up)", ("ln_rows_kernel",)),
     ("flash_fwd (K1)", ("flash_fwd_kernel",)),
-    ("flash_bwd_dq (B9)", ("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_reloc_kernel")),
-    ("flash_bwd_dkv (B9)", ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_reloc_kernel")),
+    ("flash_bwd_dq (B9)", ("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_reloc_sm90_kernel")),
+    ("flash_bwd_dkv (B9)", ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_reloc_sm90_kernel")),
     ("frame_ctx_fwd (K2)", ("frame_ctx_fwd_kernel",)),
     ("frame_ctx_kv2_fwd (K2p)", ("frame_ctx_kv2_fwd_kernel",)),
     ("flash_fwd_reloc (K1m)", ("flash_fwd_reloc_kernel",)),
@@ -258,16 +261,21 @@ def print_sm90_build() -> None:
               f"{info[4]} x {info[5]}, {'ping-pong' if info[8] else 'cooperative'}, raster "
               f"groups of {info[9]} row tiles, setmaxnreg {info[6]} (producer) / {info[7]} "
               f"(consumers)")
-    for which, name in enumerate(("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")):
+    for which, name in enumerate(("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
+                                  "flash_bwd_dq_reloc_sm90_kernel",
+                                  "flash_bwd_dkv_reloc_sm90_kernel")):
         info = (ctypes.c_int * 8)()
         rc = lib.sfm_flash_bwd_sm90_info(which, info)
         if rc != 0:
             raise RuntimeError(f"sfm_flash_bwd_sm90_info({which}): CUDA error {rc}")
+        dq = which % 2 == 0
         print(f"  {name}: {info[0]} registers a thread at launch, {info[1]} local bytes, "
               f"{info[2]} bytes of dynamic shared memory, {info[3]} stages of {info[5]} "
-              f"{'keys' if which == 0 else 'q rows'}, {info[4]} "
-              f"{'q rows' if which == 0 else 'keys'} a work tile, setmaxnreg {info[6]} "
+              f"{'keys' if dq else 'q rows'}, {info[4]} "
+              f"{'q rows' if dq else 'keys'} a work tile, setmaxnreg {info[6]} "
               f"(producer) / {info[7]} (consumers)")
+        if info[1]:
+            raise AssertionError(f"{name}: {info[1]} bytes of spills a thread")
     advisories = [ln.strip() for ln in _kernels.build_log.splitlines() if "C7518" in ln]
     print(f"  ptxas wgmma serialisation advisories (C7518): {advisories or 'none'}")
 
@@ -814,20 +822,22 @@ TRAIN_FRAMES = 2  # frames a scene on the train step (bench.py:bench_train's S)
 
 
 def check_backward_kernels(randn, ulps):
-    """Phase 2, the two B9 kernels (dq; dk/dv) at the train step's shapes:
-    the ViT, frame and global sites and the two calls of the frame-context
-    split (own frame, and the broadcast context with an lse cotangent) on
-    the Hopper backward body, and the RelocMask forms on the first body at
-    reloc layer 0's shape. Inputs: random q, k, v and do, with o and lse from
-    the forward kernel. Held against ``flash_bwd_plain``: bf16 outputs,
-    kernel and plain version recompute p and ds in fp32 with other summation
-    orders and round ds, p and the result to bf16, so the tolerance is 4 ulps
-    at the largest |grad| of each output. A second backward at the global
+    """Phase 2, the two B9 kernels (dq; dk/dv) of the Hopper backward body at
+    the train step's shapes: the ViT, frame and global sites and the two
+    calls of the frame-context split (own frame, and the broadcast context
+    with an lse cotangent), and their RelocMask forms at reloc layer 0's
+    shape and at the 5-query shape of phase 4's mask-form check. Inputs:
+    random q, k, v and do, with o and lse from the forward kernel. Held
+    against ``flash_bwd_plain``: bf16 outputs, kernel and plain version
+    recompute p and ds in fp32 with other summation orders and round ds, p
+    and the result to bf16, so the tolerance is 4 ulps at the largest |grad|
+    of each output. A second backward at the global and the 5-query masked
     site must be bit-equal to the first (no atomics). Timed a call and 20
     launches back to back beside the plain backward (all three gradients)
     and the yardstick ``torch.autograd.grad`` through SDPA at the same shape
-    (its forward run once beforehand, so only the backward is timed), whose
-    time the pair (dq + dk/dv) is divided by."""
+    (with the materialised boolean mask at the masked sites; its forward run
+    once beforehand, so only the backward is timed), whose time the pair
+    (dq + dk/dv) is divided by."""
     import torch
     import torch.nn.functional as F
 
@@ -837,6 +847,7 @@ def check_backward_kernels(randn, ulps):
     S, H, d = TRAIN_FRAMES, 16, 64
     P = (IMG // 14) ** 2 + 5
     nc = S * (RANK + 5)
+    nc5 = NUM_FRAMES * (RANK + 5)
     # (name, BH, Nq, Nk, with an lse cotangent, mask)
     sites = [("vit", S * H, P, P, False, None),
              ("frame", 2 * S * H, P, P, False, None),
@@ -844,7 +855,9 @@ def check_backward_kernels(randn, ulps):
              ("split own", S * H, P, P, True, None),
              ("split context", S * H, P, nc, True, None),
              ("reloc layer 0, RelocMask", H, S * P, nc + S * P, False,
-              RelocMask(nc, P, S))]
+              RelocMask(nc, P, S)),
+             ("reloc 5 queries, RelocMask", H, NUM_FRAMES * P, nc5 + NUM_FRAMES * P, False,
+              RelocMask(nc5, P, NUM_FRAMES))]
     # the Hopper body at the edges of its tiling first: one q row (against
     # three keys: with one key every gradient is 0 up to rounding noise, no
     # scale for an ulp tolerance), ragged q and key tiles on both sides, fewer keys than q rows, a
@@ -860,6 +873,23 @@ def check_backward_kernels(randn, ulps):
         for label, g, r in zip(("dq", "dk", "dv"), grads, refs):
             _check(f"flash_bwd edge ({bh}, {nq}, {nk}){' dlse' if with_dlse else ''} {label}",
                    float((g.float() - r.float()).abs().max()), ulps(r, 4))
+    # the RelocMask forms at the edges of their work tiles: context and frame
+    # tails at both kinds of boundary, no context, one-row frames, whole
+    # 128-row segments, the train site's 98-key context tail; with and
+    # without dlse
+    for n_ctx, fs, nf in ((77, 130, 2), (0, 130, 3), (5, 1, 7), (128, 128, 2), (98, 257, 2)):
+        mask = RelocMask(n_ctx, fs, nf)
+        for with_dlse in (False, True):
+            q, do = randn(2, mask.nq, d), randn(2, mask.nq, d)
+            k, v = randn(2, mask.nk, d), randn(2, mask.nk, d)
+            o, lse = FA.flash_fwd_reloc(q, k, v, mask)
+            dlse = randn(2, mask.nq, dtype=torch.float32) if with_dlse else None
+            grads = FA.flash_bwd(q, k, v, o, lse, do, dlse, mask)
+            torch.cuda.synchronize()
+            refs = FA.flash_bwd_plain(q, k, v, o, lse, do, dlse, mask)
+            for label, g, r in zip(("dq", "dk", "dv"), grads, refs):
+                _check(f"flash_bwd edge {mask}{' dlse' if with_dlse else ''} {label}",
+                       float((g.float() - r.float()).abs().max()), ulps(r, 4))
     rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
     for site, bh, nq, nk, with_dlse, mask in sites:
         q, do = randn(bh, nq, d), randn(bh, nq, d)
@@ -873,15 +903,16 @@ def check_backward_kernels(randn, ulps):
         for label, g, r in zip(("dq", "dk", "dv"), grads, refs):
             errs[label] = float((g.float() - r.float()).abs().max())
             _check(f"flash_bwd[{site}] {label} {tuple(g.shape)}", errs[label], ulps(r, 4))
-        if site == "global":
+        if site in ("global", "reloc 5 queries, RelocMask"):
             again = FA.flash_bwd(q, k, v, o, lse, do, dlse, mask)
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-                raise AssertionError("flash_bwd[global]: a second backward is not bit-equal")
-            print("  flash_bwd[global]: a second backward bit-equal to the first")
+                raise AssertionError(f"flash_bwd[{site}]: a second backward is not bit-equal")
+            print(f"  flash_bwd[{site}]: a second backward bit-equal to the first")
             del again
         delta = FA._delta(o, do, dlse).contiguous()
-        pairs = nq * nk if mask is None else nq * (nc + P)  # allowed pairs a head
+        # allowed pairs a head
+        pairs = nq * nk if mask is None else nq * (mask.n_ctx + mask.frame_size)
         io = (2 * q.numel() + 2 * k.numel()) * 2 + 2 * lse.numel() * 4
         qm, km, vm = (t.view(1, bh, -1, d).detach().requires_grad_() for t in (q, k, v))
         attn_mask = None if mask is None else mask.materialize("cuda")
@@ -920,8 +951,8 @@ def check_backward_kernels(randn, ulps):
         results.append(dict(
             name=name, route="cuda",
             source="self_supervise_sfm_tpu_torch/csrc/flash_bwd_sm90.cu",
-            # the RelocMask form (0 launches on every path) on the first body
-            masked_source="self_supervise_sfm_tpu_torch/csrc/flash_attention.cu",
+            # the RelocMask form (0 launches on every path), the same body
+            masked_source="self_supervise_sfm_tpu_torch/csrc/flash_bwd_sm90.cu",
             replaces=f"self_supervise_sfm_tpu/ops/flash_attention.py:{line}",
             # one call at each unmasked site of the train step; plain_ms and
             # library_ms compute all three gradients

@@ -45,12 +45,13 @@ _SIGNATURES: Dict[str, List] = {
     # nq, nk; scale * log2(e), scale
     "sfm_flash_bwd_dq_sm90": [_P] * 7 + [_I] * 3 + [_F, _F, _P],
     "sfm_flash_bwd_dkv_sm90": [_P] * 8 + [_I] * 3 + [_F, _F, _P],
-    # B9 under a RelocMask: the same, then bh, nq, nk, n_ctx, frame_size
-    "sfm_flash_bwd_dq_reloc_bf16": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
-    "sfm_flash_bwd_dkv_reloc_bf16": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+    # B9 under a RelocMask on the same body: bh, nq, nk, n_ctx, frame_size
+    "sfm_flash_bwd_dq_reloc_sm90": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
+    "sfm_flash_bwd_dkv_reloc_sm90": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
     # which kernel of the sm90 attention body (0 K1, 1 K2, 2 K2p), int[8] out
     "sfm_attention_sm90_info": [_I, _P],
-    # which kernel of the sm90 backward body (0 dq, 1 dk/dv), int[8] out
+    # which kernel of the sm90 backward body (0 dq, 1 dk/dv, 2 and 3 their
+    # RelocMask forms), int[8] out
     "sfm_flash_bwd_sm90_info": [_I, _P],
     "sfm_resize_bilinear_ac": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # LN+QKV(+RoPE), the out-projection and the MLP pair on the wgmma / TMA

@@ -1,17 +1,15 @@
-// Flash-attention forward (K1m) and backward (B9m: the dq and dk/dv
-// kernels) under a RelocMask, for Hopper (sm_90a), bf16 in, fp32 softmax
-// state, head dim 64, on the simple first body below.
+// Flash-attention forward under a RelocMask (K1m) for Hopper (sm_90a),
+// bf16 in, fp32 softmax state, head dim 64, on the simple first body below.
 //
-// Replaces the Pallas TPU kernels
+// Replaces the Pallas TPU kernel
 //   K1m: self_supervise_sfm_tpu/ops/flash_attention.py  _flash_fwd / _kernel
 //        with mask=RelocMask
-//   B9m: self_supervise_sfm_tpu/ops/flash_attention.py  _flash_bwd's two
-//        pallas_calls, _dq_kernel and _dkv_kernel, with mask=RelocMask
-// The unmasked forms moved to bodies redesigned for Hopper (TMA ring,
-// wgmma, warp specialisation): K1, K2 and K2p to flash_fwd_sm90.cu, the
-// unmasked B9 kernels to flash_bwd_sm90.cu. No entry point launches the
-// masked forms (the train step and serving reach [ctx | own] through the
-// frame-context split and the kv2 layout); their redesigns are queued.
+// Every other attention kernel moved to a body redesigned for Hopper (TMA
+// ring, wgmma, warp specialisation): K1, K2 and K2p to flash_fwd_sm90.cu,
+// the B9 backward pair, unmasked and under a RelocMask, to
+// flash_bwd_sm90.cu. No entry point launches K1m (the train step and
+// serving reach [ctx | own] through the frame-context split and the kv2
+// layout); its redesign is queued.
 //
 // K1m computes what _kernel computes under the mask: an online softmax in the
 // log2 domain (exp2f), fp32 running max / denominator / accumulator, p cast to
@@ -32,32 +30,6 @@
 // accumulator is reused in registers as the A operand of PV (no shared-memory
 // round trip for P). No cp.async/TMA pipelining and no wgmma, so it reaches
 // only a fraction of the tensor-core rate.
-//
-// B9m, the masked backward: both kernels recompute
-// p = exp2(s * scale * log2(e) - lse * log2(e)) from the saved natural-log
-// lse (0 where masked or out of bounds) and ds = p * (do v^T - delta) *
-// scale, with delta = rowsum(do * o) - dlse computed in PyTorch beforehand.
-// dq kernel: one block of 4 warps per (batch*head, 64-row q tile); each
-//   warp keeps its Q and dO fragments, lse and delta of its 16 rows and the
-//   16x64 fp32 dq accumulator in registers and streams 64-key tiles of K
-//   (row-major and transposed) and V through shared memory (k innermost).
-// dk/dv kernel: one block of 4 warps per (batch*head, 64-row key tile);
-//   each warp keeps the K and V fragments of its 16 keys and the two 16x64
-//   fp32 accumulators in registers, computes the transposed tiles S^T and
-//   dP^T, and streams 64-row q tiles of Q and dO (row-major and transposed)
-//   with their lse, delta and frame index through shared memory (q
-//   innermost).
-// Every output row has one owner and a fixed summation order: no atomics,
-// so the gradients are the same from run to run. ds and p are rounded to
-// bf16 before their products, as the TPU kernels do. Guards as on the TPU:
-// ragged tiles are consumed unpadded; out-of-bounds K/V rows load as zeros
-// in the dq kernel, out-of-bounds q-side rows (q, do, lse, delta) as zeros
-// in the dk/dv kernel, and p is zero-selected on key and q validity and on
-// the mask; a block skips tiles no pair of its rows and keys can see.
-// Bound on an H100: operations. The dq kernel does 3 and the dk/dv kernel 4
-// products of 2*Nq*Nk*d FLOPs over the allowed pairs (both recompute S and
-// dP). Same simple design as K1m: mma.sync m16n8k16, one tile in flight,
-// transposed tiles stored element by element.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -305,275 +277,6 @@ flash_fwd_reloc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   finalize(st, o + bh * nq * D, lse + bh * nq, row0, nq);
 }
 
-// -- B9m: flash backward under a RelocMask -------------------------------------
-
-// dq kernel tiles: K row-major (B of S = Q K^T), V row-major (B of
-// dP = dO V^T), K transposed (B of dQ = dS K).
-struct DqSmem {
-  bf16 k[BK][LDS];
-  bf16 v[BK][LDS];
-  bf16 kt[D][LDS];
-};
-
-// dk/dv kernel tiles: Q and dO row-major (B of S^T = K Q^T, dP^T = V dO^T),
-// transposed (B of dK += dS^T Q, dV += P^T dO), and the per-row lse (log2
-// domain), delta and frame index of the q tile.
-struct DkvSmem {
-  bf16 q[BQ][LDS];
-  bf16 dout[BQ][LDS];
-  bf16 qt[D][LDS];
-  bf16 dot[D][LDS];
-  float lse2[BQ];
-  float delta[BQ];
-  int frame[BQ];
-};
-
-// Stage rows [r0, r0 + 64) of a and b (row stride D): row-major and
-// transposed. Rows at or past nvalid are zero-filled.
-__device__ __forceinline__ void load_pair_tile(const bf16* __restrict__ a,
-                                               const bf16* __restrict__ b,
-                                               int r0, int nvalid,
-                                               bf16 (*a_rm)[LDS], bf16 (*b_rm)[LDS],
-                                               bf16 (*a_t)[LDS], bf16 (*b_t)[LDS]) {
-  for (int c = threadIdx.x; c < BK * D / 8; c += NTHREADS) {
-    const int row = c / (D / 8);
-    const int col = (c % (D / 8)) * 8;
-    uint4 aa = make_uint4(0u, 0u, 0u, 0u), bb = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + row < nvalid) {
-      aa = *reinterpret_cast<const uint4*>(a + (size_t)(r0 + row) * D + col);
-      bb = *reinterpret_cast<const uint4*>(b + (size_t)(r0 + row) * D + col);
-    }
-    *reinterpret_cast<uint4*>(&a_rm[row][col]) = aa;
-    if (b_rm != nullptr) *reinterpret_cast<uint4*>(&b_rm[row][col]) = bb;
-    const bf16* ae = reinterpret_cast<const bf16*>(&aa);
-    const bf16* be = reinterpret_cast<const bf16*>(&bb);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (a_t != nullptr) a_t[col + i][row] = ae[i];
-      if (b_t != nullptr) b_t[col + i][row] = be[i];
-    }
-  }
-}
-
-// C fragments of two neighbouring n-tiles (16 keys or 16 q rows) as the A
-// operand of the next product, rounded to bf16.
-__device__ __forceinline__ void c_to_a(const float (&lo)[4], const float (&hi)[4],
-                                       uint32_t (&a)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// grid (ceil(nq / BQ), BH). Keys are [n_ctx context | frames of
-// frame_size]; row r sees the context and its own frame.
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_reloc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dq, int nq, int nk, int n_ctx,
-                          int frame_size, float scale_log2, float scale) {
-  __shared__ __align__(16) DqSmem sm;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int q1 = min(q0 + BQ, nq);
-  const int row0 = q0 + (threadIdx.x >> 5) * 16;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-  load_q(q + bh * nq * D, row0, nq, qf);
-  load_q(dout + bh * nq * D, row0, nq, dof);
-  float lse2[2], dl[2];
-  RowMask mk;
-  mk.n_ctx = n_ctx;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    lse2[r] = row < nq ? lse[bh * nq + row] * LOG2E : 0.f;
-    dl[r] = row < nq ? delta[bh * nq + row] : 0.f;
-    mk.lo[r] = n_ctx + (row / frame_size) * frame_size;
-    mk.hi[r] = mk.lo[r] + frame_size;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  const int own_lo = n_ctx + (q0 / frame_size) * frame_size;
-  const int own_hi = n_ctx + ((q1 - 1) / frame_size + 1) * frame_size;
-  const bf16* kb = k + bh * nk * D;
-  const bf16* vb = v + bh * nk * D;
-  for (int k0 = 0; k0 < nk; k0 += BK) {
-    const int k1 = min(k0 + BK, nk);
-    if (!(k0 < n_ctx || (k0 < own_hi && k1 > own_lo))) continue;  // uniform
-    __syncthreads();
-    load_pair_tile(kb, vb, k0, nk, sm.k, sm.v, sm.kt, nullptr);
-    __syncthreads();
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        const bf16* kp = &sm.k[nt * 8 + g][ks * 16 + t * 2];
-        mma_16816(s[nt], qf[ks], *reinterpret_cast<const uint32_t*>(kp),
-                  *reinterpret_cast<const uint32_t*>(kp + 8));
-        const bf16* vp = &sm.v[nt * 8 + g][ks * 16 + t * 2];
-        mma_16816(dp[nt], dof[ks], *reinterpret_cast<const uint32_t*>(vp),
-                  *reinterpret_cast<const uint32_t*>(vp + 8));
-      }
-    }
-    // ds (in place of s): p recomputed in the log2 domain, 0 where masked
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + t * 2 + (e & 1);
-        const int r = e >> 1;
-        const bool ok =
-            key < nk && (key < mk.n_ctx || (key >= mk.lo[r] && key < mk.hi[r]));
-        const float p = ok ? exp2f(__fmul_rn(s[nt][e], scale_log2) - lse2[r]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - dl[r]) * scale;
-      }
-    }
-    // dq += ds (bf16) @ K
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(s[2 * kk], s[2 * kk + 1], a);
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const bf16* kp = &sm.kt[dn * 8 + g][kk * 16 + t * 2];
-        mma_16816(acc[dn], a, *reinterpret_cast<const uint32_t*>(kp),
-                  *reinterpret_cast<const uint32_t*>(kp + 8));
-      }
-    }
-  }
-  bf16* o = dq + bh * nq * D;
-  const int r0 = row0 + g, r1 = row0 + g + 8;
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int c = dn * 8 + t * 2;
-    if (r0 < nq)
-      *reinterpret_cast<uint32_t*>(o + (size_t)r0 * D + c) = pack_bf16(acc[dn][0], acc[dn][1]);
-    if (r1 < nq)
-      *reinterpret_cast<uint32_t*>(o + (size_t)r1 * D + c) = pack_bf16(acc[dn][2], acc[dn][3]);
-  }
-}
-
-// grid (ceil(nk / BK), BH). Each warp owns 16 keys; its tiles are transposed
-// (rows = keys, columns = q rows of the staged tile).
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_reloc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv, int nq, int nk,
-                           int n_ctx, int frame_size, float scale_log2, float scale) {
-  __shared__ __align__(16) DkvSmem sm;
-  const size_t bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const int k1 = min(k0 + BK, nk);
-  const int krow0 = k0 + (threadIdx.x >> 5) * 16;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_q(k + bh * nk * D, krow0, nk, kf);
-  load_q(v + bh * nk * D, krow0, nk, vf);
-  // this thread's keys krow0 + g and krow0 + g + 8: validity, and (masked)
-  // context membership or frame index
-  int kframe[2];
-  bool kok[2], kctx[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = krow0 + g + 8 * r;
-    kok[r] = key < nk;
-    kctx[r] = key < n_ctx;
-    kframe[r] = key >= n_ctx ? (key - n_ctx) / frame_size : -1;
-  }
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    dka[dn][0] = dka[dn][1] = dka[dn][2] = dka[dn][3] = 0.f;
-    dva[dn][0] = dva[dn][1] = dva[dn][2] = dva[dn][3] = 0.f;
-  }
-  const bf16* qb = q + bh * nq * D;
-  const bf16* db = dout + bh * nq * D;
-  for (int q0 = 0; q0 < nq; q0 += BQ) {
-    const int q1 = min(q0 + BQ, nq);
-    const int own_lo = n_ctx + (q0 / frame_size) * frame_size;
-    const int own_hi = n_ctx + ((q1 - 1) / frame_size + 1) * frame_size;
-    if (!(k0 < n_ctx || (k0 < own_hi && k1 > own_lo))) continue;  // uniform
-    __syncthreads();
-    load_pair_tile(qb, db, q0, nq, sm.q, sm.dout, sm.qt, sm.dot);
-    for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-      const int row = q0 + i;
-      const bool ok = row < nq;
-      sm.lse2[i] = ok ? lse[bh * nq + row] * LOG2E : 0.f;
-      sm.delta[i] = ok ? delta[bh * nq + row] : 0.f;
-      // -1 marks a row past nq; frames are >= 0
-      sm.frame[i] = ok ? row / frame_size : -1;
-    }
-    __syncthreads();
-    float s[BQ / 8][4], dp[BQ / 8][4];  // S^T and dP^T: 16 keys x 64 q rows
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        const bf16* qp = &sm.q[nt * 8 + g][ks * 16 + t * 2];
-        mma_16816(s[nt], kf[ks], *reinterpret_cast<const uint32_t*>(qp),
-                  *reinterpret_cast<const uint32_t*>(qp + 8));
-        const bf16* dp_ = &sm.dout[nt * 8 + g][ks * 16 + t * 2];
-        mma_16816(dp[nt], vf[ks], *reinterpret_cast<const uint32_t*>(dp_),
-                  *reinterpret_cast<const uint32_t*>(dp_ + 8));
-      }
-    }
-    // p^T (in place of s) and ds^T (in place of dp)
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + t * 2 + (e & 1);
-        const int r = e >> 1;
-        const int fr = sm.frame[col];
-        const bool ok = kok[r] && fr >= 0 && (kctx[r] || kframe[r] == fr);
-        const float p = ok ? exp2f(__fmul_rn(s[nt][e], scale_log2) - sm.lse2[col]) : 0.f;
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - sm.delta[col]) * scale;
-      }
-    }
-    // dv += p^T (bf16) @ dO, dk += ds^T (bf16) @ Q
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t ap[4], ads[4];
-      c_to_a(s[2 * kk], s[2 * kk + 1], ap);
-      c_to_a(dp[2 * kk], dp[2 * kk + 1], ads);
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const bf16* op = &sm.dot[dn * 8 + g][kk * 16 + t * 2];
-        mma_16816(dva[dn], ap, *reinterpret_cast<const uint32_t*>(op),
-                  *reinterpret_cast<const uint32_t*>(op + 8));
-        const bf16* qp = &sm.qt[dn * 8 + g][kk * 16 + t * 2];
-        mma_16816(dka[dn], ads, *reinterpret_cast<const uint32_t*>(qp),
-                  *reinterpret_cast<const uint32_t*>(qp + 8));
-      }
-    }
-  }
-  bf16* dko = dk + bh * nk * D;
-  bf16* dvo = dv + bh * nk * D;
-  const int r0 = krow0 + g, r1 = krow0 + g + 8;
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int c = dn * 8 + t * 2;
-    if (r0 < nk) {
-      *reinterpret_cast<uint32_t*>(dko + (size_t)r0 * D + c) = pack_bf16(dka[dn][0], dka[dn][1]);
-      *reinterpret_cast<uint32_t*>(dvo + (size_t)r0 * D + c) = pack_bf16(dva[dn][0], dva[dn][1]);
-    }
-    if (r1 < nk) {
-      *reinterpret_cast<uint32_t*>(dko + (size_t)r1 * D + c) = pack_bf16(dka[dn][2], dka[dn][3]);
-      *reinterpret_cast<uint32_t*>(dvo + (size_t)r1 * D + c) = pack_bf16(dva[dn][2], dva[dn][3]);
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" int sfm_flash_fwd_reloc_bf16(const void* q, const void* k,
@@ -589,42 +292,5 @@ extern "C" int sfm_flash_fwd_reloc_bf16(const void* q, const void* k,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), nq, nk, n_ctx, frame_size, scale_log2);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// B9m. nk == n_ctx + nq, the q rows frames of frame_size; delta =
-// rowsum(do * o) - dlse, fp32 (bh, nq).
-static bool reloc_args_ok(int nq, int nk, int n_ctx, int frame_size) {
-  return frame_size > 0 && n_ctx >= 0 && nq % frame_size == 0 && nk == n_ctx + nq;
-}
-
-extern "C" int sfm_flash_bwd_dq_reloc_bf16(const void* q, const void* k, const void* v,
-                                           const void* dout, const void* lse,
-                                           const void* delta, void* dq, int bh, int nq,
-                                           int nk, int n_ctx, int frame_size,
-                                           float scale_log2, float scale, void* stream) {
-  if (!reloc_args_ok(nq, nk, n_ctx, frame_size)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((nq + BQ - 1) / BQ, bh);
-  flash_bwd_dq_reloc_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), nq, nk, n_ctx, frame_size, scale_log2, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int sfm_flash_bwd_dkv_reloc_bf16(const void* q, const void* k, const void* v,
-                                            const void* dout, const void* lse,
-                                            const void* delta, void* dk, void* dv, int bh,
-                                            int nq, int nk, int n_ctx, int frame_size,
-                                            float scale_log2, float scale, void* stream) {
-  if (!reloc_args_ok(nq, nk, n_ctx, frame_size)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((nk + BK - 1) / BK, bh);
-  flash_bwd_dkv_reloc_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), nq, nk, n_ctx, frame_size,
-      scale_log2, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,61 +1,64 @@
-// Flash-attention backward (B9: the dq kernel and the dk/dv kernel) on an
-// attention body written for Hopper (sm_90a): TMA loads into a ring of
-// shared-memory stages, wgmma products, warp specialisation. bf16 in, fp32
-// lse / delta and accumulators, head dim 64, no mask (the RelocMask forms
-// stay on the first body in flash_attention.cu).
+// Flash-attention backward (B9: the dq kernel and the dk/dv kernel, each
+// without a mask and under a RelocMask) on an attention body written for
+// Hopper (sm_90a): TMA loads into a ring of shared-memory stages, wgmma
+// products, warp specialisation. bf16 in, fp32 lse / delta and
+// accumulators, head dim 64.
 //
 // Replaces the Pallas TPU kernels
 //   dq:   self_supervise_sfm_tpu/ops/flash_attention.py  _flash_bwd / _dq_kernel
 //   dk/dv: self_supervise_sfm_tpu/ops/flash_attention.py  _flash_bwd / _dkv_kernel
-// and computes what they compute: p = exp2(s * scale * log2(e) - lse *
-// log2(e)) recomputed from the saved natural-log lse, ds = p * (do v^T -
-// delta) * scale with delta = rowsum(do * o) - dlse (computed in PyTorch
-// beforehand), p and ds rounded to bf16 before their products, fp32 sums,
-// the results rounded to bf16; p selected to 0 for a key past nk (both
-// kernels) and a q row past nq (dk/dv), as the TPU kernels select. Two
-// roundings differ from the plain version, each by at most one fp32
-// rounding of an intermediate: the logit scale is folded into the FFMA of
-// the exp2 argument (s * c - lse2, not round(s * c) - lse2) and exp2 is
-// ex2.approx.ftz (p below 2^-126 becomes 0), as in flash_fwd_sm90.cu.
+// (mask=None and mask=RelocMask) and computes what they compute: p =
+// exp2(s * scale * log2(e) - lse * log2(e)) recomputed from the saved
+// natural-log lse, ds = p * (do v^T - delta) * scale with delta = rowsum(do
+// * o) - dlse (computed in PyTorch beforehand), p and ds rounded to bf16
+// before their products, fp32 sums, the results rounded to bf16; p selected
+// to 0 for a key past the work tile's end (both kernels) and a q row past
+// the end of the rows it streams (dk/dv), as the TPU kernels select past N
+// and where the mask forbids. Two roundings differ from the plain version,
+// each by at most one fp32 rounding of an intermediate: the logit scale is
+// folded into the FFMA of the exp2 argument (s * c - lse2, not round(s * c)
+// - lse2) and exp2 is ex2.approx.ftz (p below 2^-126 becomes 0), as in
+// flash_fwd_sm90.cu.
 //
 // Bound on an H100: operations. The dq kernel does 3 and the dk/dv kernel 4
-// products of 2 Nq Nk 64 FLOPs (both recompute S and dP); over their bytes
-// that is far above the card's ~295 FLOP/byte ridge at the train step's
-// sizes, so the floor is the bf16 tensor-core rate. As in the forward, the
-// exp2 of every logit (MUFU) and the ~10 instructions a logit of the p / ds
-// step lie close to the products' time at head dim 64; the design overlaps
-// them.
+// products of 2 Nq Nk 64 FLOPs (both recompute S and dP; under a mask, over
+// the allowed pairs); over their bytes that is far above the card's ~295
+// FLOP/byte ridge at the train step's sizes, so the floor is the bf16
+// tensor-core rate. As in the forward, the exp2 of every logit (MUFU) and
+// the ~10 instructions a logit of the p / ds step lie close to the
+// products' time at head dim 64; the design overlaps them.
 //
 // Design, both kernels. A persistent grid of one block an SM walks over
 // work tiles. A block is three warpgroups: a producer (its first warp
 // stays; setmaxnreg gives its registers up) and two consumer warpgroups
 // that own 64 rows of a work tile each. Tensor maps are 3-D (64, N, B H),
-// so a box never crosses into the next head; TMA fills rows past N with
-// zeros and counts the whole box's bytes. Every product reads its shared
-// operands through descriptors in the 128-byte swizzle the TMA box writes
-// (a 64-channel bf16 row is exactly 128 bytes), and nothing is transposed
-// in shared memory: a product that needs a tile transposed reads it
-// MN-major through wgmma's transposed-B bit (as the forward's PV reads V).
-// Within a warpgroup, tile i's S / dP products are issued together with
-// tile i - 1's accumulating products, and tile i's p / ds step runs while
-// those are in flight; between the warpgroups, named barriers make them
-// take turns to issue (ping-pong), so one's p / ds step runs while the
-// other's products hold the tensor cores. Every output row has one owner
-// and one fixed order of tiles: no atomics, the gradients are the same
-// from run to run.
+// so a box never crosses into the next head and may start at any row; TMA
+// fills rows past N with zeros and counts the whole box's bytes. Every
+// product reads its shared operands through descriptors in the 128-byte
+// swizzle the TMA box writes (a 64-channel bf16 row is exactly 128 bytes),
+// and nothing is transposed in shared memory: a product that needs a tile
+// transposed reads it MN-major through wgmma's transposed-B bit (as the
+// forward's PV reads V). Within a warpgroup, tile i's S / dP products are
+// issued together with tile i - 1's accumulating products, and tile i's p
+// / ds step runs while those are in flight; between the warpgroups, named
+// barriers make them take turns to issue (ping-pong), so one's p / ds step
+// runs while the other's products hold the tensor cores. Every output row
+// has one owner and one fixed order of tiles: no atomics, the gradients
+// are the same from run to run.
 //
 // dk/dv kernel: a work tile is (slice, 128 keys), 64 keys a consumer
 //   warpgroup. Its K and V tiles are loaded once into one of two K / V slots
 //   and from there (ldmatrix, once) into registers as the A fragments of
 //   S^T and dP^T, so the slot is free for the next work tile at once and the
 //   two products read only Q / dO from shared memory; the producer
-//   streams the slice's Q and dO tiles of KV_BQ rows through a ring of
+//   streams the work tile's Q and dO tiles of KV_BQ rows through a ring of
 //   KV_STAGES stages, q innermost, each stage with the tile's lse and delta,
 //   which the producer warp's 32 lanes copy with 4-byte cp.async (an (B H,
 //   Nq) fp32 row is Nq * 4 bytes, no multiple of the 16 a tensor map's
-//   strides need; rows past nq zero-filled), each lane's copies arriving on
-//   the stage's full barrier beside the TMA bytes, so that the producer
-//   never waits for a load. Per q tile, four products, M = keys:
+//   strides need; rows past the streamed rows' end zero-filled), each
+//   lane's copies arriving on the stage's full barrier beside the TMA
+//   bytes, so that the producer never waits for a load. Per q tile, four
+//   products, M = keys:
 //     S^T  = K Q^T and dP^T = V dO^T   (K / V registers, Q / dO K-major),
 //     dV  += P^T dO and dK += dS^T Q   (P^T / dS^T bf16 in registers, dO / Q
 //                                       MN-major through the transposed-B bit).
@@ -75,6 +78,33 @@
 //   lse * log2(e) and delta are two per-row values a thread holds in
 //   registers (plain loads). 352 / 704 / 352 / 352 / 352 work tiles at the
 //   five sites above.
+//
+// The RelocMask forms (flash_bwd_{dq,dkv}_reloc_sm90_kernel) are the same
+// bodies with MASKED set. The keys are [n_ctx context | F frames of P], and
+// a q row of frame f sees the context and frame f's keys. The mask is block
+// structured, so it is expressed by where the work tiles start and end, not
+// by a predicate per element: a tile starts at a segment boundary (a TMA
+// box may start at any row), and the selects against a work tile's ends,
+// which the unmasked forms make against N, are the only masking. No dead
+// tile is loaded and no element is tested against the mask.
+//   dk/dv: a work tile is up to 128 keys of one segment: of the context
+//   (it streams all Nq q rows) or of frame f (from n_ctx + f P, clipped at
+//   the frame's end; it streams only q rows [f P, (f + 1) P), with their lse
+//   / delta). A context tile streams F times as many q tiles as a frame
+//   tile, so the walk takes the context tiles first (longest first), and
+//   its odd rounds run backwards, so that the blocks that took a context
+//   tile in round 0 take the last tiles of round 1.
+//   dq: a work tile is up to 128 q rows of one frame (from f P, clipped at
+//   the frame's end). It streams the context's key tiles, then its frame's,
+//   each with its own end: the TPU kernels' order, context first.
+//   The stores compare against the work tile's end, not N: a tile's tail
+//   rows belong to a neighbour's work tile.
+//   At the train step's reloc layer 0, (16, 2748, 3358) under
+//   RelocMask(610, 1374, 2): 27 dk/dv work tiles a slice (5 context of 43
+//   q tiles, 2 x 11 frame of 22) and 22 dq work tiles (of 5 + 11 key
+//   tiles). The busiest block streams 88 q tiles of dk/dv against 84.7 on
+//   average (109 in a plain round-robin walk, 130 with the frame tiles
+//   first and odd rounds backwards).
 
 #include <stddef.h>
 
@@ -88,6 +118,10 @@ constexpr int D = 64;               // head dim: one 128-byte row a token
 constexpr int ROW_BYTES = D * 2;
 constexpr int NTHREADS = 384;       // producer + two consumer warpgroups
 constexpr bool PINGPONG = true;     // the two consumer warpgroups take turns to issue
+// the masked walks: odd rounds of the grid backwards, and dk/dv's context
+// tiles (the longest) before the frames'
+constexpr bool SNAKE = true;
+constexpr bool CTX_FIRST = true;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // dk/dv kernel
@@ -154,12 +188,75 @@ struct Params {
   bf16* out1;          // dv
   int nq;
   int nk;
-  int row_tiles;       // work tiles a slice: ceil(nk / KV_BM) or ceil(nq / DQ_BM)
-  int tiles;           // row_tiles * slices
-  int steps;           // streamed tiles a work tile: ceil(nq / KV_BQ) or ceil(nk / DQ_BK)
+  int slices;          // B H
+  // keys [n_ctx context | frames x frame own keys]; a q row of frame f sees
+  // the context and frame f's keys. Without a mask: n_ctx = nk and one
+  // frame of nq rows, no own keys.
+  int n_ctx;
+  int frame;
+  int frames;
+  int tiles;           // work tiles in all
   float scale_log2;    // scale * log2(e)
   float scale;         // head_dim ** -0.5
 };
+
+// A work tile: its slice; the rows it owns, [r0, r_end) (keys for dk/dv, q
+// rows for dq; its boxes read 128 rows from r0, and the rows at or past
+// r_end, which belong to another work tile or lie past N, get p = 0 and are
+// not stored); and dk/dv's streamed q rows [s0, s_end), or dq's own-frame
+// keys [s0, s_end), streamed after the context's (none without a mask).
+struct Work {
+  int slice;
+  int r0, r_end;
+  int s0, s_end;
+};
+
+// The k-th work tile of this block: round k of the grid, backwards on odd
+// rounds of a masked walk (SNAKE)
+template <bool MASKED>
+__device__ __forceinline__ int tile_at(int k) {
+  const int g = static_cast<int>(gridDim.x), b = static_cast<int>(blockIdx.x);
+  return k * g + ((MASKED && SNAKE && (k & 1)) ? g - 1 - b : b);
+}
+
+// dk/dv work tile t: the slices' context tiles (each streams all nq q rows)
+// first, then each slice's frames, 128 keys from the frame's first key,
+// clipped at its last (each streams its frame's q rows)
+template <bool MASKED>
+__device__ __forceinline__ Work dkv_work(const Params& p, int t) {
+  const int ctx_tiles = cdiv(p.n_ctx, KV_BM);
+  const int ctx = p.slices * ctx_tiles;
+  if (MASKED && !CTX_FIRST) t = (t + ctx) % p.tiles;
+  if (!MASKED || t < ctx) {
+    const int k0 = (t % ctx_tiles) * KV_BM;
+    return {t / ctx_tiles, k0, min(k0 + KV_BM, p.n_ctx), 0, p.nq};
+  }
+  t -= ctx;
+  const int per_frame = cdiv(p.frame, KV_BM), per_slice = p.frames * per_frame;
+  const int r = t % per_slice, f0 = (r / per_frame) * p.frame;
+  const int k0 = p.n_ctx + f0 + (r % per_frame) * KV_BM;
+  return {t / per_slice, k0, min(k0 + KV_BM, p.n_ctx + f0 + p.frame), f0, f0 + p.frame};
+}
+
+// dq work tile t: each slice's frames in order, 128 q rows from the frame's
+// first row, clipped at its last; masked, the frame's own keys
+template <bool MASKED>
+__device__ __forceinline__ Work dq_work(const Params& p, int t) {
+  const int per_frame = cdiv(p.frame, DQ_BM), per_slice = p.frames * per_frame;
+  const int r = t % per_slice, f0 = (r / per_frame) * p.frame;
+  const int q0 = f0 + (r % per_frame) * DQ_BM;
+  const int own = MASKED ? p.n_ctx + f0 : 0;
+  return {t / per_slice, q0, min(q0 + DQ_BM, f0 + p.frame), own, MASKED ? own + p.frame : 0};
+}
+
+// Key tile i of a dq work tile: the context's DQ_BK-key tiles, then the own
+// frame's; keys at or past *end are selected to 0
+__device__ __forceinline__ int dq_key_tile(const Params& p, const Work& w, int i, int* end) {
+  const int ctx = cdiv(p.n_ctx, DQ_BK);
+  const int k0 = i < ctx ? i * DQ_BK : w.s0 + (i - ctx) * DQ_BK;
+  *end = min(k0 + DQ_BK, i < ctx ? p.n_ctx : w.s_end);
+  return k0;
+}
 
 // exp2 on the MUFU unit, outputs below 2^-126 flushed to zero
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -221,11 +318,10 @@ __device__ __forceinline__ void turn_end(int cw, bool last) {
 
 // -- dk/dv --------------------------------------------------------------------
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
-                          const __grid_constant__ CUtensorMap mk,
-                          const __grid_constant__ CUtensorMap mv,
-                          const __grid_constant__ CUtensorMap mdo, const Params p) {
+template <bool MASKED>
+__device__ __forceinline__ void dkv_body(const CUtensorMap& mq, const CUtensorMap& mk,
+                                         const CUtensorMap& mv, const CUtensorMap& mdo,
+                                         const Params p) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -258,31 +354,30 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       const int lane = threadIdx.x;
       int stage = 0, kslot = 0;
       uint32_t phase = 0, kphase = 0;
-      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-        const int slice = tile / p.row_tiles;
-        const int k0 = (tile % p.row_tiles) * KV_BM;
+      for (int k = 0, tile; (tile = tile_at<MASKED>(k)) < p.tiles; ++k) {
+        const Work w = dkv_work<MASKED>(p, tile);
         if (lane == 0) {
           const uint32_t kv_full = kv_full0 + 8 * kslot;
           mbar_wait(kv_empty0 + 8 * kslot, kphase ^ 1);
           mbar_expect_tx(kv_full, 2 * KV_TILE_BYTES);
-          tma_load_3d(base + KV_K_OFF + kslot * KV_TILE_BYTES, &mk, kv_full, 0, k0, slice);
-          tma_load_3d(base + KV_V_OFF + kslot * KV_TILE_BYTES, &mv, kv_full, 0, k0, slice);
+          tma_load_3d(base + KV_K_OFF + kslot * KV_TILE_BYTES, &mk, kv_full, 0, w.r0, w.slice);
+          tma_load_3d(base + KV_V_OFF + kslot * KV_TILE_BYTES, &mv, kv_full, 0, w.r0, w.slice);
         }
         if (++kslot == 2) {
           kslot = 0;
           kphase ^= 1;
         }
-        const float* lse = p.lse + static_cast<size_t>(slice) * p.nq;
-        const float* delta = p.delta + static_cast<size_t>(slice) * p.nq;
-        for (int i = 0; i < p.steps; ++i) {
-          const int q0 = i * KV_BQ;
+        const float* lse = p.lse + static_cast<size_t>(w.slice) * p.nq;
+        const float* delta = p.delta + static_cast<size_t>(w.slice) * p.nq;
+        for (int q0 = w.s0; q0 < w.s_end; q0 += KV_BQ) {
           const uint32_t full = full0 + 8 * stage;
           mbar_wait(empty0 + 8 * stage, phase ^ 1);
           const uint32_t rowv = base + KV_ROWV_OFF + stage * KV_ROWV_BYTES;
-          // rows past nq: 0, as the TPU kernel's q-side loads (p is selected
-          // to 0 there); a zero-filled copy names row 0's address
+          // rows past the streamed rows' end: 0, as the TPU kernel's q-side
+          // loads past nq (p is selected to 0 there); a zero-filled copy
+          // names row 0's address
           for (int r = lane; r < KV_BQ; r += 32) {
-            const bool ok = q0 + r < p.nq;
+            const bool ok = q0 + r < w.s_end;
             const int row = ok ? q0 + r : 0;
             cp_async_4(rowv + 4 * r, lse + row, ok ? 4 : 0);
             cp_async_4(rowv + 4 * (KV_BQ + r), delta + row, ok ? 4 : 0);
@@ -290,8 +385,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
           if (lane == 0) {
             // a ragged box still counts all of its bytes
             mbar_expect_tx(full, 2 * KV_Q_BYTES);
-            tma_load_3d(base + KV_Q_OFF + stage * KV_Q_BYTES, &mq, full, 0, q0, slice);
-            tma_load_3d(base + KV_DO_OFF + stage * KV_Q_BYTES, &mdo, full, 0, q0, slice);
+            tma_load_3d(base + KV_Q_OFF + stage * KV_Q_BYTES, &mq, full, 0, q0, w.slice);
+            tma_load_3d(base + KV_DO_OFF + stage * KV_Q_BYTES, &mdo, full, 0, q0, w.slice);
           }
           cp_async_arrive(full);  // once this lane's lse / delta have landed
           if (++stage == KV_STAGES) {
@@ -320,13 +415,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       }
     };
     turn_first<PINGPONG>(cw);
-    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-      const int slice = tile / p.row_tiles;
-      const int k0 = (tile % p.row_tiles) * KV_BM;
-      const bool last_tile = tile + static_cast<int>(gridDim.x) >= p.tiles;
-      const int key0 = k0 + cw * 64 + warp * 16 + g;  // this thread's keys key0, key0 + 8
-      const bool kok0 = key0 < p.nk, kok1 = key0 + 8 < p.nk;
-      const bool edge_k = k0 + KV_BM > p.nk;
+    for (int k = 0, tile; (tile = tile_at<MASKED>(k)) < p.tiles; ++k) {
+      const Work w = dkv_work<MASKED>(p, tile);
+      const bool last_tile = tile_at<MASKED>(k + 1) >= p.tiles;
+      const int steps = cdiv(w.s_end - w.s0, KV_BQ);
+      const int key0 = w.r0 + cw * 64 + warp * 16 + g;  // this thread's keys key0, key0 + 8
+      const bool kok0 = key0 < w.r_end, kok1 = key0 + 8 < w.r_end;
+      const bool edge_k = w.r0 + KV_BM > w.r_end;
       const uint64_t desc_k = sw128_desc(base + KV_K_OFF + kslot * KV_TILE_BYTES + cw * 8192, 1);
       const uint64_t desc_v = sw128_desc(base + KV_V_OFF + kslot * KV_TILE_BYTES + cw * 8192, 1);
       float dk[D / 2], dv[D / 2];  // 64 keys x 64 channels each, fp32
@@ -384,7 +479,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       auto p_ds = [&](float (&s)[KV_BQ / 2], float (&dp)[KV_BQ / 2], int st, int q0) {
         const float* rowv =
             reinterpret_cast<const float*>(gbase + KV_ROWV_OFF + st * KV_ROWV_BYTES);
-        const bool edge = edge_k || q0 + KV_BQ > p.nq;
+        const bool edge = edge_k || q0 + KV_BQ > w.s_end;
 #pragma unroll
         for (int j = 0; j < KV_BQ / 8; ++j) {
           const int c = 8 * j + 2 * t;
@@ -395,7 +490,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
           for (int e = 0; e < 4; ++e) {
             float pe = exp2_ftz(fmaf(s[4 * j + e], p.scale_log2, -((e & 1) ? l2.y : l2.x)));
             if (edge) {
-              const bool ok = ((e >> 1) ? kok1 : kok0) && q0 + c + (e & 1) < p.nq;
+              const bool ok = ((e >> 1) ? kok1 : kok0) && q0 + c + (e & 1) < w.s_end;
               pe = ok ? pe : 0.f;
             }
             s[4 * j + e] = pe;
@@ -414,12 +509,12 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      p_ds(s, dp, stage, 0);
+      p_ds(s, dp, stage, w.s0);
       pack_a<KV_BQ>(s, pa);
       pack_a<KV_BQ>(dp, da);
       int prev = stage;
       advance();
-      for (int i = 1; i < p.steps; ++i) {
+      for (int i = 1; i < steps; ++i) {
         wait_full();
         turn_begin<PINGPONG>(cw);
         wgmma_fence();
@@ -429,7 +524,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
         wgmma_wait<1>();  // S^T / dP^T of tile i have landed; dK / dV of i - 1 may not have
         fence_regs(s);
         fence_regs(dp);
-        p_ds(s, dp, stage, i * KV_BQ);
+        p_ds(s, dp, stage, w.s0 + i * KV_BQ);
         wgmma_wait<0>();
         fence_regs(dk);
         fence_regs(dv);
@@ -455,9 +550,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
         kphase ^= 1;
       }
 
-      // dk, dv in bf16; keys past nk are never stored
-      bf16* dkb = p.out0 + static_cast<size_t>(slice) * p.nk * D;
-      bf16* dvb = p.out1 + static_cast<size_t>(slice) * p.nk * D;
+      // dk, dv in bf16; keys past the work tile's end are never stored
+      bf16* dkb = p.out0 + static_cast<size_t>(w.slice) * p.nk * D;
+      bf16* dvb = p.out1 + static_cast<size_t>(w.slice) * p.nk * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int c = j * 8 + t * 2;
@@ -478,13 +573,28 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
-// -- dq -----------------------------------------------------------------------
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mdo, const Params p) {
+  dkv_body<false>(mq, mk, mv, mdo, p);
+}
 
 __global__ void __launch_bounds__(NTHREADS, 1)
-flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
-                         const __grid_constant__ CUtensorMap mk,
-                         const __grid_constant__ CUtensorMap mv,
-                         const __grid_constant__ CUtensorMap mdo, const Params p) {
+flash_bwd_dkv_reloc_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                                const __grid_constant__ CUtensorMap mk,
+                                const __grid_constant__ CUtensorMap mv,
+                                const __grid_constant__ CUtensorMap mdo, const Params p) {
+  dkv_body<true>(mq, mk, mv, mdo, p);
+}
+
+// -- dq -----------------------------------------------------------------------
+
+template <bool MASKED>
+__device__ __forceinline__ void dq_body(const CUtensorMap& mq, const CUtensorMap& mk,
+                                        const CUtensorMap& mv, const CUtensorMap& mdo,
+                                        const Params p) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -512,20 +622,22 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     if (threadIdx.x == 0) {
       int stage = 0;
       uint32_t phase = 0, q_phase = 0;
-      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-        const int slice = tile / p.row_tiles;
-        const int q0 = (tile % p.row_tiles) * DQ_BM;
+      for (int k = 0, tile; (tile = tile_at<MASKED>(k)) < p.tiles; ++k) {
+        const Work w = dq_work<MASKED>(p, tile);
+        const int steps = cdiv(p.n_ctx, DQ_BK) + cdiv(w.s_end - w.s0, DQ_BK);
         mbar_wait(q_empty, q_phase ^ 1);  // the previous tile's Q and dO are consumed
         mbar_expect_tx(q_full, 2 * DQ_Q_BYTES);
-        tma_load_3d(base + DQ_Q_OFF, &mq, q_full, 0, q0, slice);
-        tma_load_3d(base + DQ_DO_OFF, &mdo, q_full, 0, q0, slice);
+        tma_load_3d(base + DQ_Q_OFF, &mq, q_full, 0, w.r0, w.slice);
+        tma_load_3d(base + DQ_DO_OFF, &mdo, q_full, 0, w.r0, w.slice);
         q_phase ^= 1;
-        for (int i = 0; i < p.steps; ++i) {
+        for (int i = 0; i < steps; ++i) {
+          int k_end;
+          const int k0 = dq_key_tile(p, w, i, &k_end);
           const uint32_t full = full0 + 8 * stage;
           mbar_wait(empty0 + 8 * stage, phase ^ 1);
           mbar_expect_tx(full, 2 * DQ_KV_BYTES);
-          tma_load_3d(base + DQ_K_OFF + stage * DQ_KV_BYTES, &mk, full, 0, i * DQ_BK, slice);
-          tma_load_3d(base + DQ_V_OFF + stage * DQ_KV_BYTES, &mv, full, 0, i * DQ_BK, slice);
+          tma_load_3d(base + DQ_K_OFF + stage * DQ_KV_BYTES, &mk, full, 0, k0, w.slice);
+          tma_load_3d(base + DQ_V_OFF + stage * DQ_KV_BYTES, &mv, full, 0, k0, w.slice);
           if (++stage == DQ_STAGES) {
             stage = 0;
             phase ^= 1;
@@ -574,14 +686,15 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_commit();
     };
     turn_first<PINGPONG>(cw);
-    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-      const int slice = tile / p.row_tiles;
-      const int q0 = (tile % p.row_tiles) * DQ_BM;
-      const bool last_tile = tile + static_cast<int>(gridDim.x) >= p.tiles;
-      const int r0 = q0 + cw * 64 + warp * 16 + g, r1 = r0 + 8;
-      // this thread's two rows: lse * log2(e) and delta, 0 past nq
-      const float* lse = p.lse + static_cast<size_t>(slice) * p.nq;
-      const float* delta = p.delta + static_cast<size_t>(slice) * p.nq;
+    for (int k = 0, tile; (tile = tile_at<MASKED>(k)) < p.tiles; ++k) {
+      const Work w = dq_work<MASKED>(p, tile);
+      const bool last_tile = tile_at<MASKED>(k + 1) >= p.tiles;
+      const int steps = cdiv(p.n_ctx, DQ_BK) + cdiv(w.s_end - w.s0, DQ_BK);
+      const int r0 = w.r0 + cw * 64 + warp * 16 + g, r1 = r0 + 8;
+      // this thread's two rows: lse * log2(e) and delta, 0 past nq (rows
+      // past the work tile's end are computed, never stored)
+      const float* lse = p.lse + static_cast<size_t>(w.slice) * p.nq;
+      const float* delta = p.delta + static_cast<size_t>(w.slice) * p.nq;
       const float lse0 = r0 < p.nq ? lse[r0] * LOG2E : 0.f;
       const float lse1 = r1 < p.nq ? lse[r1] * LOG2E : 0.f;
       const float dl0 = r0 < p.nq ? delta[r0] : 0.f;
@@ -590,15 +703,17 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
       // dS into dp, fp32: s[4j + e] is row r0 + 8 (e >> 1) against key k0 +
-      // 8j + 2t + (e & 1); keys past nk are selected to 0
-      auto p_ds = [&](const float (&s)[DQ_BK / 2], float (&dp)[DQ_BK / 2], int k0) {
-        const bool edge = k0 + DQ_BK > p.nk;
+      // 8j + 2t + (e & 1); keys at or past the key tile's end are selected to 0
+      auto p_ds = [&](const float (&s)[DQ_BK / 2], float (&dp)[DQ_BK / 2], int i) {
+        int k_end;
+        const int k0 = dq_key_tile(p, w, i, &k_end);
+        const bool edge = k0 + DQ_BK > k_end;
 #pragma unroll
         for (int j = 0; j < DQ_BK / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float pe = exp2_ftz(fmaf(s[4 * j + e], p.scale_log2, -((e >> 1) ? lse1 : lse0)));
-            if (edge) pe = k0 + 8 * j + 2 * t + (e & 1) < p.nk ? pe : 0.f;
+            if (edge) pe = k0 + 8 * j + 2 * t + (e & 1) < k_end ? pe : 0.f;
             dp[4 * j + e] = pe * (dp[4 * j + e] - ((e >> 1) ? dl1 : dl0)) * p.scale;
           }
       };
@@ -616,12 +731,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      if (p.steps == 1 && lane == 0) mbar_arrive(q_empty);
+      if (steps == 1 && lane == 0) mbar_arrive(q_empty);
       p_ds(s, dp, 0);
       pack_a<DQ_BK>(dp, da);
       int prev = stage;
       advance();
-      for (int i = 1; i < p.steps; ++i) {
+      for (int i = 1; i < steps; ++i) {
         wait_full();
         turn_begin<PINGPONG>(cw);
         wgmma_fence();
@@ -631,8 +746,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
         wgmma_wait<1>();  // S / dP of tile i have landed; dQ of i - 1 may not have
         fence_regs(s);
         fence_regs(dp);
-        if (i == p.steps - 1 && lane == 0) mbar_arrive(q_empty);
-        p_ds(s, dp, i * DQ_BK);
+        if (i == steps - 1 && lane == 0) mbar_arrive(q_empty);
+        p_ds(s, dp, i);
         wgmma_wait<0>();
         fence_regs(dq);
         if (lane == 0) mbar_arrive(empty0 + 8 * prev);
@@ -648,20 +763,36 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       fence_regs(dq);
       if (lane == 0) mbar_arrive(empty0 + 8 * prev);
 
-      // dq in bf16; rows past nq are never stored
-      bf16* ob = p.out0 + static_cast<size_t>(slice) * p.nq * D;
+      // dq in bf16; rows past the work tile's end are never stored
+      bf16* ob = p.out0 + static_cast<size_t>(w.slice) * p.nq * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int c = j * 8 + t * 2;
-        if (r0 < p.nq)
+        if (r0 < w.r_end)
           *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r0) * D + c) =
               pack_bf16(dq[4 * j], dq[4 * j + 1]);
-        if (r1 < p.nq)
+        if (r1 < w.r_end)
           *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r1) * D + c) =
               pack_bf16(dq[4 * j + 2], dq[4 * j + 3]);
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const __grid_constant__ CUtensorMap mdo, const Params p) {
+  dq_body<false>(mq, mk, mv, mdo, p);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_reloc_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                               const __grid_constant__ CUtensorMap mk,
+                               const __grid_constant__ CUtensorMap mv,
+                               const __grid_constant__ CUtensorMap mdo, const Params p) {
+  dq_body<true>(mq, mk, mv, mdo, p);
 }
 
 // -- host side: tensor maps and launches ---------------------------------------
@@ -696,8 +827,8 @@ int prepare(const void* kernel, int smem_bytes, int producer_regs, int consumer_
   return 0;
 }
 
-Params make_params(const void* lse, const void* delta, void* out0, void* out1, int nq, int nk,
-                   int row_tiles, int slices, int steps, float scale_log2, float scale) {
+Params make_params(const void* lse, const void* delta, void* out0, void* out1, int bh, int nq,
+                   int nk, int n_ctx, int frame, int tiles, float scale_log2, float scale) {
   Params p;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
@@ -705,12 +836,83 @@ Params make_params(const void* lse, const void* delta, void* out0, void* out1, i
   p.out1 = static_cast<bf16*>(out1);
   p.nq = nq;
   p.nk = nk;
-  p.row_tiles = row_tiles;
-  p.tiles = row_tiles * slices;
-  p.steps = steps;
+  p.slices = bh;
+  p.n_ctx = n_ctx;
+  p.frame = frame;
+  p.frames = nq / frame;
+  p.tiles = tiles;
   p.scale_log2 = scale_log2;
   p.scale = scale;
   return p;
+}
+
+// Without a mask the context is all nk keys and the q rows one frame; with
+// one, nk == n_ctx + nq and the q rows are frames of frame_size.
+bool args_ok(bool masked, int bh, int nq, int nk, int n_ctx, int frame) {
+  if (bh <= 0 || nq <= 0 || nk <= 0) return false;
+  return !masked || (frame > 0 && n_ctx >= 0 && nq % frame == 0 && nk == n_ctx + nq);
+}
+
+template <bool MASKED>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int bh, int nq, int nk, int n_ctx, int frame,
+              float scale_log2, float scale, void* stream) {
+  if (!MASKED) {
+    n_ctx = nk;
+    frame = nq;
+  }
+  if (!args_ok(MASKED, bh, nq, nk, n_ctx, frame)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv, mdo;
+  if (!encode_rows(&mq, q, nq, bh, DQ_BM) || !encode_rows(&mdo, dout, nq, bh, DQ_BM) ||
+      !encode_rows(&mk, k, nk, bh, DQ_BK) || !encode_rows(&mv, v, nk, bh, DQ_BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = bh * (nq / frame) * cdiv(frame, DQ_BM);
+  const Params p =
+      make_params(lse, delta, dq, nullptr, bh, nq, nk, n_ctx, frame, tiles, scale_log2, scale);
+  const void* kernel = MASKED ? reinterpret_cast<const void*>(flash_bwd_dq_reloc_sm90_kernel)
+                              : reinterpret_cast<const void*>(flash_bwd_dq_sm90_kernel);
+  static bool ready = false;
+  int grid;
+  const int err = prepare(kernel, DQ_SMEM_BYTES, DQ_PRODUCER_REGS, DQ_CONSUMER_REGS, &ready,
+                          p.tiles, &grid);
+  if (err != 0) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (MASKED)
+    flash_bwd_dq_reloc_sm90_kernel<<<grid, NTHREADS, DQ_SMEM_BYTES, st>>>(mq, mk, mv, mdo, p);
+  else
+    flash_bwd_dq_sm90_kernel<<<grid, NTHREADS, DQ_SMEM_BYTES, st>>>(mq, mk, mv, mdo, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool MASKED>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int bh, int nq, int nk, int n_ctx,
+               int frame, float scale_log2, float scale, void* stream) {
+  if (!MASKED) {
+    n_ctx = nk;
+    frame = nq;
+  }
+  if (!args_ok(MASKED, bh, nq, nk, n_ctx, frame)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv, mdo;
+  if (!encode_rows(&mq, q, nq, bh, KV_BQ) || !encode_rows(&mdo, dout, nq, bh, KV_BQ) ||
+      !encode_rows(&mk, k, nk, bh, KV_BM) || !encode_rows(&mv, v, nk, bh, KV_BM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = bh * (cdiv(n_ctx, KV_BM) + (MASKED ? nq / frame * cdiv(frame, KV_BM) : 0));
+  const Params p =
+      make_params(lse, delta, dk, dv, bh, nq, nk, n_ctx, frame, tiles, scale_log2, scale);
+  const void* kernel = MASKED ? reinterpret_cast<const void*>(flash_bwd_dkv_reloc_sm90_kernel)
+                              : reinterpret_cast<const void*>(flash_bwd_dkv_sm90_kernel);
+  static bool ready = false;
+  int grid;
+  const int err = prepare(kernel, KV_SMEM_BYTES, KV_PRODUCER_REGS, KV_CONSUMER_REGS, &ready,
+                          p.tiles, &grid);
+  if (err != 0) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (MASKED)
+    flash_bwd_dkv_reloc_sm90_kernel<<<grid, NTHREADS, KV_SMEM_BYTES, st>>>(mq, mk, mv, mdo, p);
+  else
+    flash_bwd_dkv_sm90_kernel<<<grid, NTHREADS, KV_SMEM_BYTES, st>>>(mq, mk, mv, mdo, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -721,22 +923,8 @@ extern "C" int sfm_flash_bwd_dq_sm90(const void* q, const void* k, const void* v
                                      const void* dout, const void* lse, const void* delta,
                                      void* dq, int bh, int nq, int nk, float scale_log2,
                                      float scale, void* stream) {
-  if (bh <= 0 || nq <= 0 || nk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap mq, mk, mv, mdo;
-  if (!encode_rows(&mq, q, nq, bh, DQ_BM) || !encode_rows(&mdo, dout, nq, bh, DQ_BM) ||
-      !encode_rows(&mk, k, nk, bh, DQ_BK) || !encode_rows(&mv, v, nk, bh, DQ_BK))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Params p = make_params(lse, delta, dq, nullptr, nq, nk, (nq + DQ_BM - 1) / DQ_BM, bh,
-                               (nk + DQ_BK - 1) / DQ_BK, scale_log2, scale);
-  static bool ready = false;
-  int grid;
-  const int err = prepare(reinterpret_cast<const void*>(flash_bwd_dq_sm90_kernel),
-                          DQ_SMEM_BYTES, DQ_PRODUCER_REGS, DQ_CONSUMER_REGS, &ready,
-                          p.tiles, &grid);
-  if (err != 0) return err;
-  flash_bwd_dq_sm90_kernel<<<grid, NTHREADS, DQ_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, mdo, p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dq<false>(q, k, v, dout, lse, delta, dq, bh, nq, nk, 0, 0, scale_log2, scale,
+                          stream);
 }
 
 // As above; dk / dv (bh, nk, 64) bf16.
@@ -744,41 +932,52 @@ extern "C" int sfm_flash_bwd_dkv_sm90(const void* q, const void* k, const void* 
                                       const void* dout, const void* lse, const void* delta,
                                       void* dk, void* dv, int bh, int nq, int nk,
                                       float scale_log2, float scale, void* stream) {
-  if (bh <= 0 || nq <= 0 || nk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap mq, mk, mv, mdo;
-  if (!encode_rows(&mq, q, nq, bh, KV_BQ) || !encode_rows(&mdo, dout, nq, bh, KV_BQ) ||
-      !encode_rows(&mk, k, nk, bh, KV_BM) || !encode_rows(&mv, v, nk, bh, KV_BM))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Params p = make_params(lse, delta, dk, dv, nq, nk, (nk + KV_BM - 1) / KV_BM, bh,
-                               (nq + KV_BQ - 1) / KV_BQ, scale_log2, scale);
-  static bool ready = false;
-  int grid;
-  const int err = prepare(reinterpret_cast<const void*>(flash_bwd_dkv_sm90_kernel),
-                          KV_SMEM_BYTES, KV_PRODUCER_REGS, KV_CONSUMER_REGS, &ready,
-                          p.tiles, &grid);
-  if (err != 0) return err;
-  flash_bwd_dkv_sm90_kernel<<<grid, NTHREADS, KV_SMEM_BYTES,
-                              static_cast<cudaStream_t>(stream)>>>(mq, mk, mv, mdo, p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dkv<false>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, 0, 0, scale_log2,
+                           scale, stream);
+}
+
+// The same under a RelocMask: nk == n_ctx + nq, the q rows frames of
+// frame_size.
+extern "C" int sfm_flash_bwd_dq_reloc_sm90(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse,
+                                           const void* delta, void* dq, int bh, int nq, int nk,
+                                           int n_ctx, int frame_size, float scale_log2,
+                                           float scale, void* stream) {
+  return launch_dq<true>(q, k, v, dout, lse, delta, dq, bh, nq, nk, n_ctx, frame_size,
+                         scale_log2, scale, stream);
+}
+
+extern "C" int sfm_flash_bwd_dkv_reloc_sm90(const void* q, const void* k, const void* v,
+                                            const void* dout, const void* lse,
+                                            const void* delta, void* dk, void* dv, int bh,
+                                            int nq, int nk, int n_ctx, int frame_size,
+                                            float scale_log2, float scale, void* stream) {
+  return launch_dkv<true>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, n_ctx, frame_size,
+                          scale_log2, scale, stream);
 }
 
 // What each kernel was built with and what the compiler gave it (0 dq, 1
-// dk/dv): registers a thread at launch, local (spill) bytes a thread,
-// dynamic shared memory a block, ring stages, rows a work tile, rows a
-// streamed tile, and the setmaxnreg counts of the producer and the consumers.
+// dk/dv, 2 and 3 their RelocMask forms): registers a thread at launch,
+// local (spill) bytes a thread, dynamic shared memory a block, ring stages,
+// rows a work tile, rows a streamed tile, and the setmaxnreg counts of the
+// producer and the consumers.
 extern "C" int sfm_flash_bwd_sm90_info(int which, int* out) {
+  if (which < 0 || which > 3) return static_cast<int>(cudaErrorInvalidValue);
+  const void* const kernels[4] = {reinterpret_cast<const void*>(flash_bwd_dq_sm90_kernel),
+                                  reinterpret_cast<const void*>(flash_bwd_dkv_sm90_kernel),
+                                  reinterpret_cast<const void*>(flash_bwd_dq_reloc_sm90_kernel),
+                                  reinterpret_cast<const void*>(flash_bwd_dkv_reloc_sm90_kernel)};
   cudaFuncAttributes attr;
-  const void* fn = which == 0 ? reinterpret_cast<const void*>(flash_bwd_dq_sm90_kernel)
-                              : reinterpret_cast<const void*>(flash_bwd_dkv_sm90_kernel);
-  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernels[which]);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const bool dq = which % 2 == 0;
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = which == 0 ? DQ_SMEM_BYTES : KV_SMEM_BYTES;
-  out[3] = which == 0 ? DQ_STAGES : KV_STAGES;
-  out[4] = which == 0 ? DQ_BM : KV_BM;
-  out[5] = which == 0 ? DQ_BK : KV_BQ;
-  out[6] = which == 0 ? DQ_PRODUCER_REGS : KV_PRODUCER_REGS;
-  out[7] = which == 0 ? DQ_CONSUMER_REGS : KV_CONSUMER_REGS;
+  out[2] = dq ? DQ_SMEM_BYTES : KV_SMEM_BYTES;
+  out[3] = dq ? DQ_STAGES : KV_STAGES;
+  out[4] = dq ? DQ_BM : KV_BM;
+  out[5] = dq ? DQ_BK : KV_BQ;
+  out[6] = dq ? DQ_PRODUCER_REGS : KV_PRODUCER_REGS;
+  out[7] = dq ? DQ_CONSUMER_REGS : KV_CONSUMER_REGS;
   return 0;
 }

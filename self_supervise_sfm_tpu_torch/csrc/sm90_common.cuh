@@ -16,7 +16,7 @@
 
 namespace sfm_sm90 {
 
-__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

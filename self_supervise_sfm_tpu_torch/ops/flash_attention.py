@@ -3,8 +3,8 @@
 Port of ``self_supervise_sfm_tpu/ops/flash_attention.py``. The Pallas TPU
 kernels become hand-written CUDA kernels: K1, K2 and K2p share one body
 written for Hopper in ``csrc/flash_fwd_sm90.cu`` (TMA ring, wgmma, warp
-specialisation), the unmasked B9 pair another in ``csrc/flash_bwd_sm90.cu``;
-K1m and the masked B9 pair stay on the first body in
+specialisation), the B9 pair, unmasked and under a RelocMask, another in
+``csrc/flash_bwd_sm90.cu``; K1m stays on the first body in
 ``csrc/flash_attention.cu``. Each sits beside its plain PyTorch version:
 
 - :func:`flash_fwd` (K1) replaces ``_flash_fwd``/``_kernel``: online
@@ -28,8 +28,10 @@ K1m and the masked B9 pair stay on the first body in
   - dlse`` in PyTorch, then :func:`flash_bwd_dq` (``_dq_kernel``: a block
   owns q rows and loops over key tiles) and :func:`flash_bwd_dkv`
   (``_dkv_kernel``: a block owns key rows and loops over q tiles), each
-  recomputing p from the saved lse; without a mask on the Hopper body, with
-  a RelocMask on the first body. Plain version :func:`flash_bwd_plain`.
+  recomputing p from the saved lse. Under a RelocMask the same kernels
+  take work tiles that start and end at the mask's segments (context,
+  frames) in place of a per-element mask. Plain version
+  :func:`flash_bwd_plain`.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel or raises. The kernels are bound by the bf16
@@ -233,10 +235,11 @@ def _check_bwd(name, q, k, v, do, lse, delta, mask) -> None:
 
 def _bwd_entry(name: str, mask: Optional[RelocMask]):
     """The C entry of a B9 kernel and its trailing shape arguments: the
-    Hopper body without a mask, the first body's RelocMask form with one."""
+    Hopper body's unmasked form, or its RelocMask form with the mask's
+    context and frame size."""
     if mask is None:
         return f"sfm_flash_bwd_{name}_sm90", ()
-    return f"sfm_flash_bwd_{name}_reloc_bf16", (mask.n_ctx, mask.frame_size)
+    return f"sfm_flash_bwd_{name}_reloc_sm90", (mask.n_ctx, mask.frame_size)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):

@@ -25,19 +25,24 @@ K / V ring; "no out stores" drops the epilogue's global stores.
 
 The backward part does the same for ``csrc/flash_bwd_sm90.cu`` (builds under
 ``build/ablation_attention_bwd/``): the dq and dk/dv entries at the train
-step's ViT, frame, global and split-context sites, each beside SDPA's whole
-backward (``torch.autograd.grad`` through SDPA), held against
-``flash_bwd_plain`` with phase 2's tolerance (4 ulps) but for "products
-only". Variants: "products only" drops the p / ds step (the fp32 S and dP are
-packed as they are: no exp2, no lse / delta); "K / V from shared memory"
-reads dk/dv's A operands of S^T / dP^T through descriptors in place of
-register fragments; "no ping-pong" lets the consumer warpgroups of both
-kernels issue whenever ready; "row values by plain loads" has the producer warp load lse
-/ delta into registers and store them, in place of the 4-byte cp.async
-copies; "dk/dv q tiles of 128" streams 128-row Q / dO tiles (m64n128
-products for S^T / dP^T, K / V from shared memory; ptxas spills, printed);
-"dq key tiles of 64" streams 64-key K / V tiles; "2 stages" / "4 stages"
-change both rings. Each variant's ptxas registers and spills are printed.
+step's ViT, frame, global and split-context sites, and their RelocMask
+entries at the train step's reloc layer 0 (16, 2748, 3358) under
+RelocMask(610, 1374, 2), each beside SDPA's whole backward
+(``torch.autograd.grad`` through SDPA; with the boolean mask at the masked
+site), held against ``flash_bwd_plain`` with phase 2's tolerance (4 ulps)
+but for "products only". Variants: "products only" drops the p / ds step
+(the fp32 S and dP are packed as they are: no exp2, no lse / delta); "K / V
+from shared memory" reads dk/dv's A operands of S^T / dP^T through
+descriptors in place of register fragments; "no ping-pong" lets the
+consumer warpgroups of both kernels issue whenever ready; "row values by
+plain loads" has the producer warp load lse / delta into registers and
+store them, in place of the 4-byte cp.async copies; "dk/dv q tiles of 128"
+streams 128-row Q / dO tiles (m64n128 products for S^T / dP^T, K / V from
+shared memory; ptxas spills, printed); "dq key tiles of 64" streams 64-key
+K / V tiles; "2 stages" / "4 stages" change both rings; the masked walk's
+order: "round-robin walk" (no odd rounds backwards) and "frame tiles first"
+(dk/dv's context tiles last). Each variant's ptxas registers and spills
+are printed.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ import torch.nn.functional as F
 
 from .. import _kernels
 from ..ops import flash_attention as FA
+from ..ops.mask_spec import RelocMask
 from .timing import back_to_back_ms
 
 SOURCE = "flash_fwd_sm90.cu"
@@ -137,6 +143,8 @@ BWD_VARIANTS = {
     "dq key tiles of 64": [("constexpr int DQ_BK = 128;", "constexpr int DQ_BK = 64;")],
     "2 stages": _bwd_stages(2),
     "4 stages": _bwd_stages(4),
+    "round-robin walk": [("constexpr bool SNAKE = true;", "constexpr bool SNAKE = false;")],
+    "frame tiles first": [("constexpr bool CTX_FIRST = true;", "constexpr bool CTX_FIRST = false;")],
 }
 
 
@@ -271,10 +279,11 @@ def forward() -> None:
 
 
 def backward() -> None:
-    """The B9 variants at the train step's sites, b2b, beside SDPA's backward
-    (the masked form, on the first body, is not ablated)."""
+    """The B9 variants at the train step's sites, unmasked and under the
+    reloc layer's RelocMask, b2b, beside SDPA's backward."""
     libs, logs = build_all(BWD_VARIANTS, BWD_SOURCE, "ablation_attention_bwd",
-                           ("sfm_flash_bwd_dq_sm90", "sfm_flash_bwd_dkv_sm90"))
+                           ("sfm_flash_bwd_dq_sm90", "sfm_flash_bwd_dkv_sm90",
+                            "sfm_flash_bwd_dq_reloc_sm90", "sfm_flash_bwd_dkv_reloc_sm90"))
     for name, log in logs.items():
         spills = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                   if "spill" in ln or "Used" in ln or "C75" in ln]
@@ -287,23 +296,32 @@ def backward() -> None:
     stream = torch.cuda.current_stream().cuda_stream
     scale = 64**-0.5
     tol = lambda ref: 4 * 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)  # noqa: E731
-    sites = (("vit", 32, 1374, 1374), ("frame", 64, 1374, 1374), ("global", 16, 2748, 2748),
-             ("split context", 32, 1374, 610))
+    mask = RelocMask(610, 1374, 2)
+    sites = (("vit", 32, 1374, 1374, None), ("frame", 64, 1374, 1374, None),
+             ("global", 16, 2748, 2748, None), ("split context", 32, 1374, 610, None),
+             ("reloc layer 0, masked", 16, mask.nq, mask.nk, mask))
     rows = {name: [] for name in libs}
     sdpa = []
-    for site, bh, nq, nk in sites:
+    for site, bh, nq, nk, mask in sites:
         q, do, k, v = randn(bh, nq, 64), randn(bh, nq, 64), randn(bh, nk, 64), randn(bh, nk, 64)
-        o, lse = FA.flash_fwd_plain(q, k, v)
+        o, lse = FA.flash_fwd_plain(q, k, v, mask)
         delta = FA._delta(o, do).contiguous()
-        ref = FA.flash_bwd_plain(q, k, v, o, lse, do)
+        ref = FA.flash_bwd_plain(q, k, v, o, lse, do, mask=mask)
         for name, lib in libs.items():
             dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
             args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                     delta.data_ptr())
-            call_dq = lambda: _launch(lib.sfm_flash_bwd_dq_sm90(  # noqa: E731
-                *args, dq.data_ptr(), bh, nq, nk, scale * LOG2E, scale, stream), name)
-            call_dkv = lambda: _launch(lib.sfm_flash_bwd_dkv_sm90(  # noqa: E731
-                *args, dk.data_ptr(), dv.data_ptr(), bh, nq, nk, scale * LOG2E, scale,
+            if mask is None:
+                dq_entry, dkv_entry, extra = (lib.sfm_flash_bwd_dq_sm90,
+                                              lib.sfm_flash_bwd_dkv_sm90, ())
+            else:
+                dq_entry, dkv_entry, extra = (lib.sfm_flash_bwd_dq_reloc_sm90,
+                                              lib.sfm_flash_bwd_dkv_reloc_sm90,
+                                              (mask.n_ctx, mask.frame_size))
+            call_dq = lambda: _launch(dq_entry(  # noqa: E731
+                *args, dq.data_ptr(), bh, nq, nk, *extra, scale * LOG2E, scale, stream), name)
+            call_dkv = lambda: _launch(dkv_entry(  # noqa: E731
+                *args, dk.data_ptr(), dv.data_ptr(), bh, nq, nk, *extra, scale * LOG2E, scale,
                 stream), name)
             call_dq()
             call_dkv()
@@ -314,17 +332,20 @@ def backward() -> None:
                         raise AssertionError(f"{name} at {site}: {label} out of tolerance")
             rows[name].append((back_to_back_ms(call_dq), back_to_back_ms(call_dkv)))
         qm, km, vm = (t[None].detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qm, km, vm)
+        attn_mask = None if mask is None else mask.materialize("cuda")
+        out = F.scaled_dot_product_attention(qm, km, vm, attn_mask=attn_mask)
         sdpa.append(back_to_back_ms(lambda: torch.autograd.grad(  # noqa: E731
             out, (qm, km, vm), do[None], retain_graph=True)))
         del q, do, k, v, o, lse, delta, ref, out, qm, km, vm
         torch.cuda.empty_cache()
     print("ms, 20 launches back to back, dq / dk/dv: " + " | ".join(
-        f"{site} ({bh}, {nq}, {nk})" for site, bh, nq, nk in sites))
+        f"{site} ({bh}, {nq}, {nk})" for site, bh, nq, nk, _ in sites))
     for name, ts in rows.items():
         print(f"  {name:28s} " + " | ".join(f"{a:.4f} / {b:.4f}" for a, b in ts))
     print(f"  {'SDPA backward (all three)':28s} " + " | ".join(f"{t:.4f}" for t in sdpa))
-    flops = [2.0 * bh * nq * nk * 64 for _, bh, nq, nk in sites]
+    # a product over the allowed pairs
+    flops = [2.0 * bh * nq * (nk if m is None else m.n_ctx + m.frame_size) * 64
+             for _, bh, nq, nk, m in sites]
     for name, ts in rows.items():
         print(f"  {name:28s} TFLOP/s dq / dk/dv: " + " | ".join(
             f"{3 * f / a / 1e9:.0f} / {4 * f / b / 1e9:.0f}" for f, (a, b) in zip(flops, ts)))

@@ -1,7 +1,8 @@
-"""The Hopper backward body (B9's dq and dk/dv kernels), emulated on the CPU
-and held against the JAX Pallas backward and the port's plain version; the
-"auto" attention gates on the card, shown through meta tensors; the
-source's constants and the ablation tool's patches.
+"""The Hopper backward body (B9's dq and dk/dv kernels, unmasked and under a
+RelocMask), emulated on the CPU and held against the JAX Pallas backward and
+the port's plain version; the masked forms' segment-aligned work tiles
+walked in Python; the "auto" attention gates on the card, shown through
+meta tensors; the source's constants and the ablation tool's patches.
 
 ``csrc/flash_bwd_sm90.cu`` runs only on the card. :func:`_emulate_dkv` and
 :func:`_emulate_dq` repeat its arithmetic tile by tile in PyTorch: the dk/dv
@@ -18,13 +19,25 @@ runs it, on the Pallas forward's own out and lse) and against
 ``flash_bwd_plain``, with the tolerance phase 2 of ``chip_smoke.py`` applies
 on the card: 4 bf16 ulps at the largest |gradient| of each output.
 
+Under a RelocMask (keys [n_ctx context | F frames of P], a q row of frame f
+seeing the context and frame f's keys) the kernels' work tiles start and end
+at the segments: :func:`_dkv_work` and :func:`_dq_work` transcribe the
+source's decoders, and :func:`_emulate_dkv_masked` / :func:`_emulate_dq_masked`
+repeat the arithmetic over them: a dk/dv work tile of up to 128 keys of one
+segment streams all q rows (context) or its frame's (64 at a time, from the
+frame's first row), a dq work tile of up to 128 q rows of one frame streams
+the context's 128-key tiles, then its frame's; whatever lies past a tile's
+ends gets p = 0 and adds exact zeros. They are held against the Pallas
+``_flash_bwd`` with the mask in interpret mode and ``flash_bwd_plain`` with
+the mask, at 4 ulps.
+
 The gates: on a CUDA tensor (here a meta tensor, which takes the card's
 checks; the launch is recorded in place of a build) the "auto" route of
 ``sdpa``, the frame-context gate, the reloc-split gate and
 ``packed_ctx_attention`` sends fp32 sites and head dims other than 64 to the
 dense path and bf16 sites to the kernels; ``impl="flash"`` with fp32 still
-meets the kernel's refusal; an unmasked ``flash_bwd`` reaches the Hopper
-entries, a RelocMask the first body's.
+meets the kernel's refusal; ``flash_bwd`` reaches the Hopper body's
+unmasked entries, or its RelocMask entries with a mask.
 """
 
 import math
@@ -37,6 +50,7 @@ import pytest
 import torch
 
 from self_supervise_sfm_tpu.ops import flash_attention as JFA
+from self_supervise_sfm_tpu.ops.mask_spec import RelocMask as JRelocMask
 from self_supervise_sfm_tpu_torch import _kernels as TK
 from self_supervise_sfm_tpu_torch.layers import attention as TAT
 from self_supervise_sfm_tpu_torch.ops import attention_core as TAC
@@ -58,6 +72,7 @@ def _const(name: str) -> str:
 
 KV_BM, KV_BQ, DQ_BM, DQ_BK = (int(_const(n)) for n in ("KV_BM", "KV_BQ", "DQ_BM", "DQ_BK"))
 KV_STAGES, DQ_STAGES = int(_const("KV_STAGES")), int(_const("DQ_STAGES"))
+SNAKE, CTX_FIRST = (_const(n) == "true" for n in ("SNAKE", "CTX_FIRST"))
 D = 64
 LOG2E = 1.4426950408889634
 SMS = 132
@@ -205,10 +220,285 @@ def test_edge_selects_keep_nan_and_inf_out():
     assert torch.isinf(p[0]) and p[1] == 1.0
     assert torch.equal(torch.where(torch.tensor([False, False]), p, torch.zeros(2)),
                        torch.zeros(2))
-    for line in ("if (edge) pe = k0 + 8 * j + 2 * t + (e & 1) < p.nk ? pe : 0.f;",
-                 "const bool ok = ((e >> 1) ? kok1 : kok0) && q0 + c + (e & 1) < p.nq;",
+    for line in ("if (edge) pe = k0 + 8 * j + 2 * t + (e & 1) < k_end ? pe : 0.f;",
+                 "const bool ok = ((e >> 1) ? kok1 : kok0) && q0 + c + (e & 1) < w.s_end;",
                  "pe = ok ? pe : 0.f;"):
         assert line in SOURCE, line
+
+
+# -- the RelocMask forms: segment-aligned work tiles ---------------------------
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _params(slices: int, nq: int, nk: int, mask, kernel: str) -> dict:
+    """The fields of the source's Params a launch sets (launch_dq /
+    launch_dkv): without a mask the context is all nk keys and the q rows
+    one frame."""
+    n_ctx, frame = (nk, nq) if mask is None else (mask.n_ctx, mask.frame_size)
+    p = dict(slices=slices, nq=nq, nk=nk, n_ctx=n_ctx, frame=frame, frames=nq // frame)
+    if kernel == "dq":
+        p["tiles"] = slices * p["frames"] * _cdiv(frame, DQ_BM)
+    else:
+        own = p["frames"] * _cdiv(frame, KV_BM) if mask is not None else 0
+        p["tiles"] = slices * (_cdiv(n_ctx, KV_BM) + own)
+    return p
+
+
+def _dkv_work(p: dict, t: int, masked: bool):
+    """dkv_work: (slice, r0, r_end, s0, s_end) of dk/dv work tile t, keys
+    [r0, r_end) against q rows [s0, s_end)."""
+    ctx_tiles = _cdiv(p["n_ctx"], KV_BM)
+    ctx = p["slices"] * ctx_tiles
+    if masked and not CTX_FIRST:
+        t = (t + ctx) % p["tiles"]
+    if not masked or t < ctx:
+        k0 = (t % ctx_tiles) * KV_BM
+        return t // ctx_tiles, k0, min(k0 + KV_BM, p["n_ctx"]), 0, p["nq"]
+    t -= ctx
+    per_frame = _cdiv(p["frame"], KV_BM)
+    per_slice = p["frames"] * per_frame
+    r = t % per_slice
+    f0 = (r // per_frame) * p["frame"]
+    k0 = p["n_ctx"] + f0 + (r % per_frame) * KV_BM
+    return t // per_slice, k0, min(k0 + KV_BM, p["n_ctx"] + f0 + p["frame"]), f0, f0 + p["frame"]
+
+
+def _dq_work(p: dict, t: int, masked: bool):
+    """dq_work: (slice, r0, r_end, s0, s_end) of dq work tile t, q rows
+    [r0, r_end) and own-frame keys [s0, s_end)."""
+    per_frame = _cdiv(p["frame"], DQ_BM)
+    per_slice = p["frames"] * per_frame
+    r = t % per_slice
+    f0 = (r // per_frame) * p["frame"]
+    q0 = f0 + (r % per_frame) * DQ_BM
+    own = p["n_ctx"] + f0 if masked else 0
+    return t // per_slice, q0, min(q0 + DQ_BM, f0 + p["frame"]), own, own + p["frame"] if masked else 0
+
+
+def _dq_key_tiles(p: dict, w):
+    """dq_key_tile over a work tile's steps: (k0, end) of each key tile."""
+    ctx = _cdiv(p["n_ctx"], DQ_BK)
+    for i in range(ctx + _cdiv(w[4] - w[3], DQ_BK)):
+        k0 = i * DQ_BK if i < ctx else w[3] + (i - ctx) * DQ_BK
+        yield k0, min(k0 + DQ_BK, p["n_ctx"] if i < ctx else w[4])
+
+
+def _kv_q_tiles(w):
+    """The q tiles a dk/dv work tile streams: (q0, end of its rows)."""
+    return [(q0, min(q0 + KV_BQ, w[4])) for q0 in range(w[3], w[4], KV_BQ)]
+
+
+def _emulate_dkv_masked(q, k, v, do, lse, delta, mask):
+    """dk, dv as the RelocMask dk/dv kernel computes them: each work tile's
+    keys against its q rows in tiles of KV_BQ, in order (one slice's walk;
+    every slice alike)."""
+    c, scale = _scales()
+    S, nq, d = q.shape
+    nk = k.shape[1]
+    lse2 = _lse2(lse)
+    dk, dv = torch.zeros((S, nk, d)), torch.zeros((S, nk, d))
+    p = _params(1, nq, nk, mask, "dkv")
+    for t in range(p["tiles"]):
+        w = _dkv_work(p, t, True)
+        k0, k_end = w[1], w[2]
+        kt, vt = k[:, k0:k_end].float(), v[:, k0:k_end].float()
+        for q0, q1 in _kv_q_tiles(w):
+            qt, dot = q[:, q0:q1].float(), do[:, q0:q1].float()
+            pp = _exp2_ftz(_ffma(torch.matmul(kt, qt.transpose(-1, -2)), c,
+                                 lse2[:, None, q0:q1]))
+            dpt = torch.matmul(vt, dot.transpose(-1, -2))
+            ds = pp * (dpt - delta.float()[:, None, q0:q1]) * torch.tensor(scale)
+            dv[:, k0:k_end] += torch.matmul(pp.to(torch.bfloat16).float(), dot)
+            dk[:, k0:k_end] += torch.matmul(ds.to(torch.bfloat16).float(), qt)
+    return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+def _emulate_dq_masked(q, k, v, do, lse, delta, mask):
+    """dq as the RelocMask dq kernel computes it: each work tile's q rows
+    against the context's key tiles, then its frame's, in order."""
+    c, scale = _scales()
+    S, nq, d = q.shape
+    nk = k.shape[1]
+    lse2 = _lse2(lse)
+    dq = torch.zeros((S, nq, d))
+    p = _params(1, nq, nk, mask, "dq")
+    for t in range(p["tiles"]):
+        w = _dq_work(p, t, True)
+        q0, q1 = w[1], w[2]
+        qt, dot = q[:, q0:q1].float(), do[:, q0:q1].float()
+        for k0, k1 in _dq_key_tiles(p, w):
+            kt, vt = k[:, k0:k1].float(), v[:, k0:k1].float()
+            pp = _exp2_ftz(_ffma(torch.matmul(qt, kt.transpose(-1, -2)), c,
+                                 lse2[:, q0:q1, None]))
+            dp = torch.matmul(dot, vt.transpose(-1, -2))
+            ds = pp * (dp - delta.float()[:, q0:q1, None]) * torch.tensor(scale)
+            dq[:, q0:q1] += torch.matmul(ds.to(torch.bfloat16).float(), kt)
+    return dq.to(torch.bfloat16)
+
+
+# (n_ctx, P, F): context and frame tails at both kinds of boundary, no
+# context, one-row frames, whole 128-row segments, and the train site's
+# 98-key context tail (610 = 4 x 128 + 98) against a frame of 257 rows
+MASKS = {"77x130x2": (77, 130, 2), "0x130x3": (0, 130, 3), "5x1x7": (5, 1, 7),
+         "128x128x2": (128, 128, 2), "98x257x2": (98, 257, 2)}
+MASKED_CASES = [f"{m}{'_dlse' if dl else ''}" for m in MASKS for dl in (False, True)]
+
+
+@pytest.fixture(scope="module")
+def masked_cases():
+    rng = np.random.default_rng(17)
+    out = {}
+    for name in MASKED_CASES:
+        n_ctx, fs, nf = MASKS[name.removesuffix("_dlse")]
+        mask, jmask = RelocMask(n_ctx, fs, nf), JRelocMask(n_ctx, fs, nf)
+        (jq, tq), (jdo, tdo) = (_bf16_pair(rng, (2, mask.nq, D)) for _ in range(2))
+        (jk, tk), (jv, tv) = (_bf16_pair(rng, (2, mask.nk, D)) for _ in range(2))
+        with_dlse = name.endswith("_dlse")
+        jdlse = jnp.asarray(rng.normal(size=(2, mask.nq)), jnp.float32) if with_dlse else None
+        tdlse = None if jdlse is None else torch.from_numpy(np.array(jdlse))
+        j_out, j_lse = JFA._flash_fwd(jq, jk, jv, jmask, 128, 128, True)
+        pallas = JFA._flash_bwd(jq, jk, jv, j_out, j_lse, jdo, jmask, 128, 128, True,
+                                dlse=jdlse)
+        to = torch.from_numpy(np.array(j_out.astype(jnp.float32))).to(torch.bfloat16)
+        tl = torch.from_numpy(np.array(j_lse))
+        delta = TFA._delta(to, tdo, tdlse)
+        emu = (_emulate_dq_masked(tq, tk, tv, tdo, tl, delta, mask),
+               *_emulate_dkv_masked(tq, tk, tv, tdo, tl, delta, mask))
+        plain = TFA.flash_bwd_plain(tq, tk, tv, to, tl, tdo, tdlse, mask)
+        out[name] = dict(emu=emu, pallas=pallas, plain=plain)
+    return out
+
+
+@pytest.mark.parametrize("ref", ["pallas", "plain"])
+@pytest.mark.parametrize("case", MASKED_CASES)
+def test_masked_bwd_schedule_matches(masked_cases, case, ref):
+    for label, got, want in zip(("dq", "dk", "dv"), masked_cases[case]["emu"],
+                                masked_cases[case][ref]):
+        err = float(np.abs(_np(got) - _np(want)).max())
+        tol = _ulps(want, 4)
+        assert err <= tol, f"{case} {label} vs {ref}: max abs error {err} over {tol}"
+
+
+def test_masked_schedule_is_not_the_plain_arithmetic(masked_cases):
+    """The masked emulation rounds where the kernels round (the FFMA, bf16 p
+    / ds a tile at a time, the context's sums before the frame's), not as
+    the plain version: it differs from it somewhere, inside the tolerance."""
+    assert any(not torch.equal(a, b) for case in masked_cases.values()
+               for a, b in zip(case["emu"], case["plain"]))
+
+
+def _walk(tiles: int, masked: bool = False):
+    """The persistent grid (tile_at): block b takes work tile k * grid + b in
+    round k, or k * grid + grid - 1 - b on an odd round of a masked walk."""
+    grid = min(tiles, SMS)
+    walk = {}
+    for b in range(grid):
+        mine, k = [], 0
+        while (t := k * grid + (grid - 1 - b if masked and SNAKE and k % 2 else b)) < tiles:
+            mine.append(t)
+            k += 1
+        walk[b] = mine
+    return walk
+
+
+# the train step's reloc layer 0 and phase 4's 5-query mask-form check
+# (BH, RelocMask), cut to 2 slices: every slice walks alike
+MASK_SITES = {"reloc layer 0": (16, (610, 1374, 2)), "reloc 5 queries": (16, (1525, 1374, 5))}
+WALKS = {**{m: (2, MASKS[m]) for m in MASKS}, **{s: (2, m) for s, (_, m) in MASK_SITES.items()}}
+
+
+@pytest.mark.parametrize("case", list(WALKS))
+def test_masked_walk_visits_each_allowed_pair_once(case):
+    """Across the work tiles of both kernels: every allowed (q, k) pair of
+    every slice is visited once a kernel, and no dead pair inside a tile's
+    ends (dead pairs only in its tails, where p = 0); every key row (dk/dv)
+    and q row (dq) is stored by one work tile; every work tile is taken by
+    one block of the walk."""
+    slices, (n_ctx, fs, nf) = WALKS[case]
+    mask = RelocMask(n_ctx, fs, nf)
+    nq, nk = mask.nq, mask.nk
+    allowed = mask.materialize()[0, 0].numpy()
+    for kernel in ("dkv", "dq"):
+        p = _params(slices, nq, nk, mask, kernel)
+        seen = sorted(t for ts in _walk(p["tiles"], True).values() for t in ts)
+        assert seen == list(range(p["tiles"]))
+        visits = np.zeros((slices, nq, nk), np.int32)
+        stored = np.zeros((slices, nk if kernel == "dkv" else nq), np.int32)
+        for t in range(p["tiles"]):
+            if kernel == "dkv":
+                w = _dkv_work(p, t, True)
+                sl, k0, k_end = w[0], w[1], w[2]
+                assert k_end - k0 <= KV_BM
+                for q0, q1 in _kv_q_tiles(w):
+                    visits[sl, q0:q1, k0:k_end] += 1
+            else:
+                w = _dq_work(p, t, True)
+                sl, k0, k_end = w[0], w[1], w[2]
+                assert k_end - k0 <= DQ_BM
+                for kt0, kt1 in _dq_key_tiles(p, w):
+                    assert kt1 - kt0 <= DQ_BK
+                    visits[sl, k0:k_end, kt0:kt1] += 1
+            stored[sl, k0:k_end] += 1
+        assert (stored == 1).all(), f"{kernel}: a row stored {stored.min()}-{stored.max()} times"
+        assert (visits == allowed[None].astype(np.int32)).all(), \
+            f"{kernel}: pairs visited {visits.max()} times at most, or a dead pair visited"
+
+
+def test_masked_work_tiles_at_the_train_site():
+    """The counts the source's header quotes at the train step's reloc layer
+    0: 27 dk/dv work tiles a slice (5 context of 43 q tiles, 2 x 11 frame
+    of 22) and 22 dq work tiles (of 5 + 11 key tiles); the busiest block's
+    q tiles against the mean, and against a round-robin walk and the frame
+    tiles first; the context's last tile 98 keys, a frame's last 94."""
+    bh, (n_ctx, fs, nf) = MASK_SITES["reloc layer 0"]
+    mask = RelocMask(n_ctx, fs, nf)
+    kv = _params(1, mask.nq, mask.nk, mask, "dkv")
+    dq = _params(1, mask.nq, mask.nk, mask, "dq")
+    works = [_dkv_work(kv, t, True) for t in range(kv["tiles"])]
+    assert kv["tiles"] == 27 and dq["tiles"] == 22
+    steps = [len(_kv_q_tiles(w)) for w in works]
+    assert steps == [43] * 5 + [22] * 22
+    assert {w[2] - w[1] for w in works} == {128, 98, 94}
+    assert {len(list(_dq_key_tiles(dq, _dq_work(dq, t, True)))) for t in range(22)} == {16}
+    assert ("27 dk/dv work tiles a slice (5 context of 43\n//   q tiles, 2 x 11 frame of 22) "
+            "and 22 dq work tiles (of 5 + 11 key\n//   tiles)") in SOURCE
+
+    def busiest(snake: bool, ctx_first: bool) -> int:
+        kvs = _params(bh, mask.nq, mask.nk, mask, "dkv")
+        per = [len(_kv_q_tiles(_dkv_work(kvs, t, True))) for t in range(kvs["tiles"])]
+        if not ctx_first:
+            ctx = bh * 5
+            per = per[ctx:] + per[:ctx]
+        grid = min(len(per), SMS)
+        load = [0] * grid
+        for b in range(grid):
+            k = 0
+            while (t := k * grid + (grid - 1 - b if snake and k % 2 else b)) < len(per):
+                load[b] += per[t]
+                k += 1
+        return max(load), sum(per) / grid
+
+    assert (SNAKE, CTX_FIRST) == (True, True)
+    shipped, mean = busiest(True, True)
+    assert (shipped, round(mean, 1)) == (88, 84.7)
+    assert (busiest(False, True)[0], busiest(True, False)[0]) == (109, 130)
+    assert ("The busiest block streams 88 q tiles of dk/dv against 84.7 on\n//   average "
+            "(109 in a plain round-robin walk, 130 with the frame tiles\n//   first and odd "
+            "rounds backwards).") in SOURCE
+
+
+def test_masked_stores_compare_against_the_work_tiles_end():
+    """A tile's tail rows belong to a neighbour's work tile: the stores and
+    the selects compare against the work tile's ends, never against N."""
+    for line in ("const bool kok0 = key0 < w.r_end, kok1 = key0 + 8 < w.r_end;",
+                 "if (r0 < w.r_end)", "if (r1 < w.r_end)",
+                 "const bool ok = q0 + r < w.s_end;",
+                 "const bool edge = edge_k || q0 + KV_BQ > w.s_end;"):
+        assert line in SOURCE, line
+    assert "< p.nk" not in SOURCE.split("// -- host side")[0]
 
 
 # -- the source: constants, tiles, rounds, the ring and the turns --------------
@@ -245,12 +535,6 @@ def test_constants_tiles_and_shared_memory():
     for prod, cons in (("KV_PRODUCER_REGS", "KV_CONSUMER_REGS"),
                        ("DQ_PRODUCER_REGS", "DQ_CONSUMER_REGS")):
         assert int(_const(prod)) * 128 + 2 * int(_const(cons)) * 128 <= 168 * 384
-
-
-def _walk(tiles: int):
-    """The persistent grid: block b takes work tiles b, b + grid, ..."""
-    grid = min(tiles, SMS)
-    return {b: list(range(b, tiles, grid)) for b in range(grid)}
 
 
 @pytest.mark.parametrize("site", list(SITES))
@@ -406,8 +690,8 @@ def test_kernel_takes_any_cpu_tensor():
 
 @pytest.mark.parametrize("masked", [False, True])
 def test_flash_bwd_routes_by_mask(launches, masked):
-    """An unmasked backward reaches the Hopper body's entries, a RelocMask
-    the first body's; each wrapper counts its launch."""
+    """An unmasked backward reaches the Hopper body's unmasked entries, a
+    RelocMask its RelocMask entries; each wrapper counts its launch."""
     bh, nq = 2, 2 * 130
     mask = RelocMask(77, 130, 2) if masked else None
     nk = nq + 77 if masked else 200
@@ -416,7 +700,7 @@ def test_flash_bwd_routes_by_mask(launches, masked):
     lse = _meta(bh, nq, dtype=F32)
     n0 = (TFA.flash_bwd_dq.launches, TFA.flash_bwd_dkv.launches)
     dq, dk, dv = TFA.flash_bwd(q, k, v, o, lse, do, None, mask)
-    want = ("reloc_bf16" if masked else "sm90")
+    want = ("reloc_sm90" if masked else "sm90")
     assert launches == [f"sfm_flash_bwd_dq_{want}", f"sfm_flash_bwd_dkv_{want}"]
     assert (TFA.flash_bwd_dq.launches, TFA.flash_bwd_dkv.launches) == (n0[0] + 1, n0[1] + 1)
     assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
