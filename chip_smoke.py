@@ -8,8 +8,9 @@ Phases, each of which must pass (any failure exits non-zero):
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    kernel in ``self_supervise_sfm_tpu_torch/csrc`` with ``nvcc`` for sm_90a;
    the registers, spills and shared memory of the Hopper attention body's
-   kernels (K1, K2, K2p), of the Hopper backward body's (B9's dq and dk/dv,
-   unmasked and under a RelocMask; a spill fails the run)
+   kernels (K1, K2, K2p, K1m), of the Hopper backward body's (B9's dq and
+   dk/dv, unmasked and under a RelocMask; a spill in either body fails the
+   run)
    and of the Hopper GEMM body's (MLP-up, MLP-down, the probe, the
    layer-norm pre-pass, LN+QKV+RoPE, LN+QKV, the out-projection), and any
    ptxas advisory that wgmma was serialised (C7518);
@@ -30,7 +31,10 @@ Phases, each of which must pass (any failure exits non-zero):
    counts); B9 at the edges of its tiling and at the train step's sites,
    its RelocMask forms at the edges of their work tiles, at reloc layer 0
    and at the 5-query mask-form shape, a repeat bit-equal, the pair (dq +
-   dk/dv) against SDPA's backward;
+   dk/dv) against SDPA's backward; K1m (the flash forward under a
+   RelocMask) at the 5-query shape bit-equal to K2p on the same problem and
+   within tolerance of its plain version there and at the edges of its
+   segment maps, each edge bit-equal to K2 on the unfolded tensors;
 3. the full-width joint forward: ViT-L/14 + 24 aggregator layers at 518 px,
    bf16 trunk and fp32 heads, 5 anchors + the same 5 images as queries,
    rank 300, random weights from a seeded generator, every trunk block on
@@ -95,7 +99,7 @@ NUM_FRAMES = 5
 IMG = 518
 RANK = 300
 SEED = 0
-# K1, K2 and K2p: one attention body written for Hopper
+# K1, K1m, K2 and K2p: one attention body written for Hopper
 SM90_SOURCE = "self_supervise_sfm_tpu_torch/csrc/flash_fwd_sm90.cu"
 # LN+QKV+RoPE, LN+QKV, the out-projection, MLP-up and MLP-down: one GEMM
 # body written for Hopper
@@ -131,7 +135,7 @@ _KERNEL_CLASSES = (
     ("flash_bwd_dkv (B9)", ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_reloc_sm90_kernel")),
     ("frame_ctx_fwd (K2)", ("frame_ctx_fwd_kernel",)),
     ("frame_ctx_kv2_fwd (K2p)", ("frame_ctx_kv2_fwd_kernel",)),
-    ("flash_fwd_reloc (K1m)", ("flash_fwd_reloc_kernel",)),
+    ("flash_fwd_reloc (K1m)", ("flash_fwd_reloc_sm90_kernel",)),
     ("resize_bilinear (K3)", ("resize_bilinear_ac_kernel",)),
     ("convolution", ("conv", "fprop", "dgrad", "winograd", "implicit")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
@@ -234,7 +238,8 @@ def print_sm90_build() -> None:
 
     from self_supervise_sfm_tpu_torch import _kernels
 
-    names = ("flash_fwd_kernel", "frame_ctx_fwd_kernel", "frame_ctx_kv2_fwd_kernel")
+    names = ("flash_fwd_kernel", "frame_ctx_fwd_kernel", "frame_ctx_kv2_fwd_kernel",
+             "flash_fwd_reloc_sm90_kernel")
     lib = _kernels.library()
     for which, name in enumerate(names):
         info = (ctypes.c_int * 8)()
@@ -245,6 +250,8 @@ def print_sm90_build() -> None:
               f"{info[2]} bytes of dynamic shared memory, {info[3]} stages of {info[5]} keys, "
               f"{info[4]} q rows a tile, setmaxnreg {info[6]} (producer) / {info[7]} "
               f"(consumers)")
+        if info[1]:
+            raise AssertionError(f"{name}: {info[1]} bytes of spills a thread")
     names = ("mlp_up_sm90_kernel", "mlp_down_sm90_kernel", "gemm_probe_sm90_kernel",
              "ln_rows_kernel", "ln_qkv_rope_sm90_kernel", "ln_qkv_sm90_kernel",
              "proj_residual_sm90_kernel")
@@ -692,7 +699,10 @@ def check_serving_kernels(randn, ulps):
     """Phase 2, the two kernels of the serving path: the [context | own
     frame] attention that reads a layer of the kv2 scene cache in place
     (K2p), and the flash forward under a RelocMask (K1m). bf16 outputs,
-    tolerance 4 ulps at the largest output as for K1 / K2."""
+    tolerance 4 ulps at the largest output as for K1 / K2, the lse within
+    1e-4. K1m runs K2's body over segment maps: on the same problem it must
+    equal K2p bit for bit, and at the edges of its maps K2 on the unfolded
+    tensors."""
     import torch
     import torch.nn.functional as F
 
@@ -702,7 +712,6 @@ def check_serving_kernels(randn, ulps):
 
     H, d, depth, Fq = 16, 64, 24, NUM_FRAMES
     P = (IMG // 14) ** 2 + 5
-    src = "self_supervise_sfm_tpu_torch/csrc/flash_attention.cu"
     q, k, v = (randn(Fq, H, P, d) for _ in range(3))
 
     def library(ckv, layer):
@@ -784,38 +793,84 @@ def check_serving_kernels(randn, ulps):
     _check(f"flash_fwd_reloc out {tuple(q3.shape)} x {tuple(k3.shape)} {mask}", err,
            ulps(p_out, 4))
     _check("flash_fwd_reloc lse", float((lse - p_lse).abs().max()), 1e-4)
-    # the three forms of the one problem agree: mask, split and layout
+    # the three forms of the one problem agree: mask, split and layout; the
+    # mask form is the layout form's walk over other maps, bit for bit
     layout = unfold(FA.frame_ctx_packed_fwd(q, k, v, ckv5, 0))[0]
     split = AC.reloc_split_attention(qm, ks, vs, ck, cv, mask)[0]
     _check("mask form vs layout form (K2p)", float((out.float() - layout.float()).abs().max()),
            ulps(p_out, 4))
+    if not torch.equal(out, layout):
+        raise AssertionError("flash_fwd_reloc: not bit-equal to K2p on the same problem")
+    print("  flash_fwd_reloc (K1m): bit-equal to frame_ctx_packed_fwd (K2p) on the same problem")
     _check("split form vs layout form (K2p)",
            float((split.float() - layout.float()).abs().max()), ulps(p_out, 4))
     dense_mask = mask.materialize("cuda")
     allowed = Fq * P * (nc + P)  # entries the mask allows, per head
     bound, by = _bound_ms(4.0 * H * allowed * d,
                           (2 * q3.numel() + 2 * k3.numel()) * 2 + lse.numel() * 4)
+    kernel = lambda: FA.flash_fwd_reloc(q3, k3, v3, mask)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(qm, km, vm, attn_mask=dense_mask)  # noqa: E731
+    split_form = lambda: AC.reloc_split_attention(qm, ks, vs, ck, cv, mask)  # noqa: E731
     r = dict(
-        name="flash_fwd_reloc", route="cuda", source=src,
+        name="flash_fwd_reloc", route="cuda", source=SM90_SOURCE,
         replaces="self_supervise_sfm_tpu/ops/flash_attention.py:140",
         variant="mask=RelocMask", max_abs_err=err, shape=list(q3.shape),
-        ms=_time_ms(lambda: FA.flash_fwd_reloc(q3, k3, v3, mask)),
+        ms=_time_ms(kernel),
         plain_ms=_time_ms(lambda: FA.flash_fwd_plain(q3, k3, v3, mask), reps=3, warmup=1),
         # SDPA with the materialised boolean mask
-        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
-            qm, km, vm, attn_mask=dense_mask)),
+        library_ms=_time_ms(library),
         bound_ms=bound, bound_by=by,
+        back_to_back_ms=_back_to_back_ms(kernel),
+        library_back_to_back_ms=_back_to_back_ms(library),
         # the same problem in the other two forms, for the record
-        split_form_ms=_time_ms(lambda: AC.reloc_split_attention(qm, ks, vs, ck, cv, mask)),
-        layout_form_ms=sites[0]["ms"])
-    print(f"  one reloc attention, three forms: mask (K1m) {r['ms']:.4f} ms, split (two K1 "
-          f"calls + lse merge) {r['split_form_ms']:.4f} ms, layout (K2p) "
-          f"{r['layout_form_ms']:.4f} ms")
+        split_form_ms=_time_ms(split_form),
+        split_form_back_to_back_ms=_back_to_back_ms(split_form),
+        layout_form_ms=sites[0]["ms"], layout_form_back_to_back_ms=sites[0]["back_to_back_ms"])
+    print(f"  one reloc attention, three forms: mask (K1m) {r['ms']:.4f} ms "
+          f"(b2b {r['back_to_back_ms']:.4f}), split (two K1 calls + lse merge) "
+          f"{r['split_form_ms']:.4f} ms (b2b {r['split_form_back_to_back_ms']:.4f}), layout (K2p) "
+          f"{r['layout_form_ms']:.4f} ms (b2b {r['layout_form_back_to_back_ms']:.4f})")
+    _site_line(f"flash_fwd_reloc {tuple(q3.shape)} x {tuple(k3.shape)} {mask}", r)
     results.append(r)
+    del q3, k3, v3, qm, km, vm, ks, vs, out, lse, p_out, p_lse, dense_mask
+    check_reloc_edges(randn, ulps)
     for s_ in sites:
         _site_line(f"frame_ctx_packed_fwd[{s_['site']}]", s_)
     torch.cuda.empty_cache()
     return results
+
+
+def check_reloc_edges(randn, ulps):
+    """Phase 2, K1m at the edges of its segment maps: no context, one frame,
+    frames shorter than a box (40 frames of 37 rows), whole 256-row frames,
+    context and frame tails, frames of 7 rows, whole 128-row segments.
+    Each against ``flash_fwd_plain`` with the mask (4 ulps, the lse within
+    1e-4) and bit-equal to K2 on the unfolded tensors."""
+    import torch
+
+    from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
+    from self_supervise_sfm_tpu_torch.ops.mask_spec import RelocMask
+
+    for H, (n_ctx, P, F) in ((16, (0, 1374, 2)), (16, (1525, 1374, 1)), (16, (77, 37, 40)),
+                             (16, (610, 256, 3)), (2, (77, 130, 2)), (2, (0, 130, 3)),
+                             (2, (128, 128, 2)), (2, (5, 7, 3)), (2, (77, 130, 1))):
+        mask = RelocMask(n_ctx, P, F)
+        q, k, v = randn(H, mask.nq, 64), randn(H, mask.nk, 64), randn(H, mask.nk, 64)
+        out, lse = FA.flash_fwd_reloc(q, k, v, mask)
+
+        def fold(x):  # (H, F * P, 64) -> (F, H, P, 64), frame-major
+            return x.view(H, F, P, 64).transpose(0, 1).contiguous()
+
+        k2 = FA.frame_ctx_fwd(fold(q), fold(k[:, n_ctx:]), fold(v[:, n_ctx:]),
+                              k[None, :, :n_ctx].contiguous(), v[None, :, :n_ctx].contiguous())
+        torch.cuda.synchronize()
+        p_out, p_lse = FA.flash_fwd_plain(q, k, v, mask)
+        _check(f"flash_fwd_reloc edge ({H}, {mask.nq}, {mask.nk}) {mask}",
+               float((out.float() - p_out.float()).abs().max()), ulps(p_out, 4))
+        _check(f"flash_fwd_reloc edge {mask} lse", float((lse - p_lse).abs().max()), 1e-4)
+        if not torch.equal(fold(out), k2):
+            raise AssertionError(f"flash_fwd_reloc edge {mask}: not bit-equal to K2")
+    print("  edges: flash_fwd_reloc bit-equal to frame_ctx_fwd (K2) on the unfolded tensors at each")
 
 
 TRAIN_FRAMES = 2  # frames a scene on the train step (bench.py:bench_train's S)
@@ -1318,6 +1373,9 @@ def run_serving(state):
     err = float((layout.float() - masked.float()).abs().max())
     tol = 4 * 2.0 ** (math.floor(math.log2(float(layout.abs().max()))) - 7)
     _check("reloc layer 0, mask form (K1m) vs layout form (K2p)", err, tol)
+    # one body, one walk: the two forms agree bit for bit
+    expect(torch.equal(layout, masked), "reloc layer 0: mask form not bit-equal to layout form")
+    print(f"  reloc layer 0, mask form bit-equal to layout form: {torch.equal(layout, masked)}")
 
     # -- 2. agreement with the plain path and with the joint forward ---------
     before = {k: w.launches for k, w in wrappers.items()}

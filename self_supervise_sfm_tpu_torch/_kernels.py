@@ -38,7 +38,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _SIGNATURES: Dict[str, List] = {
     "sfm_flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sfm_frame_ctx_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "sfm_flash_fwd_reloc_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # K1m on the same body: bh, nq, nk, n_ctx, frame_size, num_frames
+    "sfm_flash_fwd_reloc_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # the layer stride of the stacked cache is a 64-bit element count
     "sfm_frame_ctx_kv2_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _F, _P],
     # B9 on the Hopper backward body: q, k, v, do, lse, delta, outputs; bh,
@@ -48,7 +49,7 @@ _SIGNATURES: Dict[str, List] = {
     # B9 under a RelocMask on the same body: bh, nq, nk, n_ctx, frame_size
     "sfm_flash_bwd_dq_reloc_sm90": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
     "sfm_flash_bwd_dkv_reloc_sm90": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
-    # which kernel of the sm90 attention body (0 K1, 1 K2, 2 K2p), int[8] out
+    # which kernel of the sm90 attention body (0 K1, 1 K2, 2 K2p, 3 K1m), int[8] out
     "sfm_attention_sm90_info": [_I, _P],
     # which kernel of the sm90 backward body (0 dq, 1 dk/dv, 2 and 3 their
     # RelocMask forms), int[8] out

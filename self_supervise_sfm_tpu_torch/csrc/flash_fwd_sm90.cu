@@ -1,11 +1,12 @@
-// Flash-attention forward (K1) and fused [context | own frame] attention (K2,
-// and K2p against one layer of the kv2 scene cache read in place) on one
-// attention body written for Hopper (sm_90a): TMA loads into a ring of
-// shared-memory stages, wgmma products, warp specialisation. bf16 in, fp32
-// softmax state, head dim 64.
+// Flash-attention forward (K1, and K1m under a RelocMask) and fused [context |
+// own frame] attention (K2, and K2p against one layer of the kv2 scene cache
+// read in place) on one attention body written for Hopper (sm_90a): TMA loads
+// into a ring of shared-memory stages, wgmma products, warp specialisation.
+// bf16 in, fp32 softmax state, head dim 64.
 //
 // Replaces the Pallas TPU kernels
 //   K1:  self_supervise_sfm_tpu/ops/flash_attention.py  _flash_fwd / _kernel
+//   K1m: the same with mask=RelocMask
 //   K2:  self_supervise_sfm_tpu/ops/flash_attention.py  frame_ctx_kernel /
 //        _frame_ctx_kernel
 //   K2p: self_supervise_sfm_tpu/ops/flash_attention.py
@@ -24,7 +25,16 @@
 // (depth, B, H, Nc, 2 * 64) cache: rows of 256 bytes, the k half at the base
 // and the v half 128 bytes further, the layer picked by a coordinate; nothing
 // of the cache is sliced or copied, and the two agree bit for bit on equal
-// values.
+// values. K1m is K2's walk over other tensor maps: under RelocMask(n_ctx, P,
+// F) keys are [n_ctx context | F frames of P] and a q row of frame f sees
+// the context and frame f's keys, so a slice is one frame of one head (bh *
+// F + f), its context tiles are boxes of the first n_ctx rows of k's slice
+// bh and its own tiles boxes of frame f, each from its segment's key 0. The
+// mask lives only in the maps: a box clips at its segment's end, so no tile
+// holds a key its rows may not see; there is no per-element predicate and no
+// dead tile, and on equal values K1m is bit-equal to K2 / K2p. At reloc layer
+// 0, (16, 2748) x (16, 3358), that is 352 work tiles of 5 context and 11 own
+// key tiles; at 5 queries, (16, 6870) x (16, 8395), 880 of 12 + 11.
 //
 // Bound on an H100: operations. 4 * Nq * Nk * 64 FLOPs over the q/k/v/o bytes
 // is 690-3450 FLOP/byte at the main-path sizes, above the card's ~295
@@ -41,9 +51,10 @@
 //   streams 128-key K and V tiles through a ring of 3 shared-memory stages
 //   with a full and an empty mbarrier each, running ahead into the next work
 //   tile while the consumers finish the last one. Tensor maps are 3-D (64, N,
-//   slices) or, for K2's context, 4-D (64, Nc, B * H, layers), so a box never
-//   crosses into the next head; TMA fills rows past N with zeros and counts
-//   the whole box's bytes.
+//   slices) or 4-D: K2's context (64, Nc, B * H, layers), K1m's context (64,
+//   n_ctx, 1, BH) and own keys (64, P, F, BH) at a slice stride of n_ctx + F *
+//   P rows, so a box never crosses into the next head or frame; TMA fills
+//   rows past a segment's end with zeros and counts the whole box's bytes.
 // - two consumer warpgroups own 64 q rows each. S = Q K^T is wgmma
 //   m64n128k16 with both operands read from shared memory through
 //   descriptors in the 128-byte swizzle the TMA box writes (a 64-channel bf16
@@ -98,12 +109,12 @@ constexpr int SMEM_BYTES = 1024 + BAR_OFF + static_cast<int>(sizeof(Barriers));
 
 struct Params {
   bf16* o;
-  float* lse;      // K1 only
+  float* lse;      // K1, K1m
   int nq;          // q rows of a slice
   int nk;          // own keys of a slice
-  int nc;          // context keys of a scene (K2, K2p)
+  int nc;          // context keys of a scene (K2, K2p) or of a head (K1m)
   int heads;       // (K2, K2p) slice = bf * heads + h
-  int frames;      // frames a scene: b = bf / frames
+  int frames;      // frames a scene: b = bf / frames; (K1m) slice = bh * frames + f
   int layer;       // coordinate of the context map's 4th dim
   int q_tiles;     // ceil(nq / BM)
   int tiles;       // q_tiles * slices
@@ -203,8 +214,9 @@ __device__ __forceinline__ void pack_p(const float (&s)[BN / 2], uint32_t (&pa)[
 // -- the attention body -------------------------------------------------------
 
 // The keys of work tile `tile` stream as [context tiles (CTX) | own tiles];
-// the slice of a work tile is its (batch * head), for K2 (bf * H + h).
-template <bool CTX>
+// the slice of a work tile is its (batch * head), for K2 (bf * H + h), for
+// K1m (RELOC, with CTX) its (batch * head * frames + frame).
+template <bool CTX, bool RELOC = false>
 __device__ __forceinline__ void attention(const CUtensorMap* mq, const CUtensorMap* mk,
                                           const CUtensorMap* mv, const CUtensorMap* mck,
                                           const CUtensorMap* mcv, const Params& p) {
@@ -241,8 +253,11 @@ __device__ __forceinline__ void attention(const CUtensorMap* mq, const CUtensorM
       for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
         const int slice = tile / p.q_tiles;
         const int q0 = (tile % p.q_tiles) * BM;
-        int ctx_slice = 0;
-        if (CTX) ctx_slice = (slice / p.heads / p.frames) * p.heads + slice % p.heads;
+        // the context map's coordinates 2 and 3: K2 (scene * H + h, layer),
+        // K1m (0, bh); K1m's own keys are frame slice % F of slice bh
+        int c2 = 0, c3 = p.layer;
+        if (RELOC) c3 = slice / p.frames;
+        else if (CTX) c2 = (slice / p.heads / p.frames) * p.heads + slice % p.heads;
         mbar_wait(q_empty, q_phase ^ 1);  // the previous tile's Q is consumed
         mbar_expect_tx(q_full, Q_BYTES);
         tma_load_3d(base, mq, q_full, 0, q0, slice);
@@ -255,8 +270,11 @@ __device__ __forceinline__ void attention(const CUtensorMap* mq, const CUtensorM
           const uint32_t sk = base + K_OFF + stage * KV_BYTES;
           const uint32_t sv = base + V_OFF + stage * KV_BYTES;
           if (CTX && i < ctx_tiles) {
-            tma_load_4d(sk, mck, full, 0, i * BN, ctx_slice, p.layer);
-            tma_load_4d(sv, mcv, full, 0, i * BN, ctx_slice, p.layer);
+            tma_load_4d(sk, mck, full, 0, i * BN, c2, c3);
+            tma_load_4d(sv, mcv, full, 0, i * BN, c2, c3);
+          } else if (RELOC) {
+            tma_load_4d(sk, mk, full, 0, (i - ctx_tiles) * BN, slice % p.frames, c3);
+            tma_load_4d(sv, mv, full, 0, (i - ctx_tiles) * BN, slice % p.frames, c3);
           } else {
             tma_load_3d(sk, mk, full, 0, (i - ctx_tiles) * BN, slice);
             tma_load_3d(sv, mv, full, 0, (i - ctx_tiles) * BN, slice);
@@ -399,7 +417,7 @@ __device__ __forceinline__ void attention(const CUtensorMap* mq, const CUtensorM
           *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r1) * D + c) =
               pack_bf16(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
       }
-      if (!CTX && t == 0) {
+      if ((!CTX || RELOC) && t == 0) {
         float* lb = p.lse + static_cast<size_t>(slice) * p.nq;
         if (r0 < p.nq) lb[r0] = rs.m[0] * (1.0f / LOG2E) + logf(d0);
         if (r1 < p.nq) lb[r1] = rs.m[1] * (1.0f / LOG2E) + logf(d1);
@@ -436,6 +454,19 @@ frame_ctx_kv2_fwd_kernel(const __grid_constant__ CUtensorMap mq,
   attention<true>(&mq, &mk, &mv, &mck, &mcv, p);
 }
 
+// K1m: slices (bh * F + f); the context rows of k's slice bh, then frame f's
+// keys, through segment maps (its own name, so that a profile tells it apart)
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_reloc_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                            const __grid_constant__ CUtensorMap mk,
+                            const __grid_constant__ CUtensorMap mv,
+                            const __grid_constant__ CUtensorMap mck,
+                            const __grid_constant__ CUtensorMap mcv, const Params p) {
+  attention<true, true>(&mq, &mk, &mv, &mck, &mcv, p);
+}
+
+constexpr int KERNELS = 4;  // K1, K2, K2p, K1m
+
 // -- host side: tensor maps and launches ---------------------------------------
 
 // (slices, n, 64) contiguous
@@ -465,13 +496,13 @@ Params make_params(void* o, void* lse, int slices, int nq, int nk, int nc, int h
 // one a work tile; 0 if there is nothing to launch. The first launch of each
 // kernel checks its registers and sets its dynamic shared memory limit.
 int grid_of(const void* kernel, const Params& p, int* grid) {
-  static const void* ready[3] = {nullptr, nullptr, nullptr};
+  static const void* ready[KERNELS] = {};
   *grid = 0;
   const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   int slot = 0;
-  while (slot < 3 && ready[slot] != nullptr && ready[slot] != kernel) ++slot;
-  if (slot == 3 || ready[slot] != kernel) {
+  while (slot < KERNELS && ready[slot] != nullptr && ready[slot] != kernel) ++slot;
+  if (slot == KERNELS || ready[slot] != kernel) {
     // setmaxnreg moves registers between the warpgroups of a block: the
     // consumers' increase waits until the block's allocation at launch holds
     // it, so a kernel compiled to fewer registers would never get past it
@@ -483,7 +514,7 @@ int grid_of(const void* kernel, const Params& p, int* grid) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (slot < 3) ready[slot] = kernel;
+    if (slot < KERNELS) ready[slot] = kernel;
   }
   *grid = p.tiles < sms ? p.tiles : sms;
   return 0;
@@ -560,15 +591,49 @@ extern "C" int sfm_frame_ctx_kv2_fwd_bf16(const void* q, const void* k, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
+// q / o: (BH, F * P, 64), lse (BH, F * P); k / v: (BH, n_ctx + F * P, 64),
+// keys [context | frames]. The q map reads each frame as a slice of its own
+// (BH * F slices of P rows); the context map runs over the first n_ctx rows
+// of each of k's BH slices, the own map over the F frames of P rows that
+// follow them. An empty context is never loaded; its map gets one row of k.
+extern "C" int sfm_flash_fwd_reloc_sm90(const void* q, const void* k, const void* v, void* o,
+                                        void* lse, int bh, int nq, int nk, int n_ctx,
+                                        int frame_size, int num_frames, float scale_log2,
+                                        void* stream) {
+  if (frame_size <= 0 || num_frames <= 0 || n_ctx < 0 || nq != num_frames * frame_size ||
+      nk != n_ctx + nq)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t slice_bytes = static_cast<uint64_t>(nk) * D * 2;
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const size_t own = static_cast<size_t>(n_ctx) * D;  // 128-byte rows: TMA's 16-byte alignment holds
+  CUtensorMap mq, mk, mv, mck, mcv;
+  if (!encode_rows(&mq, q, frame_size, bh * num_frames) ||
+      !encode_rows64(&mk, kb + own, 4, frame_size, D * 2, num_frames, bh, slice_bytes, BN) ||
+      !encode_rows64(&mv, vb + own, 4, frame_size, D * 2, num_frames, bh, slice_bytes, BN) ||
+      !encode_rows64(&mck, kb, 4, n_ctx, D * 2, 1, bh, slice_bytes, BN) ||
+      !encode_rows64(&mcv, vb, 4, n_ctx, D * 2, 1, bh, slice_bytes, BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p = make_params(o, lse, bh * num_frames, frame_size, frame_size, n_ctx, 1,
+                               num_frames, 0, scale_log2);
+  int grid;
+  const int err = grid_of(reinterpret_cast<const void*>(flash_fwd_reloc_sm90_kernel), p, &grid);
+  if (err != 0 || grid == 0) return err;
+  flash_fwd_reloc_sm90_kernel<<<grid, NTHREADS, SMEM_BYTES,
+                                static_cast<cudaStream_t>(stream)>>>(mq, mk, mv, mck, mcv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // What the body was built with and what the compiler gave each kernel (0 K1,
-// 1 K2, 2 K2p): registers a thread at launch, local (spill) bytes a thread,
+// 1 K2, 2 K2p, 3 K1m): registers a thread at launch, local (spill) bytes a thread,
 // dynamic shared memory a block, ring stages, q rows and keys a tile, and the
 // setmaxnreg counts of the producer and the consumer warpgroups.
 extern "C" int sfm_attention_sm90_info(int which, int* out) {
   cudaFuncAttributes attr;
   const void* fn = which == 0   ? reinterpret_cast<const void*>(flash_fwd_kernel)
                    : which == 1 ? reinterpret_cast<const void*>(frame_ctx_fwd_kernel)
-                                : reinterpret_cast<const void*>(frame_ctx_kv2_fwd_kernel);
+                   : which == 2 ? reinterpret_cast<const void*>(frame_ctx_kv2_fwd_kernel)
+                                : reinterpret_cast<const void*>(flash_fwd_reloc_sm90_kernel);
   const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;

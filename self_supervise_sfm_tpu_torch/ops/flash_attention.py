@@ -1,20 +1,20 @@
 """Flash attention (K1, K1m, B9) and fused [context ‖ own frame] attention (K2, K2p).
 
 Port of ``self_supervise_sfm_tpu/ops/flash_attention.py``. The Pallas TPU
-kernels become hand-written CUDA kernels: K1, K2 and K2p share one body
-written for Hopper in ``csrc/flash_fwd_sm90.cu`` (TMA ring, wgmma, warp
+kernels become hand-written CUDA kernels: K1, K1m, K2 and K2p share one
+body written for Hopper in ``csrc/flash_fwd_sm90.cu`` (TMA ring, wgmma, warp
 specialisation), the B9 pair, unmasked and under a RelocMask, another in
-``csrc/flash_bwd_sm90.cu``; K1m stays on the first body in
-``csrc/flash_attention.cu``. Each sits beside its plain PyTorch version:
+``csrc/flash_bwd_sm90.cu``. Each sits beside its plain PyTorch version:
 
 - :func:`flash_fwd` (K1) replaces ``_flash_fwd``/``_kernel``: online
   softmax in the log2 domain, fp32 state, p cast to v's dtype before PV,
   out in q's dtype plus the natural-log lse. Plain version
   :func:`flash_fwd_plain` repeats that arithmetic densely.
 - :func:`flash_fwd_reloc` (K1m) is the same call under a
-  :class:`~.mask_spec.RelocMask`: the allow predicate per element, key
-  tiles no row of a block can see skipped. Plain version
-  :func:`flash_fwd_plain` with the mask.
+  :class:`~.mask_spec.RelocMask`: K2's walk, one frame's q rows against the
+  context's key tiles, then the frame's own, with the mask expressed by
+  the tensor maps' segments rather than evaluated per element. Plain
+  version :func:`flash_fwd_plain` with the mask.
 - :func:`frame_ctx_fwd` (K2) replaces ``frame_ctx_kernel``: each frame's
   rows attend one softmax over [shared context ‖ own frame]. Plain version
   :func:`_frame_ctx_dense`.
@@ -166,7 +166,7 @@ def flash_fwd_reloc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((BH, Nq), dtype=torch.float32, device=q.device)
     if BH and Nq:
         _kernels.launch(
-            "sfm_flash_fwd_reloc_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            "sfm_flash_fwd_reloc_sm90", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), BH, Nq, Nk, mask.n_ctx,
             mask.frame_size, mask.num_frames, d**-0.5 * LOG2E,
             _kernels.stream_ptr(q),

@@ -4,8 +4,9 @@ Port of ``self_supervise_sfm_tpu/ops/mask_spec.py``. The aggregator's masks
 are block-structured: query tokens see [the whole compressed scene context ‖
 their own frame]. A dense (Nq, Nk) boolean tensor costs O(N^2) memory and
 blocks tile skipping, so the mask is described symbolically: the dense
-attention path materialises it, the flash kernel evaluates it per element
-and skips key tiles no row of a block can see.
+attention path materialises it; the flash kernels (forward and backward)
+never evaluate it per element, but walk work tiles that start and end at
+its segments (the context, each frame).
 """
 
 from __future__ import annotations

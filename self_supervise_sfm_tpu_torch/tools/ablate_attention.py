@@ -1,4 +1,4 @@
-"""What each choice of the Hopper attention bodies (K1, K2; B9) is worth: ablations.
+"""What each choice of the Hopper attention bodies (K1, K2, K1m; B9) is worth: ablations.
 
     python3 -m self_supervise_sfm_tpu_torch.tools.ablate_attention [forward] [backward]
 
@@ -8,11 +8,13 @@ Builds copies of ``csrc/flash_fwd_sm90.cu`` under ``build/ablation_attention/``
 (``sm90_common.cuh`` included from ``csrc/`` through ``-I``) with one
 choice of the design undone by a textual patch (each patch must find its
 text, or the script fails), all builds in parallel, and times the K1
-entry at the ViT, frame and global sites of the main path and the K2 entry
-at the reloc site, 20 launches back to back between CUDA events
-(``tools/timing.py``), each beside SDPA on the same inputs. Every variant
-but "no out stores" computes the same function and is held against the
-plain version with phase 2's tolerance.
+entry at the ViT, frame and global sites of the main path, the K2 entry
+at the reloc site and the K1m entry (the same body under a RelocMask) at
+the 5-query mask-form site (16, 6870) x (16, 8395), RelocMask(1525, 1374,
+5), 20 launches back to back between CUDA events (``tools/timing.py``),
+each beside SDPA on the same inputs (with the boolean mask at the masked
+site). Every variant but "no out stores" computes the same function and is
+held against the plain version with phase 2's tolerance.
 
 Then a sweep of the shipped build at a constant 924 work tiles (seven rounds
 of 132 blocks) with 1 to 64 key tiles each: time a round = fixed cost of a
@@ -215,7 +217,8 @@ def main(argv) -> int:
 
 
 def forward() -> None:
-    libs, _ = build_all(VARIANTS)
+    libs, _ = build_all(VARIANTS, entries=("sfm_flash_fwd_bf16", "sfm_frame_ctx_fwd_bf16",
+                                           "sfm_flash_fwd_reloc_sm90"))
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape):
@@ -258,8 +261,26 @@ def forward() -> None:
     kk, vv = torch.cat([ck.expand(frames, -1, -1, -1), k], 2), torch.cat(
         [cv.expand(frames, -1, -1, -1), v], 2)
     sdpa.append(back_to_back_ms(lambda: F.scaled_dot_product_attention(q, kk, vv)))
+    del q, k, v, ck, cv, kk, vv
+    mask = RelocMask(nc, P, frames)
+    q, k, v = randn(16, mask.nq, 64), randn(16, mask.nk, 64), randn(16, mask.nk, 64)
+    ref, _ = FA.flash_fwd_plain(q, k, v, mask)
+    for name, lib in libs.items():
+        o, lse = torch.empty_like(q), torch.empty(16, mask.nq, device="cuda")
+        call = lambda: _launch(lib.sfm_flash_fwd_reloc_sm90(  # noqa: E731
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), 16, mask.nq,
+            mask.nk, nc, P, frames, scale, stream), name)
+        call()
+        torch.cuda.synchronize()
+        if name != "no out stores" and float((o.float() - ref.float()).abs().max()) > tol(ref):
+            raise AssertionError(f"{name} at K1m: out of tolerance")
+        rows[name].append(back_to_back_ms(call))
+    dense = mask.materialize("cuda")
+    sdpa.append(back_to_back_ms(lambda: F.scaled_dot_product_attention(
+        q[None], k[None], v[None], attn_mask=dense)))
+    del q, k, v, ref, dense
     print("ms, 20 launches back to back: K1 ViT (80, 1374) | K1 frame (160, 1374) | "
-          "K1 global (16, 6870) | K2 (5, 16, 1374) ctx 1525")
+          "K1 global (16, 6870) | K2 (5, 16, 1374) ctx 1525 | K1m (16, 6870) x (16, 8395)")
     for name, ts in rows.items():
         print(f"  {name:24s} " + " | ".join(f"{t:.4f}" for t in ts))
     print(f"  {'SDPA':24s} " + " | ".join(f"{t:.4f}" for t in sdpa))

@@ -33,9 +33,9 @@ the mask, at 4 ulps.
 
 The gates: on a CUDA tensor (here a meta tensor, which takes the card's
 checks; the launch is recorded in place of a build) the "auto" route of
-``sdpa``, the frame-context gate, the reloc-split gate and
-``packed_ctx_attention`` sends fp32 sites and head dims other than 64 to the
-dense path and bf16 sites to the kernels; ``impl="flash"`` with fp32 still
+``sdpa`` (unmasked, and under a RelocMask to K1m), the frame-context gate,
+the reloc-split gate and ``packed_ctx_attention`` sends fp32 sites and head
+dims other than 64 to the dense path and bf16 sites to the kernels; ``impl="flash"`` with fp32 still
 meets the kernel's refusal; ``flash_bwd`` reaches the Hopper body's
 unmasked entries, or its RelocMask entries with a mask.
 """
@@ -640,6 +640,14 @@ def _reloc_split(dtype, d, impl="auto"):
                                    extra_kv=(ck, cv))
 
 
+def _masked_sdpa(dtype, d, impl="auto"):
+    """sdpa under a RelocMask, the train site's reloc layer 0: K1m."""
+    mask = RelocMask(NC, P, 2)
+    q = _meta(1, 4, mask.nq, d, dtype=dtype)
+    k, v = (_meta(1, 4, mask.nk, d, dtype=dtype) for _ in range(2))
+    return TAC.sdpa(q, k, v, mask, impl=impl)
+
+
 def _packed(dtype, d, impl="auto"):
     q, k, v = (_meta(2, 4, P, d, dtype=dtype) for _ in range(3))
     ckv = _meta(3, 1, 4, NC, 2 * d, dtype=dtype)
@@ -649,6 +657,7 @@ def _packed(dtype, d, impl="auto"):
 GATES = {"sdpa": (_sdpa, ["sfm_flash_fwd_bf16"]),
          "frame-context": (_frame_ctx, ["sfm_frame_ctx_fwd_bf16"]),
          "reloc split": (_reloc_split, ["sfm_flash_fwd_bf16"] * 2),
+         "masked sdpa": (_masked_sdpa, ["sfm_flash_fwd_reloc_sm90"]),
          "packed cache": (_packed, ["sfm_frame_ctx_kv2_fwd_bf16"])}
 
 

@@ -1,5 +1,6 @@
-"""The tile schedule of the Hopper attention body (K1, K2, K2p), emulated on
-the CPU and held against the JAX Pallas kernels and the port's plain versions.
+"""The tile schedule of the Hopper attention body (K1, K1m, K2, K2p), emulated
+on the CPU and held against the JAX Pallas kernels and the port's plain
+versions.
 
 ``csrc/flash_fwd_sm90.cu`` runs only on the card. :func:`_emulate` repeats its
 arithmetic tile by tile in PyTorch: 128-key tiles whose ragged tail is
@@ -8,14 +9,19 @@ select; the running max in the log2 domain; p = exp2(s * c - m) with one
 rounding of the argument (the kernel's FFMA), flushed to zero below 2^-126
 (ex2.approx.ftz) and rounded to bf16 against the running max before PV;
 O = O * alpha + P V a tile; out = O * (1 / l); for K2 the context tiles of
-the frame's scene, then the frame's own tiles, in one softmax. It is held
-against the Pallas kernels in interpret mode (as ``test_torch_attention.py``
-runs them) and against the port's plain versions with the tolerance phase 2
-of ``chip_smoke.py`` applies on the card: 4 bf16 ulps at the largest output,
-lse within 1e-4.
+the frame's scene, then the frame's own tiles, in one softmax; for K1m
+(the flash forward under a RelocMask) K2's order over the mask's segments:
+a slice is one frame of one head, streaming the head's context tiles, then
+the frame's own, each from its segment's key 0. It is held against the
+Pallas kernels in interpret mode (as ``test_torch_attention.py`` runs them)
+and against the port's plain versions with the tolerance phase 2 of
+``chip_smoke.py`` applies on the card: 4 bf16 ulps at the largest output,
+lse within 1e-4. K1m's walk (its producer's box coordinates, transcribed)
+is checked pair by pair against the mask.
 """
 
 import math
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,11 +29,18 @@ import pytest
 import torch
 
 from self_supervise_sfm_tpu.ops import flash_attention as JFA
+from self_supervise_sfm_tpu.ops.mask_spec import RelocMask as JRelocMask
+from self_supervise_sfm_tpu_torch import _kernels as TK
 from self_supervise_sfm_tpu_torch.ops import flash_attention as TFA
+from self_supervise_sfm_tpu_torch.ops.mask_spec import RelocMask
 
 torch.set_num_threads(1)
 
+CSRC = Path(TFA.__file__).resolve().parents[1] / "csrc"
+SOURCE = (CSRC / "flash_fwd_sm90.cu").read_text()
+BM = 128  # q rows a work tile of the kernel
 BK = 128  # keys a K / V tile of the kernel
+SMS = 132
 D = 64
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -186,3 +199,164 @@ def test_k2_context_tiles_restart_at_key_zero(k2_case):
     two = k2_case["emu"]
     assert not torch.equal(one.reshape(two.shape), two)  # NC = 77 is not a tile multiple
     _assert_close(one.reshape(two.shape), two, _ulps(two, 4), "one source vs two")
+
+
+# -- K1m: the flash forward under a RelocMask, K2's walk over segment maps -----
+
+# (n_ctx, P, F): context and frame tails, no context, whole 128-row segments,
+# frames shorter than a box, one frame
+K1M_MASKS = {"77x130x2": (77, 130, 2), "0x130x3": (0, 130, 3), "128x128x2": (128, 128, 2),
+             "5x7x3": (5, 7, 3), "77x130x1": (77, 130, 1)}
+K1M_BH = 2
+
+
+def _emulate_reloc(q, k, v, mask):
+    """K1m's schedule: q (BH, F*P, d) read as BH*F slices of P rows (slice =
+    bh * F + f), each streaming the first n_ctx rows of k's slice bh, then
+    frame f's P keys; out (BH, F*P, d) and the lse (BH, F*P)."""
+    BH, _, d = q.shape
+    n_ctx, P, F = mask.n_ctx, mask.frame_size, mask.num_frames
+    slices = lambda x: x.reshape(BH * F, P, d)  # noqa: E731
+    ctx = lambda x: x[:, :n_ctx].repeat_interleave(F, dim=0)  # noqa: E731
+    out, lse = _emulate(slices(q), [(ctx(k), ctx(v)), (slices(k[:, n_ctx:]), slices(v[:, n_ctx:]))],
+                        lse=True)
+    return out.reshape(q.shape), lse.reshape(BH, F * P)
+
+
+@pytest.fixture(scope="module")
+def k1m_cases():
+    rng = np.random.default_rng(13)
+    cases = {}
+    for name, (n_ctx, P, F) in K1M_MASKS.items():
+        mask, jmask = RelocMask(n_ctx, P, F), JRelocMask(n_ctx, P, F)
+        (jq, tq), (jk, tk), (jv, tv) = (_bf16_pair(rng, (K1M_BH, n, D))
+                                        for n in (mask.nq, mask.nk, mask.nk))
+        j_out, j_lse = JFA._flash_fwd(jq, jk, jv, jmask, 128, BK, True)
+        cases[name] = dict(torch=(tq, tk, tv, mask), emu=_emulate_reloc(tq, tk, tv, mask),
+                           pallas=(j_out, j_lse),
+                           plain=TFA.flash_fwd_plain(tq, tk, tv, mask))
+    return cases
+
+
+@pytest.mark.parametrize("ref", ["pallas", "plain"])
+@pytest.mark.parametrize("case", list(K1M_MASKS))
+def test_k1m_schedule_matches(k1m_cases, case, ref):
+    out, lse = k1m_cases[case]["emu"]
+    r_out, r_lse = k1m_cases[case][ref]
+    _assert_close(out, r_out, _ulps(r_out, 4), f"K1m {case} out vs {ref}")
+    _assert_close(lse, r_lse, 1e-4, f"K1m {case} lse vs {ref}")
+
+
+@pytest.mark.parametrize("case", list(K1M_MASKS))
+def test_k1m_is_k2_on_the_unfolded_tensors(k1m_cases, case):
+    """The same problem in layout form: frame-major (F, H, P, d) q / k / v
+    and the head's context as K2's (1, H, n_ctx, d). K2's schedule over them
+    gives K1m's output bit for bit (the kernels are held to this on the
+    card, K1m against K2p)."""
+    tq, tk, tv, mask = k1m_cases[case]["torch"]
+    n_ctx, P, F = mask.n_ctx, mask.frame_size, mask.num_frames
+
+    def fold(x):  # (H, F*P, d) -> (F*H, P, d), slice f * H + h
+        return x.reshape(K1M_BH, F, P, D).transpose(0, 1).reshape(F * K1M_BH, P, D)
+
+    def ctx(x):
+        return x[:, :n_ctx].repeat(F, 1, 1)
+
+    k2 = _emulate(fold(tq), [(ctx(tk), ctx(tv)), (fold(tk[:, n_ctx:]), fold(tv[:, n_ctx:]))])
+    assert torch.equal(fold(k1m_cases[case]["emu"][0]), k2)
+
+
+def _k1m_params(bh: int, mask: RelocMask) -> dict:
+    """make_params of sfm_flash_fwd_reloc_sm90: BH * F slices of P q rows."""
+    slices = bh * mask.num_frames
+    q_tiles = -(-mask.frame_size // BM)
+    return dict(slices=slices, nq=mask.frame_size, nk=mask.frame_size, nc=mask.n_ctx,
+                frames=mask.num_frames, q_tiles=q_tiles, tiles=q_tiles * slices)
+
+
+def _k1m_work(p: dict, tile: int):
+    """The producer's coordinates for work tile ``tile``, transcribed, as
+    global indices of the (BH, F*P, d) q and the (BH, n_ctx + F*P, d) k:
+    (bh, q rows [r0, r1), the key ranges of its tiles in order). A box of
+    the q map (slices of P rows) and of the own map ((64, P, F, BH)) clips at
+    the frame's end, one of the context map ((64, n_ctx, 1, BH)) at n_ctx."""
+    slice_ = tile // p["q_tiles"]
+    q0 = (tile % p["q_tiles"]) * BM
+    c3 = slice_ // p["frames"]  # the context map's coordinate 3: bh
+    f = slice_ % p["frames"]
+    P, nc = p["nq"], p["nc"]
+    keys = [(i * BK, min(i * BK + BK, nc)) for i in range(-(-nc // BK))]
+    own = nc + f * P
+    keys += [(own + j * BK, own + min(j * BK + BK, P)) for j in range(-(-P // BK))]
+    # stores: o + slice * P * 64, rows below P; the lse at slice * P + row
+    return c3, f * P + q0, f * P + min(q0 + BM, P), keys
+
+
+K1M_WALKS = {**{m: (K1M_BH, K1M_MASKS[m]) for m in K1M_MASKS},
+             "reloc layer 0": (16, (610, 1374, 2)), "reloc 5 queries": (16, (1525, 1374, 5))}
+
+
+@pytest.mark.parametrize("case", list(K1M_WALKS))
+def test_k1m_walk_visits_each_allowed_pair_once(case):
+    """Over K1m's work tiles: every allowed (q, k) pair of every head is
+    visited once and no other pair is (the mask lives only in the maps);
+    every q row is stored by one work tile; every work tile is taken by one
+    block of the persistent grid."""
+    bh, (n_ctx, P, F) = K1M_WALKS[case]
+    mask = RelocMask(n_ctx, P, F)
+    p = _k1m_params(bh, mask)
+    grid = min(p["tiles"], SMS)
+    taken = sorted(t for b in range(grid) for t in range(b, p["tiles"], grid))
+    assert taken == list(range(p["tiles"]))
+    visits = np.zeros((mask.nq, mask.nk), np.uint8)  # summed over the heads
+    stored = np.zeros((bh, mask.nq), np.int32)
+    for t in range(p["tiles"]):
+        h, r0, r1, keys = _k1m_work(p, t)
+        assert r1 - r0 <= BM
+        stored[h, r0:r1] += 1
+        for k0, k1 in keys:
+            assert 0 < k1 - k0 <= BK
+            visits[r0:r1, k0:k1] += 1
+    assert (stored == 1).all()
+    allowed = mask.materialize()[0, 0].numpy()
+    assert (visits == bh * allowed.astype(np.uint8)).all()
+
+
+def test_k1m_work_tiles_at_the_reloc_sites():
+    """The counts the source quotes: 352 work tiles of 5 context and 11 own
+    key tiles at reloc layer 0, 880 of 12 + 11 at 5 queries (K2p's work
+    against the 5-anchor cache, tile for tile)."""
+    for case, want in (("reloc layer 0", (352, 5, 11)), ("reloc 5 queries", (880, 12, 11))):
+        bh, (n_ctx, P, F) = K1M_WALKS[case]
+        p = _k1m_params(bh, RelocMask(n_ctx, P, F))
+        kinds = {(sum(k0 < n_ctx for k0, _ in keys), sum(k0 >= n_ctx for k0, _ in keys))
+                 for *_, keys in (_k1m_work(p, t) for t in range(p["tiles"]))}
+        assert (p["tiles"], *kinds.pop()) == want and not kinds
+    assert ("At reloc layer\n// 0, (16, 2748) x (16, 3358), that is 352 work tiles of 5 context "
+            "and 11 own\n// key tiles; at 5 queries, (16, 6870) x (16, 8395), 880 of 12 + 11."
+            ) in SOURCE
+
+
+def test_k1m_source_is_k2s_body_over_segment_maps():
+    """The producer's box coordinates and maps that :func:`_k1m_work`
+    transcribes, the lse store under RELOC, the kernel's own name, and the
+    first body gone: no mma.sync left under csrc/, the C entry replaced."""
+    for line in (
+            "if (RELOC) c3 = slice / p.frames;",
+            "tma_load_4d(sk, mck, full, 0, i * BN, c2, c3);",
+            "tma_load_4d(sk, mk, full, 0, (i - ctx_tiles) * BN, slice % p.frames, c3);",
+            "tma_load_4d(sv, mv, full, 0, (i - ctx_tiles) * BN, slice % p.frames, c3);",
+            "if ((!CTX || RELOC) && t == 0) {",
+            "attention<true, true>(&mq, &mk, &mv, &mck, &mcv, p);",
+            "!encode_rows(&mq, q, frame_size, bh * num_frames) ||",
+            "!encode_rows64(&mk, kb + own, 4, frame_size, D * 2, num_frames, bh, slice_bytes, BN) ||",
+            "!encode_rows64(&mck, kb, 4, n_ctx, D * 2, 1, bh, slice_bytes, BN) ||",
+            "static const void* ready[KERNELS] = {};"):
+        assert SOURCE.count(line) == 1, line
+    assert "flash_fwd_reloc_sm90_kernel<<<" in SOURCE
+    assert not (CSRC / "flash_attention.cu").exists()
+    for src in CSRC.iterdir():
+        text = src.read_text()
+        assert "mma.sync" not in text and "mma_16816" not in text, src.name
+    assert "sfm_flash_fwd_reloc_sm90" in TK._SIGNATURES
+    assert "sfm_flash_fwd_reloc_bf16" not in TK._SIGNATURES
