@@ -68,9 +68,24 @@ Phases, each of which must pass (any failure exits non-zero):
    plain path's within twice the bf16-vs-fp32 envelope, times, peak memory
    and a profile of one step, with B9's device ms a step.
 
+6. the trainer (``train/trainer.py:run``) around phase 5's full-width step,
+   on numpy-made synthetic scenes at 518 px (no ``h5py`` needed; artifact
+   dumps off, so no matplotlib either): run A takes 6 steps with
+   checkpoints at steps 3 and 6, a profile window over one step, one
+   sanity check and one validation (one 8-frame scene, 2048
+   correspondences a pair); the step-6 checkpoint
+   restored bit-equal to run A's state; the spread of one step from the
+   step-3 checkpoint restored twice; run B resumes from the step-3
+   checkpoint and is held against run A within that spread (bit-equal when
+   it is 0). It prints the trainer's steps/s against phase 5's bare step,
+   the profiled step's idle share and launches, validation and sanity-check
+   ms, checkpoint GB and save / write / restore seconds, and peak GB; run
+   A's launch counts go into the kernel line as the "trainer" path.
+
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2;
-``--train-only`` runs phase 5 alone after the build (its launch counts are
-then not merged into the kernel line, which is not printed).
+``--train-only`` runs phase 5 alone after the build, ``--trainer-only``
+phases 5 and 6 (their launch counts are then not merged into the kernel
+line, which is not printed).
 
 The line before the last is a JSON object of every kernel's numbers (the
 forward's and the serving paths' numbers go on lines of their own before
@@ -1814,6 +1829,371 @@ def run_train():
         loss_f32=float(loss_f), profile=profile, b9_device_ms=b9)
 
 
+class SyntheticScenes:
+    """IMC2021-layout scenes made with numpy alone, so that phase 6 needs no
+    ``h5py`` (the HDF5 fixture of ``data/synthetic.py`` does): the trainer
+    takes this object in place of a data directory (``__len__`` and
+    ``load_scene(idx, rng)``). Scene ``idx``: ``num_images`` cameras on a
+    ring looking at a textured slanted plane ~5 units away, each frame a 640
+    x 480 original (focal 500 px) rendered straight to the processed
+    ``img_size`` (padded to square and resized, as ``K_to_K_prime`` maps
+    it); every ordered pair gets ``sample_num`` correspondences drawn from
+    ``rng`` among the source pixels that land inside the destination frame,
+    with both depths, exact by construction."""
+
+    W0, H0, FOCAL = 640, 480, 500.0
+
+    def __init__(self, num_scenes: int, num_images: int, sample_num: int, img_size: int,
+                 seed: int):
+        self.num_scenes, self.num_images = num_scenes, num_images
+        self.sample_num, self.img_size, self.seed = sample_num, img_size, seed
+        self._frames = {}  # idx -> rendered frames (they do not depend on rng)
+
+    def __len__(self) -> int:
+        return self.num_scenes
+
+    def _geometry(self, idx: int):
+        import numpy as np
+
+        g = np.random.default_rng((self.seed, idx))
+        n = np.array([g.uniform(-0.15, 0.15), g.uniform(-0.15, 0.15), 1.0])
+        plane = (n / np.linalg.norm(n), -g.uniform(4.5, 5.5))
+        tex = g.uniform([1.0, 0.7, 0.0], [3.0, 2.8, 6.28], size=(3, 3))
+        poses = []
+        for i in range(self.num_images):
+            a = 2 * np.pi * i / self.num_images
+            eye = np.array([0.5 * np.cos(a), 0.4 * np.sin(a), g.uniform(-0.2, 0.2)])
+            z = np.array([0.3 * np.sin(a), 0.2 * np.cos(a), 5.0]) - eye
+            z /= np.linalg.norm(z)
+            x = np.cross(z, [0.0, -1.0, 0.0])
+            x /= np.linalg.norm(x)
+            R = np.stack([x, np.cross(z, x), z])
+            poses.append(np.c_[R, -R @ eye])
+        return plane, tex, np.stack(poses)
+
+    def _hit(self, pose, plane, uv):
+        """World points and camera depths where the rays of original-image
+        pixels ``uv`` (N, 2) meet the plane."""
+        import numpy as np
+
+        R, t = pose[:, :3], pose[:, 3]
+        d_cam = np.c_[(uv - [self.W0 / 2, self.H0 / 2]) / self.FOCAL, np.ones(len(uv))]
+        origin, d = -R.T @ t, d_cam @ R
+        n, c = plane
+        s = -(origin @ n + c) / (d @ n)
+        return origin + d * s[:, None], s  # depth = s (d_cam has z = 1)
+
+    def _project(self, pose, pts):
+        import numpy as np
+
+        cam = pts @ pose[:, :3].T + pose[:, 3]
+        K = [[self.FOCAL, 0, self.W0 / 2], [0, self.FOCAL, self.H0 / 2], [0, 0, 1]]
+        pix = cam @ np.asarray(K).T
+        return pix[:, :2] / pix[:, 2:], cam[:, 2]
+
+    def load_scene(self, idx: int, rng) -> dict:
+        import numpy as np
+
+        plane, tex, poses = self._geometry(idx)
+        T, S, N = self.img_size, self.num_images, self.sample_num
+        scale = T / self.W0
+        pad = (self.W0 - self.H0) / 2 * scale  # the original sits centred in the square
+        k2kp = np.array([[scale, 0, 0], [0, scale, pad], [0, 0, 1]], np.float32)
+        kp2k = np.linalg.inv(k2kp).astype(np.float32)
+        Kgt = np.array([[self.FOCAL, 0, self.W0 / 2], [0, self.FOCAL, self.H0 / 2], [0, 0, 1]],
+                       np.float32)
+        if idx not in self._frames:
+            vv, uu = np.mgrid[0:T, 0:T].astype(np.float64)
+            uv = np.c_[uu.ravel(), vv.ravel()] / scale - [0, pad / scale]
+            inside = ((uv[:, 0] >= 0) & (uv[:, 0] < self.W0) & (uv[:, 1] >= 0)
+                      & (uv[:, 1] < self.H0))
+            images, depths = [], []
+            for pose in poses:
+                pts, depth = self._hit(pose, plane, uv)
+                u, v = pts[:, 0] + 0.5 * pts[:, 2], pts[:, 1] - 0.3 * pts[:, 2]
+                rgb = np.stack([0.5 + 0.5 * np.sin(f * u + p) * np.cos(g_ * v)
+                                for f, g_, p in tex], -1)
+                images.append(np.where(inside[:, None], rgb, 0.0).reshape(T, T, 3))
+                depths.append(np.where(inside, depth, 0.0).reshape(T, T))
+            self._frames[idx] = (np.stack(images).astype(np.float32),
+                                 np.stack(depths).astype(np.float32))
+        images, depths = self._frames[idx]
+        pairs = [(i, j) for i in range(S) for j in range(S) if i != j]
+        P = len(pairs)
+        out = {k: np.zeros(shape, np.float32) for k, shape in (
+            ("src_coords", (P, N, 2)), ("dst_coords", (P, N, 2)), ("src_depth", (P, N)),
+            ("dst_depth", (P, N)))}
+        for p, (i, j) in enumerate(pairs):
+            uv = rng.uniform((0, 0), (self.W0, self.H0), size=(3 * N, 2))
+            pts, z_src = self._hit(poses[i], plane, uv)
+            dst, z_dst = self._project(poses[j], pts)
+            ok = np.flatnonzero((dst[:, 0] >= 0) & (dst[:, 0] < self.W0) & (dst[:, 1] >= 0)
+                                & (dst[:, 1] < self.H0) & (z_dst > 0))
+            take = ok[:N] if len(ok) >= N else rng.choice(ok, N, replace=True)
+            out["src_coords"][p], out["dst_coords"][p] = uv[take], dst[take]
+            out["src_depth"][p], out["dst_depth"][p] = z_src[take], z_dst[take]
+        return {
+            "scene_name": f"synthetic_{idx:03d}",
+            "image_names": [f"{i:06d}.jpg" for i in range(S)],
+            "images": images, "depth_processed": depths,
+            "K_to_K_prime": np.broadcast_to(k2kp, (S, 3, 3)).copy(),
+            "K_prime_to_K": np.broadcast_to(kp2k, (S, 3, 3)).copy(),
+            "K_gt": np.broadcast_to(Kgt, (S, 3, 3)).copy(),
+            "poses_w2c_gt": np.concatenate(
+                [poses, np.broadcast_to([0.0, 0, 0, 1], (S, 1, 4))], 1).astype(np.float32),
+            "src_idx": np.array([i for i, _ in pairs], np.int32),
+            "dst_idx": np.array([j for _, j in pairs], np.int32),
+            **out, "pair_valid": np.ones(P, np.float32), "shared_focal": False,
+        }
+
+
+def _trace_summary(path: str) -> dict:
+    """Device busy, wall span, idle share and device launches (kernels,
+    copies, memsets: what ``profile_forward`` counts) of a
+    ``torch.profiler`` chrome trace (the trainer's profile window)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy = sum(e["dur"] for e in device) / 1e3
+    wall = (t1 - t0) / 1e3
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+            "launches": len(device),
+            "kernels": sum(e.get("cat") == "kernel" for e in device)}
+
+
+def run_trainer(bare_step_ms: float):
+    """Phase 6: the trainer (``train/trainer.py:run``) at phase 5's full
+    width on numpy-made synthetic scenes at 518 px (2 frames, 10 000
+    correspondences a pair; validation on one 8-frame scene, 2048 a pair).
+    Run A takes 6 steps: checkpoints at steps 3 and 6, a profile window
+    over step 2, one sanity check and one validation at step 6. The spread
+    of one step from one state: the step-3 checkpoint restored twice, each
+    time stepped on step 3's batch and subsample. Run B resumes from the
+    step-3 checkpoint and takes steps 4-6; its metrics are held against run
+    A's within that spread (bit-equal when the spread is 0), its final
+    state likewise. The step-6 checkpoint restored is bit-equal to run A's
+    final state. Launch counts of run A against the prediction."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from self_supervise_sfm_tpu_torch.train import checkpoint as CK
+    from self_supervise_sfm_tpu_torch.train import loop as L
+    from self_supervise_sfm_tpu_torch.train import trainer as T
+    from self_supervise_sfm_tpu_torch.train.loss import LossConfig
+
+    wrappers = kernel_wrappers()
+    failures = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    times = {"save_s": [], "write_s": [], "restore_s": [], "val_ms": []}
+
+    class TimedCheckpoints(CK.CheckpointManager):
+        def save(self, step, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            saved = super().save(step, state)
+            if saved:
+                times["save_s"].append(time.perf_counter() - t0)
+            return saved
+
+        def _write(self, step, host):
+            t0 = time.perf_counter()
+            super()._write(step, host)
+            times["write_s"].append(time.perf_counter() - t0)
+
+        def restore(self, step=None, template=None):
+            t0 = time.perf_counter()
+            out = super().restore(step, template)
+            torch.cuda.synchronize()
+            times["restore_s"].append(time.perf_counter() - t0)
+            return out
+
+    def timed_validator(*a, **k):
+        validate = make_validator(*a, **k)
+
+        def run(params):
+            t0 = time.perf_counter()
+            out = validate(params)  # two floats on the host: synchronised
+            times["val_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    make_validator = T.make_validator
+    T.CheckpointManager, T.make_validator = TimedCheckpoints, timed_validator
+    work = tempfile.mkdtemp(prefix="trainer_smoke_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    steps, middle = 6, 3
+    train = SyntheticScenes(2, TRAIN_FRAMES, 10_000, IMG, SEED + 11)
+    heldout = SyntheticScenes(1, 8, 2048, IMG, SEED + 12)
+    tcfg = L.TrainConfig(warmup_steps=1, adam_mu_dtype="bfloat16",
+                         loss=LossConfig(max_val=30.0))
+    cfg = T.TrainerConfig(
+        data_root=train, results_dir=os.path.join(work, "a"), total_steps=steps,
+        num_images=TRAIN_FRAMES, sample_num=10_000, rank=RANK, seed=SEED,
+        checkpoint_every=middle, sanity_check_every=steps, eval_every=steps,
+        eval_data_root=heldout, eval_num_images=8, eval_sample_num=2048,
+        artifact_every=0, profile_start=2, profile_steps=1, log_every=1, train=tcfg)
+    print("  artifact dumps off (artifact_every=0): this script runs without matplotlib; "
+          "the CPU tests write the plots")
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state_a = T.run(cfg)
+        torch.cuda.synchronize()
+        run_a_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = {k: w.launches for k, w in wrappers.items()}
+        print(f"  run A: {steps} steps in {run_a_s:.2f} s, peak memory {peak_gb:.2f} GB; "
+              f"launches {launches}")
+        d, v = 24, 24
+        step_n = {"flash_fwd": v + 6 * d, "frame_ctx_fwd": 2 * d, "fused_ln_qkv": v,
+                  "fused_ln_qkv_rope": 6 * d, "fused_proj_residual": v + 6 * d,
+                  "fused_mlp_up": v + 6 * d, "fused_mlp_down": v + 6 * d,
+                  "flash_bwd_dq": v + 4 * d, "flash_bwd_dkv": v + 4 * d}
+        fwd_n = {"flash_fwd": v + 2 * d, "frame_ctx_fwd": d, "resize_bilinear": 2,
+                 "fused_ln_qkv_rope": 3 * d, "fused_ln_qkv": v,
+                 "fused_proj_residual": v + 3 * d, "fused_mlp_up": v + 3 * d,
+                 "fused_mlp_down": v + 3 * d}
+        # 6 train steps, one diagnostics forward (the sanity check) and one
+        # validation forward, each with every head
+        want = {k: steps * step_n.get(k, 0) + 2 * fwd_n.get(k, 0) for k in wrappers}
+        if launches != want:
+            raise AssertionError(f"trainer launch counts {launches}, expected {want}")
+
+        def rows(results, prefix="train"):
+            with open(os.path.join(results, "tensorboard", "metrics.jsonl")) as f:
+                return [r for r in map(json.loads, f) if r["prefix"] == prefix]
+
+        ra = rows(cfg.results_dir)
+        for r in ra:
+            print(f"  step {r['step']}: loss {r['loss']:.6g}, grad_norm {r['grad_norm']:.6g}, "
+                  f"grad_norm_camera {r['grad_norm_camera']:.6g}, learning_rate "
+                  f"{r['learning_rate']:.6g}, step_seconds {r['step_seconds']:.4f}")
+            expect(all(math.isfinite(x) for x in r.values() if isinstance(x, float)),
+                   f"step {r['step']}: non-finite metrics")
+        expect([r["step"] for r in ra] == list(range(1, steps + 1)), "train rows")
+        expect(any(r["loss"] < 2.0 and r["grad_norm_camera"] > 0 for r in ra),
+               "every step saturated the CDF (loss 2, no camera gradient)")
+        # steps/s between consecutive steps, from step 2 on (0-based step 1:
+        # phase 5's median also skips the first step); the profiled step's
+        # interval is left out
+        rate_rows = [r for r in ra[1:] if r["step"] != cfg.profile_start + 1]
+        trainer_ms = statistics.median(1e3 / r["steps_per_sec"] for r in rate_rows)
+        # what else ran in each interval of run A
+        during = {cfg.profile_start + 1: "profiled", middle + 1: "the step-3 save's host copy",
+                  middle + 2: "the step-3 write in flight", middle + 3: "the write in flight"}
+        for r in ra[1:]:
+            print(f"  interval to step {r['step']}: {1e3 / r['steps_per_sec']:.2f} ms"
+                  f" ({during.get(r['step'], 'the step alone')})")
+        print(f"  trainer step {trainer_ms:.2f} ms median of steps "
+              f"{[r['step'] for r in rate_rows]}, {1e3 / trainer_ms:.4f} steps/s; phase 5's "
+              f"bare step {bare_step_ms:.2f} ms ({1e3 / bare_step_ms:.4f} steps/s): trainer / "
+              f"bare {trainer_ms / bare_step_ms:.3f}")
+        prof = _trace_summary(os.path.join(cfg.results_dir, "profile", "trace.json"))
+        print(f"  profiled trainer step {cfg.profile_start + 1}: wall {prof['wall_ms']:.2f} ms, "
+              f"device busy {prof['busy_ms']:.2f} ms (idle share {prof['idle_share']:.3f}), "
+              f"{prof['launches']} device launches ({prof['kernels']} kernels)")
+        (sanity,), (val,) = rows(cfg.results_dir, "sanity"), rows(cfg.results_dir, "val")
+        expect(math.isfinite(sanity["mean_px_offset"]), "sanity offset not finite")
+        expect(math.isfinite(val["px_residual"]) and math.isfinite(val["log_residual"]),
+               "validation not finite")
+        ck = os.path.join(cfg.results_dir, "checkpoints")
+        ckpt_bytes = os.path.getsize(os.path.join(ck, str(middle), "state.pt"))
+        print(f"  sanity check (diagnostics forward + check) {sanity['step_seconds'] * 1e3:.2f} "
+              f"ms, mean offset {sanity['mean_px_offset']:.6g} px; validation "
+              f"{times['val_ms'][0]:.2f} ms, px_residual {val['px_residual']:.6g}, "
+              f"log_residual {val['log_residual']:.6g}")
+        print(f"  checkpoint {ckpt_bytes / 1e9:.3f} GB; save (host copy) "
+              f"{[round(s, 3) for s in times['save_s']]} s, write "
+              f"{[round(s, 3) for s in times['write_s']]} s")
+
+        # the step-6 checkpoint is run A's final state
+        def leaves(state):
+            return L._flatten([state["params"], state["opt"]["mu"], state["opt"]["nu"]])
+
+        mgr = TimedCheckpoints(ck)
+        back = mgr.restore(steps, template=state_a)
+        same = [torch.equal(a, b) for a, b in zip(leaves(back), leaves(state_a))]
+        expect(all(same) and back["step"] == back["opt"]["count"] == steps,
+               "the step-6 checkpoint differs from run A's final state")
+        del back
+
+        # the spread of one step from one state: restore, step, twice
+        model_cfg = T._model_config(cfg)
+        tcfg_run = dataclasses.replace(cfg.train, total_steps=steps, rank=RANK,
+                                       num_images=TRAIN_FRAMES)
+        stream = T.scene_stream(train, range(1), SEED, 1, start=middle)
+        batch = T.batch_to_device(next(stream), torch.device("cuda"))
+        stream.close()
+        step_fn = L.make_train_step(model_cfg, tcfg_run)
+        repeats = []
+        for _ in range(2):
+            s = mgr.restore(middle, template=state_a)
+            _, m = step_fn(s, batch, **T.step_subsample(SEED, middle, "cuda"))
+            repeats.append(T._host_scalars(m))
+            del s, m
+        keys = [k for k in repeats[0] if k not in ("learning_rate",)]
+        spread = max(abs(repeats[0][k] - repeats[1][k]) for k in keys)
+        a4 = ra[middle]  # run A's row for step middle + 1
+        spread_a = max(abs(repeats[0][k] - a4[k]) for k in keys)
+        print(f"  same-state spread of step {middle + 1}: max |diff| over its metrics "
+              f"{spread:.3e} between two restored runs, {spread_a:.3e} against run A; "
+              f"restore {[round(s, 3) for s in times['restore_s']]} s")
+
+        # run B: resume from the middle checkpoint
+        cfg_b = dataclasses.replace(cfg, results_dir=os.path.join(work, "b"),
+                                    checkpoint_every=0, profile_steps=0)
+        os.makedirs(os.path.join(cfg_b.results_dir, "checkpoints"))
+        os.rename(os.path.join(ck, str(middle)),
+                  os.path.join(cfg_b.results_dir, "checkpoints", str(middle)))
+        state_b = T.run(cfg_b)
+        rb = rows(cfg_b.results_dir)
+        expect([r["step"] for r in rb] == list(range(middle + 1, steps + 1)), "resumed rows")
+        # run B saves nothing: its intervals are the trainer with no checkpoint
+        quiet_ms = [1e3 / r["steps_per_sec"] for r in rb[1:]]
+        print(f"  run B, no checkpoint in flight: intervals {[round(x, 2) for x in quiet_ms]} "
+              f"ms, median / bare {statistics.median(quiet_ms) / bare_step_ms:.3f}")
+        diffs = [max(abs(x[k] - y[k]) for k in keys) for x, y in zip(ra[middle:], rb)]
+        leaves_b, leaves_a = leaves(state_b), leaves(state_a)
+        equal_share = sum(bool(torch.equal(a, b)) for a, b in zip(leaves_a, leaves_b)) / len(leaves_a)
+        tol = max(spread, spread_a)
+        print(f"  resumed run B (steps {middle + 1}-{steps}) against run A: max |diff| by step "
+              f"{[f'{x:.3e}' for x in diffs]}; final leaves bit-equal {equal_share:.4f}; "
+              f"tolerance: the same-state spread {tol:.3e}")
+        if tol == 0.0:
+            expect(max(diffs) == 0.0 and equal_share == 1.0,
+                   "the resumed run is not bit-equal to the uninterrupted one")
+        else:
+            expect(diffs[0] <= tol, f"resumed step {middle + 1} off by {diffs[0]} > {tol}")
+        (val_b,) = rows(cfg_b.results_dir, "val")
+        expect(tol > 0 or val_b["px_residual"] == val["px_residual"], "resumed validation")
+        del state_a, state_b
+    finally:
+        T.CheckpointManager, T.make_validator = CK.CheckpointManager, make_validator
+        shutil.rmtree(work, ignore_errors=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, dict(
+        steps=steps, run_a_s=run_a_s, trainer_step_ms=trainer_ms,
+        trainer_steps_per_s=1e3 / trainer_ms, bare_step_ms=bare_step_ms,
+        trainer_over_bare=trainer_ms / bare_step_ms, profile=prof, peak_gb=peak_gb,
+        sanity_ms=sanity["step_seconds"] * 1e3, validation_ms=times["val_ms"],
+        checkpoint_gb=ckpt_bytes / 1e9, save_s=times["save_s"], write_s=times["write_s"],
+        restore_s=times["restore_s"], quiet_step_ms=quiet_ms, spread=spread, spread_vs_a=spread_a,
+        resume_diffs=diffs, resume_equal_share=equal_share,
+        losses=[r["loss"] for r in ra])
+
+
 def main() -> int:
     import torch
 
@@ -1839,6 +2219,15 @@ def main() -> int:
         print("phase 5 alone: full-width train step")
         _, train = run_train()
         print(json.dumps({"train": train}))
+        return 0
+    if "--trainer-only" in sys.argv[1:]:
+        print("phases 5 and 6 alone: the bare train step, then the trainer around it")
+        _, train = run_train()
+        torch.cuda.empty_cache()
+        _, trainer = run_trainer(train["step_ms"])
+        print(f"{card}: trainer {trainer['trainer_steps_per_s']:.4f} steps/s against the bare "
+              f"step's {train['steps_per_s']:.4f}, peak memory {trainer['peak_gb']:.2f} GB")
+        print(json.dumps({"trainer": trainer}))
         return 0
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     print("phase 2: kernels against their plain versions at main-path shapes")
@@ -1870,11 +2259,22 @@ def main() -> int:
         k["launches"] += train_launches[k["name"]]
     print(f"{card}: train step {train['step_ms']:.2f} ms, {train['steps_per_s']:.4f} "
           f"steps/s, peak memory {train['peak_gb']:.2f} GB")
+    torch.cuda.empty_cache()
+    print("phase 6: the trainer (scene stream, checkpoints and resume, validation, "
+          "sanity check) around the full-width step")
+    trainer_launches, trainer = run_trainer(train["step_ms"])
+    for k in kernels:
+        k["launches_by_path"]["trainer"] = trainer_launches[k["name"]]
+        k["launches"] += trainer_launches[k["name"]]
+    print(f"{card}: trainer {trainer['trainer_steps_per_s']:.4f} steps/s against the bare "
+          f"step's {train['steps_per_s']:.4f}, idle share {trainer['profile']['idle_share']:.3f}, "
+          f"checkpoint {trainer['checkpoint_gb']:.2f} GB, peak memory {trainer['peak_gb']:.2f} GB")
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was launched on no path")
     print(json.dumps({"forward": fwd}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"trainer": trainer}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -104,6 +104,19 @@ def _interpolate_pos_embed(pos_embed: torch.Tensor, grid_hw, native_grid: int):
     return torch.cat([pos_embed[:, :1], out.reshape(1, h * w, -1)], dim=1)
 
 
+def resample_pos_embed(pos_embed: torch.Tensor, target_grid: int) -> torch.Tensor:
+    """Resample a stored (1, 1 + g * g, D) pos-embed parameter to a
+    ``target_grid`` square grid, once, at load time: a checkpoint trained at
+    one ``img_size`` carried into a run at another. Non-native inputs at
+    run time go through :func:`_interpolate_pos_embed` inside
+    :func:`vit_forward` instead."""
+    n = pos_embed.shape[1] - 1
+    g = int(round(n ** 0.5))
+    if g * g != n:
+        raise ValueError(f"pos_embed token count {n} is not a square grid")
+    return _interpolate_pos_embed(pos_embed, (target_grid, target_grid), g)
+
+
 def vit_forward(p, images: torch.Tensor, cfg: ViTConfig, compute_dtype=torch.float32):
     """images: (B, H, W, 3), already normalised -> dict of final-norm tokens."""
     B, H, W, _ = images.shape

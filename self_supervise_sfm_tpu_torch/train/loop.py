@@ -299,3 +299,25 @@ def make_train_step(model_cfg: M.SailReconConfig, train_cfg: TrainConfig,
         return state, metrics
 
     return step
+
+
+def make_eval_forward(model_cfg: M.SailReconConfig, train_cfg: TrainConfig,
+                      device="cuda"):
+    """``fwd(params, images, generator=None, subsample_indices=None) ->
+    predictions``: the joint forward with every head on a batch of scenes
+    (B, S, H, W, 3), on the train step's duplicated layout (anchors =
+    queries = the frames), without gradients; the diagnostics forward of
+    the trainer. Runs on ``cuda`` unless ``device="cpu"``."""
+    dev = M._device(device)
+
+    @torch.no_grad()
+    def fwd(params, images, generator=None, subsample_indices=None):
+        images = torch.as_tensor(images).to(dev, torch.float32)
+        S = images.shape[1]
+        return M.forward(
+            M.cast_trunk_weights(params, model_cfg), model_cfg,
+            torch.cat([images, images], dim=1), num_anchor=S, num_query=S,
+            rank=train_cfg.rank, generator=generator,
+            subsample_indices=subsample_indices, images_duplicated=True, device=dev)
+
+    return fwd

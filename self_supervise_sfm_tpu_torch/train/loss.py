@@ -17,7 +17,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..ops import geometry as G
-from ..ops.cdf_loss import CDFLossConfig, cdf_loss
+from ..ops.cdf_loss import CDFLossConfig, cdf_loss, frame_statistics
 
 
 @dataclass(frozen=True)
@@ -66,6 +66,22 @@ def scene_residuals(extrinsic, intrinsic, scene: Dict[str, torch.Tensor],
         "residuals": residuals, "residuals_approx": residuals_a,
         "res_log": torch.log1p(residuals), "res_a_log": torch.log1p(residuals_a),
         "weights": weights, "src_idx": src_idx, "dst_idx": dst_idx,
+    }
+
+
+def scene_cdf_statistics(extrinsic, intrinsic, scene: Dict[str, torch.Tensor],
+                         cfg: LossConfig) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Per-frame (pmf, cdf, pdf) of the exact and the approximated residual
+    distributions of one scene: ``{"exact": ..., "approx": ...}``, each
+    ``{"frame_pmf", "frame_cdf", "frame_pdf"}`` of (S, num_bins)."""
+    S = extrinsic.shape[0]
+    r = scene_residuals(extrinsic, intrinsic, scene, cfg)
+    ccfg = cfg.cdf_cfg(S)
+    return {
+        "exact": frame_statistics(r["res_log"], r["weights"], r["src_idx"],
+                                  r["dst_idx"], ccfg),
+        "approx": frame_statistics(r["res_a_log"], r["weights"], r["src_idx"],
+                                   r["dst_idx"], ccfg),
     }
 
 

@@ -209,9 +209,19 @@ def _port_sources():
     return files + [ROOT / "chip_smoke.py"]
 
 
+# the trainer slice's modules, which the AST check below must reach
+TRAINER_SLICE = ("data/preprocess.py", "data/synthetic.py", "data/imc2021.py",
+                 "native/dataplane.py", "train/checkpoint.py", "train/metrics.py",
+                 "train/validate.py", "train/trainer.py", "utils/export.py",
+                 "utils/sanity_check.py", "utils/vls.py")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     banned = ("jax", "jaxlib", "self_supervise_sfm_tpu")
-    for path in _port_sources():
+    sources = _port_sources()
+    for name in TRAINER_SLICE:
+        assert ROOT / "self_supervise_sfm_tpu_torch" / name in sources, name
+    for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -223,6 +233,50 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             for n in names:
                 top = n.split(".")[0]
                 assert top not in banned, f"{path.relative_to(ROOT)} imports {n}"
+
+
+def test_trainer_imports_with_torch_and_numpy_alone():
+    """h5py, PIL, matplotlib and tensorboardX are imported where they are
+    used, never by importing the trainer (or any module it imports)."""
+    import subprocess
+    import sys
+
+    code = ("import sys; import self_supervise_sfm_tpu_torch.train.trainer; "
+            "print(sorted(m for m in ('h5py', 'PIL', 'matplotlib', 'tensorboardX', 'jax') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_the_port_writes_nothing_under_cpp(tmp_path, monkeypatch):
+    """The data plane's library builds into ``build/dataplane``; no source of
+    the port names a path under ``cpp/`` but the C++ source it reads, and a
+    forced build leaves ``cpp/`` as it was."""
+    import subprocess
+
+    from self_supervise_sfm_tpu_torch.native import dataplane as DP
+
+    for path in _port_sources():
+        for line in path.read_text().splitlines():
+            if '"cpp"' in line:
+                assert "_SRC" in line and "dataplane.cpp" in line, f"{path}: {line}"
+    assert DP._LIB == str(ROOT / "build" / "dataplane" / "libdataplane.so")
+    assert DP._SRC == str(ROOT / "cpp" / "dataplane" / "dataplane.cpp")
+
+    def tree(root):
+        return sorted((str(p.relative_to(root)), p.stat().st_size, p.stat().st_mtime_ns)
+                      for p in root.rglob("*"))
+
+    before = tree(ROOT / "cpp")
+    lib = tmp_path / "lib" / "libdataplane.so"
+    monkeypatch.setattr(DP, "_LIB", str(lib))
+    try:
+        DP.build(force=True)
+    except (OSError, subprocess.CalledProcessError) as e:
+        pytest.skip(f"the data plane does not build here (g++ with libjpeg/libpng): {e}")
+    assert lib.exists()
+    assert tree(ROOT / "cpp") == before
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(setup, monkeypatch):
