@@ -25,10 +25,15 @@ Phases, each of which must pass (any failure exits non-zero):
    peak of an H100 SXM (989 TFLOP/s, 3.35 TB/s); for every site of K1, K2,
    K2p and the fused block kernels the kernel's ratio to its bound and to
    its library call, per call and 20 launches back to back; the layer-norm
-   pre-pass of LN+QKV(+RoPE) and MLP-up alone; K3's rate on its bound's
-   bytes beside the most its back-to-back time lets it move, and K3 at the
-   edges of its thread mapping (4 and 8 channels a thread, ragged pixel
-   counts); B9 at the edges of its tiling and at the train step's sites,
+   pre-pass of LN+QKV(+RoPE) and MLP-up alone; K3 at its two sites: the
+   DPT head's (its rate on its bound's bytes beside the most its
+   back-to-back time lets it move; bit-equal to the one-chunk launch and to
+   one image a chunk) and the fine tracker's, (5120, 16, 16, 32) -> 31 x
+   31 fp32 with no addend (within an fp32 ulp of the plain version,
+   bit-equal across chunkings, timed with every image in one chunk and with
+   the chunk ``ops/resize.py:image_chunk`` picks, beside ``F.interpolate``
+   and its bound), and K3 at the edges of its thread mapping (4 and 8
+   channels a thread, ragged pixel counts, one image a chunk); B9 at the edges of its tiling and at the train step's sites,
    its RelocMask forms at the edges of their work tiles, at reloc layer 0
    and at the 5-query mask-form shape, a repeat bit-equal, the pair (dq +
    dk/dv) against SDPA's backward; K1m (the flash forward under a
@@ -82,10 +87,32 @@ Phases, each of which must pass (any failure exits non-zero):
    ms, checkpoint GB and save / write / restore seconds, and peak GB; run
    A's launch counts go into the kernel line as the "trainer" path.
 
+7. the reconstruction demo (``demos/reconstruct.py:run``) with phase 3's
+   weights and the default ``VGGSfMTrackerConfig()`` (random weights from
+   a seed) on a numpy-made 5-frame scene (``SyntheticScenes`` with a fine
+   checkerboard on its plane, so that the keypoint detector finds 2048
+   corners a frame): ``--mode forward`` and ``--mode reloc`` with
+   ``--tracks-ba`` and 2048 query points, each with its launch counts
+   (phase 3's, or phase 4's build plus reloc, plus one K3 launch per
+   tracker chunk of >= 4365 patches), its PLY / KITTI / ``results.json``
+   outputs and, when a reconstruction survives the gating, its COLMAP
+   models read back (text against binary); the seconds of each stage; the
+   tracker with K3 against the einsum path on 1024 queries (patch features
+   within phase 3's fp32 envelope, tracks after one fine iteration within
+   1e-3 px; the default six iterations printed for the record); the DINO
+   ranking through K1 and LN+QKV against the plain path; one tracking call
+   profiled (idle share, launches); bundle adjustment on known geometry
+   (the plane's points projected with the true poses and K plus 0.5 px
+   noise, the poses perturbed) at 5 frames x 6144 and 20 frames x 10,240
+   tracks with the torch engine (twice: its spread) and the native one:
+   each must bring the RMSE down to the noise and the ATE down, and the
+   two engines' final Huber costs must agree within 1e-3; the peak GB. Its
+   launch counts are the kernel line's "demo" path.
+
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2;
 ``--train-only`` runs phase 5 alone after the build, ``--trainer-only``
-phases 5 and 6 (their launch counts are then not merged into the kernel
-line, which is not printed).
+phases 5 and 6, ``--demo-only`` phase 7 (their launch counts are then not
+merged into the kernel line, which is not printed).
 
 The line before the last is a JSON object of every kernel's numbers (the
 forward's and the serving paths' numbers go on lines of their own before
@@ -98,6 +125,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -119,6 +147,26 @@ SM90_SOURCE = "self_supervise_sfm_tpu_torch/csrc/flash_fwd_sm90.cu"
 # LN+QKV+RoPE, LN+QKV, the out-projection, MLP-up and MLP-down: one GEMM
 # body written for Hopper
 GEMM_SOURCE = "self_supervise_sfm_tpu_torch/csrc/gemm_sm90.cu"
+
+
+# launches of each kernel wrapper in one call at full width (depth 24, 5
+# frames): the joint forward (24 ViT + 24 x (frame, reloc, global) blocks),
+# a scene-cache build (24 ViT + 24 x (frame, global); the context K/V
+# unfused) and a reloc (24 ViT + 24 x (frame, reloc against the cache in
+# place)); ``fast_reloc`` decodes no dense head, so no K3
+_ZERO = dict.fromkeys(("flash_fwd", "frame_ctx_fwd", "frame_ctx_packed_fwd", "flash_fwd_reloc",
+                       "resize_bilinear", "fused_ln_qkv_rope", "fused_ln_qkv",
+                       "fused_proj_residual", "fused_mlp_up", "fused_mlp_down", "flash_bwd_dq",
+                       "flash_bwd_dkv"), 0)
+FORWARD_LAUNCHES = {**_ZERO, "flash_fwd": 72, "frame_ctx_fwd": 24, "resize_bilinear": 2,
+                    "fused_ln_qkv_rope": 72, "fused_ln_qkv": 24, "fused_proj_residual": 96,
+                    "fused_mlp_up": 96, "fused_mlp_down": 96}
+BUILD_LAUNCHES = {**_ZERO, "flash_fwd": 72, "fused_ln_qkv": 24, "fused_ln_qkv_rope": 48,
+                  "fused_proj_residual": 72, "fused_mlp_up": 72, "fused_mlp_down": 72}
+FAST_RELOC_LAUNCHES = {**_ZERO, "flash_fwd": 48, "frame_ctx_packed_fwd": 24, "fused_ln_qkv": 24,
+                       "fused_ln_qkv_rope": 48, "fused_proj_residual": 72, "fused_mlp_up": 72,
+                       "fused_mlp_down": 72}
+RELOC_LAUNCHES = {**FAST_RELOC_LAUNCHES, "resize_bilinear": 2}
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -430,10 +478,18 @@ def check_kernels(gen):
     bound_bytes = x.numel() * 4 + add.numel() * 4 + out.numel() * 2
     bound, by = _bound_ms(0.0, bound_bytes)
     kernel = lambda: RS.resize_bilinear_fwd(x, (IMG, IMG), add, torch.bfloat16)  # noqa: E731
-    results.append(dict(
-        name="resize_bilinear", route="cuda",
-        source="self_supervise_sfm_tpu_torch/csrc/resize.cu",
-        replaces="self_supervise_sfm_tpu/ops/resize.py:51,136",
+    # the DPT site's chunk is every image: the launch of the one-chunk mapping
+    chunk_dpt = RS.image_chunk(NUM_FRAMES, IMG, IMG, 128)
+    one = RS.resize_bilinear_fwd(x, (IMG, IMG), add, torch.bfloat16, img_chunk=NUM_FRAMES)
+    split = RS.resize_bilinear_fwd(x, (IMG, IMG), add, torch.bfloat16, img_chunk=1)
+    torch.cuda.synchronize()
+    dpt_equal = torch.equal(out, one) and torch.equal(out, split)
+    print(f"  resize_bilinear DPT site: chosen chunk {chunk_dpt} of {NUM_FRAMES} images; "
+          f"bit-equal to the one-chunk launch and to one image a chunk: {dpt_equal}")
+    if chunk_dpt != NUM_FRAMES or not dpt_equal:
+        raise AssertionError("resize_bilinear: the DPT site moved off the one-chunk launch")
+    dpt = dict(
+        site="dpt", shape=list(x.shape), out_hw=[IMG, IMG], img_chunk=chunk_dpt,
         max_abs_err=err, max_abs_err_fp32=err32,
         ms=_time_ms(kernel),
         plain_ms=_time_ms(lambda: RS.resize_bilinear_plain(x, (IMG, IMG), add,
@@ -442,21 +498,30 @@ def check_kernels(gen):
         bound_ms=bound, bound_by=by,
         back_to_back_ms=_back_to_back_ms(kernel),
         library_back_to_back_ms=_back_to_back_ms(library),
-    ))
-    r = results[-1]
-    _site_line(f"resize_bilinear {tuple(x.shape)} -> {IMG} bf16", r)
+    )
+    _site_line(f"resize_bilinear {tuple(x.shape)} -> {IMG} bf16", dpt)
     # a model, not a measurement: the device-memory bytes if the addend is
     # read once a call (the bound's) or once an image, beside the most that
     # the measured back-to-back time lets the kernel move at the memory peak
     per_image = bound_bytes + (x.shape[0] - 1) * add.numel() * 4
-    print(f"  resize_bilinear: {bound_bytes / r['ms'] / 1e6:.1f} GB/s a call "
-          f"({bound_bytes / r['back_to_back_ms'] / 1e6:.1f} back to back) on the bound's "
+    print(f"  resize_bilinear: {bound_bytes / dpt['ms'] / 1e6:.1f} GB/s a call "
+          f"({bound_bytes / dpt['back_to_back_ms'] / 1e6:.1f} back to back) on the bound's "
           f"{bound_bytes / 1e6:.1f} MB; model (not measured): {bound_bytes / 1e6:.1f} MB "
           f"if the addend is read once a call, {per_image / 1e6:.1f} MB if once an image; "
           f"at the memory peak its back-to-back time allows at most "
-          f"{r['back_to_back_ms'] * 1e-3 * PEAK_BYTES_PER_S / 1e6:.1f} MB")
-    del x, add, out, ref
+          f"{dpt['back_to_back_ms'] * 1e-3 * PEAK_BYTES_PER_S / 1e6:.1f} MB")
+    del x, add, out, ref, one, split
     torch.cuda.empty_cache()
+    tracker = check_tracker_resize()
+    results.append(dict(
+        name="resize_bilinear", route="cuda",
+        source="self_supervise_sfm_tpu_torch/csrc/resize.cu",
+        replaces="self_supervise_sfm_tpu/ops/resize.py:51,136",
+        # one call at each of the two sites (the DPT head, the fine tracker)
+        max_abs_err=max(dpt["max_abs_err"], tracker["max_abs_err"]),
+        **{k: dpt[k] + tracker[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        bound_by="bytes", sites=[dpt, tracker],
+    ))
     # K3 at the edges of its thread mapping, inputs from a generator of their
     # own: 8 channels a thread (C = 24) and 4 (C = 12), 429 / 286 threads (no
     # multiple of the block), with and without the addend, both stores
@@ -493,6 +558,65 @@ def check_kernels(gen):
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
     return results
+
+
+def check_tracker_resize():
+    """Phase 2, K3 at the fine tracker's site: every 16 x 16 x 32 patch
+    feature of 5 frames x 1024 points upsampled to 31 x 31, fp32, no addend,
+    against the plain version (an fp32 ulp, as the DPT site's fp32 store),
+    bit-equal across chunkings, timed with every image in one chunk (the
+    mapping before the image chunks) and with the chosen chunk, beside the
+    plain version, ``F.interpolate`` and the bound. Inputs from a generator
+    of their own."""
+    import torch
+    import torch.nn.functional as F
+
+    from self_supervise_sfm_tpu_torch.ops import resize as RS
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    n, hw = NUM_FRAMES * 1024, (31, 31)
+    x = torch.randn((n, 16, 16, 32), generator=gen, device="cuda")
+    chunk = RS.image_chunk(n, *hw, 32)
+    if not RS.resize_kernel_applicable(tuple(x.shape), hw) or chunk >= n:
+        raise AssertionError(f"tracker site: gate or chunk ({chunk}) off the design")
+    out = RS.resize_bilinear_fwd(x, hw)
+    one = RS.resize_bilinear_fwd(x, hw, img_chunk=n)
+    torch.cuda.synchronize()
+    ref = RS.resize_bilinear_plain(x, hw)
+    err = float((out - ref).abs().max())
+    _check(f"resize_bilinear tracker site {tuple(x.shape)} -> {hw} fp32", err,
+           1e-5 * float(ref.abs().max()))
+    same = torch.equal(out, one)
+    print(f"  resize_bilinear tracker site: chunk {chunk} ({-(-n // chunk)} chunks) bit-equal "
+          f"to one chunk of {n} images: {same}")
+    if not same:
+        raise AssertionError("resize_bilinear: the chunked launch differs from one chunk")
+
+    def library():
+        return F.interpolate(x.permute(0, 3, 1, 2), size=hw, mode="bilinear",
+                             align_corners=True)
+
+    bound, by = _bound_ms(0.0, x.numel() * 4 + out.numel() * 4)
+    site = dict(
+        site="tracker", shape=list(x.shape), out_hw=list(hw), img_chunk=chunk,
+        max_abs_err=err,
+        ms=_time_ms(lambda: RS.resize_bilinear_fwd(x, hw)),
+        one_chunk_ms=_time_ms(lambda: RS.resize_bilinear_fwd(x, hw, img_chunk=n)),
+        plain_ms=_time_ms(lambda: RS.resize_bilinear_plain(x, hw), reps=5),
+        library_ms=_time_ms(library),
+        bound_ms=bound, bound_by=by,
+        back_to_back_ms=_back_to_back_ms(lambda: RS.resize_bilinear_fwd(x, hw)),
+        one_chunk_back_to_back_ms=_back_to_back_ms(
+            lambda: RS.resize_bilinear_fwd(x, hw, img_chunk=n)),
+        library_back_to_back_ms=_back_to_back_ms(library),
+    )
+    _site_line(f"resize_bilinear tracker site {tuple(x.shape)} -> {hw} fp32, chunk {chunk}",
+               site)
+    print(f"  resize_bilinear tracker site, one chunk of {n} images (the mapping before "
+          f"the chunks): {site['one_chunk_ms']:.4f} ms a call, "
+          f"{site['one_chunk_back_to_back_ms']:.4f} ms back to back; chunk {chunk}: "
+          f"{site['ms']:.4f} / {site['back_to_back_ms']:.4f} ms; bound {bound:.4f} ms")
+    return site
 
 
 def check_attention_edges(randn, ulps):
@@ -1097,12 +1221,7 @@ def run_forward(gen):
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
     print(f"  launches in one forward: {launches}")
-    # per forward: 24 ViT + 24 x (frame, reloc, global) blocks
-    expected = {"flash_fwd": 72, "frame_ctx_fwd": 24, "frame_ctx_packed_fwd": 0,
-                "flash_fwd_reloc": 0, "resize_bilinear": 2,
-                "fused_ln_qkv_rope": 72, "fused_ln_qkv": 24, "fused_proj_residual": 96,
-                "fused_mlp_up": 96, "fused_mlp_down": 96, "flash_bwd_dq": 0,
-                "flash_bwd_dkv": 0}
+    expected = FORWARD_LAUNCHES
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
 
@@ -1336,15 +1455,7 @@ def run_serving(state):
     fast, n_fast = counted(lambda: M.reloc(params, cfg, cache, cam, uniq, fast_reloc=True))
     print(f"  launches in one build: {n_build}")
     print(f"  launches in one reloc: {n_reloc}")
-    zero = dict.fromkeys(wrappers, 0)
-    # build: 24 ViT blocks + 24 x (frame, global); the context K/V is unfused
-    want_build = {**zero, "flash_fwd": 72, "fused_ln_qkv": 24, "fused_ln_qkv_rope": 48,
-                  "fused_proj_residual": 72, "fused_mlp_up": 72, "fused_mlp_down": 72}
-    # reloc: 24 ViT blocks + 24 x (frame, reloc against the cache in place)
-    want_fast = {**zero, "flash_fwd": 48, "frame_ctx_packed_fwd": 24, "fused_ln_qkv": 24,
-                 "fused_ln_qkv_rope": 48, "fused_proj_residual": 72, "fused_mlp_up": 72,
-                 "fused_mlp_down": 72}
-    want_reloc = {**want_fast, "resize_bilinear": 2}
+    want_build, want_fast, want_reloc = BUILD_LAUNCHES, FAST_RELOC_LAUNCHES, RELOC_LAUNCHES
     for name, got, want in (("build", n_build, want_build), ("reloc", n_reloc, want_reloc),
                             ("fast_reloc", n_fast, want_fast)):
         if got != want:
@@ -1844,9 +1955,12 @@ class SyntheticScenes:
     W0, H0, FOCAL = 640, 480, 500.0
 
     def __init__(self, num_scenes: int, num_images: int, sample_num: int, img_size: int,
-                 seed: int):
+                 seed: int, checker: bool = False):
         self.num_scenes, self.num_images = num_scenes, num_images
         self.sample_num, self.img_size, self.seed = sample_num, img_size, seed
+        # a fine checkerboard on the plane (squares of ~4.5 px at 518 px):
+        # thousands of corners for the keypoint detector, as a photograph has
+        self.checker = checker
         self._frames = {}  # idx -> rendered frames (they do not depend on rng)
 
     def __len__(self) -> int:
@@ -1891,6 +2005,35 @@ class SyntheticScenes:
         pix = cam @ np.asarray(K).T
         return pix[:, :2] / pix[:, 2:], cam[:, 2]
 
+    def processed_K(self):
+        """The intrinsics in the processed ``img_size`` frame (K_to_K_prime
+        @ K_gt)."""
+        import numpy as np
+
+        scale = self.img_size / self.W0
+        pad = (self.W0 - self.H0) / 2 * scale
+        return np.array([[scale * self.FOCAL, 0, scale * self.W0 / 2],
+                         [0, scale * self.FOCAL, scale * self.H0 / 2 + pad], [0, 0, 1]])
+
+    def known_tracks(self, idx: int, num_tracks: int, noise_px: float, rng):
+        """Tracks of known geometry: plane points seen from camera 0 projected
+        into every frame with the true poses and the processed K, plus
+        ``noise_px`` Gaussian noise. Returns (tracks (S, N, 2) fp32,
+        visibility (S, N), true w2c (S, 3, 4), K (3, 3)); a frame sees a
+        point that lands inside it in front of the camera."""
+        import numpy as np
+
+        plane, _, poses = self._geometry(idx)
+        uv = rng.uniform((0, 0), (self.W0, self.H0), size=(num_tracks, 2))
+        pts, _ = self._hit(poses[0], plane, uv)
+        K = self.processed_K()
+        cam = np.einsum("sij,nj->sni", poses[:, :, :3], pts) + poses[:, None, :, 3]
+        pix = np.einsum("ij,snj->sni", K, cam)
+        xy = pix[..., :2] / pix[..., 2:]
+        vis = ((cam[..., 2] > 0) & (xy >= 0).all(-1) & (xy < self.img_size).all(-1))
+        tracks = xy + rng.normal(scale=noise_px, size=xy.shape)
+        return tracks.astype(np.float32), vis, poses.astype(np.float32), K
+
     def load_scene(self, idx: int, rng) -> dict:
         import numpy as np
 
@@ -1913,6 +2056,8 @@ class SyntheticScenes:
                 u, v = pts[:, 0] + 0.5 * pts[:, 2], pts[:, 1] - 0.3 * pts[:, 2]
                 rgb = np.stack([0.5 + 0.5 * np.sin(f * u + p) * np.cos(g_ * v)
                                 for f, g_, p in tex], -1)
+                if self.checker:
+                    rgb *= 0.55 + 0.45 * (np.sin(60 * u) * np.sin(60 * v) > 0)[:, None]
                 images.append(np.where(inside[:, None], rgb, 0.0).reshape(T, T, 3))
                 depths.append(np.where(inside, depth, 0.0).reshape(T, T))
             self._frames[idx] = (np.stack(images).astype(np.float32),
@@ -1945,6 +2090,316 @@ class SyntheticScenes:
             "dst_idx": np.array([j for _, j in pairs], np.int32),
             **out, "pair_valid": np.ones(P, np.float32), "shared_focal": False,
         }
+
+
+def _read_model_equal(model_txt: str, model_bin: str) -> list:
+    """The COLMAP model read back from its text and binary files, compared:
+    the differences found (text rounds xyz / poses to 10 digits and the
+    observations to 1e-4 px)."""
+    import numpy as np
+
+    from self_supervise_sfm_tpu_torch.utils.colmap_io import Reconstruction
+
+    a, b = Reconstruction.read_text(model_txt), Reconstruction.read_binary(model_bin)
+    bad = []
+    if set(a.cameras) != set(b.cameras) or set(a.images) != set(b.images) or (
+            set(a.points3d) != set(b.points3d)):
+        return ["ids differ"]
+    for i in a.images:
+        ia, ib = a.images[i], b.images[i]
+        if not (np.allclose(ia.qvec_wxyz, ib.qvec_wxyz, atol=1e-9)
+                and np.allclose(ia.tvec, ib.tvec, rtol=1e-9, atol=1e-9)
+                and np.allclose(ia.xys, ib.xys, atol=1e-4)
+                and np.array_equal(ia.point3d_ids, ib.point3d_ids)):
+            bad.append(f"image {i}")
+    for i in a.points3d:
+        pa, pb = a.points3d[i], b.points3d[i]
+        if not (np.allclose(pa.xyz, pb.xyz, rtol=1e-9, atol=1e-9) and pa.track == pb.track):
+            bad.append(f"point {i}")
+    for i in a.cameras:
+        if not np.allclose(a.cameras[i].params, b.cameras[i].params, rtol=1e-9):
+            bad.append(f"camera {i}")
+    return bad
+
+
+def _rec_residuals(rec):
+    """Reprojection residual norms (O,) of every observation of a
+    Reconstruction, float64 on the host."""
+    import numpy as np
+
+    from self_supervise_sfm_tpu_torch.utils import colmap_io as CIO
+
+    pts, exts, Ks = CIO.reconstruction_to_batch_matrix(rec)
+    _, _, ci, pi, uv = CIO.observations(rec)
+    cam = np.einsum("oij,oj->oi", exts[ci, :, :3], pts[pi]) + exts[ci, :, 3]
+    pix = np.einsum("oij,oj->oi", Ks[ci], cam)
+    return np.linalg.norm(pix[:, :2] / pix[:, 2:] - uv, axis=-1)
+
+
+def _huber_cost(r, delta: float = 4.0) -> float:
+    import numpy as np
+
+    return float(np.where(r <= delta, 0.5 * r * r, delta * (r - 0.5 * delta)).sum())
+
+
+def run_known_geometry_ba(num_frames: int, num_tracks: int):
+    """Phase 7, bundle adjustment on known geometry: tracks of the synthetic
+    plane projected with the true poses and K plus 0.5 px noise, the poses
+    perturbed (camera 0 kept: the gauge), then ``tracks_to_reconstruction``
+    with the torch engine on the card (twice: its spread) and the native
+    engine. Each must bring the reprojection RMSE down to the noise and the
+    ATE against the true poses down; the engines' final Huber costs (one
+    formula over each output, float64) must agree within 1e-3 relative."""
+    import numpy as np
+    import torch
+
+    from self_supervise_sfm_tpu_torch.ops import geometry as G
+    from self_supervise_sfm_tpu_torch.pipeline import tracking as T
+    from self_supervise_sfm_tpu_torch.utils.colmap_io import reconstruction_to_batch_matrix
+    from self_supervise_sfm_tpu_torch.utils.evaluation import absolute_trajectory_error
+
+    rng = np.random.default_rng((SEED, num_frames, num_tracks))
+    scenes = SyntheticScenes(1, num_frames, 16, IMG, SEED + 21)
+    tracks, vis, true_w2c, K = scenes.known_tracks(0, num_tracks, 0.5, rng)
+    init = true_w2c.copy()
+    daa = rng.normal(scale=0.004, size=(num_frames, 3)).astype(np.float32)
+    dR = G.axis_angle_to_mat(torch.from_numpy(daa)).numpy()
+    init[1:, :, :3] = dR[1:] @ init[1:, :, :3]
+    init[1:, :, 3] += rng.normal(scale=0.015, size=(num_frames - 1, 3)).astype(np.float32)
+    Ks = np.broadcast_to(K, (num_frames, 3, 3)).astype(np.float32)
+    noise_rmse = 0.5 * math.sqrt(2.0)
+    failures, res = [], {"frames": num_frames, "tracks": num_tracks,
+                         "observations": int(vis.sum())}
+    ate0 = absolute_trajectory_error(init, true_w2c)["ate_rmse"]
+    outs = {}
+    for name, engine in (("torch", "torch"), ("torch_repeat", "torch"), ("native", "native")):
+        timings = {}
+        t0 = time.perf_counter()
+        rec = T.tracks_to_reconstruction(tracks, vis, init, Ks, image_size=(IMG, IMG),
+                                         ba_engine=engine, device="cuda", timings=timings)
+        wall = time.perf_counter() - t0
+        if rec is None:
+            raise AssertionError(f"known geometry {num_frames} x {num_tracks}: no point "
+                                 "survived the gating")
+        r = _rec_residuals(rec)
+        _, ext, _ = reconstruction_to_batch_matrix(rec)
+        outs[name] = rec
+        row = dict(points=len(rec.points3d), observations=len(r),
+                   rmse_px=float(np.sqrt((r * r).mean())), huber_cost=_huber_cost(r),
+                   ate_rmse=absolute_trajectory_error(ext, true_w2c)["ate_rmse"],
+                   seconds=wall, stage_seconds=timings)
+        res[name] = row
+    # the same reconstruction before the solve: triangulated with the
+    # perturbed poses, gated, no bundle adjustment
+    rec0 = T.tracks_to_reconstruction(tracks, vis, init, Ks, image_size=(IMG, IMG),
+                                      run_ba=False)
+    r0 = _rec_residuals(rec0)
+    res["initial"] = dict(points=len(rec0.points3d), rmse_px=float(np.sqrt((r0 * r0).mean())),
+                          huber_cost=_huber_cost(r0), ate_rmse=ate0)
+    print(f"  known geometry, {num_frames} frames x {num_tracks} tracks "
+          f"({res['observations']} observations, noise 0.5 px, RMSE of the noise "
+          f"{noise_rmse:.4f} px): before BA RMSE {res['initial']['rmse_px']:.4f} px, "
+          f"ATE {ate0:.6f}, {res['initial']['points']} points")
+    for name in ("torch", "torch_repeat", "native"):
+        row = res[name]
+        print(f"    {name}: RMSE {row['rmse_px']:.4f} px, Huber cost {row['huber_cost']:.6f}, "
+              f"ATE {row['ate_rmse']:.6f}, {row['points']} points, {row['seconds']:.3f} s "
+              f"({', '.join(f'{k} {v:.3f} s' for k, v in row['stage_seconds'].items())})")
+        if not (row["rmse_px"] <= 1.5 * noise_rmse and row["rmse_px"] < res["initial"]["rmse_px"]):
+            failures.append(f"{name}: RMSE {row['rmse_px']} not down to the noise")
+        if not row["ate_rmse"] < ate0:
+            failures.append(f"{name}: ATE {row['ate_rmse']} not below {ate0}")
+    rel = abs(res["torch"]["huber_cost"] - res["native"]["huber_cost"]) / res["native"]["huber_cost"]
+    a, b = outs["torch"], outs["torch_repeat"]
+    spread_pts = max(float(np.abs(a.points3d[k].xyz - b.points3d[k].xyz).max())
+                     for k in a.points3d)
+    spread_t = max(float(np.abs(a.images[k].tvec - b.images[k].tvec).max()) for k in a.images)
+    spread_cost = abs(res["torch"]["huber_cost"] - res["torch_repeat"]["huber_cost"])
+    res.update(engines_cost_rel_diff=rel, torch_spread_points=spread_pts,
+               torch_spread_translation=spread_t, torch_spread_cost=spread_cost)
+    print(f"    engines' final Huber costs: relative difference {rel:.3e} (tolerance 1e-3); "
+          f"torch engine spread over two runs: points {spread_pts:.3e}, translations "
+          f"{spread_t:.3e}, cost {spread_cost:.3e}")
+    if rel > 1e-3:
+        failures.append(f"engines' costs differ by {rel} relative")
+    return res, failures
+
+
+def _to_device(tree, device):
+    """A copy of a params tree with every tensor on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device) if hasattr(tree, "to") else tree
+
+
+def run_demo(host_params=None):
+    """Phase 7: the reconstruction demo (``demos/reconstruct.py:run``) at full
+    width in both modes with ``--tracks-ba``, its launch counts, the tracker
+    with K3 against the einsum path, the DINO ranking through the ViT
+    kernels, and bundle adjustment on known geometry with both engines."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from self_supervise_sfm_tpu_torch.demos import reconstruct as D
+    from self_supervise_sfm_tpu_torch.models import sailrecon as M
+    from self_supervise_sfm_tpu_torch.ops import resize as RS
+    from self_supervise_sfm_tpu_torch.pipeline import tracking as T
+    from self_supervise_sfm_tpu_torch.pipeline import vggsfm_tracker as TV
+
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = kernel_wrappers()
+    failures = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    cfg = M.make_config(compute_dtype="bfloat16")
+    if host_params is not None:
+        params = _to_device(host_params, "cuda")
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = M.cast_trunk_weights(M.init_sailrecon(cfg, gen, device="cuda"), cfg)
+    tcfg = TV.VGGSfMTrackerConfig()
+    tp = TV.init_vggsfm_tracker(tcfg, torch.Generator(device="cuda").manual_seed(SEED + 2))
+    ds = SyntheticScenes(1, NUM_FRAMES, 16, IMG, SEED + 17, checker=True)
+    work = tempfile.mkdtemp(prefix="demo_smoke_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    # every tracker call's query count, to predict K3's launches there
+    calls = []
+    orig_track = TV.track
+
+    def recorded(p, images, query_points, *a, **k):
+        calls.append((int(images.shape[1]), int(query_points.shape[1])))
+        return orig_track(p, images, query_points, *a, **k)
+
+    res = {"modes": {}}
+    launches = dict.fromkeys(wrappers, 0)
+    try:
+        TV.track = recorded
+        for mode in ("forward", "reloc"):
+            out_dir = os.path.join(work, mode)
+            args = D.parse_args(["--data-root", "-", "--out-dir", out_dir, "--mode", mode,
+                                 "--num-images", str(NUM_FRAMES), "--num-scenes", "1",
+                                 "--rank", str(RANK), "--tracks-ba",
+                                 "--max-query-pts", "2048"])
+            calls.clear()
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            results = D.run(args, ds, params=params, tracker_params=tp, tracker_cfg=tcfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = {k: w.launches for k, w in wrappers.items()}
+            (name, entry), = results.items()
+            k3_tracker = sum(RS.resize_kernel_applicable((s * q, 16, 16, 32), (31, 31))
+                             for s, q in calls)
+            base = (FORWARD_LAUNCHES if mode == "forward" else
+                    {k: BUILD_LAUNCHES[k] + RELOC_LAUNCHES[k] for k in BUILD_LAUNCHES})
+            want = {**base, "resize_bilinear": base["resize_bilinear"] + k3_tracker}
+            print(f"  demo --mode {mode} --tracks-ba: {wall:.2f} s; tracker calls (frames, "
+                  f"queries) {calls}; launches {n}")
+            expect(n == want, f"demo {mode}: launch counts {n}, expected {want}")
+            expect(k3_tracker > 0, f"demo {mode}: K3 never took the tracker site")
+            for k, v in n.items():
+                launches[k] += v
+            scene_dir = os.path.join(out_dir, name)
+            for f in ("pred.ply", "poses_kitti.txt"):
+                expect(os.path.getsize(os.path.join(scene_dir, f)) > 0, f"demo {mode}: {f}")
+            with open(os.path.join(out_dir, "results.json")) as f:
+                written = json.load(f)[name]
+            expect(math.isfinite(written["ate_rmse"]), f"demo {mode}: ATE {written}")
+            if "ba_points" in entry:
+                bad = _read_model_equal(os.path.join(scene_dir, "sparse_txt"),
+                                        os.path.join(scene_dir, "sparse"))
+                expect(not bad, f"demo {mode}: COLMAP models read back differ: {bad[:5]}")
+                outcome = (f"{entry['ba_points']} points, {entry['ba_tracks']} observations "
+                           f"exported; text and binary models read back equal: {not bad}")
+            else:
+                outcome = ("no reconstruction: no track survived the gating "
+                           "(max_reproj_error 8 px, min track length 2)")
+            print(f"    {name}: ATE {entry['ate_rmse']:.6f}, {outcome}")
+            print(f"    stage seconds: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in entry["stage_seconds"].items()))
+            res["modes"][mode] = dict(wall_s=wall, launches=n, tracker_calls=list(calls),
+                                      k3_tracker_launches=k3_tracker, **entry)
+    finally:
+        TV.track = orig_track
+        shutil.rmtree(work, ignore_errors=True)
+
+    # the tracker with K3 against the einsum path, on the demo's frames
+    scene = ds.load_scene(0, np.random.default_rng(0))
+    imgs = torch.from_numpy(scene["images"]).cuda()[None]
+    xy = T.extract_keypoints(scene["images"][0], max_pts=1024)
+    q = torch.from_numpy(xy).cuda()[None]
+    plain_cfg = dc.replace(tcfg, resize_impl="einsum")
+    fk, ck, vk = TV.track(tp, imgs, q, tcfg)
+    fe, ce, ve = TV.track(tp, imgs, q, plain_cfg)
+    pr = tcfg.pradius
+    topleft = torch.clamp(torch.floor(ck[0]).long() - pr, 0, IMG - (2 * pr + 1))
+    patches = TV.extract_patches(imgs[0], topleft, 2 * pr + 1).reshape(-1, 2 * pr + 1,
+                                                                      2 * pr + 1, 3)
+    before = resize_launches = RS.resize_bilinear_fwd.launches
+    feat_k = TV.shallow_encoder(tp["fine_fnet"], patches)
+    resize_launches = RS.resize_bilinear_fwd.launches - before
+    feat_e = TV.shallow_encoder(tp["fine_fnet"], patches, resize_impl="einsum")
+    feat_rel = float((feat_k - feat_e).norm() / feat_e.norm())
+    one_k = TV.track(tp, imgs, q, dc.replace(tcfg, fine_iters=1))[0]
+    one_e = TV.track(tp, imgs, q, dc.replace(plain_cfg, fine_iters=1))[0]
+    torch.cuda.synchronize()
+    coarse_diff = float((ck - ce).abs().max())
+    one_diff = float((one_k - one_e).abs().max())
+    full_diff = float((fk - fe).abs().max())
+    print(f"  tracker, {q.shape[1]} queries x {NUM_FRAMES} frames: patch features K3 vs einsum "
+          f"rel-RMS {feat_rel:.3e} (tolerance 1e-5, phase 3's fp32 envelope; K3 launches "
+          f"{resize_launches}); coarse tracks max diff {coarse_diff:.3e} px (no K3 site); "
+          f"fine tracks after one fine iteration {one_diff:.3e} px (tolerance 1e-3); after "
+          f"the default {tcfg.fine_iters} iterations {full_diff:.3e} px (for the record: the "
+          f"iterated predictor amplifies rounding)")
+    expect(feat_rel <= 1e-5, f"tracker patch features: {feat_rel} over 1e-5")
+    expect(resize_launches == 1, "tracker patch features: K3 not launched")
+    expect(coarse_diff <= 1e-3 and one_diff <= 1e-3, "tracker: K3 and einsum tracks differ")
+    expect(bool(torch.isfinite(fk).all() and torch.isfinite(vk).all()), "tracker: non-finite")
+
+    # the DINO ranking on the port's ViT: K1 and LN+QKV, against the plain path
+    vit_cfg = cfg.aggregator.vit
+    vit_plain = dc.replace(vit_cfg, attn_impl="dense", fused_qkv="off", fused_mlp="off")
+    for w in wrappers.values():
+        w.launches = 0
+    rank_k = T.rank_frames_by_dino(params["aggregator"]["vit"], vit_cfg, imgs[0], 3,
+                                   torch.bfloat16)
+    n_rank = {k: w.launches for k, w in wrappers.items() if w.launches}
+    rank_p = T.rank_frames_by_dino(params["aggregator"]["vit"], vit_plain, imgs[0], 3,
+                                   torch.bfloat16)
+    print(f"  rank_frames_by_dino: kernels {rank_k}, plain path {rank_p}; launches {n_rank}")
+    expect(rank_k == rank_p, f"DINO ranking {rank_k} differs from the plain path's {rank_p}")
+    expect(n_rank.get("flash_fwd", 0) > 0 and n_rank.get("fused_ln_qkv", 0) > 0,
+           f"DINO ranking launched {n_rank}")
+
+    # where the tracker's time goes: one profiled call
+    prof = profile_forward(lambda: TV.track(tp, imgs, q, tcfg), "tracking call")
+    res.update(tracker_features_rel=feat_rel, tracker_coarse_diff=coarse_diff,
+               tracker_one_iter_diff=one_diff, tracker_full_diff=full_diff,
+               rank_kernels=rank_k, rank_plain=rank_p, rank_launches=n_rank,
+               tracker_profile=prof)
+    del fk, ck, vk, fe, ce, ve, patches, feat_k, feat_e, one_k, one_e
+
+    # bundle adjustment on known geometry: the demo's size and a larger scene
+    for frames, tracks in ((NUM_FRAMES, 6144), (20, 10240)):
+        r, f = run_known_geometry_ba(frames, tracks)
+        res[f"ba_{frames}x{tracks}"] = r
+        failures += f
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  phase 7 peak memory {res['peak_gb']:.2f} GB")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, res
 
 
 def _trace_summary(path: str) -> dict:
@@ -2220,6 +2675,15 @@ def main() -> int:
         _, train = run_train()
         print(json.dumps({"train": train}))
         return 0
+    if "--demo-only" in sys.argv[1:]:
+        print("phase 7 alone: the reconstruction demo (forward and reloc with --tracks-ba), "
+              "the tracker, the DINO ranking, bundle adjustment on known geometry")
+        _, demo = run_demo()
+        print(json.dumps({"demo": demo}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--trainer-only" in sys.argv[1:]:
         print("phases 5 and 6 alone: the bare train step, then the trainer around it")
         _, train = run_train()
@@ -2249,6 +2713,9 @@ def main() -> int:
     print(f"{card}: build {serving['build_ms']:.2f} ms, reloc "
           f"{serving['reloc_frames_per_s']:.3f} frames/s (full heads), "
           f"{serving['fast_reloc_frames_per_s']:.3f} frames/s (fast_reloc)")
+    # phase 3's weights wait on the host for phase 7 (the card's memory goes
+    # to phases 5 and 6)
+    demo_params = _to_device(state["params"], "cpu")
     del state
     torch.cuda.empty_cache()
     print("phase 5: full-width train step (2 frames, depth 24, rank 300, bf16 trunk, "
@@ -2269,9 +2736,17 @@ def main() -> int:
     print(f"{card}: trainer {trainer['trainer_steps_per_s']:.4f} steps/s against the bare "
           f"step's {train['steps_per_s']:.4f}, idle share {trainer['profile']['idle_share']:.3f}, "
           f"checkpoint {trainer['checkpoint_gb']:.2f} GB, peak memory {trainer['peak_gb']:.2f} GB")
+    torch.cuda.empty_cache()
+    print("phase 7: the reconstruction demo (forward and reloc with --tracks-ba), the "
+          "tracker, the DINO ranking, bundle adjustment on known geometry")
+    demo_launches, demo = run_demo(demo_params)
+    for k in kernels:
+        k["launches_by_path"]["demo"] = demo_launches[k["name"]]
+        k["launches"] += demo_launches[k["name"]]
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was launched on no path")
+    print(json.dumps({"demo": demo}))
     print(json.dumps({"forward": fwd}))
     print(json.dumps({"train": train}))
     print(json.dumps({"trainer": trainer}))

@@ -54,7 +54,8 @@ _SIGNATURES: Dict[str, List] = {
     # which kernel of the sm90 backward body (0 dq, 1 dk/dv, 2 and 3 their
     # RelocMask forms), int[8] out
     "sfm_flash_bwd_sm90_info": [_I, _P],
-    "sfm_resize_bilinear_ac": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, add, out; out_bf16, n_img, img_chunk, H, W, C, H2, W2
+    "sfm_resize_bilinear_ac": [_P, _P, _P] + [_I] * 8 + [_P],
     # LN+QKV(+RoPE), the out-projection and the MLP pair on the wgmma / TMA
     # GEMM body (gemm_sm90.cu): the layer-normed ones take an (M, C) bf16
     # scratch for the normalised rows; batch, ntok, heads(, eps)

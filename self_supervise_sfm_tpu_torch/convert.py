@@ -12,7 +12,9 @@ numpy array (nested dicts and lists; no JAX types). The conversion:
 - keeps every other leaf's layout (linear weights stay ``(d_in, d_out)``).
 
 :func:`train_state_from_jax` converts a whole train state the same way
-(params and the Adam moments).
+(params and the Adam moments); :func:`tracker_from_jax` and
+:func:`superpoint_from_jax` the VGGSfM tracker's and SuperPoint's params
+(their conv weights HWIO -> OIHW by the same rule).
 """
 
 from __future__ import annotations
@@ -65,6 +67,18 @@ def _index(tree, i):
 def from_jax_params(tree_of_numpy: Any):
     """JAX ``init_sailrecon`` params (numpy leaves) -> the port's params, as
     CPU tensors."""
+    return _convert(tree_of_numpy)
+
+
+def tracker_from_jax(tree_of_numpy: Any):
+    """JAX ``init_vggsfm_tracker`` params (numpy leaves) -> the port's, as
+    CPU tensors."""
+    return _convert(tree_of_numpy)
+
+
+def superpoint_from_jax(tree_of_numpy: Any):
+    """JAX ``init_superpoint`` params (numpy leaves) -> the port's, as CPU
+    tensors."""
     return _convert(tree_of_numpy)
 
 

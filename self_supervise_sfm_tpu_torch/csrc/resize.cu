@@ -20,18 +20,25 @@
 // Design. The addend (137 MB) exceeds the 50 MB L2, so a thread mapping
 // with the image outermost reads it from device memory once an image. Here
 // a thread owns one output pixel (j, i) and 8 channels (4 where C is no
-// multiple of 8) of every image: it loads its addend values once into
-// registers and then, image by image, makes the four tap loads, the two W
-// lerps and the H lerp, adds and stores. Neighbouring threads take
-// neighbouring channels, and consecutive blocks walk along i within an
-// output row j, so that blocks in flight share their input rows in L1 and
-// L2. Taps load through the read-only path; the output (written once, read
-// by nobody here) is stored with the streaming hint so that it does not
-// evict the input from L2. taps(), the lerp order and its one fused
-// multiply-add are those of the image-outermost kernel this replaced, so
-// every output is bit-equal to that kernel's (held on an H100, fp32 and bf16
-// stores); against the plain version (no fused multiply-add) the fp32 sums
-// differ by an ulp where the fma rounds once instead of twice.
+// multiple of 8) of the images of one chunk, [n0, n0 + img_chunk): it loads
+// its addend values once into registers and then, image by image, makes the
+// four tap loads, the two W lerps and the H lerp, adds and stores. The grid
+// is (pixels x channel groups / THREADS, chunks). The host picks the chunk
+// (ops/resize.py:image_chunk) so that the grid holds a few waves of the
+// card's SMs: at the DPT site (4.3 M threads) the chunk is every image, one
+// pass as before; at the fine tracker's many small images, (5120, 16, 16,
+// 32) -> 31 x 31, a pixel grid of 16 blocks is cut into 256 chunks of 20
+// images, so every SM holds work. Neighbouring threads take neighbouring
+// channels, and consecutive blocks walk along i within an output row j, so
+// that blocks in flight share their input rows in L1 and L2. Taps load
+// through the read-only path; the output (written once, read by nobody
+// here) is stored with the streaming hint so that it does not evict the
+// input from L2. taps(), the lerp order and its one fused multiply-add are
+// those of the image-outermost kernel this replaced, so every output is
+// bit-equal to that kernel's (held on an H100, fp32 and bf16 stores), and
+// to this kernel's at any chunk; against the plain version (no fused
+// multiply-add) the fp32 sums differ by an ulp where the fma rounds once
+// instead of twice.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -70,8 +77,8 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 template <int V, bool OUT_BF16>
 __global__ void __launch_bounds__(THREADS)
 resize_bilinear_ac_kernel(const float* __restrict__ x, const float* __restrict__ add,
-                          void* __restrict__ out, int n_img, int H, int W, int C, int H2,
-                          int W2) {
+                          void* __restrict__ out, int n_img, int img_chunk, int H, int W,
+                          int C, int H2, int W2) {
   const int groups = C / (4 * V);
   const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (idx >= (long long)H2 * W2 * groups) return;
@@ -92,8 +99,12 @@ resize_bilinear_ac_kernel(const float* __restrict__ x, const float* __restrict__
                           : make_float4(0.f, 0.f, 0.f, 0.f);
   const size_t in_img = (size_t)H * W * C, out_img = (size_t)H2 * W2 * C;
   const size_t row = (size_t)W * C;
-  const float* base = x + ((size_t)lh * W + lw) * C + c;
-  for (int n = 0; n < n_img; ++n, base += in_img) {
+  // this block's chunk of images: [n0, n0 + count)
+  const int n0 = (int)blockIdx.y * img_chunk;
+  const int count = min(img_chunk, n_img - n0);
+  const float* base = x + (size_t)n0 * in_img + ((size_t)lh * W + lw) * C + c;
+  size_t o = (size_t)n0 * out_img + o_pix;
+  for (int k = 0; k < count; ++k, base += in_img, o += out_img) {
     const float4* t00 = reinterpret_cast<const float4*>(base);
     const float4* t01 = reinterpret_cast<const float4*>(base + C);
     const float4* t10 = reinterpret_cast<const float4*>(base + row);
@@ -106,7 +117,6 @@ resize_bilinear_ac_kernel(const float* __restrict__ x, const float* __restrict__
       if (add != nullptr)
         y[v] = make_float4(y[v].x + p[v].x, y[v].y + p[v].y, y[v].z + p[v].z, y[v].w + p[v].w);
     }
-    const size_t o = (size_t)n * out_img + o_pix;
     if constexpr (OUT_BF16) {
       bf16* dst = static_cast<bf16*>(out) + o;
       if constexpr (V == 2) {
@@ -126,30 +136,34 @@ resize_bilinear_ac_kernel(const float* __restrict__ x, const float* __restrict__
 }
 
 template <int V>
-void launch(const float* x, const float* add, void* out, bool out_bf16, int n_img, int H,
-            int W, int C, int H2, int W2, cudaStream_t s) {
+void launch(const float* x, const float* add, void* out, bool out_bf16, int n_img,
+            int img_chunk, int H, int W, int C, int H2, int W2, cudaStream_t s) {
   const long long threads = (long long)H2 * W2 * (C / (4 * V));
-  const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
+  const dim3 grid((unsigned)((threads + THREADS - 1) / THREADS),
+                  (unsigned)((n_img + img_chunk - 1) / img_chunk));
   if (out_bf16)
-    resize_bilinear_ac_kernel<V, true><<<blocks, THREADS, 0, s>>>(x, add, out, n_img, H, W, C,
-                                                                  H2, W2);
+    resize_bilinear_ac_kernel<V, true><<<grid, THREADS, 0, s>>>(x, add, out, n_img, img_chunk,
+                                                                H, W, C, H2, W2);
   else
-    resize_bilinear_ac_kernel<V, false><<<blocks, THREADS, 0, s>>>(x, add, out, n_img, H, W,
-                                                                   C, H2, W2);
+    resize_bilinear_ac_kernel<V, false><<<grid, THREADS, 0, s>>>(x, add, out, n_img, img_chunk,
+                                                                 H, W, C, H2, W2);
 }
 
 }  // namespace
 
+// img_chunk: images a block walks (1 .. n_img); the grid's y extent,
+// ceil(n_img / img_chunk), must stay within 65535
 extern "C" int sfm_resize_bilinear_ac(const void* x, const void* add, void* out,
-                                      int out_bf16, int n_img, int H, int W,
+                                      int out_bf16, int n_img, int img_chunk, int H, int W,
                                       int C, int H2, int W2, void* stream) {
-  if (C <= 0 || C % 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (C <= 0 || C % 4 || img_chunk <= 0 || (n_img + img_chunk - 1) / img_chunk > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* xf = static_cast<const float*>(x);
   const float* af = static_cast<const float*>(add);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C % 8 == 0)
-    launch<2>(xf, af, out, out_bf16 != 0, n_img, H, W, C, H2, W2, s);
+    launch<2>(xf, af, out, out_bf16 != 0, n_img, img_chunk, H, W, C, H2, W2, s);
   else
-    launch<1>(xf, af, out, out_bf16 != 0, n_img, H, W, C, H2, W2, s);
+    launch<1>(xf, af, out, out_bf16 != 0, n_img, img_chunk, H, W, C, H2, W2, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,9 @@ align-corners bilinear resize.
 
 Port of ``self_supervise_sfm_tpu/heads/dpt_utils.py``. The resize is two
 interpolation-matrix contractions (the einsum path), except for the large
-final upsample, which takes the K3 kernel wrapper (``ops/resize.py``) with
-the addend fused.
+upsamples (the DPT heads' final one, with the addend fused, and the fine
+tracker's patch features), which take the K3 kernel wrapper
+(``ops/resize.py``).
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
-"""Camera/pose geometry for inference and the training loss, in fp32.
+"""Camera/pose geometry in fp32: poses, rotations, projection.
 
-Port of the inference and training subsets of
-``self_supervise_sfm_tpu/ops/geometry.py``: pose decoding, depth
-unprojection, relative poses and the correspondence reprojection of the
-loss. Extrinsics are OpenCV world-to-camera ``[R|t]`` (..., 3, 4);
+Port of ``self_supervise_sfm_tpu/ops/geometry.py``: pose encoding and
+decoding, quaternion / axis-angle / matrix conversions, depth unprojection,
+relative poses, the correspondence reprojection of the loss, and the
+projection with radial distortion that the COLMAP export and the bundle
+adjuster use. Extrinsics are OpenCV world-to-camera ``[R|t]`` (..., 3, 4);
 quaternions are scalar-last xyzw; the pose encoding is ``[tx ty tz, qx qy qz
 qw, fov_h fov_w]``. The JAX package pins these matmuls to full fp32 on the
 TPU (``f32_matmul``); here :func:`f32_matmul` turns TF32 off for the
@@ -13,7 +14,7 @@ duration of a call, and the model entries turn it off for the same reason.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +59,11 @@ def pad_poses(pose34: torch.Tensor) -> torch.Tensor:
     return torch.cat([pose34[..., :3, :4], bottom], dim=-2)
 
 
+def unpad_poses(pose44: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) -> (..., 3, 4)."""
+    return pose44[..., :3, :4]
+
+
 def as_pose44(pose: torch.Tensor) -> torch.Tensor:
     """(..., 3, 4) or (..., 4, 4) -> (..., 4, 4)."""
     return pad_poses(pose) if pose.shape[-2:] == (3, 4) else pose
@@ -90,6 +96,76 @@ def quat_to_mat(quaternions: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return o.reshape(*quaternions.shape[:-1], 3, 3)
+
+
+def standardize_quaternion(quaternions: torch.Tensor) -> torch.Tensor:
+    """Flip the sign so that the scalar (last) component is non-negative."""
+    return torch.where(quaternions[..., 3:4] < 0, -quaternions, quaternions)
+
+
+def mat_to_quat(matrix: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrix -> (..., 4) xyzw quaternion: of the four
+    candidate quaternions the one with the largest denominator, picked with
+    a one-hot sum as in the JAX package (ties go to the first)."""
+    m00, m01, m02, m10, m11, m12, m20, m21, m22 = matrix.reshape(
+        *matrix.shape[:-2], 9).unbind(-1)
+    q_abs = torch.sqrt(torch.clamp(torch.stack([
+        1.0 + m00 + m11 + m22,
+        1.0 + m00 - m11 - m22,
+        1.0 - m00 + m11 - m22,
+        1.0 - m00 - m11 + m22,
+    ], dim=-1), min=0.0))
+    quat_by_rijk = torch.stack([
+        torch.stack([q_abs[..., 0] ** 2, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, q_abs[..., 1] ** 2, m10 + m01, m02 + m20], dim=-1),
+        torch.stack([m02 - m20, m10 + m01, q_abs[..., 2] ** 2, m12 + m21], dim=-1),
+        torch.stack([m10 - m01, m20 + m02, m21 + m12, q_abs[..., 3] ** 2], dim=-1),
+    ], dim=-2)
+    candidates = quat_by_rijk / (2.0 * torch.clamp(q_abs[..., None], min=0.1))
+    onehot = torch.nn.functional.one_hot(q_abs.argmax(-1), 4).to(matrix.dtype)
+    out = (candidates * onehot[..., None]).sum(-2)  # rijk
+    return standardize_quaternion(out[..., [1, 2, 3, 0]])
+
+
+def axis_angle_to_mat(aa: torch.Tensor) -> torch.Tensor:
+    """(..., 3) axis-angle -> (..., 3, 3) rotation (Rodrigues), smooth at 0."""
+    theta2 = (aa * aa).sum(-1, keepdim=True)[..., None]  # (..., 1, 1)
+    theta = torch.sqrt(theta2 + 1e-24)
+    x, y, z = aa.unbind(-1)
+    zeros = torch.zeros_like(x)
+    K = torch.stack([
+        torch.stack([zeros, -z, y], dim=-1),
+        torch.stack([z, zeros, -x], dim=-1),
+        torch.stack([-y, x, zeros], dim=-1),
+    ], dim=-2)
+    eye = torch.eye(3, dtype=aa.dtype, device=aa.device).expand(K.shape)
+    a = torch.sinc(theta / torch.pi)  # sin(theta) / theta
+    b = torch.where(theta2 > 1e-12, (1.0 - torch.cos(theta)) / (theta2 + 1e-24),
+                    torch.full_like(theta2, 0.5))
+    return eye + a * K + b * (K @ K)
+
+
+def mat_to_axis_angle(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation -> (..., 3) axis-angle via the quaternion."""
+    q = mat_to_quat(R)  # xyzw, w >= 0
+    xyz = q[..., :3]
+    w = torch.clamp(q[..., 3:4], -1.0, 1.0)
+    n = torch.linalg.vector_norm(xyz, dim=-1, keepdim=True)
+    theta = 2.0 * torch.atan2(n, w)
+    scale = torch.where(n > 1e-9, theta / torch.clamp(n, min=1e-12),
+                        torch.full_like(n, 2.0))
+    return xyz * scale
+
+
+def extri_intri_to_pose_encoding(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
+                                 image_size_hw: Tuple[int, int]) -> torch.Tensor:
+    """(..., 3, 4), (..., 3, 3) -> (..., 9) ``[t, quat xyzw, fov_h, fov_w]``."""
+    quat = mat_to_quat(extrinsics[..., :3, :3])
+    H, W = image_size_hw
+    fov_h = 2.0 * torch.atan((H / 2.0) / intrinsics[..., 1, 1])
+    fov_w = 2.0 * torch.atan((W / 2.0) / intrinsics[..., 0, 0])
+    return torch.cat([extrinsics[..., :3, 3], quat, fov_h[..., None], fov_w[..., None]],
+                     dim=-1)
 
 
 def pose_encoding_to_extri_intri(pose_encoding: torch.Tensor,
@@ -225,3 +301,90 @@ def backproject_and_reproject_with_approximation(
 def compute_projective_residual(predicted_dst_coords, actual_dst_coords):
     """Per-point L2 residual, (..., N, 2) x2 -> (..., N)."""
     return torch.linalg.vector_norm(predicted_dst_coords - actual_dst_coords, dim=-1)
+
+
+# -- projection with radial distortion (the COLMAP camera models) ------------
+
+
+def apply_distortion(params: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """SIMPLE_RADIAL ([k]), RADIAL ([k1, k2]) or OPENCV ([k1, k2, p1, p2])
+    distortion of normalised coordinates; ``params`` (..., NP)."""
+    num_params = params.shape[-1]
+    r2 = u * u + v * v
+    if num_params == 1:
+        radial = params[..., 0] * r2
+        du, dv = u * radial, v * radial
+    elif num_params == 2:
+        k1, k2 = params[..., 0], params[..., 1]
+        radial = k1 * r2 + k2 * r2 * r2
+        du, dv = u * radial, v * radial
+    elif num_params == 4:
+        k1, k2, p1, p2 = params.unbind(-1)
+        uv = u * v
+        radial = k1 * r2 + k2 * r2 * r2
+        du = u * radial + 2.0 * p1 * uv + p2 * (r2 + 2.0 * u * u)
+        dv = v * radial + 2.0 * p2 * uv + p1 * (r2 + 2.0 * v * v)
+    else:
+        raise ValueError(f"Unsupported number of distortion params: {num_params}")
+    return u + du, v + dv
+
+
+def iterative_undistortion(params: torch.Tensor, uv: torch.Tensor,
+                           max_iters: int = 100) -> torch.Tensor:
+    """Newton undistortion with a central-difference Jacobian, a fixed
+    ``max_iters`` steps; a point whose step falls under 1e-10 stops moving."""
+    eps = torch.finfo(uv.dtype).eps
+    xy = uv
+    for _ in range(max_iters):
+        x, y = xy[..., 0], xy[..., 1]
+        fx, fy = apply_distortion(params, x, y)
+        fx = fx - uv[..., 0]
+        fy = fy - uv[..., 1]
+        step_x = torch.clamp((1e-6 * x).abs(), min=eps)
+        step_y = torch.clamp((1e-6 * y).abs(), min=eps)
+        fx_px, fy_px = apply_distortion(params, x + step_x, y)
+        fx_mx, fy_mx = apply_distortion(params, x - step_x, y)
+        fx_py, fy_py = apply_distortion(params, x, y + step_y)
+        fx_my, fy_my = apply_distortion(params, x, y - step_y)
+        J00 = (fx_px - fx_mx) / (2.0 * step_x)
+        J01 = (fx_py - fx_my) / (2.0 * step_y)
+        J10 = (fy_px - fy_mx) / (2.0 * step_x)
+        J11 = (fy_py - fy_my) / (2.0 * step_y)
+        det = J00 * J11 - J01 * J10
+        # a sign-keeping floor: a step through a zero determinant stays finite
+        det = torch.where(det.abs() < 1e-12,
+                          torch.where(det < 0, -1e-12, 1e-12).to(det.dtype), det)
+        dx = (J11 * fx - J01 * fy) / det
+        dy = (-J10 * fx + J00 * fy) / det
+        keep = dx * dx + dy * dy >= 1e-10
+        xy = torch.stack([x - torch.where(keep, dx, 0.0), y - torch.where(keep, dy, 0.0)],
+                         dim=-1)
+    return xy
+
+
+@f32_matmul
+def img_from_cam(intrinsics: torch.Tensor, points_cam: torch.Tensor,
+                 distortion_params: Optional[torch.Tensor] = None,
+                 default: float = 0.0) -> torch.Tensor:
+    """Camera-frame points (B, 3, N) -> pixels (B, N, 2) through (B, 3, 3)
+    intrinsics and optional (B, NP) distortion; non-finite pixels become
+    ``default``."""
+    pts = points_cam / (points_cam[:, 2:3, :] + 1e-8)
+    if distortion_params is not None:
+        u, v = apply_distortion(distortion_params[..., None, :], pts[:, 0], pts[:, 1])
+        pts = torch.stack([u, v, torch.ones_like(u)], dim=1)
+    pix = torch.einsum("bij,bjn->bin", intrinsics, pts)[:, :2].transpose(-1, -2)
+    return torch.where(torch.isfinite(pix), pix, torch.full_like(pix, default))
+
+
+@f32_matmul
+def project_world_points_to_cam(world_points: torch.Tensor, cam_extrinsics: torch.Tensor,
+                                cam_intrinsics: Optional[torch.Tensor] = None,
+                                distortion_params: Optional[torch.Tensor] = None,
+                                default: float = 0.0):
+    """World points (N, 3) -> (pixels (B, N, 2) or None, camera points
+    (B, 3, N)) for (B, 3, 4) extrinsics."""
+    cam_points = torch.einsum("bij,nj->bin", cam_extrinsics, to_homogeneous(world_points))
+    if cam_intrinsics is None:
+        return None, cam_points
+    return img_from_cam(cam_intrinsics, cam_points, distortion_params, default), cam_points

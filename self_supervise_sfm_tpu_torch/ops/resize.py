@@ -1,12 +1,15 @@
-"""Align-corners bilinear upsample (K3) for the DPT heads' final upsample.
+"""Align-corners bilinear upsample (K3): the DPT heads' final upsample and
+the fine tracker's patch-feature upsample.
 
 Port of ``self_supervise_sfm_tpu/ops/resize.py``. The TPU version runs two
 Pallas kernels (a W pass as a per-row interp matmul, then a 2-tap H lerp
 with a fused addend and output cast); on the card one CUDA kernel
 (``csrc/resize.cu``) does both in one pass as a 4-tap gather, reading the
 input and the addend once and writing the output once (a thread owns a
-pixel's channels in every image). Its sums differ from the interp-matrix
-matmul only by fp32 rounding. The kernel is bound by memory bytes.
+pixel's channels in one chunk of the images; :func:`image_chunk` picks the
+chunk so that the grid fills the card). Its sums differ from the
+interp-matrix matmul only by fp32 rounding. The kernel is bound by memory
+bytes.
 
 :func:`resize_bilinear_fwd` is the launch wrapper: the plain version
 :func:`resize_bilinear_plain` for a CPU tensor, the kernel for a CUDA
@@ -36,6 +39,27 @@ def resize_kernel_applicable(shape, out_hw, min_elems: int = 1 << 27) -> bool:
     if H2 < H or W2 < W or H < 2 or W < 2 or C % 4:
         return False
     return N * H2 * W2 * C >= min_elems
+
+
+# the kernel's block (csrc/resize.cu THREADS) and the grid it aims for: a few
+# waves of an H100's 132 SMs at 8 resident blocks of 256 threads each
+THREADS = 256
+TARGET_BLOCKS = 4 * 8 * 132
+_MAX_GRID_Y = 65535
+
+
+def image_chunk(n_img: int, H2: int, W2: int, C: int) -> int:
+    """Images a block of K3 walks. Every image (one pass over the pixel grid)
+    where the pixel grid alone fills the card, as at the DPT site; else the
+    images cut into enough chunks that the grid reaches ``TARGET_BLOCKS``
+    (at the fine tracker's (5120, 16, 16, 32) -> 31 x 31: 16 pixel blocks,
+    256 chunks of 20 images)."""
+    if n_img <= 0:
+        return 1
+    groups = C // (8 if C % 8 == 0 else 4)
+    pixel_blocks = -(-H2 * W2 * groups // THREADS)
+    n_chunks = min(n_img, max(1, -(-TARGET_BLOCKS // pixel_blocks)))
+    return max(-(-n_img // n_chunks), -(-n_img // _MAX_GRID_Y))
 
 
 def _taps(n: int, n2: int, device):
@@ -69,9 +93,10 @@ def resize_bilinear_plain(x, out_hw, add=None, out_dtype=None):
 
 def resize_bilinear_fwd(
     x: torch.Tensor, out_hw, add: Optional[torch.Tensor] = None,
-    out_dtype: Optional[torch.dtype] = None,
+    out_dtype: Optional[torch.dtype] = None, img_chunk: Optional[int] = None,
 ) -> torch.Tensor:
-    """K3 wrapper. x: (N, H, W, C) fp32; add: optional (H2, W2, C) fp32."""
+    """K3 wrapper. x: (N, H, W, C) fp32; add: optional (H2, W2, C) fp32.
+    ``img_chunk``: images a block walks (default :func:`image_chunk`)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, add)):
         raise NotImplementedError(
@@ -97,12 +122,15 @@ def resize_bilinear_fwd(
             f"resize_bilinear: kernel takes C % 4 == 0 upsamples, got "
             f"{tuple(x.shape)} -> {(H2, W2)}"
         )
+    chunk = image_chunk(N, H2, W2, C) if img_chunk is None else int(img_chunk)
+    if chunk < 1 or -(-N // chunk) > _MAX_GRID_Y:
+        raise ValueError(f"resize_bilinear: image chunk {chunk} for {N} images")
     out = torch.empty((N, H2, W2, C), dtype=out_dtype, device=x.device)
     if out.numel():
         _kernels.launch(
             "sfm_resize_bilinear_ac", x.data_ptr(),
             None if add is None else add.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.bfloat16), N, H, W, C, H2, W2,
+            int(out_dtype == torch.bfloat16), N, chunk, H, W, C, H2, W2,
             _kernels.stream_ptr(x),
         )
         resize_bilinear_fwd.launches += 1

@@ -1,9 +1,9 @@
-"""Training visualisations: correspondence overlays, CDF/PDF curves and the
-bidirectional reprojection grid.
+"""Visualisations: depth colormaps, track overlays, correspondence
+overlays, CDF/PDF curves and the bidirectional reprojection grid.
 
-Port of the trainer's plots in ``self_supervise_sfm_tpu/utils/vls.py``
-(numpy and matplotlib, host-side only). matplotlib is imported, on its Agg
-backend, inside the plotting functions.
+Port of ``self_supervise_sfm_tpu/utils/vls.py`` (numpy and matplotlib,
+host-side only). matplotlib is imported, on its Agg backend, inside the
+functions that draw.
 """
 
 from __future__ import annotations
@@ -21,6 +21,55 @@ def _pyplot():
     import matplotlib.pyplot as plt
 
     return plt
+
+
+def colorize_depth(depth: np.ndarray, vmin: Optional[float] = None,
+                   vmax: Optional[float] = None, cmap: str = "magma") -> np.ndarray:
+    """(H, W) depth -> (H, W, 3) uint8, the colormap over the 5th-95th
+    percentiles of the valid (finite, positive) depths; invalid pixels 0."""
+    plt = _pyplot()
+    d = np.asarray(depth, np.float32)
+    valid = np.isfinite(d) & (d > 0)
+    if vmin is None:
+        vmin = np.percentile(d[valid], 5) if valid.any() else 0.0
+    if vmax is None:
+        vmax = np.percentile(d[valid], 95) if valid.any() else 1.0
+    norm = np.clip((d - vmin) / max(vmax - vmin, 1e-9), 0, 1)
+    out = (plt.get_cmap(cmap)(norm)[..., :3] * 255).astype(np.uint8)
+    out[~valid] = 0
+    return out
+
+
+def visualize_tracks_on_images(images: np.ndarray, tracks: np.ndarray,
+                               visibility: Optional[np.ndarray] = None,
+                               out_dir: str = "track_visuals", max_tracks: int = 256):
+    """One PNG a frame: up to ``max_tracks`` tracks (S, N, 2) drawn on the
+    frames (S, H, W, 3), coloured by their position in the first frame;
+    invisible points faint white. Returns the paths."""
+    plt = _pyplot()
+    os.makedirs(out_dir, exist_ok=True)
+    S, N = tracks.shape[:2]
+    H, W = np.asarray(images[0]).shape[:2]
+    sel = np.linspace(0, N - 1, min(max_tracks, N)).astype(int)
+    x0 = tracks[0, sel, 0] / max(W - 1, 1)
+    y0 = tracks[0, sel, 1] / max(H - 1, 1)
+    colors = plt.get_cmap("hsv")((x0 + y0) / 2.0)
+    paths = []
+    for s in range(S):
+        fig, ax = plt.subplots(figsize=(6, 6 * H / W))
+        ax.imshow(np.asarray(images[s]))
+        pts = tracks[s, sel]
+        vis = (visibility[s, sel].astype(bool) if visibility is not None
+               else np.ones(len(sel), bool))
+        ax.scatter(pts[vis, 0], pts[vis, 1], c=colors[vis], s=8)
+        if (~vis).any():
+            ax.scatter(pts[~vis, 0], pts[~vis, 1], c="white", s=4, alpha=0.4)
+        ax.axis("off")
+        path = os.path.join(out_dir, f"track_frame_{s:04d}.png")
+        fig.savefig(path, dpi=110, bbox_inches="tight")
+        plt.close(fig)
+        paths.append(path)
+    return paths
 
 
 def correspondence_overlay(

@@ -216,10 +216,19 @@ TRAINER_SLICE = ("data/preprocess.py", "data/synthetic.py", "data/imc2021.py",
                  "utils/sanity_check.py", "utils/vls.py")
 
 
+# the reconstruction demo's slice: geometry and I/O, bundle adjustment,
+# tracking, the demo
+DEMO_SLICE = ("ops/geometry.py", "utils/evaluation.py", "utils/colmap_io.py",
+              "ops/bundle_adjust.py", "native/ba.py", "heads/track_utils.py",
+              "heads/track_modules.py", "pipeline/vggsfm_tracker.py", "pipeline/extractors.py",
+              "pipeline/tracking.py", "convert.py", "demos/reconstruct.py", "utils/vls.py",
+              "utils/images.py")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     banned = ("jax", "jaxlib", "self_supervise_sfm_tpu")
     sources = _port_sources()
-    for name in TRAINER_SLICE:
+    for name in TRAINER_SLICE + DEMO_SLICE:
         assert ROOT / "self_supervise_sfm_tpu_torch" / name in sources, name
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -250,9 +259,10 @@ def test_trainer_imports_with_torch_and_numpy_alone():
 
 
 def test_the_port_writes_nothing_under_cpp(tmp_path, monkeypatch):
-    """The data plane's library builds into ``build/dataplane``; no source of
-    the port names a path under ``cpp/`` but the C++ source it reads, and a
-    forced build leaves ``cpp/`` as it was."""
+    """The data plane's library builds into ``build/dataplane`` (and the
+    bundle-adjustment engine's into ``build/ba``); no source of the port
+    names a path under ``cpp/`` but the C++ sources it reads, and a forced
+    build leaves ``cpp/`` as it was."""
     import subprocess
 
     from self_supervise_sfm_tpu_torch.native import dataplane as DP
@@ -260,7 +270,8 @@ def test_the_port_writes_nothing_under_cpp(tmp_path, monkeypatch):
     for path in _port_sources():
         for line in path.read_text().splitlines():
             if '"cpp"' in line:
-                assert "_SRC" in line and "dataplane.cpp" in line, f"{path}: {line}"
+                assert "_SRC" in line and ("dataplane.cpp" in line or "ba_engine.cpp" in line), \
+                    f"{path}: {line}"
     assert DP._LIB == str(ROOT / "build" / "dataplane" / "libdataplane.so")
     assert DP._SRC == str(ROOT / "cpp" / "dataplane" / "dataplane.cpp")
 

@@ -111,13 +111,13 @@ def _lerp(a, b, f):
     return a * (1.0 - f) + b * f
 
 
-def _k3_emulation(x, out_hw, add, out_dtype):
-    """resize_bilinear_ac_kernel's mapping: thread idx of the grid owns the
+def _k3_emulation(x, out_hw, add, out_dtype, chunk):
+    """resize_bilinear_ac_kernel's mapping: thread idx of grid row y owns the
     channels c .. c + 4V of output pixel (j, i), idx = (j W2 + i) groups + c
-    / 4V; it reads its addend values once, then walks the images n innermost:
-    four taps, two W lerps, the H lerp, the addend, the store. Returns the
-    output and the count of writes of each output element and of reads of
-    each addend element."""
+    / 4V, for the images [y chunk, (y + 1) chunk); it reads its addend values
+    once, then walks its images n innermost: four taps, two W lerps, the H
+    lerp, the addend, the store. Returns the output and the count of writes
+    of each output element and of reads of each addend element."""
     N, H, W, C = x.shape
     H2, W2 = out_hw
     V = 2 if C % 8 == 0 else 1
@@ -135,20 +135,21 @@ def _k3_emulation(x, out_hw, add, out_dtype):
     out = torch.full((N, H2, W2, C), float("nan"), dtype=out_dtype)
     writes = torch.zeros((N, H2, W2, C), dtype=torch.int64)
     reads = torch.zeros((H2, W2, C), dtype=torch.int64)
-    if add is not None:
-        p = add[jj, ii, ch]
-        reads.index_put_((jj, ii, ch), torch.ones_like(ch), accumulate=True)
     r0, r1 = lh[j][:, None], lh[j][:, None] + 1
     c0, c1 = lw[i][:, None], lw[i][:, None] + 1
     f_w, f_h = fw[i][:, None], fh[j][:, None]
-    for n in range(N):
-        xn = x[n]
-        y = _lerp(_lerp(xn[r0, c0, ch], xn[r0, c1, ch], f_w),
-                  _lerp(xn[r1, c0, ch], xn[r1, c1, ch], f_w), f_h)
+    for n0 in range(0, N, chunk):  # grid row y = n0 / chunk
         if add is not None:
-            y = y + p
-        out[n][jj, ii, ch] = y.to(out_dtype)
-        writes[n].index_put_((jj, ii, ch), torch.ones_like(ch), accumulate=True)
+            p = add[jj, ii, ch]
+            reads.index_put_((jj, ii, ch), torch.ones_like(ch), accumulate=True)
+        for n in range(n0, min(n0 + chunk, N)):
+            xn = x[n]
+            y = _lerp(_lerp(xn[r0, c0, ch], xn[r0, c1, ch], f_w),
+                      _lerp(xn[r1, c0, ch], xn[r1, c1, ch], f_w), f_h)
+            if add is not None:
+                y = y + p
+            out[n][jj, ii, ch] = y.to(out_dtype)
+            writes[n].index_put_((jj, ii, ch), torch.ones_like(ch), accumulate=True)
     return out, writes, reads
 
 
@@ -159,8 +160,10 @@ def test_kernel_mapping_covers_each_output_once_and_reads_the_addend_once(
         rng, c, with_add, out_dtype):
     """The kernel's thread mapping, not its arithmetic: at a ragged shape (11
     x 13 pixels, 3 images: 429 or 286 threads, no multiple of the block), 8
-    channels a thread (C = 24) and 4 (C = 12), every output element is
-    written once and every addend element read once a call. The emulation
+    channels a thread (C = 24) and 4 (C = 12), at the chunk the wrapper picks
+    there (one image a chunk: 3 grid rows) and with every image in one chunk,
+    every output element is written once and every addend element read once
+    a chunk. The emulation
     computes each value with the plain version's arithmetic, so its output
     equals the plain version's bit for bit exactly when every thread reads
     the right taps and addend element and writes the right output; the
@@ -170,13 +173,15 @@ def test_kernel_mapping_covers_each_output_once_and_reads_the_addend_once(
     x = np.concatenate([x, x[:1] * 0.5])  # 3 images
     tx = torch.from_numpy(x)
     tadd = None if add is None else torch.from_numpy(add)
-    got, writes, reads = _k3_emulation(tx, (11, 13), tadd, out_dtype)
-    assert (writes == 1).all()
-    assert (reads == (1 if with_add else 0)).all()
     ref = TRS.resize_bilinear_plain(tx, (11, 13), tadd, out_dtype)
-    assert got.dtype == ref.dtype == out_dtype
-    assert torch.equal(got.view(torch.int16 if out_dtype == torch.bfloat16 else torch.int32),
-                       ref.view(torch.int16 if out_dtype == torch.bfloat16 else torch.int32))
+    assert TRS.image_chunk(3, 11, 13, c) == 1
+    for chunk in (1, 3):
+        got, writes, reads = _k3_emulation(tx, (11, 13), tadd, out_dtype, chunk)
+        assert (writes == 1).all()
+        assert (reads == (-(-3 // chunk) if with_add else 0)).all()
+        assert got.dtype == ref.dtype == out_dtype
+        bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(got.view(bits), ref.view(bits))
 
 
 def test_kernel_source_follows_the_emulated_mapping():
@@ -197,6 +202,14 @@ def test_kernel_source_follows_the_emulated_mapping():
                  "if (C % 8 == 0)\n    launch<2>"):
         assert line in K3_SOURCE, line
     addend = K3_SOURCE.index("p[v] = add != nullptr ? __ldg(")
-    loop = K3_SOURCE.index("for (int n = 0; n < n_img; ++n, base += in_img) {")
+    loop = K3_SOURCE.index(
+        "for (int k = 0; k < count; ++k, base += in_img, o += out_img) {")
     assert addend < loop
     assert K3_SOURCE.count("add + o_pix") == 1
+    # the chunk of a grid row, and the grid's shape
+    for line in ("const int n0 = (int)blockIdx.y * img_chunk;",
+                 "const int count = min(img_chunk, n_img - n0);",
+                 "size_t o = (size_t)n0 * out_img + o_pix;",
+                 "(unsigned)((n_img + img_chunk - 1) / img_chunk));"):
+        assert line in K3_SOURCE, line
+    assert TRS.THREADS == K3_THREADS
