@@ -25,14 +25,17 @@ Phases, each of which must pass (any failure exits non-zero):
    peak of an H100 SXM (989 TFLOP/s, 3.35 TB/s); for every site of K1, K2,
    K2p and the fused block kernels the kernel's ratio to its bound and to
    its library call, per call and 20 launches back to back; the layer-norm
-   pre-pass of LN+QKV(+RoPE) and MLP-up alone; K3 at its two sites: the
+   pre-pass of LN+QKV(+RoPE) and MLP-up alone; K3 at its three sites: the
    DPT head's (its rate on its bound's bytes beside the most its
    back-to-back time lets it move; bit-equal to the one-chunk launch and to
    one image a chunk) and the fine tracker's, (5120, 16, 16, 32) -> 31 x
    31 fp32 with no addend (within an fp32 ulp of the plain version,
    bit-equal across chunkings, timed with every image in one chunk and with
    the chunk ``ops/resize.py:image_chunk`` picks, beside ``F.interpolate``
-   and its bound), and K3 at the edges of its thread mapping (4 and 8
+   and its bound), the TrackHead's ``refinenet1``, (16, 148, 148, 128) ->
+   296 x 296 fp32 with no addend (within an fp32 ulp, bit-equal across
+   chunkings, beside ``F.interpolate`` and its bound), and K3 at the edges
+   of its thread mapping (4 and 8
    channels a thread, ragged pixel counts, one image a chunk); B9 at the edges of its tiling and at the train step's sites,
    its RelocMask forms at the edges of their work tiles, at reloc layer 0
    and at the 5-query mask-form shape, a repeat bit-equal, the pair (dq +
@@ -109,10 +112,39 @@ Phases, each of which must pass (any failure exits non-zero):
    two engines' final Huber costs must agree within 1e-3; the peak GB. Its
    launch counts are the kernel line's "demo" path.
 
+8. the checkpoint converter and the modules of its slice: phase 3's
+   weights (kept on the host) written as a state dict in the reference's
+   names and layouts (``reference_state_dict``, this script's own inverse
+   of the converter's rules), ``torch.save``d (~5 GB fp32), loaded and
+   converted on the demo's ``--pretrained`` path
+   (``utils/converter.py:load_torch_state_dict`` + ``convert_sailrecon``):
+   every leaf bit-equal to phase 3's, the forward on them bit-equal to
+   phase 3's with phase 3's launch counts, the save / load / convert
+   seconds; the TrackHead (``heads/track.py``, the default
+   ``TrackHeadConfig()``) on the taps of 16 frames of 518 px through the
+   bf16 aggregator with 512 query points: K3 launched once a call (the
+   ``refinenet1`` upsample (16, 148, 148, 128) -> 296), feature maps
+   against the einsum upsample within rel-RMS 1e-5, tracks after one
+   iteration within 1e-3 px (after four printed), a call's wall time, idle
+   share and launches; K1 and the fused block kernels alone at the ViT-B
+   (C 768, 12 heads) and ViT-g (C 1536, 24 heads) sites of 2 frames (LN+QKV,
+   the out-projection and the MLP pair at the ViT blocks' shape,
+   LN+QKV+RoPE at a frame block's), each against its plain version and
+   timed beside its library call or chain and its bound (the kernel line's
+   ``width_sites``); ``vit_small`` / ``vit_base`` / ``vit_giant2`` in
+   bf16 on 2 frames of 518 px with their launch counts, against their plain
+   path within twice the bf16-vs-fp32 envelope; the ``"aliked"`` extractor
+   on phase 7's images, its score maps and top-k scores within 1e-4 of the
+   same weights on the CPU and its keypoints within 1e-3 px wherever the
+   scores stand apart by more than that, its time an image; the peak GB.
+   Its launch counts go into the kernel line as the paths "pretrained",
+   "track_head" and one a ViT width.
+
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2;
 ``--train-only`` runs phase 5 alone after the build, ``--trainer-only``
-phases 5 and 6, ``--demo-only`` phase 7 (their launch counts are then not
-merged into the kernel line, which is not printed).
+phases 5 and 6, ``--demo-only`` phase 7, ``--converter-only`` phase 8 (on
+weights it draws from the seed; their launch counts are then not merged
+into the kernel line, which is not printed).
 
 The line before the last is a JSON object of every kernel's numbers (the
 forward's and the serving paths' numbers go on lines of their own before
@@ -372,6 +404,35 @@ def _logit(key: str, v):
     return torch.sign(v) * torch.log1p(v.abs())
 
 
+def flash_site(randn, ulps, site, bh, n):
+    """K1 at one site (bh, n, 64): against its plain version (4 ulps, lse
+    1e-4), its bound, and its times beside SDPA's, a call and back to back."""
+    import torch
+    import torch.nn.functional as F
+
+    from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
+
+    q, k, v = randn(bh, n, 64), randn(bh, n, 64), randn(bh, n, 64)
+    out, lse = FA.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    p_out, p_lse = FA.flash_fwd_plain(q, k, v)
+    err = float((out.float() - p_out.float()).abs().max())
+    _check(f"flash_fwd[{site}] out {tuple(q.shape)}", err, ulps(p_out, 4))
+    _check(f"flash_fwd[{site}] lse", float((lse - p_lse).abs().max()), 1e-4)
+    bound, by = _bound_ms(4.0 * bh * n * n * 64, 4 * q.numel() * 2 + lse.numel() * 4)
+    q4, k4, v4 = (t.view(1, bh, n, 64) for t in (q, k, v))
+    return dict(
+        site=site, shape=[bh, n, 64], max_abs_err=err,
+        ms=_time_ms(lambda: FA.flash_fwd(q, k, v)),
+        plain_ms=_time_ms(lambda: FA.flash_fwd_plain(q, k, v), reps=5),
+        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
+        bound_ms=bound, bound_by=by,
+        back_to_back_ms=_back_to_back_ms(lambda: FA.flash_fwd(q, k, v)),
+        library_back_to_back_ms=_back_to_back_ms(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4)),
+    )
+
+
 def check_kernels(gen):
     """Phase 2: every kernel at the main path's shapes against its plain
     version; returns per-kernel measurements (launches filled in later)."""
@@ -392,30 +453,10 @@ def check_kernels(gen):
 
     results = []
     # -- K1: flash forward at the ViT, frame and global sites ---------------
-    sites = []
     N = (IMG // 14) ** 2 + 5
-    for site, bh, n in (("vit", NUM_FRAMES * 16, N), ("frame", 2 * NUM_FRAMES * 16, N),
-                        ("global", 16, NUM_FRAMES * N)):
-        q, k, v = randn(bh, n, 64), randn(bh, n, 64), randn(bh, n, 64)
-        out, lse = FA.flash_fwd(q, k, v)
-        torch.cuda.synchronize()
-        p_out, p_lse = FA.flash_fwd_plain(q, k, v)
-        err = float((out.float() - p_out.float()).abs().max())
-        _check(f"flash_fwd[{site}] out {tuple(q.shape)}", err, ulps(p_out, 4))
-        _check(f"flash_fwd[{site}] lse", float((lse - p_lse).abs().max()), 1e-4)
-        bound, by = _bound_ms(4.0 * bh * n * n * 64, 4 * q.numel() * 2 + lse.numel() * 4)
-        q4, k4, v4 = (t.view(1, bh, n, 64) for t in (q, k, v))
-        sites.append(dict(
-            site=site, shape=[bh, n, 64], max_abs_err=err,
-            ms=_time_ms(lambda: FA.flash_fwd(q, k, v)),
-            plain_ms=_time_ms(lambda: FA.flash_fwd_plain(q, k, v), reps=5),
-            library_ms=_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
-            bound_ms=bound, bound_by=by,
-            back_to_back_ms=_back_to_back_ms(lambda: FA.flash_fwd(q, k, v)),
-            library_back_to_back_ms=_back_to_back_ms(
-                lambda: F.scaled_dot_product_attention(q4, k4, v4)),
-        ))
-        del q, k, v, out, lse, p_out, p_lse
+    sites = [flash_site(randn, ulps, site, bh, n)
+             for site, bh, n in (("vit", NUM_FRAMES * 16, N), ("frame", 2 * NUM_FRAMES * 16, N),
+                                 ("global", 16, NUM_FRAMES * N))]
     for s_ in sites:
         _site_line(f"flash_fwd[{s_['site']}] {tuple(s_['shape'])}", s_)
     results.append(dict(
@@ -513,14 +554,19 @@ def check_kernels(gen):
     del x, add, out, ref, one, split
     torch.cuda.empty_cache()
     tracker = check_tracker_resize()
+    torch.cuda.empty_cache()
+    track_head = check_track_head_resize()
+    k3_sites = [dpt, tracker, track_head]
     results.append(dict(
         name="resize_bilinear", route="cuda",
         source="self_supervise_sfm_tpu_torch/csrc/resize.cu",
         replaces="self_supervise_sfm_tpu/ops/resize.py:51,136",
-        # one call at each of the two sites (the DPT head, the fine tracker)
-        max_abs_err=max(dpt["max_abs_err"], tracker["max_abs_err"]),
-        **{k: dpt[k] + tracker[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
-        bound_by="bytes", sites=[dpt, tracker],
+        # one call at each of the three sites (the DPT head, the fine tracker,
+        # the TrackHead's refinenet1)
+        max_abs_err=max(s_["max_abs_err"] for s_ in k3_sites),
+        **{k: sum(s_[k] for s_ in k3_sites)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        bound_by="bytes", sites=k3_sites,
     ))
     # K3 at the edges of its thread mapping, inputs from a generator of their
     # own: 8 channels a thread (C = 24) and 4 (C = 12), 429 / 286 threads (no
@@ -619,6 +665,63 @@ def check_tracker_resize():
     return site
 
 
+TRACK_FRAMES = 16  # the TrackHead's frames at 518 px (phase 8)
+
+
+def check_track_head_resize():
+    """Phase 2, K3 at the TrackHead's site: the DPT feature extractor's
+    ``refinenet1`` upsample of 16 frames, (16, 148, 148, 128) -> 296 x 296
+    fp32 with no addend (179.4 M output elements, over the gate's 2^27),
+    against the plain version (an fp32 ulp), bit-equal across chunkings,
+    timed beside the plain version, ``F.interpolate`` and the bound. Inputs
+    from a generator of their own."""
+    import torch
+    import torch.nn.functional as F
+
+    from self_supervise_sfm_tpu_torch.ops import resize as RS
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    h = 4 * (IMG // 14)  # 148
+    hw = (2 * h, 2 * h)
+    x = torch.randn((TRACK_FRAMES, h, h, 128), generator=gen, device="cuda")
+    chunk = RS.image_chunk(TRACK_FRAMES, *hw, 128)
+    if not RS.resize_kernel_applicable(tuple(x.shape), hw):
+        raise AssertionError("TrackHead site: the gate refuses the refinenet1 upsample")
+    out = RS.resize_bilinear_fwd(x, hw)
+    one = RS.resize_bilinear_fwd(x, hw, img_chunk=TRACK_FRAMES)
+    split = RS.resize_bilinear_fwd(x, hw, img_chunk=1)
+    torch.cuda.synchronize()
+    ref = RS.resize_bilinear_plain(x, hw)
+    err = float((out - ref).abs().max())
+    _check(f"resize_bilinear TrackHead site {tuple(x.shape)} -> {hw} fp32", err,
+           1e-5 * float(ref.abs().max()))
+    same = torch.equal(out, one) and torch.equal(out, split)
+    print(f"  resize_bilinear TrackHead site: chunk {chunk} of {TRACK_FRAMES} images; "
+          f"bit-equal to one chunk and to one image a chunk: {same}")
+    if not same:
+        raise AssertionError("resize_bilinear: the TrackHead site differs across chunkings")
+    del one, split, ref
+
+    def library():
+        return F.interpolate(x.permute(0, 3, 1, 2), size=hw, mode="bilinear",
+                             align_corners=True)
+
+    bound, by = _bound_ms(0.0, x.numel() * 4 + out.numel() * 4)
+    site = dict(
+        site="track_head", shape=list(x.shape), out_hw=list(hw), img_chunk=chunk,
+        max_abs_err=err,
+        ms=_time_ms(lambda: RS.resize_bilinear_fwd(x, hw)),
+        plain_ms=_time_ms(lambda: RS.resize_bilinear_plain(x, hw), reps=3),
+        library_ms=_time_ms(library),
+        bound_ms=bound, bound_by=by,
+        back_to_back_ms=_back_to_back_ms(lambda: RS.resize_bilinear_fwd(x, hw)),
+        library_back_to_back_ms=_back_to_back_ms(library),
+    )
+    _site_line(f"resize_bilinear TrackHead site {tuple(x.shape)} -> {hw} fp32, chunk {chunk}",
+               site)
+    return site
+
+
 def check_attention_edges(randn, ulps):
     """Phase 2, K1 / K2 / K2p at the edges of the Hopper body's tiling, held
     against their plain versions with the path shapes' tolerances: one q row
@@ -652,9 +755,13 @@ def check_attention_edges(randn, ulps):
     print("  edges: frame_ctx_packed_fwd bit-equal to frame_ctx_fwd at each")
 
 
-def check_fused_kernels(randn, ulps):
+def check_fused_kernels(randn, ulps, C=1024, H=16, frames=NUM_FRAMES, sites=None,
+                        qkv_only=("reloc",)):
     """Phase 2, the five fused block kernels at the ViT, frame, reloc and
-    global sites. bf16 outputs: kernel and plain version sum in other orders,
+    global sites (phase 8: at the widths ``C`` / ``H`` of the other ViTs and
+    their ``sites``; a site in ``qkv_only`` times the LN+QKV kernel alone,
+    the other kernels seeing its shape at another site).
+    bf16 outputs: kernel and plain version sum in other orders,
     so a layer-normed operand or a result may round to the neighbouring
     bf16 value; the tolerance is 2 ulps at the largest output, and 4 for
     q / k, where the qk-norm and the two RoPE products each round again.
@@ -667,7 +774,7 @@ def check_fused_kernels(randn, ulps):
     from self_supervise_sfm_tpu_torch.models import aggregator as AG
     from self_supervise_sfm_tpu_torch.ops import fused_qkv as FQ
 
-    C, H, d, Ch = 1024, 16, 64, 4096
+    d, Ch = 64, 4 * C
     N = (IMG // 14) ** 2 + 5
     f32 = torch.float32
     bf16 = torch.bfloat16
@@ -682,13 +789,15 @@ def check_fused_kernels(randn, ulps):
          "ls1": {"gamma": randn(C, dtype=f32)}, "ls2": {"gamma": randn(C, dtype=f32)}}
     acfg = AG.AggregatorConfig()
     t_frame = AG._rope_tables_frame(acfg, IMG // 14, IMG // 14, "cuda")
-    t_global = AG._tile_tables(t_frame, NUM_FRAMES)
     attn_cfg = AT.AttentionConfig(dim=C, num_heads=H, qk_norm=True, ln_eps=1e-5)
     vit_cfg = AT.AttentionConfig(dim=C, num_heads=H, qk_norm=False, ln_eps=1e-6)
     n1, n2, at, ml = p["norm1"], p["norm2"], p["attn"], p["mlp"]
     qn, kn = at["q_norm"], at["k_norm"]
-    sites = {"vit": (NUM_FRAMES, N, None), "frame": (2 * NUM_FRAMES, N, t_frame),
-             "reloc": (NUM_FRAMES, N, t_frame), "global": (1, NUM_FRAMES * N, t_global)}
+    t_global = AG._tile_tables(t_frame, frames)
+    sites = sites or {"vit": (frames, N, None), "frame": (2 * frames, N, t_frame),
+                      "reloc": (frames, N, t_frame), "global": (1, frames * N, t_global)}
+    sites = {k: (b, n, t_frame if tabs == "frame" else tabs)
+             for k, (b, n, tabs) in sites.items()}
 
     # the MLP kernels' GEMM body alone, fp32 accumulators against an fp32
     # matmul of the same bf16 operands: one tile of one K slice (the weight
@@ -698,7 +807,7 @@ def check_fused_kernels(randn, ulps):
     # Inputs from a generator of their own, so that the other inputs of
     # this phase and the weights of phase 3 stay what they were
     probe = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    for rows, kk, cols in ((128, 64, 128), (300, 1024, 384)):
+    for rows, kk, cols in ((128, 64, 128), (300, 1024, 384)) if C == 1024 else ():
         a = torch.randn((rows, kk), generator=probe, device="cuda").to(bf16)
         w = (torch.randn((kk, cols), generator=probe, device="cuda") * kk**-0.5).to(bf16)
         got = FQ.gemm_probe(a, w)
@@ -772,8 +881,8 @@ def check_fused_kernels(randn, ulps):
             name, site, kern(*args), plain(*args), tol, 2.0 * M * C * 3 * C, ins,
             (lambda: kern(*args), lambda: plain(*args), chain)))
         prepass(name, site, x, n1, args[-1])
-        if site == "reloc":
-            continue  # the other three kernels see the ViT site's shape again
+        if site in qkv_only:
+            continue  # the other three kernels see this shape at another site
         # -- head merge + out-proj + layer-scale + residual
         o = randn(B, H, n, d)
         pargs = (o, x, at["proj"]["w"], at["proj"]["b"], p["ls1"]["gamma"])
@@ -1404,7 +1513,8 @@ def run_forward(gen):
               f"({NUM_FRAMES / sec:.3f} frames/s, {NUM_FRAMES} frames of {IMG} px), "
               f"peak memory {gb:.2f} GB")
     state = dict(cfg=cfg, cfg_plain=cfg_plain, cfg_f32=cfg_f32, params=params, p32=p32,
-                 uniq=uniq, draw=draw, taps=tk, wrappers=wrappers)
+                 uniq=uniq, draw=draw, taps=tk, wrappers=wrappers,
+                 out_host={k: out[k].cpu() for k in PRETRAINED_KEYS})
     return launches, state, dict(
         step_ms=step * 1e3, frames_per_s=fps, peak_gb=peak_gb,
         times_ms=[t * 1e3 for t in times],
@@ -2649,6 +2759,412 @@ def run_trainer(bare_step_ms: float):
         losses=[r["loss"] for r in ra])
 
 
+# phase 3's outputs that phase 8 holds the forward on converted weights to
+PRETRAINED_KEYS = ("extrinsic", "intrinsic", "depth_map", "point_map", "cam_tokens")
+
+
+def reference_state_dict(params) -> dict:
+    """The port's SailRecon params -> a state dict in the reference's names
+    and PyTorch layouts (fp32 CPU tensors), as the published ``sailrecon.pt``
+    lays them out: the inverse of ``utils/converter.py``'s rules, written
+    here apart from the package (linear weights back to (out, in), convs
+    and transposed convs as they are, per-layer blocks as ``name.i``)."""
+    sd = {}
+
+    def put(name, t):
+        sd[name] = t.detach().to("cpu", copy=True).float().contiguous()
+
+    def lin(pfx, p):
+        put(f"{pfx}.weight", p["w"].T)
+        if "b" in p:
+            put(f"{pfx}.bias", p["b"])
+
+    def ln(pfx, p):
+        put(f"{pfx}.weight", p["scale"])
+        put(f"{pfx}.bias", p["bias"])
+
+    def conv(pfx, p):
+        put(f"{pfx}.weight", p["w"])
+        if "b" in p:
+            put(f"{pfx}.bias", p["b"])
+
+    def blocks(pfx, ps, qk_norm):
+        for i, p in enumerate(ps):
+            b = f"{pfx}.{i}"
+            ln(f"{b}.norm1", p["norm1"])
+            lin(f"{b}.attn.qkv", p["attn"]["qkv"])
+            lin(f"{b}.attn.proj", p["attn"]["proj"])
+            if qk_norm:
+                ln(f"{b}.attn.q_norm", p["attn"]["q_norm"])
+                ln(f"{b}.attn.k_norm", p["attn"]["k_norm"])
+            put(f"{b}.ls1.gamma", p["ls1"]["gamma"])
+            ln(f"{b}.norm2", p["norm2"])
+            lin(f"{b}.mlp.fc1", p["mlp"]["fc1"])
+            lin(f"{b}.mlp.fc2", p["mlp"]["fc2"])
+            put(f"{b}.ls2.gamma", p["ls2"]["gamma"])
+
+    def dpt(pfx, p):
+        ln(f"{pfx}.norm", p["norm"])
+        for i, q in enumerate(p["projects"]):
+            conv(f"{pfx}.projects.{i}", q)
+        for i in (0, 1, 3):
+            conv(f"{pfx}.resize_layers.{i}", p[f"resize{i}"])
+        sc = p["scratch"]
+        for i in (1, 2, 3, 4):
+            conv(f"{pfx}.scratch.layer{i}_rn", sc[f"layer{i}_rn"])
+            f = sc[f"refinenet{i}"]
+            for unit in ("resConfUnit1", "resConfUnit2"):
+                if unit in f:
+                    for c in ("conv1", "conv2"):
+                        conv(f"{pfx}.scratch.refinenet{i}.{unit}.{c}", f[unit][c])
+            conv(f"{pfx}.scratch.refinenet{i}.out_conv", f["out_conv"])
+        conv(f"{pfx}.scratch.output_conv1", sc["output_conv1"])
+        if "output_conv2" in sc:
+            conv(f"{pfx}.scratch.output_conv2.0", sc["output_conv2"]["conv1"])
+            conv(f"{pfx}.scratch.output_conv2.2", sc["output_conv2"]["conv2"])
+
+    agg, vit = params["aggregator"], params["aggregator"]["vit"]
+    v = "aggregator.patch_embed"
+    conv(f"{v}.patch_embed.proj", vit["patch_embed"]["proj"])
+    for k in ("cls_token", "pos_embed", "register_tokens"):
+        if vit[k] is not None:
+            put(f"{v}.{k}", vit[k])
+    blocks(f"{v}.blocks", vit["blocks"], False)
+    ln(f"{v}.norm", vit["norm"])
+    for mine, ref in (("frame_blocks", "frame_blocks"), ("global_blocks", "global_blocks"),
+                      ("reloc_blocks", "global_reloc_blocks")):
+        blocks(f"aggregator.{ref}", agg[mine], True)
+    for k in ("camera_token", "register_token", "camera_token_reloc", "register_token_reloc"):
+        put(f"aggregator.{k}", agg[k])
+    cam = params["camera_head"]
+    blocks("camera_head.trunk", cam["trunk"], False)
+    ln("camera_head.token_norm", cam["token_norm"])
+    ln("camera_head.trunk_norm", cam["trunk_norm"])
+    put("camera_head.empty_pose_tokens", cam["empty_pose_tokens"])
+    lin("camera_head.embed_pose", cam["embed_pose"])
+    lin("camera_head.poseLN_modulation.1", cam["poseLN_modulation"])
+    lin("camera_head.pose_branch.fc1", cam["pose_branch"]["fc1"])
+    lin("camera_head.pose_branch.fc2", cam["pose_branch"]["fc2"])
+    dpt("point_head", params["point_head"])
+    dpt("depth_head", params["depth_head"])
+    return sd
+
+
+def _tree_paths(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_paths(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree) for x in _tree_paths(t, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def _cast_vit_weights(p, dtype):
+    """The ViT blocks' matmul weights in the compute dtype, once (the other
+    leaves stay fp32), as ``cast_trunk_weights`` does for the aggregator."""
+    out = dict(p, blocks=[])
+    for b in p["blocks"]:
+        b = {**b, "attn": {k: dict(v) for k, v in b["attn"].items()},
+             "mlp": {k: dict(v) for k, v in b["mlp"].items()}}
+        for sub in (b["attn"]["qkv"], b["attn"]["proj"], b["mlp"]["fc1"], b["mlp"]["fc2"]):
+            sub["w"] = sub["w"].to(dtype)
+        out["blocks"].append(b)
+    return out
+
+
+def run_converter(host_params=None, phase3=None):
+    """Phase 8: (a) phase 3's weights written as a reference state dict,
+    saved, loaded and converted on the demo's ``--pretrained`` path: every
+    leaf bit-equal, the forward bit-equal to phase 3's with phase 3's launch
+    counts; (b) the TrackHead at full width on 16 frames of the bf16
+    aggregator's taps: K3 once a call, against the einsum upsample; (c)
+    ``vit_small``, ``vit_base`` and ``vit_giant2`` in bf16 against their
+    plain path within the bf16 envelope, with their launch counts; (d) the
+    ``"aliked"`` extractor on the card against the same weights on the
+    CPU. ``host_params``: phase 3's cast weights on the host (None: drawn
+    here from the seed, with phase 3's forward run here)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from self_supervise_sfm_tpu_torch.demos import reconstruct as D
+    from self_supervise_sfm_tpu_torch.heads import dpt as DH
+    from self_supervise_sfm_tpu_torch.heads import track as TH
+    from self_supervise_sfm_tpu_torch.layers import vit as V
+    from self_supervise_sfm_tpu_torch.models import aggregator as AG
+    from self_supervise_sfm_tpu_torch.models import sailrecon as M
+    from self_supervise_sfm_tpu_torch.pipeline import aliked as A
+    from self_supervise_sfm_tpu_torch.pipeline import extractors as X
+    from self_supervise_sfm_tpu_torch.utils import converter as C
+
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = kernel_wrappers()
+    failures = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    res, launches = {}, {}
+    cfg = M.make_config(compute_dtype="bfloat16")
+
+    def draw():
+        return torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def fwd(p, images):
+        return M.forward(p, cfg, images, NUM_FRAMES, NUM_FRAMES, rank=RANK, generator=draw(),
+                         images_duplicated=True)
+
+    # -- (a) the round trip through a reference state dict ----------------------
+    if host_params is None:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = M.cast_trunk_weights(M.init_sailrecon(cfg, gen, device="cuda"), cfg)
+        uniq = torch.rand((1, NUM_FRAMES, IMG, IMG, 3), generator=gen, device="cuda")
+        images = torch.cat([uniq, uniq], dim=1)
+        zero()
+        out = fwd(params, images)
+        torch.cuda.synchronize()
+        expect(counts() == FORWARD_LAUNCHES, f"reference forward launches {counts()}")
+        ref_out = {k: out[k].cpu() for k in PRETRAINED_KEYS}
+        host_params = _to_device(params, "cpu")
+        del params, out
+        print("  phase 3's weights and forward made here (phase 3 did not run)")
+    else:
+        uniq, ref_out = phase3["uniq"].to("cuda"), phase3["out_host"]
+        images = torch.cat([uniq, uniq], dim=1)
+    work = tempfile.mkdtemp(prefix="converter_smoke_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    times = {}
+    orig = C.load_torch_state_dict, C.convert_sailrecon
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            times[name] = time.perf_counter() - t0
+            return r
+        return call
+
+    try:
+        t0 = time.perf_counter()
+        sd = reference_state_dict(host_params)
+        times["state_dict_s"] = time.perf_counter() - t0
+        path = os.path.join(work, "sailrecon.pt")
+        t0 = time.perf_counter()
+        torch.save(sd, path)
+        times["save_s"] = time.perf_counter() - t0
+        res["file_gb"] = os.path.getsize(path) / 1e9
+        res["tensors"], res["params"] = len(sd), sum(t.numel() for t in sd.values())
+        del sd
+        C.load_torch_state_dict = timed("load_s", orig[0])
+        C.convert_sailrecon = timed("convert_s", orig[1])
+        t0 = time.perf_counter()
+        loaded = D.load_params(cfg, None, device="cuda", pretrained=path)
+        torch.cuda.synchronize()
+        times["pretrained_path_s"] = time.perf_counter() - t0
+    finally:
+        C.load_torch_state_dict, C.convert_sailrecon = orig
+        shutil.rmtree(work, ignore_errors=True)
+    res.update(times)
+    print(f"  reference state dict: {res['tensors']} tensors, {res['params'] / 1e9:.4f} G "
+          f"params, {res['file_gb']:.3f} GB on disk (fp32); built in "
+          f"{times['state_dict_s']:.2f} s, torch.save {times['save_s']:.2f} s; the demo's "
+          f"--pretrained path {times['pretrained_path_s']:.2f} s (load_torch_state_dict "
+          f"{times['load_s']:.2f} s, convert_sailrecon {times['convert_s']:.2f} s, then to the "
+          f"card and the trunk cast)")
+    got, want = _tree_paths(loaded), _tree_paths(host_params)
+    expect([p for p, _ in got] == [p for p, _ in want], "converted tree's structure")
+    bad = [p for (p, a), (_, b) in zip(got, want)
+           if (a is None) != (b is None) or (a is not None and (
+               a.dtype != b.dtype or not torch.equal(a.cpu(), b)))]
+    print(f"  converted leaves bit-equal to phase 3's: {len(got) - len(bad)} of {len(got)}"
+          + (f" (first differing: {bad[:3]})" if bad else ""))
+    expect(not bad, f"{len(bad)} converted leaves differ")
+    del host_params
+    zero()
+    out = fwd(loaded, images)
+    torch.cuda.synchronize()
+    launches["pretrained"] = counts()
+    print(f"  launches in the forward on the converted weights: {launches['pretrained']}")
+    expect(launches["pretrained"] == FORWARD_LAUNCHES,
+           f"forward on converted weights: launches {launches['pretrained']}")
+    same = {k: torch.equal(out[k].cpu(), ref_out[k]) for k in PRETRAINED_KEYS}
+    print(f"  forward on the converted weights bit-equal to phase 3's: {same}")
+    expect(all(same.values()), "the forward on converted weights differs from phase 3's")
+    del out, images
+
+    # -- (b) the TrackHead at full width ------------------------------------------
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    frames = torch.rand((1, TRACK_FRAMES, IMG, IMG, 3), generator=g, device="cuda")
+    thcfg = TH.TrackHeadConfig()
+    taps, psi, _ = AG.aggregator_forward(
+        loaded["aggregator"], cfg.aggregator, torch.cat([frames[:, :1], frames], dim=1), 1,
+        TRACK_FRAMES, RANK, generator=draw())
+    taps = {li: taps[li] for li in thcfg.intermediate_layer_idx}
+    del loaded, frames
+    torch.cuda.empty_cache()
+    thp = TH.init_track_head(torch.Generator(device="cuda").manual_seed(SEED + 29), thcfg)
+    qp = torch.rand((1, 512, 2), generator=g, device="cuda") * (IMG - 1)
+    thcfg_e = dataclasses.replace(thcfg, resize_impl="einsum")
+
+    def head(c, iters=None):
+        return TH.track_head(thp, taps, (IMG, IMG), psi, qp, c, iters=iters)
+
+    zero()
+    coords, vis, conf = head(thcfg)
+    torch.cuda.synchronize()
+    launches["track_head"] = counts()
+    print(f"  TrackHead (16 x 518 px, 512 queries, {thcfg.iters} iterations) launches: "
+          f"{launches['track_head']}")
+    expect(launches["track_head"] == {**dict.fromkeys(wrappers, 0), "resize_bilinear": 1},
+           f"TrackHead launches {launches['track_head']}")
+    expect(tuple(coords[-1].shape) == (1, TRACK_FRAMES, 512, 2)
+           and bool(torch.isfinite(coords[-1]).all()) and bool(torch.isfinite(vis).all())
+           and bool(torch.isfinite(conf).all()), "TrackHead outputs")
+    fk, fe = (DH.dpt_head(thp["feature_extractor"], taps, (IMG, IMG), psi,
+                          c.feature_extractor_cfg) for c in (thcfg, thcfg_e))
+    res["track_head_feature_rel_rms"] = rel(fk, fe)
+    del fk, fe
+    one_k, one_e = head(thcfg, 1)[0][-1], head(thcfg_e, 1)[0][-1]
+    res["track_head_tracks_1_iter_px"] = float((one_k - one_e).abs().max())
+    res["track_head_tracks_4_iter_px"] = float((coords[-1] - head(thcfg_e)[0][-1]).abs().max())
+    print(f"  TrackHead, K3 against the einsum upsample: feature maps rel-RMS "
+          f"{res['track_head_feature_rel_rms']:.3e} (tolerance 1e-5); tracks after one "
+          f"iteration max {res['track_head_tracks_1_iter_px']:.3e} px (tolerance 1e-3), after "
+          f"{thcfg.iters}: {res['track_head_tracks_4_iter_px']:.3e} px (for the record: random "
+          f"weights amplify rounding)")
+    expect(res["track_head_feature_rel_rms"] <= 1e-5, "TrackHead feature maps off einsum's")
+    expect(res["track_head_tracks_1_iter_px"] <= 1e-3, "TrackHead tracks off einsum's")
+    res["track_head_ms"] = _wall_ms(lambda: head(thcfg))
+    res["track_head_profile"] = profile_forward(lambda: head(thcfg), "TrackHead call")
+    print(f"  TrackHead call: {res['track_head_ms']:.2f} ms wall (median of 3)")
+    del taps, thp, coords, vis, conf, one_k, one_e
+    torch.cuda.empty_cache()
+
+    # -- (c) the other ViT widths ---------------------------------------------------
+    # K1 and the fused block kernels alone at the ViT-B and ViT-g sites (2
+    # frames of 518 px): LN+QKV, the out-projection and the MLP pair at the
+    # ViT blocks' shape, LN+QKV+RoPE at a frame block's of that width (no
+    # path runs it), each against its plain version, timed beside its
+    # library call or chain and its bound
+    wgen = torch.Generator(device="cuda").manual_seed(SEED + 37)
+
+    def wrandn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=wgen, device="cuda").to(dtype)
+
+    def ulps(ref, n):
+        return n * 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
+
+    N = (IMG // 14) ** 2 + 5
+    res["width_sites"] = {}
+    for C, H in ((768, 12), (1536, 24)):
+        ws = {"flash_fwd": [flash_site(wrandn, ulps, f"vit C{C}", 2 * H, N)]}
+        _site_line(f"flash_fwd[vit C{C}] {(2 * H, N, 64)}", ws["flash_fwd"][0])
+        for r in check_fused_kernels(wrandn, ulps, C=C, H=H, frames=2,
+                                     sites={f"vit C{C}": (2, N, None),
+                                            f"frame C{C}": (2, N, "frame")},
+                                     qkv_only=(f"frame C{C}",)):
+            ws[r["name"]] = r["sites"]
+        res["width_sites"][C] = ws
+        torch.cuda.empty_cache()
+
+    res["vit"] = {}
+    for name in ("vit_small", "vit_base", "vit_giant2"):
+        vc = getattr(V, name)()
+        plain_cfg = dataclasses.replace(vc, attn_impl="dense", fused_qkv="off", fused_mlp="off")
+        g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+        p32 = V.init_vit(g, "cuda", vc)
+        p16 = _cast_vit_weights(p32, torch.bfloat16)
+        x = torch.rand((2, IMG, IMG, 3), generator=g, device="cuda")
+        zero()
+        ok = V.vit_forward(p16, x, vc, torch.bfloat16)
+        torch.cuda.synchronize()
+        n = {k: v for k, v in counts().items() if v}
+        launches[name] = counts()
+        d = vc.depth
+        fused_all = vc.embed_dim % 256 == 0
+        want = ({"flash_fwd": d, "fused_ln_qkv": d, "fused_proj_residual": d,
+                 "fused_mlp_up": d, "fused_mlp_down": d} if fused_all
+                else {"flash_fwd": d, "fused_proj_residual": d})
+        expect(n == want, f"{name}: launches {n}, expected {want}")
+        plain = V.vit_forward(p16, x, plain_cfg, torch.bfloat16)
+        f32 = V.vit_forward(p32, x, plain_cfg, torch.float32)
+        errs = {}
+        for key in ("x_norm_patchtokens", "x_norm_clstoken"):
+            err, env = rel(ok[key], plain[key]), rel(plain[key], f32[key])
+            errs[key] = [err, env]
+            expect(err <= 2 * env, f"{name} {key}: {err} over twice the bf16 envelope {env}")
+        ms = _wall_ms(lambda: V.vit_forward(p16, x, vc, torch.bfloat16))
+        plain_ms = _wall_ms(lambda: V.vit_forward(p16, x, plain_cfg, torch.bfloat16))
+        res["vit"][name] = dict(C=vc.embed_dim, heads=vc.num_heads, depth=d, launches=n,
+                                rel_rms=errs, ms=ms, plain_ms=plain_ms)
+        print(f"  {name} (C {vc.embed_dim}, {vc.num_heads} heads, depth {d}), 2 x 518 px bf16: "
+              f"launches {n}; kernel vs plain rel-RMS "
+              + ", ".join(f"{k} {e[0]:.3e} (bf16 envelope {e[1]:.3e})" for k, e in errs.items())
+              + f"; {ms:.2f} ms, plain {plain_ms:.2f} ms")
+        del p32, p16, x, ok, plain, f32
+        torch.cuda.empty_cache()
+
+    # -- (d) ALIKED on the card against the CPU ---------------------------------------
+    scene = SyntheticScenes(1, NUM_FRAMES, 16, IMG, SEED + 17, checker=True).load_scene(
+        0, np.random.default_rng(0))
+    zoo = X.initialize_feature_extractors("aliked", max_pts=2048, device="cuda")
+    per_image = []
+    for img in scene["images"]:
+        t0 = time.perf_counter()
+        zoo["aliked"](img)
+        per_image.append((time.perf_counter() - t0) * 1e3)
+    ap = A.init_aliked(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    apc = _to_device(ap, "cpu")
+    res["aliked"] = []
+    for img in scene["images"][:2]:
+        gi, ci = torch.from_numpy(img).cuda(), torch.from_numpy(img)
+        sg = A.aliked_dense(ap, torch.nn.functional.pad(gi, (0, 0, 0, 26, 0, 26))[None])[0]
+        sc = A.aliked_dense(apc, torch.nn.functional.pad(ci, (0, 0, 0, 26, 0, 26))[None])[0]
+        xg, vg, dg = (t.cpu() for t in A.aliked_keypoints(ap, gi, 2048))
+        xc, vc_, dc = A.aliked_keypoints(apc, ci, 2048)
+        diff = (vg[1:] - vg[:-1]).abs()
+        sep = torch.ones_like(vg, dtype=torch.bool)
+        sep[1:] &= diff > 1e-4
+        sep[:-1] &= diff > 1e-4
+        sep &= vg > 0
+        # the detections as sets: the card's keypoints found among the CPU's
+        # (near-equal scores only permute entries, or swap the last ones)
+        cpu_set = {tuple(p) for p in torch.round(xc[vc_ > 0] * 1e3).long().tolist()}
+        card = torch.round(xg[vg > 0] * 1e3).long().tolist()
+        r = dict(score_map_err=float((sg.cpu() - sc).abs().max()),
+                 top_k_score_err=float((vg - vc_).abs().max()), detections=int((vg > 0).sum()),
+                 shared_share=sum(tuple(p) in cpu_set for p in card) / max(len(card), 1),
+                 separated=int(sep.sum()),
+                 xy_err_separated=float((xg - xc)[sep].abs().max()) if sep.any() else 0.0,
+                 desc_err_separated=float((dg - dc)[sep].abs().max()) if sep.any() else 0.0)
+        res["aliked"].append(r)
+        expect(r["score_map_err"] <= 1e-4 and r["top_k_score_err"] <= 1e-4,
+               f"ALIKED scores card vs CPU {r}")
+        expect(r["separated"] > 0 and r["xy_err_separated"] <= 1e-3
+               and r["shared_share"] >= 0.99, f"ALIKED keypoints card vs CPU {r}")
+    res["aliked_ms_per_image"] = per_image
+    print(f"  ALIKED (zoo, 2048 points, 518 px padded to 544): "
+          f"{[round(t, 2) for t in per_image]} ms an image (the first includes its warm-up); "
+          f"card vs CPU on 2 images: {res['aliked']}")
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  phase 8 peak memory {res['peak_gb']:.2f} GB")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, res
+
+
 def main() -> int:
     import torch
 
@@ -2680,6 +3196,16 @@ def main() -> int:
               "the tracker, the DINO ranking, bundle adjustment on known geometry")
         _, demo = run_demo()
         print(json.dumps({"demo": demo}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--converter-only" in sys.argv[1:]:
+        print("phase 8 alone: the converter round trip, the TrackHead, the ViT widths, ALIKED")
+        t0 = time.perf_counter()
+        _, conv = run_converter()
+        print(f"phase 8: {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"converter": conv}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2716,6 +3242,7 @@ def main() -> int:
     # phase 3's weights wait on the host for phase 7 (the card's memory goes
     # to phases 5 and 6)
     demo_params = _to_device(state["params"], "cpu")
+    phase3 = {"uniq": state["uniq"].cpu(), "out_host": state["out_host"]}
     del state
     torch.cuda.empty_cache()
     print("phase 5: full-width train step (2 frames, depth 24, rank 300, bf16 trunk, "
@@ -2743,10 +3270,26 @@ def main() -> int:
     for k in kernels:
         k["launches_by_path"]["demo"] = demo_launches[k["name"]]
         k["launches"] += demo_launches[k["name"]]
+    torch.cuda.empty_cache()
+    print("phase 8: the converter round trip (5 GB, the demo's --pretrained path), the "
+          "TrackHead, the ViT widths, ALIKED on the card")
+    t0 = time.perf_counter()
+    converter_launches, conv = run_converter(demo_params, phase3)
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    del demo_params
+    for k in kernels:
+        for path, n in converter_launches.items():
+            k["launches_by_path"][path] = n[k["name"]]
+            k["launches"] += n[k["name"]]
+        # phase 8's sites at the other ViT widths, beside phase 2's (whose
+        # sums stay the kernel line's numbers)
+        k["width_sites"] = [s_ for ws in conv["width_sites"].values()
+                            for s_ in ws.get(k["name"], [])]
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was launched on no path")
     print(json.dumps({"demo": demo}))
+    print(json.dumps({"converter": conv}))
     print(json.dumps({"forward": fwd}))
     print(json.dumps({"train": train}))
     print(json.dumps({"trainer": trainer}))

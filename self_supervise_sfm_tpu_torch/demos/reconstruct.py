@@ -14,15 +14,18 @@ triangulation seeded by the predicted poses, bundle adjustment
 (``--ba-engine torch``: on the device; ``native``: the C++ engine on the
 host) and the COLMAP model (``sparse_txt`` and ``sparse``).
 
-The weights are random from fixed seeds, or the port trainer's checkpoint
-(``--checkpoint``; its ViT pos embed resampled to ``--img-size``).
-``--pretrained`` and ``--tracker-weights`` wait for the converter slice.
+The weights are random from fixed seeds, a reference SAIL-Recon checkpoint
+(``--pretrained sailrecon.pt``, through ``utils/converter.py``) or the port
+trainer's checkpoint (``--checkpoint``); either's ViT pos embed is
+resampled to ``--img-size``. ``--tracker-weights vggsfm_v2_tracker.pt``
+loads the VGGSfM tracker's published weights for ``--tracks-ba``.
 Everything runs on ``--device`` (``cuda`` by default; without a card that
 raises, it never falls back to the CPU).
 
 Usage:
   python -m self_supervise_sfm_tpu_torch.demos.reconstruct --data-root <imc_root> \\
-      [--mode forward|reloc] [--num-images 5] [--tracks-ba] [--device cpu]
+      [--mode forward|reloc] [--num-images 5] [--tracks-ba] [--device cpu] \\
+      [--pretrained sailrecon.pt] [--tracker-weights vggsfm_v2_tracker.pt]
 
 :func:`run` takes the parsed arguments and any dataset object with
 ``__len__`` and ``load_scene(idx, rng)``.
@@ -47,18 +50,6 @@ _MODEL_SEED = 0
 _TRACKER_SEED = 2
 
 
-def refuse_unported(args) -> None:
-    """The options that wait for the converter slice raise."""
-    if args.pretrained:
-        raise NotImplementedError(
-            "--pretrained needs the PyTorch checkpoint converter, which comes with "
-            "the next slice (the converter slice, ROADMAP.md Queue A item 5)")
-    if args.tracks_ba and args.tracker_weights:
-        raise NotImplementedError(
-            "--tracker-weights needs the VGGSfM checkpoint converter, which comes with "
-            "the next slice (the converter slice, ROADMAP.md Queue A item 5)")
-
-
 def make_config(args) -> M.SailReconConfig:
     model_kw = {}
     if args.depth != 24:
@@ -69,13 +60,22 @@ def make_config(args) -> M.SailReconConfig:
                          depth=args.depth, vit_depth=args.vit_depth, **model_kw)
 
 
-def load_params(cfg, generator: torch.Generator, checkpoint: str = "", device="cuda"):
-    """Random params from ``generator``, or the params of the port trainer's
-    latest checkpoint under ``checkpoint``, on ``device``, the trunk's
-    weights cast to the compute dtype."""
+def load_params(cfg, generator: torch.Generator, checkpoint: str = "", device="cuda",
+                pretrained: str = ""):
+    """Random params from ``generator``; or a reference SAIL-Recon state dict
+    (``pretrained``) through the converter; or the params of the port
+    trainer's latest checkpoint under ``checkpoint``; on ``device``, the ViT
+    pos embed resampled to the config's grid and the trunk's weights cast to
+    the compute dtype."""
     dev = M._device(device)
-    if checkpoint:
-        from ..layers.vit import resample_pos_embed
+    if pretrained:
+        from ..utils import converter as C
+
+        print(f"loading pretrained torch checkpoint: {pretrained}")
+        agg = cfg.aggregator
+        params = _to_device(C.convert_sailrecon(C.load_torch_state_dict(pretrained),
+                                                agg.depth, agg.vit.depth), dev)
+    elif checkpoint:
         from ..train.checkpoint import CheckpointManager
 
         state = CheckpointManager(checkpoint).restore()
@@ -83,16 +83,18 @@ def load_params(cfg, generator: torch.Generator, checkpoint: str = "", device="c
             raise FileNotFoundError(f"no checkpoint under {checkpoint}")
         print(f"loaded trained params (step {int(state['step'])}) from {checkpoint}")
         params = _to_device(state["params"], dev)
-        vit = params["aggregator"]["vit"]
-        target_grid = cfg.img_size // cfg.aggregator.vit.patch_size
-        if vit["pos_embed"].shape[1] != target_grid * target_grid + 1:
-            # a checkpoint trained at another img_size: resample its grid
-            print(f"resampling ViT pos embed {vit['pos_embed'].shape[1] - 1} -> "
-                  f"{target_grid * target_grid} patch tokens")
-            vit["pos_embed"] = resample_pos_embed(vit["pos_embed"], target_grid)
     else:
-        print("WARNING: no --checkpoint; using random weights")
-        params = M.init_sailrecon(cfg, generator, dev)
+        print("WARNING: no --pretrained or --checkpoint; using random weights")
+        return M.cast_trunk_weights(M.init_sailrecon(cfg, generator, dev), cfg)
+    from ..layers.vit import resample_pos_embed
+
+    vit = params["aggregator"]["vit"]
+    target_grid = cfg.img_size // cfg.aggregator.vit.patch_size
+    if vit["pos_embed"].shape[1] != target_grid * target_grid + 1:
+        # weights made at another img_size: resample their grid
+        print(f"resampling ViT pos embed {vit['pos_embed'].shape[1] - 1} -> "
+              f"{target_grid * target_grid} patch tokens")
+        vit["pos_embed"] = resample_pos_embed(vit["pos_embed"], target_grid)
     return M.cast_trunk_weights(params, cfg)
 
 
@@ -142,14 +144,21 @@ def reconstruct_scene(params, cfg, images_np, mode: str, rank: int,
     return EX.to_cpu(preds)
 
 
-def init_tracker(device="cuda"):
-    """(tracker params, tracker config) of ``--tracks-ba``: random weights
+def init_tracker(device="cuda", weights: str = ""):
+    """(tracker params, tracker config) of ``--tracks-ba``: the VGGSfM
+    tracker checkpoint ``weights`` through the converter, or random weights
     from a fixed seed."""
     from ..pipeline.vggsfm_tracker import VGGSfMTrackerConfig, init_vggsfm_tracker
 
     dev = M._device(device)
-    print("WARNING: no --tracker-weights; using random tracker weights")
     tcfg = VGGSfMTrackerConfig()
+    if weights:
+        from ..utils import converter as C
+
+        print(f"loading tracker weights: {weights}")
+        tp = C.convert_vggsfm_tracker(C.load_torch_state_dict(weights), tcfg)
+        return _to_device(tp, dev), tcfg
+    print("WARNING: no --tracker-weights; using random tracker weights")
     gen = torch.Generator(device=dev).manual_seed(_TRACKER_SEED)
     return init_vggsfm_tracker(tcfg, gen, dev), tcfg
 
@@ -212,7 +221,8 @@ def parse_args(argv=None):
                          "must divide the frame count)")
     ap.add_argument("--num-scenes", type=int, default=3)
     ap.add_argument("--pretrained", default="",
-                    help="a SAIL-Recon checkpoint (not ported yet: raises)")
+                    help="a reference SAIL-Recon checkpoint (sailrecon.pt) to convert "
+                         "and serve")
     ap.add_argument("--checkpoint", default="",
                     help="the port trainer's checkpoint directory (use --depth / "
                          "--vit-depth to match the trained shape)")
@@ -223,7 +233,8 @@ def parse_args(argv=None):
                     help="also track, triangulate, bundle-adjust and export a COLMAP "
                          "sparse model")
     ap.add_argument("--tracker-weights", default="",
-                    help="a VGGSfM tracker checkpoint (not ported yet: raises)")
+                    help="a VGGSfM tracker checkpoint (vggsfm_v2_tracker.pt) for "
+                         "--tracks-ba")
     ap.add_argument("--ba-engine", choices=["torch", "native"], default="torch")
     ap.add_argument("--max-query-pts", type=int, default=2048)
     ap.add_argument("--fine-tracking", action="store_true", default=True)
@@ -240,13 +251,12 @@ def run(args, dataset, params=None, tracker_params=None, tracker_cfg=None) -> Di
     carries the seconds of each stage under ``stage_seconds``.
     """
     dev = M._device(args.device)
-    refuse_unported(args)
     cfg = make_config(args)
     if params is None:
         params = load_params(cfg, torch.Generator(device=dev).manual_seed(_MODEL_SEED),
-                             args.checkpoint, dev)
+                             args.checkpoint, dev, args.pretrained)
     if args.tracks_ba and tracker_params is None:
-        tracker_params, tracker_cfg = init_tracker(dev)
+        tracker_params, tracker_cfg = init_tracker(dev, args.tracker_weights)
     os.makedirs(args.out_dir, exist_ok=True)
     rng = np.random.default_rng(0)
     results = {}
@@ -291,7 +301,6 @@ def run(args, dataset, params=None, tracker_params=None, tracker_cfg=None) -> Di
 def main(argv=None):
     args = parse_args(argv)
     M._device(args.device)
-    refuse_unported(args)
     from ..data.imc2021 import IMC2021Scenes
 
     ds = IMC2021Scenes(args.data_root, sample_num=16, num_images=args.num_images,

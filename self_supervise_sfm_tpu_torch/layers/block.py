@@ -6,12 +6,18 @@ block is composed of two halves, :func:`qkv_parts` and
 out-proj and MLP kernels (``ops/fused_qkv.py``) plug in.
 
 ``BlockConfig.fused_qkv`` / ``fused_mlp`` are the JAX package's tri-state:
-``"auto"`` takes the fused route when ``x`` is bf16 and the block's structure
-qualifies (see the gates below), ``"on"`` drops the dtype condition, ``"off"``
-runs the unfused chain of plain matmuls. The gates decide by stated
-conditions; a fused wrapper never falls back. There is no mesh condition
-(the port has no sharding) and none on the weights' size (the JAX gate's
-VMEM bound belongs to the TPU).
+``"auto"`` takes the fused route when ``x`` is bf16, the block's structure
+qualifies and the kernel takes the block's widths (any width on the CPU,
+whose wrappers run the plain versions; see the gates below), ``"on"`` drops
+the dtype and width conditions (a width the kernels refuse meets their
+refusal), ``"off"`` runs the unfused chain of plain matmuls. The gates
+decide by stated conditions; a fused wrapper never falls back. There is no
+mesh condition (the port has no sharding) and none on the weights' size
+(the JAX gate's VMEM bound belongs to the TPU).
+
+``BlockConfig.drop_path`` is stochastic depth: with a rate above 0 and a
+``drop_generator`` given to :func:`block`, each residual branch is scaled
+by its own per-sample mask (:func:`drop_path_mask`), on the unfused chain.
 
 No sharding: on one device the JAX package's ``parallel/sp_block.py``
 variants reduce to :func:`block` / :func:`block_with_context`.
@@ -46,6 +52,9 @@ class BlockConfig:
     fused_qkv: str = "auto"
     # fused LN2+fc1+GELU / fc2+layer-scale+residual kernels, same tri-state
     fused_mlp: str = "auto"
+    # stochastic-depth rate; it takes effect only when block() is also given a
+    # drop_generator (no shipped configuration enables it)
+    drop_path: float = 0.0
 
     def __post_init__(self):
         for name in ("fused_qkv", "fused_mlp"):
@@ -84,15 +93,30 @@ def mlp(p, x):
     return P.linear(p["fc2"], P.gelu(P.linear(p["fc1"], x)))
 
 
-def _fused_wanted(mode: str, x: torch.Tensor) -> bool:
-    """The tri-state: "off" never, "on" always, "auto" for a bf16 ``x``."""
-    return mode == "on" or (mode == "auto" and x.dtype == torch.bfloat16)
+def drop_path_mask(generator: torch.Generator, x: torch.Tensor, rate: float) -> torch.Tensor:
+    """Per-sample stochastic-depth mask, Bernoulli(1 - rate) on the leading
+    axis, broadcast over the others and scaled by 1 / (1 - rate) in x's
+    dtype (the JAX package's ``drop_path_mask``; the draw comes from
+    ``generator``, since torch cannot replay ``jax.random``)."""
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    m = torch.rand(shape, generator=generator, device=x.device) < keep
+    return m.to(x.dtype) / torch.tensor(keep, dtype=x.dtype, device=x.device)
+
+
+def _fused_wanted(mode: str, x: torch.Tensor, widths_taken: bool) -> bool:
+    """The tri-state: "off" never, "on" always, "auto" for a bf16 ``x`` at
+    widths the kernel takes (every width on the CPU, as ``kernel_takes``)."""
+    if mode == "on":
+        return True
+    return (mode == "auto" and x.dtype == torch.bfloat16
+            and (x.device.type == "cpu" or widths_taken))
 
 
 def _fused_qkv_applicable(p, cfg: BlockConfig, x, rope_cos_sin) -> bool:
     """Gate of the fused LN+QKV+qk-norm+RoPE kernel: qk-norm on, a qkv bias,
     2D rope with shared (N, d) tables and a rope-compatible head dim."""
-    if not _fused_wanted(cfg.fused_qkv, x):
+    if not _fused_wanted(cfg.fused_qkv, x, FQ.qkv_kernel_takes(cfg.dim, cfg.num_heads)):
         return False
     if rope_cos_sin is None or rope_cos_sin[0].dim() != 2:
         return False
@@ -103,7 +127,7 @@ def _fused_qkv_applicable(p, cfg: BlockConfig, x, rope_cos_sin) -> bool:
 
 def _fused_qkv_plain_applicable(p, cfg: BlockConfig, x) -> bool:
     """Gate of the fused LN+QKV without qk-norm and rope (the ViT blocks)."""
-    if not _fused_wanted(cfg.fused_qkv, x):
+    if not _fused_wanted(cfg.fused_qkv, x, FQ.qkv_kernel_takes(cfg.dim, cfg.num_heads)):
         return False
     if cfg.qk_norm or "b" not in p["attn"]["qkv"]:
         return False
@@ -111,11 +135,12 @@ def _fused_qkv_plain_applicable(p, cfg: BlockConfig, x) -> bool:
 
 
 def _fused_proj_applicable(p, cfg: BlockConfig, x) -> bool:
-    return _fused_wanted(cfg.fused_qkv, x) and "b" in p["attn"]["proj"]
+    return (_fused_wanted(cfg.fused_qkv, x, FQ.proj_kernel_takes(cfg.dim, cfg.num_heads))
+            and "b" in p["attn"]["proj"])
 
 
 def _fused_mlp_applicable(p, cfg: BlockConfig, x) -> bool:
-    if not _fused_wanted(cfg.fused_mlp, x):
+    if not _fused_wanted(cfg.fused_mlp, x, FQ.mlp_kernel_takes(cfg.dim, cfg.mlp_hidden)):
         return False
     return "fc1" in p["mlp"] and "b" in p["mlp"]["fc1"]
 
@@ -173,9 +198,18 @@ def remat_call(on: bool, fn, *args):
 def block(
     p, x, cfg: BlockConfig, rope_cos_sin=None, mask=None,
     extra_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    drop_generator: Optional[torch.Generator] = None,
 ):
     q, k, v = qkv_parts(p, x, cfg, rope_cos_sin)
     o = attention_heads_out(p["attn"], q, k, v, cfg.attn, mask, extra_kv)
+    if cfg.drop_path > 0.0 and drop_generator is not None:
+        # stochastic depth (training): plain residuals, each branch scaled by
+        # a mask of its own, two draws as the JAX package's two keys
+        attn_res = P.layer_scale(p["ls1"], P.linear(p["attn"]["proj"], _merge_heads(o)))
+        x = x + drop_path_mask(drop_generator, x, cfg.drop_path) * attn_res
+        h = P.layer_norm(p["norm2"], x, cfg.ln_eps)
+        mlp_res = P.layer_scale(p["ls2"], mlp(p["mlp"], h))
+        return x + drop_path_mask(drop_generator, x, cfg.drop_path) * mlp_res
     return attn_out_mlp(p, o, x, cfg)
 
 

@@ -52,8 +52,20 @@ class ViTConfig:
         )
 
 
+def vit_small(**kw):
+    return ViTConfig(embed_dim=384, depth=12, num_heads=6, **kw)
+
+
+def vit_base(**kw):
+    return ViTConfig(embed_dim=768, depth=12, num_heads=12, **kw)
+
+
 def vit_large(**kw):
     return ViTConfig(embed_dim=1024, depth=24, num_heads=16, **kw)
+
+
+def vit_giant2(**kw):
+    return ViTConfig(embed_dim=1536, depth=40, num_heads=24, **kw)
 
 
 def init_vit(g, device, cfg: ViTConfig):

@@ -391,13 +391,12 @@ def _lm_loop(shards, reduce3, cam, fixed_rows, max_iters, init_lambda):
 
 
 def ba_solve_multihost(*args, **kwargs):
-    """Distributed BA across processes: not ported yet (slice 6, multi-device,
-    ``ROADMAP.md`` Queue A item 7). :func:`ba_solve_distributed` runs the
-    same point-partitioned engine in one process."""
+    """Distributed BA across processes: not ported yet (it waits for slice 6,
+    multi-device). :func:`ba_solve_distributed` runs the same
+    point-partitioned engine in one process."""
     raise NotImplementedError(
-        "ba_solve_multihost is not ported yet: it comes with slice 6 "
-        "(multi-device, ROADMAP.md Queue A item 7); ba_solve_distributed runs "
-        "the sharded engine in one process")
+        "ba_solve_multihost is not ported yet: it waits for slice 6 (multi-device); "
+        "ba_solve_distributed runs the sharded engine in one process")
 
 
 def ba_solve_distributed(

@@ -133,6 +133,26 @@ def _check_tile_widths(name: str, C: int, nout: int) -> None:
                          f"width {nout} a multiple of 128")
 
 
+def qkv_kernel_takes(C: int, num_heads: int) -> bool:
+    """Widths that LN+QKV(+RoPE) take: head dim 64 and C a multiple of 256
+    (so the output width 3 C is a multiple of 128): the checks of
+    :func:`_check_widths` and :func:`_check_tile_widths`, as a predicate for
+    the "auto" gates of ``layers/block.py``."""
+    return C == num_heads * KERNEL_HEAD_DIM and C % 256 == 0
+
+
+def proj_kernel_takes(C: int, num_heads: int) -> bool:
+    """Widths that the out-projection takes: head dim 64, C a multiple of 128
+    (it has no layer-norm pre-pass)."""
+    return C == num_heads * KERNEL_HEAD_DIM and C % 128 == 0
+
+
+def mlp_kernel_takes(C: int, hidden: int) -> bool:
+    """Widths that MLP-up and MLP-down take: C a multiple of 256, the hidden
+    width a multiple of 128 (no head condition)."""
+    return C % 256 == 0 and hidden % 128 == 0
+
+
 def _check_no_grad(name: str, *ts) -> None:
     """A launch wrapper's outputs have no ``grad_fn``: refuse to cut the
     autograd graph (the differentiable entries call it with grad mode off)."""

@@ -169,12 +169,18 @@ def extri_intri_to_pose_encoding(extrinsics: torch.Tensor, intrinsics: torch.Ten
 
 
 def pose_encoding_to_extri_intri(pose_encoding: torch.Tensor,
-                                 image_size_hw: Tuple[int, int]):
-    """(..., 9) -> ((..., 3, 4) extrinsics, (..., 3, 3) intrinsics); the
+                                 image_size_hw: Optional[Tuple[int, int]] = None,
+                                 build_intrinsics: bool = True):
+    """(..., 9) -> ((..., 3, 4) extrinsics, (..., 3, 3) intrinsics, or None
+    with ``build_intrinsics=False``, which needs no image size); the
     principal point is the image centre."""
     T = pose_encoding[..., :3]
     R = quat_to_mat(pose_encoding[..., 3:7])
     extrinsics = torch.cat([R, T[..., None]], dim=-1)
+    if not build_intrinsics:
+        return extrinsics, None
+    if image_size_hw is None:
+        raise ValueError("building intrinsics needs image_size_hw")
     H, W = image_size_hw
     # tan clamped away from 0: a relu'd FoV head emits exactly 0 at init
     fy = (H / 2.0) / torch.clamp(torch.tan(pose_encoding[..., 7] / 2.0), min=1e-6)

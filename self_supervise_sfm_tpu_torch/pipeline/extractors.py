@@ -11,10 +11,13 @@ Port of ``self_supervise_sfm_tpu/pipeline/extractors.py``:
 - :func:`initialize_feature_extractors` / :func:`extract_keypoints_union`:
   the zoo and the de-duplicated union of its detections.
 
+- ``"aliked"``: the ALIKED deformable detector and descriptor
+  (``pipeline/aliked.py``), random weights from a seed as in the JAX zoo;
+- :func:`convert_torch_superpoint`: the public SuperPoint weights (the
+  magicleap / lightglue state dict) -> the tree ``superpoint_*`` takes.
+
 The top-k keeps, among equal scores, the lower pixel index first, as
-``jax.lax.top_k`` does. ``"aliked"`` is not ported yet (the next slice,
-``ROADMAP.md`` Queue A item 5); the converter of the public SuperPoint
-weights comes with the converter slice too.
+``jax.lax.top_k`` does.
 """
 
 from __future__ import annotations
@@ -57,6 +60,18 @@ def init_superpoint(generator: torch.Generator, cfg: SuperPointConfig = SuperPoi
     p["convDa"] = P.init_conv(generator, dev, 3, 3, 128, 256)
     p["convDb"] = P.init_conv(generator, dev, 1, 1, 256, cfg.descriptor_dim)
     return p
+
+
+def convert_torch_superpoint(state_dict) -> dict:
+    """The public SuperPoint torch weights (``conv1a.weight`` (out, in, kh,
+    kw), ...: numpy arrays or tensors) -> the port's tree, fp32 CPU tensors
+    in PyTorch's own OIHW layout (the JAX converter permutes them to HWIO)."""
+    def cv(name):
+        return {k: torch.as_tensor(np.asarray(state_dict[f"{name}.{t}"], np.float32)).clone()
+                for k, t in (("w", "weight"), ("b", "bias"))}
+
+    names = [n for n, _, _ in _ENC] + ["convPa", "convPb", "convDa", "convDb"]
+    return {n: cv(n) for n in names}
 
 
 def _pool(x):  # (B, H, W, C) 2x2 max pool, VALID
@@ -206,8 +221,8 @@ def initialize_feature_extractors(methods: str = "shi_tomasi", max_pts: int = 20
                                   superpoint_params: Optional[dict] = None,
                                   device="cuda") -> Dict[str, callable]:
     """'+'-separated extractor spec -> {name: image -> (N, 2) xy numpy}.
-    Supported: shi_tomasi (numpy, on the host), superpoint and dog (on
-    ``device``)."""
+    Supported: shi_tomasi (numpy, on the host), superpoint, dog and aliked
+    (on ``device``)."""
     from .tracking import extract_keypoints as shi_tomasi
 
     zoo: Dict[str, callable] = {}
@@ -233,9 +248,18 @@ def initialize_feature_extractors(methods: str = "shi_tomasi", max_pts: int = 20
                 return xy[s > 0].cpu().numpy()
             zoo[m] = dg
         elif m == "aliked":
-            raise NotImplementedError(
-                "the ALIKED extractor is not ported yet: it comes with the next "
-                "slice (the converter slice, ROADMAP.md Queue A item 5)")
+            from . import aliked as A
+
+            dev = _device(device)
+            ap = A.init_aliked(torch.Generator(device=dev).manual_seed(0), device=dev)
+
+            def ak(img, _p=ap, _dev=dev):
+                img = torch.as_tensor(np.asarray(img, np.float32)).to(_dev)
+                if img.dim() == 2:
+                    img = img[..., None].expand(*img.shape, 3)
+                xy, s, _ = A.aliked_keypoints(_p, img, max_pts)
+                return xy[s > 0].cpu().numpy()
+            zoo[m] = ak
         else:
             raise ValueError(f"unknown extractor: {m}")
     return zoo

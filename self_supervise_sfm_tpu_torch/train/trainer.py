@@ -19,8 +19,9 @@ Port of ``self_supervise_sfm_tpu/train/trainer.py``:
   step edge, a CDF-range curriculum and a ``torch.profiler`` window.
 
 One device: a mesh (``num_context`` / ``num_model`` > 1) and ``fsdp`` raise
-``NotImplementedError``, as does ``pretrained`` (the checkpoint converter
-is not ported). The trainer runs on ``cuda`` unless ``device="cpu"``.
+``NotImplementedError`` (they wait for slice 6, multi-device). ``pretrained``
+starts from a reference SAIL-Recon state dict through
+``utils/converter.py``. The trainer runs on ``cuda`` unless ``device="cpu"``.
 
 Run:  python -m self_supervise_sfm_tpu_torch.train.trainer --data-root ... [--steps N]
 """
@@ -281,11 +282,8 @@ def run(cfg: TrainerConfig):
     if cfg.num_context > 1 or cfg.num_model > 1 or cfg.train.fsdp:
         raise NotImplementedError(
             "multi-device training (num_context / num_model > 1, fsdp) is not ported "
-            "yet (ROADMAP.md Queue A item 8); the port's trainer runs on one device")
-    if cfg.pretrained:
-        raise NotImplementedError(
-            "--pretrained needs the PyTorch checkpoint converter, not ported yet "
-            "(ROADMAP.md Queue A item 6)")
+            "yet (it waits for slice 6, multi-device); the port's trainer runs on one "
+            "device")
     os.makedirs(cfg.results_dir, exist_ok=True)
     print(f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
                               if dev.type == "cuda" else ""))
@@ -303,7 +301,16 @@ def run(cfg: TrainerConfig):
                          "never engages (steps AFTER the switch use the final range)")
 
     ckpt = CheckpointManager(os.path.join(cfg.results_dir, "checkpoints"))
-    if cfg.init_params_from:
+    if cfg.pretrained:
+        from ..utils import converter as C
+
+        print(f"loading pretrained torch checkpoint: {cfg.pretrained}")
+        params = C.convert_sailrecon(C.load_torch_state_dict(cfg.pretrained),
+                                     model_cfg.aggregator.depth,
+                                     model_cfg.aggregator.vit.depth)
+        params = L._unflatten(params, [t.to(dev) for t in L._flatten(params)])
+        state = L.train_state_from_params(params, tcfg)
+    elif cfg.init_params_from:
         state = L.train_state_from_params(_seeded_params(cfg, model_cfg, dev), tcfg)
     else:
         state = L.init_train_state(

@@ -246,5 +246,5 @@ def test_pose_decode_and_unprojection(rng):
 
 
 def test_block_config_fields_mirror_jax():
-    jf = {f.name for f in dataclasses.fields(JB.BlockConfig)} - {"drop_path"}
+    jf = {f.name for f in dataclasses.fields(JB.BlockConfig)}
     assert jf == {f.name for f in dataclasses.fields(TB.BlockConfig)}

@@ -225,10 +225,15 @@ DEMO_SLICE = ("ops/geometry.py", "utils/evaluation.py", "utils/colmap_io.py",
               "utils/images.py")
 
 
+# the converter's slice: the converter, the TrackHead, ALIKED, SwiGLU
+CONVERTER_SLICE = ("utils/converter.py", "heads/track.py", "pipeline/aliked.py",
+                   "layers/swiglu.py")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     banned = ("jax", "jaxlib", "self_supervise_sfm_tpu")
     sources = _port_sources()
-    for name in TRAINER_SLICE + DEMO_SLICE:
+    for name in TRAINER_SLICE + DEMO_SLICE + CONVERTER_SLICE:
         assert ROOT / "self_supervise_sfm_tpu_torch" / name in sources, name
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -272,15 +272,36 @@ def test_demo_matches_jax(scenes, tmp_path, monkeypatch, mode):
             np.testing.assert_allclose(x, y, atol=1e-4)
 
 
-def test_demo_refusals_and_default_device(scenes, tmp_path):
+def test_demo_refusals_and_default_device(scenes, tmp_path, monkeypatch):
+    """``--pretrained`` and ``--tracker-weights`` refuse nothing: they read
+    their files (a missing one raises FileNotFoundError; converted weights
+    load and the run goes on; ``tests/test_torch_converter.py`` holds
+    their outputs against JAX). The default ``cuda`` raises without a
+    card."""
+    from self_supervise_sfm_tpu.models import sailrecon as JM
     from self_supervise_sfm_tpu_torch.demos import reconstruct as TD
+    from self_supervise_sfm_tpu_torch.models import sailrecon as TM
+    from tests.test_torch_converter import random_params, reference_state_dict
 
-    argv = _demo_argv(scenes, str(tmp_path), "forward") + ["--device", "cpu"]
-    for extra in (["--pretrained", "x.pt"], ["--tracker-weights", "v.pt"]):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            TD.main(argv + extra)
-        with pytest.raises(NotImplementedError, match="next slice"):
-            TD.run(TD.parse_args(argv + extra), [])
+    orig = TM.make_config
+    monkeypatch.setattr(TM, "make_config", lambda **kw: orig(**{**kw, **TINY}))
+    jcfg, tcfg = small_cfg(JV), small_cfg(TV)
+    monkeypatch.setattr(TV, "VGGSfMTrackerConfig", lambda: tcfg)
+    files = {}
+    for opt, init in (
+            ("--pretrained", lambda: JM.init_sailrecon(jax.random.PRNGKey(0),
+                                                       JM.make_config(**TINY))),
+            ("--tracker-weights", lambda: JV.init_vggsfm_tracker(jax.random.PRNGKey(0), jcfg))):
+        files[opt] = str(tmp_path / f"{opt[2:]}.pt")
+        torch.save({k: torch.from_numpy(v) for k, v in
+                    reference_state_dict(random_params(init)).items()}, files[opt])
+    argv = _demo_argv(scenes, str(tmp_path), "forward") + ["--device", "cpu", "--depth", "4",
+                                                           "--vit-depth", "2"]
+    for opt in files:
+        with pytest.raises(FileNotFoundError):
+            TD.run(TD.parse_args(argv + [opt, str(tmp_path / "missing.pt")]), [])
+    both = [x for opt, f in files.items() for x in (opt, f)]
+    assert TD.run(TD.parse_args(argv + both), []) == {}
     if not torch.cuda.is_available():
         default = _demo_argv(scenes, str(tmp_path), "forward")
         with pytest.raises(RuntimeError, match="no CUDA device"):

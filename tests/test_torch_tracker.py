@@ -269,8 +269,12 @@ def test_dog_keypoints_and_union_exact(rng):
     tzoo = TX.initialize_feature_extractors("shi_tomasi+dog", max_pts=128, device="cpu")
     np.testing.assert_array_equal(TX.extract_keypoints_union(img, tzoo),
                                   JX.extract_keypoints_union(img, jzoo))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TX.initialize_feature_extractors("aliked", device="cpu")
+    # the zoo's "aliked" (held against JAX in tests/test_torch_aliked.py)
+    zoo = TX.initialize_feature_extractors("shi_tomasi+aliked", max_pts=128, device="cpu")
+    xy = zoo["aliked"](img)
+    assert xy.ndim == 2 and xy.shape[1] == 2 and 0 < len(xy) <= 128
+    union = TX.extract_keypoints_union(img, zoo)
+    assert len(union) >= len(xy)
 
 
 # -- K3's launch choice (meta tensors: the card's checks, no build) ------------------------

@@ -345,8 +345,32 @@ def test_command_line(root, tmp_path):
     assert TL._flatten(state["opt"]["mu"])[0].dtype == torch.bfloat16
 
 
+def test_pretrained_run_matches_jax(root, jax_run, tmp_path):
+    """``--pretrained``: JAX's starting params written as a reference
+    SAIL-Recon state dict (in a ``state_dict`` wrapper), loaded and
+    converted by the port's trainer, then stepped with JAX's subsample:
+    the JAX run's losses and metrics, as the resumed run above."""
+    from tests.test_torch_converter import reference_state_dict
+
+    sd = reference_state_dict(jax_run["state0"]["params"])
+    path = tmp_path / "sailrecon.pt"
+    torch.save({"state_dict": {k: torch.from_numpy(v.copy()) for k, v in sd.items()}}, path)
+    idx = [torch.from_numpy(i) for i in jax_run["idx"]]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TT, "step_subsample",
+                   lambda seed, step, device: {"subsample_indices": idx[step]})
+        TT.run(_port_cfg(root, tmp_path / "run", STEPS, pretrained=str(path)))
+    rows = _rows(tmp_path / "run")
+    assert [r["step"] for r in rows] == [r["step"] for r in jax_run["train"]]
+    for ref, got in zip(jax_run["train"], rows):
+        for k in ("loss", "loss_cdf_exact", "loss_cdf_approx"):
+            assert got[k] == pytest.approx(ref[k], abs=1e-5), k
+        for k in set(ref) - TIMING - {"step", "prefix", "loss", "loss_cdf_exact",
+                                      "loss_cdf_approx"}:
+            assert got[k] == pytest.approx(ref[k], rel=2e-4, abs=1e-12), k
+
+
 @pytest.mark.parametrize("kw,what", [
-    (dict(pretrained="sailrecon.pt"), "converter"),
     (dict(num_context=2), "multi-device"),
     (dict(num_model=2), "multi-device"),
     (dict(train=TL.TrainConfig(fsdp=True)), "multi-device"),
