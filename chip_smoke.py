@@ -140,11 +140,26 @@ Phases, each of which must pass (any failure exits non-zero):
    Its launch counts go into the kernel line as the paths "pretrained",
    "track_head" and one a ViT width.
 
+9. the multi-device path (``parallel/``): one NCCL process of world size
+   1 (NCCL takes one rank a device, and the machine has one card) with
+   the sharded path forced; the sharded joint forward, build, full-head
+   reloc and ``fast_reloc`` with phase 3's weights and inputs, each
+   bit-equal to the unsharded program with its launch counts and timed
+   beside it; one cache layer's gather; the ring's fold of 2, 5 and 10
+   chunks at the global site (16, 6870, 64) bf16 through K1 and the lse
+   merge, its forward against fp32 attention (within twice K1-whole's
+   error) and its gradients (B9 with ``dlse``) against B9 over the whole,
+   timed beside K1 over the whole; the per-rank cache bytes of a
+   200-anchor scene at 1, 2, 4 and 8 ranks. Its paths go into the kernel
+   line as "sharded_forward", "sharded_build", "sharded_reloc" and
+   "ring_fold".
+
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2;
 ``--train-only`` runs phase 5 alone after the build, ``--trainer-only``
-phases 5 and 6, ``--demo-only`` phase 7, ``--converter-only`` phase 8 (on
-weights it draws from the seed; their launch counts are then not merged
-into the kernel line, which is not printed).
+phases 5 and 6, ``--demo-only`` phase 7, ``--converter-only`` phase 8 and
+``--sharded-only`` phase 9 (on weights they draw from the seed; their
+launch counts are then not merged into the kernel line, which is not
+printed).
 
 The line before the last is a JSON object of every kernel's numbers (the
 forward's and the serving paths' numbers go on lines of their own before
@@ -3165,6 +3180,274 @@ def run_converter(host_params=None, phase3=None):
     return launches, res
 
 
+RING_SITE = (16, NUM_FRAMES * 1374, 64)  # the global site: 16 heads, 5 anchors x 1374 tokens
+RING_CHUNKS = (2, 5, 10)
+CACHE_ANCHORS = 200
+
+
+def _same(a, b) -> bool:
+    """Bit-equal, NaN where the other is NaN."""
+    import torch
+
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    a, b = a.cpu(), b.cpu()
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and bool(((a == b) | (a.isnan() & b.isnan())).all()))
+
+
+def run_sharded(card: str, host_params=None, phase3=None):
+    """Phase 9: the multi-device path on the card, in one NCCL process of
+    world size 1 (NCCL takes one rank a device, and the machine has one
+    card) with the sharded path forced (``parallel/sp_block.py:
+    force_single_device_spmd``): a ring of one chunk, collectives over
+    groups of one. (1) the sharded joint forward, bit-equal to the unsharded
+    one (and to phase 3's outputs) with phase 3's launch counts; (2) the
+    sharded build (the context-sharded cache), full-head reloc and
+    ``fast_reloc``, bit-equal to phase 4's program with its launch counts;
+    (3) the ring's fold of n = 2, 5, 10 chunks at the global site through
+    K1 and the lse merge in one process, forward against fp32 attention and
+    gradients (B9 with ``dlse``) against B9 over the whole, timed beside K1
+    over the whole; (4) the per-rank cache bytes of a 200-anchor scene.
+    ``host_params``: phase 3's cast weights on the host (None: drawn here
+    from the seed)."""
+    import torch
+    import torch.distributed as dist
+
+    from self_supervise_sfm_tpu_torch.models import sailrecon as M
+    from self_supervise_sfm_tpu_torch.ops import attention_core as AC
+    from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
+    from self_supervise_sfm_tpu_torch.ops import ring_attention as RA
+    from self_supervise_sfm_tpu_torch.parallel import sharding as Sh
+    from self_supervise_sfm_tpu_torch.parallel import sp_block as SP
+
+    wrappers = kernel_wrappers()
+    failures = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: w.launches for k, w in wrappers.items()}
+
+    cfg = M.make_config(compute_dtype="bfloat16")
+    acfg = cfg.aggregator
+    if host_params is None:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = M.cast_trunk_weights(M.init_sailrecon(cfg, gen, device="cuda"), cfg)
+        uniq = torch.rand((1, NUM_FRAMES, IMG, IMG, 3), generator=gen, device="cuda")
+        print("  phase 3's weights made here (phase 3 did not run)")
+    else:
+        params, uniq = _to_device(host_params, "cuda"), phase3["uniq"].to("cuda")
+    images = torch.cat([uniq, uniq], dim=1)
+
+    def draw():
+        return torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def fwd():
+        return M.forward(params, cfg, images, NUM_FRAMES, NUM_FRAMES, rank=RANK,
+                         generator=draw(), images_duplicated=True)
+
+    def build():
+        return M.build_scene_cache(params, cfg, uniq, rank=RANK, generator=draw())
+
+    # the unsharded programs of phases 3 and 4 on the same weights
+    ref_out, _ = counted(fwd)
+    (ref_cache, ref_cam), _ = counted(build)
+    ref_reloc, _ = counted(lambda: M.reloc(params, cfg, ref_cache, ref_cam, uniq))
+    ref_fast, _ = counted(lambda: M.reloc(params, cfg, ref_cache, ref_cam, uniq,
+                                          fast_reloc=True))
+    if phase3 is not None:
+        same3 = {k: _same(ref_out[k], phase3["out_host"][k]) for k in PRETRAINED_KEYS}
+        print(f"  unsharded forward here bit-equal to phase 3's outputs: {same3}")
+        expect(all(same3.values()), "the forward differs from phase 3's")
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    res, launches = {}, {}
+    ring_calls, gathers = [], []
+    ring_local, all_gather = SP.ring_attention_local, Sh._all_gather
+
+    def ring_spy(*a, **k):
+        ring_calls.append(1)
+        return ring_local(*a, **k)
+
+    def gather_spy(*a, **k):
+        gathers.append(1)
+        return all_gather(*a, **k)
+
+    SP.ring_attention_local, Sh._all_gather = ring_spy, gather_spy
+    try:
+        mesh = Sh.make_mesh(1, 1, 1, device="cuda")
+        print(f"  process group: nccl, world size {dist.get_world_size()}; mesh "
+              f"{mesh.shape}, sharded path forced")
+        with Sh.activate_mesh(mesh), SP.force_single_device_spmd():
+            expect(SP.scene_shard(1, NUM_FRAMES, NUM_FRAMES) is not None,
+                   "the forced mesh takes the replicated path")
+            # -- (1) the sharded joint forward --------------------------------
+            ring_calls.clear(), gathers.clear()
+            out, n = counted(fwd)
+            launches["sharded_forward"] = n
+            print(f"  sharded forward: launches {n}; ring calls {len(ring_calls)}, "
+                  f"all-gathers {len(gathers)}")
+            expect(n == FORWARD_LAUNCHES, f"sharded forward launches {n}")
+            expect(len(ring_calls) == acfg.depth and gathers,
+                   f"sharded forward: {len(ring_calls)} ring calls, {len(gathers)} gathers")
+            same = {k: _same(out[k], ref_out[k]) for k in ref_out}
+            print(f"  sharded forward bit-equal to the unsharded one: "
+                  f"{all(same.values())} ({sum(same.values())} of {len(same)} outputs)")
+            expect(all(same.values()),
+                   f"sharded forward differs in {[k for k, v in same.items() if not v]}")
+            if phase3 is not None:
+                same3 = {k: _same(out[k], phase3["out_host"][k]) for k in PRETRAINED_KEYS}
+                print(f"  sharded forward bit-equal to phase 3's outputs: {same3}")
+                expect(all(same3.values()), "the sharded forward differs from phase 3's")
+            # -- (2) build, reloc, fast_reloc ---------------------------------
+            ring_calls.clear()
+            (cache, cam), n = counted(build)
+            launches["sharded_build"] = n
+            print(f"  sharded build: launches {n}; ring calls {len(ring_calls)}; cache "
+                  f"{tuple(cache['kv'].shape)} marked {cache['shards']}")
+            expect(n == BUILD_LAUNCHES, f"sharded build launches {n}")
+            expect(len(ring_calls) == acfg.depth, f"sharded build: {len(ring_calls)} ring calls")
+            expect(cache["shards"] == (1, 1), f"cache marked {cache.get('shards')}")
+            expect(_same(cache["kv"], ref_cache["kv"]) and _same(cam, ref_cam),
+                   "sharded cache or cam tokens differ from the unsharded build's")
+            gathers.clear()
+            rel, n_rel = counted(lambda: M.reloc(params, cfg, cache, cam, uniq))
+            print(f"  sharded reloc: launches {n_rel}; all-gathers {len(gathers)} "
+                  f"(one cache layer each of the {acfg.depth}, then the predictions)")
+            expect(n_rel == RELOC_LAUNCHES, f"sharded reloc launches {n_rel}")
+            expect(len(gathers) >= acfg.depth, f"sharded reloc: {len(gathers)} gathers")
+            fast, n_fast = counted(lambda: M.reloc(params, cfg, cache, cam, uniq,
+                                                   fast_reloc=True))
+            expect(n_fast == FAST_RELOC_LAUNCHES, f"sharded fast_reloc launches {n_fast}")
+            launches["sharded_reloc"] = {k: n_rel[k] + n_fast[k] for k in n_rel}
+            same_b = dict(cache=_same(cache["kv"], ref_cache["kv"]), cam=_same(cam, ref_cam))
+            same_r = {k: _same(rel[k], ref_reloc[k]) for k in ref_reloc}
+            same_f = {k: _same(fast[k], ref_fast[k]) for k in ref_fast}
+            print(f"  sharded build / reloc / fast_reloc bit-equal to phase 4's program: "
+                  f"{same_b}, {all(same_r.values())} ({len(same_r)} outputs), "
+                  f"{all(same_f.values())} ({len(same_f)} outputs)")
+            expect(all(same_r.values()) and all(same_f.values()),
+                   "sharded reloc differs from the unsharded one")
+            # times beside the unsharded programs (phases 3 and 4)
+            times = {}
+            for name, a, b in (
+                    ("forward", fwd, fwd), ("build", build, build),
+                    ("reloc", lambda: M.reloc(params, cfg, ref_cache, ref_cam, uniq),
+                     lambda: M.reloc(params, cfg, cache, cam, uniq)),
+                    ("fast_reloc",
+                     lambda: M.reloc(params, cfg, ref_cache, ref_cam, uniq, fast_reloc=True),
+                     lambda: M.reloc(params, cfg, cache, cam, uniq, fast_reloc=True))):
+                with Sh.activate_mesh(None):
+                    plain_ms = _wall_ms(a)
+                sharded_ms = _wall_ms(b)
+                with Sh.activate_mesh(None):
+                    plain_ms2 = _wall_ms(a)
+                times[name] = dict(unsharded_ms=[plain_ms, plain_ms2], sharded_ms=sharded_ms)
+                print(f"  {card}: {name} unsharded {plain_ms:.2f} / {plain_ms2:.2f} ms, "
+                      f"sharded (world 1) {sharded_ms:.2f} ms (medians of 3)")
+            res["times"] = times
+            # what a world of one pays for each of reloc's cache-layer
+            # gathers (an NCCL all-gather of a group of one, host cost
+            # included) beside a copy of the same layer
+            layer = cache["kv"][0:1]
+            depth = acfg.depth
+            gather_ms = _wall_ms(lambda: [Sh.gather(layer, mesh, "context", 3)
+                                          for _ in range(depth)]) / depth
+            copy_ms = _wall_ms(lambda: [layer.clone() for _ in range(depth)]) / depth
+            res["layer_gather_ms"], res["layer_copy_ms"] = gather_ms, copy_ms
+            print(f"  {card}: one cache layer {tuple(layer.shape)} gathered (world 1) "
+                  f"{gather_ms:.4f} ms a call, copied {copy_ms:.4f} ms (wall, {depth} in a row)")
+            del out, cache, cam, rel, fast, layer
+    finally:
+        SP.ring_attention_local, Sh._all_gather = ring_local, all_gather
+        dist.destroy_process_group()
+    del ref_out, ref_cache, ref_cam, ref_reloc, ref_fast, params
+    torch.cuda.empty_cache()
+
+    # -- (3) the ring's fold at the global site ---------------------------------
+    g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    H, N, d = RING_SITE
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = (randn(1, H, N, d) for _ in range(4))
+    qf, kf, vf = (t.float().requires_grad_(True) for t in (q, k, v))
+    ref = AC.sdpa_dense(qf, kf, vf)
+    ref.backward(do.float())
+    ref_grads = [t.grad for t in (qf, kf, vf)]
+    ref = ref.detach()
+    del qf, kf, vf
+
+    def grads_of(fn):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = fn(*ts)
+        o.backward(do)
+        return o.detach(), [t.grad for t in ts]
+
+    whole, whole_g = grads_of(lambda a, b, c: FA.flash_attention_lse(a, b, c)[0])
+    err_whole = float((whole.float() - ref).abs().max())
+    gerr_whole = [float((a.float() - b).abs().max()) for a, b in zip(whole_g, ref_grads)]
+    whole_ms = _time_ms(lambda: FA.flash_attention_lse(q, k, v))
+    print(f"  ring fold at {tuple(q.shape)} bf16: K1 over the whole, max error vs fp32 "
+          f"{err_whole:.3e}, gradients (B9) dq / dk / dv {gerr_whole}, {whole_ms:.4f} ms")
+    folds, fold_launches = [], {key: 0 for key in wrappers}
+    for nchunk in RING_CHUNKS:
+        (o, gs), n = counted(lambda: grads_of(lambda a, b, c: RA.ring_fold(a, b, c, nchunk)))
+        for key in n:
+            fold_launches[key] += n[key]
+        expect(n["flash_fwd"] == nchunk and n["flash_bwd_dq"] == nchunk
+               and n["flash_bwd_dkv"] == nchunk, f"fold of {nchunk}: launches {n}")
+        err = float((o.float() - ref).abs().max())
+        gerr = [float((a.float() - b).abs().max()) for a, b in zip(gs, ref_grads)]
+        vs_whole = [float((a.float() - b.float()).abs().max()) for a, b in zip(gs, whole_g)]
+        # twice B9-over-the-whole's error, plus a bf16 ulp of the largest
+        # gradient for each rounding the fold adds: the chunk's output
+        # cotangent, cast to bf16 for its B9 call (dq, dk, dv), and for dq
+        # the n - 1 bf16 sums of the chunks' partials (autograd's
+        # accumulation into a bf16 leaf)
+        gtol = [2 * e + extra * 2.0 ** (math.floor(math.log2(float(r.abs().max()))) - 7)
+                for e, r, extra in zip(gerr_whole, ref_grads, (nchunk, 1, 1))]
+        ms = _time_ms(lambda: RA.ring_fold(q, k, v, nchunk))
+        folds.append(dict(n=nchunk, chunk=N // nchunk, max_abs_err=err, tolerance=2 * err_whole,
+                          grad_err=gerr, grad_tolerance=gtol, grad_vs_whole=vs_whole, ms=ms,
+                          whole_ms=whole_ms, launches=n))
+        print(f"  fold of {nchunk} chunks of {N // nchunk}: max error vs fp32 {err:.3e} "
+              f"(tolerance 2x K1's {2 * err_whole:.3e}); gradients vs fp32 {gerr} "
+              f"(tolerances {gtol}), vs B9 over the whole {vs_whole}; {card}: {ms:.4f} ms "
+              f"against K1 over the whole {whole_ms:.4f} ms ({ms / whole_ms:.2f}x)")
+        expect(err <= 2 * err_whole, f"fold of {nchunk}: error {err} over 2x K1's {err_whole}")
+        expect(all(e <= t for e, t in zip(gerr, gtol)),
+               f"fold of {nchunk}: gradient errors {gerr} over {gtol}")
+    launches["ring_fold"] = fold_launches
+    res["ring_fold"] = dict(site=list(q.shape), whole_err=err_whole, whole_grad_err=gerr_whole,
+                            whole_ms=whole_ms, folds=folds)
+    del q, k, v, do, ref, ref_grads, whole, whole_g
+
+    # -- (4) the context-sharded cache of a 200-anchor scene --------------------
+    per_anchor = acfg.depth * acfg.num_heads * (RANK + acfg.patch_start_idx) * 2 * acfg.head_dim * 2
+    res["cache_bytes_200_anchors"] = {
+        n: CACHE_ANCHORS * per_anchor / n for n in (1, 2, 4, 8)}
+    print(f"  a {CACHE_ANCHORS}-anchor scene's kv2 cache (bf16, depth {acfg.depth}, "
+          f"{acfg.num_heads} heads, rank {RANK}): per rank "
+          + ", ".join(f"n = {n}: {b / 1e9:.3f} GB" for n, b in
+                      res["cache_bytes_200_anchors"].items())
+          + f"; reloc gathers one layer at a time, "
+          f"{CACHE_ANCHORS * per_anchor / acfg.depth / 1e6:.1f} MB")
+    res["launches"] = launches
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, res
+
+
 def main() -> int:
     import torch
 
@@ -3206,6 +3489,17 @@ def main() -> int:
         _, conv = run_converter()
         print(f"phase 8: {time.perf_counter() - t0:.1f} s")
         print(json.dumps({"converter": conv}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--sharded-only" in sys.argv[1:]:
+        print("phase 9 alone: the multi-device path (NCCL, world size 1, sharded path "
+              "forced) and the ring's fold")
+        t0 = time.perf_counter()
+        _, sharded = run_sharded(card)
+        print(f"phase 9: {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"sharded": sharded}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3276,7 +3570,17 @@ def main() -> int:
     t0 = time.perf_counter()
     converter_launches, conv = run_converter(demo_params, phase3)
     print(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    print("phase 9: the multi-device path (NCCL, world size 1, sharded path forced: the "
+          "sharded forward, build and reloc) and the ring's fold at the global site")
+    t0 = time.perf_counter()
+    sharded_launches, sharded = run_sharded(card, demo_params, phase3)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
     del demo_params
+    for k in kernels:
+        for path, n in sharded_launches.items():
+            k["launches_by_path"][path] = n[k["name"]]
+            k["launches"] += n[k["name"]]
     for k in kernels:
         for path, n in converter_launches.items():
             k["launches_by_path"][path] = n[k["name"]]
@@ -3294,6 +3598,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"trainer": trainer}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,15 +12,20 @@ whose wrappers run the plain versions; see the gates below), ``"on"`` drops
 the dtype and width conditions (a width the kernels refuse meets their
 refusal), ``"off"`` runs the unfused chain of plain matmuls. The gates
 decide by stated conditions; a fused wrapper never falls back. There is no
-mesh condition (the port has no sharding) and none on the weights' size
-(the JAX gate's VMEM bound belongs to the TPU).
+mesh condition: under a mesh the blocks run on rank-local shards
+(``parallel/sp_block.py``), so a kernel never sees a sharded tensor, where
+JAX's gate turns the kernels off because a ``pallas_call`` is opaque to
+GSPMD. There is none on the weights' size either (the JAX gate's VMEM bound
+belongs to the TPU).
 
 ``BlockConfig.drop_path`` is stochastic depth: with a rate above 0 and a
 ``drop_generator`` given to :func:`block`, each residual branch is scaled
 by its own per-sample mask (:func:`drop_path_mask`), on the unfused chain.
 
-No sharding: on one device the JAX package's ``parallel/sp_block.py``
-variants reduce to :func:`block` / :func:`block_with_context`.
+The sharded variants of the JAX package's ``parallel/sp_block.py`` are
+the port's ``parallel/sp_block.py``: they cut a rank's shard and run
+:func:`block` / :func:`block_with_context` (or :func:`qkv_parts`, the ring
+and :func:`attn_out_mlp`) on it.
 """
 
 from __future__ import annotations

@@ -3,7 +3,10 @@
 Port of ``self_supervise_sfm_tpu/layers/vit.py``: NHWC images, a Python loop
 over per-layer block params in place of ``lax.scan``, and pos-embed
 interpolation for non-native grids by half-pixel bilinear interpolation
-matrices (none happens at the native grid).
+matrices (none happens at the native grid). Frames are independent through
+the ViT, so under an active mesh each block goes through
+``parallel/sp_block.py:frame_block_sharded`` (frames cut over data x
+context; the plain block without a mesh).
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ import numpy as np
 import torch
 
 from . import params as P
-from .block import BlockConfig, block, init_block, remat_call
+from ..parallel.sp_block import frame_block_sharded
+from .block import BlockConfig, init_block, remat_call
 
 
 @dataclass(frozen=True)
@@ -146,7 +150,7 @@ def vit_forward(p, images: torch.Tensor, cfg: ViTConfig, compute_dtype=torch.flo
         x = torch.cat([x[:, :1], regs, x[:, 1:]], dim=1)
     bcfg = cfg.block_cfg
     for bp in p["blocks"]:
-        x = remat_call(cfg.remat, block, bp, x, bcfg)
+        x = remat_call(cfg.remat, frame_block_sharded, bp, x, bcfg)
     x = P.layer_norm(p["norm"], x, cfg.ln_eps)
     return {
         "x_norm_clstoken": x[:, 0],

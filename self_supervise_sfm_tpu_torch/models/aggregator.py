@@ -24,10 +24,22 @@ dtype, each row [k ‖ v] (the JAX package's "kv2" layout, so caches pass
 between the two packages; its "heads" / "packed" layouts and the scanned
 reloc are TPU-tiling and XLA-loop devices and have no counterpart here). The
 reloc attention kernel reads a layer of it in place.
+
+Under a mesh (``parallel/sp_block.py:scene_shard``) the joint forward, the
+build and reloc run on rank-local tensors: each rank holds the frames of
+its scenes (cut over ``data``) that fall in its slice of the anchors and of
+the queries (cut over ``context``). The frame and reloc blocks run on them
+with no collective; the compressed scene tokens are gathered over
+``context`` (small: A·(rank + 5) a scene); the global block rides the ring
+over the rank's anchors, which are its chunk of the A·P token axis. The
+scene cache stays context-sharded, each rank storing the K/V rows of its
+anchors, ``(depth, B/nd, heads, A·(rank + 5)/nc, 2·head_dim)``; reloc
+gathers one layer of it at a time before the in-place kernel reads it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -41,6 +53,8 @@ from ..layers.block import (
 )
 from ..layers.vit import ViTConfig, init_vit, vit_forward, vit_large
 from ..ops.flash_attention import packed_ctx_attention
+from ..parallel.sharding import CONTEXT_AXIS, DATA_AXIS, activate_mesh, active_mesh, gather
+from ..parallel.sp_block import SceneShard, global_block_ring_local
 
 _RESNET_MEAN = (0.485, 0.456, 0.406)
 _RESNET_STD = (0.229, 0.224, 0.225)
@@ -129,11 +143,14 @@ def _normalize_images(images: torch.Tensor) -> torch.Tensor:
 
 
 def _embed_frames(p, cfg: AggregatorConfig, images: torch.Tensor, is_query,
-                  duplicated: bool = False, frame_chunk: Optional[int] = None):
+                  duplicated: bool = False, frame_chunk: Optional[int] = None,
+                  anchor0: bool = True):
     """images (B, S, H, W, 3) -> tokens (B, S, P, C), P = patches + specials.
 
     ``is_query``: S booleans. Query frames get the reloc camera/register
-    tokens; of the others, frame 0 gets token index 0 and the rest index 1.
+    tokens; of the others, frame 0 gets token index 0 (when ``anchor0``:
+    it is the scene's first frame, not a later rank's first anchor) and the
+    rest index 1.
     With ``duplicated`` (frames [a_0..a_{n-1}, q_0..q_{n-1}], q_i the same
     image as a_i) the ViT runs once per unique image. With ``frame_chunk``
     (dividing the unique frame count) the ViT runs per chunk of frames,
@@ -173,8 +190,9 @@ def _embed_frames(p, cfg: AggregatorConfig, images: torch.Tensor, is_query,
     reg = cfg.num_register_tokens
     ct, rt = p["camera_token"][0], p["register_token"][0]  # (2, 1, C), (2, reg, C)
     # as if all frames were anchors, then the query frames' rows replaced
-    cam_anchor = torch.cat([ct[0:1], ct[1:2].expand(max(S - 1, 0), 1, C)], dim=0)
-    reg_anchor = torch.cat([rt[0:1], rt[1:2].expand(max(S - 1, 0), reg, C)], dim=0)
+    f0 = 0 if anchor0 else 1
+    cam_anchor = torch.cat([ct[f0:f0 + 1], ct[1:2].expand(max(S - 1, 0), 1, C)], dim=0)
+    reg_anchor = torch.cat([rt[f0:f0 + 1], rt[1:2].expand(max(S - 1, 0), reg, C)], dim=0)
     cam_reloc = p["camera_token_reloc"][0, 0].expand(S, 1, C)
     reg_reloc = p["register_token_reloc"][0, 0].expand(S, reg, C)
     sel = isq[:, None, None]
@@ -244,11 +262,26 @@ def _check_taps(cfg: AggregatorConfig):
     return taps_list
 
 
+def _local_context(shard: Optional[SceneShard]):
+    """The sharded path runs on rank-local tensors with the mesh switched
+    off (as a ``shard_map`` body), so that nothing inside cuts them again."""
+    return activate_mesh(None) if shard is not None else contextlib.nullcontext()
+
+
+def _global_block(gp, x, cfg: BlockConfig, t_global, shard: Optional[SceneShard]):
+    """The global block over all anchor tokens, or, under a shard, the ring
+    over this rank's chunk of them (``t_global`` is then the chunk's
+    tables)."""
+    if shard is None:
+        return block(gp, x, cfg, t_global)
+    return global_block_ring_local(gp, x, cfg, t_global, shard.mesh)
+
+
 def aggregator_forward(
     p, cfg: AggregatorConfig, images: torch.Tensor, num_anchor: int, num_query: int,
     rank: int, generator: Optional[torch.Generator] = None,
     subsample_indices: Optional[torch.Tensor] = None,
-    images_duplicated: bool = False,
+    images_duplicated: bool = False, shard: Optional[SceneShard] = None,
 ):
     """Joint anchors+queries forward.
 
@@ -256,6 +289,11 @@ def aggregator_forward(
     Returns (taps, patch_start_idx, cam_token_last_layer): taps maps each
     layer of ``cfg.intermediate_layer_idx`` (and -1 = last) to fp32
     (B, Q, P, 2C) [frame ‖ reloc] features; cam tokens are fp32 (B, A, 2C).
+
+    Under a ``shard`` the images are whole on every rank, which runs its
+    scenes' slice of the anchors and of the queries; the taps are then the
+    rank's (B/nd, Q/nc, P, 2C) and the cam tokens those of every anchor of
+    its scenes, (B/nd, A, 2C).
     """
     B, S, H, W, _ = images.shape
     A, Q = num_anchor, num_query
@@ -265,47 +303,63 @@ def aggregator_forward(
         raise ValueError("the duplicated layout requires anchors == queries")
     dev = images.device
     gh, gw = H // cfg.patch_size, W // cfg.patch_size
-    tokens, P0 = _embed_frames(p, cfg, images, [False] * A + [True] * Q,
-                               images_duplicated)
+    P0 = gh * gw
+    rank = min(rank, P0)
+    idx = _make_indices(cfg, generator, subsample_indices, B, A, P0, rank, dev)
+    idx_own, anchor0 = idx, True
+    if shard is not None:
+        p = shard.replicate(p)
+        images = shard.scenes(images)
+        images = torch.cat([shard.frames(images[:, :A], 1), shard.frames(images[:, A:], 1)],
+                           dim=1)
+        idx = shard.scenes(idx, 1)
+        idx_own, anchor0 = shard.frames(idx, 2), shard.context_index == 0
+    Bl, Sl = images.shape[:2]
+    Al, Ql = idx_own.shape[2], Sl - idx_own.shape[2]
     C = cfg.embed_dim
     Ptok = P0 + cfg.patch_start_idx
-    rank = min(rank, P0)
     R5 = rank + cfg.patch_start_idx
-    idx = _make_indices(cfg, generator, subsample_indices, B, A, P0, rank, dev)
-
     t_frame = _rope_tables_frame(cfg, gh, gw, dev)
-    t_global = _tile_tables(t_frame, A)
+    # the rank's chunk of the global tables is that of its own anchors
+    t_global = _tile_tables(t_frame, Al)
     bcfg, bcfg_g = cfg.block_cfg, cfg.global_block_cfg
     taps_list = _check_taps(cfg)
 
-    def layer(tokens, fp, gp, rp, idx_l):
+    def layer(tokens, fp, gp, rp, idx_l, idx_own_l):
         # 1. frame attention
-        t = block(fp, tokens.reshape(B * S, Ptok, C), bcfg, t_frame)
-        frame_out = t.reshape(B, S, Ptok, C)
-        anchors, queries = frame_out[:, :A], frame_out[:, A:]
-        # 2. compressed scene representation
-        gidx = idx_l[..., None].expand(B, A, R5, C)
-        down = torch.gather(anchors, 2, gidx).reshape(B, A * R5, C)
-        down_rope = tuple(tab[idx_l].reshape(B, A * R5, -1) for tab in t_frame)
+        t = block(fp, tokens.reshape(Bl * Sl, Ptok, C), bcfg, t_frame)
+        frame_out = t.reshape(Bl, Sl, Ptok, C)
+        anchors, queries = frame_out[:, :Al], frame_out[:, Al:]
+        # 2. compressed scene representation (of every anchor of the scene)
+        down, down_rope = _scene_tokens(anchors, idx_own_l, t_frame)
+        if shard is not None:
+            down = shard.gather_frames(down, 1)
+            down_rope = tuple(tab[idx_l].reshape(Bl, A * R5, -1) for tab in t_frame)
         # 3. reloc attention, frame-major queries against the shared context
-        q = block_with_context(rp, queries.reshape(B * Q, Ptok, C), down, bcfg,
+        q = block_with_context(rp, queries.reshape(Bl * Ql, Ptok, C), down, bcfg,
                                t_frame, down_rope)
-        reloc_out = q.reshape(B, Q, Ptok, C)
+        reloc_out = q.reshape(Bl, Ql, Ptok, C)
         # 4. global attention over all anchor tokens
-        g = block(gp, anchors.reshape(B, A * Ptok, C), bcfg_g, t_global)
-        return frame_out, reloc_out, g.reshape(B, A, Ptok, C)
+        g = _global_block(gp, anchors.reshape(Bl, Al * Ptok, C), bcfg_g, t_global, shard)
+        return frame_out, reloc_out, g.reshape(Bl, Al, Ptok, C)
 
     taps: Dict[int, torch.Tensor] = {}
     cam = None
-    for li in range(cfg.depth):
-        fp, gp, rp = (p[k][li] for k in ("frame_blocks", "global_blocks", "reloc_blocks"))
-        frame_out, reloc_out, global_out = remat_call(cfg.remat, layer, tokens, fp, gp,
-                                                      rp, idx[li])
-        if li in taps_list:
-            taps[li] = torch.cat([frame_out[:, A:], reloc_out], dim=-1).float()
-        if li == cfg.depth - 1:
-            cam = torch.cat([frame_out[:, :A, 0], global_out[:, :, 0]], dim=-1).float()
-        tokens = torch.cat([global_out, reloc_out], dim=1)
+    with _local_context(shard):
+        tokens, _ = _embed_frames(p, cfg, images, [False] * Al + [True] * Ql,
+                                  images_duplicated, anchor0=anchor0)
+        for li in range(cfg.depth):
+            fp, gp, rp = (p[k][li] for k in ("frame_blocks", "global_blocks",
+                                             "reloc_blocks"))
+            frame_out, reloc_out, global_out = remat_call(
+                cfg.remat, layer, tokens, fp, gp, rp, idx[li], idx_own[li])
+            if li in taps_list:
+                taps[li] = torch.cat([frame_out[:, Al:], reloc_out], dim=-1).float()
+            if li == cfg.depth - 1:
+                cam = torch.cat([frame_out[:, :Al, 0], global_out[:, :, 0]], dim=-1).float()
+            tokens = torch.cat([global_out, reloc_out], dim=1)
+        if shard is not None:
+            cam = shard.gather_frames(cam, 1)
 
     taps[-1] = taps[taps_list[-1]]
     return taps, cfg.patch_start_idx, cam
@@ -335,21 +389,23 @@ def _store_kv(kv_out, kv, n0: int = 0):
 
 
 def _build_layer(cfg: AggregatorConfig, fp, gp, rp, tokens, idx_l, t_frame,
-                 t_global, kv_out):
-    """One build layer over all anchors at once: frame block, the reloc
-    block's K/V of the scene tokens into ``kv_out``, global block. Returns
-    (global_out, frame_out)."""
+                 t_global, kv_out, shard: Optional[SceneShard] = None):
+    """One build layer over all anchors at once (under a shard, the rank's):
+    frame block, the reloc block's K/V of the scene tokens into ``kv_out``,
+    global block (the ring under a shard). Returns (global_out, frame_out)."""
     B, A, Ptok, C = tokens.shape
     t = block(fp, tokens.reshape(B * A, Ptok, C), cfg.block_cfg, t_frame)
     frame_out = t.reshape(B, A, Ptok, C)
     down, down_rope = _scene_tokens(frame_out, idx_l, t_frame)
     _store_kv(kv_out, block_context_kv(rp, down, cfg.block_cfg, down_rope))
-    g = block(gp, frame_out.reshape(B, A * Ptok, C), cfg.global_block_cfg, t_global)
+    g = _global_block(gp, frame_out.reshape(B, A * Ptok, C), cfg.global_block_cfg,
+                      t_global, shard)
     return g.reshape(B, A, Ptok, C), frame_out
 
 
 def _build_layer_chunked(cfg: AggregatorConfig, fp, gp, rp, tokens, idx_l,
-                         t_frame, kv_out, anchor_chunk: int):
+                         t_frame, kv_out, anchor_chunk: int,
+                         shard: Optional[SceneShard] = None):
     """One build layer with the anchor axis processed in chunks of
     ``anchor_chunk`` frames: transients scale with the chunk, resident state
     with the scene.
@@ -362,6 +418,10 @@ def _build_layer_chunked(cfg: AggregatorConfig, fp, gp, rp, tokens, idx_l,
     chunk: q recomputed by the same projection on the same input, attention
     against the full k / v (per-row math does not depend on how the q axis
     is cut), then out-proj + MLP into the ``global_out`` buffer.
+
+    Under a shard the chunks cut the rank's anchors, and pass 2 attends the
+    k / v of every anchor, gathered over ``context`` once a layer (where the
+    unchunked layer rides the ring).
     """
     B, A, Ptok, C = tokens.shape
     G = anchor_chunk
@@ -382,6 +442,8 @@ def _build_layer_chunked(cfg: AggregatorConfig, fp, gp, rp, tokens, idx_l,
             k_buf, v_buf = kc.new_empty(shape), vc.new_empty(shape)
         k_buf[:, :, a0 * Ptok: (a0 + G) * Ptok] = kc
         v_buf[:, :, a0 * Ptok: (a0 + G) * Ptok] = vc
+    if shard is not None:
+        k_buf, v_buf = (shard.gather_frames(t, 2) for t in (k_buf, v_buf))
     go_buf = torch.empty_like(tokens)
     for a0 in range(0, A, G):
         xc = fo_buf[:, a0: a0 + G].reshape(B, G * Ptok, C)
@@ -392,7 +454,8 @@ def _build_layer_chunked(cfg: AggregatorConfig, fp, gp, rp, tokens, idx_l,
 
 
 def _build_layers(p, cfg: AggregatorConfig, layers: range, tokens, idx, t_frame,
-                  kv_out, anchor_chunk: Optional[int] = None):
+                  kv_out, anchor_chunk: Optional[int] = None,
+                  shard: Optional[SceneShard] = None):
     """Run the build layers ``layers``; layer l's scene K/V goes to
     ``kv_out[l - layers.start]``. Shared by the one-shot build (all layers)
     and the host-staged build (one segment at a time). A chunk that does not
@@ -409,25 +472,32 @@ def _build_layers(p, cfg: AggregatorConfig, layers: range, tokens, idx, t_frame,
         out = kv_out[li - layers.start]
         if chunked:
             tokens, frame_out = _build_layer_chunked(
-                cfg, fp, gp, rp, tokens, idx[li], t_frame, out, anchor_chunk)
+                cfg, fp, gp, rp, tokens, idx[li], t_frame, out, anchor_chunk, shard)
         else:
             tokens, frame_out = _build_layer(
-                cfg, fp, gp, rp, tokens, idx[li], t_frame, t_global, out)
+                cfg, fp, gp, rp, tokens, idx[li], t_frame, t_global, out, shard)
     return tokens, frame_out[:, :, 0], tokens[:, :, 0]
 
 
 def _build_setup(p, cfg, anchor_images, rank, generator, subsample_indices,
-                 anchor_chunk, chunk_embed):
-    """Embed the anchors; (tokens, keep-indices, frame rope tables, cache
-    shape of one layer)."""
+                 anchor_chunk, chunk_embed, shard: Optional[SceneShard] = None):
+    """Embed the anchors (under a shard, the rank's); (tokens, keep-indices,
+    frame rope tables, cache shape of one layer)."""
     B, A, H, W, _ = anchor_images.shape
     dev = anchor_images.device
-    tokens, P0 = _embed_frames(
+    gh, gw = H // cfg.patch_size, W // cfg.patch_size
+    rank = min(rank, gh * gw)
+    idx = _make_indices(cfg, generator, subsample_indices, B, A, gh * gw, rank, dev)
+    anchor0 = True
+    if shard is not None:
+        anchor_images = shard.frames(shard.scenes(anchor_images), 1)
+        idx = shard.frames(shard.scenes(idx, 1), 2)
+        anchor0 = shard.context_index == 0
+    B, A = anchor_images.shape[:2]
+    tokens, _ = _embed_frames(
         p, cfg, anchor_images, [False] * A,
-        frame_chunk=anchor_chunk if chunk_embed else None)
-    rank = min(rank, P0)
-    idx = _make_indices(cfg, generator, subsample_indices, B, A, P0, rank, dev)
-    t_frame = _rope_tables_frame(cfg, H // cfg.patch_size, W // cfg.patch_size, dev)
+        frame_chunk=anchor_chunk if chunk_embed else None, anchor0=anchor0)
+    t_frame = _rope_tables_frame(cfg, gh, gw, dev)
     layer_shape = (B, cfg.num_heads, A * (rank + cfg.patch_start_idx),
                    2 * cfg.head_dim)
     return tokens, idx, t_frame, layer_shape
@@ -438,6 +508,7 @@ def aggregator_build_cache(
     generator: Optional[torch.Generator] = None,
     subsample_indices: Optional[torch.Tensor] = None,
     anchor_chunk: Optional[int] = None, chunk_embed: bool = True,
+    shard: Optional[SceneShard] = None,
 ):
     """Phase 1: run the anchors, record per layer the reloc block's K/V of
     the compressed scene tokens.
@@ -447,15 +518,23 @@ def aggregator_build_cache(
     chunk. Returns (cache, cam_token_last_layer): ``{"kv": (depth, B, heads,
     A * (rank + 5), 2 * head_dim)}`` in the compute dtype, preallocated and
     filled layer by layer, and the fp32 (B, A, 2C) anchor camera tokens.
+
+    Under a ``shard`` each rank builds its anchors (``anchor_chunk`` then
+    cuts those) and keeps their rows of the cache, ``(depth, B/nd, heads,
+    A * (rank + 5) / nc, 2 * head_dim)``, marked ``cache["shards"] = (nd,
+    nc)``; the cam tokens come back whole on every rank.
     """
-    tokens, idx, t_frame, layer_shape = _build_setup(
-        p, cfg, anchor_images, rank, generator, subsample_indices, anchor_chunk,
-        chunk_embed)
-    kv = torch.empty((cfg.depth, *layer_shape), dtype=cfg.dtype, device=tokens.device)
-    _, frame_cam, global_cam = _build_layers(
-        p, cfg, range(cfg.depth), tokens, idx, t_frame, kv, anchor_chunk)
-    cam = torch.cat([frame_cam, global_cam], dim=-1).float()
-    return {"kv": kv}, cam
+    with _local_context(shard):
+        tokens, idx, t_frame, layer_shape = _build_setup(
+            p, cfg, anchor_images, rank, generator, subsample_indices, anchor_chunk,
+            chunk_embed, shard)
+        kv = torch.empty((cfg.depth, *layer_shape), dtype=cfg.dtype, device=tokens.device)
+        _, frame_cam, global_cam = _build_layers(
+            p, cfg, range(cfg.depth), tokens, idx, t_frame, kv, anchor_chunk, shard)
+        cam = torch.cat([frame_cam, global_cam], dim=-1).float()
+        if shard is None:
+            return {"kv": kv}, cam
+        return {"kv": kv, "shards": (shard.nd, shard.nc)}, shard.gather_all(cam)
 
 
 def _reloc_layer_kv2(cfg: AggregatorConfig, fp, rp, tokens, ckv, layer_idx: int,
@@ -472,15 +551,16 @@ def _reloc_layer_kv2(cfg: AggregatorConfig, fp, rp, tokens, ckv, layer_idx: int,
     return out.reshape(B, Q, Ptok, C), t.reshape(B, Q, Ptok, C)
 
 
-def _reloc_layers(p, cfg: AggregatorConfig, layers: range, tokens, ckv, t_frame,
+def _reloc_layers(p, cfg: AggregatorConfig, layers: range, tokens, layer_kv, t_frame,
                   taps: Dict[int, torch.Tensor]):
-    """Run reloc layers ``layers`` against ``ckv`` (layer l at index
-    ``l - layers.start``), adding the tapped layers to ``taps``."""
+    """Run reloc layers ``layers``, layer l against ``layer_kv(l)`` (a kv2
+    stack and the layer's index in it), adding the tapped layers to
+    ``taps``."""
     taps_list = tuple(cfg.intermediate_layer_idx)
     for l in layers:
+        ckv, index = layer_kv(l)
         tokens, frame_out = _reloc_layer_kv2(
-            cfg, p["frame_blocks"][l], p["reloc_blocks"][l], tokens, ckv,
-            l - layers.start, t_frame)
+            cfg, p["frame_blocks"][l], p["reloc_blocks"][l], tokens, ckv, index, t_frame)
         if l in taps_list:
             taps[l] = torch.cat([frame_out, tokens], dim=-1).float()
     return tokens
@@ -495,13 +575,50 @@ def _reloc_setup(p, cfg: AggregatorConfig, images: torch.Tensor):
     return tokens, t_frame
 
 
-def aggregator_reloc(p, cfg: AggregatorConfig, cache, images: torch.Tensor):
+def _cache_reader(cache, shard: Optional[SceneShard]):
+    """``l -> (kv2 stack, index)`` for reloc layer l. A whole cache is read
+    in place. Otherwise layer l becomes a transient (1, B', heads, A·(rank +
+    5), 2·head_dim) for the rank's scenes: a context-sharded cache gathered
+    over ``context`` (and over ``data`` when the queries are not cut over
+    it), a whole cache cut to the rank's scenes when the queries are."""
+    kv, built = cache["kv"], cache.get("shards")
+    if built is None and (shard is None or shard.nd == 1):
+        return lambda l: (kv, l)
+    mesh = shard.mesh if shard is not None else active_mesh()
+    if built is not None and (
+            mesh is None or built != (mesh.shape[DATA_AXIS], mesh.shape[CONTEXT_AXIS])):
+        raise ValueError(
+            f"the cache was built over a (data, context) = {built} mesh; reloc it "
+            "under that mesh")
+
+    def read(l):
+        layer = kv[l: l + 1]
+        if built is None:
+            return shard.scenes(layer, 1), 0
+        layer = gather(layer, mesh, CONTEXT_AXIS, 3)
+        if shard is None:
+            layer = gather(layer, mesh, DATA_AXIS, 1)
+        return layer, 0
+
+    return read
+
+
+def aggregator_reloc(p, cfg: AggregatorConfig, cache, images: torch.Tensor,
+                     shard: Optional[SceneShard] = None):
     """Phase 2: localise query frames (B, Q, H, W, 3) against a frozen scene
     cache; each query attends the cache and itself only. Returns (taps,
-    patch_start_idx), taps as in :func:`aggregator_forward`."""
-    tokens, t_frame = _reloc_setup(p, cfg, images)
-    taps: Dict[int, torch.Tensor] = {}
-    _reloc_layers(p, cfg, range(cfg.depth), tokens, cache["kv"], t_frame, taps)
+    patch_start_idx), taps as in :func:`aggregator_forward`; under a
+    ``shard`` the rank's queries, (B/nd, Q/nc, P, 2C), against the cache
+    whole or as :func:`aggregator_build_cache` left it under the same
+    mesh."""
+    if shard is not None:
+        p = shard.replicate(p)
+        images = shard.frames(shard.scenes(images), 1)
+    read = _cache_reader(cache, shard)
+    with _local_context(shard):
+        tokens, t_frame = _reloc_setup(p, cfg, images)
+        taps: Dict[int, torch.Tensor] = {}
+        _reloc_layers(p, cfg, range(cfg.depth), tokens, read, t_frame, taps)
     taps[-1] = taps[cfg.depth - 1]
     return taps, cfg.patch_start_idx
 
@@ -569,7 +686,8 @@ def aggregator_reloc_staged(p, cfg: AggregatorConfig, host_cache,
     taps: Dict[int, torch.Tensor] = {}
     for seg in segments:
         kv_seg = kv[seg.start: seg.stop].to(dev, non_blocking=True)
-        tokens = _reloc_layers(p, cfg, seg, tokens, kv_seg, t_frame, taps)
+        tokens = _reloc_layers(p, cfg, seg, tokens,
+                               lambda l, s=seg.start: (kv_seg, l - s), t_frame, taps)
         del kv_seg  # released in stream order, after the segment's readers
     taps[-1] = taps[cfg.depth - 1]
     return taps, cfg.patch_start_idx

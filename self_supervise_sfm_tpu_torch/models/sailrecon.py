@@ -6,6 +6,13 @@ Port of ``self_supervise_sfm_tpu/models/sailrecon.py``: the joint
 variants of each). Heads always run in fp32 whatever the trunk dtype. The
 entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than carry on on the CPU.
+
+Under an active mesh (``parallel/sharding.py:activate_mesh``) ``forward``,
+``build_scene_cache`` and ``reloc`` take the whole inputs on every rank, run
+each rank's scenes and frames (``parallel/sp_block.py:scene_shard``; counts
+that do not divide take the replicated path) and return the predictions
+whole on every rank; the scene cache stays rank-local. The host-staged and
+chunked variants refuse a mesh of more than one rank.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from ..heads.camera import CameraHeadConfig, camera_head, init_camera_head
 from ..heads.dpt import DPTHeadConfig, dpt_head, init_dpt_head
 from ..layers.vit import ViTConfig
 from ..ops import geometry as G
+from ..parallel.sharding import AXES, active_mesh
+from ..parallel.sp_block import SceneShard, scene_shard
 from .aggregator import (
     AggregatorConfig, aggregator_build_cache, aggregator_build_cache_staged,
     aggregator_forward, aggregator_reloc, aggregator_reloc_staged,
@@ -186,6 +195,31 @@ def _decode_heads(p, cfg, taps, cam_token_last_layer, images_hw, patch_start_idx
     return predictions
 
 
+def _heads_params(p, shard: Optional[SceneShard]):
+    """The heads' params, under a shard with their gradient summed over the
+    mesh (the aggregator's are replicated by the aggregator)."""
+    if shard is None:
+        return p
+    return {**p, **shard.replicate({k: v for k, v in p.items() if k != "aggregator"})}
+
+
+def _gathered(preds: Dict[str, Any], shard: Optional[SceneShard]) -> Dict[str, Any]:
+    """Per-query predictions (B/nd, Q/nc, ...) of every rank joined whole."""
+    if shard is None:
+        return preds
+    return {k: ([shard.gather_all(x) for x in v] if isinstance(v, list)
+                else shard.gather_all(v))
+            for k, v in preds.items()}
+
+
+def _refuse_mesh(name: str) -> None:
+    mesh = active_mesh()
+    if mesh is not None and mesh.size(AXES) > 1:
+        raise NotImplementedError(
+            f"{name} under a mesh of more than one rank is not ported yet: "
+            "ROADMAP.md Queue A item 3c (sharded host-staged and chunked serving)")
+
+
 def forward(
     p, cfg: SailReconConfig, images, num_anchor: int, num_query: int,
     rank: int = 300, generator: Optional[torch.Generator] = None,
@@ -204,11 +238,13 @@ def forward(
     """
     dev, images = _inputs(p, images, device)
     H, W = images.shape[2], images.shape[3]
+    shard = scene_shard(images.shape[0], num_anchor, num_query)
     taps, psi, cam_tok = aggregator_forward(
         p["aggregator"], cfg.aggregator, images, num_anchor, num_query, rank,
-        generator, subsample_indices, images_duplicated,
+        generator, subsample_indices, images_duplicated, shard=shard,
     )
-    return _decode_heads(p, cfg, taps, cam_tok, (H, W), psi)
+    preds = _decode_heads(_heads_params(p, shard), cfg, taps, cam_tok, (H, W), psi)
+    return _gathered(preds, shard)
 
 
 def _inputs(p, images, device) -> Tuple[torch.device, torch.Tensor]:
@@ -260,12 +296,15 @@ def build_scene_cache(
     else the one-shot layer runs); per-layer transients then scale with the
     chunk instead of the scene. ``chunk_embed=False`` keeps the ViT patch
     embedding unchunked. The cache is ``{"kv": (depth, B, heads,
-    A * (rank + 5), 2 * head_dim)}`` on the device.
+    A * (rank + 5), 2 * head_dim)}`` on the device; under a mesh each rank
+    keeps its anchors' rows (``aggregator_build_cache``).
     """
     _, images = _inputs(p, anchor_images, device)
+    shard = scene_shard(images.shape[0], images.shape[1])
     return aggregator_build_cache(
         p["aggregator"], cfg.aggregator, images, rank, generator,
-        subsample_indices, anchor_chunk=anchor_chunk, chunk_embed=chunk_embed)
+        subsample_indices, anchor_chunk=anchor_chunk, chunk_embed=chunk_embed,
+        shard=shard)
 
 
 def _with_conf_fractions(preds: Dict[str, Any]) -> Dict[str, Any]:
@@ -304,9 +343,14 @@ def reloc(
             f"the cache lives on {cache['kv'].device}, reloc runs on {dev}: "
             "move it there, or use reloc_staged for a host cache")
     H, W = images.shape[2], images.shape[3]
-    taps, psi = aggregator_reloc(p["aggregator"], cfg.aggregator, cache, images)
+    shard = scene_shard(images.shape[0], images.shape[1])
+    taps, psi = aggregator_reloc(p["aggregator"], cfg.aggregator, cache, images, shard)
     cam_tok = torch.as_tensor(cam_token_last_layer).to(dev)
-    return _decode_reloc(p, cfg, taps, psi, cam_tok, (H, W), fast_reloc)
+    if shard is not None:
+        cam_tok = shard.shared(cam_tok)
+    preds = _decode_reloc(_heads_params(p, shard), cfg, taps, psi, cam_tok, (H, W),
+                          fast_reloc)
+    return _gathered(preds, shard)
 
 
 def build_scene_cache_staged(
@@ -319,6 +363,7 @@ def build_scene_cache_staged(
     memory. The cache streams to the host segment by segment as it is built.
     Returns a host cache ``{"kv": CPU tensor}`` (pinned when built on a card)
     and the cam token as a CPU tensor, for :func:`reloc_staged`."""
+    _refuse_mesh("build_scene_cache_staged")
     _, images = _inputs(p, anchor_images, device)
     return aggregator_build_cache_staged(
         p["aggregator"], cfg.aggregator, images, rank, generator,
@@ -332,6 +377,7 @@ def reloc_staged(
 ) -> Dict[str, Any]:
     """:func:`reloc` against a host-RAM cache, uploading one layer segment at
     a time (device peak: query activations + one segment's kv2 tensor)."""
+    _refuse_mesh("reloc_staged")
     dev, images = _inputs(p, images, device)
     H, W = images.shape[2], images.shape[3]
     taps, psi = aggregator_reloc_staged(
@@ -348,6 +394,7 @@ def reloc_chunked(
     that of ``chunk`` frames instead of Q while the cache stays resident. Q
     is padded up to a multiple of ``chunk`` with zero images; the padded
     frames are dropped from every output."""
+    _refuse_mesh("reloc_chunked")
     dev, images = _inputs(p, images, device)
     Q = images.shape[1]
     nchunk = -(-Q // chunk)

@@ -3,7 +3,8 @@
 Port of ``self_supervise_sfm_tpu/ops/attention_core.py``: ``sdpa_dense`` is
 einsum attention with fp32 logits and softmax (not PyTorch's
 ``scaled_dot_product_attention``); ``sdpa`` dispatches to the flash kernel
-wrapper behind the JAX package's ``worth_it`` gate. A mask is a boolean
+wrapper behind the JAX package's ``worth_it`` gate, or to the ring
+(``ops/ring_attention.py``) under ``impl="ring"``. A mask is a boolean
 tensor (True = attend), a :class:`RelocMask` spec (materialised for the dense
 path, evaluated per element by the flash kernel) or None.
 """
@@ -14,6 +15,7 @@ import torch
 
 from . import flash_attention as fa
 from .mask_spec import RelocMask
+from .ring_attention import _merge
 
 _NEG_INF = -1e30
 
@@ -29,17 +31,6 @@ def sdpa_dense(q, k, v, mask=None):
     probs = torch.softmax(logits, dim=-1)
     out = torch.matmul(probs.to(q.dtype).float(), v.float())
     return out.to(q.dtype)
-
-
-def _merge(o_a, lse_a, o_b, lse_b):
-    """Combine two partial softmaxes (fp32 outputs and natural-log lse) into
-    one: the exact softmax over the union of their key sets."""
-    m = torch.maximum(lse_a, lse_b)
-    wa = torch.exp(lse_a - m)[..., None]
-    wb = torch.exp(lse_b - m)[..., None]
-    out = (o_a * wa + o_b * wb) / (wa + wb)
-    lse = m + torch.log(wa + wb)[..., 0]
-    return out, lse
 
 
 def reloc_split_attention(q, k_self, v_self, k_ctx, v_ctx, mask: RelocMask):
@@ -70,15 +61,26 @@ def reloc_split_attention(q, k_self, v_self, k_ctx, v_ctx, mask: RelocMask):
 
 
 def sdpa(q, k, v, mask=None, impl: str = "auto"):
-    """``impl``: 'dense' | 'flash' | 'auto' ('auto' takes flash when it pays
-    and the kernels take the site: bf16 of head dim 64 on the card, any
-    dtype on the CPU, ``fa.worth_it``). A :class:`RelocMask` goes to the
-    masked flash kernel; a boolean mask stays on the dense path."""
+    """``impl``: 'dense' | 'flash' | 'auto' | 'ring' ('auto' takes flash when
+    it pays and the kernels take the site: bf16 of head dim 64 on the card,
+    any dtype on the CPU, ``fa.worth_it``). A :class:`RelocMask` goes to the
+    masked flash kernel; a boolean mask stays on the dense path. 'ring'
+    takes the ring over the active mesh's ``context`` axis where
+    ``ring_applicable`` holds, else 'auto'."""
     if impl == "dense":
         return sdpa_dense(q, k, v, mask)
+    if impl == "ring":
+        from ..parallel.sharding import active_mesh
+        from . import ring_attention as ra
+
+        mesh = active_mesh()
+        if ra.ring_applicable(q, mesh, mask):
+            return ra.ring_sdpa(q, k, v, mesh)
+        impl = "auto"  # no mesh, one context rank, or a non-dividing axis
     if impl in ("flash", "auto"):
         if fa.supported(q, k, v, mask) and (impl == "flash" or fa.worth_it(q, k, v)):
             return fa.flash_attention(
                 q, k, v, mask if isinstance(mask, RelocMask) else None)
         return sdpa_dense(q, k, v, mask)
-    raise ValueError(f"unknown attention impl: {impl}")
+    raise ValueError(
+        f"unknown attention impl: {impl!r} (one of 'dense', 'flash', 'auto', 'ring')")

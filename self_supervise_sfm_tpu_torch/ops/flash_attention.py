@@ -456,7 +456,7 @@ def _frame_ctx_split(q, k, v, ck, cv):
     """The differentiable composition that matches K2: own-frame flash and
     broadcast-context flash merged by lse (exact softmax). Its VJP runs the
     B9 kernels of both calls, the lse cotangent of the merge included."""
-    from .attention_core import _merge
+    from .ring_attention import _merge
 
     BF, B = q.shape[0], ck.shape[0]
     F = BF // B
