@@ -154,12 +154,30 @@ Phases, each of which must pass (any failure exits non-zero):
    line as "sharded_forward", "sharded_build", "sharded_reloc" and
    "ring_fold".
 
+10. multi-device training (``train/loop.py``'s sharded step, the trainer
+   under a mesh, ``native/ba.py:ba_solve_multihost``), again in one NCCL
+   process of world size 1 with the sharded path forced: the DDP step and
+   the FSDP step (whole-leaf slices: the trunk cast and gathered, the
+   gradients reduce-scattered), four steps each of phase 5's
+   configuration, weights, batch and subsample, bit-equal to phase 5's
+   metrics and sampled leaves with phase 5's launch counts, their
+   collectives a step (of the order of the gradient buckets) and times
+   beside phase 5's; the trainer under the mesh with FSDP, phase 6's
+   configuration for 3 steps with a sanity check and a checkpoint at step
+   3, its losses equal to phase 6's run A's and the checkpoint restored
+   into the one-device layout bit-equal to the live state;
+   ``ba_solve_multihost`` over the NCCL group on phase 7's 5 x 6144
+   problem, equal to the one-shard solver; the per-rank state bytes at 1,
+   2, 4 and 8 ranks under DDP and FSDP. Its paths go into the kernel line
+   as "sharded_train" and "sharded_trainer".
+
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2;
 ``--train-only`` runs phase 5 alone after the build, ``--trainer-only``
-phases 5 and 6, ``--demo-only`` phase 7, ``--converter-only`` phase 8 and
-``--sharded-only`` phase 9 (on weights they draw from the seed; their
-launch counts are then not merged into the kernel line, which is not
-printed).
+phases 5 and 6, ``--demo-only`` phase 7, ``--converter-only`` phase 8,
+``--sharded-only`` phase 9 and ``--sharded-train-only`` phase 10 (on
+weights they draw from the seed, phase 10 with phase 5's and phase 6's
+references made first; their launch counts are then not merged into the
+kernel line, which is not printed).
 
 The line before the last is a JSON object of every kernel's numbers (the
 forward's and the serving paths' numbers go on lines of their own before
@@ -214,6 +232,20 @@ FAST_RELOC_LAUNCHES = {**_ZERO, "flash_fwd": 48, "frame_ctx_packed_fwd": 24, "fu
                        "fused_ln_qkv_rope": 48, "fused_proj_residual": 72, "fused_mlp_up": 72,
                        "fused_mlp_down": 72}
 RELOC_LAUNCHES = {**FAST_RELOC_LAUNCHES, "resize_bilinear": 2}
+# one full-width train step (phase 5), d = 24 aggregator layers
+# rematerialised, v = 24 ViT blocks: forwards v + 2d flash (+ 2d recomputed +
+# 2d in the frame-context split's backward), d frame-context (+ d
+# recomputed), 3d fused block kernels of each kind (+ 3d recomputed) and v
+# more of the ViT's; backwards one B9 pair a flash attention, two a
+# frame-context split
+# phase 5's metrics of its four steps and its sampled leaves after them
+# (host copies), which phase 10 holds its sharded steps to
+PHASE5: dict = {}
+TRAIN_STEP_LAUNCHES = {**_ZERO, "flash_fwd": 24 + 6 * 24, "frame_ctx_fwd": 2 * 24,
+                       "fused_ln_qkv": 24, "fused_ln_qkv_rope": 6 * 24,
+                       "fused_proj_residual": 24 + 6 * 24, "fused_mlp_up": 24 + 6 * 24,
+                       "fused_mlp_down": 24 + 6 * 24, "flash_bwd_dq": 24 + 4 * 24,
+                       "flash_bwd_dkv": 24 + 4 * 24}
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -1942,16 +1974,7 @@ def run_train():
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
     print(f"  launches in one step: {launches}")
-    # d aggregator layers, v ViT blocks, remat on the aggregator layers:
-    # forwards v + 2d flash (+ 2d recomputed + 2d in the frame-context
-    # split's backward), d frame-context (+ d recomputed), 3d fused block
-    # kernels of each kind (+ 3d recomputed) and v more of the ViT's;
-    # backwards: one B9 pair a flash attention, two a frame-context split
-    d, v = 24, 24
-    want = {**dict.fromkeys(wrappers, 0), "flash_fwd": v + 6 * d, "frame_ctx_fwd": 2 * d,
-            "fused_ln_qkv": v, "fused_ln_qkv_rope": 6 * d, "fused_proj_residual": v + 6 * d,
-            "fused_mlp_up": v + 6 * d, "fused_mlp_down": v + 6 * d,
-            "flash_bwd_dq": v + 4 * d, "flash_bwd_dkv": v + 4 * d}
+    want = {k: TRAIN_STEP_LAUNCHES[k] for k in wrappers}
     if launches != want:
         raise AssertionError(f"train step launch counts {launches}, expected {want}")
     lr0 = float(m0["learning_rate"])
@@ -1971,6 +1994,9 @@ def run_train():
             expect(all(not torch.equal(a, b) for a, b in zip(before, sample())),
                    "step 1 (learning rate > 0) left a sampled parameter unchanged")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # what phase 10's sharded steps are held to, bit for bit
+    PHASE5.update(sample=[t.cpu() for t in sample()], ms=[t * 1e3 for t in times],
+                  metrics=[{k: float(x) for k, x in m.items()} for m in metrics])
     keys = ("loss", "loss_cdf_exact", "loss_cdf_approx", "mean_log_residual",
             "log_residual_p50", "grad_norm", "grad_norm_vit", "grad_norm_agg",
             "grad_norm_camera", "learning_rate")
@@ -2267,21 +2293,13 @@ def _huber_cost(r, delta: float = 4.0) -> float:
     return float(np.where(r <= delta, 0.5 * r * r, delta * (r - 0.5 * delta)).sum())
 
 
-def run_known_geometry_ba(num_frames: int, num_tracks: int):
-    """Phase 7, bundle adjustment on known geometry: tracks of the synthetic
-    plane projected with the true poses and K plus 0.5 px noise, the poses
-    perturbed (camera 0 kept: the gauge), then ``tracks_to_reconstruction``
-    with the torch engine on the card (twice: its spread) and the native
-    engine. Each must bring the reprojection RMSE down to the noise and the
-    ATE against the true poses down; the engines' final Huber costs (one
-    formula over each output, float64) must agree within 1e-3 relative."""
+def known_geometry(num_frames: int, num_tracks: int):
+    """Phase 7's known-geometry problem: (tracks, vis, the true w2c, the
+    perturbed w2c (camera 0 kept), K per frame), from the seed."""
     import numpy as np
     import torch
 
     from self_supervise_sfm_tpu_torch.ops import geometry as G
-    from self_supervise_sfm_tpu_torch.pipeline import tracking as T
-    from self_supervise_sfm_tpu_torch.utils.colmap_io import reconstruction_to_batch_matrix
-    from self_supervise_sfm_tpu_torch.utils.evaluation import absolute_trajectory_error
 
     rng = np.random.default_rng((SEED, num_frames, num_tracks))
     scenes = SyntheticScenes(1, num_frames, 16, IMG, SEED + 21)
@@ -2292,6 +2310,24 @@ def run_known_geometry_ba(num_frames: int, num_tracks: int):
     init[1:, :, :3] = dR[1:] @ init[1:, :, :3]
     init[1:, :, 3] += rng.normal(scale=0.015, size=(num_frames - 1, 3)).astype(np.float32)
     Ks = np.broadcast_to(K, (num_frames, 3, 3)).astype(np.float32)
+    return tracks, vis, true_w2c, init, Ks
+
+
+def run_known_geometry_ba(num_frames: int, num_tracks: int):
+    """Phase 7, bundle adjustment on known geometry: tracks of the synthetic
+    plane projected with the true poses and K plus 0.5 px noise, the poses
+    perturbed (camera 0 kept: the gauge), then ``tracks_to_reconstruction``
+    with the torch engine on the card (twice: its spread) and the native
+    engine. Each must bring the reprojection RMSE down to the noise and the
+    ATE against the true poses down; the engines' final Huber costs (one
+    formula over each output, float64) must agree within 1e-3 relative."""
+    import numpy as np
+
+    from self_supervise_sfm_tpu_torch.pipeline import tracking as T
+    from self_supervise_sfm_tpu_torch.utils.colmap_io import reconstruction_to_batch_matrix
+    from self_supervise_sfm_tpu_torch.utils.evaluation import absolute_trajectory_error
+
+    tracks, vis, true_w2c, init, Ks = known_geometry(num_frames, num_tracks)
     noise_rmse = 0.5 * math.sqrt(2.0)
     failures, res = [], {"frames": num_frames, "tracks": num_tracks,
                          "observations": int(vis.sum())}
@@ -2543,6 +2579,38 @@ def _trace_summary(path: str) -> dict:
             "kernels": sum(e.get("cat") == "kernel" for e in device)}
 
 
+def timed_checkpoints(times: dict):
+    """A ``CheckpointManager`` that appends the seconds of each save (the
+    host copy; under a mesh the gathers and the write too), write and
+    restore to ``times["save_s" | "write_s" | "restore_s"]``."""
+    import torch
+
+    from self_supervise_sfm_tpu_torch.train import checkpoint as CK
+
+    class TimedCheckpoints(CK.CheckpointManager):
+        def save(self, step, state, layout=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            saved = super().save(step, state, layout)
+            if saved:
+                times["save_s"].append(time.perf_counter() - t0)
+            return saved
+
+        def _write(self, step, host):
+            t0 = time.perf_counter()
+            super()._write(step, host)
+            times["write_s"].append(time.perf_counter() - t0)
+
+        def restore(self, step=None, template=None, layout=None):
+            t0 = time.perf_counter()
+            out = super().restore(step, template, layout)
+            torch.cuda.synchronize()
+            times["restore_s"].append(time.perf_counter() - t0)
+            return out
+
+    return TimedCheckpoints
+
+
 def run_trainer(bare_step_ms: float):
     """Phase 6: the trainer (``train/trainer.py:run``) at phase 5's full
     width on numpy-made synthetic scenes at 518 px (2 frames, 10 000
@@ -2574,27 +2642,7 @@ def run_trainer(bare_step_ms: float):
             failures.append(what)
 
     times = {"save_s": [], "write_s": [], "restore_s": [], "val_ms": []}
-
-    class TimedCheckpoints(CK.CheckpointManager):
-        def save(self, step, state):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            saved = super().save(step, state)
-            if saved:
-                times["save_s"].append(time.perf_counter() - t0)
-            return saved
-
-        def _write(self, step, host):
-            t0 = time.perf_counter()
-            super()._write(step, host)
-            times["write_s"].append(time.perf_counter() - t0)
-
-        def restore(self, step=None, template=None):
-            t0 = time.perf_counter()
-            out = super().restore(step, template)
-            torch.cuda.synchronize()
-            times["restore_s"].append(time.perf_counter() - t0)
-            return out
+    TimedCheckpoints = timed_checkpoints(times)
 
     def timed_validator(*a, **k):
         validate = make_validator(*a, **k)
@@ -2635,18 +2683,9 @@ def run_trainer(bare_step_ms: float):
         launches = {k: w.launches for k, w in wrappers.items()}
         print(f"  run A: {steps} steps in {run_a_s:.2f} s, peak memory {peak_gb:.2f} GB; "
               f"launches {launches}")
-        d, v = 24, 24
-        step_n = {"flash_fwd": v + 6 * d, "frame_ctx_fwd": 2 * d, "fused_ln_qkv": v,
-                  "fused_ln_qkv_rope": 6 * d, "fused_proj_residual": v + 6 * d,
-                  "fused_mlp_up": v + 6 * d, "fused_mlp_down": v + 6 * d,
-                  "flash_bwd_dq": v + 4 * d, "flash_bwd_dkv": v + 4 * d}
-        fwd_n = {"flash_fwd": v + 2 * d, "frame_ctx_fwd": d, "resize_bilinear": 2,
-                 "fused_ln_qkv_rope": 3 * d, "fused_ln_qkv": v,
-                 "fused_proj_residual": v + 3 * d, "fused_mlp_up": v + 3 * d,
-                 "fused_mlp_down": v + 3 * d}
         # 6 train steps, one diagnostics forward (the sanity check) and one
         # validation forward, each with every head
-        want = {k: steps * step_n.get(k, 0) + 2 * fwd_n.get(k, 0) for k in wrappers}
+        want = {k: steps * TRAIN_STEP_LAUNCHES[k] + 2 * FORWARD_LAUNCHES[k] for k in wrappers}
         if launches != want:
             raise AssertionError(f"trainer launch counts {launches}, expected {want}")
 
@@ -3448,6 +3487,384 @@ def run_sharded(card: str, host_params=None, phase3=None):
     return launches, res
 
 
+def run_sharded_train(card: str, phase6=None):
+    """Phase 10: multi-device training on the card, in one NCCL process of
+    world size 1 with the sharded path forced (as phase 9): (1) the DDP
+    step, four steps of phase 5's configuration, weights, batch and
+    subsample, bit-equal to phase 5's metrics and sampled leaves with phase
+    5's launch counts, and its collectives a step; (2) the FSDP step
+    (whole-leaf slices at a data extent of 1: the trunk cast, gathered and
+    its gradients reduce-scattered), the same checks; (3) the trainer under
+    the mesh with FSDP, phase 6's configuration for 3 steps with a sanity
+    check and a checkpoint at step 3: its losses bit-equal to phase 6's run
+    A's (within run A's same-state spread if that is not 0), the
+    checkpoint restored into the one-device layout bit-equal to the live
+    state; (4) ``ba_solve_multihost`` over the NCCL group on phase 7's
+    5 x 6144 problem, equal to the one-shard solver (one OpenMP thread);
+    (5) the per-rank state bytes at n = 1, 2, 4, 8. Phase 5's and phase
+    6's references come from ``PHASE5`` and ``phase6``, or are made here
+    when those phases did not run. Launch counts go into the kernel line as
+    "sharded_train" (the DDP and FSDP steps) and "sharded_trainer"."""
+    import ctypes
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from self_supervise_sfm_tpu_torch.models import aggregator as AG
+    from self_supervise_sfm_tpu_torch.models import sailrecon as M
+    from self_supervise_sfm_tpu_torch.native import ba as NBA
+    from self_supervise_sfm_tpu_torch.parallel import sharding as Sh
+    from self_supervise_sfm_tpu_torch.parallel import sp_block as SP
+    from self_supervise_sfm_tpu_torch.pipeline import tracking as TR
+    from self_supervise_sfm_tpu_torch.train import checkpoint as CK
+    from self_supervise_sfm_tpu_torch.train import loop as L
+    from self_supervise_sfm_tpu_torch.train import trainer as T
+    from self_supervise_sfm_tpu_torch.train.loss import LossConfig
+    from self_supervise_sfm_tpu_torch.utils import colmap_io as CIO
+
+    wrappers = kernel_wrappers()
+    failures = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    # phase 5's configuration, weights, batch and subsample
+    cfg = M.make_config(compute_dtype="bfloat16", remat=True)
+    tcfg = L.TrainConfig(rank=RANK, num_images=TRAIN_FRAMES, adam_mu_dtype="bfloat16",
+                         warmup_steps=1)
+    batch = L.batch_to_device(make_train_batch()[0], "cuda")
+    P0 = (IMG // 14) ** 2
+
+    def indices(i):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 8 + i)
+        return AG.draw_subsample_indices(cfg.aggregator, 1, TRAIN_FRAMES, P0, RANK, g)
+
+    def fresh_state():
+        state = L.init_train_state(cfg, tcfg,
+                                   torch.Generator(device="cuda").manual_seed(SEED + 7))
+        fc2 = state["params"]["camera_head"]["pose_branch"]["fc2"]
+        fc2["w"].mul_(0.01)
+        fc2["b"].mul_(0.01)
+        fc2["b"][[3, 7, 8]] = 0.25
+        return state
+
+    def sample(params):
+        return [params["aggregator"]["vit"]["blocks"][0]["attn"]["qkv"]["w"],
+                params["aggregator"]["global_blocks"][-1]["mlp"]["fc2"]["w"],
+                params["camera_head"]["pose_branch"]["fc2"]["w"]]
+
+    def steps(state, tc, mesh=None):
+        """Four steps of phase 5: metrics, launches of step 0, collectives
+        and ms of each step."""
+        step = L.make_train_step(cfg, tc)
+        out = {"metrics": [], "ms": [], "collectives": []}
+        torch.cuda.reset_peak_memory_stats()
+        with Sh.activate_mesh(mesh):
+            for i in range(4):
+                for w in wrappers.values():
+                    w.launches = 0
+                Sh.collective_counts.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch, indices(i))
+                torch.cuda.synchronize()
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
+                out["metrics"].append({k: float(x) for k, x in m.items()})
+                out["collectives"].append(dict(Sh.collective_counts))
+                if i == 0:
+                    out["launches"] = {k: w.launches for k, w in wrappers.items()}
+        out["sample"] = [t.cpu() for t in sample(state["params"])]
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        return out
+
+    # phase 6's configuration, for 3 steps, with a sanity check and a
+    # checkpoint at step 3, FSDP on
+    trainer_steps = 3
+    ttcfg = L.TrainConfig(warmup_steps=1, adam_mu_dtype="bfloat16",
+                          loss=LossConfig(max_val=30.0), fsdp=True)
+    work = tempfile.mkdtemp(prefix="sharded_trainer_smoke_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    tcfg_run = T.TrainerConfig(
+        data_root=SyntheticScenes(2, TRAIN_FRAMES, 10_000, IMG, SEED + 11),
+        results_dir=os.path.join(work, "mesh"), total_steps=trainer_steps,
+        num_images=TRAIN_FRAMES, sample_num=10_000, rank=RANK, seed=SEED,
+        checkpoint_every=trainer_steps, sanity_check_every=trainer_steps, eval_every=6,
+        eval_data_root=SyntheticScenes(1, 8, 2048, IMG, SEED + 12), eval_num_images=8,
+        eval_sample_num=2048, artifact_every=0, log_every=1, train=ttcfg)
+    res, launches = {}, {}
+    # the references, made before the process group exists (under a group
+    # the trainer builds a mesh) when phases 5 and 6 did not run
+    if "metrics" not in PHASE5:
+        print("  phase 5's reference made here (phase 5 did not run)")
+        ref = steps(fresh_state(), tcfg)
+        PHASE5.update(metrics=ref["metrics"], sample=ref["sample"], ms=ref["ms"][1:])
+        torch.cuda.empty_cache()
+    if phase6 is None:
+        print("  phase 6's run A made here for its first 3 steps (phase 6 did not run)")
+        one = dataclasses.replace(tcfg_run, results_dir=os.path.join(work, "one_device"),
+                                  checkpoint_every=0, sanity_check_every=0,
+                                  train=dataclasses.replace(ttcfg, fsdp=False))
+        T.run(one)
+        torch.cuda.empty_cache()
+        with open(os.path.join(one.results_dir, "tensorboard", "metrics.jsonl")) as f:
+            phase6 = dict(losses=[r["loss"] for r in map(json.loads, f)
+                                  if r["prefix"] == "train"], spread=0.0)
+    n_trained = len(L._flatten({k: L.param_shapes(cfg)[k] for k in ("aggregator",
+                                                                     "camera_head")}))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = Sh.make_mesh(1, 1, 1, device="cuda")
+        print(f"  process group: nccl, world size {dist.get_world_size()}; mesh {mesh.shape}, "
+              "sharded path forced")
+        with SP.force_single_device_spmd():
+            # -- (1) DDP and (2) FSDP steps ----------------------------------
+            for name, fsdp in (("ddp", False), ("fsdp", True)):
+                tc = dataclasses.replace(tcfg, fsdp=fsdp)
+                layout = L.state_layout(cfg, tc, mesh)
+                state = fresh_state()
+                if fsdp:
+                    state = L.train_state_from_params(state["params"], tc, layout)
+                cut = sum(Sh.DATA_AXIS in sp for sp in Sh.spec_leaves(layout.specs))
+                out = steps(state, tc, mesh)
+                del state
+                torch.cuda.empty_cache()
+                launches[name] = out["launches"]
+                same_m = [a == b for a, b in zip(out["metrics"], PHASE5["metrics"])]
+                same_s = [torch.equal(a, b) for a, b in zip(out["sample"], PHASE5["sample"])]
+                n_coll = [sum(c.values()) for c in out["collectives"]]
+                print(f"  {name} step (world 1, {cut} leaves cut): launches of step 0 "
+                      f"{out['launches']}; collectives a step {n_coll} "
+                      f"({out['collectives'][-1]}) for {n_trained} trained leaves")
+                print(f"  {name}: metrics of 4 steps bit-equal to phase 5's {same_m}, sampled "
+                      f"leaves {same_s}; loss {[m['loss'] for m in out['metrics']]}")
+                print(f"  {card}: {name} step ms {[round(t, 2) for t in out['ms']]}; phase 5's "
+                      f"steps 1-3 {[round(t, 2) for t in PHASE5['ms']]}; peak memory "
+                      f"{out['peak_gb']:.2f} GB")
+                expect(out["launches"] == {k: TRAIN_STEP_LAUNCHES[k] for k in wrappers},
+                       f"{name} step launches {out['launches']}")
+                expect(all(same_m) and all(same_s),
+                       f"{name} step differs from phase 5 (metrics {same_m}, leaves {same_s})")
+                expect(max(n_coll) < n_trained // 2,
+                       f"{name}: {max(n_coll)} collectives a step for {n_trained} leaves")
+                expect(not fsdp or cut > 400, f"fsdp cut {cut} leaves")
+                res[name] = dict(step_ms=out["ms"], peak_gb=out["peak_gb"],
+                                 collectives=out["collectives"],
+                                 leaves_cut=cut, bit_equal_metrics=same_m,
+                                 bit_equal_sample=same_s, launches=out["launches"])
+            # the three steps in turns on one state (at a data extent of 1
+            # FSDP's slices have the whole leaves' shapes): host-clock times
+            # spread between calls and within one
+            state = fresh_state()
+            fns = {"plain": (L.make_train_step(cfg, tcfg), None)}
+            for name, fsdp in (("ddp", False), ("fsdp", True)):
+                fns[name] = (L.make_train_step(cfg, dataclasses.replace(tcfg, fsdp=fsdp)), mesh)
+            turns = {k: [] for k in fns}
+            for i, name in enumerate(["plain", "ddp", "fsdp", "fsdp", "ddp", "plain"] * 2):
+                step_fn, m_ = fns[name]
+                with Sh.activate_mesh(m_):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, _ = step_fn(state, batch, indices(i))
+                    torch.cuda.synchronize()
+                turns[name].append((time.perf_counter() - t0) * 1e3)
+            del state, fns
+            torch.cuda.empty_cache()
+            res["turns_ms"] = turns
+            print(f"  {card}: steps in turns (plain, ddp, fsdp, fsdp, ddp, plain, twice), ms: "
+                  + "; ".join(f"{k} {[round(t, 2) for t in v]} (median "
+                              f"{statistics.median(v):.2f})" for k, v in turns.items()))
+            # -- (3) the trainer under the mesh -----------------------------
+            ck_times = {"save_s": [], "write_s": [], "restore_s": []}
+            for w in wrappers.values():
+                w.launches = 0
+            T.CheckpointManager = timed_checkpoints(ck_times)
+            try:
+                t0 = time.perf_counter()
+                live = T.run(tcfg_run)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+            finally:
+                T.CheckpointManager = CK.CheckpointManager
+            launches["trainer"] = {k: w.launches for k, w in wrappers.items()}
+            with open(os.path.join(tcfg_run.results_dir, "tensorboard", "metrics.jsonl")) as f:
+                rows = [r for r in map(json.loads, f)]
+            losses = [r["loss"] for r in rows if r["prefix"] == "train"]
+            want_l = phase6["losses"][:trainer_steps]
+            diffs = [abs(a - b) for a, b in zip(losses, want_l)]
+            tol = phase6.get("spread", 0.0)
+            print(f"  trainer under the mesh (fsdp, {trainer_steps} steps, sanity check and "
+                  f"checkpoint at {trainer_steps}) in {run_s:.2f} s: losses {losses} against "
+                  f"phase 6's run A {want_l} (max |diff| {max(diffs):.3e}, tolerance: run A's "
+                  f"same-state spread {tol:.3e}); launches {launches['trainer']}")
+            expect(len(losses) == trainer_steps and max(diffs) <= tol,
+                   f"mesh trainer losses {losses} against {want_l}")
+            # the sanity check's forward of one 2-frame scene: its final DPT
+            # upsample (2 x 518 x 518 x 128 elements) is below K3's size gate
+            # (2^27) and runs the einsum path
+            want_t = {k: trainer_steps * TRAIN_STEP_LAUNCHES[k]
+                      + (FORWARD_LAUNCHES[k] if k != "resize_bilinear" else 0)
+                      for k in wrappers}
+            expect(launches["trainer"] == want_t,
+                   f"mesh trainer launches {launches['trainer']}, expected {want_t}")
+            expect(any(r["prefix"] == "sanity" for r in rows), "no sanity check row")
+            ck = os.path.join(tcfg_run.results_dir, "checkpoints")
+            t0 = time.perf_counter()
+            back = CK.CheckpointManager(ck).restore(trainer_steps, template=live)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+
+            def leaves(state):
+                return L._flatten([state["params"], state["opt"]["mu"], state["opt"]["nu"]])
+
+            same = sum(torch.equal(a, b) for a, b in zip(leaves(back), leaves(live)))
+            total = len(leaves(live))
+            ckpt_gb = os.path.getsize(os.path.join(ck, str(trainer_steps), "state.pt")) / 1e9
+            print(f"  the step-{trainer_steps} checkpoint ({ckpt_gb:.3f} GB, gathered to the "
+                  f"host leaf by leaf and written in {[round(t, 2) for t in ck_times['save_s']]} "
+                  f"s, the write {[round(t, 2) for t in ck_times['write_s']]} s) restored "
+                  f"into the one-device layout in {restore_s:.2f} s: {same} of {total} leaves "
+                  f"bit-equal to the live state")
+            expect(same == total and back["step"] == back["opt"]["count"] == trainer_steps,
+                   "the mesh trainer's checkpoint differs from its live state")
+            res["trainer"] = dict(losses=losses, reference_losses=want_l, max_diff=max(diffs),
+                                  run_s=run_s, save_s=ck_times["save_s"],
+                                  write_s=ck_times["write_s"], restore_s=restore_s,
+                                  checkpoint_gb=ckpt_gb,
+                                  leaves_bit_equal=same, leaves=total,
+                                  launches=launches["trainer"])
+            del live, back
+            torch.cuda.empty_cache()
+        # -- (4) bundle adjustment over the NCCL group ----------------------
+        tracks, vis, _, init, Ks = known_geometry(NUM_FRAMES, 6144)
+        rec = TR.tracks_to_reconstruction(tracks, vis, init, Ks, image_size=(IMG, IMG),
+                                          run_ba=False)
+        pts, exts, ks = CIO.reconstruction_to_batch_matrix(rec)
+        _, _, ci, pi, uv = CIO.observations(rec)
+        args = (exts.astype(np.float32), ks.astype(np.float32), pts.astype(np.float32),
+                ci, pi, uv)
+        lib = ctypes.CDLL(NBA.build())
+        lib.omp_get_max_threads.restype = ctypes.c_int
+        threads = lib.omp_get_max_threads()
+        lib.omp_set_num_threads(1)  # the engine's dynamic schedules sum in a fixed order
+        try:
+            t0 = time.perf_counter()
+            e1, p1, i1 = NBA.ba_solve_multihost(*args, huber_delta=4.0)
+            mh_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            e2, p2, i2 = NBA.ba_solve_distributed(*args, num_shards=1, huber_delta=4.0)
+            one_s = time.perf_counter() - t0
+        finally:
+            lib.omp_set_num_threads(threads)
+        equal = (np.array_equal(e1, e2) and np.array_equal(p1, p2)
+                 and i1["final_cost"] == i2["final_cost"] and i1["iterations"] == i2["iterations"])
+        print(f"  ba_solve_multihost over the NCCL group ({NUM_FRAMES} x 6144 known geometry, "
+              f"{len(uv)} observations, one OpenMP thread): equal to the one-shard solver "
+              f"{equal} (cost {i1['final_cost']:.6f}, {i1['iterations']} iterations); "
+              f"{card}: {mh_s:.3f} s against {one_s:.3f} s")
+        expect(equal, "ba_solve_multihost differs from ba_solve_distributed(num_shards=1)")
+        res["ba"] = dict(equal=equal, final_cost=i1["final_cost"], iterations=i1["iterations"],
+                         multihost_s=mh_s, one_shard_s=one_s, observations=int(len(uv)))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    # -- (5) the per-rank state bytes --------------------------------------
+    res["state_gb_per_rank"] = {
+        mode: {n: L.state_bytes_per_rank(cfg, n, mode == "fsdp", "bfloat16") / 1e9
+               for n in (1, 2, 4, 8)} for mode in ("ddp", "fsdp")}
+    print("  per-rank train state (fp32 params, bf16 mu, fp32 nu; JAX's rule on this "
+          "model's leaves): " + "; ".join(
+              f"{mode} " + ", ".join(f"n = {n}: {gb:.3f} GB" for n, gb in by_n.items())
+              for mode, by_n in res["state_gb_per_rank"].items()))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    counted = {"sharded_train": {k: launches["ddp"][k] + launches["fsdp"][k] for k in wrappers},
+               "sharded_trainer": launches["trainer"]}
+    return counted, res
+
+
+def run_torchrun_trainer(card: str) -> dict:
+    """``--torchrun-trainer``: phase 6's configuration (6 steps, one
+    numpy-made scene a data rank a step, no checkpoint, no diagnostics) on
+    every card of the machine. Without torchrun's environment it is the
+    one-device trainer, the reference; under ``torchrun --nproc_per_node
+    N`` the trainer over N NCCL ranks with DDP (N x 1), FSDP (N x 1) and
+    FSDP over a context extent of 2 (N/2 x 2). Rank 0 prints each run's
+    step intervals (steps 3-6), frames a second a card, losses and every
+    rank's peak memory. Build the kernels once before starting the ranks
+    (each rank would otherwise compile into the same directory)."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from self_supervise_sfm_tpu_torch.train import loop as L
+    from self_supervise_sfm_tpu_torch.train import trainer as T
+    from self_supervise_sfm_tpu_torch.train.loss import LossConfig
+
+    T.maybe_init_distributed("cuda")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    primary = not dist.is_initialized() or dist.get_rank() == 0
+    runs = [("one_device", 1, False)] if world == 1 else [
+        ("ddp", 1, False), ("fsdp", 1, True), ("fsdp_context2", 2, True)]
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "torchrun_smoke")
+    out = {"world": world}
+    try:
+        for name, nc, fsdp in runs:
+            results = os.path.join(work, name)
+            torch.cuda.reset_peak_memory_stats()
+            cfg = T.TrainerConfig(
+                data_root=SyntheticScenes(max(world // nc, 1) * 2, TRAIN_FRAMES, 10_000, IMG,
+                                          SEED + 11),
+                results_dir=results, total_steps=6, num_images=TRAIN_FRAMES,
+                sample_num=10_000, rank=RANK, seed=SEED, num_context=nc, checkpoint_every=0,
+                sanity_check_every=0, artifact_every=0, log_every=1,
+                train=L.TrainConfig(warmup_steps=1, adam_mu_dtype="bfloat16",
+                                    loss=LossConfig(max_val=30.0), fsdp=fsdp))
+            t0 = time.perf_counter()
+            state = T.run(cfg)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            del state
+            torch.cuda.empty_cache()
+            peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9], device="cuda")
+            if dist.is_initialized():
+                peaks = [torch.zeros_like(peak) for _ in range(world)]
+                dist.all_gather(peaks, peak)
+                peak_gb = [float(p) for p in peaks]
+            else:
+                peak_gb = [float(peak)]
+            if primary:
+                with open(os.path.join(results, "tensorboard", "metrics.jsonl")) as f:
+                    rows = [r for r in map(json.loads, f) if r["prefix"] == "train"]
+                ms = [1e3 / r["steps_per_sec"] for r in rows[2:]]
+                fps = [r["frames_per_sec_per_chip"] for r in rows[2:]]
+                out[name] = dict(mesh=[world // nc, nc], fsdp=fsdp, run_s=run_s, step_ms=ms,
+                                 frames_per_s_per_card=fps, peak_gb=peak_gb,
+                                 losses=[r["loss"] for r in rows])
+                print(f"  {card}: {name} over {world // nc} x {nc} ranks: step intervals "
+                      f"(steps 3-6) {[round(x, 2) for x in ms]} ms, median "
+                      f"{statistics.median(ms):.2f}; frames/s a card median "
+                      f"{statistics.median(fps):.4f}; peak GB by rank "
+                      f"{[round(x, 2) for x in peak_gb]}; losses "
+                      f"{[round(r['loss'], 6) for r in rows]}; run {run_s:.1f} s", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.barrier()
+            if primary:
+                shutil.rmtree(work, ignore_errors=True)
+            dist.destroy_process_group()
+        else:
+            shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3500,6 +3917,28 @@ def main() -> int:
         _, sharded = run_sharded(card)
         print(f"phase 9: {time.perf_counter() - t0:.1f} s")
         print(json.dumps({"sharded": sharded}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--torchrun-trainer" in sys.argv[1:]:
+        print("the trainer on every card of the machine (one rank a card under torchrun; "
+              "without it, the one-device reference)")
+        result = run_torchrun_trainer(card)
+        if int(os.environ.get("RANK", 0)) == 0:
+            print(json.dumps({"torchrun_trainer": result}))
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}))
+        return 0
+    if "--sharded-train-only" in sys.argv[1:]:
+        print("phase 10 alone: multi-device training (NCCL, world size 1, sharded path "
+              "forced): the DDP and FSDP steps, the trainer under the mesh, "
+              "ba_solve_multihost")
+        t0 = time.perf_counter()
+        _, sharded_train = run_sharded_train(card)
+        print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"sharded_train": sharded_train}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3577,8 +4016,15 @@ def main() -> int:
     sharded_launches, sharded = run_sharded(card, demo_params, phase3)
     print(f"phase 9: {time.perf_counter() - t0:.1f} s")
     del demo_params
+    torch.cuda.empty_cache()
+    print("phase 10: multi-device training (NCCL, world size 1, sharded path forced): the "
+          "DDP and FSDP steps against phase 5, the trainer under the mesh against phase 6, "
+          "ba_solve_multihost")
+    t0 = time.perf_counter()
+    sharded_train_launches, sharded_train = run_sharded_train(card, trainer)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
-        for path, n in sharded_launches.items():
+        for path, n in {**sharded_launches, **sharded_train_launches}.items():
             k["launches_by_path"][path] = n[k["name"]]
             k["launches"] += n[k["name"]]
     for k in kernels:
@@ -3599,6 +4045,7 @@ def main() -> int:
     print(json.dumps({"trainer": trainer}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"sharded_train": sharded_train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

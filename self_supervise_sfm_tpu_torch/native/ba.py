@@ -2,8 +2,9 @@
 
 Port of ``self_supervise_sfm_tpu/native/ba.py``: the dense and block-sparse
 PCG LM-Schur solvers (:func:`ba_solve`) and the point-partitioned engine
-(:class:`BAShard`, :func:`ba_solve_distributed`, reduced on one host in
-numpy). The library is compiled with g++ at first use, from
+(:class:`BAShard`; :func:`ba_solve_distributed`, reduced on one host in
+numpy, and :func:`ba_solve_multihost`, one partition a process of a
+``torch.distributed`` group). The library is compiled with g++ at first use, from
 ``cpp/ba/ba_engine.cpp`` into ``build/ba/``, under a name keyed by the
 source's sha256, so a changed source rebuilds; nothing is written under
 ``cpp/``. The engine runs on the host in float64; the port's on-device
@@ -350,16 +351,22 @@ def _gauge_rows(cam, gauge_fix: bool) -> np.ndarray:
     return fixed
 
 
-def _lm_loop(shards, reduce3, cam, fixed_rows, max_iters, init_lambda):
+def _sum_costs(vals) -> float:
+    return float(np.sum(vals))
+
+
+def _lm_loop(shards, reduce3, cam, fixed_rows, max_iters, init_lambda,
+             cost_reduce=_sum_costs):
     """The LM accept/reject drive over point-partitioned shards.
 
     ``reduce3(S_list, rhs_list, cost_list) -> (S, rhs, cost)`` sums the
-    additive reduced-system partials across shards. The control flow is
-    that of the JAX package's, so that an N-shard run there and here take
-    the same steps.
+    additive reduced-system partials across shards; ``cost_reduce(costs)
+    -> float`` sums bare costs (across processes: one scalar, not a (6C)^2
+    system). The control flow is that of the JAX package's, so that an
+    N-shard run there and here take the same steps.
     """
     lam = init_lambda
-    cost = float(np.sum([sh.cost(cam) for sh in shards]))
+    cost = cost_reduce([sh.cost(cam) for sh in shards])
     it = 0
     for it in range(max_iters):
         parts = [sh.linearize(cam, lam) for sh in shards]
@@ -378,7 +385,7 @@ def _lm_loop(shards, reduce3, cam, fixed_rows, max_iters, init_lambda):
             lam *= 10.0
             continue
         cam_new = apply_cam_step(cam, dc)
-        new_cost = float(np.sum([sh.trial(cam_new, dc) for sh in shards]))
+        new_cost = cost_reduce([sh.trial(cam_new, dc) for sh in shards])
         if new_cost < cost:
             cost = new_cost
             lam = max(lam * 0.5, 1e-9)
@@ -390,13 +397,125 @@ def _lm_loop(shards, reduce3, cam, fixed_rows, max_iters, init_lambda):
     return cam, cost, it
 
 
-def ba_solve_multihost(*args, **kwargs):
-    """Distributed BA across processes: not ported yet (it waits for slice 6,
-    multi-device). :func:`ba_solve_distributed` runs the same
-    point-partitioned engine in one process."""
-    raise NotImplementedError(
-        "ba_solve_multihost is not ported yet: it waits for slice 6 (multi-device); "
-        "ba_solve_distributed runs the sharded engine in one process")
+def _group_sum(group):
+    """(sum of float64 arrays over the process group, its device): NCCL on a
+    copy on this rank's card, gloo on the host."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cpu")
+    if dist.get_backend(group) == "nccl":
+        dev = torch.device("cuda", torch.cuda.current_device())
+
+    def reduce(*arrays):
+        flat = torch.from_numpy(np.concatenate([np.ravel(a) for a in arrays])).to(dev)
+        dist.all_reduce(flat, group=group)
+        out, i = [], 0
+        flat = flat.cpu().numpy()
+        for a in arrays:
+            a = np.asarray(a)
+            out.append(flat[i: i + a.size].reshape(a.shape))
+            i += a.size
+        return out
+
+    return reduce, dev
+
+
+def ba_solve_multihost(
+    extrinsics: np.ndarray,  # (C, 3, 4) w2c
+    intrinsics: np.ndarray,  # (C, 3, 3)
+    points: np.ndarray,  # (P, 3)
+    cam_idx: np.ndarray,
+    pt_idx: np.ndarray,
+    uv: np.ndarray,
+    weight: Optional[np.ndarray] = None,
+    max_iters: int = 30,
+    init_lambda: float = 1e-3,
+    huber_delta: float = 0.0,
+    gauge_fix: bool = False,
+    group=None,
+) -> Tuple[np.ndarray, np.ndarray, dict]:
+    """Distributed BA across the processes of a ``torch.distributed`` group
+    (default: the default group).
+
+    Every process is handed the whole problem and owns the round-robin point
+    partition ``point % world == rank``, that of
+    ``ba_solve_distributed(num_shards=world)``, so a run over N processes
+    takes the steps of an N-shard run in one process. Each process
+    linearises only its own points in the native engine; the additive
+    partials (S, rhs, cost) are summed over the group in float64 by one
+    all-reduce (NCCL on a copy on the card when the group is NCCL, gloo on
+    the host), and a bare cost by a one-element all-reduce. The LM control
+    is the same on every process: identical reduced systems give identical
+    steps. Returns the whole solution on every process, the points joined
+    by one all-gather of each process's partition padded to ceil(P /
+    world) rows. Without a process group it is the one-shard solver.
+    """
+    import torch
+    import torch.distributed as dist
+
+    C = extrinsics.shape[0]
+    P = points.shape[0]
+    on = dist.is_available() and dist.is_initialized()
+    nproc = dist.get_world_size(group) if on else 1
+    proc = dist.get_rank(group) if on else 0
+
+    cam, K4, points, cam_idx, pt_idx, uv, weight = _prep_problem(
+        extrinsics, intrinsics, points, cam_idx, pt_idx, uv, weight
+    )
+    owner = np.arange(P) % nproc
+    local_idx = np.arange(P) // nproc
+    sel_p = np.where(owner == proc)[0]
+    sel_o = np.where(owner[pt_idx] == proc)[0]
+    shard = BAShard(
+        C, K4, points[sel_p].astype(np.float64),
+        cam_idx[sel_o], local_idx[pt_idx[sel_o]].astype(np.int32),
+        uv[sel_o], weight[sel_o], huber_delta,
+    )
+    if on:
+        reduce, dev = _group_sum(group)
+
+        def reduce3(S_list, rhs_list, cost_list):
+            S, rhs, cost = reduce(S_list[0], rhs_list[0], np.asarray([cost_list[0]]))
+            return S, rhs, float(cost[0])
+
+        def cost_reduce(vals):
+            return float(reduce(np.asarray([float(np.sum(vals))]))[0][0])
+    else:
+        def reduce3(S_list, rhs_list, cost_list):
+            return S_list[0], rhs_list[0], float(cost_list[0])
+
+        cost_reduce = _sum_costs
+
+    fixed_rows = _gauge_rows(cam, gauge_fix)
+    cam, cost, it = _lm_loop([shard], reduce3, cam, fixed_rows, max_iters, init_lambda,
+                             cost_reduce)
+
+    # join the partitions: each padded to the largest, all-gathered, then
+    # put back by owner
+    Pmax = int(np.ceil(P / nproc)) if P else 0
+    padded = np.zeros((Pmax, 3), np.float64)
+    padded[: sel_p.shape[0]] = shard.points()
+    shard.close()
+    if on:
+        t = torch.from_numpy(padded).to(dev)
+        out = t.new_empty((nproc * Pmax, 3))
+        dist.all_gather_into_tensor(out, t, group=group)
+        gathered = out.cpu().numpy().reshape(nproc, Pmax, 3)
+    else:
+        gathered = padded[None]
+    pts_out = np.empty((P, 3), np.float64)
+    for w in range(nproc):
+        selw = np.where(owner == w)[0]
+        pts_out[selw] = gathered[w, : selw.shape[0]]
+
+    R = _np_axis_angle_to_mat(cam[:, :3]).astype(np.float32)
+    ext = np.concatenate([R, cam[:, 3:6, None].astype(np.float32)], axis=2)
+    return ext, pts_out.astype(np.float32), {
+        "final_cost": cost,
+        "iterations": it + 1,
+        "num_processes": nproc,
+    }
 
 
 def ba_solve_distributed(

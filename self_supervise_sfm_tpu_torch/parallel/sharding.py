@@ -36,16 +36,27 @@ own shards; these rules give the true gradient in both cases.
 
 The process group is the caller's: ``torch.distributed.init_process_group``
 with NCCL for a mesh on ``cuda`` (one card a rank), gloo for one on the CPU.
-:func:`make_mesh` refuses any other pairing. ``param_sharding`` and
-``fsdp_sharding`` belong to training and are not ported yet.
+:func:`make_mesh` refuses any other pairing.
+
+Training's parameter layout is JAX's rule: :func:`param_sharding` gives each
+leaf of a tree a spec (one entry a dim, a mesh axis or None, as a
+``PartitionSpec``), FSDP's ZeRO-3 cut over ``data`` composed with the
+Megatron cut over ``model``. :func:`shard_tree` keeps a rank's slice of
+each leaf and :func:`gather_tree` joins them again. The train step reduces
+gradients after its backward in flat buffers of :data:`BUCKET_BYTES`
+(:func:`bucketed_all_reduce`, :func:`bucketed_reduce_scatter`) and gathers
+FSDP's shards the same way (:func:`bucketed_all_gather`), so that a step
+makes collectives of the order of its buckets, not of its ~1800 leaves.
+:data:`collective_counts` counts every collective this module issues.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -197,6 +208,10 @@ def shard_batch(batch: dict, mesh: Mesh, process_local: bool = False) -> dict:
 # -- the collectives ------------------------------------------------------------
 
 
+# collectives issued by this module, by kind (the caller resets it)
+collective_counts: "collections.Counter[str]" = collections.Counter()
+
+
 def _own_slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     n, i = dist.get_world_size(group), dist.get_rank(group)
     if x.shape[dim] % n:
@@ -211,6 +226,7 @@ def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = dist.get_world_size(group)
     x = x.contiguous()
     out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    collective_counts["all_gather"] += 1
     # all_gather_single is all_gather_into_tensor's newer name
     (getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor)(
         out, x, group=group)
@@ -224,12 +240,14 @@ def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     parts = [p.contiguous() for p in x.chunk(dist.get_world_size(group), dim=dim)]
     out = torch.empty_like(parts[0])
+    collective_counts["reduce_scatter"] += 1
     dist.reduce_scatter(out, parts, group=group)
     return out
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous().clone()
+    collective_counts["all_reduce"] += 1
     dist.all_reduce(x, group=group)
     return x
 
@@ -326,6 +344,7 @@ def _exchange(xs, group, shift: int):
     outs = [torch.empty_like(x) for x in sends]
     ops = ([dist.P2POp(dist.isend, x, dst, group) for x in sends]
            + [dist.P2POp(dist.irecv, o, src, group) for o in outs])
+    collective_counts["ring_shift"] += 1
     reqs = dist.batch_isend_irecv(ops)
 
     def wait():
@@ -363,3 +382,298 @@ def post_ring_shift(mesh: Mesh, axis: str, *xs: torch.Tensor):
     waits = []
     outs = _RingShift.apply(waits, mesh.group(axis), *xs)
     return outs, waits[0]
+
+
+# -- training's parameter layout (JAX's param_sharding) -------------------------
+
+Spec = Tuple[Optional[str], ...]
+
+# Megatron-style tensor-parallel dims, keyed on the trailing param path:
+# column-parallel weights (output dim cut: attention QKV, MLP up) and
+# row-parallel weights (input dim cut: attention out-proj, MLP down). Dims
+# are negative so that a stacked layer axis in front changes nothing.
+_TP_COLUMN = {"qkv": ("attn",), "fc1": (), "w12": ()}
+_TP_ROW = {"proj": ("attn",), "fc2": (), "w3": ()}
+# leaves below this many elements stay whole: cutting them saves nothing
+MIN_SHARD_ELEMS = 1 << 16
+# the size of one flat buffer of the train step's collectives
+BUCKET_BYTES = 64 << 20
+
+
+def _tp_dim(path) -> Optional[int]:
+    """The dim a leaf at ``path`` is cut on over ``model``, or None. The
+    path's string entries are dict keys; anything else (list indices) is
+    skipped, as JAX skips non-dict keys."""
+    keys = [k for k in path if isinstance(k, str)]
+    if len(keys) < 2:
+        return None
+    parent, leaf = keys[-2], keys[-1]
+    anc = set(keys[:-1])
+
+    def guarded(table):
+        req = table.get(parent)
+        return req is not None and all(r in anc for r in req)
+
+    if guarded(_TP_COLUMN):
+        return -1  # w: (..., in, out) / b: (..., out)
+    if guarded(_TP_ROW) and leaf == "w":
+        return -2  # w: (..., in, out); a row-parallel layer's bias stays whole
+    return None
+
+
+def leaf_spec(path, shape, nd: int = 1, nm: int = 1, force: bool = False) -> Spec:
+    """JAX's ``param_sharding`` rule for one leaf of ``shape`` at ``path``:
+    with ``nm`` > 1 the Megatron dim over ``model`` (where ``nm`` divides
+    it), then with ``nd`` > 1 (or ``force``) the largest remaining dim that
+    ``nd`` divides over ``data``, for a leaf of at least
+    :data:`MIN_SHARD_ELEMS` elements. ``force`` takes the FSDP cut at a data
+    extent of 1 too (``force_single_device_spmd``)."""
+    shape = tuple(int(s) for s in shape)
+    spec: List[Optional[str]] = [None] * len(shape)
+    if not shape:
+        return ()
+    if nm > 1:
+        d = _tp_dim(path)
+        if d is not None and shape[d] % nm == 0:
+            spec[d % len(shape)] = MODEL_AXIS
+    if (nd > 1 or force) and int(np.prod(shape)) >= MIN_SHARD_ELEMS:
+        for d in sorted(range(len(shape)), key=lambda i: shape[i], reverse=True):
+            if spec[d] is None and shape[d] % nd == 0 and shape[d] >= nd:
+                spec[d] = DATA_AXIS
+                break
+    return tuple(spec)
+
+
+def _extents(mesh) -> Dict[str, int]:
+    return dict(mesh.shape) if isinstance(mesh, Mesh) else dict(mesh)
+
+
+def param_sharding(mesh, tree, fsdp: bool = False, tp: bool = False, force: bool = False):
+    """The spec of every leaf of ``tree`` (nested dicts and lists of tensors
+    or anything with a ``shape``), as a tree of the same layout: ``fsdp``
+    cuts over ``data`` (ZeRO-3), ``tp`` over ``model``, composed as JAX
+    composes them. ``mesh`` is a :class:`Mesh` or a dict of axis extents.
+    A leaf without a shape gets ``()``."""
+    ext = _extents(mesh)
+    nd = ext.get(DATA_AXIS, 1) if fsdp else 1
+    nm = ext.get(MODEL_AXIS, 1) if tp else 1
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path + (i,)) for i, v in enumerate(node)]
+        if node is None:
+            return None
+        if not hasattr(node, "shape"):
+            return ()
+        return leaf_spec(path, node.shape, nd, nm, force and fsdp)
+
+    return walk(tree, ())
+
+
+def fsdp_sharding(mesh, tree):
+    """FSDP / ZeRO-3 specs (see :func:`param_sharding`)."""
+    return param_sharding(mesh, tree, fsdp=True)
+
+
+def leaves_like(tree, other) -> list:
+    """The leaves of ``other`` (a tree with ``tree``'s keys: its specs, say)
+    in the order of ``tree``'s leaves, matched by key, not by position (two
+    trees of one model may hold their dict keys in different orders)."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in leaves_like(tree[k], other[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t, o in zip(tree, other) for x in leaves_like(t, o)]
+    return [] if tree is None else [other]
+
+
+def spec_leaves(specs) -> List[Spec]:
+    """The specs of a :func:`param_sharding` tree in the order of its
+    leaves (a spec is a tuple; the tree's sequences are lists)."""
+    if isinstance(specs, dict):
+        return [s for k in specs for s in spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [s for v in specs for s in spec_leaves(v)]
+    return [] if specs is None else [specs]
+
+
+def data_dim(spec: Spec) -> Optional[int]:
+    """The dim a spec cuts over ``data``, or None."""
+    if MODEL_AXIS in spec:
+        raise NotImplementedError(
+            "a spec over 'model' (tensor parallelism) has no rank-local layout yet: "
+            "ROADMAP.md Queue A item 3d")
+    return spec.index(DATA_AXIS) if DATA_AXIS in spec else None
+
+
+def _map_leaves(tree, specs, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, specs[k], fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(v, s, fn) for v, s in zip(tree, specs)]
+    return None if tree is None else fn(tree, specs)
+
+
+def shard_of(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of a whole leaf ``x`` under ``spec``, in its own
+    contiguous storage (the whole can be freed)."""
+    d = data_dim(spec)
+    if d is None:
+        return x
+    n = mesh.shape[DATA_AXIS]
+    m = x.shape[d] // n
+    return x.narrow(d, mesh.index(DATA_AXIS) * m, m).clone(
+        memory_format=torch.contiguous_format)
+
+
+def shard_tree(tree, specs, mesh: Mesh):
+    """This rank's slice of every leaf of ``tree`` (whole on every rank)."""
+    return _map_leaves(tree, specs, lambda x, s: shard_of(x, s, mesh))
+
+
+def gather_tree(tree, specs, mesh: Mesh, to_rank: Optional[int] = None, device=None):
+    """Every leaf of ``tree`` (this rank's shards) whole, gathered one leaf at
+    a time over ``data``. Every rank of the mesh must call it. With
+    ``to_rank`` only that rank (of the world) keeps the result; the others
+    get None. ``device``: where each whole leaf goes as soon as it is
+    gathered (the host, for a checkpoint), so that the whole tree never sits
+    on the card."""
+    keep = to_rank is None or dist.get_rank() == to_rank
+
+    def one(x, spec):
+        d = data_dim(spec)
+        whole = x if d is None else _all_gather(x, mesh.group(DATA_AXIS), d)
+        if not keep:
+            return None
+        if device is not None:
+            return whole.detach().to(device, copy=True)
+        return whole if d is not None else x
+
+    out = _map_leaves(tree, specs, one)
+    return out if keep else None
+
+
+# each tensor of a flat buffer starts at a multiple of this many elements
+# (512 bytes of fp32, where the caching allocator puts a fresh tensor), so
+# that a vectorised kernel reading a view of the buffer (a reduction: the
+# gradient norm) takes the path it takes on a tensor of its own
+_ALIGN = 128
+
+
+def _pack(parts: Sequence[torch.Tensor], dim: int = 0):
+    """Tensors of one dtype, equal but along ``dim``, joined along ``dim``
+    with zeros after each up to a multiple of :data:`_ALIGN`: (buffer,
+    the offsets along ``dim``)."""
+    pieces, offsets, total = [], [], 0
+    for t in parts:
+        n = t.shape[dim]
+        pad = -n % _ALIGN
+        offsets.append(total)
+        pieces.append(t)
+        if pad:
+            shape = list(t.shape)
+            shape[dim] = pad
+            pieces.append(t.new_zeros(shape))
+        total += n + pad
+    return torch.cat(pieces, dim=dim), offsets
+
+
+def _memory_order(t: torch.Tensor) -> List[int]:
+    """The permutation of ``t``'s dims that its storage is laid out in (a
+    gradient of a convolution may come channels-last), so that a flat copy
+    and the view back keep its strides; the dims' own order when ``t`` is
+    not dense."""
+    perm = sorted(range(t.dim()), key=lambda i: (-t.stride(i), -t.shape[i]))
+    return perm if t.permute(perm).is_contiguous() else list(range(t.dim()))
+
+
+def _unpermute(x: torch.Tensor, perm: List[int]) -> torch.Tensor:
+    return x.permute([perm.index(i) for i in range(len(perm))])
+
+
+def _buckets(tensors: Sequence[torch.Tensor], bucket_bytes: int):
+    """Index ranges over ``tensors`` of one dtype and at most
+    ``bucket_bytes`` each (or one tensor)."""
+    start, size = 0, 0
+    for i, t in enumerate(tensors):
+        nbytes = t.numel() * t.element_size()
+        if i > start and (size + nbytes > bucket_bytes or t.dtype != tensors[start].dtype):
+            yield range(start, i)
+            start, size = i, 0
+        size += nbytes
+    if start < len(tensors):
+        yield range(start, len(tensors))
+
+
+def bucketed_all_reduce(tensors: List[torch.Tensor], mesh: Mesh, axes: Axes,
+                        bucket_bytes: int = BUCKET_BYTES) -> List[torch.Tensor]:
+    """The sum of each tensor over ``axes``: the tensors copied into flat
+    buffers of at most ``bucket_bytes``, each buffer summed in place by one
+    all-reduce. Returns views of the buffers in the tensors' shapes; the
+    list's entries are dropped as their bucket is copied, so the caller's
+    tensors can be freed along the way. Each view has its tensor's strides."""
+    group = mesh.group(axes)
+    out: List[torch.Tensor] = []
+    for idx in list(_buckets(tensors, bucket_bytes)):
+        perms = [_memory_order(tensors[i]) for i in idx]
+        views = [tensors[i].permute(p) for i, p in zip(idx, perms)]
+        flat, offsets = _pack([v.reshape(-1) for v in views])
+        shapes = [v.shape for v in views]
+        del views
+        for i in idx:
+            tensors[i] = None
+        collective_counts["all_reduce"] += 1
+        dist.all_reduce(flat, group=group)
+        out += [_unpermute(flat[o: o + s.numel()].view(s), p)
+                for o, s, p in zip(offsets, shapes, perms)]
+    return out
+
+
+def bucketed_all_gather(shards: Sequence[torch.Tensor], dims: Sequence[int], mesh: Mesh,
+                        bucket_bytes: int = BUCKET_BYTES) -> List[torch.Tensor]:
+    """Each shard joined whole along its dim in ``dims`` over ``data``, by one
+    all-gather of a flat buffer a bucket (``bucket_bytes`` of shards)."""
+    group = mesh.group(DATA_AXIS)
+    n = dist.get_world_size(group)
+    out: List[torch.Tensor] = []
+    for idx in _buckets(shards, bucket_bytes):
+        sizes = [shards[i].numel() for i in idx]
+        flat = _all_gather(torch.cat([shards[i].reshape(-1) for i in idx]), group, 0)
+        for i, part in zip(idx, flat.view(n, -1).split(sizes, dim=1)):
+            s, d = shards[i].shape, dims[i]
+            whole = list(s)
+            whole[d] *= n
+            out.append(part.reshape(n, *s).movedim(0, d).reshape(whole))
+    return out
+
+
+def bucketed_reduce_scatter(wholes: List[torch.Tensor], dims: Sequence[int], mesh: Mesh,
+                            bucket_bytes: int = BUCKET_BYTES) -> List[torch.Tensor]:
+    """This rank's slice, along its dim in ``dims``, of each tensor summed
+    over ``data``: one reduce-scatter of a flat buffer a bucket. The list's
+    entries are dropped as their bucket is copied. Each slice has the
+    memory order of its tensor."""
+    group = mesh.group(DATA_AXIS)
+    n = dist.get_world_size(group)
+    out: List[torch.Tensor] = []
+    for idx in list(_buckets(wholes, bucket_bytes)):
+        shapes, perms, rows = [], [], []
+        for i in idx:
+            perm = _memory_order(wholes[i])
+            g, d = wholes[i].permute(perm), perm.index(dims[i])
+            s = list(g.shape)
+            s[d] //= n
+            shapes.append(s)
+            perms.append(perm)
+            rows.append(g.unflatten(d, (n, s[d])).movedim(d, 0).reshape(n, -1))
+            wholes[i] = None
+        flat, offsets = _pack(rows, dim=1)
+        del rows
+        part = torch.empty_like(flat[0])
+        collective_counts["reduce_scatter"] += 1
+        dist.reduce_scatter(part, list(flat.unbind(0)), group=group)
+        del flat
+        out += [_unpermute(part[o: o + int(np.prod(s))].view(s), p)
+                for o, s, p in zip(offsets, shapes, perms)]
+    return out

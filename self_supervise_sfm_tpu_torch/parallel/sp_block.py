@@ -32,7 +32,7 @@ The port needs no mesh gate on the fused kernels (JAX's
 ``pallas_call`` is opaque to GSPMD): its blocks only ever see rank-local
 shards. Tensor parallelism (JAX's ``_tp_local_attn``, ``_tp_out_mlp``,
 ``_block_tp``, ``_block_ctx_tp``) is not ported: a ``model`` extent above 1
-raises :class:`NotImplementedError`.
+raises :class:`NotImplementedError` naming ROADMAP.md Queue A item 3d.
 """
 
 from __future__ import annotations
@@ -55,9 +55,10 @@ from .sharding import (
 # NCCL takes one rank a device.
 _FORCE_SINGLE_DEVICE_SPMD = False
 
-_TP_REFUSAL = (
+TP_REFUSAL = (
     "tensor parallelism (a 'model' mesh extent above 1) is not ported yet: "
-    "ROADMAP.md Queue A item 3b (slice 6b, multi-device training)")
+    "ROADMAP.md Queue A item 3d; multi-device training and serving run the "
+    "data and context axes")
 
 
 @contextlib.contextmanager
@@ -73,7 +74,7 @@ def force_single_device_spmd():
 
 def _refuse_tp(mesh: Optional[Mesh]) -> None:
     if mesh is not None and mesh.shape.get(MODEL_AXIS, 1) > 1:
-        raise NotImplementedError(_TP_REFUSAL)
+        raise NotImplementedError(TP_REFUSAL)
 
 
 def _axes_over(mesh: Mesh, axes) -> Tuple[str, ...]:
@@ -186,9 +187,15 @@ class SceneShard:
     """The aggregator's sharded layout: scenes cut over ``data``, each
     scene's anchor and query frames cut over ``context``. With one scene a
     data rank and one data rank, a rank's anchors are exactly its chunk of
-    the global-attention token axis."""
+    the global-attention token axis.
+
+    ``train_step``: the train step's layout. Its inputs hold this data
+    rank's scenes already, so :meth:`scenes` cuts nothing, and the
+    parameters enter without the per-leaf all-reduce rule: the step sums
+    their gradients itself, in flat buckets."""
 
     mesh: Mesh
+    train_step: bool = False
 
     @property
     def nd(self) -> int:
@@ -204,6 +211,8 @@ class SceneShard:
 
     def scenes(self, x, dim: int = 0):
         """The rank's scenes of a tensor whole on every rank."""
+        if self.train_step:
+            return x
         return scatter(x, self.mesh, DATA_AXIS, dim)
 
     def frames(self, x, dim: int):
@@ -228,11 +237,14 @@ class SceneShard:
 
     def replicate(self, tree):
         """Parameters used on every rank's shard: gradients summed over the
-        mesh."""
+        mesh (unless the caller reduces them)."""
+        if self.train_step:
+            return tree
         return replicate(tree, self.mesh, (DATA_AXIS, CONTEXT_AXIS))
 
 
-def scene_shard(num_scenes: int, *frame_counts: int) -> Optional[SceneShard]:
+def scene_shard(num_scenes: int, *frame_counts: int,
+                train_step: bool = False) -> Optional[SceneShard]:
     """The sharded layout under the active mesh, or None for the replicated
     path: no mesh, extents of 1 (unless forced), scenes that do not divide
     the data extent or a frame count that does not divide the context
@@ -246,4 +258,4 @@ def scene_shard(num_scenes: int, *frame_counts: int) -> Optional[SceneShard]:
         return None
     if num_scenes % nd or any(f % nc for f in frame_counts):
         return None
-    return SceneShard(mesh)
+    return SceneShard(mesh, train_step)

@@ -14,6 +14,16 @@ template's device in the template's dtype (``mu`` in ``adam_mu_dtype``).
 The JAX package writes orbax directories, which only JAX reads; the port
 does not read them. Carry a JAX train state across with
 ``convert.train_state_from_jax`` and save it here.
+
+A state of a mesh (``save`` / ``restore`` with the train step's
+``loop.StateLayout``) is saved whole, so that any mesh resumes it, and the
+one-device trainer too (orbax's property, which the JAX trainer relies
+on). Every rank calls ``save``: FSDP's slices are gathered leaf by leaf
+into rank 0's host memory (one whole state there: 14.93 GB at full width
+with a bf16 Adam mu; the device holds one gathered leaf at a time), rank 0
+writes the file, and every rank waits at a barrier until it is renamed
+into place. On ``restore`` every rank maps the file and keeps its slice
+of each leaf.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import threading
 from typing import Any, List, Optional
 
 import torch
+import torch.distributed as dist
 
 _FILE = "state.pt"
 
@@ -39,22 +50,24 @@ def _to_host(tree):
     return tree
 
 
-def _like(saved, template, path="state"):
+def _like(saved, template, path="state", copy=False):
     """``saved`` laid out as ``template``: tensors on the template's device
-    and in its dtype, Python numbers as they were saved."""
+    and in its dtype (copies with ``copy``), Python numbers as they were
+    saved."""
     if isinstance(template, dict):
         if not isinstance(saved, dict) or set(saved) != set(template):
             raise ValueError(f"{path}: the checkpoint's keys differ from the template's")
-        return {k: _like(saved[k], v, f"{path}/{k}") for k, v in template.items()}
+        return {k: _like(saved[k], v, f"{path}/{k}", copy) for k, v in template.items()}
     if isinstance(template, (list, tuple)):
         if not isinstance(saved, (list, tuple)) or len(saved) != len(template):
             raise ValueError(f"{path}: the checkpoint's length differs from the template's")
-        return [_like(s, t, f"{path}[{i}]") for i, (s, t) in enumerate(zip(saved, template))]
+        return [_like(s, t, f"{path}[{i}]", copy)
+                for i, (s, t) in enumerate(zip(saved, template))]
     if torch.is_tensor(template):
         if not torch.is_tensor(saved) or saved.shape != template.shape:
             raise ValueError(f"{path}: shape {getattr(saved, 'shape', None)} in the "
                              f"checkpoint, {tuple(template.shape)} in the template")
-        return saved.to(template.device, template.dtype)
+        return saved.to(template.device, template.dtype, copy=copy)
     return saved
 
 
@@ -73,17 +86,42 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: Any) -> bool:
+    def save(self, step: int, state: Any, layout=None) -> bool:
         """Copy ``state`` to the host and start writing it; False (and
-        nothing written) when ``step`` is saved already."""
+        nothing written) when ``step`` is saved already. With a ``layout``
+        (a state of a mesh) every rank calls, rank 0 writes the whole state
+        and the call returns once the write is in place."""
         self.wait()
         if step in self.all_steps():
             return False
+        if layout is not None:
+            self._save_mesh(step, state, layout)
+            return True
         host = _to_host(state)
         self._thread = threading.Thread(target=self._write_guarded, args=(step, host),
                                         daemon=True)
         self._thread.start()
         return True
+
+    def _save_mesh(self, step: int, state, layout) -> None:
+        primary = dist.get_rank() == 0
+        if layout.fsdp:
+            host = {k: v for k, v in state.items() if k not in ("params", "opt")}
+            host["params"] = layout.gather(state["params"], 0, "cpu")
+            host["opt"] = {k: (layout.gather(v, 0, "cpu") if k in ("mu", "nu") else v)
+                           for k, v in state["opt"].items()}
+        else:
+            host = _to_host(state) if primary else None
+        error = None
+        if primary:
+            try:
+                self._write(step, host)
+            except Exception as e:  # the others must leave the barrier too
+                error = e
+        del host
+        dist.barrier(group=layout.mesh.group(("data", "context")))
+        if error is not None:
+            raise RuntimeError("checkpoint write failed") from error
 
     def _write_guarded(self, step: int, host) -> None:
         try:
@@ -101,18 +139,31 @@ class CheckpointManager:
         for old in self.all_steps()[:-self.max_to_keep] if self.max_to_keep else []:
             shutil.rmtree(os.path.join(self.directory, str(old)))
 
-    def restore(self, step: Optional[int] = None, template: Any = None) -> Any:
+    def restore(self, step: Optional[int] = None, template: Any = None,
+                layout=None) -> Any:
         """The state saved at ``step`` (default: the latest), or None when
         there is none. With a ``template`` (a state of the same layout),
         its tensors land on the template's devices and dtypes; without, on
-        the CPU as saved."""
+        the CPU as saved. With a ``layout`` the template is a rank's state
+        of a mesh: each rank keeps its slice of every saved leaf."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
-        saved = torch.load(os.path.join(self.directory, str(step), _FILE),
-                           map_location="cpu", weights_only=True)
-        return saved if template is None else _like(saved, template)
+        path = os.path.join(self.directory, str(step), _FILE)
+        if layout is None:
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+            return saved if template is None else _like(saved, template)
+        # mapped, not read: a rank copies only the pages of its slices
+        saved = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+        for key in ("params", "mu", "nu"):
+            tree = saved["params"] if key == "params" else saved["opt"][key]
+            cut = layout.shard(tree)
+            if key == "params":
+                saved["params"] = cut
+            else:
+                saved["opt"][key] = cut
+        return _like(saved, template, copy=True)
 
     def wait(self) -> None:
         """Block until the last save is on disk; raise its error, if any."""

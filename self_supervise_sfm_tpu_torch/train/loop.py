@@ -19,6 +19,25 @@ The state is a dict ``{"params", "opt": {"mu", "nu", "count"}, "step"}``;
 updates the state's tensors in place (the master weights, the moments) and
 returns the same dict: JAX returns a new state, but here that would hold a
 second copy of ~18 GB at full width.
+
+Under an active mesh (``parallel/sharding.py:activate_mesh``) the step is
+explicit SPMD over the ``data`` and ``context`` axes, one process a rank
+(:func:`sharded_loss_and_grads`): scenes cut over ``data``, each scene's
+frames and global-attention tokens over ``context`` (the aggregator's
+``SceneShard`` layout: the ring on the global block, K2 on the rank's
+reloc queries), the camera head on the rank's queries, and the global mean
+loss computed alike on every rank from the gathered pose encodings. The
+trained leaves enter without a per-leaf collective; their gradients are
+summed after the backward in flat buckets (DDP). With ``TrainConfig.fsdp``
+and a data extent above 1 (or ``force_single_device_spmd``) the
+parameters and both Adam moments are cut over ``data`` by JAX's ZeRO-3
+rule (:class:`StateLayout`): the step casts each rank's trunk shards to
+the compute dtype, gathers them whole once (bucketed all-gathers, half the
+bytes of fp32), and reduce-scatters the gradients back onto the shards,
+where Adam runs. The gradient norm sums each rank's shards over ``data``
+and counts whole leaves once, so every rank clips alike and reports the
+same metrics. A ``model`` extent above 1 raises (ROADMAP.md Queue A item
+3d).
 """
 
 from __future__ import annotations
@@ -30,10 +49,16 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+import contextlib
+
+import torch.distributed as dist
+
 from ..heads.camera import camera_head
 from ..models import sailrecon as M
-from ..models.aggregator import aggregator_forward
+from ..models.aggregator import aggregator_forward, draw_subsample_indices
 from ..ops import geometry as G
+from ..parallel import sharding as Sh
+from ..parallel import sp_block as SP
 from .loss import LossConfig, scene_loss
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -57,8 +82,9 @@ class TrainConfig:
     loss: LossConfig = field(default_factory=LossConfig)
     # Adam first-moment dtype ("float32" or "bfloat16")
     adam_mu_dtype: str = "float32"
-    # parameters and optimizer state sharded over devices: multi-device
-    # training is a later slice of the port, so True raises
+    # parameters, gradients and Adam moments cut over the mesh's data axis
+    # (ZeRO-3, JAX's rule); in effect only under a mesh whose data extent is
+    # above 1 (or under force_single_device_spmd), as in JAX
     fsdp: bool = False
     # global-norm gradient clipping before Adam; 0 disables
     grad_clip_norm: float = 0.0
@@ -128,8 +154,83 @@ def clip_by_global_norm(leaves: List[torch.Tensor], max_norm: float,
     return [(g / norm) * max_norm for g in leaves]
 
 
-def train_state_from_params(params, train_cfg: TrainConfig) -> Dict[str, Any]:
-    """A fresh state around ``params``: zero moments, count and step 0."""
+@dataclass(frozen=True, eq=False)
+class StateLayout:
+    """How a train state lies over a mesh. ``specs`` mirrors the params tree
+    (the Adam moments mirror it too), one spec a leaf: FSDP's leaves are cut
+    over ``data`` on one dim, the others (and every leaf without ``fsdp``)
+    are whole on every rank."""
+
+    mesh: Sh.Mesh
+    specs: Any
+    fsdp: bool
+    shapes: Any  # the whole leaves' shapes, a tree as ``specs``
+
+    def shard(self, tree):
+        """This rank's slice of each leaf of a tree of whole leaves."""
+        return Sh.shard_tree(tree, self.specs, self.mesh)
+
+    def gather(self, tree, to_rank: Optional[int] = None, device=None):
+        """Each leaf of a tree of this rank's slices whole (every rank calls;
+        see ``sharding.gather_tree``)."""
+        return Sh.gather_tree(tree, self.specs, self.mesh, to_rank, device)
+
+
+def param_shapes(model_cfg: M.SailReconConfig):
+    """The params tree of ``model_cfg`` on the meta device: shapes alone."""
+    return M.init_sailrecon(model_cfg, None, "meta")
+
+
+def state_layout(model_cfg: M.SailReconConfig, train_cfg: TrainConfig,
+                 mesh: Optional[Sh.Mesh] = None) -> Optional[StateLayout]:
+    """The train state's layout under ``mesh`` (default: the active one), or
+    None without a mesh. FSDP only with ``train_cfg.fsdp`` and a data
+    extent above 1, as JAX's step has it, or under
+    ``force_single_device_spmd`` (whole-leaf shards at a data extent of 1,
+    the validation hook of a single card)."""
+    mesh = mesh if mesh is not None else Sh.active_mesh()
+    if mesh is None:
+        return None
+    if mesh.shape[Sh.MODEL_AXIS] > 1:
+        raise NotImplementedError(SP.TP_REFUSAL)
+    forced = SP._FORCE_SINGLE_DEVICE_SPMD
+    fsdp = train_cfg.fsdp and (mesh.shape[Sh.DATA_AXIS] > 1 or forced)
+    whole = param_shapes(model_cfg)
+    specs = Sh.param_sharding(mesh, whole, fsdp=fsdp, force=forced)
+    return StateLayout(mesh, specs, fsdp, _unflatten(whole, [t.shape for t in _flatten(whole)]))
+
+
+def state_bytes_per_rank(model_cfg: M.SailReconConfig, n: int, fsdp: bool,
+                         mu_dtype: str = "float32") -> int:
+    """Bytes of one rank's train state (fp32 params, ``mu_dtype`` mu, fp32
+    nu) at a data extent of ``n``: JAX's rule on this model's leaves, each
+    cut leaf 1/n a rank, the others whole."""
+    per = 4 + _DTYPES[mu_dtype].itemsize + 4
+    shapes = param_shapes(model_cfg)
+    specs = Sh.spec_leaves(Sh.param_sharding({Sh.DATA_AXIS: n}, shapes, fsdp=fsdp))
+    return sum(t.numel() * per // (n if Sh.DATA_AXIS in s else 1)
+               for t, s in zip(_flatten(shapes), specs))
+
+
+def _shard_in_place(tree, specs, mesh: Sh.Mesh):
+    """Each whole leaf of ``tree`` replaced by this rank's slice, one at a
+    time, so that the whole leaves can be freed as the walk goes."""
+    for k in (tree.keys() if isinstance(tree, dict) else range(len(tree))):
+        node = tree[k]
+        if isinstance(node, (dict, list)):
+            _shard_in_place(node, specs[k], mesh)
+        elif node is not None:
+            tree[k] = Sh.shard_of(node, specs[k], mesh)
+    return tree
+
+
+def train_state_from_params(params, train_cfg: TrainConfig,
+                            layout: Optional[StateLayout] = None) -> Dict[str, Any]:
+    """A fresh state around ``params``: zero moments, count and step 0.
+    With a ``layout``, each leaf of ``params`` (whole) is replaced in place
+    by this rank's slice first, and the moments are made on the slices."""
+    if layout is not None:
+        params = _shard_in_place(params, layout.specs, layout.mesh)
     mu_dtype = _DTYPES[train_cfg.adam_mu_dtype]
     zeros = lambda dt: _unflatten(params, [  # noqa: E731
         torch.zeros_like(t, dtype=dt) for t in _flatten(params)])
@@ -143,6 +244,22 @@ def init_train_state(model_cfg: M.SailReconConfig, train_cfg: TrainConfig,
     """Random fp32 params from ``generator`` (on ``device``) and a fresh state."""
     return train_state_from_params(M.init_sailrecon(model_cfg, generator, device),
                                    train_cfg)
+
+
+def init_train_state_sharded(model_cfg: M.SailReconConfig, train_cfg: TrainConfig,
+                             generator: torch.Generator, mesh: Sh.Mesh, fsdp: bool = True,
+                             device="cuda") -> Dict[str, Any]:
+    """:func:`init_train_state`'s params, from the same generator, as this
+    rank's slices under the mesh's layout (``fsdp`` in place of
+    ``train_cfg.fsdp``). Each whole leaf is cut as soon as the walk reaches
+    it; the Adam moments exist only as slices, so the whole state never
+    sits on the device (the params once, transiently, as ``init_sailrecon``
+    draws them: 5.97 GB at full width, against the whole state's 14.93)."""
+    from dataclasses import replace
+
+    layout = state_layout(model_cfg, replace(train_cfg, fsdp=fsdp), mesh)
+    return train_state_from_params(M.init_sailrecon(model_cfg, generator, device),
+                                   train_cfg, layout)
 
 
 # -- loss and gradients ---------------------------------------------------------
@@ -164,14 +281,40 @@ def _loss_fn(params, model_cfg: M.SailReconConfig, train_cfg: TrainConfig, batch
         subsample_indices, images_duplicated=True)
     cam_maps = camera_head(p["camera_head"], taps[-1], cam_tok, model_cfg.camera)
     extrinsic, intrinsic = G.pose_encoding_to_extri_intri(cam_maps[-1], (H, W))
+    return _mean_scene_loss(extrinsic, intrinsic, batch, train_cfg)
+
+
+def _mean_scene_loss(extrinsic, intrinsic, batch, train_cfg: TrainConfig):
+    """The mean of the scenes' losses and of each metric."""
     losses, per_scene = [], []
-    for b in range(B):
+    for b in range(extrinsic.shape[0]):
         scene = {k: batch[k][b] for k in _BATCH_KEYS if k != "images"}
         loss, metrics = scene_loss(extrinsic[b], intrinsic[b], scene, train_cfg.loss)
         losses.append(loss)
         per_scene.append(metrics)
     metrics = {k: torch.stack([m[k] for m in per_scene]).mean() for k in per_scene[0]}
     return torch.stack(losses).mean(), metrics
+
+
+def _sharded_loss_fn(params, model_cfg: M.SailReconConfig, train_cfg: TrainConfig, images,
+                     batch, idx, shard: SP.SceneShard):
+    """:func:`_loss_fn` under a shard: ``images`` (B/nd, S, H, W, 3) are this
+    data rank's scenes and ``idx`` their subsample; ``batch`` holds every
+    scene's loss inputs. The trunk and the camera head run on the rank's
+    frames; the pose encodings of every query are gathered whole (the
+    gradient of a gather is the rank's own slice), and every rank computes
+    the global mean loss alike."""
+    S, H, W = images.shape[1:4]
+    dup = torch.cat([images, images], dim=1)
+    p = M.cast_trunk_weights(params, model_cfg)
+    taps, _, cam_tok = aggregator_forward(
+        p["aggregator"], model_cfg.aggregator, dup, S, S, train_cfg.rank, None, idx,
+        images_duplicated=True, shard=shard)
+    with Sh.activate_mesh(None):
+        cam_maps = camera_head(p["camera_head"], taps[-1], cam_tok, model_cfg.camera)
+        enc = shard.gather_all(cam_maps[-1])
+        extrinsic, intrinsic = G.pose_encoding_to_extri_intri(enc, (H, W))
+        return _mean_scene_loss(extrinsic, intrinsic, batch, train_cfg)
 
 
 def batch_to_device(batch, device) -> Dict[str, torch.Tensor]:
@@ -200,6 +343,121 @@ def loss_and_grads(params, model_cfg: M.SailReconConfig, train_cfg: TrainConfig,
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, _unflatten(
         trained, grads)
+
+
+def sharded_loss_and_grads(params, model_cfg: M.SailReconConfig, train_cfg: TrainConfig,
+                           batch, layout: StateLayout, subsample_indices=None,
+                           generator=None, process_local: bool = False):
+    """:func:`loss_and_grads` under ``layout``'s mesh, which must be active:
+    (loss, metrics, grads) with each gradient summed over the mesh and laid
+    out as its parameter is (this rank's slice of an FSDP leaf, else
+    whole). ``batch``: every scene on every rank, or with ``process_local``
+    this data rank's scenes alone (their loss inputs are then gathered over
+    ``data``). ``subsample_indices`` (depth, B, S, rank) cover every scene;
+    with a ``generator`` every rank draws the same whole tensor.
+
+    Where the scenes or the frames do not divide the mesh (JAX's fallback),
+    every rank runs every scene and holds the whole gradient already."""
+    mesh = layout.mesh
+    nd, di = mesh.shape[Sh.DATA_AXIS], mesh.index(Sh.DATA_AXIS)
+    acfg = model_cfg.aggregator
+    images = batch["images"]
+    Bl, S, H, W = images.shape[:4]
+    B = Bl * nd if process_local else Bl
+    shard = SP.scene_shard(B, S, S, train_step=True)
+    if shard is None and process_local:
+        raise ValueError(
+            f"{B} scenes of {S} frames do not divide the mesh {mesh.shape}: a process-local "
+            "batch needs the sharded layout")
+    if process_local:
+        group = mesh.group(Sh.DATA_AXIS)
+        batch = {k: (v if k == "images" else Sh._all_gather(v, group, 0))
+                 for k, v in batch.items()}
+    elif shard is not None:
+        images = images.narrow(0, di * (B // nd), B // nd)
+    if subsample_indices is None and generator is not None:
+        P0 = (H // acfg.patch_size) * (W // acfg.patch_size)
+        subsample_indices = draw_subsample_indices(acfg, B, S, P0, min(train_cfg.rank, P0),
+                                                   generator)
+    idx = subsample_indices
+    if idx is not None:
+        idx = torch.as_tensor(idx, device=images.device).long()
+        if idx.shape[1] != B:
+            raise ValueError(f"subsample_indices cover {idx.shape[1]} scenes, the batch {B}")
+        if shard is not None:
+            idx = idx.narrow(1, di * (B // nd), B // nd)
+
+    trained = {k: params[k] for k in _TRAINED}
+    specs = Sh.leaves_like(trained, layout.specs)
+    masters = _flatten(trained)
+    dims = [Sh.data_dim(sp) if layout.fsdp else None for sp in specs]
+    cut = [i for i, d in enumerate(dims) if d is not None]
+    leaves = list(masters)
+    if cut:
+        # FSDP: each rank casts its trunk slices to the compute dtype, then
+        # the slices are gathered whole (bf16: half the bytes of fp32)
+        cast = _flatten(M.cast_trunk_weights(trained, model_cfg))
+        wholes = Sh.bucketed_all_gather([cast[i] for i in cut], [dims[i] for i in cut], mesh)
+        del cast
+        for i, w in zip(cut, wholes):
+            leaves[i] = w
+        del wholes
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    live = {**params, **_unflatten(trained, leaves)}
+    if shard is None:
+        with Sh.activate_mesh(None):
+            loss, metrics = _loss_fn(live, model_cfg, train_cfg, batch, idx)
+    else:
+        loss, metrics = _sharded_loss_fn(live, model_cfg, train_cfg, images, batch, idx, shard)
+    grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+    del live
+    grads = [(torch.zeros_like(t, dtype=m.dtype) if g is None else g.to(m.dtype))
+             for t, m, g in zip(leaves, masters, grads)]
+    del leaves
+    whole = [i for i in range(len(grads)) if dims[i] is None]
+    if shard is None:  # every rank holds the whole gradient: keep its slices
+        for i in cut:
+            grads[i] = Sh.shard_of(grads[i], specs[i], mesh)
+    else:
+        def take(idx):  # the collectives free each gradient as they copy it
+            out = [grads[i] for i in idx]
+            for i in idx:
+                grads[i] = None
+            return out
+
+        both = (Sh.DATA_AXIS, Sh.CONTEXT_AXIS)
+        for i, g in zip(whole, Sh.bucketed_all_reduce(take(whole), mesh, both)):
+            grads[i] = g
+        if cut:
+            red = Sh.bucketed_reduce_scatter(take(cut), [dims[i] for i in cut], mesh)
+            red = Sh.bucketed_all_reduce(red, mesh, Sh.CONTEXT_AXIS)
+            for i, g in zip(cut, red):
+                grads[i] = g
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, _unflatten(
+        trained, grads)
+
+
+def _grad_norms(grads, layout: Optional[StateLayout] = None) -> Dict[str, torch.Tensor]:
+    """``grad_norm`` and the per-subsystem norms of the (reduced) gradients:
+    each leaf's sum of squares, under FSDP summed over ``data`` for the
+    slices (whole leaves counted once), then added leaf by leaf in the
+    order :func:`global_norm` adds them (a world of one gives its bits)."""
+    sq = torch.stack([t.float().pow(2).sum() for t in _flatten(grads)])
+    if layout is not None and layout.fsdp:
+        mesh = layout.mesh
+        cut = torch.tensor([Sh.DATA_AXIS in s for s in Sh.leaves_like(grads, layout.specs)],
+                           device=sq.device)
+        if mesh.index(Sh.DATA_AXIS):
+            sq = torch.where(cut, sq, torch.zeros_like(sq))
+        Sh.collective_counts["all_reduce"] += 1
+        dist.all_reduce(sq, group=mesh.group(Sh.DATA_AXIS))
+    tree = _unflatten(grads, list(sq.unbind()))
+    norm = lambda xs: torch.sqrt(sum(xs))  # noqa: E731
+    agg = {k: v for k, v in tree["aggregator"].items() if k != "vit"}
+    return {"grad_norm": norm(_flatten(tree)),
+            "grad_norm_vit": norm(_flatten(tree["aggregator"]["vit"])),
+            "grad_norm_agg": norm(_flatten(agg)),
+            "grad_norm_camera": norm(_flatten(tree["camera_head"]))}
 
 
 def _chunks(n: int, sizes: List[int], limit: int = 1 << 26):
@@ -257,32 +515,48 @@ def adam_update(params: List[torch.Tensor], grads: List[torch.Tensor],
 
 def make_train_step(model_cfg: M.SailReconConfig, train_cfg: TrainConfig,
                     device="cuda"):
-    """``step(state, batch, subsample_indices=None, generator=None) ->
-    (state, metrics)``. The scene-token subsample comes from explicit
-    patch-relative ``subsample_indices`` (depth, B, S, rank) or is drawn
-    from ``generator``. Metrics: the loss and its parts, ``grad_norm`` and
-    per-subsystem ``grad_norm_vit/agg/camera/depth/point`` (of the gradients
-    before clipping) and the ``learning_rate`` of this step, all 0-dim
-    tensors. Runs on ``cuda`` unless ``device="cpu"``."""
-    dev = M._device(device)
-    if train_cfg.fsdp:
-        raise NotImplementedError("sharded (fsdp) training is not ported yet")
-    schedule = make_schedule(train_cfg)
+    """``step(state, batch, subsample_indices=None, generator=None,
+    process_local=False) -> (state, metrics)``. The scene-token subsample
+    comes from explicit patch-relative ``subsample_indices`` (depth, B, S,
+    rank) or is drawn from ``generator``. Metrics: the loss and its parts,
+    ``grad_norm`` and per-subsystem ``grad_norm_vit/agg/camera/depth/point``
+    (of the gradients before clipping) and the ``learning_rate`` of this
+    step, all 0-dim tensors, the same on every rank of a mesh. Runs on
+    ``cuda`` unless ``device="cpu"``.
 
-    def step(state, batch, subsample_indices=None, generator=None):
+    Called under an active mesh, the step is :func:`sharded_loss_and_grads`
+    with the state in :func:`state_layout`'s layout (made by
+    :func:`init_train_state_sharded` or :func:`train_state_from_params`
+    with that layout); ``process_local``: the batch holds this data rank's
+    scenes alone."""
+    dev = M._device(device)
+    schedule = make_schedule(train_cfg)
+    state_layout(model_cfg, train_cfg)  # a mesh with a model extent above 1 raises here
+    layouts: Dict[Sh.Mesh, StateLayout] = {}
+
+    def step(state, batch, subsample_indices=None, generator=None, process_local=False):
         params, opt = state["params"], state["opt"]
         if params["aggregator"]["vit"]["pos_embed"].device.type != dev.type:
             raise ValueError(f"the state lives elsewhere than {dev}")
-        _, metrics, grads = loss_and_grads(
-            params, model_cfg, train_cfg, batch_to_device(batch, dev),
-            subsample_indices, generator)
+        mesh = Sh.active_mesh()
+        if mesh is None:
+            if process_local:
+                raise ValueError("a process-local batch needs an active mesh")
+            layout = None
+            _, metrics, grads = loss_and_grads(
+                params, model_cfg, train_cfg, batch_to_device(batch, dev),
+                subsample_indices, generator)
+        else:
+            if mesh not in layouts:
+                layouts[mesh] = state_layout(model_cfg, train_cfg, mesh)
+            layout = layouts[mesh]
+            _check_layout(params, layout)
+            _, metrics, grads = sharded_loss_and_grads(
+                params, model_cfg, train_cfg, batch_to_device(batch, dev), layout,
+                subsample_indices, generator, process_local)
         g_leaves = _flatten(grads)
+        metrics.update(_grad_norms(grads, layout))
         zero = torch.zeros((), device=dev)
-        agg = {k: v for k, v in grads["aggregator"].items() if k != "vit"}
-        metrics["grad_norm"] = global_norm(g_leaves)
-        metrics["grad_norm_vit"] = global_norm(_flatten(grads["aggregator"]["vit"]))
-        metrics["grad_norm_agg"] = global_norm(_flatten(agg))
-        metrics["grad_norm_camera"] = global_norm(_flatten(grads["camera_head"]))
         for head in ("depth_head", "point_head"):
             if head in params:
                 metrics[f"grad_norm_{head.split('_')[0]}"] = zero
@@ -301,17 +575,52 @@ def make_train_step(model_cfg: M.SailReconConfig, train_cfg: TrainConfig,
     return step
 
 
+def _check_layout(params, layout: StateLayout) -> None:
+    """Raise unless every leaf of ``params`` has the shape of its slice under
+    ``layout`` (a state made for another mesh, model or ``fsdp``)."""
+    n = layout.mesh.shape[Sh.DATA_AXIS]
+    try:
+        leaves = _flatten(params)
+        ok = len(leaves) == len(Sh.spec_leaves(layout.shapes))
+        for t, spec, shape in zip(leaves, Sh.leaves_like(params, layout.specs),
+                                  Sh.leaves_like(params, layout.shapes)):
+            want = list(shape)
+            d = Sh.data_dim(spec)
+            if d is not None:
+                want[d] //= n
+            ok = ok and tuple(t.shape) == tuple(want)
+    except (KeyError, IndexError, TypeError):
+        ok = False
+    if not ok:
+        raise ValueError("the train state was made for another layout (mesh, model or fsdp)")
+
+
 def make_eval_forward(model_cfg: M.SailReconConfig, train_cfg: TrainConfig,
-                      device="cuda"):
+                      device="cuda", layout: Optional[StateLayout] = None,
+                      to_rank: Optional[int] = None):
     """``fwd(params, images, generator=None, subsample_indices=None) ->
     predictions``: the joint forward with every head on a batch of scenes
     (B, S, H, W, 3), on the train step's duplicated layout (anchors =
     queries = the frames), without gradients; the diagnostics forward of
-    the trainer. Runs on ``cuda`` unless ``device="cpu"``."""
+    the trainer. Runs on ``cuda`` unless ``device="cpu"``.
+
+    With a ``layout`` the params are a rank's state: every rank must call,
+    FSDP's slices are gathered whole (the DPT heads' too, which the step
+    never gathers), and the forward runs unsharded. With ``to_rank`` only
+    that rank gathers the whole and runs it; the others return None."""
     dev = M._device(device)
 
     @torch.no_grad()
     def fwd(params, images, generator=None, subsample_indices=None):
+        if layout is not None:
+            if layout.fsdp:
+                params = layout.gather(params, to_rank)
+            if to_rank is not None and dist.get_rank() != to_rank:
+                return None
+        with Sh.activate_mesh(None) if layout is not None else contextlib.nullcontext():
+            return _eval(params, images, generator, subsample_indices)
+
+    def _eval(params, images, generator, subsample_indices):
         images = torch.as_tensor(images).to(dev, torch.float32)
         S = images.shape[1]
         return M.forward(

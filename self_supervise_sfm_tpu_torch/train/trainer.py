@@ -18,12 +18,25 @@ Port of ``self_supervise_sfm_tpu/train/trainer.py``:
   (``validate.py``), a SIGTERM / SIGINT handler that checkpoints at the next
   step edge, a CDF-range curriculum and a ``torch.profiler`` window.
 
-One device: a mesh (``num_context`` / ``num_model`` > 1) and ``fsdp`` raise
-``NotImplementedError`` (they wait for slice 6, multi-device). ``pretrained``
+Under a process group (torchrun's environment, :func:`maybe_init_distributed`,
+or one the caller started) the trainer runs one rank a process over a
+(data, context) mesh, ``num_data = world // num_context``, as JAX's
+trainer builds its mesh: each data rank loads only its own scenes
+(``scenes_per_step_per_device`` slots a step, its context ranks the same
+ones), the step is the sharded one of ``loop.py`` (DDP, or FSDP with
+``train.fsdp``), checkpoints hold the whole state whatever the mesh, and
+only rank 0 writes metrics, artifacts and the profile. Every rank runs
+validation (deterministic, so the early stop agrees without a broadcast),
+the checkpoint collectives and the gathers of the diagnostics forward.
+A ``model`` extent above 1 (tensor parallelism) raises
+``NotImplementedError`` (ROADMAP.md Queue A item 3d). ``pretrained``
 starts from a reference SAIL-Recon state dict through
-``utils/converter.py``. The trainer runs on ``cuda`` unless ``device="cpu"``.
+``utils/converter.py``. The trainer runs on ``cuda`` unless
+``device="cpu"``; the process group is NCCL on the card and gloo on the
+CPU.
 
 Run:  python -m self_supervise_sfm_tpu_torch.train.trainer --data-root ... [--steps N]
+      torchrun --nproc_per_node N -m self_supervise_sfm_tpu_torch.train.trainer --fsdp ...
 """
 
 from __future__ import annotations
@@ -40,8 +53,11 @@ from typing import Any, Dict, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import sailrecon as M
+from ..parallel import sharding as Sh
+from ..parallel import sp_block as SP
 from . import loop as L
 from .checkpoint import CheckpointManager
 from .loss import LossConfig
@@ -277,13 +293,65 @@ def _seeded_params(cfg: TrainerConfig, model_cfg, dev):
     return params
 
 
+def maybe_init_distributed(device="cuda") -> None:
+    """Start the default process group under torchrun's environment
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` /
+    ``MASTER_PORT``): NCCL with the card ``LOCAL_RANK``, or gloo when
+    ``device`` is the CPU (the reference's rendezvous,
+    ``train_imc.py:47-58``). Outside torchrun, or with a group started
+    already, it does nothing."""
+    if dist.is_initialized() or "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    print(f"distributed: rank {dist.get_rank()} of {dist.get_world_size()}")
+
+
+def _make_mesh(cfg: TrainerConfig, dev: torch.device):
+    """The (data, context) mesh over the world of the process group, or
+    None without one (the one-device trainer)."""
+    if cfg.num_model > 1:
+        raise NotImplementedError(SP.TP_REFUSAL)
+    if not dist.is_initialized():
+        if cfg.num_context > 1:
+            raise ValueError(
+                f"multi-device training with num_context={cfg.num_context} needs "
+                f"{cfg.num_context} ranks at least: start it under torchrun "
+                f"--nproc_per_node N (N a multiple of {cfg.num_context})")
+        return None
+    world = dist.get_world_size()
+    if world % cfg.num_context:
+        raise ValueError(f"multi-device training: a world of {world} ranks does not split "
+                         f"into context groups of {cfg.num_context}")
+    mesh = Sh.make_mesh(world // cfg.num_context, cfg.num_context, 1, device=dev)
+    if cfg.num_images % cfg.num_context:
+        raise ValueError(f"multi-device training: {cfg.num_images} frames a scene do not "
+                         f"split over a context extent of {cfg.num_context}")
+    print(f"mesh: data={mesh.shape['data']} context={mesh.shape['context']} model=1 "
+          f"({dev.type}, {dist.get_backend()})")
+    return mesh
+
+
+def _any_rank(flag: bool, mesh, dev) -> bool:
+    """Whether ``flag`` is set on any rank of the mesh (a signal reaches the
+    ranks at different steps; they must stop at the same one)."""
+    if mesh is None or mesh.size(("data", "context")) == 1:
+        return flag
+    t = torch.tensor([int(flag)], device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group(("data", "context")))
+    return bool(t.item())
+
+
 def run(cfg: TrainerConfig):
+    maybe_init_distributed(cfg.device)
     dev = M._device(cfg.device)
-    if cfg.num_context > 1 or cfg.num_model > 1 or cfg.train.fsdp:
-        raise NotImplementedError(
-            "multi-device training (num_context / num_model > 1, fsdp) is not ported "
-            "yet (it waits for slice 6, multi-device); the port's trainer runs on one "
-            "device")
+    if dev.type == "cuda" and dist.is_initialized():
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = _make_mesh(cfg, dev)
+    primary = not dist.is_initialized() or dist.get_rank() == 0
     os.makedirs(cfg.results_dir, exist_ok=True)
     print(f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
                               if dev.type == "cuda" else ""))
@@ -300,6 +368,7 @@ def run(cfg: TrainerConfig):
         raise ValueError("loss_switch_step must be < total_steps or the curriculum "
                          "never engages (steps AFTER the switch use the final range)")
 
+    layout = L.state_layout(model_cfg, tcfg, mesh) if mesh is not None else None
     ckpt = CheckpointManager(os.path.join(cfg.results_dir, "checkpoints"))
     if cfg.pretrained:
         from ..utils import converter as C
@@ -309,26 +378,35 @@ def run(cfg: TrainerConfig):
                                      model_cfg.aggregator.depth,
                                      model_cfg.aggregator.vit.depth)
         params = L._unflatten(params, [t.to(dev) for t in L._flatten(params)])
-        state = L.train_state_from_params(params, tcfg)
+        state = L.train_state_from_params(params, tcfg, layout)
     elif cfg.init_params_from:
-        state = L.train_state_from_params(_seeded_params(cfg, model_cfg, dev), tcfg)
+        state = L.train_state_from_params(_seeded_params(cfg, model_cfg, dev), tcfg, layout)
+    elif layout is not None and layout.fsdp:
+        state = L.init_train_state_sharded(
+            model_cfg, tcfg, torch.Generator(device=dev).manual_seed(cfg.seed), mesh,
+            device=dev)
     else:
         state = L.init_train_state(
             model_cfg, tcfg, torch.Generator(device=dev).manual_seed(cfg.seed), dev)
     if ckpt.latest_step() is not None:
         print(f"resuming from step {ckpt.latest_step()}")
-        state = ckpt.restore(template=state)
+        state = ckpt.restore(template=state, layout=layout)
 
     ds = load_scenes(cfg.data_root, cfg.sample_num, cfg.num_images, cfg.img_size,
                      use_native=cfg.native_loader)
     print(f"dataset: {len(ds)} scenes ({type(ds).__name__}, "
           f"native_loader={getattr(ds, 'use_native', None)})")
-    # the stream starts at the resumed step (the JAX trainer's starts at 0
-    # whatever the step, so its resumed run sees other batches)
-    batches = scene_stream(ds, range(cfg.scenes_per_step_per_device), cfg.seed,
+    # each data rank loads its own block of the step's scene slots (its
+    # context ranks the same block); the stream starts at the resumed step
+    # (the JAX trainer's starts at 0 whatever the step, so its resumed run
+    # sees other batches)
+    spd = cfg.scenes_per_step_per_device
+    data_index = mesh.index("data") if mesh is not None else 0
+    process_local = mesh is not None and mesh.shape["data"] > 1
+    batches = scene_stream(ds, range(data_index * spd, (data_index + 1) * spd), cfg.seed,
                            cfg.prefetch, start=state["step"])
-    writer = MetricsWriter(os.path.join(cfg.results_dir, "tensorboard"),
-                           console_every=cfg.log_every)
+    writer = MetricsWriter(os.path.join(cfg.results_dir, "tensorboard") if primary else None,
+                           console_every=cfg.log_every if primary else 0)
     ecfg = EvalConfig(
         data_root=cfg.eval_data_root, every=cfg.eval_every,
         num_images=cfg.eval_num_images, sample_num=cfg.eval_sample_num,
@@ -361,14 +439,23 @@ def run(cfg: TrainerConfig):
         step_fn_final = L.make_train_step(
             model_cfg, replace(tcfg, loss=replace(tcfg.loss, max_val=cfg.loss_max_val_final)),
             dev)
-    eval_fwd = L.make_eval_forward(model_cfg, tcfg, dev)
+    eval_fwd = L.make_eval_forward(model_cfg, tcfg, dev, layout,
+                                   to_rank=0 if layout is not None else None)
+
+    def whole_params():
+        """The params whole on every rank, for validation (every rank
+        enters the gathers of FSDP's slices)."""
+        if layout is None or not layout.fsdp:
+            return state["params"]
+        return layout.gather(state["params"])
 
     step = state["step"]
     profiler = None
     last_step_time = None
     try:
-        while step < cfg.total_steps and not preempted.is_set():
-            if cfg.profile_steps and step == cfg.profile_start and profiler is None:
+        while step < cfg.total_steps and not _any_rank(preempted.is_set(), mesh, dev):
+            if (cfg.profile_steps and primary and step == cfg.profile_start
+                    and profiler is None):
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if dev.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -378,7 +465,9 @@ def run(cfg: TrainerConfig):
             batch = batch_to_device(host_batch, dev)
             fn = (step_fn_final if step_fn_final is not None
                   and step >= cfg.loss_switch_step else step_fn)
-            state, metrics = fn(state, batch, **step_subsample(cfg.seed, step, dev))
+            with Sh.activate_mesh(mesh):
+                state, metrics = fn(state, batch, **step_subsample(cfg.seed, step, dev),
+                                    **({"process_local": True} if process_local else {}))
             step = state["step"]
             scalars = _host_scalars(metrics)
             if profiler is not None and step >= cfg.profile_start + cfg.profile_steps:
@@ -388,8 +477,12 @@ def run(cfg: TrainerConfig):
                     os.path.join(cfg.results_dir, "profile", "trace.json"))
                 profiler = None
                 print(f"profile trace written to {cfg.results_dir}/profile")
-            # throughput from the host clock between steps
+            # throughput from the host clock between steps: the step's frames
+            # over the mesh's ranks
             frames = batch["images"].shape[0] * batch["images"].shape[1]
+            if mesh is not None:
+                frames = frames * (mesh.shape["data"] if process_local else 1) / mesh.size(
+                    ("data", "context"))
             now = time.perf_counter()
             if last_step_time is not None and now > last_step_time:
                 scalars["frames_per_sec_per_chip"] = frames / (now - last_step_time)
@@ -400,10 +493,13 @@ def run(cfg: TrainerConfig):
             do_artifacts = bool(cfg.artifact_every and step % cfg.artifact_every == 0)
             if do_sanity or do_artifacts:
                 # one diagnostics forward, shared by the sanity check and the
-                # artifact dump
+                # artifact dump; under a mesh every rank enters its gathers,
+                # rank 0 (whose first scene is the step's first) runs it
                 out = eval_fwd(state["params"], batch["images"][:1],
                                **step_subsample(cfg.seed, step, dev))
-                preds = {k: out[k].float().cpu().numpy() for k in _DIAG_KEYS}
+                do_sanity, do_artifacts = do_sanity and primary, do_artifacts and primary
+                if primary:
+                    preds = {k: out[k].float().cpu().numpy() for k in _DIAG_KEYS}
                 del out
             if do_sanity:
                 from ..utils.sanity_check import sanity_check_relative_poses
@@ -417,28 +513,29 @@ def run(cfg: TrainerConfig):
             if do_artifacts:
                 dump_artifacts(step, preds, tcfg, host_batch, cfg.results_dir)
             if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
-                ckpt.save(step, state)
+                ckpt.save(step, state, layout)
             if validator is not None and step % ecfg.every == 0:
-                vm = validator(state["params"])
+                vm = validator(whole_params())
                 improved, should_stop = tracker.update(step, vm["px_residual"])
                 writer.write(step, {**vm, "best_step": float(tracker.best_step)},
                              prefix="val")
-                print(f"[val {step}] px_residual {vm['px_residual']:.3f} "
-                      f"log {vm['log_residual']:.3f} (best {tracker.best:.3f} @ "
-                      f"{tracker.best_step})" + (" *" if improved else ""), flush=True)
+                if primary:
+                    print(f"[val {step}] px_residual {vm['px_residual']:.3f} "
+                          f"log {vm['log_residual']:.3f} (best {tracker.best:.3f} @ "
+                          f"{tracker.best_step})" + (" *" if improved else ""), flush=True)
                 if improved and best_ckpt is not None:
-                    best_ckpt.save(step, state)
+                    best_ckpt.save(step, state, layout)
                 if should_stop:
                     print(f"early stop at step {step}: no improvement in "
                           f"{tracker.stale} validations (best {tracker.best:.4f} @ "
                           f"step {tracker.best_step})", flush=True)
                     break
-        if validator is not None:
+        if validator is not None and primary:
             with open(os.path.join(cfg.results_dir, "best.json"), "w") as f:
                 json.dump(tracker.summary(), f)
         # checkpoint_every=0 opts out of every save
         if cfg.checkpoint_every:
-            ckpt.save(step, state)
+            ckpt.save(step, state, layout)
     finally:
         if profiler is not None:
             profiler.stop()
@@ -464,9 +561,12 @@ def main(argv=None):
     ap.add_argument("--num-images", type=int, default=2)
     ap.add_argument("--sample-num", type=int, default=10_000)
     ap.add_argument("--img-size", type=int, default=518)
-    ap.add_argument("--num-context", type=int, default=1)
+    ap.add_argument("--num-context", type=int, default=1,
+                    help="context (sequence-parallel) extent of the mesh; the data extent "
+                         "is the world over it")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel extent (not ported: > 1 raises)")
+                    help="tensor-parallel extent (not ported: > 1 raises, ROADMAP.md "
+                         "Queue A item 3d)")
     ap.add_argument("--max-lr", type=float, default=2e-4)
     ap.add_argument("--warmup", type=int, default=2000)
     ap.add_argument("--pretrained", default="")
@@ -479,7 +579,8 @@ def main(argv=None):
     ap.add_argument("--compute-dtype", default="bfloat16")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fsdp", action="store_true",
-                    help="shard params and optimizer state (not ported: raises)")
+                    help="shard params, gradients and optimizer state over the mesh's "
+                         "data axis (under torchrun with more than one data rank)")
     ap.add_argument("--adam-mu-dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--profile-start", type=int, default=0)

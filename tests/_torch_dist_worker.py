@@ -204,7 +204,7 @@ def _refusals(case, inp, d):
                 call()
                 raised.append(False)
             except NotImplementedError as e:
-                raised.append("3b" in str(e))
+                raised.append("3d" in str(e))
     return dict(raised=np.array(raised))
 
 
@@ -232,9 +232,14 @@ def _mesh_case(case, inp, d):
 
 
 def _model_cfg(case):
+    from dataclasses import replace
+
     from self_supervise_sfm_tpu_torch.models import sailrecon as TM
 
-    return TM.make_config(**case["config"])
+    cfg = TM.make_config(**case["config"])
+    if case.get("dpt_heads", True) is False:  # the train step never runs them
+        cfg = replace(cfg, enable_point=False, enable_depth=False)
+    return cfg
 
 
 def _scene(case, inp, d):
@@ -281,8 +286,171 @@ def _forward(case, inp, d):
     return dict(preds=preds)
 
 
+def _copy(tree):
+    if isinstance(tree, dict):
+        return {k: _copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy(v) for v in tree]
+    return tree.clone()
+
+
+def _train_cfg(case):
+    from self_supervise_sfm_tpu_torch.train import loop as TL
+    from self_supervise_sfm_tpu_torch.train.loss import LossConfig
+
+    return TL.TrainConfig(**case["train"], loss=LossConfig(**case["loss"]))
+
+
+def _leaf_numels(tree):
+    """The tree with each tensor replaced by its element count."""
+    if isinstance(tree, dict):
+        return {k: _leaf_numels(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_leaf_numels(v) for v in tree]
+    return np.array(tree.numel())
+
+
+def _train(case, inp, d):
+    """The sharded train step for ``case["steps"]`` steps from whole params:
+    per step the reduced gradients (:func:`sharded_loss_and_grads`, gathered
+    whole), the metrics, the new params (gathered whole); the rank's leaf
+    sizes of params, mu and nu; with ``process_local`` each data rank is
+    handed its own scenes only."""
+    from self_supervise_sfm_tpu_torch.train import loop as TL
+    from self_supervise_sfm_tpu_torch.parallel import sharding as Sh
+
+    mesh, cfg, tcfg = d["mesh"], _model_cfg(case), _train_cfg(case)
+    batch = {k[2:]: v.numpy() for k, v in inp.items() if k.startswith("b:")}
+    local = case.get("process_local", False)
+    if local:
+        n, i = mesh.shape["data"], mesh.index("data")
+        m = batch["images"].shape[0] // n
+        batch = {k: v[i * m: (i + 1) * m] for k, v in batch.items()}
+    res = {}
+    with Sh.activate_mesh(mesh):
+        layout = TL.state_layout(cfg, tcfg, mesh)
+        state = TL.train_state_from_params(_copy(d["trees"][case["params"]]), tcfg, layout)
+        step = TL.make_train_step(cfg, tcfg, "cpu")
+        trained = {k: layout.specs[k] for k in TL._TRAINED}
+        for i in range(case["steps"]):
+            idx = inp[f"idx{i}"].long()
+            _, _, grads = TL.sharded_loss_and_grads(
+                state["params"], cfg, tcfg, TL.batch_to_device(batch, "cpu"), layout, idx,
+                process_local=local)
+            res[f"grads{i}"] = _copy(Sh.gather_tree(grads, trained, mesh))
+            state, m = step(state, batch, subsample_indices=idx, process_local=local)
+            res[f"metrics{i}"] = {k: float(v) for k, v in m.items()}
+            # copies: the next step updates the whole leaves in place
+            res[f"params{i}"] = _copy(Sh.gather_tree(
+                {k: state["params"][k] for k in TL._TRAINED}, trained, mesh))
+    res["numel"] = {k: _leaf_numels(t) for k, t in (
+        ("params", state["params"]), ("mu", state["opt"]["mu"]), ("nu", state["opt"]["nu"]))}
+    res["count"] = np.array([state["opt"]["count"], state["step"]])
+    res["fsdp"] = np.array(layout.fsdp)
+    return res
+
+
+def _train_refusals(case, inp, d):
+    """A ``model`` extent above 1: the train step, the layout and the
+    trainer's mesh refuse it, naming ROADMAP.md item 3d."""
+    from self_supervise_sfm_tpu_torch.parallel import sharding as Sh
+    from self_supervise_sfm_tpu_torch.train import loop as TL
+
+    cfg, tcfg = _model_cfg(case), _train_cfg(case)
+    raised = []
+    with Sh.activate_mesh(d["mesh"]):
+        for call in (lambda: TL.make_train_step(cfg, tcfg, "cpu"),
+                     lambda: TL.state_layout(cfg, tcfg)):
+            try:
+                call()
+                raised.append(False)
+            except NotImplementedError as e:
+                raised.append("3d" in str(e))
+    return dict(raised=np.array(raised))
+
+
+class _Recording:
+    """A dataset that notes where each load's rng stands (a fingerprint of
+    the (seed, step, slot) stream it was seeded from)."""
+
+    def __init__(self, ds, seen):
+        self.ds, self.seen = ds, seen
+
+    def __len__(self):
+        return len(self.ds)
+
+    def load_scene(self, idx, rng):
+        import copy
+
+        self.seen.append(copy.deepcopy(rng).random())
+        return self.ds.load_scene(idx, rng)
+
+
+def _trainer(case, inp, d):
+    """``trainer.run`` on the ranks of the case's mesh (the whole world):
+    each rank's load fingerprints, and the final state gathered whole.
+    ``copy_from``: rank 0 first copies those checkpoint steps into the
+    results directory."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from self_supervise_sfm_tpu_torch.train import loop as TL
+    from self_supervise_sfm_tpu_torch.train import trainer as TT
+    from self_supervise_sfm_tpu_torch.train.loss import LossConfig
+
+    for src, step in case.get("copy_from", []):
+        if dist.get_rank() == 0:
+            dst = os.path.join(case["trainer"]["results_dir"], "checkpoints", str(step))
+            shutil.copytree(os.path.join(src, "checkpoints", str(step)), dst)
+        dist.barrier()
+    seen = []
+    load, model_config = TT.load_scenes, TT._model_config
+    TT.load_scenes = lambda *a, **k: _Recording(load(*a, **k), seen)
+    if "dpt" in case:
+        TT._model_config = lambda c: narrow_dpt_heads(model_config(c), case["dpt"])
+    try:
+        train = TL.TrainConfig(**case["train"], loss=LossConfig(**case["loss"]))
+        state = TT.run(TT.TrainerConfig(**case["trainer"], train=train))
+        cfg = TT._model_config(TT.TrainerConfig(**case["trainer"]))
+    finally:
+        TT.load_scenes, TT._model_config = load, model_config
+    layout = TL.state_layout(cfg, train, d["mesh"])
+    whole = {"params": layout.gather(state["params"]),
+             "mu": layout.gather(state["opt"]["mu"]), "nu": layout.gather(state["opt"]["nu"])}
+    out = dict(seen=np.array(seen, np.float64), step=np.array(state["step"]),
+               fsdp=np.array(layout.fsdp), numel=_leaf_numels(state["params"]))
+    if dist.get_rank() == 0:  # the gathered state is the same on every rank
+        out["state"] = whole
+    return out
+
+
+def narrow_dpt_heads(cfg, widths):
+    """``cfg`` with both DPT heads at the given ``features`` and
+    ``out_channels`` (their default widths hold most of a tiny model's
+    parameters, and a trainer test writes several checkpoints)."""
+    from dataclasses import replace
+
+    kw = dict(features=widths["features"], out_channels=tuple(widths["out_channels"]))
+    return replace(cfg, point=replace(cfg.point, **kw), depth=replace(cfg.depth, **kw))
+
+
+def _ba(case, inp, d):
+    """``ba_solve_multihost`` over the case's ranks (its mesh's group)."""
+    from self_supervise_sfm_tpu_torch.native import ba as TNBA
+
+    args = [inp[k].numpy() for k in ("ext", "K", "pts", "ci", "pi", "uv")]
+    ext, pts, info = TNBA.ba_solve_multihost(
+        *args, group=d["mesh"].group(("data", "context")), **case["kw"])
+    return dict(ext=ext, pts=pts, final_cost=np.array(info["final_cost"], np.float64),
+                iterations=np.array(info["iterations"]),
+                num_processes=np.array(info["num_processes"]))
+
+
 _KINDS = {"ring": _ring, "gate": _gate, "frame": _block_case, "reloc": _block_case,
-          "global": _block_case, "refusals": _refusals, "mesh": _mesh_case, "scene": _scene, "forward": _forward}
+          "global": _block_case, "refusals": _refusals, "mesh": _mesh_case, "scene": _scene,
+          "forward": _forward, "train": _train, "train_refusals": _train_refusals,
+          "trainer": _trainer, "ba": _ba}
 
 
 def main(spec_path: str, rank: int, world: int) -> None:

@@ -203,5 +203,3 @@ def test_native_build_stays_out_of_cpp():
     path = TNBA.build()
     assert os.path.dirname(path) == os.path.join(TNBA._ROOT, "build", "ba")
     assert os.path.basename(path).startswith("libba_engine_")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        TNBA.ba_solve_multihost()
