@@ -171,13 +171,44 @@ Phases, each of which must pass (any failure exits non-zero):
    2, 4 and 8 ranks under DDP and FSDP. Its paths go into the kernel line
    as "sharded_train" and "sharded_trainer".
 
+11. tensor parallelism over ``model`` (``parallel/sp_block.py``'s Megatron
+   blocks, the ring's head split, the head-cut scene cache, the TP step):
+   LN+QKV+RoPE and LN+QKV on one rank's head shard, the (1024, 3 Hl 64)
+   weight, at m = 2 and 4 model ranks and every rank index, at the frame
+   (10, 1374, 1024) and global (1, 6870, 1024) sites and LN+QKV at the ViT
+   site, each against its plain version (phase 2's ulps) and bit-equal to
+   the whole-width kernel's heads, the m = 1 form bit-equal to the
+   whole-width call, timed per call and back to back beside the whole-width
+   kernel and the bounds; the m ranks of one frame, reloc and global block
+   emulated in turn in one process (each rank's shard through the kernels,
+   the row-parallel partials summed where the all-reduce would run) against
+   the fp32 block within twice the unsharded kernel block's error; one NCCL
+   process of world size 1 with the TP path forced
+   (``force_single_device_spmd(tp=True)``): the joint forward, the build and
+   a full-head reloc and ``fast_reloc``, and four train steps of phase 5's
+   configuration, with their launch counts (no out-projection or MLP
+   kernel: the row-parallel tail is plain, as JAX's) and times, held
+   against the unsharded kernel programs within twice their distance from
+   fp32 (the steps that read the first state, 0 and 1, by their loss and
+   gradient norm; steps 2-3 follow updates and are printed); the per-rank bytes of the train state under TP x DDP and TP x
+   FSDP at m = 1, 2, 4, 8 and of a 200-anchor kv2 cache cut over heads. Its
+   paths go into the kernel line as "tp_shards" (the emulated blocks),
+   "tp_forward", "tp_serving" and "tp_train", and the head-shard sites as
+   the QKV kernels' "tp_sites".
+
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2;
 ``--train-only`` runs phase 5 alone after the build, ``--trainer-only``
 phases 5 and 6, ``--demo-only`` phase 7, ``--converter-only`` phase 8,
-``--sharded-only`` phase 9 and ``--sharded-train-only`` phase 10 (on
-weights they draw from the seed, phase 10 with phase 5's and phase 6's
-references made first; their launch counts are then not merged into the
-kernel line, which is not printed).
+``--sharded-only`` phase 9, ``--sharded-train-only`` phase 10 and
+``--tp-only`` phase 11 (on weights they draw from the seed, phase 10 with
+phase 5's and phase 6's references made first; their launch counts are then
+not merged into the kernel line, which is not printed).
+``--torchrun-trainer`` and ``--torchrun-tp`` run under ``torchrun
+--nproc_per_node N`` on a machine of N cards (build the kernels once
+first): the trainer over DDP / FSDP meshes, and the forward and a 3-step
+trainer with the heads cut over the N cards against one card (N = 2 or 4),
+in bf16 on the kernels and in fp32 on the plain path.
+A run with no arguments takes neither.
 
 The line before the last is a JSON object of every kernel's numbers (the
 forward's and the serving paths' numbers go on lines of their own before
@@ -1579,6 +1610,7 @@ def run_serving(state):
     and the chunked / host-staged variants on a 20-anchor scene."""
     import torch
 
+    from self_supervise_sfm_tpu_torch.layers.block import qkv_parts
     from self_supervise_sfm_tpu_torch.models import aggregator as AG
     from self_supervise_sfm_tpu_torch.models import sailrecon as M
     from self_supervise_sfm_tpu_torch.ops import attention_core as AC
@@ -1638,7 +1670,7 @@ def run_serving(state):
         B, Q, Ptok, C = tokens.shape
         fp, rp = (params["aggregator"][k][0] for k in ("frame_blocks", "reloc_blocks"))
         t = AG.block(fp, tokens.reshape(B * Q, Ptok, C), acfg.block_cfg, t_frame)
-        q, k, v = AG.qkv_parts(rp, t, acfg.block_cfg, t_frame)
+        q, k, v = qkv_parts(rp, t, acfg.block_cfg, t_frame)
         layout = FA.packed_ctx_attention(q, k, v, kv, 0)
 
         def unfold(x):
@@ -3354,7 +3386,7 @@ def run_sharded(card: str, host_params=None, phase3=None):
                   f"{tuple(cache['kv'].shape)} marked {cache['shards']}")
             expect(n == BUILD_LAUNCHES, f"sharded build launches {n}")
             expect(len(ring_calls) == acfg.depth, f"sharded build: {len(ring_calls)} ring calls")
-            expect(cache["shards"] == (1, 1), f"cache marked {cache.get('shards')}")
+            expect(cache["shards"] == (1, 1, 1), f"cache marked {cache.get('shards')}")
             expect(_same(cache["kv"], ref_cache["kv"]) and _same(cam, ref_cam),
                    "sharded cache or cam tokens differ from the unsharded build's")
             gathers.clear()
@@ -3865,6 +3897,791 @@ def run_torchrun_trainer(card: str) -> dict:
     return out
 
 
+TP_EXTENTS = (2, 4)  # the model extents phase 11 cuts the 16 heads over
+TP_STATE_EXTENTS = (1, 2, 4, 8)
+# launches of the forced tensor-parallel programs (world 1): the column-
+# parallel half on the kernels (LN+QKV(+RoPE) on the head shard, K1, K2, the
+# in-place kv2 kernel), the row-parallel tail plain (JAX's ``_tp_out_mlp``
+# runs XLA products), so no out-projection or MLP kernel
+_NO_TAIL = {"fused_proj_residual": 0, "fused_mlp_up": 0, "fused_mlp_down": 0}
+TP_FORWARD_LAUNCHES = {**FORWARD_LAUNCHES, **_NO_TAIL}
+TP_BUILD_LAUNCHES = {**BUILD_LAUNCHES, **_NO_TAIL}
+TP_RELOC_LAUNCHES = {**RELOC_LAUNCHES, **_NO_TAIL}
+TP_FAST_RELOC_LAUNCHES = {**FAST_RELOC_LAUNCHES, **_NO_TAIL}
+TP_TRAIN_STEP_LAUNCHES = {**TRAIN_STEP_LAUNCHES, **_NO_TAIL}
+
+
+def _rel_rms(a, b) -> float:
+    """RMS of a - b over RMS of b, on the entries finite in both (none
+    finite: inf, which no tolerance takes)."""
+    import torch
+
+    a, b = a.double(), b.double()
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    if not bool(fin.any()):
+        return float("inf")
+    num = float((a - b)[fin].pow(2).mean().sqrt())
+    den = float(b[fin].pow(2).mean().sqrt())
+    return num / den if den else num
+
+
+def check_tp_kernels(card: str):
+    """Phase 11 (1): LN+QKV+RoPE and LN+QKV on one rank's head shard, the
+    (1024, 3 Hl 64) weight of ``sharding.model_part`` (its heads' columns of
+    q, of k and of v) at m = 2 and 4 model ranks and every rank index i, at
+    the frame site (10, 1374, 1024) and the global site (1, 6870, 1024) for
+    LN+QKV+RoPE and the ViT site (5, 1374, 1024) for LN+QKV: each against
+    its plain version (4 ulps for q / k, 2 for v, phase 2's) and bit-equal
+    to the whole-width kernel's heads [i Hl, (i+1) Hl) (every output element
+    is one warpgroup's sum over K in order, whatever the tile); the m = 1
+    form (the whole weight through ``model_part``) bit-equal to the
+    whole-width call. Times per call and 20 back to back beside the
+    whole-width kernel and the bounds (ops at 989 TFLOP/s, bytes at
+    3.35 TB/s)."""
+    import torch
+
+    from self_supervise_sfm_tpu_torch.layers import attention as AT
+    from self_supervise_sfm_tpu_torch.layers import params as P
+    from self_supervise_sfm_tpu_torch.models import aggregator as AG
+    from self_supervise_sfm_tpu_torch.ops import fused_qkv as FQ
+    from self_supervise_sfm_tpu_torch.parallel import sharding as Sh
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def ulps(ref, n):
+        return n * 2.0 ** (math.floor(math.log2(float(ref.float().abs().max()))) - 7)
+
+    C, H, d = 1024, 16, 64
+    N = (IMG // 14) ** 2 + 5
+    norm = lambda n: (1 + 0.1 * randn(n, dtype=f32), 0.1 * randn(n, dtype=f32))  # noqa: E731
+    ln, qn, kn = norm(C), norm(d), norm(d)
+    w = (randn(C, 3 * C, dtype=f32) * C**-0.5).to(bf16)
+    b = 0.1 * randn(3 * C, dtype=f32)
+    acfg = AG.AggregatorConfig()
+    t_frame = AG._rope_tables_frame(acfg, IMG // 14, IMG // 14, "cuda")
+    sites = {"frame": (2 * NUM_FRAMES, N, t_frame), "global": (1, NUM_FRAMES * N,
+                                                                AG._tile_tables(t_frame, NUM_FRAMES)),
+             "vit": (NUM_FRAMES, N, None)}
+    out = {"fused_ln_qkv_rope": [], "fused_ln_qkv": []}
+    for site, (B, n, tabs) in sites.items():
+        x = randn(B, n, C)
+        M_ = B * n
+        if tabs is None:
+            name, kern, plain, eps = "fused_ln_qkv", FQ.fused_ln_qkv_fwd, FQ.fused_ln_qkv_plain, 1e-6
+            extra, tol = (), {"q": 2, "k": 2, "v": 2}
+        else:
+            name, kern, plain, eps = ("fused_ln_qkv_rope", FQ.fused_ln_qkv_rope_fwd,
+                                      FQ.fused_ln_qkv_rope_plain, 1e-5)
+            extra, tol = (*qn, *kn, *tabs), {"q": 4, "k": 4, "v": 2}
+
+        def args(wi, bi, hl):
+            return (x, *ln, wi, bi, *extra, hl, eps)
+
+        whole = kern(*args(w, b, H))
+        one = kern(*args(Sh.model_part(w, -1, 1, 0, 3), Sh.model_part(b, -1, 1, 0, 3), H))
+        torch.cuda.synchronize()
+        _check(f"{name}[{site}] m = 1 form against the whole-width call (bit-equal)",
+               max(float((a.float() - c.float()).abs().max()) for a, c in zip(whole, one)), 0.0)
+        whole_ms, whole_b2b = _time_ms(lambda: kern(*args(w, b, H))), _back_to_back_ms(
+            lambda: kern(*args(w, b, H)))
+        in_bytes = lambda wi, bi: sum(t.numel() * t.element_size()  # noqa: E731
+                                      for t in (x, wi, bi, *ln, *extra))
+        out_bytes = lambda hl: 3 * B * hl * n * d * 2  # noqa: E731
+        whole_bound, _ = _bound_ms(2.0 * M_ * C * 3 * C, in_bytes(w, b) + out_bytes(H))
+        for m in TP_EXTENTS:
+            hl = H // m
+            row = dict(site=site, m=m, local_heads=hl, shape=[B, n, C], weight=[C, 3 * hl * d],
+                       max_abs_err=0.0, max_abs_vs_whole_heads=0.0, whole_ms=whole_ms,
+                       whole_back_to_back_ms=whole_b2b, whole_bound_ms=whole_bound)
+            for i in range(m):
+                wi = Sh.model_part(w, -1, m, i, 3).contiguous()
+                bi = Sh.model_part(b, -1, m, i, 3).contiguous()
+                got, ref = kern(*args(wi, bi, hl)), plain(*args(wi, bi, hl))
+                torch.cuda.synchronize()
+                for label, o, r, wh in zip("qkv", got, ref, whole):
+                    e = float((o.float() - r.float()).abs().max())
+                    _check(f"{name}[{site}] m = {m} rank {i} {label} {tuple(o.shape)}", e,
+                           ulps(r, tol[label]))
+                    row["max_abs_err"] = max(row["max_abs_err"], e)
+                    row["max_abs_vs_whole_heads"] = max(row["max_abs_vs_whole_heads"], float(
+                        (o.float() - wh[:, i * hl:(i + 1) * hl].float()).abs().max()))
+                if i == 0:
+                    flops = 2.0 * M_ * C * 3 * hl * d
+                    bound, by = _bound_ms(flops, in_bytes(wi, bi) + out_bytes(hl))
+                    # the library chain the kernel replaces on the shard
+                    local = {"qkv": {"w": wi, "b": bi}, "q_norm": dict(zip(("scale", "bias"), qn)),
+                             "k_norm": dict(zip(("scale", "bias"), kn))}
+                    lcfg = AT.AttentionConfig(dim=hl * d, num_heads=hl, qk_norm=tabs is not None,
+                                              ln_eps=eps)
+                    chain = lambda: tuple(t.contiguous() for t in AT.qkv_heads(  # noqa: E731
+                        local, P.layer_norm(dict(zip(("scale", "bias"), ln)), x, eps), lcfg,
+                        tabs))
+                    row.update(ms=_time_ms(lambda: kern(*args(wi, bi, hl))),
+                               back_to_back_ms=_back_to_back_ms(lambda: kern(*args(wi, bi, hl))),
+                               plain_ms=_time_ms(lambda: plain(*args(wi, bi, hl)), reps=5),
+                               library_ms=_time_ms(chain),
+                               library_back_to_back_ms=_back_to_back_ms(chain),
+                               bound_ms=bound, bound_by=by, gflop=flops / 1e9,
+                               mbytes=(in_bytes(wi, bi) + out_bytes(hl)) / 1e6)
+                del got, ref
+            _check(f"{name}[{site}] m = {m}: every rank's q, k, v against the whole-width "
+                   "kernel's heads (bit-equal)", row["max_abs_vs_whole_heads"], 0.0)
+            print(f"  {card}: {name}[{site}] head shard m = {m} (Hl {hl}, weight "
+                  f"{C} x {3 * hl * d}): {row['ms']:.4f} ms a call, {row['back_to_back_ms']:.4f} "
+                  f"back to back, plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+                  f"({row['bound_by']}, {row['gflop']:.1f} GFLOP, {row['mbytes']:.1f} MB), "
+                  f"roofline share {row['bound_ms'] / row['back_to_back_ms']:.3f}; library chain "
+                  f"{row['library_ms']:.4f} / {row['library_back_to_back_ms']:.4f}; whole width "
+                  f"{whole_ms:.4f} / {whole_b2b:.4f} ms (bound {whole_bound:.4f}); max error "
+                  f"{row['max_abs_err']:.3e}")
+            out[name].append(row)
+        del x, whole, one
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_block_params(randn, C=1024, d=64):
+    """A full-width block's parameters, bf16 weights and fp32 norms, biases
+    and layer scales off their initial values."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    norm = lambda n: {"scale": 1 + 0.1 * randn(n, dtype=f32),  # noqa: E731
+                      "bias": 0.1 * randn(n, dtype=f32)}
+    lin = lambda i, o: {"w": (randn(i, o, dtype=f32) * i**-0.5).to(bf16),  # noqa: E731
+                        "b": 0.1 * randn(o, dtype=f32)}
+    return {"norm1": norm(C), "norm2": norm(C),
+            "attn": {"qkv": lin(C, 3 * C), "proj": lin(C, C), "q_norm": norm(d),
+                     "k_norm": norm(d)},
+            "mlp": {"fc1": lin(C, 4 * C), "fc2": lin(4 * C, C)},
+            "ls1": {"gamma": 0.5 + 0.1 * randn(C, dtype=f32)},
+            "ls2": {"gamma": 0.5 + 0.1 * randn(C, dtype=f32)}}
+
+
+def check_tp_blocks(card: str, wrappers):
+    """Phase 11 (2): the m ranks of one Megatron block emulated in turn in
+    one process, at m = 2 and 4, for the frame (10 frames of 1374 tokens),
+    reloc (5 query frames against the 1525 compressed tokens of 5 anchors)
+    and global (6870 tokens) blocks at full width: each rank's part of the
+    weights (``sp_block.tp_block_params``) through LN+QKV+RoPE on its head
+    shard and K1 / K2 on its Hl heads, its out-projection and fc2 partials
+    summed in bf16 where the all-reduce would run (``tp_attn_partial`` /
+    ``tp_mlp_partial``), the tail between them (``tp_attn_residual`` /
+    ``tp_mlp_residual``). Held against the fp32 block within twice the
+    unsharded kernel block's error against it. A check of the shard
+    arithmetic; no path of the package runs it (a rank's collectives do)."""
+    import torch
+
+    from self_supervise_sfm_tpu_torch.layers.attention import attention_heads_out
+    from self_supervise_sfm_tpu_torch.layers.block import (
+        BlockConfig, block, block_context_kv, block_with_context, local_attn_cfg, qkv_parts)
+    from self_supervise_sfm_tpu_torch.models import aggregator as AG
+    from self_supervise_sfm_tpu_torch.parallel import sp_block as SP
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 52)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    C, N = 1024, (IMG // 14) ** 2 + 5
+    cfg = BlockConfig(dim=C, num_heads=16, qk_norm=True)
+    p = _tp_block_params(randn)
+    p32 = {k: ({kk: ({k3: t.float() for k3, t in vv.items()} if isinstance(vv, dict)
+                     else vv.float()) for kk, vv in v.items()}) for k, v in p.items()}
+    acfg = AG.AggregatorConfig()
+    t_frame = AG._rope_tables_frame(acfg, IMG // 14, IMG // 14, "cuda")
+    nc = NUM_FRAMES * (RANK + 5)
+    ctx_rows = torch.randint(0, N, (nc,), generator=g, device="cuda")
+    rope_ctx = tuple(t[ctx_rows][None] for t in t_frame)
+    sites = {"frame": dict(x=randn(2 * NUM_FRAMES, N, C), rope=t_frame),
+             "reloc": dict(x=randn(NUM_FRAMES, N, C), rope=t_frame, ctx=randn(1, nc, C)),
+             "global": dict(x=randn(1, NUM_FRAMES * N, C),
+                            rope=AG._tile_tables(t_frame, NUM_FRAMES))}
+    res, launches = [], {k: 0 for k in wrappers}
+
+    def run_block(pp, s, f32=False):
+        x, rope = s["x"].float() if f32 else s["x"], s["rope"]
+        if "ctx" in s:
+            ctx = s["ctx"].float() if f32 else s["ctx"]
+            return block_with_context(pp, x, ctx, cfg, rope, rope_ctx)
+        return block(pp, x, cfg, rope)
+
+    def emulated(s, m):
+        x, rope = s["x"], s["rope"]
+        parts = [SP.tp_block_params(p, m, i) for i in range(m)]
+        ys = []
+        for pl in parts:
+            ekv = (block_context_kv(pl, s["ctx"], cfg, rope_ctx) if "ctx" in s else None)
+            q, k, v = qkv_parts(pl, x, cfg, rope)
+            o = attention_heads_out(pl["attn"], q, k, v, local_attn_cfg(pl, cfg), extra_kv=ekv)
+            ys.append(SP.tp_attn_partial(pl, o))
+        x1 = SP.tp_attn_residual(p, x, sum(ys[1:], ys[0]))
+        y2 = [SP.tp_mlp_partial(pl, x1, cfg) for pl in parts]
+        return SP.tp_mlp_residual(p, x1, sum(y2[1:], y2[0]))
+
+    for site, s in sites.items():
+        ref32 = run_block(p32, s, f32=True)
+        whole = run_block(p, s)
+        env = float((whole.float() - ref32).abs().max())
+        env_rel = _rel_rms(whole, ref32)
+        for m in TP_EXTENTS:
+            for w in wrappers.values():
+                w.launches = 0
+            got = emulated(s, m)
+            torch.cuda.synchronize()
+            n = {k: w.launches for k, w in wrappers.items()}
+            for k in launches:
+                launches[k] += n[k]
+            err = float((got.float() - ref32).abs().max())
+            row = dict(site=site, m=m, max_abs_err_vs_fp32=err, whole_err_vs_fp32=env,
+                       rel_rms_vs_fp32=_rel_rms(got, ref32), whole_rel_rms_vs_fp32=env_rel,
+                       max_abs_vs_whole=float((got.float() - whole.float()).abs().max()),
+                       launches={k: v for k, v in n.items() if v})
+            print(f"  {card}: {site} block, {m} model ranks emulated: max error vs fp32 "
+                  f"{err:.4e} (unsharded kernel block {env:.4e}; tolerance twice that), rel-RMS "
+                  f"{row['rel_rms_vs_fp32']:.3e} (unsharded {env_rel:.3e}), vs the unsharded "
+                  f"kernel block {row['max_abs_vs_whole']:.3e}; launches {row['launches']}")
+            _check(f"{site} block over {m} model ranks vs fp32", err, 2 * env)
+            res.append(row)
+            del got
+        del ref32, whole
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def run_tp(card: str):
+    """Phase 11: tensor parallelism over ``model`` on the card. (1) The
+    head-shard form of LN+QKV+RoPE and LN+QKV (``check_tp_kernels``); (2)
+    the m ranks of one block emulated in one process (``check_tp_blocks``);
+    (3) one NCCL process of world size 1 with the tensor-parallel path
+    forced (``force_single_device_spmd(tp=True)``: Megatron's blocks over a
+    model group of one, the row-parallel tail plain): the joint forward, the
+    build plus a full-head ``reloc`` and ``fast_reloc``, and four train
+    steps of phase 5's configuration, each with its launch counts and
+    times, held against the unsharded kernel program on the same weights
+    (phase 3's, 4's and 5's programs) within twice that program's distance
+    from fp32 (forward and serving: rel-RMS of the camera tokens, the pose
+    encodings, the depth maps and the cache; the step: rel-RMS of each
+    subsystem's gradients); (4) the per-rank bytes of the train state under
+    TP x DDP and TP x FSDP at m = 1, 2, 4, 8 and of a 200-anchor kv2 cache
+    cut over heads. Its paths go into the kernel line as "tp_shards",
+    "tp_forward", "tp_serving" and "tp_train"."""
+    import torch
+    import torch.distributed as dist
+
+    from self_supervise_sfm_tpu_torch.models import aggregator as AG
+    from self_supervise_sfm_tpu_torch.models import sailrecon as M
+    from self_supervise_sfm_tpu_torch.parallel import sharding as Sh
+    from self_supervise_sfm_tpu_torch.parallel import sp_block as SP
+    from self_supervise_sfm_tpu_torch.train import loop as L
+
+    wrappers = kernel_wrappers()
+    failures = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: w.launches for k, w in wrappers.items()}
+
+    res, launches = {}, {}
+    t0 = time.perf_counter()
+    res["kernels"] = check_tp_kernels(card)
+    print(f"  phase 11 (1) head-shard kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res["blocks"], launches["tp_shards"] = check_tp_blocks(card, wrappers)
+    print(f"  phase 11 (2) emulated blocks: {time.perf_counter() - t0:.1f} s")
+
+    # -- (3) world size 1 with the tensor-parallel path forced --------------------
+    cfg = M.make_config(compute_dtype="bfloat16")
+    cfg32 = M.make_config(attn_impl="dense", global_attn_impl="dense", resize_impl="einsum",
+                          fused_qkv="off", fused_mlp="off")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    p32 = M.init_sailrecon(cfg, gen, device="cuda")
+    params = M.cast_trunk_weights(p32, cfg)
+    p32 = L._unflatten(p32, [t.float() for t in L._flatten(params)])  # the bf16 weights in fp32
+    uniq = torch.rand((1, NUM_FRAMES, IMG, IMG, 3), generator=gen, device="cuda")
+    images = torch.cat([uniq, uniq], dim=1)
+
+    def draw():
+        return torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def fwd(c=cfg, p=params):
+        return M.forward(p, c, images, NUM_FRAMES, NUM_FRAMES, rank=RANK, generator=draw(),
+                         images_duplicated=True)
+
+    def build(c=cfg, p=params):
+        return M.build_scene_cache(p, c, uniq, rank=RANK, generator=draw())
+
+    def relocs(cache, cam, c=cfg, p=params):
+        return (M.reloc(p, c, cache, cam, uniq), M.reloc(p, c, cache, cam, uniq,
+                                                         fast_reloc=True))
+
+    # the unsharded programs and their fp32 counterparts on the same weights
+    ref_out = fwd()
+    ref_cache, ref_cam = build()
+    ref_rel, ref_fast = relocs(ref_cache, ref_cam)
+    f32_out = fwd(cfg32, p32)
+    f32_cache, f32_cam = build(cfg32, p32)
+    f32_rel, f32_fast = relocs(f32_cache, f32_cam, cfg32, p32)
+    torch.cuda.synchronize()
+
+    def compare(label, got, ref, f32):
+        err, env = _rel_rms(got, ref), _rel_rms(ref, f32)
+        print(f"  {label}: rel-RMS vs the unsharded program {err:.3e}, the unsharded "
+              f"program vs fp32 {env:.3e} (tolerance twice that)")
+        expect(err <= 2 * env, f"{label}: {err} over twice {env}")
+        return dict(rel_rms=err, envelope=env)
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = Sh.make_mesh(1, 1, 1, device="cuda")
+        print(f"  process group: nccl, world size 1; mesh {mesh.shape}, tensor-parallel "
+              "path forced (a model group of one)")
+        with Sh.activate_mesh(mesh), SP.force_single_device_spmd(tp=True):
+            shard = SP.scene_shard(1, NUM_FRAMES, NUM_FRAMES,
+                                   tp=SP.tp_engaged(AG.block_cfgs(cfg.aggregator), mesh))
+            expect(shard is not None and shard.tp, "the forced mesh takes no TP layout")
+            reduces = []
+            reduce_from_model = SP.reduce_from_model
+
+            def reduce_spy(*a, **k):
+                reduces.append(1)
+                return reduce_from_model(*a, **k)
+
+            SP.reduce_from_model = reduce_spy
+            try:
+                out, n = counted(fwd)
+                n_reduce_fwd = len(reduces)
+                (cache, cam), nb = counted(build)
+                (rel, fast), nr = counted(lambda: relocs(cache, cam))
+            finally:
+                SP.reduce_from_model = reduce_from_model
+            launches["tp_forward"] = n
+            launches["tp_serving"] = {k: nb[k] + nr[k] for k in nb}
+            # 2 all-reduces a block: 24 ViT + 3 x 24 aggregator blocks
+            print(f"  TP forward: launches {n}; all-reduces over model {n_reduce_fwd}")
+            expect(n == TP_FORWARD_LAUNCHES, f"TP forward launches {n}")
+            expect(n_reduce_fwd == 2 * 4 * cfg.aggregator.depth,
+                   f"TP forward: {n_reduce_fwd} all-reduces")
+            expect(nb == TP_BUILD_LAUNCHES, f"TP build launches {nb}")
+            print(f"  TP build: launches {nb}; cache {tuple(cache['kv'].shape)} marked "
+                  f"{cache['shards']}; reloc + fast_reloc launches {nr}")
+            expect(cache["shards"] == (1, 1, 1), f"cache marked {cache['shards']}")
+            expect(nr == {k: TP_RELOC_LAUNCHES[k] + TP_FAST_RELOC_LAUNCHES[k] for k in nr},
+                   f"TP reloc + fast_reloc launches {nr}")
+            agree = {
+                "forward_cam_tokens": compare("TP forward cam tokens", out["cam_tokens"],
+                                              ref_out["cam_tokens"], f32_out["cam_tokens"]),
+                "forward_pose_enc": compare("TP forward pose encodings",
+                                            out["pose_enc_list"][-1],
+                                            ref_out["pose_enc_list"][-1],
+                                            f32_out["pose_enc_list"][-1]),
+                "forward_depth": compare(
+                    "TP forward depth logits", _logit("depth_map", out["depth_map"]),
+                    _logit("depth_map", ref_out["depth_map"]),
+                    _logit("depth_map", f32_out["depth_map"])),
+                "cache": compare("TP build cache", cache["kv"], ref_cache["kv"],
+                                 f32_cache["kv"]),
+                "build_cam": compare("TP build cam tokens", cam, ref_cam, f32_cam),
+                "reloc_pose_enc": compare("TP reloc pose encodings", rel["pose_enc_list"][-1],
+                                          ref_rel["pose_enc_list"][-1],
+                                          f32_rel["pose_enc_list"][-1]),
+                "reloc_depth": compare(
+                    "TP reloc depth logits", _logit("depth_map", rel["depth_map"]),
+                    _logit("depth_map", ref_rel["depth_map"]),
+                    _logit("depth_map", f32_rel["depth_map"])),
+                "fast_reloc_pose_enc": compare("TP fast_reloc pose encodings",
+                                               fast["pose_enc_list"][-1],
+                                               ref_fast["pose_enc_list"][-1],
+                                               f32_fast["pose_enc_list"][-1]),
+            }
+            res["agreement"] = agree
+            del out, cache, cam, rel, fast
+            times = {}
+            for name, a in (("forward", fwd), ("build", build)):
+                with Sh.activate_mesh(None):
+                    plain_ms = _wall_ms(a)
+                tp_ms = _wall_ms(a)
+                with Sh.activate_mesh(None):
+                    plain_ms2 = _wall_ms(a)
+                times[name] = dict(unsharded_ms=[plain_ms, plain_ms2], tp_ms=tp_ms)
+                print(f"  {card}: {name} unsharded {plain_ms:.2f} / {plain_ms2:.2f} ms, "
+                      f"tensor-parallel (world 1) {tp_ms:.2f} ms (medians of 3)")
+            res["times"] = times
+        del ref_out, ref_cache, ref_cam, ref_rel, ref_fast, f32_out, f32_cache, f32_cam
+        del f32_rel, f32_fast, params, p32
+        torch.cuda.empty_cache()
+
+        # -- the train step under the forced TP path -----------------------------
+        res["train"], launches["tp_train"] = _tp_train_steps(card, mesh, wrappers, expect)
+    finally:
+        dist.destroy_process_group()
+
+    # -- (4) per-rank bytes ------------------------------------------------------
+    full = M.make_config()
+    state = {}
+    for m in TP_STATE_EXTENTS:
+        state[m] = dict(ddp=L.state_bytes_per_rank(full, 1, False, "bfloat16", m=m),
+                        fsdp_2=L.state_bytes_per_rank(full, 2, True, "bfloat16", m=m),
+                        fsdp_4=L.state_bytes_per_rank(full, 4, True, "bfloat16", m=m))
+        print(f"  train state a rank (bf16 mu) at m = {m}: TP x DDP "
+              f"{state[m]['ddp'] / 1e9:.3f} GB, TP x FSDP over 2 / 4 data ranks "
+              f"{state[m]['fsdp_2'] / 1e9:.3f} / {state[m]['fsdp_4'] / 1e9:.3f} GB")
+    acfg = full.aggregator
+    per_anchor = acfg.depth * acfg.num_heads * (RANK + acfg.patch_start_idx) * 2 * acfg.head_dim * 2
+    cache_b = {m: CACHE_ANCHORS * per_anchor / m for m in TP_STATE_EXTENTS}
+    print(f"  a {CACHE_ANCHORS}-anchor kv2 cache cut over heads: per rank "
+          + ", ".join(f"m = {m}: {b / 1e9:.3f} GB" for m, b in cache_b.items()))
+    res["state_bytes"], res["cache_bytes_200_anchors"] = state, cache_b
+    res["launches"] = launches
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, res
+
+
+def _tp_train_steps(card, mesh, wrappers, expect):
+    """Phase 11 (3), the step: phase 5's configuration, weights, batch and
+    subsample under the forced TP path. The gradients of the first state
+    against the unsharded kernel step's within twice its distance from the
+    fp32 plain step's (per subsystem, rel-RMS); then four steps with the
+    launches of the first, the all-reduces and the times."""
+    import torch
+
+    from self_supervise_sfm_tpu_torch.models import aggregator as AG
+    from self_supervise_sfm_tpu_torch.models import sailrecon as M
+    from self_supervise_sfm_tpu_torch.parallel import sharding as Sh
+    from self_supervise_sfm_tpu_torch.parallel import sp_block as SP
+    from self_supervise_sfm_tpu_torch.train import loop as L
+
+    cfg = M.make_config(compute_dtype="bfloat16", remat=True)
+    cfg32 = M.make_config(remat=True, attn_impl="dense", global_attn_impl="dense",
+                          fused_qkv="off", fused_mlp="off")
+    tcfg = L.TrainConfig(rank=RANK, num_images=TRAIN_FRAMES, adam_mu_dtype="bfloat16",
+                         warmup_steps=1)
+    batch = L.batch_to_device(make_train_batch()[0], "cuda")
+    P0 = (IMG // 14) ** 2
+
+    def indices(i):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 8 + i)
+        return AG.draw_subsample_indices(cfg.aggregator, 1, TRAIN_FRAMES, P0, RANK, g)
+
+    state = L.init_train_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 7))
+    fc2 = state["params"]["camera_head"]["pose_branch"]["fc2"]
+    fc2["w"].mul_(0.01)
+    fc2["b"].mul_(0.01)
+    fc2["b"][[3, 7, 8]] = 0.25
+    params = state["params"]
+    parts = {"vit": lambda g: L._flatten(g["aggregator"]["vit"]),
+             "agg": lambda g: L._flatten({k: x for k, x in g["aggregator"].items() if k != "vit"}),
+             "camera": lambda g: L._flatten(g["camera_head"])}
+
+    def rel(a, b):
+        num = sum(float((x.float() - y.float()).pow(2).sum()) for x, y in zip(a, b))
+        return math.sqrt(num) / float(L.global_norm(b))
+
+    idx = indices(0)
+    loss_k, _, gk = L.loss_and_grads(params, cfg, tcfg, batch, idx)
+    loss_f, _, gf = L.loss_and_grads(params, cfg32, tcfg, batch, idx)
+    out = {"gradients": {}}
+    with Sh.activate_mesh(mesh), SP.force_single_device_spmd(tp=True):
+        layout = L.state_layout(cfg, tcfg, mesh)
+        expect(layout.tp, "the forced mesh gives no TP layout")
+        loss_t, _, gt = L.sharded_loss_and_grads(params, cfg, tcfg, batch, layout, idx)
+    print(f"  TP step loss {float(loss_t):.6f}, unsharded kernel step {float(loss_k):.6f}, "
+          f"fp32 plain {float(loss_f):.6f}")
+    for name, part in parts.items():
+        err, env = rel(part(gt), part(gk)), rel(part(gk), part(gf))
+        out["gradients"][name] = dict(rel_rms=err, envelope=env)
+        print(f"  TP step gradient {name}: rel-RMS vs the unsharded kernel step {err:.4e}, "
+              f"unsharded vs fp32 plain {env:.4e} (tolerance twice that)")
+        expect(err <= 2 * env, f"TP step gradient {name}: {err} over twice {env}")
+    # what the steps that read the first state are held to: the first
+    # state's bf16 loss distance from fp32, and its gradient's (a norm
+    # moves at most by the distance of the vectors)
+    norm_k = float(L.global_norm(L._flatten(gk)))
+    env_loss = abs(float(loss_k) - float(loss_f))
+    env_norm = math.sqrt(sum(float((x.float() - y.float()).pow(2).sum())
+                             for x, y in zip(L._flatten(gk), L._flatten(gf))))
+    del gk, gf, gt
+    torch.cuda.empty_cache()
+    step = L.make_train_step(cfg, tcfg)
+    out.update(metrics=[], ms=[], collectives=[])
+    torch.cuda.reset_peak_memory_stats()
+    with Sh.activate_mesh(mesh), SP.force_single_device_spmd(tp=True):
+        state = L.train_state_from_params(params, tcfg, layout)
+        for i in range(4):
+            for w in wrappers.values():
+                w.launches = 0
+            Sh.collective_counts.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, indices(i))
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["metrics"].append({k: float(x) for k, x in m.items()})
+            out["collectives"].append(dict(Sh.collective_counts))
+            if i == 0:
+                launches = {k: w.launches for k, w in wrappers.items()}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  TP step launches {launches}; collectives a step {out['collectives'][-1]}")
+    expect(launches == TP_TRAIN_STEP_LAUNCHES, f"TP step launches {launches}")
+    # steps 0 and 1 read the first state (learning rate 0 at step 0): held to
+    # the unsharded step's loss and gradient norm within twice the first
+    # state's bf16 distances from fp32 (phase 5's step where it ran, else the
+    # unsharded step above for step 0). Steps 2-3 follow updates from a random
+    # start, where bf16 runs part (phase 5's own gradient norm moves 5x in a
+    # step): printed, not held.
+    ref = [(float(loss_k), norm_k)]
+    if PHASE5:
+        ref = [(PHASE5["metrics"][i]["loss"], PHASE5["metrics"][i]["grad_norm"])
+               for i in (0, 1)]
+    for i, mt in enumerate(out["metrics"]):
+        expect(all(math.isfinite(v) for v in mt.values()), f"TP step {i}: non-finite metrics")
+        held = ""
+        if i < len(ref):
+            dl, dn = abs(mt["loss"] - ref[i][0]), abs(mt["grad_norm"] - ref[i][1])
+            held = (f" (unsharded {ref[i][0]:.6g}, {ref[i][1]:.6g}: distances {dl:.3e} / "
+                    f"{dn:.3e} against twice {env_loss:.3e} / {env_norm:.3e})")
+            expect(dl <= 2 * env_loss, f"TP step {i} loss {mt['loss']} vs {ref[i][0]}: "
+                                       f"over twice {env_loss}")
+            expect(dn <= 2 * env_norm, f"TP step {i} grad_norm {mt['grad_norm']} vs "
+                                       f"{ref[i][1]}: over twice {env_norm}")
+        elif PHASE5:
+            held = (f" (phase 5: {PHASE5['metrics'][i]['loss']:.6g}, "
+                    f"{PHASE5['metrics'][i]['grad_norm']:.6g}; after an update, not held)")
+        print(f"  TP step {i}: loss {mt['loss']:.6g}, grad_norm {mt['grad_norm']:.6g}{held}")
+    out["first_state_envelope"] = dict(loss=env_loss, grad_norm=env_norm)
+    print(f"  {card}: TP step (world 1) {[round(x, 2) for x in out['ms']]} ms, peak "
+          f"{out['peak_gb']:.2f} GB" + (f"; phase 5's {[round(x, 2) for x in PHASE5['ms']]}"
+                                        if PHASE5 else ""))
+    del state, params
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_torchrun_tp(card: str) -> dict:
+    """``--torchrun-tp``: tensor parallelism across the cards of one machine,
+    under ``torchrun --nproc_per_node N`` (N = 2 or 4, one NCCL rank a card,
+    a (1, 1, N) mesh). Every rank runs the full-width joint forward of phase
+    11 with the heads cut over N (3 runs timed), then rank 0 runs the
+    one-device forward and its fp32 counterpart on the same weights: the TP
+    forward's camera tokens, pose encodings and depth maps within twice the
+    one-device forward's rel-RMS distance from fp32. Then the trainer at
+    ``num_model = N`` for 3 steps of phase 6's configuration (no
+    checkpoint, no diagnostics), and rank 0 the one-device trainer on the
+    same scenes: the first step's loss (both runs at the same initial
+    state) within twice the distance between the one-device bf16 loss and
+    the fp32 plain path's loss on that state and batch, the later losses
+    printed (the runs part as bf16 sums part); step intervals, frames a
+    second a card and every rank's peak memory. Then the same 3 steps in
+    fp32 on the plain path, TP against one card: steps 1 and 2 read the
+    first state, so their loss (rtol 1e-4) and gradient norms (rtol 1e-3)
+    are held with no bf16 rounding in the way. Build the kernels once
+    before starting the ranks."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from self_supervise_sfm_tpu_torch.models import sailrecon as M
+    from self_supervise_sfm_tpu_torch.parallel import sharding as Sh
+    from self_supervise_sfm_tpu_torch.train import loop as L
+    from self_supervise_sfm_tpu_torch.train import trainer as T
+    from self_supervise_sfm_tpu_torch.train.loss import LossConfig
+
+    T.maybe_init_distributed("cuda")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world < 2:
+        raise ValueError("--torchrun-tp runs under torchrun --nproc_per_node 2 or 4")
+    primary = dist.get_rank() == 0
+    failures = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    def peaks():
+        peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9], device="cuda")
+        got = [torch.zeros_like(peak) for _ in range(world)]
+        dist.all_gather(got, peak)
+        return [float(p) for p in got]
+
+    out = {"world": world}
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "torchrun_tp")
+    try:
+        cfg = M.make_config(compute_dtype="bfloat16")
+        cfg32 = M.make_config(attn_impl="dense", global_attn_impl="dense",
+                              resize_impl="einsum", fused_qkv="off", fused_mlp="off")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = M.cast_trunk_weights(M.init_sailrecon(cfg, gen, device="cuda"), cfg)
+        uniq = torch.rand((1, NUM_FRAMES, IMG, IMG, 3), generator=gen, device="cuda")
+        images = torch.cat([uniq, uniq], dim=1)
+
+        def fwd(c=cfg, p=params):
+            return M.forward(p, c, images, NUM_FRAMES, NUM_FRAMES, rank=RANK,
+                             generator=torch.Generator(device="cuda").manual_seed(SEED + 1),
+                             images_duplicated=True)
+
+        mesh = Sh.make_mesh(1, 1, world, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        with Sh.activate_mesh(mesh):
+            tp_out = fwd()
+            Sh.collective_counts.clear()
+            tp_ms = [_wall_ms(fwd, reps=1) for _ in range(3)]
+            collectives = dict(Sh.collective_counts)
+        out["forward"] = dict(tp_ms=tp_ms, peak_gb=peaks(), collectives_3_runs=collectives)
+        if primary:
+            ref = fwd()
+            one_ms = [_wall_ms(fwd, reps=1) for _ in range(3)]
+            p32 = L._unflatten(params, [t.float() for t in L._flatten(params)])
+            f32 = fwd(cfg32, p32)
+            del p32
+            agree = {}
+            for key, pick in (("cam_tokens", lambda o: o["cam_tokens"]),
+                              ("pose_enc", lambda o: o["pose_enc_list"][-1]),
+                              ("depth_map", lambda o: o["depth_map"])):
+                err, env = _rel_rms(pick(tp_out), pick(ref)), _rel_rms(pick(ref), pick(f32))
+                agree[key] = dict(rel_rms=err, envelope=env)
+                expect(err <= 2 * env, f"TP forward {key}: {err} over twice {env}")
+            out["forward"].update(one_device_ms=one_ms, agreement=agree)
+            print(f"  {card}: forward with the heads over {world} cards "
+                  f"{[round(x, 2) for x in tp_ms]} ms, one card {[round(x, 2) for x in one_ms]} "
+                  f"ms; agreement with the one-card forward {agree}; peak GB by rank "
+                  f"{out['forward']['peak_gb']}; collectives in 3 runs {collectives}", flush=True)
+            del ref, f32
+        del tp_out, params
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+        def trainer_cfg(name, num_model, dtype="bfloat16"):
+            return T.TrainerConfig(
+                data_root=SyntheticScenes(2, TRAIN_FRAMES, 10_000, IMG, SEED + 11),
+                results_dir=os.path.join(work, name), total_steps=3, num_images=TRAIN_FRAMES,
+                sample_num=10_000, rank=RANK, seed=SEED, num_model=num_model,
+                checkpoint_every=0, sanity_check_every=0, artifact_every=0, log_every=1,
+                compute_dtype=dtype,
+                train=L.TrainConfig(warmup_steps=1, adam_mu_dtype="bfloat16",
+                                    loss=LossConfig(max_val=30.0)))
+
+        def one_device_run(name, dtype="bfloat16"):
+            make_mesh = T._make_mesh
+            T._make_mesh = lambda cfg_, dev: None  # rank 0 alone: the one-device trainer
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                T.run(trainer_cfg(name, 1, dtype))
+            finally:
+                T._make_mesh = make_mesh
+
+        def rows(name):
+            with open(os.path.join(work, name, "tensorboard", "metrics.jsonl")) as f:
+                return [r for r in map(json.loads, f) if r["prefix"] == "train"]
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = T.run(trainer_cfg("tp", world))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        del state
+        torch.cuda.empty_cache()
+        out["trainer"] = dict(run_s=run_s, peak_gb=peaks())
+        if primary:
+            one_device_run("one_device")
+            a, b = rows("tp"), rows("one_device")
+            la, lb = [r["loss"] for r in a], [r["loss"] for r in b]
+            rel_d = [abs(x - y) / abs(y) for x, y in zip(la, lb)]
+            expect(len(la) == len(lb) == 3 and all(math.isfinite(x) for x in la),
+                   f"trainer losses {la} / {lb}")
+            # the first step's state and batch again, on one card: the loss of
+            # the bf16 kernel path and of the fp32 plain path
+            tc = trainer_cfg("one_device", 1)
+            tcfg = dataclasses.replace(tc.train, total_steps=tc.total_steps, rank=tc.rank,
+                                       num_images=tc.num_images)
+            stream = T.scene_stream(tc.data_root, range(tc.scenes_per_step_per_device),
+                                    tc.seed, 1)
+            batch0 = L.batch_to_device(next(stream), "cuda")
+            stream.close()
+            p0 = L.init_train_state(T._model_config(tc), tcfg, torch.Generator(
+                device="cuda").manual_seed(tc.seed))["params"]
+            cfg32 = M.make_config(img_size=tc.img_size, attn_impl="dense",
+                                  global_attn_impl="dense", fused_qkv="off", fused_mlp="off")
+            with torch.no_grad():
+                loss_k = float(L._loss_fn(p0, T._model_config(tc), tcfg, batch0,
+                                          **T.step_subsample(tc.seed, 0, "cuda"))[0])
+                loss_f = float(L._loss_fn(p0, cfg32, tcfg, batch0,
+                                          **T.step_subsample(tc.seed, 0, "cuda"))[0])
+            del p0, batch0
+            env = abs(loss_k - loss_f)
+            expect(abs(la[0] - lb[0]) <= 2 * env,
+                   f"TP trainer's first loss {la[0]} against {lb[0]}: over twice {env}")
+            out["trainer"].update(
+                first_loss_bf16=loss_k, first_loss_fp32=loss_f, first_loss_envelope=env,
+                losses=la, one_device_losses=lb, rel_diff=rel_d,
+                step_ms=[1e3 / r["steps_per_sec"] for r in a[1:]],
+                one_device_step_ms=[1e3 / r["steps_per_sec"] for r in b[1:]],
+                frames_per_s_per_card=[r["frames_per_sec_per_chip"] for r in a[1:]])
+            print(f"  {card}: trainer with the heads over {world} cards: losses {la}, one card "
+                  f"{lb} (rel {[f'{x:.2e}' for x in rel_d]}); the first state's loss on one "
+                  f"card {loss_k:.6f} (bf16 kernels), {loss_f:.6f} (fp32 plain): the first "
+                  f"losses' distance {abs(la[0] - lb[0]):.3e} against twice {env:.3e}; "
+                  f"step intervals (steps 2-3) "
+                  f"{[round(x, 2) for x in out['trainer']['step_ms']]} ms, one card "
+                  f"{[round(x, 2) for x in out['trainer']['one_device_step_ms']]} ms; frames/s "
+                  f"a card {out['trainer']['frames_per_s_per_card']}; peak GB by rank "
+                  f"{out['trainer']['peak_gb']}", flush=True)
+        dist.barrier()
+        torch.cuda.empty_cache()
+
+        # the same three steps in fp32 on the plain path (no bf16 rounding to
+        # tell apart from a fault of the cut): steps 1 and 2 read the first
+        # state (learning rate 0 at step 1), so their loss and gradient norms
+        # must agree with one card's to fp32's summation order; step 3 follows
+        # an update and is printed
+        T.run(trainer_cfg("tp_fp32", world, "float32"))
+        torch.cuda.empty_cache()
+        if primary:
+            one_device_run("one_device_fp32", "float32")
+            a, b = rows("tp_fp32"), rows("one_device_fp32")
+            keys = ("loss", "grad_norm", "grad_norm_vit", "grad_norm_agg", "grad_norm_camera")
+            fp32 = {k: dict(tp=[r[k] for r in a], one_device=[r[k] for r in b],
+                            rel=[abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(a, b)])
+                    for k in keys}
+            expect(len(a) == len(b) == 3, f"fp32 trainer rows {len(a)} / {len(b)}")
+            for k, tol in zip(keys, (1e-4,) + (1e-3,) * 4):
+                worst = max(fp32[k]["rel"][:2])
+                expect(worst <= tol, f"fp32 TP trainer {k} at the first state: relative "
+                                     f"distance {worst:.3e} from one card's over {tol:g}")
+            out["trainer_fp32"] = fp32
+            print(f"  {card}: fp32 trainer with the heads over {world} cards against one card "
+                  "(steps 1-2 the first state, held: loss rtol 1e-4, gradient norms 1e-3; "
+                  "step 3 after an update): "
+                  + "; ".join(f"{k} {[f'{x:.6g}' for x in v['tp']]} vs "
+                              f"{[f'{x:.6g}' for x in v['one_device']]} (rel "
+                              f"{[f'{x:.2e}' for x in v['rel']]})" for k, v in fp32.items()),
+                  flush=True)
+        dist.barrier()
+    finally:
+        if dist.is_initialized():
+            dist.barrier()
+            if primary:
+                shutil.rmtree(work, ignore_errors=True)
+            dist.destroy_process_group()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3927,6 +4744,27 @@ def main() -> int:
         result = run_torchrun_trainer(card)
         if int(os.environ.get("RANK", 0)) == 0:
             print(json.dumps({"torchrun_trainer": result}))
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}))
+        return 0
+    if "--tp-only" in sys.argv[1:]:
+        print("phase 11 alone: tensor parallelism (the head-shard kernels, the emulated "
+              "blocks, NCCL world size 1 with the TP path forced)")
+        t0 = time.perf_counter()
+        _, tp = run_tp(card)
+        print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"tp": tp}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--torchrun-tp" in sys.argv[1:]:
+        print("tensor parallelism across the cards of the machine (one rank a card under "
+              "torchrun): the forward and the trainer against one card")
+        result = run_torchrun_tp(card)
+        if int(os.environ.get("RANK", 0)) == 0:
+            print(json.dumps({"torchrun_tp": result}))
             print(json.dumps({"ok": True, "device": {
                 "platform": "gpu", "kind": torch.cuda.get_device_name(0),
                 "count": torch.cuda.device_count()}}))
@@ -4023,8 +4861,17 @@ def main() -> int:
     t0 = time.perf_counter()
     sharded_train_launches, sharded_train = run_sharded_train(card, trainer)
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    print("phase 11: tensor parallelism (LN+QKV(+RoPE) on a head shard at m = 2 and 4, the m "
+          "ranks of a block emulated, NCCL world size 1 with the TP path forced: forward, "
+          "build and reloc, four train steps)")
+    t0 = time.perf_counter()
+    tp_launches, tp = run_tp(card)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
-        for path, n in {**sharded_launches, **sharded_train_launches}.items():
+        k["tp_sites"] = tp["kernels"].get(k["name"], [])
+    for k in kernels:
+        for path, n in {**sharded_launches, **sharded_train_launches, **tp_launches}.items():
             k["launches_by_path"][path] = n[k["name"]]
             k["launches"] += n[k["name"]]
     for k in kernels:
@@ -4046,6 +4893,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"sharded_train": sharded_train}))
+    print(json.dumps({"tp": {k: v for k, v in tp.items() if k != "kernels"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

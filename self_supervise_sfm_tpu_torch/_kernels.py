@@ -58,9 +58,11 @@ _SIGNATURES: Dict[str, List] = {
     "sfm_resize_bilinear_ac": [_P, _P, _P] + [_I] * 8 + [_P],
     # LN+QKV(+RoPE), the out-projection and the MLP pair on the wgmma / TMA
     # GEMM body (gemm_sm90.cu): the layer-normed ones take an (M, C) bf16
-    # scratch for the normalised rows; batch, ntok, heads(, eps)
-    "sfm_ln_qkv_rope_sm90": [_P] * 15 + [_I, _I, _I, _F, _P],
-    "sfm_ln_qkv_sm90": [_P] * 9 + [_I, _I, _I, _F, _P],
+    # scratch for the normalised rows; LN+QKV(+RoPE): batch, ntok, C, the
+    # heads it computes (all, or a rank's head shard), eps; the
+    # out-projection: batch, ntok, heads
+    "sfm_ln_qkv_rope_sm90": [_P] * 15 + [_I, _I, _I, _I, _F, _P],
+    "sfm_ln_qkv_sm90": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
     "sfm_proj_residual_sm90": [_P] * 6 + [_I, _I, _I, _P],
     "sfm_mlp_up_sm90": [_P] * 7 + [_I, _I, _I, _F, _P],
     "sfm_mlp_down_sm90": [_P] * 6 + [_I, _I, _I, _P],

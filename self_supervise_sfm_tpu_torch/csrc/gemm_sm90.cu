@@ -61,8 +61,11 @@
 // - Layer norm: a pre-pass kernel of this source (ln_rows_kernel, one warp
 //   a row) writes hn once, as the JAX kernel's bf16 cast before the dot; the
 //   GEMM's A is then a plain TMA load, and no column tile repeats the norm.
-// - q / k / v: a 128-column tile is two heads, and 3C / 128 tiles split
-//   evenly into q, k and v (C a multiple of 128), so a tile lies in one part.
+// - q / k / v: a 128-column tile is two heads, and the 3 Hl 64 / 128 tiles
+//   split evenly into q, k and v (Hl, the heads the call computes, even), so
+//   a tile lies in one part. Hl is all H heads of C = 64 H, or one rank's
+//   head shard under tensor parallelism: W is then (C, 3 Hl 64), the
+//   columns [q_l | k_l | v_l] of the rank's heads, and K stays C.
 //   On the accumulator layout a thread holds 16 values of one head in each
 //   of its rows (j in [8 hh, 8 hh + 8)), so the qk-norm is a sum over them
 //   and a quad shuffle, and RoPE's partner column (+-16) is j +- 2 in the same
@@ -646,14 +649,17 @@ int launch_ln(const void* x, const void* ln_w, const void* ln_b, void* hn, int r
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (B N, C) -> q, k, v (B, H, N, 64): the pre-pass into the (B N, C) bf16
-// scratch hn, then hn @ W (C, 3C) + b and the epilogue EP; C = 64 heads, a
-// multiple of 256
+// x (B N, C) -> q, k, v (B, Hl, N, 64): the pre-pass into the (B N, C) bf16
+// scratch hn, then hn @ W (C, 3 Hl 64) + b and the epilogue EP; C a multiple
+// of 256, Hl even (a 128-column tile never straddles q | k or k | v); Hl =
+// C / 64 is the whole width
 template <int EP>
 int launch_qkv(const void* x, const void* ln_w, const void* ln_b, const void* w, const void* b,
-               Params p, void* hn, int batch, int ntok, int heads, float eps, void* stream) {
-  if (batch < 0 || ntok < 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int dim = heads * HD, rows = batch * ntok;
+               Params p, void* hn, int batch, int ntok, int dim, int heads, float eps,
+               void* stream) {
+  if (batch < 0 || ntok < 0 || heads <= 0 || heads % 2 || dim <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = batch * ntok;
   if (const int err = launch_ln(x, ln_w, ln_b, hn, rows, dim, eps, stream)) return err;
   p.bias = static_cast<const float*>(b);
   p.eps = eps;
@@ -662,21 +668,21 @@ int launch_qkv(const void* x, const void* ln_w, const void* ln_b, const void* w,
   p.heads = heads;
   p.M = rows;
   p.K = dim;
-  p.nout = 3 * dim;
+  p.nout = 3 * heads * HD;
   return launch_gemm<EP>(hn, w, p, stream);
 }
 
 }  // namespace
 
-// x (B, N, C) -> q, k, v (B, H, N, 64): LN, @ W (C, 3C) + b, qk-norm, RoPE;
-// hn is a (B N, C) bf16 scratch buffer that the pre-pass writes and the
+// x (B, N, C) -> q, k, v (B, Hl, N, 64): LN, @ W (C, 3 Hl 64) + b, qk-norm,
+// RoPE; hn is a (B N, C) bf16 scratch buffer that the pre-pass writes and the
 // product reads
 extern "C" int sfm_ln_qkv_rope_sm90(const void* x, const void* ln_w, const void* ln_b,
                                     const void* w, const void* b, const void* qn_w,
                                     const void* qn_b, const void* kn_w, const void* kn_b,
                                     const void* cos, const void* sin, void* q, void* k, void* v,
-                                    void* hn, int batch, int ntok, int heads, float eps,
-                                    void* stream) {
+                                    void* hn, int batch, int ntok, int dim, int heads,
+                                    float eps, void* stream) {
   Params p = {};
   p.qn_w = static_cast<const float*>(qn_w);
   p.qn_b = static_cast<const float*>(qn_b);
@@ -687,18 +693,19 @@ extern "C" int sfm_ln_qkv_rope_sm90(const void* x, const void* ln_w, const void*
   p.q = static_cast<bf16*>(q);
   p.k = static_cast<bf16*>(k);
   p.v = static_cast<bf16*>(v);
-  return launch_qkv<E_QKV_ROPE>(x, ln_w, ln_b, w, b, p, hn, batch, ntok, heads, eps, stream);
+  return launch_qkv<E_QKV_ROPE>(x, ln_w, ln_b, w, b, p, hn, batch, ntok, dim, heads, eps,
+                                stream);
 }
 
 // the same without qk-norm and RoPE (the ViT blocks)
 extern "C" int sfm_ln_qkv_sm90(const void* x, const void* ln_w, const void* ln_b, const void* w,
                                const void* b, void* q, void* k, void* v, void* hn, int batch,
-                               int ntok, int heads, float eps, void* stream) {
+                               int ntok, int dim, int heads, float eps, void* stream) {
   Params p = {};
   p.q = static_cast<bf16*>(q);
   p.k = static_cast<bf16*>(k);
   p.v = static_cast<bf16*>(v);
-  return launch_qkv<E_QKV>(x, ln_w, ln_b, w, b, p, hn, batch, ntok, heads, eps, stream);
+  return launch_qkv<E_QKV>(x, ln_w, ln_b, w, b, p, hn, batch, ntok, dim, heads, eps, stream);
 }
 
 // x (M, C) -> hn = LN(x) (M, C) bf16: the pre-pass alone

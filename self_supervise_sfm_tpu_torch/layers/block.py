@@ -30,7 +30,7 @@ and :func:`attn_out_mlp`) on it.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 import torch
@@ -118,10 +118,32 @@ def _fused_wanted(mode: str, x: torch.Tensor, widths_taken: bool) -> bool:
             and (x.device.type == "cpu" or widths_taken))
 
 
+def local_heads(p, cfg: BlockConfig) -> int:
+    """The heads whose q, k and v the block's qkv weight computes: all of
+    ``cfg.num_heads``, or under tensor parallelism one rank's head shard
+    (a (C, 3 Hl d) weight, ``parallel/sharding.py``'s per-head cut)."""
+    return p["attn"]["qkv"]["w"].shape[-1] // (3 * (cfg.dim // cfg.num_heads))
+
+
+def local_attn_cfg(p, cfg: BlockConfig) -> AttentionConfig:
+    """``cfg.attn`` for the heads the block's weights compute: their head
+    dim stays the whole width's."""
+    hl = local_heads(p, cfg)
+    if hl == cfg.num_heads:
+        return cfg.attn
+    return replace(cfg.attn, dim=hl * (cfg.dim // cfg.num_heads), num_heads=hl)
+
+
+def _qkv_takes(p, cfg: BlockConfig) -> bool:
+    """Whether LN+QKV(+RoPE) takes the block: the input width C and the
+    local head count apart (a head shard's weight is (C, 3 Hl 64))."""
+    return FQ.qkv_kernel_takes(cfg.dim, local_heads(p, cfg), cfg.dim // cfg.num_heads)
+
+
 def _fused_qkv_applicable(p, cfg: BlockConfig, x, rope_cos_sin) -> bool:
     """Gate of the fused LN+QKV+qk-norm+RoPE kernel: qk-norm on, a qkv bias,
     2D rope with shared (N, d) tables and a rope-compatible head dim."""
-    if not _fused_wanted(cfg.fused_qkv, x, FQ.qkv_kernel_takes(cfg.dim, cfg.num_heads)):
+    if not _fused_wanted(cfg.fused_qkv, x, _qkv_takes(p, cfg)):
         return False
     if rope_cos_sin is None or rope_cos_sin[0].dim() != 2:
         return False
@@ -132,7 +154,7 @@ def _fused_qkv_applicable(p, cfg: BlockConfig, x, rope_cos_sin) -> bool:
 
 def _fused_qkv_plain_applicable(p, cfg: BlockConfig, x) -> bool:
     """Gate of the fused LN+QKV without qk-norm and rope (the ViT blocks)."""
-    if not _fused_wanted(cfg.fused_qkv, x, FQ.qkv_kernel_takes(cfg.dim, cfg.num_heads)):
+    if not _fused_wanted(cfg.fused_qkv, x, _qkv_takes(p, cfg)):
         return False
     if cfg.qk_norm or "b" not in p["attn"]["qkv"]:
         return False
@@ -151,21 +173,24 @@ def _fused_mlp_applicable(p, cfg: BlockConfig, x) -> bool:
 
 
 def qkv_parts(p, x, cfg: BlockConfig, rope_cos_sin=None):
-    """Per-head (q, k, v) after LN1 (+ qk-norm / rope), fused when applicable."""
+    """Per-head (q, k, v) after LN1 (+ qk-norm / rope), fused when applicable:
+    (B, Hl, N, d) for the Hl heads of the block's qkv weight (all heads, or
+    a rank's head shard; x is whole-width either way)."""
     n1, qkv = p["norm1"], p["attn"]["qkv"]
+    hl = local_heads(p, cfg)
     if _fused_qkv_applicable(p, cfg, x, rope_cos_sin):
         cos, sin = rope_cos_sin
         qn, kn = p["attn"]["q_norm"], p["attn"]["k_norm"]
         return FQ.fused_ln_qkv_rope(
             x.contiguous(), n1["scale"], n1["bias"], qkv["w"], qkv["b"],
             qn["scale"], qn["bias"], kn["scale"], kn["bias"], cos, sin,
-            cfg.num_heads, cfg.ln_eps,
+            hl, cfg.ln_eps,
         )
     if rope_cos_sin is None and _fused_qkv_plain_applicable(p, cfg, x):
         return FQ.fused_ln_qkv(x.contiguous(), n1["scale"], n1["bias"], qkv["w"],
-                               qkv["b"], cfg.num_heads, cfg.ln_eps)
+                               qkv["b"], hl, cfg.ln_eps)
     h = P.layer_norm(n1, x, cfg.ln_eps)
-    return qkv_heads(p["attn"], h, cfg.attn, rope_cos_sin)
+    return qkv_heads(p["attn"], h, local_attn_cfg(p, cfg), rope_cos_sin)
 
 
 def _mlp_residual(p, x, cfg: BlockConfig):
@@ -229,7 +254,9 @@ def block_with_context(p, x, context, cfg: BlockConfig, rope_q=None, rope_ctx=No
 
 def block_context_kv(p, context, cfg: BlockConfig, rope_ctx=None):
     """The (k, v) heads this block would derive from ``context`` tokens:
-    what the relocalisation scene cache stores (post-norm, post-rope K/V).
-    On the unfused chain, like :func:`block_with_context`."""
+    what the relocalisation scene cache stores (post-norm, post-rope K/V),
+    for the heads of the block's qkv weight (a rank's head shard under
+    tensor parallelism). On the unfused chain, like
+    :func:`block_with_context`."""
     hc = P.layer_norm(p["norm1"], context, cfg.ln_eps)
-    return kv_heads(p["attn"], hc, cfg.attn, rope_ctx)
+    return kv_heads(p["attn"], hc, local_attn_cfg(p, cfg), rope_ctx)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from . import params as P
-from ..parallel.sp_block import frame_block_sharded
+from ..parallel.sp_block import block_local, frame_block_sharded
 from .block import BlockConfig, init_block, remat_call
 
 
@@ -133,8 +133,12 @@ def resample_pos_embed(pos_embed: torch.Tensor, target_grid: int) -> torch.Tenso
     return _interpolate_pos_embed(pos_embed, (target_grid, target_grid), g)
 
 
-def vit_forward(p, images: torch.Tensor, cfg: ViTConfig, compute_dtype=torch.float32):
-    """images: (B, H, W, 3), already normalised -> dict of final-norm tokens."""
+def vit_forward(p, images: torch.Tensor, cfg: ViTConfig, compute_dtype=torch.float32,
+                tp_mesh=None):
+    """images: (B, H, W, 3), already normalised -> dict of final-norm tokens.
+    ``tp_mesh``: the blocks run Megatron's body over its ``model`` group on
+    model-local params (the aggregator's tensor-parallel layout); else
+    ``frame_block_sharded`` under the active mesh."""
     B, H, W, _ = images.shape
     gh, gw = H // cfg.patch_size, W // cfg.patch_size
     x = P.conv2d(p["patch_embed"]["proj"], images.to(compute_dtype),
@@ -150,7 +154,10 @@ def vit_forward(p, images: torch.Tensor, cfg: ViTConfig, compute_dtype=torch.flo
         x = torch.cat([x[:, :1], regs, x[:, 1:]], dim=1)
     bcfg = cfg.block_cfg
     for bp in p["blocks"]:
-        x = remat_call(cfg.remat, frame_block_sharded, bp, x, bcfg)
+        if tp_mesh is None:
+            x = remat_call(cfg.remat, frame_block_sharded, bp, x, bcfg)
+        else:
+            x = remat_call(cfg.remat, block_local, bp, x, bcfg, None, tp_mesh)
     x = P.layer_norm(p["norm"], x, cfg.ln_eps)
     return {
         "x_norm_clstoken": x[:, 0],

@@ -35,6 +35,18 @@ over the rank's anchors, which are its chunk of the A·P token axis. The
 scene cache stays context-sharded, each rank storing the K/V rows of its
 anchors, ``(depth, B/nd, heads, A·(rank + 5)/nc, 2·head_dim)``; reloc
 gathers one layer of it at a time before the in-place kernel reads it.
+
+With a ``model`` extent above 1 (tensor parallelism) every block (the ViT's,
+frame, reloc and global) runs Megatron's body on model-local parameters
+(``parallel/sp_block.py``): LN+QKV(+RoPE) on the rank's head shard, K1, K2,
+the ring or the in-place kv2 kernel on its Hl heads, the row-parallel tail
+summed over ``model``. The cache is then cut over heads too: each model
+rank builds the rows of its heads from its head shard of the reloc block's
+qkv, ``(depth, B/nd, H/nm, A·(rank + 5)/nc, 2·head_dim)``, marked
+``cache["shards"] = (nd, nc, nm)``, and reloc's in-place kernel reads the
+rank's heads; a whole cache is cut by heads (and scenes) one layer at a time
+in reloc. The patch embedding, tokens and heads run replicated on every
+model rank.
 """
 
 from __future__ import annotations
@@ -48,12 +60,14 @@ import torch
 from ..layers import rope as R
 from ..layers.attention import attention_heads_out
 from ..layers.block import (
-    BlockConfig, attn_out_mlp, block, block_context_kv, block_with_context,
-    init_block, qkv_parts, remat_call,
+    BlockConfig, block, block_context_kv, init_block, local_attn_cfg, remat_call,
 )
 from ..layers.vit import ViTConfig, init_vit, vit_forward, vit_large
 from ..ops.flash_attention import packed_ctx_attention
-from ..parallel.sharding import CONTEXT_AXIS, DATA_AXIS, activate_mesh, active_mesh, gather
+from ..parallel import sp_block as SP
+from ..parallel.sharding import (
+    CONTEXT_AXIS, DATA_AXIS, MODEL_AXIS, activate_mesh, active_mesh, gather,
+)
 from ..parallel.sp_block import SceneShard, global_block_ring_local
 
 _RESNET_MEAN = (0.485, 0.456, 0.406)
@@ -112,6 +126,13 @@ class AggregatorConfig:
         return _DTYPES[self.compute_dtype]
 
 
+def block_cfgs(cfg: AggregatorConfig) -> Tuple[BlockConfig, ...]:
+    """The configs of every block the aggregator runs (ViT, frame, reloc,
+    global): tensor parallelism takes the model when each divides the model
+    extent (``parallel/sp_block.py:tp_engaged``)."""
+    return (cfg.vit.block_cfg, cfg.block_cfg, cfg.global_block_cfg)
+
+
 def init_aggregator(g, device, cfg: AggregatorConfig):
     C = cfg.embed_dim
     reg = cfg.num_register_tokens
@@ -144,7 +165,7 @@ def _normalize_images(images: torch.Tensor) -> torch.Tensor:
 
 def _embed_frames(p, cfg: AggregatorConfig, images: torch.Tensor, is_query,
                   duplicated: bool = False, frame_chunk: Optional[int] = None,
-                  anchor0: bool = True):
+                  anchor0: bool = True, shard: Optional[SceneShard] = None):
     """images (B, S, H, W, 3) -> tokens (B, S, P, C), P = patches + specials.
 
     ``is_query``: S booleans. Query frames get the reloc camera/register
@@ -154,7 +175,9 @@ def _embed_frames(p, cfg: AggregatorConfig, images: torch.Tensor, is_query,
     With ``duplicated`` (frames [a_0..a_{n-1}, q_0..q_{n-1}], q_i the same
     image as a_i) the ViT runs once per unique image. With ``frame_chunk``
     (dividing the unique frame count) the ViT runs per chunk of frames,
-    normalisation inside the loop, so its transients are one chunk's.
+    normalisation inside the loop, so its transients are one chunk's. Under
+    a ``shard`` with ``tp`` the ViT's blocks run Megatron's body on
+    model-local params.
     """
     B, S, H, W, _ = images.shape
     isq = torch.as_tensor(list(is_query), dtype=torch.bool, device=images.device)
@@ -166,11 +189,12 @@ def _embed_frames(p, cfg: AggregatorConfig, images: torch.Tensor, is_query,
         images = images[:, : S // 2]
     Su = images.shape[1]
     C = cfg.embed_dim
+    tp_mesh = shard.tp_mesh if shard is not None else None
 
     def vit_tokens(imgs):
         n = imgs.shape[1]
         x = _normalize_images(imgs).reshape(B * n, H, W, 3)
-        pt = vit_forward(p["vit"], x, cfg.vit, cfg.dtype)["x_norm_patchtokens"]
+        pt = vit_forward(p["vit"], x, cfg.vit, cfg.dtype, tp_mesh)["x_norm_patchtokens"]
         return pt.reshape(B, n, pt.shape[1], C)
 
     if frame_chunk is not None and 0 < frame_chunk < Su and Su % frame_chunk == 0:
@@ -264,7 +288,9 @@ def _check_taps(cfg: AggregatorConfig):
 
 def _local_context(shard: Optional[SceneShard]):
     """The sharded path runs on rank-local tensors with the mesh switched
-    off (as a ``shard_map`` body), so that nothing inside cuts them again."""
+    off (as a ``shard_map`` body), so that nothing inside cuts them again
+    (under tensor parallelism the blocks get the mesh of their ``model``
+    group explicitly, ``SceneShard.tp_mesh``)."""
     return activate_mesh(None) if shard is not None else contextlib.nullcontext()
 
 
@@ -274,7 +300,7 @@ def _global_block(gp, x, cfg: BlockConfig, t_global, shard: Optional[SceneShard]
     tables)."""
     if shard is None:
         return block(gp, x, cfg, t_global)
-    return global_block_ring_local(gp, x, cfg, t_global, shard.mesh)
+    return global_block_ring_local(gp, x, cfg, t_global, shard.mesh, shard.tp_mesh)
 
 
 def aggregator_forward(
@@ -308,7 +334,7 @@ def aggregator_forward(
     idx = _make_indices(cfg, generator, subsample_indices, B, A, P0, rank, dev)
     idx_own, anchor0 = idx, True
     if shard is not None:
-        p = shard.replicate(p)
+        p = shard.aggregator_params(p)
         images = shard.scenes(images)
         images = torch.cat([shard.frames(images[:, :A], 1), shard.frames(images[:, A:], 1)],
                            dim=1)
@@ -324,10 +350,11 @@ def aggregator_forward(
     t_global = _tile_tables(t_frame, Al)
     bcfg, bcfg_g = cfg.block_cfg, cfg.global_block_cfg
     taps_list = _check_taps(cfg)
+    tpm = shard.tp_mesh if shard is not None else None
 
     def layer(tokens, fp, gp, rp, idx_l, idx_own_l):
         # 1. frame attention
-        t = block(fp, tokens.reshape(Bl * Sl, Ptok, C), bcfg, t_frame)
+        t = SP.block_local(fp, tokens.reshape(Bl * Sl, Ptok, C), bcfg, t_frame, tpm)
         frame_out = t.reshape(Bl, Sl, Ptok, C)
         anchors, queries = frame_out[:, :Al], frame_out[:, Al:]
         # 2. compressed scene representation (of every anchor of the scene)
@@ -336,8 +363,8 @@ def aggregator_forward(
             down = shard.gather_frames(down, 1)
             down_rope = tuple(tab[idx_l].reshape(Bl, A * R5, -1) for tab in t_frame)
         # 3. reloc attention, frame-major queries against the shared context
-        q = block_with_context(rp, queries.reshape(Bl * Ql, Ptok, C), down, bcfg,
-                               t_frame, down_rope)
+        q = SP.block_with_context_local(rp, queries.reshape(Bl * Ql, Ptok, C), down, bcfg,
+                                        t_frame, down_rope, tpm)
         reloc_out = q.reshape(Bl, Ql, Ptok, C)
         # 4. global attention over all anchor tokens
         g = _global_block(gp, anchors.reshape(Bl, Al * Ptok, C), bcfg_g, t_global, shard)
@@ -347,7 +374,7 @@ def aggregator_forward(
     cam = None
     with _local_context(shard):
         tokens, _ = _embed_frames(p, cfg, images, [False] * Al + [True] * Ql,
-                                  images_duplicated, anchor0=anchor0)
+                                  images_duplicated, anchor0=anchor0, shard=shard)
         for li in range(cfg.depth):
             fp, gp, rp = (p[k][li] for k in ("frame_blocks", "global_blocks",
                                              "reloc_blocks"))
@@ -394,7 +421,8 @@ def _build_layer(cfg: AggregatorConfig, fp, gp, rp, tokens, idx_l, t_frame,
     frame block, the reloc block's K/V of the scene tokens into ``kv_out``,
     global block (the ring under a shard). Returns (global_out, frame_out)."""
     B, A, Ptok, C = tokens.shape
-    t = block(fp, tokens.reshape(B * A, Ptok, C), cfg.block_cfg, t_frame)
+    tpm = shard.tp_mesh if shard is not None else None
+    t = SP.block_local(fp, tokens.reshape(B * A, Ptok, C), cfg.block_cfg, t_frame, tpm)
     frame_out = t.reshape(B, A, Ptok, C)
     down, down_rope = _scene_tokens(frame_out, idx_l, t_frame)
     _store_kv(kv_out, block_context_kv(rp, down, cfg.block_cfg, down_rope))
@@ -426,19 +454,21 @@ def _build_layer_chunked(cfg: AggregatorConfig, fp, gp, rp, tokens, idx_l,
     B, A, Ptok, C = tokens.shape
     G = anchor_chunk
     bcfg, bcfg_g = cfg.block_cfg, cfg.global_block_cfg
+    tpm = shard.tp_mesh if shard is not None else None
     t_global_G = _tile_tables(t_frame, G)
     R5 = idx_l.shape[-1]
     fo_buf = torch.empty_like(tokens)
     k_buf = v_buf = None
     for a0 in range(0, A, G):
-        t = block(fp, tokens[:, a0: a0 + G].reshape(B * G, Ptok, C), bcfg, t_frame)
+        t = SP.block_local(fp, tokens[:, a0: a0 + G].reshape(B * G, Ptok, C), bcfg, t_frame,
+                           tpm)
         fo = t.reshape(B, G, Ptok, C)
         fo_buf[:, a0: a0 + G] = fo
         down, down_rope = _scene_tokens(fo, idx_l[:, a0: a0 + G], t_frame)
         _store_kv(kv_out, block_context_kv(rp, down, bcfg, down_rope), a0 * R5)
-        _, kc, vc = qkv_parts(gp, fo.reshape(B, G * Ptok, C), bcfg_g, t_global_G)
+        _, kc, vc = SP.qkv_local(gp, fo.reshape(B, G * Ptok, C), bcfg_g, t_global_G, tpm)
         if k_buf is None:
-            shape = (B, cfg.num_heads, A * Ptok, cfg.head_dim)
+            shape = (B, kc.shape[1], A * Ptok, cfg.head_dim)
             k_buf, v_buf = kc.new_empty(shape), vc.new_empty(shape)
         k_buf[:, :, a0 * Ptok: (a0 + G) * Ptok] = kc
         v_buf[:, :, a0 * Ptok: (a0 + G) * Ptok] = vc
@@ -447,9 +477,10 @@ def _build_layer_chunked(cfg: AggregatorConfig, fp, gp, rp, tokens, idx_l,
     go_buf = torch.empty_like(tokens)
     for a0 in range(0, A, G):
         xc = fo_buf[:, a0: a0 + G].reshape(B, G * Ptok, C)
-        qc, _, _ = qkv_parts(gp, xc, bcfg_g, t_global_G)
-        o = attention_heads_out(gp["attn"], qc, k_buf, v_buf, bcfg_g.attn)
-        go_buf[:, a0: a0 + G] = attn_out_mlp(gp, o, xc, bcfg_g).reshape(B, G, Ptok, C)
+        qc, _, _ = SP.qkv_local(gp, xc, bcfg_g, t_global_G, tpm)
+        o = attention_heads_out(gp["attn"], qc, k_buf, v_buf, local_attn_cfg(gp, bcfg_g))
+        go_buf[:, a0: a0 + G] = SP.attn_out_mlp_local(gp, o, xc, bcfg_g, tpm).reshape(
+            B, G, Ptok, C)
     return go_buf, fo_buf
 
 
@@ -496,10 +527,10 @@ def _build_setup(p, cfg, anchor_images, rank, generator, subsample_indices,
     B, A = anchor_images.shape[:2]
     tokens, _ = _embed_frames(
         p, cfg, anchor_images, [False] * A,
-        frame_chunk=anchor_chunk if chunk_embed else None, anchor0=anchor0)
+        frame_chunk=anchor_chunk if chunk_embed else None, anchor0=anchor0, shard=shard)
     t_frame = _rope_tables_frame(cfg, gh, gw, dev)
-    layer_shape = (B, cfg.num_heads, A * (rank + cfg.patch_start_idx),
-                   2 * cfg.head_dim)
+    heads = shard.heads(cfg.num_heads) if shard is not None else cfg.num_heads
+    layer_shape = (B, heads, A * (rank + cfg.patch_start_idx), 2 * cfg.head_dim)
     return tokens, idx, t_frame, layer_shape
 
 
@@ -522,8 +553,11 @@ def aggregator_build_cache(
     Under a ``shard`` each rank builds its anchors (``anchor_chunk`` then
     cuts those) and keeps their rows of the cache, ``(depth, B/nd, heads,
     A * (rank + 5) / nc, 2 * head_dim)``, marked ``cache["shards"] = (nd,
-    nc)``; the cam tokens come back whole on every rank.
+    nc, nm)``; under tensor parallelism (nm above 1, or forced) only the
+    rank's heads, H / nm. The cam tokens come back whole on every rank.
     """
+    if shard is not None:
+        p = shard.aggregator_params(p)
     with _local_context(shard):
         tokens, idx, t_frame, layer_shape = _build_setup(
             p, cfg, anchor_images, rank, generator, subsample_indices, anchor_chunk,
@@ -534,25 +568,28 @@ def aggregator_build_cache(
         cam = torch.cat([frame_cam, global_cam], dim=-1).float()
         if shard is None:
             return {"kv": kv}, cam
-        return {"kv": kv, "shards": (shard.nd, shard.nc)}, shard.gather_all(cam)
+        return {"kv": kv, "shards": _cache_shards(shard)}, shard.gather_all(cam)
 
 
 def _reloc_layer_kv2(cfg: AggregatorConfig, fp, rp, tokens, ckv, layer_idx: int,
-                     t_frame):
+                     t_frame, shard: Optional[SceneShard] = None):
     """One reloc layer against a kv2 cache stack (the whole cache or one
     segment of it); ``layer_idx`` indexes ``ckv``'s leading dim inside the
-    attention kernel. Returns (reloc_out, frame_out), both (B, Q, P, C)."""
+    attention kernel. Under a ``shard`` with ``tp`` the blocks are
+    Megatron's and ``ckv`` holds the rank's heads. Returns (reloc_out,
+    frame_out), both (B, Q, P, C)."""
     B, Q, Ptok, C = tokens.shape
     bcfg = cfg.block_cfg
-    t = block(fp, tokens.reshape(B * Q, Ptok, C), bcfg, t_frame)
-    q, k, v = qkv_parts(rp, t, bcfg, t_frame)
+    tp_mesh = shard.tp_mesh if shard is not None else None
+    t = SP.block_local(fp, tokens.reshape(B * Q, Ptok, C), bcfg, t_frame, tp_mesh)
+    q, k, v = SP.qkv_local(rp, t, bcfg, t_frame, tp_mesh)
     o = packed_ctx_attention(q, k, v, ckv, layer_idx, impl=bcfg.attn.impl)
-    out = attn_out_mlp(rp, o, t, bcfg)
+    out = SP.attn_out_mlp_local(rp, o, t, bcfg, tp_mesh)
     return out.reshape(B, Q, Ptok, C), t.reshape(B, Q, Ptok, C)
 
 
 def _reloc_layers(p, cfg: AggregatorConfig, layers: range, tokens, layer_kv, t_frame,
-                  taps: Dict[int, torch.Tensor]):
+                  taps: Dict[int, torch.Tensor], shard: Optional[SceneShard] = None):
     """Run reloc layers ``layers``, layer l against ``layer_kv(l)`` (a kv2
     stack and the layer's index in it), adding the tapped layers to
     ``taps``."""
@@ -560,44 +597,64 @@ def _reloc_layers(p, cfg: AggregatorConfig, layers: range, tokens, layer_kv, t_f
     for l in layers:
         ckv, index = layer_kv(l)
         tokens, frame_out = _reloc_layer_kv2(
-            cfg, p["frame_blocks"][l], p["reloc_blocks"][l], tokens, ckv, index, t_frame)
+            cfg, p["frame_blocks"][l], p["reloc_blocks"][l], tokens, ckv, index, t_frame,
+            shard)
         if l in taps_list:
             taps[l] = torch.cat([frame_out, tokens], dim=-1).float()
     return tokens
 
 
-def _reloc_setup(p, cfg: AggregatorConfig, images: torch.Tensor):
+def _reloc_setup(p, cfg: AggregatorConfig, images: torch.Tensor,
+                 shard: Optional[SceneShard] = None):
     _check_taps(cfg)
     B, Q, H, W, _ = images.shape
-    tokens, _ = _embed_frames(p, cfg, images, [True] * Q)
+    tokens, _ = _embed_frames(p, cfg, images, [True] * Q, shard=shard)
     t_frame = _rope_tables_frame(cfg, H // cfg.patch_size, W // cfg.patch_size,
                                  images.device)
     return tokens, t_frame
 
 
+def _cache_shards(shard: Optional[SceneShard]):
+    """How a cache built under ``shard`` is cut: (data, context, model)
+    extents, model 1 unless its heads are cut."""
+    return (shard.nd, shard.nc, shard.nm if shard.tp else 1)
+
+
 def _cache_reader(cache, shard: Optional[SceneShard]):
     """``l -> (kv2 stack, index)`` for reloc layer l. A whole cache is read
-    in place. Otherwise layer l becomes a transient (1, B', heads, A·(rank +
-    5), 2·head_dim) for the rank's scenes: a context-sharded cache gathered
-    over ``context`` (and over ``data`` when the queries are not cut over
-    it), a whole cache cut to the rank's scenes when the queries are."""
+    in place. Otherwise layer l becomes a transient (1, B', heads', A·(rank
+    + 5), 2·head_dim) for the rank's scenes and heads: a context-sharded
+    cache gathered over ``context`` (and over ``data`` when the queries are
+    not cut over it, over ``model`` when its heads are cut and the queries'
+    blocks are not), a whole cache cut to the rank's scenes when the queries
+    are, and to the rank's heads under tensor parallelism."""
     kv, built = cache["kv"], cache.get("shards")
-    if built is None and (shard is None or shard.nd == 1):
+    tp = shard is not None and shard.tp
+    if built is None and (shard is None or (shard.nd == 1 and not tp)):
         return lambda l: (kv, l)
     mesh = shard.mesh if shard is not None else active_mesh()
-    if built is not None and (
-            mesh is None or built != (mesh.shape[DATA_AXIS], mesh.shape[CONTEXT_AXIS])):
-        raise ValueError(
-            f"the cache was built over a (data, context) = {built} mesh; reloc it "
-            "under that mesh")
+    if built is not None:
+        built = tuple(built)
+        want = _cache_shards(shard) if shard is not None else None
+        if mesh is None or (want is not None and built != want) or (
+                want is None and built[:2] != (mesh.shape[DATA_AXIS], mesh.shape[CONTEXT_AXIS])):
+            raise ValueError(
+                f"the cache was built over a (data, context, model) = {built} mesh; reloc "
+                "it under that mesh")
 
     def read(l):
         layer = kv[l: l + 1]
         if built is None:
-            return shard.scenes(layer, 1), 0
+            layer = shard.scenes(layer, 1)
+            if tp:
+                hl = shard.heads(layer.shape[2])
+                layer = layer.narrow(2, shard.mesh.index(MODEL_AXIS) * hl, hl).contiguous()
+            return layer, 0
         layer = gather(layer, mesh, CONTEXT_AXIS, 3)
         if shard is None:
             layer = gather(layer, mesh, DATA_AXIS, 1)
+            if built[2] > 1:
+                layer = gather(layer, mesh, MODEL_AXIS, 2)
         return layer, 0
 
     return read
@@ -612,13 +669,13 @@ def aggregator_reloc(p, cfg: AggregatorConfig, cache, images: torch.Tensor,
     whole or as :func:`aggregator_build_cache` left it under the same
     mesh."""
     if shard is not None:
-        p = shard.replicate(p)
+        p = shard.aggregator_params(p)
         images = shard.frames(shard.scenes(images), 1)
     read = _cache_reader(cache, shard)
     with _local_context(shard):
-        tokens, t_frame = _reloc_setup(p, cfg, images)
+        tokens, t_frame = _reloc_setup(p, cfg, images, shard)
         taps: Dict[int, torch.Tensor] = {}
-        _reloc_layers(p, cfg, range(cfg.depth), tokens, read, t_frame, taps)
+        _reloc_layers(p, cfg, range(cfg.depth), tokens, read, t_frame, taps, shard)
     taps[-1] = taps[cfg.depth - 1]
     return taps, cfg.patch_start_idx
 

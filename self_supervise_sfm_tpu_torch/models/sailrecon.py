@@ -11,8 +11,10 @@ Under an active mesh (``parallel/sharding.py:activate_mesh``) ``forward``,
 ``build_scene_cache`` and ``reloc`` take the whole inputs on every rank, run
 each rank's scenes and frames (``parallel/sp_block.py:scene_shard``; counts
 that do not divide take the replicated path) and return the predictions
-whole on every rank; the scene cache stays rank-local. The host-staged and
-chunked variants refuse a mesh of more than one rank.
+whole on every rank; the scene cache stays rank-local. A ``model`` extent
+above 1 cuts the aggregator's blocks over heads and hidden units (tensor
+parallelism) and the cache over heads. The host-staged and chunked variants
+refuse a mesh of more than one rank.
 """
 
 from __future__ import annotations
@@ -28,10 +30,10 @@ from ..heads.dpt import DPTHeadConfig, dpt_head, init_dpt_head
 from ..layers.vit import ViTConfig
 from ..ops import geometry as G
 from ..parallel.sharding import AXES, active_mesh
-from ..parallel.sp_block import SceneShard, scene_shard
+from ..parallel.sp_block import SceneShard, scene_shard, tp_engaged
 from .aggregator import (
     AggregatorConfig, aggregator_build_cache, aggregator_build_cache_staged,
-    aggregator_forward, aggregator_reloc, aggregator_reloc_staged,
+    aggregator_forward, aggregator_reloc, aggregator_reloc_staged, block_cfgs,
     init_aggregator,
 )
 
@@ -195,6 +197,14 @@ def _decode_heads(p, cfg, taps, cam_token_last_layer, images_hw, patch_start_idx
     return predictions
 
 
+def _scene_shard(cfg: SailReconConfig, num_scenes: int, *frame_counts: int):
+    """The aggregator's layout under the active mesh (``scene_shard``), with
+    Megatron's blocks where the mesh cuts over ``model`` and every block
+    divides it (``tp_engaged``)."""
+    return scene_shard(num_scenes, *frame_counts,
+                       tp=tp_engaged(block_cfgs(cfg.aggregator), active_mesh()))
+
+
 def _heads_params(p, shard: Optional[SceneShard]):
     """The heads' params, under a shard with their gradient summed over the
     mesh (the aggregator's are replicated by the aggregator)."""
@@ -238,7 +248,7 @@ def forward(
     """
     dev, images = _inputs(p, images, device)
     H, W = images.shape[2], images.shape[3]
-    shard = scene_shard(images.shape[0], num_anchor, num_query)
+    shard = _scene_shard(cfg, images.shape[0], num_anchor, num_query)
     taps, psi, cam_tok = aggregator_forward(
         p["aggregator"], cfg.aggregator, images, num_anchor, num_query, rank,
         generator, subsample_indices, images_duplicated, shard=shard,
@@ -300,7 +310,7 @@ def build_scene_cache(
     keeps its anchors' rows (``aggregator_build_cache``).
     """
     _, images = _inputs(p, anchor_images, device)
-    shard = scene_shard(images.shape[0], images.shape[1])
+    shard = _scene_shard(cfg, images.shape[0], images.shape[1])
     return aggregator_build_cache(
         p["aggregator"], cfg.aggregator, images, rank, generator,
         subsample_indices, anchor_chunk=anchor_chunk, chunk_embed=chunk_embed,
@@ -343,7 +353,7 @@ def reloc(
             f"the cache lives on {cache['kv'].device}, reloc runs on {dev}: "
             "move it there, or use reloc_staged for a host cache")
     H, W = images.shape[2], images.shape[3]
-    shard = scene_shard(images.shape[0], images.shape[1])
+    shard = _scene_shard(cfg, images.shape[0], images.shape[1])
     taps, psi = aggregator_reloc(p["aggregator"], cfg.aggregator, cache, images, shard)
     cam_tok = torch.as_tensor(cam_token_last_layer).to(dev)
     if shard is not None:

@@ -8,7 +8,9 @@ attention output's heads through a 3-D tensor map, with no merge copy).
 Each launch wrapper sits beside its plain PyTorch version:
 
 - :func:`fused_ln_qkv_rope_fwd` replaces ``fused_qkv_kernel``: layer norm with
-  fp32 statistics, ``@ W_qkv`` with fp32 accumulation rounded to x's dtype,
+  fp32 statistics, ``@ W_qkv`` (C, 3 Hl d: every head, Hl = H, or under
+  tensor parallelism one rank's head shard, its columns of q, of k and of v
+  in ``[q_l | k_l | v_l]`` order) with fp32 accumulation rounded to x's dtype,
   the bias added in that dtype, per-head q/k layer norm over d, 2D RoPE in
   x's dtype, and q, k, v written as (B, H, N, d). Plain version
   :func:`fused_ln_qkv_rope_plain` (the JAX ``reference_qkv``).
@@ -133,12 +135,33 @@ def _check_tile_widths(name: str, C: int, nout: int) -> None:
                          f"width {nout} a multiple of 128")
 
 
-def qkv_kernel_takes(C: int, num_heads: int) -> bool:
-    """Widths that LN+QKV(+RoPE) take: head dim 64 and C a multiple of 256
-    (so the output width 3 C is a multiple of 128): the checks of
-    :func:`_check_widths` and :func:`_check_tile_widths`, as a predicate for
-    the "auto" gates of ``layers/block.py``."""
-    return C == num_heads * KERNEL_HEAD_DIM and C % 256 == 0
+def _qkv_widths(name: str, x, w, num_heads: int) -> int:
+    """The checks of LN+QKV(+RoPE)'s widths: x (B, N, C) and w (C, 3 Hl d)
+    for the Hl = ``num_heads`` heads the call computes (all C / d, or a
+    rank's head shard); d = 64, C a multiple of 256, Hl even. Returns d."""
+    C, nout = x.shape[2], w.shape[-1]
+    if w.dim() != 2 or w.shape[0] != C or nout % (3 * num_heads):
+        raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"{num_heads} heads")
+    d = nout // (3 * num_heads)
+    _check_widths(name, head_dim=d, C=C)
+    if num_heads % 2:
+        raise ValueError(f"{name}: {num_heads} heads: a 128-column tile holds two heads "
+                         "of one of q, k and v, so the kernel takes an even head count")
+    _check_tile_widths(name, C, nout)
+    return d
+
+
+def qkv_kernel_takes(C: int, num_local_heads: int, head_dim: int = KERNEL_HEAD_DIM) -> bool:
+    """Widths that LN+QKV(+RoPE) take: an input width C a multiple of 256
+    (the pre-pass's steps) and an even number of heads computed, Hl (a
+    128-column tile of the (C, 3 Hl 64) weight holds two heads of one of q,
+    k and v), at head dim 64. Hl is all C / 64 heads, or one rank's head
+    shard under tensor parallelism, whose C stays the whole width. The
+    checks of :func:`_qkv_widths`, as a predicate for the "auto" gates of
+    ``layers/block.py``."""
+    return (head_dim == KERNEL_HEAD_DIM and C % 256 == 0 and num_local_heads > 0
+            and num_local_heads % 2 == 0)
 
 
 def proj_kernel_takes(C: int, num_heads: int) -> bool:
@@ -195,15 +218,10 @@ def fused_ln_qkv_rope_fwd(x, ln_scale, ln_bias, w, b, qn_scale, qn_bias, kn_scal
                                        kn_scale, kn_bias, cos, sin, num_heads, eps)
     name = "fused_ln_qkv_rope"
     B, N, C = x.shape
-    d = C // num_heads
-    _check_widths(name, head_dim=d, C=C)
-    _check_tile_widths(name, C, 3 * C)
-    if C != num_heads * d or tuple(w.shape) != (C, 3 * C):
-        raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)}, "
-                         f"{num_heads} heads")
+    d = _qkv_widths(name, x, w, num_heads)
     _check(name, x.device, torch.bfloat16, x=x, w=w)
     _check(name, x.device, torch.float32, ln_scale=(ln_scale, (C,)), ln_bias=(ln_bias, (C,)),
-               b=(b, (3 * C,)), qn_scale=(qn_scale, (d,)), qn_bias=(qn_bias, (d,)),
+               b=(b, (w.shape[1],)), qn_scale=(qn_scale, (d,)), qn_bias=(qn_bias, (d,)),
                kn_scale=(kn_scale, (d,)), kn_bias=(kn_bias, (d,)),
                cos=(cos, (N, d)), sin=(sin, (N, d)))
     q, k, v = (torch.empty((B, num_heads, N, d), dtype=x.dtype, device=x.device)
@@ -214,7 +232,7 @@ def fused_ln_qkv_rope_fwd(x, ln_scale, ln_bias, w, b, qn_scale, qn_bias, kn_scal
             ln_bias.data_ptr(), w.data_ptr(), b.data_ptr(), qn_scale.data_ptr(),
             qn_bias.data_ptr(), kn_scale.data_ptr(), kn_bias.data_ptr(),
             cos.data_ptr(), sin.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _ln_scratch(x).data_ptr(), B, N, num_heads, eps,
+            _ln_scratch(x).data_ptr(), B, N, C, num_heads, eps,
             _kernels.stream_ptr(x),
         )
         fused_ln_qkv_rope_fwd.launches += 1
@@ -242,22 +260,17 @@ def fused_ln_qkv_fwd(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e
         return fused_ln_qkv_plain(x, ln_scale, ln_bias, w, b, num_heads, eps)
     name = "fused_ln_qkv"
     B, N, C = x.shape
-    d = C // num_heads
-    _check_widths(name, head_dim=d, C=C)
-    _check_tile_widths(name, C, 3 * C)
-    if C != num_heads * d or tuple(w.shape) != (C, 3 * C):
-        raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)}, "
-                         f"{num_heads} heads")
+    d = _qkv_widths(name, x, w, num_heads)
     _check(name, x.device, torch.bfloat16, x=x, w=w)
     _check(name, x.device, torch.float32, ln_scale=(ln_scale, (C,)), ln_bias=(ln_bias, (C,)),
-               b=(b, (3 * C,)))
+               b=(b, (w.shape[1],)))
     q, k, v = (torch.empty((B, num_heads, N, d), dtype=x.dtype, device=x.device)
                for _ in range(3))
     if B and N:
         _kernels.launch(
             "sfm_ln_qkv_sm90", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             w.data_ptr(), b.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _ln_scratch(x).data_ptr(), B, N, num_heads, eps,
+            _ln_scratch(x).data_ptr(), B, N, C, num_heads, eps,
             _kernels.stream_ptr(x),
         )
         fused_ln_qkv_fwd.launches += 1

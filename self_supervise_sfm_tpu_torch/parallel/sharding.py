@@ -3,8 +3,9 @@
 Port of ``self_supervise_sfm_tpu/parallel/sharding.py``. The mesh has the
 JAX package's three axes: ``data`` (whole scenes per rank), ``context``
 (sequence parallelism over the long global-attention token axis and the
-scene cache's token axis) and ``model`` (tensor parallelism, which the port
-does not run yet: every sharded block refuses a ``model`` extent above 1).
+scene cache's token axis) and ``model`` (tensor parallelism: attention heads
+and the MLP's hidden width cut over it, Megatron's blocks in
+``parallel/sp_block.py``).
 
 JAX holds global arrays and lets GSPMD and ``shard_map`` move them. The port
 is plain SPMD instead: one process a rank, each holding its shard, and every
@@ -21,7 +22,14 @@ function                      forward                backward
 :func:`gather_summed`         all-gather             reduce-scatter (sum)
 :func:`post_ring_shift`       send to i+1,           the reverse rotation
                               receive from i-1
+:func:`reduce_from_model`     all-reduce (sum)       identity
 ============================  =====================  ======================
+
+Megatron's two operators are :func:`replicate` over ``model`` at the input
+of a column-parallel half (the input whole on every rank of a model group,
+each rank's branch a part of its gradient) and :func:`reduce_from_model` at
+the output of a row-parallel half (each rank's product a part of the sum,
+the sum's gradient whole on every rank).
 
 ``replicate`` is a replicated parameter used on a local shard (JAX's
 ``shard_map`` transpose of a ``P()`` input psums it). ``scatter`` takes a
@@ -42,7 +50,13 @@ Training's parameter layout is JAX's rule: :func:`param_sharding` gives each
 leaf of a tree a spec (one entry a dim, a mesh axis or None, as a
 ``PartitionSpec``), FSDP's ZeRO-3 cut over ``data`` composed with the
 Megatron cut over ``model``. :func:`shard_tree` keeps a rank's slice of
-each leaf and :func:`gather_tree` joins them again. The train step reduces
+each leaf and :func:`gather_tree` joins them again. A leaf's part of the
+``model`` axis is its rank's heads or hidden units, cut first: a qkv
+leaf's columns of q, of k and of v for the rank's heads, in
+``[q_l | k_l | v_l]`` order (:func:`model_groups`, JAX's
+``_tp_local_attn``), not the contiguous third of ``[q | k | v]`` that
+JAX's spec names (its blocks slice per head and XLA reshards every use);
+the ``data`` cut then applies to that part. The train step reduces
 gradients after its backward in flat buffers of :data:`BUCKET_BYTES`
 (:func:`bucketed_all_reduce`, :func:`bucketed_reduce_scatter`) and gathers
 FSDP's shards the same way (:func:`bucketed_all_gather`), so that a step
@@ -296,6 +310,24 @@ class _GatherSummed(torch.autograd.Function):
         return None, None, _reduce_scatter(g, ctx.group, ctx.dim)
 
 
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``x`` over the rank's ``model`` group: the output of a
+    row-parallel product, each rank's part of the sum computed from its
+    heads or hidden units. The gradient is the sum's, whole on every rank
+    (Megatron's ``g``)."""
+    return _ReduceFromModel.apply(mesh.group(MODEL_AXIS), x)
+
+
 def replicate(tree, mesh: Mesh, axes: Axes):
     """Each tensor leaf of ``tree`` (nested dicts and lists) as it is, with
     its gradient summed over ``axes``: a replicated parameter used on this
@@ -500,55 +532,106 @@ def spec_leaves(specs) -> List[Spec]:
 
 def data_dim(spec: Spec) -> Optional[int]:
     """The dim a spec cuts over ``data``, or None."""
-    if MODEL_AXIS in spec:
-        raise NotImplementedError(
-            "a spec over 'model' (tensor parallelism) has no rank-local layout yet: "
-            "ROADMAP.md Queue A item 3d")
     return spec.index(DATA_AXIS) if DATA_AXIS in spec else None
 
 
-def _map_leaves(tree, specs, fn):
+def model_dim(spec: Spec) -> Optional[int]:
+    """The dim a spec cuts over ``model``, or None."""
+    return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
+
+
+def model_groups(path) -> int:
+    """The column groups of a leaf whose ``model`` cut takes each group's
+    part: 3 for an attention qkv weight or bias (a rank holds its heads'
+    columns of q, of k and of v), else 1 (one contiguous part)."""
+    keys = [k for k in path if isinstance(k, str)]
+    return 3 if len(keys) >= 3 and keys[-3:-1] == ["attn", "qkv"] else 1
+
+
+def model_part(x: torch.Tensor, d: int, n: int, i: int, groups: int = 1) -> torch.Tensor:
+    """Part ``i`` of ``n`` of ``x`` along ``d`` over ``model``: in each of
+    ``groups`` equal runs of the dim, its i-th n-th (a view when groups is 1;
+    differentiable)."""
+    d = d % x.dim()
+    size = x.shape[d]
+    if size % (groups * n):
+        raise ValueError(f"axis {d} of {tuple(x.shape)} does not split into {groups} x {n} parts")
+    m = size // (groups * n)
+    if groups == 1:
+        return x.narrow(d, i * m, m)
+    parts = x.unflatten(d, (groups, n, m)).select(d + 1, i)
+    return parts.flatten(d, d + 1)
+
+
+def join_model_parts(parts: Sequence[torch.Tensor], d: int, groups: int = 1) -> torch.Tensor:
+    """The inverse of :func:`model_part` over its ``n`` parts, in rank order."""
+    d = d % parts[0].dim()
+    if groups == 1:
+        return torch.cat(list(parts), dim=d)
+    split = [p.unflatten(d, (groups, p.shape[d] // groups)) for p in parts]
+    return torch.stack(split, dim=d + 1).flatten(d, d + 2)
+
+
+def _map_leaves(tree, specs, fn, path=()):
     if isinstance(tree, dict):
-        return {k: _map_leaves(v, specs[k], fn) for k, v in tree.items()}
+        return {k: _map_leaves(v, specs[k], fn, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map_leaves(v, s, fn) for v, s in zip(tree, specs)]
-    return None if tree is None else fn(tree, specs)
+        return [_map_leaves(v, s, fn, path + (i,)) for i, (v, s) in enumerate(zip(tree, specs))]
+    return None if tree is None else fn(tree, specs, path)
 
 
-def shard_of(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+def local_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of a rank's slice of a leaf of ``shape`` under ``spec``."""
+    ext = _extents(mesh)
+    out = list(shape)
+    for d, a in enumerate(spec):
+        if a is not None:
+            out[d] //= ext.get(a, 1)
+    return tuple(out)
+
+
+def shard_of(x: torch.Tensor, spec: Spec, mesh: Mesh, groups: int = 1) -> torch.Tensor:
     """This rank's slice of a whole leaf ``x`` under ``spec``, in its own
-    contiguous storage (the whole can be freed)."""
-    d = data_dim(spec)
-    if d is None:
+    contiguous storage (the whole can be freed): its part over ``model``
+    (``groups`` as :func:`model_groups`), then of that its part over
+    ``data``."""
+    md, d = model_dim(spec), data_dim(spec)
+    if md is None and d is None:
         return x
-    n = mesh.shape[DATA_AXIS]
-    m = x.shape[d] // n
-    return x.narrow(d, mesh.index(DATA_AXIS) * m, m).clone(
-        memory_format=torch.contiguous_format)
+    if md is not None:
+        x = model_part(x, md, mesh.shape[MODEL_AXIS], mesh.index(MODEL_AXIS), groups)
+    if d is not None:
+        n = mesh.shape[DATA_AXIS]
+        m = x.shape[d] // n
+        x = x.narrow(d, mesh.index(DATA_AXIS) * m, m)
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def shard_tree(tree, specs, mesh: Mesh):
     """This rank's slice of every leaf of ``tree`` (whole on every rank)."""
-    return _map_leaves(tree, specs, lambda x, s: shard_of(x, s, mesh))
+    return _map_leaves(tree, specs, lambda x, s, path: shard_of(x, s, mesh, model_groups(path)))
 
 
 def gather_tree(tree, specs, mesh: Mesh, to_rank: Optional[int] = None, device=None):
     """Every leaf of ``tree`` (this rank's shards) whole, gathered one leaf at
-    a time over ``data``. Every rank of the mesh must call it. With
-    ``to_rank`` only that rank (of the world) keeps the result; the others
-    get None. ``device``: where each whole leaf goes as soon as it is
-    gathered (the host, for a checkpoint), so that the whole tree never sits
-    on the card."""
+    a time over ``data``, then over ``model``. Every rank of the mesh must
+    call it. With ``to_rank`` only that rank (of the world) keeps the
+    result; the others get None. ``device``: where each whole leaf goes as
+    soon as it is gathered (the host, for a checkpoint), so that the whole
+    tree never sits on the card."""
     keep = to_rank is None or dist.get_rank() == to_rank
 
-    def one(x, spec):
-        d = data_dim(spec)
+    def one(x, spec, path):
+        d, md = data_dim(spec), model_dim(spec)
         whole = x if d is None else _all_gather(x, mesh.group(DATA_AXIS), d)
+        if md is not None:
+            parts = _all_gather(whole.unsqueeze(0), mesh.group(MODEL_AXIS), 0)
+            whole = join_model_parts(list(parts.unbind(0)), md, model_groups(path))
         if not keep:
             return None
         if device is not None:
             return whole.detach().to(device, copy=True)
-        return whole if d is not None else x
+        return whole if (d is not None or md is not None) else x
 
     out = _map_leaves(tree, specs, one)
     return out if keep else None

@@ -231,11 +231,11 @@ def main() -> int:
                     x.data_ptr(), lw.data_ptr(), lb.data_ptr(), wq.data_ptr(), bq.data_ptr(),
                     qw.data_ptr(), qb.data_ptr(), kw.data_ptr(), kb.data_ptr(), cos.data_ptr(),
                     sin.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), hn.data_ptr(), B,
-                    NTOK, HEADS, EPS, stream), name),
+                    NTOK, C, HEADS, EPS, stream), name),
                 "qkv": lambda: _launch(lib.sfm_ln_qkv_sm90(  # noqa: E731
                     x.data_ptr(), lw.data_ptr(), lb.data_ptr(), wq.data_ptr(), bq.data_ptr(),
-                    q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), hn.data_ptr(), B, NTOK, HEADS,
-                    EPS, stream), name),
+                    q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), hn.data_ptr(), B, NTOK, C,
+                    HEADS, EPS, stream), name),
                 "proj": lambda: _launch(lib.sfm_proj_residual_sm90(  # noqa: E731
                     o.data_ptr(), x.data_ptr(), wp.data_ptr(), bp.data_ptr(), gamma.data_ptr(),
                     yp.data_ptr(), B, NTOK, HEADS, stream), name),

@@ -105,7 +105,7 @@ class CheckpointManager:
 
     def _save_mesh(self, step: int, state, layout) -> None:
         primary = dist.get_rank() == 0
-        if layout.fsdp:
+        if layout.fsdp or layout.tp:
             host = {k: v for k, v in state.items() if k not in ("params", "opt")}
             host["params"] = layout.gather(state["params"], 0, "cpu")
             host["opt"] = {k: (layout.gather(v, 0, "cpu") if k in ("mu", "nu") else v)
@@ -120,6 +120,8 @@ class CheckpointManager:
                 error = e
         del host
         dist.barrier(group=layout.mesh.group(("data", "context")))
+        if layout.mesh.shape["model"] > 1:
+            dist.barrier(group=layout.mesh.group("model"))
         if error is not None:
             raise RuntimeError("checkpoint write failed") from error
 

@@ -36,8 +36,20 @@ the compute dtype, gathers them whole once (bucketed all-gathers, half the
 bytes of fp32), and reduce-scatters the gradients back onto the shards,
 where Adam runs. The gradient norm sums each rank's shards over ``data``
 and counts whole leaves once, so every rank clips alike and reports the
-same metrics. A ``model`` extent above 1 raises (ROADMAP.md Queue A item
-3d).
+same metrics.
+
+A ``model`` extent above 1 adds tensor parallelism (JAX's step under a mesh
+with ``tp``): the aggregator's blocks (the ViT's, frame, reloc, global) hold
+their model-local parts at rest (``parallel/sharding.py``'s per-head cut,
+FSDP's cut applied to that part) and run Megatron's body; the patch
+embedding, tokens and heads are whole on every model rank. After the
+backward a cut leaf's gradient is summed over data x context (each model
+rank holds its own part), a leaf read inside a column-parallel branch
+(LN1, the qk-norms, LN2) over ``model`` as well (each model rank holds a
+part of it), and every other leaf over data x context alone (each model
+rank holds all of it). The gradient norm counts a cut leaf's parts once
+across ``model`` and a replicated leaf once (``optax.global_norm`` of the
+whole tree), and Adam runs on the rank-local leaves.
 """
 
 from __future__ import annotations
@@ -55,7 +67,7 @@ import torch.distributed as dist
 
 from ..heads.camera import camera_head
 from ..models import sailrecon as M
-from ..models.aggregator import aggregator_forward, draw_subsample_indices
+from ..models.aggregator import aggregator_forward, block_cfgs, draw_subsample_indices
 from ..ops import geometry as G
 from ..parallel import sharding as Sh
 from ..parallel import sp_block as SP
@@ -159,12 +171,14 @@ class StateLayout:
     """How a train state lies over a mesh. ``specs`` mirrors the params tree
     (the Adam moments mirror it too), one spec a leaf: FSDP's leaves are cut
     over ``data`` on one dim, the others (and every leaf without ``fsdp``)
-    are whole on every rank."""
+    are whole on every rank; with ``tp`` the aggregator's block leaves
+    that Megatron cuts are cut over ``model`` first."""
 
     mesh: Sh.Mesh
     specs: Any
     fsdp: bool
     shapes: Any  # the whole leaves' shapes, a tree as ``specs``
+    tp: bool = False
 
     def shard(self, tree):
         """This rank's slice of each leaf of a tree of whole leaves."""
@@ -191,36 +205,70 @@ def state_layout(model_cfg: M.SailReconConfig, train_cfg: TrainConfig,
     mesh = mesh if mesh is not None else Sh.active_mesh()
     if mesh is None:
         return None
-    if mesh.shape[Sh.MODEL_AXIS] > 1:
-        raise NotImplementedError(SP.TP_REFUSAL)
     forced = SP._FORCE_SINGLE_DEVICE_SPMD
     fsdp = train_cfg.fsdp and (mesh.shape[Sh.DATA_AXIS] > 1 or forced)
+    tp = SP.tp_engaged(block_cfgs(model_cfg.aggregator), mesh)
     whole = param_shapes(model_cfg)
-    specs = Sh.param_sharding(mesh, whole, fsdp=fsdp, force=forced)
-    return StateLayout(mesh, specs, fsdp, _unflatten(whole, [t.shape for t in _flatten(whole)]))
+    specs = layout_specs(mesh, whole, fsdp, tp, forced)
+    return StateLayout(mesh, specs, fsdp, _unflatten(whole, [t.shape for t in _flatten(whole)]),
+                       tp)
+
+
+def layout_specs(mesh, whole, fsdp: bool, tp: bool, forced: bool = False):
+    """The specs of a params tree: JAX's rule (``Sh.param_sharding``), with
+    the ``model`` cut on the aggregator's block leaves alone under ``tp``
+    (the heads and camera tokens run replicated on every model rank)."""
+    ext = Sh._extents(mesh)
+    nd = ext.get(Sh.DATA_AXIS, 1) if fsdp else 1
+    nm = ext.get(Sh.MODEL_AXIS, 1) if tp else 1
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path + (i,)) for i, v in enumerate(node)]
+        if node is None:
+            return None
+        cut = SP.tp_block_leaf(path) is not None
+        return Sh.leaf_spec(path, node.shape, nd, nm if cut else 1,
+                            forced and fsdp)
+
+    return walk(whole, ())
+
+
+def _paths(tree, path=()) -> List[tuple]:
+    """The path of each leaf of ``tree``, in :func:`_flatten`'s order."""
+    if isinstance(tree, dict):
+        return [q for k in tree for q in _paths(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, v in enumerate(tree) for q in _paths(v, path + (i,))]
+    return [] if tree is None else [path]
 
 
 def state_bytes_per_rank(model_cfg: M.SailReconConfig, n: int, fsdp: bool,
-                         mu_dtype: str = "float32") -> int:
+                         mu_dtype: str = "float32", m: int = 1) -> int:
     """Bytes of one rank's train state (fp32 params, ``mu_dtype`` mu, fp32
-    nu) at a data extent of ``n``: JAX's rule on this model's leaves, each
-    cut leaf 1/n a rank, the others whole."""
+    nu) at a data extent of ``n`` and a model extent of ``m``: the port's
+    layout (:func:`layout_specs`) on this model's leaves, each leaf's cut
+    dims divided by their extents, the others whole."""
     per = 4 + _DTYPES[mu_dtype].itemsize + 4
     shapes = param_shapes(model_cfg)
-    specs = Sh.spec_leaves(Sh.param_sharding({Sh.DATA_AXIS: n}, shapes, fsdp=fsdp))
-    return sum(t.numel() * per // (n if Sh.DATA_AXIS in s else 1)
+    ext = {Sh.DATA_AXIS: n, Sh.MODEL_AXIS: m}
+    tp = m > 1 and SP.tp_blocks_divide(block_cfgs(model_cfg.aggregator), m)
+    specs = Sh.spec_leaves(layout_specs(ext, shapes, fsdp, tp))
+    return sum(int(np.prod(Sh.local_shape(t.shape, s, ext))) * per
                for t, s in zip(_flatten(shapes), specs))
 
 
-def _shard_in_place(tree, specs, mesh: Sh.Mesh):
+def _shard_in_place(tree, specs, mesh: Sh.Mesh, path=()):
     """Each whole leaf of ``tree`` replaced by this rank's slice, one at a
     time, so that the whole leaves can be freed as the walk goes."""
     for k in (tree.keys() if isinstance(tree, dict) else range(len(tree))):
         node = tree[k]
         if isinstance(node, (dict, list)):
-            _shard_in_place(node, specs[k], mesh)
+            _shard_in_place(node, specs[k], mesh, path + (k,))
         elif node is not None:
-            tree[k] = Sh.shard_of(node, specs[k], mesh)
+            tree[k] = Sh.shard_of(node, specs[k], mesh, Sh.model_groups(path + (k,)))
     return tree
 
 
@@ -364,7 +412,11 @@ def sharded_loss_and_grads(params, model_cfg: M.SailReconConfig, train_cfg: Trai
     images = batch["images"]
     Bl, S, H, W = images.shape[:4]
     B = Bl * nd if process_local else Bl
-    shard = SP.scene_shard(B, S, S, train_step=True)
+    shard = SP.scene_shard(B, S, S, train_step=True, tp=layout.tp)
+    if layout.tp and shard is None:
+        raise ValueError(
+            f"{B} scenes of {S} frames do not divide the mesh {mesh.shape}: the "
+            "tensor-parallel layout needs the sharded step")
     if shard is None and process_local:
         raise ValueError(
             f"{B} scenes of {S} frames do not divide the mesh {mesh.shape}: a process-local "
@@ -389,6 +441,7 @@ def sharded_loss_and_grads(params, model_cfg: M.SailReconConfig, train_cfg: Trai
 
     trained = {k: params[k] for k in _TRAINED}
     specs = Sh.leaves_like(trained, layout.specs)
+    paths = _paths(trained)
     masters = _flatten(trained)
     dims = [Sh.data_dim(sp) if layout.fsdp else None for sp in specs]
     cut = [i for i, d in enumerate(dims) if d is not None]
@@ -433,24 +486,35 @@ def sharded_loss_and_grads(params, model_cfg: M.SailReconConfig, train_cfg: Trai
             red = Sh.bucketed_all_reduce(red, mesh, Sh.CONTEXT_AXIS)
             for i, g in zip(cut, red):
                 grads[i] = g
+        if layout.tp:
+            # the leaves read inside a column-parallel branch: each model rank
+            # holds a part of their gradient
+            subs = [SP.tp_block_leaf(q) for q in paths]
+            branch = [i for i, q in enumerate(subs) if q is not None and SP.tp_in_branch(q)]
+            for i, g in zip(branch, Sh.bucketed_all_reduce(take(branch), mesh, Sh.MODEL_AXIS)):
+                grads[i] = g
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, _unflatten(
         trained, grads)
 
 
 def _grad_norms(grads, layout: Optional[StateLayout] = None) -> Dict[str, torch.Tensor]:
     """``grad_norm`` and the per-subsystem norms of the (reduced) gradients:
-    each leaf's sum of squares, under FSDP summed over ``data`` for the
-    slices (whole leaves counted once), then added leaf by leaf in the
-    order :func:`global_norm` adds them (a world of one gives its bits)."""
+    each leaf's sum of squares, summed over ``data`` for FSDP's slices and
+    over ``model`` for Megatron's parts (a leaf whole on those ranks counted
+    once), then added leaf by leaf in the order :func:`global_norm` adds
+    them (a world of one gives its bits)."""
     sq = torch.stack([t.float().pow(2).sum() for t in _flatten(grads)])
-    if layout is not None and layout.fsdp:
+    if layout is not None:
         mesh = layout.mesh
-        cut = torch.tensor([Sh.DATA_AXIS in s for s in Sh.leaves_like(grads, layout.specs)],
-                           device=sq.device)
-        if mesh.index(Sh.DATA_AXIS):
-            sq = torch.where(cut, sq, torch.zeros_like(sq))
-        Sh.collective_counts["all_reduce"] += 1
-        dist.all_reduce(sq, group=mesh.group(Sh.DATA_AXIS))
+        specs = Sh.leaves_like(grads, layout.specs)
+        for axis, on in ((Sh.DATA_AXIS, layout.fsdp), (Sh.MODEL_AXIS, layout.tp)):
+            if not on:
+                continue
+            cut = torch.tensor([axis in s for s in specs], device=sq.device)
+            if mesh.index(axis):
+                sq = torch.where(cut, sq, torch.zeros_like(sq))
+            Sh.collective_counts["all_reduce"] += 1
+            dist.all_reduce(sq, group=mesh.group(axis))
     tree = _unflatten(grads, list(sq.unbind()))
     norm = lambda xs: torch.sqrt(sum(xs))  # noqa: E731
     agg = {k: v for k, v in tree["aggregator"].items() if k != "vit"}
@@ -531,7 +595,6 @@ def make_train_step(model_cfg: M.SailReconConfig, train_cfg: TrainConfig,
     scenes alone."""
     dev = M._device(device)
     schedule = make_schedule(train_cfg)
-    state_layout(model_cfg, train_cfg)  # a mesh with a model extent above 1 raises here
     layouts: Dict[Sh.Mesh, StateLayout] = {}
 
     def step(state, batch, subsample_indices=None, generator=None, process_local=False):
@@ -578,17 +641,12 @@ def make_train_step(model_cfg: M.SailReconConfig, train_cfg: TrainConfig,
 def _check_layout(params, layout: StateLayout) -> None:
     """Raise unless every leaf of ``params`` has the shape of its slice under
     ``layout`` (a state made for another mesh, model or ``fsdp``)."""
-    n = layout.mesh.shape[Sh.DATA_AXIS]
     try:
         leaves = _flatten(params)
         ok = len(leaves) == len(Sh.spec_leaves(layout.shapes))
         for t, spec, shape in zip(leaves, Sh.leaves_like(params, layout.specs),
                                   Sh.leaves_like(params, layout.shapes)):
-            want = list(shape)
-            d = Sh.data_dim(spec)
-            if d is not None:
-                want[d] //= n
-            ok = ok and tuple(t.shape) == tuple(want)
+            ok = ok and tuple(t.shape) == Sh.local_shape(shape, spec, layout.mesh)
     except (KeyError, IndexError, TypeError):
         ok = False
     if not ok:
@@ -613,7 +671,7 @@ def make_eval_forward(model_cfg: M.SailReconConfig, train_cfg: TrainConfig,
     @torch.no_grad()
     def fwd(params, images, generator=None, subsample_indices=None):
         if layout is not None:
-            if layout.fsdp:
+            if layout.fsdp or layout.tp:
                 params = layout.gather(params, to_rank)
             if to_rank is not None and dist.get_rank() != to_rank:
                 return None

@@ -20,16 +20,18 @@ Port of ``self_supervise_sfm_tpu/train/trainer.py``:
 
 Under a process group (torchrun's environment, :func:`maybe_init_distributed`,
 or one the caller started) the trainer runs one rank a process over a
-(data, context) mesh, ``num_data = world // num_context``, as JAX's
-trainer builds its mesh: each data rank loads only its own scenes
-(``scenes_per_step_per_device`` slots a step, its context ranks the same
-ones), the step is the sharded one of ``loop.py`` (DDP, or FSDP with
-``train.fsdp``), checkpoints hold the whole state whatever the mesh, and
+(data, context, model) mesh, ``num_data = world // (num_context *
+num_model)``, as JAX's trainer builds its mesh (``model`` innermost, so a
+model group is adjacent ranks): each data rank loads only its own scenes
+(``scenes_per_step_per_device`` slots a step, its context and model ranks
+the same ones), the step is the sharded one of ``loop.py`` (DDP, or FSDP
+with ``train.fsdp``, either with tensor parallelism over ``model``:
+``num_model`` / ``--tp``), checkpoints hold the whole state whatever the
+mesh, and
 only rank 0 writes metrics, artifacts and the profile. Every rank runs
 validation (deterministic, so the early stop agrees without a broadcast),
 the checkpoint collectives and the gathers of the diagnostics forward.
-A ``model`` extent above 1 (tensor parallelism) raises
-``NotImplementedError`` (ROADMAP.md Queue A item 3d). ``pretrained``
+``pretrained``
 starts from a reference SAIL-Recon state dict through
 ``utils/converter.py``. The trainer runs on ``cuda`` unless
 ``device="cpu"``; the process group is NCCL on the card and gloo on the
@@ -37,6 +39,7 @@ CPU.
 
 Run:  python -m self_supervise_sfm_tpu_torch.train.trainer --data-root ... [--steps N]
       torchrun --nproc_per_node N -m self_supervise_sfm_tpu_torch.train.trainer --fsdp ...
+      torchrun --nproc_per_node N -m self_supervise_sfm_tpu_torch.train.trainer --tp M ...
 """
 
 from __future__ import annotations
@@ -57,7 +60,6 @@ import torch.distributed as dist
 
 from ..models import sailrecon as M
 from ..parallel import sharding as Sh
-from ..parallel import sp_block as SP
 from . import loop as L
 from .checkpoint import CheckpointManager
 from .loss import LossConfig
@@ -311,37 +313,38 @@ def maybe_init_distributed(device="cuda") -> None:
 
 
 def _make_mesh(cfg: TrainerConfig, dev: torch.device):
-    """The (data, context) mesh over the world of the process group, or
-    None without one (the one-device trainer)."""
-    if cfg.num_model > 1:
-        raise NotImplementedError(SP.TP_REFUSAL)
+    """The (data, context, model) mesh over the world of the process group,
+    or None without one (the one-device trainer)."""
+    inner = cfg.num_context * cfg.num_model
     if not dist.is_initialized():
-        if cfg.num_context > 1:
+        if inner > 1:
             raise ValueError(
-                f"multi-device training with num_context={cfg.num_context} needs "
-                f"{cfg.num_context} ranks at least: start it under torchrun "
-                f"--nproc_per_node N (N a multiple of {cfg.num_context})")
+                f"multi-device training with num_context={cfg.num_context}, "
+                f"num_model={cfg.num_model} needs {inner} ranks at least: start it under "
+                f"torchrun --nproc_per_node N (N a multiple of {inner})")
         return None
     world = dist.get_world_size()
-    if world % cfg.num_context:
+    if world % inner:
         raise ValueError(f"multi-device training: a world of {world} ranks does not split "
-                         f"into context groups of {cfg.num_context}")
-    mesh = Sh.make_mesh(world // cfg.num_context, cfg.num_context, 1, device=dev)
+                         f"into context x model groups of {cfg.num_context} x "
+                         f"{cfg.num_model}")
+    mesh = Sh.make_mesh(world // inner, cfg.num_context, cfg.num_model, device=dev)
     if cfg.num_images % cfg.num_context:
         raise ValueError(f"multi-device training: {cfg.num_images} frames a scene do not "
                          f"split over a context extent of {cfg.num_context}")
-    print(f"mesh: data={mesh.shape['data']} context={mesh.shape['context']} model=1 "
-          f"({dev.type}, {dist.get_backend()})")
+    print(f"mesh: data={mesh.shape['data']} context={mesh.shape['context']} "
+          f"model={mesh.shape['model']} ({dev.type}, {dist.get_backend()})")
     return mesh
 
 
 def _any_rank(flag: bool, mesh, dev) -> bool:
     """Whether ``flag`` is set on any rank of the mesh (a signal reaches the
     ranks at different steps; they must stop at the same one)."""
-    if mesh is None or mesh.size(("data", "context")) == 1:
+    if mesh is None or mesh.size(("data", "context", "model")) == 1:
         return flag
     t = torch.tensor([int(flag)], device=dev)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group(("data", "context")))
+    for axes in (("data", "context"), "model"):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group(axes))
     return bool(t.item())
 
 
@@ -381,10 +384,10 @@ def run(cfg: TrainerConfig):
         state = L.train_state_from_params(params, tcfg, layout)
     elif cfg.init_params_from:
         state = L.train_state_from_params(_seeded_params(cfg, model_cfg, dev), tcfg, layout)
-    elif layout is not None and layout.fsdp:
+    elif layout is not None and (layout.fsdp or layout.tp):
         state = L.init_train_state_sharded(
             model_cfg, tcfg, torch.Generator(device=dev).manual_seed(cfg.seed), mesh,
-            device=dev)
+            fsdp=tcfg.fsdp, device=dev)
     else:
         state = L.init_train_state(
             model_cfg, tcfg, torch.Generator(device=dev).manual_seed(cfg.seed), dev)
@@ -445,7 +448,7 @@ def run(cfg: TrainerConfig):
     def whole_params():
         """The params whole on every rank, for validation (every rank
         enters the gathers of FSDP's slices)."""
-        if layout is None or not layout.fsdp:
+        if layout is None or not (layout.fsdp or layout.tp):
             return state["params"]
         return layout.gather(state["params"])
 
@@ -563,10 +566,10 @@ def main(argv=None):
     ap.add_argument("--img-size", type=int, default=518)
     ap.add_argument("--num-context", type=int, default=1,
                     help="context (sequence-parallel) extent of the mesh; the data extent "
-                         "is the world over it")
+                         "is the world over context x model")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel extent (not ported: > 1 raises, ROADMAP.md "
-                         "Queue A item 3d)")
+                    help="tensor-parallel (model) extent of the mesh: heads and MLP hidden "
+                         "units of the aggregator's blocks cut over it")
     ap.add_argument("--max-lr", type=float, default=2e-4)
     ap.add_argument("--warmup", type=int, default=2000)
     ap.add_argument("--pretrained", default="")

@@ -161,14 +161,18 @@ def _block_case(case, inp, d):
     x = inp["x"].clone().requires_grad_(True)
     ctx = inp["ctx"].clone().requires_grad_(True) if "ctx" in inp else None
     rope = (inp["cos"], inp["sin"]) if "cos" in inp else None
-    cuts = []
-    scatter = SP.scatter
+    cuts, reduces = [], []
+    scatter, reduce_from_model = SP.scatter, SP.reduce_from_model
 
     def counted(*a, **kw):  # whether the block cut a shard or took the plain path
         cuts.append(1)
         return scatter(*a, **kw)
 
-    SP.scatter = counted
+    def counted_reduce(*a, **kw):  # whether Megatron's tail ran
+        reduces.append(1)
+        return reduce_from_model(*a, **kw)
+
+    SP.scatter, SP.reduce_from_model = counted, counted_reduce
     try:
         with Sh.activate_mesh(mesh):
             if case["kind"] == "frame":
@@ -179,33 +183,43 @@ def _block_case(case, inp, d):
                 out = SP.reloc_block_sharded(p, x, ctx, cfg, rope,
                                              (inp["ccos"], inp["csin"]))
     finally:
-        SP.scatter = scatter
+        SP.scatter, SP.reduce_from_model = scatter, reduce_from_model
     (out ** 2).sum().backward()
-    res = dict(out=out, dx=x.grad, params=_grads(p), sharded=np.array(bool(cuts)))
+    res = dict(out=out, dx=x.grad, params=_grads(p), sharded=np.array(bool(cuts)),
+               tp=np.array(bool(reduces)))
     if ctx is not None:
         res["dctx"] = ctx.grad
     return res
 
 
-def _refusals(case, inp, d):
+def _model_extent(case, inp, d):
+    """Each sharded block and the aggregator's layout under a mesh with a
+    ``model`` extent: whether it raised, and each block's largest distance
+    from the plain block on the same inputs."""
+    from self_supervise_sfm_tpu_torch.layers.block import block, block_with_context
     from self_supervise_sfm_tpu_torch.parallel import sharding as Sh
     from self_supervise_sfm_tpu_torch.parallel import sp_block as SP
 
     cfg, p = _block_cfg(case), d["trees"][case["params"]]
     x, ctx = inp["x"], inp["ctx"]
-    calls = [lambda: SP.frame_block_sharded(p, x, cfg),
-             lambda: SP.global_block_ring(p, x, cfg),
-             lambda: SP.reloc_block_sharded(p, x, ctx, cfg),
-             lambda: SP.scene_shard(1, 2, 2)]
-    raised = []
+    calls = [(lambda: SP.frame_block_sharded(p, x, cfg), lambda: block(p, x, cfg)),
+             (lambda: SP.global_block_ring(p, x, cfg), lambda: block(p, x, cfg)),
+             (lambda: SP.reloc_block_sharded(p, x, ctx, cfg),
+              lambda: block_with_context(p, x, ctx, cfg))]
+    raised, err = [], []
     with Sh.activate_mesh(d["mesh"]):
-        for call in calls:
+        for call, plain in calls:
             try:
-                call()
+                out = call()
                 raised.append(False)
-            except NotImplementedError as e:
-                raised.append("3d" in str(e))
-    return dict(raised=np.array(raised))
+                with Sh.activate_mesh(None):
+                    err.append(float((out - plain()).abs().max()))
+            except NotImplementedError:
+                raised.append(True)
+                err.append(float("inf"))
+        shard = SP.scene_shard(1, 2, 2, tp=SP.tp_engaged((cfg,), d["mesh"]))
+    return dict(raised=np.array(raised), err=np.array(err),
+                tp=np.array(shard is not None and shard.tp))
 
 
 def _mesh_case(case, inp, d):
@@ -350,23 +364,34 @@ def _train(case, inp, d):
     return res
 
 
-def _train_refusals(case, inp, d):
-    """A ``model`` extent above 1: the train step, the layout and the
-    trainer's mesh refuse it, naming ROADMAP.md item 3d."""
+def _train_model_extent(case, inp, d):
+    """A ``model`` extent above 1: whether the train step and the layout
+    raise, whether the layout is tensor-parallel, and whether a state of
+    another layout (whole leaves) is refused by the step."""
+    from self_supervise_sfm_tpu_torch.models import sailrecon as TM
     from self_supervise_sfm_tpu_torch.parallel import sharding as Sh
     from self_supervise_sfm_tpu_torch.train import loop as TL
 
     cfg, tcfg = _model_cfg(case), _train_cfg(case)
-    raised = []
+    raised, layout = [], None
     with Sh.activate_mesh(d["mesh"]):
         for call in (lambda: TL.make_train_step(cfg, tcfg, "cpu"),
                      lambda: TL.state_layout(cfg, tcfg)):
             try:
-                call()
+                out = call()
                 raised.append(False)
-            except NotImplementedError as e:
-                raised.append("3d" in str(e))
-    return dict(raised=np.array(raised))
+                layout = out if isinstance(out, TL.StateLayout) else layout
+            except NotImplementedError:
+                raised.append(True)
+        whole = TL.train_state_from_params(TM.init_sailrecon(cfg, torch.Generator().manual_seed(0),
+                                                             "cpu"), tcfg)
+        try:
+            TL._check_layout(whole["params"], layout)
+            refused = False
+        except ValueError:
+            refused = True
+    return dict(raised=np.array(raised), tp=np.array(layout is not None and layout.tp),
+                whole_refused=np.array(refused))
 
 
 class _Recording:
@@ -447,10 +472,30 @@ def _ba(case, inp, d):
                 num_processes=np.array(info["num_processes"]))
 
 
+def _tp_scene(case, inp, d):
+    """Build, reloc and fast_reloc under a mesh with a ``model`` extent (the
+    cache cut over heads), and reloc against a whole cache (``kv_whole``,
+    ``cam_whole``: a one-device build) under the same mesh."""
+    from self_supervise_sfm_tpu_torch.models import sailrecon as TM
+    from self_supervise_sfm_tpu_torch.parallel import sharding as Sh
+
+    cfg, p = _model_cfg(case), d["trees"][case["params"]]
+    with Sh.activate_mesh(d["mesh"]):
+        cache, cam = TM.build_scene_cache(p, cfg, inp["anchors"], rank=case["rank"],
+                                          subsample_indices=inp["idx"].long(), device="cpu")
+        preds = TM.reloc(p, cfg, cache, cam, inp["queries"], device="cpu")
+        fast = TM.reloc(p, cfg, cache, cam, inp["queries"], fast_reloc=True, device="cpu")
+        whole = TM.reloc(p, cfg, {"kv": inp["kv_whole"]}, inp["cam_whole"], inp["queries"],
+                         device="cpu")
+    return dict(kv=cache["kv"], cam=cam, shards=np.array(cache["shards"]), preds=preds,
+                fast=fast, whole=whole)
+
+
 _KINDS = {"ring": _ring, "gate": _gate, "frame": _block_case, "reloc": _block_case,
-          "global": _block_case, "refusals": _refusals, "mesh": _mesh_case, "scene": _scene,
-          "forward": _forward, "train": _train, "train_refusals": _train_refusals,
-          "trainer": _trainer, "ba": _ba}
+          "global": _block_case, "model_extent": _model_extent, "mesh": _mesh_case,
+          "scene": _scene, "forward": _forward, "train": _train,
+          "train_model_extent": _train_model_extent, "trainer": _trainer, "ba": _ba,
+          "tp_scene": _tp_scene}
 
 
 def main(spec_path: str, rank: int, world: int) -> None:

@@ -85,8 +85,9 @@ def _host(tree):
 
 
 def jax_runs(batch, meshes):
-    """JAX's single-device run and one under each (data, context) mesh:
-    {"single" | (nd, nc): {"params": [...], "metrics": [...], "grads":
+    """JAX's single-device run and one under each (data, context) or (data,
+    context, model) mesh (tensor parallelism at a model extent above 1):
+    {"single" | mesh: {"params": [...], "metrics": [...], "grads":
     [...], "idx": [...]}}. The step returns no gradients; with a
     zero-initialised fp32 first moment they are exact functions of it
     (m1 = (1 - b1) g0, m2 = b1 m1 + (1 - b1) g1, read in float64)."""
@@ -101,8 +102,8 @@ def jax_runs(batch, meshes):
         if mesh_ext == "single":
             mesh, fsdp = None, False
         else:
-            nd, nc = mesh_ext
-            mesh, fsdp = JSh.make_mesh(num_data=nd, num_context=nc), nd > 1
+            nd, nc, nm = (*mesh_ext, 1)[:3]
+            mesh, fsdp = JSh.make_mesh(num_data=nd, num_context=nc, num_model=nm), nd > 1
         out[mesh_ext] = _jax_run(cfg, JL.TrainConfig(**TRAIN, loss=JLossConfig(**LOSS),
                                                      fsdp=fsdp), state0, jb, mesh)
     return out
@@ -114,9 +115,10 @@ def _jax_run(cfg, tcfg, state0, jb, mesh):
         if mesh is not None:
             rep = JSh.replicated(mesh)
             place = {k: jax.tree.map(lambda _: rep, v) for k, v in state0.items()}
-            if tcfg.fsdp:
+            tp = mesh.shape.get(JSh.MODEL_AXIS, 1) > 1
+            if tcfg.fsdp or tp:
                 for k in ("params", "opt_state"):
-                    place[k] = JSh.param_sharding(mesh, state0[k], fsdp=True)
+                    place[k] = JSh.param_sharding(mesh, state0[k], fsdp=tcfg.fsdp, tp=tp)
             state = jax.device_put(state0, place)
             batch = JSh.shard_batch(jb, mesh)
         step = _compile(JL.make_train_step(cfg, tcfg, jit_compile=False), state, batch)
@@ -149,7 +151,7 @@ def port_config():
 
 
 def train_case(name, mesh, fsdp, process_local=False, **train):
-    return dict(name=name, kind="train", mesh=[*mesh, 1], params="p0",
+    return dict(name=name, kind="train", mesh=[*mesh, 1][:3], params="p0",
                 config={**KW, **PORT_ROUTE}, dpt_heads=False,
                 train={**TRAIN, "fsdp": fsdp, **train}, loss=LOSS, steps=STEPS,
                 process_local=process_local)

@@ -717,3 +717,124 @@ def test_wrappers_refuse_widths_the_body_does_not_take(C, hidden, ok):
     else:
         with pytest.raises(ValueError, match="multiple of"):
             TFQ._check_tile_widths("fused_mlp_up", C, hidden)
+
+
+# -- LN+QKV(+RoPE) on one rank's head shard (tensor parallelism) -----------------
+
+# H = 16 heads of 64 at C = 1024; a model extent m leaves Hl = 16 / m heads a
+# rank: nout = 3 Hl 64 = 1536 / 768 / 384 (12 / 6 / 3 column tiles, each two
+# heads of one of q, k, v), K stays C
+SHARD_HEADS = (8, 4, 2)
+SHARD_ROWS, SHARD_EPS = 200, 1e-5
+
+
+def _shard_ranks(hl):
+    m = C_FULL // HD // hl
+    return sorted({0, m - 1})
+
+
+@pytest.fixture(scope="module")
+def shard_inputs():
+    rng = np.random.default_rng(19)
+    C = C_FULL
+    x = rng.normal(size=(1, SHARD_ROWS, C))
+    f32 = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+    host = dict(lw=1 + 0.1 * f32(C), lb=0.1 * f32(C), b=0.1 * f32(3 * C),
+                qw=1 + 0.1 * f32(HD), qb=0.1 * f32(HD), kw=1 + 0.1 * f32(HD), kb=0.1 * f32(HD))
+    ang = rng.uniform(-np.pi, np.pi, size=(SHARD_ROWS, HD))
+    host.update(cos=np.cos(ang).astype(np.float32), sin=np.sin(ang).astype(np.float32))
+    jx, tx = _pair(x)
+    jw, tw = _pair(rng.normal(scale=C**-0.5, size=(C, 3 * C)))
+    return dict(x=(jx, tx), w=(jw, tw), t={k: torch.from_numpy(v) for k, v in host.items()},
+                j={k: jnp.asarray(v) for k, v in host.items()})
+
+
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("hl,i", [(hl, i) for hl in SHARD_HEADS for i in _shard_ranks(hl)])
+def test_qkv_head_shard_matches_jax_tp_slice(shard_inputs, hl, i, rope):
+    """The emulated kernel on rank i's head shard, the (C, 3 Hl 64) weight
+    of ``sharding.model_part`` (its heads' columns of q, of k and of v), at
+    K = C = 1024: against JAX's plain chain on ``_tp_local_attn``'s sliced
+    params (layer norm, ``qkv_heads`` with Hl heads: JAX's fused kernel
+    cannot take the shard, it reads d from x's width) and against the
+    port's plain version on the same shard, at phase 2's ulps."""
+    from self_supervise_sfm_tpu.layers import attention as JAttn
+    from self_supervise_sfm_tpu.layers import params as JP
+    from self_supervise_sfm_tpu.layers.block import BlockConfig as JBlockConfig
+    from self_supervise_sfm_tpu.parallel import sp_block as JSP
+    from self_supervise_sfm_tpu_torch.parallel import sharding as Sh
+
+    H, m = C_FULL // HD, C_FULL // HD // hl
+    (jx, tx), (jw, tw), t, j = (shard_inputs[k] for k in ("x", "w", "t", "j"))
+    tw_i = Sh.model_part(tw, -1, m, i, 3)
+    tb_i = Sh.model_part(t["b"], -1, m, i, 3)
+    assert tw_i.shape == (C_FULL, 3 * hl * HD)
+    jcfg = JBlockConfig(dim=C_FULL, num_heads=H, qk_norm=rope)
+    att = {"qkv": {"w": jw.astype(jnp.float32), "b": j["b"]}}
+    if rope:
+        att.update(q_norm={"scale": j["qw"], "bias": j["qb"]},
+                   k_norm={"scale": j["kw"], "bias": j["kb"]})
+    local = JSP._tp_local_attn(att, i, jcfg, m)
+    h = JP.layer_norm({"scale": j["lw"], "bias": j["lb"]}, jx, SHARD_EPS)
+    lcfg = JAttn.AttentionConfig(dim=hl * HD, num_heads=hl, qk_norm=rope, ln_eps=SHARD_EPS)
+    ref = JAttn.qkv_heads(local, h, lcfg, (j["cos"], j["sin"]) if rope else None)
+    if rope:
+        norms = ((t["qw"], t["qb"]), (t["kw"], t["kb"]))
+        emu = _qkv(tx, t["lw"], t["lb"], tw_i, tb_i, hl, SHARD_EPS, norms, t["cos"], t["sin"])
+        plain = TFQ.fused_ln_qkv_rope_plain(tx, t["lw"], t["lb"], tw_i, tb_i, t["qw"], t["qb"],
+                                            t["kw"], t["kb"], t["cos"], t["sin"], hl, SHARD_EPS)
+    else:
+        emu = _qkv(tx, t["lw"], t["lb"], tw_i, tb_i, hl, SHARD_EPS)
+        plain = TFQ.fused_ln_qkv_plain(tx, t["lw"], t["lb"], tw_i, tb_i, hl, SHARD_EPS)
+    kernel = "rope" if rope else "plain"
+    for got in (emu, plain):
+        for g in got:
+            assert g.shape == (1, hl, SHARD_ROWS, HD)
+    _assert_qkv(emu, ref, kernel, f"head shard Hl={hl} rank {i} vs JAX's slice")
+    _assert_qkv(emu, plain, kernel, f"head shard Hl={hl} rank {i} vs the plain version")
+
+
+def test_qkv_head_shard_at_every_head_is_the_whole_kernel(shard_inputs):
+    """At m = 1 the shard is the whole weight: the same emulation, bit for
+    bit, as the whole-width call (``tests`` above)."""
+    from self_supervise_sfm_tpu_torch.parallel import sharding as Sh
+
+    (_, tx), (_, tw), t = (shard_inputs[k] for k in ("x", "w", "t"))
+    H = C_FULL // HD
+    assert torch.equal(Sh.model_part(tw, -1, 1, 0, 3), tw)
+    a = _qkv(tx, t["lw"], t["lb"], Sh.model_part(tw, -1, 1, 0, 3), t["b"], H, SHARD_EPS)
+    b = _qkv(tx, t["lw"], t["lb"], tw, t["b"], H, SHARD_EPS)
+    assert all(torch.equal(u, w) for u, w in zip(a, b))
+
+
+@pytest.mark.parametrize("hl", [8, 4, 2, 1, 3, 5])
+def test_qkv_head_shard_widths_and_routes(hl):
+    """The head-shard form on meta tensors (the card's checks, raising
+    before any build): x (B, N, 1024) and w (1024, 3 Hl 64); an odd Hl
+    refuses (a 128-column tile would straddle q | k); the predicate
+    ``qkv_kernel_takes(C, Hl)`` and the "auto" gates of ``layers/block.py``
+    agree with it, given the true C and Hl (not the shard's C / m)."""
+    from self_supervise_sfm_tpu_torch.layers import block as TB
+
+    C, H = C_FULL, C_FULL // HD
+    takes = hl % 2 == 0
+    assert TFQ.qkv_kernel_takes(C, hl) == takes
+    assert not TFQ.qkv_kernel_takes(C, hl, head_dim=128)
+    nout = 3 * hl * HD
+    x, w = _meta(2, 8, C, dtype=bf16), _meta(C, nout, dtype=bf16)
+    if takes:
+        assert TFQ._qkv_widths("fused_ln_qkv", x, w, hl) == HD
+    else:
+        with pytest.raises(ValueError, match="even head count"):
+            TFQ.fused_ln_qkv_fwd(x, _meta(C), _meta(C), w, _meta(nout), hl)
+        with pytest.raises(ValueError, match="even head count"):
+            TFQ.fused_ln_qkv_rope_fwd(x, _meta(C), _meta(C), w, _meta(nout), _meta(HD),
+                                      _meta(HD), _meta(HD), _meta(HD), _meta(8, HD),
+                                      _meta(8, HD), hl)
+    cfg = TB.BlockConfig(dim=C, num_heads=H, qk_norm=True)
+    p = {"norm1": {}, "attn": {"qkv": {"w": w, "b": _meta(nout)}, "q_norm": {}, "k_norm": {}}}
+    assert TB.local_heads(p, cfg) == hl
+    rope = (_meta(8, HD), _meta(8, HD))
+    assert TB._fused_qkv_applicable(p, cfg, x, rope) == takes
+    vit = TB.BlockConfig(dim=C, num_heads=H)
+    assert TB._fused_qkv_plain_applicable(p, vit, x) == takes

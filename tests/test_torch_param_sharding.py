@@ -146,9 +146,28 @@ def test_state_bytes_per_rank_on_the_ports_tree():
 
 
 def test_a_model_spec_has_no_rank_local_layout():
-    with pytest.raises(NotImplementedError, match="3d"):
-        Sh.data_dim((None, "model"))
+    """A spec over ``model`` now has its rank-local layout: a qkv leaf's
+    part is its heads' columns of q, of k and of v (JAX's
+    ``_tp_local_attn`` slice, not the contiguous third of its spec), any
+    other leaf's a contiguous part; the parts join back whole; the ``data``
+    cut applies to the model part."""
+    assert Sh.data_dim((None, "model")) is None and Sh.model_dim((None, "model")) == 1
     assert Sh.data_dim(("data", None)) == 0 and Sh.data_dim((None, None)) is None
+    C, H, d, m = 8, 4, 2, 2
+    w = torch.arange(C * 3 * C, dtype=torch.float32).reshape(C, 3 * C)
+    assert Sh.model_groups(("aggregator", "frame_blocks", 0, "attn", "qkv", "w")) == 3
+    assert Sh.model_groups(("aggregator", "frame_blocks", 0, "mlp", "fc1", "w")) == 1
+    parts = [Sh.model_part(w, -1, m, i, 3) for i in range(m)]
+    hl = H // m
+    for i, part in enumerate(parts):
+        want = w.reshape(C, 3, H, d)[:, :, i * hl:(i + 1) * hl].reshape(C, 3 * hl * d)
+        assert torch.equal(part, want)
+    assert torch.equal(Sh.join_model_parts(parts, -1, 3), w)
+    fc1 = torch.arange(C * 4 * C, dtype=torch.float32).reshape(C, 4 * C)
+    assert torch.equal(Sh.join_model_parts([Sh.model_part(fc1, 1, m, i) for i in range(m)], 1),
+                       fc1)
+    assert Sh.local_shape((C, 3 * C), ("data", "model"), {"data": 2, "model": m}) == (
+        C // 2, 3 * C // m)
 
 
 @pytest.fixture

@@ -133,7 +133,7 @@ def test_cam_tokens_and_cache_match_jax(ranks, name):
     (nd, nc) = SERVE[name][0]
     for res in got[name]:
         np.testing.assert_allclose(res["cam"].numpy(), refs[name]["cam"], atol=2e-4)
-        assert tuple(res["shards"].numpy()) == (nd, nc)
+        assert tuple(res["shards"].numpy()) == (nd, nc, 1)
     np.testing.assert_allclose(_gathered_cache(got[name], nd, nc), refs[name]["kv"], atol=2e-4)
 
 

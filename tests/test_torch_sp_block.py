@@ -5,8 +5,8 @@ runs ``frame_block_sharded``, ``reloc_block_sharded`` and
 ``global_block_ring`` at (data, context) = (1, 2), (2, 1), (2, 2), (1, 4),
 the cases where JAX's gates take the plain block (frames that do not divide,
 frames that would land on a rank without their scene, a token axis that
-does not divide), and a ``model`` extent of 2, which every sharded block
-refuses. The references are JAX's functions under ``make_mesh`` of the same
+does not divide), and a ``model`` extent of 2, where every sharded block
+runs Megatron's body (``tests/test_torch_tp_block.py`` holds it to JAX's). The references are JAX's functions under ``make_mesh`` of the same
 extents on the virtual CPU devices: outputs and the gradients of
 sum(out ** 2) in x, the parameters and the context (JAX's
 ``tests/test_sp_block.py`` ``test_grads_match``), fp32, atol 1e-5. The
@@ -107,7 +107,7 @@ def ranks(tmp_path_factory):
         if kind == "reloc":
             refs[name]["dctx"] = np.asarray(grads[2])
     save_tree(tmp / "refusals.in.npz", _inputs("reloc", dict(B=1, Q=4), rng))
-    cases.append(dict(name="refusals", kind="refusals", mesh=[1, 1, 2], params="block",
+    cases.append(dict(name="refusals", kind="model_extent", mesh=[1, 1, 2], params="block",
                       dim=DIM, heads=HEADS))
     save_tree(tmp / "mesh.in.npz", dict(images=np.arange(4 * 3, dtype=np.float32).reshape(4, 3)))
     cases.append(dict(name="mesh", kind="mesh", mesh=[2, 2, 1]))
@@ -160,11 +160,14 @@ def test_gate_matches_jax(ranks, name):
 
 
 def test_model_extent_refused(ranks):
-    """A ``model`` extent of 2: the three blocks and the aggregator's layout
-    raise NotImplementedError naming the ROADMAP item that takes them."""
+    """A ``model`` extent of 2 is no longer refused: the three blocks run
+    Megatron's body and agree with the plain block (fp32, atol 1e-5), and
+    the aggregator's layout is tensor-parallel."""
     got, _ = ranks
     for res in got["refusals"]:
-        assert res["raised"].numpy().astype(bool).all(), res["raised"]
+        assert not res["raised"].numpy().astype(bool).any(), res["raised"]
+        assert (res["err"].numpy() <= ATOL).all(), res["err"]
+        assert bool(res["tp"].item())
 
 
 def test_make_mesh_without_a_process_group_raises():

@@ -12,7 +12,8 @@ atol 1e-5, the other metrics and every gradient rtol 2e-4 (gradients atol
 1e-5), the new params atol 1e-6; every rank reports the same metrics and
 each FSDP rank holds half of every cut leaf and of its moments. A clipped
 FSDP step is held to the port's one-device clipped step, and a ``model``
-extent of 2 is refused. See ``tests/_torch_train_sharded.py``.
+extent of 2 gives a tensor-parallel layout (the TP steps themselves:
+``tests/test_torch_tp_train_*.py``). See ``tests/_torch_train_sharded.py``.
 """
 
 import numpy as np
@@ -45,7 +46,7 @@ def ranks(tmp_path_factory, batch, jax_ref):
     cases = [TS.train_case("ddp", MESH, False),
              TS.train_case("fsdp", MESH, True, process_local=True),
              TS.train_case("clip", MESH, True, grad_clip_norm=CLIP),
-             dict(name="refusals", kind="train_refusals", mesh=[1, 1, 2],
+             dict(name="refusals", kind="train_model_extent", mesh=[1, 1, 2],
                   config={**TS.KW, **TS.PORT_ROUTE}, dpt_heads=False, train=TS.TRAIN,
                   loss=TS.LOSS)]
     return TS.port_ranks(tmp_path_factory.mktemp("train_2x2"), batch, jax_ref, cases, 4)
@@ -113,7 +114,9 @@ def test_clipped_fsdp_step_matches_the_one_device_step(ranks, batch, jax_ref):
 
 
 def test_model_extent_is_refused(ranks):
-    """Tensor parallelism (ROADMAP.md Queue A item 3d) raises in the step
-    and the layout."""
+    """A ``model`` extent of 2 is no longer refused: the step and the layout
+    are made, the layout is tensor-parallel, and the step refuses a state of
+    whole leaves (one made for another layout)."""
     for r in ranks["refusals"]:
-        assert r["raised"].numpy().tolist() == [True, True]
+        assert r["raised"].numpy().tolist() == [False, False]
+        assert bool(r["tp"].item()) and bool(r["whole_refused"].item())

@@ -376,15 +376,14 @@ def test_pretrained_run_matches_jax(root, jax_run, tmp_path):
     (dict(num_context=3, train=TL.TrainConfig(fsdp=True)), "multi-device"),
 ])
 def test_unported_options_raise(root, tmp_path, kw, what):
-    """In one process without a process group a context extent above 1
-    needs ranks that are not there (ValueError); tensor parallelism is not
-    ported (NotImplementedError naming ROADMAP.md item 3d). ``fsdp`` alone
-    runs, unsharded, as JAX's does at a data extent of 1
+    """In one process without a process group a context or model extent
+    above 1 needs ranks that are not there (ValueError naming torchrun;
+    tensor parallelism runs under it, ``tests/test_torch_tp_trainer.py``).
+    ``fsdp`` alone runs, unsharded, as JAX's does at a data extent of 1
     (``tests/test_torch_trainer_sharded.py``)."""
-    with pytest.raises((NotImplementedError, ValueError), match=what) as err:
+    with pytest.raises(ValueError, match=what) as err:
         TT.run(_port_cfg(root, tmp_path, 1, **kw))
-    if kw.get("num_model"):
-        assert err.type is NotImplementedError and "3d" in str(err.value)
+    assert "torchrun" in str(err.value)
 
 
 def test_default_device_raises_without_a_card(root, tmp_path, monkeypatch):
