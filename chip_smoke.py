@@ -12,8 +12,9 @@ Phases, each of which must pass (any failure exits non-zero):
    dk/dv, unmasked and under a RelocMask; a spill in either body fails the
    run)
    and of the Hopper GEMM body's (MLP-up, MLP-down, the probe, the
-   layer-norm pre-pass, LN+QKV+RoPE, LN+QKV, the out-projection), and any
-   ptxas advisory that wgmma was serialised (C7518);
+   layer-norm pre-pass, LN+QKV+RoPE, LN+QKV, the out-projection), of the
+   fp32 attention body's (the fp32 forms of K1, K2, K2p; a spill fails the
+   run), and any ptxas advisory that wgmma was serialised (C7518);
 2. the GEMM body's operand layouts alone (``gemm_probe``: one tile, then
    ragged rows and a K loop, against an fp32 matmul); each of the twelve
    kernels at the shapes of the paths below, held against its plain
@@ -42,7 +43,13 @@ Phases, each of which must pass (any failure exits non-zero):
    dk/dv) against SDPA's backward; K1m (the flash forward under a
    RelocMask) at the 5-query shape bit-equal to K2p on the same problem and
    within tolerance of its plain version there and at the edges of its
-   segment maps, each edge bit-equal to K2 on the unfolded tensors;
+   segment maps, each edge bit-equal to K2 on the unfolded tensors; the
+   fp32 forms of K1 (ViT, frame and global sites), K2 (the reloc site) and
+   K2p (layers 0 and 23 of the 5-anchor cache, a 20-anchor cache) in fp32
+   with TF32 off, each within 2e-5 at the largest |out| of its plain
+   version (the lse within 1e-5), a repeat bit-equal, K2p bit-equal to K2,
+   the edges of the tiling, timed beside their bound at the fp32 rate (67
+   TFLOP/s), the plain version and SDPA in fp32;
 3. the full-width joint forward: ViT-L/14 + 24 aggregator layers at 518 px,
    bf16 trunk and fp32 heads, 5 anchors + the same 5 images as queries,
    rank 300, random weights from a seeded generator, every trunk block on
@@ -52,9 +59,11 @@ Phases, each of which must pass (any failure exits non-zero):
    forward measures) and give finite poses and point maps. The path with
    only the attention and resize kernels on (the fused block kernels off)
    is timed in the same run. The default configuration (``make_config()``:
-   fp32, ``attn_impl="auto"``) runs once at the same width: no attention or
-   fused block kernel may launch (they take bf16 only), and it must agree
-   with the fp32 plain forward to fp32 rounding;
+   fp32, ``attn_impl="auto"``) runs at the same width: its attention sites
+   on the fp32 forms of K1 (72 launches) and K2 (24), no fused block kernel
+   (they take bf16 only), K3 as in bf16; it must agree with the fp32 plain
+   forward to fp32 rounding, and is timed against the same forward on the
+   dense route, with both peaks;
 4. two-phase serving at the same width and with the same weights:
    ``build_scene_cache`` of the 5 anchors, then ``reloc`` (full heads and
    ``fast_reloc``) of the 5 images against the cache, with launch counts
@@ -64,6 +73,12 @@ Phases, each of which must pass (any failure exits non-zero):
    then a 20-anchor scene: one-shot, anchor-chunked and host-staged builds
    against each other, ``reloc_staged`` against the resident ``reloc`` bit
    for bit, ``reloc_chunked`` against ``reloc``, times and peaks of each.
+   Then the default configuration with phase 3's fp32 weights: the build
+   of the 5 anchors (an fp32 cache, 59,965,440 bytes an anchor), ``reloc``
+   and ``fast_reloc`` on the fp32 forms (K2p 24 times a reloc), held to the
+   fp32 plain path at rel-RMS 1e-5, timed; the one-shot fp32 build of the
+   20-anchor scene on the kernels, its time and peak, beside the 48.3 GB of
+   fp32 logits its global site would store on the dense route.
 
 5. the self-supervised train step at full width (``bench.py:bench_train``'s
    configuration at depth 24: 2 frames of 518 px duplicated as anchors and
@@ -196,7 +211,8 @@ Phases, each of which must pass (any failure exits non-zero):
    "tp_forward", "tp_serving" and "tp_train", and the head-shard sites as
    the QKV kernels' "tp_sites".
 
-``python3 chip_smoke.py --kernels-only`` stops after phase 2;
+``python3 chip_smoke.py --kernels-only`` stops after phase 2,
+``--until-serving`` after phase 4;
 ``--train-only`` runs phase 5 alone after the build, ``--trainer-only``
 phases 5 and 6, ``--demo-only`` phase 7, ``--converter-only`` phase 8,
 ``--sharded-only`` phase 9, ``--sharded-train-only`` phase 10 and
@@ -233,6 +249,7 @@ from self_supervise_sfm_tpu_torch.tools.timing import back_to_back_ms as _back_t
 from self_supervise_sfm_tpu_torch.tools.timing import per_call_ms as _time_ms
 
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # fp32 outside the tensor cores (FFMA)
 PEAK_BYTES_PER_S = 3.35e12
 NUM_FRAMES = 5
 IMG = 518
@@ -243,6 +260,8 @@ SM90_SOURCE = "self_supervise_sfm_tpu_torch/csrc/flash_fwd_sm90.cu"
 # LN+QKV+RoPE, LN+QKV, the out-projection, MLP-up and MLP-down: one GEMM
 # body written for Hopper
 GEMM_SOURCE = "self_supervise_sfm_tpu_torch/csrc/gemm_sm90.cu"
+# the fp32 forms of K1, K2 and K2p: one FFMA body
+F32_SOURCE = "self_supervise_sfm_tpu_torch/csrc/flash_fwd_f32.cu"
 
 
 # launches of each kernel wrapper in one call at full width (depth 24, 5
@@ -253,7 +272,8 @@ GEMM_SOURCE = "self_supervise_sfm_tpu_torch/csrc/gemm_sm90.cu"
 _ZERO = dict.fromkeys(("flash_fwd", "frame_ctx_fwd", "frame_ctx_packed_fwd", "flash_fwd_reloc",
                        "resize_bilinear", "fused_ln_qkv_rope", "fused_ln_qkv",
                        "fused_proj_residual", "fused_mlp_up", "fused_mlp_down", "flash_bwd_dq",
-                       "flash_bwd_dkv"), 0)
+                       "flash_bwd_dkv", "flash_fwd_f32", "frame_ctx_fwd_f32",
+                       "frame_ctx_packed_fwd_f32"), 0)
 FORWARD_LAUNCHES = {**_ZERO, "flash_fwd": 72, "frame_ctx_fwd": 24, "resize_bilinear": 2,
                     "fused_ln_qkv_rope": 72, "fused_ln_qkv": 24, "fused_proj_residual": 96,
                     "fused_mlp_up": 96, "fused_mlp_down": 96}
@@ -263,6 +283,14 @@ FAST_RELOC_LAUNCHES = {**_ZERO, "flash_fwd": 48, "frame_ctx_packed_fwd": 24, "fu
                        "fused_ln_qkv_rope": 48, "fused_proj_residual": 72, "fused_mlp_up": 72,
                        "fused_mlp_down": 72}
 RELOC_LAUNCHES = {**FAST_RELOC_LAUNCHES, "resize_bilinear": 2}
+# the default configuration (fp32, "auto"): the attention sites on the fp32
+# forms of K1, K2 and K2p, the fused block kernels off (bf16 only), K3 as in
+# bf16
+DEFAULT_FORWARD_LAUNCHES = {**_ZERO, "flash_fwd_f32": 72, "frame_ctx_fwd_f32": 24,
+                            "resize_bilinear": 2}
+DEFAULT_BUILD_LAUNCHES = {**_ZERO, "flash_fwd_f32": 72}
+DEFAULT_FAST_RELOC_LAUNCHES = {**_ZERO, "flash_fwd_f32": 48, "frame_ctx_packed_fwd_f32": 24}
+DEFAULT_RELOC_LAUNCHES = {**DEFAULT_FAST_RELOC_LAUNCHES, "resize_bilinear": 2}
 # one full-width train step (phase 5), d = 24 aggregator layers
 # rematerialised, v = 24 ViT blocks: forwards v + 2d flash (+ 2d recomputed +
 # 2d in the frame-context split's backward), d frame-context (+ d
@@ -304,6 +332,9 @@ _KERNEL_CLASSES = (
     ("fused_mlp_down", ("mlp_down_sm90_kernel",)),
     ("ln_rows (pre-pass of LN+QKV(+RoPE) and MLP-up)", ("ln_rows_kernel",)),
     ("flash_fwd (K1)", ("flash_fwd_kernel",)),
+    ("flash_fwd fp32 (K1)", ("flash_fwd_f32_kernel",)),
+    ("frame_ctx_fwd fp32 (K2)", ("frame_ctx_fwd_f32_kernel",)),
+    ("frame_ctx_kv2_fwd fp32 (K2p)", ("frame_ctx_kv2_fwd_f32_kernel",)),
     ("flash_bwd_dq (B9)", ("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_reloc_sm90_kernel")),
     ("flash_bwd_dkv (B9)", ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_reloc_sm90_kernel")),
     ("frame_ctx_fwd (K2)", ("frame_ctx_fwd_kernel",)),
@@ -359,8 +390,8 @@ def profile_forward(fn, label: str = "forward") -> dict:
             "top": [[e.key[:120], e.self_device_time_total / 1e3, e.count] for e in top]}
 
 
-def _bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def _bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -454,6 +485,17 @@ def print_sm90_build() -> None:
               f"{'keys' if dq else 'q rows'}, {info[4]} "
               f"{'q rows' if dq else 'keys'} a work tile, setmaxnreg {info[6]} "
               f"(producer) / {info[7]} (consumers)")
+        if info[1]:
+            raise AssertionError(f"{name}: {info[1]} bytes of spills a thread")
+    for which, name in enumerate(("flash_fwd_f32_kernel", "frame_ctx_fwd_f32_kernel",
+                                  "frame_ctx_kv2_fwd_f32_kernel")):
+        info = (ctypes.c_int * 8)()
+        rc = lib.sfm_flash_fwd_f32_info(which, info)
+        if rc != 0:
+            raise RuntimeError(f"sfm_flash_fwd_f32_info({which}): CUDA error {rc}")
+        print(f"  {name}: {info[0]} registers a thread, {info[1]} local bytes, {info[2]} "
+              f"bytes of dynamic shared memory, {info[3]} q rows a block, {info[4]} keys a "
+              f"tile, {info[5]} threads, {info[6]} blocks an SM")
         if info[1]:
             raise AssertionError(f"{name}: {info[1]} bytes of spills a thread")
     advisories = [ln.strip() for ln in _kernels.build_log.splitlines() if "C7518" in ln]
@@ -677,6 +719,9 @@ def check_kernels(gen):
     results += check_backward_kernels(
         lambda *shape, dtype=torch.bfloat16: torch.randn(
             shape, generator=bwd, device="cuda").to(dtype), ulps)
+    f32 = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    results += check_f32_kernels(
+        lambda *shape: torch.randn(shape, generator=f32, device="cuda"))
     for r in results:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -831,6 +876,185 @@ def check_attention_edges(randn, ulps):
         if not torch.equal(packed, out):
             raise AssertionError(f"frame_ctx_packed_fwd edge nc{nc}: not bit-equal to K2")
     print("  edges: frame_ctx_packed_fwd bit-equal to frame_ctx_fwd at each")
+
+
+def _f32_tol(ref) -> float:
+    """The fp32 entries' tolerance: 2e-5 at the largest |out|
+    (``tests/test_torch_attention.py``'s fp32 tolerance against JAX)."""
+    return 2e-5 * float(ref.abs().max())
+
+
+def _f32_site(label, site, kernel, plain, library, flops, nbytes, lse=False):
+    """One site of an fp32 entry: against its plain version (out within
+    :func:`_f32_tol`, the lse within 1e-5), a repeat bit-equal, SDPA's
+    error for the record, and the times beside the bound at the fp32 rate."""
+    import torch
+
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    out, ref_out = (got[0], ref[0]) if lse else (got, ref)
+    err = float((out - ref_out).abs().max())
+    _check(f"{label}[{site}] out", err, _f32_tol(ref_out))
+    row = dict(site=site, shape=list(out.shape), max_abs_err=err)
+    if lse:
+        row["lse_err"] = float((got[1] - ref[1]).abs().max())
+        _check(f"{label}[{site}] lse", row["lse_err"], 1e-5)
+    again = kernel()
+    same = (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])) if lse else \
+        torch.equal(again, got)
+    if not same:
+        raise AssertionError(f"{label}[{site}]: a repeat is not bit-equal")
+    del got, again
+    row["library_max_abs_err"] = float((library() - ref_out).abs().max())
+    del ref, ref_out, out
+    bound, by = _bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+    row.update(ms=_time_ms(kernel), plain_ms=_time_ms(plain, reps=3, warmup=1),
+               library_ms=_time_ms(library), bound_ms=bound, bound_by=by,
+               back_to_back_ms=_back_to_back_ms(kernel),
+               library_back_to_back_ms=_back_to_back_ms(library))
+    _site_line(f"{label}[{site}] fp32", row)
+    print(f"    {label}[{site}]: repeat bit-equal; SDPA fp32 max error vs the plain version "
+          f"{row['library_max_abs_err']:.3e} (for the record)")
+    return row
+
+
+def check_f32_kernels(randn):
+    """Phase 2, the fp32 forms of K1, K2 and K2p (the FFMA body of
+    ``csrc/flash_fwd_f32.cu``) at the main path's sites, in fp32 with TF32
+    off: K1 at the ViT, frame and global sites, K2 at the reloc site, K2p at
+    layers 0 and 23 of the 5-anchor cache and at layer 12 of a 20-anchor
+    cache (bit-equal to K2 on the layer's split copies, the cache never
+    written), each against its plain version (:func:`_f32_site`); then the
+    edges of the tiling. Times beside the bound at the fp32 rate (67
+    TFLOP/s), the plain version and, as a yardstick only,
+    ``F.scaled_dot_product_attention`` in fp32 on the same inputs. Returns
+    the three entries of the kernel line."""
+    import torch
+    import torch.nn.functional as F
+
+    from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
+
+    # the plain versions' fp32 matmuls in full fp32 (PyTorch's default, set
+    # here as a reference must; restored at the end, a failure ends the run)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d, H, depth = 64, 16, 24
+    N = (IMG // 14) ** 2 + 5
+    results = []
+
+    # -- K1 fp32 at the ViT, frame and global sites ---------------------------
+    sites = []
+    for site, bh, n in (("vit", NUM_FRAMES * 16, N), ("frame", 2 * NUM_FRAMES * 16, N),
+                        ("global", 16, NUM_FRAMES * N)):
+        q, k, v = (randn(bh, n, d) for _ in range(3))
+        q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
+        sites.append(_f32_site(
+            "flash_fwd_f32", site, lambda: FA.flash_fwd(q, k, v),
+            lambda: FA.flash_fwd_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(q4, k4, v4)[0],
+            4.0 * bh * n * n * d, 4 * q.numel() * 4 + bh * n * 4, lse=True))
+        del q, k, v, q4, k4, v4
+        torch.cuda.empty_cache()
+    results.append(dict(
+        name="flash_fwd_f32", route="cuda", source=F32_SOURCE,
+        replaces="self_supervise_sfm_tpu/ops/flash_attention.py:140",
+        # one call at each of the three sites (one ViT + one aggregator layer)
+        max_abs_err=max(s_["max_abs_err"] for s_ in sites),
+        **{key: sum(s_[key] for s_ in sites)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        bound_by=sites[-1]["bound_by"], sites=sites))
+
+    # -- K2 fp32 at the reloc site ----------------------------------------------
+    P, nc = N, NUM_FRAMES * (RANK + 5)
+    q, k, v = (randn(NUM_FRAMES, H, P, d) for _ in range(3))
+    ck, cv = randn(1, H, nc, d), randn(1, H, nc, d)
+    kk = torch.cat([ck.expand(NUM_FRAMES, -1, -1, -1), k], dim=2)
+    vv = torch.cat([cv.expand(NUM_FRAMES, -1, -1, -1), v], dim=2)
+    row = _f32_site("frame_ctx_fwd_f32", "reloc", lambda: FA.frame_ctx_fwd(q, k, v, ck, cv),
+                    lambda: FA._frame_ctx_dense(q, k, v, ck, cv),
+                    lambda: F.scaled_dot_product_attention(q, kk, vv),
+                    4.0 * NUM_FRAMES * H * P * (nc + P) * d,
+                    (4 * q.numel() + 2 * ck.numel()) * 4)
+    results.append(dict(
+        name="frame_ctx_fwd_f32", route="cuda", source=F32_SOURCE,
+        replaces="self_supervise_sfm_tpu/ops/flash_attention.py:539",
+        **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                     "bound_by")}, sites=[row]))
+    del ck, cv, kk, vv
+
+    # -- K2p fp32: the 5-anchor cache (first and last layer), 20 anchors ------
+    def library(ckv, layer):
+        c_k, c_v = ckv[layer, ..., :d], ckv[layer, ..., d:]
+        return F.scaled_dot_product_attention(
+            q, torch.cat([c_k.expand(NUM_FRAMES, -1, -1, -1), k], dim=2),
+            torch.cat([c_v.expand(NUM_FRAMES, -1, -1, -1), v], dim=2))
+
+    sites = []
+    for anchors, layers in ((NUM_FRAMES, (0, depth - 1)), (4 * NUM_FRAMES, (depth // 2,))):
+        nc = anchors * (RANK + 5)
+        ckv = randn(depth, 1, H, nc, 2 * d)
+        before = ckv.clone()
+        for layer in layers:
+            sites.append(_f32_site(
+                "frame_ctx_packed_fwd_f32", f"{anchors} anchors, layer {layer}",
+                lambda: FA.frame_ctx_packed_fwd(q, k, v, ckv, layer),
+                lambda: FA.frame_ctx_packed_plain(q, k, v, ckv, layer),
+                lambda: library(ckv, layer),
+                4.0 * NUM_FRAMES * H * P * (nc + P) * d,
+                4 * q.numel() * 4 + H * nc * 2 * d * 4))
+            k2 = FA.frame_ctx_fwd(q, k, v, ckv[layer, ..., :d].contiguous(),
+                                  ckv[layer, ..., d:].contiguous())
+            if not torch.equal(FA.frame_ctx_packed_fwd(q, k, v, ckv, layer), k2):
+                raise AssertionError(f"frame_ctx_packed_fwd_f32 layer {layer}: not bit-equal "
+                                     "to K2 on the split copies")
+        if not torch.equal(ckv, before):
+            raise AssertionError("frame_ctx_packed_fwd_f32 wrote to the cache")
+        del ckv, before
+        torch.cuda.empty_cache()
+    print("  frame_ctx_packed_fwd_f32: bit-equal to frame_ctx_fwd_f32 (K2) on the split "
+          "copies, the cache unwritten")
+    results.append(dict(
+        name="frame_ctx_packed_fwd_f32", route="cuda", source=F32_SOURCE,
+        replaces="self_supervise_sfm_tpu/ops/flash_attention.py:661",
+        # one call at each site measured
+        max_abs_err=max(s_["max_abs_err"] for s_ in sites),
+        **{key: sum(s_[key] for s_ in sites)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        bound_by=sites[0]["bound_by"], sites=sites))
+    del q, k, v
+
+    # -- the edges of the tiling: one q row and one key, ragged q rows and key
+    # tiles, whole tiles, no context, a context of one key, two scenes ---------
+    for bh, nq, nk in ((2, 1, 1), (3, 50, 70), (2, 130, 333), (1, 200, 128), (2, 64, 64)):
+        q, k, v = randn(bh, nq, d), randn(bh, nk, d), randn(bh, nk, d)
+        out, lse = FA.flash_fwd(q, k, v)
+        torch.cuda.synchronize()
+        p_out, p_lse = FA.flash_fwd_plain(q, k, v)
+        _check(f"flash_fwd_f32 edge ({bh}, {nq}, {nk})",
+               float((out - p_out).abs().max()), _f32_tol(p_out))
+        _check(f"flash_fwd_f32 edge ({bh}, {nq}, {nk}) lse", float((lse - p_lse).abs().max()),
+               1e-5)
+    for B, Fr, Hh, Pp, nce in ((2, 2, 2, 50, 0), (2, 2, 2, 130, 77), (1, 3, 2, 1, 1),
+                               (1, 3, 2, 70, 1), (1, 3, 2, 1, 300)):
+        q, k, v = (randn(B * Fr, Hh, Pp, d) for _ in range(3))
+        ckv = randn(2, B, Hh, nce, 2 * d)
+        c_k, c_v = ckv[1, ..., :d].contiguous(), ckv[1, ..., d:].contiguous()
+        out = FA.frame_ctx_fwd(q, k, v, c_k, c_v)
+        packed = FA.frame_ctx_packed_fwd(q, k, v, ckv, 1)
+        torch.cuda.synchronize()
+        ref = FA._frame_ctx_dense(q, k, v, c_k, c_v)
+        _check(f"frame_ctx_fwd_f32 edge B{B} F{Fr} P{Pp} nc{nce}",
+               float((out - ref).abs().max()), _f32_tol(ref))
+        if not torch.equal(packed, out):
+            raise AssertionError(f"frame_ctx_packed_fwd_f32 edge nc{nce}: not bit-equal to K2")
+    print("  fp32 edges: frame_ctx_packed_fwd_f32 bit-equal to frame_ctx_fwd_f32 at each")
+    for r in results:
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"SDPA fp32 {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, fp32 rate)")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    return results
 
 
 def check_fused_kernels(randn, ulps, C=1024, H=16, frames=NUM_FRAMES, sites=None,
@@ -1351,9 +1575,26 @@ def check_backward_kernels(randn, ulps):
     return results
 
 
+class _F32Launches:
+    """The fp32 launches of an attention wrapper, which counts them apart
+    (``.launches_f32``), read and reset as ``.launches``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches_f32
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches_f32 = n
+
+
 def kernel_wrappers() -> dict:
     """Every kernel's launch wrapper by its name in the kernel line; each
-    counts its launches in ``.launches``."""
+    counts its launches in ``.launches`` (the bf16 attention wrappers'
+    fp32 launches under the fp32 names)."""
     from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
     from self_supervise_sfm_tpu_torch.ops import fused_qkv as FQ
     from self_supervise_sfm_tpu_torch.ops import resize as RS
@@ -1365,7 +1606,10 @@ def kernel_wrappers() -> dict:
             "fused_ln_qkv_rope": FQ.fused_ln_qkv_rope_fwd, "fused_ln_qkv": FQ.fused_ln_qkv_fwd,
             "fused_proj_residual": FQ.fused_proj_residual_fwd,
             "fused_mlp_up": FQ.fused_mlp_up, "fused_mlp_down": FQ.fused_mlp_down,
-            "flash_bwd_dq": FA.flash_bwd_dq, "flash_bwd_dkv": FA.flash_bwd_dkv}
+            "flash_bwd_dq": FA.flash_bwd_dq, "flash_bwd_dkv": FA.flash_bwd_dkv,
+            "flash_fwd_f32": _F32Launches(FA.flash_fwd),
+            "frame_ctx_fwd_f32": _F32Launches(FA.frame_ctx_fwd),
+            "frame_ctx_packed_fwd_f32": _F32Launches(FA.frame_ctx_packed_fwd)}
 
 
 def run_forward(gen):
@@ -1412,15 +1656,15 @@ def run_forward(gen):
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
 
-    def timed(c, reps):
+    def timed(c, reps, p=params):
         """Median forward seconds, all runs, and the peak memory in GB."""
-        fwd(c, params)
+        fwd(c, p)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         runs = []
         for _ in range(reps):
             t0 = time.perf_counter()
-            fwd(c, params)
+            fwd(c, p)
             torch.cuda.synchronize()
             runs.append(time.perf_counter() - t0)
         return statistics.median(runs), runs, torch.cuda.max_memory_allocated() / 1e9
@@ -1447,19 +1691,35 @@ def run_forward(gen):
         if not ok:
             failures.append(what)
 
-    # the default configuration, fp32 with attn_impl "auto": the attention
-    # and fused block kernels take bf16 only, so every site runs dense, as
-    # the fp32 plain path does; K3 takes the fp32 heads' final upsample
+    # the default configuration, fp32 with attn_impl "auto": every attention
+    # site on the fp32 forms of K1 and K2 (as many launches as the bf16
+    # path's K1 and K2), the fused block kernels off (they take bf16 only, as
+    # JAX's "auto"), K3 on the fp32 heads' final upsample
     cfg_default = M.make_config()
-    before = {k: w.launches for k, w in wrappers.items()}
+    for w in wrappers.values():
+        w.launches = 0
     dflt = fwd(cfg_default, p32)
     torch.cuda.synchronize()
-    n_default = {k: w.launches - before[k] for k, w in wrappers.items()}
-    print(f"  launches in one forward of the default configuration (fp32, auto): {n_default}")
-    want = {**dict.fromkeys(wrappers, 0), "resize_bilinear": launches["resize_bilinear"]}
-    if n_default != want:
+    n_default = {k: w.launches for k, w in wrappers.items()}
+    print(f"  launches in one forward of the default configuration (fp32, auto): "
+          f"{ {k: n for k, n in n_default.items() if n} }")
+    if n_default != DEFAULT_FORWARD_LAUNCHES:
         raise AssertionError(f"default configuration launch counts {n_default}, "
-                             f"expected {want}")
+                             f"expected {DEFAULT_FORWARD_LAUNCHES}")
+    # the same forward with its attention on the dense route (fp32 logits
+    # stored whole), in turns on the one card: kernels, dense, dense, kernels
+    cfg_default_dense = M.make_config(attn_impl="dense", global_attn_impl="dense")
+    dk_a, dk_runs_a, default_peak_gb = timed(cfg_default, 2, p32)
+    dd_a, dd_runs_a, default_dense_peak_gb = timed(cfg_default_dense, 2, p32)
+    dd_b, dd_runs_b, _ = timed(cfg_default_dense, 2, p32)
+    dk_b, dk_runs_b, _ = timed(cfg_default, 2, p32)
+    default_times, default_dense_times = dk_runs_a + dk_runs_b, dd_runs_a + dd_runs_b
+    default_step = statistics.median(default_times)
+    default_dense_step = statistics.median(default_dense_times)
+    print(f"  default configuration (fp32): forward on the kernels {default_step * 1e3:.2f} ms, "
+          f"peak {default_peak_gb:.2f} GB; on the dense route {default_dense_step * 1e3:.2f} "
+          f"ms, peak {default_dense_peak_gb:.2f} GB (medians of 4, in turns; dense / kernels "
+          f"{default_dense_step / default_step:.3f}x)")
 
     shapes = {"extrinsic": (1, 5, 3, 4), "intrinsic": (1, 5, 3, 3),
               "point_map": (1, 5, IMG, IMG, 3), "xyz_cnf": (1, 5, IMG, IMG),
@@ -1486,8 +1746,9 @@ def run_forward(gen):
     def rel(a, b):
         return float((a.float() - b.float()).norm() / b.float().norm())
 
-    # the default configuration against the fp32 plain path: one route, so
-    # agreement to fp32 rounding (rel-RMS 1e-5) in the trunk and the poses;
+    # the default configuration against the fp32 plain path: the fp32
+    # attention kernels against the dense route, both fp32, so agreement to
+    # fp32 rounding (rel-RMS 1e-5) in the trunk and the poses;
     # the depth and point maps (K3 against the einsum upsample, both fp32)
     # on the logit scale within phase 3's 1e-3, where both are finite
     td, _, cd = agg(cfg_default, p32)
@@ -1592,9 +1853,15 @@ def run_forward(gen):
               f"peak memory {gb:.2f} GB")
     state = dict(cfg=cfg, cfg_plain=cfg_plain, cfg_f32=cfg_f32, params=params, p32=p32,
                  uniq=uniq, draw=draw, taps=tk, wrappers=wrappers,
-                 out_host={k: out[k].cpu() for k in PRETRAINED_KEYS})
+                 out_host={k: out[k].cpu() for k in PRETRAINED_KEYS},
+                 default_launches=n_default)
     return launches, state, dict(
         step_ms=step * 1e3, frames_per_s=fps, peak_gb=peak_gb,
+        default_step_ms=default_step * 1e3, default_peak_gb=default_peak_gb,
+        default_times_ms=[t * 1e3 for t in default_times],
+        default_dense_step_ms=default_dense_step * 1e3,
+        default_dense_peak_gb=default_dense_peak_gb,
+        default_dense_times_ms=[t * 1e3 for t in default_dense_times],
         times_ms=[t * 1e3 for t in times],
         unfused_step_ms=unfused_step * 1e3, unfused_frames_per_s=NUM_FRAMES / unfused_step,
         unfused_peak_gb=unfused_peak_gb, unfused_times_ms=[t * 1e3 for t in unfused_times],
@@ -1877,9 +2144,98 @@ def run_serving(state):
           f"{big_res['fast_reloc_staged4']['ms'] - big_res['fast_reloc']['ms']:.2f} ms for 4 "
           f"copies in")
     res["scene20"] = big_res
+    del big, cam_big, host, cam_host, seg, pinned
+    torch.cuda.empty_cache()
+
+    # -- 5. the default configuration (fp32, "auto") with phase 3's fp32
+    # weights: the build on K1's fp32 form, reloc and fast_reloc on K1's and
+    # K2p's, an fp32 cache; against the fp32 plain path at rel-RMS 1e-5 -----
+    cfg_d = M.make_config()
+    (cache_d, cam_d), n_build_d = counted(lambda: build(cfg_d, p32))
+    out_d, n_reloc_d = counted(lambda: M.reloc(p32, cfg_d, cache_d, cam_d, uniq))
+    fast_d, n_fast_d = counted(lambda: M.reloc(p32, cfg_d, cache_d, cam_d, uniq,
+                                               fast_reloc=True))
+    for name, got, want in (("build", n_build_d, DEFAULT_BUILD_LAUNCHES),
+                            ("reloc", n_reloc_d, DEFAULT_RELOC_LAUNCHES),
+                            ("fast_reloc", n_fast_d, DEFAULT_FAST_RELOC_LAUNCHES)):
+        print(f"  default configuration (fp32): launches in one {name}: "
+              f"{ {k: n for k, n in got.items() if n} }")
+        if got != want:
+            raise AssertionError(f"default configuration {name} launch counts {got}, "
+                                 f"expected {want}")
+    kvd = cache_d["kv"]
+    per_anchor = kvd.numel() * kvd.element_size() / NUM_FRAMES
+    print(f"  default configuration cache {tuple(kvd.shape)} {kvd.dtype}: "
+          f"{per_anchor:.0f} bytes an anchor")
+    expect(tuple(kvd.shape) == (24, 1, 16, nc, 128) and kvd.dtype == torch.float32
+           and kvd.is_contiguous() and per_anchor == 59_965_440,
+           f"default configuration cache {tuple(kvd.shape)} {kvd.dtype}, {per_anchor} bytes "
+           "an anchor")
+    for k in ("extrinsic", "intrinsic"):
+        expect(torch.equal(fast_d[k], out_d[k]), f"default fast_reloc {k} differs from reloc's")
+    before = {k: w.launches for k, w in wrappers.items()}
+    cache_f, cam_f = build(cfg_f32, p32)
+    tf = taps_of(cfg_f32, p32, cache_f)
+    out_f = M.reloc(p32, cfg_f32, cache_f, cam_f, uniq)
+    torch.cuda.synchronize()
+    if {k: w.launches for k, w in wrappers.items()} != before:
+        raise AssertionError("the fp32 plain-path build / reloc launched an attention kernel")
+    td = taps_of(cfg_d, p32, cache_d)
+    for name, a, b in ([("scene cache", kvd, cache_f["kv"]), ("anchor cam tokens", cam_d, cam_f)]
+                       + [(f"reloc tap {li}", td[li], tf[li])
+                          for li in acfg.intermediate_layer_idx]
+                       + [(f"reloc {k}", out_d[k], out_f[k])
+                          for k in ("extrinsic", "intrinsic", "cam_tokens")]):
+        err = rel(a, b)
+        print(f"  default configuration {name}: vs the fp32 plain path rel-RMS {err:.4e} "
+              f"(tolerance 1e-5)")
+        expect(err <= 1e-5, f"default configuration {name}: {err} over 1e-5")
+    del cache_f, cam_f, tf, td, out_f, out_d, fast_d
+    torch.cuda.empty_cache()
+    dflt = {}
+    for name, fn in (("build", lambda: build(cfg_d, p32)),
+                     ("reloc", lambda: M.reloc(p32, cfg_d, cache_d, cam_d, uniq)),
+                     ("fast_reloc", lambda: M.reloc(p32, cfg_d, cache_d, cam_d, uniq,
+                                                    fast_reloc=True))):
+        t, runs, peak = timed(fn, reps=3)
+        dflt[name] = dict(ms=t * 1e3, runs_ms=[r * 1e3 for r in runs], peak_gb=peak)
+        print(f"  default configuration (fp32), 5 anchors, {name}: {t * 1e3:.2f} ms median of 3, "
+              f"peak {peak:.2f} GB")
+    dflt["cache_bytes_per_anchor"] = per_anchor
+    del cache_d, cam_d, kvd
+    torch.cuda.empty_cache()
+
+    # the one-shot fp32 build of the 20-anchor scene on the kernels; its global
+    # site is (16, 27480) x (16, 27480): the dense route would store the fp32
+    # logits whole, and the softmax's output beside them
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (big_d, cam_big_d), n_build20 = counted(lambda: build(cfg_d, p32, scene))
+    t20 = time.perf_counter() - t0
+    peak20 = torch.cuda.max_memory_allocated() / 1e9
+    n_global = A20 * ((IMG // 14) ** 2 + 5)
+    logits_gb = 16 * n_global * n_global * 4 / 1e9
+    expect(n_build20 == DEFAULT_BUILD_LAUNCHES, f"20-anchor fp32 build launches {n_build20}")
+    expect(tuple(big_d["kv"].shape) == (24, 1, 16, A20 * (RANK + 5), 128)
+           and big_d["kv"].dtype == torch.float32 and bool(torch.isfinite(big_d["kv"]).all())
+           and bool(torch.isfinite(cam_big_d).all()), "20-anchor fp32 cache")
+    print(f"  default configuration (fp32), 20 anchors, one-shot build on the kernels: "
+          f"{t20 * 1e3:.2f} ms (cold, one run), peak {peak20:.2f} GB, cache "
+          f"{big_d['kv'].numel() * 4 / 1e9:.3f} GB; launches "
+          f"{ {k: n for k, n in n_build20.items() if n} }; the dense route's global site "
+          f"(16, {n_global}, {n_global}) would store {logits_gb:.1f} GB of fp32 logits, "
+          f"{2 * logits_gb:.1f} GB with the softmax's output (computed, not run)")
+    dflt["scene20_build"] = dict(ms=t20 * 1e3, peak_gb=peak20, launches=n_build20,
+                                 dense_logits_gb=logits_gb)
+    res["default"] = dflt
+    del big_d, cam_big_d
+    torch.cuda.empty_cache()
     if failures:
         raise AssertionError("; ".join(failures))
-    return {"build": n_build, "reloc": n_reloc, "mask_form": n_mask}, res
+    return {"build": n_build, "reloc": n_reloc, "mask_form": n_mask,
+            "build_default": n_build_d, "reloc_default": n_reloc_d,
+            "build20_default": n_build20}, res
 
 
 def make_train_batch():
@@ -4803,13 +5159,19 @@ def main() -> int:
           f"peak memory {fwd['peak_gb']:.3f} GB")
     print("phase 4: two-phase serving (scene-cache build, reloc; 5 and 20 anchors)")
     serving_launches, serving = run_serving(state)
-    by_path = {"forward": launches, **serving_launches}
+    by_path = {"forward": launches, "forward_default": state["default_launches"],
+               **serving_launches}
     for k in kernels:
         k["launches_by_path"] = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     print(f"{card}: build {serving['build_ms']:.2f} ms, reloc "
           f"{serving['reloc_frames_per_s']:.3f} frames/s (full heads), "
           f"{serving['fast_reloc_frames_per_s']:.3f} frames/s (fast_reloc)")
+    if "--until-serving" in sys.argv[1:]:
+        print(json.dumps({"forward": fwd}))
+        print(json.dumps({"serving": serving}))
+        print(json.dumps({"kernels": kernels}))
+        return 0
     # phase 3's weights wait on the host for phase 7 (the card's memory goes
     # to phases 5 and 6)
     demo_params = _to_device(state["params"], "cpu")

@@ -42,6 +42,13 @@ _SIGNATURES: Dict[str, List] = {
     "sfm_flash_fwd_reloc_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # the layer stride of the stacked cache is a 64-bit element count
     "sfm_frame_ctx_kv2_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _F, _P],
+    # the fp32 forms of K1, K2 and K2p on the FFMA body (flash_fwd_f32.cu):
+    # the bf16 entries' arguments
+    "sfm_flash_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "sfm_frame_ctx_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "sfm_frame_ctx_kv2_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _F, _P],
+    # which kernel of the fp32 body (0 K1, 1 K2, 2 K2p), int[8] out
+    "sfm_flash_fwd_f32_info": [_I, _P],
     # B9 on the Hopper backward body: q, k, v, do, lse, delta, outputs; bh,
     # nq, nk; scale * log2(e), scale
     "sfm_flash_bwd_dq_sm90": [_P] * 7 + [_I] * 3 + [_F, _F, _P],

@@ -34,10 +34,14 @@ specialisation), the B9 pair, unmasked and under a RelocMask, another in
   :func:`flash_bwd_plain`.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
-tensor it launches the kernel or raises. The kernels are bound by the bf16
-tensor-core rate at the main-path sizes (see the source notes in the
-``.cu`` files) and take bf16, contiguous, d = 64 inputs; the "auto" gates
-(:func:`kernel_takes`) send a site that is not so to the dense path.
+tensor it launches the kernel or raises. The kernels take contiguous, d = 64
+inputs of one dtype: K1, K2 and K2p bf16 (the Hopper body, bound by the bf16
+tensor-core rate) or fp32 (their fp32 forms on the FFMA body of
+``csrc/flash_fwd_f32.cu``, bound by the fp32 rate; each wrapper counts those
+launches apart, in ``.launches_f32``), K1m and B9 bf16 only. The "auto" gates
+ask :func:`kernel_takes` and send a site the kernels do not take to the
+dense path: an fp32 site that autograd differentiates stays dense, since B9
+has no fp32 form.
 
 Autograd reaches the kernels only through the ``torch.autograd.Function``s
 behind :func:`flash_attention`, :func:`flash_attention_lse` and
@@ -61,13 +65,23 @@ LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIM = 64
 
 
-def _check_cuda(name: str, *ts: torch.Tensor) -> None:
+# what the forward kernels K1, K2 and K2p take (K1m and B9: bf16 only)
+_FWD_DTYPES = (torch.bfloat16, torch.float32)
+_BF16 = (torch.bfloat16,)
+
+
+def _check_cuda(name: str, *ts: torch.Tensor, dtypes=_BF16) -> None:
+    """Device, dtype (one of ``dtypes``, the same for every operand),
+    layout, head dim and alignment of a kernel's operands."""
     dev = ts[0].device
     for t in ts:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on different devices")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise TypeError(f"{name}: the kernel takes {names}, got {t.dtype}")
+        if t.dtype != ts[0].dtype:
+            raise TypeError(f"{name}: operands of one dtype, got {ts[0].dtype} and {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
         if t.shape[-1] != KERNEL_HEAD_DIM:
@@ -88,6 +102,36 @@ def _check_no_grad(name: str, *ts: torch.Tensor) -> None:
             f"{name}: a bare kernel launch is not differentiable; call the "
             "differentiable entry (flash_attention, flash_attention_lse, "
             "frame_ctx_attention) instead")
+
+
+def _no_backward_kernel(*ts: torch.Tensor) -> bool:
+    """The grad rule, decided here once: a call on ``ts`` off the CPU that
+    autograd differentiates needs the backward kernels (B9), which take
+    bf16 only; an fp32 one has none."""
+    return (ts[0].device.type != "cpu" and ts[0].dtype != torch.bfloat16
+            and torch.is_grad_enabled() and any(t.requires_grad for t in ts))
+
+
+def _check_backward_exists(name: str, *ts: torch.Tensor) -> None:
+    """A differentiable entry refuses a call :func:`_no_backward_kernel`
+    finds, rather than turn it into the dense route."""
+    if _no_backward_kernel(*ts):
+        raise TypeError(
+            f"{name}: the backward kernels take bfloat16 only; a {ts[0].dtype} call "
+            "that autograd differentiates has none")
+
+
+def _count(fn, dtype: torch.dtype) -> None:
+    """One launch of ``fn``'s kernel: bf16 in ``fn.launches``, fp32 in
+    ``fn.launches_f32``."""
+    if dtype == torch.bfloat16:
+        fn.launches += 1
+    else:
+        fn.launches_f32 += 1
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "f32"
 
 
 # -- K1: flash forward --------------------------------------------------------
@@ -124,7 +168,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     _check_no_grad("flash_fwd", q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v)
-    _check_cuda("flash_fwd", q, k, v)
+    _check_cuda("flash_fwd", q, k, v, dtypes=_FWD_DTYPES)
     BH, Nq, d = q.shape
     Nk = k.shape[1]
     if k.shape != (BH, Nk, d) or v.shape != k.shape:
@@ -133,15 +177,15 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     lse = torch.empty((BH, Nq), dtype=torch.float32, device=q.device)
     if BH and Nq:
         _kernels.launch(
-            "sfm_flash_fwd_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), BH, Nq, Nk, d**-0.5 * LOG2E,
+            f"sfm_flash_fwd_{_suffix(q.dtype)}", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), BH, Nq, Nk, d**-0.5 * LOG2E,
             _kernels.stream_ptr(q),
         )
-        flash_fwd.launches += 1
+        _count(flash_fwd, q.dtype)
     return out, lse
 
 
-flash_fwd.launches = 0
+flash_fwd.launches = flash_fwd.launches_f32 = 0
 
 
 def _check_mask(name: str, mask: RelocMask, nq: int, nk: int) -> None:
@@ -365,11 +409,13 @@ class _FlashAttentionLse(torch.autograd.Function):
 def flash_attention_lse(q, k, v, mask: Optional[RelocMask] = None):
     """(B, H, Nq, d) x (B, H, Nk, d)^2 -> ((B, H, Nq, d), (B, H, Nq) fp32 lse).
     Differentiable in q, k, v through both outputs."""
+    _check_backward_exists("flash_attention_lse", q, k, v)
     return _FlashAttentionLse.apply(q, k, v, mask)
 
 
 def flash_attention(q, k, v, mask: Optional[RelocMask] = None):
     """(B, H, Nq, d) x (B, H, Nk, d)^2 -> (B, H, Nq, d). Differentiable."""
+    _check_backward_exists("flash_attention", q, k, v)
     return _FlashAttention.apply(q, k, v, mask)
 
 
@@ -381,23 +427,32 @@ def supported(q, k, v, mask) -> bool:
     return q.shape[-1] <= 256 and q.dim() == 4
 
 
-def kernel_takes(q, k, v) -> bool:
-    """The "auto" gates' check of what the attention kernels take: bf16 q /
-    k / v of head dim 64. A CPU tensor always qualifies, since its wrapper
-    runs the dtype-generic plain version; an fp32 site on the card goes to
-    the dense path (the JAX kernels are dtype-generic, the port's bf16-only).
-    An explicit ``impl="flash"`` skips this check and reaches the kernel's
-    own refusal: a kernel that does not exist is not turned into dense."""
+def kernel_takes(q, k, v, mask=None, ctx=()) -> bool:
+    """The one check of the "auto" gates: whether the attention kernels take
+    the site. A CPU tensor always qualifies, since its wrapper runs the
+    dtype-generic plain version. On the card: head dim 64 and q / k / v of
+    one dtype; bf16 for every form, fp32 for the forward forms K1, K2 and
+    K2p only, so not under a RelocMask (K1m takes bf16 only) and not where
+    autograd differentiates the call, in q, k, v or ``ctx`` (the context
+    K / V of K2 and K2p): B9 takes bf16 only, and such a site stays on the
+    dense path. Remat is non-reentrant, so its recompute sees the first
+    pass's ``requires_grad`` and takes its route. An explicit
+    ``impl="flash"`` skips this check and reaches the kernels' own
+    refusals: a kernel that does not exist is not turned into dense."""
     if q.device.type == "cpu":
         return True
-    return (all(t.dtype == torch.bfloat16 for t in (q, k, v))
-            and q.shape[-1] == KERNEL_HEAD_DIM)
+    if q.shape[-1] != KERNEL_HEAD_DIM or k.dtype != q.dtype or v.dtype != q.dtype:
+        return False
+    if q.dtype == torch.bfloat16:
+        return True
+    return (q.dtype == torch.float32 and not isinstance(mask, RelocMask)
+            and not _no_backward_kernel(q, k, v, *ctx))
 
 
-def worth_it(q, k, v) -> bool:
+def worth_it(q, k, v, mask=None) -> bool:
     """The "auto" gate: a site the kernels take, at or above the JAX
     package's measured cut-over (``ops/flash_attention.py:814-817``)."""
-    return kernel_takes(q, k, v) and q.shape[-2] * k.shape[-2] >= 1_500_000
+    return kernel_takes(q, k, v, mask) and q.shape[-2] * k.shape[-2] >= 1_500_000
 
 
 # -- K2: fused [context ‖ own frame] attention --------------------------------
@@ -429,7 +484,7 @@ def frame_ctx_fwd(q, k, v, ck, cv):
     _check_no_grad("frame_ctx_fwd", q, k, v, ck, cv)
     if q.device.type == "cpu":
         return _frame_ctx_dense(q, k, v, ck, cv)
-    _check_cuda("frame_ctx_fwd", q, k, v, ck, cv)
+    _check_cuda("frame_ctx_fwd", q, k, v, ck, cv, dtypes=_FWD_DTYPES)
     BF, H, P, d = q.shape
     B, Hc, Nc, _ = ck.shape
     if (k.shape != q.shape or v.shape != q.shape or cv.shape != ck.shape
@@ -441,15 +496,15 @@ def frame_ctx_fwd(q, k, v, ck, cv):
     out = torch.empty_like(q)
     if BF and P:
         _kernels.launch(
-            "sfm_frame_ctx_fwd_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            ck.data_ptr(), cv.data_ptr(), out.data_ptr(), BF, H, BF // B, P,
-            Nc, d**-0.5 * LOG2E, _kernels.stream_ptr(q),
+            f"sfm_frame_ctx_fwd_{_suffix(q.dtype)}", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), ck.data_ptr(), cv.data_ptr(), out.data_ptr(), BF, H, BF // B,
+            P, Nc, d**-0.5 * LOG2E, _kernels.stream_ptr(q),
         )
-        frame_ctx_fwd.launches += 1
+        _count(frame_ctx_fwd, q.dtype)
     return out
 
 
-frame_ctx_fwd.launches = 0
+frame_ctx_fwd.launches = frame_ctx_fwd.launches_f32 = 0
 
 
 def _frame_ctx_split(q, k, v, ck, cv):
@@ -491,6 +546,7 @@ class _FrameCtxAttention(torch.autograd.Function):
 def frame_ctx_attention(q, k, v, ck, cv):
     """Fused reloc attention: frame-major q/k/v against shared context K/V.
     Differentiable in all five."""
+    _check_backward_exists("frame_ctx_attention", q, k, v, ck, cv)
     return _FrameCtxAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(),
         ck.to(k.dtype).contiguous(), cv.to(v.dtype).contiguous(),
@@ -538,14 +594,15 @@ def frame_ctx_packed_fwd(q, k, v, ckv, layer: int):
     The kernel gets ``ckv.data_ptr()``, ``layer`` and the layer stride: no
     slice, split or copy of cache data is made here, and the cache is never
     written."""
+    _check_backward_exists("frame_ctx_packed_fwd", q, k, v, ckv)
     _check_no_grad("frame_ctx_packed_fwd", q, k, v, ckv)
     if q.device.type == "cpu":
         return frame_ctx_packed_plain(q, k, v, ckv, layer)
     _check_packed(q, k, v, ckv, layer)
-    _check_cuda("frame_ctx_packed_fwd", q, k, v)
-    if ckv.device != q.device or ckv.dtype != torch.bfloat16:
+    _check_cuda("frame_ctx_packed_fwd", q, k, v, dtypes=_FWD_DTYPES)
+    if ckv.device != q.device or ckv.dtype != q.dtype:
         raise TypeError(
-            f"frame_ctx_packed_fwd: the cache must be bfloat16 on {q.device}, "
+            f"frame_ctx_packed_fwd: the cache must be {q.dtype} on {q.device}, "
             f"got {ckv.dtype} on {ckv.device}")
     if ckv.data_ptr() % 16:
         raise ValueError("frame_ctx_packed_fwd: the cache must be 16-byte aligned")
@@ -554,15 +611,15 @@ def frame_ctx_packed_fwd(q, k, v, ckv, layer: int):
     out = torch.empty_like(q)
     if BF and P:
         _kernels.launch(
-            "sfm_frame_ctx_kv2_fwd_bf16", q.data_ptr(), k.data_ptr(),
+            f"sfm_frame_ctx_kv2_fwd_{_suffix(q.dtype)}", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), ckv.data_ptr(), out.data_ptr(), BF, H, BF // B, P, Nc,
             layer, B * H * Nc * 2 * d, d**-0.5 * LOG2E, _kernels.stream_ptr(q),
         )
-        frame_ctx_packed_fwd.launches += 1
+        _count(frame_ctx_packed_fwd, q.dtype)
     return out
 
 
-frame_ctx_packed_fwd.launches = 0
+frame_ctx_packed_fwd.launches = frame_ctx_packed_fwd.launches_f32 = 0
 
 
 def packed_ctx_attention(q, k, v, ckv, layer: int, impl: str = "auto"):
@@ -571,16 +628,16 @@ def packed_ctx_attention(q, k, v, ckv, layer: int, impl: str = "auto"):
     The gate is the one of the frame-major context site in
     ``layers/attention.py``: the in-place kernel wrapper when ``impl`` is not
     "dense", the head dim is at most 256, and either ``impl == "flash"`` or
-    the kernel takes the site (:func:`kernel_takes`, and a bf16 cache off the
-    CPU) with ``P * (Nc + P) >= 1.5M`` (the JAX package's cut, without its
-    TPU-backend condition; the wrapper itself takes its plain version for a
-    CPU tensor only). Otherwise the layer is sliced and split and the dense
-    reference runs: an fp32 cache on the card takes that route under
-    "auto"."""
+    the kernel takes the site (:func:`kernel_takes`, and a cache of q's dtype
+    off the CPU) with ``P * (Nc + P) >= 1.5M`` (the JAX package's cut,
+    without its TPU-backend condition; the wrapper itself takes its plain
+    version for a CPU tensor only). Otherwise the layer is sliced and split
+    and the dense reference runs: a cache of another dtype than q's on the
+    card takes that route under "auto"."""
     d = q.shape[-1]
     Nc = ckv.shape[3]
-    takes = kernel_takes(q, k, v) and (ckv.device.type == "cpu"
-                                       or ckv.dtype == torch.bfloat16)
+    takes = kernel_takes(q, k, v, ctx=(ckv,)) and (ckv.device.type == "cpu"
+                                                   or ckv.dtype == q.dtype)
     if (
         impl != "dense"
         and d <= 256

@@ -610,63 +610,67 @@ def launches(monkeypatch):
     return seen
 
 
-def _meta(*shape, dtype=torch.bfloat16):
-    return torch.empty(shape, dtype=dtype, device="meta")
+def _meta(*shape, dtype=torch.bfloat16, grad=False):
+    return torch.empty(shape, dtype=dtype, device="meta", requires_grad=grad)
 
 
 F32, BF16 = torch.float32, torch.bfloat16
 P, NC = 1374, 610  # a 518 px frame's tokens, a 2-frame scene context
 
 
-def _sdpa(dtype, d, impl="auto"):
-    q, k, v = (_meta(1, 4, P, d, dtype=dtype) for _ in range(3))
+def _sdpa(dtype, d, impl="auto", grad=False):
+    q, k, v = (_meta(1, 4, P, d, dtype=dtype, grad=grad) for _ in range(3))
     return TAC.sdpa(q, k, v, impl=impl)
 
 
-def _frame_ctx(dtype, d, impl="auto"):
+def _frame_ctx(dtype, d, impl="auto", grad=False):
     H = 4
     cfg = TAT.AttentionConfig(dim=H * d, num_heads=H, impl=impl)
-    q, k, v = (_meta(2, H, P, d, dtype=dtype) for _ in range(3))
+    q, k, v = (_meta(2, H, P, d, dtype=dtype, grad=grad) for _ in range(3))
     ck, cv = _meta(1, H, NC, d, dtype=dtype), _meta(1, H, NC, d, dtype=dtype)
     return TAT.attention_heads_out(None, q, k, v, cfg, extra_kv=(ck, cv))
 
 
-def _reloc_split(dtype, d, impl="auto"):
+def _reloc_split(dtype, d, impl="auto", grad=False):
     H = 4
     cfg = TAT.AttentionConfig(dim=H * d, num_heads=H, impl=impl)
-    q, k, v = (_meta(1, H, 2 * P, d, dtype=dtype) for _ in range(3))
+    q, k, v = (_meta(1, H, 2 * P, d, dtype=dtype, grad=grad) for _ in range(3))
     ck, cv = _meta(1, H, NC, d, dtype=dtype), _meta(1, H, NC, d, dtype=dtype)
     return TAT.attention_heads_out(None, q, k, v, cfg, mask=RelocMask(NC, P, 2),
                                    extra_kv=(ck, cv))
 
 
-def _masked_sdpa(dtype, d, impl="auto"):
+def _masked_sdpa(dtype, d, impl="auto", grad=False):
     """sdpa under a RelocMask, the train site's reloc layer 0: K1m."""
     mask = RelocMask(NC, P, 2)
-    q = _meta(1, 4, mask.nq, d, dtype=dtype)
-    k, v = (_meta(1, 4, mask.nk, d, dtype=dtype) for _ in range(2))
+    q = _meta(1, 4, mask.nq, d, dtype=dtype, grad=grad)
+    k, v = (_meta(1, 4, mask.nk, d, dtype=dtype, grad=grad) for _ in range(2))
     return TAC.sdpa(q, k, v, mask, impl=impl)
 
 
-def _packed(dtype, d, impl="auto"):
-    q, k, v = (_meta(2, 4, P, d, dtype=dtype) for _ in range(3))
-    ckv = _meta(3, 1, 4, NC, 2 * d, dtype=dtype)
+def _packed(dtype, d, impl="auto", grad=False, cache_dtype=None):
+    q, k, v = (_meta(2, 4, P, d, dtype=dtype, grad=grad) for _ in range(3))
+    ckv = _meta(3, 1, 4, NC, 2 * d, dtype=cache_dtype or dtype)
     return TFA.packed_ctx_attention(q, k, v, ckv, 1, impl=impl)
 
 
-GATES = {"sdpa": (_sdpa, ["sfm_flash_fwd_bf16"]),
-         "frame-context": (_frame_ctx, ["sfm_frame_ctx_fwd_bf16"]),
-         "reloc split": (_reloc_split, ["sfm_flash_fwd_bf16"] * 2),
-         "masked sdpa": (_masked_sdpa, ["sfm_flash_fwd_reloc_sm90"]),
-         "packed cache": (_packed, ["sfm_frame_ctx_kv2_fwd_bf16"])}
+# gate -> (site, its bf16 launches, its fp32 launches without grad under
+# "auto"); the masked sdpa's fp32 site runs dense: K1m has no fp32 form
+GATES = {"sdpa": (_sdpa, ["sfm_flash_fwd_bf16"], ["sfm_flash_fwd_f32"]),
+         "frame-context": (_frame_ctx, ["sfm_frame_ctx_fwd_bf16"], ["sfm_frame_ctx_fwd_f32"]),
+         "reloc split": (_reloc_split, ["sfm_flash_fwd_bf16"] * 2, ["sfm_flash_fwd_f32"] * 2),
+         "masked sdpa": (_masked_sdpa, ["sfm_flash_fwd_reloc_sm90"], []),
+         "packed cache": (_packed, ["sfm_frame_ctx_kv2_fwd_bf16"],
+                          ["sfm_frame_ctx_kv2_fwd_f32"])}
 
 
-@pytest.mark.parametrize("dtype,d", [(F32, 64), (BF16, 32), (F32, 32)])
+@pytest.mark.parametrize("dtype,d,grad", [(F32, 64, True), (BF16, 32, False), (F32, 32, False)])
 @pytest.mark.parametrize("gate", list(GATES))
-def test_auto_routes_sites_the_kernels_do_not_take_dense(launches, gate, dtype, d):
-    """fp32 or head dim other than 64 off the CPU: the dense route, no
-    launch, the output of the site's shape and dtype."""
-    out = GATES[gate][0](dtype, d)
+def test_auto_routes_sites_the_kernels_do_not_take_dense(launches, gate, dtype, d, grad):
+    """Off the CPU, fp32 that autograd differentiates (B9 takes bf16 only)
+    or a head dim other than 64: the dense route, no launch, the output of
+    the site's shape and dtype."""
+    out = GATES[gate][0](dtype, d, grad=grad)
     assert launches == []
     assert out.device.type == "meta" and out.dtype == dtype and out.shape[-1] == d
 
@@ -679,11 +683,46 @@ def test_auto_routes_bf16_sites_to_the_kernels(launches, gate):
 
 
 @pytest.mark.parametrize("gate", list(GATES))
+def test_auto_routes_fp32_sites_without_grad_to_the_fp32_entries(launches, gate):
+    """fp32 of head dim 64 that autograd does not differentiate: the fp32
+    forms of K1, K2 and K2p; under a RelocMask the dense route (no fp32 K1m)."""
+    out = GATES[gate][0](F32, 64)
+    assert launches == GATES[gate][2]
+    assert out.dtype == F32 and out.shape[-1] == 64
+
+
+@pytest.mark.parametrize("gate", list(GATES))
 def test_explicit_flash_with_fp32_meets_the_kernels_refusal(launches, gate):
-    """impl="flash" asks for a kernel that takes no fp32: it raises, and is
-    not turned into the dense route."""
-    with pytest.raises(TypeError, match="bfloat16"):
-        GATES[gate][0](F32, 64, impl="flash")
+    """impl="flash" on an fp32 site that autograd differentiates asks for a
+    backward kernel that takes no fp32: it raises, and is not turned into
+    the dense route."""
+    with torch.enable_grad(), pytest.raises(TypeError, match="bfloat16 only"):
+        GATES[gate][0](F32, 64, impl="flash", grad=True)
+    assert launches == []
+
+
+@pytest.mark.parametrize("gate", list(GATES))
+def test_explicit_flash_with_fp32_without_grad_launches(launches, gate):
+    """impl="flash" on an fp32 site without grad reaches the fp32 entries;
+    under a RelocMask it meets K1m's refusal (bf16 only)."""
+    want = GATES[gate][2]
+    if gate == "masked sdpa":
+        with pytest.raises(TypeError, match="bfloat16"):
+            GATES[gate][0](F32, 64, impl="flash")
+    else:
+        assert GATES[gate][0](F32, 64, impl="flash").dtype == F32
+    assert launches == want
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash"])
+def test_fp32_q_against_a_bf16_cache(launches, impl):
+    """K2p reads the cache in place, in q's dtype: an fp32 q against a bf16
+    cache runs dense under "auto" and raises under "flash"."""
+    if impl == "flash":
+        with pytest.raises(TypeError, match="the cache must be torch.float32"):
+            _packed(F32, 64, impl=impl, cache_dtype=BF16)
+    else:
+        assert _packed(F32, 64, impl=impl, cache_dtype=BF16).dtype == F32
     assert launches == []
 
 
