@@ -260,8 +260,10 @@ SM90_SOURCE = "self_supervise_sfm_tpu_torch/csrc/flash_fwd_sm90.cu"
 # LN+QKV+RoPE, LN+QKV, the out-projection, MLP-up and MLP-down: one GEMM
 # body written for Hopper
 GEMM_SOURCE = "self_supervise_sfm_tpu_torch/csrc/gemm_sm90.cu"
-# the fp32 forms of K1, K2 and K2p: one FFMA body
+# the fp32 forms of K1, K1m, K2 and K2p: one FFMA body
 F32_SOURCE = "self_supervise_sfm_tpu_torch/csrc/flash_fwd_f32.cu"
+# the fp32 forms of B9 (dq, dk/dv; unmasked and under a RelocMask): one FFMA body
+F32_BWD_SOURCE = "self_supervise_sfm_tpu_torch/csrc/flash_bwd_f32.cu"
 
 
 # launches of each kernel wrapper in one call at full width (depth 24, 5
@@ -273,7 +275,8 @@ _ZERO = dict.fromkeys(("flash_fwd", "frame_ctx_fwd", "frame_ctx_packed_fwd", "fl
                        "resize_bilinear", "fused_ln_qkv_rope", "fused_ln_qkv",
                        "fused_proj_residual", "fused_mlp_up", "fused_mlp_down", "flash_bwd_dq",
                        "flash_bwd_dkv", "flash_fwd_f32", "frame_ctx_fwd_f32",
-                       "frame_ctx_packed_fwd_f32"), 0)
+                       "frame_ctx_packed_fwd_f32", "flash_fwd_reloc_f32", "flash_bwd_dq_f32",
+                       "flash_bwd_dkv_f32"), 0)
 FORWARD_LAUNCHES = {**_ZERO, "flash_fwd": 72, "frame_ctx_fwd": 24, "resize_bilinear": 2,
                     "fused_ln_qkv_rope": 72, "fused_ln_qkv": 24, "fused_proj_residual": 96,
                     "fused_mlp_up": 96, "fused_mlp_down": 96}
@@ -305,6 +308,13 @@ TRAIN_STEP_LAUNCHES = {**_ZERO, "flash_fwd": 24 + 6 * 24, "frame_ctx_fwd": 2 * 2
                        "fused_proj_residual": 24 + 6 * 24, "fused_mlp_up": 24 + 6 * 24,
                        "fused_mlp_down": 24 + 6 * 24, "flash_bwd_dq": 24 + 4 * 24,
                        "flash_bwd_dkv": 24 + 4 * 24}
+# the same step in the default configuration (fp32, "auto"): the attention
+# sites on the fp32 forms of K1 and K2 and the backward on B9's fp32 pair,
+# the bf16 step's counts; no fused block kernel (they take bf16 only)
+DEFAULT_TRAIN_STEP_LAUNCHES = {**_ZERO, "flash_fwd_f32": 24 + 6 * 24,
+                               "frame_ctx_fwd_f32": 2 * 24,
+                               "flash_bwd_dq_f32": 24 + 4 * 24,
+                               "flash_bwd_dkv_f32": 24 + 4 * 24}
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -335,6 +345,9 @@ _KERNEL_CLASSES = (
     ("flash_fwd fp32 (K1)", ("flash_fwd_f32_kernel",)),
     ("frame_ctx_fwd fp32 (K2)", ("frame_ctx_fwd_f32_kernel",)),
     ("frame_ctx_kv2_fwd fp32 (K2p)", ("frame_ctx_kv2_fwd_f32_kernel",)),
+    ("flash_fwd_reloc fp32 (K1m)", ("flash_fwd_reloc_f32_kernel",)),
+    ("flash_bwd_dq fp32 (B9)", ("flash_bwd_dq_f32_kernel", "flash_bwd_dq_reloc_f32_kernel")),
+    ("flash_bwd_dkv fp32 (B9)", ("flash_bwd_dkv_f32_kernel", "flash_bwd_dkv_reloc_f32_kernel")),
     ("flash_bwd_dq (B9)", ("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_reloc_sm90_kernel")),
     ("flash_bwd_dkv (B9)", ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_reloc_sm90_kernel")),
     ("frame_ctx_fwd (K2)", ("frame_ctx_fwd_kernel",)),
@@ -487,17 +500,24 @@ def print_sm90_build() -> None:
               f"(producer) / {info[7]} (consumers)")
         if info[1]:
             raise AssertionError(f"{name}: {info[1]} bytes of spills a thread")
-    for which, name in enumerate(("flash_fwd_f32_kernel", "frame_ctx_fwd_f32_kernel",
-                                  "frame_ctx_kv2_fwd_f32_kernel")):
-        info = (ctypes.c_int * 8)()
-        rc = lib.sfm_flash_fwd_f32_info(which, info)
-        if rc != 0:
-            raise RuntimeError(f"sfm_flash_fwd_f32_info({which}): CUDA error {rc}")
-        print(f"  {name}: {info[0]} registers a thread, {info[1]} local bytes, {info[2]} "
-              f"bytes of dynamic shared memory, {info[3]} q rows a block, {info[4]} keys a "
-              f"tile, {info[5]} threads, {info[6]} blocks an SM")
-        if info[1]:
-            raise AssertionError(f"{name}: {info[1]} bytes of spills a thread")
+    f32_bodies = (
+        ("sfm_flash_fwd_f32_info", ("flash_fwd_f32_kernel", "frame_ctx_fwd_f32_kernel",
+                                    "frame_ctx_kv2_fwd_f32_kernel",
+                                    "flash_fwd_reloc_f32_kernel"), ("q rows", "keys")),
+        ("sfm_flash_bwd_f32_info", ("flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel",
+                                    "flash_bwd_dq_reloc_f32_kernel",
+                                    "flash_bwd_dkv_reloc_f32_kernel"), ("rows", "rows")))
+    for entry, names, (own, streamed) in f32_bodies:
+        for which, name in enumerate(names):
+            info = (ctypes.c_int * 8)()
+            rc = getattr(lib, entry)(which, info)
+            if rc != 0:
+                raise RuntimeError(f"{entry}({which}): CUDA error {rc}")
+            print(f"  {name}: {info[0]} registers a thread, {info[1]} local bytes, {info[2]} "
+                  f"bytes of dynamic shared memory, {info[3]} {own} a block, {info[4]} "
+                  f"{streamed} a tile, {info[5]} threads, {info[6]} blocks an SM")
+            if info[1]:
+                raise AssertionError(f"{name}: {info[1]} bytes of spills a thread")
     advisories = [ln.strip() for ln in _kernels.build_log.splitlines() if "C7518" in ln]
     print(f"  ptxas wgmma serialisation advisories (C7518): {advisories or 'none'}")
 
@@ -722,6 +742,9 @@ def check_kernels(gen):
     f32 = torch.Generator(device="cuda").manual_seed(SEED + 61)
     results += check_f32_kernels(
         lambda *shape: torch.randn(shape, generator=f32, device="cuda"))
+    f32_bwd = torch.Generator(device="cuda").manual_seed(SEED + 67)
+    results += check_f32_bwd_kernels(
+        lambda *shape: torch.randn(shape, generator=f32_bwd, device="cuda"))
     for r in results:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -1053,6 +1076,227 @@ def check_f32_kernels(randn):
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"SDPA fp32 {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}, fp32 rate)")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    return results
+
+
+def check_f32_bwd_kernels(randn):
+    """Phase 2, the fp32 forms of B9 (the FFMA backward body of
+    ``csrc/flash_bwd_f32.cu``: dq and dk/dv, unmasked and under a RelocMask)
+    and of K1m (``csrc/flash_fwd_f32.cu``), in fp32 with TF32 off. Inputs:
+    random q, k, v and do, with o and lse from the fp32 forward kernels (K1,
+    or K1m under a mask). First the edges of the tiling (ragged q and key
+    tails, fewer keys than q rows, with and without dlse) and of the masked
+    walks (no context, frame sizes no multiple of 64, one-row frames, one
+    frame, whole 64-row segments; K1m there too, bit-equal to K2 fp32 on the
+    unfolded tensors), then the train step's five sites and the masked ones
+    at reloc layer 0 (16, 2748, 3358) and the 5-query shape (16, 6870,
+    8395). Each backward is held against ``flash_bwd_plain`` in fp32 at 2e-5
+    of the largest |gradient| of each output (:func:`_f32_tol`), a repeat
+    bit-equal, and timed a call and 20 launches back to back beside the
+    plain backward, the bound at the fp32 rate (dq 3 products, dk/dv 4, over
+    the allowed pairs) and the yardstick ``torch.autograd.grad`` through
+    fp32 SDPA after its forward (with the boolean mask at the masked sites),
+    whose time the pair is divided by. K1m fp32 at the 5-query shape:
+    against ``flash_fwd_plain`` with the mask (out :func:`_f32_tol`, lse
+    1e-5), a repeat and K2 fp32 on the unfolded tensors bit-equal, timed
+    beside SDPA with the boolean mask. Returns the three entries of the
+    kernel line."""
+    import torch
+    import torch.nn.functional as F
+
+    from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
+    from self_supervise_sfm_tpu_torch.ops.mask_spec import RelocMask
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, H, d = TRAIN_FRAMES, 16, 64
+    P = (IMG // 14) ** 2 + 5
+    nc = S * (RANK + 5)
+    nc5 = NUM_FRAMES * (RANK + 5)
+
+    def hold(label, grads, refs):
+        errs = []
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            errs.append(float((g - r).abs().max()))
+            _check(f"{label} {name}", errs[-1], _f32_tol(r))
+        return errs
+
+    def k2_unfolded(q, k, v, mask):
+        """K2 fp32 on a K1m problem's unfolded tensors: q and the own keys
+        (BH F, 1, P, 64), the context (BH, 1, n_ctx, 64) of each frame's
+        scene."""
+        bh, nf, fs, n = q.shape[0], mask.num_frames, mask.frame_size, mask.n_ctx
+
+        def own(t):
+            return t[:, n:].reshape(bh * nf, 1, fs, d).contiguous()
+
+        def ctx(t):
+            return t[:, :n].reshape(bh, 1, n, d).contiguous()
+
+        return FA.frame_ctx_fwd(q.view(bh * nf, 1, fs, d), own(k), own(v), ctx(k),
+                                ctx(v)).view(q.shape)
+
+    # -- the edges of the tiling and of the masked walks -----------------------
+    for bh, nq, nk, with_dlse in ((2, 1, 3, False), (3, 130, 77, True), (2, 257, 130, False),
+                                  (1, 200, 333, True), (2, 64, 64, False)):
+        q, do, k, v = randn(bh, nq, d), randn(bh, nq, d), randn(bh, nk, d), randn(bh, nk, d)
+        o, lse = FA.flash_fwd(q, k, v)
+        dlse = randn(bh, nq) if with_dlse else None
+        grads = FA.flash_bwd(q, k, v, o, lse, do, dlse)
+        torch.cuda.synchronize()
+        hold(f"flash_bwd_f32 edge ({bh}, {nq}, {nk}){' dlse' if with_dlse else ''}", grads,
+             FA.flash_bwd_plain(q, k, v, o, lse, do, dlse))
+    for n_ctx, fs, nf in ((77, 130, 2), (0, 130, 3), (5, 1, 7), (64, 64, 2), (98, 257, 2),
+                          (77, 130, 1)):
+        mask = RelocMask(n_ctx, fs, nf)
+        q, k, v = randn(2, mask.nq, d), randn(2, mask.nk, d), randn(2, mask.nk, d)
+        o, lse = FA.flash_fwd_reloc(q, k, v, mask)
+        torch.cuda.synchronize()
+        p_o, p_lse = FA.flash_fwd_plain(q, k, v, mask)
+        _check(f"flash_fwd_reloc_f32 edge {mask} out", float((o - p_o).abs().max()),
+               _f32_tol(p_o))
+        _check(f"flash_fwd_reloc_f32 edge {mask} lse", float((lse - p_lse).abs().max()), 1e-5)
+        if not torch.equal(o, k2_unfolded(q, k, v, mask)):
+            raise AssertionError(f"flash_fwd_reloc_f32 edge {mask}: not bit-equal to K2 fp32")
+        for with_dlse in (False, True):
+            do = randn(2, mask.nq, d)
+            dlse = randn(2, mask.nq) if with_dlse else None
+            grads = FA.flash_bwd(q, k, v, o, lse, do, dlse, mask)
+            torch.cuda.synchronize()
+            hold(f"flash_bwd_f32 edge {mask}{' dlse' if with_dlse else ''}", grads,
+                 FA.flash_bwd_plain(q, k, v, o, lse, do, dlse, mask))
+    print("  fp32 edges: flash_fwd_reloc_f32 (K1m) bit-equal to frame_ctx_fwd_f32 (K2) on the "
+          "unfolded tensors at each")
+
+    # -- the train step's sites and the masked ones ----------------------------
+    # (name, BH, Nq, Nk, with an lse cotangent, mask)
+    sites = [("vit", S * H, P, P, False, None),
+             ("frame", 2 * S * H, P, P, False, None),
+             ("global", H, S * P, S * P, False, None),
+             ("split own", S * H, P, P, True, None),
+             ("split context", S * H, P, nc, True, None),
+             ("reloc layer 0, RelocMask", H, S * P, nc + S * P, False, RelocMask(nc, P, S)),
+             ("reloc 5 queries, RelocMask", H, NUM_FRAMES * P, nc5 + NUM_FRAMES * P, False,
+              RelocMask(nc5, P, NUM_FRAMES))]
+    rows = {"flash_bwd_dq_f32": [], "flash_bwd_dkv_f32": []}
+    for site, bh, nq, nk, with_dlse, mask in sites:
+        q, do = randn(bh, nq, d), randn(bh, nq, d)
+        k, v = randn(bh, nk, d), randn(bh, nk, d)
+        o, lse = FA.flash_fwd(q, k, v) if mask is None else FA.flash_fwd_reloc(q, k, v, mask)
+        dlse = randn(bh, nq) if with_dlse else None
+        grads = FA.flash_bwd(q, k, v, o, lse, do, dlse, mask)
+        torch.cuda.synchronize()
+        refs = FA.flash_bwd_plain(q, k, v, o, lse, do, dlse, mask)
+        errs = dict(zip(("dq", "dk", "dv"), hold(f"flash_bwd_f32[{site}]", grads, refs)))
+        del refs
+        again = FA.flash_bwd(q, k, v, o, lse, do, dlse, mask)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"flash_bwd_f32[{site}]: a second backward is not bit-equal")
+        del again, grads
+        delta = FA._delta(o, do, dlse).contiguous()
+        # allowed pairs a head
+        pairs = nq * nk if mask is None else nq * (mask.n_ctx + mask.frame_size)
+        io = (2 * q.numel() + 2 * k.numel()) * 4 + 2 * lse.numel() * 4
+        qm, km, vm = (t.view(1, bh, -1, d).detach().requires_grad_() for t in (q, k, v))
+        attn_mask = None if mask is None else mask.materialize("cuda")
+        out = F.scaled_dot_product_attention(qm, km, vm, attn_mask=attn_mask)
+        dom = do.view(out.shape)
+        sdpa_bwd = lambda: torch.autograd.grad(out, (qm, km, vm), dom,  # noqa: E731
+                                               retain_graph=True)
+        plain = _time_ms(lambda: FA.flash_bwd_plain(q, k, v, o, lse, do, dlse, mask),
+                         reps=3, warmup=1)
+        common = dict(site=site, shape=[bh, nq, nk, d], plain_ms=plain,
+                      library_ms=_time_ms(sdpa_bwd),
+                      library_back_to_back_ms=_back_to_back_ms(sdpa_bwd),
+                      masked=mask is not None, repeat_bit_equal=True)
+        dq_fn = lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, mask)  # noqa: E731
+        dkv_fn = lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, mask)  # noqa: E731
+        b_dq, by_dq = _bound_ms(3 * 2.0 * bh * pairs * d, io + q.numel() * 4, PEAK_F32_FLOPS)
+        rows["flash_bwd_dq_f32"].append(dict(
+            common, max_abs_err=errs["dq"], bound_ms=b_dq, bound_by=by_dq,
+            ms=_time_ms(dq_fn), back_to_back_ms=_back_to_back_ms(dq_fn)))
+        b_kv, by_kv = _bound_ms(4 * 2.0 * bh * pairs * d, io + 2 * k.numel() * 4,
+                                PEAK_F32_FLOPS)
+        rows["flash_bwd_dkv_f32"].append(dict(
+            common, max_abs_err=max(errs["dk"], errs["dv"]), bound_ms=b_kv, bound_by=by_kv,
+            ms=_time_ms(dkv_fn), back_to_back_ms=_back_to_back_ms(dkv_fn)))
+        del q, k, v, do, o, lse, out, qm, km, vm, attn_mask, delta
+        torch.cuda.empty_cache()
+    results = []
+    for name, line in (("flash_bwd_dq_f32", 332), ("flash_bwd_dkv_f32", 349)):
+        ss = rows[name]
+        for s_ in ss:
+            print(f"  {name}[{s_['site']}] {s_['shape']}: kernel {s_['ms']:.4f} ms, b2b "
+                  f"{s_['back_to_back_ms']:.4f} ms, bound {s_['bound_ms']:.4f} ms "
+                  f"({s_['bound_by']}, {s_['bound_ms'] / s_['back_to_back_ms']:.3f} of it b2b, "
+                  f"{s_['bound_ms'] / s_['back_to_back_ms'] * PEAK_F32_FLOPS / 1e12:.1f} "
+                  f"TFLOP/s), plain backward {s_['plain_ms']:.4f} ms; a repeat bit-equal")
+        path = [s_ for s_ in ss if not s_["masked"]]
+        results.append(dict(
+            name=name, route="cuda", source=F32_BWD_SOURCE,
+            # the RelocMask form, the same body
+            masked_source=F32_BWD_SOURCE,
+            replaces=f"self_supervise_sfm_tpu/ops/flash_attention.py:{line}",
+            # one call at each unmasked site of the train step; plain_ms and
+            # library_ms compute all three gradients
+            max_abs_err=max(s_["max_abs_err"] for s_ in ss),
+            **{k: sum(s_[k] for s_ in path)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            bound_by=path[-1]["bound_by"], sites=ss))
+    for a, b in zip(rows["flash_bwd_dq_f32"], rows["flash_bwd_dkv_f32"]):
+        call, b2b = a["ms"] + b["ms"], a["back_to_back_ms"] + b["back_to_back_ms"]
+        print(f"  flash_bwd_f32 pair[{a['site']}]: {call:.4f} ms a call, {b2b:.4f} ms b2b; "
+              f"SDPA fp32 backward {a['library_ms']:.4f} / {a['library_back_to_back_ms']:.4f} "
+              f"ms; pair / SDPA {call / a['library_ms']:.2f} a call, "
+              f"{b2b / a['library_back_to_back_ms']:.2f} b2b")
+
+    # -- K1m fp32 at the 5-query shape -------------------------------------------
+    mask = RelocMask(nc5, P, NUM_FRAMES)
+    q, k, v = randn(H, mask.nq, d), randn(H, mask.nk, d), randn(H, mask.nk, d)
+    out, lse = FA.flash_fwd_reloc(q, k, v, mask)
+    torch.cuda.synchronize()
+    p_out, p_lse = FA.flash_fwd_plain(q, k, v, mask)
+    err = float((out - p_out).abs().max())
+    _check(f"flash_fwd_reloc_f32 out {tuple(q.shape)} x {tuple(k.shape)} {mask}", err,
+           _f32_tol(p_out))
+    lse_err = float((lse - p_lse).abs().max())
+    _check("flash_fwd_reloc_f32 lse", lse_err, 1e-5)
+    del p_out, p_lse
+    again = FA.flash_fwd_reloc(q, k, v, mask)
+    layout = k2_unfolded(q, k, v, mask)
+    torch.cuda.synchronize()
+    if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+        raise AssertionError("flash_fwd_reloc_f32: a repeat is not bit-equal")
+    if not torch.equal(layout, out):
+        raise AssertionError("flash_fwd_reloc_f32: not bit-equal to K2 fp32 on the unfolded "
+                             "tensors")
+    print("  flash_fwd_reloc_f32 (K1m): a repeat bit-equal; bit-equal to frame_ctx_fwd_f32 (K2) "
+          "on the unfolded tensors")
+    del again, layout
+    qm, km, vm = (t.view(1, H, -1, d) for t in (q, k, v))
+    dense_mask = mask.materialize("cuda")
+    bound, by = _bound_ms(4.0 * H * mask.nq * (nc5 + P) * d,
+                          (2 * q.numel() + 2 * k.numel()) * 4 + lse.numel() * 4,
+                          PEAK_F32_FLOPS)
+    kernel = lambda: FA.flash_fwd_reloc(q, k, v, mask)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(qm, km, vm, attn_mask=dense_mask)  # noqa: E731
+    r = dict(
+        name="flash_fwd_reloc_f32", route="cuda", source=F32_SOURCE,
+        replaces="self_supervise_sfm_tpu/ops/flash_attention.py:140",
+        variant="mask=RelocMask", max_abs_err=err, lse_err=lse_err, shape=list(q.shape),
+        ms=_time_ms(kernel),
+        plain_ms=_time_ms(lambda: FA.flash_fwd_plain(q, k, v, mask), reps=3, warmup=1),
+        # fp32 SDPA with the materialised boolean mask
+        library_ms=_time_ms(library),
+        bound_ms=bound, bound_by=by,
+        back_to_back_ms=_back_to_back_ms(kernel),
+        library_back_to_back_ms=_back_to_back_ms(library))
+    _site_line(f"flash_fwd_reloc_f32 {tuple(q.shape)} x {tuple(k.shape)} {mask}", r)
+    results.append(r)
+    del q, k, v, qm, km, vm, out, lse, dense_mask
+    torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = tf32
     return results
 
@@ -1609,7 +1853,10 @@ def kernel_wrappers() -> dict:
             "flash_bwd_dq": FA.flash_bwd_dq, "flash_bwd_dkv": FA.flash_bwd_dkv,
             "flash_fwd_f32": _F32Launches(FA.flash_fwd),
             "frame_ctx_fwd_f32": _F32Launches(FA.frame_ctx_fwd),
-            "frame_ctx_packed_fwd_f32": _F32Launches(FA.frame_ctx_packed_fwd)}
+            "frame_ctx_packed_fwd_f32": _F32Launches(FA.frame_ctx_packed_fwd),
+            "flash_fwd_reloc_f32": _F32Launches(FA.flash_fwd_reloc),
+            "flash_bwd_dq_f32": _F32Launches(FA.flash_bwd_dq),
+            "flash_bwd_dkv_f32": _F32Launches(FA.flash_bwd_dkv)}
 
 
 def run_forward(gen):
@@ -1932,7 +2179,8 @@ def run_serving(state):
 
     # the mask form of reloc layer 0 on the model's own tensors: sdpa with a
     # RelocMask (the masked flash kernel) against the in-place layout form
-    def mask_form():
+    def mask_form(params=params, acfg=acfg, kv=None):
+        kv = cache["kv"] if kv is None else kv
         tokens, t_frame = AG._reloc_setup(params["aggregator"], acfg, uniq)
         B, Q, Ptok, C = tokens.shape
         fp, rp = (params["aggregator"][k][0] for k in ("frame_blocks", "reloc_blocks"))
@@ -2173,6 +2421,18 @@ def run_serving(state):
            "an anchor")
     for k in ("extrinsic", "intrinsic"):
         expect(torch.equal(fast_d[k], out_d[k]), f"default fast_reloc {k} differs from reloc's")
+    # the mask form of reloc layer 0 in fp32: K1m's fp32 form against K2p's,
+    # one walk on the FFMA body, bit for bit
+    (layout_d, masked_d), n_mask_d = counted(
+        lambda: mask_form(p32, cfg_d.aggregator, cache_d["kv"]))
+    if n_mask_d["flash_fwd_reloc_f32"] != 1 or n_mask_d["frame_ctx_packed_fwd_f32"] != 1:
+        raise AssertionError(f"default configuration mask form launch counts {n_mask_d}")
+    expect(torch.equal(layout_d, masked_d),
+           "default configuration reloc layer 0: mask form (K1m fp32) not bit-equal to the "
+           "layout form (K2p fp32)")
+    print(f"  default configuration, reloc layer 0, mask form (K1m fp32) bit-equal to the "
+          f"layout form (K2p fp32): {torch.equal(layout_d, masked_d)}")
+    del layout_d, masked_d
     before = {k: w.launches for k, w in wrappers.items()}
     cache_f, cam_f = build(cfg_f32, p32)
     tf = taps_of(cfg_f32, p32, cache_f)
@@ -2235,7 +2495,91 @@ def run_serving(state):
         raise AssertionError("; ".join(failures))
     return {"build": n_build, "reloc": n_reloc, "mask_form": n_mask,
             "build_default": n_build_d, "reloc_default": n_reloc_d,
+            "mask_form_default": n_mask_d,
             "build20_default": n_build20}, res
+
+
+def run_train_default(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, grads, expect):
+    """Phase 5, the train step in the default configuration
+    (``make_config(remat=True)``: fp32, "auto") on the kernels: every
+    attention site on the fp32 forms of K1 and K2 and its backward on B9's
+    fp32 pair. One forward and backward of phase 5's state, batch and
+    subsample (the step without its Adam update, which runs no kernel):
+    its launches against ``DEFAULT_TRAIN_STEP_LAUNCHES``, its loss and
+    gradients against the fp32 plain path's (``loss_f``, ``gf``: dense
+    attention) at the fp32 tolerances of the tensor-parallel check (loss
+    rtol 1e-4, gradient norms 1e-3) and a gradient rel-RMS of 1e-3 a
+    subsystem, set before the first run; its time and peak memory in turns
+    with the same on the dense route (dense, kernels, kernels, dense); B9
+    fp32's device ms from one profiled run. Returns the launch counts and
+    the measurements."""
+    import torch
+
+    from self_supervise_sfm_tpu_torch.models import sailrecon as M
+    from self_supervise_sfm_tpu_torch.train import loop as L
+
+    wrappers = kernel_wrappers()
+    cfg_d = M.make_config(remat=True)
+    cfg_dense = M.make_config(remat=True, attn_impl="dense", global_attn_impl="dense")
+    for w in wrappers.values():
+        w.launches = 0
+    loss_d, _, gd = L.loss_and_grads(params, cfg_d, tcfg, batch, idx)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"  default configuration (fp32) step: launches "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    if launches != DEFAULT_TRAIN_STEP_LAUNCHES:
+        raise AssertionError(f"default configuration step launch counts {launches}, expected "
+                             f"{DEFAULT_TRAIN_STEP_LAUNCHES}")
+    loss_rel = abs(float(loss_d) - loss_f) / abs(loss_f)
+    print(f"  default configuration (fp32) step: loss {float(loss_d):.6f} against the fp32 "
+          f"plain path's {loss_f:.6f} (rel {loss_rel:.3e}, tolerance 1e-4)")
+    expect(loss_rel <= 1e-4, f"default configuration loss: rel {loss_rel} over 1e-4")
+    agree = {"loss_rel": loss_rel}
+    for name, part in subsystems.items():
+        a, b = part(gd), part(gf)
+        err = rel(a, b)
+        na, nb = float(L.global_norm(a)), float(L.global_norm(b))
+        norm_err = abs(na - nb) / nb
+        agree[name] = dict(rel_rms=err, norm_kernel=na, norm_plain=nb, norm_rel_err=norm_err,
+                           bf16_kernel_rel_rms=grads[name]["rel_rms"])
+        print(f"  default configuration (fp32) gradient {name}: vs the fp32 plain path rel-RMS "
+              f"{err:.4e} (tolerance 1e-3; the bf16 kernel path's "
+              f"{grads[name]['rel_rms']:.4e}), norm {na:.6g} vs {nb:.6g} (rel "
+              f"{norm_err:.4e}, tolerance 1e-3)")
+        expect(err <= 1e-3, f"default configuration gradient {name}: rel-RMS {err} over 1e-3")
+        expect(norm_err <= 1e-3, f"default configuration gradient norm {name}: {norm_err} "
+                                 "over 1e-3")
+    del gd
+
+    def timed(cfg):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        L.loss_and_grads(params, cfg, tcfg, batch, idx)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() / 1e9
+
+    runs = {"dense": [], "kernels": []}
+    for route in ("dense", "kernels", "kernels", "dense"):
+        runs[route].append(timed(cfg_d if route == "kernels" else cfg_dense))
+    ms = {r: statistics.median(t for t, _ in v) for r, v in runs.items()}
+    peak = {r: max(g for _, g in v) for r, v in runs.items()}
+    print(f"  default configuration (fp32) forward + backward: kernels "
+          f"{[round(t, 2) for t, _ in runs['kernels']]} ms, peak {peak['kernels']:.2f} GB; "
+          f"dense route {[round(t, 2) for t, _ in runs['dense']]} ms, peak "
+          f"{peak['dense']:.2f} GB (kernels / dense {ms['kernels'] / ms['dense']:.3f})")
+    profile = profile_forward(lambda: L.loss_and_grads(params, cfg_d, tcfg, batch, idx),
+                              label="default configuration (fp32) forward + backward")
+    b9 = None
+    if profile["measured"]:
+        b9 = {k: profile["classes_ms"][k]
+              for k in ("flash_bwd_dq fp32 (B9)", "flash_bwd_dkv fp32 (B9)")}
+        print(f"  B9 fp32 device ms a step: dq {b9['flash_bwd_dq fp32 (B9)']:.2f}, dk/dv "
+              f"{b9['flash_bwd_dkv fp32 (B9)']:.2f}, both {sum(b9.values()):.2f} (of device "
+              f"busy {profile['busy_ms']:.2f})")
+    return dict(launches=launches, agreement=agree, runs=runs, ms=ms, peak_gb=peak,
+                profile=profile, b9_device_ms=b9)
 
 
 def make_train_batch():
@@ -2294,7 +2638,8 @@ def run_train():
     gradient norms, the untouched DPT heads, and the gradients against the
     plain path's (dense attention, fused kernels off) within twice the
     bf16-vs-fp32 envelope the plain path measures; then times, peak memory
-    and a profile of one step."""
+    and a profile of one step. Then the same step in the default
+    configuration (fp32, "auto", :func:`run_train_default`)."""
     import torch
 
     from self_supervise_sfm_tpu_torch.models import aggregator as AG
@@ -2435,7 +2780,10 @@ def run_train():
               f"(tolerance 2x that)")
         expect(err <= 2 * env, f"gradient {name}: {err} over twice the envelope {env}")
         expect(norm_err <= 2 * env, f"gradient norm {name}: {norm_err} over twice {env}")
-    del gk, gp, gf
+    del gk, gp
+    default = run_train_default(params, tcfg, batch, idx, float(loss_f), gf, subsystems, rel,
+                                grads, expect)
+    del gf
 
     # remat: nothing on the kernel path sums with atomics but the loss's
     # histograms (index_add_); the gradients with the layers rematerialised,
@@ -2471,6 +2819,7 @@ def run_train():
           f"({[round(t * 1e3, 2) for t in times]}), {1 / step_s:.4f} steps/s, "
           f"peak memory {peak_gb:.2f} GB")
     return launches, dict(
+        default=default,
         step_ms=step_s * 1e3, steps_per_s=1 / step_s, times_ms=[t * 1e3 for t in times],
         peak_gb=peak_gb, params_m=n_params / 1e6, trained_m=n_trained / 1e6,
         kernel_launches_gradient_eval=n_kernel,
@@ -3607,6 +3956,8 @@ def run_converter(host_params=None, phase3=None):
     return launches, res
 
 
+# the more seeds of --torchrun-tp's bf16 first-loss distance (for the record)
+C1_SEEDS = 4
 RING_SITE = (16, NUM_FRAMES * 1374, 64)  # the global site: 16 heads, 5 anchors x 1374 tokens
 RING_CHUNKS = (2, 5, 10)
 CACHE_ANCHORS = 200
@@ -3858,6 +4209,30 @@ def run_sharded(card: str, host_params=None, phase3=None):
     res["ring_fold"] = dict(site=list(q.shape), whole_err=err_whole, whole_grad_err=gerr_whole,
                             whole_ms=whole_ms, folds=folds)
     del q, k, v, do, ref, ref_grads, whole, whole_g
+
+    # the fold of 2 chunks in fp32: K1 fp32 a chunk, and its gradients through
+    # B9's fp32 pair with the lse cotangent of the merge, against B9 fp32 over
+    # the whole at phase 2's fp32 tolerance (2e-5 of the largest |gradient|)
+    q, k, v, do = (torch.randn((1, H, N, d), generator=g, device="cuda") for _ in range(4))
+    whole, whole_g = grads_of(lambda a, b, c: FA.flash_attention_lse(a, b, c)[0])
+    (o, gs), n = counted(lambda: grads_of(lambda a, b, c: RA.ring_fold(a, b, c, 2)))
+    expect(n["flash_fwd_f32"] == 2 and n["flash_bwd_dq_f32"] == 2
+           and n["flash_bwd_dkv_f32"] == 2 and sum(n.values()) == 6,
+           f"fp32 fold of 2: launches {n}")
+    launches["ring_fold_f32"] = n
+    err = float((o - whole).abs().max())
+    gerr = [float((a - b).abs().max()) for a, b in zip(gs, whole_g)]
+    gtol = [_f32_tol(b) for b in whole_g]
+    print(f"  fp32 fold of 2 chunks at {tuple(q.shape)}: out vs K1 fp32 over the whole {err:.3e} "
+          f"(tolerance {_f32_tol(whole):.3e}); gradients (B9 fp32 with dlse) vs B9 fp32 over "
+          f"the whole {gerr} (tolerances {gtol}); launches "
+          f"{ {key: c for key, c in n.items() if c} }")
+    expect(err <= _f32_tol(whole), f"fp32 fold of 2: out error {err}")
+    expect(all(e <= t for e, t in zip(gerr, gtol)), f"fp32 fold of 2: gradient errors {gerr} "
+                                                    f"over {gtol}")
+    res["ring_fold_f32"] = dict(site=list(q.shape), n=2, max_abs_err=err, grad_err=gerr,
+                                grad_tolerance=gtol, launches=n)
+    del q, k, v, do, whole, whole_g, o, gs
 
     # -- (4) the context-sharded cache of a 200-anchor scene --------------------
     per_anchor = acfg.depth * acfg.num_heads * (RANK + acfg.patch_start_idx) * 2 * acfg.head_dim * 2
@@ -4840,11 +5215,14 @@ def run_torchrun_tp(card: str) -> dict:
     state) within twice the distance between the one-device bf16 loss and
     the fp32 plain path's loss on that state and batch, the later losses
     printed (the runs part as bf16 sums part); step intervals, frames a
-    second a card and every rank's peak memory. Then the same 3 steps in
-    fp32 on the plain path, TP against one card: steps 1 and 2 read the
-    first state, so their loss (rtol 1e-4) and gradient norms (rtol 1e-3)
-    are held with no bf16 rounding in the way. Build the kernels once
-    before starting the ranks."""
+    second a card and every rank's peak memory. Beside that check, for the
+    record: the same first-loss distance and envelope at ``C1_SEEDS`` more
+    seeds of the first state and batch (one step each, TP and one card).
+    Then the same 3 steps in fp32 on the kernels (the fp32 forms of K1 / K2
+    and B9's fp32 pair, their launches on rank 0 printed), TP against one
+    card: steps 1 and 2 read the first state, so their loss (rtol 1e-4) and
+    gradient norms (rtol 1e-3) are held with no bf16 rounding in the way.
+    Build the kernels once before starting the ranks."""
     import os
     import shutil
 
@@ -4921,24 +5299,47 @@ def run_torchrun_tp(card: str) -> dict:
         torch.cuda.empty_cache()
         dist.barrier()
 
-        def trainer_cfg(name, num_model, dtype="bfloat16"):
+        def trainer_cfg(name, num_model, dtype="bfloat16", seed=SEED, steps=3):
             return T.TrainerConfig(
-                data_root=SyntheticScenes(2, TRAIN_FRAMES, 10_000, IMG, SEED + 11),
-                results_dir=os.path.join(work, name), total_steps=3, num_images=TRAIN_FRAMES,
-                sample_num=10_000, rank=RANK, seed=SEED, num_model=num_model,
+                data_root=SyntheticScenes(2, TRAIN_FRAMES, 10_000, IMG, seed + 11),
+                results_dir=os.path.join(work, name), total_steps=steps,
+                num_images=TRAIN_FRAMES, sample_num=10_000, rank=RANK, seed=seed,
+                num_model=num_model,
                 checkpoint_every=0, sanity_check_every=0, artifact_every=0, log_every=1,
                 compute_dtype=dtype,
                 train=L.TrainConfig(warmup_steps=1, adam_mu_dtype="bfloat16",
                                     loss=LossConfig(max_val=30.0)))
 
-        def one_device_run(name, dtype="bfloat16"):
+        def one_device_run(name, dtype="bfloat16", **kw):
             make_mesh = T._make_mesh
             T._make_mesh = lambda cfg_, dev: None  # rank 0 alone: the one-device trainer
             try:
                 torch.cuda.reset_peak_memory_stats()
-                T.run(trainer_cfg(name, 1, dtype))
+                T.run(trainer_cfg(name, 1, dtype, **kw))
             finally:
                 T._make_mesh = make_mesh
+
+        def first_losses(tc):
+            """The loss of the bf16 kernel path and of the fp32 plain path
+            at the first state and batch of trainer config ``tc``, on one
+            card."""
+            tcfg = dataclasses.replace(tc.train, total_steps=tc.total_steps, rank=tc.rank,
+                                       num_images=tc.num_images)
+            stream = T.scene_stream(tc.data_root, range(tc.scenes_per_step_per_device),
+                                    tc.seed, 1)
+            batch0 = L.batch_to_device(next(stream), "cuda")
+            stream.close()
+            p0 = L.init_train_state(T._model_config(tc), tcfg, torch.Generator(
+                device="cuda").manual_seed(tc.seed))["params"]
+            cfg32 = M.make_config(img_size=tc.img_size, attn_impl="dense",
+                                  global_attn_impl="dense", fused_qkv="off", fused_mlp="off")
+            with torch.no_grad():
+                loss_k = float(L._loss_fn(p0, T._model_config(tc), tcfg, batch0,
+                                          **T.step_subsample(tc.seed, 0, "cuda"))[0])
+                loss_f = float(L._loss_fn(p0, cfg32, tcfg, batch0,
+                                          **T.step_subsample(tc.seed, 0, "cuda"))[0])
+            del p0, batch0
+            return loss_k, loss_f
 
         def rows(name):
             with open(os.path.join(work, name, "tensorboard", "metrics.jsonl")) as f:
@@ -4961,23 +5362,7 @@ def run_torchrun_tp(card: str) -> dict:
                    f"trainer losses {la} / {lb}")
             # the first step's state and batch again, on one card: the loss of
             # the bf16 kernel path and of the fp32 plain path
-            tc = trainer_cfg("one_device", 1)
-            tcfg = dataclasses.replace(tc.train, total_steps=tc.total_steps, rank=tc.rank,
-                                       num_images=tc.num_images)
-            stream = T.scene_stream(tc.data_root, range(tc.scenes_per_step_per_device),
-                                    tc.seed, 1)
-            batch0 = L.batch_to_device(next(stream), "cuda")
-            stream.close()
-            p0 = L.init_train_state(T._model_config(tc), tcfg, torch.Generator(
-                device="cuda").manual_seed(tc.seed))["params"]
-            cfg32 = M.make_config(img_size=tc.img_size, attn_impl="dense",
-                                  global_attn_impl="dense", fused_qkv="off", fused_mlp="off")
-            with torch.no_grad():
-                loss_k = float(L._loss_fn(p0, T._model_config(tc), tcfg, batch0,
-                                          **T.step_subsample(tc.seed, 0, "cuda"))[0])
-                loss_f = float(L._loss_fn(p0, cfg32, tcfg, batch0,
-                                          **T.step_subsample(tc.seed, 0, "cuda"))[0])
-            del p0, batch0
+            loss_k, loss_f = first_losses(trainer_cfg("one_device", 1))
             env = abs(loss_k - loss_f)
             expect(abs(la[0] - lb[0]) <= 2 * env,
                    f"TP trainer's first loss {la[0]} against {lb[0]}: over twice {env}")
@@ -4999,15 +5384,52 @@ def run_torchrun_tp(card: str) -> dict:
         dist.barrier()
         torch.cuda.empty_cache()
 
-        # the same three steps in fp32 on the plain path (no bf16 rounding to
+        # for the record, beside the check above: the bf16 first-loss distance
+        # between TP and one card, and its envelope, at more seeds of the
+        # first state and batch (one step each)
+        spread = []
+        for seed in range(SEED + 1, SEED + 1 + C1_SEEDS):
+            T.run(trainer_cfg(f"tp_s{seed}", world, seed=seed, steps=1))
+            torch.cuda.empty_cache()
+            if primary:
+                one_device_run(f"one_device_s{seed}", seed=seed, steps=1)
+                la, lb = rows(f"tp_s{seed}")[0]["loss"], rows(f"one_device_s{seed}")[0]["loss"]
+                lk, lf = first_losses(trainer_cfg(f"one_device_s{seed}", 1, seed=seed, steps=1))
+                spread.append(dict(seed=seed, tp=la, one_device=lb, distance=abs(la - lb),
+                                   envelope=abs(lk - lf), ratio=abs(la - lb) / abs(lk - lf)))
+                print(f"  {card}: seed {seed}: bf16 first loss with the heads over {world} "
+                      f"cards {la:.6f}, one card {lb:.6f}: distance {abs(la - lb):.3e}, "
+                      f"envelope |bf16 kernels - fp32 plain| {abs(lk - lf):.3e} (ratio "
+                      f"{spread[-1]['ratio']:.2f})", flush=True)
+            dist.barrier()
+            torch.cuda.empty_cache()
+        if primary:
+            out["trainer"]["first_loss_seed_spread"] = spread
+
+        # the same three steps in fp32 on the kernels (no bf16 rounding to
         # tell apart from a fault of the cut): steps 1 and 2 read the first
         # state (learning rate 0 at step 1), so their loss and gradient norms
         # must agree with one card's to fp32's summation order; step 3 follows
         # an update and is printed
+        wrappers = kernel_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
         T.run(trainer_cfg("tp_fp32", world, "float32"))
+        torch.cuda.synchronize()
+        tp_launches = {k: w.launches for k, w in wrappers.items() if w.launches}
         torch.cuda.empty_cache()
         if primary:
+            for w in wrappers.values():
+                w.launches = 0
             one_device_run("one_device_fp32", "float32")
+            one_launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+            print(f"  fp32 trainer launches, rank 0 with the heads over {world} cards: "
+                  f"{tp_launches}; one card: {one_launches}", flush=True)
+            expect(tp_launches.get("flash_bwd_dq_f32", 0) > 0
+                   and one_launches.get("flash_bwd_dq_f32", 0) > 0
+                   and not any(k.startswith("fused") for k in tp_launches),
+                   f"fp32 trainer off the fp32 kernels: {tp_launches} / {one_launches}")
+            out["trainer_fp32_launches"] = dict(tp_rank0=tp_launches, one_device=one_launches)
             a, b = rows("tp_fp32"), rows("one_device_fp32")
             keys = ("loss", "grad_norm", "grad_norm_vit", "grad_norm_agg", "grad_norm_camera")
             fp32 = {k: dict(tp=[r[k] for r in a], one_device=[r[k] for r in b],
@@ -5019,8 +5441,9 @@ def run_torchrun_tp(card: str) -> dict:
                 expect(worst <= tol, f"fp32 TP trainer {k} at the first state: relative "
                                      f"distance {worst:.3e} from one card's over {tol:g}")
             out["trainer_fp32"] = fp32
-            print(f"  {card}: fp32 trainer with the heads over {world} cards against one card "
-                  "(steps 1-2 the first state, held: loss rtol 1e-4, gradient norms 1e-3; "
+            print(f"  {card}: fp32 trainer on the kernels with the heads over {world} cards "
+                  "against one card (steps 1-2 the first state, held: loss rtol 1e-4, gradient "
+                  "norms 1e-3; "
                   "step 3 after an update): "
                   + "; ".join(f"{k} {[f'{x:.6g}' for x in v['tp']]} vs "
                               f"{[f'{x:.6g}' for x in v['one_device']]} (rel "
@@ -5053,7 +5476,7 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _kernels.library()
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s")
     print_build_log(_kernels.build_log)
@@ -5183,7 +5606,8 @@ def main() -> int:
     train_launches, train = run_train()
     for k in kernels:
         k["launches_by_path"]["train"] = train_launches[k["name"]]
-        k["launches"] += train_launches[k["name"]]
+        k["launches_by_path"]["train_default"] = train["default"]["launches"][k["name"]]
+        k["launches"] += train_launches[k["name"]] + train["default"]["launches"][k["name"]]
     print(f"{card}: train step {train['step_ms']:.2f} ms, {train['steps_per_s']:.4f} "
           f"steps/s, peak memory {train['peak_gb']:.2f} GB")
     torch.cuda.empty_cache()
@@ -5247,6 +5671,7 @@ def main() -> int:
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was launched on no path")
+    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"demo": demo}))
     print(json.dumps({"converter": conv}))
     print(json.dumps({"forward": fwd}))

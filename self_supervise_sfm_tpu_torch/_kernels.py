@@ -47,7 +47,9 @@ _SIGNATURES: Dict[str, List] = {
     "sfm_flash_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sfm_frame_ctx_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "sfm_frame_ctx_kv2_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _F, _P],
-    # which kernel of the fp32 body (0 K1, 1 K2, 2 K2p), int[8] out
+    # K1m in fp32 on the same body: the bf16 entry's arguments
+    "sfm_flash_fwd_reloc_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # which kernel of the fp32 body (0 K1, 1 K2, 2 K2p, 3 K1m), int[8] out
     "sfm_flash_fwd_f32_info": [_I, _P],
     # B9 on the Hopper backward body: q, k, v, do, lse, delta, outputs; bh,
     # nq, nk; scale * log2(e), scale
@@ -56,6 +58,15 @@ _SIGNATURES: Dict[str, List] = {
     # B9 under a RelocMask on the same body: bh, nq, nk, n_ctx, frame_size
     "sfm_flash_bwd_dq_reloc_sm90": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
     "sfm_flash_bwd_dkv_reloc_sm90": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+    # the fp32 forms of B9 on the FFMA backward body (flash_bwd_f32.cu): the
+    # bf16 entries' arguments
+    "sfm_flash_bwd_dq_f32": [_P] * 7 + [_I] * 3 + [_F, _F, _P],
+    "sfm_flash_bwd_dkv_f32": [_P] * 8 + [_I] * 3 + [_F, _F, _P],
+    "sfm_flash_bwd_dq_reloc_f32": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
+    "sfm_flash_bwd_dkv_reloc_f32": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+    # which kernel of the fp32 backward body (0 dq, 1 dk/dv, 2 and 3 their
+    # RelocMask forms), int[8] out
+    "sfm_flash_bwd_f32_info": [_I, _P],
     # which kernel of the sm90 attention body (0 K1, 1 K2, 2 K2p, 3 K1m), int[8] out
     "sfm_attention_sm90_info": [_I, _P],
     # which kernel of the sm90 backward body (0 dq, 1 dk/dv, 2 and 3 their

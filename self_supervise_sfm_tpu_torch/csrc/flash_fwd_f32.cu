@@ -1,11 +1,12 @@
-// fp32 forms of the attention forward: K1 (flash forward, out and lse), K2
-// (fused [context | own frame] attention) and K2p (K2 against one layer of
-// the kv2 scene cache, read in place), one body on the CUDA cores. fp32 in,
-// fp32 out, head dim 64.
+// fp32 forms of the attention forward: K1 (flash forward, out and lse), K1m
+// (K1 under a RelocMask), K2 (fused [context | own frame] attention) and K2p
+// (K2 against one layer of the kv2 scene cache, read in place), one body on
+// the CUDA cores. fp32 in, fp32 out, head dim 64.
 //
 // Replaces the fp32 forms of the Pallas TPU kernels (dtype-generic there:
 // the bf16 forms are flash_fwd_sm90.cu's)
 //   K1:  self_supervise_sfm_tpu/ops/flash_attention.py  _flash_fwd / _kernel
+//   K1m: the same with mask=RelocMask
 //   K2:  self_supervise_sfm_tpu/ops/flash_attention.py  frame_ctx_kernel /
 //        _frame_ctx_kernel
 //   K2p: self_supervise_sfm_tpu/ops/flash_attention.py
@@ -20,7 +21,14 @@
 // one online softmax (tile boundaries restart at key 0 of each source), as
 // the bf16 body does; K2p reads the (depth, B, H, Nc, 2 * 64) cache through
 // its layer offset and a row stride of 128 floats (k half at the row's
-// base, v half 64 floats further) and never writes it.
+// base, v half 64 floats further) and never writes it. K1m is K2's walk over
+// one key tensor laid out [n_ctx context | F frames of P] (the RelocMask: a q
+// row of frame f sees the context and frame f's keys): a slice is one frame
+// of one (batch, head), its q rows are the frame's P rows, its context the
+// first n_ctx keys and its own keys the frame's P, so the mask is expressed
+// by where the tiles start and end and nothing outside the allowed pairs is
+// loaded; it writes the lse as K1 does, and its out is bit-equal to K2's on
+// the unfolded tensors.
 //
 // Arithmetic: FFMA on the CUDA cores, not 3xTF32. A single TF32 product
 // keeps about three decimal digits, some 50x over the fp32 tolerance;
@@ -33,13 +41,14 @@
 // the FFMA of the exp2 argument and exp2 is ex2.approx.ftz (about 2 ulps; p
 // below 2^-126 becomes 0).
 //
-// Bound on an H100 SXM: operations. 4 * Nq * Nk * 64 FLOPs over the q / k /
-// v / o bytes is 340-1700 FLOP/byte at the main-path sizes, far above the
+// Bound on an H100 SXM: operations. 4 * Nq * Nk * 64 FLOPs (K1m: over the
+// allowed pairs) over the q / k / v / o bytes is 340-1700 FLOP/byte at the main-path sizes, far above the
 // fp32 ridge of 67e12 / 3.35e12 = 20 FLOP/byte. At 67 TFLOP/s: the ViT site
 // (80, 1374) 0.58 ms, the frame site (160, 1374) 1.15 ms, the global site
 // (16, 6870) 2.89 ms, K2 / K2p at the reloc site (80 slices of 1374 rows
 // against 1525 + 1374 keys) 1.22 ms, K2p against a 20-anchor cache (6100 +
-// 1374 keys) 3.14 ms.
+// 1374 keys) 3.14 ms, K1m at the 5-query mask (16 x 5 frames of 1374 rows
+// against 1525 + 1374 keys) 1.22 ms.
 //
 // Design (first version: right and simple; wgmma TF32 with TMA, or warp
 // specialisation, is later work). A block of 256 threads owns 64 q rows of
@@ -78,12 +87,19 @@ struct Params {
   const float* q;
   const float* k;
   const float* v;
-  const float* ck;     // context K rows (K2: (B, H, Nc, 64); K2p: the layer's [k | v] rows)
+  const float* ck;     // context K rows (K2: (B, H, Nc, 64); K2p: the layer's [k | v] rows;
+                       // K1m: the key tensor's first n_ctx rows)
   const float* cv;     // context V rows
   float* o;
-  float* lse;          // K1
+  float* lse;          // K1, K1m (null: not written)
   int nq;              // q rows of a slice
   int nk;              // own keys of a slice
+  // a slice's own keys: k + k_off + (slice / kf) * k_slice + (slice % kf) *
+  // nk * 64 (K1, K2, K2p: one frame a key slice; K1m: the F frames of a
+  // (batch, head) after its context)
+  int kf;
+  long long k_off;
+  long long k_slice;
   int nc;              // context keys of a scene (K2, K2p)
   int heads;           // slice = bf * heads + h
   int frames;          // scene = bf / frames
@@ -147,8 +163,10 @@ __device__ __forceinline__ void attention(const Params& p) {
   const int q0 = blockIdx.x * BM;
   const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
   const float* qs = p.q + static_cast<long long>(slice) * p.nq * D;
-  const float* ks = p.k + static_cast<long long>(slice) * p.nk * D;
-  const float* vs = p.v + static_cast<long long>(slice) * p.nk * D;
+  const long long own_off = p.k_off + static_cast<long long>(slice / p.kf) * p.k_slice +
+                           static_cast<long long>(slice % p.kf) * p.nk * D;
+  const float* ks = p.k + own_off;
+  const float* vs = p.v + own_off;
   const float* cks = nullptr;
   const float* cvs = nullptr;
   if (CTX) {
@@ -307,7 +325,7 @@ __device__ __forceinline__ void attention(const Params& p) {
     const long long row = static_cast<long long>(slice) * p.nq + r;
     *reinterpret_cast<float4*>(p.o + row * D + 4 * tc) =
         make_float4(o[i][0] / d, o[i][1] / d, o[i][2] / d, o[i][3] / d);
-    if (!CTX && tc == 0) p.lse[row] = m[i] * (1.0f / LOG2E) + logf(d);
+    if (p.lse && tc == 0) p.lse[row] = m[i] * (1.0f / LOG2E) + logf(d);
   }
 }
 
@@ -327,12 +345,18 @@ __global__ void __launch_bounds__(NTHREADS, 2) frame_ctx_kv2_fwd_f32_kernel(cons
   attention<true>(p);
 }
 
-constexpr int KERNELS = 3;  // K1, K2, K2p
+// K1m: K2's body over one key tensor [context | frames]; slices (bh * F + f)
+__global__ void __launch_bounds__(NTHREADS, 2) flash_fwd_reloc_f32_kernel(const Params p) {
+  attention<true>(p);
+}
+
+constexpr int KERNELS = 4;  // K1, K2, K2p, K1m
 
 const void* kernel_of(int which) {
   return which == 0   ? reinterpret_cast<const void*>(flash_fwd_f32_kernel)
          : which == 1 ? reinterpret_cast<const void*>(frame_ctx_fwd_f32_kernel)
-                      : reinterpret_cast<const void*>(frame_ctx_kv2_fwd_f32_kernel);
+         : which == 2 ? reinterpret_cast<const void*>(frame_ctx_kv2_fwd_f32_kernel)
+                      : reinterpret_cast<const void*>(flash_fwd_reloc_f32_kernel);
 }
 
 // -- host side ----------------------------------------------------------------
@@ -357,7 +381,8 @@ int launch(int which, const Params& p, int slices, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (which == 0) flash_fwd_f32_kernel<<<grid, NTHREADS, SMEM_BYTES, s>>>(p);
   else if (which == 1) frame_ctx_fwd_f32_kernel<<<grid, NTHREADS, SMEM_BYTES, s>>>(p);
-  else frame_ctx_kv2_fwd_f32_kernel<<<grid, NTHREADS, SMEM_BYTES, s>>>(p);
+  else if (which == 2) frame_ctx_kv2_fwd_f32_kernel<<<grid, NTHREADS, SMEM_BYTES, s>>>(p);
+  else flash_fwd_reloc_f32_kernel<<<grid, NTHREADS, SMEM_BYTES, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -371,6 +396,8 @@ Params make_params(const void* q, const void* k, const void* v, void* o, void* l
   p.lse = static_cast<float*>(lse);
   p.nq = nq;
   p.nk = nk;
+  p.kf = 1;
+  p.k_slice = static_cast<long long>(nk) * D;
   p.heads = 1;
   p.frames = 1;
   p.scale_log2 = scale_log2;
@@ -430,8 +457,31 @@ extern "C" int sfm_frame_ctx_kv2_fwd_f32(const void* q, const void* k, const voi
   return launch(2, p, bf * heads, stream);
 }
 
+// q / o: (bh, F * P, 64), k / v: (bh, n_ctx + F * P, 64), keys [context |
+// frames], lse (bh, F * P); fp32, contiguous. The arguments of
+// sfm_flash_fwd_reloc_sm90: nq = num_frames * frame_size, nk = n_ctx + nq.
+extern "C" int sfm_flash_fwd_reloc_f32(const void* q, const void* k, const void* v, void* o,
+                                       void* lse, int bh, int nq, int nk, int n_ctx,
+                                       int frame_size, int num_frames, float scale_log2,
+                                       void* stream) {
+  if (frame_size <= 0 || num_frames <= 0 || n_ctx < 0 || nq != num_frames * frame_size ||
+      nk != n_ctx + nq)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p = make_params(q, k, v, o, lse, frame_size, frame_size, scale_log2);
+  p.ck = static_cast<const float*>(k);
+  p.cv = static_cast<const float*>(v);
+  p.nc = n_ctx;
+  p.frames = num_frames;  // heads 1: the context of slice s is that of (batch, head) s / F
+  p.c_row = D;
+  p.c_slice = static_cast<long long>(nk) * D;
+  p.kf = num_frames;
+  p.k_off = static_cast<long long>(n_ctx) * D;
+  p.k_slice = static_cast<long long>(nk) * D;
+  return launch(3, p, bh * num_frames, stream);
+}
+
 // What the body was built with and what the compiler gave each kernel (0 K1,
-// 1 K2, 2 K2p): registers a thread, local (spill) bytes a thread, dynamic
+// 1 K2, 2 K2p, 3 K1m): registers a thread, local (spill) bytes a thread, dynamic
 // shared memory a block, q rows a block, keys a tile, threads a block, and
 // the blocks an SM holds at once.
 extern "C" int sfm_flash_fwd_f32_info(int which, int* out) {

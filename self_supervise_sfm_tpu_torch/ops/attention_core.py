@@ -63,8 +63,8 @@ def reloc_split_attention(q, k_self, v_self, k_ctx, v_ctx, mask: RelocMask):
 def sdpa(q, k, v, mask=None, impl: str = "auto"):
     """``impl``: 'dense' | 'flash' | 'auto' | 'ring' ('auto' takes flash when
     it pays and the kernels take the site, ``fa.worth_it``: on the card head
-    dim 64 in bf16, or in fp32 without a RelocMask where autograd does not
-    differentiate the call; any site on the CPU). A :class:`RelocMask` goes
+    dim 64 in bf16 or fp32, with or without a RelocMask, differentiated or
+    not; any site on the CPU). A :class:`RelocMask` goes
     to the masked flash kernel; a boolean mask stays on the dense path. 'ring'
     takes the ring over the active mesh's ``context`` axis where
     ``ring_applicable`` holds, else 'auto'."""
@@ -79,7 +79,7 @@ def sdpa(q, k, v, mask=None, impl: str = "auto"):
             return ra.ring_sdpa(q, k, v, mesh)
         impl = "auto"  # no mesh, one context rank, or a non-dividing axis
     if impl in ("flash", "auto"):
-        if fa.supported(q, k, v, mask) and (impl == "flash" or fa.worth_it(q, k, v, mask)):
+        if fa.supported(q, k, v, mask) and (impl == "flash" or fa.worth_it(q, k, v)):
             return fa.flash_attention(
                 q, k, v, mask if isinstance(mask, RelocMask) else None)
         return sdpa_dense(q, k, v, mask)

@@ -1,10 +1,12 @@
 """Flash attention (K1, K1m, B9) and fused [context ‖ own frame] attention (K2, K2p).
 
 Port of ``self_supervise_sfm_tpu/ops/flash_attention.py``. The Pallas TPU
-kernels become hand-written CUDA kernels: K1, K1m, K2 and K2p share one
-body written for Hopper in ``csrc/flash_fwd_sm90.cu`` (TMA ring, wgmma, warp
-specialisation), the B9 pair, unmasked and under a RelocMask, another in
-``csrc/flash_bwd_sm90.cu``. Each sits beside its plain PyTorch version:
+kernels become hand-written CUDA kernels: in bf16, K1, K1m, K2 and K2p share
+one body written for Hopper in ``csrc/flash_fwd_sm90.cu`` (TMA ring, wgmma,
+warp specialisation), the B9 pair, unmasked and under a RelocMask, another
+in ``csrc/flash_bwd_sm90.cu``; in fp32, the forward forms share an FFMA body
+in ``csrc/flash_fwd_f32.cu`` and the B9 pair another in
+``csrc/flash_bwd_f32.cu``. Each sits beside its plain PyTorch version:
 
 - :func:`flash_fwd` (K1) replaces ``_flash_fwd``/``_kernel``: online
   softmax in the log2 domain, fp32 state, p cast to v's dtype before PV,
@@ -34,14 +36,12 @@ specialisation), the B9 pair, unmasked and under a RelocMask, another in
   :func:`flash_bwd_plain`.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
-tensor it launches the kernel or raises. The kernels take contiguous, d = 64
-inputs of one dtype: K1, K2 and K2p bf16 (the Hopper body, bound by the bf16
-tensor-core rate) or fp32 (their fp32 forms on the FFMA body of
-``csrc/flash_fwd_f32.cu``, bound by the fp32 rate; each wrapper counts those
-launches apart, in ``.launches_f32``), K1m and B9 bf16 only. The "auto" gates
-ask :func:`kernel_takes` and send a site the kernels do not take to the
-dense path: an fp32 site that autograd differentiates stays dense, since B9
-has no fp32 form.
+tensor it launches the kernel or raises. Every kernel takes contiguous, d =
+64 inputs of one dtype, bf16 (the Hopper bodies, bound by the bf16
+tensor-core rate) or fp32 (the FFMA bodies, bound by the fp32 rate; each
+wrapper counts those launches apart, in ``.launches_f32``). The "auto"
+gates ask :func:`kernel_takes` and send a site the kernels do not take (a
+head dim other than 64, operands of two dtypes) to the dense path.
 
 Autograd reaches the kernels only through the ``torch.autograd.Function``s
 behind :func:`flash_attention`, :func:`flash_attention_lse` and
@@ -65,21 +65,19 @@ LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIM = 64
 
 
-# what the forward kernels K1, K2 and K2p take (K1m and B9: bf16 only)
-_FWD_DTYPES = (torch.bfloat16, torch.float32)
-_BF16 = (torch.bfloat16,)
+# what every attention kernel takes: its Hopper form or its FFMA form
+_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _check_cuda(name: str, *ts: torch.Tensor, dtypes=_BF16) -> None:
-    """Device, dtype (one of ``dtypes``, the same for every operand),
-    layout, head dim and alignment of a kernel's operands."""
+def _check_cuda(name: str, *ts: torch.Tensor) -> None:
+    """Device, dtype (bf16 or fp32, the same for every operand), layout,
+    head dim and alignment of a kernel's operands."""
     dev = ts[0].device
     for t in ts:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on different devices")
-        if t.dtype not in dtypes:
-            names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
-            raise TypeError(f"{name}: the kernel takes {names}, got {t.dtype}")
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{name}: the kernel takes bfloat16 or float32, got {t.dtype}")
         if t.dtype != ts[0].dtype:
             raise TypeError(f"{name}: operands of one dtype, got {ts[0].dtype} and {t.dtype}")
         if not t.is_contiguous():
@@ -104,23 +102,6 @@ def _check_no_grad(name: str, *ts: torch.Tensor) -> None:
             "frame_ctx_attention) instead")
 
 
-def _no_backward_kernel(*ts: torch.Tensor) -> bool:
-    """The grad rule, decided here once: a call on ``ts`` off the CPU that
-    autograd differentiates needs the backward kernels (B9), which take
-    bf16 only; an fp32 one has none."""
-    return (ts[0].device.type != "cpu" and ts[0].dtype != torch.bfloat16
-            and torch.is_grad_enabled() and any(t.requires_grad for t in ts))
-
-
-def _check_backward_exists(name: str, *ts: torch.Tensor) -> None:
-    """A differentiable entry refuses a call :func:`_no_backward_kernel`
-    finds, rather than turn it into the dense route."""
-    if _no_backward_kernel(*ts):
-        raise TypeError(
-            f"{name}: the backward kernels take bfloat16 only; a {ts[0].dtype} call "
-            "that autograd differentiates has none")
-
-
 def _count(fn, dtype: torch.dtype) -> None:
     """One launch of ``fn``'s kernel: bf16 in ``fn.launches``, fp32 in
     ``fn.launches_f32``."""
@@ -132,6 +113,12 @@ def _count(fn, dtype: torch.dtype) -> None:
 
 def _suffix(dtype: torch.dtype) -> str:
     return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
+def _body(dtype: torch.dtype) -> str:
+    """The suffix of K1m's and B9's entries: the Hopper body's (bf16) or the
+    FFMA body's (fp32)."""
+    return "sm90" if dtype == torch.bfloat16 else "f32"
 
 
 # -- K1: flash forward --------------------------------------------------------
@@ -168,7 +155,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     _check_no_grad("flash_fwd", q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v)
-    _check_cuda("flash_fwd", q, k, v, dtypes=_FWD_DTYPES)
+    _check_cuda("flash_fwd", q, k, v)
     BH, Nq, d = q.shape
     Nk = k.shape[1]
     if k.shape != (BH, Nk, d) or v.shape != k.shape:
@@ -196,7 +183,8 @@ def _check_mask(name: str, mask: RelocMask, nq: int, nk: int) -> None:
 def flash_fwd_reloc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: RelocMask):
     """K1m wrapper: :func:`flash_fwd` under a RelocMask. q: (BH, F*P, d);
-    k/v: (BH, n_ctx + F*P, d), keys laid out [context ‖ frames]."""
+    k/v: (BH, n_ctx + F*P, d), keys laid out [context ‖ frames]; bf16 on
+    the Hopper body, fp32 on the FFMA body."""
     _check_no_grad("flash_fwd_reloc", q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, mask)
@@ -210,16 +198,16 @@ def flash_fwd_reloc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((BH, Nq), dtype=torch.float32, device=q.device)
     if BH and Nq:
         _kernels.launch(
-            "sfm_flash_fwd_reloc_sm90", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            f"sfm_flash_fwd_reloc_{_body(q.dtype)}", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), BH, Nq, Nk, mask.n_ctx,
             mask.frame_size, mask.num_frames, d**-0.5 * LOG2E,
             _kernels.stream_ptr(q),
         )
-        flash_fwd_reloc.launches += 1
+        _count(flash_fwd_reloc, q.dtype)
     return out, lse
 
 
-flash_fwd_reloc.launches = 0
+flash_fwd_reloc.launches = flash_fwd_reloc.launches_f32 = 0
 
 
 # -- B9: flash backward (dq kernel, dk/dv kernel) -----------------------------
@@ -260,8 +248,9 @@ def flash_bwd_plain(q, k, v, o, lse, do, dlse=None,
 
 
 def _check_bwd(name, q, k, v, do, lse, delta, mask) -> None:
-    """What the B9 kernels take: bf16 q / k / v / do of one head dim on one
-    device, fp32 contiguous (BH, Nq) lse and delta, shapes that agree."""
+    """What the B9 kernels take: q / k / v / do of one dtype (bf16 or fp32)
+    and one head dim on one device, fp32 contiguous (BH, Nq) lse and delta,
+    shapes that agree."""
     _check_cuda(name, q, k, v, do)
     BH, Nq, d = q.shape
     Nk = k.shape[1]
@@ -277,18 +266,18 @@ def _check_bwd(name, q, k, v, do, lse, delta, mask) -> None:
         _check_mask(name, mask, Nq, Nk)
 
 
-def _bwd_entry(name: str, mask: Optional[RelocMask]):
+def _bwd_entry(name: str, dtype: torch.dtype, mask: Optional[RelocMask]):
     """The C entry of a B9 kernel and its trailing shape arguments: the
-    Hopper body's unmasked form, or its RelocMask form with the mask's
-    context and frame size."""
+    unmasked form of ``dtype``'s body, or its RelocMask form with the
+    mask's context and frame size."""
     if mask is None:
-        return f"sfm_flash_bwd_{name}_sm90", ()
-    return f"sfm_flash_bwd_{name}_reloc_sm90", (mask.n_ctx, mask.frame_size)
+        return f"sfm_flash_bwd_{name}_{_body(dtype)}", ()
+    return f"sfm_flash_bwd_{name}_reloc_{_body(dtype)}", (mask.n_ctx, mask.frame_size)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
-    """The dq kernel (``_dq_kernel``): (BH, Nq, d) bf16, for CUDA tensors.
-    ``delta`` is :func:`flash_bwd`'s rowsum(do * o) - dlse. With no key the
+    """The dq kernel (``_dq_kernel``): (BH, Nq, d) in q's dtype, for CUDA
+    tensors. ``delta`` is :func:`flash_bwd`'s rowsum(do * o) - dlse. With no key the
     gradient is zero and nothing is launched."""
     _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta, mask)
     BH, Nq, d = q.shape
@@ -297,23 +286,23 @@ def flash_bwd_dq(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
         return torch.zeros_like(q)
     dq = torch.empty_like(q)
     if BH and Nq:
-        entry, extra = _bwd_entry("dq", mask)
+        entry, extra = _bwd_entry("dq", q.dtype, mask)
         _kernels.launch(
             entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, Nq, Nk, *extra,
             d**-0.5 * LOG2E, d**-0.5, _kernels.stream_ptr(q),
         )
-        flash_bwd_dq.launches += 1
+        _count(flash_bwd_dq, q.dtype)
     return dq
 
 
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.launches_f32 = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
-    """The dk/dv kernel (``_dkv_kernel``): two (BH, Nk, d) bf16 tensors, for
-    CUDA tensors. With no q row the gradients are zero and nothing is
-    launched."""
+    """The dk/dv kernel (``_dkv_kernel``): two (BH, Nk, d) tensors in k's
+    dtype, for CUDA tensors. With no q row the gradients are zero and
+    nothing is launched."""
     _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, mask)
     BH, Nk, d = k.shape
     Nq = q.shape[1]
@@ -321,17 +310,17 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
         return torch.zeros_like(k), torch.zeros_like(v)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if BH and Nk:
-        entry, extra = _bwd_entry("dkv", mask)
+        entry, extra = _bwd_entry("dkv", q.dtype, mask)
         _kernels.launch(
             entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Nq,
             Nk, *extra, d**-0.5 * LOG2E, d**-0.5, _kernels.stream_ptr(q),
         )
-        flash_bwd_dkv.launches += 1
+        _count(flash_bwd_dkv, q.dtype)
     return dk, dv
 
 
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.launches_f32 = 0
 
 
 def flash_bwd(q, k, v, o, lse, do, dlse=None, mask: Optional[RelocMask] = None):
@@ -409,13 +398,11 @@ class _FlashAttentionLse(torch.autograd.Function):
 def flash_attention_lse(q, k, v, mask: Optional[RelocMask] = None):
     """(B, H, Nq, d) x (B, H, Nk, d)^2 -> ((B, H, Nq, d), (B, H, Nq) fp32 lse).
     Differentiable in q, k, v through both outputs."""
-    _check_backward_exists("flash_attention_lse", q, k, v)
     return _FlashAttentionLse.apply(q, k, v, mask)
 
 
 def flash_attention(q, k, v, mask: Optional[RelocMask] = None):
     """(B, H, Nq, d) x (B, H, Nk, d)^2 -> (B, H, Nq, d). Differentiable."""
-    _check_backward_exists("flash_attention", q, k, v)
     return _FlashAttention.apply(q, k, v, mask)
 
 
@@ -427,32 +414,25 @@ def supported(q, k, v, mask) -> bool:
     return q.shape[-1] <= 256 and q.dim() == 4
 
 
-def kernel_takes(q, k, v, mask=None, ctx=()) -> bool:
+def kernel_takes(q, k, v) -> bool:
     """The one check of the "auto" gates: whether the attention kernels take
     the site. A CPU tensor always qualifies, since its wrapper runs the
     dtype-generic plain version. On the card: head dim 64 and q / k / v of
-    one dtype; bf16 for every form, fp32 for the forward forms K1, K2 and
-    K2p only, so not under a RelocMask (K1m takes bf16 only) and not where
-    autograd differentiates the call, in q, k, v or ``ctx`` (the context
-    K / V of K2 and K2p): B9 takes bf16 only, and such a site stays on the
-    dense path. Remat is non-reentrant, so its recompute sees the first
-    pass's ``requires_grad`` and takes its route. An explicit
-    ``impl="flash"`` skips this check and reaches the kernels' own
-    refusals: a kernel that does not exist is not turned into dense."""
+    one dtype, bf16 or fp32. Every form (K1, K1m, K2, K2p, B9 unmasked and
+    under a RelocMask) has a kernel in both, so neither a mask nor autograd
+    changes the route. An explicit ``impl="flash"`` skips this check and
+    reaches the kernels' own refusals: a kernel that does not exist is not
+    turned into dense."""
     if q.device.type == "cpu":
         return True
-    if q.shape[-1] != KERNEL_HEAD_DIM or k.dtype != q.dtype or v.dtype != q.dtype:
-        return False
-    if q.dtype == torch.bfloat16:
-        return True
-    return (q.dtype == torch.float32 and not isinstance(mask, RelocMask)
-            and not _no_backward_kernel(q, k, v, *ctx))
+    return (q.shape[-1] == KERNEL_HEAD_DIM and q.dtype in _DTYPES
+            and k.dtype == q.dtype and v.dtype == q.dtype)
 
 
-def worth_it(q, k, v, mask=None) -> bool:
+def worth_it(q, k, v) -> bool:
     """The "auto" gate: a site the kernels take, at or above the JAX
     package's measured cut-over (``ops/flash_attention.py:814-817``)."""
-    return kernel_takes(q, k, v, mask) and q.shape[-2] * k.shape[-2] >= 1_500_000
+    return kernel_takes(q, k, v) and q.shape[-2] * k.shape[-2] >= 1_500_000
 
 
 # -- K2: fused [context ‖ own frame] attention --------------------------------
@@ -484,7 +464,7 @@ def frame_ctx_fwd(q, k, v, ck, cv):
     _check_no_grad("frame_ctx_fwd", q, k, v, ck, cv)
     if q.device.type == "cpu":
         return _frame_ctx_dense(q, k, v, ck, cv)
-    _check_cuda("frame_ctx_fwd", q, k, v, ck, cv, dtypes=_FWD_DTYPES)
+    _check_cuda("frame_ctx_fwd", q, k, v, ck, cv)
     BF, H, P, d = q.shape
     B, Hc, Nc, _ = ck.shape
     if (k.shape != q.shape or v.shape != q.shape or cv.shape != ck.shape
@@ -546,7 +526,6 @@ class _FrameCtxAttention(torch.autograd.Function):
 def frame_ctx_attention(q, k, v, ck, cv):
     """Fused reloc attention: frame-major q/k/v against shared context K/V.
     Differentiable in all five."""
-    _check_backward_exists("frame_ctx_attention", q, k, v, ck, cv)
     return _FrameCtxAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(),
         ck.to(k.dtype).contiguous(), cv.to(v.dtype).contiguous(),
@@ -594,12 +573,11 @@ def frame_ctx_packed_fwd(q, k, v, ckv, layer: int):
     The kernel gets ``ckv.data_ptr()``, ``layer`` and the layer stride: no
     slice, split or copy of cache data is made here, and the cache is never
     written."""
-    _check_backward_exists("frame_ctx_packed_fwd", q, k, v, ckv)
     _check_no_grad("frame_ctx_packed_fwd", q, k, v, ckv)
     if q.device.type == "cpu":
         return frame_ctx_packed_plain(q, k, v, ckv, layer)
     _check_packed(q, k, v, ckv, layer)
-    _check_cuda("frame_ctx_packed_fwd", q, k, v, dtypes=_FWD_DTYPES)
+    _check_cuda("frame_ctx_packed_fwd", q, k, v)
     if ckv.device != q.device or ckv.dtype != q.dtype:
         raise TypeError(
             f"frame_ctx_packed_fwd: the cache must be {q.dtype} on {q.device}, "
@@ -633,11 +611,14 @@ def packed_ctx_attention(q, k, v, ckv, layer: int, impl: str = "auto"):
     without its TPU-backend condition; the wrapper itself takes its plain
     version for a CPU tensor only). Otherwise the layer is sliced and split
     and the dense reference runs: a cache of another dtype than q's on the
-    card takes that route under "auto"."""
+    card takes that route under "auto", and so does a call that autograd
+    differentiates (K2p has no backward: the serving path, as in the JAX
+    package)."""
     d = q.shape[-1]
     Nc = ckv.shape[3]
-    takes = kernel_takes(q, k, v, ctx=(ckv,)) and (ckv.device.type == "cpu"
-                                                   or ckv.dtype == q.dtype)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, ckv))
+    takes = (kernel_takes(q, k, v) and not grad
+             and (ckv.device.type == "cpu" or ckv.dtype == q.dtype))
     if (
         impl != "dense"
         and d <= 256

@@ -34,10 +34,13 @@ the mask, at 4 ulps.
 The gates: on a CUDA tensor (here a meta tensor, which takes the card's
 checks; the launch is recorded in place of a build) the "auto" route of
 ``sdpa`` (unmasked, and under a RelocMask to K1m), the frame-context gate,
-the reloc-split gate and ``packed_ctx_attention`` sends fp32 sites and head
-dims other than 64 to the dense path and bf16 sites to the kernels; ``impl="flash"`` with fp32 still
-meets the kernel's refusal; ``flash_bwd`` reaches the Hopper body's
-unmasked entries, or its RelocMask entries with a mask.
+the reloc-split gate and ``packed_ctx_attention`` sends head dims other
+than 64 to the dense path, bf16 sites to the Hopper kernels and fp32 sites
+to the FFMA kernels, with or without grad (the backward through B9's fp32
+entries; K2p, which has no backward, dense under grad); ``impl="flash"``
+with fp32 launches the fp32 entries; ``flash_bwd`` reaches the Hopper
+body's unmasked entries, or its RelocMask entries with a mask, and the FFMA
+body's in fp32.
 """
 
 import math
@@ -655,24 +658,50 @@ def _packed(dtype, d, impl="auto", grad=False, cache_dtype=None):
 
 
 # gate -> (site, its bf16 launches, its fp32 launches without grad under
-# "auto"); the masked sdpa's fp32 site runs dense: K1m has no fp32 form
+# "auto")
 GATES = {"sdpa": (_sdpa, ["sfm_flash_fwd_bf16"], ["sfm_flash_fwd_f32"]),
          "frame-context": (_frame_ctx, ["sfm_frame_ctx_fwd_bf16"], ["sfm_frame_ctx_fwd_f32"]),
          "reloc split": (_reloc_split, ["sfm_flash_fwd_bf16"] * 2, ["sfm_flash_fwd_f32"] * 2),
-         "masked sdpa": (_masked_sdpa, ["sfm_flash_fwd_reloc_sm90"], []),
+         "masked sdpa": (_masked_sdpa, ["sfm_flash_fwd_reloc_sm90"], ["sfm_flash_fwd_reloc_f32"]),
          "packed cache": (_packed, ["sfm_frame_ctx_kv2_fwd_bf16"],
                           ["sfm_frame_ctx_kv2_fwd_f32"])}
+_DQ, _DKV = "sfm_flash_bwd_dq_f32", "sfm_flash_bwd_dkv_f32"
+# gate -> the fp32 launches of its forward and backward under grad: B9's
+# fp32 pair a flash call (the frame-context site's backward is the VJP of
+# its split, two K1 calls recomputed); K2p has no backward, so the packed
+# cache's differentiated site runs dense
+GRAD_GATES = {
+    "sdpa": ["sfm_flash_fwd_f32", _DQ, _DKV],
+    "frame-context": ["sfm_frame_ctx_fwd_f32"] + ["sfm_flash_fwd_f32"] * 2 + [_DQ, _DKV] * 2,
+    "reloc split": ["sfm_flash_fwd_f32"] * 2 + [_DQ, _DKV] * 2,
+    "masked sdpa": ["sfm_flash_fwd_reloc_f32", "sfm_flash_bwd_dq_reloc_f32",
+                    "sfm_flash_bwd_dkv_reloc_f32"],
+    "packed cache": []}
 
 
-@pytest.mark.parametrize("dtype,d,grad", [(F32, 64, True), (BF16, 32, False), (F32, 32, False)])
+@pytest.mark.parametrize("dtype,d,grad", [(F32, 32, True), (BF16, 32, False), (F32, 32, False)])
 @pytest.mark.parametrize("gate", list(GATES))
 def test_auto_routes_sites_the_kernels_do_not_take_dense(launches, gate, dtype, d, grad):
-    """Off the CPU, fp32 that autograd differentiates (B9 takes bf16 only)
-    or a head dim other than 64: the dense route, no launch, the output of
-    the site's shape and dtype."""
+    """Off the CPU, a head dim other than 64, with or without grad: the
+    dense route, no launch, the output of the site's shape and dtype."""
     out = GATES[gate][0](dtype, d, grad=grad)
     assert launches == []
     assert out.device.type == "meta" and out.dtype == dtype and out.shape[-1] == d
+
+
+@pytest.mark.parametrize("gate", list(GRAD_GATES))
+def test_auto_routes_fp32_grad_sites_to_the_fp32_entries(launches, gate):
+    """fp32 of head dim 64 that autograd differentiates: the forward on the
+    fp32 forms (K1, K1m, K2) and the backward on B9's fp32 entries (the
+    RelocMask ones under a mask), launched as a backward through the site
+    lists them; no dense route but the packed cache's, which has no
+    backward kernel."""
+    with torch.enable_grad():
+        out = GATES[gate][0](F32, 64, grad=True)
+        assert out.requires_grad
+        out.sum().backward()
+    assert launches == GRAD_GATES[gate]
+    assert out.dtype == F32 and out.shape[-1] == 64
 
 
 @pytest.mark.parametrize("gate", list(GATES))
@@ -685,7 +714,7 @@ def test_auto_routes_bf16_sites_to_the_kernels(launches, gate):
 @pytest.mark.parametrize("gate", list(GATES))
 def test_auto_routes_fp32_sites_without_grad_to_the_fp32_entries(launches, gate):
     """fp32 of head dim 64 that autograd does not differentiate: the fp32
-    forms of K1, K2 and K2p; under a RelocMask the dense route (no fp32 K1m)."""
+    forms of K1, K2, K2p and, under a RelocMask, K1m."""
     out = GATES[gate][0](F32, 64)
     assert launches == GATES[gate][2]
     assert out.dtype == F32 and out.shape[-1] == 64
@@ -693,25 +722,25 @@ def test_auto_routes_fp32_sites_without_grad_to_the_fp32_entries(launches, gate)
 
 @pytest.mark.parametrize("gate", list(GATES))
 def test_explicit_flash_with_fp32_meets_the_kernels_refusal(launches, gate):
-    """impl="flash" on an fp32 site that autograd differentiates asks for a
-    backward kernel that takes no fp32: it raises, and is not turned into
-    the dense route."""
-    with torch.enable_grad(), pytest.raises(TypeError, match="bfloat16 only"):
-        GATES[gate][0](F32, 64, impl="flash", grad=True)
-    assert launches == []
+    """impl="flash" on an fp32 site that autograd differentiates launches
+    the fp32 forward entries, whose backward kernels exist; the packed cache
+    alone meets the refusal of its bare wrapper (K2p has no backward), and
+    is not turned into the dense route."""
+    with torch.enable_grad():
+        if gate == "packed cache":
+            with pytest.raises(NotImplementedError, match="not differentiable"):
+                GATES[gate][0](F32, 64, impl="flash", grad=True)
+        else:
+            assert GATES[gate][0](F32, 64, impl="flash", grad=True).requires_grad
+    assert launches == ([] if gate == "packed cache" else GATES[gate][2])
 
 
 @pytest.mark.parametrize("gate", list(GATES))
 def test_explicit_flash_with_fp32_without_grad_launches(launches, gate):
-    """impl="flash" on an fp32 site without grad reaches the fp32 entries;
-    under a RelocMask it meets K1m's refusal (bf16 only)."""
-    want = GATES[gate][2]
-    if gate == "masked sdpa":
-        with pytest.raises(TypeError, match="bfloat16"):
-            GATES[gate][0](F32, 64, impl="flash")
-    else:
-        assert GATES[gate][0](F32, 64, impl="flash").dtype == F32
-    assert launches == want
+    """impl="flash" on an fp32 site without grad reaches the fp32 entries,
+    K1m's under a RelocMask."""
+    assert GATES[gate][0](F32, 64, impl="flash").dtype == F32
+    assert launches == GATES[gate][2]
 
 
 @pytest.mark.parametrize("impl", ["auto", "flash"])
@@ -736,22 +765,29 @@ def test_kernel_takes_any_cpu_tensor():
     assert not TFA.worth_it(*(torch.zeros((1, 1, 1224, 64)),) * 3)
 
 
+@pytest.mark.parametrize("dtype", [BF16, F32])
 @pytest.mark.parametrize("masked", [False, True])
-def test_flash_bwd_routes_by_mask(launches, masked):
-    """An unmasked backward reaches the Hopper body's unmasked entries, a
-    RelocMask its RelocMask entries; each wrapper counts its launch."""
+def test_flash_bwd_routes_by_mask(launches, masked, dtype):
+    """An unmasked backward reaches the unmasked entries, a RelocMask its
+    RelocMask entries: the Hopper body's in bf16, the FFMA body's in fp32;
+    each wrapper counts its launch, fp32 apart in ``.launches_f32``."""
     bh, nq = 2, 2 * 130
     mask = RelocMask(77, 130, 2) if masked else None
     nk = nq + 77 if masked else 200
-    q, do, o = _meta(bh, nq, D), _meta(bh, nq, D), _meta(bh, nq, D)
-    k, v = _meta(bh, nk, D), _meta(bh, nk, D)
+    q, do, o = (_meta(bh, nq, D, dtype=dtype) for _ in range(3))
+    k, v = _meta(bh, nk, D, dtype=dtype), _meta(bh, nk, D, dtype=dtype)
     lse = _meta(bh, nq, dtype=F32)
-    n0 = (TFA.flash_bwd_dq.launches, TFA.flash_bwd_dkv.launches)
+    counters = ("launches", "launches_f32")
+    n0 = [getattr(w, c) for w in (TFA.flash_bwd_dq, TFA.flash_bwd_dkv) for c in counters]
     dq, dk, dv = TFA.flash_bwd(q, k, v, o, lse, do, None, mask)
-    want = ("reloc_sm90" if masked else "sm90")
+    body = "sm90" if dtype == BF16 else "f32"
+    want = f"reloc_{body}" if masked else body
     assert launches == [f"sfm_flash_bwd_dq_{want}", f"sfm_flash_bwd_dkv_{want}"]
-    assert (TFA.flash_bwd_dq.launches, TFA.flash_bwd_dkv.launches) == (n0[0] + 1, n0[1] + 1)
+    n1 = [getattr(w, c) for w in (TFA.flash_bwd_dq, TFA.flash_bwd_dkv) for c in counters]
+    step = [1, 0] if dtype == BF16 else [0, 1]
+    assert n1 == [a + b for a, b in zip(n0, step * 2)]
     assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
 
 
 def test_flash_bwd_with_no_keys_or_rows_launches_nothing(launches):

@@ -222,7 +222,7 @@ def test_f32_source_entries_and_constants():
     for line in ("constexpr int BM = 64;", "constexpr int BN = 64;",
                  "s[i][j] = exp2_ftz(fmaf(s[i][j], p.scale_log2, -mn));",
                  "make_float4(o[i][0] / d, o[i][1] / d, o[i][2] / d, o[i][3] / d);",
-                 "if (!CTX && tc == 0) p.lse[row] = m[i] * (1.0f / LOG2E) + logf(d);",
+                 "if (p.lse && tc == 0) p.lse[row] = m[i] * (1.0f / LOG2E) + logf(d);",
                  "if (k0 + tc + 16 * j >= nvalid) s[i][j] = NEG_INF;"):
         assert SOURCE.count(line) == 1, line
     assert "wgmma." not in SOURCE and "mma.sync" not in SOURCE
@@ -239,9 +239,8 @@ def _walk(tree, fn):
 def test_fp32_route_is_the_same_in_the_first_pass_and_the_recompute(monkeypatch, grad):
     """A frame block in fp32 on the card (meta tensors, ``_kernels.launch``
     recorded) under ``remat_call``: with grad, the first pass and the
-    non-reentrant recompute both see the inputs' ``requires_grad``, both
-    take the dense route (B9 has no fp32 form) and launch nothing; without
-    grad, one pass, K1's fp32 entry."""
+    non-reentrant recompute both take K1's fp32 entry, and the backward
+    B9's fp32 pair; without grad, one pass, K1's fp32 entry."""
     seen, routes = [], []
     monkeypatch.setattr(TK, "launch", lambda name, *args: seen.append(name))
     monkeypatch.setattr(TK, "stream_ptr", lambda t: 0)
@@ -264,6 +263,7 @@ def test_fp32_route_is_the_same_in_the_first_pass_and_the_recompute(monkeypatch,
         y = TB.remat_call(True, lambda x: TB.block(p, x, cfg, rope), x)
         if grad:
             y.sum().backward()
-    assert routes == ([False, False] if grad else [True])
-    assert seen == ([] if grad else ["sfm_flash_fwd_f32"])
+    assert routes == ([True, True] if grad else [True])
+    assert seen == (["sfm_flash_fwd_f32"] * 2 + ["sfm_flash_bwd_dq_f32", "sfm_flash_bwd_dkv_f32"]
+                    if grad else ["sfm_flash_fwd_f32"])
     assert y.dtype == torch.float32 and y.shape == x.shape
