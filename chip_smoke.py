@@ -14,7 +14,9 @@ Phases, each of which must pass (any failure exits non-zero):
    and of the Hopper GEMM body's (MLP-up, MLP-down, the probe, the
    layer-norm pre-pass, LN+QKV+RoPE, LN+QKV, the out-projection), of the
    fp32 attention body's (the fp32 forms of K1, K2, K2p; a spill fails the
-   run), and any ptxas advisory that wgmma was serialised (C7518);
+   run), of the fp32 GEMM body's (the fp32 forms of the five fused block
+   kernels and their layer-norm pre-pass; a spill fails the run), and any
+   ptxas advisory that wgmma was serialised (C7518);
 2. the GEMM body's operand layouts alone (``gemm_probe``: one tile, then
    ragged rows and a K loop, against an fp32 matmul); each of the twelve
    kernels at the shapes of the paths below, held against its plain
@@ -49,7 +51,15 @@ Phases, each of which must pass (any failure exits non-zero):
    with TF32 off, each within 2e-5 at the largest |out| of its plain
    version (the lse within 1e-5), a repeat bit-equal, K2p bit-equal to K2,
    the edges of the tiling, timed beside their bound at the fp32 rate (67
-   TFLOP/s), the plain version and SDPA in fp32;
+   TFLOP/s), the plain version and SDPA in fp32; the fp32 forms of the five
+   fused block kernels (the FFMA GEMM body) at the ViT, frame, reloc and
+   global sites in fp32 with TF32 off, each output within 2e-5 of its
+   largest |value| of the plain version's, a repeat bit-equal, the
+   layer-norm pre-pass alone, timed per call and back to back beside the
+   bound at the fp32 rate, the plain version and the fp32 chain of library
+   calls they replace, then at the edges of the tiling (rows no multiple of
+   the tile, a tile across a frame boundary, one row) and on a head-shard
+   weight (C, 3 Hl 64);
 3. the full-width joint forward: ViT-L/14 + 24 aggregator layers at 518 px,
    bf16 trunk and fp32 heads, 5 anchors + the same 5 images as queries,
    rank 300, random weights from a seeded generator, every trunk block on
@@ -61,9 +71,15 @@ Phases, each of which must pass (any failure exits non-zero):
    is timed in the same run. The default configuration (``make_config()``:
    fp32, ``attn_impl="auto"``) runs at the same width: its attention sites
    on the fp32 forms of K1 (72 launches) and K2 (24), no fused block kernel
-   (they take bf16 only), K3 as in bf16; it must agree with the fp32 plain
-   forward to fp32 rounding, and is timed against the same forward on the
-   dense route, with both peaks;
+   ("auto" takes them for a bf16 trunk only, as JAX's), K3 as in bf16; it
+   must agree with the fp32 plain forward to fp32 rounding, and is timed
+   against the same forward on the dense route, with both peaks. The fp32
+   trunk with the fused block kernels asked for (``fused_qkv="on",
+   fused_mlp="on"``) runs every trunk block on their fp32 forms (the
+   default configuration's launches plus the bf16 path's fused counts under
+   fp32 names), is held to the fp32 plain forward as the default
+   configuration is, and is timed in turns against it, with both peaks and
+   a profile;
 4. two-phase serving at the same width and with the same weights:
    ``build_scene_cache`` of the 5 anchors, then ``reloc`` (full heads and
    ``fast_reloc``) of the 5 images against the cache, with launch counts
@@ -76,9 +92,11 @@ Phases, each of which must pass (any failure exits non-zero):
    Then the default configuration with phase 3's fp32 weights: the build
    of the 5 anchors (an fp32 cache, 59,965,440 bytes an anchor), ``reloc``
    and ``fast_reloc`` on the fp32 forms (K2p 24 times a reloc), held to the
-   fp32 plain path at rel-RMS 1e-5, timed; the one-shot fp32 build of the
-   20-anchor scene on the kernels, its time and peak, beside the 48.3 GB of
-   fp32 logits its global site would store on the dense route.
+   fp32 plain path at rel-RMS 1e-5, timed; the same with the fused block
+   kernels on in fp32 (their launch counts, the same checks, times beside
+   the default configuration's); the one-shot fp32 build of the 20-anchor
+   scene on the kernels, its time and peak, beside the 48.3 GB of fp32
+   logits its global site would store on the dense route.
 
 5. the self-supervised train step at full width (``bench.py:bench_train``'s
    configuration at depth 24: 2 frames of 518 px duplicated as anchors and
@@ -89,7 +107,11 @@ Phases, each of which must pass (any failure exits non-zero):
    four steps (the first at learning rate 0), finite losses, nonzero trunk
    and camera gradients, untouched DPT heads, the gradients against the
    plain path's within twice the bf16-vs-fp32 envelope, times, peak memory
-   and a profile of one step, with B9's device ms a step.
+   and a profile of one step, with B9's device ms a step; then the same
+   state, batch and subsample in fp32 in the default configuration and with
+   the fused block kernels on (``fused_qkv="on", fused_mlp="on"``): launch
+   counts, loss and gradients against the fp32 plain step (loss rtol 1e-4,
+   gradient rel-RMS and norms 1e-3 a subsystem), time and peak in turns.
 
 6. the trainer (``train/trainer.py:run``) around phase 5's full-width step,
    on numpy-made synthetic scenes at 518 px (no ``h5py`` needed; artifact
@@ -264,6 +286,9 @@ GEMM_SOURCE = "self_supervise_sfm_tpu_torch/csrc/gemm_sm90.cu"
 F32_SOURCE = "self_supervise_sfm_tpu_torch/csrc/flash_fwd_f32.cu"
 # the fp32 forms of B9 (dq, dk/dv; unmasked and under a RelocMask): one FFMA body
 F32_BWD_SOURCE = "self_supervise_sfm_tpu_torch/csrc/flash_bwd_f32.cu"
+# the fp32 forms of LN+QKV+RoPE, LN+QKV, the out-projection, MLP-up and
+# MLP-down: one FFMA GEMM body
+F32_GEMM_SOURCE = "self_supervise_sfm_tpu_torch/csrc/gemm_f32.cu"
 
 
 # launches of each kernel wrapper in one call at full width (depth 24, 5
@@ -276,7 +301,8 @@ _ZERO = dict.fromkeys(("flash_fwd", "frame_ctx_fwd", "frame_ctx_packed_fwd", "fl
                        "fused_proj_residual", "fused_mlp_up", "fused_mlp_down", "flash_bwd_dq",
                        "flash_bwd_dkv", "flash_fwd_f32", "frame_ctx_fwd_f32",
                        "frame_ctx_packed_fwd_f32", "flash_fwd_reloc_f32", "flash_bwd_dq_f32",
-                       "flash_bwd_dkv_f32"), 0)
+                       "flash_bwd_dkv_f32", "fused_ln_qkv_rope_f32", "fused_ln_qkv_f32",
+                       "fused_proj_residual_f32", "fused_mlp_up_f32", "fused_mlp_down_f32"), 0)
 FORWARD_LAUNCHES = {**_ZERO, "flash_fwd": 72, "frame_ctx_fwd": 24, "resize_bilinear": 2,
                     "fused_ln_qkv_rope": 72, "fused_ln_qkv": 24, "fused_proj_residual": 96,
                     "fused_mlp_up": 96, "fused_mlp_down": 96}
@@ -287,8 +313,8 @@ FAST_RELOC_LAUNCHES = {**_ZERO, "flash_fwd": 48, "frame_ctx_packed_fwd": 24, "fu
                        "fused_mlp_down": 72}
 RELOC_LAUNCHES = {**FAST_RELOC_LAUNCHES, "resize_bilinear": 2}
 # the default configuration (fp32, "auto"): the attention sites on the fp32
-# forms of K1, K2 and K2p, the fused block kernels off (bf16 only), K3 as in
-# bf16
+# forms of K1, K2 and K2p, the fused block kernels off ("auto" takes them for
+# a bf16 trunk only, as JAX's), K3 as in bf16
 DEFAULT_FORWARD_LAUNCHES = {**_ZERO, "flash_fwd_f32": 72, "frame_ctx_fwd_f32": 24,
                             "resize_bilinear": 2}
 DEFAULT_BUILD_LAUNCHES = {**_ZERO, "flash_fwd_f32": 72}
@@ -310,11 +336,29 @@ TRAIN_STEP_LAUNCHES = {**_ZERO, "flash_fwd": 24 + 6 * 24, "frame_ctx_fwd": 2 * 2
                        "flash_bwd_dkv": 24 + 4 * 24}
 # the same step in the default configuration (fp32, "auto"): the attention
 # sites on the fp32 forms of K1 and K2 and the backward on B9's fp32 pair,
-# the bf16 step's counts; no fused block kernel (they take bf16 only)
+# the bf16 step's counts; no fused block kernel ("auto", fp32)
 DEFAULT_TRAIN_STEP_LAUNCHES = {**_ZERO, "flash_fwd_f32": 24 + 6 * 24,
                                "frame_ctx_fwd_f32": 2 * 24,
                                "flash_bwd_dq_f32": 24 + 4 * 24,
                                "flash_bwd_dkv_f32": 24 + 4 * 24}
+# the fp32 trunk with the fused block kernels asked for (``fused_qkv="on",
+# fused_mlp="on"``): the default configuration's launches, plus the bf16
+# path's fused block counts under the fp32 names (every trunk block on the
+# fp32 forms of the five)
+FUSED_BLOCK_KERNELS = ("fused_ln_qkv_rope", "fused_ln_qkv", "fused_proj_residual",
+                       "fused_mlp_up", "fused_mlp_down")
+ON_F32 = dict(fused_qkv="on", fused_mlp="on")
+
+
+def _on_f32(default: dict, bf16: dict) -> dict:
+    return {**default, **{f"{k}_f32": bf16[k] for k in FUSED_BLOCK_KERNELS}}
+
+
+ON_F32_FORWARD_LAUNCHES = _on_f32(DEFAULT_FORWARD_LAUNCHES, FORWARD_LAUNCHES)
+ON_F32_BUILD_LAUNCHES = _on_f32(DEFAULT_BUILD_LAUNCHES, BUILD_LAUNCHES)
+ON_F32_RELOC_LAUNCHES = _on_f32(DEFAULT_RELOC_LAUNCHES, RELOC_LAUNCHES)
+ON_F32_FAST_RELOC_LAUNCHES = _on_f32(DEFAULT_FAST_RELOC_LAUNCHES, FAST_RELOC_LAUNCHES)
+ON_F32_TRAIN_STEP_LAUNCHES = _on_f32(DEFAULT_TRAIN_STEP_LAUNCHES, TRAIN_STEP_LAUNCHES)
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -341,6 +385,12 @@ _KERNEL_CLASSES = (
     ("fused_mlp_up", ("mlp_up_sm90_kernel",)),
     ("fused_mlp_down", ("mlp_down_sm90_kernel",)),
     ("ln_rows (pre-pass of LN+QKV(+RoPE) and MLP-up)", ("ln_rows_kernel",)),
+    ("fused_ln_qkv_rope fp32", ("ln_qkv_rope_f32_kernel",)),
+    ("fused_ln_qkv fp32", ("ln_qkv_f32_kernel",)),
+    ("fused_proj_residual fp32", ("proj_residual_f32_kernel",)),
+    ("fused_mlp_up fp32", ("mlp_up_f32_kernel",)),
+    ("fused_mlp_down fp32", ("mlp_down_f32_kernel",)),
+    ("ln_rows fp32 (pre-pass of the fp32 forms)", ("ln_rows_f32_kernel",)),
     ("flash_fwd (K1)", ("flash_fwd_kernel",)),
     ("flash_fwd fp32 (K1)", ("flash_fwd_f32_kernel",)),
     ("frame_ctx_fwd fp32 (K2)", ("frame_ctx_fwd_f32_kernel",)),
@@ -518,6 +568,20 @@ def print_sm90_build() -> None:
                   f"{streamed} a tile, {info[5]} threads, {info[6]} blocks an SM")
             if info[1]:
                 raise AssertionError(f"{name}: {info[1]} bytes of spills a thread")
+    for which, name in enumerate(("ln_qkv_rope_f32_kernel", "ln_qkv_f32_kernel",
+                                  "proj_residual_f32_kernel", "mlp_up_f32_kernel",
+                                  "mlp_down_f32_kernel", "ln_rows_f32_kernel")):
+        info = (ctypes.c_int * 10)()
+        rc = lib.sfm_gemm_f32_info(which, info)
+        if rc != 0:
+            raise RuntimeError(f"sfm_gemm_f32_info({which}): CUDA error {rc}")
+        shape = (f"tiles of {info[3]} x {info[4]}, K steps of {info[5]} through {info[6]} "
+                 f"stages" if which < 5 else f"{info[3]} rows a block")
+        print(f"  {name}: {info[0]} registers a thread, {info[1]} local bytes, {info[2]} "
+              f"bytes of dynamic shared memory, {shape}, {info[7]} threads, {info[8]} "
+              f"blocks an SM")
+        if info[1]:
+            raise AssertionError(f"{name}: {info[1]} bytes of spills a thread")
     advisories = [ln.strip() for ln in _kernels.build_log.splitlines() if "C7518" in ln]
     print(f"  ptxas wgmma serialisation advisories (C7518): {advisories or 'none'}")
 
@@ -745,6 +809,9 @@ def check_kernels(gen):
     f32_bwd = torch.Generator(device="cuda").manual_seed(SEED + 67)
     results += check_f32_bwd_kernels(
         lambda *shape: torch.randn(shape, generator=f32_bwd, device="cuda"))
+    f32_gemm = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    results += check_fused_f32_kernels(
+        lambda *shape: torch.randn(shape, generator=f32_gemm, device="cuda"))
     for r in results:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -1489,6 +1556,202 @@ def check_fused_kernels(randn, ulps, C=1024, H=16, frames=NUM_FRAMES, sites=None
     return results
 
 
+def check_fused_f32_kernels(randn):
+    """Phase 2, the fp32 forms of the five fused block kernels (the FFMA GEMM
+    body of ``csrc/gemm_f32.cu``) at the ViT, frame, reloc and global sites,
+    in fp32 with TF32 off: each output against its plain version within 2e-5
+    of its largest |value| (:func:`_f32_tol`), a repeat bit-equal, the
+    layer-norm pre-pass alone; times per call and 20 launches back to back
+    beside the bound at the fp32 rate (67 TFLOP/s), the plain version and the
+    fp32 chain of library calls it replaces (the unfused block code:
+    ``F.layer_norm``, cuBLAS SGEMM, chunk / transpose, ``F.gelu``,
+    elementwise RoPE and residual). Then the edges of the tiling at C = 256
+    (rows no multiple of the 128-row tile, a tile across a frame boundary,
+    one row, a zero row) and the head-shard weight (C, 3 Hl 64) at Hl = 8.
+    Returns the five entries of the kernel line."""
+    import torch
+
+    from self_supervise_sfm_tpu_torch.layers import attention as AT
+    from self_supervise_sfm_tpu_torch.layers import params as P
+    from self_supervise_sfm_tpu_torch.models import aggregator as AG
+    from self_supervise_sfm_tpu_torch.ops import fused_qkv as FQ
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def block_params(C, d=64):
+        norm = lambda n: {"scale": 1 + 0.1 * randn(n), "bias": 0.1 * randn(n)}  # noqa: E731
+        lin = lambda i, o: {"w": randn(i, o) * i**-0.5, "b": 0.1 * randn(o)}  # noqa: E731
+        return {"norm1": norm(C), "norm2": norm(C),
+                "attn": {"qkv": lin(C, 3 * C), "proj": lin(C, C), "q_norm": norm(d),
+                         "k_norm": norm(d)},
+                "mlp": {"fc1": lin(C, 4 * C), "fc2": lin(4 * C, C)},
+                "ls1": {"gamma": randn(C)}, "ls2": {"gamma": randn(C)}}
+
+    def calls(p, x, H, tabs, eps, o, w_qkv=None, b_qkv=None):
+        """(name, kernel, plain, library chain, FLOPs, inputs) of the five
+        kernels on x (B, N, C) and o (B, H, N, 64)."""
+        B, N, C = x.shape
+        n1, n2, at, ml = p["norm1"], p["norm2"], p["attn"], p["mlp"]
+        qn, kn = at["q_norm"], at["k_norm"]
+        w_qkv = at["qkv"]["w"] if w_qkv is None else w_qkv
+        b_qkv = at["qkv"]["b"] if b_qkv is None else b_qkv
+        hl = w_qkv.shape[1] // (3 * 64)
+        M = B * N
+        if tabs is None:
+            qargs = (x, n1["scale"], n1["bias"], w_qkv, b_qkv, hl, eps)
+            name, kern, plain = "fused_ln_qkv", FQ.fused_ln_qkv_fwd, FQ.fused_ln_qkv_plain
+            cfg = AT.AttentionConfig(dim=C, num_heads=H, qk_norm=False, ln_eps=eps)
+            ins = [x, w_qkv, b_qkv, n1["scale"], n1["bias"]]
+        else:
+            qargs = (x, n1["scale"], n1["bias"], w_qkv, b_qkv, qn["scale"], qn["bias"],
+                     kn["scale"], kn["bias"], *tabs, hl, eps)
+            name, kern = "fused_ln_qkv_rope", FQ.fused_ln_qkv_rope_fwd
+            plain = FQ.fused_ln_qkv_rope_plain
+            cfg = AT.AttentionConfig(dim=C, num_heads=H, qk_norm=True, ln_eps=eps)
+            ins = [x, w_qkv, b_qkv, n1["scale"], n1["bias"], qn["scale"], qn["bias"],
+                   kn["scale"], kn["bias"], *tabs]
+        chain_p = {**at, "qkv": {"w": w_qkv, "b": b_qkv}}
+        out = [(name, lambda: kern(*qargs), lambda: plain(*qargs),
+                lambda: tuple(t.contiguous() for t in AT.qkv_heads(
+                    chain_p, P.layer_norm(n1, x, eps), cfg, tabs)),
+                2.0 * M * C * w_qkv.shape[1], ins)]
+        if hl != H:
+            return out  # the head shard: LN+QKV(+RoPE) alone
+        pargs = (o, x, at["proj"]["w"], at["proj"]["b"], p["ls1"]["gamma"])
+        uargs = (x, n2["scale"], n2["bias"], ml["fc1"]["w"], ml["fc1"]["b"], eps)
+        h = FQ.fused_mlp_up_plain(*uargs)
+        dargs = (h, x, ml["fc2"]["w"], ml["fc2"]["b"], p["ls2"]["gamma"])
+        out += [
+            ("fused_proj_residual", lambda: FQ.fused_proj_residual_fwd(*pargs),
+             lambda: FQ.fused_proj_residual_plain(*pargs),
+             lambda: x + P.layer_scale(p["ls1"], P.linear(at["proj"], AT._merge_heads(o))),
+             2.0 * M * C * C, list(pargs)),
+            ("fused_mlp_up", lambda: FQ.fused_mlp_up(*uargs),
+             lambda: FQ.fused_mlp_up_plain(*uargs),
+             lambda: P.gelu(P.linear(ml["fc1"], P.layer_norm(n2, x, eps))),
+             2.0 * M * C * 4 * C, list(uargs[:5])),
+            # on the plain version's hidden: the two halves held apart
+            ("fused_mlp_down", lambda: FQ.fused_mlp_down(*dargs),
+             lambda: FQ.fused_mlp_down_plain(*dargs),
+             lambda: x + P.layer_scale(p["ls2"], P.linear(ml["fc2"], h)),
+             2.0 * M * 4 * C * C, list(dargs)),
+        ]
+        return out
+
+    def hold(name, site, kern, plain):
+        """Every output within 2e-5 of its largest |value|, a repeat
+        bit-equal; returns the largest error."""
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        err = 0.0
+        for g, r, label in zip(got, ref, ("q", "k", "v") if len(got) == 3 else ("y",)):
+            e = float((g - r).abs().max())
+            _check(f"{name} fp32[{site}] {label} {tuple(g.shape)}", e, _f32_tol(r))
+            err = max(err, e)
+        again = kern()
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(a, g) for a, g in zip(again, got)):
+            raise AssertionError(f"{name} fp32[{site}]: a repeat is not bit-equal")
+        return err, got
+
+    C, H, d = 1024, 16, 64
+    N = (IMG // 14) ** 2 + 5
+    p = block_params(C)
+    t_frame = AG._rope_tables_frame(AG.AggregatorConfig(), IMG // 14, IMG // 14, "cuda")
+    t_global = AG._tile_tables(t_frame, NUM_FRAMES)
+    per_kernel = {k: [] for k in FUSED_BLOCK_KERNELS}
+    for site, (B, n, tabs, eps) in {"vit": (NUM_FRAMES, N, None, 1e-6),
+                                     "frame": (2 * NUM_FRAMES, N, t_frame, 1e-5),
+                                     "reloc": (NUM_FRAMES, N, t_frame, 1e-5),
+                                     "global": (1, NUM_FRAMES * N, t_global, 1e-5)}.items():
+        x, o = randn(B, n, C), randn(B, H, n, d)
+        for name, kern, plain, chain, flops, ins in calls(p, x, H, tabs, eps, o):
+            err, got = hold(name, site, kern, plain)
+            in_bytes = sum(t.numel() * 4 for t in ins)
+            out_bytes = sum(g.numel() * 4 for g in got)
+            bound, by = _bound_ms(flops, in_bytes + out_bytes, PEAK_F32_FLOPS)
+            del got
+            row = dict(site=site, shape=list(x.shape), max_abs_err=err,
+                       ms=_time_ms(kern), plain_ms=_time_ms(plain, reps=3, warmup=1),
+                       library_ms=_time_ms(chain), bound_ms=bound, bound_by=by,
+                       back_to_back_ms=_back_to_back_ms(kern),
+                       library_back_to_back_ms=_back_to_back_ms(chain))
+            if name != "fused_proj_residual" and name != "fused_mlp_down":
+                # the layer-norm pre-pass alone (inside the kernel's time)
+                norm = p["norm2"] if name == "fused_mlp_up" else p["norm1"]
+                hn = torch.empty((B * n, C), device="cuda")
+                def pre(hn=hn, x=x, norm=norm, eps=eps):
+                    FQ._ln_rows_into(hn, x, norm["scale"], norm["bias"], eps)
+
+                pre()
+                torch.cuda.synchronize()
+                ref = FQ._ln_rows(x.float(), norm["scale"], norm["bias"], eps).view(B * n, C)
+                e_hn = float((hn - ref).abs().max())
+                _check(f"{name} fp32[{site}] layer-norm pre-pass hn", e_hn, _f32_tol(ref))
+                row.update(prepass_max_abs_err=e_hn, prepass_ms=_time_ms(pre),
+                           prepass_back_to_back_ms=_back_to_back_ms(pre))
+                del hn, ref
+            per_kernel[name].append(row)
+            _site_line(f"{name}[{site}] fp32", row)
+            print(f"    {name}[{site}] fp32: repeat bit-equal; "
+                  f"{row['bound_ms'] / row['back_to_back_ms'] * PEAK_F32_FLOPS / 1e12:.1f} "
+                  f"TFLOP/s back to back"
+                  + (f"; layer-norm pre-pass alone {row['prepass_ms']:.4f} ms a call, "
+                     f"{row['prepass_back_to_back_ms']:.4f} ms back to back"
+                     if "prepass_ms" in row else ""))
+        del x, o
+        torch.cuda.empty_cache()
+
+    # -- the edges: C = 256 (4 heads), rows no multiple of 128, a 128-row tile
+    # across a frame boundary (2 x 200, 3 x 77), one row, a zero row; the
+    # head-shard weight of 8 of 16 heads at C = 1024 --------------------------
+    small = block_params(256)
+    for B, n, eps in ((1, 1, 1e-5), (2, 200, 1e-6), (3, 77, 1e-5), (1, 300, 1e-5)):
+        x, o = randn(B, n, 256), randn(B, 4, n, d)
+        x[0, n // 2] = 0.0
+        ang = randn(n, d)
+        tabs = (torch.cos(ang), torch.sin(ang))
+        for t in (None, tabs):
+            for name, kern, plain, *_ in calls(small, x, 4, t, eps, o):
+                hold(name, f"edge {B} x {n}", kern, plain)
+    x = randn(2, 200, C)
+    ang = randn(200, d)
+    tabs = (torch.cos(ang), torch.sin(ang))
+    for rank in (0, 1):
+        cols = torch.cat([torch.arange(rank * 512, rank * 512 + 512, device="cuda") + part * C
+                          for part in range(3)])
+        w_i = p["attn"]["qkv"]["w"][:, cols].contiguous()
+        b_i = p["attn"]["qkv"]["b"][cols].contiguous()
+        for t in (None, tabs):
+            (name, kern, plain, *_), = calls(p, x, H, t, 1e-5, None, w_i, b_i)
+            hold(name, f"head shard 8 of 16, rank {rank}", kern, plain)
+    del x
+    print("  fp32 fused block kernels: the edges and the head shard within tolerance, "
+          "repeats bit-equal")
+
+    lines = {"fused_ln_qkv_rope": 158, "fused_ln_qkv": 309, "fused_proj_residual": 411,
+             "fused_mlp_up": 526, "fused_mlp_down": 546}
+    results = []
+    for name, ss in per_kernel.items():
+        results.append(dict(
+            name=f"{name}_f32", route="cuda", source=F32_GEMM_SOURCE,
+            replaces=f"self_supervise_sfm_tpu/ops/fused_qkv.py:{lines[name]}",
+            # one call at each site measured
+            max_abs_err=max(s_["max_abs_err"] for s_ in ss),
+            **{k: sum(s_[k] for s_ in ss) for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            bound_by=ss[-1]["bound_by"], sites=ss))
+        r = results[-1]
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, fp32 "
+              f"library chain {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, fp32 rate), {len(ss)} sites")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    return results
+
+
 def check_serving_kernels(randn, ulps):
     """Phase 2, the two kernels of the serving path: the [context | own
     frame] attention that reads a layer of the kv2 scene cache in place
@@ -1820,8 +2083,9 @@ def check_backward_kernels(randn, ulps):
 
 
 class _F32Launches:
-    """The fp32 launches of an attention wrapper, which counts them apart
-    (``.launches_f32``), read and reset as ``.launches``."""
+    """The fp32 launches of a wrapper that counts them apart
+    (``.launches_f32``: the attention and fused block wrappers), read and
+    reset as ``.launches``."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -1837,8 +2101,8 @@ class _F32Launches:
 
 def kernel_wrappers() -> dict:
     """Every kernel's launch wrapper by its name in the kernel line; each
-    counts its launches in ``.launches`` (the bf16 attention wrappers'
-    fp32 launches under the fp32 names)."""
+    counts its launches in ``.launches`` (the attention and fused block
+    wrappers' fp32 launches under the fp32 names)."""
     from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
     from self_supervise_sfm_tpu_torch.ops import fused_qkv as FQ
     from self_supervise_sfm_tpu_torch.ops import resize as RS
@@ -1856,7 +2120,12 @@ def kernel_wrappers() -> dict:
             "frame_ctx_packed_fwd_f32": _F32Launches(FA.frame_ctx_packed_fwd),
             "flash_fwd_reloc_f32": _F32Launches(FA.flash_fwd_reloc),
             "flash_bwd_dq_f32": _F32Launches(FA.flash_bwd_dq),
-            "flash_bwd_dkv_f32": _F32Launches(FA.flash_bwd_dkv)}
+            "flash_bwd_dkv_f32": _F32Launches(FA.flash_bwd_dkv),
+            "fused_ln_qkv_rope_f32": _F32Launches(FQ.fused_ln_qkv_rope_fwd),
+            "fused_ln_qkv_f32": _F32Launches(FQ.fused_ln_qkv_fwd),
+            "fused_proj_residual_f32": _F32Launches(FQ.fused_proj_residual_fwd),
+            "fused_mlp_up_f32": _F32Launches(FQ.fused_mlp_up),
+            "fused_mlp_down_f32": _F32Launches(FQ.fused_mlp_down)}
 
 
 def run_forward(gen):
@@ -2018,6 +2287,56 @@ def run_forward(gen):
         expect(err <= 1e-3, f"default configuration {k}: {err} over 1e-3")
     del dflt, td, cd
 
+    # the fp32 trunk with the fused block kernels asked for (fused_qkv="on",
+    # fused_mlp="on"): every trunk block on the fp32 forms of the five, the
+    # attention sites as the default configuration's; held to the fp32 plain
+    # path as the default configuration is, timed in turns against it
+    cfg_on = M.make_config(**ON_F32)
+    for w in wrappers.values():
+        w.launches = 0
+    on = fwd(cfg_on, p32)
+    torch.cuda.synchronize()
+    n_on = {k: w.launches for k, w in wrappers.items()}
+    print(f"  launches in one forward of the fp32 trunk with the fused block kernels on: "
+          f"{ {k: n for k, n in n_on.items() if n} }")
+    if n_on != ON_F32_FORWARD_LAUNCHES:
+        raise AssertionError(f"fp32 fused-on launch counts {n_on}, expected "
+                             f"{ON_F32_FORWARD_LAUNCHES}")
+    tn, _, cn = agg(cfg_on, p32)
+    on_agree = {}
+    for name, a, b in ([(f"tap {li}", tn[li], tf[li])
+                        for li in cfg.aggregator.intermediate_layer_idx]
+                       + [("anchor cam tokens", cn, cf)]
+                       + [(k, on[k], f32[k]) for k in ("extrinsic", "intrinsic", "cam_tokens")]):
+        err = rel(a, b)
+        on_agree[name] = err
+        print(f"  fp32 fused-on {name}: vs the fp32 plain path rel-RMS {err:.4e} "
+              f"(tolerance 1e-5)")
+        expect(err <= 1e-5, f"fp32 fused-on {name}: {err} over 1e-5")
+    for k in ("depth_map", "point_map"):
+        ya, yb = _logit(k, on[k].float()), _logit(k, f32[k].float())
+        both = torch.isfinite(ya) & torch.isfinite(yb)
+        err = float(((ya - yb).abs() / yb.abs().clamp(min=1.0))[both].max())
+        on_agree[k] = err
+        print(f"  fp32 fused-on {k}: max logit error / max(|logit|, 1) {err:.4e} "
+              f"(tolerance 1e-3), finite share {float(both.float().mean()):.6f}")
+        expect(err <= 1e-3, f"fp32 fused-on {k}: {err} over 1e-3")
+    del on, tn, cn
+    # in turns on the one card: fused on, default, default, fused on
+    on_a, on_runs_a, on_peak_gb = timed(cfg_on, 2, p32)
+    _, od_runs_a, on_default_peak_gb = timed(cfg_default, 2, p32)
+    _, od_runs_b, _ = timed(cfg_default, 2, p32)
+    _, on_runs_b, _ = timed(cfg_on, 2, p32)
+    on_times, on_default_times = on_runs_a + on_runs_b, od_runs_a + od_runs_b
+    on_step = statistics.median(on_times)
+    on_default_step = statistics.median(on_default_times)
+    print(f"  fp32 trunk, fused block kernels on: forward {on_step * 1e3:.2f} ms, peak "
+          f"{on_peak_gb:.2f} GB; the default configuration (\"auto\", the unfused chain) "
+          f"{on_default_step * 1e3:.2f} ms, peak {on_default_peak_gb:.2f} GB (medians of 4, "
+          f"in turns; on / auto {on_step / on_default_step:.3f}x)")
+    print("  profile of the fp32 forward with the fused block kernels on:")
+    on_profile = profile_forward(lambda: fwd(cfg_on, p32), label="fp32 fused-on forward")
+
     pairs = [(f"tap {li}", tk[li], tp[li], tf[li])
              for li in cfg.aggregator.intermediate_layer_idx]
     pairs.append(("anchor cam tokens", ck, cp, cf))
@@ -2101,7 +2420,7 @@ def run_forward(gen):
     state = dict(cfg=cfg, cfg_plain=cfg_plain, cfg_f32=cfg_f32, params=params, p32=p32,
                  uniq=uniq, draw=draw, taps=tk, wrappers=wrappers,
                  out_host={k: out[k].cpu() for k in PRETRAINED_KEYS},
-                 default_launches=n_default)
+                 default_launches=n_default, on_f32_launches=n_on)
     return launches, state, dict(
         step_ms=step * 1e3, frames_per_s=fps, peak_gb=peak_gb,
         default_step_ms=default_step * 1e3, default_peak_gb=default_peak_gb,
@@ -2109,6 +2428,12 @@ def run_forward(gen):
         default_dense_step_ms=default_dense_step * 1e3,
         default_dense_peak_gb=default_dense_peak_gb,
         default_dense_times_ms=[t * 1e3 for t in default_dense_times],
+        on_f32_step_ms=on_step * 1e3, on_f32_peak_gb=on_peak_gb,
+        on_f32_times_ms=[t * 1e3 for t in on_times],
+        on_f32_default_step_ms=on_default_step * 1e3,
+        on_f32_default_peak_gb=on_default_peak_gb,
+        on_f32_default_times_ms=[t * 1e3 for t in on_default_times],
+        on_f32_agreement=on_agree, on_f32_profile=on_profile,
         times_ms=[t * 1e3 for t in times],
         unfused_step_ms=unfused_step * 1e3, unfused_frames_per_s=NUM_FRAMES / unfused_step,
         unfused_peak_gb=unfused_peak_gb, unfused_times_ms=[t * 1e3 for t in unfused_times],
@@ -2450,8 +2775,7 @@ def run_serving(state):
         print(f"  default configuration {name}: vs the fp32 plain path rel-RMS {err:.4e} "
               f"(tolerance 1e-5)")
         expect(err <= 1e-5, f"default configuration {name}: {err} over 1e-5")
-    del cache_f, cam_f, tf, td, out_f, out_d, fast_d
-    torch.cuda.empty_cache()
+    del td, out_d, fast_d
     dflt = {}
     for name, fn in (("build", lambda: build(cfg_d, p32)),
                      ("reloc", lambda: M.reloc(p32, cfg_d, cache_d, cam_d, uniq)),
@@ -2463,6 +2787,55 @@ def run_serving(state):
               f"peak {peak:.2f} GB")
     dflt["cache_bytes_per_anchor"] = per_anchor
     del cache_d, cam_d, kvd
+    torch.cuda.empty_cache()
+
+    # -- 6. the fp32 trunk with the fused block kernels on (fused_qkv="on",
+    # fused_mlp="on") on the same weights: build, reloc and fast_reloc with
+    # every trunk block on the fp32 forms of the five; the same checks ------
+    cfg_on = M.make_config(**ON_F32)
+    (cache_o, cam_o), n_build_o = counted(lambda: build(cfg_on, p32))
+    out_o, n_reloc_o = counted(lambda: M.reloc(p32, cfg_on, cache_o, cam_o, uniq))
+    fast_o, n_fast_o = counted(lambda: M.reloc(p32, cfg_on, cache_o, cam_o, uniq,
+                                               fast_reloc=True))
+    for name, got, want in (("build", n_build_o, ON_F32_BUILD_LAUNCHES),
+                            ("reloc", n_reloc_o, ON_F32_RELOC_LAUNCHES),
+                            ("fast_reloc", n_fast_o, ON_F32_FAST_RELOC_LAUNCHES)):
+        print(f"  fp32 fused-on: launches in one {name}: "
+              f"{ {k: n for k, n in got.items() if n} }")
+        if got != want:
+            raise AssertionError(f"fp32 fused-on {name} launch counts {got}, expected {want}")
+    kvo = cache_o["kv"]
+    expect(tuple(kvo.shape) == (24, 1, 16, nc, 128) and kvo.dtype == torch.float32,
+           f"fp32 fused-on cache {tuple(kvo.shape)} {kvo.dtype}")
+    for k in ("extrinsic", "intrinsic"):
+        expect(torch.equal(fast_o[k], out_o[k]), f"fp32 fused-on fast_reloc {k} differs from "
+                                                 "reloc's")
+    to = taps_of(cfg_on, p32, cache_o)
+    on_agree = {}
+    for name, a, b in ([("scene cache", kvo, cache_f["kv"]), ("anchor cam tokens", cam_o, cam_f)]
+                       + [(f"reloc tap {li}", to[li], tf[li])
+                          for li in acfg.intermediate_layer_idx]
+                       + [(f"reloc {k}", out_o[k], out_f[k])
+                          for k in ("extrinsic", "intrinsic", "cam_tokens")]):
+        err = rel(a, b)
+        on_agree[name] = err
+        print(f"  fp32 fused-on {name}: vs the fp32 plain path rel-RMS {err:.4e} "
+              f"(tolerance 1e-5)")
+        expect(err <= 1e-5, f"fp32 fused-on {name}: {err} over 1e-5")
+    del cache_f, cam_f, tf, out_f, to, out_o, fast_o, kvo
+    torch.cuda.empty_cache()
+    on_f32 = {"agreement": on_agree}
+    for name, fn in (("build", lambda: build(cfg_on, p32)),
+                     ("reloc", lambda: M.reloc(p32, cfg_on, cache_o, cam_o, uniq)),
+                     ("fast_reloc", lambda: M.reloc(p32, cfg_on, cache_o, cam_o, uniq,
+                                                    fast_reloc=True))):
+        t, runs, peak = timed(fn, reps=3)
+        on_f32[name] = dict(ms=t * 1e3, runs_ms=[r * 1e3 for r in runs], peak_gb=peak)
+        print(f"  fp32 fused-on, 5 anchors, {name}: {t * 1e3:.2f} ms median of 3, peak "
+              f"{peak:.2f} GB (the default configuration's {dflt[name]['ms']:.2f} ms, peak "
+              f"{dflt[name]['peak_gb']:.2f} GB, timed before it)")
+    res["on_f32"] = on_f32
+    del cache_o, cam_o
     torch.cuda.empty_cache()
 
     # the one-shot fp32 build of the 20-anchor scene on the kernels; its global
@@ -2496,7 +2869,35 @@ def run_serving(state):
     return {"build": n_build, "reloc": n_reloc, "mask_form": n_mask,
             "build_default": n_build_d, "reloc_default": n_reloc_d,
             "mask_form_default": n_mask_d,
-            "build20_default": n_build20}, res
+            "build20_default": n_build20, "build_on_f32": n_build_o,
+            "reloc_on_f32": n_reloc_o}, res
+
+
+def _hold_fp32_step(label, loss, g, loss_f, gf, subsystems, rel, grads, expect) -> dict:
+    """An fp32 step's loss and gradients against the fp32 plain step's
+    (``loss_f``, ``gf``: dense attention, no fused block kernel): the loss
+    within rtol 1e-4, each subsystem's gradient within rel-RMS 1e-3 and its
+    norm within 1e-3, the tolerances of the tensor-parallel fp32 check."""
+    from self_supervise_sfm_tpu_torch.train import loop as L
+
+    loss_rel = abs(loss - loss_f) / abs(loss_f)
+    print(f"  {label} step: loss {loss:.6f} against the fp32 plain path's {loss_f:.6f} (rel "
+          f"{loss_rel:.3e}, tolerance 1e-4)")
+    expect(loss_rel <= 1e-4, f"{label} loss: rel {loss_rel} over 1e-4")
+    agree = {"loss_rel": loss_rel}
+    for name, part in subsystems.items():
+        a, b = part(g), part(gf)
+        err = rel(a, b)
+        na, nb = float(L.global_norm(a)), float(L.global_norm(b))
+        norm_err = abs(na - nb) / nb
+        agree[name] = dict(rel_rms=err, norm_kernel=na, norm_plain=nb, norm_rel_err=norm_err,
+                           bf16_kernel_rel_rms=grads[name]["rel_rms"])
+        print(f"  {label} gradient {name}: vs the fp32 plain path rel-RMS {err:.4e} (tolerance "
+              f"1e-3; the bf16 kernel path's {grads[name]['rel_rms']:.4e}), norm {na:.6g} vs "
+              f"{nb:.6g} (rel {norm_err:.4e}, tolerance 1e-3)")
+        expect(err <= 1e-3, f"{label} gradient {name}: rel-RMS {err} over 1e-3")
+        expect(norm_err <= 1e-3, f"{label} gradient norm {name}: {norm_err} over 1e-3")
+    return agree
 
 
 def run_train_default(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, grads, expect):
@@ -2531,25 +2932,8 @@ def run_train_default(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, gra
     if launches != DEFAULT_TRAIN_STEP_LAUNCHES:
         raise AssertionError(f"default configuration step launch counts {launches}, expected "
                              f"{DEFAULT_TRAIN_STEP_LAUNCHES}")
-    loss_rel = abs(float(loss_d) - loss_f) / abs(loss_f)
-    print(f"  default configuration (fp32) step: loss {float(loss_d):.6f} against the fp32 "
-          f"plain path's {loss_f:.6f} (rel {loss_rel:.3e}, tolerance 1e-4)")
-    expect(loss_rel <= 1e-4, f"default configuration loss: rel {loss_rel} over 1e-4")
-    agree = {"loss_rel": loss_rel}
-    for name, part in subsystems.items():
-        a, b = part(gd), part(gf)
-        err = rel(a, b)
-        na, nb = float(L.global_norm(a)), float(L.global_norm(b))
-        norm_err = abs(na - nb) / nb
-        agree[name] = dict(rel_rms=err, norm_kernel=na, norm_plain=nb, norm_rel_err=norm_err,
-                           bf16_kernel_rel_rms=grads[name]["rel_rms"])
-        print(f"  default configuration (fp32) gradient {name}: vs the fp32 plain path rel-RMS "
-              f"{err:.4e} (tolerance 1e-3; the bf16 kernel path's "
-              f"{grads[name]['rel_rms']:.4e}), norm {na:.6g} vs {nb:.6g} (rel "
-              f"{norm_err:.4e}, tolerance 1e-3)")
-        expect(err <= 1e-3, f"default configuration gradient {name}: rel-RMS {err} over 1e-3")
-        expect(norm_err <= 1e-3, f"default configuration gradient norm {name}: {norm_err} "
-                                 "over 1e-3")
+    agree = _hold_fp32_step("default configuration (fp32)", float(loss_d), gd, loss_f, gf,
+                            subsystems, rel, grads, expect)
     del gd
 
     def timed(cfg):
@@ -2580,6 +2964,71 @@ def run_train_default(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, gra
               f"busy {profile['busy_ms']:.2f})")
     return dict(launches=launches, agreement=agree, runs=runs, ms=ms, peak_gb=peak,
                 profile=profile, b9_device_ms=b9)
+
+
+def run_train_on_f32(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, grads, expect):
+    """Phase 5, the train step with the fp32 trunk on the fused block kernels
+    (``make_config(remat=True, fused_qkv="on", fused_mlp="on")``): every
+    trunk block's forward (and its remat recompute) on the fp32 forms of the
+    five, the attention sites as the default configuration's, the fused
+    Functions' backward the plain chain's. One forward and backward of phase
+    5's state, batch and subsample: its launches against
+    ``ON_F32_TRAIN_STEP_LAUNCHES``, its loss and gradients against the fp32
+    plain step's (:func:`_hold_fp32_step`), its time and peak memory in turns
+    with the default configuration's (auto, on, on, auto, auto, on), the
+    fp32 fused kernels' device ms from one profiled run. Returns the launch
+    counts and the measurements."""
+    import torch
+
+    from self_supervise_sfm_tpu_torch.models import sailrecon as M
+    from self_supervise_sfm_tpu_torch.train import loop as L
+
+    wrappers = kernel_wrappers()
+    cfg_on = M.make_config(remat=True, **ON_F32)
+    cfg_d = M.make_config(remat=True)
+    for w in wrappers.values():
+        w.launches = 0
+    loss_o, _, go = L.loss_and_grads(params, cfg_on, tcfg, batch, idx)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"  fp32 fused-on step: launches {({k: n for k, n in launches.items() if n})}")
+    if launches != ON_F32_TRAIN_STEP_LAUNCHES:
+        raise AssertionError(f"fp32 fused-on step launch counts {launches}, expected "
+                             f"{ON_F32_TRAIN_STEP_LAUNCHES}")
+    agree = _hold_fp32_step("fp32 fused-on", float(loss_o), go, loss_f, gf, subsystems, rel,
+                            grads, expect)
+    del go
+
+    def timed(cfg):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        L.loss_and_grads(params, cfg, tcfg, batch, idx)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() / 1e9
+
+    # three a route in turns: one slow run (2.7 s against 1.4 s on an H100)
+    # moves the median of two
+    runs = {"auto": [], "on": []}
+    for route in ("auto", "on", "on", "auto", "auto", "on"):
+        runs[route].append(timed(cfg_on if route == "on" else cfg_d))
+    ms = {r: statistics.median(t for t, _ in v) for r, v in runs.items()}
+    peak = {r: max(g for _, g in v) for r, v in runs.items()}
+    print(f"  fp32 forward + backward: fused block kernels on "
+          f"{[round(t, 2) for t, _ in runs['on']]} ms, peak {peak['on']:.2f} GB; the default "
+          f"configuration (auto) {[round(t, 2) for t, _ in runs['auto']]} ms, peak "
+          f"{peak['auto']:.2f} GB (on / auto {ms['on'] / ms['auto']:.3f})")
+    profile = profile_forward(lambda: L.loss_and_grads(params, cfg_on, tcfg, batch, idx),
+                              label="fp32 fused-on forward + backward")
+    fused = None
+    if profile["measured"]:
+        fused = {k: profile["classes_ms"][k] for k in profile["classes_ms"]
+                 if k.endswith("fp32") or k.startswith("ln_rows fp32")}
+        print(f"  fp32 fused block kernels' device ms a step: "
+              f"{ {k: round(v, 2) for k, v in fused.items()} } (of device busy "
+              f"{profile['busy_ms']:.2f})")
+    return dict(launches=launches, agreement=agree, runs=runs, ms=ms, peak_gb=peak,
+                profile=profile, fused_device_ms=fused)
 
 
 def make_train_batch():
@@ -2783,6 +3232,8 @@ def run_train():
     del gk, gp
     default = run_train_default(params, tcfg, batch, idx, float(loss_f), gf, subsystems, rel,
                                 grads, expect)
+    on_f32 = run_train_on_f32(params, tcfg, batch, idx, float(loss_f), gf, subsystems, rel,
+                              grads, expect)
     del gf
 
     # remat: nothing on the kernel path sums with atomics but the loss's
@@ -2819,7 +3270,7 @@ def run_train():
           f"({[round(t * 1e3, 2) for t in times]}), {1 / step_s:.4f} steps/s, "
           f"peak memory {peak_gb:.2f} GB")
     return launches, dict(
-        default=default,
+        default=default, on_f32=on_f32,
         step_ms=step_s * 1e3, steps_per_s=1 / step_s, times_ms=[t * 1e3 for t in times],
         peak_gb=peak_gb, params_m=n_params / 1e6, trained_m=n_trained / 1e6,
         kernel_launches_gradient_eval=n_kernel,
@@ -5583,7 +6034,7 @@ def main() -> int:
     print("phase 4: two-phase serving (scene-cache build, reloc; 5 and 20 anchors)")
     serving_launches, serving = run_serving(state)
     by_path = {"forward": launches, "forward_default": state["default_launches"],
-               **serving_launches}
+               "forward_on_f32": state["on_f32_launches"], **serving_launches}
     for k in kernels:
         k["launches_by_path"] = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -5607,7 +6058,9 @@ def main() -> int:
     for k in kernels:
         k["launches_by_path"]["train"] = train_launches[k["name"]]
         k["launches_by_path"]["train_default"] = train["default"]["launches"][k["name"]]
-        k["launches"] += train_launches[k["name"]] + train["default"]["launches"][k["name"]]
+        k["launches_by_path"]["train_on_f32"] = train["on_f32"]["launches"][k["name"]]
+        k["launches"] += (train_launches[k["name"]] + train["default"]["launches"][k["name"]]
+                          + train["on_f32"]["launches"][k["name"]])
     print(f"{card}: train step {train['step_ms']:.2f} ms, {train['steps_per_s']:.4f} "
           f"steps/s, peak memory {train['peak_gb']:.2f} GB")
     torch.cuda.empty_cache()

@@ -89,6 +89,17 @@ _SIGNATURES: Dict[str, List] = {
     # which kernel of the GEMM body (0 up, 1 down, 2 probe, 3 LN, 4 LN+QKV+RoPE,
     # 5 LN+QKV, 6 out-proj), int[10] out
     "sfm_gemm_sm90_info": [_I, _P],
+    # the fp32 forms of the five on the FFMA GEMM body (gemm_f32.cu): the
+    # bf16 entries' arguments, the scratch (M, C) fp32
+    "sfm_ln_qkv_rope_f32": [_P] * 15 + [_I, _I, _I, _I, _F, _P],
+    "sfm_ln_qkv_f32": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
+    "sfm_proj_residual_f32": [_P] * 6 + [_I, _I, _I, _P],
+    "sfm_mlp_up_f32": [_P] * 7 + [_I, _I, _I, _F, _P],
+    "sfm_mlp_down_f32": [_P] * 6 + [_I, _I, _I, _P],
+    "sfm_ln_rows_f32": [_P] * 4 + [_I, _I, _F, _P],
+    # which kernel of the fp32 GEMM body (0 LN+QKV+RoPE, 1 LN+QKV, 2 out-proj,
+    # 3 up, 4 down, 5 LN), int[10] out
+    "sfm_gemm_f32_info": [_I, _P],
 }
 
 _lock = threading.Lock()

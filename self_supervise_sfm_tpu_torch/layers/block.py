@@ -9,8 +9,9 @@ out-proj and MLP kernels (``ops/fused_qkv.py``) plug in.
 ``"auto"`` takes the fused route when ``x`` is bf16, the block's structure
 qualifies and the kernel takes the block's widths (any width on the CPU,
 whose wrappers run the plain versions; see the gates below), ``"on"`` drops
-the dtype and width conditions (a width the kernels refuse meets their
-refusal), ``"off"`` runs the unfused chain of plain matmuls. The gates
+the dtype and width conditions: the kernels run in bf16 or in fp32 (each
+has a form in either), and a width they refuse meets their refusal;
+``"off"`` runs the unfused chain of plain matmuls. The gates
 decide by stated conditions; a fused wrapper never falls back. There is no
 mesh condition: under a mesh the blocks run on rank-local shards
 (``parallel/sp_block.py``), so a kernel never sees a sharded tensor, where

@@ -1,11 +1,14 @@
 """Fused transformer-block kernels: LN+QKV(+qk-norm+RoPE), out-proj, MLP.
 
 Port of ``self_supervise_sfm_tpu/ops/fused_qkv.py``. The five Pallas TPU
-kernels become five hand-written CUDA kernels of ``csrc/gemm_sm90.cu``, on
-one persistent TMA + ``wgmma`` body written for Hopper (the layer norm a
-pre-pass that writes the normalised rows once; the out-projection reads the
-attention output's heads through a 3-D tensor map, with no merge copy).
-Each launch wrapper sits beside its plain PyTorch version:
+kernels, dtype-generic there, become hand-written CUDA kernels in two
+bodies: in bf16, ``csrc/gemm_sm90.cu``, one persistent TMA + ``wgmma`` body
+written for Hopper (the layer norm a pre-pass that writes the normalised
+rows once; the out-projection reads the attention output's heads through a
+3-D tensor map, with no merge copy); in fp32, ``csrc/gemm_f32.cu``, one
+FFMA body on the CUDA cores (cp.async stages, 128 x 128 tiles; the same
+pre-pass in fp32; the out-projection gathers its rows of o in place). Each
+launch wrapper sits beside its plain PyTorch version:
 
 - :func:`fused_ln_qkv_rope_fwd` replaces ``fused_qkv_kernel``: layer norm with
   fp32 statistics, ``@ W_qkv`` (C, 3 Hl d: every head, Hl = H, or under
@@ -26,15 +29,19 @@ Each launch wrapper sits beside its plain PyTorch version:
   :func:`fused_mlp_down_plain`, :func:`fused_mlp_residual_plain`.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
-tensor it launches the kernel or raises: bf16 activations and weights (the
-weights cast once at load by ``cast_trunk_weights``), fp32 norm, bias and
-layer-scale parameters, head dim 64, widths that are multiples of 64,
-contiguous and 16-byte aligned; the layer-normed kernels take C a
-multiple of 256, every kernel an output width that is a multiple of 128.
-A launch wrapper is forward only: under grad mode an input that requires
-grad raises, on every device. All five
-kernels are bound by the bf16 tensor-core rate at the main path's sizes
-(see the source note in the ``.cu`` file).
+tensor it launches the kernel or raises. The activations and the weights
+are of one dtype, which picks the body: bf16 (the ``*_sm90`` entries; the
+weights cast once at load by ``cast_trunk_weights``; launches counted in
+``.launches``) or fp32 (the ``*_f32`` entries; launches counted in
+``.launches_f32``); a call that mixes them (fp32 x, bf16 weights) raises.
+Norm, bias, layer-scale and RoPE parameters are fp32; head dim 64, widths
+that are multiples of 64, contiguous and 16-byte aligned; the layer-normed
+kernels take C a multiple of 256, every kernel an output width that is a
+multiple of 128 (both bodies take the same widths). A launch wrapper is
+forward only: under grad mode an input that requires grad raises, on every
+device. The bf16 kernels are bound by the bf16 tensor-core rate at the main
+path's sizes, the fp32 ones by the fp32 rate (see the source notes in the
+``.cu`` files).
 
 The four differentiable entries, :func:`fused_ln_qkv_rope`,
 :func:`fused_ln_qkv`, :func:`fused_proj_residual` and
@@ -54,6 +61,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from .flash_attention import _body, _count
 
 KERNEL_HEAD_DIM = 64
 
@@ -109,13 +117,24 @@ def _check(name: str, dev, dtype, **tensors) -> None:
         if t.dtype != dtype:
             raise TypeError(
                 f"{name}: the kernel takes {dtype} for {key}, got {t.dtype} "
-                "(the trunk's weights are cast once at load by cast_trunk_weights)")
+                "(weights in the activations' dtype: a bf16 trunk's are cast once at "
+                "load by cast_trunk_weights)")
         if shape is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must be contiguous and 16-byte aligned")
         if torch.is_grad_enabled() and t.requires_grad:
             raise NotImplementedError(f"{name}: forward only, {key} requires grad")
+
+
+def _kernel_dtype(name: str, x) -> torch.dtype:
+    """x's dtype, which picks the body (``_body``: bf16 the Hopper body's
+    ``*_sm90`` entries, fp32 the FFMA body's ``*_f32`` ones) and which the
+    weights must share (``_check``); any other raises."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(
+            f"{name}: the kernels take bfloat16 or float32 activations, got {x.dtype}")
+    return x.dtype
 
 
 def _check_widths(name: str, *, head_dim=None, **widths: int) -> None:
@@ -219,7 +238,7 @@ def fused_ln_qkv_rope_fwd(x, ln_scale, ln_bias, w, b, qn_scale, qn_bias, kn_scal
     name = "fused_ln_qkv_rope"
     B, N, C = x.shape
     d = _qkv_widths(name, x, w, num_heads)
-    _check(name, x.device, torch.bfloat16, x=x, w=w)
+    _check(name, x.device, _kernel_dtype(name, x), x=x, w=w)
     _check(name, x.device, torch.float32, ln_scale=(ln_scale, (C,)), ln_bias=(ln_bias, (C,)),
                b=(b, (w.shape[1],)), qn_scale=(qn_scale, (d,)), qn_bias=(qn_bias, (d,)),
                kn_scale=(kn_scale, (d,)), kn_bias=(kn_bias, (d,)),
@@ -228,18 +247,19 @@ def fused_ln_qkv_rope_fwd(x, ln_scale, ln_bias, w, b, qn_scale, qn_bias, kn_scal
                for _ in range(3))
     if B and N:
         _kernels.launch(
-            "sfm_ln_qkv_rope_sm90", x.data_ptr(), ln_scale.data_ptr(),
+            f"sfm_ln_qkv_rope_{_body(x.dtype)}", x.data_ptr(), ln_scale.data_ptr(),
             ln_bias.data_ptr(), w.data_ptr(), b.data_ptr(), qn_scale.data_ptr(),
             qn_bias.data_ptr(), kn_scale.data_ptr(), kn_bias.data_ptr(),
             cos.data_ptr(), sin.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ln_scratch(x).data_ptr(), B, N, C, num_heads, eps,
             _kernels.stream_ptr(x),
         )
-        fused_ln_qkv_rope_fwd.launches += 1
+        _count(fused_ln_qkv_rope_fwd, x.dtype)
     return q, k, v
 
 
 fused_ln_qkv_rope_fwd.launches = 0
+fused_ln_qkv_rope_fwd.launches_f32 = 0
 
 
 # -- LN + QKV, no qk-norm / RoPE (the ViT blocks) -----------------------------
@@ -261,23 +281,24 @@ def fused_ln_qkv_fwd(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e
     name = "fused_ln_qkv"
     B, N, C = x.shape
     d = _qkv_widths(name, x, w, num_heads)
-    _check(name, x.device, torch.bfloat16, x=x, w=w)
+    _check(name, x.device, _kernel_dtype(name, x), x=x, w=w)
     _check(name, x.device, torch.float32, ln_scale=(ln_scale, (C,)), ln_bias=(ln_bias, (C,)),
                b=(b, (w.shape[1],)))
     q, k, v = (torch.empty((B, num_heads, N, d), dtype=x.dtype, device=x.device)
                for _ in range(3))
     if B and N:
         _kernels.launch(
-            "sfm_ln_qkv_sm90", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            f"sfm_ln_qkv_{_body(x.dtype)}", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             w.data_ptr(), b.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ln_scratch(x).data_ptr(), B, N, C, num_heads, eps,
             _kernels.stream_ptr(x),
         )
-        fused_ln_qkv_fwd.launches += 1
+        _count(fused_ln_qkv_fwd, x.dtype)
     return q, k, v
 
 
 fused_ln_qkv_fwd.launches = 0
+fused_ln_qkv_fwd.launches_f32 = 0
 
 
 # -- head merge + out-projection + layer-scale + residual ---------------------
@@ -304,20 +325,21 @@ def fused_proj_residual_fwd(o, x_res, w, b, ls_gamma):
     if tuple(x_res.shape) != (B, N, C) or tuple(w.shape) != (C, C):
         raise ValueError(f"{name}: o {tuple(o.shape)}, x {tuple(x_res.shape)}, "
                          f"w {tuple(w.shape)}")
-    _check(name, x_res.device, torch.bfloat16, x_res=x_res, o=o, w=w)
+    _check(name, x_res.device, _kernel_dtype(name, x_res), x_res=x_res, o=o, w=w)
     _check(name, x_res.device, torch.float32, b=(b, (C,)), ls_gamma=(ls_gamma, (C,)))
     y = torch.empty_like(x_res)
     if B and N:
         _kernels.launch(
-            "sfm_proj_residual_sm90", o.data_ptr(), x_res.data_ptr(), w.data_ptr(),
+            f"sfm_proj_residual_{_body(x_res.dtype)}", o.data_ptr(), x_res.data_ptr(), w.data_ptr(),
             b.data_ptr(), ls_gamma.data_ptr(), y.data_ptr(), B, N, nh,
             _kernels.stream_ptr(x_res),
         )
-        fused_proj_residual_fwd.launches += 1
+        _count(fused_proj_residual_fwd, x_res.dtype)
     return y
 
 
 fused_proj_residual_fwd.launches = 0
+fused_proj_residual_fwd.launches_f32 = 0
 
 
 # -- MLP: [LN2 + fc1 + GELU] and [fc2 + layer-scale + residual] ---------------
@@ -355,32 +377,34 @@ def fused_mlp_up(x, ln_scale, ln_bias, w1, b1, eps: float = 1e-5):
     _check_tile_widths(name, C, Ch)
     if tuple(w1.shape) != (C, Ch):
         raise ValueError(f"{name}: x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
-    _check(name, x.device, torch.bfloat16, x=x, w1=w1)
+    _check(name, x.device, _kernel_dtype(name, x), x=x, w1=w1)
     _check(name, x.device, torch.float32, ln_scale=(ln_scale, (C,)), ln_bias=(ln_bias, (C,)),
                b1=(b1, (Ch,)))
     h = torch.empty((B, N, Ch), dtype=x.dtype, device=x.device)
     if B and N:
         _kernels.launch(
-            "sfm_mlp_up_sm90", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            f"sfm_mlp_up_{_body(x.dtype)}", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), h.data_ptr(), _ln_scratch(x).data_ptr(), B * N, C,
             Ch, eps,
             _kernels.stream_ptr(x),
         )
-        fused_mlp_up.launches += 1
+        _count(fused_mlp_up, x.dtype)
     return h
 
 
 fused_mlp_up.launches = 0
+fused_mlp_up.launches_f32 = 0
 
 
 def _ln_rows_into(hn, x, ln_scale, ln_bias, eps: float) -> None:
     """The layer-norm pre-pass of LN+QKV(+RoPE) and MLP-up alone: hn (M, C)
-    bf16 <- LN(x). Not a path of its own (the wrappers launch it and count
-    pre-pass and product as one launch); ``chip_smoke.py`` checks and times
-    it apart."""
+    <- LN(x), in x's dtype (bf16 or fp32: each body's pre-pass). Not a path
+    of its own (the wrappers launch it and count pre-pass and product as one
+    launch); ``chip_smoke.py`` checks and times it apart."""
     M, C = hn.shape
-    _kernels.launch("sfm_ln_rows_bf16", x.data_ptr(), ln_scale.data_ptr(),
-                    ln_bias.data_ptr(), hn.data_ptr(), M, C, eps, _kernels.stream_ptr(x))
+    entry = "sfm_ln_rows_bf16" if x.dtype == torch.bfloat16 else "sfm_ln_rows_f32"
+    _kernels.launch(entry, x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+                    hn.data_ptr(), M, C, eps, _kernels.stream_ptr(x))
 
 
 def gemm_probe(a, w):
@@ -407,20 +431,21 @@ def fused_mlp_down(h, x, w2, b2, ls_gamma):
     if tuple(h.shape) != (B, N, Ch) or tuple(w2.shape) != (Ch, C):
         raise ValueError(f"{name}: h {tuple(h.shape)}, x {tuple(x.shape)}, "
                          f"w2 {tuple(w2.shape)}")
-    _check(name, x.device, torch.bfloat16, x=x, h=h, w2=w2)
+    _check(name, x.device, _kernel_dtype(name, x), x=x, h=h, w2=w2)
     _check(name, x.device, torch.float32, b2=(b2, (C,)), ls_gamma=(ls_gamma, (C,)))
     y = torch.empty_like(x)
     if B and N:
         _kernels.launch(
-            "sfm_mlp_down_sm90", h.data_ptr(), x.data_ptr(), w2.data_ptr(),
+            f"sfm_mlp_down_{_body(x.dtype)}", h.data_ptr(), x.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), ls_gamma.data_ptr(), y.data_ptr(), B * N, Ch, C,
             _kernels.stream_ptr(x),
         )
-        fused_mlp_down.launches += 1
+        _count(fused_mlp_down, x.dtype)
     return y
 
 
 fused_mlp_down.launches = 0
+fused_mlp_down.launches_f32 = 0
 
 
 # -- the differentiable entries ------------------------------------------------

@@ -122,15 +122,15 @@ def launches(monkeypatch):
     return seen
 
 
-def _meta_block(C, heads, form, mode, device="meta"):
-    """One block at (C, heads) in bf16 with the trunk's weights cast, and its
-    call: a frame block (qk-norm, 2D rope) or a ViT block (neither)."""
+def _meta_block(C, heads, form, mode, device="meta", dtype=torch.bfloat16):
+    """One block at (C, heads) in ``dtype`` (bf16: the trunk's weights cast),
+    and its call: a frame block (qk-norm, 2D rope) or a ViT block (neither)."""
     cfg = TB.BlockConfig(dim=C, num_heads=heads, qk_norm=form == "frame", fused_qkv=mode,
                          fused_mlp=mode)
     p = TB.init_block(None, device, cfg)
     for sub in (p["attn"]["qkv"], p["attn"]["proj"], p["mlp"]["fc1"], p["mlp"]["fc2"]):
-        sub["w"] = sub["w"].to(torch.bfloat16)
-    x = torch.empty((2, N, C), dtype=torch.bfloat16, device=device)
+        sub["w"] = sub["w"].to(dtype)
+    x = torch.empty((2, N, C), dtype=dtype, device=device)
     d = C // heads
     rope = (tuple(torch.empty((N, d), device=device) for _ in range(2))
             if form == "frame" else None)
@@ -159,12 +159,18 @@ def test_auto_routes_widths_the_fused_kernels_do_not_take_plain(launches, C, hea
     assert out.shape == (2, N, C) and out.dtype == torch.bfloat16 and out.device.type == "meta"
 
 
-@pytest.mark.parametrize("C,heads", [(1024, 8), (640, 10), (384, 6)])
-def test_on_meets_the_fused_kernels_refusal(launches, C, heads):
-    """"on" asks for the kernels whatever the width: it raises, and is not
-    turned into the plain chain."""
+REFUSED = [(1024, 8), (640, 10), (384, 6)]
+
+
+@pytest.mark.parametrize("C,heads,dtype", [
+    *(pytest.param(C, h, torch.bfloat16, id=f"{C}-{h}") for C, h in REFUSED),
+    *(pytest.param(C, h, torch.float32, id=f"{C}-{h}-fp32") for C, h in REFUSED)])
+def test_on_meets_the_fused_kernels_refusal(launches, C, heads, dtype):
+    """"on" asks for the kernels whatever the width, in bf16 or in fp32 (each
+    has a form in either): it raises, and is not turned into the plain
+    chain."""
     with pytest.raises(ValueError, match="head dim 64|multiple of 256"):
-        _meta_block(C, heads, "frame", "on")()
+        _meta_block(C, heads, "frame", "on", dtype=dtype)()
     assert launches == []
 
 
