@@ -7,12 +7,15 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    kernel in ``self_supervise_sfm_tpu_torch/csrc`` with ``nvcc`` for sm_90a;
-   the registers, spills and shared memory of the Hopper attention body's
-   kernels (K1, K2, K2p, K1m), of the Hopper backward body's (B9's dq and
+   the seconds to the end of each source's nvcc (all side by side) and of
+   the link; the registers, spills and shared memory of the Hopper
+   attention body's kernels (K1, K2, K2p, K1m, at head dims 64 and 128), of
+   the Hopper backward body's (B9's dq and
    dk/dv, unmasked and under a RelocMask; a spill in either body fails the
    run)
    and of the Hopper GEMM body's (MLP-up, MLP-down, the probe, the
-   layer-norm pre-pass, LN+QKV+RoPE, LN+QKV, the out-projection), of the
+   layer-norm pre-pass, LN+QKV+RoPE, LN+QKV, the out-projection; the last
+   three at head dims 64 and 128), of the
    fp32 attention body's (the fp32 forms of K1, K2, K2p; a spill fails the
    run), of the fp32 GEMM body's (the fp32 forms of the five fused block
    kernels and their layer-norm pre-pass; a spill fails the run), and any
@@ -59,7 +62,12 @@ Phases, each of which must pass (any failure exits non-zero):
    bound at the fp32 rate, the plain version and the fp32 chain of library
    calls they replace, then at the edges of the tiling (rows no multiple of
    the tile, a tile across a frame boundary, one row) and on a head-shard
-   weight (C, 3 Hl 64);
+   weight (C, 3 Hl 64); then the head dim 128 forms (8 heads of 128 at C
+   1024): K1 at the ViT, frame and global sites, K2 at the reloc site, K2p
+   at layers 0 and 23 of the 5-anchor cache, K1m at the 5-query mask form,
+   LN+QKV+RoPE, LN+QKV and the out-projection at the ViT, frame, reloc and
+   global sites, each against its plain version at the head dim 64
+   tolerances, a repeat bit-equal, timed as above (``check_d128_kernels``);
 3. the full-width joint forward: ViT-L/14 + 24 aggregator layers at 518 px,
    bf16 trunk and fp32 heads, 5 anchors + the same 5 images as queries,
    rank 300, random weights from a seeded generator, every trunk block on
@@ -97,6 +105,21 @@ Phases, each of which must pass (any failure exits non-zero):
    the default configuration's); the one-shot fp32 build of the 20-anchor
    scene on the kernels, its time and peak, beside the 48.3 GB of fp32
    logits its global site would store on the dense route.
+
+4b. head dim 128: ``make_config(num_heads=8, compute_dtype="bfloat16")``
+   (the trainer's ``--num-heads 8``; ViT-L/14 and the 24-layer aggregator
+   at 8 heads of 128) at full width with weights of its own seed: the
+   forward, the 5-anchor build, ``reloc`` and ``fast_reloc`` with the
+   flagship's launch counts on the head dim 128 forms (no dense attention,
+   no plain fused-block chain), their taps, camera tokens and cache against
+   the plain path of the same configuration within twice its
+   bf16-vs-fp32 envelope, reloc layer 0's mask form (K1m) bit-equal to its
+   layout form (K2p), the forward timed in turns against the same
+   configuration on the dense route with the fused blocks off and against
+   phase 3's flagship, build / reloc / ``fast_reloc`` times, peaks and a
+   profile (``run_d128``; its paths go into the kernel line as
+   "forward_d128", "build_d128", "reloc_d128", "fast_reloc_d128" and
+   "mask_form_d128").
 
 5. the self-supervised train step at full width (``bench.py:bench_train``'s
    configuration at depth 24: 2 frames of 518 px duplicated as anchors and
@@ -164,12 +187,14 @@ Phases, each of which must pass (any failure exits non-zero):
    against the einsum upsample within rel-RMS 1e-5, tracks after one
    iteration within 1e-3 px (after four printed), a call's wall time, idle
    share and launches; K1 and the fused block kernels alone at the ViT-B
-   (C 768, 12 heads) and ViT-g (C 1536, 24 heads) sites of 2 frames (LN+QKV,
+   (C 768, 12 heads), ViT-g (C 1536, 24 heads) and ViT-S (C 384, 6 heads)
+   sites of 2 frames (LN+QKV,
    the out-projection and the MLP pair at the ViT blocks' shape,
    LN+QKV+RoPE at a frame block's), each against its plain version and
    timed beside its library call or chain and its bound (the kernel line's
    ``width_sites``); ``vit_small`` / ``vit_base`` / ``vit_giant2`` in
-   bf16 on 2 frames of 518 px with their launch counts, against their plain
+   bf16 on 2 frames of 518 px with their launch counts (K1, LN+QKV, the
+   out-projection, MLP-up and MLP-down once a block each), against their plain
    path within twice the bf16-vs-fp32 envelope; the ``"aliked"`` extractor
    on phase 7's images, its score maps and top-k scores within 1e-4 of the
    same weights on the CPU and its keypoints within 1e-3 px wherever the
@@ -234,7 +259,8 @@ Phases, each of which must pass (any failure exits non-zero):
    the QKV kernels' "tp_sites".
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2,
-``--until-serving`` after phase 4;
+``--until-serving`` after phase 4b, ``--d128-only`` runs the build, phase
+2's head dim 128 checks and phase 4b (with a flagship of its own);
 ``--train-only`` runs phase 5 alone after the build, ``--trainer-only``
 phases 5 and 6, ``--demo-only`` phase 7, ``--converter-only`` phase 8,
 ``--sharded-only`` phase 9, ``--sharded-train-only`` phase 10 and
@@ -289,6 +315,10 @@ F32_BWD_SOURCE = "self_supervise_sfm_tpu_torch/csrc/flash_bwd_f32.cu"
 # the fp32 forms of LN+QKV+RoPE, LN+QKV, the out-projection, MLP-up and
 # MLP-down: one FFMA GEMM body
 F32_GEMM_SOURCE = "self_supervise_sfm_tpu_torch/csrc/gemm_f32.cu"
+# the kernels with a head dim, built at 64 and at 128 (on the Hopper bodies
+# above); at 128 each counts its launches apart, under its name + "_d128"
+D128_KERNELS = ("flash_fwd", "frame_ctx_fwd", "frame_ctx_packed_fwd", "flash_fwd_reloc",
+                "fused_ln_qkv_rope", "fused_ln_qkv", "fused_proj_residual")
 
 
 # launches of each kernel wrapper in one call at full width (depth 24, 5
@@ -302,7 +332,8 @@ _ZERO = dict.fromkeys(("flash_fwd", "frame_ctx_fwd", "frame_ctx_packed_fwd", "fl
                        "flash_bwd_dkv", "flash_fwd_f32", "frame_ctx_fwd_f32",
                        "frame_ctx_packed_fwd_f32", "flash_fwd_reloc_f32", "flash_bwd_dq_f32",
                        "flash_bwd_dkv_f32", "fused_ln_qkv_rope_f32", "fused_ln_qkv_f32",
-                       "fused_proj_residual_f32", "fused_mlp_up_f32", "fused_mlp_down_f32"), 0)
+                       "fused_proj_residual_f32", "fused_mlp_up_f32", "fused_mlp_down_f32",
+                       *(f"{k}_d128" for k in D128_KERNELS)), 0)
 FORWARD_LAUNCHES = {**_ZERO, "flash_fwd": 72, "frame_ctx_fwd": 24, "resize_bilinear": 2,
                     "fused_ln_qkv_rope": 72, "fused_ln_qkv": 24, "fused_proj_residual": 96,
                     "fused_mlp_up": 96, "fused_mlp_down": 96}
@@ -361,6 +392,19 @@ ON_F32_FAST_RELOC_LAUNCHES = _on_f32(DEFAULT_FAST_RELOC_LAUNCHES, FAST_RELOC_LAU
 ON_F32_TRAIN_STEP_LAUNCHES = _on_f32(DEFAULT_TRAIN_STEP_LAUNCHES, TRAIN_STEP_LAUNCHES)
 
 
+def _d128(bf16: dict) -> dict:
+    """The bf16 path's launches with every kernel that has a head dim under
+    its head dim 128 name: the same model at 8 heads of 128 (phase 4b)."""
+    return {**_ZERO, **{(f"{k}_d128" if k in D128_KERNELS else k): n
+                        for k, n in bf16.items() if n}}
+
+
+D128_FORWARD_LAUNCHES = _d128(FORWARD_LAUNCHES)
+D128_BUILD_LAUNCHES = _d128(BUILD_LAUNCHES)
+D128_RELOC_LAUNCHES = _d128(RELOC_LAUNCHES)
+D128_FAST_RELOC_LAUNCHES = _d128(FAST_RELOC_LAUNCHES)
+
+
 def _wall_ms(fn, reps: int = 3) -> float:
     import torch
 
@@ -391,7 +435,14 @@ _KERNEL_CLASSES = (
     ("fused_mlp_up fp32", ("mlp_up_f32_kernel",)),
     ("fused_mlp_down fp32", ("mlp_down_f32_kernel",)),
     ("ln_rows fp32 (pre-pass of the fp32 forms)", ("ln_rows_f32_kernel",)),
+    ("fused_ln_qkv_rope d128", ("ln_qkv_rope_d128_sm90_kernel",)),
+    ("fused_ln_qkv d128", ("ln_qkv_d128_sm90_kernel",)),
+    ("fused_proj_residual d128", ("proj_residual_d128_sm90_kernel",)),
     ("flash_fwd (K1)", ("flash_fwd_kernel",)),
+    ("flash_fwd d128 (K1)", ("flash_fwd_d128_kernel",)),
+    ("frame_ctx_fwd d128 (K2)", ("frame_ctx_fwd_d128_kernel",)),
+    ("frame_ctx_kv2_fwd d128 (K2p)", ("frame_ctx_kv2_fwd_d128_kernel",)),
+    ("flash_fwd_reloc d128 (K1m)", ("flash_fwd_reloc_d128_sm90_kernel",)),
     ("flash_fwd fp32 (K1)", ("flash_fwd_f32_kernel",)),
     ("frame_ctx_fwd fp32 (K2)", ("frame_ctx_fwd_f32_kernel",)),
     ("frame_ctx_kv2_fwd fp32 (K2p)", ("frame_ctx_kv2_fwd_f32_kernel",)),
@@ -506,7 +557,8 @@ def print_sm90_build() -> None:
     from self_supervise_sfm_tpu_torch import _kernels
 
     names = ("flash_fwd_kernel", "frame_ctx_fwd_kernel", "frame_ctx_kv2_fwd_kernel",
-             "flash_fwd_reloc_sm90_kernel")
+             "flash_fwd_reloc_sm90_kernel", "flash_fwd_d128_kernel", "frame_ctx_fwd_d128_kernel",
+             "frame_ctx_kv2_fwd_d128_kernel", "flash_fwd_reloc_d128_sm90_kernel")
     lib = _kernels.library()
     for which, name in enumerate(names):
         info = (ctypes.c_int * 8)()
@@ -521,7 +573,8 @@ def print_sm90_build() -> None:
             raise AssertionError(f"{name}: {info[1]} bytes of spills a thread")
     names = ("mlp_up_sm90_kernel", "mlp_down_sm90_kernel", "gemm_probe_sm90_kernel",
              "ln_rows_kernel", "ln_qkv_rope_sm90_kernel", "ln_qkv_sm90_kernel",
-             "proj_residual_sm90_kernel")
+             "proj_residual_sm90_kernel", "ln_qkv_rope_d128_sm90_kernel",
+             "ln_qkv_d128_sm90_kernel", "proj_residual_d128_sm90_kernel")
     for which, name in enumerate(names):
         info = (ctypes.c_int * 10)()
         rc = lib.sfm_gemm_sm90_info(which, info)
@@ -582,8 +635,10 @@ def print_sm90_build() -> None:
               f"blocks an SM")
         if info[1]:
             raise AssertionError(f"{name}: {info[1]} bytes of spills a thread")
-    advisories = [ln.strip() for ln in _kernels.build_log.splitlines() if "C7518" in ln]
-    print(f"  ptxas wgmma serialisation advisories (C7518): {advisories or 'none'}")
+    # C7518 and C7512 (the latter: too few registers for the wgmma in flight)
+    advisories = [ln.strip() for ln in _kernels.build_log.splitlines()
+                  if "wgmma" in ln and "serialized" in ln]
+    print(f"  ptxas wgmma serialisation advisories (C7518, C7512): {advisories or 'none'}")
 
 
 def _check(name: str, err: float, tol: float) -> None:
@@ -608,25 +663,29 @@ def _logit(key: str, v):
     return torch.sign(v) * torch.log1p(v.abs())
 
 
-def flash_site(randn, ulps, site, bh, n):
-    """K1 at one site (bh, n, 64): against its plain version (4 ulps, lse
-    1e-4), its bound, and its times beside SDPA's, a call and back to back."""
+def flash_site(randn, ulps, site, bh, n, d=64):
+    """K1 at one site (bh, n, d): against its plain version (4 ulps, lse
+    1e-4), a repeat bit-equal, its bound, and its times beside SDPA's, a
+    call and back to back."""
     import torch
     import torch.nn.functional as F
 
     from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
 
-    q, k, v = randn(bh, n, 64), randn(bh, n, 64), randn(bh, n, 64)
+    q, k, v = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
     out, lse = FA.flash_fwd(q, k, v)
+    again, lse_again = FA.flash_fwd(q, k, v)
     torch.cuda.synchronize()
+    if not (torch.equal(out, again) and torch.equal(lse, lse_again)):
+        raise AssertionError(f"flash_fwd[{site}] {tuple(q.shape)}: a repeat differs")
     p_out, p_lse = FA.flash_fwd_plain(q, k, v)
     err = float((out.float() - p_out.float()).abs().max())
     _check(f"flash_fwd[{site}] out {tuple(q.shape)}", err, ulps(p_out, 4))
     _check(f"flash_fwd[{site}] lse", float((lse - p_lse).abs().max()), 1e-4)
-    bound, by = _bound_ms(4.0 * bh * n * n * 64, 4 * q.numel() * 2 + lse.numel() * 4)
-    q4, k4, v4 = (t.view(1, bh, n, 64) for t in (q, k, v))
+    bound, by = _bound_ms(4.0 * bh * n * n * d, 4 * q.numel() * 2 + lse.numel() * 4)
+    q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
     return dict(
-        site=site, shape=[bh, n, 64], max_abs_err=err,
+        site=site, shape=[bh, n, d], max_abs_err=err,
         ms=_time_ms(lambda: FA.flash_fwd(q, k, v)),
         plain_ms=_time_ms(lambda: FA.flash_fwd_plain(q, k, v), reps=5),
         library_ms=_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
@@ -673,33 +732,7 @@ def check_kernels(gen):
     ))
 
     # -- K2: [context ‖ own frame] attention at the reloc site --------------
-    P, nc = N, NUM_FRAMES * (RANK + 5)
-    q, k, v = (randn(NUM_FRAMES, 16, P, 64) for _ in range(3))
-    ck, cv = randn(1, 16, nc, 64), randn(1, 16, nc, 64)
-    out = FA.frame_ctx_fwd(q, k, v, ck, cv)
-    torch.cuda.synchronize()
-    ref = FA._frame_ctx_dense(q, k, v, ck, cv)
-    err = float((out.float() - ref.float()).abs().max())
-    _check(f"frame_ctx_fwd {tuple(q.shape)} ctx {tuple(ck.shape)}", err, ulps(ref, 4))
-    kk = torch.cat([ck.expand(NUM_FRAMES, -1, -1, -1), k], dim=2)
-    vv = torch.cat([cv.expand(NUM_FRAMES, -1, -1, -1), v], dim=2)
-    bound, by = _bound_ms(4.0 * NUM_FRAMES * 16 * P * (nc + P) * 64,
-                          (4 * q.numel() + 2 * ck.numel()) * 2)
-    results.append(dict(
-        name="frame_ctx_fwd", route="cuda", source=SM90_SOURCE,
-        replaces="self_supervise_sfm_tpu/ops/flash_attention.py:539",
-        max_abs_err=err,
-        ms=_time_ms(lambda: FA.frame_ctx_fwd(q, k, v, ck, cv)),
-        plain_ms=_time_ms(lambda: FA._frame_ctx_dense(q, k, v, ck, cv), reps=5),
-        # SDPA over the [ctx ‖ own] K/V concatenated beforehand
-        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(q, kk, vv)),
-        bound_ms=bound, bound_by=by,
-        back_to_back_ms=_back_to_back_ms(lambda: FA.frame_ctx_fwd(q, k, v, ck, cv)),
-        library_back_to_back_ms=_back_to_back_ms(
-            lambda: F.scaled_dot_product_attention(q, kk, vv)),
-    ))
-    _site_line(f"frame_ctx_fwd {tuple(q.shape)} ctx {nc}", results[-1])
-    del q, k, v, ck, cv, kk, vv, out, ref
+    results.append(frame_ctx_site(randn, ulps))
 
     # -- K3: final DPT upsample 296 -> 518 with the fused pos-embed addend --
     H0 = 4 * (IMG // 14) * 2  # 296
@@ -812,10 +845,88 @@ def check_kernels(gen):
     f32_gemm = torch.Generator(device="cuda").manual_seed(SEED + 71)
     results += check_fused_f32_kernels(
         lambda *shape: torch.randn(shape, generator=f32_gemm, device="cuda"))
+    d128 = torch.Generator(device="cuda").manual_seed(SEED + 83)
+    results += check_d128_kernels(
+        lambda *shape, dtype=torch.bfloat16: torch.randn(
+            shape, generator=d128, device="cuda").to(dtype), ulps)
     for r in results:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
+    return results
+
+
+def frame_ctx_site(randn, ulps, H=16, d=64):
+    """K2 at the reloc site, (5, H, 1374, d) against a (1, H, 1525, d)
+    context: against its plain version (4 ulps), a repeat bit-equal, its
+    bound, and its times beside SDPA's over the [ctx ‖ own] K/V concatenated
+    beforehand, a call and back to back."""
+    import torch
+    import torch.nn.functional as F
+
+    from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
+
+    P, nc = (IMG // 14) ** 2 + 5, NUM_FRAMES * (RANK + 5)
+    q, k, v = (randn(NUM_FRAMES, H, P, d) for _ in range(3))
+    ck, cv = randn(1, H, nc, d), randn(1, H, nc, d)
+    out = FA.frame_ctx_fwd(q, k, v, ck, cv)
+    again = FA.frame_ctx_fwd(q, k, v, ck, cv)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"frame_ctx_fwd {tuple(q.shape)}: a repeat differs")
+    ref = FA._frame_ctx_dense(q, k, v, ck, cv)
+    err = float((out.float() - ref.float()).abs().max())
+    _check(f"frame_ctx_fwd {tuple(q.shape)} ctx {tuple(ck.shape)}", err, ulps(ref, 4))
+    kk = torch.cat([ck.expand(NUM_FRAMES, -1, -1, -1), k], dim=2)
+    vv = torch.cat([cv.expand(NUM_FRAMES, -1, -1, -1), v], dim=2)
+    bound, by = _bound_ms(4.0 * NUM_FRAMES * H * P * (nc + P) * d,
+                          (4 * q.numel() + 2 * ck.numel()) * 2)
+    r = dict(
+        name="frame_ctx_fwd" + ("_d128" if d == 128 else ""), route="cuda", source=SM90_SOURCE,
+        replaces="self_supervise_sfm_tpu/ops/flash_attention.py:539",
+        max_abs_err=err, shape=list(q.shape),
+        ms=_time_ms(lambda: FA.frame_ctx_fwd(q, k, v, ck, cv)),
+        plain_ms=_time_ms(lambda: FA._frame_ctx_dense(q, k, v, ck, cv), reps=5),
+        # SDPA over the [ctx ‖ own] K/V concatenated beforehand
+        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(q, kk, vv)),
+        bound_ms=bound, bound_by=by,
+        back_to_back_ms=_back_to_back_ms(lambda: FA.frame_ctx_fwd(q, k, v, ck, cv)),
+        library_back_to_back_ms=_back_to_back_ms(
+            lambda: F.scaled_dot_product_attention(q, kk, vv)),
+    )
+    _site_line(f"frame_ctx_fwd {tuple(q.shape)} ctx {nc}", r)
+    return r
+
+
+def check_d128_kernels(randn, ulps):
+    """Phase 2, the kernels at head dim 128 (the model at 8 heads of 128 of
+    phase 4b): K1 at the ViT (40, 1374, 128), frame (80, 1374, 128) and
+    global (8, 6870, 128) sites, K2 at the reloc site (5, 8, 1374, 128)
+    against a (1, 8, 1525, 128) context, K2p at layers 0 and 23 of the
+    5-anchor cache (24, 1, 8, 1525, 256), K1m at the 5-query mask form (8,
+    6870) x (8, 8395), LN+QKV+RoPE, LN+QKV and the out-projection at C 1024
+    in 8 heads at the ViT, frame, reloc and global sites. Each against its
+    plain version at phase 2's tolerances (attention 4 ulps at the largest
+    output, lse within 1e-4; the fused blocks 4 ulps for q / k, 2 for v and
+    the out-projection), a repeat bit-equal, timed a call and back to back
+    beside its bound (the same operations as the head dim 64 site), its
+    plain version and its library call (SDPA at d = 128; the replaced chain
+    for the fused blocks)."""
+    N = (IMG // 14) ** 2 + 5
+    sites = [flash_site(randn, ulps, site, bh, n, d=128)
+             for site, bh, n in (("vit", NUM_FRAMES * 8, N), ("frame", 2 * NUM_FRAMES * 8, N),
+                                 ("global", 8, NUM_FRAMES * N))]
+    for s_ in sites:
+        _site_line(f"flash_fwd_d128[{s_['site']}] {tuple(s_['shape'])}", s_)
+    results = [dict(
+        name="flash_fwd_d128", route="cuda", source=SM90_SOURCE,
+        replaces="self_supervise_sfm_tpu/ops/flash_attention.py:140",
+        max_abs_err=max(s["max_abs_err"] for s in sites),
+        **{k: sum(s[k] for s in sites) for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        bound_by=sites[-1]["bound_by"], sites=sites)]
+    results.append(frame_ctx_site(randn, ulps, H=8, d=128))
+    results += check_serving_kernels(randn, ulps, H=8, d=128)
+    results += check_fused_kernels(randn, ulps, C=1024, H=8, mlp=False)
     return results
 
 
@@ -1369,11 +1480,14 @@ def check_f32_bwd_kernels(randn):
 
 
 def check_fused_kernels(randn, ulps, C=1024, H=16, frames=NUM_FRAMES, sites=None,
-                        qkv_only=("reloc",)):
+                        qkv_only=("reloc",), mlp=True):
     """Phase 2, the five fused block kernels at the ViT, frame, reloc and
     global sites (phase 8: at the widths ``C`` / ``H`` of the other ViTs and
     their ``sites``; a site in ``qkv_only`` times the LN+QKV kernel alone,
-    the other kernels seeing its shape at another site).
+    the other kernels seeing its shape at another site). At a head dim of
+    128 (``C / H``) the three kernels with a head dim are their ``_d128``
+    forms, named so in the results; ``mlp=False`` leaves out the MLP pair,
+    which has no head dim.
     bf16 outputs: kernel and plain version sum in other orders,
     so a layer-normed operand or a result may round to the neighbouring
     bf16 value; the tolerance is 2 ulps at the largest output, and 4 for
@@ -1387,7 +1501,8 @@ def check_fused_kernels(randn, ulps, C=1024, H=16, frames=NUM_FRAMES, sites=None
     from self_supervise_sfm_tpu_torch.models import aggregator as AG
     from self_supervise_sfm_tpu_torch.ops import fused_qkv as FQ
 
-    d, Ch = 64, 4 * C
+    d, Ch = C // H, 4 * C
+    sfx = "_d128" if d == 128 else ""
     N = (IMG // 14) ** 2 + 5
     f32 = torch.float32
     bf16 = torch.bfloat16
@@ -1400,7 +1515,8 @@ def check_fused_kernels(randn, ulps, C=1024, H=16, frames=NUM_FRAMES, sites=None
                   "k_norm": norm(d)},
          "mlp": {"fc1": lin(C, Ch), "fc2": lin(Ch, C)},
          "ls1": {"gamma": randn(C, dtype=f32)}, "ls2": {"gamma": randn(C, dtype=f32)}}
-    acfg = AG.AggregatorConfig()
+    # the frame's rope tables at the head dim d
+    acfg = AG.AggregatorConfig(embed_dim=C, num_heads=H)
     t_frame = AG._rope_tables_frame(acfg, IMG // 14, IMG // 14, "cuda")
     attn_cfg = AT.AttentionConfig(dim=C, num_heads=H, qk_norm=True, ln_eps=1e-5)
     vit_cfg = AT.AttentionConfig(dim=C, num_heads=H, qk_norm=False, ln_eps=1e-6)
@@ -1420,7 +1536,7 @@ def check_fused_kernels(randn, ulps, C=1024, H=16, frames=NUM_FRAMES, sites=None
     # Inputs from a generator of their own, so that the other inputs of
     # this phase and the weights of phase 3 stay what they were
     probe = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    for rows, kk, cols in ((128, 64, 128), (300, 1024, 384)) if C == 1024 else ():
+    for rows, kk, cols in ((128, 64, 128), (300, 1024, 384)) if C == 1024 and d == 64 else ():
         a = torch.randn((rows, kk), generator=probe, device="cuda").to(bf16)
         w = (torch.randn((kk, cols), generator=probe, device="cuda") * kk**-0.5).to(bf16)
         got = FQ.gemm_probe(a, w)
@@ -1468,7 +1584,7 @@ def check_fused_kernels(randn, ulps, C=1024, H=16, frames=NUM_FRAMES, sites=None
             prepass_back_to_back_ms=_back_to_back_ms(pre))
 
     per_kernel = {k: [] for k in ("fused_ln_qkv_rope", "fused_ln_qkv", "fused_proj_residual",
-                                  "fused_mlp_up", "fused_mlp_down")}
+                                  "fused_mlp_up", "fused_mlp_down")[:5 if mlp else 3]}
     for site, (B, n, tabs) in sites.items():
         M = B * n
         x = randn(B, n, C)
@@ -1505,6 +1621,10 @@ def check_fused_kernels(randn, ulps, C=1024, H=16, frames=NUM_FRAMES, sites=None
             (lambda: FQ.fused_proj_residual_fwd(*pargs),
              lambda: FQ.fused_proj_residual_plain(*pargs),
              lambda: x + P.layer_scale(p["ls1"], P.linear(at["proj"], AT._merge_heads(o))))))
+        if not mlp:
+            del x, o
+            torch.cuda.empty_cache()
+            continue
         # -- MLP up: LN2 + fc1 + GELU -> hidden
         uargs = (x, n2["scale"], n2["bias"], ml["fc1"]["w"], ml["fc1"]["b"], 1e-5)
         h = FQ.fused_mlp_up(*uargs)
@@ -1528,8 +1648,9 @@ def check_fused_kernels(randn, ulps, C=1024, H=16, frames=NUM_FRAMES, sites=None
              "fused_mlp_up": 526, "fused_mlp_down": 546}
     results = []
     for name, ss in per_kernel.items():
+        label = name + (sfx if name in D128_KERNELS else "")
         for s_ in ss:
-            print(f"  {name}[{s_['site']}]: kernel {s_['ms']:.4f} ms, plain "
+            print(f"  {label}[{s_['site']}]: kernel {s_['ms']:.4f} ms, plain "
                   f"{s_['plain_ms']:.4f} ms, library chain {s_['library_ms']:.4f} ms, "
                   f"bound {s_['bound_ms']:.4f} ms ({s_['bound_by']}), "
                   f"roofline share {s_['bound_ms'] / s_['ms']:.3f}, "
@@ -1541,11 +1662,11 @@ def check_fused_kernels(randn, ulps, C=1024, H=16, frames=NUM_FRAMES, sites=None
                   f"{s_['bound_ms'] / s_['back_to_back_ms'] * PEAK_BF16_FLOPS / 1e12:.0f} "
                   f"TFLOP/s")
             if "prepass_ms" in s_:
-                print(f"  {name}[{s_['site']}] layer-norm pre-pass alone: "
+                print(f"  {label}[{s_['site']}] layer-norm pre-pass alone: "
                       f"{s_['prepass_ms']:.4f} ms a call, {s_['prepass_back_to_back_ms']:.4f} "
                       f"ms back to back")
         results.append(dict(
-            name=name, route="cuda", source=GEMM_SOURCE,
+            name=label, route="cuda", source=GEMM_SOURCE,
             replaces=f"self_supervise_sfm_tpu/ops/fused_qkv.py:{lines[name]}",
             # one call at each site measured
             max_abs_err=max(s_["max_abs_err"] for s_ in ss),
@@ -1752,14 +1873,16 @@ def check_fused_f32_kernels(randn):
     return results
 
 
-def check_serving_kernels(randn, ulps):
+def check_serving_kernels(randn, ulps, H=16, d=64):
     """Phase 2, the two kernels of the serving path: the [context | own
     frame] attention that reads a layer of the kv2 scene cache in place
     (K2p), and the flash forward under a RelocMask (K1m). bf16 outputs,
     tolerance 4 ulps at the largest output as for K1 / K2, the lse within
     1e-4. K1m runs K2's body over segment maps: on the same problem it must
     equal K2p bit for bit, and at the edges of its maps K2 on the unfolded
-    tensors."""
+    tensors. At head dim 128 (``H`` heads of ``d``): the 5-anchor cache and
+    the mask form, a repeat bit-equal; the 20-anchor cache and the edges are
+    the head dim 64 run's."""
     import torch
     import torch.nn.functional as F
 
@@ -1767,7 +1890,8 @@ def check_serving_kernels(randn, ulps):
     from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
     from self_supervise_sfm_tpu_torch.ops.mask_spec import RelocMask
 
-    H, d, depth, Fq = 16, 64, 24, NUM_FRAMES
+    depth, Fq = 24, NUM_FRAMES
+    sfx = "_d128" if d == 128 else ""
     P = (IMG // 14) ** 2 + 5
     q, k, v = (randn(Fq, H, P, d) for _ in range(3))
 
@@ -1781,16 +1905,20 @@ def check_serving_kernels(randn, ulps):
 
     # -- K2p at the 5-anchor cache (first and last layer) and at 20 anchors --
     sites = []
-    for anchors, layers in ((NUM_FRAMES, (0, depth - 1)), (4 * NUM_FRAMES, (depth // 2,))):
+    for anchors, layers in ((NUM_FRAMES, (0, depth - 1)),
+                            *(((4 * NUM_FRAMES, (depth // 2,)),) if d == 64 else ())):
         nc = anchors * (RANK + 5)
         ckv = randn(depth, 1, H, nc, 2 * d)
         before = ckv.clone()
         for layer in layers:
             out = FA.frame_ctx_packed_fwd(q, k, v, ckv, layer)
+            again = FA.frame_ctx_packed_fwd(q, k, v, ckv, layer)
             torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"frame_ctx_packed_fwd{sfx} layer {layer}: a repeat differs")
             ref = FA.frame_ctx_packed_plain(q, k, v, ckv, layer)
             err = float((out.float() - ref.float()).abs().max())
-            name = f"frame_ctx_packed_fwd[{anchors} anchors, layer {layer}]"
+            name = f"frame_ctx_packed_fwd{sfx}[{anchors} anchors, layer {layer}]"
             _check(f"{name} {tuple(q.shape)} cache {tuple(ckv.shape)}", err, ulps(ref, 4))
             # the same body as K2: bit-equal on the layer's split copies
             k2 = FA.frame_ctx_fwd(q, k, v, ckv[layer, ..., :d].contiguous(),
@@ -1821,9 +1949,10 @@ def check_serving_kernels(randn, ulps):
         if anchors == NUM_FRAMES:
             ckv5 = ckv
         del before
-    print("  frame_ctx_packed_fwd: bit-equal to frame_ctx_fwd (K2) on the split copies")
+    print(f"  frame_ctx_packed_fwd{sfx}: bit-equal to frame_ctx_fwd{sfx} (K2) on the split "
+          f"copies")
     results = [dict(
-        name="frame_ctx_packed_fwd", route="cuda", source=SM90_SOURCE,
+        name="frame_ctx_packed_fwd" + sfx, route="cuda", source=SM90_SOURCE,
         replaces="self_supervise_sfm_tpu/ops/flash_attention.py:661",
         # one call at each site measured
         max_abs_err=max(s_["max_abs_err"] for s_ in sites),
@@ -1844,12 +1973,15 @@ def check_serving_kernels(randn, ulps):
     km, vm = torch.cat([ck, ks], dim=2), torch.cat([cv, vs], dim=2)
     q3, k3, v3 = qm[0], km[0], vm[0]
     out, lse = FA.flash_fwd_reloc(q3, k3, v3, mask)
+    again, lse_again = FA.flash_fwd_reloc(q3, k3, v3, mask)
     torch.cuda.synchronize()
+    if not (torch.equal(out, again) and torch.equal(lse, lse_again)):
+        raise AssertionError(f"flash_fwd_reloc{sfx}: a repeat differs")
     p_out, p_lse = FA.flash_fwd_plain(q3, k3, v3, mask)
     err = float((out.float() - p_out.float()).abs().max())
-    _check(f"flash_fwd_reloc out {tuple(q3.shape)} x {tuple(k3.shape)} {mask}", err,
+    _check(f"flash_fwd_reloc{sfx} out {tuple(q3.shape)} x {tuple(k3.shape)} {mask}", err,
            ulps(p_out, 4))
-    _check("flash_fwd_reloc lse", float((lse - p_lse).abs().max()), 1e-4)
+    _check(f"flash_fwd_reloc{sfx} lse", float((lse - p_lse).abs().max()), 1e-4)
     # the three forms of the one problem agree: mask, split and layout; the
     # mask form is the layout form's walk over other maps, bit for bit
     layout = unfold(FA.frame_ctx_packed_fwd(q, k, v, ckv5, 0))[0]
@@ -1857,8 +1989,9 @@ def check_serving_kernels(randn, ulps):
     _check("mask form vs layout form (K2p)", float((out.float() - layout.float()).abs().max()),
            ulps(p_out, 4))
     if not torch.equal(out, layout):
-        raise AssertionError("flash_fwd_reloc: not bit-equal to K2p on the same problem")
-    print("  flash_fwd_reloc (K1m): bit-equal to frame_ctx_packed_fwd (K2p) on the same problem")
+        raise AssertionError(f"flash_fwd_reloc{sfx}: not bit-equal to K2p on the same problem")
+    print(f"  flash_fwd_reloc{sfx} (K1m): bit-equal to frame_ctx_packed_fwd{sfx} (K2p) on the "
+          f"same problem")
     _check("split form vs layout form (K2p)",
            float((split.float() - layout.float()).abs().max()), ulps(p_out, 4))
     dense_mask = mask.materialize("cuda")
@@ -1869,7 +2002,7 @@ def check_serving_kernels(randn, ulps):
     library = lambda: F.scaled_dot_product_attention(qm, km, vm, attn_mask=dense_mask)  # noqa: E731
     split_form = lambda: AC.reloc_split_attention(qm, ks, vs, ck, cv, mask)  # noqa: E731
     r = dict(
-        name="flash_fwd_reloc", route="cuda", source=SM90_SOURCE,
+        name="flash_fwd_reloc" + sfx, route="cuda", source=SM90_SOURCE,
         replaces="self_supervise_sfm_tpu/ops/flash_attention.py:140",
         variant="mask=RelocMask", max_abs_err=err, shape=list(q3.shape),
         ms=_time_ms(kernel),
@@ -1887,12 +2020,13 @@ def check_serving_kernels(randn, ulps):
           f"(b2b {r['back_to_back_ms']:.4f}), split (two K1 calls + lse merge) "
           f"{r['split_form_ms']:.4f} ms (b2b {r['split_form_back_to_back_ms']:.4f}), layout (K2p) "
           f"{r['layout_form_ms']:.4f} ms (b2b {r['layout_form_back_to_back_ms']:.4f})")
-    _site_line(f"flash_fwd_reloc {tuple(q3.shape)} x {tuple(k3.shape)} {mask}", r)
+    _site_line(f"flash_fwd_reloc{sfx} {tuple(q3.shape)} x {tuple(k3.shape)} {mask}", r)
     results.append(r)
     del q3, k3, v3, qm, km, vm, ks, vs, out, lse, p_out, p_lse, dense_mask
-    check_reloc_edges(randn, ulps)
+    if d == 64:
+        check_reloc_edges(randn, ulps)
     for s_ in sites:
-        _site_line(f"frame_ctx_packed_fwd[{s_['site']}]", s_)
+        _site_line(f"frame_ctx_packed_fwd{sfx}[{s_['site']}]", s_)
     torch.cuda.empty_cache()
     return results
 
@@ -2087,16 +2221,25 @@ class _F32Launches:
     (``.launches_f32``: the attention and fused block wrappers), read and
     reset as ``.launches``."""
 
+    attr = "launches_f32"
+
     def __init__(self, fn):
         self.fn = fn
 
     @property
     def launches(self) -> int:
-        return self.fn.launches_f32
+        return getattr(self.fn, self.attr)
 
     @launches.setter
     def launches(self, n: int) -> None:
-        self.fn.launches_f32 = n
+        setattr(self.fn, self.attr, n)
+
+
+class _D128Launches(_F32Launches):
+    """The head dim 128 launches of a wrapper (``.launches_d128``), read and
+    reset as ``.launches``."""
+
+    attr = "launches_d128"
 
 
 def kernel_wrappers() -> dict:
@@ -2125,7 +2268,14 @@ def kernel_wrappers() -> dict:
             "fused_ln_qkv_f32": _F32Launches(FQ.fused_ln_qkv_fwd),
             "fused_proj_residual_f32": _F32Launches(FQ.fused_proj_residual_fwd),
             "fused_mlp_up_f32": _F32Launches(FQ.fused_mlp_up),
-            "fused_mlp_down_f32": _F32Launches(FQ.fused_mlp_down)}
+            "fused_mlp_down_f32": _F32Launches(FQ.fused_mlp_down),
+            "flash_fwd_d128": _D128Launches(FA.flash_fwd),
+            "frame_ctx_fwd_d128": _D128Launches(FA.frame_ctx_fwd),
+            "frame_ctx_packed_fwd_d128": _D128Launches(FA.frame_ctx_packed_fwd),
+            "flash_fwd_reloc_d128": _D128Launches(FA.flash_fwd_reloc),
+            "fused_ln_qkv_rope_d128": _D128Launches(FQ.fused_ln_qkv_rope_fwd),
+            "fused_ln_qkv_d128": _D128Launches(FQ.fused_ln_qkv_fwd),
+            "fused_proj_residual_d128": _D128Launches(FQ.fused_proj_residual_fwd)}
 
 
 def run_forward(gen):
@@ -2871,6 +3021,230 @@ def run_serving(state):
             "mask_form_default": n_mask_d,
             "build20_default": n_build20, "build_on_f32": n_build_o,
             "reloc_on_f32": n_reloc_o}, res
+
+
+def run_d128(state=None):
+    """Phase 4b: the model at 8 heads of 128 (``make_config(num_heads=8,
+    compute_dtype="bfloat16")``, what the trainer's ``--num-heads 8``
+    builds) at full width, weights from its own seed: the forward,
+    ``build_scene_cache``, ``reloc`` and ``fast_reloc`` through the head dim
+    128 kernels with the flagship's launch counts site for site (no dense
+    attention, no plain fused-block chain); trunk taps, anchor camera tokens
+    and the scene cache against the plain path of the same configuration
+    within twice its bf16-vs-fp32 envelope; reloc taps against the joint
+    forward's; reloc layer 0's mask form (K1m) bit-equal to its layout form
+    (K2p); the forward timed in turns against the same configuration on the
+    dense route with the fused blocks off and against the flagship (16 heads
+    of 64: phase 3's weights, or its own when phase 3 did not run); build,
+    reloc and ``fast_reloc`` timed; peaks. ``state``: phase 3's."""
+    import torch
+
+    from self_supervise_sfm_tpu_torch.layers.block import qkv_parts
+    from self_supervise_sfm_tpu_torch.models import aggregator as AG
+    from self_supervise_sfm_tpu_torch.models import sailrecon as M
+    from self_supervise_sfm_tpu_torch.ops import attention_core as AC
+    from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
+    from self_supervise_sfm_tpu_torch.ops.mask_spec import RelocMask
+
+    t_start = time.perf_counter()
+    wrappers = kernel_wrappers()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 89)
+    if state is None:
+        print("  phase 3's flagship made here (phase 3 did not run)")
+        flag_cfg = M.make_config(compute_dtype="bfloat16")
+        flag_params = M.cast_trunk_weights(M.init_sailrecon(flag_cfg, gen, device="cuda"),
+                                           flag_cfg)
+        uniq = torch.rand((1, NUM_FRAMES, IMG, IMG, 3), generator=gen, device="cuda")
+    else:
+        flag_cfg, flag_params, uniq = state["cfg"], state["params"], state["uniq"]
+    images = torch.cat([uniq, uniq], dim=1)
+    unfused = dict(fused_qkv="off", fused_mlp="off")
+    dense = dict(attn_impl="dense", global_attn_impl="dense")
+    cfg = M.make_config(num_heads=8, compute_dtype="bfloat16")
+    cfg_dense = M.make_config(num_heads=8, compute_dtype="bfloat16", **dense, **unfused)
+    cfg_plain = M.make_config(num_heads=8, compute_dtype="bfloat16", resize_impl="einsum",
+                              **dense, **unfused)
+    cfg_f32 = M.make_config(num_heads=8, resize_impl="einsum", **dense, **unfused)
+    acfg = cfg.aggregator
+    p32 = M.init_sailrecon(cfg, gen, device="cuda")
+    params = M.cast_trunk_weights(p32, cfg)
+    failures = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    def draw():
+        # the same scene-token subsample for every run compared
+        return torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: w.launches for k, w in wrappers.items()}
+
+    def fwd(c, p):
+        return M.forward(p, c, images, NUM_FRAMES, NUM_FRAMES, rank=RANK, generator=draw(),
+                         images_duplicated=True)
+
+    def build(c, p):
+        return M.build_scene_cache(p, c, uniq, rank=RANK, generator=draw())
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    # -- launches: the flagship's, site for site, on the head dim 128 forms
+    out, n_fwd = counted(lambda: fwd(cfg, params))
+    (cache, cam), n_build = counted(lambda: build(cfg, params))
+    rel_out, n_reloc = counted(lambda: M.reloc(params, cfg, cache, cam, uniq))
+    fast, n_fast = counted(lambda: M.reloc(params, cfg, cache, cam, uniq, fast_reloc=True))
+    launches = {"forward_d128": n_fwd, "build_d128": n_build, "reloc_d128": n_reloc,
+                "fast_reloc_d128": n_fast}
+    for path, want in (("forward_d128", D128_FORWARD_LAUNCHES),
+                       ("build_d128", D128_BUILD_LAUNCHES), ("reloc_d128", D128_RELOC_LAUNCHES),
+                       ("fast_reloc_d128", D128_FAST_RELOC_LAUNCHES)):
+        got = launches[path]
+        print(f"  launches in one {path}: { {k: n for k, n in got.items() if n} }")
+        if got != want:
+            raise AssertionError(f"{path} launch counts {got}, expected {want}")
+    kv = cache["kv"]
+    nc = NUM_FRAMES * (RANK + 5)
+    expect(tuple(kv.shape) == (24, 1, 8, nc, 256) and kv.dtype == torch.bfloat16,
+           f"cache {tuple(kv.shape)} {kv.dtype}")
+    shapes = {"extrinsic": (1, 5, 3, 4), "intrinsic": (1, 5, 3, 3), "cam_tokens": (1, 5, 2048),
+              "point_map": (1, 5, IMG, IMG, 3), "depth_map": (1, 5, IMG, IMG, 1)}
+    for k, shape in shapes.items():
+        expect(tuple(out[k].shape) == shape, f"forward {k}: shape {tuple(out[k].shape)}")
+    for k in ("extrinsic", "intrinsic", "cam_tokens"):
+        expect(bool(torch.isfinite(out[k]).all()), f"forward {k}: non-finite values")
+    for k in ("extrinsic", "intrinsic"):
+        expect(bool(torch.isfinite(rel_out[k]).all()), f"reloc {k}: non-finite values")
+        expect(torch.equal(fast[k], rel_out[k]), f"fast_reloc {k} differs from reloc's")
+
+    # -- agreement with the plain path of the same configuration -------------
+    def agg(c, p):
+        return AG.aggregator_forward(p["aggregator"], c.aggregator, images, NUM_FRAMES,
+                                     NUM_FRAMES, RANK, generator=draw(), images_duplicated=True)
+
+    tk, _, ck = agg(cfg, params)
+    for w in wrappers.values():
+        w.launches = 0
+    tp, _, cp = agg(cfg_plain, params)
+    tf, _, cf = agg(cfg_f32, p32)
+    cache_p, cam_p = build(cfg_plain, params)
+    cache_f, cam_f = build(cfg_f32, p32)
+
+    def taps_of(c, p, ca):
+        return AG.aggregator_reloc(p["aggregator"], c.aggregator, ca, uniq)[0]
+
+    rp, rf = taps_of(cfg_plain, params, cache_p), taps_of(cfg_f32, p32, cache_f)
+    torch.cuda.synchronize()
+    if any(w.launches for w in wrappers.values()):
+        raise AssertionError("the plain path of the head dim 128 model launched a kernel")
+    rk = taps_of(cfg, params, cache)
+    agreement = {}
+    pairs = [(f"tap {li}", tk[li], tp[li], tf[li]) for li in acfg.intermediate_layer_idx]
+    pairs += [("anchor cam tokens", ck, cp, cf), ("scene cache", kv, cache_p["kv"], cache_f["kv"]),
+              ("build cam tokens", cam, cam_p, cam_f)]
+    pairs += [(f"reloc tap {li}", rk[li], rp[li], rf[li]) for li in acfg.intermediate_layer_idx]
+    for name, a, b, c in pairs:
+        err, env = rel(a, b), rel(b, c)
+        agreement[name] = [err, env]
+        print(f"  d128 {name}: kernel vs plain rel-RMS {err:.4e}, plain bf16 vs fp32 "
+              f"{env:.4e} (tolerance 2x that)")
+        expect(err <= 2 * env, f"d128 {name}: {err} over twice the bf16 envelope {env}")
+    # the reloc against the cache is the joint forward's query half
+    for li in acfg.intermediate_layer_idx:
+        err, env = rel(rk[li], tk[li]), agreement[f"reloc tap {li}"][1]
+        print(f"  d128 reloc tap {li} vs the joint forward's: rel-RMS {err:.4e} "
+              f"({'bit-equal' if torch.equal(rk[li], tk[li]) else 'not bit-equal'}; tolerance "
+              f"2x {env:.4e})")
+        expect(err <= 2 * env, f"d128 reloc tap {li} vs joint forward: {err} over 2x {env}")
+    del tp, tf, cp, cf, cache_p, cache_f, cam_p, cam_f, rp, rf, rk, tk, ck
+    torch.cuda.empty_cache()
+
+    # -- reloc layer 0 in mask form (K1m) against its layout form (K2p) ------
+    def mask_form():
+        tokens, t_frame = AG._reloc_setup(params["aggregator"], acfg, uniq)
+        B, Q, Ptok, C = tokens.shape
+        fp, rp_ = (params["aggregator"][k][0] for k in ("frame_blocks", "reloc_blocks"))
+        t = AG.block(fp, tokens.reshape(B * Q, Ptok, C), acfg.block_cfg, t_frame)
+        q, k, v = qkv_parts(rp_, t, acfg.block_cfg, t_frame)
+        layout = FA.packed_ctx_attention(q, k, v, kv, 0)
+        d = q.shape[-1]
+
+        def unfold(x):
+            return x.transpose(0, 1).reshape(1, x.shape[1], Q * Ptok, d)
+
+        masked = AC.sdpa(unfold(q), torch.cat([kv[0, ..., :d], unfold(k)], dim=2),
+                         torch.cat([kv[0, ..., d:], unfold(v)], dim=2),
+                         mask=RelocMask(nc, Ptok, Q), impl="auto")
+        return unfold(layout), masked
+
+    (layout, masked), n_mask = counted(mask_form)
+    launches["mask_form_d128"] = n_mask
+    if n_mask["flash_fwd_reloc_d128"] != 1 or n_mask["frame_ctx_packed_fwd_d128"] != 1:
+        raise AssertionError(f"d128 mask form launch counts {n_mask}")
+    same = torch.equal(layout, masked)
+    print(f"  d128 reloc layer 0, mask form (K1m) bit-equal to layout form (K2p): {same}")
+    expect(same, "d128 reloc layer 0: mask form not bit-equal to layout form")
+    del layout, masked
+
+    # -- times: in turns on the one card --------------------------------------
+    def timed(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return runs, torch.cuda.max_memory_allocated() / 1e9
+
+    turns = {"d128": lambda: fwd(cfg, params), "d128_dense_unfused": lambda: fwd(cfg_dense, params),
+             "d64": lambda: fwd(flag_cfg, flag_params)}
+    runs, peaks = {k: [] for k in turns}, {}
+    for name in ("d128", "d128_dense_unfused", "d64", "d64", "d128_dense_unfused", "d128"):
+        r, peak = timed(turns[name])
+        runs[name] += r
+        peaks[name] = max(peaks.get(name, 0.0), peak)
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    res = dict(forward_ms=med["d128"], forward_runs_ms=runs["d128"], forward_peak_gb=peaks["d128"],
+               dense_unfused_ms=med["d128_dense_unfused"],
+               dense_unfused_runs_ms=runs["d128_dense_unfused"],
+               dense_unfused_peak_gb=peaks["d128_dense_unfused"],
+               flagship_ms=med["d64"], flagship_runs_ms=runs["d64"], flagship_peak_gb=peaks["d64"],
+               agreement=agreement, mask_form_bit_equal=same,
+               cache_bytes_per_anchor=kv.numel() * kv.element_size() / NUM_FRAMES)
+    print(f"  d128 forward {med['d128']:.2f} ms (peak {peaks['d128']:.2f} GB); the same model on "
+          f"the dense route with the fused blocks off {med['d128_dense_unfused']:.2f} ms (peak "
+          f"{peaks['d128_dense_unfused']:.2f} GB, {med['d128_dense_unfused'] / med['d128']:.3f}x); "
+          f"the flagship (16 heads of 64) {med['d64']:.2f} ms (peak {peaks['d64']:.2f} GB, "
+          f"d128 / d64 {med['d128'] / med['d64']:.3f}x); medians of 6, in turns")
+    for name, fn in (("build", lambda: build(cfg, params)),
+                     ("reloc", lambda: M.reloc(params, cfg, cache, cam, uniq)),
+                     ("fast_reloc", lambda: M.reloc(params, cfg, cache, cam, uniq,
+                                                    fast_reloc=True))):
+        r, peak = timed(fn)
+        res[f"{name}_ms"], res[f"{name}_runs_ms"], res[f"{name}_peak_gb"] = (
+            statistics.median(r), r, peak)
+    print(f"  d128 5 anchors: build {res['build_ms']:.2f} ms (peak {res['build_peak_gb']:.2f} GB); "
+          f"reloc of 5 queries {res['reloc_ms']:.2f} ms (peak {res['reloc_peak_gb']:.2f} GB); "
+          f"fast_reloc {res['fast_reloc_ms']:.2f} ms (peak {res['fast_reloc_peak_gb']:.2f} GB); "
+          f"cache {res['cache_bytes_per_anchor']:.0f} bytes an anchor; medians of 3")
+    print("  profile of the d128 forward:")
+    res["profile"] = profile_forward(lambda: fwd(cfg, params), label="d128 forward")
+    res["seconds"] = time.perf_counter() - t_start
+    print(f"  phase 4b: {res['seconds']:.1f} s")
+    del params, p32, cache, cam, out, rel_out, fast
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, res
 
 
 def _hold_fp32_step(label, loss, g, loss_f, gf, subsystems, rel, grads, expect) -> dict:
@@ -4295,8 +4669,8 @@ def run_converter(host_params=None, phase3=None):
     torch.cuda.empty_cache()
 
     # -- (c) the other ViT widths ---------------------------------------------------
-    # K1 and the fused block kernels alone at the ViT-B and ViT-g sites (2
-    # frames of 518 px): LN+QKV, the out-projection and the MLP pair at the
+    # K1 and the fused block kernels alone at the ViT-B, ViT-g and ViT-S sites
+    # (2 frames of 518 px): LN+QKV, the out-projection and the MLP pair at the
     # ViT blocks' shape, LN+QKV+RoPE at a frame block's of that width (no
     # path runs it), each against its plain version, timed beside its
     # library call or chain and its bound
@@ -4310,7 +4684,7 @@ def run_converter(host_params=None, phase3=None):
 
     N = (IMG // 14) ** 2 + 5
     res["width_sites"] = {}
-    for C, H in ((768, 12), (1536, 24)):
+    for C, H in ((768, 12), (1536, 24), (384, 6)):
         ws = {"flash_fwd": [flash_site(wrandn, ulps, f"vit C{C}", 2 * H, N)]}
         _site_line(f"flash_fwd[vit C{C}] {(2 * H, N, 64)}", ws["flash_fwd"][0])
         for r in check_fused_kernels(wrandn, ulps, C=C, H=H, frames=2,
@@ -4335,10 +4709,10 @@ def run_converter(host_params=None, phase3=None):
         n = {k: v for k, v in counts().items() if v}
         launches[name] = counts()
         d = vc.depth
-        fused_all = vc.embed_dim % 256 == 0
-        want = ({"flash_fwd": d, "fused_ln_qkv": d, "fused_proj_residual": d,
-                 "fused_mlp_up": d, "fused_mlp_down": d} if fused_all
-                else {"flash_fwd": d, "fused_proj_residual": d})
+        # every width a multiple of 128 with an even count of heads of 64:
+        # all five kernels in each block
+        want = {"flash_fwd": d, "fused_ln_qkv": d, "fused_proj_residual": d,
+                "fused_mlp_up": d, "fused_mlp_down": d}
         expect(n == want, f"{name}: launches {n}, expected {want}")
         plain = V.vit_forward(p16, x, plain_cfg, torch.bfloat16)
         f32 = V.vit_forward(p32, x, plain_cfg, torch.float32)
@@ -5929,7 +6303,9 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     t_start = t0 = time.perf_counter()
     _kernels.library()
-    print(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s")
+    print(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s (to the end of each "
+          f"source's nvcc, side by side, and the link: "
+          f"{ {k: round(v, 2) for k, v in _kernels.build_seconds.items()} })")
     print_build_log(_kernels.build_log)
     print_sm90_build()
 
@@ -6011,6 +6387,25 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--d128-only" in sys.argv[1:]:
+        print("phase 2 (head dim 128 part) and phase 4b alone: the head dim 128 kernels, then "
+              "the model at 8 heads of 128")
+        d128_gen = torch.Generator(device="cuda").manual_seed(SEED + 83)
+        kernels = check_d128_kernels(
+            lambda *shape, dtype=torch.bfloat16: torch.randn(
+                shape, generator=d128_gen, device="cuda").to(dtype),
+            lambda ref, n: n * 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7))
+        torch.cuda.empty_cache()
+        launches, d128 = run_d128()
+        for k in kernels:
+            k["launches_by_path"] = {path: n[k["name"]] for path, n in launches.items()}
+            k["launches"] = sum(k["launches_by_path"].values())
+        print(json.dumps({"d128": d128}))
+        print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--trainer-only" in sys.argv[1:]:
         print("phases 5 and 6 alone: the bare train step, then the trainer around it")
         _, train = run_train()
@@ -6033,17 +6428,24 @@ def main() -> int:
           f"peak memory {fwd['peak_gb']:.3f} GB")
     print("phase 4: two-phase serving (scene-cache build, reloc; 5 and 20 anchors)")
     serving_launches, serving = run_serving(state)
+    print("phase 4b: head dim 128 (8 heads of 128 at width 1024): the forward and two-phase "
+          "serving on the head dim 128 kernels")
+    d128_launches, d128 = run_d128(state)
     by_path = {"forward": launches, "forward_default": state["default_launches"],
-               "forward_on_f32": state["on_f32_launches"], **serving_launches}
+               "forward_on_f32": state["on_f32_launches"], **serving_launches, **d128_launches}
     for k in kernels:
         k["launches_by_path"] = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     print(f"{card}: build {serving['build_ms']:.2f} ms, reloc "
           f"{serving['reloc_frames_per_s']:.3f} frames/s (full heads), "
           f"{serving['fast_reloc_frames_per_s']:.3f} frames/s (fast_reloc)")
+    print(f"{card}: head dim 128 forward {d128['forward_ms']:.2f} ms against the flagship's "
+          f"{d128['flagship_ms']:.2f} ms in turns, build {d128['build_ms']:.2f} ms, reloc "
+          f"{d128['reloc_ms']:.2f} ms")
     if "--until-serving" in sys.argv[1:]:
         print(json.dumps({"forward": fwd}))
         print(json.dumps({"serving": serving}))
+        print(json.dumps({"d128": d128}))
         print(json.dumps({"kernels": kernels}))
         return 0
     # phase 3's weights wait on the host for phase 7 (the card's memory goes

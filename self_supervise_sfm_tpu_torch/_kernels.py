@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -67,7 +68,15 @@ _SIGNATURES: Dict[str, List] = {
     # which kernel of the fp32 backward body (0 dq, 1 dk/dv, 2 and 3 their
     # RelocMask forms), int[8] out
     "sfm_flash_bwd_f32_info": [_I, _P],
-    # which kernel of the sm90 attention body (0 K1, 1 K2, 2 K2p, 3 K1m), int[8] out
+    # K1, K2, K2p and K1m at head dim 128 on the same body: the head-dim-64
+    # entries' arguments
+    "sfm_flash_fwd_d128_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "sfm_frame_ctx_fwd_d128_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "sfm_frame_ctx_kv2_fwd_d128_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _F,
+                                        _P],
+    "sfm_flash_fwd_reloc_d128_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # which kernel of the sm90 attention body (0 K1, 1 K2, 2 K2p, 3 K1m; 4-7
+    # the same at head dim 128), int[8] out
     "sfm_attention_sm90_info": [_I, _P],
     # which kernel of the sm90 backward body (0 dq, 1 dk/dv, 2 and 3 their
     # RelocMask forms), int[8] out
@@ -86,8 +95,13 @@ _SIGNATURES: Dict[str, List] = {
     "sfm_mlp_down_sm90": [_P] * 6 + [_I, _I, _I, _P],
     "sfm_ln_rows_bf16": [_P] * 4 + [_I, _I, _F, _P],
     "sfm_gemm_sm90_probe": [_P] * 3 + [_I, _I, _I, _P],
+    # LN+QKV+RoPE, LN+QKV and the out-projection at head dim 128 on the same
+    # body: the head-dim-64 entries' arguments
+    "sfm_ln_qkv_rope_d128_sm90": [_P] * 15 + [_I, _I, _I, _I, _F, _P],
+    "sfm_ln_qkv_d128_sm90": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
+    "sfm_proj_residual_d128_sm90": [_P] * 6 + [_I, _I, _I, _P],
     # which kernel of the GEMM body (0 up, 1 down, 2 probe, 3 LN, 4 LN+QKV+RoPE,
-    # 5 LN+QKV, 6 out-proj), int[10] out
+    # 5 LN+QKV, 6 out-proj; 7-9 the last three at head dim 128), int[10] out
     "sfm_gemm_sm90_info": [_I, _P],
     # the fp32 forms of the five on the FFMA GEMM body (gemm_f32.cu): the
     # bf16 entries' arguments, the scratch (M, C) fp32
@@ -105,6 +119,9 @@ _SIGNATURES: Dict[str, List] = {
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""  # nvcc/ptxas output of the last build made by this process
+# seconds from the start of the last build made by this process to the end of
+# each source's nvcc (they run side by side), and to the end of the link
+build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -132,6 +149,7 @@ def _build(so: Path, sources: List[Path]) -> None:
     obj_dir = so.parent / (so.stem + "_obj")
     obj_dir.mkdir(parents=True, exist_ok=True)
     objs = [obj_dir / (s.stem + ".o") for s in sources]
+    t0 = time.perf_counter()
     procs = [
         subprocess.Popen(
             [nvcc, *_CFLAGS, "-c", str(s), "-o", str(o)],
@@ -139,13 +157,19 @@ def _build(so: Path, sources: List[Path]) -> None:
         )
         for s, o in zip(sources, objs)
     ]
-    logs = []
-    failed = []
-    for s, p in zip(sources, procs):
-        out, _ = p.communicate()
-        logs.append(f"== {s.name}\n{out}")
-        if p.returncode != 0:
-            failed.append(s.name)
+    outs: Dict[str, str] = {}
+
+    def wait(s: Path, p: subprocess.Popen) -> None:
+        outs[s.name] = p.communicate()[0]
+        build_seconds[s.name] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=sp) for sp in zip(sources, procs)]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    logs = [f"== {s.name}\n{outs[s.name]}" for s in sources]
+    failed = [s.name for s, p in zip(sources, procs) if p.returncode != 0]
     build_log = "\n".join(logs)
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
@@ -156,6 +180,7 @@ def _build(so: Path, sources: List[Path]) -> None:
     )
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
+    build_seconds["link"] = time.perf_counter() - t0
     os.replace(tmp, so)
     (so.parent / (so.stem + ".log")).write_text(build_log)
 

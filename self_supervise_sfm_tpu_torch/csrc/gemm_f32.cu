@@ -369,7 +369,8 @@ SFM_GEMM_F32_KERNEL(mlp_down_f32_kernel, E_RESID)
 // -- the layer-norm pre-pass ---------------------------------------------------
 
 // hn = ((x - mu) * rstd) * w + b in fp32; one warp a row, 4 channels (16
-// bytes) a lane a step, K a multiple of 128. Mean and centred variance as
+// bytes) a lane a step of 128, K a multiple of 4 (the lanes past K sit out
+// the last step; rows stay 16-byte aligned). Mean and centred variance as
 // the plain version's; explicit roundings (no fused multiply-add) in the
 // normalisation.
 __global__ void __launch_bounds__(LN_ROWS * 32)
@@ -456,7 +457,7 @@ int launch_gemm(const Params& p, void* stream) {
 
 int launch_ln(const void* x, const void* ln_w, const void* ln_b, void* hn, int rows, int dim,
               float eps, void* stream) {
-  if (rows < 0 || dim <= 0 || dim % 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows < 0 || dim <= 0 || dim % 4) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   if (!aligned16(x) || !aligned16(ln_w) || !aligned16(ln_b) || !aligned16(hn))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -12,13 +12,15 @@
 // and computes what they compute, with their rounding points. The three
 // layer-normed kernels: hn = LN(x) with fp32 statistics (centred variance),
 // rounded to bf16; acc = hn @ W in fp32, rounded to bf16; + b in bf16. Then
-// LN+QKV+RoPE: per head of q and k a layer norm over its 64 values in fp32,
+// LN+QKV+RoPE: per head of q and k a layer norm over its d values in fp32,
 // rounded to bf16, and 2D RoPE in bf16 (bf16 cos / sin, each product
-// rounded); LN+QKV: nothing more; both write q, k, v as (B, H, N, 64).
+// rounded); LN+QKV: nothing more; both write q, k, v as (B, H, N, d). The
+// three kernels with a head dim are built at d = 64 and at d = 128 (names
+// with "_d128").
 // MLP-up: the exact (erff) GELU in fp32, rounded to bf16. MLP-down: acc = h
 // @ W2 in fp32, rounded to bf16; + b2, x gamma and + x, each in bf16. The
 // out-projection: the same product and epilogue on the merged heads of the
-// attention output o (B, H, N, 64) @ W_proj (C, C). x and h are flat (M, C)
+// attention output o (B, H, N, d) @ W_proj (C, C). x and h are flat (M, C)
 // and (M, 4C) rows; the weights stay in their (K, Nout) row-major layout,
 // read MN-major.
 //
@@ -50,10 +52,11 @@
 //   Without it both share one 256 x 128 tile (B read from L2 half as often,
 //   the epilogue exposed); tools/ablate_gemm_sm90.py times the two.
 // - Merged heads (the out-projection): A is read through a 3-D map over o
-//   as (64, N, B H), box (64, BM, 1): a K slice of 64 is one head, so slice
-//   kt of the row tile at row n0 of frame b is the box at (0, n0, b H + kt),
-//   and it lands as the same swizzled BM x 64 image as a 2-D box of flat
-//   rows. No merge copy exists. The tile walk goes frame by frame (the
+//   as (d, N, B H), box (64, BM, 1): at d = 64 a K slice of 64 is one head,
+//   so slice kt of the row tile at row n0 of frame b is the box at (0, n0,
+//   b H + kt); at d = 128 a head is two K slices, and slice kt is the box at
+//   (64 (kt % 2), n0, b H + kt / 2). Either lands as the same swizzled BM x
+//   64 image as a 2-D box of flat rows. No merge copy exists. The tile walk goes frame by frame (the
 //   Pallas grid (B, cdiv(N, bn))): B ceil(N / BM) row tiles, none crossing a
 //   frame, so no box starts at a negative row or reads the next frame's;
 //   rows past N come in as zeros (a box clips at the end of its own slice)
@@ -61,19 +64,20 @@
 // - Layer norm: a pre-pass kernel of this source (ln_rows_kernel, one warp
 //   a row) writes hn once, as the JAX kernel's bf16 cast before the dot; the
 //   GEMM's A is then a plain TMA load, and no column tile repeats the norm.
-// - q / k / v: a 128-column tile is two heads, and the 3 Hl 64 / 128 tiles
-//   split evenly into q, k and v (Hl, the heads the call computes, even), so
-//   a tile lies in one part. Hl is all H heads of C = 64 H, or one rank's
-//   head shard under tensor parallelism: W is then (C, 3 Hl 64), the
-//   columns [q_l | k_l | v_l] of the rank's heads, and K stays C.
-//   On the accumulator layout a thread holds 16 values of one head in each
-//   of its rows (j in [8 hh, 8 hh + 8)), so the qk-norm is a sum over them
-//   and a quad shuffle, and RoPE's partner column (+-16) is j +- 2 in the same
-//   thread. A row's (b, n) is divmod(row, N); q, k and v go to (B, H, N, 64),
-//   where a head's rows are contiguous. Stores: from the accumulators, bf16
+// - q / k / v: at d = 64 a 128-column tile is two heads, and the 3 Hl 64 /
+//   128 tiles split evenly into q, k and v (Hl, the heads the call computes,
+//   even), so a tile lies in one part; at d = 128 a tile is one head, and
+//   any Hl splits evenly. Hl is all H heads of C = d H, or one rank's head
+//   shard under tensor parallelism: W is then (C, 3 Hl d), the columns [q_l
+//   | k_l | v_l] of the rank's heads, and K stays C.
+//   On the accumulator layout a thread holds d / 4 values of one head in
+//   each of its rows (j in [NT hh, NT hh + NT), NT = d / 8), so the qk-norm
+//   is a sum over them and a quad shuffle, and RoPE's partner column (a
+//   quarter of the head away, +-16 or +-32) is j +- NT / 4 in the same
+//   thread. A row's (b, n) is divmod(row, N); q, k and v go to (B, H, N,
+//   d), where a head's rows are contiguous. Stores: from the accumulators, bf16
 //   pairs. Staging each 128 x 64 head block in shared memory for one TMA
-//   store ran 1.4-1.9x slower on an H100 (tools/ablate_gemm_sm90.py, its
-//   "TMA stores" variants, patched in by tools/gemm_sm90_tma_store.py).
+//   store ran 1.4-1.9x slower on an H100, in an ablation at head dim 64.
 // - Tile order: row by row (GROUP_M = 1). Raster groups of 8 row tiles,
 //   walked column by column so that a group's rows of A stay in the 50 MB
 //   L2, measured no faster on an H100 for the MLP pair (ablate_gemm_sm90):
@@ -119,6 +123,7 @@ constexpr int B_BYTES = 2 * B_ATOM_BYTES;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int BAR_OFF = STAGES * STAGE_BYTES;
 constexpr int HD = 64;                 // head dim: a tile of BN columns is two heads
+constexpr int HD128 = 128;             // the other head dim built: a tile is one head
 // stages (1024-byte aligned: the swizzle repeats every 8 rows), then a full
 // and an empty barrier a stage; 1 KB of slack to align by hand
 constexpr int SMEM_BYTES = 1024 + BAR_OFF + 2 * STAGES * 8;
@@ -135,15 +140,15 @@ struct Params {
   const float* gamma;  // (nout) layer-scale (E_RESID)
   const bf16* resid;   // (M, nout) residual (E_RESID)
   void* out;           // (M, nout): bf16, fp32 for E_F32
-  // E_QKV_ROPE / E_QKV: q, k, v (B, H, N, 64); qk-norm and RoPE (E_QKV_ROPE)
+  // E_QKV_ROPE / E_QKV: q, k, v (B, H, N, d); qk-norm and RoPE (E_QKV_ROPE)
   bf16* q;
   bf16* k;
   bf16* v;
-  const float* qn_w;   // (64) q / k layer norm over a head
+  const float* qn_w;   // (d) q / k layer norm over a head
   const float* qn_b;
   const float* kn_w;
   const float* kn_b;
-  const float* cos;    // (ntok, 64)
+  const float* cos;    // (ntok, d)
   const float* sin;
   float eps;
   int batch, ntok, heads;
@@ -237,15 +242,19 @@ __device__ __forceinline__ void epilogue(const Params& p, float (&acc)[2][64], i
 }
 
 // The epilogue of LN+QKV(+RoPE) on one 128 x 128 part (rows from m0, columns
-// from n0: two heads of q, k or v). acc[h][4j + e] is row h * 64 + 16 warp +
-// g (+ 8 for e >= 2), column 8j + 2t + (e & 1), so head hh of the part is j
-// in [8 hh, 8 hh + 8): 16 values of a row a thread, 64 a quad. The values of
-// a row go through v[hh][nt][e] = column 8 (8 hh + nt) + 2t + e. A row's
-// loads come first and serve both heads: the cos / sin of its token (from
+// from n0: HPT heads of q, k or v, two at head dim 64, one at 128).
+// acc[h][4j + e] is row h * 64 + 16 warp + g (+ 8 for e >= 2), column 8j +
+// 2t + (e & 1), so head hh of the part is j in [NT hh, NT hh + NT), NT = HD
+// / 8: HD / 4 values of a row a thread, HD a quad. The values of a row go
+// through v[hh][nt][e] = column 8 (NT hh + nt) + 2t + e. A row's loads come
+// first and serve every head of the part: the cos / sin of its token (from
 // L2: the tables exceed what shared memory leaves of L1), kept as bf16
-// pairs, then the bias; the two heads' qk-norms then run side by side.
-template <int EP>
+// pairs, then the bias; the heads' qk-norms then run side by side.
+template <int EP, int HD>
 __device__ __forceinline__ void epilogue_qkv(const Params& p, float (&acc)[2][64], int m0, int n0) {
+  constexpr int HPT = BN / HD;  // heads a part
+  constexpr int NT = HD / 8;    // 8-column groups of a head
+  constexpr int QT = NT / 4;    // of a quarter of a head: RoPE's partner is QT groups away
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int C = p.heads * HD;
@@ -263,45 +272,48 @@ __device__ __forceinline__ void epilogue_qkv(const Params& p, float (&acc)[2][64
       const bool valid = row < p.M;
       const int b = valid ? row / p.ntok : 0;
       const int n = valid ? row - b * p.ntok : 0;
-      // rb(cos), rb(sin) of the row's columns 8 nt + 2t (+ 1) as bf16 pairs
-      uint32_t cs[8], sn[8];
-      if (normed) {
+      // rb(cos), rb(sin) of the row's columns 8 nt + 2t (+ 1) as bf16 pairs:
+      // at head dim 64 loaded first; at 128 a pair at a time where RoPE
+      // takes it (16 pairs a table held through the qk-norm spilled)
+      uint32_t cs[NT], sn[NT];
+      auto tables = [&](int nt) {
+        const size_t c = static_cast<size_t>(n) * HD + 8 * nt + 2 * t;
+        const float2 c2 = __ldg(reinterpret_cast<const float2*>(p.cos + c));
+        const float2 s2 = __ldg(reinterpret_cast<const float2*>(p.sin + c));
+        cs[nt] = pack_bf16(c2.x, c2.y);
+        sn[nt] = pack_bf16(s2.x, s2.y);
+      };
+      if (normed && HD == 64) {
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const size_t c = static_cast<size_t>(n) * HD + 8 * nt + 2 * t;
-          const float2 c2 = __ldg(reinterpret_cast<const float2*>(p.cos + c));
-          const float2 s2 = __ldg(reinterpret_cast<const float2*>(p.sin + c));
-          cs[nt] = pack_bf16(c2.x, c2.y);
-          sn[nt] = pack_bf16(s2.x, s2.y);
-        }
+        for (int nt = 0; nt < NT; ++nt) tables(nt);
       }
       // accumulator -> bf16, + bias in bf16
-      float v[2][8][2];
+      float v[HPT][NT][2];
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
+      for (int hh = 0; hh < HPT; ++hh) {
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int j = 8 * hh + nt;
+        for (int nt = 0; nt < NT; ++nt) {
+          const int j = NT * hh + nt;
           const float2 bias = __ldg(reinterpret_cast<const float2*>(p.bias + n0 + 8 * j + 2 * t));
           v[hh][nt][0] = rb(rb(acc[h][4 * j + 2 * hr]) + rb(bias.x));
           v[hh][nt][1] = rb(rb(acc[h][4 * j + 2 * hr + 1]) + rb(bias.y));
         }
       }
       if (normed) {
-        // layer norm over each head's 64 values of this row, fp32
-        float s[2], rs[2];
+        // layer norm over each head's HD values of this row, fp32
+        float s[HPT], rs[HPT];
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
+        for (int hh = 0; hh < HPT; ++hh) {
           s[hh] = 0.f;
 #pragma unroll
-          for (int nt = 0; nt < 8; ++nt) s[hh] += v[hh][nt][0] + v[hh][nt][1];
+          for (int nt = 0; nt < NT; ++nt) s[hh] += v[hh][nt][0] + v[hh][nt][1];
         }
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
+        for (int hh = 0; hh < HPT; ++hh) {
           const float mu = quad_sum(s[hh]) * (1.0f / HD);
           float q = 0.f;
 #pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
+          for (int nt = 0; nt < NT; ++nt) {
             v[hh][nt][0] -= mu;
             v[hh][nt][1] -= mu;
             q += v[hh][nt][0] * v[hh][nt][0] + v[hh][nt][1] * v[hh][nt][1];
@@ -309,55 +321,59 @@ __device__ __forceinline__ void epilogue_qkv(const Params& p, float (&acc)[2][64
           s[hh] = q;
         }
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) rs[hh] = rsqrtf(quad_sum(s[hh]) * (1.0f / HD) + p.eps);
+        for (int hh = 0; hh < HPT; ++hh) rs[hh] = rsqrtf(quad_sum(s[hh]) * (1.0f / HD) + p.eps);
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
+        for (int nt = 0; nt < NT; ++nt) {
           const int c = 8 * nt + 2 * t;  // column in the head
           const float2 w2 = __ldg(reinterpret_cast<const float2*>(nw + c));
           const float2 b2 = __ldg(reinterpret_cast<const float2*>(nb + c));
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
+          for (int hh = 0; hh < HPT; ++hh) {
             v[hh][nt][0] = rb(__fadd_rn(__fmul_rn(__fmul_rn(v[hh][nt][0], rs[hh]), w2.x), b2.x));
             v[hh][nt][1] = rb(__fadd_rn(__fmul_rn(__fmul_rn(v[hh][nt][1], rs[hh]), w2.y), b2.y));
           }
         }
         // 2D RoPE in bf16: t * cos + rot * sin, rot = (-t2, t1, -t4, t3)
-        // over quarters of 16 columns, i.e. two nt apart
+        // over quarters of HD / 4 columns: a value of quarter 1 (or 3) and
+        // its partner QT groups on, in quarter 2 (or 4), turn as a pair, in
+        // place
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          float o[8][2];
+        for (int hh = 0; hh < HPT; ++hh) {
 #pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-            const float2 c2 = unpack_bf16(cs[nt]), s2 = unpack_bf16(sn[nt]);
-            const bool lower = (nt & 2) == 0;  // quarters 1 and 3
-            const int pn = lower ? nt + 2 : nt - 2;
-            const float r0 = lower ? -v[hh][pn][0] : v[hh][pn][0];
-            const float r1 = lower ? -v[hh][pn][1] : v[hh][pn][1];
-            o[nt][0] = rb(__fmul_rn(v[hh][nt][0], c2.x)) + rb(__fmul_rn(r0, s2.x));
-            o[nt][1] = rb(__fmul_rn(v[hh][nt][1], c2.y)) + rb(__fmul_rn(r1, s2.y));
-          }
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-            v[hh][nt][0] = o[nt][0];
-            v[hh][nt][1] = o[nt][1];
+          for (int nt = 0; nt < NT; ++nt) {
+            if (nt & QT) continue;  // the pair's second
+            const int pn = nt + QT;
+            if (HD == 128) {
+              tables(nt);
+              tables(pn);
+            }
+            const float2 c1 = unpack_bf16(cs[nt]), s1 = unpack_bf16(sn[nt]);
+            const float2 c2 = unpack_bf16(cs[pn]), s2 = unpack_bf16(sn[pn]);
+            const float a0 = v[hh][nt][0], a1 = v[hh][nt][1];
+            const float b0 = v[hh][pn][0], b1 = v[hh][pn][1];
+            v[hh][nt][0] = rb(__fmul_rn(a0, c1.x)) + rb(__fmul_rn(-b0, s1.x));
+            v[hh][nt][1] = rb(__fmul_rn(a1, c1.y)) + rb(__fmul_rn(-b1, s1.y));
+            v[hh][pn][0] = rb(__fmul_rn(b0, c2.x)) + rb(__fmul_rn(a0, s2.x));
+            v[hh][pn][1] = rb(__fmul_rn(b1, c2.y)) + rb(__fmul_rn(a1, s2.y));
           }
         }
       }
       if (!valid) continue;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
+      for (int hh = 0; hh < HPT; ++hh) {
         bf16* dst = out + ((static_cast<size_t>(b) * p.heads + head0 + hh) * p.ntok + n) * HD + 2 * t;
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
+        for (int nt = 0; nt < NT; ++nt)
           *reinterpret_cast<uint32_t*>(dst + 8 * nt) = pack_bf16(v[hh][nt][0], v[hh][nt][1]);
       }
     }
   }
 }
 
-// (E_PROJ: A is o (B, H, N, 64) through a 3-D map as (64, N, B H))
-// out = epilogue(A @ W): A (M, K) through map ma, W (K, nout) through mb
-template <int EP>
+// (E_PROJ: A is o (B, H, N, HD) through a 3-D map as (HD, N, B H))
+// out = epilogue(A @ W): A (M, K) through map ma, W (K, nout) through mb; HD
+// the head dim of the kernels that have one
+template <int EP, int HD>
 __device__ __forceinline__ void gemm(const CUtensorMap* ma, const CUtensorMap* mb, const Params& p) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -391,8 +407,10 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ma, const CUtensorMap* m
           // a ragged box still counts all of its bytes
           mbar_expect_tx(full, STAGE_BYTES);
           const uint32_t sa = base + stage * STAGE_BYTES;
-          if constexpr (EP == E_PROJ)
+          if constexpr (EP == E_PROJ && HD == 64)
             tma_load_3d(sa, ma, full, 0, r0, f * p.heads + kt);  // head kt of frame f
+          else if constexpr (EP == E_PROJ)  // channels 64 (kt % 2) of head kt / 2 of frame f
+            tma_load_3d(sa, ma, full, BK * (kt % (HD / BK)), r0, f * p.heads + kt / (HD / BK));
           else
             tma_load_2d(sa, ma, full, kt * BK, f * p.frame_rows + r0);
           tma_load_2d(sa + A_BYTES, mb, full, n0, kt * BK);
@@ -471,32 +489,42 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ma, const CUtensorMap* m
                      static_cast<int>(a_part / (BK * 2));
       const int n0 = nt * BN;
       if constexpr (is_qkv(EP))
-        epilogue_qkv<EP>(p, acc, m0, n0);
+        epilogue_qkv<EP, HD>(p, acc, m0, n0);
       else
         epilogue<EP>(p, acc, m0, m_end, n0);
     }
   }
 }
 
-// The kernels of the body: A and W maps, the parameters
-#define SFM_GEMM_KERNEL(name, EP)                                                           \
+// The kernels of the body: A and W maps, the parameters; the head dim D of
+// those with one
+#define SFM_GEMM_KERNEL_HD(name, EP, D)                                                     \
   __global__ void __launch_bounds__(NTHREADS, 1)                                            \
       name(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb, \
            const Params p) {                                                                \
-    gemm<EP>(&ma, &mb, p);                                                                  \
+    gemm<EP, D>(&ma, &mb, p);                                                               \
   }
+#define SFM_GEMM_KERNEL(name, EP) SFM_GEMM_KERNEL_HD(name, EP, HD)
 SFM_GEMM_KERNEL(mlp_up_sm90_kernel, E_GELU)
 SFM_GEMM_KERNEL(mlp_down_sm90_kernel, E_RESID)
 SFM_GEMM_KERNEL(gemm_probe_sm90_kernel, E_F32)  // the bare product in fp32: the operand layouts
 SFM_GEMM_KERNEL(ln_qkv_rope_sm90_kernel, E_QKV_ROPE)
 SFM_GEMM_KERNEL(ln_qkv_sm90_kernel, E_QKV)
 SFM_GEMM_KERNEL(proj_residual_sm90_kernel, E_PROJ)
+SFM_GEMM_KERNEL_HD(ln_qkv_rope_d128_sm90_kernel, E_QKV_ROPE, HD128)
+SFM_GEMM_KERNEL_HD(ln_qkv_d128_sm90_kernel, E_QKV, HD128)
+SFM_GEMM_KERNEL_HD(proj_residual_d128_sm90_kernel, E_PROJ, HD128)
 #undef SFM_GEMM_KERNEL
+#undef SFM_GEMM_KERNEL_HD
 
 typedef void (*GemmKernel)(const CUtensorMap, const CUtensorMap, const Params);
 
-template <int EP>
+template <int EP, int HD>
 GemmKernel kernel_of() {
+  if (HD == HD128)
+    return EP == E_QKV_ROPE ? ln_qkv_rope_d128_sm90_kernel
+           : EP == E_QKV    ? ln_qkv_d128_sm90_kernel
+                            : proj_residual_d128_sm90_kernel;
   return EP == E_GELU       ? mlp_up_sm90_kernel
          : EP == E_RESID    ? mlp_down_sm90_kernel
          : EP == E_QKV_ROPE ? ln_qkv_rope_sm90_kernel
@@ -516,7 +544,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // hn = ((x - mu) * rstd) * scale + bias in fp32, rounded to bf16; one warp a
-// row, 8 channels (16 bytes) a lane a step, K a multiple of 256. Mean and
+// row, 8 channels (16 bytes) a lane a step of 256, K a multiple of 8 (the
+// lanes past K sit out the last step). Mean and
 // centred variance as the plain version's, explicit roundings (no fused
 // multiply-add) in the normalisation.
 __global__ void __launch_bounds__(LN_ROWS * 32)
@@ -592,11 +621,11 @@ bool encode_2d(CUtensorMap* map, const void* ptr, int inner, int outer, int box_
 // block's allocation at launch holds it, so a kernel compiled to fewer
 // registers would never get past it) and sets its dynamic shared memory;
 // one flag a kernel of the body, so no later launch repeats either.
-template <int EP>
+template <int EP, int HD>
 int prepare() {
   static bool ready = false;
   if (ready) return 0;
-  const void* kernel = reinterpret_cast<const void*>(kernel_of<EP>());
+  const void* kernel = reinterpret_cast<const void*>(kernel_of<EP, HD>());
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -609,9 +638,9 @@ int prepare() {
 }
 
 // out = epilogue(a (M, K) @ w (K, nout)); K a multiple of 64, nout of 128;
-// E_PROJ: a is o (batch, heads, ntok, 64), K = 64 heads, M = batch ntok.
+// E_PROJ: a is o (batch, heads, ntok, HD), K = HD heads, M = batch ntok.
 // Grid: one block a multiprocessor, at most one a tile.
-template <int EP>
+template <int EP, int HD>
 int launch_gemm(const void* a, const void* w, Params p, void* stream) {
   if (p.M < 0 || p.K <= 0 || p.K % BK || p.nout <= 0 || p.nout % BN)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -619,7 +648,7 @@ int launch_gemm(const void* a, const void* w, Params p, void* stream) {
   const int frames = EP == E_PROJ ? p.batch : 1;
   CUtensorMap ma, mb;
   const bool a_ok =
-      EP == E_PROJ ? encode_rows64(&ma, a, 3, p.ntok, HD * 2, p.batch * p.heads, 1, 0, BM)
+      EP == E_PROJ ? encode_rows64(&ma, a, 3, p.ntok, HD * 2, p.batch * p.heads, 1, 0, BM, HD)
                    : encode_2d(&ma, a, p.K, p.M, BM);
   if (!a_ok || !encode_2d(&mb, w, p.nout, p.K, BK))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -631,16 +660,16 @@ int launch_gemm(const void* a, const void* w, Params p, void* stream) {
   p.k_tiles = p.K / BK;
   const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-  if (const int err = prepare<EP>()) return err;
+  if (const int err = prepare<EP, HD>()) return err;
   const int grid = p.tiles < sms ? p.tiles : sms;
-  const GemmKernel kernel = kernel_of<EP>();
+  const GemmKernel kernel = kernel_of<EP, HD>();
   kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(ma, mb, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_ln(const void* x, const void* ln_w, const void* ln_b, void* hn, int rows, int dim,
               float eps, void* stream) {
-  if (rows < 0 || dim <= 0 || dim % 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows < 0 || dim <= 0 || dim % 8) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   ln_rows_kernel<<<(rows + LN_ROWS - 1) / LN_ROWS, LN_ROWS * 32, 0,
                    static_cast<cudaStream_t>(stream)>>>(
@@ -649,15 +678,16 @@ int launch_ln(const void* x, const void* ln_w, const void* ln_b, void* hn, int r
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (B N, C) -> q, k, v (B, Hl, N, 64): the pre-pass into the (B N, C) bf16
-// scratch hn, then hn @ W (C, 3 Hl 64) + b and the epilogue EP; C a multiple
-// of 256, Hl even (a 128-column tile never straddles q | k or k | v); Hl =
-// C / 64 is the whole width
-template <int EP>
+// x (B N, C) -> q, k, v (B, Hl, N, HD): the pre-pass into the (B N, C) bf16
+// scratch hn, then hn @ W (C, 3 Hl HD) + b and the epilogue EP; C a multiple
+// of 64 (the K slices), at HD = 64 Hl even (a 128-column tile never
+// straddles q | k or k | v; at HD = 128 a tile is one head); Hl = C / HD is
+// the whole width
+template <int EP, int HD>
 int launch_qkv(const void* x, const void* ln_w, const void* ln_b, const void* w, const void* b,
                Params p, void* hn, int batch, int ntok, int dim, int heads, float eps,
                void* stream) {
-  if (batch < 0 || ntok < 0 || heads <= 0 || heads % 2 || dim <= 0)
+  if (batch < 0 || ntok < 0 || heads <= 0 || heads % (BN / HD) || dim <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = batch * ntok;
   if (const int err = launch_ln(x, ln_w, ln_b, hn, rows, dim, eps, stream)) return err;
@@ -669,7 +699,51 @@ int launch_qkv(const void* x, const void* ln_w, const void* ln_b, const void* w,
   p.M = rows;
   p.K = dim;
   p.nout = 3 * heads * HD;
-  return launch_gemm<EP>(hn, w, p, stream);
+  return launch_gemm<EP, HD>(hn, w, p, stream);
+}
+
+// o (B, H, N, HD), x (B N, C) -> y = x + gamma * (merge_heads(o) @ Wp (C, C)
+// + bp) (B N, C), C = HD heads, a multiple of 128
+template <int HD>
+int launch_proj(const void* o, const void* x, const void* wp, const void* bp,
+                const void* gamma, void* y, int batch, int ntok, int heads, void* stream) {
+  if (batch < 0 || ntok < 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  Params p = {};
+  p.bias = static_cast<const float*>(bp);
+  p.gamma = static_cast<const float*>(gamma);
+  p.resid = static_cast<const bf16*>(x);
+  p.out = y;
+  p.batch = batch;
+  p.ntok = ntok;
+  p.heads = heads;
+  p.M = batch * ntok;
+  p.K = heads * HD;
+  p.nout = heads * HD;
+  return launch_gemm<E_PROJ, HD>(o, wp, p, stream);
+}
+
+// the parameters of LN+QKV+RoPE
+Params rope_params(const void* qn_w, const void* qn_b, const void* kn_w, const void* kn_b,
+                   const void* cos, const void* sin, void* q, void* k, void* v) {
+  Params p = {};
+  p.qn_w = static_cast<const float*>(qn_w);
+  p.qn_b = static_cast<const float*>(qn_b);
+  p.kn_w = static_cast<const float*>(kn_w);
+  p.kn_b = static_cast<const float*>(kn_b);
+  p.cos = static_cast<const float*>(cos);
+  p.sin = static_cast<const float*>(sin);
+  p.q = static_cast<bf16*>(q);
+  p.k = static_cast<bf16*>(k);
+  p.v = static_cast<bf16*>(v);
+  return p;
+}
+
+Params qkv_params(void* q, void* k, void* v) {
+  Params p = {};
+  p.q = static_cast<bf16*>(q);
+  p.k = static_cast<bf16*>(k);
+  p.v = static_cast<bf16*>(v);
+  return p;
 }
 
 }  // namespace
@@ -683,29 +757,17 @@ extern "C" int sfm_ln_qkv_rope_sm90(const void* x, const void* ln_w, const void*
                                     const void* cos, const void* sin, void* q, void* k, void* v,
                                     void* hn, int batch, int ntok, int dim, int heads,
                                     float eps, void* stream) {
-  Params p = {};
-  p.qn_w = static_cast<const float*>(qn_w);
-  p.qn_b = static_cast<const float*>(qn_b);
-  p.kn_w = static_cast<const float*>(kn_w);
-  p.kn_b = static_cast<const float*>(kn_b);
-  p.cos = static_cast<const float*>(cos);
-  p.sin = static_cast<const float*>(sin);
-  p.q = static_cast<bf16*>(q);
-  p.k = static_cast<bf16*>(k);
-  p.v = static_cast<bf16*>(v);
-  return launch_qkv<E_QKV_ROPE>(x, ln_w, ln_b, w, b, p, hn, batch, ntok, dim, heads, eps,
-                                stream);
+  const Params p = rope_params(qn_w, qn_b, kn_w, kn_b, cos, sin, q, k, v);
+  return launch_qkv<E_QKV_ROPE, HD>(x, ln_w, ln_b, w, b, p, hn, batch, ntok, dim, heads, eps,
+                                    stream);
 }
 
 // the same without qk-norm and RoPE (the ViT blocks)
 extern "C" int sfm_ln_qkv_sm90(const void* x, const void* ln_w, const void* ln_b, const void* w,
                                const void* b, void* q, void* k, void* v, void* hn, int batch,
                                int ntok, int dim, int heads, float eps, void* stream) {
-  Params p = {};
-  p.q = static_cast<bf16*>(q);
-  p.k = static_cast<bf16*>(k);
-  p.v = static_cast<bf16*>(v);
-  return launch_qkv<E_QKV>(x, ln_w, ln_b, w, b, p, hn, batch, ntok, dim, heads, eps, stream);
+  return launch_qkv<E_QKV, HD>(x, ln_w, ln_b, w, b, qkv_params(q, k, v), hn, batch, ntok, dim,
+                               heads, eps, stream);
 }
 
 // x (M, C) -> hn = LN(x) (M, C) bf16: the pre-pass alone
@@ -726,7 +788,7 @@ extern "C" int sfm_mlp_up_sm90(const void* x, const void* ln_w, const void* ln_b
   p.M = rows;
   p.K = dim;
   p.nout = hidden;
-  return launch_gemm<E_GELU>(hn, w1, p, stream);
+  return launch_gemm<E_GELU, HD>(hn, w1, p, stream);
 }
 
 // h (M, Ch), x (M, C) -> y = x + gamma * (h @ W2 (Ch, C) + b2) (M, C)
@@ -741,7 +803,7 @@ extern "C" int sfm_mlp_down_sm90(const void* h, const void* x, const void* w2, c
   p.M = rows;
   p.K = hidden;
   p.nout = dim;
-  return launch_gemm<E_RESID>(h, w2, p, stream);
+  return launch_gemm<E_RESID, HD>(h, w2, p, stream);
 }
 
 // o (B, H, N, 64), x (B N, C) -> y = x + gamma * (merge_heads(o) @ Wp (C, C)
@@ -749,19 +811,35 @@ extern "C" int sfm_mlp_down_sm90(const void* h, const void* x, const void* w2, c
 extern "C" int sfm_proj_residual_sm90(const void* o, const void* x, const void* wp,
                                       const void* bp, const void* gamma, void* y, int batch,
                                       int ntok, int heads, void* stream) {
-  if (batch < 0 || ntok < 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  Params p = {};
-  p.bias = static_cast<const float*>(bp);
-  p.gamma = static_cast<const float*>(gamma);
-  p.resid = static_cast<const bf16*>(x);
-  p.out = y;
-  p.batch = batch;
-  p.ntok = ntok;
-  p.heads = heads;
-  p.M = batch * ntok;
-  p.K = heads * HD;
-  p.nout = heads * HD;
-  return launch_gemm<E_PROJ>(o, wp, p, stream);
+  return launch_proj<HD>(o, x, wp, bp, gamma, y, batch, ntok, heads, stream);
+}
+
+// LN+QKV+RoPE, LN+QKV and the out-projection at head dim 128, with the
+// head-dim-64 entries' arguments: W (C, 3 Hl 128), q / k / v and o (B, H, N,
+// 128), the qk-norm parameters (128), cos / sin (N, 128); any Hl
+extern "C" int sfm_ln_qkv_rope_d128_sm90(const void* x, const void* ln_w, const void* ln_b,
+                                         const void* w, const void* b, const void* qn_w,
+                                         const void* qn_b, const void* kn_w, const void* kn_b,
+                                         const void* cos, const void* sin, void* q, void* k,
+                                         void* v, void* hn, int batch, int ntok, int dim,
+                                         int heads, float eps, void* stream) {
+  const Params p = rope_params(qn_w, qn_b, kn_w, kn_b, cos, sin, q, k, v);
+  return launch_qkv<E_QKV_ROPE, HD128>(x, ln_w, ln_b, w, b, p, hn, batch, ntok, dim, heads, eps,
+                                       stream);
+}
+
+extern "C" int sfm_ln_qkv_d128_sm90(const void* x, const void* ln_w, const void* ln_b,
+                                    const void* w, const void* b, void* q, void* k, void* v,
+                                    void* hn, int batch, int ntok, int dim, int heads, float eps,
+                                    void* stream) {
+  return launch_qkv<E_QKV, HD128>(x, ln_w, ln_b, w, b, qkv_params(q, k, v), hn, batch, ntok,
+                                  dim, heads, eps, stream);
+}
+
+extern "C" int sfm_proj_residual_d128_sm90(const void* o, const void* x, const void* wp,
+                                           const void* bp, const void* gamma, void* y, int batch,
+                                           int ntok, int heads, void* stream) {
+  return launch_proj<HD128>(o, x, wp, bp, gamma, y, batch, ntok, heads, stream);
 }
 
 // a (M, K) bf16 @ w (K, nout) bf16 -> out (M, nout) fp32, the accumulators
@@ -773,12 +851,13 @@ extern "C" int sfm_gemm_sm90_probe(const void* a, const void* w, void* out, int 
   p.M = rows;
   p.K = k;
   p.nout = nout;
-  return launch_gemm<E_F32>(a, w, p, stream);
+  return launch_gemm<E_F32, HD>(a, w, p, stream);
 }
 
 // What the body was built with and what the compiler gave each kernel (0
 // MLP-up, 1 MLP-down, 2 the probe, 3 the layer-norm pre-pass, 4 LN+QKV+RoPE,
-// 5 LN+QKV, 6 the out-projection): registers a thread at launch, local
+// 5 LN+QKV, 6 the out-projection; 7-9 the last three at head dim 128):
+// registers a thread at launch, local
 // (spill) bytes a thread, dynamic shared memory a block, ring stages, rows
 // and columns a tile, setmaxnreg of the producer and the consumers,
 // ping-pong (1) or cooperative (0), row tiles a raster group.
@@ -790,7 +869,10 @@ extern "C" int sfm_gemm_sm90_info(int which, int* out) {
                    : which == 3 ? reinterpret_cast<const void*>(ln_rows_kernel)
                    : which == 4 ? reinterpret_cast<const void*>(ln_qkv_rope_sm90_kernel)
                    : which == 5 ? reinterpret_cast<const void*>(ln_qkv_sm90_kernel)
-                                : reinterpret_cast<const void*>(proj_residual_sm90_kernel);
+                   : which == 6 ? reinterpret_cast<const void*>(proj_residual_sm90_kernel)
+                   : which == 7 ? reinterpret_cast<const void*>(ln_qkv_rope_d128_sm90_kernel)
+                   : which == 8 ? reinterpret_cast<const void*>(ln_qkv_d128_sm90_kernel)
+                                : reinterpret_cast<const void*>(proj_residual_d128_sm90_kernel);
   const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;

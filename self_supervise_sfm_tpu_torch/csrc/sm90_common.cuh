@@ -4,8 +4,8 @@
 // tensor loads, 4-byte cp.async copies that arrive on an mbarrier, wgmma
 // descriptors and products with their fence / commit / wait, and
 // setmaxnreg; on the host, the tensor-map encoder cuTensorMapEncodeTiled, a
-// map over rows of 64 bf16 (q, k, v and the attention output as (64, N,
-// B H)) and the number of multiprocessors.
+// map over rows of 64 or 128 bf16 (q, k, v and the attention output as (d,
+// N, B H)) and the number of multiprocessors.
 
 #pragma once
 
@@ -249,6 +249,45 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
+// d (64 x 128, fp32) (+)= A (64 x 16, bf16 registers) * B (16 x 128, shared,
+// 128-byte swizzle), B MN-major (TRANS_B 1): rows of 16 keys across two
+// 64-column atoms, the descriptor's leading byte offset the step between
+// them; scale_d == 0 ignores d's old value
+template <int TRANS_B = 1>
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
 // Four 8 x 8 b16 matrices from shared memory (ldmatrix .x4): lanes 8i to
 // 8i + 7 give the row addresses of matrix i, and r[i] is this thread's pair
 // of matrix i (row lane / 4, columns 2 (lane % 4) and + 1), so that rows 0-15
@@ -293,22 +332,23 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A map over rows of 64 bf16 (128 bytes, the swizzle span) at a row stride of
-// row_bytes: dims (64, n, slices[, layers]) for rank 3 [4], box (64,
-// box_rows, 1[, 1]) in the 128-byte swizzle, so that a box lands in shared
-// memory as a 2-D (box_rows, 64) box of a row-major matrix would. Rows past
-// n read as zeros: a box clips at the end of its own slice and never reaches
-// into the next. An empty source gets one row (never loaded) at an address
-// the caller takes from another tensor.
+// A map over rows of `width` bf16 (64: 128 bytes, the swizzle span; 128: two
+// such atoms) at a row stride of row_bytes: dims (width, n, slices[, layers])
+// for rank 3 [4], box (64, box_rows, 1[, 1]) in the 128-byte swizzle, so that
+// a box at channel 64 a lands in shared memory as a 2-D (box_rows, 64) box of
+// a row-major matrix would: one atom of the rows. Rows past n read as zeros: a
+// box clips at the end of its own slice and never reaches into the next. An
+// empty source gets one row (never loaded) at an address the caller takes
+// from another tensor.
 inline bool encode_rows64(CUtensorMap* map, const void* ptr, int rank, uint64_t n,
                           uint64_t row_bytes, uint64_t slices, uint64_t layers,
-                          uint64_t layer_bytes, uint32_t box_rows) {
+                          uint64_t layer_bytes, uint32_t box_rows, uint64_t width = 64) {
   const EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return false;
   if (n == 0) n = 1;
   // the layer stride is at least one layer (it is 0 for an empty kv2 context)
   if (layer_bytes < slices * n * row_bytes) layer_bytes = slices * n * row_bytes;
-  const cuuint64_t dims[4] = {64, n, slices, layers};
+  const cuuint64_t dims[4] = {width, n, slices, layers};
   const cuuint64_t strides[3] = {row_bytes, n * row_bytes, layer_bytes};
   const cuuint32_t box[4] = {64, box_rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};

@@ -10,7 +10,8 @@ out-proj and MLP kernels (``ops/fused_qkv.py``) plug in.
 qualifies and the kernel takes the block's widths (any width on the CPU,
 whose wrappers run the plain versions; see the gates below), ``"on"`` drops
 the dtype and width conditions: the kernels run in bf16 or in fp32 (each
-has a form in either), and a width they refuse meets their refusal;
+has a form in either; at head dim 128 in bf16 only), and a width or head
+dim they refuse meets their refusal;
 ``"off"`` runs the unfused chain of plain matmuls. The gates
 decide by stated conditions; a fused wrapper never falls back. There is no
 mesh condition: under a mesh the blocks run on rank-local shards
@@ -137,7 +138,7 @@ def local_attn_cfg(p, cfg: BlockConfig) -> AttentionConfig:
 
 def _qkv_takes(p, cfg: BlockConfig) -> bool:
     """Whether LN+QKV(+RoPE) takes the block: the input width C and the
-    local head count apart (a head shard's weight is (C, 3 Hl 64))."""
+    local head count apart (a head shard's weight is (C, 3 Hl d))."""
     return FQ.qkv_kernel_takes(cfg.dim, local_heads(p, cfg), cfg.dim // cfg.num_heads)
 
 

@@ -64,7 +64,8 @@ def sdpa(q, k, v, mask=None, impl: str = "auto"):
     """``impl``: 'dense' | 'flash' | 'auto' | 'ring' ('auto' takes flash when
     it pays and the kernels take the site, ``fa.worth_it``: on the card head
     dim 64 in bf16 or fp32, with or without a RelocMask, differentiated or
-    not; any site on the CPU). A :class:`RelocMask` goes
+    not, and head dim 128 in bf16 where autograd does not differentiate it;
+    any site on the CPU). A :class:`RelocMask` goes
     to the masked flash kernel; a boolean mask stays on the dense path. 'ring'
     takes the ring over the active mesh's ``context`` axis where
     ``ring_applicable`` holds, else 'auto'."""

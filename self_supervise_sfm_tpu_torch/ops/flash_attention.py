@@ -36,12 +36,16 @@ in ``csrc/flash_fwd_f32.cu`` and the B9 pair another in
   :func:`flash_bwd_plain`.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
-tensor it launches the kernel or raises. Every kernel takes contiguous, d =
-64 inputs of one dtype, bf16 (the Hopper bodies, bound by the bf16
-tensor-core rate) or fp32 (the FFMA bodies, bound by the fp32 rate; each
-wrapper counts those launches apart, in ``.launches_f32``). The "auto"
-gates ask :func:`kernel_takes` and send a site the kernels do not take (a
-head dim other than 64, operands of two dtypes) to the dense path.
+tensor it launches the kernel or raises. Every kernel takes contiguous
+inputs of one dtype, in the forms :data:`FORWARD_FORMS` and
+:data:`BACKWARD_FORMS` list: at head dim 64 bf16 (the Hopper bodies, bound
+by the bf16 tensor-core rate) or fp32 (the FFMA bodies, bound by the fp32
+rate; each wrapper counts those launches apart, in ``.launches_f32``), and
+at head dim 128 the forward forms in bf16 on the Hopper body (counted
+apart, in ``.launches_d128``). The "auto" gates ask :func:`kernel_takes`
+and send a site the kernels do not take (a head dim or dtype without a
+kernel, operands of two dtypes, a head dim 128 site that autograd
+differentiates, whose backward has no kernel) to the dense path.
 
 Autograd reaches the kernels only through the ``torch.autograd.Function``s
 behind :func:`flash_attention`, :func:`flash_attention_lse` and
@@ -62,16 +66,26 @@ from .mask_spec import RelocMask
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-KERNEL_HEAD_DIM = 64
-
-
 # what every attention kernel takes: its Hopper form or its FFMA form
 _DTYPES = (torch.bfloat16, torch.float32)
+# head dim -> the dtypes with a kernel: the forward forms (K1, K1m, K2, K2p)
+# and the backward (B9's dq and dk/dv)
+FORWARD_FORMS = {64: _DTYPES, 128: (torch.bfloat16,)}
+BACKWARD_FORMS = {64: _DTYPES}
 
 
-def _check_cuda(name: str, *ts: torch.Tensor) -> None:
+def _check_form(name: str, d: int, dtype: torch.dtype, forms=FORWARD_FORMS) -> None:
+    """Raise unless ``forms`` has a kernel of head dim ``d`` in ``dtype``."""
+    dims = [h for h, dts in forms.items() if dtype in dts]
+    if d not in dims:
+        what = "kernels" if forms is FORWARD_FORMS else "backward kernels"
+        raise ValueError(f"{name}: the {str(dtype).removeprefix('torch.')} {what} take head "
+                         f"dim {' or '.join(map(str, dims))}, got {d}")
+
+
+def _check_cuda(name: str, *ts: torch.Tensor, forms=FORWARD_FORMS) -> None:
     """Device, dtype (bf16 or fp32, the same for every operand), layout,
-    head dim and alignment of a kernel's operands."""
+    head dim (a form of ``forms``) and alignment of a kernel's operands."""
     dev = ts[0].device
     for t in ts:
         if t.device != dev:
@@ -82,13 +96,25 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
             raise TypeError(f"{name}: operands of one dtype, got {ts[0].dtype} and {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-        if t.shape[-1] != KERNEL_HEAD_DIM:
-            raise ValueError(
-                f"{name}: the kernel takes head dim {KERNEL_HEAD_DIM}, "
-                f"got {t.shape[-1]}"
-            )
+        if t.shape[-1] != ts[0].shape[-1]:
+            raise ValueError(f"{name}: operands of one head dim, got {ts[0].shape[-1]} "
+                             f"and {t.shape[-1]}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
+    _check_form(name, ts[0].shape[-1], ts[0].dtype, forms)
+
+
+def _grad(*ts: torch.Tensor) -> bool:
+    """Whether autograd differentiates a call on ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _check_backward(name: str, *ts: torch.Tensor) -> None:
+    """A differentiable entry that autograd differentiates off the CPU needs
+    the backward kernels of its head dim and dtype: raise before the forward
+    when they do not exist (head dim 128), rather than after it."""
+    if ts[0].device.type != "cpu" and _grad(*ts):
+        _check_form(name, ts[0].shape[-1], ts[0].dtype, BACKWARD_FORMS)
 
 
 def _check_no_grad(name: str, *ts: torch.Tensor) -> None:
@@ -102,23 +128,30 @@ def _check_no_grad(name: str, *ts: torch.Tensor) -> None:
             "frame_ctx_attention) instead")
 
 
-def _count(fn, dtype: torch.dtype) -> None:
+def _count(fn, dtype: torch.dtype, head_dim: int = 64) -> None:
     """One launch of ``fn``'s kernel: bf16 in ``fn.launches``, fp32 in
-    ``fn.launches_f32``."""
-    if dtype == torch.bfloat16:
+    ``fn.launches_f32``, head dim 128 (bf16) in ``fn.launches_d128``."""
+    if head_dim == 128:
+        fn.launches_d128 += 1
+    elif dtype == torch.bfloat16:
         fn.launches += 1
     else:
         fn.launches_f32 += 1
 
 
-def _suffix(dtype: torch.dtype) -> str:
-    return "bf16" if dtype == torch.bfloat16 else "f32"
+def _hd(head_dim: int) -> str:
+    """The head-dim part of an entry's name: none at 64, "d128_" at 128."""
+    return "d128_" if head_dim == 128 else ""
 
 
-def _body(dtype: torch.dtype) -> str:
+def _suffix(dtype: torch.dtype, head_dim: int = 64) -> str:
+    return _hd(head_dim) + ("bf16" if dtype == torch.bfloat16 else "f32")
+
+
+def _body(dtype: torch.dtype, head_dim: int = 64) -> str:
     """The suffix of K1m's and B9's entries: the Hopper body's (bf16) or the
-    FFMA body's (fp32)."""
-    return "sm90" if dtype == torch.bfloat16 else "f32"
+    FFMA body's (fp32), after the head dim's part."""
+    return _hd(head_dim) + ("sm90" if dtype == torch.bfloat16 else "f32")
 
 
 # -- K1: flash forward --------------------------------------------------------
@@ -164,15 +197,15 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     lse = torch.empty((BH, Nq), dtype=torch.float32, device=q.device)
     if BH and Nq:
         _kernels.launch(
-            f"sfm_flash_fwd_{_suffix(q.dtype)}", q.data_ptr(), k.data_ptr(),
+            f"sfm_flash_fwd_{_suffix(q.dtype, d)}", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), lse.data_ptr(), BH, Nq, Nk, d**-0.5 * LOG2E,
             _kernels.stream_ptr(q),
         )
-        _count(flash_fwd, q.dtype)
+        _count(flash_fwd, q.dtype, d)
     return out, lse
 
 
-flash_fwd.launches = flash_fwd.launches_f32 = 0
+flash_fwd.launches = flash_fwd.launches_f32 = flash_fwd.launches_d128 = 0
 
 
 def _check_mask(name: str, mask: RelocMask, nq: int, nk: int) -> None:
@@ -184,7 +217,7 @@ def flash_fwd_reloc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: RelocMask):
     """K1m wrapper: :func:`flash_fwd` under a RelocMask. q: (BH, F*P, d);
     k/v: (BH, n_ctx + F*P, d), keys laid out [context ‖ frames]; bf16 on
-    the Hopper body, fp32 on the FFMA body."""
+    the Hopper body (d = 64 or 128), fp32 on the FFMA body (d = 64)."""
     _check_no_grad("flash_fwd_reloc", q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, mask)
@@ -198,16 +231,16 @@ def flash_fwd_reloc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((BH, Nq), dtype=torch.float32, device=q.device)
     if BH and Nq:
         _kernels.launch(
-            f"sfm_flash_fwd_reloc_{_body(q.dtype)}", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), BH, Nq, Nk, mask.n_ctx,
+            f"sfm_flash_fwd_reloc_{_body(q.dtype, d)}", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), BH, Nq, Nk, mask.n_ctx,
             mask.frame_size, mask.num_frames, d**-0.5 * LOG2E,
             _kernels.stream_ptr(q),
         )
-        _count(flash_fwd_reloc, q.dtype)
+        _count(flash_fwd_reloc, q.dtype, d)
     return out, lse
 
 
-flash_fwd_reloc.launches = flash_fwd_reloc.launches_f32 = 0
+flash_fwd_reloc.launches = flash_fwd_reloc.launches_f32 = flash_fwd_reloc.launches_d128 = 0
 
 
 # -- B9: flash backward (dq kernel, dk/dv kernel) -----------------------------
@@ -249,9 +282,9 @@ def flash_bwd_plain(q, k, v, o, lse, do, dlse=None,
 
 def _check_bwd(name, q, k, v, do, lse, delta, mask) -> None:
     """What the B9 kernels take: q / k / v / do of one dtype (bf16 or fp32)
-    and one head dim on one device, fp32 contiguous (BH, Nq) lse and delta,
+    and head dim 64 on one device, fp32 contiguous (BH, Nq) lse and delta,
     shapes that agree."""
-    _check_cuda(name, q, k, v, do)
+    _check_cuda(name, q, k, v, do, forms=BACKWARD_FORMS)
     BH, Nq, d = q.shape
     Nk = k.shape[1]
     if k.shape != (BH, Nk, d) or v.shape != k.shape or do.shape != q.shape:
@@ -329,7 +362,7 @@ def flash_bwd(q, k, v, o, lse, do, dlse=None, mask: Optional[RelocMask] = None):
     q/o/do: (BH, Nq, d); k/v: (BH, Nk, d); lse/dlse: (BH, Nq) fp32."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, dlse, mask)
-    _check_cuda("flash_bwd", q, o)
+    _check_cuda("flash_bwd", q, o, forms=BACKWARD_FORMS)
     if o.shape != q.shape:
         raise ValueError(f"flash_bwd: o {tuple(o.shape)} against q {tuple(q.shape)}")
     delta = _delta(o, do, dlse).contiguous()
@@ -397,12 +430,16 @@ class _FlashAttentionLse(torch.autograd.Function):
 
 def flash_attention_lse(q, k, v, mask: Optional[RelocMask] = None):
     """(B, H, Nq, d) x (B, H, Nk, d)^2 -> ((B, H, Nq, d), (B, H, Nq) fp32 lse).
-    Differentiable in q, k, v through both outputs."""
+    Differentiable in q, k, v through both outputs (off the CPU at head dim
+    64: a differentiated call at 128 raises)."""
+    _check_backward("flash_attention_lse", q, k, v)
     return _FlashAttentionLse.apply(q, k, v, mask)
 
 
 def flash_attention(q, k, v, mask: Optional[RelocMask] = None):
-    """(B, H, Nq, d) x (B, H, Nk, d)^2 -> (B, H, Nq, d). Differentiable."""
+    """(B, H, Nq, d) x (B, H, Nk, d)^2 -> (B, H, Nq, d). Differentiable (off
+    the CPU at head dim 64: a differentiated call at 128 raises)."""
+    _check_backward("flash_attention", q, k, v)
     return _FlashAttention.apply(q, k, v, mask)
 
 
@@ -414,19 +451,24 @@ def supported(q, k, v, mask) -> bool:
     return q.shape[-1] <= 256 and q.dim() == 4
 
 
-def kernel_takes(q, k, v) -> bool:
+def kernel_takes(q, k, v, *ctx) -> bool:
     """The one check of the "auto" gates: whether the attention kernels take
-    the site. A CPU tensor always qualifies, since its wrapper runs the
-    dtype-generic plain version. On the card: head dim 64 and q / k / v of
-    one dtype, bf16 or fp32. Every form (K1, K1m, K2, K2p, B9 unmasked and
-    under a RelocMask) has a kernel in both, so neither a mask nor autograd
-    changes the route. An explicit ``impl="flash"`` skips this check and
-    reaches the kernels' own refusals: a kernel that does not exist is not
-    turned into dense."""
+    the site (``ctx``: the context tensors the site also attends to). A CPU
+    tensor always qualifies, since its wrapper runs the dtype-generic plain
+    version. On the card: q / k / v of one dtype at a head dim with a
+    forward kernel in it (:data:`FORWARD_FORMS`: 64 in bf16 or fp32, 128 in
+    bf16) and, where autograd differentiates the site (q, k, v or the
+    context), a backward kernel too (:data:`BACKWARD_FORMS`: 64 only). A
+    mask does not change the route: every forward form (K1, K1m, K2, K2p)
+    and B9 unmasked and under a RelocMask exist at the same head dims. An
+    explicit ``impl="flash"`` skips this check and reaches the kernels' own
+    refusals: a kernel that does not exist is not turned into dense."""
     if q.device.type == "cpu":
         return True
-    return (q.shape[-1] == KERNEL_HEAD_DIM and q.dtype in _DTYPES
-            and k.dtype == q.dtype and v.dtype == q.dtype)
+    d, dt = q.shape[-1], q.dtype
+    if k.dtype != dt or v.dtype != dt or dt not in FORWARD_FORMS.get(d, ()):
+        return False
+    return not _grad(q, k, v, *ctx) or dt in BACKWARD_FORMS.get(d, ())
 
 
 def worth_it(q, k, v) -> bool:
@@ -476,15 +518,15 @@ def frame_ctx_fwd(q, k, v, ck, cv):
     out = torch.empty_like(q)
     if BF and P:
         _kernels.launch(
-            f"sfm_frame_ctx_fwd_{_suffix(q.dtype)}", q.data_ptr(), k.data_ptr(),
+            f"sfm_frame_ctx_fwd_{_suffix(q.dtype, d)}", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), ck.data_ptr(), cv.data_ptr(), out.data_ptr(), BF, H, BF // B,
             P, Nc, d**-0.5 * LOG2E, _kernels.stream_ptr(q),
         )
-        _count(frame_ctx_fwd, q.dtype)
+        _count(frame_ctx_fwd, q.dtype, d)
     return out
 
 
-frame_ctx_fwd.launches = frame_ctx_fwd.launches_f32 = 0
+frame_ctx_fwd.launches = frame_ctx_fwd.launches_f32 = frame_ctx_fwd.launches_d128 = 0
 
 
 def _frame_ctx_split(q, k, v, ck, cv):
@@ -525,7 +567,9 @@ class _FrameCtxAttention(torch.autograd.Function):
 
 def frame_ctx_attention(q, k, v, ck, cv):
     """Fused reloc attention: frame-major q/k/v against shared context K/V.
-    Differentiable in all five."""
+    Differentiable in all five (off the CPU at head dim 64: the backward is
+    two flash calls' B9; a differentiated call at 128 raises)."""
+    _check_backward("frame_ctx_attention", q, k, v, ck, cv)
     return _FrameCtxAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(),
         ck.to(k.dtype).contiguous(), cv.to(v.dtype).contiguous(),
@@ -589,15 +633,16 @@ def frame_ctx_packed_fwd(q, k, v, ckv, layer: int):
     out = torch.empty_like(q)
     if BF and P:
         _kernels.launch(
-            f"sfm_frame_ctx_kv2_fwd_{_suffix(q.dtype)}", q.data_ptr(), k.data_ptr(),
+            f"sfm_frame_ctx_kv2_fwd_{_suffix(q.dtype, d)}", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), ckv.data_ptr(), out.data_ptr(), BF, H, BF // B, P, Nc,
             layer, B * H * Nc * 2 * d, d**-0.5 * LOG2E, _kernels.stream_ptr(q),
         )
-        _count(frame_ctx_packed_fwd, q.dtype)
+        _count(frame_ctx_packed_fwd, q.dtype, d)
     return out
 
 
 frame_ctx_packed_fwd.launches = frame_ctx_packed_fwd.launches_f32 = 0
+frame_ctx_packed_fwd.launches_d128 = 0
 
 
 def packed_ctx_attention(q, k, v, ckv, layer: int, impl: str = "auto"):
@@ -616,7 +661,7 @@ def packed_ctx_attention(q, k, v, ckv, layer: int, impl: str = "auto"):
     package)."""
     d = q.shape[-1]
     Nc = ckv.shape[3]
-    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, ckv))
+    grad = _grad(q, k, v, ckv)
     takes = (kernel_takes(q, k, v) and not grad
              and (ckv.device.type == "cpu" or ckv.dtype == q.dtype))
     if (

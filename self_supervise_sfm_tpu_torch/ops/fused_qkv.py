@@ -34,10 +34,12 @@ are of one dtype, which picks the body: bf16 (the ``*_sm90`` entries; the
 weights cast once at load by ``cast_trunk_weights``; launches counted in
 ``.launches``) or fp32 (the ``*_f32`` entries; launches counted in
 ``.launches_f32``); a call that mixes them (fp32 x, bf16 weights) raises.
-Norm, bias, layer-scale and RoPE parameters are fp32; head dim 64, widths
-that are multiples of 64, contiguous and 16-byte aligned; the layer-normed
-kernels take C a multiple of 256, every kernel an output width that is a
-multiple of 128 (both bodies take the same widths). A launch wrapper is
+Norm, bias, layer-scale and RoPE parameters are fp32; head dim 64 (both
+bodies) or 128 (the bf16 body: LN+QKV(+RoPE) and the out-projection, the
+``*_d128_sm90`` entries, launches counted in ``.launches_d128``), input
+widths that are multiples of 64 and output widths that are multiples of 128
+(both bodies take the same widths), contiguous and 16-byte aligned. A launch
+wrapper is
 forward only: under grad mode an input that requires grad raises, on every
 device. The bf16 kernels are bound by the bf16 tensor-core rate at the main
 path's sizes, the fp32 ones by the fp32 rate (see the source notes in the
@@ -63,7 +65,9 @@ import torch
 from .. import _kernels
 from .flash_attention import _body, _count
 
-KERNEL_HEAD_DIM = 64
+# the head dims the kernels with one take (LN+QKV(+RoPE), the
+# out-projection), by dtype: the Hopper body's and the FFMA body's
+HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (64,)}
 
 
 # -- shared arithmetic of the plain versions ----------------------------------
@@ -137,62 +141,71 @@ def _kernel_dtype(name: str, x) -> torch.dtype:
     return x.dtype
 
 
-def _check_widths(name: str, *, head_dim=None, **widths: int) -> None:
-    if head_dim is not None and head_dim != KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"{name}: the kernel takes head dim {KERNEL_HEAD_DIM}, got {head_dim}")
+def _check_widths(name: str, *, head_dim=None, dtype=torch.bfloat16, **widths: int) -> None:
+    """A head dim the ``dtype`` kernels take, and widths that are multiples
+    of 64."""
+    dims = HEAD_DIMS.get(dtype, HEAD_DIMS[torch.bfloat16])
+    if head_dim is not None and head_dim not in dims:
+        raise ValueError(f"{name}: the {str(dtype).removeprefix('torch.')} kernels take head "
+                         f"dim {' or '.join(map(str, dims))}, got {head_dim}")
     for key, n in widths.items():
         if n % 64:
             raise ValueError(f"{name}: {key} = {n} is not a multiple of 64")
 
 
-def _check_tile_widths(name: str, C: int, nout: int) -> None:
-    """The TMA GEMM body writes tiles of 128 columns and its layer-norm
-    pre-pass reads rows in steps of 256 channels."""
-    if C % 256 or nout % 128:
-        raise ValueError(f"{name}: C = {C} must be a multiple of 256 and the output "
-                         f"width {nout} a multiple of 128")
+def _check_tile_widths(name: str, K: int, nout: int) -> None:
+    """Both GEMM bodies read K in slices of 64 (the Hopper body's; the FFMA
+    body's are 16, and its pre-pass's steps 4) and write tiles of 128
+    columns. The layer-norm pre-passes take any K that is a multiple of 8
+    (bf16) or 4 (fp32)."""
+    if K % 64 or nout % 128:
+        raise ValueError(f"{name}: the input width {K} must be a multiple of 64 and the "
+                         f"output width {nout} a multiple of 128")
 
 
 def _qkv_widths(name: str, x, w, num_heads: int) -> int:
     """The checks of LN+QKV(+RoPE)'s widths: x (B, N, C) and w (C, 3 Hl d)
     for the Hl = ``num_heads`` heads the call computes (all C / d, or a
-    rank's head shard); d = 64, C a multiple of 256, Hl even. Returns d."""
+    rank's head shard); d = 64 (Hl even) or 128 (bf16, any Hl), C a multiple
+    of 64. Returns d."""
     C, nout = x.shape[2], w.shape[-1]
     if w.dim() != 2 or w.shape[0] != C or nout % (3 * num_heads):
         raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"{num_heads} heads")
     d = nout // (3 * num_heads)
-    _check_widths(name, head_dim=d, C=C)
-    if num_heads % 2:
+    _check_widths(name, head_dim=d, dtype=x.dtype, C=C)
+    if d == 64 and num_heads % 2:
         raise ValueError(f"{name}: {num_heads} heads: a 128-column tile holds two heads "
                          "of one of q, k and v, so the kernel takes an even head count")
     _check_tile_widths(name, C, nout)
     return d
 
 
-def qkv_kernel_takes(C: int, num_local_heads: int, head_dim: int = KERNEL_HEAD_DIM) -> bool:
-    """Widths that LN+QKV(+RoPE) take: an input width C a multiple of 256
-    (the pre-pass's steps) and an even number of heads computed, Hl (a
-    128-column tile of the (C, 3 Hl 64) weight holds two heads of one of q,
-    k and v), at head dim 64. Hl is all C / 64 heads, or one rank's head
-    shard under tensor parallelism, whose C stays the whole width. The
-    checks of :func:`_qkv_widths`, as a predicate for the "auto" gates of
-    ``layers/block.py``."""
-    return (head_dim == KERNEL_HEAD_DIM and C % 256 == 0 and num_local_heads > 0
-            and num_local_heads % 2 == 0)
+def qkv_kernel_takes(C: int, num_local_heads: int, head_dim: int = 64) -> bool:
+    """Widths that the bf16 LN+QKV(+RoPE) take: an input width C a multiple
+    of 64 (the GEMM's K slices) and Hl > 0 heads computed, at head dim 64
+    with Hl even (a 128-column tile of the (C, 3 Hl 64) weight holds two
+    heads of one of q, k and v) or at head dim 128 (a tile is one head). Hl
+    is all C / d heads, or one rank's head shard under tensor parallelism,
+    whose C stays the whole width. The checks of :func:`_qkv_widths`, as a
+    predicate for the "auto" gates of ``layers/block.py`` (bf16 only, so the
+    fp32 body's head dim 64 is not asked)."""
+    return (head_dim in HEAD_DIMS[torch.bfloat16] and C % 64 == 0 and num_local_heads > 0
+            and (head_dim == 128 or num_local_heads % 2 == 0))
 
 
 def proj_kernel_takes(C: int, num_heads: int) -> bool:
-    """Widths that the out-projection takes: head dim 64, C a multiple of 128
-    (it has no layer-norm pre-pass)."""
-    return C == num_heads * KERNEL_HEAD_DIM and C % 128 == 0
+    """Widths that the bf16 out-projection takes: head dim 64 or 128, C a
+    multiple of 128 (K and the output both C)."""
+    return (C % num_heads == 0 and C // num_heads in HEAD_DIMS[torch.bfloat16]
+            and C % 128 == 0)
 
 
 def mlp_kernel_takes(C: int, hidden: int) -> bool:
-    """Widths that MLP-up and MLP-down take: C a multiple of 256, the hidden
-    width a multiple of 128 (no head condition)."""
-    return C % 256 == 0 and hidden % 128 == 0
+    """Widths that MLP-up (K = C, output the hidden width) and MLP-down (K
+    the hidden width, output C) both take: C and the hidden width multiples
+    of 128 (no head condition)."""
+    return C % 128 == 0 and hidden % 128 == 0
 
 
 def _check_no_grad(name: str, *ts) -> None:
@@ -247,19 +260,20 @@ def fused_ln_qkv_rope_fwd(x, ln_scale, ln_bias, w, b, qn_scale, qn_bias, kn_scal
                for _ in range(3))
     if B and N:
         _kernels.launch(
-            f"sfm_ln_qkv_rope_{_body(x.dtype)}", x.data_ptr(), ln_scale.data_ptr(),
+            f"sfm_ln_qkv_rope_{_body(x.dtype, d)}", x.data_ptr(), ln_scale.data_ptr(),
             ln_bias.data_ptr(), w.data_ptr(), b.data_ptr(), qn_scale.data_ptr(),
             qn_bias.data_ptr(), kn_scale.data_ptr(), kn_bias.data_ptr(),
             cos.data_ptr(), sin.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ln_scratch(x).data_ptr(), B, N, C, num_heads, eps,
             _kernels.stream_ptr(x),
         )
-        _count(fused_ln_qkv_rope_fwd, x.dtype)
+        _count(fused_ln_qkv_rope_fwd, x.dtype, d)
     return q, k, v
 
 
 fused_ln_qkv_rope_fwd.launches = 0
 fused_ln_qkv_rope_fwd.launches_f32 = 0
+fused_ln_qkv_rope_fwd.launches_d128 = 0
 
 
 # -- LN + QKV, no qk-norm / RoPE (the ViT blocks) -----------------------------
@@ -288,17 +302,19 @@ def fused_ln_qkv_fwd(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e
                for _ in range(3))
     if B and N:
         _kernels.launch(
-            f"sfm_ln_qkv_{_body(x.dtype)}", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            f"sfm_ln_qkv_{_body(x.dtype, d)}", x.data_ptr(), ln_scale.data_ptr(),
+            ln_bias.data_ptr(),
             w.data_ptr(), b.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ln_scratch(x).data_ptr(), B, N, C, num_heads, eps,
             _kernels.stream_ptr(x),
         )
-        _count(fused_ln_qkv_fwd, x.dtype)
+        _count(fused_ln_qkv_fwd, x.dtype, d)
     return q, k, v
 
 
 fused_ln_qkv_fwd.launches = 0
 fused_ln_qkv_fwd.launches_f32 = 0
+fused_ln_qkv_fwd.launches_d128 = 0
 
 
 # -- head merge + out-projection + layer-scale + residual ---------------------
@@ -319,7 +335,7 @@ def fused_proj_residual_fwd(o, x_res, w, b, ls_gamma):
     name = "fused_proj_residual"
     B, nh, N, d = o.shape
     C = nh * d
-    _check_widths(name, head_dim=d, C=C)
+    _check_widths(name, head_dim=d, dtype=x_res.dtype, C=C)
     if C % 128:  # the output's tiles of 128 columns (no pre-pass: any even head count)
         raise ValueError(f"{name}: C = {C} must be a multiple of 128")
     if tuple(x_res.shape) != (B, N, C) or tuple(w.shape) != (C, C):
@@ -330,16 +346,17 @@ def fused_proj_residual_fwd(o, x_res, w, b, ls_gamma):
     y = torch.empty_like(x_res)
     if B and N:
         _kernels.launch(
-            f"sfm_proj_residual_{_body(x_res.dtype)}", o.data_ptr(), x_res.data_ptr(), w.data_ptr(),
-            b.data_ptr(), ls_gamma.data_ptr(), y.data_ptr(), B, N, nh,
+            f"sfm_proj_residual_{_body(x_res.dtype, d)}", o.data_ptr(), x_res.data_ptr(),
+            w.data_ptr(), b.data_ptr(), ls_gamma.data_ptr(), y.data_ptr(), B, N, nh,
             _kernels.stream_ptr(x_res),
         )
-        _count(fused_proj_residual_fwd, x_res.dtype)
+        _count(fused_proj_residual_fwd, x_res.dtype, d)
     return y
 
 
 fused_proj_residual_fwd.launches = 0
 fused_proj_residual_fwd.launches_f32 = 0
+fused_proj_residual_fwd.launches_d128 = 0
 
 
 # -- MLP: [LN2 + fc1 + GELU] and [fc2 + layer-scale + residual] ---------------
@@ -427,7 +444,7 @@ def fused_mlp_down(h, x, w2, b2, ls_gamma):
     name = "fused_mlp_down"
     B, N, C = x.shape
     Ch = h.shape[-1]
-    _check_tile_widths(name, C, Ch)
+    _check_tile_widths(name, Ch, C)
     if tuple(h.shape) != (B, N, Ch) or tuple(w2.shape) != (Ch, C):
         raise ValueError(f"{name}: h {tuple(h.shape)}, x {tuple(x.shape)}, "
                          f"w2 {tuple(w2.shape)}")

@@ -45,8 +45,9 @@ def _dense_chunk(q, k, v, scale: float):
 
 def _use_flash(q, k, v, impl: str = "auto") -> bool:
     """K1 on the card wherever the kernel takes the site (``kernel_takes``:
-    head dim 64, bf16 or fp32, its backward B9 in the same dtype); the dense
-    chunk on the CPU, for the other sites and under ``"dense"``."""
+    a forward form of K1 and, under grad, its backward B9 in the same dtype,
+    so a head dim 128 chunk that autograd differentiates runs dense); the
+    dense chunk on the CPU, for the other sites and under ``"dense"``."""
     return impl != "dense" and q.device.type == "cuda" and fa.kernel_takes(q, k, v)
 
 

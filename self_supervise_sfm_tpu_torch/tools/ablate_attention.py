@@ -1,8 +1,8 @@
 """What each choice of the Hopper attention bodies (K1, K2, K1m; B9) is worth: ablations.
 
-    python3 -m self_supervise_sfm_tpu_torch.tools.ablate_attention [forward] [backward]
+    python3 -m self_supervise_sfm_tpu_torch.tools.ablate_attention [forward] [backward] [d128]
 
-(one CUDA card; both parts when neither is named).
+(one CUDA card; forward and backward when no part is named).
 
 Builds copies of ``csrc/flash_fwd_sm90.cu`` under ``build/ablation_attention/``
 (``sm90_common.cuh`` included from ``csrc/`` through ``-I``) with one
@@ -45,6 +45,13 @@ K / V tiles; "2 stages" / "4 stages" change both rings; the masked walk's
 order: "round-robin walk" (no odd rounds backwards) and "frame tiles first"
 (dk/dv's context tiles last). Each variant's ptxas registers and spills
 are printed.
+
+The ``d128`` part times the head dim 128 forms the same way (builds under
+``build/ablation_attention_d128/``): K1 at the ViT (40, 1374), frame (80,
+1374) and global (8, 6870) sites and K2 at the reloc site of 8 heads of
+128, beside SDPA, with "2 stages" (the K / V ring at head dim 128; 4 do
+not fit) and "overlapped" (the head dim 64 schedule, S of tile i beside
+PV of tile i - 1 in a warpgroup: ptxas spills it at 128).
 """
 
 from __future__ import annotations
@@ -96,6 +103,12 @@ NO_STORES = [
 def _stages(n: int):
     return [("constexpr int STAGES = 3;", f"constexpr int STAGES = {n};")]
 
+
+D128_VARIANTS = {
+    "as shipped": [],
+    "2 stages": [("constexpr int STAGES_D128 = 3;", "constexpr int STAGES_D128 = 2;")],
+    "overlapped": [("constexpr bool OVERLAP = D == 64;", "constexpr bool OVERLAP = true;")],
+}
 
 VARIANTS = {
     "as shipped": [],
@@ -213,7 +226,68 @@ def main(argv) -> int:
         forward()
     if "backward" in parts:
         backward()
+    if "d128" in parts:
+        forward_d128()
     return 0
+
+
+def forward_d128() -> None:
+    """K1 and K2 at head dim 128 (8 heads at width 1024), each variant held
+    against the plain version (phase 2's 4 ulps) and timed back to back
+    beside SDPA; each variant's ptxas spill lines printed."""
+    libs, logs = build_all(D128_VARIANTS, subdir="ablation_attention_d128",
+                           entries=("sfm_flash_fwd_d128_bf16", "sfm_frame_ctx_fwd_d128_bf16"))
+    for name, log in logs.items():
+        spills = sorted({ln.strip() for ln in log.splitlines() if "bytes spill" in ln})
+        print(f"  {name}: ptxas {spills}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    stream = torch.cuda.current_stream().cuda_stream
+    d = 128
+    scale = d**-0.5 * LOG2E
+    tol = lambda ref: 4 * 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)  # noqa: E731
+    rows, sdpa = {name: [] for name in libs}, []
+    for site, bh, n in (("vit", 40, 1374), ("frame", 80, 1374), ("global", 8, 6870)):
+        q, k, v = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
+        ref, _ = FA.flash_fwd_plain(q, k, v)
+        for name, lib in libs.items():
+            o, lse = torch.empty_like(q), torch.empty(bh, n, device="cuda")
+            call = lambda: _launch(lib.sfm_flash_fwd_d128_bf16(  # noqa: E731
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, n,
+                n, scale, stream), name)
+            call()
+            torch.cuda.synchronize()
+            if float((o.float() - ref.float()).abs().max()) > tol(ref):
+                raise AssertionError(f"{name} at {site}: out of tolerance")
+            rows[name].append(back_to_back_ms(call))
+        sdpa.append(back_to_back_ms(
+            lambda: F.scaled_dot_product_attention(q[None], k[None], v[None])))
+    P, nc, frames, H = 1374, 1525, 5, 8
+    q, k, v = (randn(frames, H, P, d) for _ in range(3))
+    ck, cv = randn(1, H, nc, d), randn(1, H, nc, d)
+    ref = FA._frame_ctx_dense(q, k, v, ck, cv)
+    for name, lib in libs.items():
+        o = torch.empty_like(q)
+        call = lambda: _launch(lib.sfm_frame_ctx_fwd_d128_bf16(  # noqa: E731
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ck.data_ptr(), cv.data_ptr(), o.data_ptr(),
+            frames, H, frames, P, nc, scale, stream), name)
+        call()
+        torch.cuda.synchronize()
+        if float((o.float() - ref.float()).abs().max()) > tol(ref):
+            raise AssertionError(f"{name} at K2: out of tolerance")
+        rows[name].append(back_to_back_ms(call))
+    kk, vv = torch.cat([ck.expand(frames, -1, -1, -1), k], 2), torch.cat(
+        [cv.expand(frames, -1, -1, -1), v], 2)
+    sdpa.append(back_to_back_ms(lambda: F.scaled_dot_product_attention(q, kk, vv)))
+    print("head dim 128, ms, 20 launches back to back: K1 ViT (40, 1374) | K1 frame (80, 1374) | "
+          "K1 global (8, 6870) | K2 (5, 8, 1374) ctx 1525")
+    for name, ts in rows.items():
+        print(f"  {name:24s} " + " | ".join(f"{t:.4f}" for t in ts))
+    print(f"  {'SDPA':24s} " + " | ".join(f"{t:.4f}" for t in sdpa))
+
 
 
 def forward() -> None:

@@ -34,12 +34,11 @@ tiles; "grouped raster" walks groups of 8 row tiles column by column in
 place of row by row; "GELU without erff" (MLP-up) replaces erf(z) by z,
 the cost of erff; "no pre-pass" times the layer-normed kernels on the hn an
 earlier call left (the layer norm's cost is the difference), and the
-pre-pass is also timed alone; "TMA stores" writes q, k and v of LN+QKV(+RoPE)
-through shared memory and TMA stores in place of stores from the
-accumulators (the patches of ``gemm_sm90_tma_store.py``; tiles that cross a
-frame boundary still store from the accumulators; with 5 stages and, as the
-fallback for its 64 KB of staging, 4). The nvcc log of each variant (ptxas's registers and spills) is left
-beside its library under ``build/ablation_gemm_sm90/``.
+pre-pass is also timed alone. The nvcc log of each variant (ptxas's
+registers and spills) is left beside its library under
+``build/ablation_gemm_sm90/``. The variants time the head dim 64 kernels of
+the main path; the head dim 128 ones share every choice but the epilogue's
+head mapping.
 """
 
 from __future__ import annotations
@@ -54,7 +53,6 @@ import torch.nn.functional as F
 
 from .. import _kernels
 from ..ops import fused_qkv as FQ
-from .gemm_sm90_tma_store import PATCHES as TMA_STORE
 from .timing import back_to_back_ms
 
 SOURCE = "gemm_sm90.cu"
@@ -67,14 +65,17 @@ ENTRIES = ("sfm_ln_qkv_rope_sm90", "sfm_ln_qkv_sm90", "sfm_proj_residual_sm90",
 NO_EPILOGUE = [
     ("        epilogue<EP>(p, acc, m0, m_end, n0);",
      "        if (p.M < 0) epilogue<EP>(p, acc, m0, m_end, n0);"),
-    ("        epilogue_qkv<EP>(p, acc, m0, n0);",
-     "        if (p.M < 0) epilogue_qkv<EP>(p, acc, m0, n0);"),
+    ("        epilogue_qkv<EP, HD>(p, acc, m0, n0);",
+     "        if (p.M < 0) epilogue_qkv<EP, HD>(p, acc, m0, n0);"),
 ]
 NO_COPIES = [
     ("          mbar_expect_tx(full, STAGE_BYTES);",
      "          if (p.M < 0) mbar_expect_tx(full, STAGE_BYTES); else mbar_arrive(full);"),
     ("            tma_load_3d(sa, ma, full, 0, r0, f * p.heads + kt);",
      "            if (p.M < 0) tma_load_3d(sa, ma, full, 0, r0, f * p.heads + kt);"),
+    ("            tma_load_3d(sa, ma, full, BK * (kt % (HD / BK)), r0, f * p.heads + kt / (HD / BK));",
+     "            if (p.M < 0)\n"
+     "              tma_load_3d(sa, ma, full, BK * (kt % (HD / BK)), r0, f * p.heads + kt / (HD / BK));"),
     ("            tma_load_2d(sa, ma, full, kt * BK, f * p.frame_rows + r0);",
      "            if (p.M < 0) tma_load_2d(sa, ma, full, kt * BK, f * p.frame_rows + r0);"),
     ("          tma_load_2d(sa + A_BYTES, mb, full, n0, kt * BK);",
@@ -120,8 +121,6 @@ VARIANTS = {
     "grouped raster": _const("int GROUP_M", "1", "8"),
     "no pre-pass": NO_PREPASS,
     "GELU without erff": NO_ERFF,
-    "TMA stores (q, k, v)": TMA_STORE,
-    "TMA stores, 4 stages": TMA_STORE + _const("int STAGES", "5", "4"),
 }
 # the variants that no longer compute the function
 UNCHECKED = {"products only", "copies only", "no epilogue", "GELU without erff"}

@@ -601,6 +601,15 @@ def test_fwd_ablation_variants_patch_the_shipped_source(variant):
     assert (src == shipped) == (variant == "as shipped")
 
 
+@pytest.mark.parametrize("variant", list(ABL.D128_VARIANTS))
+def test_d128_ablation_variants_patch_the_shipped_source(variant):
+    """The same for the head dim 128 variants (ring depth, the overlapped
+    schedule)."""
+    shipped = (CSRC / ABL.SOURCE).read_text()
+    src = ABL.patched_sources(ABL.SOURCE, {variant: ABL.D128_VARIANTS[variant]})[variant]
+    assert (src == shipped) == (variant == "as shipped")
+
+
 # -- the "auto" gates on the card (meta tensors) --------------------------------
 
 
@@ -679,10 +688,13 @@ GRAD_GATES = {
     "packed cache": []}
 
 
-@pytest.mark.parametrize("dtype,d,grad", [(F32, 32, True), (BF16, 32, False), (F32, 32, False)])
+@pytest.mark.parametrize("dtype,d,grad", [(F32, 32, True), (BF16, 32, False), (F32, 32, False),
+                                          (BF16, 128, True), (F32, 128, True),
+                                          (F32, 128, False)])
 @pytest.mark.parametrize("gate", list(GATES))
 def test_auto_routes_sites_the_kernels_do_not_take_dense(launches, gate, dtype, d, grad):
-    """Off the CPU, a head dim other than 64, with or without grad: the
+    """Off the CPU, a head dim without a kernel (32), with or without grad;
+    head dim 128 in fp32 (no kernel) or under grad (no backward kernel): the
     dense route, no launch, the output of the site's shape and dtype."""
     out = GATES[gate][0](dtype, d, grad=grad)
     assert launches == []
@@ -709,6 +721,56 @@ def test_auto_routes_bf16_sites_to_the_kernels(launches, gate):
     out = GATES[gate][0](BF16, 64)
     assert launches == GATES[gate][1]
     assert out.dtype == BF16
+
+
+# gate -> its launches at head dim 128 in bf16 without grad under "auto"
+D128_GATES = {"sdpa": ["sfm_flash_fwd_d128_bf16"],
+              "frame-context": ["sfm_frame_ctx_fwd_d128_bf16"],
+              "reloc split": ["sfm_flash_fwd_d128_bf16"] * 2,
+              "masked sdpa": ["sfm_flash_fwd_reloc_d128_sm90"],
+              "packed cache": ["sfm_frame_ctx_kv2_fwd_d128_bf16"]}
+
+
+@pytest.mark.parametrize("gate", list(D128_GATES))
+def test_auto_routes_bf16_d128_sites_to_the_d128_entries(launches, gate):
+    """bf16 of head dim 128 that autograd does not differentiate: the head
+    dim 128 forms of K1, K2, K2p and, under a RelocMask, K1m."""
+    out = GATES[gate][0](BF16, 128)
+    assert launches == D128_GATES[gate]
+    assert out.dtype == BF16 and out.shape[-1] == 128
+
+
+@pytest.mark.parametrize("dtype,grad", [(BF16, True), (F32, False)])
+@pytest.mark.parametrize("gate", list(GATES))
+def test_explicit_flash_at_d128_meets_the_refusal(launches, gate, dtype, grad):
+    """impl="flash" where no kernel exists at head dim 128 (a site autograd
+    differentiates: no backward; fp32: no kernel) raises before any launch,
+    and is not turned into the dense route; the packed cache under grad
+    meets its bare wrapper's refusal, as at head dim 64."""
+    with torch.enable_grad():
+        if gate == "packed cache" and grad:
+            with pytest.raises(NotImplementedError, match="not differentiable"):
+                GATES[gate][0](dtype, 128, impl="flash", grad=grad)
+        else:
+            kind = "backward kernels" if grad else "float32 kernels"
+            with pytest.raises(ValueError, match=f"{kind} take head dim 64, got 128"):
+                GATES[gate][0](dtype, 128, impl="flash", grad=grad)
+    assert launches == []
+
+
+def test_kernel_takes_at_d128():
+    """The predicate itself on meta tensors: bf16 of head dim 128 without
+    grad; not with grad on q, k, v or the context passed beside them, not
+    in fp32, not with operands of two dtypes."""
+    q = _meta(1, 2, 8, 128)
+    assert TFA.kernel_takes(q, q, q)
+    assert not TFA.kernel_takes(q, q, q, _meta(1, 2, 8, 128, grad=True))
+    assert not TFA.kernel_takes(_meta(1, 2, 8, 128, grad=True), q, q)
+    with torch.no_grad():
+        assert TFA.kernel_takes(_meta(1, 2, 8, 128, grad=True), q, q)
+    assert not TFA.kernel_takes(*(_meta(1, 2, 8, 128, dtype=F32),) * 3)
+    assert not TFA.kernel_takes(q, q, _meta(1, 2, 8, 128, dtype=F32))
+    assert TFA.kernel_takes(*(_meta(1, 2, 8, 64, dtype=F32, grad=True),) * 3)
 
 
 @pytest.mark.parametrize("gate", list(GATES))

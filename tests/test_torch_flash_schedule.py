@@ -59,14 +59,16 @@ def _exp2_ftz(x: torch.Tensor) -> torch.Tensor:
 
 def _emulate(q, sources, lse: bool = False):
     """The kernel's schedule over ``sources``, a list of (k, v) streamed in
-    order into one online softmax. q: (S, Nq, d) bf16; k / v: (S, N, d) bf16.
-    Returns out (S, Nq, d) bf16 and, if asked, the natural-log lse."""
+    order into one online softmax. q: (S, Nq, d) bf16; k / v: (S, N, d) bf16,
+    d = 64 or 128: S is summed over the rows' 64-channel swizzle atoms in
+    order, as the k steps walk them. Returns out (S, Nq, d) bf16 and, if
+    asked, the natural-log lse."""
     S, nq, d = q.shape
     qf = q.float()
     m = torch.full((S, nq), NEG_INF, dtype=torch.float32)
     l = torch.zeros((S, nq), dtype=torch.float32)
     o = torch.zeros((S, nq, d), dtype=torch.float32)
-    c = torch.tensor(SCALE_LOG2, dtype=torch.float32)
+    c = torch.tensor(np.float32(d**-0.5 * LOG2E), dtype=torch.float32)  # the kernel's fp32 scale
     for k, v in sources:
         n = k.shape[1]
         for k0 in range(0, n, BK):
@@ -75,7 +77,8 @@ def _emulate(q, sources, lse: bool = False):
             vt = torch.zeros((S, BK, d), dtype=v.dtype)
             kt[:, :valid] = k[:, k0:k0 + valid]
             vt[:, :valid] = v[:, k0:k0 + valid]
-            s = torch.matmul(qf, kt.float().transpose(-1, -2))
+            s = sum(torch.matmul(qf[..., a:a + 64], kt[..., a:a + 64].float().transpose(-1, -2))
+                    for a in range(0, d, 64))
             s[..., valid:] = NEG_INF
             m_new = torch.maximum(m, s.amax(-1) * c)
             alpha = _exp2_ftz(m - m_new)
@@ -109,15 +112,16 @@ def _assert_close(got, ref, tol, what):
 
 # -- K1 ------------------------------------------------------------------------
 
-K1_SHAPES = {"200x333": (200, 333), "130x70": (130, 70)}
+# (nq, nk, d): ragged tails; at head dim 128 both swizzle atoms of a row
+K1_SHAPES = {"200x333": (200, 333, D), "130x70": (130, 70, D), "200x333_d128": (200, 333, 128)}
 
 
 @pytest.fixture(scope="module")
 def k1_cases():
     rng = np.random.default_rng(7)
     cases = {}
-    for name, (nq, nk) in K1_SHAPES.items():
-        (jq, tq), (jk, tk), (jv, tv) = (_bf16_pair(rng, (1, 2, n, D)) for n in (nq, nk, nk))
+    for name, (nq, nk, d) in K1_SHAPES.items():
+        (jq, tq), (jk, tk), (jv, tv) = (_bf16_pair(rng, (1, 2, n, d)) for n in (nq, nk, nk))
         out, lse = _emulate(tq[0], [(tk[0], tv[0])], lse=True)
         j_out, j_lse = JFA.flash_attention_lse(jq, jk, jv, bq=128, bk=BK, interpret=True)
         p_out, p_lse = TFA.flash_fwd_plain(tq[0], tk[0], tv[0])
@@ -152,9 +156,9 @@ def _emulate_frame_ctx(q, k, v, ck, cv):
     return out.reshape(q.shape)
 
 
-@pytest.fixture(scope="module")
-def k2_case():
-    rng = np.random.default_rng(11)
+def _k2_case(d: int, seed: int):
+    rng = np.random.default_rng(seed)
+    D = d  # noqa: N806 - the head dim of this case
     (jq, tq), (jk, tk), (jv, tv) = (_bf16_pair(rng, (B * F, H, P, D)) for _ in range(3))
     jkv, tkv = _bf16_pair(rng, (DEPTH, B, H, NC, 2 * D))
     layer = DEPTH - 1
@@ -173,11 +177,34 @@ def k2_case():
     )
 
 
+@pytest.fixture(scope="module")
+def k2_case():
+    return _k2_case(D, 11)
+
+
+@pytest.fixture(scope="module")
+def k2_case_d128():
+    """K2 and K2p at head dim 128: a cache row of 2 x 128 channels, the v half
+    128 channels on."""
+    return _k2_case(128, 17)
+
+
 @pytest.mark.parametrize("ref", ["pallas", "plain", "pallas_packed", "plain_packed"])
 def test_k2_schedule_matches(k2_case, ref):
     r = k2_case[ref]
     emu = k2_case["emu_packed" if ref.endswith("packed") else "emu"]
     _assert_close(emu, r, _ulps(r, 4), f"K2 schedule vs {ref}")
+
+
+@pytest.mark.parametrize("ref", ["pallas", "plain", "pallas_packed", "plain_packed"])
+def test_k2_schedule_matches_d128(k2_case_d128, ref):
+    """K2's and K2p's schedule at head dim 128 against the Pallas kernels in
+    interpret mode and the plain versions; K2p bit-equal to K2 on the split
+    copies."""
+    c = k2_case_d128
+    emu = c["emu_packed" if ref.endswith("packed") else "emu"]
+    _assert_close(emu, c[ref], _ulps(c[ref], 4), f"K2 d128 schedule vs {ref}")
+    assert torch.equal(c["emu_packed"], c["emu"])
 
 
 def test_k2p_split_copy_identity(k2_case):
@@ -208,6 +235,8 @@ def test_k2_context_tiles_restart_at_key_zero(k2_case):
 K1M_MASKS = {"77x130x2": (77, 130, 2), "0x130x3": (0, 130, 3), "128x128x2": (128, 128, 2),
              "5x7x3": (5, 7, 3), "77x130x1": (77, 130, 1)}
 K1M_BH = 2
+# the same at head dim 128: context and frame tails, frames shorter than a box
+K1M_D128 = {"77x130x2_d128": (77, 130, 2), "5x7x3_d128": (5, 7, 3)}
 
 
 def _emulate_reloc(q, k, v, mask):
@@ -227,9 +256,10 @@ def _emulate_reloc(q, k, v, mask):
 def k1m_cases():
     rng = np.random.default_rng(13)
     cases = {}
-    for name, (n_ctx, P, F) in K1M_MASKS.items():
+    for name, (n_ctx, P, F) in {**K1M_MASKS, **K1M_D128}.items():
+        d = 128 if name in K1M_D128 else D
         mask, jmask = RelocMask(n_ctx, P, F), JRelocMask(n_ctx, P, F)
-        (jq, tq), (jk, tk), (jv, tv) = (_bf16_pair(rng, (K1M_BH, n, D))
+        (jq, tq), (jk, tk), (jv, tv) = (_bf16_pair(rng, (K1M_BH, n, d))
                                         for n in (mask.nq, mask.nk, mask.nk))
         j_out, j_lse = JFA._flash_fwd(jq, jk, jv, jmask, 128, BK, True)
         cases[name] = dict(torch=(tq, tk, tv, mask), emu=_emulate_reloc(tq, tk, tv, mask),
@@ -239,7 +269,7 @@ def k1m_cases():
 
 
 @pytest.mark.parametrize("ref", ["pallas", "plain"])
-@pytest.mark.parametrize("case", list(K1M_MASKS))
+@pytest.mark.parametrize("case", list(K1M_MASKS) + list(K1M_D128))
 def test_k1m_schedule_matches(k1m_cases, case, ref):
     out, lse = k1m_cases[case]["emu"]
     r_out, r_lse = k1m_cases[case][ref]
@@ -247,7 +277,7 @@ def test_k1m_schedule_matches(k1m_cases, case, ref):
     _assert_close(lse, r_lse, 1e-4, f"K1m {case} lse vs {ref}")
 
 
-@pytest.mark.parametrize("case", list(K1M_MASKS))
+@pytest.mark.parametrize("case", list(K1M_MASKS) + list(K1M_D128))
 def test_k1m_is_k2_on_the_unfolded_tensors(k1m_cases, case):
     """The same problem in layout form: frame-major (F, H, P, d) q / k / v
     and the head's context as K2's (1, H, n_ctx, d). K2's schedule over them
@@ -255,9 +285,10 @@ def test_k1m_is_k2_on_the_unfolded_tensors(k1m_cases, case):
     card, K1m against K2p)."""
     tq, tk, tv, mask = k1m_cases[case]["torch"]
     n_ctx, P, F = mask.n_ctx, mask.frame_size, mask.num_frames
+    d = tq.shape[-1]
 
     def fold(x):  # (H, F*P, d) -> (F*H, P, d), slice f * H + h
-        return x.reshape(K1M_BH, F, P, D).transpose(0, 1).reshape(F * K1M_BH, P, D)
+        return x.reshape(K1M_BH, F, P, d).transpose(0, 1).reshape(F * K1M_BH, P, d)
 
     def ctx(x):
         return x[:, :n_ctx].repeat(F, 1, 1)
@@ -343,20 +374,71 @@ def test_k1m_source_is_k2s_body_over_segment_maps():
     first body gone: no mma.sync left under csrc/, the C entry replaced."""
     for line in (
             "if (RELOC) c3 = slice / p.frames;",
-            "tma_load_4d(sk, mck, full, 0, i * BN, c2, c3);",
-            "tma_load_4d(sk, mk, full, 0, (i - ctx_tiles) * BN, slice % p.frames, c3);",
-            "tma_load_4d(sv, mv, full, 0, (i - ctx_tiles) * BN, slice % p.frames, c3);",
+            "tma_load_4d(sk, mck, full, ch, i * BN, c2, c3);",
+            "tma_load_4d(sk, mk, full, ch, (i - ctx_tiles) * BN, slice % p.frames, c3);",
+            "tma_load_4d(sv, mv, full, ch, (i - ctx_tiles) * BN, slice % p.frames, c3);",
             "if ((!CTX || RELOC) && t == 0) {",
-            "attention<true, true>(&mq, &mk, &mv, &mck, &mcv, p);",
-            "!encode_rows(&mq, q, frame_size, bh * num_frames) ||",
-            "!encode_rows64(&mk, kb + own, 4, frame_size, D * 2, num_frames, bh, slice_bytes, BN) ||",
-            "!encode_rows64(&mck, kb, 4, n_ctx, D * 2, 1, bh, slice_bytes, BN) ||",
-            "static const void* ready[KERNELS] = {};"):
+            "attention<D, true, true>(&mq, &mk, &mv, &mck, &mcv, p);",
+            "!encode_rows<D>(&mq, q, frame_size, bh * num_frames) ||",
+            "!encode_rows64(&mk, kb + own, 4, frame_size, D * 2, num_frames, bh, slice_bytes, BN, D) ||",
+            "!encode_rows64(&mck, kb, 4, n_ctx, D * 2, 1, bh, slice_bytes, BN, D) ||",
+            "static const void* ready[KERNELS] = {};",
+            "const Kernel5 kernel = Kernels<D>::k1m;"):
         assert SOURCE.count(line) == 1, line
-    assert "flash_fwd_reloc_sm90_kernel<<<" in SOURCE
+    assert "flash_fwd_reloc_sm90_kernel)" in SOURCE and "flash_fwd_reloc_d128_sm90_kernel)" in SOURCE
     assert not (CSRC / "flash_attention.cu").exists()
     for src in CSRC.iterdir():
         text = src.read_text()
         assert "mma.sync" not in text and "mma_16816" not in text, src.name
     assert "sfm_flash_fwd_reloc_sm90" in TK._SIGNATURES
+    assert "sfm_flash_fwd_reloc_d128_sm90" in TK._SIGNATURES
     assert "sfm_flash_fwd_reloc_bf16" not in TK._SIGNATURES
+
+
+def _sw128(addr: int) -> int:
+    """The 128-byte swizzle of a shared-memory byte address: its 16-byte
+    chunk index (bits 4-6) xor its row within the 1024-byte repeat (bits
+    7-9)."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_tiles_walk_both_swizzle_atoms(d):
+    """The shared-memory image of a Q / K / V tile and the wgmma descriptors'
+    walk over it, from the source's constants. TMA writes a row's channels
+    in boxes of 64 (one 128-byte swizzle row), box a at a * rows * 128 bytes;
+    S = Q K^T reads its k step kk at (kk / 4) atoms plus 32 (kk % 4) bytes
+    (K-major, 8-row groups 1024 bytes apart), and PV reads V MN-major, 16
+    keys (2048 bytes) a k step, the second 64 channels one leading byte
+    offset (an atom) on. Every (row, channel) a product reads is where the
+    box put it: at head dim 128 both atoms of a row, in order."""
+    for line in ("constexpr int ATOM_ROW = 128;",
+                 "static constexpr int ATOMS = D / 64;",
+                 "tma_load_3d(base + a * L::Q_ATOM, mq, q_full, 64 * a, q0, slice);",
+                 "desc_add(desc_q, (kk / 4) * (L::Q_ATOM >> 4) + 2 * (kk % 4))",
+                 "desc_add(desc_k, (kk / 4) * (L::KV_ATOM >> 4) + 2 * (kk % 4)), kk);",
+                 "const uint64_t desc_v = sw128_desc(base + V_OFF + st * KV_BYTES, L::KV_ATOM >> 4);",
+                 "wgmma_rs_m64n128(o, pa[kk], desc_add(desc_v, 128 * kk));",
+                 "return encode_rows64(map, ptr, 3, static_cast<uint64_t>(n), D * 2,",
+                 "!encode_rows64(&mcv, ckv_k + D, 4, nc, 4 * D, bh, layer + 1, layer_bytes, BN, D))"):
+        assert line in SOURCE, line
+    rows, atom = BM, BM * 128  # a 128-row tile: 16 KB an atom
+
+    def tma(r, ch):  # where the box of channel ch / 64 put (row r, channel ch)
+        return _sw128((ch // 64) * atom + r * 128 + 2 * (ch % 64))
+
+    for kk in range(d // 16):  # S: the k step's 16 channels of every row
+        start = (kk // 4) * atom + 32 * (kk % 4)
+        for r in range(rows):
+            for j in range(16):
+                got = _sw128(start + (r // 8) * 1024 + (r % 8) * 128 + 2 * j)
+                assert got == tma(r, 16 * kk + j)
+    for kk in range(BK // 16):  # PV: 16 keys of V, every channel
+        start = 2048 * kk
+        for j in range(16):
+            for ch in range(d):
+                lead = (ch // 64) * atom  # the descriptor's leading byte offset
+                got = _sw128(start + lead + (j // 8) * 1024 + (j % 8) * 128 + 2 * (ch % 64))
+                assert got == tma(16 * kk + j, ch)
+    # a cache row is [k | v], 2 d channels: the v half's map starts d channels on
+    assert 4 * d == 2 * (2 * d) and (2 * d * 2) % 16 == 0

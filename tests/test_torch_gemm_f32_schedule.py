@@ -549,10 +549,11 @@ def test_mixed_dtypes_raise(launches, x_dtype, w_dtype):
     assert launches == []
 
 
-@pytest.mark.parametrize("C,heads", [(1024, 8), (640, 10), (384, 6)])
+@pytest.mark.parametrize("C,heads", [(1024, 8), (1024, 32), (320, 5)])
 def test_f32_on_meets_the_refusal_of_widths(launches, C, heads):
-    """fp32 "on" at a width the kernels refuse raises, as bf16 "on" does."""
-    with pytest.raises(ValueError, match="head dim 64|multiple of 256"):
+    """fp32 "on" at a width the kernels refuse raises, as bf16 "on" does:
+    head dim 128 (a bf16 form only), 32, an odd head count of 64."""
+    with pytest.raises(ValueError, match="head dim 64|even head count"):
         _block(C, heads, "frame", "on", torch.float32)()
     assert launches == []
 

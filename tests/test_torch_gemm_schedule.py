@@ -217,14 +217,16 @@ def test_k_slices_move_the_sum_within_the_tolerance(cases):
 
 
 def _qkv(x, lw, lb, w, b, heads: int, eps: float, norms=None, cos=None, sin=None):
-    """LN+QKV(+RoPE): x (B, N, C) -> q, k, v (B, H, N, 64). Pre-pass, product,
-    rb(rb(acc) + rb(b)); with norms ((qn_w, qn_b), (kn_w, kn_b)) q and k get
-    ((t - mu) * rstd) * w + b over each head in fp32, rounded to bf16, then
-    rb(rb(t * rb(cos)) + rb(rot * rb(sin))), rot = (-t2, t1, -t4, t3)."""
+    """LN+QKV(+RoPE): x (B, N, C) -> q, k, v (B, H, N, d), d = 64 or 128 (w
+    is (C, 3 H d)). Pre-pass, product, rb(rb(acc) + rb(b)); with norms
+    ((qn_w, qn_b), (kn_w, kn_b)) q and k get ((t - mu) * rstd) * w + b over
+    each head in fp32, rounded to bf16, then rb(rb(t * rb(cos)) + rb(rot *
+    rb(sin))), rot = (-t2, t1, -t4, t3) over quarters of d."""
     B, N, C = x.shape
+    d = w.shape[1] // (3 * heads)
     hn = _ln_prepass(x.reshape(B * N, C), lw, lb, eps)
     y = _rb(_rb(_product(hn, w)) + _rb(b))
-    q, k, v = y.reshape(B, N, 3, heads, HD).permute(2, 0, 3, 1, 4)
+    q, k, v = y.reshape(B, N, 3, heads, d).permute(2, 0, 3, 1, 4)
     if norms is not None:
         c, s_ = _rb(cos), _rb(sin)
         out = []
@@ -240,26 +242,28 @@ def _qkv(x, lw, lb, w, b, heads: int, eps: float, norms=None, cos=None, sin=None
     return tuple(t.to(bf16) for t in (q, k, v))
 
 
-# (B, N, eps): 200 rows in one frame, and two frames of 1374 (a 128-row tile
-# crosses the frame boundary at row 1374)
-QKV_CASES = {"1x200_vit_eps": (1, 200, 1e-6), "1x200_agg_eps": (1, 200, 1e-5),
-             "2x1374_agg_eps": (2, 1374, 1e-5)}
+# (B, N, eps, d): 200 rows in one frame, and two frames of 1374 (a 128-row
+# tile crosses the frame boundary at row 1374); at head dim 128 the 256
+# channels are 2 heads, one a 128-column tile
+QKV_CASES = {"1x200_vit_eps": (1, 200, 1e-6, 64), "1x200_agg_eps": (1, 200, 1e-5, 64),
+             "2x1374_agg_eps": (2, 1374, 1e-5, 64), "2x1374_agg_eps_d128": (2, 1374, 1e-5, 128)}
 QKV_HEADS = C // HD  # 4 heads of 64: 3C = 768, six 128-column tiles, two a part
 
 
 @pytest.fixture(scope="module")
 def qkv_cases():
     out = {}
-    for name, (B, N, eps) in QKV_CASES.items():
-        rng = np.random.default_rng(B * N + int(eps * 1e7))
+    for name, (B, N, eps, d) in QKV_CASES.items():
+        heads = C // d
+        rng = np.random.default_rng(B * N + int(eps * 1e7) + d)
         x = rng.normal(size=(B, N, C))
         x[0, ZERO_ROW] = 0.0
         jx, tx = _pair(x)
         jw, tw = _pair(rng.normal(scale=C**-0.5, size=(C, 3 * C)))
         f32 = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
         lw, lb, b = 1 + 0.1 * f32(C), 0.1 * f32(C), 0.1 * f32(3 * C)
-        qw, qb, kw, kb = 1 + 0.1 * f32(HD), 0.1 * f32(HD), 1 + 0.1 * f32(HD), 0.1 * f32(HD)
-        ang = rng.uniform(-np.pi, np.pi, size=(N, HD))
+        qw, qb, kw, kb = 1 + 0.1 * f32(d), 0.1 * f32(d), 1 + 0.1 * f32(d), 0.1 * f32(d)
+        ang = rng.uniform(-np.pi, np.pi, size=(N, d))
         cos, sin = np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
         t = {k: torch.from_numpy(v) for k, v in dict(
             lw=lw, lb=lb, b=b, qw=qw, qb=qb, kw=kw, kb=kb, cos=cos, sin=sin).items()}
@@ -267,19 +271,19 @@ def qkv_cases():
         j = {k: jnp.asarray(v) for k, v in dict(
             lw=lw, lb=lb, b=b, qw=qw, qb=qb, kw=kw, kb=kb, cos=cos, sin=sin).items()}
         jrope = (jx, j["lw"], j["lb"], jw.astype(jnp.float32), j["b"], j["qw"], j["qb"], j["kw"],
-                 j["kb"], j["cos"], j["sin"], QKV_HEADS)
-        jplain = (jx, j["lw"], j["lb"], jw.astype(jnp.float32), j["b"], QKV_HEADS)
+                 j["kb"], j["cos"], j["sin"], heads)
+        jplain = (jx, j["lw"], j["lb"], jw.astype(jnp.float32), j["b"], heads)
         trope = (tx, t["lw"], t["lb"], tw, t["b"], t["qw"], t["qb"], t["kw"], t["kb"], t["cos"],
-                 t["sin"], QKV_HEADS, eps)
+                 t["sin"], heads, eps)
         out[name] = dict(
-            eps=eps, x=tx, lw=t["lw"], lb=t["lb"],
-            rope=dict(emulation=_qkv(tx, t["lw"], t["lb"], tw, t["b"], QKV_HEADS, eps, norms,
+            eps=eps, x=tx, lw=t["lw"], lb=t["lb"], heads=heads, d=d,
+            rope=dict(emulation=_qkv(tx, t["lw"], t["lb"], tw, t["b"], heads, eps, norms,
                                      t["cos"], t["sin"]),
                       plain=TFQ.fused_ln_qkv_rope_plain(*trope),
                       pallas=JFQ.fused_qkv_kernel(*jrope, eps=eps, block_n=128, interpret=True),
                       reference=JFQ.reference_qkv(*jrope, eps=eps)),
-            plain=dict(emulation=_qkv(tx, t["lw"], t["lb"], tw, t["b"], QKV_HEADS, eps),
-                       plain=TFQ.fused_ln_qkv_plain(tx, t["lw"], t["lb"], tw, t["b"], QKV_HEADS,
+            plain=dict(emulation=_qkv(tx, t["lw"], t["lb"], tw, t["b"], heads, eps),
+                       plain=TFQ.fused_ln_qkv_plain(tx, t["lw"], t["lb"], tw, t["b"], heads,
                                                     eps),
                        pallas=JFQ.fused_qkv_plain_kernel(*jplain, eps=eps, block_n=128,
                                                          interpret=True),
@@ -308,14 +312,14 @@ def test_qkv_emulation_matches(qkv_cases, case, kernel, ref):
 
 def test_qkv_zero_row_and_shapes(qkv_cases):
     """The zero row normalises to the norm's bias in the pre-pass and gives
-    finite q, k, v; every output is (B, H, N, 64)."""
+    finite q, k, v; every output is (B, H, N, d)."""
     for name, c in qkv_cases.items():
         B, N, _ = c["x"].shape
         hn = _ln_prepass(c["x"][0], c["lw"], c["lb"], c["eps"])
         assert torch.equal(hn[ZERO_ROW], c["lb"].to(bf16)), name
         for kernel in ("rope", "plain"):
             for t in c[kernel]["emulation"]:
-                assert t.shape == (B, QKV_HEADS, N, HD)
+                assert t.shape == (B, c["heads"], N, c["d"])
                 assert torch.isfinite(t[0, :, ZERO_ROW].float()).all()
 
 
@@ -324,9 +328,10 @@ def test_qkv_zero_row_and_shapes(qkv_cases):
 
 def _proj(o, x, w, b, gamma, bm: int = WG_M):
     """The out-projection as the kernel computes it: x (B, N, C) + layer-scale
-    of merge_heads(o (B, H, N, 64)) @ w + b. Row tiles of ``bm`` rows walked
+    of merge_heads(o (B, H, N, d)) @ w + b. Row tiles of ``bm`` rows walked
     frame by frame; K slice kt of the tile at row r0 of frame f is the box
-    (0, r0, f H + kt) of o seen as (64, N, B H), zeros past N; fp32
+    (64 (kt % a), r0, f H + kt // a) of o seen as (d, N, B H), a = d / 64
+    slices a head, zeros past N; fp32
     accumulators summed over the slices in order; the residual epilogue
     rb(x + rb(rb(rb(acc) + rb(b)) * rb(gamma))); rows past N not stored.
     Every stored row is written once (the output starts as NaN)."""
@@ -335,12 +340,14 @@ def _proj(o, x, w, b, gamma, bm: int = WG_M):
     slices = o.reshape(B * H, N, d)
     x2 = x.reshape(B * N, C)
     y = torch.full((B * N, C), float("nan"), dtype=bf16)
+    a = d // BK
     for f in range(B):
         for r0 in range(0, N, bm):
             acc = torch.zeros((bm, C), dtype=torch.float32)
-            for kt in range(H):
-                box = torch.zeros((bm, d), dtype=bf16)
-                rows = slices[f * H + kt, r0:r0 + bm]
+            for kt in range(C // BK):
+                box = torch.zeros((bm, BK), dtype=bf16)
+                c0 = BK * (kt % a)
+                rows = slices[f * H + kt // a, r0:r0 + bm, c0:c0 + BK]
                 box[:rows.shape[0]] = rows
                 acc = acc + torch.matmul(box.float(), w[kt * BK:(kt + 1) * BK].float())
             v = _rb(_rb(acc) + _rb(b))
@@ -351,18 +358,20 @@ def _proj(o, x, w, b, gamma, bm: int = WG_M):
     return y.reshape(B, N, C)
 
 
-# (B, H, N): three frames of 200 rows (two tiles each, the second ragged), one
-# frame of 600 rows (five tiles) with four heads (four K slices)
-PROJ_CASES = {"3x200_2heads": (3, 2, 200), "1x600_4heads": (1, 4, 600)}
+# (B, H, N, d): three frames of 200 rows (two tiles each, the second
+# ragged), one frame of 600 rows (five tiles) with four heads (four K
+# slices); at head dim 128 two K slices a head
+PROJ_CASES = {"3x200_2heads": (3, 2, 200, 64), "1x600_4heads": (1, 4, 600, 64),
+              "3x200_2heads_d128": (3, 2, 200, 128)}
 
 
 @pytest.fixture(scope="module")
 def proj_cases():
     out = {}
-    for name, (B, H, N) in PROJ_CASES.items():
-        C = H * HD
-        rng = np.random.default_rng(B * 1000 + N)
-        jo, to = _pair(rng.normal(size=(B, H, N, HD)))
+    for name, (B, H, N, d) in PROJ_CASES.items():
+        C = H * d
+        rng = np.random.default_rng(B * 1000 + N + d)
+        jo, to = _pair(rng.normal(size=(B, H, N, d)))
         jx, tx = _pair(rng.normal(size=(B, N, C)))
         jw, tw = _pair(rng.normal(scale=C**-0.5, size=(C, C)))
         b, gm = (0.1 * rng.normal(size=C)).astype(np.float32), rng.normal(size=C).astype(
@@ -388,16 +397,18 @@ def test_proj_emulation_matches(proj_cases, case, ref):
     _assert_close(c["emulation"], c[ref], _ulps(c[ref], 2), f"out-proj {case} vs {ref}")
 
 
-def _proj_boxes(B: int, N: int, H: int, bm: int = WG_M):
+def _proj_boxes(B: int, N: int, H: int, bm: int = WG_M, d: int = HD):
     """(row tile, frame, r0, the K slices' box coordinates, the stored flat
     rows of each consumer part) of every row tile, as the producer and the
-    consumers of gemm_sm90.cu compute them for E_PROJ."""
+    consumers of gemm_sm90.cu compute them for E_PROJ: at head dim 64 slice
+    kt is head kt, at 128 channels 64 (kt % 2) of head kt / 2."""
     frame_tiles = -(-N // bm)
+    a = d // BK
     out = []
     for mt in range(B * frame_tiles):
         f = mt // frame_tiles
         r0 = (mt - f * frame_tiles) * bm
-        boxes = [(0, r0, f * H + kt) for kt in range(H)]
+        boxes = [(BK * (kt % a), r0, f * H + kt // a) for kt in range(H * a)]
         m_end = (f + 1) * N
         parts = []
         for part in range(bm // WG_M):
@@ -410,6 +421,7 @@ def _proj_boxes(B: int, N: int, H: int, bm: int = WG_M):
 def test_proj_source_follows_the_3d_rule():
     """The lines of the source that the emulation and the walk mirror."""
     for line in ("tma_load_3d(sa, ma, full, 0, r0, f * p.heads + kt);",
+                 "tma_load_3d(sa, ma, full, BK * (kt % (HD / BK)), r0, f * p.heads + kt / (HD / BK));",
                  "const int f = mt / p.frame_tiles, r0 = (mt - f * p.frame_tiles) * BM, "
                  "n0 = nt * BN;",
                  "const int f = mt / p.frame_tiles, m_end = (f + 1) * p.frame_rows;",
@@ -419,34 +431,40 @@ def test_proj_source_follows_the_3d_rule():
                  "p.frame_rows = p.M / frames;",
                  "p.frame_tiles = (p.frame_rows + BM - 1) / BM;",
                  "p.m_tiles = frames * p.frame_tiles;",
-                 "encode_rows64(&ma, a, 3, p.ntok, HD * 2, p.batch * p.heads, 1, 0, BM)",
-                 "SFM_GEMM_KERNEL(proj_residual_sm90_kernel, E_PROJ)"):
+                 "encode_rows64(&ma, a, 3, p.ntok, HD * 2, p.batch * p.heads, 1, 0, BM, HD)",
+                 "SFM_GEMM_KERNEL(proj_residual_sm90_kernel, E_PROJ)",
+                 "SFM_GEMM_KERNEL_HD(proj_residual_d128_sm90_kernel, E_PROJ, HD128)"):
         assert line in SOURCE, line
-    # the shared encoder: dims (64, N, B H), strides a row and a slice, box
+    # the shared encoder: dims (d, N, B H), strides a row and a slice, box
     # (64, BM, 1), rows past N zero-filled
-    for line in ("const cuuint64_t dims[4] = {64, n, slices, layers};",
+    for line in ("const cuuint64_t dims[4] = {width, n, slices, layers};",
                  "const cuuint64_t strides[3] = {row_bytes, n * row_bytes, layer_bytes};",
                  "const cuuint32_t box[4] = {64, box_rows, 1, 1};",
                  "CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE"):
         assert line in COMMON, line
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("pingpong", [True, False])
 @pytest.mark.parametrize("site", list(SITE_SHAPES))
-def test_proj_boxes_stay_in_their_frame(site, pingpong):
-    """At the main path's four sites (16 heads), for the shipped ping-pong
-    tiles and the cooperative variant's 256 rows: no box starts at a negative
-    row or past its frame's rows, each box reads one head of its own frame,
-    and the stored rows of the parts cover every row once, each row in the
-    frame of its tile."""
+def test_proj_boxes_stay_in_their_frame(site, pingpong, d):
+    """At the main path's four sites (16 heads of 64, or 8 of 128), for the
+    shipped ping-pong tiles and the cooperative variant's 256 rows: no box
+    starts at a negative row or past its frame's rows, each box reads one
+    head of its own frame (at head dim 128 both 64-channel halves of each
+    head, in order), and the stored rows of the parts cover every row once,
+    each row in the frame of its tile."""
     B, N = SITE_SHAPES[site]
-    H = C_FULL // HD
+    H = C_FULL // d
+    a = d // BK
     bm = WG_M if pingpong else 2 * WG_M
     stored = []
-    for mt, f, r0, boxes, parts in _proj_boxes(B, N, H, bm):
+    for mt, f, r0, boxes, parts in _proj_boxes(B, N, H, bm, d):
         assert 0 <= r0 < N and r0 % bm == 0
+        assert len(boxes) == C_FULL // BK
         for kt, (c0, c1, c2) in enumerate(boxes):
-            assert (c0, c1) == (0, r0) and c2 == f * H + kt and f * H <= c2 < (f + 1) * H
+            assert (c0, c1) == (BK * (kt % a), r0) and c2 == f * H + kt // a
+            assert f * H <= c2 < (f + 1) * H
         for rows in parts:
             assert all(f * N <= r < (f + 1) * N for r in rows)
             stored += list(rows)
@@ -462,12 +480,12 @@ def test_proj_tiles_and_rounds():
     assert "440 / 880 / 432 tiles" in SOURCE and "3.33 / 6.67 / 3.27 rounds" in SOURCE
 
 
-@pytest.mark.parametrize("heads,d,match", [(3, 64, "multiple of 128"), (8, 128, "head dim 64"),
+@pytest.mark.parametrize("heads,d,match", [(3, 64, "multiple of 128"), (4, 96, "head dim 64"),
                                            (32, 32, "head dim 64")])
 def test_proj_wrapper_refuses_widths_the_body_does_not_take(heads, d, match):
     """Off the CPU the out-projection wrapper refuses what the TMA body does
-    not take: a head dim other than 64 (a K slice is one head), C no multiple
-    of 128 (the output tiles)."""
+    not take: a head dim other than 64 or 128 (a head is one or two K
+    slices), C no multiple of 128 (the output tiles)."""
     C = heads * d
     with pytest.raises(ValueError, match=match):
         TFQ.fused_proj_residual_fwd(_meta(2, heads, 8, d, dtype=bf16), _meta(2, 8, C, dtype=bf16),
@@ -485,19 +503,30 @@ def _owned(warp: int, g: int, t: int):
             for h in range(2) for j in range(BN // 8) for e in range(4)}
 
 
-def test_qkv_epilogue_index_mapping():
+@pytest.mark.parametrize("hd", [64, 128])
+def test_qkv_epilogue_index_mapping(hd):
     """Every cell of a part is one thread's; a quad's values of one (h, hr,
-    hh) are exactly one row of head hh's 64 columns (the qk-norm's sum); the
-    RoPE partner nt +- 2 of a value is its column +- 16 in the same row and
-    thread, inside the same pair of quarters, with rot's sign."""
+    hh) are exactly one row of head hh's hd columns (the qk-norm's sum): two
+    heads a 128-column part at head dim 64, one at 128; the RoPE partner of
+    a value of the first and third quarters, nt + QT, is its column + hd / 4
+    (16 or 32) in the same row and thread, in the next quarter, and the pair
+    turns with rot's signs."""
     for line in ("const int row = m0 + h * 64 + warp * 16 + hr * 8 + g;",
-                 "const int j = 8 * hh + nt;",
+                 "constexpr int HPT = BN / HD;",
+                 "constexpr int NT = HD / 8;",
+                 "constexpr int QT = NT / 4;",
+                 "const int j = NT * hh + nt;",
                  "v[hh][nt][0] = rb(rb(acc[h][4 * j + 2 * hr]) + rb(bias.x));",
-                 "const bool lower = (nt & 2) == 0;",
-                 "const int pn = lower ? nt + 2 : nt - 2;",
-                 "const float r0 = lower ? -v[hh][pn][0] : v[hh][pn][0];"):
+                 "if (nt & QT) continue;  // the pair's second",
+                 "const int pn = nt + QT;",
+                 "v[hh][nt][0] = rb(__fmul_rn(a0, c1.x)) + rb(__fmul_rn(-b0, s1.x));",
+                 "v[hh][pn][0] = rb(__fmul_rn(b0, c2.x)) + rb(__fmul_rn(a0, s2.x));",
+                 "SFM_GEMM_KERNEL_HD(ln_qkv_rope_d128_sm90_kernel, E_QKV_ROPE, HD128)",
+                 "SFM_GEMM_KERNEL_HD(ln_qkv_d128_sm90_kernel, E_QKV, HD128)"):
         assert line in SOURCE, line
     assert (BN, WG_M, HD) == (128, 128, 64) and BN == 2 * HD
+    assert int(_const("HD128")) == 128 == BN
+    hpt, nt_, qt = BN // hd, hd // 8, hd // 32
     cells = {}
     for warp in range(4):
         for g in range(8):
@@ -510,28 +539,30 @@ def test_qkv_epilogue_index_mapping():
         for g in range(8):
             for h in range(2):
                 for hr in range(2):
-                    for hh in range(2):
+                    for hh in range(hpt):
                         quad = set()
                         for t in range(4):
                             own = _owned(warp, g, t)
-                            for nt in range(8):
+                            for nt in range(nt_):
                                 for e in range(2):
-                                    j = 8 * hh + nt
+                                    j = nt_ * hh + nt
                                     row, col = own[(h, 4 * j + 2 * hr + e)]
                                     assert row == h * 64 + warp * 16 + hr * 8 + g
                                     quad.add((row, col))
-                                    lower = (nt & 2) == 0
-                                    pn = nt + 2 if lower else nt - 2
-                                    prow, pcol = own[(h, 4 * (8 * hh + pn) + 2 * hr + e)]
+                                    if nt & qt:
+                                        continue  # the pair's second
+                                    pn = nt + qt
+                                    prow, pcol = own[(h, 4 * (nt_ * hh + pn) + 2 * hr + e)]
                                     assert prow == row
-                                    assert pcol == col + (16 if lower else -16)
-                                    assert (col - 64 * hh) // 32 == (pcol - 64 * hh) // 32
-                                    # rot = (-t2, t1, -t4, t3): a lower quarter
-                                    # takes its upper partner negated
-                                    assert lower == ((col - 64 * hh) // 16 % 2 == 0)
+                                    assert pcol == col + hd // 4
+                                    # rot = (-t2, t1, -t4, t3): the first of a
+                                    # pair in quarter 1 or 3, its partner next
+                                    quarter = (col - hd * hh) // (hd // 4)
+                                    assert quarter in (0, 2)
+                                    assert (pcol - hd * hh) // (hd // 4) == quarter + 1
                         rows = {r for r, _ in quad}
                         assert len(rows) == 1
-                        assert sorted(c for _, c in quad) == list(range(64 * hh, 64 * hh + 64))
+                        assert sorted(c for _, c in quad) == list(range(hd * hh, hd * hh + hd))
 
 
 # -- the persistent tile walk ---------------------------------------------------
@@ -670,11 +701,6 @@ def test_ablation_variants_patch_the_shipped_source(variant):
     before any build), and changes the source unless it is the source."""
     src = ABL.patched_sources({variant: ABL.VARIANTS[variant]})[variant]
     assert (src == SOURCE) == (variant == "as shipped")
-    if variant.startswith("TMA stores"):
-        # staged only when the part's rows lie in one frame: no TMA store at
-        # a negative row
-        assert "const bool staged = m0 / p.ntok == (min(m0 + WG_M, p.M) - 1) / p.ntok;" in src
-        assert "tma_store_3d(map, out_smem + hh * OUT_HEAD_BYTES, 0, m0 - b * p.ntok," in src
 
 
 def _meta(*shape, dtype=torch.float32):
@@ -684,13 +710,14 @@ def _meta(*shape, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("kernel", ["rope", "plain"])
-@pytest.mark.parametrize("C,heads,match", [(640, 10, "multiple of 256"),
-                                           (1024, 8, "head dim 64"),
+@pytest.mark.parametrize("C,heads,match", [(448, 7, "even head count"),
+                                           (1024, 4, "head dim 64"),
                                            (1024, 32, "head dim 64")])
 def test_qkv_wrappers_refuse_widths_the_body_does_not_take(kernel, C, heads, match):
     """Off the CPU the LN+QKV wrappers refuse what the TMA body does not take:
-    head dim other than 64, C no multiple of 256 (the pre-pass's steps; 3C is
-    then a multiple of 128, the tiles)."""
+    a head dim other than 64 or 128, an odd head count at head dim 64 (a
+    128-column tile would straddle two of q, k, v; 3C is then no multiple of
+    128, the tiles)."""
     d = C // heads
     x, w = _meta(2, 8, C, dtype=bf16), _meta(C, 3 * C, dtype=bf16)
     common = (x, _meta(C), _meta(C), w, _meta(3 * C))
@@ -700,18 +727,19 @@ def test_qkv_wrappers_refuse_widths_the_body_does_not_take(kernel, C, heads, mat
                                       _meta(8, d), _meta(8, d), heads)
         else:
             TFQ.fused_ln_qkv_fwd(*common, heads)
-    # what the body takes: the main path's widths, and C = 768 (3C = 2304)
-    for c_ok, h_ok in ((1024, 16), (768, 12)):
+    # what the body takes: the main path's widths, C = 768 (3C = 2304), C =
+    # 384 (vit_small, 6 heads of 64) and 8 heads of 128
+    for c_ok, h_ok in ((1024, 16), (768, 12), (384, 6), (1024, 8)):
         TFQ._check_widths("fused_ln_qkv", head_dim=c_ok // h_ok, C=c_ok)
         TFQ._check_tile_widths("fused_ln_qkv", c_ok, 3 * c_ok)
 
 
-@pytest.mark.parametrize("C,hidden,ok", [(1024, 4096, True), (128, 4096, False),
+@pytest.mark.parametrize("C,hidden,ok", [(1024, 4096, True), (96, 4096, False),
                                          (1024, 4160, False)])
 def test_wrappers_refuse_widths_the_body_does_not_take(C, hidden, ok):
     """On a CUDA tensor the MLP wrappers check the widths the GEMM body and
     its pre-pass take (checked before anything is built, so here without a
-    card): 128-column tiles, 256-channel steps of the layer norm."""
+    card): 128-column tiles, K slices of 64."""
     if ok:
         TFQ._check_tile_widths("fused_mlp_up", C, hidden)
     else:
@@ -807,34 +835,36 @@ def test_qkv_head_shard_at_every_head_is_the_whole_kernel(shard_inputs):
     assert all(torch.equal(u, w) for u, w in zip(a, b))
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("hl", [8, 4, 2, 1, 3, 5])
-def test_qkv_head_shard_widths_and_routes(hl):
+def test_qkv_head_shard_widths_and_routes(hl, d):
     """The head-shard form on meta tensors (the card's checks, raising
-    before any build): x (B, N, 1024) and w (1024, 3 Hl 64); an odd Hl
-    refuses (a 128-column tile would straddle q | k); the predicate
-    ``qkv_kernel_takes(C, Hl)`` and the "auto" gates of ``layers/block.py``
-    agree with it, given the true C and Hl (not the shard's C / m)."""
+    before any build): x (B, N, 1024) and w (1024, 3 Hl d); at head dim 64
+    an odd Hl refuses (a 128-column tile would straddle q | k), at 128 a
+    tile is one head and every Hl is taken; the predicate
+    ``qkv_kernel_takes(C, Hl, d)`` and the "auto" gates of
+    ``layers/block.py`` agree with it, given the true C and Hl (not the
+    shard's C / m)."""
     from self_supervise_sfm_tpu_torch.layers import block as TB
 
-    C, H = C_FULL, C_FULL // HD
-    takes = hl % 2 == 0
-    assert TFQ.qkv_kernel_takes(C, hl) == takes
-    assert not TFQ.qkv_kernel_takes(C, hl, head_dim=128)
-    nout = 3 * hl * HD
+    C, H = C_FULL, C_FULL // d
+    takes = d == 128 or hl % 2 == 0
+    assert TFQ.qkv_kernel_takes(C, hl, head_dim=d) == takes
+    nout = 3 * hl * d
     x, w = _meta(2, 8, C, dtype=bf16), _meta(C, nout, dtype=bf16)
     if takes:
-        assert TFQ._qkv_widths("fused_ln_qkv", x, w, hl) == HD
+        assert TFQ._qkv_widths("fused_ln_qkv", x, w, hl) == d
     else:
         with pytest.raises(ValueError, match="even head count"):
             TFQ.fused_ln_qkv_fwd(x, _meta(C), _meta(C), w, _meta(nout), hl)
         with pytest.raises(ValueError, match="even head count"):
-            TFQ.fused_ln_qkv_rope_fwd(x, _meta(C), _meta(C), w, _meta(nout), _meta(HD),
-                                      _meta(HD), _meta(HD), _meta(HD), _meta(8, HD),
-                                      _meta(8, HD), hl)
+            TFQ.fused_ln_qkv_rope_fwd(x, _meta(C), _meta(C), w, _meta(nout), _meta(d),
+                                      _meta(d), _meta(d), _meta(d), _meta(8, d),
+                                      _meta(8, d), hl)
     cfg = TB.BlockConfig(dim=C, num_heads=H, qk_norm=True)
     p = {"norm1": {}, "attn": {"qkv": {"w": w, "b": _meta(nout)}, "q_norm": {}, "k_norm": {}}}
     assert TB.local_heads(p, cfg) == hl
-    rope = (_meta(8, HD), _meta(8, HD))
+    rope = (_meta(8, d), _meta(8, d))
     assert TB._fused_qkv_applicable(p, cfg, x, rope) == takes
     vit = TB.BlockConfig(dim=C, num_heads=H)
     assert TB._fused_qkv_plain_applicable(p, vit, x) == takes

@@ -112,6 +112,9 @@ def test_pose_decode_without_intrinsics_matches_jax(rng):
 N = 1374  # a 518 px frame's tokens
 FLASH, QKV_ROPE, QKV = "sfm_flash_fwd_bf16", "sfm_ln_qkv_rope_sm90", "sfm_ln_qkv_sm90"
 PROJ, UP, DOWN = "sfm_proj_residual_sm90", "sfm_mlp_up_sm90", "sfm_mlp_down_sm90"
+# the head dim 128 forms
+FLASH_D128, QKV_ROPE_D128 = "sfm_flash_fwd_d128_bf16", "sfm_ln_qkv_rope_d128_sm90"
+QKV_D128, PROJ_D128 = "sfm_ln_qkv_d128_sm90", "sfm_proj_residual_d128_sm90"
 
 
 @pytest.fixture
@@ -138,38 +141,48 @@ def _meta_block(C, heads, form, mode, device="meta", dtype=torch.bfloat16):
 
 
 # (C, heads) -> the kernels of a frame block under "auto" (the ViT block
-# the same with LN+QKV in place of LN+QKV+RoPE): head dim 64 with C a
-# multiple of 256 takes every kernel; the out-projection takes C a
-# multiple of 128 at head dim 64; the MLP pair takes C a multiple of 256
-# whatever the heads; attention at head dim 128 routes dense
-TAKEN = {(1024, 16): [QKV_ROPE, FLASH, PROJ, UP, DOWN],
-         (768, 12): [QKV_ROPE, FLASH, PROJ, UP, DOWN],
-         (1536, 24): [QKV_ROPE, FLASH, PROJ, UP, DOWN],
-         (1024, 8): [UP, DOWN],
-         (640, 10): [FLASH, PROJ],
-         (384, 6): [FLASH, PROJ]}
+# the same with LN+QKV in place of LN+QKV+RoPE): head dim 64 with an even
+# head count, or head dim 128, takes every kernel at C a multiple of 128
+# (1024 / 8 on the head dim 128 forms); head dim 32 or 96 takes the MLP
+# pair alone (no head condition) and routes attention dense; an odd head
+# count of 64 takes K1 alone, since LN+QKV(+RoPE) needs an even count and
+# the out-projection and the MLP pair a C that is a multiple of 128
+ALL = [QKV_ROPE, FLASH, PROJ, UP, DOWN]
+TAKEN = {(1024, 16): ALL,
+         (768, 12): ALL,
+         (1536, 24): ALL,
+         (1024, 8): [QKV_ROPE_D128, FLASH_D128, PROJ_D128, UP, DOWN],
+         (640, 10): ALL,
+         (384, 6): ALL,
+         (1024, 32): [UP, DOWN],
+         (320, 5): [FLASH],
+         (384, 4): [UP, DOWN]}
 
 
 @pytest.mark.parametrize("form", ["frame", "vit"])
 @pytest.mark.parametrize("C,heads", list(TAKEN))
 def test_auto_routes_widths_the_fused_kernels_do_not_take_plain(launches, C, heads, form):
     out = _meta_block(C, heads, form, "auto")()
-    want = [QKV if (n == QKV_ROPE and form == "vit") else n for n in TAKEN[(C, heads)]]
+    vit = {QKV_ROPE: QKV, QKV_ROPE_D128: QKV_D128} if form == "vit" else {}
+    want = [vit.get(n, n) for n in TAKEN[(C, heads)]]
     assert launches == want
     assert out.shape == (2, N, C) and out.dtype == torch.bfloat16 and out.device.type == "meta"
 
 
-REFUSED = [(1024, 8), (640, 10), (384, 6)]
+# widths LN+QKV(+RoPE) refuses: head dim 32 and 96, an odd head count of
+# 64; in fp32 also head dim 128, which has a bf16 form only
+REFUSED = [(1024, 32), (320, 5), (384, 4)]
+REFUSED_F32 = [(1024, 8), (320, 5), (384, 4)]
 
 
 @pytest.mark.parametrize("C,heads,dtype", [
     *(pytest.param(C, h, torch.bfloat16, id=f"{C}-{h}") for C, h in REFUSED),
-    *(pytest.param(C, h, torch.float32, id=f"{C}-{h}-fp32") for C, h in REFUSED)])
+    *(pytest.param(C, h, torch.float32, id=f"{C}-{h}-fp32") for C, h in REFUSED_F32)])
 def test_on_meets_the_fused_kernels_refusal(launches, C, heads, dtype):
     """"on" asks for the kernels whatever the width, in bf16 or in fp32 (each
     has a form in either): it raises, and is not turned into the plain
     chain."""
-    with pytest.raises(ValueError, match="head dim 64|multiple of 256"):
+    with pytest.raises(ValueError, match="head dim 64|even head count"):
         _meta_block(C, heads, "frame", "on", dtype=dtype)()
     assert launches == []
 
