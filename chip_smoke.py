@@ -66,7 +66,10 @@ Phases, each of which must pass (any failure exits non-zero):
    1024): K1 at the ViT, frame and global sites, K2 at the reloc site, K2p
    at layers 0 and 23 of the 5-anchor cache, K1m at the 5-query mask form,
    LN+QKV+RoPE, LN+QKV and the out-projection at the ViT, frame, reloc and
-   global sites, each against its plain version at the head dim 64
+   global sites, B9's dq and dk/dv at the train step's sites of 8 heads
+   (unmasked, the split's two calls, RelocMask(610, 1374, 2) and
+   RelocMask(1525, 1374, 5), the edges of the tiling) beside SDPA's
+   backward at d = 128, each against its plain version at the head dim 64
    tolerances, a repeat bit-equal, timed as above (``check_d128_kernels``);
 3. the full-width joint forward: ViT-L/14 + 24 aggregator layers at 518 px,
    bf16 trunk and fp32 heads, 5 anchors + the same 5 images as queries,
@@ -135,6 +138,19 @@ Phases, each of which must pass (any failure exits non-zero):
    the fused block kernels on (``fused_qkv="on", fused_mlp="on"``): launch
    counts, loss and gradients against the fp32 plain step (loss rtol 1e-4,
    gradient rel-RMS and norms 1e-3 a subsystem), time and peak in turns.
+
+5b. head dim 128 training: phase 5's step at 8 heads of 128
+   (``make_config(num_heads=8, compute_dtype="bfloat16", remat=True)``, the
+   trainer's ``--num-heads 8``) on a state of its own seed: the launch
+   counts of one step against phase 5's under the head dim 128 names
+   (``D128_TRAIN_STEP_LAUNCHES``: B9's dq and dk/dv 120 each, no dense
+   attention), four steps (the first at learning rate 0), finite losses and
+   gradient norms, the gradients against its own plain path within twice
+   its bf16-vs-fp32 envelope, the step timed in turns against phase 5's
+   flagship step and against its dense route, the peak with both states
+   resident, one profiled step (device busy and B9's device ms, beside
+   phase 5's profiled step). Its launch counts are the kernel line's
+   "train_d128" path (``run_train_d128``).
 
 6. the trainer (``train/trainer.py:run``) around phase 5's full-width step,
    on numpy-made synthetic scenes at 518 px (no ``h5py`` needed; artifact
@@ -260,7 +276,8 @@ Phases, each of which must pass (any failure exits non-zero):
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2,
 ``--until-serving`` after phase 4b, ``--d128-only`` runs the build, phase
-2's head dim 128 checks and phase 4b (with a flagship of its own);
+2's head dim 128 checks, phase 4b and phase 5b (each with a flagship of its
+own);
 ``--train-only`` runs phase 5 alone after the build, ``--trainer-only``
 phases 5 and 6, ``--demo-only`` phase 7, ``--converter-only`` phase 8,
 ``--sharded-only`` phase 9, ``--sharded-train-only`` phase 10 and
@@ -318,7 +335,8 @@ F32_GEMM_SOURCE = "self_supervise_sfm_tpu_torch/csrc/gemm_f32.cu"
 # the kernels with a head dim, built at 64 and at 128 (on the Hopper bodies
 # above); at 128 each counts its launches apart, under its name + "_d128"
 D128_KERNELS = ("flash_fwd", "frame_ctx_fwd", "frame_ctx_packed_fwd", "flash_fwd_reloc",
-                "fused_ln_qkv_rope", "fused_ln_qkv", "fused_proj_residual")
+                "fused_ln_qkv_rope", "fused_ln_qkv", "fused_proj_residual", "flash_bwd_dq",
+                "flash_bwd_dkv")
 
 
 # launches of each kernel wrapper in one call at full width (depth 24, 5
@@ -403,6 +421,8 @@ D128_FORWARD_LAUNCHES = _d128(FORWARD_LAUNCHES)
 D128_BUILD_LAUNCHES = _d128(BUILD_LAUNCHES)
 D128_RELOC_LAUNCHES = _d128(RELOC_LAUNCHES)
 D128_FAST_RELOC_LAUNCHES = _d128(FAST_RELOC_LAUNCHES)
+# phase 5b: phase 5's step at 8 heads of 128, B9 on its head dim 128 entries
+D128_TRAIN_STEP_LAUNCHES = _d128(TRAIN_STEP_LAUNCHES)
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -451,6 +471,10 @@ _KERNEL_CLASSES = (
     ("flash_bwd_dkv fp32 (B9)", ("flash_bwd_dkv_f32_kernel", "flash_bwd_dkv_reloc_f32_kernel")),
     ("flash_bwd_dq (B9)", ("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_reloc_sm90_kernel")),
     ("flash_bwd_dkv (B9)", ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_reloc_sm90_kernel")),
+    ("flash_bwd_dq d128 (B9)", ("flash_bwd_dq_d128_sm90_kernel",
+                                "flash_bwd_dq_reloc_d128_sm90_kernel")),
+    ("flash_bwd_dkv d128 (B9)", ("flash_bwd_dkv_d128_sm90_kernel",
+                                 "flash_bwd_dkv_reloc_d128_sm90_kernel")),
     ("frame_ctx_fwd (K2)", ("frame_ctx_fwd_kernel",)),
     ("frame_ctx_kv2_fwd (K2p)", ("frame_ctx_kv2_fwd_kernel",)),
     ("flash_fwd_reloc (K1m)", ("flash_fwd_reloc_sm90_kernel",)),
@@ -590,7 +614,11 @@ def print_sm90_build() -> None:
               f"(consumers)")
     for which, name in enumerate(("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
                                   "flash_bwd_dq_reloc_sm90_kernel",
-                                  "flash_bwd_dkv_reloc_sm90_kernel")):
+                                  "flash_bwd_dkv_reloc_sm90_kernel",
+                                  "flash_bwd_dq_d128_sm90_kernel",
+                                  "flash_bwd_dkv_d128_sm90_kernel",
+                                  "flash_bwd_dq_reloc_d128_sm90_kernel",
+                                  "flash_bwd_dkv_reloc_d128_sm90_kernel")):
         info = (ctypes.c_int * 8)()
         rc = lib.sfm_flash_bwd_sm90_info(which, info)
         if rc != 0:
@@ -905,12 +933,16 @@ def check_d128_kernels(randn, ulps):
     against a (1, 8, 1525, 128) context, K2p at layers 0 and 23 of the
     5-anchor cache (24, 1, 8, 1525, 256), K1m at the 5-query mask form (8,
     6870) x (8, 8395), LN+QKV+RoPE, LN+QKV and the out-projection at C 1024
-    in 8 heads at the ViT, frame, reloc and global sites. Each against its
-    plain version at phase 2's tolerances (attention 4 ulps at the largest
-    output, lse within 1e-4; the fused blocks 4 ulps for q / k, 2 for v and
-    the out-projection), a repeat bit-equal, timed a call and back to back
-    beside its bound (the same operations as the head dim 64 site), its
-    plain version and its library call (SDPA at d = 128; the replaced chain
+    in 8 heads at the ViT, frame, reloc and global sites, then B9's dq and
+    dk/dv at the train step's sites of 8 heads (``check_backward_kernels``:
+    the ViT, frame, global and the split's two sites, RelocMask(610, 1374,
+    2) and RelocMask(1525, 1374, 5), the edges of the tiling). Each against
+    its plain version at phase 2's tolerances (attention 4 ulps at the
+    largest output, lse within 1e-4; the fused blocks 4 ulps for q / k, 2
+    for v and the out-projection; B9 4 ulps at the largest |gradient|), a
+    repeat bit-equal, timed a call and back to back beside its bound (the
+    same operations as the head dim 64 site), its plain version and its
+    library call (SDPA at d = 128, its backward for B9; the replaced chain
     for the fused blocks)."""
     N = (IMG // 14) ** 2 + 5
     sites = [flash_site(randn, ulps, site, bh, n, d=128)
@@ -927,6 +959,7 @@ def check_d128_kernels(randn, ulps):
     results.append(frame_ctx_site(randn, ulps, H=8, d=128))
     results += check_serving_kernels(randn, ulps, H=8, d=128)
     results += check_fused_kernels(randn, ulps, C=1024, H=8, mlp=False)
+    results += check_backward_kernels(randn, ulps, H=8, d=128)
     return results
 
 
@@ -2067,9 +2100,10 @@ def check_reloc_edges(randn, ulps):
 TRAIN_FRAMES = 2  # frames a scene on the train step (bench.py:bench_train's S)
 
 
-def check_backward_kernels(randn, ulps):
+def check_backward_kernels(randn, ulps, H=16, d=64):
     """Phase 2, the two B9 kernels (dq; dk/dv) of the Hopper backward body at
-    the train step's shapes: the ViT, frame and global sites and the two
+    the train step's shapes (H heads of d: 16 of 64, or 8 of 128, whose
+    entries are named "_d128"): the ViT, frame and global sites and the two
     calls of the frame-context split (own frame, and the broadcast context
     with an lse cotangent), and their RelocMask forms at reloc layer 0's
     shape and at the 5-query shape of phase 4's mask-form check. Inputs:
@@ -2090,7 +2124,8 @@ def check_backward_kernels(randn, ulps):
     from self_supervise_sfm_tpu_torch.ops import flash_attention as FA
     from self_supervise_sfm_tpu_torch.ops.mask_spec import RelocMask
 
-    S, H, d = TRAIN_FRAMES, 16, 64
+    S = TRAIN_FRAMES
+    sfx = "_d128" if d == 128 else ""
     P = (IMG // 14) ** 2 + 5
     nc = S * (RANK + 5)
     nc5 = NUM_FRAMES * (RANK + 5)
@@ -2107,9 +2142,11 @@ def check_backward_kernels(randn, ulps):
     # the Hopper body at the edges of its tiling first: one q row (against
     # three keys: with one key every gradient is 0 up to rounding noise, no
     # scale for an ulp tolerance), ragged q and key tiles on both sides, fewer keys than q rows, a
-    # second warpgroup with no row inside nq; with and without dlse
-    for bh, nq, nk, with_dlse in ((2, 1, 3, False), (3, 130, 77, True), (2, 257, 130, False),
-                                  (1, 200, 333, True), (2, 64, 64, False)):
+    # second warpgroup with no row inside nq; with and without dlse; at head
+    # dim 128 also q and key counts inside its 32-row and 64-key tiles
+    edges = [(2, 1, 3, False), (3, 130, 77, True), (2, 257, 130, False), (1, 200, 333, True),
+             (2, 64, 64, False)] + ([(2, 33, 65, True)] if d == 128 else [])
+    for bh, nq, nk, with_dlse in edges:
         q, do, k, v = randn(bh, nq, d), randn(bh, nq, d), randn(bh, nk, d), randn(bh, nk, d)
         o, lse = FA.flash_fwd(q, k, v)
         dlse = randn(bh, nq, dtype=torch.float32) if with_dlse else None
@@ -2117,7 +2154,8 @@ def check_backward_kernels(randn, ulps):
         torch.cuda.synchronize()
         refs = FA.flash_bwd_plain(q, k, v, o, lse, do, dlse)
         for label, g, r in zip(("dq", "dk", "dv"), grads, refs):
-            _check(f"flash_bwd edge ({bh}, {nq}, {nk}){' dlse' if with_dlse else ''} {label}",
+            _check(f"flash_bwd{sfx} edge ({bh}, {nq}, {nk}){' dlse' if with_dlse else ''} "
+                   f"{label}",
                    float((g.float() - r.float()).abs().max()), ulps(r, 4))
     # the RelocMask forms at the edges of their work tiles: context and frame
     # tails at both kinds of boundary, no context, one-row frames, whole
@@ -2134,9 +2172,9 @@ def check_backward_kernels(randn, ulps):
             torch.cuda.synchronize()
             refs = FA.flash_bwd_plain(q, k, v, o, lse, do, dlse, mask)
             for label, g, r in zip(("dq", "dk", "dv"), grads, refs):
-                _check(f"flash_bwd edge {mask}{' dlse' if with_dlse else ''} {label}",
+                _check(f"flash_bwd{sfx} edge {mask}{' dlse' if with_dlse else ''} {label}",
                        float((g.float() - r.float()).abs().max()), ulps(r, 4))
-    rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+    rows = {f"flash_bwd_dq{sfx}": [], f"flash_bwd_dkv{sfx}": []}
     for site, bh, nq, nk, with_dlse, mask in sites:
         q, do = randn(bh, nq, d), randn(bh, nq, d)
         k, v = randn(bh, nk, d), randn(bh, nk, d)
@@ -2148,13 +2186,15 @@ def check_backward_kernels(randn, ulps):
         errs = {}
         for label, g, r in zip(("dq", "dk", "dv"), grads, refs):
             errs[label] = float((g.float() - r.float()).abs().max())
-            _check(f"flash_bwd[{site}] {label} {tuple(g.shape)}", errs[label], ulps(r, 4))
+            _check(f"flash_bwd{sfx}[{site}] {label} {tuple(g.shape)}", errs[label],
+                   ulps(r, 4))
         if site in ("global", "reloc 5 queries, RelocMask"):
             again = FA.flash_bwd(q, k, v, o, lse, do, dlse, mask)
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-                raise AssertionError(f"flash_bwd[{site}]: a second backward is not bit-equal")
-            print(f"  flash_bwd[{site}]: a second backward bit-equal to the first")
+                raise AssertionError(f"flash_bwd{sfx}[{site}]: a second backward is not "
+                                     f"bit-equal")
+            print(f"  flash_bwd{sfx}[{site}]: a second backward bit-equal to the first")
             del again
         delta = FA._delta(o, do, dlse).contiguous()
         # allowed pairs a head
@@ -2175,17 +2215,17 @@ def check_backward_kernels(randn, ulps):
         dq_fn = lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, mask)  # noqa: E731
         dkv_fn = lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, mask)  # noqa: E731
         b_dq, by_dq = _bound_ms(3 * 2.0 * bh * pairs * d, io + q.numel() * 2)
-        rows["flash_bwd_dq"].append(dict(
+        rows[f"flash_bwd_dq{sfx}"].append(dict(
             common, max_abs_err=errs["dq"], bound_ms=b_dq, bound_by=by_dq,
             ms=_time_ms(dq_fn), back_to_back_ms=_back_to_back_ms(dq_fn)))
         b_kv, by_kv = _bound_ms(4 * 2.0 * bh * pairs * d, io + 2 * k.numel() * 2)
-        rows["flash_bwd_dkv"].append(dict(
+        rows[f"flash_bwd_dkv{sfx}"].append(dict(
             common, max_abs_err=max(errs["dk"], errs["dv"]), bound_ms=b_kv, bound_by=by_kv,
             ms=_time_ms(dkv_fn), back_to_back_ms=_back_to_back_ms(dkv_fn)))
         del q, k, v, do, o, lse, grads, refs, out, qm, km, vm
         torch.cuda.empty_cache()
     results = []
-    for name, line in (("flash_bwd_dq", 332), ("flash_bwd_dkv", 349)):
+    for name, line in ((f"flash_bwd_dq{sfx}", 332), (f"flash_bwd_dkv{sfx}", 349)):
         ss = rows[name]
         for s_ in ss:
             print(f"  {name}[{s_['site']}] {s_['shape']}: kernel {s_['ms']:.4f} ms, b2b "
@@ -2194,11 +2234,14 @@ def check_backward_kernels(randn, ulps):
                   f"{s_['bound_ms'] / s_['back_to_back_ms'] * PEAK_BF16_FLOPS / 1e12:.0f} "
                   f"TFLOP/s), plain backward {s_['plain_ms']:.4f} ms")
         path = [s_ for s_ in ss if not s_["masked"]]
+        kind = name.split("_")[2]
+        hd = "d128_" if d == 128 else ""
         results.append(dict(
             name=name, route="cuda",
             source="self_supervise_sfm_tpu_torch/csrc/flash_bwd_sm90.cu",
             # the RelocMask form (0 launches on every path), the same body
             masked_source="self_supervise_sfm_tpu_torch/csrc/flash_bwd_sm90.cu",
+            entries=[f"sfm_flash_bwd_{kind}_{hd}sm90", f"sfm_flash_bwd_{kind}_reloc_{hd}sm90"],
             replaces=f"self_supervise_sfm_tpu/ops/flash_attention.py:{line}",
             # one call at each unmasked site of the train step; plain_ms and
             # library_ms compute all three gradients
@@ -2207,9 +2250,9 @@ def check_backward_kernels(randn, ulps):
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             bound_by=path[-1]["bound_by"], sites=ss))
     # the pair against SDPA's whole backward, a call and back to back
-    for a, b in zip(rows["flash_bwd_dq"], rows["flash_bwd_dkv"]):
+    for a, b in zip(rows[f"flash_bwd_dq{sfx}"], rows[f"flash_bwd_dkv{sfx}"]):
         call, b2b = a["ms"] + b["ms"], a["back_to_back_ms"] + b["back_to_back_ms"]
-        print(f"  flash_bwd pair[{a['site']}]: {call:.4f} ms a call, {b2b:.4f} ms b2b; SDPA "
+        print(f"  flash_bwd{sfx} pair[{a['site']}]: {call:.4f} ms a call, {b2b:.4f} ms b2b; SDPA "
               f"backward {a['library_ms']:.4f} / {a['library_back_to_back_ms']:.4f} ms; pair / "
               f"SDPA {call / a['library_ms']:.2f} a call, {b2b / a['library_back_to_back_ms']:.2f} "
               f"b2b")
@@ -2275,7 +2318,9 @@ def kernel_wrappers() -> dict:
             "flash_fwd_reloc_d128": _D128Launches(FA.flash_fwd_reloc),
             "fused_ln_qkv_rope_d128": _D128Launches(FQ.fused_ln_qkv_rope_fwd),
             "fused_ln_qkv_d128": _D128Launches(FQ.fused_ln_qkv_fwd),
-            "fused_proj_residual_d128": _D128Launches(FQ.fused_proj_residual_fwd)}
+            "fused_proj_residual_d128": _D128Launches(FQ.fused_proj_residual_fwd),
+            "flash_bwd_dq_d128": _D128Launches(FA.flash_bwd_dq),
+            "flash_bwd_dkv_d128": _D128Launches(FA.flash_bwd_dkv)}
 
 
 def run_forward(gen):
@@ -3450,7 +3495,40 @@ def make_train_batch():
     return batch, extr, intr.astype(f32)
 
 
-def run_train():
+def _hold_bf16_grads(label, gk, gp, gf, expect):
+    """A bf16 step's gradients on the kernel path (``gk``) against its plain
+    path's (``gp``), each subsystem (ViT, aggregator, camera head) by
+    rel-RMS and norm within twice the plain path's distance from the fp32
+    plain path (``gf``); the numbers, the subsystems and the rel-RMS."""
+    from self_supervise_sfm_tpu_torch.train import loop as L
+
+    subsystems = {
+        "vit": lambda g: L._flatten(g["aggregator"]["vit"]),
+        "agg": lambda g: L._flatten({k: x for k, x in g["aggregator"].items() if k != "vit"}),
+        "camera": lambda g: L._flatten(g["camera_head"]),
+    }
+
+    def rel(a, b):
+        num = sum(float((x.float() - y.float()).pow(2).sum()) for x, y in zip(a, b))
+        return math.sqrt(num) / float(L.global_norm(b))
+
+    grads = {}
+    for name, part in subsystems.items():
+        a, b, c = part(gk), part(gp), part(gf)
+        err, env = rel(a, b), rel(b, c)
+        na, nb = float(L.global_norm(a)), float(L.global_norm(b))
+        norm_err = abs(na - nb) / nb
+        grads[name] = dict(rel_rms=err, envelope=env, norm_kernel=na, norm_plain=nb,
+                           norm_rel_err=norm_err)
+        print(f"  {label}gradient {name}: kernel vs plain rel-RMS {err:.4e}, norm {na:.6g} vs "
+              f"{nb:.6g} (rel {norm_err:.4e}); plain bf16 vs fp32 {env:.4e} "
+              f"(tolerance 2x that)")
+        expect(err <= 2 * env, f"{label}gradient {name}: {err} over twice the envelope {env}")
+        expect(norm_err <= 2 * env, f"{label}gradient norm {name}: {norm_err} over twice {env}")
+    return grads, subsystems, rel
+
+
+def run_train(keep: bool = False):
     """Phase 5: the self-supervised train step at full width (ViT-L/14 and
     24 aggregator layers, 518 px, 2 frames a scene duplicated as anchors and
     queries, rank 300, bf16 trunk on fp32 masters, fp32 camera head, Adam
@@ -3462,7 +3540,9 @@ def run_train():
     plain path's (dense attention, fused kernels off) within twice the
     bf16-vs-fp32 envelope the plain path measures; then times, peak memory
     and a profile of one step. Then the same step in the default
-    configuration (fp32, "auto", :func:`run_train_default`)."""
+    configuration (fp32, "auto", :func:`run_train_default`). ``keep``: leave
+    the step, its state, batch and subsample in ``PHASE5["live"]`` for
+    phase 5b's turns."""
     import torch
 
     from self_supervise_sfm_tpu_torch.models import aggregator as AG
@@ -3491,10 +3571,7 @@ def run_train():
     # reference model (tests/test_train_step.py): a small pose-branch output
     # whose bias sums to a unit quaternion and 1 rad fields of view over the
     # 4 iterations, so the residuals start inside the CDF's range
-    fc2 = params["camera_head"]["pose_branch"]["fc2"]
-    fc2["w"].mul_(0.01)
-    fc2["b"].mul_(0.01)
-    fc2["b"][[3, 7, 8]] = 0.25
+    _condition_pose_branch(params)
     n_params = sum(t.numel() for t in L._flatten(params))
     n_trained = sum(t.numel() for k in ("aggregator", "camera_head")
                     for t in L._flatten(params[k]))
@@ -3580,29 +3657,7 @@ def run_train():
     n_kernel = sum(w.launches for w in wrappers.values())
     print(f"  loss: kernel path {float(loss_k):.6f}, plain {float(loss_p):.6f}, "
           f"plain fp32 {float(loss_f):.6f}")
-    subsystems = {
-        "vit": lambda g: L._flatten(g["aggregator"]["vit"]),
-        "agg": lambda g: L._flatten({k: x for k, x in g["aggregator"].items() if k != "vit"}),
-        "camera": lambda g: L._flatten(g["camera_head"]),
-    }
-
-    def rel(a, b):
-        num = sum(float((x.float() - y.float()).pow(2).sum()) for x, y in zip(a, b))
-        return math.sqrt(num) / float(L.global_norm(b))
-
-    grads = {}
-    for name, part in subsystems.items():
-        a, b, c = part(gk), part(gp), part(gf)
-        err, env = rel(a, b), rel(b, c)
-        na, nb = float(L.global_norm(a)), float(L.global_norm(b))
-        norm_err = abs(na - nb) / nb
-        grads[name] = dict(rel_rms=err, envelope=env, norm_kernel=na, norm_plain=nb,
-                           norm_rel_err=norm_err)
-        print(f"  gradient {name}: kernel vs plain rel-RMS {err:.4e}, norm {na:.6g} vs "
-              f"{nb:.6g} (rel {norm_err:.4e}); plain bf16 vs fp32 {env:.4e} "
-              f"(tolerance 2x that)")
-        expect(err <= 2 * env, f"gradient {name}: {err} over twice the envelope {env}")
-        expect(norm_err <= 2 * env, f"gradient norm {name}: {norm_err} over twice {env}")
+    grads, subsystems, rel = _hold_bf16_grads("", gk, gp, gf, expect)
     del gk, gp
     default = run_train_default(params, tcfg, batch, idx, float(loss_f), gf, subsystems, rel,
                                 grads, expect)
@@ -3643,6 +3698,8 @@ def run_train():
     print(f"  train step: {step_s * 1e3:.2f} ms median of {len(times)} "
           f"({[round(t * 1e3, 2) for t in times]}), {1 / step_s:.4f} steps/s, "
           f"peak memory {peak_gb:.2f} GB")
+    if keep:
+        PHASE5["live"] = dict(step=step, state=state, batch=batch, indices=indices)
     return launches, dict(
         default=default, on_f32=on_f32,
         step_ms=step_s * 1e3, steps_per_s=1 / step_s, times_ms=[t * 1e3 for t in times],
@@ -3651,6 +3708,182 @@ def run_train():
         metrics=[{k: float(x) for k, x in m.items()} for m in metrics],
         gradients=grads, remat=remat, loss_kernel=float(loss_k), loss_plain=float(loss_p),
         loss_f32=float(loss_f), profile=profile, b9_device_ms=b9)
+
+
+def _condition_pose_branch(params) -> None:
+    """Phase 5's conditioning of a fresh state: a small pose-branch output
+    whose bias sums to a unit quaternion and 1 rad fields of view over the 4
+    iterations, so the residuals start inside the CDF's range."""
+    fc2 = params["camera_head"]["pose_branch"]["fc2"]
+    fc2["w"].mul_(0.01)
+    fc2["b"].mul_(0.01)
+    fc2["b"][[3, 7, 8]] = 0.25
+
+
+def run_train_d128(live=None, flagship_busy_ms=None):
+    """Phase 5b: phase 5's train step at 8 heads of 128
+    (``make_config(num_heads=8, compute_dtype="bfloat16", remat=True)``, the
+    trainer's ``--num-heads 8``) on a state of its own seed, phase 5's batch
+    and subsample draws: the launch counts of one step against
+    ``D128_TRAIN_STEP_LAUNCHES`` (phase 5's under the head dim 128 names, B9
+    among them: no dense attention left), four steps (the first at learning
+    rate 0) with finite losses and gradient norms, the gradients against the
+    plain path of the same configuration (dense attention, fused blocks off)
+    within twice its bf16-vs-fp32 envelope, the step timed in turns against
+    phase 5's flagship step (``live``: ``PHASE5["live"]``, or a flagship
+    state made here) and against its own dense route (``attn_impl="dense",
+    global_attn_impl="dense"``), the peak with both states resident, and one
+    profiled step: device busy and B9's device ms, beside the flagship
+    step's device busy (``flagship_busy_ms``: phase 5's profile, or one
+    profiled here)."""
+    import torch
+
+    from self_supervise_sfm_tpu_torch.models import aggregator as AG
+    from self_supervise_sfm_tpu_torch.models import sailrecon as M
+    from self_supervise_sfm_tpu_torch.train import loop as L
+
+    t_start = time.perf_counter()
+    wrappers = kernel_wrappers()
+    dense = dict(attn_impl="dense", global_attn_impl="dense")
+    plain_sites = dict(**dense, fused_qkv="off", fused_mlp="off")
+    cfg = M.make_config(num_heads=8, compute_dtype="bfloat16", remat=True)
+    cfg_dense = M.make_config(num_heads=8, compute_dtype="bfloat16", remat=True, **dense)
+    cfg_plain = M.make_config(num_heads=8, compute_dtype="bfloat16", remat=True, **plain_sites)
+    cfg_f32 = M.make_config(num_heads=8, remat=True, **plain_sites)
+    tcfg = L.TrainConfig(rank=RANK, num_images=TRAIN_FRAMES, adam_mu_dtype="bfloat16",
+                         warmup_steps=1)
+    failures = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    P0 = (IMG // 14) ** 2
+
+    def indices(i):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 8 + i)
+        return AG.draw_subsample_indices(cfg.aggregator, 1, TRAIN_FRAMES, P0, RANK, g)
+
+    batch = L.batch_to_device(make_train_batch()[0], "cuda")
+    if live is None:
+        print("  phase 5's flagship step made here (phase 5 did not run)")
+        flag_cfg = M.make_config(compute_dtype="bfloat16", remat=True)
+        flag_state = L.init_train_state(flag_cfg, tcfg,
+                                        torch.Generator(device="cuda").manual_seed(SEED + 7))
+        _condition_pose_branch(flag_state["params"])
+        live = dict(step=L.make_train_step(flag_cfg, tcfg), state=flag_state, batch=batch,
+                    indices=indices)
+    state = L.init_train_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 97))
+    params = state["params"]
+    _condition_pose_branch(params)
+    qn = params["aggregator"]["frame_blocks"][0]["attn"]["q_norm"]["scale"]
+    expect(tuple(qn.shape) == (128,), f"q_norm scale {tuple(qn.shape)}")
+    sample = lambda: [params["aggregator"]["vit"]["blocks"][0]["attn"]["qkv"]["w"],  # noqa: E731
+                      params["aggregator"]["global_blocks"][-1]["mlp"]["fc2"]["w"],
+                      params["camera_head"]["pose_branch"]["fc2"]["w"]]
+
+    # -- launches of one step, then four steps ----------------------------------
+    step = L.make_train_step(cfg, tcfg)
+    before = [t.clone() for t in sample()]
+    for w in wrappers.values():
+        w.launches = 0
+    state, m0 = step(state, batch, indices(0))
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"  launches in one d128 step: { {k: n for k, n in launches.items() if n} }")
+    want = {k: D128_TRAIN_STEP_LAUNCHES[k] for k in wrappers}
+    if launches != want:
+        raise AssertionError(f"d128 train step launch counts {launches}, expected {want}")
+    lr0 = float(m0["learning_rate"])
+    expect(lr0 == 0.0 and all(torch.equal(a, b) for a, b in zip(before, sample())),
+           f"d128 step 0 (learning rate {lr0}) moved the parameters")
+    metrics = [m0]
+    for i in (1, 2, 3):
+        before = [t.clone() for t in sample()]
+        state, m = step(state, batch, indices(i))
+        metrics.append(m)
+        if i == 1:
+            torch.cuda.synchronize()
+            expect(all(not torch.equal(a, b) for a, b in zip(before, sample())),
+                   "d128 step 1 (learning rate > 0) left a sampled parameter unchanged")
+    keys = ("loss", "grad_norm", "grad_norm_vit", "grad_norm_agg", "grad_norm_camera",
+            "learning_rate")
+    for i, m in enumerate(metrics):
+        vals = {k: float(x) for k, x in m.items()}
+        print(f"  d128 step {i}: " + ", ".join(f"{k} {vals[k]:.6g}" for k in keys))
+        expect(all(math.isfinite(x) for x in vals.values()), f"d128 step {i}: non-finite")
+        for k in ("grad_norm_vit", "grad_norm_agg", "grad_norm_camera"):
+            expect(vals[k] > 0, f"d128 step {i}: {k} = {vals[k]}")
+
+    # -- gradients against the plain path of the same configuration ------------
+    idx = indices(99)
+    loss_k, _, gk = L.loss_and_grads(params, cfg, tcfg, batch, idx)
+    loss_p, _, gp = L.loss_and_grads(params, cfg_plain, tcfg, batch, idx)
+    loss_f, _, gf = L.loss_and_grads(params, cfg_f32, tcfg, batch, idx)
+    torch.cuda.synchronize()
+    print(f"  d128 loss: kernel path {float(loss_k):.6f}, plain {float(loss_p):.6f}, plain "
+          f"fp32 {float(loss_f):.6f}")
+    grads = _hold_bf16_grads("d128 ", gk, gp, gf, expect)[0]
+    del gk, gp, gf
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    # -- times in turns: this step, its dense route, phase 5's flagship --------
+    step_dense = L.make_train_step(cfg_dense, tcfg)
+    holder = {"d128": state, "flag": live["state"]}
+
+    def run(name):
+        if name == "flag":
+            holder["flag"], _ = live["step"](holder["flag"], live["batch"], live["indices"](5))
+        else:
+            fn = step if name == "d128" else step_dense
+            holder["d128"], _ = fn(holder["d128"], batch, indices(5))
+
+    runs = {"d128": [], "d128_dense": [], "flag": []}
+    torch.cuda.reset_peak_memory_stats()
+    for name in ("d128", "d128_dense", "flag", "flag", "d128_dense", "d128"):
+        if not runs[name]:
+            run(name)  # warm
+            torch.cuda.synchronize()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run(name)
+            torch.cuda.synchronize()
+            runs[name].append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    print(f"  d128 train step {med['d128']:.2f} ms {runs['d128']}; its dense route "
+          f"{med['d128_dense']:.2f} ms ({med['d128_dense'] / med['d128']:.3f}x); phase 5's "
+          f"flagship step {med['flag']:.2f} ms (d128 / flagship "
+          f"{med['d128'] / med['flag']:.3f}x); medians of 4, in turns; peak {peak_gb:.2f} GB "
+          f"with both states resident")
+    print("  profile of one d128 train step:")
+    profile = profile_forward(lambda: run("d128"), label="d128 train step")
+    if flagship_busy_ms is None:
+        print("  profile of one flagship train step:")
+        flag_profile = profile_forward(lambda: run("flag"), label="flagship train step")
+        flagship_busy_ms = flag_profile["busy_ms"] if flag_profile["measured"] else None
+    b9 = None
+    if profile["measured"]:
+        cls = profile["classes_ms"]
+        b9 = {k: cls[k] for k in ("flash_bwd_dq d128 (B9)", "flash_bwd_dkv d128 (B9)")}
+        flag_busy = "not measured" if flagship_busy_ms is None else f"{flagship_busy_ms:.2f}"
+        print(f"  B9 d128 device ms a step: dq {b9['flash_bwd_dq d128 (B9)']:.2f}, dk/dv "
+              f"{b9['flash_bwd_dkv d128 (B9)']:.2f}, both {sum(b9.values()):.2f} (of device "
+              f"busy {profile['busy_ms']:.2f}; the flagship's step {flag_busy})")
+    seconds = time.perf_counter() - t_start
+    print(f"  phase 5b: {seconds:.1f} s")
+    del state, holder, params, step, step_dense
+    torch.cuda.empty_cache()
+    return {"train_d128": launches}, dict(
+        step_ms=med["d128"], runs_ms=runs["d128"], dense_ms=med["d128_dense"],
+        dense_runs_ms=runs["d128_dense"], flagship_ms=med["flag"], flagship_runs_ms=runs["flag"],
+        peak_gb_both_states=peak_gb, gradients=grads, loss_kernel=float(loss_k),
+        loss_plain=float(loss_p), loss_f32=float(loss_f),
+        metrics=[{k: float(x) for k, x in m.items()} for m in metrics],
+        profile=profile, flagship_busy_ms=flagship_busy_ms, b9_device_ms=b9,
+        seconds=seconds)
 
 
 class SyntheticScenes:
@@ -5135,10 +5368,7 @@ def run_sharded_train(card: str, phase6=None):
     def fresh_state():
         state = L.init_train_state(cfg, tcfg,
                                    torch.Generator(device="cuda").manual_seed(SEED + 7))
-        fc2 = state["params"]["camera_head"]["pose_branch"]["fc2"]
-        fc2["w"].mul_(0.01)
-        fc2["b"].mul_(0.01)
-        fc2["b"][[3, 7, 8]] = 0.25
+        _condition_pose_branch(state["params"])
         return state
 
     def sample(params):
@@ -5933,10 +6163,7 @@ def _tp_train_steps(card, mesh, wrappers, expect):
         return AG.draw_subsample_indices(cfg.aggregator, 1, TRAIN_FRAMES, P0, RANK, g)
 
     state = L.init_train_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 7))
-    fc2 = state["params"]["camera_head"]["pose_branch"]["fc2"]
-    fc2["w"].mul_(0.01)
-    fc2["b"].mul_(0.01)
-    fc2["b"][[3, 7, 8]] = 0.25
+    _condition_pose_branch(state["params"])
     params = state["params"]
     parts = {"vit": lambda g: L._flatten(g["aggregator"]["vit"]),
              "agg": lambda g: L._flatten({k: x for k, x in g["aggregator"].items() if k != "vit"}),
@@ -6397,10 +6624,14 @@ def main() -> int:
             lambda ref, n: n * 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7))
         torch.cuda.empty_cache()
         launches, d128 = run_d128()
+        print("phase 5b: the train step at 8 heads of 128 (B9 at head dim 128)")
+        train_launches, train_d128 = run_train_d128()
+        launches.update(train_launches)
         for k in kernels:
             k["launches_by_path"] = {path: n[k["name"]] for path, n in launches.items()}
             k["launches"] = sum(k["launches_by_path"].values())
         print(json.dumps({"d128": d128}))
+        print(json.dumps({"train_d128": train_d128}))
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6456,7 +6687,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("phase 5: full-width train step (2 frames, depth 24, rank 300, bf16 trunk, "
           "fp32 masters, remat)")
-    train_launches, train = run_train()
+    train_launches, train = run_train(keep=True)
     for k in kernels:
         k["launches_by_path"]["train"] = train_launches[k["name"]]
         k["launches_by_path"]["train_default"] = train["default"]["launches"][k["name"]]
@@ -6465,6 +6696,15 @@ def main() -> int:
                           + train["on_f32"]["launches"][k["name"]])
     print(f"{card}: train step {train['step_ms']:.2f} ms, {train['steps_per_s']:.4f} "
           f"steps/s, peak memory {train['peak_gb']:.2f} GB")
+    print("phase 5b: the train step at 8 heads of 128 (B9 at head dim 128), in turns "
+          "against phase 5's")
+    train_d128_launches, train_d128 = run_train_d128(
+        PHASE5.pop("live"), train["profile"]["busy_ms"] if train["profile"]["measured"] else None)
+    for k in kernels:
+        k["launches_by_path"]["train_d128"] = train_d128_launches["train_d128"][k["name"]]
+        k["launches"] += train_d128_launches["train_d128"][k["name"]]
+    print(f"{card}: head dim 128 train step {train_d128['step_ms']:.2f} ms against the "
+          f"flagship's {train_d128['flagship_ms']:.2f} ms in turns")
     torch.cuda.empty_cache()
     print("phase 6: the trainer (scene stream, checkpoints and resume, validation, "
           "sanity check) around the full-width step")
@@ -6531,6 +6771,7 @@ def main() -> int:
     print(json.dumps({"converter": conv}))
     print(json.dumps({"forward": fwd}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"train_d128": train_d128}))
     print(json.dumps({"trainer": trainer}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"sharded": sharded}))

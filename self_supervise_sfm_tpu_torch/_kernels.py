@@ -78,8 +78,13 @@ _SIGNATURES: Dict[str, List] = {
     # which kernel of the sm90 attention body (0 K1, 1 K2, 2 K2p, 3 K1m; 4-7
     # the same at head dim 128), int[8] out
     "sfm_attention_sm90_info": [_I, _P],
+    # B9 at head dim 128 on the same body: the head-dim-64 entries' arguments
+    "sfm_flash_bwd_dq_d128_sm90": [_P] * 7 + [_I] * 3 + [_F, _F, _P],
+    "sfm_flash_bwd_dkv_d128_sm90": [_P] * 8 + [_I] * 3 + [_F, _F, _P],
+    "sfm_flash_bwd_dq_reloc_d128_sm90": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
+    "sfm_flash_bwd_dkv_reloc_d128_sm90": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
     # which kernel of the sm90 backward body (0 dq, 1 dk/dv, 2 and 3 their
-    # RelocMask forms), int[8] out
+    # RelocMask forms; 4-7 the same at head dim 128), int[8] out
     "sfm_flash_bwd_sm90_info": [_I, _P],
     # x, add, out; out_bf16, n_img, img_chunk, H, W, C, H2, W2
     "sfm_resize_bilinear_ac": [_P, _P, _P] + [_I] * 8 + [_P],

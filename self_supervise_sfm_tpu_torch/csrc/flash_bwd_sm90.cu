@@ -2,7 +2,8 @@
 // without a mask and under a RelocMask) on an attention body written for
 // Hopper (sm_90a): TMA loads into a ring of shared-memory stages, wgmma
 // products, warp specialisation. bf16 in, fp32 lse / delta and
-// accumulators, head dim 64.
+// accumulators, head dim 64 or 128 (a template parameter; each kernel is
+// built at both, the head dim 128 ones under names with "_d128").
 //
 // Replaces the Pallas TPU kernels
 //   dq:   self_supervise_sfm_tpu/ops/flash_attention.py  _flash_bwd / _dq_kernel
@@ -21,12 +22,14 @@
 // flash_fwd_sm90.cu.
 //
 // Bound on an H100: operations. The dq kernel does 3 and the dk/dv kernel 4
-// products of 2 Nq Nk 64 FLOPs (both recompute S and dP; under a mask, over
+// products of 2 Nq Nk d FLOPs (both recompute S and dP; under a mask, over
 // the allowed pairs); over their bytes that is far above the card's ~295
 // FLOP/byte ridge at the train step's sizes, so the floor is the bf16
 // tensor-core rate. As in the forward, the exp2 of every logit (MUFU) and
 // the ~10 instructions a logit of the p / ds step lie close to the
-// products' time at head dim 64; the design overlaps them.
+// products' time at head dim 64; the design overlaps them. At head dim 128
+// with half the heads (the same width) a site has the same products and
+// half the logits.
 //
 // Design, both kernels. A persistent grid of one block an SM walks over
 // work tiles. A block is three warpgroups: a producer (its first warp
@@ -105,6 +108,45 @@
 //   tiles). The busiest block streams 88 q tiles of dk/dv against 84.7 on
 //   average (109 in a plain round-robin walk, 130 with the frame tiles
 //   first and odd rounds backwards).
+//
+// Head dim 128. A token's row is 256 bytes, two 128-byte swizzle atoms, and
+// every tile (Q, dO, K, V) is loaded as two boxes, channels 0-63 and 64-127,
+// stored atom by atom (atom a of a tile of R rows at a * R * 128 bytes, each
+// 1024-byte aligned), as flash_fwd_sm90.cu does. A K-major product (S, dP,
+// S^T, dP^T) takes 8 k steps of 16 channels, 4 along the swizzled rows of an
+// atom, then the next atom; an MN-major product whose N is the head dim
+// (dQ += dS K, dV += P^T dO, dK += dS^T Q) is one m64n128 product a k step
+// over both atoms, the descriptor's leading byte offset the step from the
+// first atom to the second. The work tiles stay 128 keys (dk/dv) and 128 q
+// rows (dq), so the walks, the RelocMask decoders and the tile counts are
+// the head dim 64 ones at half the slices.
+//   dk/dv: dK and dV of a warpgroup's 64 keys are 64 + 64 fp32 registers a
+//   thread. Beside them K and V as A fragments (32 + 32) and S^T / dP^T of
+//   64 q rows with P^T / dS^T (32 + 32 + 16 + 16) would need ~290 of the
+//   consumers' 232, so at 128 the q tiles are KV_BQ_D128 rows and K / V are
+//   read from their slot through descriptors (KV_IN_REGS_D128): S^T / dP^T
+//   m64n32 (16 + 16), P^T / dS^T 8 + 8, ~176 with dK and dV, and the
+//   overlapped schedule of head dim 64 kept (S^T / dP^T of tile i issued
+//   with dK / dV of tile i - 1). The K / V slot is then held until the work
+//   tile's last product: two slots of 128 keys are 4 x 32 KB, and the Q /
+//   dO ring of KV_STAGES_D128 stages of 2 x 8 KB (with lse / delta) comes
+//   to DkvSmem<128>::SMEM_BYTES. Its two warpgroups issue whenever ready
+//   (KV_PINGPONG_D128): the m64n32 products are short, and taking turns
+//   cost 2-5 %. On an H100 80GB HBM3 (tools/ablate_attention.py d128, 20
+//   launches back to back): 64-row q tiles with K / V in registers take
+//   1.7-1.9x as long (496 bytes of spill), with K / V through descriptors
+//   1.3-1.5x (240 bytes); a ring of 3 or 6 stages is level with 4 (within
+//   1.5 %).
+//   dq: dQ of 64 q rows is 64 registers; S and dP at 128 keys (64 + 64) and
+//   dS (32) beside it would spill, so the key tiles are DQ_BK_D128 keys: S
+//   / dP m64n64, ~144 registers. Q and dO of a work tile take 32 KB each,
+//   a K / V stage 2 x 16 KB. Measured as above: 128-key tiles take
+//   1.7-1.9x as long (144 bytes of spill), a ring of 3 or 5 stages is level
+//   with 4 (within 1.5 %), and without the ping-pong it takes 5-9 % longer.
+//   Work tiles at the train step's head dim 128 sites (8 heads, 132 SMs):
+//   ViT / split own / global 176 (1.33 rounds), frame 352 (2.67), split
+//   context 80 dk/dv work tiles (0.61: 52 SMs idle); dq the same, but 176 at
+//   the split context.
 
 #include <stddef.h>
 
@@ -114,8 +156,7 @@ namespace {
 
 using namespace sfm_sm90;
 
-constexpr int D = 64;               // head dim: one 128-byte row a token
-constexpr int ROW_BYTES = D * 2;
+constexpr int ATOM_ROW = 128;       // bytes of a row of one swizzle atom: 64 bf16 channels
 constexpr int NTHREADS = 384;       // producer + two consumer warpgroups
 constexpr bool PINGPONG = true;     // the two consumer warpgroups take turns to issue
 // the masked walks: odd rounds of the grid backwards, and dk/dv's context
@@ -132,52 +173,96 @@ constexpr int KV_STAGES = 3;   // Q / dO ring depth
 // (ldmatrix once a work tile): S^T and dP^T read only Q / dO from shared
 // memory, and the K / V slot is free for the next work tile at once
 constexpr bool KV_IN_REGS = true;
-static_assert(!KV_IN_REGS || KV_BQ == 64, "K / V in registers: m64n64 products");
+// head dim 128: q tiles of 32 rows, K / V read from their slot, and the two
+// consumer warpgroups issuing whenever ready (see above)
+constexpr int KV_BQ_D128 = 32;
+constexpr int KV_STAGES_D128 = 4;
+constexpr bool KV_IN_REGS_D128 = false;
+constexpr bool KV_PINGPONG_D128 = false;
 // setmaxnreg of the producer warpgroup and of the consumers: the producer
 // warp's loop spills at 24 (ptxas, sm_90a); the consumers hold S^T, dP^T,
-// P^T, dS^T, dK and dV (160 registers) within 232
+// P^T, dS^T, dK and dV (160 registers at head dim 64, 176 at 128) within 232
 constexpr int KV_PRODUCER_REGS = 40;
 constexpr int KV_CONSUMER_REGS = 232;
-constexpr int KV_TILE_BYTES = KV_BM * ROW_BYTES;  // a K or a V tile, 16 KB
-constexpr int KV_Q_BYTES = KV_BQ * ROW_BYTES;     // a Q or a dO tile
-constexpr int KV_ROWV_BYTES = 2 * KV_BQ * 4;      // lse, then delta
-constexpr int KV_K_OFF = 0;                       // two K slots
-constexpr int KV_V_OFF = 2 * KV_TILE_BYTES;       // two V slots
-constexpr int KV_Q_OFF = 4 * KV_TILE_BYTES;
-constexpr int KV_DO_OFF = KV_Q_OFF + KV_STAGES * KV_Q_BYTES;
-constexpr int KV_ROWV_OFF = KV_DO_OFF + KV_STAGES * KV_Q_BYTES;
-constexpr int KV_BAR_OFF = KV_ROWV_OFF + KV_STAGES * KV_ROWV_BYTES;
 
+template <int S>
 struct DkvBarriers {
-  uint64_t full[KV_STAGES];   // a stage's Q, dO (TMA bytes) and lse / delta (32 lanes)
-  uint64_t empty[KV_STAGES];  // the 8 consumer warps are done with a stage
-  uint64_t kv_full[2];        // a work tile's K and V have landed
-  uint64_t kv_empty[2];       // the 8 consumer warps are done with a K / V slot
+  uint64_t full[S];     // a stage's Q, dO (TMA bytes) and lse / delta (32 lanes)
+  uint64_t empty[S];    // the 8 consumer warps are done with a stage
+  uint64_t kv_full[2];  // a work tile's K and V have landed
+  uint64_t kv_empty[2]; // the 8 consumer warps are done with a K / V slot
 };
-// 1 KB of slack to align the dynamic shared memory by hand
-constexpr int KV_SMEM_BYTES = 1024 + KV_BAR_OFF + static_cast<int>(sizeof(DkvBarriers));
+
+// The dk/dv kernel's shared memory at head dim D (64 or 128): two K slots,
+// two V slots, the Q and the dO stages (each 1024-byte aligned; a tile is D
+// / 64 atoms of its rows), the stages' lse / delta, the barriers; 1 KB of
+// slack to align the dynamic shared memory by hand
+template <int D>
+struct DkvSmem {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int ATOMS = D / 64;
+  static constexpr int BQ = D == 64 ? KV_BQ : KV_BQ_D128;
+  static constexpr int STAGES = D == 64 ? KV_STAGES : KV_STAGES_D128;
+  static constexpr bool IN_REGS = D == 64 ? KV_IN_REGS : KV_IN_REGS_D128;
+  static constexpr bool TURNS = D == 64 ? PINGPONG : KV_PINGPONG_D128;  // ping-pong
+  static_assert(!IN_REGS || BQ == 64, "K / V in registers: m64n64 products");
+  static constexpr int TILE_ATOM = KV_BM * ATOM_ROW;  // 16 KB: one atom of a K or a V tile
+  static constexpr int TILE_BYTES = ATOMS * TILE_ATOM;
+  static constexpr int Q_ATOM = BQ * ATOM_ROW;        // one atom of a Q or a dO tile
+  static constexpr int Q_BYTES = ATOMS * Q_ATOM;
+  static constexpr int ROWV_BYTES = 2 * BQ * 4;       // lse, then delta
+  static constexpr int K_OFF = 0;                     // two K slots
+  static constexpr int V_OFF = 2 * TILE_BYTES;        // two V slots
+  static constexpr int Q_OFF = 4 * TILE_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * Q_BYTES;
+  static constexpr int ROWV_OFF = DO_OFF + STAGES * Q_BYTES;
+  static constexpr int BAR_OFF = ROWV_OFF + STAGES * ROWV_BYTES;
+  static constexpr int SMEM_BYTES =
+      1024 + BAR_OFF + static_cast<int>(sizeof(DkvBarriers<STAGES>));
+};
+static_assert(DkvSmem<64>::SMEM_BYTES == 117328, "the head-dim-64 dk/dv kernel's shared memory");
+static_assert(DkvSmem<128>::SMEM_BYTES <= 232448, "more shared memory than a block can have");
 
 // dq kernel
 constexpr int DQ_BM = 128;     // q rows a work tile, 64 a consumer warpgroup
 constexpr int DQ_BK = 128;     // keys a streamed K / V tile
 constexpr int DQ_STAGES = 3;   // K / V ring depth
+// head dim 128: key tiles of 64 (see above)
+constexpr int DQ_BK_D128 = 64;
+constexpr int DQ_STAGES_D128 = 4;
 constexpr int DQ_PRODUCER_REGS = 24;   // one thread issues the copies
-constexpr int DQ_CONSUMER_REGS = 240;  // S, dP, dS and dQ: 192 registers
-constexpr int DQ_Q_BYTES = DQ_BM * ROW_BYTES;   // Q or dO of a work tile, 16 KB
-constexpr int DQ_KV_BYTES = DQ_BK * ROW_BYTES;  // a K or a V tile
-constexpr int DQ_Q_OFF = 0;
-constexpr int DQ_DO_OFF = DQ_Q_BYTES;
-constexpr int DQ_K_OFF = 2 * DQ_Q_BYTES;
-constexpr int DQ_V_OFF = DQ_K_OFF + DQ_STAGES * DQ_KV_BYTES;
-constexpr int DQ_BAR_OFF = DQ_V_OFF + DQ_STAGES * DQ_KV_BYTES;
+constexpr int DQ_CONSUMER_REGS = 240;  // S, dP, dS and dQ: 192 registers (144 at 128)
 
+template <int S>
 struct DqBarriers {
-  uint64_t full[DQ_STAGES];   // a stage's K and V have landed
-  uint64_t empty[DQ_STAGES];  // the 8 consumer warps are done with a stage
-  uint64_t q_full;            // the work tile's Q and dO have landed
-  uint64_t q_empty;           // the 8 consumer warps are done with Q and dO
+  uint64_t full[S];   // a stage's K and V have landed
+  uint64_t empty[S];  // the 8 consumer warps are done with a stage
+  uint64_t q_full;    // the work tile's Q and dO have landed
+  uint64_t q_empty;   // the 8 consumer warps are done with Q and dO
 };
-constexpr int DQ_SMEM_BYTES = 1024 + DQ_BAR_OFF + static_cast<int>(sizeof(DqBarriers));
+
+// The dq kernel's shared memory at head dim D: Q and dO of a work tile, the
+// ring's K tiles, then its V tiles, the barriers
+template <int D>
+struct DqSmem {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int ATOMS = D / 64;
+  static constexpr int BK = D == 64 ? DQ_BK : DQ_BK_D128;
+  static constexpr int STAGES = D == 64 ? DQ_STAGES : DQ_STAGES_D128;
+  static constexpr int Q_ATOM = DQ_BM * ATOM_ROW;  // 16 KB: one atom of Q or dO
+  static constexpr int Q_BYTES = ATOMS * Q_ATOM;
+  static constexpr int KV_ATOM = BK * ATOM_ROW;    // one atom of a K or a V tile
+  static constexpr int KV_BYTES = ATOMS * KV_ATOM;
+  static constexpr int Q_OFF = 0;
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int SMEM_BYTES =
+      1024 + BAR_OFF + static_cast<int>(sizeof(DqBarriers<STAGES>));
+};
+static_assert(DqSmem<64>::SMEM_BYTES == 132160, "the head-dim-64 dq kernel's shared memory");
+static_assert(DqSmem<128>::SMEM_BYTES <= 232448, "more shared memory than a block can have");
 
 typedef __nv_bfloat16 bf16;
 
@@ -249,12 +334,13 @@ __device__ __forceinline__ Work dq_work(const Params& p, int t) {
   return {t / per_slice, q0, min(q0 + DQ_BM, f0 + p.frame), own, MASKED ? own + p.frame : 0};
 }
 
-// Key tile i of a dq work tile: the context's DQ_BK-key tiles, then the own
+// Key tile i of a dq work tile: the context's BK-key tiles, then the own
 // frame's; keys at or past *end are selected to 0
+template <int BK>
 __device__ __forceinline__ int dq_key_tile(const Params& p, const Work& w, int i, int* end) {
-  const int ctx = cdiv(p.n_ctx, DQ_BK);
-  const int k0 = i < ctx ? i * DQ_BK : w.s0 + (i - ctx) * DQ_BK;
-  *end = min(k0 + DQ_BK, i < ctx ? p.n_ctx : w.s_end);
+  const int ctx = cdiv(p.n_ctx, BK);
+  const int k0 = i < ctx ? i * BK : w.s0 + (i - ctx) * BK;
+  *end = min(k0 + BK, i < ctx ? p.n_ctx : w.s_end);
   return k0;
 }
 
@@ -265,11 +351,21 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// d (64 x N) (+)= A (64 x 16) B (16 x N), both from shared memory, N = 64 or 128
+// The descriptor of k step kk (16 channels) of a K-major tile stored atom by
+// atom, `atom` bytes apart: 32 bytes along the swizzled rows of an atom, 4
+// steps an atom, then the next atom
+__device__ __forceinline__ uint64_t k_step(uint64_t desc, int kk, int atom) {
+  return desc_add(desc, (kk / 4) * (atom >> 4) + 2 * (kk % 4));
+}
+
+// d (64 x N) (+)= A (64 x 16) B (16 x N), both from shared memory, N = 32,
+// 64 or 128
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
-  if constexpr (N == 64)
+  if constexpr (N == 32)
+    wgmma_ss_m64n32(d, da, db, scale_d);
+  else if constexpr (N == 64)
     wgmma_ss_m64n64(d, da, db, scale_d);
   else
     wgmma_ss_m64n128(d, da, db, scale_d);
@@ -284,6 +380,25 @@ __device__ __forceinline__ void wgmma_a(float (&d)[N / 2], const uint32_t (&a)[4
     wgmma_rs_m64n64<0>(d, a, db, scale_d);
   else
     wgmma_ss<N>(d, da, db, scale_d);
+}
+
+// An MN-major B operand whose N is the head dim (rows of 16 keys or q rows
+// of a tile stored atom by atom, `atom` bytes apart): its descriptor, the
+// leading byte offset the step between the atoms (unused at 64 columns,
+// where it is the same 1024 bytes as the stride), and the product d (64 x
+// D) += A (64 x 16, registers) B (16 x D), one m64n128 product over both
+// atoms at D = 128
+template <int D>
+__device__ __forceinline__ uint64_t mn_desc(uint32_t addr, int atom) {
+  return sw128_desc(addr, D == 64 ? 1024 >> 4 : atom >> 4);
+}
+template <int D>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[D / 2], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (D == 64)
+    wgmma_rs_m64n64(d, a, db);
+  else
+    wgmma_rs_m64n128(d, a, db);
 }
 
 // An fp32 accumulator tile of N columns in bf16 as wgmma's A fragments: the
@@ -318,22 +433,25 @@ __device__ __forceinline__ void turn_end(int cw, bool last) {
 
 // -- dk/dv --------------------------------------------------------------------
 
-template <bool MASKED>
+template <int D, bool MASKED>
 __device__ __forceinline__ void dkv_body(const CUtensorMap& mq, const CUtensorMap& mk,
                                          const CUtensorMap& mv, const CUtensorMap& mdo,
                                          const Params p) {
+  typedef DkvSmem<D> L;
+  typedef DkvBarriers<L::STAGES> Bars;
+  constexpr int BQ = L::BQ, ATOMS = L::ATOMS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - raw);  // the same bytes, generic address
-  const uint32_t bars = base + KV_BAR_OFF;
-  const uint32_t full0 = bars + static_cast<uint32_t>(offsetof(DkvBarriers, full));
-  const uint32_t empty0 = bars + static_cast<uint32_t>(offsetof(DkvBarriers, empty));
-  const uint32_t kv_full0 = bars + static_cast<uint32_t>(offsetof(DkvBarriers, kv_full));
-  const uint32_t kv_empty0 = bars + static_cast<uint32_t>(offsetof(DkvBarriers, kv_empty));
+  const uint32_t bars = base + L::BAR_OFF;
+  const uint32_t full0 = bars + static_cast<uint32_t>(offsetof(Bars, full));
+  const uint32_t empty0 = bars + static_cast<uint32_t>(offsetof(Bars, empty));
+  const uint32_t kv_full0 = bars + static_cast<uint32_t>(offsetof(Bars, kv_full));
+  const uint32_t kv_empty0 = bars + static_cast<uint32_t>(offsetof(Bars, kv_empty));
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < KV_STAGES; ++s) {
+    for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(full0 + 8 * s, 33);  // the TMA bytes' arrival and the producer warp's 32
       mbar_init(empty0 + 8 * s, 8);
     }
@@ -359,9 +477,14 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& mq, const CUtensorMa
         if (lane == 0) {
           const uint32_t kv_full = kv_full0 + 8 * kslot;
           mbar_wait(kv_empty0 + 8 * kslot, kphase ^ 1);
-          mbar_expect_tx(kv_full, 2 * KV_TILE_BYTES);
-          tma_load_3d(base + KV_K_OFF + kslot * KV_TILE_BYTES, &mk, kv_full, 0, w.r0, w.slice);
-          tma_load_3d(base + KV_V_OFF + kslot * KV_TILE_BYTES, &mv, kv_full, 0, w.r0, w.slice);
+          mbar_expect_tx(kv_full, 2 * L::TILE_BYTES);
+          // one box a swizzle atom of the row: channels 64 a to 64 a + 63
+#pragma unroll
+          for (int a = 0; a < ATOMS; ++a) {
+            const uint32_t at = kslot * L::TILE_BYTES + a * L::TILE_ATOM;
+            tma_load_3d(base + L::K_OFF + at, &mk, kv_full, 64 * a, w.r0, w.slice);
+            tma_load_3d(base + L::V_OFF + at, &mv, kv_full, 64 * a, w.r0, w.slice);
+          }
         }
         if (++kslot == 2) {
           kslot = 0;
@@ -369,27 +492,31 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& mq, const CUtensorMa
         }
         const float* lse = p.lse + static_cast<size_t>(w.slice) * p.nq;
         const float* delta = p.delta + static_cast<size_t>(w.slice) * p.nq;
-        for (int q0 = w.s0; q0 < w.s_end; q0 += KV_BQ) {
+        for (int q0 = w.s0; q0 < w.s_end; q0 += BQ) {
           const uint32_t full = full0 + 8 * stage;
           mbar_wait(empty0 + 8 * stage, phase ^ 1);
-          const uint32_t rowv = base + KV_ROWV_OFF + stage * KV_ROWV_BYTES;
+          const uint32_t rowv = base + L::ROWV_OFF + stage * L::ROWV_BYTES;
           // rows past the streamed rows' end: 0, as the TPU kernel's q-side
           // loads past nq (p is selected to 0 there); a zero-filled copy
           // names row 0's address
-          for (int r = lane; r < KV_BQ; r += 32) {
+          for (int r = lane; r < BQ; r += 32) {
             const bool ok = q0 + r < w.s_end;
             const int row = ok ? q0 + r : 0;
             cp_async_4(rowv + 4 * r, lse + row, ok ? 4 : 0);
-            cp_async_4(rowv + 4 * (KV_BQ + r), delta + row, ok ? 4 : 0);
+            cp_async_4(rowv + 4 * (BQ + r), delta + row, ok ? 4 : 0);
           }
           if (lane == 0) {
             // a ragged box still counts all of its bytes
-            mbar_expect_tx(full, 2 * KV_Q_BYTES);
-            tma_load_3d(base + KV_Q_OFF + stage * KV_Q_BYTES, &mq, full, 0, q0, w.slice);
-            tma_load_3d(base + KV_DO_OFF + stage * KV_Q_BYTES, &mdo, full, 0, q0, w.slice);
+            mbar_expect_tx(full, 2 * L::Q_BYTES);
+#pragma unroll
+            for (int a = 0; a < ATOMS; ++a) {
+              const uint32_t at = stage * L::Q_BYTES + a * L::Q_ATOM;
+              tma_load_3d(base + L::Q_OFF + at, &mq, full, 64 * a, q0, w.slice);
+              tma_load_3d(base + L::DO_OFF + at, &mdo, full, 64 * a, q0, w.slice);
+            }
           }
           cp_async_arrive(full);  // once this lane's lse / delta have landed
-          if (++stage == KV_STAGES) {
+          if (++stage == L::STAGES) {
             stage = 0;
             phase ^= 1;
           }
@@ -409,83 +536,87 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& mq, const CUtensorMa
       __syncwarp();  // the .aligned wgmma instructions need the warp converged
     };
     auto advance = [&]() {
-      if (++stage == KV_STAGES) {
+      if (++stage == L::STAGES) {
         stage = 0;
         phase ^= 1;
       }
     };
-    turn_first<PINGPONG>(cw);
+    turn_first<L::TURNS>(cw);
     for (int k = 0, tile; (tile = tile_at<MASKED>(k)) < p.tiles; ++k) {
       const Work w = dkv_work<MASKED>(p, tile);
       const bool last_tile = tile_at<MASKED>(k + 1) >= p.tiles;
-      const int steps = cdiv(w.s_end - w.s0, KV_BQ);
+      const int steps = cdiv(w.s_end - w.s0, BQ);
       const int key0 = w.r0 + cw * 64 + warp * 16 + g;  // this thread's keys key0, key0 + 8
       const bool kok0 = key0 < w.r_end, kok1 = key0 + 8 < w.r_end;
       const bool edge_k = w.r0 + KV_BM > w.r_end;
-      const uint64_t desc_k = sw128_desc(base + KV_K_OFF + kslot * KV_TILE_BYTES + cw * 8192, 1);
-      const uint64_t desc_v = sw128_desc(base + KV_V_OFF + kslot * KV_TILE_BYTES + cw * 8192, 1);
-      float dk[D / 2], dv[D / 2];  // 64 keys x 64 channels each, fp32
+      // the warpgroup's 64 rows of each atom of the K / V slot
+      const uint32_t rows = kslot * L::TILE_BYTES + cw * 64 * ATOM_ROW;
+      const uint64_t desc_k = sw128_desc(base + L::K_OFF + rows, 1);
+      const uint64_t desc_v = sw128_desc(base + L::V_OFF + rows, 1);
+      float dk[D / 2], dv[D / 2];  // 64 keys x D channels each, fp32
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
       mbar_wait(kv_full0 + 8 * kslot, kphase);
       __syncwarp();
-      // K and V of this warp's 16 keys as A fragments, 4 k steps of 16
-      // channels: row R at 16-byte chunk c lies at chunk c ^ (R % 8) of the
-      // 128-byte swizzle
+      // K and V of this warp's 16 keys as A fragments, D / 16 k steps of 16
+      // channels: row R at 16-byte chunk c of an atom lies at chunk c ^ (R %
+      // 8) of the 128-byte swizzle
       uint32_t kf[D / 16][4], vf[D / 16][4];
-      if constexpr (KV_IN_REGS) {
+      if constexpr (L::IN_REGS) {
         const int row = cw * 64 + warp * 16 + (lane & 15);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t off = row * ROW_BYTES + (((2 * kk + (lane >> 4)) ^ (row & 7)) << 4);
-          ldmatrix_x4(kf[kk], base + KV_K_OFF + kslot * KV_TILE_BYTES + off);
-          ldmatrix_x4(vf[kk], base + KV_V_OFF + kslot * KV_TILE_BYTES + off);
+          const uint32_t off = (kk / 4) * L::TILE_ATOM + row * ATOM_ROW +
+                               (((2 * (kk % 4) + (lane >> 4)) ^ (row & 7)) << 4);
+          ldmatrix_x4(kf[kk], base + L::K_OFF + kslot * L::TILE_BYTES + off);
+          ldmatrix_x4(vf[kk], base + L::V_OFF + kslot * L::TILE_BYTES + off);
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(kv_empty0 + 8 * kslot);
       }
 
-      // S^T = K Q^T and dP^T = V dO^T of the tile in `st`: 4 k steps of 16
-      // channels each (32 bytes along the swizzled rows of Q / dO), one
-      // wgmma group; K / V from registers or from their slot
-      auto issue_sdp = [&](float (&s)[KV_BQ / 2], float (&dp)[KV_BQ / 2], int st) {
-        const uint64_t dq_ = sw128_desc(base + KV_Q_OFF + st * KV_Q_BYTES, 1);
-        const uint64_t ddo = sw128_desc(base + KV_DO_OFF + st * KV_Q_BYTES, 1);
+      // S^T = K Q^T and dP^T = V dO^T of the tile in `st`: D / 16 k steps of
+      // 16 channels each (32 bytes along the swizzled rows of an atom of Q /
+      // dO), one wgmma group; K / V from registers or from their slot
+      auto issue_sdp = [&](float (&s)[BQ / 2], float (&dp)[BQ / 2], int st) {
+        const uint64_t dq_ = sw128_desc(base + L::Q_OFF + st * L::Q_BYTES, 1);
+        const uint64_t ddo = sw128_desc(base + L::DO_OFF + st * L::Q_BYTES, 1);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_a<KV_BQ, KV_IN_REGS>(s, kf[kk], desc_add(desc_k, 2 * kk), desc_add(dq_, 2 * kk),
-                                     kk);
+          wgmma_a<BQ, L::IN_REGS>(s, kf[kk], k_step(desc_k, kk, L::TILE_ATOM),
+                                  k_step(dq_, kk, L::Q_ATOM), kk);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_a<KV_BQ, KV_IN_REGS>(dp, vf[kk], desc_add(desc_v, 2 * kk),
-                                     desc_add(ddo, 2 * kk), kk);
+          wgmma_a<BQ, L::IN_REGS>(dp, vf[kk], k_step(desc_v, kk, L::TILE_ATOM),
+                                  k_step(ddo, kk, L::Q_ATOM), kk);
         wgmma_commit();
       };
-      // dV += P^T dO and dK += dS^T Q of the tile in `st`: KV_BQ / 16 k steps
-      // of 16 q rows (2048 bytes) of dO / Q each, read MN-major; one group
-      auto issue_dkv = [&](const uint32_t (&pa)[KV_BQ / 16][4],
-                           const uint32_t (&da)[KV_BQ / 16][4], int st) {
-        const uint64_t dq_ = sw128_desc(base + KV_Q_OFF + st * KV_Q_BYTES, 1024 >> 4);
-        const uint64_t ddo = sw128_desc(base + KV_DO_OFF + st * KV_Q_BYTES, 1024 >> 4);
+      // dV += P^T dO and dK += dS^T Q of the tile in `st`: BQ / 16 k steps of
+      // 16 q rows (2048 bytes of each atom) of dO / Q each, read MN-major;
+      // one group
+      auto issue_dkv = [&](const uint32_t (&pa)[BQ / 16][4], const uint32_t (&da)[BQ / 16][4],
+                           int st) {
+        const uint64_t dq_ = mn_desc<D>(base + L::Q_OFF + st * L::Q_BYTES, L::Q_ATOM);
+        const uint64_t ddo = mn_desc<D>(base + L::DO_OFF + st * L::Q_BYTES, L::Q_ATOM);
 #pragma unroll
-        for (int kk = 0; kk < KV_BQ / 16; ++kk) wgmma_rs_m64n64(dv, pa[kk], desc_add(ddo, 128 * kk));
+        for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs_mn<D>(dv, pa[kk], desc_add(ddo, 128 * kk));
 #pragma unroll
-        for (int kk = 0; kk < KV_BQ / 16; ++kk) wgmma_rs_m64n64(dk, da[kk], desc_add(dq_, 128 * kk));
+        for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs_mn<D>(dk, da[kk], desc_add(dq_, 128 * kk));
         wgmma_commit();
       };
       // P^T into s and dS^T into dp, fp32: s[4j + e] is key key0 + 8 (e >> 1)
       // against q row q0 + 8j + 2t + (e & 1); the stage's lse / delta of
       // those rows from shared memory, lse2 = lse * log2(e) rounded once
-      auto p_ds = [&](float (&s)[KV_BQ / 2], float (&dp)[KV_BQ / 2], int st, int q0) {
+      auto p_ds = [&](float (&s)[BQ / 2], float (&dp)[BQ / 2], int st, int q0) {
         const float* rowv =
-            reinterpret_cast<const float*>(gbase + KV_ROWV_OFF + st * KV_ROWV_BYTES);
-        const bool edge = edge_k || q0 + KV_BQ > w.s_end;
+            reinterpret_cast<const float*>(gbase + L::ROWV_OFF + st * L::ROWV_BYTES);
+        const bool edge = edge_k || q0 + BQ > w.s_end;
 #pragma unroll
-        for (int j = 0; j < KV_BQ / 8; ++j) {
+        for (int j = 0; j < BQ / 8; ++j) {
           const int c = 8 * j + 2 * t;
           const float2 ls = *reinterpret_cast<const float2*>(rowv + c);
           const float2 l2 = make_float2(ls.x * LOG2E, ls.y * LOG2E);
-          const float2 dl = *reinterpret_cast<const float2*>(rowv + KV_BQ + c);
+          const float2 dl = *reinterpret_cast<const float2*>(rowv + BQ + c);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float pe = exp2_ftz(fmaf(s[4 * j + e], p.scale_log2, -((e & 1) ? l2.y : l2.x)));
@@ -499,51 +630,51 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& mq, const CUtensorMa
         }
       };
 
-      float s[KV_BQ / 2], dp[KV_BQ / 2];
-      uint32_t pa[KV_BQ / 16][4], da[KV_BQ / 16][4];
+      float s[BQ / 2], dp[BQ / 2];
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
       wait_full();
-      turn_begin<PINGPONG>(cw);
+      turn_begin<L::TURNS>(cw);
       wgmma_fence();
       issue_sdp(s, dp, stage);
-      turn_end<PINGPONG>(cw, false);
+      turn_end<L::TURNS>(cw, false);
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
       p_ds(s, dp, stage, w.s0);
-      pack_a<KV_BQ>(s, pa);
-      pack_a<KV_BQ>(dp, da);
+      pack_a<BQ>(s, pa);
+      pack_a<BQ>(dp, da);
       int prev = stage;
       advance();
       for (int i = 1; i < steps; ++i) {
         wait_full();
-        turn_begin<PINGPONG>(cw);
+        turn_begin<L::TURNS>(cw);
         wgmma_fence();
         issue_sdp(s, dp, stage);
         issue_dkv(pa, da, prev);
-        turn_end<PINGPONG>(cw, false);
+        turn_end<L::TURNS>(cw, false);
         wgmma_wait<1>();  // S^T / dP^T of tile i have landed; dK / dV of i - 1 may not have
         fence_regs(s);
         fence_regs(dp);
-        p_ds(s, dp, stage, w.s0 + i * KV_BQ);
+        p_ds(s, dp, stage, w.s0 + i * BQ);
         wgmma_wait<0>();
         fence_regs(dk);
         fence_regs(dv);
         if (lane == 0) mbar_arrive(empty0 + 8 * prev);
-        pack_a<KV_BQ>(s, pa);
-        pack_a<KV_BQ>(dp, da);
+        pack_a<BQ>(s, pa);
+        pack_a<BQ>(dp, da);
         prev = stage;
         advance();
       }
-      turn_begin<PINGPONG>(cw);
+      turn_begin<L::TURNS>(cw);
       wgmma_fence();
       issue_dkv(pa, da, prev);
-      turn_end<PINGPONG>(cw, last_tile && cw == 1);
+      turn_end<L::TURNS>(cw, last_tile && cw == 1);
       wgmma_wait<0>();
       fence_regs(dk);
       fence_regs(dv);
       if (lane == 0) {
         mbar_arrive(empty0 + 8 * prev);
-        if (!KV_IN_REGS) mbar_arrive(kv_empty0 + 8 * kslot);
+        if (!L::IN_REGS) mbar_arrive(kv_empty0 + 8 * kslot);
       }
       if (++kslot == 2) {
         kslot = 0;
@@ -573,39 +704,26 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& mq, const CUtensorMa
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
-                          const __grid_constant__ CUtensorMap mk,
-                          const __grid_constant__ CUtensorMap mv,
-                          const __grid_constant__ CUtensorMap mdo, const Params p) {
-  dkv_body<false>(mq, mk, mv, mdo, p);
-}
-
-__global__ void __launch_bounds__(NTHREADS, 1)
-flash_bwd_dkv_reloc_sm90_kernel(const __grid_constant__ CUtensorMap mq,
-                                const __grid_constant__ CUtensorMap mk,
-                                const __grid_constant__ CUtensorMap mv,
-                                const __grid_constant__ CUtensorMap mdo, const Params p) {
-  dkv_body<true>(mq, mk, mv, mdo, p);
-}
-
 // -- dq -----------------------------------------------------------------------
 
-template <bool MASKED>
+template <int D, bool MASKED>
 __device__ __forceinline__ void dq_body(const CUtensorMap& mq, const CUtensorMap& mk,
                                         const CUtensorMap& mv, const CUtensorMap& mdo,
                                         const Params p) {
+  typedef DqSmem<D> L;
+  typedef DqBarriers<L::STAGES> Bars;
+  constexpr int BK = L::BK, ATOMS = L::ATOMS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t bars = base + DQ_BAR_OFF;
-  const uint32_t full0 = bars + static_cast<uint32_t>(offsetof(DqBarriers, full));
-  const uint32_t empty0 = bars + static_cast<uint32_t>(offsetof(DqBarriers, empty));
-  const uint32_t q_full = bars + static_cast<uint32_t>(offsetof(DqBarriers, q_full));
-  const uint32_t q_empty = bars + static_cast<uint32_t>(offsetof(DqBarriers, q_empty));
+  const uint32_t bars = base + L::BAR_OFF;
+  const uint32_t full0 = bars + static_cast<uint32_t>(offsetof(Bars, full));
+  const uint32_t empty0 = bars + static_cast<uint32_t>(offsetof(Bars, empty));
+  const uint32_t q_full = bars + static_cast<uint32_t>(offsetof(Bars, q_full));
+  const uint32_t q_empty = bars + static_cast<uint32_t>(offsetof(Bars, q_empty));
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < DQ_STAGES; ++s) {
+    for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, 8);
     }
@@ -624,21 +742,29 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& mq, const CUtensorMap
       uint32_t phase = 0, q_phase = 0;
       for (int k = 0, tile; (tile = tile_at<MASKED>(k)) < p.tiles; ++k) {
         const Work w = dq_work<MASKED>(p, tile);
-        const int steps = cdiv(p.n_ctx, DQ_BK) + cdiv(w.s_end - w.s0, DQ_BK);
+        const int steps = cdiv(p.n_ctx, BK) + cdiv(w.s_end - w.s0, BK);
         mbar_wait(q_empty, q_phase ^ 1);  // the previous tile's Q and dO are consumed
-        mbar_expect_tx(q_full, 2 * DQ_Q_BYTES);
-        tma_load_3d(base + DQ_Q_OFF, &mq, q_full, 0, w.r0, w.slice);
-        tma_load_3d(base + DQ_DO_OFF, &mdo, q_full, 0, w.r0, w.slice);
+        mbar_expect_tx(q_full, 2 * L::Q_BYTES);
+        // one box a swizzle atom of the row: channels 64 a to 64 a + 63
+#pragma unroll
+        for (int a = 0; a < ATOMS; ++a) {
+          tma_load_3d(base + L::Q_OFF + a * L::Q_ATOM, &mq, q_full, 64 * a, w.r0, w.slice);
+          tma_load_3d(base + L::DO_OFF + a * L::Q_ATOM, &mdo, q_full, 64 * a, w.r0, w.slice);
+        }
         q_phase ^= 1;
         for (int i = 0; i < steps; ++i) {
           int k_end;
-          const int k0 = dq_key_tile(p, w, i, &k_end);
+          const int k0 = dq_key_tile<BK>(p, w, i, &k_end);
           const uint32_t full = full0 + 8 * stage;
           mbar_wait(empty0 + 8 * stage, phase ^ 1);
-          mbar_expect_tx(full, 2 * DQ_KV_BYTES);
-          tma_load_3d(base + DQ_K_OFF + stage * DQ_KV_BYTES, &mk, full, 0, k0, w.slice);
-          tma_load_3d(base + DQ_V_OFF + stage * DQ_KV_BYTES, &mv, full, 0, k0, w.slice);
-          if (++stage == DQ_STAGES) {
+          mbar_expect_tx(full, 2 * L::KV_BYTES);
+#pragma unroll
+          for (int a = 0; a < ATOMS; ++a) {
+            const uint32_t at = stage * L::KV_BYTES + a * L::KV_ATOM;
+            tma_load_3d(base + L::K_OFF + at, &mk, full, 64 * a, k0, w.slice);
+            tma_load_3d(base + L::V_OFF + at, &mv, full, 64 * a, k0, w.slice);
+          }
+          if (++stage == L::STAGES) {
             stage = 0;
             phase ^= 1;
           }
@@ -651,8 +777,9 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& mq, const CUtensorMap
     const int cw = wg - 1;
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
-    const uint64_t desc_q = sw128_desc(base + DQ_Q_OFF + cw * (DQ_Q_BYTES / 2), 1);
-    const uint64_t desc_do = sw128_desc(base + DQ_DO_OFF + cw * (DQ_Q_BYTES / 2), 1);
+    // the warpgroup's 64 rows of each atom of Q and dO
+    const uint64_t desc_q = sw128_desc(base + L::Q_OFF + cw * (DQ_BM / 2) * ATOM_ROW, 1);
+    const uint64_t desc_do = sw128_desc(base + L::DO_OFF + cw * (DQ_BM / 2) * ATOM_ROW, 1);
     int stage = 0;
     uint32_t phase = 0, q_phase = 0;
     auto wait_full = [&]() {
@@ -660,36 +787,36 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& mq, const CUtensorMap
       __syncwarp();
     };
     auto advance = [&]() {
-      if (++stage == DQ_STAGES) {
+      if (++stage == L::STAGES) {
         stage = 0;
         phase ^= 1;
       }
     };
     // S = Q K^T and dP = dO V^T of the tile in `st`: one wgmma group
-    auto issue_sdp = [&](float (&s)[DQ_BK / 2], float (&dp)[DQ_BK / 2], int st) {
-      const uint64_t dk_ = sw128_desc(base + DQ_K_OFF + st * DQ_KV_BYTES, 1);
-      const uint64_t dv_ = sw128_desc(base + DQ_V_OFF + st * DQ_KV_BYTES, 1);
+    auto issue_sdp = [&](float (&s)[BK / 2], float (&dp)[BK / 2], int st) {
+      const uint64_t dk_ = sw128_desc(base + L::K_OFF + st * L::KV_BYTES, 1);
+      const uint64_t dv_ = sw128_desc(base + L::V_OFF + st * L::KV_BYTES, 1);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<DQ_BK>(s, desc_add(desc_q, 2 * kk), desc_add(dk_, 2 * kk), kk);
+        wgmma_ss<BK>(s, k_step(desc_q, kk, L::Q_ATOM), k_step(dk_, kk, L::KV_ATOM), kk);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<DQ_BK>(dp, desc_add(desc_do, 2 * kk), desc_add(dv_, 2 * kk), kk);
+        wgmma_ss<BK>(dp, k_step(desc_do, kk, L::Q_ATOM), k_step(dv_, kk, L::KV_ATOM), kk);
       wgmma_commit();
     };
-    // dQ += dS K of the tile in `st`: DQ_BK / 16 k steps of 16 keys, K read
+    // dQ += dS K of the tile in `st`: BK / 16 k steps of 16 keys, K read
     // MN-major; one group
-    auto issue_dq = [&](float (&dq)[D / 2], const uint32_t (&da)[DQ_BK / 16][4], int st) {
-      const uint64_t dk_ = sw128_desc(base + DQ_K_OFF + st * DQ_KV_BYTES, 1024 >> 4);
+    auto issue_dq = [&](float (&dq)[D / 2], const uint32_t (&da)[BK / 16][4], int st) {
+      const uint64_t dk_ = mn_desc<D>(base + L::K_OFF + st * L::KV_BYTES, L::KV_ATOM);
 #pragma unroll
-      for (int kk = 0; kk < DQ_BK / 16; ++kk) wgmma_rs_m64n64(dq, da[kk], desc_add(dk_, 128 * kk));
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_mn<D>(dq, da[kk], desc_add(dk_, 128 * kk));
       wgmma_commit();
     };
     turn_first<PINGPONG>(cw);
     for (int k = 0, tile; (tile = tile_at<MASKED>(k)) < p.tiles; ++k) {
       const Work w = dq_work<MASKED>(p, tile);
       const bool last_tile = tile_at<MASKED>(k + 1) >= p.tiles;
-      const int steps = cdiv(p.n_ctx, DQ_BK) + cdiv(w.s_end - w.s0, DQ_BK);
+      const int steps = cdiv(p.n_ctx, BK) + cdiv(w.s_end - w.s0, BK);
       const int r0 = w.r0 + cw * 64 + warp * 16 + g, r1 = r0 + 8;
       // this thread's two rows: lse * log2(e) and delta, 0 past nq (rows
       // past the work tile's end are computed, never stored)
@@ -704,12 +831,12 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& mq, const CUtensorMap
       for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
       // dS into dp, fp32: s[4j + e] is row r0 + 8 (e >> 1) against key k0 +
       // 8j + 2t + (e & 1); keys at or past the key tile's end are selected to 0
-      auto p_ds = [&](const float (&s)[DQ_BK / 2], float (&dp)[DQ_BK / 2], int i) {
+      auto p_ds = [&](const float (&s)[BK / 2], float (&dp)[BK / 2], int i) {
         int k_end;
-        const int k0 = dq_key_tile(p, w, i, &k_end);
-        const bool edge = k0 + DQ_BK > k_end;
+        const int k0 = dq_key_tile<BK>(p, w, i, &k_end);
+        const bool edge = k0 + BK > k_end;
 #pragma unroll
-        for (int j = 0; j < DQ_BK / 8; ++j)
+        for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float pe = exp2_ftz(fmaf(s[4 * j + e], p.scale_log2, -((e >> 1) ? lse1 : lse0)));
@@ -721,8 +848,8 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& mq, const CUtensorMap
       __syncwarp();
       q_phase ^= 1;
 
-      float s[DQ_BK / 2], dp[DQ_BK / 2];
-      uint32_t da[DQ_BK / 16][4];
+      float s[BK / 2], dp[BK / 2];
+      uint32_t da[BK / 16][4];
       wait_full();
       turn_begin<PINGPONG>(cw);
       wgmma_fence();
@@ -733,7 +860,7 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& mq, const CUtensorMap
       fence_regs(dp);
       if (steps == 1 && lane == 0) mbar_arrive(q_empty);
       p_ds(s, dp, 0);
-      pack_a<DQ_BK>(dp, da);
+      pack_a<BK>(dp, da);
       int prev = stage;
       advance();
       for (int i = 1; i < steps; ++i) {
@@ -751,7 +878,7 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& mq, const CUtensorMap
         wgmma_wait<0>();
         fence_regs(dq);
         if (lane == 0) mbar_arrive(empty0 + 8 * prev);
-        pack_a<DQ_BK>(dp, da);
+        pack_a<BK>(dp, da);
         prev = stage;
         advance();
       }
@@ -779,28 +906,65 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& mq, const CUtensorMap
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
-                         const __grid_constant__ CUtensorMap mk,
-                         const __grid_constant__ CUtensorMap mv,
-                         const __grid_constant__ CUtensorMap mdo, const Params p) {
-  dq_body<false>(mq, mk, mv, mdo, p);
-}
+// The four kernels at head dim D, under the names DQ, DKV and their
+// RelocMask forms DQ_RELOC, DKV_RELOC
+#define SFM_BWD_KERNELS(D, DQ, DKV, DQ_RELOC, DKV_RELOC)                                        \
+  __global__ void __launch_bounds__(NTHREADS, 1)                                               \
+      DKV(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,      \
+          const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,     \
+          const Params p) {                                                                    \
+    dkv_body<D, false>(mq, mk, mv, mdo, p);                                                    \
+  }                                                                                            \
+  __global__ void __launch_bounds__(NTHREADS, 1)                                               \
+      DKV_RELOC(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,\
+                const __grid_constant__ CUtensorMap mv,                                        \
+                const __grid_constant__ CUtensorMap mdo, const Params p) {                     \
+    dkv_body<D, true>(mq, mk, mv, mdo, p);                                                     \
+  }                                                                                            \
+  __global__ void __launch_bounds__(NTHREADS, 1)                                               \
+      DQ(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,       \
+         const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,      \
+         const Params p) {                                                                     \
+    dq_body<D, false>(mq, mk, mv, mdo, p);                                                     \
+  }                                                                                            \
+  __global__ void __launch_bounds__(NTHREADS, 1)                                               \
+      DQ_RELOC(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk, \
+               const __grid_constant__ CUtensorMap mv,                                         \
+               const __grid_constant__ CUtensorMap mdo, const Params p) {                      \
+    dq_body<D, true>(mq, mk, mv, mdo, p);                                                      \
+  }
+SFM_BWD_KERNELS(64, flash_bwd_dq_sm90_kernel, flash_bwd_dkv_sm90_kernel,
+                flash_bwd_dq_reloc_sm90_kernel, flash_bwd_dkv_reloc_sm90_kernel)
+SFM_BWD_KERNELS(128, flash_bwd_dq_d128_sm90_kernel, flash_bwd_dkv_d128_sm90_kernel,
+                flash_bwd_dq_reloc_d128_sm90_kernel, flash_bwd_dkv_reloc_d128_sm90_kernel)
+#undef SFM_BWD_KERNELS
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-flash_bwd_dq_reloc_sm90_kernel(const __grid_constant__ CUtensorMap mq,
-                               const __grid_constant__ CUtensorMap mk,
-                               const __grid_constant__ CUtensorMap mv,
-                               const __grid_constant__ CUtensorMap mdo, const Params p) {
-  dq_body<true>(mq, mk, mv, mdo, p);
-}
+typedef void (*Kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                       const CUtensorMap, const Params);
+
+// the kernels of head dim D: [masked] dq, [masked] dk/dv
+template <int D>
+struct Kernels;
+template <>
+struct Kernels<64> {
+  static constexpr Kernel dq[2] = {flash_bwd_dq_sm90_kernel, flash_bwd_dq_reloc_sm90_kernel};
+  static constexpr Kernel dkv[2] = {flash_bwd_dkv_sm90_kernel, flash_bwd_dkv_reloc_sm90_kernel};
+};
+template <>
+struct Kernels<128> {
+  static constexpr Kernel dq[2] = {flash_bwd_dq_d128_sm90_kernel,
+                                   flash_bwd_dq_reloc_d128_sm90_kernel};
+  static constexpr Kernel dkv[2] = {flash_bwd_dkv_d128_sm90_kernel,
+                                    flash_bwd_dkv_reloc_d128_sm90_kernel};
+};
 
 // -- host side: tensor maps and launches ---------------------------------------
 
-// (slices, n, 64) contiguous, boxes of box_rows rows
+// (slices, n, D) contiguous, boxes of box_rows rows of one atom (64 channels)
+template <int D>
 bool encode_rows(CUtensorMap* map, const void* ptr, int n, int slices, int box_rows) {
-  return encode_rows64(map, ptr, 3, static_cast<uint64_t>(n), ROW_BYTES,
-                       static_cast<uint64_t>(slices), 1, 0, static_cast<uint32_t>(box_rows));
+  return encode_rows64(map, ptr, 3, static_cast<uint64_t>(n), D * 2,
+                       static_cast<uint64_t>(slices), 1, 0, static_cast<uint32_t>(box_rows), D);
 }
 
 // The first launch of each kernel checks its registers and sets its dynamic
@@ -853,65 +1017,59 @@ bool args_ok(bool masked, int bh, int nq, int nk, int n_ctx, int frame) {
   return !masked || (frame > 0 && n_ctx >= 0 && nq % frame == 0 && nk == n_ctx + nq);
 }
 
-template <bool MASKED>
+template <int D, bool MASKED>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int bh, int nq, int nk, int n_ctx, int frame,
               float scale_log2, float scale, void* stream) {
+  typedef DqSmem<D> L;
   if (!MASKED) {
     n_ctx = nk;
     frame = nq;
   }
   if (!args_ok(MASKED, bh, nq, nk, n_ctx, frame)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv, mdo;
-  if (!encode_rows(&mq, q, nq, bh, DQ_BM) || !encode_rows(&mdo, dout, nq, bh, DQ_BM) ||
-      !encode_rows(&mk, k, nk, bh, DQ_BK) || !encode_rows(&mv, v, nk, bh, DQ_BK))
+  if (!encode_rows<D>(&mq, q, nq, bh, DQ_BM) || !encode_rows<D>(&mdo, dout, nq, bh, DQ_BM) ||
+      !encode_rows<D>(&mk, k, nk, bh, L::BK) || !encode_rows<D>(&mv, v, nk, bh, L::BK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = bh * (nq / frame) * cdiv(frame, DQ_BM);
   const Params p =
       make_params(lse, delta, dq, nullptr, bh, nq, nk, n_ctx, frame, tiles, scale_log2, scale);
-  const void* kernel = MASKED ? reinterpret_cast<const void*>(flash_bwd_dq_reloc_sm90_kernel)
-                              : reinterpret_cast<const void*>(flash_bwd_dq_sm90_kernel);
+  const Kernel kernel = Kernels<D>::dq[MASKED];
   static bool ready = false;
   int grid;
-  const int err = prepare(kernel, DQ_SMEM_BYTES, DQ_PRODUCER_REGS, DQ_CONSUMER_REGS, &ready,
-                          p.tiles, &grid);
+  const int err = prepare(reinterpret_cast<const void*>(kernel), L::SMEM_BYTES, DQ_PRODUCER_REGS,
+                          DQ_CONSUMER_REGS, &ready, p.tiles, &grid);
   if (err != 0) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (MASKED)
-    flash_bwd_dq_reloc_sm90_kernel<<<grid, NTHREADS, DQ_SMEM_BYTES, st>>>(mq, mk, mv, mdo, p);
-  else
-    flash_bwd_dq_sm90_kernel<<<grid, NTHREADS, DQ_SMEM_BYTES, st>>>(mq, mk, mv, mdo, p);
+  kernel<<<grid, NTHREADS, L::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(mq, mk, mv, mdo,
+                                                                              p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool MASKED>
+template <int D, bool MASKED>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int bh, int nq, int nk, int n_ctx,
                int frame, float scale_log2, float scale, void* stream) {
+  typedef DkvSmem<D> L;
   if (!MASKED) {
     n_ctx = nk;
     frame = nq;
   }
   if (!args_ok(MASKED, bh, nq, nk, n_ctx, frame)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv, mdo;
-  if (!encode_rows(&mq, q, nq, bh, KV_BQ) || !encode_rows(&mdo, dout, nq, bh, KV_BQ) ||
-      !encode_rows(&mk, k, nk, bh, KV_BM) || !encode_rows(&mv, v, nk, bh, KV_BM))
+  if (!encode_rows<D>(&mq, q, nq, bh, L::BQ) || !encode_rows<D>(&mdo, dout, nq, bh, L::BQ) ||
+      !encode_rows<D>(&mk, k, nk, bh, KV_BM) || !encode_rows<D>(&mv, v, nk, bh, KV_BM))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = bh * (cdiv(n_ctx, KV_BM) + (MASKED ? nq / frame * cdiv(frame, KV_BM) : 0));
   const Params p =
       make_params(lse, delta, dk, dv, bh, nq, nk, n_ctx, frame, tiles, scale_log2, scale);
-  const void* kernel = MASKED ? reinterpret_cast<const void*>(flash_bwd_dkv_reloc_sm90_kernel)
-                              : reinterpret_cast<const void*>(flash_bwd_dkv_sm90_kernel);
+  const Kernel kernel = Kernels<D>::dkv[MASKED];
   static bool ready = false;
   int grid;
-  const int err = prepare(kernel, KV_SMEM_BYTES, KV_PRODUCER_REGS, KV_CONSUMER_REGS, &ready,
-                          p.tiles, &grid);
+  const int err = prepare(reinterpret_cast<const void*>(kernel), L::SMEM_BYTES, KV_PRODUCER_REGS,
+                          KV_CONSUMER_REGS, &ready, p.tiles, &grid);
   if (err != 0) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (MASKED)
-    flash_bwd_dkv_reloc_sm90_kernel<<<grid, NTHREADS, KV_SMEM_BYTES, st>>>(mq, mk, mv, mdo, p);
-  else
-    flash_bwd_dkv_sm90_kernel<<<grid, NTHREADS, KV_SMEM_BYTES, st>>>(mq, mk, mv, mdo, p);
+  kernel<<<grid, NTHREADS, L::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(mq, mk, mv, mdo,
+                                                                              p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -923,8 +1081,8 @@ extern "C" int sfm_flash_bwd_dq_sm90(const void* q, const void* k, const void* v
                                      const void* dout, const void* lse, const void* delta,
                                      void* dq, int bh, int nq, int nk, float scale_log2,
                                      float scale, void* stream) {
-  return launch_dq<false>(q, k, v, dout, lse, delta, dq, bh, nq, nk, 0, 0, scale_log2, scale,
-                          stream);
+  return launch_dq<64, false>(q, k, v, dout, lse, delta, dq, bh, nq, nk, 0, 0, scale_log2, scale,
+                              stream);
 }
 
 // As above; dk / dv (bh, nk, 64) bf16.
@@ -932,8 +1090,8 @@ extern "C" int sfm_flash_bwd_dkv_sm90(const void* q, const void* k, const void* 
                                       const void* dout, const void* lse, const void* delta,
                                       void* dk, void* dv, int bh, int nq, int nk,
                                       float scale_log2, float scale, void* stream) {
-  return launch_dkv<false>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, 0, 0, scale_log2,
-                           scale, stream);
+  return launch_dkv<64, false>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, 0, 0, scale_log2,
+                               scale, stream);
 }
 
 // The same under a RelocMask: nk == n_ctx + nq, the q rows frames of
@@ -943,8 +1101,8 @@ extern "C" int sfm_flash_bwd_dq_reloc_sm90(const void* q, const void* k, const v
                                            const void* delta, void* dq, int bh, int nq, int nk,
                                            int n_ctx, int frame_size, float scale_log2,
                                            float scale, void* stream) {
-  return launch_dq<true>(q, k, v, dout, lse, delta, dq, bh, nq, nk, n_ctx, frame_size,
-                         scale_log2, scale, stream);
+  return launch_dq<64, true>(q, k, v, dout, lse, delta, dq, bh, nq, nk, n_ctx, frame_size,
+                             scale_log2, scale, stream);
 }
 
 extern "C" int sfm_flash_bwd_dkv_reloc_sm90(const void* q, const void* k, const void* v,
@@ -952,31 +1110,71 @@ extern "C" int sfm_flash_bwd_dkv_reloc_sm90(const void* q, const void* k, const 
                                             const void* delta, void* dk, void* dv, int bh,
                                             int nq, int nk, int n_ctx, int frame_size,
                                             float scale_log2, float scale, void* stream) {
-  return launch_dkv<true>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, n_ctx, frame_size,
-                          scale_log2, scale, stream);
+  return launch_dkv<64, true>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, n_ctx, frame_size,
+                              scale_log2, scale, stream);
+}
+
+// The same four at head dim 128, with the head-dim-64 entries' arguments:
+// q / k / v / do and the gradients rows of 128 channels
+extern "C" int sfm_flash_bwd_dq_d128_sm90(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse, const void* delta,
+                                          void* dq, int bh, int nq, int nk, float scale_log2,
+                                          float scale, void* stream) {
+  return launch_dq<128, false>(q, k, v, dout, lse, delta, dq, bh, nq, nk, 0, 0, scale_log2,
+                               scale, stream);
+}
+
+extern "C" int sfm_flash_bwd_dkv_d128_sm90(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse, const void* delta,
+                                           void* dk, void* dv, int bh, int nq, int nk,
+                                           float scale_log2, float scale, void* stream) {
+  return launch_dkv<128, false>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, 0, 0, scale_log2,
+                                scale, stream);
+}
+
+extern "C" int sfm_flash_bwd_dq_reloc_d128_sm90(const void* q, const void* k, const void* v,
+                                                const void* dout, const void* lse,
+                                                const void* delta, void* dq, int bh, int nq,
+                                                int nk, int n_ctx, int frame_size,
+                                                float scale_log2, float scale, void* stream) {
+  return launch_dq<128, true>(q, k, v, dout, lse, delta, dq, bh, nq, nk, n_ctx, frame_size,
+                              scale_log2, scale, stream);
+}
+
+extern "C" int sfm_flash_bwd_dkv_reloc_d128_sm90(const void* q, const void* k, const void* v,
+                                                 const void* dout, const void* lse,
+                                                 const void* delta, void* dk, void* dv, int bh,
+                                                 int nq, int nk, int n_ctx, int frame_size,
+                                                 float scale_log2, float scale, void* stream) {
+  return launch_dkv<128, true>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, n_ctx, frame_size,
+                               scale_log2, scale, stream);
 }
 
 // What each kernel was built with and what the compiler gave it (0 dq, 1
-// dk/dv, 2 and 3 their RelocMask forms): registers a thread at launch,
-// local (spill) bytes a thread, dynamic shared memory a block, ring stages,
-// rows a work tile, rows a streamed tile, and the setmaxnreg counts of the
-// producer and the consumers.
+// dk/dv, 2 and 3 their RelocMask forms; 4-7 the same at head dim 128):
+// registers a thread at launch, local (spill) bytes a thread, dynamic shared
+// memory a block, ring stages, rows a work tile, rows a streamed tile, and
+// the setmaxnreg counts of the producer and the consumers.
 extern "C" int sfm_flash_bwd_sm90_info(int which, int* out) {
-  if (which < 0 || which > 3) return static_cast<int>(cudaErrorInvalidValue);
-  const void* const kernels[4] = {reinterpret_cast<const void*>(flash_bwd_dq_sm90_kernel),
-                                  reinterpret_cast<const void*>(flash_bwd_dkv_sm90_kernel),
-                                  reinterpret_cast<const void*>(flash_bwd_dq_reloc_sm90_kernel),
-                                  reinterpret_cast<const void*>(flash_bwd_dkv_reloc_sm90_kernel)};
+  if (which < 0 || which > 7) return static_cast<int>(cudaErrorInvalidValue);
+  const bool dq = which % 2 == 0, masked = which % 4 >= 2, d128 = which >= 4;
+  const Kernel kernel = d128 ? (dq ? Kernels<128>::dq : Kernels<128>::dkv)[masked]
+                             : (dq ? Kernels<64>::dq : Kernels<64>::dkv)[masked];
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernels[which]);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(kernel));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool dq = which % 2 == 0;
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = dq ? DQ_SMEM_BYTES : KV_SMEM_BYTES;
-  out[3] = dq ? DQ_STAGES : KV_STAGES;
+  if (dq) {
+    out[2] = d128 ? DqSmem<128>::SMEM_BYTES : DqSmem<64>::SMEM_BYTES;
+    out[3] = d128 ? DqSmem<128>::STAGES : DqSmem<64>::STAGES;
+    out[5] = d128 ? DqSmem<128>::BK : DqSmem<64>::BK;
+  } else {
+    out[2] = d128 ? DkvSmem<128>::SMEM_BYTES : DkvSmem<64>::SMEM_BYTES;
+    out[3] = d128 ? DkvSmem<128>::STAGES : DkvSmem<64>::STAGES;
+    out[5] = d128 ? DkvSmem<128>::BQ : DkvSmem<64>::BQ;
+  }
   out[4] = dq ? DQ_BM : KV_BM;
-  out[5] = dq ? DQ_BK : KV_BQ;
   out[6] = dq ? DQ_PRODUCER_REGS : KV_PRODUCER_REGS;
   out[7] = dq ? DQ_CONSUMER_REGS : KV_CONSUMER_REGS;
   return 0;

@@ -2,7 +2,7 @@
 // (flash_fwd_sm90.cu, flash_bwd_sm90.cu) and the GEMM body (gemm_sm90.cu):
 // shared-memory addresses, bf16 packing, mbarriers with a watchdog, TMA
 // tensor loads, 4-byte cp.async copies that arrive on an mbarrier, wgmma
-// descriptors and products with their fence / commit / wait, and
+// descriptors and products (m64n32 / n64 / n128) with their fence / commit / wait, and
 // setmaxnreg; on the host, the tensor-map encoder cuTensorMapEncodeTiled, a
 // map over rows of 64 or 128 bf16 (q, k, v and the attention output as (d,
 // N, B H)) and the number of multiprocessors.
@@ -219,6 +219,24 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uin
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32, fp32) (+)= A (64 x 16, shared) * B (16 x 32, shared), both
+// K-major in the 128-byte swizzle (B: 32 rows of k); scale_d as above
+__device__ __forceinline__ void wgmma_ss_m64n32(float (&d)[16], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

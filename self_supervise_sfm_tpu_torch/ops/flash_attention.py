@@ -40,12 +40,12 @@ tensor it launches the kernel or raises. Every kernel takes contiguous
 inputs of one dtype, in the forms :data:`FORWARD_FORMS` and
 :data:`BACKWARD_FORMS` list: at head dim 64 bf16 (the Hopper bodies, bound
 by the bf16 tensor-core rate) or fp32 (the FFMA bodies, bound by the fp32
-rate; each wrapper counts those launches apart, in ``.launches_f32``), and
-at head dim 128 the forward forms in bf16 on the Hopper body (counted
-apart, in ``.launches_d128``). The "auto" gates ask :func:`kernel_takes`
-and send a site the kernels do not take (a head dim or dtype without a
-kernel, operands of two dtypes, a head dim 128 site that autograd
-differentiates, whose backward has no kernel) to the dense path.
+rate; each wrapper counts those launches apart, in ``.launches_f32``),
+forward and backward, and at head dim 128 bf16 on the Hopper bodies,
+forward and backward (counted apart, in ``.launches_d128``). The "auto"
+gates ask :func:`kernel_takes` and send a site the kernels do not take (a
+head dim or dtype without a kernel, operands of two dtypes, an fp32 head
+dim 128 site) to the dense path.
 
 Autograd reaches the kernels only through the ``torch.autograd.Function``s
 behind :func:`flash_attention`, :func:`flash_attention_lse` and
@@ -71,7 +71,7 @@ _DTYPES = (torch.bfloat16, torch.float32)
 # head dim -> the dtypes with a kernel: the forward forms (K1, K1m, K2, K2p)
 # and the backward (B9's dq and dk/dv)
 FORWARD_FORMS = {64: _DTYPES, 128: (torch.bfloat16,)}
-BACKWARD_FORMS = {64: _DTYPES}
+BACKWARD_FORMS = {64: _DTYPES, 128: (torch.bfloat16,)}
 
 
 def _check_form(name: str, d: int, dtype: torch.dtype, forms=FORWARD_FORMS) -> None:
@@ -112,7 +112,8 @@ def _grad(*ts: torch.Tensor) -> bool:
 def _check_backward(name: str, *ts: torch.Tensor) -> None:
     """A differentiable entry that autograd differentiates off the CPU needs
     the backward kernels of its head dim and dtype: raise before the forward
-    when they do not exist (head dim 128), rather than after it."""
+    when they do not exist (fp32 at head dim 128, another head dim), rather
+    than after it."""
     if ts[0].device.type != "cpu" and _grad(*ts):
         _check_form(name, ts[0].shape[-1], ts[0].dtype, BACKWARD_FORMS)
 
@@ -281,9 +282,9 @@ def flash_bwd_plain(q, k, v, o, lse, do, dlse=None,
 
 
 def _check_bwd(name, q, k, v, do, lse, delta, mask) -> None:
-    """What the B9 kernels take: q / k / v / do of one dtype (bf16 or fp32)
-    and head dim 64 on one device, fp32 contiguous (BH, Nq) lse and delta,
-    shapes that agree."""
+    """What the B9 kernels take: q / k / v / do of one dtype and head dim on
+    one device, a form of :data:`BACKWARD_FORMS` (64 in bf16 or fp32, 128 in
+    bf16), fp32 contiguous (BH, Nq) lse and delta, shapes that agree."""
     _check_cuda(name, q, k, v, do, forms=BACKWARD_FORMS)
     BH, Nq, d = q.shape
     Nk = k.shape[1]
@@ -299,13 +300,14 @@ def _check_bwd(name, q, k, v, do, lse, delta, mask) -> None:
         _check_mask(name, mask, Nq, Nk)
 
 
-def _bwd_entry(name: str, dtype: torch.dtype, mask: Optional[RelocMask]):
+def _bwd_entry(name: str, dtype: torch.dtype, head_dim: int, mask: Optional[RelocMask]):
     """The C entry of a B9 kernel and its trailing shape arguments: the
-    unmasked form of ``dtype``'s body, or its RelocMask form with the
-    mask's context and frame size."""
+    unmasked form of ``dtype``'s body at ``head_dim``, or its RelocMask form
+    with the mask's context and frame size."""
+    body = _body(dtype, head_dim)
     if mask is None:
-        return f"sfm_flash_bwd_{name}_{_body(dtype)}", ()
-    return f"sfm_flash_bwd_{name}_reloc_{_body(dtype)}", (mask.n_ctx, mask.frame_size)
+        return f"sfm_flash_bwd_{name}_{body}", ()
+    return f"sfm_flash_bwd_{name}_reloc_{body}", (mask.n_ctx, mask.frame_size)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
@@ -319,17 +321,17 @@ def flash_bwd_dq(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
         return torch.zeros_like(q)
     dq = torch.empty_like(q)
     if BH and Nq:
-        entry, extra = _bwd_entry("dq", q.dtype, mask)
+        entry, extra = _bwd_entry("dq", q.dtype, d, mask)
         _kernels.launch(
             entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, Nq, Nk, *extra,
             d**-0.5 * LOG2E, d**-0.5, _kernels.stream_ptr(q),
         )
-        _count(flash_bwd_dq, q.dtype)
+        _count(flash_bwd_dq, q.dtype, d)
     return dq
 
 
-flash_bwd_dq.launches = flash_bwd_dq.launches_f32 = 0
+flash_bwd_dq.launches = flash_bwd_dq.launches_f32 = flash_bwd_dq.launches_d128 = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
@@ -343,17 +345,17 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
         return torch.zeros_like(k), torch.zeros_like(v)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if BH and Nk:
-        entry, extra = _bwd_entry("dkv", q.dtype, mask)
+        entry, extra = _bwd_entry("dkv", q.dtype, d, mask)
         _kernels.launch(
             entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Nq,
             Nk, *extra, d**-0.5 * LOG2E, d**-0.5, _kernels.stream_ptr(q),
         )
-        _count(flash_bwd_dkv, q.dtype)
+        _count(flash_bwd_dkv, q.dtype, d)
     return dk, dv
 
 
-flash_bwd_dkv.launches = flash_bwd_dkv.launches_f32 = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.launches_f32 = flash_bwd_dkv.launches_d128 = 0
 
 
 def flash_bwd(q, k, v, o, lse, do, dlse=None, mask: Optional[RelocMask] = None):
@@ -430,15 +432,17 @@ class _FlashAttentionLse(torch.autograd.Function):
 
 def flash_attention_lse(q, k, v, mask: Optional[RelocMask] = None):
     """(B, H, Nq, d) x (B, H, Nk, d)^2 -> ((B, H, Nq, d), (B, H, Nq) fp32 lse).
-    Differentiable in q, k, v through both outputs (off the CPU at head dim
-    64: a differentiated call at 128 raises)."""
+    Differentiable in q, k, v through both outputs (off the CPU in the forms
+    of :data:`BACKWARD_FORMS`: a differentiated fp32 call at head dim 128
+    raises)."""
     _check_backward("flash_attention_lse", q, k, v)
     return _FlashAttentionLse.apply(q, k, v, mask)
 
 
 def flash_attention(q, k, v, mask: Optional[RelocMask] = None):
     """(B, H, Nq, d) x (B, H, Nk, d)^2 -> (B, H, Nq, d). Differentiable (off
-    the CPU at head dim 64: a differentiated call at 128 raises)."""
+    the CPU in the forms of :data:`BACKWARD_FORMS`: a differentiated fp32
+    call at head dim 128 raises)."""
     _check_backward("flash_attention", q, k, v)
     return _FlashAttention.apply(q, k, v, mask)
 
@@ -458,8 +462,8 @@ def kernel_takes(q, k, v, *ctx) -> bool:
     version. On the card: q / k / v of one dtype at a head dim with a
     forward kernel in it (:data:`FORWARD_FORMS`: 64 in bf16 or fp32, 128 in
     bf16) and, where autograd differentiates the site (q, k, v or the
-    context), a backward kernel too (:data:`BACKWARD_FORMS`: 64 only). A
-    mask does not change the route: every forward form (K1, K1m, K2, K2p)
+    context), a backward kernel too (:data:`BACKWARD_FORMS`: the same
+    forms). A mask does not change the route: every forward form (K1, K1m, K2, K2p)
     and B9 unmasked and under a RelocMask exist at the same head dims. An
     explicit ``impl="flash"`` skips this check and reaches the kernels' own
     refusals: a kernel that does not exist is not turned into dense."""
@@ -567,8 +571,9 @@ class _FrameCtxAttention(torch.autograd.Function):
 
 def frame_ctx_attention(q, k, v, ck, cv):
     """Fused reloc attention: frame-major q/k/v against shared context K/V.
-    Differentiable in all five (off the CPU at head dim 64: the backward is
-    two flash calls' B9; a differentiated call at 128 raises)."""
+    Differentiable in all five (off the CPU in the forms of
+    :data:`BACKWARD_FORMS`: the backward is two flash calls' B9; a
+    differentiated fp32 call at head dim 128 raises)."""
     _check_backward("frame_ctx_attention", q, k, v, ck, cv)
     return _FrameCtxAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(),

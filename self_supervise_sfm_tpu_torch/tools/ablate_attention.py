@@ -51,7 +51,15 @@ The ``d128`` part times the head dim 128 forms the same way (builds under
 1374) and global (8, 6870) sites and K2 at the reloc site of 8 heads of
 128, beside SDPA, with "2 stages" (the K / V ring at head dim 128; 4 do
 not fit) and "overlapped" (the head dim 64 schedule, S of tile i beside
-PV of tile i - 1 in a warpgroup: ptxas spills it at 128).
+PV of tile i - 1 in a warpgroup: ptxas spills it at 128). Then B9 at head
+dim 128 (builds under ``build/ablation_attention_bwd_d128/``) at the
+backward part's sites with 8 heads, each variant held to
+``flash_bwd_plain`` and timed beside SDPA's backward, its ptxas registers
+and spills printed: "K / V in registers, q tiles of 64" (the head dim 64
+design, 3 stages), "q tiles of 64" (K / V from shared memory, 3 stages),
+"dq key tiles of 128" (2 stages), the rings ("dk/dv 3 / 6 stages", "dq 3
+/ 5 stages"), "dk/dv ping-pong" (the two warpgroups taking turns, as at
+head dim 64) and "dq no ping-pong".
 """
 
 from __future__ import annotations
@@ -131,10 +139,10 @@ BWD_PRODUCTS_ONLY = [
 ]
 BWD_PLAIN_LOADS = [
     ("            cp_async_4(rowv + 4 * r, lse + row, ok ? 4 : 0);\n"
-     "            cp_async_4(rowv + 4 * (KV_BQ + r), delta + row, ok ? 4 : 0);",
+     "            cp_async_4(rowv + 4 * (BQ + r), delta + row, ok ? 4 : 0);",
      "            float* gv = reinterpret_cast<float*>(gbase + (rowv - base));\n"
      "            gv[r] = ok ? lse[row] : 0.f;\n"
-     "            gv[KV_BQ + r] = ok ? delta[row] : 0.f;"),
+     "            gv[BQ + r] = ok ? delta[row] : 0.f;"),
     ("          cp_async_arrive(full);", "          mbar_arrive(full);"),
 ]
 
@@ -160,6 +168,32 @@ BWD_VARIANTS = {
     "4 stages": _bwd_stages(4),
     "round-robin walk": [("constexpr bool SNAKE = true;", "constexpr bool SNAKE = false;")],
     "frame tiles first": [("constexpr bool CTX_FIRST = true;", "constexpr bool CTX_FIRST = false;")],
+}
+
+
+def _d128(name: str, value) -> tuple:
+    """Patch a head dim 128 constant of the backward body."""
+    kind = "bool" if isinstance(value, bool) else "int"
+    shipped = {"KV_BQ_D128": 32, "KV_STAGES_D128": 4, "KV_IN_REGS_D128": False,
+               "KV_PINGPONG_D128": False, "DQ_BK_D128": 64, "DQ_STAGES_D128": 4}[name]
+    text = lambda v: f"constexpr {kind} {name} = {str(v).lower()};"  # noqa: E731
+    return (text(shipped), text(value))
+
+
+# the head dim 128 forms of B9: q tiles of 64 rows need a ring of 3 (4 do
+# not fit beside the K / V slots); K / V in registers only with them
+D128_BWD_VARIANTS = {
+    "as shipped": [],
+    "K / V in registers, q tiles of 64": [_d128("KV_IN_REGS_D128", True),
+                                          _d128("KV_BQ_D128", 64), _d128("KV_STAGES_D128", 3)],
+    "q tiles of 64": [_d128("KV_BQ_D128", 64), _d128("KV_STAGES_D128", 3)],
+    "dq key tiles of 128": [_d128("DQ_BK_D128", 128), _d128("DQ_STAGES_D128", 2)],
+    "dk/dv 3 stages": [_d128("KV_STAGES_D128", 3)],
+    "dk/dv 6 stages": [_d128("KV_STAGES_D128", 6)],
+    "dq 3 stages": [_d128("DQ_STAGES_D128", 3)],
+    "dq 5 stages": [_d128("DQ_STAGES_D128", 5)],
+    "dk/dv ping-pong": [_d128("KV_PINGPONG_D128", True)],
+    "dq no ping-pong": [("constexpr bool PINGPONG = true;", "constexpr bool PINGPONG = false;")],
 }
 
 
@@ -228,6 +262,7 @@ def main(argv) -> int:
         backward()
     if "d128" in parts:
         forward_d128()
+        backward(d=128)
     return 0
 
 
@@ -373,32 +408,47 @@ def forward() -> None:
               f"{4.0 * bh * n * n * 64 / t / 1e9:.0f} TFLOP/s")
 
 
-def backward() -> None:
+def _ptxas_lines(log: str, only: str = "") -> list:
+    """ptxas's registers, spills and advisories, each under its kernel's
+    mangled name; ``only``: the kernels whose name holds it."""
+    out, name = [], "?"
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+        elif ("spill" in ln or "Used" in ln or "C75" in ln) and only in name:
+            out.append(ln.split(":", 1)[-1].strip())
+    return out
+
+
+def backward(d: int = 64) -> None:
     """The B9 variants at the train step's sites, unmasked and under the
-    reloc layer's RelocMask, b2b, beside SDPA's backward."""
-    libs, logs = build_all(BWD_VARIANTS, BWD_SOURCE, "ablation_attention_bwd",
-                           ("sfm_flash_bwd_dq_sm90", "sfm_flash_bwd_dkv_sm90",
-                            "sfm_flash_bwd_dq_reloc_sm90", "sfm_flash_bwd_dkv_reloc_sm90"))
+    reloc layer's RelocMask, b2b, beside SDPA's backward: at head dim 64
+    (16 heads) the variants of BWD_VARIANTS, at 128 (8 heads, the same
+    width) those of D128_BWD_VARIANTS on the head dim 128 entries."""
+    hd = "d128_" if d == 128 else ""
+    variants = D128_BWD_VARIANTS if d == 128 else BWD_VARIANTS
+    subdir = "ablation_attention_bwd_d128" if d == 128 else "ablation_attention_bwd"
+    entries = tuple(f"sfm_flash_bwd_{k}_{hd}sm90" for k in ("dq", "dkv", "dq_reloc", "dkv_reloc"))
+    libs, logs = build_all(variants, BWD_SOURCE, subdir, entries)
     for name, log in logs.items():
-        spills = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-                  if "spill" in ln or "Used" in ln or "C75" in ln]
-        print(f"  ptxas [{name}]: {' | '.join(spills)}")
+        print(f"  ptxas [{name}]: {' | '.join(_ptxas_lines(log, 'd128' if d == 128 else ''))}")
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
     stream = torch.cuda.current_stream().cuda_stream
-    scale = 64**-0.5
+    scale = d**-0.5
     tol = lambda ref: 4 * 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)  # noqa: E731
     mask = RelocMask(610, 1374, 2)
-    sites = (("vit", 32, 1374, 1374, None), ("frame", 64, 1374, 1374, None),
-             ("global", 16, 2748, 2748, None), ("split context", 32, 1374, 610, None),
-             ("reloc layer 0, masked", 16, mask.nq, mask.nk, mask))
+    H = 16 if d == 64 else 8
+    sites = (("vit", 2 * H, 1374, 1374, None), ("frame", 4 * H, 1374, 1374, None),
+             ("global", H, 2748, 2748, None), ("split context", 2 * H, 1374, 610, None),
+             ("reloc layer 0, masked", H, mask.nq, mask.nk, mask))
     rows = {name: [] for name in libs}
     sdpa = []
     for site, bh, nq, nk, mask in sites:
-        q, do, k, v = randn(bh, nq, 64), randn(bh, nq, 64), randn(bh, nk, 64), randn(bh, nk, 64)
+        q, do, k, v = randn(bh, nq, d), randn(bh, nq, d), randn(bh, nk, d), randn(bh, nk, d)
         o, lse = FA.flash_fwd_plain(q, k, v, mask)
         delta = FA._delta(o, do).contiguous()
         ref = FA.flash_bwd_plain(q, k, v, o, lse, do, mask=mask)
@@ -407,11 +457,11 @@ def backward() -> None:
             args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                     delta.data_ptr())
             if mask is None:
-                dq_entry, dkv_entry, extra = (lib.sfm_flash_bwd_dq_sm90,
-                                              lib.sfm_flash_bwd_dkv_sm90, ())
+                dq_entry, dkv_entry, extra = (getattr(lib, entries[0]),
+                                              getattr(lib, entries[1]), ())
             else:
-                dq_entry, dkv_entry, extra = (lib.sfm_flash_bwd_dq_reloc_sm90,
-                                              lib.sfm_flash_bwd_dkv_reloc_sm90,
+                dq_entry, dkv_entry, extra = (getattr(lib, entries[2]),
+                                              getattr(lib, entries[3]),
                                               (mask.n_ctx, mask.frame_size))
             call_dq = lambda: _launch(dq_entry(  # noqa: E731
                 *args, dq.data_ptr(), bh, nq, nk, *extra, scale * LOG2E, scale, stream), name)
@@ -433,13 +483,13 @@ def backward() -> None:
             out, (qm, km, vm), do[None], retain_graph=True)))
         del q, do, k, v, o, lse, delta, ref, out, qm, km, vm
         torch.cuda.empty_cache()
-    print("ms, 20 launches back to back, dq / dk/dv: " + " | ".join(
+    print(f"head dim {d}, ms, 20 launches back to back, dq / dk/dv: " + " | ".join(
         f"{site} ({bh}, {nq}, {nk})" for site, bh, nq, nk, _ in sites))
     for name, ts in rows.items():
         print(f"  {name:28s} " + " | ".join(f"{a:.4f} / {b:.4f}" for a, b in ts))
     print(f"  {'SDPA backward (all three)':28s} " + " | ".join(f"{t:.4f}" for t in sdpa))
     # a product over the allowed pairs
-    flops = [2.0 * bh * nq * (nk if m is None else m.n_ctx + m.frame_size) * 64
+    flops = [2.0 * bh * nq * (nk if m is None else m.n_ctx + m.frame_size) * d
              for _, bh, nq, nk, m in sites]
     for name, ts in rows.items():
         print(f"  {name:28s} TFLOP/s dq / dk/dv: " + " | ".join(

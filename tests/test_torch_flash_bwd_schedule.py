@@ -77,6 +77,13 @@ KV_BM, KV_BQ, DQ_BM, DQ_BK = (int(_const(n)) for n in ("KV_BM", "KV_BQ", "DQ_BM"
 KV_STAGES, DQ_STAGES = int(_const("KV_STAGES")), int(_const("DQ_STAGES"))
 SNAKE, CTX_FIRST = (_const(n) == "true" for n in ("SNAKE", "CTX_FIRST"))
 D = 64
+# head dim -> (q rows a streamed dk/dv tile, its ring stages, keys a streamed
+# dq tile, its ring stages, K / V of dk/dv in registers), as the source sets
+# them
+TILES = {64: (KV_BQ, KV_STAGES, DQ_BK, DQ_STAGES, _const("KV_IN_REGS") == "true"),
+         128: (int(_const("KV_BQ_D128")), int(_const("KV_STAGES_D128")),
+               int(_const("DQ_BK_D128")), int(_const("DQ_STAGES_D128")),
+               _const("KV_IN_REGS_D128") == "true")}
 LOG2E = 1.4426950408889634
 SMS = 132
 
@@ -100,9 +107,9 @@ def _ffma(s, c, b):
     return (s.double() * float(c) - b.double()).float()
 
 
-def _scales():
+def _scales(d: int = D):
     """The wrapper's fp32 scale * log2(e) and scale, as ctypes passes them."""
-    return (np.float32(D**-0.5 * LOG2E), np.float32(D**-0.5))
+    return (np.float32(d**-0.5 * LOG2E), np.float32(d**-0.5))
 
 
 def _lse2(lse):
@@ -118,18 +125,20 @@ def _pad(x, n0, n):
 
 
 def _emulate_dkv(q, k, v, do, lse, delta):
-    """dk, dv as the dk/dv kernel computes them: q tiles of KV_BQ in order."""
-    c, scale = _scales()
+    """dk, dv as the dk/dv kernel computes them: q tiles of its head dim's
+    KV_BQ in order."""
     S, nq, d = q.shape
+    c, scale = _scales(d)
+    bq = TILES[d][0]
     nk = k.shape[1]
     lse2 = _lse2(lse)
     dk = torch.zeros((S, nk, d))
     dv = torch.zeros((S, nk, d))
-    for q0 in range(0, nq, KV_BQ):
-        qt, valid = _pad(q, q0, KV_BQ)
-        dot, _ = _pad(do, q0, KV_BQ)
-        l2, _ = _pad(lse2, q0, KV_BQ)
-        dl, _ = _pad(delta.float(), q0, KV_BQ)
+    for q0 in range(0, nq, bq):
+        qt, valid = _pad(q, q0, bq)
+        dot, _ = _pad(do, q0, bq)
+        l2, _ = _pad(lse2, q0, bq)
+        dl, _ = _pad(delta.float(), q0, bq)
         st = torch.matmul(k.float(), qt.float().transpose(-1, -2))  # S^T (S, nk, BQ)
         dpt = torch.matmul(v.float(), dot.float().transpose(-1, -2))
         p = _exp2_ftz(_ffma(st, c, l2[:, None, :]))
@@ -141,15 +150,17 @@ def _emulate_dkv(q, k, v, do, lse, delta):
 
 
 def _emulate_dq(q, k, v, do, lse, delta):
-    """dq as the dq kernel computes it: key tiles of DQ_BK in order."""
-    c, scale = _scales()
+    """dq as the dq kernel computes it: key tiles of its head dim's DQ_BK in
+    order."""
     S, nq, d = q.shape
+    c, scale = _scales(d)
+    bk = TILES[d][2]
     nk = k.shape[1]
     lse2 = _lse2(lse)
     dq = torch.zeros((S, nq, d))
-    for k0 in range(0, nk, DQ_BK):
-        kt, valid = _pad(k, k0, DQ_BK)
-        vt, _ = _pad(v, k0, DQ_BK)
+    for k0 in range(0, nk, bk):
+        kt, valid = _pad(k, k0, bk)
+        vt, _ = _pad(v, k0, bk)
         s = torch.matmul(q.float(), kt.float().transpose(-1, -2))
         dp = torch.matmul(do.float(), vt.float().transpose(-1, -2))
         p = _exp2_ftz(_ffma(s, c, lse2[..., None]))
@@ -165,20 +176,22 @@ def _bf16_pair(rng, shape):
     return a, torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
 
 
-# (nq, nk, with an lse cotangent): ragged q and key tiles on both sides, and
-# the split context's shape, fewer keys than q rows
-CASES = {"130x77": (130, 77, False), "130x77_dlse": (130, 77, True),
-         "257x130": (257, 130, False), "257x130_dlse": (257, 130, True),
-         "context_300x140_dlse": (300, 140, True)}
+# (nq, nk, with an lse cotangent, head dim): ragged q and key tiles on both
+# sides, and the split context's shape, fewer keys than q rows; at head dim
+# 128 ragged q tiles of 32 rows and key tiles of 64 with dlse
+CASES = {"130x77": (130, 77, False, 64), "130x77_dlse": (130, 77, True, 64),
+         "257x130": (257, 130, False, 64), "257x130_dlse": (257, 130, True, 64),
+         "context_300x140_dlse": (300, 140, True, 64),
+         "d128_150x77_dlse": (150, 77, True, 128)}
 
 
 @pytest.fixture(scope="module")
 def cases():
     rng = np.random.default_rng(13)
     out = {}
-    for name, (nq, nk, with_dlse) in CASES.items():
-        (jq, tq), (jdo, tdo) = (_bf16_pair(rng, (2, nq, D)) for _ in range(2))
-        (jk, tk), (jv, tv) = (_bf16_pair(rng, (2, nk, D)) for _ in range(2))
+    for name, (nq, nk, with_dlse, d) in CASES.items():
+        (jq, tq), (jdo, tdo) = (_bf16_pair(rng, (2, nq, d)) for _ in range(2))
+        (jk, tk), (jv, tv) = (_bf16_pair(rng, (2, nk, d)) for _ in range(2))
         jdlse = jnp.asarray(rng.normal(size=(2, nq)), jnp.float32) if with_dlse else None
         tdlse = None if jdlse is None else torch.from_numpy(np.array(jdlse))
         j_out, j_lse = JFA._flash_fwd(jq, jk, jv, None, 128, 128, True)
@@ -281,25 +294,25 @@ def _dq_work(p: dict, t: int, masked: bool):
     return t // per_slice, q0, min(q0 + DQ_BM, f0 + p["frame"]), own, own + p["frame"] if masked else 0
 
 
-def _dq_key_tiles(p: dict, w):
-    """dq_key_tile over a work tile's steps: (k0, end) of each key tile."""
-    ctx = _cdiv(p["n_ctx"], DQ_BK)
-    for i in range(ctx + _cdiv(w[4] - w[3], DQ_BK)):
-        k0 = i * DQ_BK if i < ctx else w[3] + (i - ctx) * DQ_BK
-        yield k0, min(k0 + DQ_BK, p["n_ctx"] if i < ctx else w[4])
+def _dq_key_tiles(p: dict, w, bk: int = DQ_BK):
+    """dq_key_tile<BK> over a work tile's steps: (k0, end) of each key tile."""
+    ctx = _cdiv(p["n_ctx"], bk)
+    for i in range(ctx + _cdiv(w[4] - w[3], bk)):
+        k0 = i * bk if i < ctx else w[3] + (i - ctx) * bk
+        yield k0, min(k0 + bk, p["n_ctx"] if i < ctx else w[4])
 
 
-def _kv_q_tiles(w):
+def _kv_q_tiles(w, bq: int = KV_BQ):
     """The q tiles a dk/dv work tile streams: (q0, end of its rows)."""
-    return [(q0, min(q0 + KV_BQ, w[4])) for q0 in range(w[3], w[4], KV_BQ)]
+    return [(q0, min(q0 + bq, w[4])) for q0 in range(w[3], w[4], bq)]
 
 
 def _emulate_dkv_masked(q, k, v, do, lse, delta, mask):
     """dk, dv as the RelocMask dk/dv kernel computes them: each work tile's
     keys against its q rows in tiles of KV_BQ, in order (one slice's walk;
     every slice alike)."""
-    c, scale = _scales()
     S, nq, d = q.shape
+    c, scale = _scales(d)
     nk = k.shape[1]
     lse2 = _lse2(lse)
     dk, dv = torch.zeros((S, nk, d)), torch.zeros((S, nk, d))
@@ -308,7 +321,7 @@ def _emulate_dkv_masked(q, k, v, do, lse, delta, mask):
         w = _dkv_work(p, t, True)
         k0, k_end = w[1], w[2]
         kt, vt = k[:, k0:k_end].float(), v[:, k0:k_end].float()
-        for q0, q1 in _kv_q_tiles(w):
+        for q0, q1 in _kv_q_tiles(w, TILES[d][0]):
             qt, dot = q[:, q0:q1].float(), do[:, q0:q1].float()
             pp = _exp2_ftz(_ffma(torch.matmul(kt, qt.transpose(-1, -2)), c,
                                  lse2[:, None, q0:q1]))
@@ -322,8 +335,8 @@ def _emulate_dkv_masked(q, k, v, do, lse, delta, mask):
 def _emulate_dq_masked(q, k, v, do, lse, delta, mask):
     """dq as the RelocMask dq kernel computes it: each work tile's q rows
     against the context's key tiles, then its frame's, in order."""
-    c, scale = _scales()
     S, nq, d = q.shape
+    c, scale = _scales(d)
     nk = k.shape[1]
     lse2 = _lse2(lse)
     dq = torch.zeros((S, nq, d))
@@ -332,7 +345,7 @@ def _emulate_dq_masked(q, k, v, do, lse, delta, mask):
         w = _dq_work(p, t, True)
         q0, q1 = w[1], w[2]
         qt, dot = q[:, q0:q1].float(), do[:, q0:q1].float()
-        for k0, k1 in _dq_key_tiles(p, w):
+        for k0, k1 in _dq_key_tiles(p, w, TILES[d][2]):
             kt, vt = k[:, k0:k1].float(), v[:, k0:k1].float()
             pp = _exp2_ftz(_ffma(torch.matmul(qt, kt.transpose(-1, -2)), c,
                                  lse2[:, q0:q1, None]))
@@ -348,6 +361,9 @@ def _emulate_dq_masked(q, k, v, do, lse, delta, mask):
 MASKS = {"77x130x2": (77, 130, 2), "0x130x3": (0, 130, 3), "5x1x7": (5, 1, 7),
          "128x128x2": (128, 128, 2), "98x257x2": (98, 257, 2)}
 MASKED_CASES = [f"{m}{'_dlse' if dl else ''}" for m in MASKS for dl in (False, True)]
+# at head dim 128: a context and frames whose ends fall inside 32-row q
+# tiles and 64-key tiles, with dlse
+MASKED_CASES.append("d128_77x130x2_dlse")
 
 
 @pytest.fixture(scope="module")
@@ -355,10 +371,11 @@ def masked_cases():
     rng = np.random.default_rng(17)
     out = {}
     for name in MASKED_CASES:
-        n_ctx, fs, nf = MASKS[name.removesuffix("_dlse")]
+        d = 128 if name.startswith("d128_") else D
+        n_ctx, fs, nf = MASKS[name.removeprefix("d128_").removesuffix("_dlse")]
         mask, jmask = RelocMask(n_ctx, fs, nf), JRelocMask(n_ctx, fs, nf)
-        (jq, tq), (jdo, tdo) = (_bf16_pair(rng, (2, mask.nq, D)) for _ in range(2))
-        (jk, tk), (jv, tv) = (_bf16_pair(rng, (2, mask.nk, D)) for _ in range(2))
+        (jq, tq), (jdo, tdo) = (_bf16_pair(rng, (2, mask.nq, d)) for _ in range(2))
+        (jk, tk), (jv, tv) = (_bf16_pair(rng, (2, mask.nk, d)) for _ in range(2))
         with_dlse = name.endswith("_dlse")
         jdlse = jnp.asarray(rng.normal(size=(2, mask.nq)), jnp.float32) if with_dlse else None
         tdlse = None if jdlse is None else torch.from_numpy(np.array(jdlse))
@@ -420,6 +437,17 @@ def test_masked_walk_visits_each_allowed_pair_once(case):
     ends (dead pairs only in its tails, where p = 0); every key row (dk/dv)
     and q row (dq) is stored by one work tile; every work tile is taken by
     one block of the walk."""
+    _check_walk(case, TILES[64][0], TILES[64][2])
+
+
+@pytest.mark.parametrize("case", list(MASKS))
+def test_masked_walk_at_d128_visits_each_allowed_pair_once(case):
+    """The same with the head dim 128 kernels' streamed tiles (32-row q
+    tiles, 64-key tiles): the work tiles are the head dim 64 ones."""
+    _check_walk(case, TILES[128][0], TILES[128][2])
+
+
+def _check_walk(case: str, bq: int, bk: int) -> None:
     slices, (n_ctx, fs, nf) = WALKS[case]
     mask = RelocMask(n_ctx, fs, nf)
     nq, nk = mask.nq, mask.nk
@@ -435,14 +463,14 @@ def test_masked_walk_visits_each_allowed_pair_once(case):
                 w = _dkv_work(p, t, True)
                 sl, k0, k_end = w[0], w[1], w[2]
                 assert k_end - k0 <= KV_BM
-                for q0, q1 in _kv_q_tiles(w):
+                for q0, q1 in _kv_q_tiles(w, bq):
                     visits[sl, q0:q1, k0:k_end] += 1
             else:
                 w = _dq_work(p, t, True)
                 sl, k0, k_end = w[0], w[1], w[2]
                 assert k_end - k0 <= DQ_BM
-                for kt0, kt1 in _dq_key_tiles(p, w):
-                    assert kt1 - kt0 <= DQ_BK
+                for kt0, kt1 in _dq_key_tiles(p, w, bk):
+                    assert kt1 - kt0 <= bk
                     visits[sl, k0:k_end, kt0:kt1] += 1
             stored[sl, k0:k_end] += 1
         assert (stored == 1).all(), f"{kernel}: a row stored {stored.min()}-{stored.max()} times"
@@ -499,7 +527,7 @@ def test_masked_stores_compare_against_the_work_tiles_end():
     for line in ("const bool kok0 = key0 < w.r_end, kok1 = key0 + 8 < w.r_end;",
                  "if (r0 < w.r_end)", "if (r1 < w.r_end)",
                  "const bool ok = q0 + r < w.s_end;",
-                 "const bool edge = edge_k || q0 + KV_BQ > w.s_end;"):
+                 "const bool edge = edge_k || q0 + BQ > w.s_end;"):
         assert line in SOURCE, line
     assert "< p.nk" not in SOURCE.split("// -- host side")[0]
 
@@ -511,16 +539,37 @@ SITES = {"vit": (32, 1374, 1374), "frame": (64, 1374, 1374), "global": (16, 2748
          "split own": (32, 1374, 1374), "split context": (32, 1374, 610)}
 
 
+def _smem(d: int, tiles=None):
+    """The dk/dv and dq kernels' shared memory at head dim d (with ``tiles``
+    in TILES' order, or the source's), summed from the tiles: K / V slots,
+    Q / dO stages with their lse / delta, barriers, and 1 KB of alignment
+    slack (dk/dv); Q / dO of a work tile, K / V stages, barriers and the
+    slack (dq)."""
+    bq, kv_stages, bk, dq_stages, _ = tiles or TILES[d]
+    row = d * 2
+    kv = 1024 + 4 * KV_BM * row + kv_stages * (2 * bq * row + 2 * bq * 4) + (
+        2 * kv_stages + 4) * 8
+    dq = 1024 + 2 * DQ_BM * row + dq_stages * 2 * bk * row + (2 * dq_stages + 2) * 8
+    return kv, dq
+
+
 def test_constants_tiles_and_shared_memory():
     """The source's tiles, its shared memory inside the 227 KB a block may
-    take, and the work tiles and rounds of 132 multiprocessors its header
-    quotes."""
+    take at both head dims, and the work tiles and rounds of 132
+    multiprocessors its header quotes."""
     assert (KV_BM, KV_BQ, DQ_BM, DQ_BK, KV_STAGES, DQ_STAGES) == (128, 64, 128, 128, 3, 3)
-    row = D * 2
-    kv_smem = 1024 + 4 * KV_BM * row + KV_STAGES * (2 * KV_BQ * row + 2 * KV_BQ * 4) + (
-        2 * KV_STAGES + 4) * 8
-    dq_smem = 1024 + 2 * DQ_BM * row + DQ_STAGES * 2 * DQ_BK * row + (2 * DQ_STAGES + 2) * 8
-    assert kv_smem <= 232448 and dq_smem <= 232448
+    assert _smem(64) == (117328, 132160)
+    for d in (64, 128):
+        assert all(b <= 232448 for b in _smem(d)), d
+    # head dim 128: K / V through descriptors (they do not fit in registers
+    # beside dK and dV), q tiles of 32 rows (m64n32 S^T / dP^T), dq key
+    # tiles of 64 (m64n64 S / dP)
+    assert TILES[128][0] == 32 and TILES[128][2] == 64 and TILES[128][4] is False
+    assert TILES[64][4] is True
+    # and its dk/dv warpgroups issue whenever ready (no ping-pong turns)
+    assert _const("KV_PINGPONG_D128") == "false"
+    assert "static constexpr bool TURNS = D == 64 ? PINGPONG : KV_PINGPONG_D128;" in SOURCE
+    assert SOURCE.count("turn_end<L::TURNS>(cw, last_tile && cw == 1);") == 1
     kv_tiles = {s: bh * -(-nk // KV_BM) for s, (bh, nq, nk) in SITES.items()}
     dq_tiles = {s: bh * -(-nq // DQ_BM) for s, (bh, nq, nk) in SITES.items()}
     assert kv_tiles == {"vit": 352, "frame": 704, "global": 352, "split own": 352,
@@ -532,8 +581,17 @@ def test_constants_tiles_and_shared_memory():
            "split context 160\n//   (1.21, the last key tile 98 of 128 keys)" in SOURCE
     assert 610 - (610 // KV_BM) * KV_BM == 98
     # the shared memory the launch asks for is the layout's
-    assert "constexpr int KV_SMEM_BYTES = 1024 + KV_BAR_OFF + static_cast<int>(sizeof(DkvBarriers));" in SOURCE
-    assert "constexpr int DQ_SMEM_BYTES = 1024 + DQ_BAR_OFF + static_cast<int>(sizeof(DqBarriers));" in SOURCE
+    assert SOURCE.count("1024 + BAR_OFF + static_cast<int>(sizeof(DkvBarriers<STAGES>));") == 1
+    assert SOURCE.count("1024 + BAR_OFF + static_cast<int>(sizeof(DqBarriers<STAGES>));") == 1
+    assert "static_assert(DkvSmem<64>::SMEM_BYTES == 117328" in SOURCE
+    assert "static_assert(DqSmem<64>::SMEM_BYTES == 132160" in SOURCE
+    # at head dim 128 the work tiles halve with the heads (8 heads of 128)
+    d128 = {s: bh // 2 * -(-nk // KV_BM) for s, (bh, nq, nk) in SITES.items()}
+    assert d128 == {"vit": 176, "frame": 352, "global": 176, "split own": 176,
+                    "split context": 80}
+    assert "ViT / split own / global 176 (1.33 rounds), frame 352 (2.67), split\n//   " \
+           "context 80 dk/dv work tiles (0.61: 52 SMs idle); dq the same, but 176 at\n//   " \
+           "the split context." in SOURCE
     # the setmaxnreg split fits the 168 registers a thread at launch
     for prod, cons in (("KV_PRODUCER_REGS", "KV_CONSUMER_REGS"),
                        ("DQ_PRODUCER_REGS", "DQ_CONSUMER_REGS")):
@@ -574,12 +632,15 @@ def test_tile_walk_and_turns(site):
 def test_both_kernels_read_no_transposed_tile():
     """No tile is transposed in shared memory: the products that need Q, dO
     or K transposed read them MN-major through the transposed-B bit (the
-    register-A products' default), and the dk/dv kernel's K / V fragments come
-    from ldmatrix on the 128-byte swizzle."""
-    assert SOURCE.count("wgmma_rs_m64n64(dv, pa[kk], desc_add(ddo, 128 * kk));") == 1
-    assert SOURCE.count("wgmma_rs_m64n64(dk, da[kk], desc_add(dq_, 128 * kk));") == 1
-    assert SOURCE.count("wgmma_rs_m64n64(dq, da[kk], desc_add(dk_, 128 * kk));") == 1
-    assert "(((2 * kk + (lane >> 4)) ^ (row & 7)) << 4)" in SOURCE
+    register-A products' default; at head dim 128 one m64n128 product over
+    both atoms, the leading byte offset the step between them), and the
+    dk/dv kernel's K / V fragments come from ldmatrix on the 128-byte
+    swizzle, atom by atom."""
+    assert SOURCE.count("wgmma_rs_mn<D>(dv, pa[kk], desc_add(ddo, 128 * kk));") == 1
+    assert SOURCE.count("wgmma_rs_mn<D>(dk, da[kk], desc_add(dq_, 128 * kk));") == 1
+    assert SOURCE.count("wgmma_rs_mn<D>(dq, da[kk], desc_add(dk_, 128 * kk));") == 1
+    assert "return sw128_desc(addr, D == 64 ? 1024 >> 4 : atom >> 4);" in SOURCE
+    assert "(((2 * (kk % 4) + (lane >> 4)) ^ (row & 7)) << 4)" in SOURCE
     assert "atomicAdd" not in SOURCE and "red.global" not in SOURCE and "atom." not in SOURCE
 
 
@@ -591,6 +652,21 @@ def test_bwd_ablation_variants_patch_the_shipped_source(variant):
     source."""
     src = ABL.patched_sources(ABL.BWD_SOURCE, {variant: ABL.BWD_VARIANTS[variant]})[variant]
     assert (src == SOURCE) == (variant == "as shipped")
+
+
+@pytest.mark.parametrize("variant", list(ABL.D128_BWD_VARIANTS))
+def test_d128_bwd_ablation_variants_patch_the_shipped_source(variant):
+    """The same for the head dim 128 backward variants (tiles, K / V in
+    registers, rings, ping-pong); each variant's shared memory still fits a
+    block."""
+    src = ABL.patched_sources(ABL.BWD_SOURCE, {variant: ABL.D128_BWD_VARIANTS[variant]})[variant]
+    assert (src == SOURCE) == (variant == "as shipped")
+
+    def const(name):
+        return re.search(rf"constexpr (?:int|bool) {name} = ([^;]+);", src).group(1)
+
+    tiles = [int(const(f"{n}_D128")) for n in ("KV_BQ", "KV_STAGES", "DQ_BK", "DQ_STAGES")]
+    assert all(b <= 232448 for b in _smem(128, (*tiles, None)))
 
 
 @pytest.mark.parametrize("variant", list(ABL.VARIANTS))
@@ -689,13 +765,13 @@ GRAD_GATES = {
 
 
 @pytest.mark.parametrize("dtype,d,grad", [(F32, 32, True), (BF16, 32, False), (F32, 32, False),
-                                          (BF16, 128, True), (F32, 128, True),
+                                          (BF16, 96, True), (F32, 128, True),
                                           (F32, 128, False)])
 @pytest.mark.parametrize("gate", list(GATES))
 def test_auto_routes_sites_the_kernels_do_not_take_dense(launches, gate, dtype, d, grad):
-    """Off the CPU, a head dim without a kernel (32), with or without grad;
-    head dim 128 in fp32 (no kernel) or under grad (no backward kernel): the
-    dense route, no launch, the output of the site's shape and dtype."""
+    """Off the CPU, a head dim without a kernel (32, 96), with or without
+    grad; head dim 128 in fp32 (no kernel, forward or backward): the dense
+    route, no launch, the output of the site's shape and dtype."""
     out = GATES[gate][0](dtype, d, grad=grad)
     assert launches == []
     assert out.device.type == "meta" and out.dtype == dtype and out.shape[-1] == d
@@ -740,37 +816,86 @@ def test_auto_routes_bf16_d128_sites_to_the_d128_entries(launches, gate):
     assert out.dtype == BF16 and out.shape[-1] == 128
 
 
-@pytest.mark.parametrize("dtype,grad", [(BF16, True), (F32, False)])
+@pytest.mark.parametrize("dtype,d,grad", [(F32, 128, True), (F32, 128, False),
+                                          (BF16, 96, True)])
 @pytest.mark.parametrize("gate", list(GATES))
-def test_explicit_flash_at_d128_meets_the_refusal(launches, gate, dtype, grad):
-    """impl="flash" where no kernel exists at head dim 128 (a site autograd
-    differentiates: no backward; fp32: no kernel) raises before any launch,
-    and is not turned into the dense route; the packed cache under grad
-    meets its bare wrapper's refusal, as at head dim 64."""
+def test_explicit_flash_at_d128_meets_the_refusal(launches, gate, dtype, d, grad):
+    """impl="flash" where no kernel exists (fp32 at head dim 128, forward or
+    backward; bf16 at head dim 96, a site autograd differentiates) raises
+    before any launch, and is not turned into the dense route; the packed
+    cache under grad meets its bare wrapper's refusal, as at head dim 64."""
     with torch.enable_grad():
         if gate == "packed cache" and grad:
             with pytest.raises(NotImplementedError, match="not differentiable"):
-                GATES[gate][0](dtype, 128, impl="flash", grad=grad)
+                GATES[gate][0](dtype, d, impl="flash", grad=grad)
         else:
-            kind = "backward kernels" if grad else "float32 kernels"
-            with pytest.raises(ValueError, match=f"{kind} take head dim 64, got 128"):
-                GATES[gate][0](dtype, 128, impl="flash", grad=grad)
+            kind = f"{str(dtype).removeprefix('torch.')} {'backward ' if grad else ''}kernels"
+            dims = "64 or 128" if dtype == BF16 else "64"
+            with pytest.raises(ValueError, match=f"{kind} take head dim {dims}, got {d}"):
+                GATES[gate][0](dtype, d, impl="flash", grad=grad)
     assert launches == []
 
 
 def test_kernel_takes_at_d128():
-    """The predicate itself on meta tensors: bf16 of head dim 128 without
-    grad; not with grad on q, k, v or the context passed beside them, not
-    in fp32, not with operands of two dtypes."""
+    """The predicate itself on meta tensors: bf16 of head dim 128 with or
+    without grad (on q, k, v or the context passed beside them); not in
+    fp32, with or without grad, not with operands of two dtypes; bf16 of
+    head dim 96 with grad not."""
     q = _meta(1, 2, 8, 128)
     assert TFA.kernel_takes(q, q, q)
-    assert not TFA.kernel_takes(q, q, q, _meta(1, 2, 8, 128, grad=True))
-    assert not TFA.kernel_takes(_meta(1, 2, 8, 128, grad=True), q, q)
+    assert TFA.kernel_takes(q, q, q, _meta(1, 2, 8, 128, grad=True))
+    assert TFA.kernel_takes(_meta(1, 2, 8, 128, grad=True), q, q)
     with torch.no_grad():
         assert TFA.kernel_takes(_meta(1, 2, 8, 128, grad=True), q, q)
     assert not TFA.kernel_takes(*(_meta(1, 2, 8, 128, dtype=F32),) * 3)
+    assert not TFA.kernel_takes(*(_meta(1, 2, 8, 128, dtype=F32, grad=True),) * 3)
     assert not TFA.kernel_takes(q, q, _meta(1, 2, 8, 128, dtype=F32))
+    assert not TFA.kernel_takes(*(_meta(1, 2, 8, 96, grad=True),) * 3)
     assert TFA.kernel_takes(*(_meta(1, 2, 8, 64, dtype=F32, grad=True),) * 3)
+
+
+_DQ128, _DKV128 = "sfm_flash_bwd_dq_d128_sm90", "sfm_flash_bwd_dkv_d128_sm90"
+# gate -> the launches of its forward and backward under grad at head dim
+# 128 in bf16: the head dim 128 entries of K1 / K1m / K2 and of B9; K2p has
+# no backward, so the packed cache's differentiated site runs dense
+D128_GRAD_GATES = {
+    "sdpa": ["sfm_flash_fwd_d128_bf16", _DQ128, _DKV128],
+    "frame-context": ["sfm_frame_ctx_fwd_d128_bf16"] + ["sfm_flash_fwd_d128_bf16"] * 2
+                     + [_DQ128, _DKV128] * 2,
+    "reloc split": ["sfm_flash_fwd_d128_bf16"] * 2 + [_DQ128, _DKV128] * 2,
+    "masked sdpa": ["sfm_flash_fwd_reloc_d128_sm90", "sfm_flash_bwd_dq_reloc_d128_sm90",
+                    "sfm_flash_bwd_dkv_reloc_d128_sm90"],
+    "packed cache": []}
+
+
+@pytest.mark.parametrize("gate", list(D128_GRAD_GATES))
+def test_auto_routes_bf16_d128_grad_sites_to_the_d128_entries(launches, gate):
+    """bf16 of head dim 128 that autograd differentiates: the forward on the
+    head dim 128 forms and the backward on B9's head dim 128 entries (the
+    RelocMask ones under a mask), launched as a backward through the site
+    lists them; the packed cache alone dense."""
+    with torch.enable_grad():
+        out = GATES[gate][0](BF16, 128, grad=True)
+        assert out.requires_grad
+        out.sum().backward()
+    assert launches == D128_GRAD_GATES[gate]
+    assert out.dtype == BF16 and out.shape[-1] == 128
+
+
+def test_ring_gate_takes_a_bf16_d128_chunk_under_grad():
+    """The ring's ``_use_flash`` asks ``kernel_takes`` with grad: a bf16
+    chunk of head dim 128 that autograd differentiates takes K1 (and B9 in
+    its backward), an fp32 one at 128 and a bf16 one at 96 the dense chunk,
+    as does every CPU chunk and ``"dense"``."""
+    from self_supervise_sfm_tpu_torch.ops import ring_attention as TRA
+
+    with torch.enable_grad():
+        bf = [_meta(1, 2, 64, 128, grad=True) for _ in range(3)]
+        assert TRA._use_flash(*bf)
+        assert not TRA._use_flash(*bf, impl="dense")
+        assert not TRA._use_flash(*(_meta(1, 2, 64, 128, dtype=F32, grad=True),) * 3)
+        assert not TRA._use_flash(*(_meta(1, 2, 64, 96, grad=True),) * 3)
+        assert not TRA._use_flash(*(torch.zeros(1, 2, 64, 128, dtype=BF16),) * 3)
 
 
 @pytest.mark.parametrize("gate", list(GATES))
@@ -825,6 +950,30 @@ def test_kernel_takes_any_cpu_tensor():
         assert TFA.kernel_takes(q, q, q)
     assert TFA.worth_it(*(torch.zeros((1, 1, 1225, 64)),) * 3)
     assert not TFA.worth_it(*(torch.zeros((1, 1, 1224, 64)),) * 3)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_bwd_routes_d128_to_the_d128_entries(launches, masked):
+    """At head dim 128 in bf16 the backward reaches the head dim 128 entries
+    of the Hopper body, unmasked or under a RelocMask, and each wrapper
+    counts the launch in ``.launches_d128`` alone."""
+    bh, nq, d = 2, 2 * 130, 128
+    mask = RelocMask(77, 130, 2) if masked else None
+    nk = nq + 77 if masked else 200
+    q, do, o = (_meta(bh, nq, d) for _ in range(3))
+    k, v = _meta(bh, nk, d), _meta(bh, nk, d)
+    lse = _meta(bh, nq, dtype=F32)
+    counters = ("launches", "launches_f32", "launches_d128")
+    n0 = [getattr(w, c) for w in (TFA.flash_bwd_dq, TFA.flash_bwd_dkv) for c in counters]
+    dq, dk, dv = TFA.flash_bwd(q, k, v, o, lse, do, None, mask)
+    want = "reloc_d128_sm90" if masked else "d128_sm90"
+    assert launches == [f"sfm_flash_bwd_dq_{want}", f"sfm_flash_bwd_dkv_{want}"]
+    n1 = [getattr(w, c) for w in (TFA.flash_bwd_dq, TFA.flash_bwd_dkv) for c in counters]
+    assert n1 == [a + b for a, b in zip(n0, [0, 0, 1] * 2)]
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    assert dq.dtype == dk.dtype == dv.dtype == BF16
+    assert all(e in TK._SIGNATURES for e in (f"sfm_flash_bwd_dq_{want}",
+                                             f"sfm_flash_bwd_dkv_{want}"))
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])

@@ -92,12 +92,20 @@ BWD_CASES = {
     "ragged_bf16": (130, 70, False, None, "bfloat16"),
     "masked_dlse_bf16": (90, 130, True, (40, 45, 2), "bfloat16"),
 }
+# head dim 128 (the backward of the 8-heads-of-128 train step): ragged Nq /
+# Nk with an lse cotangent, and RelocMask(77, 130, 2), in fp32 and bf16
+BWD_CASES_D128 = {
+    "ragged_dlse": (130, 77, True, None, "float32"),
+    "masked_dlse": (260, 337, True, (77, 130, 2), "float32"),
+    "ragged_dlse_bf16": (130, 77, True, None, "bfloat16"),
+    "masked_bf16": (260, 337, False, (77, 130, 2), "bfloat16"),
+}
 
 
-def _bwd_inputs(rng, nq, nk, dtype):
+def _bwd_inputs(rng, nq, nk, dtype, d=64):
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
-    q, do = (jnp.asarray(rng.normal(size=(2, nq, 64)), jdt) for _ in range(2))
-    k, v = (jnp.asarray(rng.normal(size=(2, nk, 64)), jdt) for _ in range(2))
+    q, do = (jnp.asarray(rng.normal(size=(2, nq, d)), jdt) for _ in range(2))
+    k, v = (jnp.asarray(rng.normal(size=(2, nk, d)), jdt) for _ in range(2))
     return q, k, v, do
 
 
@@ -112,8 +120,18 @@ def test_flash_bwd_plain_matches_pallas_interpret(rng, case):
     the Pallas dq and dk/dv kernels (interpret mode, 128-row tiles, so the
     ragged last tiles and the masked tile skipping run). fp32: F32; bf16:
     within JAX's bf16-vs-fp32 envelope."""
-    nq, nk, with_dlse, m, dtype = BWD_CASES[case]
-    q, k, v, do = _bwd_inputs(rng, nq, nk, dtype)
+    _check_plain_bwd(rng, *BWD_CASES[case])
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES_D128))
+def test_flash_bwd_plain_matches_pallas_interpret_d128(rng, case):
+    """The same at head dim 128 (``_flash_bwd`` with ``d=128``), at the head
+    dim 64 cases' tolerances."""
+    _check_plain_bwd(rng, *BWD_CASES_D128[case], d=128)
+
+
+def _check_plain_bwd(rng, nq, nk, with_dlse, m, dtype, d=64):
+    q, k, v, do = _bwd_inputs(rng, nq, nk, dtype, d)
     dlse = jnp.asarray(rng.normal(size=(2, nq)), jnp.float32) if with_dlse else None
     jmask = None if m is None else JRelocMask(*m)
     tmask = None if m is None else RelocMask(*m)
