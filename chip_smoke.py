@@ -16,8 +16,10 @@ Phases, each of which must pass (any failure exits non-zero):
    and of the Hopper GEMM body's (MLP-up, MLP-down, the probe, the
    layer-norm pre-pass, LN+QKV+RoPE, LN+QKV, the out-projection; the last
    three at head dims 64 and 128), of the
-   fp32 attention body's (the fp32 forms of K1, K2, K2p; a spill fails the
-   run), of the fp32 GEMM body's (the fp32 forms of the five fused block
+   fp32 attention body's (the fp32 forms of K1, K2, K2p, K1m at head dims
+   64 and 128; a spill fails the run), of the fp32 backward body's (B9's dq
+   and dk/dv in fp32, unmasked and under a RelocMask, at head dims 64 and
+   128; a spill fails the run), of the fp32 GEMM body's (the fp32 forms of the five fused block
    kernels and their layer-norm pre-pass; a spill fails the run), and any
    ptxas advisory that wgmma was serialised (C7518);
 2. the GEMM body's operand layouts alone (``gemm_probe``: one tile, then
@@ -70,7 +72,12 @@ Phases, each of which must pass (any failure exits non-zero):
    (unmasked, the split's two calls, RelocMask(610, 1374, 2) and
    RelocMask(1525, 1374, 5), the edges of the tiling) beside SDPA's
    backward at d = 128, each against its plain version at the head dim 64
-   tolerances, a repeat bit-equal, timed as above (``check_d128_kernels``);
+   tolerances, a repeat bit-equal, timed as above; then the fp32 forms at
+   head dim 128 (the FFMA bodies) at the same sites of 8 heads, with the fp32
+   entries' checks above (2e-5 of the largest |out| or |gradient|, lse 1e-5,
+   TF32 off, repeats, K2p and K1m bit-equal to K2, the edges, 96 and 33 q
+   rows among them) beside SDPA in fp32
+   (``check_d128_kernels``);
 3. the full-width joint forward: ViT-L/14 + 24 aggregator layers at 518 px,
    bf16 trunk and fp32 heads, 5 anchors + the same 5 images as queries,
    rank 300, random weights from a seeded generator, every trunk block on
@@ -122,7 +129,15 @@ Phases, each of which must pass (any failure exits non-zero):
    phase 3's flagship, build / reloc / ``fast_reloc`` times, peaks and a
    profile (``run_d128``; its paths go into the kernel line as
    "forward_d128", "build_d128", "reloc_d128", "fast_reloc_d128" and
-   "mask_form_d128").
+   "mask_form_d128"). Then its fp32 leg, ``make_config(num_heads=8)``
+   (fp32, "auto"): the forward, the build, ``reloc`` and ``fast_reloc``
+   with the default configuration's launch counts under the fp32 head dim
+   128 names (no dense attention site), held to the fp32 plain path of the
+   same configuration at rel-RMS 1e-5, the mask form (K1m fp32) bit-equal
+   to the layout form (K2p fp32), the forward timed in turns against its
+   dense route and the default configuration at 16 heads of 64, with peaks
+   (paths "forward_d128_f32", "build_d128_f32", "reloc_d128_f32",
+   "fast_reloc_d128_f32", "mask_form_d128_f32").
 
 5. the self-supervised train step at full width (``bench.py:bench_train``'s
    configuration at depth 24: 2 frames of 518 px duplicated as anchors and
@@ -150,7 +165,13 @@ Phases, each of which must pass (any failure exits non-zero):
    flagship step and against its dense route, the peak with both states
    resident, one profiled step (device busy and B9's device ms, beside
    phase 5's profiled step). Its launch counts are the kernel line's
-   "train_d128" path (``run_train_d128``).
+   "train_d128" path (``run_train_d128``). Then the same state, batch and
+   subsample in fp32 (``make_config(num_heads=8, remat=True)``): the
+   launches ``D128_F32_TRAIN_STEP_LAUNCHES`` (B9's fp32 head dim 128 pair
+   120 + 120, no dense attention), loss and gradients against the fp32
+   plain step of the same configuration (loss rtol 1e-4, gradient rel-RMS
+   and norms 1e-3 a subsystem), time and peak in turns with its dense
+   route, B9's device ms (path "train_d128_f32").
 
 6. the trainer (``train/trainer.py:run``) around phase 5's full-width step,
    on numpy-made synthetic scenes at 518 px (no ``h5py`` needed; artifact
@@ -337,6 +358,10 @@ F32_GEMM_SOURCE = "self_supervise_sfm_tpu_torch/csrc/gemm_f32.cu"
 D128_KERNELS = ("flash_fwd", "frame_ctx_fwd", "frame_ctx_packed_fwd", "flash_fwd_reloc",
                 "fused_ln_qkv_rope", "fused_ln_qkv", "fused_proj_residual", "flash_bwd_dq",
                 "flash_bwd_dkv")
+# the attention kernels' fp32 forms at head dim 128 (on the FFMA bodies),
+# each counting its launches apart, under its name + "_d128_f32"
+D128_F32_KERNELS = ("flash_fwd", "frame_ctx_fwd", "frame_ctx_packed_fwd", "flash_fwd_reloc",
+                    "flash_bwd_dq", "flash_bwd_dkv")
 
 
 # launches of each kernel wrapper in one call at full width (depth 24, 5
@@ -351,7 +376,8 @@ _ZERO = dict.fromkeys(("flash_fwd", "frame_ctx_fwd", "frame_ctx_packed_fwd", "fl
                        "frame_ctx_packed_fwd_f32", "flash_fwd_reloc_f32", "flash_bwd_dq_f32",
                        "flash_bwd_dkv_f32", "fused_ln_qkv_rope_f32", "fused_ln_qkv_f32",
                        "fused_proj_residual_f32", "fused_mlp_up_f32", "fused_mlp_down_f32",
-                       *(f"{k}_d128" for k in D128_KERNELS)), 0)
+                       *(f"{k}_d128" for k in D128_KERNELS),
+                       *(f"{k}_d128_f32" for k in D128_F32_KERNELS)), 0)
 FORWARD_LAUNCHES = {**_ZERO, "flash_fwd": 72, "frame_ctx_fwd": 24, "resize_bilinear": 2,
                     "fused_ln_qkv_rope": 72, "fused_ln_qkv": 24, "fused_proj_residual": 96,
                     "fused_mlp_up": 96, "fused_mlp_down": 96}
@@ -425,6 +451,21 @@ D128_FAST_RELOC_LAUNCHES = _d128(FAST_RELOC_LAUNCHES)
 D128_TRAIN_STEP_LAUNCHES = _d128(TRAIN_STEP_LAUNCHES)
 
 
+def _d128_f32(default: dict) -> dict:
+    """The default configuration's launches with every fp32 attention
+    kernel under its head dim 128 name: the fp32 model at 8 heads of 128
+    (the fp32 legs of phases 4b and 5b)."""
+    names = {f"{k}_f32": f"{k}_d128_f32" for k in D128_F32_KERNELS}
+    return {**_ZERO, **{names.get(k, k): n for k, n in default.items() if n}}
+
+
+D128_F32_FORWARD_LAUNCHES = _d128_f32(DEFAULT_FORWARD_LAUNCHES)
+D128_F32_BUILD_LAUNCHES = _d128_f32(DEFAULT_BUILD_LAUNCHES)
+D128_F32_RELOC_LAUNCHES = _d128_f32(DEFAULT_RELOC_LAUNCHES)
+D128_F32_FAST_RELOC_LAUNCHES = _d128_f32(DEFAULT_FAST_RELOC_LAUNCHES)
+D128_F32_TRAIN_STEP_LAUNCHES = _d128_f32(DEFAULT_TRAIN_STEP_LAUNCHES)
+
+
 def _wall_ms(fn, reps: int = 3) -> float:
     import torch
 
@@ -469,6 +510,14 @@ _KERNEL_CLASSES = (
     ("flash_fwd_reloc fp32 (K1m)", ("flash_fwd_reloc_f32_kernel",)),
     ("flash_bwd_dq fp32 (B9)", ("flash_bwd_dq_f32_kernel", "flash_bwd_dq_reloc_f32_kernel")),
     ("flash_bwd_dkv fp32 (B9)", ("flash_bwd_dkv_f32_kernel", "flash_bwd_dkv_reloc_f32_kernel")),
+    ("flash_fwd d128 fp32 (K1)", ("flash_fwd_d128_f32_kernel",)),
+    ("frame_ctx_fwd d128 fp32 (K2)", ("frame_ctx_fwd_d128_f32_kernel",)),
+    ("frame_ctx_kv2_fwd d128 fp32 (K2p)", ("frame_ctx_kv2_fwd_d128_f32_kernel",)),
+    ("flash_fwd_reloc d128 fp32 (K1m)", ("flash_fwd_reloc_d128_f32_kernel",)),
+    ("flash_bwd_dq d128 fp32 (B9)", ("flash_bwd_dq_d128_f32_kernel",
+                                     "flash_bwd_dq_reloc_d128_f32_kernel")),
+    ("flash_bwd_dkv d128 fp32 (B9)", ("flash_bwd_dkv_d128_f32_kernel",
+                                      "flash_bwd_dkv_reloc_d128_f32_kernel")),
     ("flash_bwd_dq (B9)", ("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_reloc_sm90_kernel")),
     ("flash_bwd_dkv (B9)", ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_reloc_sm90_kernel")),
     ("flash_bwd_dq d128 (B9)", ("flash_bwd_dq_d128_sm90_kernel",
@@ -631,14 +680,15 @@ def print_sm90_build() -> None:
               f"(producer) / {info[7]} (consumers)")
         if info[1]:
             raise AssertionError(f"{name}: {info[1]} bytes of spills a thread")
+    # the fp32 bodies' kernels at head dim 64, then their head dim 128 forms
+    f32_fwd = ("flash_fwd_", "frame_ctx_fwd_", "frame_ctx_kv2_fwd_", "flash_fwd_reloc_")
+    f32_bwd = ("flash_bwd_dq_", "flash_bwd_dkv_", "flash_bwd_dq_reloc_", "flash_bwd_dkv_reloc_")
     f32_bodies = (
-        ("sfm_flash_fwd_f32_info", ("flash_fwd_f32_kernel", "frame_ctx_fwd_f32_kernel",
-                                    "frame_ctx_kv2_fwd_f32_kernel",
-                                    "flash_fwd_reloc_f32_kernel"), ("q rows", "keys")),
-        ("sfm_flash_bwd_f32_info", ("flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel",
-                                    "flash_bwd_dq_reloc_f32_kernel",
-                                    "flash_bwd_dkv_reloc_f32_kernel"), ("rows", "rows")))
-    for entry, names, (own, streamed) in f32_bodies:
+        ("sfm_flash_fwd_f32_info", [f"{k}{hd}f32_kernel" for hd in ("", "d128_") for k in f32_fwd],
+         ("q rows", "keys", "head dim")),
+        ("sfm_flash_bwd_f32_info", [f"{k}{hd}f32_kernel" for hd in ("", "d128_") for k in f32_bwd],
+         ("rows", "rows", "stages")))
+    for entry, names, (own, streamed, last) in f32_bodies:
         for which, name in enumerate(names):
             info = (ctypes.c_int * 8)()
             rc = getattr(lib, entry)(which, info)
@@ -646,7 +696,8 @@ def print_sm90_build() -> None:
                 raise RuntimeError(f"{entry}({which}): CUDA error {rc}")
             print(f"  {name}: {info[0]} registers a thread, {info[1]} local bytes, {info[2]} "
                   f"bytes of dynamic shared memory, {info[3]} {own} a block, {info[4]} "
-                  f"{streamed} a tile, {info[5]} threads, {info[6]} blocks an SM")
+                  f"{streamed} a tile, {info[5]} threads, {info[6]} blocks an SM, {last} "
+                  f"{info[7]}")
             if info[1]:
                 raise AssertionError(f"{name}: {info[1]} bytes of spills a thread")
     for which, name in enumerate(("ln_qkv_rope_f32_kernel", "ln_qkv_f32_kernel",
@@ -943,7 +994,14 @@ def check_d128_kernels(randn, ulps):
     repeat bit-equal, timed a call and back to back beside its bound (the
     same operations as the head dim 64 site), its plain version and its
     library call (SDPA at d = 128, its backward for B9; the replaced chain
-    for the fused blocks)."""
+    for the fused blocks). Then the fp32 forms at head dim 128 on the FFMA
+    bodies, in fp32 with TF32 off, at the same sites of 8 heads
+    (``check_f32_kernels`` and ``check_f32_bwd_kernels`` with ``H=8,
+    d=128``: 2e-5 of the largest |out| or |gradient|, lse 1e-5, repeats,
+    K2p and K1m bit-equal to K2, the edges of the tiling) beside SDPA in
+    fp32."""
+    import torch
+
     N = (IMG // 14) ** 2 + 5
     sites = [flash_site(randn, ulps, site, bh, n, d=128)
              for site, bh, n in (("vit", NUM_FRAMES * 8, N), ("frame", 2 * NUM_FRAMES * 8, N),
@@ -960,6 +1018,14 @@ def check_d128_kernels(randn, ulps):
     results += check_serving_kernels(randn, ulps, H=8, d=128)
     results += check_fused_kernels(randn, ulps, C=1024, H=8, mlp=False)
     results += check_backward_kernels(randn, ulps, H=8, d=128)
+
+    def randn32(*shape):
+        return randn(*shape, dtype=torch.float32)
+
+    results += check_f32_kernels(randn32, H=8, d=128)
+    torch.cuda.empty_cache()
+    results += check_f32_bwd_kernels(randn32, H=8, d=128)
+    torch.cuda.empty_cache()
     return results
 
 
@@ -1153,7 +1219,7 @@ def _f32_site(label, site, kernel, plain, library, flops, nbytes, lse=False):
     return row
 
 
-def check_f32_kernels(randn):
+def check_f32_kernels(randn, H=16, d=64):
     """Phase 2, the fp32 forms of K1, K2 and K2p (the FFMA body of
     ``csrc/flash_fwd_f32.cu``) at the main path's sites, in fp32 with TF32
     off: K1 at the ViT, frame and global sites, K2 at the reloc site, K2p at
@@ -1162,8 +1228,10 @@ def check_f32_kernels(randn):
     written), each against its plain version (:func:`_f32_site`); then the
     edges of the tiling. Times beside the bound at the fp32 rate (67
     TFLOP/s), the plain version and, as a yardstick only,
-    ``F.scaled_dot_product_attention`` in fp32 on the same inputs. Returns
-    the three entries of the kernel line."""
+    ``F.scaled_dot_product_attention`` in fp32 on the same inputs. ``H``
+    heads of ``d``: 16 of 64, or 8 of 128 (the same width, so the same
+    operations and bounds; the entries' names gain "_d128"). Returns the
+    three entries of the kernel line."""
     import torch
     import torch.nn.functional as F
 
@@ -1173,25 +1241,26 @@ def check_f32_kernels(randn):
     # here as a reference must; restored at the end, a failure ends the run)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    d, H, depth = 64, 16, 24
+    depth = 24
+    sfx = "_d128_f32" if d == 128 else "_f32"
     N = (IMG // 14) ** 2 + 5
     results = []
 
     # -- K1 fp32 at the ViT, frame and global sites ---------------------------
     sites = []
-    for site, bh, n in (("vit", NUM_FRAMES * 16, N), ("frame", 2 * NUM_FRAMES * 16, N),
-                        ("global", 16, NUM_FRAMES * N)):
+    for site, bh, n in (("vit", NUM_FRAMES * H, N), ("frame", 2 * NUM_FRAMES * H, N),
+                        ("global", H, NUM_FRAMES * N)):
         q, k, v = (randn(bh, n, d) for _ in range(3))
         q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
         sites.append(_f32_site(
-            "flash_fwd_f32", site, lambda: FA.flash_fwd(q, k, v),
+            f"flash_fwd{sfx}", site, lambda: FA.flash_fwd(q, k, v),
             lambda: FA.flash_fwd_plain(q, k, v),
             lambda: F.scaled_dot_product_attention(q4, k4, v4)[0],
             4.0 * bh * n * n * d, 4 * q.numel() * 4 + bh * n * 4, lse=True))
         del q, k, v, q4, k4, v4
         torch.cuda.empty_cache()
     results.append(dict(
-        name="flash_fwd_f32", route="cuda", source=F32_SOURCE,
+        name=f"flash_fwd{sfx}", route="cuda", source=F32_SOURCE,
         replaces="self_supervise_sfm_tpu/ops/flash_attention.py:140",
         # one call at each of the three sites (one ViT + one aggregator layer)
         max_abs_err=max(s_["max_abs_err"] for s_ in sites),
@@ -1205,13 +1274,13 @@ def check_f32_kernels(randn):
     ck, cv = randn(1, H, nc, d), randn(1, H, nc, d)
     kk = torch.cat([ck.expand(NUM_FRAMES, -1, -1, -1), k], dim=2)
     vv = torch.cat([cv.expand(NUM_FRAMES, -1, -1, -1), v], dim=2)
-    row = _f32_site("frame_ctx_fwd_f32", "reloc", lambda: FA.frame_ctx_fwd(q, k, v, ck, cv),
+    row = _f32_site(f"frame_ctx_fwd{sfx}", "reloc", lambda: FA.frame_ctx_fwd(q, k, v, ck, cv),
                     lambda: FA._frame_ctx_dense(q, k, v, ck, cv),
                     lambda: F.scaled_dot_product_attention(q, kk, vv),
                     4.0 * NUM_FRAMES * H * P * (nc + P) * d,
                     (4 * q.numel() + 2 * ck.numel()) * 4)
     results.append(dict(
-        name="frame_ctx_fwd_f32", route="cuda", source=F32_SOURCE,
+        name=f"frame_ctx_fwd{sfx}", route="cuda", source=F32_SOURCE,
         replaces="self_supervise_sfm_tpu/ops/flash_attention.py:539",
         **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                                      "bound_by")}, sites=[row]))
@@ -1231,7 +1300,7 @@ def check_f32_kernels(randn):
         before = ckv.clone()
         for layer in layers:
             sites.append(_f32_site(
-                "frame_ctx_packed_fwd_f32", f"{anchors} anchors, layer {layer}",
+                f"frame_ctx_packed_fwd{sfx}", f"{anchors} anchors, layer {layer}",
                 lambda: FA.frame_ctx_packed_fwd(q, k, v, ckv, layer),
                 lambda: FA.frame_ctx_packed_plain(q, k, v, ckv, layer),
                 lambda: library(ckv, layer),
@@ -1240,16 +1309,16 @@ def check_f32_kernels(randn):
             k2 = FA.frame_ctx_fwd(q, k, v, ckv[layer, ..., :d].contiguous(),
                                   ckv[layer, ..., d:].contiguous())
             if not torch.equal(FA.frame_ctx_packed_fwd(q, k, v, ckv, layer), k2):
-                raise AssertionError(f"frame_ctx_packed_fwd_f32 layer {layer}: not bit-equal "
-                                     "to K2 on the split copies")
+                raise AssertionError(f"frame_ctx_packed_fwd{sfx} layer {layer}: not "
+                                     "bit-equal to K2 on the split copies")
         if not torch.equal(ckv, before):
-            raise AssertionError("frame_ctx_packed_fwd_f32 wrote to the cache")
+            raise AssertionError(f"frame_ctx_packed_fwd{sfx} wrote to the cache")
         del ckv, before
         torch.cuda.empty_cache()
-    print("  frame_ctx_packed_fwd_f32: bit-equal to frame_ctx_fwd_f32 (K2) on the split "
+    print(f"  frame_ctx_packed_fwd{sfx}: bit-equal to frame_ctx_fwd{sfx} (K2) on the split "
           "copies, the cache unwritten")
     results.append(dict(
-        name="frame_ctx_packed_fwd_f32", route="cuda", source=F32_SOURCE,
+        name=f"frame_ctx_packed_fwd{sfx}", route="cuda", source=F32_SOURCE,
         replaces="self_supervise_sfm_tpu/ops/flash_attention.py:661",
         # one call at each site measured
         max_abs_err=max(s_["max_abs_err"] for s_ in sites),
@@ -1265,10 +1334,10 @@ def check_f32_kernels(randn):
         out, lse = FA.flash_fwd(q, k, v)
         torch.cuda.synchronize()
         p_out, p_lse = FA.flash_fwd_plain(q, k, v)
-        _check(f"flash_fwd_f32 edge ({bh}, {nq}, {nk})",
+        _check(f"flash_fwd{sfx} edge ({bh}, {nq}, {nk})",
                float((out - p_out).abs().max()), _f32_tol(p_out))
-        _check(f"flash_fwd_f32 edge ({bh}, {nq}, {nk}) lse", float((lse - p_lse).abs().max()),
-               1e-5)
+        _check(f"flash_fwd{sfx} edge ({bh}, {nq}, {nk}) lse",
+               float((lse - p_lse).abs().max()), 1e-5)
     for B, Fr, Hh, Pp, nce in ((2, 2, 2, 50, 0), (2, 2, 2, 130, 77), (1, 3, 2, 1, 1),
                                (1, 3, 2, 70, 1), (1, 3, 2, 1, 300)):
         q, k, v = (randn(B * Fr, Hh, Pp, d) for _ in range(3))
@@ -1278,11 +1347,11 @@ def check_f32_kernels(randn):
         packed = FA.frame_ctx_packed_fwd(q, k, v, ckv, 1)
         torch.cuda.synchronize()
         ref = FA._frame_ctx_dense(q, k, v, c_k, c_v)
-        _check(f"frame_ctx_fwd_f32 edge B{B} F{Fr} P{Pp} nc{nce}",
+        _check(f"frame_ctx_fwd{sfx} edge B{B} F{Fr} P{Pp} nc{nce}",
                float((out - ref).abs().max()), _f32_tol(ref))
         if not torch.equal(packed, out):
-            raise AssertionError(f"frame_ctx_packed_fwd_f32 edge nc{nce}: not bit-equal to K2")
-    print("  fp32 edges: frame_ctx_packed_fwd_f32 bit-equal to frame_ctx_fwd_f32 at each")
+            raise AssertionError(f"frame_ctx_packed_fwd{sfx} edge nc{nce}: not bit-equal to K2")
+    print(f"  fp32 edges: frame_ctx_packed_fwd{sfx} bit-equal to frame_ctx_fwd{sfx} at each")
     for r in results:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"SDPA fp32 {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -1291,7 +1360,7 @@ def check_f32_kernels(randn):
     return results
 
 
-def check_f32_bwd_kernels(randn):
+def check_f32_bwd_kernels(randn, H=16, d=64):
     """Phase 2, the fp32 forms of B9 (the FFMA backward body of
     ``csrc/flash_bwd_f32.cu``: dq and dk/dv, unmasked and under a RelocMask)
     and of K1m (``csrc/flash_fwd_f32.cu``), in fp32 with TF32 off. Inputs:
@@ -1311,8 +1380,11 @@ def check_f32_bwd_kernels(randn):
     whose time the pair is divided by. K1m fp32 at the 5-query shape:
     against ``flash_fwd_plain`` with the mask (out :func:`_f32_tol`, lse
     1e-5), a repeat and K2 fp32 on the unfolded tensors bit-equal, timed
-    beside SDPA with the boolean mask. Returns the three entries of the
-    kernel line."""
+    beside SDPA with the boolean mask. ``H`` heads of ``d``: 16 of 64, or 8
+    of 128 (the same operations and bounds; the entries' names gain "_d128",
+    and the edges add 96 and 33 q rows: a ragged second q tile, one ragged
+    tile).
+    Returns the three entries of the kernel line."""
     import torch
     import torch.nn.functional as F
 
@@ -1321,7 +1393,8 @@ def check_f32_bwd_kernels(randn):
 
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    S, H, d = TRAIN_FRAMES, 16, 64
+    S = TRAIN_FRAMES
+    sfx = "_d128_f32" if d == 128 else "_f32"
     P = (IMG // 14) ** 2 + 5
     nc = S * (RANK + 5)
     nc5 = NUM_FRAMES * (RANK + 5)
@@ -1349,14 +1422,17 @@ def check_f32_bwd_kernels(randn):
                                 ctx(v)).view(q.shape)
 
     # -- the edges of the tiling and of the masked walks -----------------------
-    for bh, nq, nk, with_dlse in ((2, 1, 3, False), (3, 130, 77, True), (2, 257, 130, False),
-                                  (1, 200, 333, True), (2, 64, 64, False)):
+    edges = [(2, 1, 3, False), (3, 130, 77, True), (2, 257, 130, False), (1, 200, 333, True),
+             (2, 64, 64, False)]
+    if d == 128:
+        edges += [(2, 96, 33, True), (1, 33, 97, False)]
+    for bh, nq, nk, with_dlse in edges:
         q, do, k, v = randn(bh, nq, d), randn(bh, nq, d), randn(bh, nk, d), randn(bh, nk, d)
         o, lse = FA.flash_fwd(q, k, v)
         dlse = randn(bh, nq) if with_dlse else None
         grads = FA.flash_bwd(q, k, v, o, lse, do, dlse)
         torch.cuda.synchronize()
-        hold(f"flash_bwd_f32 edge ({bh}, {nq}, {nk}){' dlse' if with_dlse else ''}", grads,
+        hold(f"flash_bwd{sfx} edge ({bh}, {nq}, {nk}){' dlse' if with_dlse else ''}", grads,
              FA.flash_bwd_plain(q, k, v, o, lse, do, dlse))
     for n_ctx, fs, nf in ((77, 130, 2), (0, 130, 3), (5, 1, 7), (64, 64, 2), (98, 257, 2),
                           (77, 130, 1)):
@@ -1365,20 +1441,20 @@ def check_f32_bwd_kernels(randn):
         o, lse = FA.flash_fwd_reloc(q, k, v, mask)
         torch.cuda.synchronize()
         p_o, p_lse = FA.flash_fwd_plain(q, k, v, mask)
-        _check(f"flash_fwd_reloc_f32 edge {mask} out", float((o - p_o).abs().max()),
+        _check(f"flash_fwd_reloc{sfx} edge {mask} out", float((o - p_o).abs().max()),
                _f32_tol(p_o))
-        _check(f"flash_fwd_reloc_f32 edge {mask} lse", float((lse - p_lse).abs().max()), 1e-5)
+        _check(f"flash_fwd_reloc{sfx} edge {mask} lse", float((lse - p_lse).abs().max()), 1e-5)
         if not torch.equal(o, k2_unfolded(q, k, v, mask)):
-            raise AssertionError(f"flash_fwd_reloc_f32 edge {mask}: not bit-equal to K2 fp32")
+            raise AssertionError(f"flash_fwd_reloc{sfx} edge {mask}: not bit-equal to K2 fp32")
         for with_dlse in (False, True):
             do = randn(2, mask.nq, d)
             dlse = randn(2, mask.nq) if with_dlse else None
             grads = FA.flash_bwd(q, k, v, o, lse, do, dlse, mask)
             torch.cuda.synchronize()
-            hold(f"flash_bwd_f32 edge {mask}{' dlse' if with_dlse else ''}", grads,
+            hold(f"flash_bwd{sfx} edge {mask}{' dlse' if with_dlse else ''}", grads,
                  FA.flash_bwd_plain(q, k, v, o, lse, do, dlse, mask))
-    print("  fp32 edges: flash_fwd_reloc_f32 (K1m) bit-equal to frame_ctx_fwd_f32 (K2) on the "
-          "unfolded tensors at each")
+    print(f"  fp32 edges: flash_fwd_reloc{sfx} (K1m) bit-equal to frame_ctx_fwd{sfx} (K2) on "
+          "the unfolded tensors at each")
 
     # -- the train step's sites and the masked ones ----------------------------
     # (name, BH, Nq, Nk, with an lse cotangent, mask)
@@ -1390,7 +1466,7 @@ def check_f32_bwd_kernels(randn):
              ("reloc layer 0, RelocMask", H, S * P, nc + S * P, False, RelocMask(nc, P, S)),
              ("reloc 5 queries, RelocMask", H, NUM_FRAMES * P, nc5 + NUM_FRAMES * P, False,
               RelocMask(nc5, P, NUM_FRAMES))]
-    rows = {"flash_bwd_dq_f32": [], "flash_bwd_dkv_f32": []}
+    rows = {f"flash_bwd_dq{sfx}": [], f"flash_bwd_dkv{sfx}": []}
     for site, bh, nq, nk, with_dlse, mask in sites:
         q, do = randn(bh, nq, d), randn(bh, nq, d)
         k, v = randn(bh, nk, d), randn(bh, nk, d)
@@ -1399,12 +1475,12 @@ def check_f32_bwd_kernels(randn):
         grads = FA.flash_bwd(q, k, v, o, lse, do, dlse, mask)
         torch.cuda.synchronize()
         refs = FA.flash_bwd_plain(q, k, v, o, lse, do, dlse, mask)
-        errs = dict(zip(("dq", "dk", "dv"), hold(f"flash_bwd_f32[{site}]", grads, refs)))
+        errs = dict(zip(("dq", "dk", "dv"), hold(f"flash_bwd{sfx}[{site}]", grads, refs)))
         del refs
         again = FA.flash_bwd(q, k, v, o, lse, do, dlse, mask)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-            raise AssertionError(f"flash_bwd_f32[{site}]: a second backward is not bit-equal")
+            raise AssertionError(f"flash_bwd{sfx}[{site}]: a second backward is not bit-equal")
         del again, grads
         delta = FA._delta(o, do, dlse).contiguous()
         # allowed pairs a head
@@ -1425,18 +1501,18 @@ def check_f32_bwd_kernels(randn):
         dq_fn = lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, mask)  # noqa: E731
         dkv_fn = lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, mask)  # noqa: E731
         b_dq, by_dq = _bound_ms(3 * 2.0 * bh * pairs * d, io + q.numel() * 4, PEAK_F32_FLOPS)
-        rows["flash_bwd_dq_f32"].append(dict(
+        rows[f"flash_bwd_dq{sfx}"].append(dict(
             common, max_abs_err=errs["dq"], bound_ms=b_dq, bound_by=by_dq,
             ms=_time_ms(dq_fn), back_to_back_ms=_back_to_back_ms(dq_fn)))
         b_kv, by_kv = _bound_ms(4 * 2.0 * bh * pairs * d, io + 2 * k.numel() * 4,
                                 PEAK_F32_FLOPS)
-        rows["flash_bwd_dkv_f32"].append(dict(
+        rows[f"flash_bwd_dkv{sfx}"].append(dict(
             common, max_abs_err=max(errs["dk"], errs["dv"]), bound_ms=b_kv, bound_by=by_kv,
             ms=_time_ms(dkv_fn), back_to_back_ms=_back_to_back_ms(dkv_fn)))
         del q, k, v, do, o, lse, out, qm, km, vm, attn_mask, delta
         torch.cuda.empty_cache()
     results = []
-    for name, line in (("flash_bwd_dq_f32", 332), ("flash_bwd_dkv_f32", 349)):
+    for name, line in ((f"flash_bwd_dq{sfx}", 332), (f"flash_bwd_dkv{sfx}", 349)):
         ss = rows[name]
         for s_ in ss:
             print(f"  {name}[{s_['site']}] {s_['shape']}: kernel {s_['ms']:.4f} ms, b2b "
@@ -1456,9 +1532,9 @@ def check_f32_bwd_kernels(randn):
             **{k: sum(s_[k] for s_ in path)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             bound_by=path[-1]["bound_by"], sites=ss))
-    for a, b in zip(rows["flash_bwd_dq_f32"], rows["flash_bwd_dkv_f32"]):
+    for a, b in zip(rows[f"flash_bwd_dq{sfx}"], rows[f"flash_bwd_dkv{sfx}"]):
         call, b2b = a["ms"] + b["ms"], a["back_to_back_ms"] + b["back_to_back_ms"]
-        print(f"  flash_bwd_f32 pair[{a['site']}]: {call:.4f} ms a call, {b2b:.4f} ms b2b; "
+        print(f"  flash_bwd{sfx} pair[{a['site']}]: {call:.4f} ms a call, {b2b:.4f} ms b2b; "
               f"SDPA fp32 backward {a['library_ms']:.4f} / {a['library_back_to_back_ms']:.4f} "
               f"ms; pair / SDPA {call / a['library_ms']:.2f} a call, "
               f"{b2b / a['library_back_to_back_ms']:.2f} b2b")
@@ -1470,21 +1546,21 @@ def check_f32_bwd_kernels(randn):
     torch.cuda.synchronize()
     p_out, p_lse = FA.flash_fwd_plain(q, k, v, mask)
     err = float((out - p_out).abs().max())
-    _check(f"flash_fwd_reloc_f32 out {tuple(q.shape)} x {tuple(k.shape)} {mask}", err,
+    _check(f"flash_fwd_reloc{sfx} out {tuple(q.shape)} x {tuple(k.shape)} {mask}", err,
            _f32_tol(p_out))
     lse_err = float((lse - p_lse).abs().max())
-    _check("flash_fwd_reloc_f32 lse", lse_err, 1e-5)
+    _check(f"flash_fwd_reloc{sfx} lse", lse_err, 1e-5)
     del p_out, p_lse
     again = FA.flash_fwd_reloc(q, k, v, mask)
     layout = k2_unfolded(q, k, v, mask)
     torch.cuda.synchronize()
     if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
-        raise AssertionError("flash_fwd_reloc_f32: a repeat is not bit-equal")
+        raise AssertionError(f"flash_fwd_reloc{sfx}: a repeat is not bit-equal")
     if not torch.equal(layout, out):
-        raise AssertionError("flash_fwd_reloc_f32: not bit-equal to K2 fp32 on the unfolded "
+        raise AssertionError(f"flash_fwd_reloc{sfx}: not bit-equal to K2 fp32 on the unfolded "
                              "tensors")
-    print("  flash_fwd_reloc_f32 (K1m): a repeat bit-equal; bit-equal to frame_ctx_fwd_f32 (K2) "
-          "on the unfolded tensors")
+    print(f"  flash_fwd_reloc{sfx} (K1m): a repeat bit-equal; bit-equal to frame_ctx_fwd{sfx} "
+          "(K2) on the unfolded tensors")
     del again, layout
     qm, km, vm = (t.view(1, H, -1, d) for t in (q, k, v))
     dense_mask = mask.materialize("cuda")
@@ -1494,7 +1570,7 @@ def check_f32_bwd_kernels(randn):
     kernel = lambda: FA.flash_fwd_reloc(q, k, v, mask)  # noqa: E731
     library = lambda: F.scaled_dot_product_attention(qm, km, vm, attn_mask=dense_mask)  # noqa: E731
     r = dict(
-        name="flash_fwd_reloc_f32", route="cuda", source=F32_SOURCE,
+        name=f"flash_fwd_reloc{sfx}", route="cuda", source=F32_SOURCE,
         replaces="self_supervise_sfm_tpu/ops/flash_attention.py:140",
         variant="mask=RelocMask", max_abs_err=err, lse_err=lse_err, shape=list(q.shape),
         ms=_time_ms(kernel),
@@ -1504,7 +1580,7 @@ def check_f32_bwd_kernels(randn):
         bound_ms=bound, bound_by=by,
         back_to_back_ms=_back_to_back_ms(kernel),
         library_back_to_back_ms=_back_to_back_ms(library))
-    _site_line(f"flash_fwd_reloc_f32 {tuple(q.shape)} x {tuple(k.shape)} {mask}", r)
+    _site_line(f"flash_fwd_reloc{sfx} {tuple(q.shape)} x {tuple(k.shape)} {mask}", r)
     results.append(r)
     del q, k, v, qm, km, vm, out, lse, dense_mask
     torch.cuda.empty_cache()
@@ -2285,6 +2361,13 @@ class _D128Launches(_F32Launches):
     attr = "launches_d128"
 
 
+class _D128F32Launches(_F32Launches):
+    """The fp32 head dim 128 launches of an attention wrapper
+    (``.launches_d128_f32``), read and reset as ``.launches``."""
+
+    attr = "launches_d128_f32"
+
+
 def kernel_wrappers() -> dict:
     """Every kernel's launch wrapper by its name in the kernel line; each
     counts its launches in ``.launches`` (the attention and fused block
@@ -2320,7 +2403,13 @@ def kernel_wrappers() -> dict:
             "fused_ln_qkv_d128": _D128Launches(FQ.fused_ln_qkv_fwd),
             "fused_proj_residual_d128": _D128Launches(FQ.fused_proj_residual_fwd),
             "flash_bwd_dq_d128": _D128Launches(FA.flash_bwd_dq),
-            "flash_bwd_dkv_d128": _D128Launches(FA.flash_bwd_dkv)}
+            "flash_bwd_dkv_d128": _D128Launches(FA.flash_bwd_dkv),
+            "flash_fwd_d128_f32": _D128F32Launches(FA.flash_fwd),
+            "frame_ctx_fwd_d128_f32": _D128F32Launches(FA.frame_ctx_fwd),
+            "frame_ctx_packed_fwd_d128_f32": _D128F32Launches(FA.frame_ctx_packed_fwd),
+            "flash_fwd_reloc_d128_f32": _D128F32Launches(FA.flash_fwd_reloc),
+            "flash_bwd_dq_d128_f32": _D128F32Launches(FA.flash_bwd_dq),
+            "flash_bwd_dkv_d128_f32": _D128F32Launches(FA.flash_bwd_dkv)}
 
 
 def run_forward(gen):
@@ -3081,7 +3170,18 @@ def run_d128(state=None):
     (K2p); the forward timed in turns against the same configuration on the
     dense route with the fused blocks off and against the flagship (16 heads
     of 64: phase 3's weights, or its own when phase 3 did not run); build,
-    reloc and ``fast_reloc`` timed; peaks. ``state``: phase 3's."""
+    reloc and ``fast_reloc`` timed; peaks. Then its fp32 leg,
+    ``make_config(num_heads=8)`` (fp32, "auto") on the same fp32 weights:
+    the forward, the build, ``reloc`` and ``fast_reloc`` with the default
+    configuration's launch counts on the fp32 head dim 128 forms
+    (``D128_F32_*_LAUNCHES``: no dense attention site), taps, camera tokens,
+    cache and poses against the fp32 plain path of the same configuration at
+    rel-RMS 1e-5, reloc layer 0's mask form (K1m fp32) bit-equal to its
+    layout form (K2p fp32), the forward timed in turns against its dense
+    route and against the default configuration at 16 heads of 64 (phase 3's
+    fp32 weights), with peaks, build / reloc / ``fast_reloc`` timed (paths
+    "forward_d128_f32", "build_d128_f32", "reloc_d128_f32",
+    "fast_reloc_d128_f32", "mask_form_d128_f32"). ``state``: phase 3's."""
     import torch
 
     from self_supervise_sfm_tpu_torch.layers.block import qkv_parts
@@ -3097,11 +3197,12 @@ def run_d128(state=None):
     if state is None:
         print("  phase 3's flagship made here (phase 3 did not run)")
         flag_cfg = M.make_config(compute_dtype="bfloat16")
-        flag_params = M.cast_trunk_weights(M.init_sailrecon(flag_cfg, gen, device="cuda"),
-                                           flag_cfg)
+        flag_p32 = M.init_sailrecon(flag_cfg, gen, device="cuda")
+        flag_params = M.cast_trunk_weights(flag_p32, flag_cfg)
         uniq = torch.rand((1, NUM_FRAMES, IMG, IMG, 3), generator=gen, device="cuda")
     else:
         flag_cfg, flag_params, uniq = state["cfg"], state["params"], state["uniq"]
+        flag_p32 = state["p32"]
     images = torch.cat([uniq, uniq], dim=1)
     unfused = dict(fused_qkv="off", fused_mlp="off")
     dense = dict(attn_impl="dense", global_attn_impl="dense")
@@ -3207,16 +3308,16 @@ def run_d128(state=None):
               f"({'bit-equal' if torch.equal(rk[li], tk[li]) else 'not bit-equal'}; tolerance "
               f"2x {env:.4e})")
         expect(err <= 2 * env, f"d128 reloc tap {li} vs joint forward: {err} over 2x {env}")
-    del tp, tf, cp, cf, cache_p, cache_f, cam_p, cam_f, rp, rf, rk, tk, ck
+    del tp, cp, cache_p, cam_p, rp, rk, tk, ck
     torch.cuda.empty_cache()
 
     # -- reloc layer 0 in mask form (K1m) against its layout form (K2p) ------
-    def mask_form():
-        tokens, t_frame = AG._reloc_setup(params["aggregator"], acfg, uniq)
+    def mask_form(pa=params["aggregator"], a=acfg, kv=kv):
+        tokens, t_frame = AG._reloc_setup(pa, a, uniq)
         B, Q, Ptok, C = tokens.shape
-        fp, rp_ = (params["aggregator"][k][0] for k in ("frame_blocks", "reloc_blocks"))
-        t = AG.block(fp, tokens.reshape(B * Q, Ptok, C), acfg.block_cfg, t_frame)
-        q, k, v = qkv_parts(rp_, t, acfg.block_cfg, t_frame)
+        fp, rp_ = (pa[k][0] for k in ("frame_blocks", "reloc_blocks"))
+        t = AG.block(fp, tokens.reshape(B * Q, Ptok, C), a.block_cfg, t_frame)
+        q, k, v = qkv_parts(rp_, t, a.block_cfg, t_frame)
         layout = FA.packed_ctx_attention(q, k, v, kv, 0)
         d = q.shape[-1]
 
@@ -3235,6 +3336,80 @@ def run_d128(state=None):
     same = torch.equal(layout, masked)
     print(f"  d128 reloc layer 0, mask form (K1m) bit-equal to layout form (K2p): {same}")
     expect(same, "d128 reloc layer 0: mask form not bit-equal to layout form")
+    del layout, masked
+
+    # -- the fp32 leg: make_config(num_heads=8), the fp32 forms at 128 -------
+    cfg32 = M.make_config(num_heads=8)
+    cfg32_dense = M.make_config(num_heads=8, **dense)
+    flag_cfg32 = M.make_config()
+    out32, n_fwd32 = counted(lambda: fwd(cfg32, p32))
+    (cache32, cam32), n_build32 = counted(lambda: build(cfg32, p32))
+    rel32, n_reloc32 = counted(lambda: M.reloc(p32, cfg32, cache32, cam32, uniq))
+    fast32, n_fast32 = counted(lambda: M.reloc(p32, cfg32, cache32, cam32, uniq,
+                                               fast_reloc=True))
+    launches.update(forward_d128_f32=n_fwd32, build_d128_f32=n_build32,
+                    reloc_d128_f32=n_reloc32, fast_reloc_d128_f32=n_fast32)
+    for path, want in (("forward_d128_f32", D128_F32_FORWARD_LAUNCHES),
+                       ("build_d128_f32", D128_F32_BUILD_LAUNCHES),
+                       ("reloc_d128_f32", D128_F32_RELOC_LAUNCHES),
+                       ("fast_reloc_d128_f32", D128_F32_FAST_RELOC_LAUNCHES)):
+        got = launches[path]
+        print(f"  launches in one {path}: { {k: n for k, n in got.items() if n} }")
+        if got != want:
+            raise AssertionError(f"{path} launch counts {got}, expected {want}")
+    kv32 = cache32["kv"]
+    per_anchor32 = kv32.numel() * kv32.element_size() / NUM_FRAMES
+    expect(tuple(kv32.shape) == (24, 1, 8, nc, 256) and kv32.dtype == torch.float32
+           and per_anchor32 == 59_965_440,
+           f"fp32 d128 cache {tuple(kv32.shape)} {kv32.dtype}, {per_anchor32} bytes an anchor")
+    for k in ("extrinsic", "intrinsic"):
+        expect(torch.equal(fast32[k], rel32[k]), f"fp32 d128 fast_reloc {k} differs from reloc's")
+    # against the fp32 plain path of the same configuration (dense attention)
+    before = {k: w.launches for k, w in wrappers.items()}
+    out_f = fwd(cfg_f32, p32)
+    rel_f = M.reloc(p32, cfg_f32, cache_f, cam_f, uniq)
+    torch.cuda.synchronize()
+    if {k: w.launches for k, w in wrappers.items()} != before:
+        raise AssertionError("the fp32 plain path of the head dim 128 model launched a kernel")
+    tk32, _, ck32 = agg(cfg32, p32)
+    rk32 = taps_of(cfg32, p32, cache32)
+    agree32 = {}
+    pairs = [(f"tap {li}", tk32[li], tf[li]) for li in acfg.intermediate_layer_idx]
+    pairs += [("anchor cam tokens", ck32, cf), ("scene cache", kv32, cache_f["kv"]),
+              ("build cam tokens", cam32, cam_f)]
+    pairs += [(f"reloc tap {li}", rk32[li], rf[li]) for li in acfg.intermediate_layer_idx]
+    # the intrinsics on the scale the camera head emits them, the FoV (2 atan
+    # of half the image over the focal): the focal, (H / 2) / tan(FoV / 2),
+    # magnifies a FoV near 0 (the relu'd FoV head's at random weights) by
+    # 1 / FoV; its own distance is printed beside it
+    def fov(k):
+        return 2.0 * torch.atan((IMG / 2.0) / torch.stack([k[..., 1, 1], k[..., 0, 0]], -1))
+
+    for name, a, b in (("forward", out32, out_f), ("reloc", rel32, rel_f)):
+        pairs += [(f"{name} extrinsic", a["extrinsic"], b["extrinsic"]),
+                  (f"{name} intrinsic as FoV", fov(a["intrinsic"]), fov(b["intrinsic"])),
+                  (f"{name} cam_tokens", a["cam_tokens"], b["cam_tokens"])]
+        focal = rel(a["intrinsic"], b["intrinsic"])
+        print(f"  d128 fp32 {name} intrinsic (focal): rel-RMS {focal:.4e} against the fp32 "
+              f"plain path, for the record (smallest FoV {float(fov(b['intrinsic']).min()):.3e} "
+              f"rad)")
+    for name, a, b in pairs:
+        err = rel(a, b)
+        agree32[name] = err
+        print(f"  d128 fp32 {name}: kernels vs the fp32 plain path rel-RMS {err:.4e} "
+              f"(tolerance 1e-5)")
+        expect(err <= 1e-5, f"d128 fp32 {name}: {err} over 1e-5")
+    del tf, cf, cache_f, cam_f, rf, out_f, rel_f, tk32, ck32, rk32, out32, rel32, fast32
+    torch.cuda.empty_cache()
+    (layout, masked), n_mask32 = counted(lambda: mask_form(p32["aggregator"], cfg32.aggregator,
+                                                           kv32))
+    launches["mask_form_d128_f32"] = n_mask32
+    if n_mask32["flash_fwd_reloc_d128_f32"] != 1 or n_mask32["frame_ctx_packed_fwd_d128_f32"] != 1:
+        raise AssertionError(f"d128 fp32 mask form launch counts {n_mask32}")
+    same32 = torch.equal(layout, masked)
+    print(f"  d128 fp32 reloc layer 0, mask form (K1m fp32) bit-equal to layout form (K2p "
+          f"fp32): {same32}")
+    expect(same32, "d128 fp32 reloc layer 0: mask form not bit-equal to layout form")
     del layout, masked
 
     # -- times: in turns on the one card --------------------------------------
@@ -3281,6 +3456,44 @@ def run_d128(state=None):
           f"reloc of 5 queries {res['reloc_ms']:.2f} ms (peak {res['reloc_peak_gb']:.2f} GB); "
           f"fast_reloc {res['fast_reloc_ms']:.2f} ms (peak {res['fast_reloc_peak_gb']:.2f} GB); "
           f"cache {res['cache_bytes_per_anchor']:.0f} bytes an anchor; medians of 3")
+    # the fp32 leg in turns: its kernels, its dense route, the default
+    # configuration at 16 heads of 64 (the flagship's fp32 weights)
+    turns32 = {"d128_f32": lambda: fwd(cfg32, p32),
+               "d128_f32_dense": lambda: fwd(cfg32_dense, p32),
+               "d64_f32": lambda: fwd(flag_cfg32, flag_p32)}
+    runs32, peaks32 = {k: [] for k in turns32}, {}
+    for name in ("d128_f32", "d128_f32_dense", "d64_f32", "d64_f32", "d128_f32_dense",
+                 "d128_f32"):
+        r, peak = timed(turns32[name], reps=2)
+        runs32[name] += r
+        peaks32[name] = max(peaks32.get(name, 0.0), peak)
+    med32 = {k: statistics.median(v) for k, v in runs32.items()}
+    f32 = dict(forward_ms=med32["d128_f32"], forward_runs_ms=runs32["d128_f32"],
+               forward_peak_gb=peaks32["d128_f32"], dense_ms=med32["d128_f32_dense"],
+               dense_runs_ms=runs32["d128_f32_dense"], dense_peak_gb=peaks32["d128_f32_dense"],
+               d64_ms=med32["d64_f32"], d64_runs_ms=runs32["d64_f32"],
+               d64_peak_gb=peaks32["d64_f32"], agreement=agree32, mask_form_bit_equal=same32,
+               cache_bytes_per_anchor=per_anchor32)
+    print(f"  d128 fp32 forward {med32['d128_f32']:.2f} ms (peak {peaks32['d128_f32']:.2f} GB); "
+          f"its dense route {med32['d128_f32_dense']:.2f} ms (peak "
+          f"{peaks32['d128_f32_dense']:.2f} GB, {med32['d128_f32_dense'] / med32['d128_f32']:.3f}x)"
+          f"; the default configuration at 16 heads of 64 {med32['d64_f32']:.2f} ms (peak "
+          f"{peaks32['d64_f32']:.2f} GB, d128 / d64 {med32['d128_f32'] / med32['d64_f32']:.3f}x); "
+          f"medians of 4, in turns")
+    for name, fn in (("build", lambda: build(cfg32, p32)),
+                     ("reloc", lambda: M.reloc(p32, cfg32, cache32, cam32, uniq)),
+                     ("fast_reloc", lambda: M.reloc(p32, cfg32, cache32, cam32, uniq,
+                                                    fast_reloc=True))):
+        r, peak = timed(fn)
+        f32[f"{name}_ms"], f32[f"{name}_runs_ms"], f32[f"{name}_peak_gb"] = (
+            statistics.median(r), r, peak)
+    print(f"  d128 fp32 5 anchors: build {f32['build_ms']:.2f} ms (peak "
+          f"{f32['build_peak_gb']:.2f} GB); reloc of 5 queries {f32['reloc_ms']:.2f} ms (peak "
+          f"{f32['reloc_peak_gb']:.2f} GB); fast_reloc {f32['fast_reloc_ms']:.2f} ms (peak "
+          f"{f32['fast_reloc_peak_gb']:.2f} GB); medians of 3")
+    res["f32"] = f32
+    del cache32, cam32, kv32
+    torch.cuda.empty_cache()
     print("  profile of the d128 forward:")
     res["profile"] = profile_forward(lambda: fwd(cfg, params), label="d128 forward")
     res["seconds"] = time.perf_counter() - t_start
@@ -3319,7 +3532,9 @@ def _hold_fp32_step(label, loss, g, loss_f, gf, subsystems, rel, grads, expect) 
     return agree
 
 
-def run_train_default(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, grads, expect):
+def run_train_default(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, grads, expect,
+                      heads=None, want=None, label="default configuration (fp32)",
+                      b9=("flash_bwd_dq fp32 (B9)", "flash_bwd_dkv fp32 (B9)")):
     """Phase 5, the train step in the default configuration
     (``make_config(remat=True)``: fp32, "auto") on the kernels: every
     attention site on the fp32 forms of K1 and K2 and its backward on B9's
@@ -3331,28 +3546,31 @@ def run_train_default(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, gra
     rtol 1e-4, gradient norms 1e-3) and a gradient rel-RMS of 1e-3 a
     subsystem, set before the first run; its time and peak memory in turns
     with the same on the dense route (dense, kernels, kernels, dense); B9
-    fp32's device ms from one profiled run. Returns the launch counts and
-    the measurements."""
+    fp32's device ms from one profiled run (its profile classes ``b9``).
+    ``heads``: ``make_config`` arguments of another head layout (phase 5b's
+    fp32 leg: ``num_heads=8``, held to ``want``, the launches under the
+    fp32 head dim 128 names). Returns the launch counts and the
+    measurements."""
     import torch
 
     from self_supervise_sfm_tpu_torch.models import sailrecon as M
     from self_supervise_sfm_tpu_torch.train import loop as L
 
+    heads = heads or {}
+    want = want or DEFAULT_TRAIN_STEP_LAUNCHES
     wrappers = kernel_wrappers()
-    cfg_d = M.make_config(remat=True)
-    cfg_dense = M.make_config(remat=True, attn_impl="dense", global_attn_impl="dense")
+    cfg_d = M.make_config(remat=True, **heads)
+    cfg_dense = M.make_config(remat=True, attn_impl="dense", global_attn_impl="dense", **heads)
     for w in wrappers.values():
         w.launches = 0
     loss_d, _, gd = L.loss_and_grads(params, cfg_d, tcfg, batch, idx)
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"  default configuration (fp32) step: launches "
-          f"{ {k: n for k, n in launches.items() if n} }")
-    if launches != DEFAULT_TRAIN_STEP_LAUNCHES:
-        raise AssertionError(f"default configuration step launch counts {launches}, expected "
-                             f"{DEFAULT_TRAIN_STEP_LAUNCHES}")
-    agree = _hold_fp32_step("default configuration (fp32)", float(loss_d), gd, loss_f, gf,
-                            subsystems, rel, grads, expect)
+    print(f"  {label} step: launches {({k: n for k, n in launches.items() if n})}")
+    if launches != want:
+        raise AssertionError(f"{label} step launch counts {launches}, expected {want}")
+    agree = _hold_fp32_step(label, float(loss_d), gd, loss_f, gf, subsystems, rel, grads,
+                            expect)
     del gd
 
     def timed(cfg):
@@ -3368,21 +3586,20 @@ def run_train_default(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, gra
         runs[route].append(timed(cfg_d if route == "kernels" else cfg_dense))
     ms = {r: statistics.median(t for t, _ in v) for r, v in runs.items()}
     peak = {r: max(g for _, g in v) for r, v in runs.items()}
-    print(f"  default configuration (fp32) forward + backward: kernels "
+    print(f"  {label} forward + backward: kernels "
           f"{[round(t, 2) for t, _ in runs['kernels']]} ms, peak {peak['kernels']:.2f} GB; "
           f"dense route {[round(t, 2) for t, _ in runs['dense']]} ms, peak "
           f"{peak['dense']:.2f} GB (kernels / dense {ms['kernels'] / ms['dense']:.3f})")
     profile = profile_forward(lambda: L.loss_and_grads(params, cfg_d, tcfg, batch, idx),
-                              label="default configuration (fp32) forward + backward")
-    b9 = None
+                              label=f"{label} forward + backward")
+    b9_ms = None
     if profile["measured"]:
-        b9 = {k: profile["classes_ms"][k]
-              for k in ("flash_bwd_dq fp32 (B9)", "flash_bwd_dkv fp32 (B9)")}
-        print(f"  B9 fp32 device ms a step: dq {b9['flash_bwd_dq fp32 (B9)']:.2f}, dk/dv "
-              f"{b9['flash_bwd_dkv fp32 (B9)']:.2f}, both {sum(b9.values()):.2f} (of device "
-              f"busy {profile['busy_ms']:.2f})")
+        b9_ms = {k: profile["classes_ms"][k] for k in b9}
+        print(f"  {label} B9 device ms a step: dq {b9_ms[b9[0]]:.2f}, dk/dv "
+              f"{b9_ms[b9[1]]:.2f}, both {sum(b9_ms.values()):.2f} (of device busy "
+              f"{profile['busy_ms']:.2f})")
     return dict(launches=launches, agreement=agree, runs=runs, ms=ms, peak_gb=peak,
-                profile=profile, b9_device_ms=b9)
+                profile=profile, b9_device_ms=b9_ms)
 
 
 def run_train_on_f32(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, grads, expect):
@@ -3735,7 +3952,12 @@ def run_train_d128(live=None, flagship_busy_ms=None):
     global_attn_impl="dense"``), the peak with both states resident, and one
     profiled step: device busy and B9's device ms, beside the flagship
     step's device busy (``flagship_busy_ms``: phase 5's profile, or one
-    profiled here)."""
+    profiled here). Its fp32 leg (:func:`run_train_default` with
+    ``num_heads=8``): one forward and backward of the same state, batch
+    and subsample in fp32 on the fp32 head dim 128 forms, held to
+    ``D128_F32_TRAIN_STEP_LAUNCHES`` and to the fp32 plain step of the same
+    configuration (loss rtol 1e-4, gradient norms and rel-RMS 1e-3 a
+    subsystem), timed in turns against its dense route, B9's device ms."""
     import torch
 
     from self_supervise_sfm_tpu_torch.models import aggregator as AG
@@ -3823,8 +4045,16 @@ def run_train_d128(live=None, flagship_busy_ms=None):
     torch.cuda.synchronize()
     print(f"  d128 loss: kernel path {float(loss_k):.6f}, plain {float(loss_p):.6f}, plain "
           f"fp32 {float(loss_f):.6f}")
-    grads = _hold_bf16_grads("d128 ", gk, gp, gf, expect)[0]
-    del gk, gp, gf
+    grads, subsystems, rel = _hold_bf16_grads("d128 ", gk, gp, gf, expect)
+    del gk, gp
+    torch.cuda.empty_cache()
+    # the fp32 leg: make_config(num_heads=8, remat=True), every attention
+    # site on the fp32 forms at 128, against the fp32 plain step above
+    f32 = run_train_default(params, tcfg, batch, idx, float(loss_f), gf, subsystems, rel, grads,
+                            expect, heads=dict(num_heads=8), want=D128_F32_TRAIN_STEP_LAUNCHES,
+                            label="d128 fp32",
+                            b9=("flash_bwd_dq d128 fp32 (B9)", "flash_bwd_dkv d128 fp32 (B9)"))
+    del gf
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("; ".join(failures))
@@ -3876,8 +4106,8 @@ def run_train_d128(live=None, flagship_busy_ms=None):
     print(f"  phase 5b: {seconds:.1f} s")
     del state, holder, params, step, step_dense
     torch.cuda.empty_cache()
-    return {"train_d128": launches}, dict(
-        step_ms=med["d128"], runs_ms=runs["d128"], dense_ms=med["d128_dense"],
+    return {"train_d128": launches, "train_d128_f32": f32["launches"]}, dict(
+        f32=f32, step_ms=med["d128"], runs_ms=runs["d128"], dense_ms=med["d128_dense"],
         dense_runs_ms=runs["d128_dense"], flagship_ms=med["flag"], flagship_runs_ms=runs["flag"],
         peak_gb_both_states=peak_gb, gradients=grads, loss_kernel=float(loss_k),
         loss_plain=float(loss_p), loss_f32=float(loss_f),
@@ -5014,7 +5244,7 @@ def run_converter(host_params=None, phase3=None):
     return launches, res
 
 
-# the more seeds of --torchrun-tp's bf16 first-loss distance (for the record)
+# the seeds beyond seed 0 of --torchrun-tp's bf16 first-loss check (a median over all)
 C1_SEEDS = 4
 RING_SITE = (16, NUM_FRAMES * 1374, 64)  # the global site: 16 heads, 5 anchors x 1374 tokens
 RING_CHUNKS = (2, 5, 10)
@@ -6263,13 +6493,14 @@ def run_torchrun_tp(card: str) -> dict:
     one-device forward's rel-RMS distance from fp32. Then the trainer at
     ``num_model = N`` for 3 steps of phase 6's configuration (no
     checkpoint, no diagnostics), and rank 0 the one-device trainer on the
-    same scenes: the first step's loss (both runs at the same initial
-    state) within twice the distance between the one-device bf16 loss and
-    the fp32 plain path's loss on that state and batch, the later losses
-    printed (the runs part as bf16 sums part); step intervals, frames a
-    second a card and every rank's peak memory. Beside that check, for the
-    record: the same first-loss distance and envelope at ``C1_SEEDS`` more
-    seeds of the first state and batch (one step each, TP and one card).
+    same scenes, the later losses printed (the runs part as bf16 sums
+    part); step intervals, frames a second a card and every rank's peak
+    memory. Then the first bf16 loss at ``C1_SEEDS`` more seeds of the
+    first state and batch (one step each, TP and one card), and the check
+    over seed 0 and those: TP's median first-loss distance from the fp32
+    plain path's loss on the same state and batch within twice one card's
+    median distance (every seed's figures printed: one draw of bf16
+    rounding decides nothing).
     Then the same 3 steps in fp32 on the kernels (the fp32 forms of K1 / K2
     and B9's fp32 pair, their launches on rank 0 printed), TP against one
     card: steps 1 and 2 read the first state, so their loss (rtol 1e-4) and
@@ -6416,8 +6647,6 @@ def run_torchrun_tp(card: str) -> dict:
             # the bf16 kernel path and of the fp32 plain path
             loss_k, loss_f = first_losses(trainer_cfg("one_device", 1))
             env = abs(loss_k - loss_f)
-            expect(abs(la[0] - lb[0]) <= 2 * env,
-                   f"TP trainer's first loss {la[0]} against {lb[0]}: over twice {env}")
             out["trainer"].update(
                 first_loss_bf16=loss_k, first_loss_fp32=loss_f, first_loss_envelope=env,
                 losses=la, one_device_losses=lb, rel_diff=rel_d,
@@ -6436,10 +6665,24 @@ def run_torchrun_tp(card: str) -> dict:
         dist.barrier()
         torch.cuda.empty_cache()
 
-        # for the record, beside the check above: the bf16 first-loss distance
-        # between TP and one card, and its envelope, at more seeds of the
-        # first state and batch (one step each)
+        # the bf16 first loss of TP and of one card at more seeds of the first
+        # state and batch (one step each); with seed 0 above, the check: TP's
+        # median distance from the fp32 plain loss within twice one card's
         spread = []
+
+        def seed_row(seed, la, lb, lk, lf):
+            spread.append(dict(seed=seed, tp=la, one_device=lb, bf16_kernels=lk, fp32_plain=lf,
+                               tp_distance=abs(la - lf), one_device_distance=abs(lb - lf),
+                               distance=abs(la - lb), envelope=abs(lk - lf),
+                               ratio=abs(la - lb) / abs(lk - lf)))
+            print(f"  {card}: seed {seed}: bf16 first loss with the heads over {world} cards "
+                  f"{la:.6f}, one card {lb:.6f}, fp32 plain {lf:.6f}: distance from fp32 TP "
+                  f"{abs(la - lf):.3e}, one card {abs(lb - lf):.3e}; TP - one card "
+                  f"{abs(la - lb):.3e}, envelope |bf16 kernels - fp32 plain| {abs(lk - lf):.3e} "
+                  f"(ratio {spread[-1]['ratio']:.2f})", flush=True)
+
+        if primary:
+            seed_row(SEED, la[0], lb[0], loss_k, loss_f)
         for seed in range(SEED + 1, SEED + 1 + C1_SEEDS):
             T.run(trainer_cfg(f"tp_s{seed}", world, seed=seed, steps=1))
             torch.cuda.empty_cache()
@@ -6447,16 +6690,20 @@ def run_torchrun_tp(card: str) -> dict:
                 one_device_run(f"one_device_s{seed}", seed=seed, steps=1)
                 la, lb = rows(f"tp_s{seed}")[0]["loss"], rows(f"one_device_s{seed}")[0]["loss"]
                 lk, lf = first_losses(trainer_cfg(f"one_device_s{seed}", 1, seed=seed, steps=1))
-                spread.append(dict(seed=seed, tp=la, one_device=lb, distance=abs(la - lb),
-                                   envelope=abs(lk - lf), ratio=abs(la - lb) / abs(lk - lf)))
-                print(f"  {card}: seed {seed}: bf16 first loss with the heads over {world} "
-                      f"cards {la:.6f}, one card {lb:.6f}: distance {abs(la - lb):.3e}, "
-                      f"envelope |bf16 kernels - fp32 plain| {abs(lk - lf):.3e} (ratio "
-                      f"{spread[-1]['ratio']:.2f})", flush=True)
+                seed_row(seed, la, lb, lk, lf)
             dist.barrier()
             torch.cuda.empty_cache()
         if primary:
-            out["trainer"]["first_loss_seed_spread"] = spread
+            med_tp = statistics.median(r["tp_distance"] for r in spread)
+            med_one = statistics.median(r["one_device_distance"] for r in spread)
+            out["trainer"].update(first_loss_seed_spread=spread, median_tp_distance=med_tp,
+                                  median_one_device_distance=med_one)
+            print(f"  {card}: over seeds {[r['seed'] for r in spread]}: median bf16 first-loss "
+                  f"distance from the fp32 plain loss, TP {med_tp:.3e}, one card {med_one:.3e} "
+                  f"(TP within twice one card's: {med_tp <= 2 * med_one})", flush=True)
+            expect(med_tp <= 2 * med_one,
+                   f"TP trainer's median first-loss distance from fp32 {med_tp} over twice one "
+                   f"card's {med_one} (seeds {[r['seed'] for r in spread]})")
 
         # the same three steps in fp32 on the kernels (no bf16 rounding to
         # tell apart from a fault of the cut): steps 1 and 2 read the first
@@ -6701,8 +6948,9 @@ def main() -> int:
     train_d128_launches, train_d128 = run_train_d128(
         PHASE5.pop("live"), train["profile"]["busy_ms"] if train["profile"]["measured"] else None)
     for k in kernels:
-        k["launches_by_path"]["train_d128"] = train_d128_launches["train_d128"][k["name"]]
-        k["launches"] += train_d128_launches["train_d128"][k["name"]]
+        for path, n in train_d128_launches.items():
+            k["launches_by_path"][path] = n[k["name"]]
+            k["launches"] += n[k["name"]]
     print(f"{card}: head dim 128 train step {train_d128['step_ms']:.2f} ms against the "
           f"flagship's {train_d128['flagship_ms']:.2f} ms in turns")
     torch.cuda.empty_cache()

@@ -50,7 +50,13 @@ _SIGNATURES: Dict[str, List] = {
     "sfm_frame_ctx_kv2_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _F, _P],
     # K1m in fp32 on the same body: the bf16 entry's arguments
     "sfm_flash_fwd_reloc_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    # which kernel of the fp32 body (0 K1, 1 K2, 2 K2p, 3 K1m), int[8] out
+    # the same four at head dim 128 on the same body: the same arguments
+    "sfm_flash_fwd_d128_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "sfm_frame_ctx_fwd_d128_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "sfm_frame_ctx_kv2_fwd_d128_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _F, _P],
+    "sfm_flash_fwd_reloc_d128_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # which kernel of the fp32 body (0 K1, 1 K2, 2 K2p, 3 K1m; 4-7 the same at
+    # head dim 128), int[8] out
     "sfm_flash_fwd_f32_info": [_I, _P],
     # B9 on the Hopper backward body: q, k, v, do, lse, delta, outputs; bh,
     # nq, nk; scale * log2(e), scale
@@ -65,8 +71,13 @@ _SIGNATURES: Dict[str, List] = {
     "sfm_flash_bwd_dkv_f32": [_P] * 8 + [_I] * 3 + [_F, _F, _P],
     "sfm_flash_bwd_dq_reloc_f32": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
     "sfm_flash_bwd_dkv_reloc_f32": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+    # the same four at head dim 128 on the same body: the same arguments
+    "sfm_flash_bwd_dq_d128_f32": [_P] * 7 + [_I] * 3 + [_F, _F, _P],
+    "sfm_flash_bwd_dkv_d128_f32": [_P] * 8 + [_I] * 3 + [_F, _F, _P],
+    "sfm_flash_bwd_dq_reloc_d128_f32": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
+    "sfm_flash_bwd_dkv_reloc_d128_f32": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
     # which kernel of the fp32 backward body (0 dq, 1 dk/dv, 2 and 3 their
-    # RelocMask forms), int[8] out
+    # RelocMask forms; 4-7 the same at head dim 128), int[8] out
     "sfm_flash_bwd_f32_info": [_I, _P],
     # K1, K2, K2p and K1m at head dim 128 on the same body: the head-dim-64
     # entries' arguments

@@ -92,9 +92,8 @@ def attention_heads_out(
     """The attention core alone: (B, H, N, d) per-head outputs. ``mask`` is
     a boolean tensor, a ``RelocMask`` or None. Under ``impl="auto"`` a site
     the attention kernels do not take (``fa.kernel_takes``, asked with the
-    context: on the card a head dim or dtype without a kernel, such as fp32
-    at head dim 128, or one whose backward has no kernel where autograd
-    differentiates the site) runs dense; ``impl="flash"`` reaches the
+    context: on the card a head dim or dtype without a kernel, such as head
+    dim 96, or operands of two dtypes) runs dense; ``impl="flash"`` reaches the
     kernels and their refusal."""
     if extra_kv is not None and extra_kv[0].shape[0] != q.shape[0]:
         # frame-major reloc layout: q/k/v carry (B*F, H, P, d) with frames

@@ -63,10 +63,10 @@ def reloc_split_attention(q, k_self, v_self, k_ctx, v_ctx, mask: RelocMask):
 def sdpa(q, k, v, mask=None, impl: str = "auto"):
     """``impl``: 'dense' | 'flash' | 'auto' | 'ring' ('auto' takes flash when
     it pays and the kernels take the site, ``fa.worth_it``: on the card head
-    dim 64 in bf16 or fp32 and head dim 128 in bf16, with or without a
-    RelocMask, differentiated or not; any site on the CPU). A
-    :class:`RelocMask` goes to the masked flash kernel; a boolean mask stays
-    on the dense path. 'ring' takes the ring over the active mesh's
+    dim 64 or 128 in bf16 or fp32, with or without a RelocMask,
+    differentiated or not; any site on the CPU). A :class:`RelocMask` goes
+    to the masked flash kernel; a boolean mask stays on the dense path.
+    'ring' takes the ring over the active mesh's
     ``context`` axis where ``ring_applicable`` holds, else 'auto'."""
     if impl == "dense":
         return sdpa_dense(q, k, v, mask)

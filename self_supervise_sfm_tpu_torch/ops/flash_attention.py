@@ -38,14 +38,14 @@ in ``csrc/flash_fwd_f32.cu`` and the B9 pair another in
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel or raises. Every kernel takes contiguous
 inputs of one dtype, in the forms :data:`FORWARD_FORMS` and
-:data:`BACKWARD_FORMS` list: at head dim 64 bf16 (the Hopper bodies, bound
-by the bf16 tensor-core rate) or fp32 (the FFMA bodies, bound by the fp32
-rate; each wrapper counts those launches apart, in ``.launches_f32``),
-forward and backward, and at head dim 128 bf16 on the Hopper bodies,
-forward and backward (counted apart, in ``.launches_d128``). The "auto"
-gates ask :func:`kernel_takes` and send a site the kernels do not take (a
-head dim or dtype without a kernel, operands of two dtypes, an fp32 head
-dim 128 site) to the dense path.
+:data:`BACKWARD_FORMS` list: at head dim 64 or 128, bf16 (the Hopper
+bodies, bound by the bf16 tensor-core rate) or fp32 (the FFMA bodies, bound
+by the fp32 rate), forward and backward. Each wrapper counts its launches
+by form: bf16 at 64 in ``.launches``, fp32 at 64 in ``.launches_f32``,
+bf16 at 128 in ``.launches_d128``, fp32 at 128 in ``.launches_d128_f32``.
+The "auto" gates ask :func:`kernel_takes` and send a site the kernels do
+not take (a head dim without a kernel, operands of two dtypes) to the
+dense path.
 
 Autograd reaches the kernels only through the ``torch.autograd.Function``s
 behind :func:`flash_attention`, :func:`flash_attention_lse` and
@@ -70,8 +70,8 @@ LOG2E = 1.4426950408889634
 _DTYPES = (torch.bfloat16, torch.float32)
 # head dim -> the dtypes with a kernel: the forward forms (K1, K1m, K2, K2p)
 # and the backward (B9's dq and dk/dv)
-FORWARD_FORMS = {64: _DTYPES, 128: (torch.bfloat16,)}
-BACKWARD_FORMS = {64: _DTYPES, 128: (torch.bfloat16,)}
+FORWARD_FORMS = {64: _DTYPES, 128: _DTYPES}
+BACKWARD_FORMS = {64: _DTYPES, 128: _DTYPES}
 
 
 def _check_form(name: str, d: int, dtype: torch.dtype, forms=FORWARD_FORMS) -> None:
@@ -112,8 +112,8 @@ def _grad(*ts: torch.Tensor) -> bool:
 def _check_backward(name: str, *ts: torch.Tensor) -> None:
     """A differentiable entry that autograd differentiates off the CPU needs
     the backward kernels of its head dim and dtype: raise before the forward
-    when they do not exist (fp32 at head dim 128, another head dim), rather
-    than after it."""
+    when they do not exist (a head dim other than 64 or 128), rather than
+    after it."""
     if ts[0].device.type != "cpu" and _grad(*ts):
         _check_form(name, ts[0].shape[-1], ts[0].dtype, BACKWARD_FORMS)
 
@@ -130,11 +130,16 @@ def _check_no_grad(name: str, *ts: torch.Tensor) -> None:
 
 
 def _count(fn, dtype: torch.dtype, head_dim: int = 64) -> None:
-    """One launch of ``fn``'s kernel: bf16 in ``fn.launches``, fp32 in
-    ``fn.launches_f32``, head dim 128 (bf16) in ``fn.launches_d128``."""
+    """One launch of ``fn``'s kernel, counted by form: at head dim 64 bf16
+    in ``fn.launches`` and fp32 in ``fn.launches_f32``; at 128 bf16 in
+    ``fn.launches_d128`` and fp32 in ``fn.launches_d128_f32``."""
+    bf16 = dtype == torch.bfloat16
     if head_dim == 128:
-        fn.launches_d128 += 1
-    elif dtype == torch.bfloat16:
+        if bf16:
+            fn.launches_d128 += 1
+        else:
+            fn.launches_d128_f32 += 1
+    elif bf16:
         fn.launches += 1
     else:
         fn.launches_f32 += 1
@@ -207,6 +212,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 flash_fwd.launches = flash_fwd.launches_f32 = flash_fwd.launches_d128 = 0
+flash_fwd.launches_d128_f32 = 0
 
 
 def _check_mask(name: str, mask: RelocMask, nq: int, nk: int) -> None:
@@ -218,7 +224,7 @@ def flash_fwd_reloc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: RelocMask):
     """K1m wrapper: :func:`flash_fwd` under a RelocMask. q: (BH, F*P, d);
     k/v: (BH, n_ctx + F*P, d), keys laid out [context ‖ frames]; bf16 on
-    the Hopper body (d = 64 or 128), fp32 on the FFMA body (d = 64)."""
+    the Hopper body, fp32 on the FFMA body (d = 64 or 128)."""
     _check_no_grad("flash_fwd_reloc", q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, mask)
@@ -242,6 +248,7 @@ def flash_fwd_reloc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_fwd_reloc.launches = flash_fwd_reloc.launches_f32 = flash_fwd_reloc.launches_d128 = 0
+flash_fwd_reloc.launches_d128_f32 = 0
 
 
 # -- B9: flash backward (dq kernel, dk/dv kernel) -----------------------------
@@ -283,8 +290,8 @@ def flash_bwd_plain(q, k, v, o, lse, do, dlse=None,
 
 def _check_bwd(name, q, k, v, do, lse, delta, mask) -> None:
     """What the B9 kernels take: q / k / v / do of one dtype and head dim on
-    one device, a form of :data:`BACKWARD_FORMS` (64 in bf16 or fp32, 128 in
-    bf16), fp32 contiguous (BH, Nq) lse and delta, shapes that agree."""
+    one device, a form of :data:`BACKWARD_FORMS` (64 or 128, bf16 or fp32),
+    fp32 contiguous (BH, Nq) lse and delta, shapes that agree."""
     _check_cuda(name, q, k, v, do, forms=BACKWARD_FORMS)
     BH, Nq, d = q.shape
     Nk = k.shape[1]
@@ -332,6 +339,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
 
 
 flash_bwd_dq.launches = flash_bwd_dq.launches_f32 = flash_bwd_dq.launches_d128 = 0
+flash_bwd_dq.launches_d128_f32 = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
@@ -356,6 +364,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, mask: Optional[RelocMask] = None):
 
 
 flash_bwd_dkv.launches = flash_bwd_dkv.launches_f32 = flash_bwd_dkv.launches_d128 = 0
+flash_bwd_dkv.launches_d128_f32 = 0
 
 
 def flash_bwd(q, k, v, o, lse, do, dlse=None, mask: Optional[RelocMask] = None):
@@ -433,7 +442,7 @@ class _FlashAttentionLse(torch.autograd.Function):
 def flash_attention_lse(q, k, v, mask: Optional[RelocMask] = None):
     """(B, H, Nq, d) x (B, H, Nk, d)^2 -> ((B, H, Nq, d), (B, H, Nq) fp32 lse).
     Differentiable in q, k, v through both outputs (off the CPU in the forms
-    of :data:`BACKWARD_FORMS`: a differentiated fp32 call at head dim 128
+    of :data:`BACKWARD_FORMS`: a differentiated call at another head dim
     raises)."""
     _check_backward("flash_attention_lse", q, k, v)
     return _FlashAttentionLse.apply(q, k, v, mask)
@@ -441,8 +450,8 @@ def flash_attention_lse(q, k, v, mask: Optional[RelocMask] = None):
 
 def flash_attention(q, k, v, mask: Optional[RelocMask] = None):
     """(B, H, Nq, d) x (B, H, Nk, d)^2 -> (B, H, Nq, d). Differentiable (off
-    the CPU in the forms of :data:`BACKWARD_FORMS`: a differentiated fp32
-    call at head dim 128 raises)."""
+    the CPU in the forms of :data:`BACKWARD_FORMS`: a differentiated call at
+    another head dim raises)."""
     _check_backward("flash_attention", q, k, v)
     return _FlashAttention.apply(q, k, v, mask)
 
@@ -460,10 +469,9 @@ def kernel_takes(q, k, v, *ctx) -> bool:
     the site (``ctx``: the context tensors the site also attends to). A CPU
     tensor always qualifies, since its wrapper runs the dtype-generic plain
     version. On the card: q / k / v of one dtype at a head dim with a
-    forward kernel in it (:data:`FORWARD_FORMS`: 64 in bf16 or fp32, 128 in
-    bf16) and, where autograd differentiates the site (q, k, v or the
-    context), a backward kernel too (:data:`BACKWARD_FORMS`: the same
-    forms). A mask does not change the route: every forward form (K1, K1m, K2, K2p)
+    forward kernel in it (:data:`FORWARD_FORMS`: 64 or 128, bf16 or fp32)
+    and, where autograd differentiates the site (q, k, v or the context), a
+    backward kernel too (:data:`BACKWARD_FORMS`: the same forms). A mask does not change the route: every forward form (K1, K1m, K2, K2p)
     and B9 unmasked and under a RelocMask exist at the same head dims. An
     explicit ``impl="flash"`` skips this check and reaches the kernels' own
     refusals: a kernel that does not exist is not turned into dense."""
@@ -531,6 +539,7 @@ def frame_ctx_fwd(q, k, v, ck, cv):
 
 
 frame_ctx_fwd.launches = frame_ctx_fwd.launches_f32 = frame_ctx_fwd.launches_d128 = 0
+frame_ctx_fwd.launches_d128_f32 = 0
 
 
 def _frame_ctx_split(q, k, v, ck, cv):
@@ -573,7 +582,7 @@ def frame_ctx_attention(q, k, v, ck, cv):
     """Fused reloc attention: frame-major q/k/v against shared context K/V.
     Differentiable in all five (off the CPU in the forms of
     :data:`BACKWARD_FORMS`: the backward is two flash calls' B9; a
-    differentiated fp32 call at head dim 128 raises)."""
+    differentiated call at another head dim raises)."""
     _check_backward("frame_ctx_attention", q, k, v, ck, cv)
     return _FrameCtxAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(),
@@ -647,7 +656,7 @@ def frame_ctx_packed_fwd(q, k, v, ckv, layer: int):
 
 
 frame_ctx_packed_fwd.launches = frame_ctx_packed_fwd.launches_f32 = 0
-frame_ctx_packed_fwd.launches_d128 = 0
+frame_ctx_packed_fwd.launches_d128 = frame_ctx_packed_fwd.launches_d128_f32 = 0
 
 
 def packed_ctx_attention(q, k, v, ckv, layer: int, impl: str = "auto"):

@@ -46,9 +46,8 @@ def _dense_chunk(q, k, v, scale: float):
 def _use_flash(q, k, v, impl: str = "auto") -> bool:
     """K1 on the card wherever the kernel takes the site (``kernel_takes``:
     a forward form of K1 and, under grad, its backward B9 in the same dtype:
-    head dim 64 in bf16 or fp32, 128 in bf16; an fp32 head dim 128 chunk
-    runs dense); the dense chunk on the CPU, for the other sites and under
-    ``"dense"``."""
+    head dim 64 or 128 in bf16 or fp32); the dense chunk on the CPU, for the
+    other sites and under ``"dense"``."""
     return impl != "dense" and q.device.type != "cpu" and fa.kernel_takes(q, k, v)
 
 

@@ -1,6 +1,7 @@
 """What each choice of the Hopper attention bodies (K1, K2, K1m; B9) is worth: ablations.
 
     python3 -m self_supervise_sfm_tpu_torch.tools.ablate_attention [forward] [backward] [d128]
+                                                                    [f32]
 
 (one CUDA card; forward and backward when no part is named).
 
@@ -60,6 +61,19 @@ design, 3 stages), "q tiles of 64" (K / V from shared memory, 3 stages),
 "dq key tiles of 128" (2 stages), the rings ("dk/dv 3 / 6 stages", "dq 3
 / 5 stages"), "dk/dv ping-pong" (the two warpgroups taking turns, as at
 head dim 64) and "dq no ping-pong".
+
+The ``f32`` part times the fp32 forms at head dim 128 on the FFMA bodies
+(``csrc/flash_fwd_f32.cu``, builds under ``build/ablation_f32_d128/``;
+``csrc/flash_bwd_f32.cu``, under ``build/ablation_f32_bwd_d128/``), TF32
+off, each variant held to the plain version at 2e-5 of the largest |out|
+or |gradient| and timed back to back beside SDPA in fp32, its ptxas
+registers and spills printed: K1 at the ViT, frame and global sites and K2
+at the reloc site with 64-key tiles (shipped: 186,368 bytes, one block an
+SM) and with 32-key tiles ("32-key tiles": 110,592 bytes, two blocks an SM
+at 128 registers); B9's dq and dk/dv at the train step's ViT, frame,
+global and split-context sites with dk/dv's 64-row q tiles through one
+stage (shipped: two stages of them do not fit) and with 32-row tiles
+through two stages ("dk/dv q tiles of 32, two stages").
 """
 
 from __future__ import annotations
@@ -111,6 +125,19 @@ NO_STORES = [
 def _stages(n: int):
     return [("constexpr int STAGES = 3;", f"constexpr int STAGES = {n};")]
 
+
+F32_SOURCE = "flash_fwd_f32.cu"
+F32_BWD_SOURCE = "flash_bwd_f32.cu"
+F32_D128_VARIANTS = {
+    "as shipped": [],
+    "32-key tiles": [("constexpr int BN_D128 = 64;", "constexpr int BN_D128 = 32;")],
+}
+F32_D128_BWD_VARIANTS = {
+    "as shipped": [],
+    "dk/dv q tiles of 32, two stages": [
+        ("constexpr int KV_BQ_D128 = 64;", "constexpr int KV_BQ_D128 = 32;"),
+        ("constexpr int KV_STAGES_D128 = 1;", "constexpr int KV_STAGES_D128 = 2;")],
+}
 
 D128_VARIANTS = {
     "as shipped": [],
@@ -263,7 +290,110 @@ def main(argv) -> int:
     if "d128" in parts:
         forward_d128()
         backward(d=128)
+    if "f32" in parts:
+        f32_d128()
     return 0
+
+
+def f32_d128() -> None:
+    """The fp32 bodies' tilings at head dim 128 (8 heads at width 1024),
+    TF32 off: each variant against the plain versions (2e-5 of the largest
+    |out| or |gradient|), 20 launches back to back beside SDPA in fp32."""
+    fwd_entries = ("sfm_flash_fwd_d128_f32", "sfm_frame_ctx_fwd_d128_f32")
+    bwd_entries = ("sfm_flash_bwd_dq_d128_f32", "sfm_flash_bwd_dkv_d128_f32")
+    libs, logs = build_all(F32_D128_VARIANTS, F32_SOURCE, "ablation_f32_d128", fwd_entries)
+    blibs, blogs = build_all(F32_D128_BWD_VARIANTS, F32_BWD_SOURCE, "ablation_f32_bwd_d128",
+                             bwd_entries)
+    for name, log in {**logs, **{f"bwd {k}": v for k, v in blogs.items()}}.items():
+        print(f"  ptxas [{name}]: {' | '.join(_ptxas_lines(log, 'd128'))}")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    stream = torch.cuda.current_stream().cuda_stream
+    d, H, P, nc, frames = 128, 8, 1374, 1525, 5
+    scale = d**-0.5
+    tol = lambda ref: 2e-5 * float(ref.abs().max())  # noqa: E731
+    rows, sdpa = {name: [] for name in libs}, []
+    for site, bh, n in (("vit", frames * H, P), ("frame", 2 * frames * H, P),
+                        ("global", H, frames * P)):
+        q, k, v = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
+        ref, _ = FA.flash_fwd_plain(q, k, v)
+        for name, lib in libs.items():
+            o, lse = torch.empty_like(q), torch.empty(bh, n, device="cuda")
+            call = lambda: _launch(lib.sfm_flash_fwd_d128_f32(  # noqa: E731
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, n,
+                n, scale * LOG2E, stream), name)
+            call()
+            torch.cuda.synchronize()
+            if float((o - ref).abs().max()) > tol(ref):
+                raise AssertionError(f"{name} at {site}: out of tolerance")
+            rows[name].append(back_to_back_ms(call))
+        sdpa.append(back_to_back_ms(
+            lambda: F.scaled_dot_product_attention(q[None], k[None], v[None])))
+        del q, k, v, ref
+    q, k, v = (randn(frames, H, P, d) for _ in range(3))
+    ck, cv = randn(1, H, nc, d), randn(1, H, nc, d)
+    ref = FA._frame_ctx_dense(q, k, v, ck, cv)
+    for name, lib in libs.items():
+        o = torch.empty_like(q)
+        call = lambda: _launch(lib.sfm_frame_ctx_fwd_d128_f32(  # noqa: E731
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ck.data_ptr(), cv.data_ptr(), o.data_ptr(),
+            frames, H, frames, P, nc, scale * LOG2E, stream), name)
+        call()
+        torch.cuda.synchronize()
+        if float((o - ref).abs().max()) > tol(ref):
+            raise AssertionError(f"{name} at K2: out of tolerance")
+        rows[name].append(back_to_back_ms(call))
+    kk, vv = torch.cat([ck.expand(frames, -1, -1, -1), k], 2), torch.cat(
+        [cv.expand(frames, -1, -1, -1), v], 2)
+    sdpa.append(back_to_back_ms(lambda: F.scaled_dot_product_attention(q, kk, vv)))
+    del q, k, v, ck, cv, kk, vv, ref
+    print("fp32 head dim 128, ms, 20 launches back to back: K1 ViT (40, 1374) | K1 frame "
+          "(80, 1374) | K1 global (8, 6870) | K2 (5, 8, 1374) ctx 1525")
+    for name, ts in rows.items():
+        print(f"  {name:32s} " + " | ".join(f"{t:.4f}" for t in ts))
+    print(f"  {'SDPA fp32':32s} " + " | ".join(f"{t:.4f}" for t in sdpa))
+
+    sites = (("vit", 2 * H, P, P), ("frame", 4 * H, P, P), ("global", H, 2 * P, 2 * P),
+             ("split context", 2 * H, P, 610))
+    brows, bsdpa = {name: [] for name in blibs}, []
+    for site, bh, nq, nk in sites:
+        q, do, k, v = randn(bh, nq, d), randn(bh, nq, d), randn(bh, nk, d), randn(bh, nk, d)
+        o, lse = FA.flash_fwd_plain(q, k, v)
+        delta = FA._delta(o, do).contiguous()
+        ref = FA.flash_bwd_plain(q, k, v, o, lse, do)
+        for name, lib in blibs.items():
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr())
+            call_dq = lambda: _launch(lib.sfm_flash_bwd_dq_d128_f32(  # noqa: E731
+                *args, dq.data_ptr(), bh, nq, nk, scale * LOG2E, scale, stream), name)
+            call_dkv = lambda: _launch(lib.sfm_flash_bwd_dkv_d128_f32(  # noqa: E731
+                *args, dk.data_ptr(), dv.data_ptr(), bh, nq, nk, scale * LOG2E, scale, stream),
+                name)
+            call_dq()
+            call_dkv()
+            torch.cuda.synchronize()
+            for label, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                if float((g - r).abs().max()) > tol(r):
+                    raise AssertionError(f"{name} at {site}: {label} out of tolerance")
+            brows[name].append((back_to_back_ms(call_dq), back_to_back_ms(call_dkv)))
+        qm, km, vm = (t[None].detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qm, km, vm)
+        bsdpa.append(back_to_back_ms(lambda: torch.autograd.grad(  # noqa: E731
+            out, (qm, km, vm), do[None], retain_graph=True)))
+        del q, do, k, v, o, lse, delta, ref, out, qm, km, vm
+        torch.cuda.empty_cache()
+    print("fp32 head dim 128, ms, 20 launches back to back, dq / dk/dv: " + " | ".join(
+        f"{site} ({bh}, {nq}, {nk})" for site, bh, nq, nk in sites))
+    for name, ts in brows.items():
+        print(f"  {name:32s} " + " | ".join(f"{a:.4f} / {b:.4f}" for a, b in ts))
+    print(f"  {'SDPA fp32 backward (all three)':32s} " + " | ".join(f"{t:.4f}" for t in bsdpa))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def forward_d128() -> None:

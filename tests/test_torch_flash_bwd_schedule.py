@@ -765,13 +765,13 @@ GRAD_GATES = {
 
 
 @pytest.mark.parametrize("dtype,d,grad", [(F32, 32, True), (BF16, 32, False), (F32, 32, False),
-                                          (BF16, 96, True), (F32, 128, True),
-                                          (F32, 128, False)])
+                                          (BF16, 96, True), (F32, 96, True),
+                                          (F32, 256, False)])
 @pytest.mark.parametrize("gate", list(GATES))
 def test_auto_routes_sites_the_kernels_do_not_take_dense(launches, gate, dtype, d, grad):
-    """Off the CPU, a head dim without a kernel (32, 96), with or without
-    grad; head dim 128 in fp32 (no kernel, forward or backward): the dense
-    route, no launch, the output of the site's shape and dtype."""
+    """Off the CPU, a head dim without a kernel in either dtype (32, 96,
+    256), with or without grad: the dense route, no launch, the output of
+    the site's shape and dtype."""
     out = GATES[gate][0](dtype, d, grad=grad)
     assert launches == []
     assert out.device.type == "meta" and out.dtype == dtype and out.shape[-1] == d
@@ -816,41 +816,45 @@ def test_auto_routes_bf16_d128_sites_to_the_d128_entries(launches, gate):
     assert out.dtype == BF16 and out.shape[-1] == 128
 
 
-@pytest.mark.parametrize("dtype,d,grad", [(F32, 128, True), (F32, 128, False),
+@pytest.mark.parametrize("dtype,d,grad", [(F32, 96, True), (F32, 256, False),
                                           (BF16, 96, True)])
 @pytest.mark.parametrize("gate", list(GATES))
 def test_explicit_flash_at_d128_meets_the_refusal(launches, gate, dtype, d, grad):
-    """impl="flash" where no kernel exists (fp32 at head dim 128, forward or
-    backward; bf16 at head dim 96, a site autograd differentiates) raises
-    before any launch, and is not turned into the dense route; the packed
-    cache under grad meets its bare wrapper's refusal, as at head dim 64."""
+    """impl="flash" where no kernel exists (fp32 at head dim 96, a site
+    autograd differentiates, or 256 without grad; bf16 at head dim 96 with
+    grad: the kernels take 64 or 128 in either dtype) raises before any
+    launch, and is not turned into the dense route; the packed cache under
+    grad meets its bare wrapper's refusal, as at head dim 64."""
     with torch.enable_grad():
         if gate == "packed cache" and grad:
             with pytest.raises(NotImplementedError, match="not differentiable"):
                 GATES[gate][0](dtype, d, impl="flash", grad=grad)
         else:
             kind = f"{str(dtype).removeprefix('torch.')} {'backward ' if grad else ''}kernels"
-            dims = "64 or 128" if dtype == BF16 else "64"
-            with pytest.raises(ValueError, match=f"{kind} take head dim {dims}, got {d}"):
+            with pytest.raises(ValueError, match=f"{kind} take head dim 64 or 128, got {d}"):
                 GATES[gate][0](dtype, d, impl="flash", grad=grad)
     assert launches == []
 
 
 def test_kernel_takes_at_d128():
-    """The predicate itself on meta tensors: bf16 of head dim 128 with or
-    without grad (on q, k, v or the context passed beside them); not in
-    fp32, with or without grad, not with operands of two dtypes; bf16 of
-    head dim 96 with grad not."""
+    """The predicate itself on meta tensors: bf16 and fp32 of head dim 128,
+    with or without grad (on q, k, v or the context passed beside them);
+    not with operands of two dtypes; bf16 or fp32 of head dim 96 with grad
+    not."""
     q = _meta(1, 2, 8, 128)
     assert TFA.kernel_takes(q, q, q)
     assert TFA.kernel_takes(q, q, q, _meta(1, 2, 8, 128, grad=True))
     assert TFA.kernel_takes(_meta(1, 2, 8, 128, grad=True), q, q)
     with torch.no_grad():
         assert TFA.kernel_takes(_meta(1, 2, 8, 128, grad=True), q, q)
-    assert not TFA.kernel_takes(*(_meta(1, 2, 8, 128, dtype=F32),) * 3)
-    assert not TFA.kernel_takes(*(_meta(1, 2, 8, 128, dtype=F32, grad=True),) * 3)
-    assert not TFA.kernel_takes(q, q, _meta(1, 2, 8, 128, dtype=F32))
+    q32 = _meta(1, 2, 8, 128, dtype=F32)
+    assert TFA.kernel_takes(q32, q32, q32)
+    assert TFA.kernel_takes(*(_meta(1, 2, 8, 128, dtype=F32, grad=True),) * 3)
+    assert TFA.kernel_takes(q32, q32, q32, _meta(1, 2, 8, 128, dtype=F32, grad=True))
+    assert not TFA.kernel_takes(q, q, q32)
+    assert not TFA.kernel_takes(q32, q32, q)
     assert not TFA.kernel_takes(*(_meta(1, 2, 8, 96, grad=True),) * 3)
+    assert not TFA.kernel_takes(*(_meta(1, 2, 8, 96, dtype=F32, grad=True),) * 3)
     assert TFA.kernel_takes(*(_meta(1, 2, 8, 64, dtype=F32, grad=True),) * 3)
 
 
@@ -883,19 +887,80 @@ def test_auto_routes_bf16_d128_grad_sites_to_the_d128_entries(launches, gate):
 
 
 def test_ring_gate_takes_a_bf16_d128_chunk_under_grad():
-    """The ring's ``_use_flash`` asks ``kernel_takes`` with grad: a bf16
-    chunk of head dim 128 that autograd differentiates takes K1 (and B9 in
-    its backward), an fp32 one at 128 and a bf16 one at 96 the dense chunk,
-    as does every CPU chunk and ``"dense"``."""
+    """The ring's ``_use_flash`` asks ``kernel_takes`` with grad: a bf16 or
+    an fp32 chunk of head dim 128 that autograd differentiates takes K1 (and
+    B9 in its backward), a chunk at 96 in either dtype the dense chunk, as
+    does every CPU chunk and ``"dense"``."""
     from self_supervise_sfm_tpu_torch.ops import ring_attention as TRA
 
     with torch.enable_grad():
         bf = [_meta(1, 2, 64, 128, grad=True) for _ in range(3)]
         assert TRA._use_flash(*bf)
         assert not TRA._use_flash(*bf, impl="dense")
-        assert not TRA._use_flash(*(_meta(1, 2, 64, 128, dtype=F32, grad=True),) * 3)
+        assert TRA._use_flash(*(_meta(1, 2, 64, 128, dtype=F32, grad=True),) * 3)
         assert not TRA._use_flash(*(_meta(1, 2, 64, 96, grad=True),) * 3)
+        assert not TRA._use_flash(*(_meta(1, 2, 64, 96, dtype=F32, grad=True),) * 3)
         assert not TRA._use_flash(*(torch.zeros(1, 2, 64, 128, dtype=BF16),) * 3)
+
+
+# gate -> its launches at head dim 128 in fp32 without grad under "auto": the
+# FFMA bodies' head dim 128 entries
+D128_F32_GATES = {"sdpa": ["sfm_flash_fwd_d128_f32"],
+                  "frame-context": ["sfm_frame_ctx_fwd_d128_f32"],
+                  "reloc split": ["sfm_flash_fwd_d128_f32"] * 2,
+                  "masked sdpa": ["sfm_flash_fwd_reloc_d128_f32"],
+                  "packed cache": ["sfm_frame_ctx_kv2_fwd_d128_f32"]}
+_DQ128F, _DKV128F = "sfm_flash_bwd_dq_d128_f32", "sfm_flash_bwd_dkv_d128_f32"
+# gate -> the launches of its forward and backward under grad at head dim
+# 128 in fp32 (the packed cache, which has no backward, dense)
+D128_F32_GRAD_GATES = {
+    "sdpa": ["sfm_flash_fwd_d128_f32", _DQ128F, _DKV128F],
+    "frame-context": ["sfm_frame_ctx_fwd_d128_f32"] + ["sfm_flash_fwd_d128_f32"] * 2
+                     + [_DQ128F, _DKV128F] * 2,
+    "reloc split": ["sfm_flash_fwd_d128_f32"] * 2 + [_DQ128F, _DKV128F] * 2,
+    "masked sdpa": ["sfm_flash_fwd_reloc_d128_f32", "sfm_flash_bwd_dq_reloc_d128_f32",
+                    "sfm_flash_bwd_dkv_reloc_d128_f32"],
+    "packed cache": []}
+_WRAPPERS = (TFA.flash_fwd, TFA.flash_fwd_reloc, TFA.frame_ctx_fwd, TFA.frame_ctx_packed_fwd,
+             TFA.flash_bwd_dq, TFA.flash_bwd_dkv)
+_COUNTERS = ("launches", "launches_f32", "launches_d128", "launches_d128_f32")
+
+
+def _counts():
+    return {c: sum(getattr(w, c) for w in _WRAPPERS) for c in _COUNTERS}
+
+
+@pytest.mark.parametrize("gate", list(D128_F32_GATES))
+def test_auto_routes_fp32_d128_sites_to_the_d128_f32_entries(launches, gate):
+    """fp32 of head dim 128 that autograd does not differentiate: the head
+    dim 128 forms of K1, K2, K2p and, under a RelocMask, K1m on the FFMA
+    body, each launch counted in ``.launches_d128_f32`` alone; the entries
+    are registered with the library."""
+    n0 = _counts()
+    out = GATES[gate][0](F32, 128)
+    assert launches == D128_F32_GATES[gate]
+    assert out.dtype == F32 and out.shape[-1] == 128
+    n1 = _counts()
+    assert {c: n1[c] - n0[c] for c in _COUNTERS} == dict(
+        launches=0, launches_f32=0, launches_d128=0, launches_d128_f32=len(launches))
+    assert all(e in TK._SIGNATURES for e in launches)
+
+
+@pytest.mark.parametrize("gate", list(D128_F32_GRAD_GATES))
+def test_auto_routes_fp32_d128_grad_sites_to_the_d128_f32_entries(launches, gate):
+    """fp32 of head dim 128 that autograd differentiates: the forward on the
+    fp32 head dim 128 forms and the backward on B9's fp32 head dim 128
+    entries (the RelocMask ones under a mask), counted apart; the packed
+    cache alone dense."""
+    n0 = _counts()
+    with torch.enable_grad():
+        out = GATES[gate][0](F32, 128, grad=True)
+        assert out.requires_grad
+        out.sum().backward()
+    assert launches == D128_F32_GRAD_GATES[gate]
+    assert out.dtype == F32 and out.shape[-1] == 128
+    assert _counts()["launches_d128_f32"] - n0["launches_d128_f32"] == len(launches)
+    assert all(e in TK._SIGNATURES for e in launches)
 
 
 @pytest.mark.parametrize("gate", list(GATES))
@@ -950,6 +1015,28 @@ def test_kernel_takes_any_cpu_tensor():
         assert TFA.kernel_takes(q, q, q)
     assert TFA.worth_it(*(torch.zeros((1, 1, 1225, 64)),) * 3)
     assert not TFA.worth_it(*(torch.zeros((1, 1, 1224, 64)),) * 3)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_bwd_routes_fp32_d128_to_the_d128_f32_entries(launches, masked):
+    """At head dim 128 in fp32 the backward reaches the FFMA body's head
+    dim 128 entries, unmasked or under a RelocMask, and each wrapper counts
+    the launch in ``.launches_d128_f32`` alone."""
+    bh, nq, d = 2, 2 * 130, 128
+    mask = RelocMask(77, 130, 2) if masked else None
+    nk = nq + 77 if masked else 200
+    q, do, o = (_meta(bh, nq, d, dtype=F32) for _ in range(3))
+    k, v = _meta(bh, nk, d, dtype=F32), _meta(bh, nk, d, dtype=F32)
+    lse = _meta(bh, nq, dtype=F32)
+    n0 = [getattr(w, c) for w in (TFA.flash_bwd_dq, TFA.flash_bwd_dkv) for c in _COUNTERS]
+    dq, dk, dv = TFA.flash_bwd(q, k, v, o, lse, do, None, mask)
+    want = "reloc_d128_f32" if masked else "d128_f32"
+    assert launches == [f"sfm_flash_bwd_dq_{want}", f"sfm_flash_bwd_dkv_{want}"]
+    n1 = [getattr(w, c) for w in (TFA.flash_bwd_dq, TFA.flash_bwd_dkv) for c in _COUNTERS]
+    assert n1 == [a + b for a, b in zip(n0, [0, 0, 0, 1] * 2)]
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    assert dq.dtype == dk.dtype == dv.dtype == F32
+    assert all(e in TK._SIGNATURES for e in launches)
 
 
 @pytest.mark.parametrize("masked", [False, True])
