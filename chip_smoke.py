@@ -20,7 +20,8 @@ Phases, each of which must pass (any failure exits non-zero):
    64 and 128; a spill fails the run), of the fp32 backward body's (B9's dq
    and dk/dv in fp32, unmasked and under a RelocMask, at head dims 64 and
    128; a spill fails the run), of the fp32 GEMM body's (the fp32 forms of the five fused block
-   kernels and their layer-norm pre-pass; a spill fails the run), and any
+   kernels and their layer-norm pre-pass, LN+QKV+RoPE, LN+QKV and the
+   out-projection also at head dim 128; a spill fails the run), and any
    ptxas advisory that wgmma was serialised (C7518);
 2. the GEMM body's operand layouts alone (``gemm_probe``: one tile, then
    ragged rows and a K loop, against an fp32 matmul); each of the twelve
@@ -76,7 +77,10 @@ Phases, each of which must pass (any failure exits non-zero):
    head dim 128 (the FFMA bodies) at the same sites of 8 heads, with the fp32
    entries' checks above (2e-5 of the largest |out| or |gradient|, lse 1e-5,
    TF32 off, repeats, K2p and K1m bit-equal to K2, the edges, 96 and 33 q
-   rows among them) beside SDPA in fp32
+   rows among them) beside SDPA in fp32, and LN+QKV+RoPE, LN+QKV and the
+   out-projection in fp32 at head dim 128 (the FFMA GEMM body) at the ViT,
+   frame, reloc and global sites, the edges at 2 and 3 heads of 128 and the
+   head shard at 4 of 8 heads, beside the fp32 library chain
    (``check_d128_kernels``);
 3. the full-width joint forward: ViT-L/14 + 24 aggregator layers at 518 px,
    bf16 trunk and fp32 heads, 5 anchors + the same 5 images as queries,
@@ -137,7 +141,14 @@ Phases, each of which must pass (any failure exits non-zero):
    to the layout form (K2p fp32), the forward timed in turns against its
    dense route and the default configuration at 16 heads of 64, with peaks
    (paths "forward_d128_f32", "build_d128_f32", "reloc_d128_f32",
-   "fast_reloc_d128_f32", "mask_form_d128_f32").
+   "fast_reloc_d128_f32", "mask_form_d128_f32"). Then the same fp32 model
+   under ``fused_qkv="on", fused_mlp="on"``: the forward, the build,
+   ``reloc`` and ``fast_reloc`` with ``D128_F32_ON_*_LAUNCHES`` (every
+   trunk block on the fused blocks' fp32 forms, LN+QKV(+RoPE) and the
+   out-projection at head dim 128), held to the same fp32 plain path at
+   rel-RMS 1e-5, the forward timed in turns with the "auto" leg (paths
+   "forward_d128_f32_on", "build_d128_f32_on", "reloc_d128_f32_on",
+   "fast_reloc_d128_f32_on").
 
 5. the self-supervised train step at full width (``bench.py:bench_train``'s
    configuration at depth 24: 2 frames of 518 px duplicated as anchors and
@@ -171,7 +182,11 @@ Phases, each of which must pass (any failure exits non-zero):
    120 + 120, no dense attention), loss and gradients against the fp32
    plain step of the same configuration (loss rtol 1e-4, gradient rel-RMS
    and norms 1e-3 a subsystem), time and peak in turns with its dense
-   route, B9's device ms (path "train_d128_f32").
+   route, B9's device ms (path "train_d128_f32"); and the same under
+   ``fused_qkv="on", fused_mlp="on"``: the launches
+   ``D128_F32_ON_TRAIN_STEP_LAUNCHES``, loss and gradients against the same
+   fp32 plain step, time in turns with "auto", the fused kernels' device ms
+   (path "train_d128_f32_on").
 
 6. the trainer (``train/trainer.py:run``) around phase 5's full-width step,
    on numpy-made synthetic scenes at 518 px (no ``h5py`` needed; artifact
@@ -358,10 +373,12 @@ F32_GEMM_SOURCE = "self_supervise_sfm_tpu_torch/csrc/gemm_f32.cu"
 D128_KERNELS = ("flash_fwd", "frame_ctx_fwd", "frame_ctx_packed_fwd", "flash_fwd_reloc",
                 "fused_ln_qkv_rope", "fused_ln_qkv", "fused_proj_residual", "flash_bwd_dq",
                 "flash_bwd_dkv")
-# the attention kernels' fp32 forms at head dim 128 (on the FFMA bodies),
-# each counting its launches apart, under its name + "_d128_f32"
+# the fp32 forms at head dim 128 (on the FFMA bodies) of the attention
+# kernels and of the fused blocks with a head dim, each counting its
+# launches apart, under its name + "_d128_f32"
 D128_F32_KERNELS = ("flash_fwd", "frame_ctx_fwd", "frame_ctx_packed_fwd", "flash_fwd_reloc",
-                    "flash_bwd_dq", "flash_bwd_dkv")
+                    "flash_bwd_dq", "flash_bwd_dkv", "fused_ln_qkv_rope", "fused_ln_qkv",
+                    "fused_proj_residual")
 
 
 # launches of each kernel wrapper in one call at full width (depth 24, 5
@@ -452,9 +469,9 @@ D128_TRAIN_STEP_LAUNCHES = _d128(TRAIN_STEP_LAUNCHES)
 
 
 def _d128_f32(default: dict) -> dict:
-    """The default configuration's launches with every fp32 attention
-    kernel under its head dim 128 name: the fp32 model at 8 heads of 128
-    (the fp32 legs of phases 4b and 5b)."""
+    """An fp32 configuration's launches with every fp32 kernel that has a
+    head dim under its head dim 128 name: the fp32 model at 8 heads of 128
+    (the fp32 legs of phases 4b and 5b, "auto" and "on")."""
     names = {f"{k}_f32": f"{k}_d128_f32" for k in D128_F32_KERNELS}
     return {**_ZERO, **{names.get(k, k): n for k, n in default.items() if n}}
 
@@ -464,6 +481,14 @@ D128_F32_BUILD_LAUNCHES = _d128_f32(DEFAULT_BUILD_LAUNCHES)
 D128_F32_RELOC_LAUNCHES = _d128_f32(DEFAULT_RELOC_LAUNCHES)
 D128_F32_FAST_RELOC_LAUNCHES = _d128_f32(DEFAULT_FAST_RELOC_LAUNCHES)
 D128_F32_TRAIN_STEP_LAUNCHES = _d128_f32(DEFAULT_TRAIN_STEP_LAUNCHES)
+# the same model under ``fused_qkv="on", fused_mlp="on"``: the fp32 trunk's
+# fused block counts, LN+QKV(+RoPE) and the out-projection on their head dim
+# 128 forms, the MLP pair (no head dim) on its fp32 entries
+D128_F32_ON_FORWARD_LAUNCHES = _d128_f32(ON_F32_FORWARD_LAUNCHES)
+D128_F32_ON_BUILD_LAUNCHES = _d128_f32(ON_F32_BUILD_LAUNCHES)
+D128_F32_ON_RELOC_LAUNCHES = _d128_f32(ON_F32_RELOC_LAUNCHES)
+D128_F32_ON_FAST_RELOC_LAUNCHES = _d128_f32(ON_F32_FAST_RELOC_LAUNCHES)
+D128_F32_ON_TRAIN_STEP_LAUNCHES = _d128_f32(ON_F32_TRAIN_STEP_LAUNCHES)
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -499,6 +524,9 @@ _KERNEL_CLASSES = (
     ("fused_ln_qkv_rope d128", ("ln_qkv_rope_d128_sm90_kernel",)),
     ("fused_ln_qkv d128", ("ln_qkv_d128_sm90_kernel",)),
     ("fused_proj_residual d128", ("proj_residual_d128_sm90_kernel",)),
+    ("fused_ln_qkv_rope d128 fp32", ("ln_qkv_rope_d128_f32_kernel",)),
+    ("fused_ln_qkv d128 fp32", ("ln_qkv_d128_f32_kernel",)),
+    ("fused_proj_residual d128 fp32", ("proj_residual_d128_f32_kernel",)),
     ("flash_fwd (K1)", ("flash_fwd_kernel",)),
     ("flash_fwd d128 (K1)", ("flash_fwd_d128_kernel",)),
     ("frame_ctx_fwd d128 (K2)", ("frame_ctx_fwd_d128_kernel",)),
@@ -702,13 +730,15 @@ def print_sm90_build() -> None:
                 raise AssertionError(f"{name}: {info[1]} bytes of spills a thread")
     for which, name in enumerate(("ln_qkv_rope_f32_kernel", "ln_qkv_f32_kernel",
                                   "proj_residual_f32_kernel", "mlp_up_f32_kernel",
-                                  "mlp_down_f32_kernel", "ln_rows_f32_kernel")):
+                                  "mlp_down_f32_kernel", "ln_rows_f32_kernel",
+                                  "ln_qkv_rope_d128_f32_kernel", "ln_qkv_d128_f32_kernel",
+                                  "proj_residual_d128_f32_kernel")):
         info = (ctypes.c_int * 10)()
         rc = lib.sfm_gemm_f32_info(which, info)
         if rc != 0:
             raise RuntimeError(f"sfm_gemm_f32_info({which}): CUDA error {rc}")
         shape = (f"tiles of {info[3]} x {info[4]}, K steps of {info[5]} through {info[6]} "
-                 f"stages" if which < 5 else f"{info[3]} rows a block")
+                 f"stages" if which != 5 else f"{info[3]} rows a block")
         print(f"  {name}: {info[0]} registers a thread, {info[1]} local bytes, {info[2]} "
               f"bytes of dynamic shared memory, {shape}, {info[7]} threads, {info[8]} "
               f"blocks an SM")
@@ -999,7 +1029,10 @@ def check_d128_kernels(randn, ulps):
     (``check_f32_kernels`` and ``check_f32_bwd_kernels`` with ``H=8,
     d=128``: 2e-5 of the largest |out| or |gradient|, lse 1e-5, repeats,
     K2p and K1m bit-equal to K2, the edges of the tiling) beside SDPA in
-    fp32."""
+    fp32, and LN+QKV+RoPE, LN+QKV and the out-projection on the FFMA GEMM
+    body (``check_fused_f32_kernels`` with ``H=8``: 2e-5 of the largest
+    |value|, repeats, the edges at 2 and 3 heads of 128, the head shard at
+    4 of 8) beside the fp32 library chain."""
     import torch
 
     N = (IMG // 14) ** 2 + 5
@@ -1025,6 +1058,8 @@ def check_d128_kernels(randn, ulps):
     results += check_f32_kernels(randn32, H=8, d=128)
     torch.cuda.empty_cache()
     results += check_f32_bwd_kernels(randn32, H=8, d=128)
+    torch.cuda.empty_cache()
+    results += check_fused_f32_kernels(randn32, H=8)
     torch.cuda.empty_cache()
     return results
 
@@ -1786,7 +1821,7 @@ def check_fused_kernels(randn, ulps, C=1024, H=16, frames=NUM_FRAMES, sites=None
     return results
 
 
-def check_fused_f32_kernels(randn):
+def check_fused_f32_kernels(randn, H=16):
     """Phase 2, the fp32 forms of the five fused block kernels (the FFMA GEMM
     body of ``csrc/gemm_f32.cu``) at the ViT, frame, reloc and global sites,
     in fp32 with TF32 off: each output against its plain version within 2e-5
@@ -1797,8 +1832,13 @@ def check_fused_f32_kernels(randn):
     ``F.layer_norm``, cuBLAS SGEMM, chunk / transpose, ``F.gelu``,
     elementwise RoPE and residual). Then the edges of the tiling at C = 256
     (rows no multiple of the 128-row tile, a tile across a frame boundary,
-    one row, a zero row) and the head-shard weight (C, 3 Hl 64) at Hl = 8.
-    Returns the five entries of the kernel line."""
+    one row, a zero row) and the head-shard weight (C, 3 Hl d) at Hl = H /
+    2. ``H=8``: head dim 128, the three kernels with a head dim alone on
+    their ``_d128_f32`` entries (LN+QKV+RoPE at the frame, reloc and global
+    sites, LN+QKV at the ViT site, the out-projection at all four; o (B, 8,
+    N, 128)), the edges at C = 256 (2 heads of 128) and an odd head count, C
+    = 384 (3 heads), the head shard at Hl = 4 of 8. Returns the kernels'
+    entries of the kernel line."""
     import torch
 
     from self_supervise_sfm_tpu_torch.layers import attention as AT
@@ -1820,13 +1860,13 @@ def check_fused_f32_kernels(randn):
 
     def calls(p, x, H, tabs, eps, o, w_qkv=None, b_qkv=None):
         """(name, kernel, plain, library chain, FLOPs, inputs) of the five
-        kernels on x (B, N, C) and o (B, H, N, 64)."""
+        kernels on x (B, N, C) and o (B, H, N, d), d = C / H."""
         B, N, C = x.shape
         n1, n2, at, ml = p["norm1"], p["norm2"], p["attn"], p["mlp"]
         qn, kn = at["q_norm"], at["k_norm"]
         w_qkv = at["qkv"]["w"] if w_qkv is None else w_qkv
         b_qkv = at["qkv"]["b"] if b_qkv is None else b_qkv
-        hl = w_qkv.shape[1] // (3 * 64)
+        hl = w_qkv.shape[1] // (3 * (C // H))
         M = B * N
         if tabs is None:
             qargs = (x, n1["scale"], n1["bias"], w_qkv, b_qkv, hl, eps)
@@ -1887,19 +1927,26 @@ def check_fused_f32_kernels(randn):
             raise AssertionError(f"{name} fp32[{site}]: a repeat is not bit-equal")
         return err, got
 
-    C, H, d = 1024, 16, 64
+    C = 1024
+    d = C // H
+    hd = "_d128" if d == 128 else ""  # the head dim's part of the names
+    sfx = hd + "_f32"
     N = (IMG // 14) ** 2 + 5
-    p = block_params(C)
-    t_frame = AG._rope_tables_frame(AG.AggregatorConfig(), IMG // 14, IMG // 14, "cuda")
+    p = block_params(C, d)
+    t_frame = AG._rope_tables_frame(AG.AggregatorConfig(embed_dim=C, num_heads=H), IMG // 14,
+                                    IMG // 14, "cuda")
     t_global = AG._tile_tables(t_frame, NUM_FRAMES)
-    per_kernel = {k: [] for k in FUSED_BLOCK_KERNELS}
+    # at head dim 128 the kernels with a head dim alone (the MLP pair has none)
+    per_kernel = {k: [] for k in (FUSED_BLOCK_KERNELS[:3] if d == 128 else FUSED_BLOCK_KERNELS)}
     for site, (B, n, tabs, eps) in {"vit": (NUM_FRAMES, N, None, 1e-6),
                                      "frame": (2 * NUM_FRAMES, N, t_frame, 1e-5),
                                      "reloc": (NUM_FRAMES, N, t_frame, 1e-5),
                                      "global": (1, NUM_FRAMES * N, t_global, 1e-5)}.items():
         x, o = randn(B, n, C), randn(B, H, n, d)
         for name, kern, plain, chain, flops, ins in calls(p, x, H, tabs, eps, o):
-            err, got = hold(name, site, kern, plain)
+            if name not in per_kernel:
+                continue
+            err, got = hold(name + hd, site, kern, plain)
             in_bytes = sum(t.numel() * 4 for t in ins)
             out_bytes = sum(g.numel() * 4 for g in got)
             bound, by = _bound_ms(flops, in_bytes + out_bytes, PEAK_F32_FLOPS)
@@ -1925,8 +1972,9 @@ def check_fused_f32_kernels(randn):
                            prepass_back_to_back_ms=_back_to_back_ms(pre))
                 del hn, ref
             per_kernel[name].append(row)
-            _site_line(f"{name}[{site}] fp32", row)
-            print(f"    {name}[{site}] fp32: repeat bit-equal; "
+            label = name + hd
+            _site_line(f"{label}[{site}] fp32", row)
+            print(f"    {label}[{site}] fp32: repeat bit-equal; "
                   f"{row['bound_ms'] / row['back_to_back_ms'] * PEAK_F32_FLOPS / 1e12:.1f} "
                   f"TFLOP/s back to back"
                   + (f"; layer-norm pre-pass alone {row['prepass_ms']:.4f} ms a call, "
@@ -1935,18 +1983,23 @@ def check_fused_f32_kernels(randn):
         del x, o
         torch.cuda.empty_cache()
 
-    # -- the edges: C = 256 (4 heads), rows no multiple of 128, a 128-row tile
-    # across a frame boundary (2 x 200, 3 x 77), one row, a zero row; the
-    # head-shard weight of 8 of 16 heads at C = 1024 --------------------------
-    small = block_params(256)
-    for B, n, eps in ((1, 1, 1e-5), (2, 200, 1e-6), (3, 77, 1e-5), (1, 300, 1e-5)):
-        x, o = randn(B, n, 256), randn(B, 4, n, d)
-        x[0, n // 2] = 0.0
-        ang = randn(n, d)
-        tabs = (torch.cos(ang), torch.sin(ang))
-        for t in (None, tabs):
-            for name, kern, plain, *_ in calls(small, x, 4, t, eps, o):
-                hold(name, f"edge {B} x {n}", kern, plain)
+    # -- the edges: C = 256 (4 heads of 64 or 2 of 128), rows no multiple of
+    # 128, a 128-row tile across a frame boundary (2 x 200, 3 x 77), one row,
+    # a zero row; at head dim 128 also an odd head count, C = 384 (3 heads);
+    # the head-shard weight of H / 2 of H heads at C = 1024 ------------------
+    widths = (256, 384) if d == 128 else (256,)
+    for Ce in widths:
+        small = block_params(Ce, d)
+        for B, n, eps in ((1, 1, 1e-5), (2, 200, 1e-6), (3, 77, 1e-5), (1, 300, 1e-5)):
+            x, o = randn(B, n, Ce), randn(B, Ce // d, n, d)
+            x[0, n // 2] = 0.0
+            ang = randn(n, d)
+            tabs = (torch.cos(ang), torch.sin(ang))
+            for t in (None, tabs):
+                for name, kern, plain, *_ in calls(small, x, Ce // d, t, eps, o):
+                    if name in per_kernel:
+                        hold(name + hd, f"edge C {Ce} {B} x {n}", kern,
+                             plain)
     x = randn(2, 200, C)
     ang = randn(200, d)
     tabs = (torch.cos(ang), torch.sin(ang))
@@ -1957,17 +2010,18 @@ def check_fused_f32_kernels(randn):
         b_i = p["attn"]["qkv"]["b"][cols].contiguous()
         for t in (None, tabs):
             (name, kern, plain, *_), = calls(p, x, H, t, 1e-5, None, w_i, b_i)
-            hold(name, f"head shard 8 of 16, rank {rank}", kern, plain)
+            hold(name + hd, f"head shard {H // 2} of {H}, rank {rank}",
+                 kern, plain)
     del x
-    print("  fp32 fused block kernels: the edges and the head shard within tolerance, "
-          "repeats bit-equal")
+    print(f"  fp32 fused block kernels at head dim {d}: the edges and the head shard within "
+          "tolerance, repeats bit-equal")
 
     lines = {"fused_ln_qkv_rope": 158, "fused_ln_qkv": 309, "fused_proj_residual": 411,
              "fused_mlp_up": 526, "fused_mlp_down": 546}
     results = []
     for name, ss in per_kernel.items():
         results.append(dict(
-            name=f"{name}_f32", route="cuda", source=F32_GEMM_SOURCE,
+            name=f"{name}{sfx}", route="cuda", source=F32_GEMM_SOURCE,
             replaces=f"self_supervise_sfm_tpu/ops/fused_qkv.py:{lines[name]}",
             # one call at each site measured
             max_abs_err=max(s_["max_abs_err"] for s_ in ss),
@@ -2362,7 +2416,7 @@ class _D128Launches(_F32Launches):
 
 
 class _D128F32Launches(_F32Launches):
-    """The fp32 head dim 128 launches of an attention wrapper
+    """The fp32 head dim 128 launches of an attention or fused block wrapper
     (``.launches_d128_f32``), read and reset as ``.launches``."""
 
     attr = "launches_d128_f32"
@@ -2409,7 +2463,10 @@ def kernel_wrappers() -> dict:
             "frame_ctx_packed_fwd_d128_f32": _D128F32Launches(FA.frame_ctx_packed_fwd),
             "flash_fwd_reloc_d128_f32": _D128F32Launches(FA.flash_fwd_reloc),
             "flash_bwd_dq_d128_f32": _D128F32Launches(FA.flash_bwd_dq),
-            "flash_bwd_dkv_d128_f32": _D128F32Launches(FA.flash_bwd_dkv)}
+            "flash_bwd_dkv_d128_f32": _D128F32Launches(FA.flash_bwd_dkv),
+            "fused_ln_qkv_rope_d128_f32": _D128F32Launches(FQ.fused_ln_qkv_rope_fwd),
+            "fused_ln_qkv_d128_f32": _D128F32Launches(FQ.fused_ln_qkv_fwd),
+            "fused_proj_residual_d128_f32": _D128F32Launches(FQ.fused_proj_residual_fwd)}
 
 
 def run_forward(gen):
@@ -3181,7 +3238,15 @@ def run_d128(state=None):
     route and against the default configuration at 16 heads of 64 (phase 3's
     fp32 weights), with peaks, build / reloc / ``fast_reloc`` timed (paths
     "forward_d128_f32", "build_d128_f32", "reloc_d128_f32",
-    "fast_reloc_d128_f32", "mask_form_d128_f32"). ``state``: phase 3's."""
+    "fast_reloc_d128_f32", "mask_form_d128_f32"). Then the same fp32 model
+    under ``fused_qkv="on", fused_mlp="on"`` on the same weights: the
+    forward, the build, ``reloc`` and ``fast_reloc`` with
+    ``D128_F32_ON_*_LAUNCHES`` (every trunk block on the fused blocks' fp32
+    forms, LN+QKV(+RoPE) and the out-projection at head dim 128; no dense
+    attention site, no plain fused chain), held to the same fp32 plain path
+    at rel-RMS 1e-5, the forward timed in turns with the "auto" leg (paths
+    "forward_d128_f32_on", "build_d128_f32_on", "reloc_d128_f32_on",
+    "fast_reloc_d128_f32_on"). ``state``: phase 3's."""
     import torch
 
     from self_supervise_sfm_tpu_torch.layers.block import qkv_parts
@@ -3338,46 +3403,19 @@ def run_d128(state=None):
     expect(same, "d128 reloc layer 0: mask form not bit-equal to layout form")
     del layout, masked
 
-    # -- the fp32 leg: make_config(num_heads=8), the fp32 forms at 128 -------
+    # -- the fp32 legs: make_config(num_heads=8), "auto" and "on" -----------
     cfg32 = M.make_config(num_heads=8)
+    cfg32_on = M.make_config(num_heads=8, **ON_F32)
     cfg32_dense = M.make_config(num_heads=8, **dense)
     flag_cfg32 = M.make_config()
-    out32, n_fwd32 = counted(lambda: fwd(cfg32, p32))
-    (cache32, cam32), n_build32 = counted(lambda: build(cfg32, p32))
-    rel32, n_reloc32 = counted(lambda: M.reloc(p32, cfg32, cache32, cam32, uniq))
-    fast32, n_fast32 = counted(lambda: M.reloc(p32, cfg32, cache32, cam32, uniq,
-                                               fast_reloc=True))
-    launches.update(forward_d128_f32=n_fwd32, build_d128_f32=n_build32,
-                    reloc_d128_f32=n_reloc32, fast_reloc_d128_f32=n_fast32)
-    for path, want in (("forward_d128_f32", D128_F32_FORWARD_LAUNCHES),
-                       ("build_d128_f32", D128_F32_BUILD_LAUNCHES),
-                       ("reloc_d128_f32", D128_F32_RELOC_LAUNCHES),
-                       ("fast_reloc_d128_f32", D128_F32_FAST_RELOC_LAUNCHES)):
-        got = launches[path]
-        print(f"  launches in one {path}: { {k: n for k, n in got.items() if n} }")
-        if got != want:
-            raise AssertionError(f"{path} launch counts {got}, expected {want}")
-    kv32 = cache32["kv"]
-    per_anchor32 = kv32.numel() * kv32.element_size() / NUM_FRAMES
-    expect(tuple(kv32.shape) == (24, 1, 8, nc, 256) and kv32.dtype == torch.float32
-           and per_anchor32 == 59_965_440,
-           f"fp32 d128 cache {tuple(kv32.shape)} {kv32.dtype}, {per_anchor32} bytes an anchor")
-    for k in ("extrinsic", "intrinsic"):
-        expect(torch.equal(fast32[k], rel32[k]), f"fp32 d128 fast_reloc {k} differs from reloc's")
-    # against the fp32 plain path of the same configuration (dense attention)
+    # the fp32 plain path of the same configuration (dense attention)
     before = {k: w.launches for k, w in wrappers.items()}
     out_f = fwd(cfg_f32, p32)
     rel_f = M.reloc(p32, cfg_f32, cache_f, cam_f, uniq)
     torch.cuda.synchronize()
     if {k: w.launches for k, w in wrappers.items()} != before:
         raise AssertionError("the fp32 plain path of the head dim 128 model launched a kernel")
-    tk32, _, ck32 = agg(cfg32, p32)
-    rk32 = taps_of(cfg32, p32, cache32)
-    agree32 = {}
-    pairs = [(f"tap {li}", tk32[li], tf[li]) for li in acfg.intermediate_layer_idx]
-    pairs += [("anchor cam tokens", ck32, cf), ("scene cache", kv32, cache_f["kv"]),
-              ("build cam tokens", cam32, cam_f)]
-    pairs += [(f"reloc tap {li}", rk32[li], rf[li]) for li in acfg.intermediate_layer_idx]
+
     # the intrinsics on the scale the camera head emits them, the FoV (2 atan
     # of half the image over the focal): the focal, (H / 2) / tan(FoV / 2),
     # magnifies a FoV near 0 (the relu'd FoV head's at random weights) by
@@ -3385,21 +3423,63 @@ def run_d128(state=None):
     def fov(k):
         return 2.0 * torch.atan((IMG / 2.0) / torch.stack([k[..., 1, 1], k[..., 0, 0]], -1))
 
-    for name, a, b in (("forward", out32, out_f), ("reloc", rel32, rel_f)):
-        pairs += [(f"{name} extrinsic", a["extrinsic"], b["extrinsic"]),
-                  (f"{name} intrinsic as FoV", fov(a["intrinsic"]), fov(b["intrinsic"])),
-                  (f"{name} cam_tokens", a["cam_tokens"], b["cam_tokens"])]
-        focal = rel(a["intrinsic"], b["intrinsic"])
-        print(f"  d128 fp32 {name} intrinsic (focal): rel-RMS {focal:.4e} against the fp32 "
-              f"plain path, for the record (smallest FoV {float(fov(b['intrinsic']).min()):.3e} "
-              f"rad)")
-    for name, a, b in pairs:
-        err = rel(a, b)
-        agree32[name] = err
-        print(f"  d128 fp32 {name}: kernels vs the fp32 plain path rel-RMS {err:.4e} "
-              f"(tolerance 1e-5)")
-        expect(err <= 1e-5, f"d128 fp32 {name}: {err} over 1e-5")
-    del tf, cf, cache_f, cam_f, rf, out_f, rel_f, tk32, ck32, rk32, out32, rel32, fast32
+    def fp32_leg(c, label, tag, wants):
+        """The fp32 model under ``c``: the forward, the build, ``reloc`` and
+        ``fast_reloc`` with the launch counts ``wants`` (paths
+        "<path>_d128_f32<tag>"), ``fast_reloc``'s poses equal to ``reloc``'s,
+        taps, camera tokens, cache and poses against the fp32 plain path at
+        rel-RMS 1e-5. Returns the cache, the build's camera tokens and the
+        agreement."""
+        out, n_fwd = counted(lambda: fwd(c, p32))
+        (cache, cam), n_build = counted(lambda: build(c, p32))
+        rel_out, n_reloc = counted(lambda: M.reloc(p32, c, cache, cam, uniq))
+        fast, n_fast = counted(lambda: M.reloc(p32, c, cache, cam, uniq, fast_reloc=True))
+        for path, got, want in zip(("forward", "build", "reloc", "fast_reloc"),
+                                   (n_fwd, n_build, n_reloc, n_fast), wants):
+            path = f"{path}_d128_f32{tag}"
+            launches[path] = got
+            print(f"  launches in one {path}: { {k: n for k, n in got.items() if n} }")
+            if got != want:
+                raise AssertionError(f"{path} launch counts {got}, expected {want}")
+        for k in ("extrinsic", "intrinsic"):
+            expect(torch.equal(fast[k], rel_out[k]), f"{label} fast_reloc {k} differs from reloc's")
+        tk, _, ck = agg(c, p32)
+        rk = taps_of(c, p32, cache)
+        pairs = [(f"tap {li}", tk[li], tf[li]) for li in acfg.intermediate_layer_idx]
+        pairs += [("anchor cam tokens", ck, cf), ("scene cache", cache["kv"], cache_f["kv"]),
+                  ("build cam tokens", cam, cam_f)]
+        pairs += [(f"reloc tap {li}", rk[li], rf[li]) for li in acfg.intermediate_layer_idx]
+        for name, a, b in (("forward", out, out_f), ("reloc", rel_out, rel_f)):
+            pairs += [(f"{name} extrinsic", a["extrinsic"], b["extrinsic"]),
+                      (f"{name} intrinsic as FoV", fov(a["intrinsic"]), fov(b["intrinsic"])),
+                      (f"{name} cam_tokens", a["cam_tokens"], b["cam_tokens"])]
+            focal = rel(a["intrinsic"], b["intrinsic"])
+            print(f"  {label} {name} intrinsic (focal): rel-RMS {focal:.4e} against the fp32 "
+                  f"plain path, for the record (smallest FoV "
+                  f"{float(fov(b['intrinsic']).min()):.3e} rad)")
+        agree = {}
+        for name, a, b in pairs:
+            agree[name] = err = rel(a, b)
+            print(f"  {label} {name}: kernels vs the fp32 plain path rel-RMS {err:.4e} "
+                  f"(tolerance 1e-5)")
+            expect(err <= 1e-5, f"{label} {name}: {err} over 1e-5")
+        return cache, cam, agree
+
+    cache32, cam32, agree32 = fp32_leg(
+        cfg32, "d128 fp32", "", (D128_F32_FORWARD_LAUNCHES, D128_F32_BUILD_LAUNCHES,
+                                 D128_F32_RELOC_LAUNCHES, D128_F32_FAST_RELOC_LAUNCHES))
+    kv32 = cache32["kv"]
+    per_anchor32 = kv32.numel() * kv32.element_size() / NUM_FRAMES
+    expect(tuple(kv32.shape) == (24, 1, 8, nc, 256) and kv32.dtype == torch.float32
+           and per_anchor32 == 59_965_440,
+           f"fp32 d128 cache {tuple(kv32.shape)} {kv32.dtype}, {per_anchor32} bytes an anchor")
+    # under "on": every trunk block on the fused blocks' fp32 forms,
+    # LN+QKV(+RoPE) and the out-projection at head dim 128
+    _, _, agree_on = fp32_leg(
+        cfg32_on, "d128 fp32 fused-on", "_on",
+        (D128_F32_ON_FORWARD_LAUNCHES, D128_F32_ON_BUILD_LAUNCHES, D128_F32_ON_RELOC_LAUNCHES,
+         D128_F32_ON_FAST_RELOC_LAUNCHES))
+    del tf, cf, cache_f, cam_f, rf, out_f, rel_f
     torch.cuda.empty_cache()
     (layout, masked), n_mask32 = counted(lambda: mask_form(p32["aggregator"], cfg32.aggregator,
                                                            kv32))
@@ -3456,14 +3536,16 @@ def run_d128(state=None):
           f"reloc of 5 queries {res['reloc_ms']:.2f} ms (peak {res['reloc_peak_gb']:.2f} GB); "
           f"fast_reloc {res['fast_reloc_ms']:.2f} ms (peak {res['fast_reloc_peak_gb']:.2f} GB); "
           f"cache {res['cache_bytes_per_anchor']:.0f} bytes an anchor; medians of 3")
-    # the fp32 leg in turns: its kernels, its dense route, the default
-    # configuration at 16 heads of 64 (the flagship's fp32 weights)
+    # the fp32 leg in turns: its kernels, the same under "on", its dense
+    # route, the default configuration at 16 heads of 64 (the flagship's
+    # fp32 weights)
     turns32 = {"d128_f32": lambda: fwd(cfg32, p32),
+               "d128_f32_on": lambda: fwd(cfg32_on, p32),
                "d128_f32_dense": lambda: fwd(cfg32_dense, p32),
                "d64_f32": lambda: fwd(flag_cfg32, flag_p32)}
     runs32, peaks32 = {k: [] for k in turns32}, {}
-    for name in ("d128_f32", "d128_f32_dense", "d64_f32", "d64_f32", "d128_f32_dense",
-                 "d128_f32"):
+    for name in ("d128_f32", "d128_f32_on", "d128_f32_dense", "d64_f32", "d64_f32",
+                 "d128_f32_dense", "d128_f32_on", "d128_f32"):
         r, peak = timed(turns32[name], reps=2)
         runs32[name] += r
         peaks32[name] = max(peaks32.get(name, 0.0), peak)
@@ -3473,13 +3555,18 @@ def run_d128(state=None):
                dense_runs_ms=runs32["d128_f32_dense"], dense_peak_gb=peaks32["d128_f32_dense"],
                d64_ms=med32["d64_f32"], d64_runs_ms=runs32["d64_f32"],
                d64_peak_gb=peaks32["d64_f32"], agreement=agree32, mask_form_bit_equal=same32,
-               cache_bytes_per_anchor=per_anchor32)
+               cache_bytes_per_anchor=per_anchor32, on_ms=med32["d128_f32_on"],
+               on_runs_ms=runs32["d128_f32_on"], on_peak_gb=peaks32["d128_f32_on"],
+               on_agreement=agree_on)
     print(f"  d128 fp32 forward {med32['d128_f32']:.2f} ms (peak {peaks32['d128_f32']:.2f} GB); "
           f"its dense route {med32['d128_f32_dense']:.2f} ms (peak "
           f"{peaks32['d128_f32_dense']:.2f} GB, {med32['d128_f32_dense'] / med32['d128_f32']:.3f}x)"
           f"; the default configuration at 16 heads of 64 {med32['d64_f32']:.2f} ms (peak "
           f"{peaks32['d64_f32']:.2f} GB, d128 / d64 {med32['d128_f32'] / med32['d64_f32']:.3f}x); "
           f"medians of 4, in turns")
+    print(f"  d128 fp32 forward under fused_qkv / fused_mlp \"on\" {med32['d128_f32_on']:.2f} ms "
+          f"(peak {peaks32['d128_f32_on']:.2f} GB), on / auto "
+          f"{med32['d128_f32_on'] / med32['d128_f32']:.3f}x; medians of 4, in turns")
     for name, fn in (("build", lambda: build(cfg32, p32)),
                      ("reloc", lambda: M.reloc(p32, cfg32, cache32, cam32, uniq)),
                      ("fast_reloc", lambda: M.reloc(p32, cfg32, cache32, cam32, uniq,
@@ -3602,7 +3689,8 @@ def run_train_default(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, gra
                 profile=profile, b9_device_ms=b9_ms)
 
 
-def run_train_on_f32(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, grads, expect):
+def run_train_on_f32(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, grads, expect,
+                     heads=None, want=None, label="fp32 fused-on"):
     """Phase 5, the train step with the fp32 trunk on the fused block kernels
     (``make_config(remat=True, fused_qkv="on", fused_mlp="on")``): every
     trunk block's forward (and its remat recompute) on the fp32 forms of the
@@ -3612,27 +3700,31 @@ def run_train_on_f32(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, grad
     ``ON_F32_TRAIN_STEP_LAUNCHES``, its loss and gradients against the fp32
     plain step's (:func:`_hold_fp32_step`), its time and peak memory in turns
     with the default configuration's (auto, on, on, auto, auto, on), the
-    fp32 fused kernels' device ms from one profiled run. Returns the launch
-    counts and the measurements."""
+    fp32 fused kernels' device ms from one profiled run. ``heads``:
+    ``make_config`` arguments of another head layout (phase 5b's fp32 "on"
+    leg: ``num_heads=8``, held to ``want``, the fused blocks with a head dim
+    and the attention under their fp32 head dim 128 names). Returns the
+    launch counts and the measurements."""
     import torch
 
     from self_supervise_sfm_tpu_torch.models import sailrecon as M
     from self_supervise_sfm_tpu_torch.train import loop as L
 
+    heads = heads or {}
+    want = want or ON_F32_TRAIN_STEP_LAUNCHES
     wrappers = kernel_wrappers()
-    cfg_on = M.make_config(remat=True, **ON_F32)
-    cfg_d = M.make_config(remat=True)
+    cfg_on = M.make_config(remat=True, **ON_F32, **heads)
+    cfg_d = M.make_config(remat=True, **heads)
     for w in wrappers.values():
         w.launches = 0
     loss_o, _, go = L.loss_and_grads(params, cfg_on, tcfg, batch, idx)
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"  fp32 fused-on step: launches {({k: n for k, n in launches.items() if n})}")
-    if launches != ON_F32_TRAIN_STEP_LAUNCHES:
-        raise AssertionError(f"fp32 fused-on step launch counts {launches}, expected "
-                             f"{ON_F32_TRAIN_STEP_LAUNCHES}")
-    agree = _hold_fp32_step("fp32 fused-on", float(loss_o), go, loss_f, gf, subsystems, rel,
-                            grads, expect)
+    print(f"  {label} step: launches {({k: n for k, n in launches.items() if n})}")
+    if launches != want:
+        raise AssertionError(f"{label} step launch counts {launches}, expected {want}")
+    agree = _hold_fp32_step(label, float(loss_o), go, loss_f, gf, subsystems, rel, grads,
+                            expect)
     del go
 
     def timed(cfg):
@@ -3650,17 +3742,17 @@ def run_train_on_f32(params, tcfg, batch, idx, loss_f, gf, subsystems, rel, grad
         runs[route].append(timed(cfg_on if route == "on" else cfg_d))
     ms = {r: statistics.median(t for t, _ in v) for r, v in runs.items()}
     peak = {r: max(g for _, g in v) for r, v in runs.items()}
-    print(f"  fp32 forward + backward: fused block kernels on "
-          f"{[round(t, 2) for t, _ in runs['on']]} ms, peak {peak['on']:.2f} GB; the default "
-          f"configuration (auto) {[round(t, 2) for t, _ in runs['auto']]} ms, peak "
+    print(f"  {label} forward + backward: fused block kernels on "
+          f"{[round(t, 2) for t, _ in runs['on']]} ms, peak {peak['on']:.2f} GB; the same "
+          f"configuration under auto {[round(t, 2) for t, _ in runs['auto']]} ms, peak "
           f"{peak['auto']:.2f} GB (on / auto {ms['on'] / ms['auto']:.3f})")
     profile = profile_forward(lambda: L.loss_and_grads(params, cfg_on, tcfg, batch, idx),
-                              label="fp32 fused-on forward + backward")
+                              label=f"{label} forward + backward")
     fused = None
     if profile["measured"]:
         fused = {k: profile["classes_ms"][k] for k in profile["classes_ms"]
                  if k.endswith("fp32") or k.startswith("ln_rows fp32")}
-        print(f"  fp32 fused block kernels' device ms a step: "
+        print(f"  {label}: fused block kernels' device ms a step: "
               f"{ {k: round(v, 2) for k, v in fused.items()} } (of device busy "
               f"{profile['busy_ms']:.2f})")
     return dict(launches=launches, agreement=agree, runs=runs, ms=ms, peak_gb=peak,
@@ -3957,7 +4049,11 @@ def run_train_d128(live=None, flagship_busy_ms=None):
     and subsample in fp32 on the fp32 head dim 128 forms, held to
     ``D128_F32_TRAIN_STEP_LAUNCHES`` and to the fp32 plain step of the same
     configuration (loss rtol 1e-4, gradient norms and rel-RMS 1e-3 a
-    subsystem), timed in turns against its dense route, B9's device ms."""
+    subsystem), timed in turns against its dense route, B9's device ms; the
+    same under ``fused_qkv="on", fused_mlp="on"`` (:func:`run_train_on_f32`
+    with ``num_heads=8``: ``D128_F32_ON_TRAIN_STEP_LAUNCHES``, the same fp32
+    plain step, timed in turns against "auto", the fused kernels' device
+    ms)."""
     import torch
 
     from self_supervise_sfm_tpu_torch.models import aggregator as AG
@@ -4054,6 +4150,12 @@ def run_train_d128(live=None, flagship_busy_ms=None):
                             expect, heads=dict(num_heads=8), want=D128_F32_TRAIN_STEP_LAUNCHES,
                             label="d128 fp32",
                             b9=("flash_bwd_dq d128 fp32 (B9)", "flash_bwd_dkv d128 fp32 (B9)"))
+    torch.cuda.empty_cache()
+    # and under fused_qkv / fused_mlp "on": every trunk block's forward on the
+    # fused blocks' fp32 forms, LN+QKV(+RoPE) and the out-projection at 128
+    f32_on = run_train_on_f32(params, tcfg, batch, idx, float(loss_f), gf, subsystems, rel,
+                              grads, expect, heads=dict(num_heads=8),
+                              want=D128_F32_ON_TRAIN_STEP_LAUNCHES, label="d128 fp32 fused-on")
     del gf
     torch.cuda.empty_cache()
     if failures:
@@ -4106,8 +4208,9 @@ def run_train_d128(live=None, flagship_busy_ms=None):
     print(f"  phase 5b: {seconds:.1f} s")
     del state, holder, params, step, step_dense
     torch.cuda.empty_cache()
-    return {"train_d128": launches, "train_d128_f32": f32["launches"]}, dict(
-        f32=f32, step_ms=med["d128"], runs_ms=runs["d128"], dense_ms=med["d128_dense"],
+    return {"train_d128": launches, "train_d128_f32": f32["launches"],
+            "train_d128_f32_on": f32_on["launches"]}, dict(
+        f32=f32, f32_on=f32_on, step_ms=med["d128"], runs_ms=runs["d128"], dense_ms=med["d128_dense"],
         dense_runs_ms=runs["d128_dense"], flagship_ms=med["flag"], flagship_runs_ms=runs["flag"],
         peak_gb_both_states=peak_gb, gradients=grads, loss_kernel=float(loss_k),
         loss_plain=float(loss_p), loss_f32=float(loss_f),

@@ -127,8 +127,13 @@ _SIGNATURES: Dict[str, List] = {
     "sfm_mlp_up_f32": [_P] * 7 + [_I, _I, _I, _F, _P],
     "sfm_mlp_down_f32": [_P] * 6 + [_I, _I, _I, _P],
     "sfm_ln_rows_f32": [_P] * 4 + [_I, _I, _F, _P],
+    # LN+QKV+RoPE, LN+QKV and the out-projection at head dim 128 on the same
+    # body: the head-dim-64 entries' arguments
+    "sfm_ln_qkv_rope_d128_f32": [_P] * 15 + [_I, _I, _I, _I, _F, _P],
+    "sfm_ln_qkv_d128_f32": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
+    "sfm_proj_residual_d128_f32": [_P] * 6 + [_I, _I, _I, _P],
     # which kernel of the fp32 GEMM body (0 LN+QKV+RoPE, 1 LN+QKV, 2 out-proj,
-    # 3 up, 4 down, 5 LN), int[10] out
+    # 3 up, 4 down, 5 LN; 6-8 the first three at head dim 128), int[10] out
     "sfm_gemm_f32_info": [_I, _P],
 }
 

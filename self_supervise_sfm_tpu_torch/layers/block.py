@@ -113,7 +113,9 @@ def drop_path_mask(generator: torch.Generator, x: torch.Tensor, rate: float) -> 
 
 def _fused_wanted(mode: str, x: torch.Tensor, widths_taken: bool) -> bool:
     """The tri-state: "off" never, "on" always, "auto" for a bf16 ``x`` at
-    widths the kernel takes (every width on the CPU, as ``kernel_takes``)."""
+    widths the kernel takes (every width on the CPU, as ``kernel_takes``).
+    "on" reaches the wrapper in either dtype, whose kernels take head dim 64
+    or 128 in bf16 and in fp32 and raise at any other on the card."""
     if mode == "on":
         return True
     return (mode == "auto" and x.dtype == torch.bfloat16

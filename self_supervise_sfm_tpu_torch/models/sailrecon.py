@@ -79,8 +79,9 @@ def make_config(
     said, every trunk block runs the fused LN+QKV / out-proj / MLP kernels
     (``fused_qkv`` / ``fused_mlp`` "auto"); the fp32 camera head stays
     unfused. The fp32 trunk runs them too when asked, ``fused_qkv="on",
-    fused_mlp="on"`` (their fp32 forms; "auto" keeps an fp32 trunk on the
-    unfused chain, as the JAX package's). ``attn_impl="dense"``,
+    fused_mlp="on"`` (their fp32 forms, at head dim 64 or 128, so also at
+    ``num_heads=8``; "auto" keeps an fp32 trunk on the unfused chain, as the
+    JAX package's). ``attn_impl="dense"``,
     ``resize_impl="einsum"`` and
     ``fused_qkv="off", fused_mlp="off"`` run every kernel site through plain
     PyTorch instead. ``remat`` checkpoints each aggregator layer and

@@ -34,13 +34,13 @@ are of one dtype, which picks the body: bf16 (the ``*_sm90`` entries; the
 weights cast once at load by ``cast_trunk_weights``; launches counted in
 ``.launches``) or fp32 (the ``*_f32`` entries; launches counted in
 ``.launches_f32``); a call that mixes them (fp32 x, bf16 weights) raises.
-Norm, bias, layer-scale and RoPE parameters are fp32; head dim 64 (both
-bodies) or 128 (the bf16 body: LN+QKV(+RoPE) and the out-projection, the
-``*_d128_sm90`` entries, launches counted in ``.launches_d128``), input
-widths that are multiples of 64 and output widths that are multiples of 128
-(both bodies take the same widths), contiguous and 16-byte aligned. A launch
-wrapper is
-forward only: under grad mode an input that requires grad raises, on every
+Norm, bias, layer-scale and RoPE parameters are fp32; head dim 64 or 128
+in both bodies (at 128 LN+QKV(+RoPE) and the out-projection are the
+``*_d128_sm90`` entries, launches counted in ``.launches_d128``, and the
+``*_d128_f32`` ones, counted in ``.launches_d128_f32``), input widths that
+are multiples of 64 and output widths that are multiples of 128 (both
+bodies take the same widths), contiguous and 16-byte aligned. A launch
+wrapper is forward only: under grad mode an input that requires grad raises, on every
 device. The bf16 kernels are bound by the bf16 tensor-core rate at the main
 path's sizes, the fp32 ones by the fp32 rate (see the source notes in the
 ``.cu`` files).
@@ -66,8 +66,8 @@ from .. import _kernels
 from .flash_attention import _body, _count
 
 # the head dims the kernels with one take (LN+QKV(+RoPE), the
-# out-projection), by dtype: the Hopper body's and the FFMA body's
-HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (64,)}
+# out-projection), the same in the Hopper body (bf16) and the FFMA body (fp32)
+HEAD_DIMS = (64, 128)
 
 
 # -- shared arithmetic of the plain versions ----------------------------------
@@ -141,13 +141,12 @@ def _kernel_dtype(name: str, x) -> torch.dtype:
     return x.dtype
 
 
-def _check_widths(name: str, *, head_dim=None, dtype=torch.bfloat16, **widths: int) -> None:
-    """A head dim the ``dtype`` kernels take, and widths that are multiples
-    of 64."""
-    dims = HEAD_DIMS.get(dtype, HEAD_DIMS[torch.bfloat16])
-    if head_dim is not None and head_dim not in dims:
-        raise ValueError(f"{name}: the {str(dtype).removeprefix('torch.')} kernels take head "
-                         f"dim {' or '.join(map(str, dims))}, got {head_dim}")
+def _check_widths(name: str, *, head_dim=None, **widths: int) -> None:
+    """A head dim the kernels take (``HEAD_DIMS``, in either body), and
+    widths that are multiples of 64."""
+    if head_dim is not None and head_dim not in HEAD_DIMS:
+        raise ValueError(f"{name}: the kernels take head dim "
+                         f"{' or '.join(map(str, HEAD_DIMS))}, got {head_dim}")
     for key, n in widths.items():
         if n % 64:
             raise ValueError(f"{name}: {key} = {n} is not a multiple of 64")
@@ -166,14 +165,14 @@ def _check_tile_widths(name: str, K: int, nout: int) -> None:
 def _qkv_widths(name: str, x, w, num_heads: int) -> int:
     """The checks of LN+QKV(+RoPE)'s widths: x (B, N, C) and w (C, 3 Hl d)
     for the Hl = ``num_heads`` heads the call computes (all C / d, or a
-    rank's head shard); d = 64 (Hl even) or 128 (bf16, any Hl), C a multiple
-    of 64. Returns d."""
+    rank's head shard); d = 64 (Hl even) or 128 (any Hl), in either dtype; C
+    a multiple of 64. Returns d."""
     C, nout = x.shape[2], w.shape[-1]
     if w.dim() != 2 or w.shape[0] != C or nout % (3 * num_heads):
         raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"{num_heads} heads")
     d = nout // (3 * num_heads)
-    _check_widths(name, head_dim=d, dtype=x.dtype, C=C)
+    _check_widths(name, head_dim=d, C=C)
     if d == 64 and num_heads % 2:
         raise ValueError(f"{name}: {num_heads} heads: a 128-column tile holds two heads "
                          "of one of q, k and v, so the kernel takes an even head count")
@@ -188,16 +187,17 @@ def qkv_kernel_takes(C: int, num_local_heads: int, head_dim: int = 64) -> bool:
     heads of one of q, k and v) or at head dim 128 (a tile is one head). Hl
     is all C / d heads, or one rank's head shard under tensor parallelism,
     whose C stays the whole width. The checks of :func:`_qkv_widths`, as a
-    predicate for the "auto" gates of ``layers/block.py`` (bf16 only, so the
-    fp32 body's head dim 64 is not asked)."""
-    return (head_dim in HEAD_DIMS[torch.bfloat16] and C % 64 == 0 and num_local_heads > 0
+    predicate for the "auto" gates of ``layers/block.py``, which take the
+    fused blocks for a bf16 trunk only (the fp32 body, whose head dims are
+    the same, is reached under "on" alone)."""
+    return (head_dim in HEAD_DIMS and C % 64 == 0 and num_local_heads > 0
             and (head_dim == 128 or num_local_heads % 2 == 0))
 
 
 def proj_kernel_takes(C: int, num_heads: int) -> bool:
     """Widths that the bf16 out-projection takes: head dim 64 or 128, C a
     multiple of 128 (K and the output both C)."""
-    return (C % num_heads == 0 and C // num_heads in HEAD_DIMS[torch.bfloat16]
+    return (C % num_heads == 0 and C // num_heads in HEAD_DIMS
             and C % 128 == 0)
 
 
@@ -274,6 +274,7 @@ def fused_ln_qkv_rope_fwd(x, ln_scale, ln_bias, w, b, qn_scale, qn_bias, kn_scal
 fused_ln_qkv_rope_fwd.launches = 0
 fused_ln_qkv_rope_fwd.launches_f32 = 0
 fused_ln_qkv_rope_fwd.launches_d128 = 0
+fused_ln_qkv_rope_fwd.launches_d128_f32 = 0
 
 
 # -- LN + QKV, no qk-norm / RoPE (the ViT blocks) -----------------------------
@@ -315,6 +316,7 @@ def fused_ln_qkv_fwd(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e
 fused_ln_qkv_fwd.launches = 0
 fused_ln_qkv_fwd.launches_f32 = 0
 fused_ln_qkv_fwd.launches_d128 = 0
+fused_ln_qkv_fwd.launches_d128_f32 = 0
 
 
 # -- head merge + out-projection + layer-scale + residual ---------------------
@@ -335,8 +337,8 @@ def fused_proj_residual_fwd(o, x_res, w, b, ls_gamma):
     name = "fused_proj_residual"
     B, nh, N, d = o.shape
     C = nh * d
-    _check_widths(name, head_dim=d, dtype=x_res.dtype, C=C)
-    if C % 128:  # the output's tiles of 128 columns (no pre-pass: any even head count)
+    _check_widths(name, head_dim=d, C=C)
+    if C % 128:  # the output's tiles of 128 columns (no pre-pass: at d = 64 any even head count)
         raise ValueError(f"{name}: C = {C} must be a multiple of 128")
     if tuple(x_res.shape) != (B, N, C) or tuple(w.shape) != (C, C):
         raise ValueError(f"{name}: o {tuple(o.shape)}, x {tuple(x_res.shape)}, "
@@ -357,6 +359,7 @@ def fused_proj_residual_fwd(o, x_res, w, b, ls_gamma):
 fused_proj_residual_fwd.launches = 0
 fused_proj_residual_fwd.launches_f32 = 0
 fused_proj_residual_fwd.launches_d128 = 0
+fused_proj_residual_fwd.launches_d128_f32 = 0
 
 
 # -- MLP: [LN2 + fc1 + GELU] and [fc2 + layer-scale + residual] ---------------

@@ -9,11 +9,14 @@ norm pre-pass (lane sums over 4-channel chunks, the warp's butterfly, fp32
 statistics, ``((x - mu) * rstd) * w + b`` with one rounding a step); row
 tiles of BM rows, zero-filled past M; each output element one FFMA chain
 over K in order (the exact product in fp64, rounded to fp32 with the sum);
-the out-projection's A gathered from o (B, H, N, 64) by the loader's
-offsets; the epilogues as the kernel's threads hold them (a head's 64
-values of a row as 16 lanes of 4: the qk-norm's sums a lane's 4 values in
-order, then the half-warp's xor butterfly; RoPE's partner 4 lanes away;
-erf GELU; ``x + (acc + b) * gamma``); only rows below M stored, each once.
+the out-projection's A gathered from o (B, H, N, d) by the loader's
+offsets; the epilogues as the kernel's threads hold them (at head dim 64 a
+head's 64 values of a row as 16 lanes of 4: the qk-norm's sums a lane's 4
+values in order, then the half-warp's xor butterfly; RoPE's partner 4 lanes
+away; at head dim 128 16 lanes of 8, columns 4 l + e and 64 + 4 l + e: a
+lane's sum of its first 4 values plus its sum of the other 4, then the
+butterfly; RoPE's partner 8 lanes away; erf GELU; ``x + (acc + b) *
+gamma``); only rows below M stored, each once.
 It is held against ``fused_qkv_kernel`` / ``fused_qkv_plain_kernel`` /
 ``fused_proj_kernel`` / ``fused_mlp_kernel(..., interpret=True)`` in fp32
 (their erf is Abramowitz & Stegun 7.1.26, |err| < 1.5e-7, where the kernel
@@ -23,7 +26,9 @@ card: 2e-5 of the largest |output| (the fp32 tolerance of the attention
 bodies' tests, ``tests/test_torch_flash_f32_schedule.py``).
 Rows are ragged (200, 2 x 1374 for LN+QKV: a 128-row tile crosses the frame
 boundary; 3 x 200 and 1 x 600 for the out-projection), the eps is the
-ViT's and the aggregator's, and one row is all zeros.
+ViT's and the aggregator's, and one row is all zeros. The head dim 128
+kernels (the "d128-" cases) at 2 heads of 128 (C 256) and an odd head count,
+3 heads (C 384), with 2 x 200 rows for the tile across a frame boundary.
 """
 
 import re
@@ -51,11 +56,13 @@ def _const(name: str) -> int:
 
 
 BM, BN, BK, HD, TM = (_const(n) for n in ("BM", "BN", "BK", "HD", "TM"))
+HD128 = _const("HD128")  # the head dim 128 kernels' template argument
 NTHREADS, STAGES = _const("NTHREADS"), _const("STAGES")
-LANES = HD // 4  # the threads of a row group that hold a head's 64 values, 4 each
+LANES = 16  # the threads of a row group: a head's values of a row, 4 (d 64) or 8 (d 128) each
 TOL = 2e-5
 ENTRIES = ("sfm_ln_qkv_rope_f32", "sfm_ln_qkv_f32", "sfm_proj_residual_f32", "sfm_mlp_up_f32",
            "sfm_mlp_down_f32")
+D128_ENTRIES = ("sfm_ln_qkv_rope_d128_f32", "sfm_ln_qkv_d128_f32", "sfm_proj_residual_d128_f32")
 
 
 def _np(x):
@@ -128,25 +135,38 @@ def _tiles(acc, M, epilogue, nout):
     return out
 
 
+def _lane_sums(t):
+    """A lane's sum of its values of a head (..., d) -> (..., 16): lane l
+    holds columns 64 j + 4 l + e; ((v0 + v1) + v2) + v3 at each j, the j
+    sums added in order (d 128: j = 0 plus j = 1)."""
+    g = t.reshape(*t.shape[:-1], t.shape[-1] // 64, LANES, 4)
+    part = ((g[..., 0] + g[..., 1]) + g[..., 2]) + g[..., 3]
+    total = part[..., 0, :]
+    for j in range(1, part.shape[-2]):
+        total = total + part[..., j, :]
+    return total
+
+
 def _head_norm(t, w, b, eps: float):
-    """The qk-norm on a head's 64 values of each row: 16 lanes of 4, a lane's
-    sum in order, then the half-warp's butterfly; one rounding a step."""
-    lanes = t.reshape(*t.shape[:-1], LANES, 4)
-    part = ((lanes[..., 0] + lanes[..., 1]) + lanes[..., 2]) + lanes[..., 3]
-    mu = _tree(part)[..., None] / HD
+    """The qk-norm on a head's d values of each row: 16 lanes of d / 16, a
+    lane's sums in order, then the half-warp's butterfly; one rounding a
+    step."""
+    d = t.shape[-1]
+    mu = _tree(_lane_sums(t))[..., None] / d
     xc = t - mu
-    sq = (xc * xc).reshape(*t.shape[:-1], LANES, 4)
-    part = ((sq[..., 0] + sq[..., 1]) + sq[..., 2]) + sq[..., 3]
-    rs = torch.rsqrt(_tree(part)[..., None] / HD + eps)
+    rs = torch.rsqrt(_tree(_lane_sums(xc * xc))[..., None] / d + eps)
     return ((xc * rs) * w) + b
 
 
 def _rope(t, cos, sin):
-    """t * cos + rot * sin, rot = (-t2, t1, -t4, t3): the partner of lane l
-    is lane l ^ 4, negated in quarters 1 and 3."""
-    lanes = t.reshape(*t.shape[:-1], LANES, 4)
-    partner = lanes[..., [l ^ 4 for l in range(LANES)], :]
-    lower = torch.tensor([(l >> 2) % 2 == 0 for l in range(LANES)])[:, None]
+    """t * cos + rot * sin, rot = (-t2, t1, -t4, t3) over quarters of d / 4
+    columns: the partner of lane l is lane l ^ (d / 16) at the same j (lane
+    ^ 4 at d 64, lane ^ 8 at d 128), negated in quarters 1 and 3."""
+    d = t.shape[-1]
+    x = d // 16
+    lanes = t.reshape(*t.shape[:-1], d // 64, LANES, 4)
+    partner = lanes[..., [l ^ x for l in range(LANES)], :]
+    lower = torch.tensor([l & x == 0 for l in range(LANES)])[:, None]
     rot = torch.where(lower, -partner, partner).reshape(t.shape)
     return t * cos + rot * sin
 
@@ -157,13 +177,13 @@ def _qkv_acc(x, lw, lb, w, eps: float):
     return _product(_ln_prepass(x.reshape(B * N, C), lw, lb, eps), w)
 
 
-def _qkv(acc, x, b, heads: int, eps: float, norms=None, cos=None, sin=None):
+def _qkv(acc, x, b, heads: int, eps: float, norms=None, cos=None, sin=None, d: int = HD):
     """LN+QKV(+RoPE)'s epilogue on ``acc`` (:func:`_qkv_acc`): x (B, N, C) ->
-    q, k, v (B, Hl, N, 64) for the Hl = ``heads`` heads of the bias's 3 Hl
-    64 columns."""
+    q, k, v (B, Hl, N, d) for the Hl = ``heads`` heads of the bias's 3 Hl d
+    columns (Hl even at d 64: two heads a 128-column tile; one at d 128)."""
     B, N, C = x.shape
     M, nout = B * N, b.shape[0]
-    assert heads % 2 == 0 and nout == 3 * heads * HD
+    assert (heads % 2 == 0 or d == HD128) and nout == 3 * heads * d
     rows = torch.arange(acc.shape[0])
     n_of = torch.where(rows < M, rows % N, 0)  # rows past M read token 0's tables
 
@@ -172,29 +192,29 @@ def _qkv(acc, x, b, heads: int, eps: float, norms=None, cos=None, sin=None):
         if norms is None:
             return v
         n = n_of[m0:m0 + BM]
-        parts = list(v.split(heads * HD, dim=1))
+        parts = list(v.split(heads * d, dim=1))
         for pi, (nw, nb) in enumerate(norms):
-            hv = parts[pi].reshape(-1, heads, HD)
+            hv = parts[pi].reshape(-1, heads, d)
             hv = _head_norm(hv, nw, nb, eps)
-            parts[pi] = _rope(hv, cos[n][:, None], sin[n][:, None]).reshape(-1, heads * HD)
+            parts[pi] = _rope(hv, cos[n][:, None], sin[n][:, None]).reshape(-1, heads * d)
         return torch.cat(parts, dim=1)
 
     y = _tiles(acc, M, epilogue, nout)
-    q, k, v = y.reshape(B, N, 3, heads, HD).permute(2, 0, 3, 1, 4)
+    q, k, v = y.reshape(B, N, 3, heads, d).permute(2, 0, 3, 1, 4)
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
 def _gather_o(o):
     """The out-projection's A as the loader reads it: merged row m = (b, n),
-    column 16 kt + c at o's flat offset ((b H) N + n) 64 + (k0 // 64) N 64 +
-    k0 % 64 + c, k0 = 16 kt."""
+    column 16 kt + c at o's flat offset ((b H) N + n) d + (k0 // d) N d + k0
+    % d + c, k0 = 16 kt (a K step inside one head at d 64 and 128)."""
     B, H, N, d = o.shape
     m = torch.arange(B * N)
     b, n = m // N, m % N
     k = torch.arange(H * d)
     k0, c = (k // BK) * BK, k % BK
-    row_off = (b * H * N + n) * HD
-    off = row_off[:, None] + ((k0 // HD) * N * HD + k0 % HD + c)[None]
+    row_off = (b * H * N + n) * d
+    off = row_off[:, None] + ((k0 // d) * N * d + k0 % d + c)[None]
     return o.reshape(-1)[off]
 
 
@@ -299,39 +319,45 @@ def test_f32_zero_row_normalises_to_the_bias(mlp_cases):
         assert torch.isfinite(c["h"][ZERO_ROW]).all() and torch.isfinite(c["y"][ZERO_ROW]).all()
 
 
-QKV_CASES = {"1x200_vit_eps": (1, 200, 1e-6), "1x200_agg_eps": (1, 200, 1e-5),
-             "2x1374_agg_eps": (2, 1374, 1e-5)}
+# name -> (B, N, eps, C, head dim): at head dim 64 C = 256 (4 heads); at 128
+# 2 heads (C 256) and an odd head count, 3 heads (C 384)
+QKV_CASES = {"1x200_vit_eps": (1, 200, 1e-6, C, HD), "1x200_agg_eps": (1, 200, 1e-5, C, HD),
+             "2x1374_agg_eps": (2, 1374, 1e-5, C, HD),
+             "d128-1x200_vit_eps": (1, 200, 1e-6, C, HD128),
+             "d128-2x200_agg_eps": (2, 200, 1e-5, C, HD128),
+             "d128-3heads-1x200_agg_eps": (1, 200, 1e-5, 384, HD128)}
 
 
 @pytest.fixture(scope="module")
 def qkv_cases():
     out = {}
-    for name, (B, N, eps) in QKV_CASES.items():
-        rng = np.random.default_rng(B * N + int(eps * 1e7))
-        x = _f32(rng, B, N, C)
+    for name, (B, N, eps, Cq, d) in QKV_CASES.items():
+        heads = Cq // d
+        rng = np.random.default_rng(B * N + int(eps * 1e7) + (Cq if d == HD128 else 0))
+        x = _f32(rng, B, N, Cq)
         x[0, ZERO_ROW] = 0.0
-        (jx, tx), (jw, tw) = _pair(x), _pair(_f32(rng, C, 3 * C, scale=C**-0.5))
-        ang = rng.uniform(-np.pi, np.pi, size=(N, HD))
-        host = dict(lw=1 + _f32(rng, C, scale=0.1), lb=_f32(rng, C, scale=0.1),
-                    b=_f32(rng, 3 * C, scale=0.1), qw=1 + _f32(rng, HD, scale=0.1),
-                    qb=_f32(rng, HD, scale=0.1), kw=1 + _f32(rng, HD, scale=0.1),
-                    kb=_f32(rng, HD, scale=0.1), cos=np.cos(ang).astype(np.float32),
+        (jx, tx), (jw, tw) = _pair(x), _pair(_f32(rng, Cq, 3 * Cq, scale=Cq**-0.5))
+        ang = rng.uniform(-np.pi, np.pi, size=(N, d))
+        host = dict(lw=1 + _f32(rng, Cq, scale=0.1), lb=_f32(rng, Cq, scale=0.1),
+                    b=_f32(rng, 3 * Cq, scale=0.1), qw=1 + _f32(rng, d, scale=0.1),
+                    qb=_f32(rng, d, scale=0.1), kw=1 + _f32(rng, d, scale=0.1),
+                    kb=_f32(rng, d, scale=0.1), cos=np.cos(ang).astype(np.float32),
                     sin=np.sin(ang).astype(np.float32))
         t = {k: torch.from_numpy(v) for k, v in host.items()}
         j = {k: jnp.asarray(v) for k, v in host.items()}
         norms = ((t["qw"], t["qb"]), (t["kw"], t["kb"]))
         jrope = (jx, j["lw"], j["lb"], jw, j["b"], j["qw"], j["qb"], j["kw"], j["kb"], j["cos"],
-                 j["sin"], HEADS)
-        jplain = (jx, j["lw"], j["lb"], jw, j["b"], HEADS)
+                 j["sin"], heads)
+        jplain = (jx, j["lw"], j["lb"], jw, j["b"], heads)
         trope = (tx, t["lw"], t["lb"], tw, t["b"], t["qw"], t["qb"], t["kw"], t["kb"], t["cos"],
-                 t["sin"], HEADS, eps)
+                 t["sin"], heads, eps)
         acc = _qkv_acc(tx, t["lw"], t["lb"], tw, eps)
         out[name] = dict(
-            rope=dict(emulation=_qkv(acc, tx, t["b"], HEADS, eps, norms, t["cos"], t["sin"]),
+            rope=dict(emulation=_qkv(acc, tx, t["b"], heads, eps, norms, t["cos"], t["sin"], d),
                       plain=TFQ.fused_ln_qkv_rope_plain(*trope),
                       pallas=JFQ.fused_qkv_kernel(*jrope, eps=eps, block_n=128, interpret=True)),
-            plain=dict(emulation=_qkv(acc, tx, t["b"], HEADS, eps),
-                       plain=TFQ.fused_ln_qkv_plain(tx, t["lw"], t["lb"], tw, t["b"], HEADS, eps),
+            plain=dict(emulation=_qkv(acc, tx, t["b"], heads, eps, d=d),
+                       plain=TFQ.fused_ln_qkv_plain(tx, t["lw"], t["lb"], tw, t["b"], heads, eps),
                        pallas=JFQ.fused_qkv_plain_kernel(*jplain, eps=eps, block_n=128,
                                                          interpret=True)))
     return out
@@ -343,7 +369,7 @@ def qkv_cases():
 def test_qkv_f32_emulation_matches(qkv_cases, case, kernel, ref):
     """The emulated LN+QKV(+RoPE) against the port's plain version and the
     Pallas kernel in interpret mode in fp32, each of q, k and v within 2e-5
-    of its largest |value|; every output (B, H, N, 64) and finite at the zero
+    of its largest |value|; every output (B, H, N, d) and finite at the zero
     row."""
     c = qkv_cases[case][kernel]
     for label, g, r in zip("qkv", c["emulation"], c[ref]):
@@ -352,17 +378,19 @@ def test_qkv_f32_emulation_matches(qkv_cases, case, kernel, ref):
         _assert_close(g, r, f"LN+QKV {kernel} fp32 {case} {label} vs {ref}")
 
 
-PROJ_CASES = {"3x200_2heads": (3, 2, 200), "1x600_4heads": (1, 4, 600)}
+# name -> (B, H, N, head dim)
+PROJ_CASES = {"3x200_2heads": (3, 2, 200, HD), "1x600_4heads": (1, 4, 600, HD),
+              "d128-3x200_2heads": (3, 2, 200, HD128), "d128-1x300_3heads": (1, 3, 300, HD128)}
 
 
 @pytest.fixture(scope="module")
 def proj_cases():
     out = {}
-    for name, (B, H, N) in PROJ_CASES.items():
-        Cp = H * HD
-        rng = np.random.default_rng(B * 1000 + N)
+    for name, (B, H, N, d) in PROJ_CASES.items():
+        Cp = H * d
+        rng = np.random.default_rng(B * 1000 + N + (d if d == HD128 else 0))
         (jo, to), (jx, tx), (jw, tw) = (_pair(a) for a in (
-            _f32(rng, B, H, N, HD), _f32(rng, B, N, Cp), _f32(rng, Cp, Cp, scale=Cp**-0.5)))
+            _f32(rng, B, H, N, d), _f32(rng, B, N, Cp), _f32(rng, Cp, Cp, scale=Cp**-0.5)))
         b, gm = _f32(rng, Cp, scale=0.1), _f32(rng, Cp)
         tb, tg = torch.from_numpy(b), torch.from_numpy(gm)
         jargs = (jo, jx, jw, jnp.asarray(b), jnp.asarray(gm))
@@ -404,11 +432,12 @@ def _c_params(entry: str) -> list:
 
 
 def test_f32_source_entries_and_signatures():
-    """The five entries, the pre-pass alone and the info entry are in the
-    source and in ``_kernels._SIGNATURES`` with one argtype a parameter
-    (pointers and the stream ``c_void_p``, ints ``c_int``, eps ``c_float``),
-    and take the arguments of their bf16 forms."""
-    for entry in ENTRIES + ("sfm_ln_rows_f32", "sfm_gemm_f32_info"):
+    """The five entries, the head dim 128 forms of the first three, the
+    pre-pass alone and the info entry are in the source and in
+    ``_kernels._SIGNATURES`` with one argtype a parameter (pointers and the
+    stream ``c_void_p``, ints ``c_int``, eps ``c_float``), and take the
+    arguments of their bf16 forms (``sfm_*_d128_sm90`` at head dim 128)."""
+    for entry in ENTRIES + D128_ENTRIES + ("sfm_ln_rows_f32", "sfm_gemm_f32_info"):
         params = _c_params(entry)
         sig = TK._SIGNATURES[entry]
         assert len(sig) == len(params), entry
@@ -421,16 +450,37 @@ def test_f32_source_entries_and_signatures():
     for kernel in ("ln_qkv_rope_f32_kernel", "ln_qkv_f32_kernel", "proj_residual_f32_kernel",
                    "mlp_up_f32_kernel", "mlp_down_f32_kernel"):
         assert f"SFM_GEMM_F32_KERNEL({kernel}, " in SOURCE
+    for kernel, ep in (("ln_qkv_rope", "E_QKV_ROPE"), ("ln_qkv", "E_QKV"),
+                       ("proj_residual", "E_PROJ")):
+        assert f"SFM_GEMM_F32_KERNEL_HD({kernel}_d128_f32_kernel, {ep}, HD128)" in SOURCE
+        assert f"case D128 + {ep}: return {kernel}_d128_f32_kernel;" in SOURCE
     assert "__global__ void __launch_bounds__(LN_ROWS * 32)\nln_rows_f32_kernel(" in SOURCE
 
 
 def test_f32_constants_and_thread_layout():
     """The tile the emulation assumes: 128 x 128 tiles of 256 threads, an 8 x
     8 register tile each (rows 8 ty + i, columns 4 tx + e and 64 + 4 tx + e),
-    so that a head's 64 values of a row lie in the 16 lanes of a half-warp;
-    K steps of 16 through the stages' cp.async copies (A rows tid / 4 and
-    tid / 4 + 64, W rows tid / 32 and tid / 32 + 8: each stage's floats once)."""
+    so that a head's 64 values of a row lie in the 16 lanes of a half-warp,
+    and at head dim 128 the tile's one head's 128 values of a row too (8 a
+    lane: RoPE's partner 32 columns away, 8 lanes); K steps of 16 through the
+    stages' cp.async copies (A rows tid / 4 and tid / 4 + 64, W rows tid /
+    32 and tid / 32 + 8: each stage's floats once). The head dims are the
+    body's template arguments, and the wrappers' table holds the same."""
     assert (BM, BN, BK, NTHREADS, TM) == (128, 128, 16, 256, 8)
+    assert (HD, HD128) == (64, 128) and TFQ.HEAD_DIMS == (HD, HD128)
+    assert BN // HD == 2 and BN // HD128 == 1  # heads a column tile
+    for line in ("template <int EP, int HD>\n__device__ __forceinline__ void gemm(",
+                 "constexpr int which = (HD == HD128 ? D128 : 0) + EP;",
+                 "if constexpr (HD == HD128 && (EP == E_QKV_ROPE || EP == E_QKV)) {",
+                 "store_qkv_d128<EP>(p, val, m0 + ty * TM + i, n0, tx);",
+                 "half_warp_sum(__fadd_rn(sum4(val, 0), sum4(val, 4))) / "
+                 "static_cast<float>(HD128);",
+                 "const float partner = __shfl_xor_sync(0xffffffffu, val[4 * j + e], 8);",
+                 "const bool lower = ((tx >> 3) & 1) == 0;",
+                 "*reinterpret_cast<float4*>(dst + 64) = "
+                 "make_float4(val[4], val[5], val[6], val[7]);",
+                 "heads % (BN / HD) || dim <= 0)"):
+        assert line in SOURCE, line
     assert NTHREADS == (BM // TM) * (BN // 8) and LANES == 16
     assert "constexpr int SMEM_BYTES = STAGES * (A_TILE + B_TILE) * 4;" in SOURCE
     assert STAGES * (BM * BK + BK * BN) * 4 <= 48 * 1024 * 2
@@ -549,10 +599,10 @@ def test_mixed_dtypes_raise(launches, x_dtype, w_dtype):
     assert launches == []
 
 
-@pytest.mark.parametrize("C,heads", [(1024, 8), (1024, 32), (320, 5)])
+@pytest.mark.parametrize("C,heads", [(1024, 4), (1024, 32), (320, 5)])
 def test_f32_on_meets_the_refusal_of_widths(launches, C, heads):
     """fp32 "on" at a width the kernels refuse raises, as bf16 "on" does:
-    head dim 128 (a bf16 form only), 32, an odd head count of 64."""
+    head dim 256, 32, an odd head count of 64."""
     with pytest.raises(ValueError, match="head dim 64|even head count"):
         _block(C, heads, "frame", "on", torch.float32)()
     assert launches == []
@@ -584,6 +634,60 @@ def test_head_shard_reaches_the_f32_entries(launches, rope):
                   "k_norm": {"scale": _meta(HD), "bias": _meta(HD)}}}
     TB.qkv_parts(p, x, cfg, (_meta(N, HD), _meta(N, HD)) if rope else None)
     assert launches[-1][0] == name and launches[-1][1][-6:-2] == (2, N, C, hl)
+
+
+D128_F32 = ["sfm_ln_qkv_rope_d128_f32", "sfm_flash_fwd_d128_f32", "sfm_proj_residual_d128_f32",
+            "sfm_mlp_up_f32", "sfm_mlp_down_f32"]
+
+
+@pytest.mark.parametrize("form", ["frame", "vit"])
+@pytest.mark.parametrize("mode,want", [("on", D128_F32), ("auto", ["sfm_flash_fwd_d128_f32"])])
+def test_f32_d128_block_routes(launches, form, mode, want):
+    """The fp32 model of 8 heads of 128 at C 1024: "on" takes the head dim
+    128 forms of LN+QKV(+RoPE) and the out-projection (the ViT block
+    LN+QKV's) beside K1's and the MLP pair's fp32 entries; "auto" takes no
+    fused block (the unfused chain, as JAX's), K1 alone."""
+    out = _block(1024, 8, form, mode, torch.float32)()
+    if form == "vit":
+        want = [n.replace("ln_qkv_rope", "ln_qkv") for n in want]
+    assert [name for name, _ in launches] == want
+    assert out.shape == (2, N, 1024) and out.dtype == torch.float32
+
+
+def test_f32_d128_launches_count_apart(launches):
+    """An fp32 launch at head dim 128 counts in ``.launches_d128_f32`` and in
+    no other counter of its wrapper."""
+    wrappers = (TFQ.fused_ln_qkv_rope_fwd, TFQ.fused_ln_qkv_fwd, TFQ.fused_proj_residual_fwd)
+    attrs = ("launches", "launches_f32", "launches_d128", "launches_d128_f32")
+
+    def counts():
+        return [tuple(getattr(w, a) for a in attrs) for w in wrappers]
+
+    before = counts()
+    _block(1024, 8, "frame", "on", torch.float32)()
+    _block(1024, 8, "vit", "on", torch.float32)()
+    want = [(a, b, c, d + n) for (a, b, c, d), n in zip(before, (1, 1, 2))]
+    assert counts() == want
+
+
+@pytest.mark.parametrize("rope", [True, False])
+def test_head_shard_reaches_the_f32_d128_entries(launches, rope):
+    """One rank's head shard at head dim 128, the (1024, 3 Hl 128) weight at
+    Hl = 4 of 8: the fp32 wrappers launch the head dim 128 entry with Hl
+    heads; q, k, v are (B, Hl, N, 128)."""
+    C, hl, d = 1024, 4, HD128
+    nout = 3 * hl * d
+    x, w = _meta(2, N, C), _meta(C, nout)
+    if rope:
+        out = TFQ.fused_ln_qkv_rope_fwd(x, _meta(C), _meta(C), w, _meta(nout), _meta(d),
+                                        _meta(d), _meta(d), _meta(d), _meta(N, d),
+                                        _meta(N, d), hl)
+    else:
+        out = TFQ.fused_ln_qkv_fwd(x, _meta(C), _meta(C), w, _meta(nout), hl)
+    (name, args), = launches
+    assert name == ("sfm_ln_qkv_rope_d128_f32" if rope else "sfm_ln_qkv_d128_f32")
+    assert args[-6:-2] == (2, N, C, hl)
+    assert all(t.shape == (2, hl, N, d) and t.dtype == torch.float32 for t in out)
 
 
 def test_f32_wrappers_on_cpu_are_the_plain_versions():

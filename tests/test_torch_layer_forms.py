@@ -170,9 +170,9 @@ def test_auto_routes_widths_the_fused_kernels_do_not_take_plain(launches, C, hea
 
 
 # widths LN+QKV(+RoPE) refuses: head dim 32 and 96, an odd head count of
-# 64; in fp32 also head dim 128, which has a bf16 form only
+# 64; in fp32 also head dim 256 (either dtype's forms are 64 and 128)
 REFUSED = [(1024, 32), (320, 5), (384, 4)]
-REFUSED_F32 = [(1024, 8), (320, 5), (384, 4)]
+REFUSED_F32 = [(1024, 4), (320, 5), (384, 4)]
 
 
 @pytest.mark.parametrize("C,heads,dtype", [
